@@ -1,0 +1,221 @@
+"""Encoder-decoder generative retrieval model + constrained beam search
+(counterpart of hidvae_tpu/models/retrieval.py), eval mode.
+
+The user embedding is prepended to the semantic-ID history with learned
+absolute positions; the target side is a learned BOS + target-digit
+embeddings + token-type embeddings. Beam search keeps fixed [B*k] shapes from
+step 0 (beam 0 starts at log-prob 0, the rest at -1e9), runs the encoder once,
+and narrows each beam's corpus row range by binary search. Invalid digits get
+the -10000 penalty of the reference.
+"""
+
+import warnings
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
+from hidvae_tpu_torch.models.embedder import SemIdEmbedder, UserIdEmbedder
+from hidvae_tpu_torch.models.layers import RMSNorm
+from hidvae_tpu_torch.models.transformer import TransformerEncoderDecoder
+from hidvae_tpu_torch.ops.prefix_search import (
+    first_digit_mask,
+    narrow_range,
+    trie_digit_mask,
+    valid_digit_mask,
+)
+
+BEAMS = 32
+NEG_LARGE = -1.0e9
+INVALID_PENALTY = -10000.0
+
+
+@dataclass
+class ModelOutput:
+    loss: Optional[torch.Tensor]
+    logits: torch.Tensor
+    loss_d: Optional[torch.Tensor]
+
+
+@dataclass
+class GenerationOutput:
+    sem_ids: torch.Tensor     # [B, k, D]
+    log_probas: torch.Tensor  # [B, k]
+
+
+def top_k_first_index(scores, k: int):
+    """Top k along the last axis, descending; among equal scores the lower
+    index comes first (the tie order of jax.lax.top_k)."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(scores, -1, order), order
+
+
+class EncoderDecoderRetrievalModel(nn.Module):
+    """Stage-2 retrieval model."""
+
+    def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int, n_layers: int,
+                 num_embeddings: int, sem_id_dim: int, max_pos: int = 2048,
+                 n_sem_layers: int = 3, use_interleaved_ids: bool = False):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.num_embeddings = num_embeddings
+        self.sem_id_dim = sem_id_dim
+        self.bos_emb = nn.Parameter(torch.rand(embedding_dim))
+        self.norm = RMSNorm(embedding_dim)
+        self.norm_cxt = RMSNorm(embedding_dim)
+        self.sem_id_embedder = SemIdEmbedder(
+            num_embeddings, sem_id_dim, embedding_dim, n_sem_layers=n_sem_layers,
+            use_interleaved_ids=use_interleaved_ids,
+        )
+        self.user_id_embedder = UserIdEmbedder(2000, embedding_dim)
+        self.wpe = nn.Embedding(max_pos, embedding_dim)
+        self.tte = nn.Embedding(sem_id_dim, embedding_dim)
+        self.transformer = TransformerEncoderDecoder(
+            attn_dim, num_heads, encoder_layers=n_layers // 2, decoder_layers=n_layers // 2)
+        self.in_proj = nn.Linear(embedding_dim, attn_dim, bias=False)
+        self.in_proj_context = nn.Linear(embedding_dim, attn_dim, bias=False)
+        self.out_proj = nn.Linear(attn_dim, num_embeddings, bias=False)
+
+    # ---- context (history) path ----
+
+    def _context_embedding(self, batch: TokenizedSeqBatch):
+        user_emb = self.user_id_embedder(batch.user_ids)              # [B, E]
+        seq_emb = self.sem_id_embedder(batch.sem_ids, batch.token_type_ids,
+                                       batch.seq_mask)                # [B, T, E]
+        b, t, _ = seq_emb.shape
+        wpe = self.wpe(torch.arange(t, device=seq_emb.device))[None]
+        ctx = torch.cat([user_emb[:, None, :], wpe + seq_emb], dim=1)
+        ctx_mask = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=ctx.device),
+                              batch.seq_mask], dim=1)
+        return self.in_proj_context(self.norm(ctx)), ctx_mask
+
+    def encode_context(self, batch: TokenizedSeqBatch):
+        """Run the encoder once over the history; beams reuse it."""
+        ctx, ctx_mask = self._context_embedding(batch)
+        return self.transformer.encode(ctx, padding_mask=ctx_mask), ctx_mask
+
+    # ---- target (future digits) path ----
+
+    def _fut_embedding(self, sem_ids_fut, token_type_ids_fut):
+        b = sem_ids_fut.shape[0]
+        fut_emb = self.sem_id_embedder(sem_ids_fut, token_type_ids_fut)
+        tte = self.tte(token_type_ids_fut.long())
+        bos = self.bos_emb.expand(b, 1, self.embedding_dim)
+        x = torch.cat([bos, fut_emb + tte], dim=1)                    # [B, Df+1, E]
+        return self.in_proj(self.norm_cxt(x))
+
+    def decode_logits(self, enc, ctx_mask, sem_ids_fut, token_type_ids_fut,
+                      last_only: bool = False):
+        """Causal decoder over BOS + target digits -> [B, Df+1, K] logits.
+        enc / ctx_mask may hold B rows while sem_ids_fut holds B*g beam rows."""
+        x = self._fut_embedding(sem_ids_fut, token_type_ids_fut)
+        dec = self.transformer.decode(x, enc, context_padding_mask=ctx_mask)
+        if last_only:
+            dec = dec[:, -1:, :]
+        return self.out_proj(dec)
+
+    # ---- eval forward ----
+
+    def forward(self, batch: TokenizedSeqBatch) -> ModelOutput:
+        """Per-digit cross-entropy against sem_ids_fut; out-of-range targets
+        are ignored. Per-sample sum, then batch mean."""
+        enc, ctx_mask = self.encode_context(batch)
+        logits_all = self.decode_logits(enc, ctx_mask, batch.sem_ids_fut,
+                                        batch.token_type_ids_fut)
+        logits = logits_all[:, :-1, :].float()
+        target = batch.sem_ids_fut.long()
+        ignore = (target < 0) | (target >= self.num_embeddings)
+        valid_target = torch.where(ignore, torch.zeros_like(target), target)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        token_loss = -torch.gather(log_probs, -1, valid_target[..., None])[..., 0]
+        token_loss = torch.where(ignore, torch.zeros_like(token_loss), token_loss)
+        return ModelOutput(loss=token_loss.sum(1).mean(), logits=logits_all,
+                           loss_d=token_loss.mean(0))
+
+    # ---- constrained beam generation ----
+
+    def generate_next_sem_id(
+        self,
+        batch: TokenizedSeqBatch,
+        prefix_index=None,
+        *,
+        temperature: float = 1.0,
+        prefix_caps=None,
+        prefix_tries=None,
+    ) -> GenerationOutput:
+        """Prefix-constrained 32-beam search over sem_id_dim digits with fixed
+        shapes. prefix_index: the sorted corpus table (None disables the
+        constraint). prefix_tries: {level: (starts, bitmaps)} tensors; levels
+        without a trie use the [Q, cap] range gather with `prefix_caps`, or a
+        heuristic cap (with a warning) when no caps are given. The JAX
+        model's single-beam and Gumbel-sampling variants are not ported."""
+        b = batch.sem_ids.shape[0]
+        d = self.sem_id_dim
+        k = BEAMS
+        kk = self.num_embeddings
+        dev = batch.sem_ids.device
+
+        enc, ctx_mask = self.encode_context(batch)
+        ttids = torch.arange(d, dtype=torch.int32, device=dev).repeat(b * k, 1)
+        generated = torch.zeros((b, k, d), dtype=torch.int32, device=dev)
+        log_probs = torch.full((b, k), NEG_LARGE, device=dev)
+        log_probs[:, 0] = 0.0
+
+        if prefix_index is not None:
+            n_corpus = prefix_index.shape[0]
+            lo = torch.zeros((b, k), dtype=torch.int32, device=dev)
+            hi = torch.full((b, k), n_corpus, dtype=torch.int32, device=dev)
+            step0_mask = first_digit_mask(prefix_index, kk)
+
+        for i in range(d):
+            # Causal: only digits < i feed step i, so the decoder sees i + 1 tokens.
+            dec_in = generated.reshape(b * k, d)[:, :i]
+            logits_last = self.decode_logits(enc, ctx_mask, dec_in, ttids[:, :i],
+                                             last_only=True)
+            step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
+
+            if prefix_index is not None:
+                if i == 0:
+                    valid = step0_mask[None, :].expand(b * k, kk)
+                elif prefix_tries is not None and prefix_tries.get(i) is not None:
+                    starts_i, bitmaps_i = prefix_tries[i]
+                    valid = trie_digit_mask(starts_i, bitmaps_i, lo.reshape(-1), hi.reshape(-1))
+                    if bitmaps_i.shape[1] < kk:  # narrower stored vocab
+                        valid = nn.functional.pad(valid, (0, kk - bitmaps_i.shape[1]))
+                else:
+                    if prefix_caps is not None:
+                        cap = int(prefix_caps[i - 1])
+                    else:
+                        # Heuristic only: a prefix with more than `cap` rows
+                        # silently loses valid continuations.
+                        cap = max(256, 4 * (n_corpus // max(kk ** i, 1)))
+                        warnings.warn(
+                            "generate_next_sem_id called without prefix_caps; "
+                            f"using heuristic cap {cap} at digit {i} — pass "
+                            "tokenizer.prefix_caps for exact constrained decoding",
+                            stacklevel=2,
+                        )
+                    cap = min(max(cap, 8), n_corpus)
+                    valid = valid_digit_mask(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                             i, kk, cap)
+                step_logp = step_logp + INVALID_PENALTY * (~valid)
+
+            scores = (step_logp + log_probs.reshape(b * k, 1)).reshape(b, k * kk)
+            top_scores, top_idx = top_k_first_index(scores, k)
+            parent = torch.div(top_idx, kk, rounding_mode="floor")
+            digits = (top_idx % kk).to(torch.int32)
+
+            generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
+            generated[:, :, i] = digits
+            log_probs = top_scores
+
+            if prefix_index is not None:
+                lo = torch.gather(lo, 1, parent)
+                hi = torch.gather(hi, 1, parent)
+                new_lo, new_hi = narrow_range(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                              i, digits.reshape(-1))
+                lo, hi = new_lo.reshape(b, k), new_hi.reshape(b, k)
+
+        return GenerationOutput(sem_ids=generated, log_probas=log_probs)

@@ -1,0 +1,81 @@
+"""Chunked corpus sweep (counterpart of hidvae_tpu/tokenizer/sweep.py).
+
+Host features are uploaded chunk by chunk from pinned memory on a side CUDA
+stream, so chunk k+1's copy overlaps chunk k's encode and at most two chunks
+of features are on the card at a time. Features already on the device are
+sliced in place. In eager PyTorch no chunk needs padding to a fixed shape.
+"""
+
+import hashlib
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def features_fingerprint(item_features) -> str:
+    """Content fingerprint of a feature matrix: shape + up to 64 evenly
+    spaced rows, SHA-1 hashed. Ties a corpus-ID table to the features it was
+    swept from (serve/engine.py). The same bytes give the same digest as the
+    JAX package's function."""
+    n = int(item_features.shape[0])
+    take = min(n, 64)
+    if take:
+        idx = np.linspace(0, n - 1, take).astype(np.int64)
+        if isinstance(item_features, torch.Tensor):
+            rows = item_features[torch.from_numpy(idx).to(item_features.device)]
+            rows = rows.detach().to("cpu", torch.float32).numpy()
+        else:
+            rows = np.asarray(item_features[idx], np.float32)
+    else:
+        rows = np.zeros((0,), np.float32)
+    h = hashlib.sha1()
+    h.update(repr(tuple(int(s) for s in item_features.shape)).encode())
+    h.update(np.ascontiguousarray(rows).tobytes())
+    return h.hexdigest()
+
+
+def sweep_corpus(
+    encode_block: Callable[[torch.Tensor], torch.Tensor],
+    item_features,
+    chunk_size: int,
+    device: torch.device,
+) -> torch.Tensor:
+    """Run `encode_block` over `item_features` [N, F] in chunks of
+    `chunk_size` rows on `device`; returns the concatenated [N, ...] output.
+
+    item_features: host numpy / CPU tensor (staged to a card), or a tensor
+    already on `device` (sliced in place)."""
+    n = int(item_features.shape[0])
+    chunk = min(chunk_size, n)
+    if isinstance(item_features, torch.Tensor):
+        feats = item_features.float()
+    else:
+        feats = torch.from_numpy(np.ascontiguousarray(item_features, np.float32))
+    starts = range(0, n, chunk)
+    if feats.device == device or device.type != "cuda":
+        return torch.cat([encode_block(feats[s:s + chunk].to(device)) for s in starts])
+
+    main = torch.cuda.current_stream(device)
+    copy_stream = torch.cuda.Stream(device)
+
+    def stage(start):
+        # The pinned staging buffer must outlive its asynchronous copy: it is
+        # kept beside the device block until that block has been consumed.
+        host = feats[start:start + chunk].pin_memory()
+        with torch.cuda.stream(copy_stream):
+            block = host.to(device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        return block, ready, host
+
+    out = []
+    pending = stage(starts[0])
+    for i in range(len(starts)):
+        block, ready, _host = pending
+        if i + 1 < len(starts):
+            pending = stage(starts[i + 1])  # upload the next chunk meanwhile
+        main.wait_event(ready)
+        block.record_stream(main)
+        out.append(encode_block(block))
+    return torch.cat(out)

@@ -1,0 +1,115 @@
+"""Shared helpers of the port's parity tests: flax variables flattened to
+numpy, as the bridge takes them, and the JAX/torch model pairs built from
+the same weights at small widths."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from flax import traverse_util
+
+from hidvae_tpu_torch.bridge import load_flax_weights
+
+
+def flat(tree):
+    """A flax variable tree -> {"a/b/kernel": np.ndarray}."""
+    return {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(tree, sep="/").items()}
+
+
+def unflat(d):
+    return traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in d.items()}, sep="/")
+
+
+def japply(module, variables, method, *args):
+    """module.apply(variables, *args, method=method) under one jax.jit: one
+    compile of the whole graph instead of one per eager op."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, method=method))(variables, *args)
+
+
+def random_variables(module, init_args, init_kwargs=None, seed=0):
+    """Flat numpy variables {collection: {path: array}} for a flax module,
+    shaped by jax.eval_shape of its init and drawn from `seed` by leaf kind:
+    no flax init is compiled, and no parameter keeps a trivial value.
+    Dense kernels N(0, 1/fan_in); biases, LayerNorm/BatchNorm shifts small
+    normals; scales 1 + small normals; embeddings, codebooks and BOS normal;
+    BatchNorm means normal and variances in [0.5, 2)."""
+    rngs = {name: jax.random.key(i) for i, name in
+            enumerate(("params", "gumbel", "dropout", "mixup"))}
+    shapes = jax.eval_shape(
+        lambda r: module.init(r, *init_args, **(init_kwargs or {})), rngs)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for coll, tree in shapes.items():
+        leaves = traverse_util.flatten_dict(tree, sep="/")
+        arrays = {}
+        for path, leaf in sorted(leaves.items()):
+            shape, name = leaf.shape, path.split("/")[-1]
+            if name == "kernel":
+                v = rng.randn(*shape) / np.sqrt(shape[0])
+            elif name in ("bias", "mean"):
+                v = 0.3 * rng.randn(*shape)
+            elif name in ("scale", "weight"):
+                v = 1.0 + 0.1 * rng.randn(*shape)
+            elif name == "var":
+                v = rng.uniform(0.5, 2.0, shape)
+            else:  # embedding tables, codebooks, bos_emb
+                v = 0.5 * rng.randn(*shape)
+            arrays[path] = v.astype(np.float32)
+        out[coll] = arrays
+    return out
+
+
+def hrqvae_pair(*, input_dim=32, embed_dim=8, hidden_dims=(16,), codebook_size=16,
+                n_layers=3, tag_class_counts=(4, 6, 8), tag_embed_dim=12,
+                codebook_normalize=True, sim_vq=False, seed=0):
+    """(JAX HRqVae, its variables, torch HRqVae with the same weights)."""
+    from hidvae_tpu.models.hrqvae import HRqVae as JHRqVae
+    from hidvae_tpu.models.quantize import QuantizeForwardMode
+
+    from hidvae_tpu_torch.models.hrqvae import HRqVae
+
+    kw = dict(input_dim=input_dim, embed_dim=embed_dim, hidden_dims=hidden_dims,
+              codebook_size=codebook_size, n_layers=n_layers, n_cat_features=0,
+              tag_class_counts=tag_class_counts, tag_embed_dim=tag_embed_dim,
+              codebook_normalize=codebook_normalize, codebook_sim_vq=sim_vq)
+    jm = JHRqVae(**kw, codebook_mode=QuantizeForwardMode.STE)
+    flat_vars = random_variables(
+        jm, (jnp.zeros((4, input_dim)), jnp.zeros((4, n_layers, tag_embed_dim)),
+             jnp.zeros((4, n_layers), jnp.int32), 0.2), {"train": False}, seed)
+    params, stats = flat_vars["params"], flat_vars["batch_stats"]
+    jvars = {"params": unflat(params), "batch_stats": unflat(stats)}
+    tm = HRqVae(input_dim, embed_dim, hidden_dims, codebook_size,
+                codebook_normalize=codebook_normalize, codebook_sim_vq=sim_vq,
+                n_layers=n_layers, tag_class_counts=tag_class_counts,
+                tag_embed_dim=tag_embed_dim)
+    load_flax_weights(tm, params, stats)
+    return jm, jvars, tm.eval()
+
+
+def retrieval_pair(*, embedding_dim=16, attn_dim=32, num_heads=4, n_layers=2,
+                   num_embeddings=16, sem_id_dim=3, max_pos=64, n_sem_layers=3,
+                   use_interleaved_ids=False, seed=0):
+    """(JAX EncoderDecoderRetrievalModel, its params, torch model with the
+    same weights)."""
+    from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
+    from hidvae_tpu.models.retrieval import EncoderDecoderRetrievalModel as JModel
+
+    from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+
+    jm = JModel(embedding_dim=embedding_dim, attn_dim=attn_dim, dropout=0.1,
+                num_heads=num_heads, n_layers=n_layers, num_embeddings=num_embeddings,
+                sem_id_dim=sem_id_dim, max_pos=max_pos, n_sem_layers=n_sem_layers,
+                use_interleaved_ids=use_interleaved_ids)
+    d, n = sem_id_dim, 2
+    example = JBatch(
+        user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, n * d), jnp.int32),
+        sem_ids_fut=jnp.zeros((2, d), jnp.int32), seq_mask=jnp.ones((2, n * d), bool),
+        token_type_ids=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, n)),
+        token_type_ids_fut=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 1)),
+    )
+    params = random_variables(jm, (example, False), seed=seed)["params"]
+    tm = EncoderDecoderRetrievalModel(
+        embedding_dim, attn_dim, num_heads, n_layers, num_embeddings, sem_id_dim,
+        max_pos=max_pos, n_sem_layers=n_sem_layers, use_interleaved_ids=use_interleaved_ids)
+    load_flax_weights(tm, params)
+    return jm, unflat(params), tm.eval()

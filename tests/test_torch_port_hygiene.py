@@ -1,0 +1,76 @@
+"""The port stands alone: with JAX, flax, orbax, optax and the JAX package
+refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
+import and a small engine serves on the CPU. And the port's sources are
+small text files."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "hidvae_tpu_torch"
+SKIP_DIRS = {"__pycache__", "_build"}  # interpreter caches and kernel builds
+
+HYGIENE_SCRIPT = textwrap.dedent('''
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = {"jax", "jaxlib", "flax", "orbax", "optax", "hidvae_tpu"}
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"the port must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import hidvae_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(hidvae_tpu_torch.__path__, "hidvae_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+
+    tiny = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16,
+                n_layers=3, codebook_normalize=True, tag_class_counts=(4, 6, 20),
+                tag_embed_dim=12, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=4,
+                attn_layers=2, max_seq_len=6, n_items=300)
+    engine, _ = chip_smoke.build_engine(tiny, "cpu", batch_buckets=(8,))
+    hist = chip_smoke.seeded_histories(tiny["n_items"], 8, tiny["max_seq_len"])
+    out = engine.recommend(hist, top_k=5)
+    resolved = chip_smoke.check_recommendations(engine, out, tiny["n_items"])
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("modules", len(names), "resolved", resolved)
+''')
+
+
+def test_port_imports_and_serves_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", HYGIENE_SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[1])
+    assert n_modules >= 20
+    assert int(res.stdout.split()[3]) > 0
+
+
+def _port_sources():
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tests").glob("test_torch_*.py"))]
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames[:] = [d for d in dirnames if d not in SKIP_DIRS]
+        files += [Path(dirpath) / f for f in filenames]
+    return files
+
+
+def test_port_sources_are_small_text():
+    files = _port_sources()
+    assert len(files) > 25
+    total = 0
+    for path in files:
+        data = path.read_bytes()
+        assert b"\0" not in data, f"{path} is not text"
+        data.decode("utf-8")
+        assert len(data) < 200 * 1024, f"{path} is {len(data)} bytes"
+        total += len(data)
+    assert total < 1024 * 1024, f"the port's sources come to {total} bytes"
