@@ -2,15 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version at the shapes the serving path gives it,
-then builds a RetrievalEngine at the Amazon widths of configs/h_rqvae_amazon.gin
-and configs/decoder_amazon.gin (random weights from a seed, 18,357 seeded
-768-d items: the size of the P5 Sports split), serves one batch and checks
-the answer. Every phase prints its start and end; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device. Imports
-nothing of JAX or of the JAX package, and reads no file but the port's
-sources.
+Builds the port's CUDA kernels (rq_assign, flash attention) from the sources
+in this checkout, all builds started together, and holds each against its
+plain PyTorch version at the shapes the port's paths give it. Then drives
+two paths at the Amazon widths of configs/h_rqvae_amazon.gin and
+configs/decoder_amazon.gin (random weights from a seed, 18,357 seeded 768-d
+items: the size of the P5 Sports split):
+  * serve: a RetrievalEngine answers one batch of 32 histories;
+  * train: the stage-2 trainer runs a short-history run (20 items, the dense
+    attention path) and a long-history run (400 items, 2,401 tokens: the
+    flash kernels, forward and backward), and a few steps on one fixed
+    batch must lower its loss.
+Each path's kernel launch counts are set to 0 just before it and read just
+after. Every phase prints its start and end; the line before the last is the
+kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
+without a CUDA device. Imports nothing of JAX or of the JAX package, and
+reads no file but the port's sources.
 """
 
 import json
@@ -18,16 +25,21 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from hidvae_tpu_torch.models.hrqvae import HRqVae
+from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.ops import flash_attention as fa
 from hidvae_tpu_torch.ops import rq_assign as rq
 from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
+from hidvae_tpu_torch.train import transformer as trainer
+from hidvae_tpu_torch.train.device_data import tokenize_on_device
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SEED = 0
@@ -50,7 +62,14 @@ KERNEL_CASES = (  # (B, D, L, K)
 TIMED_CASE = (1048576, 32, 3, 256)
 TIE_RTOL = 1e-5
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
+# Flash kernels against the plain version run in fp32 on the same inputs:
+# largest error over max |plain|. fp32: the kernels sum up to N = 2,432 terms
+# in another order than cuBLAS (expected error ~sqrt(N) * 2^-24 of the sum of
+# magnitudes, well under 1e-5 of the largest value). bf16: the kernels
+# compute in fp32 and round each output once to bf16 (2^-9 relative).
+FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
+H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -135,10 +154,10 @@ def seed_codebooks_(vae, feats, generator):
             enc = enc - q(enc).embeddings
 
 
-def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
-    """RetrievalEngine with seeded random weights and a seeded corpus.
-    Returns (engine, item features as numpy)."""
-    g = torch.Generator().manual_seed(seed)
+def build_vae(cfg, generator):
+    """The frozen stage-1 HiD-VAE with seeded weights and codebooks, and the
+    seeded unit-norm item features it indexes (a CPU tensor)."""
+    g = generator
     feats = torch.randn(cfg["n_items"], cfg["input_dim"], generator=g)
     feats = feats / feats.norm(dim=-1, keepdim=True)  # text embeddings are unit-norm
     vae = init_params_(HRqVae(
@@ -148,6 +167,14 @@ def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
         tag_embed_dim=cfg["tag_embed_dim"],
     ), g).eval()
     seed_codebooks_(vae, feats[: 16 * cfg["codebook_size"]], g)
+    return vae, feats
+
+
+def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
+    """RetrievalEngine with seeded random weights and a seeded corpus.
+    Returns (engine, item features as numpy)."""
+    g = torch.Generator().manual_seed(seed)
+    vae, feats = build_vae(cfg, g)
     tok = HSemanticIdTokenizer(
         vae, n_layers=cfg["n_layers"], codebook_size=cfg["codebook_size"],
         tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, device=device,
@@ -212,11 +239,17 @@ def card_phase():
 
 @phase("build")
 def build_phase():
-    built = rq.build()
-    print(f"rq_assign built in {built.build_s:.2f} s -> {built.path.name}", flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    """Build every kernel source at once (one nvcc each) and print each
+    build's time and ptxas register and spill lines."""
+    modules = (("rq_assign", rq), ("flash_attention", fa))
+    with ThreadPoolExecutor(len(modules)) as pool:
+        futures = [(name, pool.submit(mod.build)) for name, mod in modules]
+        built = [(name, f.result()) for name, f in futures]
+    for name, lib in built:
+        print(f"{name} built in {lib.build_s:.2f} s -> {lib.path.name}", flush=True)
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     return built
 
 
@@ -313,12 +346,285 @@ def serve_phase(device):
     return launches, p50
 
 
+# ---- flash attention -----------------------------------------------------
+
+# One encoder layer of the long-history run: B 64, 8 heads of 64, 2,401
+# tokens padded to 2,432.
+FLASH_TIMED = dict(b=64, h=8, n=2432)
+FLASH_CHECK_B = 4       # small enough for the plain backward at full length
+FLASH_PLAIN_CHUNK = 16  # the plain version is timed over the batch in chunks of 16
+FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py
+    "flash_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
+    "flash_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+    "flash_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+}
+
+
+def flash_inputs(b, h, n, dtype, device, generator):
+    """q, k, v, dO [b, h, n, 64] and segment ids [b, n] as the trainer's
+    encoder gives them: 1 on each row's valid prefix (lengths spread over
+    [n/2, n - 31], the last 31+ positions being the 128-pad), 0 after."""
+    q, k, v, do = (torch.randn(b, h, n, fa.HEAD_DIM, device=device, generator=generator)
+                   .to(dtype) for _ in range(4))
+    lengths = torch.randint(n // 2, n - 30, (b,), device=device, generator=generator)
+    seg = (torch.arange(n, device=device)[None, :] < lengths[:, None]).to(torch.int32)
+    return q, k, v, do, seg
+
+
+def flash_bounds_ms(b, h, n, itemsize):
+    """Least time of each flash kernel at [b, h, n, 64] with `itemsize`-byte
+    inputs on an H100 SXM: (ms, bound_by) per kernel. Operations: 2*b*h*n^2*64
+    per product, two products in the forward, four for dK/dV (S, dP, dV, dK),
+    three for dQ (S, dP, dQ), over the type's peak; bytes: each input read
+    once and each output written once."""
+    flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
+    product = 2.0 * b * h * n * n * fa.HEAD_DIM
+    mat = b * h * n * fa.HEAD_DIM * itemsize
+    seg = 2 * b * n * 4
+    row = b * h * n * 4  # lse or di
+    work = {  # (products, bytes)
+        "flash_fwd": (2, 3 * mat + seg + mat + row),
+        "flash_bwd_dkv": (4, 4 * mat + seg + 2 * row + 2 * mat),
+        "flash_bwd_dq": (3, 4 * mat + seg + 2 * row + mat),
+    }
+    out = {}
+    for name, (n_products, n_bytes) in work.items():
+        t_ops = n_products * product / flops * 1e3
+        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def _in_chunks(fn, tensors, chunk):
+    """Run fn on batch chunks of `tensors` (the plain version at a batch its
+    [B, H, N, N] intermediates fit in)."""
+    for s in range(0, tensors[0].shape[0], chunk):
+        fn(*(t[s:s + chunk] for t in tensors))
+
+
+@phase("flash")
+def flash_phase(device):
+    """The three flash kernels against their plain version at the encoder's
+    long-run shape, then their times at B = 64 beside the plain version's,
+    scaled_dot_product_attention's and the bounds."""
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
+    scale = fa.HEAD_DIM ** -0.5
+    errs = {name: 0.0 for name in FLASH_REPLACES}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q, k, v, do, seg = flash_inputs(FLASH_CHECK_B, h, n, dtype, device, g)
+            ids = fa.SegmentIds(seg, seg)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
+            got = (out, *torch.autograd.grad(out, (qg, kg, vg), do))
+            torch.cuda.synchronize()
+            qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+            ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
+                                               sm_scale=scale)
+            want = (ref, *torch.autograd.grad(ref, (qr, kr, vr), do.float()))
+            line = []
+            for label, x, y, kernel in zip(("O", "dQ", "dK", "dV"), got, want,
+                                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                            "flash_bwd_dkv")):
+                err = float((x.detach().float() - y.detach()).abs().max())
+                limit = FLASH_RTOL[dtype] * float(y.detach().abs().max())
+                if not torch.isfinite(x).all() or err > limit:
+                    raise AssertionError(f"flash {label} ({dtype}, causal={causal}) differs from "
+                                         f"the plain version by {err:.3e} > {limit:.3e}")
+                errs[kernel] = max(errs[kernel], err)
+                line.append(f"{label} {err:.2e} (limit {limit:.2e})")
+            print(f"  B={FLASH_CHECK_B} H={h} N={n} {str(dtype)[6:]} causal={causal}: "
+                  + ", ".join(line), flush=True)
+            del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
+
+    # Times: the trainer's case, bf16, not causal.
+    b = FLASH_TIMED["b"]
+    q, k, v, do, seg = flash_inputs(b, h, n, torch.bfloat16, device, g)
+    o, lse = fa.flash_fwd(q, k, v, seg, seg, False, scale)
+    di = torch.sum(o.float() * do.float(), dim=-1)
+    args = (seg, seg)
+    ms = {
+        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, *args, False, scale)),
+        "flash_bwd_dkv": median_ms(
+            lambda: fa.flash_bwd_dkv(q, k, v, *args, do, lse, di, False, scale)),
+        "flash_bwd_dq": median_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, *args, do, lse, di, False, scale)),
+    }
+    c = FLASH_PLAIN_CHUNK
+    plain = {
+        "flash_fwd": median_ms(lambda: _in_chunks(
+            lambda *t: fa.flash_fwd_reference(*t, False, scale), (q, k, v, seg, seg), c), 3, 1),
+        "flash_bwd_dkv": median_ms(lambda: _in_chunks(
+            lambda *t: fa.flash_bwd_dkv_reference(*t, False, scale),
+            (q, k, v, seg, seg, do, lse, di), c), 3, 1),
+        "flash_bwd_dq": median_ms(lambda: _in_chunks(
+            lambda *t: fa.flash_bwd_dq_reference(*t, False, scale),
+            (q, k, v, seg, seg, do, lse, di), c), 3, 1),
+    }
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    ids = fa.SegmentIds(seg, seg)
+
+    def kernel_fwd_bwd():
+        out = fa.flash_attention(qg, kg, vg, segment_ids=ids, sm_scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]  # [B, 1, N, N] bool
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    fwd_bwd_ms = median_ms(kernel_fwd_bwd)
+    sdpa_ms, sdpa_fwd_bwd_ms = median_ms(sdpa_fwd), median_ms(sdpa_fwd_bwd)
+    bounds = flash_bounds_ms(b, h, n, 2)
+    for name in FLASH_REPLACES:
+        print(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms "
+              f"(in chunks of {c}), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+              f"at B={b} H={h} N={n} bf16", flush=True)
+    print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; "
+          f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, forward + backward "
+          f"{sdpa_fwd_bwd_ms:.4f} ms (yardstick only: the port never calls it)", flush=True)
+    records = {}
+    for name in FLASH_REPLACES:
+        records[name] = dict(
+            max_abs_err=errs[name], ms=ms[name], plain_ms=plain[name],
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=sdpa_ms if name == "flash_fwd" else None,
+            shape=f"q,k,v[{b},{h},{n},64] bf16, seg[{b},{n}], not causal")
+    return records
+
+
+# ---- training -------------------------------------------------------------
+
+TRAIN_RUNS = (  # (name, max_seq_len, batch, steps): only the history length changes
+    ("short", 20, 256, 15),
+    ("long", 400, 64, 10),  # 1 + 400 * 6 = 2,401 tokens: the flash route
+)
+TRAIN_SEQS = 2048   # training histories per run
+EVAL_BATCHES = 1    # eval-loss batches at the end of a run
+FIXED_STEPS = 8     # steps on one fixed batch, which must lower its loss
+
+
+def seeded_sequences(n_items, n_seqs, length, seed):
+    """(users, items [n_seqs, length] -1 padded at the end, fut)."""
+    rng = np.random.RandomState(seed)
+    items = rng.randint(0, n_items, (n_seqs, length))
+    lengths = rng.randint(max(1, length // 4), length + 1, n_seqs)
+    items[np.arange(length)[None, :] >= lengths[:, None]] = -1
+    return np.arange(n_seqs) * 7, items, rng.randint(0, n_items, n_seqs)
+
+
+def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log=print):
+    """The port's trainer at cfg's widths on seeded histories of
+    `max_seq_len` items, EVAL_BATCHES eval batches at the end. Launch counts are set to
+    0 just before and returned from just after. Returns (result, launches,
+    (users, items, fut))."""
+    users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
+    rq.rq_assign.launches = 0
+    fa.reset_launches()
+    result = trainer.train(
+        feats, users, items, fut, vae=vae, iterations=steps, batch_size=batch,
+        vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+        decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+        attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
+        tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True,
+        seed=seed, log_every=1, partial_eval_every=steps, eval_batches=EVAL_BATCHES,
+        eval_users=users[:batch], eval_items=items[:batch], eval_fut=fut[:batch],
+        device=device, log=log, mixed_precision_type=cfg.get("precision", "bf16"),
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {"rq_assign": rq.rq_assign.launches,
+                **{fn.__name__: fn.launches for fn in fa.KERNELS}}
+    return result, launches, (users, items, fut)
+
+
+def fixed_batch_descent(result, data, batch, steps, seed=SEED):
+    """Eval loss of one fixed batch before and after `steps` train steps on
+    it (with dropout)."""
+    model, opt = result["model"], result["optimizer"]
+    table = result["tokenizer"].cached_ids.to(torch.int32)
+    dev = table.device
+    rows = trainer.as_seq_data(*(a[:batch] for a in data), dev)
+    fixed = tokenize_on_device(table, rows.user_ids, rows.items, rows.fut)
+    with torch.no_grad():
+        before = float(model(fixed).loss)
+    for i in range(steps):
+        trainer.train_step(model, opt, fixed, trainer.step_generator(seed + 1, i, dev))
+    with torch.no_grad():
+        after = float(model(fixed).loss)
+    return before, after
+
+
+def check_train_run(name, result, launches, steps, n_encoder_layers=4, flash=False):
+    """Finite losses, rq_assign on the path, and the flash launches the
+    run's route implies: per encoder layer one forward per train step and
+    eval batch, one dK/dV and one dQ per train step; none off the route."""
+    hist = result["history"]
+    losses = hist["train_loss"] + hist["eval_loss"]
+    if len(hist["train_loss"]) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} run: losses not finite or missing: {losses}")
+    if launches["rq_assign"] < 1:
+        raise AssertionError(f"{name} run: the corpus sweep did not launch rq_assign")
+    want = {"flash_fwd": n_encoder_layers * (steps + EVAL_BATCHES),
+            "flash_bwd_dkv": n_encoder_layers * steps,
+            "flash_bwd_dq": n_encoder_layers * steps}
+    if not flash:
+        want = {k: 0 for k in want}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name} run: flash launches {got}, expected {want}")
+
+
+@phase("train")
+def train_phase(device, flash_ms_per_layer):
+    """The short and the long run of the trainer, then the fixed-batch
+    check on each run's model. Returns the long run's launch counts."""
+    cfg = AMAZON
+    vae, feats = build_vae(cfg, torch.Generator().manual_seed(SEED))
+    n_enc = cfg["attn_layers"] // 2
+    runs = {}
+    for name, max_seq_len, batch, steps in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        result, launches, data = train_run(cfg, vae, feats, device, max_seq_len, batch, steps,
+                                           log=lambda line: print(f"  {line}", flush=True))
+        context = 1 + max_seq_len * result["tokenizer"].sem_ids_dim  # user + history tokens
+        flash = context >= FLASH_MIN_TOKENS
+        check_train_run(name, result, launches, steps, n_encoder_layers=n_enc, flash=flash)
+        hist = result["history"]
+        step_ms = statistics.median(hist["ms_per_step"][1:])
+        print(f"  {name} run: max_seq_len {max_seq_len}, batch {batch}, {steps} steps in "
+              f"{time.perf_counter() - t0:.2f} s; median {step_ms:.2f} ms/step after the first "
+              f"({hist['ms_per_step'][0]:.2f} ms); eval loss {hist['eval_loss'][-1]:.4f}; "
+              f"launches {launches}", flush=True)
+        if flash:
+            share = n_enc * flash_ms_per_layer / step_ms
+            print(f"  {name} run: flash kernels {n_enc * flash_ms_per_layer:.2f} ms of a "
+                  f"{step_ms:.2f} ms step ({100 * share:.1f} %, from the flash phase's "
+                  f"per-kernel times)", flush=True)
+        runs[name] = (result, launches, data, batch)
+    for name, (result, launches, data, batch) in runs.items():
+        before, after = fixed_batch_descent(result, data, batch, FIXED_STEPS)
+        print(f"  {name} run: fixed batch of {batch}, eval loss {before:.4f} -> {after:.4f} "
+              f"after {FIXED_STEPS} steps", flush=True)
+        if not (np.isfinite(after) and after < before):
+            raise AssertionError(f"{name} run: steps on a fixed batch did not lower its loss")
+    return runs["long"][1]
+
+
 def main():
     smi = card_phase()
     device = torch.device("cuda", 0)
     build_phase()
     rec = kernel_phase(device)
     launches, _ = serve_phase(device)
+    flash_recs = flash_phase(device)
+    per_layer = sum(r["ms"] for r in flash_recs.values())
+    long_launches = train_phase(device, per_layer)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
@@ -326,6 +632,11 @@ def main():
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
         shape=rec["shape"],
     )]
+    for name, r in flash_recs.items():
+        kernels.append(dict(
+            name=name, route="cuda", source="hidvae_tpu_torch/csrc/flash_attention.cu",
+            replaces=FLASH_REPLACES[name], reached_from="hidvae_tpu/models/attention.py:75",
+            launches=long_launches[name], **r))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,10 @@ import numpy as np
 import torch
 
 
-def _param_key(path: str):
+def flax_param_key(path: str):
+    """The torch state_dict key of a flax parameter path, and whether the
+    array is transposed on the way ([in, out] Dense kernels). Tests use it
+    to compare gradients leaf by leaf."""
     parts = path.split("/")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
     transpose = False
@@ -40,7 +43,7 @@ def flax_to_state_dict(
     """Map flat flax params (and batch_stats) to a torch state_dict."""
     out = {}
     for path, value in params.items():
-        key, transpose = _param_key(path)
+        key, transpose = flax_param_key(path)
         arr = np.asarray(value)
         if transpose:
             if arr.ndim != 2:

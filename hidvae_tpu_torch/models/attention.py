@@ -1,17 +1,27 @@
-"""Multi-head attention with dense padded masking (counterpart of
-hidvae_tpu/models/attention.py, dense path).
+"""Multi-head attention (counterpart of hidvae_tpu/models/attention.py).
 
 Fused QKV projection for self-attention, split Q / KV for cross-attention,
-softmax in fp32, written out as plain tensor ops. The flash path of the JAX
-package (`_flash_self_attention`, a Pallas TPU kernel that its auto switch
-takes only at >= 2048 tokens or with use_flash=True) is not ported yet: at
-every shape the configs serve, the dense path runs.
+softmax in fp32. Two routes, chosen by the JAX package's rule
+(attention.py:152-162): dense padded masking as plain tensor ops, or, for
+self-attention with a head width that is a multiple of 64 over at least 2048
+tokens (or with use_flash=True), `flash_attention`, whose CUDA kernels run on
+the card and whose plain version runs on the CPU. The JAX rule's "backend is
+TPU" clause becomes "always": the op itself picks the kernel by device.
+
+`dtype` is flax's compute dtype: projections run in it, parameters stay
+fp32, the softmax is fp32.
 """
 
 from typing import Optional
 
 import torch
 from torch import nn
+
+from hidvae_tpu_torch.models.layers import dense
+from hidvae_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
+
+FLASH_BLOCK = 128      # the JAX route pads the sequence to this multiple
+FLASH_MIN_TOKENS = 2048  # the auto switch
 
 NEG_FILL = torch.finfo(torch.float32).min
 
@@ -46,6 +56,26 @@ def grouped_cross_attention(q, k, v, *, kv_padding_mask=None):
     return out.reshape(b * g, *out.shape[2:])
 
 
+def flash_self_attention(q, k, v, kv_padding_mask, is_causal: bool, dtype):
+    """Counterpart of `_flash_self_attention` (attention.py:75-101): pad the
+    sequence to a multiple of 128; padding (of the mask and of the 128-pad)
+    becomes segment id 0 and valid tokens 1, the same ids for queries and
+    keys; q, k, v in the compute dtype; the result sliced back to n rows."""
+    b, _, n, d = q.shape
+    pad = (-n) % FLASH_BLOCK
+    if pad:
+        q, k, v = (nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    if kv_padding_mask is None:
+        seg = torch.ones((b, n), dtype=torch.int32, device=q.device)
+    else:
+        seg = kv_padding_mask.to(torch.int32)
+    seg = nn.functional.pad(seg, (0, pad))
+    out = flash_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                          segment_ids=SegmentIds(seg, seg), causal=is_causal,
+                          sm_scale=d ** -0.5)
+    return out[:, :, :n, :].to(dtype)
+
+
 def make_attention_mask(q_len: int, kv_len: int, *, causal: bool = False,
                         kv_padding_mask=None, device=None):
     """[B or 1, 1, Nq, Nk] bool mask, or None."""
@@ -60,15 +90,22 @@ def make_attention_mask(q_len: int, kv_len: int, *, causal: bool = False,
 
 class MultiHeadAttention(nn.Module):
     """MHA with fused projections; cross-attention with fewer key rows than
-    query rows takes the grouped (beam) path."""
+    query rows takes the grouped (beam) path.
+
+    use_flash: None = auto (flash self-attention at >= 2048 tokens when the
+    head width is a multiple of 64); True/False forces it on or off where it
+    is capable. Cross-attention always takes the dense path."""
 
     def __init__(self, d_in: int, d_out: int, num_heads: int, cross_attn: bool = False,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, dtype=torch.float32,
+                 use_flash: Optional[bool] = None):
         super().__init__()
         if d_out % num_heads:
             raise ValueError(f"d_out {d_out} is not a multiple of {num_heads} heads")
         self.num_heads = num_heads
         self.cross_attn = cross_attn
+        self.dtype = dtype
+        self.use_flash = use_flash
         if cross_attn:
             self.q = nn.Linear(d_in, d_out, bias=qkv_bias)
             self.kv = nn.Linear(d_in, 2 * d_out, bias=qkv_bias)
@@ -85,16 +122,24 @@ class MultiHeadAttention(nn.Module):
         if self.cross_attn:
             if x_kv is None:
                 raise ValueError("cross attention requires x_kv")
-            q = self.q(x)
-            k, v = self.kv(x_kv).chunk(2, dim=-1)
+            q = dense(self.q, x, self.dtype)
+            k, v = dense(self.kv, x_kv, self.dtype).chunk(2, dim=-1)
         else:
-            q, k, v = self.qkv(x).chunk(3, dim=-1)
+            q, k, v = dense(self.qkv, x, self.dtype).chunk(3, dim=-1)
         q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        head_dim = q.shape[-1]
+        flash_capable = not self.cross_attn and head_dim % 64 == 0 and q.shape[2] > 1
+        if self.use_flash is None:
+            use_flash = flash_capable and q.shape[2] >= FLASH_MIN_TOKENS
+        else:
+            use_flash = self.use_flash and flash_capable
         if self.cross_attn and q.shape[0] != k.shape[0]:
             out = grouped_cross_attention(q, k, v, kv_padding_mask=kv_padding_mask)
+        elif use_flash:
+            out = flash_self_attention(q, k, v, kv_padding_mask, is_causal, self.dtype)
         else:
             mask = make_attention_mask(q.shape[2], k.shape[2], causal=is_causal,
                                        kv_padding_mask=kv_padding_mask, device=q.device)
             out = dot_product_attention(q, k, v, mask=mask)
         b, h, n, d = out.shape
-        return self.proj(out.transpose(1, 2).reshape(b, n, h * d))
+        return dense(self.proj, out.transpose(1, 2).reshape(b, n, h * d), self.dtype)

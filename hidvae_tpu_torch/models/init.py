@@ -1,7 +1,8 @@
 """Seeded random weights for the port's modules, drawn from an explicit
 torch.Generator with the flax initializers' distributions: lecun-normal
-Dense kernels, zero biases, unit norm scales, unit-variance-over-width
-embeddings, uniform [0, 1) codebooks and BOS. Trained weights come through
+Dense kernels (flax's truncated normal, below), zero biases, unit norm
+scales, unit-variance-over-width embeddings, uniform [0, 1) codebooks and
+BOS. Trained weights come through
 bridge.py instead; this serves runs that need realistic shapes, not trained
 values."""
 
@@ -14,6 +15,22 @@ from hidvae_tpu_torch.models.layers import RMSNorm
 from hidvae_tpu_torch.models.quantize import Quantize
 
 
+# Flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"): a
+# normal truncated at +-2 sigma, with sigma raised by 1/0.8796... (the std of
+# the standard normal truncated at +-2) so the drawn values keep variance
+# 1/fan_in.
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
+    """Fill `t` in place as flax's lecun_normal does for a kernel whose input
+    width is `fan_in`; drawn on the CPU generator, then copied to t's device."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD
+    draw = nn.init.trunc_normal_(torch.empty(t.shape), 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+    return t.copy_(draw)
+
+
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter of `module` in place; returns it."""
@@ -22,7 +39,7 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     for m in module.modules():
         if isinstance(m, nn.Linear):
-            normal_(m.weight, 1.0 / math.sqrt(m.in_features))
+            lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):

@@ -1,15 +1,28 @@
 """Shared building blocks (counterpart of hidvae_tpu/models/layers.py).
 
 Submodule names follow the flax names (`dense_0`, ...) so that bridge.py maps
-a flax parameter path to a state_dict key by rule."""
+a flax parameter path to a state_dict key by rule.
 
-from typing import Sequence
+`dtype` follows flax's Dense: parameters stay fp32 and each product runs in
+the compute dtype (input and kernel cast to it, output in it)."""
+
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.normalize import l2norm, rms_norm
+
+
+def dense(layer: nn.Linear, x, dtype=None):
+    """flax nn.Dense(dtype=...) on a torch Linear: input and weight cast to
+    `dtype` (None keeps the input's own dtype and the fp32 weight)."""
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class RMSNorm(nn.Module):
@@ -25,24 +38,27 @@ class RMSNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """Bias-free Linear stack with SiLU between layers and an optional L2
-    normalization of the output, taken in fp32. Dropout is a training-time
-    op; this eval port has none."""
+    """Bias-free Linear stack with SiLU between layers, dropout after each
+    hidden SiLU in train mode, and an optional L2 normalization of the
+    output, taken in fp32."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int], out_dim: int,
-                 normalize: bool = False):
+                 normalize: bool = False, dropout: float = 0.0, dtype=None):
         super().__init__()
         dims = [in_dim] + list(hidden_dims) + [out_dim]
         self.n_dense = len(dims) - 1
         for i in range(self.n_dense):
             self.add_module(f"dense_{i}", nn.Linear(dims[i], dims[i + 1], bias=False))
         self.normalize = normalize
+        self.dropout = dropout
+        self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """`generator` set = train mode: dropout draws from it."""
         for i in range(self.n_dense):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
             if i != self.n_dense - 1:
-                x = F.silu(x)
+                x = drop(F.silu(x), self.dropout, generator)
         if self.normalize:
             # fp32 regardless of compute dtype: the quantizer's argmin
             # downstream is precision-sensitive.

@@ -1,5 +1,5 @@
 """Encoder-decoder generative retrieval model + constrained beam search
-(counterpart of hidvae_tpu/models/retrieval.py), eval mode.
+(counterpart of hidvae_tpu/models/retrieval.py).
 
 The user embedding is prepended to the semantic-ID history with learned
 absolute positions; the target side is a learned BOS + target-digit
@@ -7,6 +7,12 @@ embeddings + token-type embeddings. Beam search keeps fixed [B*k] shapes from
 step 0 (beam 0 starts at log-prob 0, the rest at -1e9), runs the encoder once,
 and narrows each beam's corpus row range by binary search. Invalid digits get
 the -10000 penalty of the reference.
+
+Train mode is a dropout generator passed to `forward`: the blocks' dropout
+(`dropout`) and the fixed input dropout of 0.5 on the normed context and
+target embeddings (retrieval.py:105, :118-120) draw from it. `dtype` is
+flax's compute dtype: the projections and blocks run in it, parameters stay
+fp32, logits are cast to fp32 for the loss.
 """
 
 import warnings
@@ -18,8 +24,9 @@ from torch import nn
 
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models.embedder import SemIdEmbedder, UserIdEmbedder
-from hidvae_tpu_torch.models.layers import RMSNorm
+from hidvae_tpu_torch.models.layers import RMSNorm, dense
 from hidvae_tpu_torch.models.transformer import TransformerEncoderDecoder
+from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.prefix_search import (
     first_digit_mask,
     narrow_range,
@@ -30,6 +37,7 @@ from hidvae_tpu_torch.ops.prefix_search import (
 BEAMS = 32
 NEG_LARGE = -1.0e9
 INVALID_PENALTY = -10000.0
+INPUT_DROPOUT = 0.5  # hardcoded in the reference (retrieval.py:105)
 
 
 @dataclass
@@ -57,9 +65,11 @@ class EncoderDecoderRetrievalModel(nn.Module):
 
     def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int, n_layers: int,
                  num_embeddings: int, sem_id_dim: int, max_pos: int = 2048,
-                 n_sem_layers: int = 3, use_interleaved_ids: bool = False):
+                 n_sem_layers: int = 3, use_interleaved_ids: bool = False,
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.embedding_dim = embedding_dim
+        self.dtype = dtype
         self.num_embeddings = num_embeddings
         self.sem_id_dim = sem_id_dim
         self.bos_emb = nn.Parameter(torch.rand(embedding_dim))
@@ -73,14 +83,15 @@ class EncoderDecoderRetrievalModel(nn.Module):
         self.wpe = nn.Embedding(max_pos, embedding_dim)
         self.tte = nn.Embedding(sem_id_dim, embedding_dim)
         self.transformer = TransformerEncoderDecoder(
-            attn_dim, num_heads, encoder_layers=n_layers // 2, decoder_layers=n_layers // 2)
+            attn_dim, num_heads, encoder_layers=n_layers // 2, decoder_layers=n_layers // 2,
+            dropout=dropout, dtype=dtype)
         self.in_proj = nn.Linear(embedding_dim, attn_dim, bias=False)
         self.in_proj_context = nn.Linear(embedding_dim, attn_dim, bias=False)
         self.out_proj = nn.Linear(attn_dim, num_embeddings, bias=False)
 
     # ---- context (history) path ----
 
-    def _context_embedding(self, batch: TokenizedSeqBatch):
+    def _context_embedding(self, batch: TokenizedSeqBatch, generator=None):
         user_emb = self.user_id_embedder(batch.user_ids)              # [B, E]
         seq_emb = self.sem_id_embedder(batch.sem_ids, batch.token_type_ids,
                                        batch.seq_mask)                # [B, T, E]
@@ -89,41 +100,47 @@ class EncoderDecoderRetrievalModel(nn.Module):
         ctx = torch.cat([user_emb[:, None, :], wpe + seq_emb], dim=1)
         ctx_mask = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=ctx.device),
                               batch.seq_mask], dim=1)
-        return self.in_proj_context(self.norm(ctx)), ctx_mask
+        ctx = drop(self.norm(ctx), INPUT_DROPOUT, generator)
+        return dense(self.in_proj_context, ctx, self.dtype), ctx_mask
 
-    def encode_context(self, batch: TokenizedSeqBatch):
+    def encode_context(self, batch: TokenizedSeqBatch, generator=None):
         """Run the encoder once over the history; beams reuse it."""
-        ctx, ctx_mask = self._context_embedding(batch)
-        return self.transformer.encode(ctx, padding_mask=ctx_mask), ctx_mask
+        ctx, ctx_mask = self._context_embedding(batch, generator)
+        enc = self.transformer.encode(ctx, padding_mask=ctx_mask, generator=generator)
+        return enc, ctx_mask
 
     # ---- target (future digits) path ----
 
-    def _fut_embedding(self, sem_ids_fut, token_type_ids_fut):
+    def _fut_embedding(self, sem_ids_fut, token_type_ids_fut, generator=None):
         b = sem_ids_fut.shape[0]
         fut_emb = self.sem_id_embedder(sem_ids_fut, token_type_ids_fut)
         tte = self.tte(token_type_ids_fut.long())
         bos = self.bos_emb.expand(b, 1, self.embedding_dim)
         x = torch.cat([bos, fut_emb + tte], dim=1)                    # [B, Df+1, E]
-        return self.in_proj(self.norm_cxt(x))
+        x = drop(self.norm_cxt(x), INPUT_DROPOUT, generator)
+        return dense(self.in_proj, x, self.dtype)
 
     def decode_logits(self, enc, ctx_mask, sem_ids_fut, token_type_ids_fut,
-                      last_only: bool = False):
+                      last_only: bool = False, generator=None):
         """Causal decoder over BOS + target digits -> [B, Df+1, K] logits.
         enc / ctx_mask may hold B rows while sem_ids_fut holds B*g beam rows."""
-        x = self._fut_embedding(sem_ids_fut, token_type_ids_fut)
-        dec = self.transformer.decode(x, enc, context_padding_mask=ctx_mask)
+        x = self._fut_embedding(sem_ids_fut, token_type_ids_fut, generator)
+        dec = self.transformer.decode(x, enc, context_padding_mask=ctx_mask,
+                                      generator=generator)
         if last_only:
             dec = dec[:, -1:, :]
-        return self.out_proj(dec)
+        return dense(self.out_proj, dec, self.dtype)
 
-    # ---- eval forward ----
+    # ---- training / eval forward ----
 
-    def forward(self, batch: TokenizedSeqBatch) -> ModelOutput:
+    def forward(self, batch: TokenizedSeqBatch,
+                generator: Optional[torch.Generator] = None) -> ModelOutput:
         """Per-digit cross-entropy against sem_ids_fut; out-of-range targets
-        are ignored. Per-sample sum, then batch mean."""
-        enc, ctx_mask = self.encode_context(batch)
+        are ignored. Per-sample sum, then batch mean. With `generator`, the
+        train-mode forward (dropout drawn from it); without, eval."""
+        enc, ctx_mask = self.encode_context(batch, generator)
         logits_all = self.decode_logits(enc, ctx_mask, batch.sem_ids_fut,
-                                        batch.token_type_ids_fut)
+                                        batch.token_type_ids_fut, generator=generator)
         logits = logits_all[:, :-1, :].float()
         target = batch.sem_ids_fut.long()
         ignore = (target < 0) | (target >= self.num_embeddings)

@@ -1,10 +1,73 @@
-"""On-device batch preparation: the serving part of
-hidvae_tpu/train/device_data.py. The training-time window crops and
-duplicate-pair harvesting are not ported yet."""
+"""Device-resident training data (counterpart of
+hidvae_tpu/train/device_data.py): the whole history table lives on the
+device, and each step samples its own rows, random-crops (history + target)
+windows and tokenizes them by a gather from the corpus table.
+
+Sampling is with replacement and every draw comes from an explicit
+torch.Generator, so a step is a function of (generator state, data).
+`random_crop_windows` is split into the draw (`crop_uniforms`) and a pure
+function of the uniforms, so a test can feed the JAX function and this one
+the same numbers. Duplicate-pair harvesting (stage 1) is not ported yet."""
+
+from typing import NamedTuple
 
 import torch
 
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
+
+
+class DeviceSeqData(NamedTuple):
+    user_ids: torch.Tensor  # [n]
+    items: torch.Tensor     # [n, N] int32, -1 padded
+    fut: torch.Tensor       # [n] int32
+
+    @property
+    def n(self):
+        return self.user_ids.shape[0]
+
+    def sample_rows(self, generator: torch.Generator, batch_size: int):
+        """`batch_size` rows drawn uniformly with replacement
+        (device_data.py:78)."""
+        idx = torch.randint(0, self.n, (batch_size,), generator=generator,
+                            device=self.items.device)
+        return self.user_ids[idx], self.items[idx], self.fut[idx]
+
+
+def crop_uniforms(generator: torch.Generator, batch: int, device):
+    """The two uniforms per row that `random_crop_windows` takes."""
+    u1 = torch.rand((batch,), generator=generator, device=device)
+    u2 = torch.rand((batch,), generator=generator, device=device)
+    return u1, u2
+
+
+def random_crop_windows(u1, u2, items, fut, min_len: int = 3):
+    """Random-crop (history + target) windows (device_data.py:87-125) from
+    uniforms u1, u2 [B] in [0, 1).
+
+    items [B, N] int32 (-1 padded), fut [B]. Each row's full sequence is
+    history ++ [target]; the window length is U{min_len .. len+1} (from u1)
+    and its start U{0 .. len+1-win} (from u2); the window's last element is
+    the new target. Rows no longer than min_len are left unchanged."""
+    b, n = items.shape
+    lengths = torch.sum(items >= 0, dim=1).to(torch.int32)
+    full_len = lengths + 1
+    span = torch.clamp(full_len - min_len + 1, min=1)
+    win_len = min_len + torch.floor(u1 * span).to(torch.int32)
+    win_len = torch.minimum(win_len, full_len)
+    start = torch.floor(u2 * (full_len - win_len + 1)).to(torch.int32)
+
+    cols = torch.arange(n, dtype=torch.int32, device=items.device)[None, :]
+    pos = start[:, None] + cols
+    gathered = torch.gather(items, 1, torch.clamp(pos, 0, n - 1).long())
+    full_vals = torch.where(pos == lengths[:, None], fut[:, None], gathered)
+    keep = cols < (win_len - 1)[:, None]
+    new_items = torch.where(keep, full_vals, torch.full_like(full_vals, -1))
+    fut_pos = start + win_len - 1
+    at_fut = torch.gather(items, 1, torch.clamp(fut_pos, 0, n - 1).long()[:, None])[:, 0]
+    new_fut = torch.where(fut_pos == lengths, fut, at_fut)
+    apply = full_len > min_len
+    return (torch.where(apply[:, None], new_items, items),
+            torch.where(apply, new_fut, fut))
 
 
 def tokenize_on_device(cached_ids, user_ids, items, fut):

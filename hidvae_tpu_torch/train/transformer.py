@@ -1,0 +1,229 @@
+"""Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py
+`train`, :193-248 for the keywords).
+
+The frozen stage-1 HiD-VAE comes in as a module and the data as in-memory
+arrays (`item_features`, and the training histories `users`, `items`, `fut`)
+in place of `dataset_folder`. Steps, as in the JAX trainer:
+  * the tokenizer sweeps the corpus into the ID table (`rq_assign`: the CUDA
+    kernel on the card), transformer.py:331;
+  * the model (:371-389) and AdamW under the inverse-sqrt schedule;
+  * per step, a generator derived from (seed, step), as :542 folds the step
+    into its key: sample rows, random-crop windows (when `subsample`),
+    tokenize by gather, one train step with dropout (:556-568);
+  * an eval-loss pass over the eval arrays (:478) when the step count
+    crosses `partial_eval_every` and at the end;
+  * a sliding window of the last 1000 losses, and the history dict.
+
+The encoder's self-attention takes the flash route (CUDA kernels on the
+card) exactly where the JAX package takes its flash kernel: at contexts of
+at least 2048 tokens.
+
+Not ported yet: checkpoints and resume, the full generation eval, tensor
+parallelism, remat, plots, the gin reader and the on-disk dataset.
+"""
+
+import math
+import time
+from collections import deque
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from hidvae_tpu_torch.models.init import init_params_
+from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
+from hidvae_tpu_torch.train.common import Optimizer, inverse_sqrt_schedule
+from hidvae_tpu_torch.train.device_data import (
+    DeviceSeqData,
+    crop_uniforms,
+    random_crop_windows,
+    tokenize_on_device,
+)
+from hidvae_tpu_torch.utils.runtime import resolve_device
+
+STEP_SALT = 0x5EED  # the JAX trainer's fold_in constant for per-step keys
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one training step: a function of (seed, step) only,
+    so a step's sample, crop and dropout draws do not depend on history."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed & 0x7FFFFFFF) << 32 | STEP_SALT << 16) ^ (step & 0xFFFFFFFF))
+    return g
+
+
+def build_model(*, sem_id_dim: int, max_seq_len: int, vae_codebook_size: int = 256,
+                vae_n_layers: int = 3, decoder_embed_dim: int = 128, dropout_p: float = 0.3,
+                attn_heads: int = 8, attn_embed_dim: int = 512, attn_layers: int = 8,
+                use_interleaved_ids: bool = False, dtype=torch.float32, seed: int = 42):
+    """The stage-2 model with seeded flax-distributed weights, on the CPU
+    (transformer.py:371-389; max_pos = max_seq_len * sem_id_dim, :382)."""
+    model = EncoderDecoderRetrievalModel(
+        decoder_embed_dim, attn_embed_dim, attn_heads, attn_layers, vae_codebook_size,
+        sem_id_dim, max_pos=max_seq_len * sem_id_dim, n_sem_layers=vae_n_layers,
+        use_interleaved_ids=use_interleaved_ids, dropout=dropout_p, dtype=dtype,
+    )
+    return init_params_(model, torch.Generator().manual_seed(seed))
+
+
+def sample_batch(data: DeviceSeqData, table, batch_size: int, generator: torch.Generator,
+                 subsample: bool = True):
+    """One step's batch: sample rows, random-crop windows when `subsample`,
+    tokenize by gather from the corpus table (transformer.py:543-548)."""
+    u, hist, target = data.sample_rows(generator, batch_size)
+    if subsample:
+        u1, u2 = crop_uniforms(generator, batch_size, table.device)
+        hist, target = random_crop_windows(u1, u2, hist, target)
+    return tokenize_on_device(table, u, hist, target)
+
+
+def train_step(model, optimizer: Optimizer, batch, generator: Optional[torch.Generator]):
+    """One AdamW update on `batch`; dropout draws from `generator` (None runs
+    the forward deterministically). Returns (loss, loss_d), not synced."""
+    optimizer.zero_grad()
+    out = model(batch, generator)
+    out.loss.backward()
+    optimizer.step()
+    return out.loss.detach(), out.loss_d.detach()
+
+
+@torch.no_grad()
+def eval_loss(model, table, data: DeviceSeqData, batch_size: int,
+              eval_batches: Optional[int] = None) -> float:
+    """Row-weighted mean eval loss over the data in order, in batches
+    (transformer.py:478, the partial eval)."""
+    total, rows = 0.0, 0
+    for bi, start in enumerate(range(0, data.n, batch_size)):
+        if eval_batches is not None and bi >= eval_batches:
+            break
+        sl = slice(start, min(start + batch_size, data.n))
+        batch = tokenize_on_device(table, data.user_ids[sl], data.items[sl], data.fut[sl])
+        n = sl.stop - sl.start
+        total += float(model(batch).loss) * n
+        rows += n
+    return total / max(rows, 1)
+
+
+def as_seq_data(users, items, fut, device) -> DeviceSeqData:
+    """Histories as int32 tensors on `device`."""
+    def put(a):
+        return torch.as_tensor(a).to(device=device, dtype=torch.int32)
+
+    return DeviceSeqData(put(users), put(items), put(fut))
+
+
+def train(
+    item_features,
+    users,
+    items,
+    fut,
+    *,
+    vae,
+    iterations: int = 200_000,
+    batch_size: int = 64,
+    learning_rate: float = 0.0003,
+    weight_decay: float = 0.035,
+    max_grad_norm: Optional[float] = None,
+    amp: bool = False,
+    mixed_precision_type: str = "bf16",
+    partial_eval_every: int = 5_000,
+    vae_codebook_size: int = 256,
+    vae_n_layers: int = 3,
+    decoder_embed_dim: int = 128,
+    dropout_p: float = 0.3,
+    attn_dropout: Optional[float] = None,
+    attn_heads: int = 8,
+    attn_embed_dim: int = 512,
+    attn_layers: int = 8,
+    tag_class_counts: Optional[Sequence[int]] = None,
+    use_dedup_dim: bool = False,
+    use_concatenated_ids: bool = False,
+    use_interleaved_ids: bool = False,
+    seed: int = 42,
+    log_every: int = 100,
+    eval_batches: Optional[int] = None,
+    warmup_steps: int = 10_000,
+    subsample: bool = True,
+    eval_users=None,
+    eval_items=None,
+    eval_fut=None,
+    device=None,
+    log=None,
+):
+    """Train the stage-2 decoder on histories `items` [n, max_seq_len] (-1
+    padded) with targets `fut` [n] and user ids `users` [n], over the catalog
+    `item_features` [n_items, F], tokenized by the frozen HiD-VAE `vae`.
+
+    `log_every` sets how often the loss is read back (a device sync) and
+    logged; `log(str)` receives the lines. Returns {"model", "tokenizer",
+    "optimizer", "history"}; history holds the logged iterations, train loss
+    and host-clock ms per step, the eval iterations and losses, and the
+    mean of the last 1000 train losses read."""
+    device = resolve_device(device)
+    if attn_dropout is not None:
+        dropout_p = attn_dropout
+    log = log or (lambda line: None)
+
+    tokenizer = HSemanticIdTokenizer(
+        vae, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
+        tag_class_counts=tag_class_counts, use_dedup_dim=use_dedup_dim,
+        use_concatenated_ids=use_concatenated_ids, use_interleaved_ids=use_interleaved_ids,
+        device=device,
+    )
+    table = tokenizer.precompute_corpus_ids(item_features).to(torch.int32)
+    sem_id_dim = tokenizer.sem_ids_dim
+    log(f"Corpus table: {tuple(table.shape)}, sem_ids_dim={sem_id_dim}")
+
+    data = as_seq_data(users, items, fut, device)
+    eval_data = (None if eval_items is None
+                 else as_seq_data(eval_users, eval_items, eval_fut, device))
+    max_seq_len = data.items.shape[1]
+    compute_dtype = (torch.bfloat16 if (amp or mixed_precision_type == "bf16")
+                     else torch.float32)
+    model = build_model(
+        sem_id_dim=sem_id_dim, max_seq_len=max_seq_len, vae_codebook_size=vae_codebook_size,
+        vae_n_layers=vae_n_layers, decoder_embed_dim=decoder_embed_dim, dropout_p=dropout_p,
+        attn_heads=attn_heads, attn_embed_dim=attn_embed_dim, attn_layers=attn_layers,
+        use_interleaved_ids=use_interleaved_ids, dtype=compute_dtype, seed=seed,
+    ).to(device)
+    optimizer = Optimizer(model.parameters(), inverse_sqrt_schedule(learning_rate, warmup_steps),
+                          weight_decay, max_grad_norm=max_grad_norm)
+
+    history = {"iterations": [], "train_loss": [], "ms_per_step": [],
+               "eval_iterations": [], "eval_loss": [], "window_mean": None}
+    loss_window = deque(maxlen=1000)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_last, it_last = time.perf_counter(), 0
+    for it in range(iterations):
+        g = step_generator(seed, it, device)
+        batch = sample_batch(data, table, batch_size, g, subsample)
+        loss, loss_d = train_step(model, optimizer, batch, g)
+
+        done = it + 1
+        if done % log_every == 0 or done == iterations:
+            loss_f = float(loss)  # syncs
+            now = time.perf_counter()
+            ms = (now - t_last) * 1e3 / (done - it_last)
+            t_last, it_last = now, done
+            if not math.isfinite(loss_f):
+                raise FloatingPointError(f"non-finite loss {loss_f} at iteration {it}")
+            loss_window.append(loss_f)
+            history["iterations"].append(it)
+            history["train_loss"].append(loss_f)
+            history["ms_per_step"].append(ms)
+            log(f"iter {it}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
+                f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step)")
+
+        crossed = (it // partial_eval_every) != (done // partial_eval_every) or done == iterations
+        if eval_data is not None and crossed:
+            el = eval_loss(model, table, eval_data, batch_size, eval_batches)
+            history["eval_iterations"].append(done)
+            history["eval_loss"].append(el)
+            log(f"partial eval @ {done}: loss={el:.4f}")
+            t_last = time.perf_counter()  # keep eval time out of ms per step
+
+    history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
+    return {"model": model, "tokenizer": tokenizer, "optimizer": optimizer,
+            "history": history}

@@ -59,3 +59,62 @@ def test_rq_assign_refuses_what_it_cannot_run(cuda):
     with pytest.raises(TypeError):
         rq.rq_assign(torch.zeros(4, 32, device=cuda, dtype=torch.float64),
                      torch.zeros(2, 16, 32, device=cuda))
+
+
+# ---- flash attention ------------------------------------------------------
+
+def _flash_inputs(b, h, n, dtype, pad, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, n, 64).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    seg = torch.ones((b, n), dtype=torch.int32)
+    if pad:  # a padded tail and a padded stretch inside, as the trainer's masks give
+        seg[0, n - n // 3:] = 0
+        seg[-1, n // 4: n // 4 + 5] = 0
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("b,h,n,causal,dtype,pad", [
+    (2, 2, 200, False, torch.float32, True),
+    (2, 2, 200, True, torch.float32, True),
+    (1, 3, 130, False, torch.bfloat16, True),
+    (1, 1, 64, True, torch.bfloat16, False),
+    (2, 1, 257, False, torch.bfloat16, False),
+])
+def test_flash_attention_matches_plain(cuda, b, h, n, causal, dtype, pad):
+    from chip_smoke import FLASH_RTOL
+    from hidvae_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, seg = (t.to(cuda) for t in _flash_inputs(b, h, n, dtype, pad, n + h))
+    ids = fa.SegmentIds(seg, seg)
+    scale = 64 ** -0.5
+    before = [fn.launches for fn in fa.KERNELS]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert [fn.launches - n0 for fn, n0 in zip(fa.KERNELS, before)] == [1, 1, 1]
+    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
+                                       sm_scale=scale)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
+    for got, want in zip((out, *grads), (ref, *ref_grads)):
+        err = float((got.detach().float() - want.detach()).abs().max())
+        assert err <= FLASH_RTOL[dtype] * float(want.abs().max()), err
+
+
+def test_flash_kernels_refuse_what_they_cannot_run(cuda):
+    from hidvae_tpu_torch.ops import flash_attention as fa
+
+    seg = torch.ones((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        x = torch.zeros(1, 1, 8, 32, device=cuda)
+        fa.flash_fwd(x, x, x, seg, seg, False, 1.0)
+    with pytest.raises(TypeError):
+        x = torch.zeros(1, 1, 8, 64, device=cuda, dtype=torch.float16)
+        fa.flash_fwd(x, x, x, seg, seg, False, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        x = torch.zeros(1, 1, 8, 64)
+        fa.flash_fwd(x, x, x, seg.cpu(), seg.cpu(), False, 1.0)

@@ -1,7 +1,7 @@
 """The port stands alone: with JAX, flax, orbax, optax and the JAX package
 refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
-import and a small engine serves on the CPU. And the port's sources are
-small text files."""
+import, a small engine serves on the CPU and the smoke's training path
+trains a small model there. And the port's sources are small text files."""
 
 import os
 import subprocess
@@ -39,6 +39,21 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     hist = chip_smoke.seeded_histories(tiny["n_items"], 8, tiny["max_seq_len"])
     out = engine.recommend(hist, top_k=5)
     resolved = chip_smoke.check_recommendations(engine, out, tiny["n_items"])
+
+    # The smoke's training path on the CPU: a short run (dense attention) and
+    # one over 1 + 350 * 6 = 2,101 tokens (the flash route, whose plain
+    # version runs here). No kernel launches on the CPU, so the checks are
+    # held to zero launches, with the sweep's count stood in for.
+    import torch
+    tiny.update(precision="fp32")
+    vae, feats = chip_smoke.build_vae(tiny, torch.Generator().manual_seed(0))
+    for max_seq_len in (6, 350):
+        result, launches, data = chip_smoke.train_run(
+            tiny, vae, feats, torch.device("cpu"), max_seq_len, 4, 2, log=lambda line: None)
+        chip_smoke.check_train_run("tiny", result, {**launches, "rq_assign": 1}, 2,
+                                   n_encoder_layers=1, flash=False)
+        before, after = chip_smoke.fixed_batch_descent(result, data, 4, 2)
+        assert after < before, (before, after)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("modules", len(names), "resolved", resolved)
