@@ -58,6 +58,8 @@ KERNEL_CASES = (  # (B, D, L, K)
     (1048576, 32, 3, 256),   # 1M rows: the timed case
     (18357, 64, 3, 256),     # the ML-32M width
     (1001, 64, 3, 256),
+    (18357, 128, 3, 256),    # the widest code the kernel is built for
+    (1001, 128, 3, 256),
 )
 TIMED_CASE = (1048576, 32, 3, 256)
 TIE_RTOL = 1e-5
@@ -65,8 +67,11 @@ QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py
 # Flash kernels against the plain version run in fp32 on the same inputs:
 # largest error over max |plain|. fp32: the kernels sum up to N = 2,432 terms
 # in another order than cuBLAS (expected error ~sqrt(N) * 2^-24 of the sum of
-# magnitudes, well under 1e-5 of the largest value). bf16: the kernels
-# compute in fp32 and round each output once to bf16 (2^-9 relative).
+# magnitudes, well under 1e-5 of the largest value). bf16: each output is
+# rounded once to bf16 (2^-9 relative); the tensor-core forward and dK/dV
+# also round P and dS to bf16 before their products, as the library does,
+# which adds errors of 2^-9 relative per term that mostly cancel over the
+# N-term sums.
 FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
@@ -351,6 +356,8 @@ def serve_phase(device):
 # One encoder layer of the long-history run: B 64, 8 heads of 64, 2,401
 # tokens padded to 2,432.
 FLASH_TIMED = dict(b=64, h=8, n=2432)
+FLASH_HEAD_DIM = 64     # every config's; 128 is checked at FLASH_WIDE_B rows
+FLASH_WIDE_B = 1
 FLASH_CHECK_B = 4       # small enough for the plain backward at full length
 FLASH_PLAIN_CHUNK = 16  # the plain version is timed over the batch in chunks of 16
 FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py
@@ -360,11 +367,11 @@ FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attentio
 }
 
 
-def flash_inputs(b, h, n, dtype, device, generator):
-    """q, k, v, dO [b, h, n, 64] and segment ids [b, n] as the trainer's
+def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
+    """q, k, v, dO [b, h, n, dh] and segment ids [b, n] as the trainer's
     encoder gives them: 1 on each row's valid prefix (lengths spread over
     [n/2, n - 31], the last 31+ positions being the 128-pad), 0 after."""
-    q, k, v, do = (torch.randn(b, h, n, fa.HEAD_DIM, device=device, generator=generator)
+    q, k, v, do = (torch.randn(b, h, n, dh, device=device, generator=generator)
                    .to(dtype) for _ in range(4))
     lengths = torch.randint(n // 2, n - 30, (b,), device=device, generator=generator)
     seg = (torch.arange(n, device=device)[None, :] < lengths[:, None]).to(torch.int32)
@@ -378,8 +385,8 @@ def flash_bounds_ms(b, h, n, itemsize):
     three for dQ (S, dP, dQ), over the type's peak; bytes: each input read
     once and each output written once."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
-    product = 2.0 * b * h * n * n * fa.HEAD_DIM
-    mat = b * h * n * fa.HEAD_DIM * itemsize
+    product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
+    mat = b * h * n * FLASH_HEAD_DIM * itemsize
     seg = 2 * b * n * 4
     row = b * h * n * 4  # lse or di
     work = {  # (products, bytes)
@@ -405,38 +412,42 @@ def _in_chunks(fn, tensors, chunk):
 @phase("flash")
 def flash_phase(device):
     """The three flash kernels against their plain version at the encoder's
-    long-run shape, then their times at B = 64 beside the plain version's,
-    scaled_dot_product_attention's and the bounds."""
+    long-run shape (and at head width 128), then their times at B = 64
+    beside the plain version's, scaled_dot_product_attention's (forward,
+    backward alone, both) and the bounds."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
-    scale = fa.HEAD_DIM ** -0.5
+    scale = FLASH_HEAD_DIM ** -0.5
     errs = {name: 0.0 for name in FLASH_REPLACES}
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal in (False, True):
-            q, k, v, do, seg = flash_inputs(FLASH_CHECK_B, h, n, dtype, device, g)
-            ids = fa.SegmentIds(seg, seg)
-            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-            out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
-            got = (out, *torch.autograd.grad(out, (qg, kg, vg), do))
-            torch.cuda.synchronize()
-            qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
-            ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
-                                               sm_scale=scale)
-            want = (ref, *torch.autograd.grad(ref, (qr, kr, vr), do.float()))
-            line = []
-            for label, x, y, kernel in zip(("O", "dQ", "dK", "dV"), got, want,
-                                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                                            "flash_bwd_dkv")):
-                err = float((x.detach().float() - y.detach()).abs().max())
-                limit = FLASH_RTOL[dtype] * float(y.detach().abs().max())
-                if not torch.isfinite(x).all() or err > limit:
-                    raise AssertionError(f"flash {label} ({dtype}, causal={causal}) differs from "
-                                         f"the plain version by {err:.3e} > {limit:.3e}")
-                errs[kernel] = max(errs[kernel], err)
-                line.append(f"{label} {err:.2e} (limit {limit:.2e})")
-            print(f"  B={FLASH_CHECK_B} H={h} N={n} {str(dtype)[6:]} causal={causal}: "
-                  + ", ".join(line), flush=True)
-            del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
+    checks = [(FLASH_CHECK_B, FLASH_HEAD_DIM, dtype, causal)
+              for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
+    checks += [(FLASH_WIDE_B, 128, torch.bfloat16, False), (FLASH_WIDE_B, 128, torch.float32, True)]
+    for cb, dh, dtype, causal in checks:
+        q, k, v, do, seg = flash_inputs(cb, h, n, dtype, device, g, dh)
+        ids = fa.SegmentIds(seg, seg)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sm = dh ** -0.5
+        out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=sm)
+        got = (out, *torch.autograd.grad(out, (qg, kg, vg), do))
+        torch.cuda.synchronize()
+        qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+        ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
+                                           sm_scale=sm)
+        want = (ref, *torch.autograd.grad(ref, (qr, kr, vr), do.float()))
+        line = []
+        for label, x, y, kernel in zip(("O", "dQ", "dK", "dV"), got, want,
+                                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                        "flash_bwd_dkv")):
+            err = float((x.detach().float() - y.detach()).abs().max())
+            limit = FLASH_RTOL[dtype] * float(y.detach().abs().max())
+            if not torch.isfinite(x).all() or err > limit:
+                raise AssertionError(f"flash {label} ({dtype}, Dh {dh}, causal={causal}) differs "
+                                     f"from the plain version by {err:.3e} > {limit:.3e}")
+            errs[kernel] = max(errs[kernel], err)
+            line.append(f"{label} {err:.2e} (limit {limit:.2e})")
+        print(f"  B={cb} H={h} N={n} Dh={dh} {str(dtype)[6:]} causal={causal}: "
+              + ", ".join(line), flush=True)
+        del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
 
     # Times: the trainer's case, bf16, not causal.
     b = FLASH_TIMED["b"]
@@ -480,13 +491,21 @@ def flash_phase(device):
 
     fwd_bwd_ms = median_ms(kernel_fwd_bwd)
     sdpa_ms, sdpa_fwd_bwd_ms = median_ms(sdpa_fwd), median_ms(sdpa_fwd_bwd)
+    # SDPA's backward alone (dQ, dK and dV in one call) on a retained graph:
+    # the library time of the two backward kernels together.
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    sdpa_bwd_ms = median_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
+    del sdpa_out
     bounds = flash_bounds_ms(b, h, n, 2)
     for name in FLASH_REPLACES:
         print(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms "
               f"(in chunks of {c}), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
               f"at B={b} H={h} N={n} bf16", flush=True)
     print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; "
-          f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, forward + backward "
+          f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, backward alone "
+          f"{sdpa_bwd_ms:.4f} ms (dQ, dK, dV; kernels dK/dV + dQ "
+          f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), forward + backward "
           f"{sdpa_fwd_bwd_ms:.4f} ms (yardstick only: the port never calls it)", flush=True)
     records = {}
     for name in FLASH_REPLACES:
@@ -494,7 +513,9 @@ def flash_phase(device):
             max_abs_err=errs[name], ms=ms[name], plain_ms=plain[name],
             bound_ms=bounds[name][0], bound_by=bounds[name][1],
             library_ms=sdpa_ms if name == "flash_fwd" else None,
-            shape=f"q,k,v[{b},{h},{n},64] bf16, seg[{b},{n}], not causal")
+            shape=f"q,k,v[{b},{h},{n},{FLASH_HEAD_DIM}] bf16, seg[{b},{n}], not causal")
+        if name != "flash_fwd":  # no one call computes dK, dV or dQ alone
+            records[name]["sdpa_backward_ms"] = sdpa_bwd_ms
     return records
 
 

@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels with
-// segment-id masking, for head_dim 64 and fp32 or bf16 inputs.
+// segment-id masking, for head_dim 64 and 128 and fp32 or bf16 inputs.
 //
 // Replaces the three Pallas TPU kernels that the JAX package reaches through
 // `_flash_self_attention` (hidvae_tpu/models/attention.py:75) and the `jax`
@@ -20,21 +20,47 @@
 // 3.35 TB/s against 0.8 ms of bf16 tensor-core work for the forward. So
 // arithmetic bounds every kernel, by a factor of four or more.
 //
-// Design. This first version does its arithmetic in fp32 FFMA (no tensor
-// cores, no TF32), so it is held to the 67 TFLOP/s fp32 rate, about 15x
-// above the bf16 tensor-core bound; moving the products to wgmma is later
-// work. What the design does for the arithmetic bound:
-//   * no [N, N] matrix ever reaches device memory: one block owns a 64-row
-//     tile (queries for the forward and dQ, keys for dK/dV) and streams the
-//     other side's 64-row tiles through shared memory, with an online
-//     softmax in the forward;
-//   * each of the 256 threads owns a 4 x 4 sub-tile of every 64 x 64
-//     product, so one broadcast and one contiguous 16-byte shared load feed
-//     16 FMAs;
-//   * the operands of the first products are stored transposed ([d][row],
-//     rows padded to 68 floats) so those loads are 16-byte and aligned;
-//   * causal blocks skip the tiles above the diagonal; ragged tails (rows or
-//     keys past N) are masked in the block, so N need not be a multiple of 64.
+// Two designs live here.
+//
+// * bf16 forward and dK/dV (`flash_fwd_tc_kernel`, `flash_bwd_dkv_tc_kernel`):
+//   tensor cores, mma.sync m16n8k16 on bf16 operands with fp32 accumulators
+//   (helpers in mma_bf16.cuh). Each warp owns 16 rows of the block's tile
+//   (queries in the forward, keys in dK/dV) and the full width of every
+//   product on them, so no sum crosses warps. The streamed side (K and V in
+//   the forward, Q and dO in dK/dV) comes through shared memory in bf16,
+//   double-buffered by cp.async: the copy of tile j+1 runs under the
+//   products on tile j, with one barrier per tile. Tiles are XOR-swizzled by
+//   16-byte chunk, so ldmatrix reads them without bank conflicts; V, dO and
+//   Q as right-hand operands of P.V, P^T.dO and dS^T.Q come through
+//   ldmatrix.trans, so nothing is transposed in shared memory. The softmax
+//   runs in registers: row max and sum per thread, combined over the four
+//   threads of a row with two shfl_xor; the S accumulator, rounded to bf16,
+//   is the A operand of P.V as it lies, so P never touches shared memory.
+//   dK/dV computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are A
+//   operands in the same way. As the library does (jax flash_attention.py
+//   :471, :900, :918), P, P^T and dS^T are rounded to bf16 before their
+//   products; the row sums use P before rounding.
+//   Masking keeps the library's additive -0.7 * FLT_MAX after sm_scale, and
+//   exponentials are exp2((x - m) * log2 e): log2 e multiplies a difference,
+//   never the mask value itself (-0.7 * FLT_MAX * 1.4427 overflows to -inf,
+//   and a fully masked row would then give exp(-inf + inf) = NaN instead of
+//   the library's uniform weights). Where the mask is 0 on a warp's whole
+//   16 x 64 block (every key exists, shares the rows' one segment and lies
+//   at or below the diagonal: most blocks of a long history), the forward
+//   skips the per-element mask and folds scale and log2 e into one FMA on
+//   the raw product; the max is then a real logit, so nothing overflows.
+//   The work stays dense: no block is skipped by segment.
+//
+// * fp32 (all three kernels) and the bf16 dQ: fp32 FFMA, one block of 256
+//   threads owning a 64-row tile, each thread a 4 x 4 sub-tile of every
+//   64 x 64 product; operands widened to fp32 in shared memory, the first
+//   products' operands stored transposed ([d][row], rows padded to 68
+//   floats) so their loads are 16-byte and aligned. fp32 products stay fp32,
+//   as the JAX package's are; the bf16 dQ moves to tensor cores later.
+//
+// Both: causal blocks skip the tiles above the diagonal; ragged tails (rows
+// or keys past N) are masked in the block, so N need not be a multiple of
+// 64. No tile is skipped by segment: the work is dense.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(); the Python wrapper (hidvae_tpu_torch/ops/
@@ -45,14 +71,22 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int DH = 64;         // head dim
-constexpr int TILE = 64;       // rows of every tile
-constexpr int THREADS = 256;   // 16 x 16 threads, a 4 x 4 sub-tile each
-constexpr int LD = 68;         // padded shared row, in floats (16-byte aligned)
-constexpr int TILE_FLOATS = TILE * LD;
+constexpr int TILE = 64;       // rows of every FFMA tile
+constexpr int THREADS = 256;   // FFMA: 16 x 16 threads, a 4 x 4 sub-tile each
+constexpr int LD = 68;         // padded transposed row [d][row], in floats (16-byte aligned)
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // the library's DEFAULT_MASK_VALUE
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Natural rows [row][d] of an FFMA tile, padded by 4 floats.
+template <int DH>
+constexpr int LDN = DH + 4;
+// Floats of one FFMA operand tile, transposed or natural.
+template <int DH>
+constexpr int TILE_FLOATS = DH * LD > TILE * LDN<DH> ? DH * LD : TILE * LDN<DH>;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -84,7 +118,7 @@ __device__ __forceinline__ float get(const float4& v, int i) {
 
 // Rows [row0, row0 + n) of a [*, DH] matrix into dst[d * LD + r] (transposed);
 // rows r >= n are zero.
-template <typename T>
+template <int DH, typename T>
 __device__ __forceinline__ void load_tile_t(const T* src, int n, float* dst) {
   for (int idx = threadIdx.x; idx < TILE * DH / 4; idx += THREADS) {
     const int r = idx % TILE, d0 = (idx / TILE) * 4;
@@ -96,18 +130,19 @@ __device__ __forceinline__ void load_tile_t(const T* src, int n, float* dst) {
   }
 }
 
-// The same rows into dst[r * LD + d] (natural layout); rows r >= n are zero.
-template <typename T>
+// The same rows into dst[r * LDN + d] (natural layout); rows r >= n are zero.
+template <int DH, typename T>
 __device__ __forceinline__ void load_tile_n(const T* src, int n, float* dst) {
   for (int idx = threadIdx.x; idx < TILE * DH / 4; idx += THREADS) {
     const int r = idx / (DH / 4), d0 = (idx % (DH / 4)) * 4;
     const float4 x = r < n ? load4(src + (size_t)r * DH + d0) : make_float4(0.f, 0.f, 0.f, 0.f);
-    store4(dst + r * LD + d0, x);
+    store4(dst + r * LDN<DH> + d0, x);
   }
 }
 
 // acc[a][c] += sum_d A[d][ra + a] * B[d][rb + c] over d < DH, both operands
 // stored transposed.
+template <int DH>
 __device__ __forceinline__ void mma_tt(const float* at, int ra, const float* bt, int rb,
                                        float acc[4][4]) {
 #pragma unroll 8
@@ -122,13 +157,14 @@ __device__ __forceinline__ void mma_tt(const float* at, int ra, const float* bt,
 }
 
 // acc[a][c] += sum_r P[r][ra + a] * X[r][cb + c] over r < TILE: P stored
-// [r][row], X in natural layout [r][col].
+// [r][row] (stride LD), X in natural layout [r][col] (stride LDX).
+template <int LDX>
 __device__ __forceinline__ void mma_nn(const float* p, int ra, const float* x, int cb,
                                        float acc[4][4]) {
 #pragma unroll 8
   for (int r = 0; r < TILE; ++r) {
     const float4 a = load4(p + r * LD + ra);
-    const float4 b = load4(x + r * LD + cb);
+    const float4 b = load4(x + r * LDX + cb);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -157,6 +193,17 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// Max or sum over the four threads of an mma row (lanes 4g .. 4g + 3).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // The library's masked, scaled logit of query `row` against key `col`;
 // keys at or past nk do not exist (-inf).
 __device__ __forceinline__ float masked_logit(float s, float scale, int row, int col, int nk,
@@ -166,20 +213,400 @@ __device__ __forceinline__ float masked_logit(float s, float scale, int row, int
   return s * scale + (ok ? 0.f : MASK_VALUE);
 }
 
+// ==== bf16 on tensor cores =================================================
+
+using namespace mma_bf16;
+using bf16 = __nv_bfloat16;
+
 // ---- forward --------------------------------------------------------------
-// grid (ceil(Nq / 64), H, B). Writes O [B, H, Nq, 64] and the row logsumexp
+// grid (ceil(Nq / BM), H, B). Writes O [B, H, Nq, DH] and the row logsumexp
 // lse [B, H, Nq] (fp32), which the backward kernels use for P.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int DH>
+struct FwdTC {
+  static constexpr int WARPS = 8;           // 16 query rows each
+  static constexpr int BM = 16 * WARPS;     // query rows per block
+  static constexpr int BN = 64;             // keys per streamed tile
+  static constexpr int NTHREADS = 32 * WARPS;
+  static constexpr int CHUNKS = DH / 8;     // 16-byte chunks per row
+  // Q tile, two stages of K and of V (bf16), two stages of kv segment ids.
+  static constexpr size_t SMEM = (size_t)(BM + 4 * BN) * DH * 2 + 2 * BN * 4;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(FwdTC<DH>::NTHREADS, DH == 64 ? 2 : 1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_kv, bf16* __restrict__ o,
+                    float* __restrict__ lse, int H, int Nq, int Nk, int causal, float scale) {
+  using C = FwdTC<DH>;
+  constexpr int BM = C::BM, BN = C::BN, CH = C::CHUNKS;
+  constexpr uint32_t KV_BYTES = BN * DH * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK = sQ + BM * DH * 2;
+  const uint32_t sV = sK + 2 * KV_BYTES;
+  const int* s_seg = reinterpret_cast<const int*>(smem + (size_t)(BM + 4 * BN) * DH * 2);
+  const uint32_t sSeg = smem_u32(s_seg);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, bh = b * H + blockIdx.y;
+  const int q0 = blockIdx.x * BM, mq = min(BM, Nq - q0);
+  const bf16* kb = k + (size_t)bh * Nk * DH;
+  const bf16* vb = v + (size_t)bh * Nk * DH;
+  const int* skv_b = seg_kv + (size_t)b * Nk;
+  const int k_end = causal ? min(Nk, q0 + mq) : Nk;
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  auto load_kv = [&](int stage, int k0) {
+    const int nk = min(BN, Nk - k0);
+    load_tile_async<BN, DH>(sK + stage * KV_BYTES, kb + (size_t)k0 * DH, nk, tid, C::NTHREADS);
+    load_tile_async<BN, DH>(sV + stage * KV_BYTES, vb + (size_t)k0 * DH, nk, tid, C::NTHREADS);
+    if (tid < BN) cp_async_4(sSeg + (stage * BN + tid) * 4, skv_b + k0 + min(tid, nk - 1), tid < nk);
+  };
+
+  load_tile_async<BM, DH>(sQ, q + ((size_t)bh * Nq + q0) * DH, mq, tid, C::NTHREADS);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // This thread's two query rows: g and g + 8 of the warp's 16.
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const int sq_lo = row_lo < Nq ? seg_q[(size_t)b * Nq + row_lo] : 0;
+  const int sq_hi = row_hi < Nq ? seg_q[(size_t)b * Nq + row_hi] : 0;
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (natural units)
+  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sum
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1, k0 = j * BN;
+    if (j + 1 < n_tiles) load_kv(stage ^ 1, k0 + BN);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and, on the first, Q) has landed
+    __syncthreads();
+    const uint32_t tK = sK + stage * KV_BYTES, tV = sV + stage * KV_BYTES;
+
+    // S = Q K^T: 16 rows x BN keys per warp; the Q fragments come from the
+    // resident Q tile each time (holding them would spill at DH 64).
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qa[4];
+      load_a(qa, sQ, warp * 16, kk, CH, lane);
+#pragma unroll
+      for (int nb = 0; nb < BN / 16; ++nb) {
+        uint32_t bf[4];
+        load_b_rows(bf, tK, nb * 16, kk, CH, lane);
+        mma_16816(s[2 * nb], qa, bf[0], bf[1]);
+        mma_16816(s[2 * nb + 1], qa, bf[2], bf[3]);
+      }
+    }
+
+    // Whether the mask is 0 on the whole 16 x BN block of this warp: every
+    // key exists, lies at or below every row (causal), and shares the one
+    // segment of all 16 rows. Warp-uniform. Such blocks (most of a long
+    // history's) skip the per-element mask; the work stays dense.
+    const int seg_a = s_seg[stage * BN + lane], seg_b = s_seg[stage * BN + 32 + lane];
+    const int seg_u = __shfl_sync(0xffffffffu, seg_a, 0);
+    const bool unmasked =
+        __all_sync(0xffffffffu, seg_a == seg_u && seg_b == seg_u && sq_lo == seg_u &&
+                                    sq_hi == seg_u) &&
+        k0 + BN <= Nk && (!causal || k0 + BN - 1 <= q0 + warp * 16);
+
+    // Masked, scaled logits (or, unmasked, the raw products) and the tile's
+    // row max of the logits.
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+    if (unmasked) {
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[nj][0], s[nj][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[nj][2], s[nj][3]));
+      }
+      mx_lo *= scale;  // scale > 0
+      mx_hi *= scale;
+    } else {
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nj * 8 + 2 * t + e;
+          const int skv = s_seg[stage * BN + col];
+          s[nj][e] = masked_logit(s[nj][e], scale, row_lo, k0 + col, Nk, sq_lo, skv, causal);
+          s[nj][2 + e] =
+              masked_logit(s[nj][2 + e], scale, row_hi, k0 + col, Nk, sq_hi, skv, causal);
+          mx_lo = fmaxf(mx_lo, s[nj][e]);
+          mx_hi = fmaxf(mx_hi, s[nj][2 + e]);
+        }
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));  // finite: key 0 is in tile 0
+    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+    const float alpha_lo = exp2_approx((m_lo - mn_lo) * LOG2E);  // 0 on the first tile
+    const float alpha_hi = exp2_approx((m_hi - mn_hi) * LOG2E);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= alpha_lo;
+    l_hi *= alpha_hi;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      acc[i][0] *= alpha_lo;
+      acc[i][1] *= alpha_lo;
+      acc[i][2] *= alpha_hi;
+      acc[i][3] *= alpha_hi;
+    }
+    if (unmasked) {  // mn is a real logit here, so mn * log2 e is finite
+      const float c = scale * LOG2E, b_lo = -mn_lo * LOG2E, b_hi = -mn_hi * LOG2E;
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nj][e] = exp2_approx(fmaf(s[nj][e], c, b_lo));
+          s[nj][2 + e] = exp2_approx(fmaf(s[nj][2 + e], c, b_hi));
+        }
+    } else {
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nj][e] = exp2_approx((s[nj][e] - mn_lo) * LOG2E);
+          s[nj][2 + e] = exp2_approx((s[nj][2 + e] - mn_hi) * LOG2E);
+        }
+    }
+#pragma unroll
+    for (int nj = 0; nj < BN / 8; ++nj) {
+      l_lo += s[nj][0] + s[nj][1];
+      l_hi += s[nj][2] + s[nj][3];
+    }
+
+    // O += P V, P rounded to bf16 in registers as the A operand.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int db = 0; db < DH / 16; ++db) {
+        uint32_t bf[4];
+        load_b_cols(bf, tV, kk * 16, db, CH, lane);
+        mma_16816(acc[2 * db], pa, bf[0], bf[1]);
+        mma_16816(acc[2 * db + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  bf16* ob = o + (size_t)bh * Nq * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    if (row_lo < Nq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row_lo * DH + col) =
+          pack_bf16(acc[i][0] * inv_lo, acc[i][1] * inv_lo);
+    if (row_hi < Nq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row_hi * DH + col) =
+          pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
+  }
+  if (t == 0) {
+    if (row_lo < Nq) lse[(size_t)bh * Nq + row_lo] = m_lo + logf(l_lo);
+    if (row_hi < Nq) lse[(size_t)bh * Nq + row_hi] = m_hi + logf(l_hi);
+  }
+}
+
+// ---- backward: dK, dV ------------------------------------------------------
+// grid (ceil(Nk / BK), H, B). One block owns BK keys and streams the query
+// tiles: S^T = K Q^T, P^T = exp(S^T * scale + mask - lse), dP^T = V dO^T,
+// dS^T = P^T (dP^T - di), dV += P^T dO, dK += dS^T Q; dK * scale at the end.
+template <int DH>
+struct DkvTC {
+  static constexpr int WARPS = 4;                // 16 key rows each
+  static constexpr int BK = 16 * WARPS;          // keys per block
+  static constexpr int BQ = DH == 64 ? 64 : 32;  // queries per streamed tile
+  static constexpr int NTHREADS = 32 * WARPS;
+  static constexpr int CHUNKS = DH / 8;
+  // K and V tiles, two stages of Q and of dO (bf16), two stages of the
+  // query rows' lse, di and segment ids.
+  static constexpr size_t SMEM = (size_t)(2 * BK + 4 * BQ) * DH * 2 + 2 * 3 * BQ * 4;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(DkvTC<DH>::NTHREADS)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int H, int Nq, int Nk, int causal, float scale) {
+  using C = DkvTC<DH>;
+  constexpr int BK = C::BK, BQ = C::BQ, CH = C::CHUNKS;
+  constexpr uint32_t Q_BYTES = BQ * DH * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + BK * DH * 2;
+  const uint32_t sQ = sV + BK * DH * 2;
+  const uint32_t sdO = sQ + 2 * Q_BYTES;
+  const float* s_rows = reinterpret_cast<const float*>(smem + (size_t)(2 * BK + 4 * BQ) * DH * 2);
+  const uint32_t sRows = smem_u32(s_rows);  // [stage][lse, di, seg][BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, bh = b * H + blockIdx.y;
+  const int k0 = blockIdx.x * BK, nk = min(BK, Nk - k0);
+  const bf16* qb = q + (size_t)bh * Nq * DH;
+  const bf16* dob = dout + (size_t)bh * Nq * DH;
+  const float* lse_b = lse + (size_t)bh * Nq;
+  const float* di_b = di + (size_t)bh * Nq;
+  const int* sq_b = seg_q + (size_t)b * Nq;
+
+  auto load_q = [&](int stage, int q0) {
+    const int mq = min(BQ, Nq - q0);
+    load_tile_async<BQ, DH>(sQ + stage * Q_BYTES, qb + (size_t)q0 * DH, mq, tid, C::NTHREADS);
+    load_tile_async<BQ, DH>(sdO + stage * Q_BYTES, dob + (size_t)q0 * DH, mq, tid, C::NTHREADS);
+    if (tid < BQ) {  // rows past Nq read as zeros: their dO is zero, so they add nothing
+      const int r = q0 + min(tid, mq - 1);
+      const uint32_t dst = sRows + (stage * 3 * BQ + tid) * 4;
+      cp_async_4(dst, lse_b + r, tid < mq);
+      cp_async_4(dst + BQ * 4, di_b + r, tid < mq);
+      cp_async_4(dst + 2 * BQ * 4, sq_b + r, tid < mq);
+    }
+  };
+
+  load_tile_async<BK, DH>(sK, k + ((size_t)bh * Nk + k0) * DH, nk, tid, C::NTHREADS);
+  load_tile_async<BK, DH>(sV, v + ((size_t)bh * Nk + k0) * DH, nk, tid, C::NTHREADS);
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int n_tiles = Nq > q_begin ? (Nq - q_begin + BQ - 1) / BQ : 0;
+  if (n_tiles > 0) load_q(0, q_begin);
+  cp_async_commit();
+
+  // This thread's two key rows: g and g + 8 of the warp's 16.
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  const int skv_lo = key_lo < Nk ? seg_kv[(size_t)b * Nk + key_lo] : 0;
+  const int skv_hi = key_hi < Nk ? seg_kv[(size_t)b * Nk + key_hi] : 0;
+  float acc_k[DH / 8][4], acc_v[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1, q0 = q_begin + j * BQ;
+    if (j + 1 < n_tiles) load_q(stage ^ 1, q0 + BQ);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and, on the first, K and V) has landed
+    __syncthreads();
+    const uint32_t tQ = sQ + stage * Q_BYTES, tdO = sdO + stage * Q_BYTES;
+    const float* r_lse = s_rows + stage * 3 * BQ;
+    const float* r_di = r_lse + BQ;
+    const int* r_seg = reinterpret_cast<const int*>(r_di + BQ);
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp.
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[i][c] = dpt[i][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a(ka, sK, warp * 16, kk, CH, lane);
+      load_a(va, sV, warp * 16, kk, CH, lane);
+#pragma unroll
+      for (int nb = 0; nb < BQ / 16; ++nb) {
+        uint32_t bf[4];
+        load_b_rows(bf, tQ, nb * 16, kk, CH, lane);
+        mma_16816(st[2 * nb], ka, bf[0], bf[1]);
+        mma_16816(st[2 * nb + 1], ka, bf[2], bf[3]);
+        load_b_rows(bf, tdO, nb * 16, kk, CH, lane);
+        mma_16816(dpt[2 * nb], va, bf[0], bf[1]);
+        mma_16816(dpt[2 * nb + 1], va, bf[2], bf[3]);
+      }
+    }
+
+    // P^T and dS^T = P^T (dP^T - di), elementwise in registers.
+#pragma unroll
+    for (int nj = 0; nj < BQ / 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nj * 8 + 2 * t + e, row = q0 + col;
+        const float lse_q = r_lse[col], di_q = r_di[col];
+        const int sq = r_seg[col];
+        const float p_lo = exp2_approx(
+            (masked_logit(st[nj][e], scale, row, key_lo, Nk, sq, skv_lo, causal) - lse_q) * LOG2E);
+        const float p_hi = exp2_approx(
+            (masked_logit(st[nj][2 + e], scale, row, key_hi, Nk, sq, skv_hi, causal) - lse_q) *
+            LOG2E);
+        st[nj][e] = p_lo;
+        st[nj][2 + e] = p_hi;
+        dpt[nj][e] = p_lo * (dpt[nj][e] - di_q);
+        dpt[nj][2 + e] = p_hi * (dpt[nj][2 + e] - di_q);
+      }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 as A operands.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int db = 0; db < DH / 16; ++db) {
+        uint32_t bf[4];
+        load_b_cols(bf, tdO, kk * 16, db, CH, lane);
+        mma_16816(acc_v[2 * db], pa, bf[0], bf[1]);
+        mma_16816(acc_v[2 * db + 1], pa, bf[2], bf[3]);
+        load_b_cols(bf, tQ, kk * 16, db, CH, lane);
+        mma_16816(acc_k[2 * db], da, bf[0], bf[1]);
+        mma_16816(acc_k[2 * db + 1], da, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  bf16* dkb = dk + (size_t)bh * Nk * DH;
+  bf16* dvb = dv + (size_t)bh * Nk * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    if (key_lo < Nk) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)key_lo * DH + col) =
+          pack_bf16(acc_k[i][0] * scale, acc_k[i][1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)key_lo * DH + col) =
+          pack_bf16(acc_v[i][0], acc_v[i][1]);
+    }
+    if (key_hi < Nk) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)key_hi * DH + col) =
+          pack_bf16(acc_k[i][2] * scale, acc_k[i][3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)key_hi * DH + col) =
+          pack_bf16(acc_v[i][2], acc_v[i][3]);
+    }
+  }
+}
+
+// ==== fp32 FFMA ============================================================
+
+// ---- forward (fp32) --------------------------------------------------------
+// grid (ceil(Nq / 64), H, B). Writes O [B, H, Nq, DH] and lse [B, H, Nq].
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                  T* __restrict__ o, float* __restrict__ lse,
                  int H, int Nq, int Nk, int causal, float scale) {
+  constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;  // CG column groups of 64
   extern __shared__ float4 smem4[];
   float* q_t = reinterpret_cast<float*>(smem4);
-  float* k_t = q_t + TILE_FLOATS;
-  float* v_n = k_t + TILE_FLOATS;
-  float* p_t = v_n + TILE_FLOATS;  // P transposed: p_t[key][query]
+  float* k_t = q_t + TF;
+  float* v_n = k_t + TF;
+  float* p_t = v_n + TF;  // P transposed: p_t[key][query]
   __shared__ int sq[TILE], skv[TILE];
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -190,29 +617,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (size_t)bh * Nk * DH;
   const T* vb = v + (size_t)bh * Nk * DH;
 
-  load_tile_t(qb, mq, q_t);
+  load_tile_t<DH>(qb, mq, q_t);
   if (threadIdx.x < TILE) sq[threadIdx.x] = threadIdx.x < mq ? seg_q[(size_t)b * Nq + q0 + threadIdx.x] : 0;
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[CG][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int cg = 0; cg < CG; ++cg)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[cg][i][c] = 0.f;
   }
 
   const int k_end = causal ? min(Nk, q0 + mq) : Nk;
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     const int nk = min(TILE, Nk - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_tile_t(kb + (size_t)k0 * DH, nk, k_t);
-    load_tile_n(vb + (size_t)k0 * DH, nk, v_n);
+    load_tile_t<DH>(kb + (size_t)k0 * DH, nk, k_t);
+    load_tile_n<DH>(vb + (size_t)k0 * DH, nk, v_n);
     if (threadIdx.x < TILE) skv[threadIdx.x] = threadIdx.x < nk ? seg_kv[(size_t)b * Nk + k0 + threadIdx.x] : 0;
     __syncthreads();
 
     float s[4][4] = {};
-    mma_tt(q_t, ty * 4, k_t, tx * 4, s);
+    mma_tt<DH>(q_t, ty * 4, k_t, tx * 4, s);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -235,11 +664,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l[i] = l[i] * alpha + half_warp_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+      for (int cg = 0; cg < CG; ++cg)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[cg][i][c] *= alpha;
     }
     store_t(p_t, ty * 4, tx * 4, s);
     __syncthreads();
-    mma_nn(p_t, ty * 4, v_n, tx * 4, acc);
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) mma_nn<LDN<DH>>(p_t, ty * 4, v_n, cg * 64 + tx * 4, acc[cg]);
   }
 
   T* ob = o + ((size_t)bh * Nq + q0) * DH;
@@ -248,30 +680,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = ty * 4 + i;
     if (r >= mq) continue;
     const float inv = 1.f / l[i];
-    store4(ob + (size_t)r * DH + tx * 4,
-           make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv));
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg)
+      store4(ob + (size_t)r * DH + cg * 64 + tx * 4,
+             make_float4(acc[cg][i][0] * inv, acc[cg][i][1] * inv, acc[cg][i][2] * inv,
+                         acc[cg][i][3] * inv));
     if (tx == 0) lse[(size_t)bh * Nq + q0 + r] = m[i] + logf(l[i]);
   }
 }
 
-// ---- backward: dK, dV -----------------------------------------------------
+// ---- backward: dK, dV (fp32) ----------------------------------------------
 // grid (ceil(Nk / 64), H, B). One block owns 64 keys and streams the query
 // tiles: P^T = exp(S^T - lse), dP^T = V dO^T, dS^T = P^T (dP^T - di) * scale,
 // dV += P^T dO, dK += dS^T Q.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
                      int H, int Nq, int Nk, int causal, float scale) {
+  constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;
   extern __shared__ float4 smem4[];
   float* k_t = reinterpret_cast<float*>(smem4);
-  float* v_t = k_t + TILE_FLOATS;
-  float* buf_q = v_t + TILE_FLOATS;    // Q transposed, then Q natural
-  float* buf_do = buf_q + TILE_FLOATS;  // dO transposed, then dO natural
-  float* p_s = buf_do + TILE_FLOATS;   // P as [query][key]
-  float* ds_s = p_s + TILE_FLOATS;     // dS as [query][key]
+  float* v_t = k_t + TF;
+  float* buf_q = v_t + TF;     // Q transposed, then Q natural
+  float* buf_do = buf_q + TF;  // dO transposed, then dO natural
+  float* p_s = buf_do + TF;    // P as [query][key]
+  float* ds_s = p_s + TILE * LD;  // dS as [query][key]
   __shared__ int sq[TILE], skv[TILE];
   __shared__ float s_lse[TILE], s_di[TILE];
 
@@ -282,17 +718,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const T* qb = q + (size_t)bh * Nq * DH;
   const T* dob = dout + (size_t)bh * Nq * DH;
 
-  load_tile_t(k + ((size_t)bh * Nk + k0) * DH, nk, k_t);
-  load_tile_t(v + ((size_t)bh * Nk + k0) * DH, nk, v_t);
+  load_tile_t<DH>(k + ((size_t)bh * Nk + k0) * DH, nk, k_t);
+  load_tile_t<DH>(v + ((size_t)bh * Nk + k0) * DH, nk, v_t);
   if (threadIdx.x < TILE) skv[threadIdx.x] = threadIdx.x < nk ? seg_kv[(size_t)b * Nk + k0 + threadIdx.x] : 0;
 
-  float acc_k[4][4] = {}, acc_v[4][4] = {};
+  float acc_k[CG][4][4] = {}, acc_v[CG][4][4] = {};
   const int q_begin = causal ? (k0 / TILE) * TILE : 0;
   for (int q0 = q_begin; q0 < Nq; q0 += TILE) {
     const int mq = min(TILE, Nq - q0);
     __syncthreads();
-    load_tile_t(qb + (size_t)q0 * DH, mq, buf_q);
-    load_tile_t(dob + (size_t)q0 * DH, mq, buf_do);
+    load_tile_t<DH>(qb + (size_t)q0 * DH, mq, buf_q);
+    load_tile_t<DH>(dob + (size_t)q0 * DH, mq, buf_do);
     if (threadIdx.x < TILE) {
       const bool in = threadIdx.x < mq;
       const size_t row = (size_t)bh * Nq + q0 + threadIdx.x;
@@ -303,8 +739,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
-    mma_tt(k_t, ty * 4, buf_q, tx * 4, s);
-    mma_tt(v_t, ty * 4, buf_do, tx * 4, dp);
+    mma_tt<DH>(k_t, ty * 4, buf_q, tx * 4, s);
+    mma_tt<DH>(v_t, ty * 4, buf_do, tx * 4, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -320,11 +756,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();  // done reading the transposed Q and dO
     store_t(p_s, ty * 4, tx * 4, s);
     store_t(ds_s, ty * 4, tx * 4, dp);
-    load_tile_n(qb + (size_t)q0 * DH, mq, buf_q);
-    load_tile_n(dob + (size_t)q0 * DH, mq, buf_do);
+    load_tile_n<DH>(qb + (size_t)q0 * DH, mq, buf_q);
+    load_tile_n<DH>(dob + (size_t)q0 * DH, mq, buf_do);
     __syncthreads();
-    mma_nn(p_s, ty * 4, buf_do, tx * 4, acc_v);
-    mma_nn(ds_s, ty * 4, buf_q, tx * 4, acc_k);
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) {
+      mma_nn<LDN<DH>>(p_s, ty * 4, buf_do, cg * 64 + tx * 4, acc_v[cg]);
+      mma_nn<LDN<DH>>(ds_s, ty * 4, buf_q, cg * 64 + tx * 4, acc_k[cg]);
+    }
   }
 
   T* dkb = dk + ((size_t)bh * Nk + k0) * DH;
@@ -333,27 +772,34 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int a = 0; a < 4; ++a) {
     const int r = ty * 4 + a;
     if (r >= nk) continue;
-    store4(dkb + (size_t)r * DH + tx * 4, make_float4(acc_k[a][0], acc_k[a][1], acc_k[a][2], acc_k[a][3]));
-    store4(dvb + (size_t)r * DH + tx * 4, make_float4(acc_v[a][0], acc_v[a][1], acc_v[a][2], acc_v[a][3]));
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) {
+      const int c0 = cg * 64 + tx * 4;
+      store4(dkb + (size_t)r * DH + c0,
+             make_float4(acc_k[cg][a][0], acc_k[cg][a][1], acc_k[cg][a][2], acc_k[cg][a][3]));
+      store4(dvb + (size_t)r * DH + c0,
+             make_float4(acc_v[cg][a][0], acc_v[cg][a][1], acc_v[cg][a][2], acc_v[cg][a][3]));
+    }
   }
 }
 
-// ---- backward: dQ ---------------------------------------------------------
+// ---- backward: dQ (fp32 and bf16) ------------------------------------------
 // grid (ceil(Nq / 64), H, B). One block owns 64 queries and streams the key
 // tiles: P = exp(S - lse), dP = dO V^T, dS = P (dP - di) * scale, dQ += dS K.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, T* __restrict__ dq,
                     int H, int Nq, int Nk, int causal, float scale) {
+  constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;
   extern __shared__ float4 smem4[];
   float* q_t = reinterpret_cast<float*>(smem4);
-  float* do_t = q_t + TILE_FLOATS;
-  float* buf_k = do_t + TILE_FLOATS;  // K transposed, then K natural
-  float* v_t = buf_k + TILE_FLOATS;
-  float* ds_t = v_t + TILE_FLOATS;    // dS transposed: ds_t[key][query]
+  float* do_t = q_t + TF;
+  float* buf_k = do_t + TF;  // K transposed, then K natural
+  float* v_t = buf_k + TF;
+  float* ds_t = v_t + TF;    // dS transposed: ds_t[key][query]
   __shared__ int sq[TILE], skv[TILE];
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // ty: queries, tx: keys
@@ -363,8 +809,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* kb = k + (size_t)bh * Nk * DH;
   const T* vb = v + (size_t)bh * Nk * DH;
 
-  load_tile_t(q + ((size_t)bh * Nq + q0) * DH, mq, q_t);
-  load_tile_t(dout + ((size_t)bh * Nq + q0) * DH, mq, do_t);
+  load_tile_t<DH>(q + ((size_t)bh * Nq + q0) * DH, mq, q_t);
+  load_tile_t<DH>(dout + ((size_t)bh * Nq + q0) * DH, mq, do_t);
   if (threadIdx.x < TILE) sq[threadIdx.x] = threadIdx.x < mq ? seg_q[(size_t)b * Nq + q0 + threadIdx.x] : 0;
   float row_lse[4], row_di[4];
 #pragma unroll
@@ -374,19 +820,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     row_di[i] = r < mq ? di[(size_t)bh * Nq + q0 + r] : 0.f;
   }
 
-  float acc[4][4] = {};
+  float acc[CG][4][4] = {};
   const int k_end = causal ? min(Nk, q0 + mq) : Nk;
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     const int nk = min(TILE, Nk - k0);
     __syncthreads();
-    load_tile_t(kb + (size_t)k0 * DH, nk, buf_k);
-    load_tile_t(vb + (size_t)k0 * DH, nk, v_t);
+    load_tile_t<DH>(kb + (size_t)k0 * DH, nk, buf_k);
+    load_tile_t<DH>(vb + (size_t)k0 * DH, nk, v_t);
     if (threadIdx.x < TILE) skv[threadIdx.x] = threadIdx.x < nk ? seg_kv[(size_t)b * Nk + k0 + threadIdx.x] : 0;
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
-    mma_tt(q_t, ty * 4, buf_k, tx * 4, s);
-    mma_tt(do_t, ty * 4, v_t, tx * 4, dp);
+    mma_tt<DH>(q_t, ty * 4, buf_k, tx * 4, s);
+    mma_tt<DH>(do_t, ty * 4, v_t, tx * 4, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -399,9 +845,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     __syncthreads();  // done reading the transposed K
     store_t(ds_t, ty * 4, tx * 4, dp);
-    load_tile_n(kb + (size_t)k0 * DH, nk, buf_k);
+    load_tile_n<DH>(kb + (size_t)k0 * DH, nk, buf_k);
     __syncthreads();
-    mma_nn(ds_t, ty * 4, buf_k, tx * 4, acc);
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) mma_nn<LDN<DH>>(ds_t, ty * 4, buf_k, cg * 64 + tx * 4, acc[cg]);
   }
 
   T* dqb = dq + ((size_t)bh * Nq + q0) * DH;
@@ -409,93 +856,126 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= mq) continue;
-    store4(dqb + (size_t)r * DH + tx * 4, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg)
+      store4(dqb + (size_t)r * DH + cg * 64 + tx * 4,
+             make_float4(acc[cg][i][0], acc[cg][i][1], acc[cg][i][2], acc[cg][i][3]));
   }
 }
 
-constexpr size_t FWD_SMEM = 4 * TILE_FLOATS * sizeof(float);
-constexpr size_t DKV_SMEM = 6 * TILE_FLOATS * sizeof(float);
-constexpr size_t DQ_SMEM = 5 * TILE_FLOATS * sizeof(float);
+// ==== launches =============================================================
 
-inline dim3 grid_for(int n, int H, int B) { return dim3((n + TILE - 1) / TILE, H, B); }
+template <int DH>
+constexpr size_t FWD_SMEM = 4 * TILE_FLOATS<DH> * sizeof(float);
+template <int DH>
+constexpr size_t DKV_SMEM = (4 * TILE_FLOATS<DH> + 2 * TILE * LD) * sizeof(float);
+template <int DH>
+constexpr size_t DQ_SMEM = (4 * TILE_FLOATS<DH> + TILE * LD) * sizeof(float);
 
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_kv, void* o,
-        float* lse, int B, int H, int Nq, int Nk, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+inline dim3 grid_for(int n, int rows, int H, int B) { return dim3((n + rows - 1) / rows, H, B); }
+
+// Sets the kernel's dynamic shared memory and launches it; returns the
+// launch status.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T><<<grid_for(Nq, H, B), THREADS, FWD_SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, seg_q, seg_kv, (T*)o, lse, H, Nq, Nk, causal, scale);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd_dkv(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_kv,
-            const void* dout, const float* lse, const float* di, void* dk, void* dv, int B, int H,
-            int Nq, int Nk, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T><<<grid_for(Nk, H, B), THREADS, DKV_SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, seg_q, seg_kv, (const T*)dout, lse, di, (T*)dk,
-      (T*)dv, H, Nq, Nk, causal, scale);
-  return (int)cudaGetLastError();
+template <int DH>
+int fwd(int dtype, const void* q, const void* k, const void* v, const int* seg_q,
+        const int* seg_kv, void* o, float* lse, int B, int H, int Nq, int Nk, int causal,
+        float scale, cudaStream_t s) {
+  if (dtype == 1) {
+    using C = FwdTC<DH>;
+    return launch(flash_fwd_tc_kernel<DH>, grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM, s,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (bf16*)o, lse,
+                  H, Nq, Nk, causal, scale);
+  }
+  return launch(flash_fwd_kernel<float, DH>, grid_for(Nq, TILE, H, B), THREADS, FWD_SMEM<DH>, s,
+                (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv, (float*)o, lse,
+                H, Nq, Nk, causal, scale);
 }
 
-template <typename T>
+template <int DH>
+int bwd_dkv(int dtype, const void* q, const void* k, const void* v, const int* seg_q,
+            const int* seg_kv, const void* dout, const float* lse, const float* di, void* dk,
+            void* dv, int B, int H, int Nq, int Nk, int causal, float scale, cudaStream_t s) {
+  if (dtype == 1) {
+    using C = DkvTC<DH>;
+    return launch(flash_bwd_dkv_tc_kernel<DH>, grid_for(Nk, C::BK, H, B), C::NTHREADS, C::SMEM,
+                  s, (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv,
+                  (const bf16*)dout, lse, di, (bf16*)dk, (bf16*)dv, H, Nq, Nk, causal, scale);
+  }
+  return launch(flash_bwd_dkv_kernel<float, DH>, grid_for(Nk, TILE, H, B), THREADS, DKV_SMEM<DH>,
+                s, (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,
+                (const float*)dout, lse, di, (float*)dk, (float*)dv, H, Nq, Nk, causal, scale);
+}
+
+template <typename T, int DH>
 int bwd_dq(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_kv,
            const void* dout, const float* lse, const float* di, void* dq, int B, int H, int Nq,
-           int Nk, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T><<<grid_for(Nq, H, B), THREADS, DQ_SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, seg_q, seg_kv, (const T*)dout, lse, di, (T*)dq, H,
-      Nq, Nk, causal, scale);
-  return (int)cudaGetLastError();
+           int Nk, int causal, float scale, cudaStream_t s) {
+  return launch(flash_bwd_dq_kernel<T, DH>, grid_for(Nq, TILE, H, B), THREADS, DQ_SMEM<DH>, s,
+                (const T*)q, (const T*)k, (const T*)v, seg_q, seg_kv, (const T*)dout, lse, di,
+                (T*)dq, H, Nq, Nk, causal, scale);
 }
 
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
+inline bool supported(int head_dim, int dtype) {
+  return (head_dim == 64 || head_dim == 128) && (dtype == DTYPE_F32 || dtype == DTYPE_BF16);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs O, dQ, dK,
 // dV share it); lse and di are float32; segment ids int32 [B, N]. All
-// tensors contiguous, [B, H, N, 64] for the matrices.
+// tensors contiguous, [B, H, N, head_dim] for the matrices; head_dim 64 or
+// 128. Other widths or types return cudaErrorInvalidValue.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const int* seg_q,
                                 const int* seg_kv, void* o, float* lse, int B, int H, int Nq,
-                                int Nk, int dtype, int causal, float scale, void* stream) {
+                                int Nk, int head_dim, int dtype, int causal, float scale,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32) return fwd<float>(q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s);
-  if (dtype == DTYPE_BF16)
-    return fwd<__nv_bfloat16>(q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
+  return head_dim == 64
+             ? fwd<64>(dtype, q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s)
+             : fwd<128>(dtype, q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const int* seg_q,
                                     const int* seg_kv, const void* dout, const float* lse,
                                     const float* di, void* dk, void* dv, int B, int H, int Nq,
-                                    int Nk, int dtype, int causal, float scale, void* stream) {
+                                    int Nk, int head_dim, int dtype, int causal, float scale,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return bwd_dkv<float>(q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B, H, Nq, Nk, causal, scale, s);
-  if (dtype == DTYPE_BF16)
-    return bwd_dkv<__nv_bfloat16>(q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B, H, Nq, Nk,
-                                  causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
+  return head_dim == 64 ? bwd_dkv<64>(dtype, q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B,
+                                      H, Nq, Nk, causal, scale, s)
+                        : bwd_dkv<128>(dtype, q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B,
+                                       H, Nq, Nk, causal, scale, s);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const int* seg_q,
                                    const int* seg_kv, const void* dout, const float* lse,
                                    const float* di, void* dq, int B, int H, int Nq, int Nk,
-                                   int dtype, int causal, float scale, void* stream) {
+                                   int head_dim, int dtype, int causal, float scale,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return bwd_dq<float>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq, Nk, causal, scale, s);
-  if (dtype == DTYPE_BF16)
-    return bwd_dq<__nv_bfloat16>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq, Nk, causal,
-                                 scale, s);
-  return (int)cudaErrorInvalidValue;
+    return head_dim == 64 ? bwd_dq<float, 64>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H,
+                                              Nq, Nk, causal, scale, s)
+                          : bwd_dq<float, 128>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H,
+                                               Nq, Nk, causal, scale, s);
+  return head_dim == 64 ? bwd_dq<bf16, 64>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq,
+                                           Nk, causal, scale, s)
+                        : bwd_dq<bf16, 128>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq,
+                                            Nk, causal, scale, s);
 }

@@ -17,7 +17,10 @@
 // D = 64) and its K squared norms in shared memory, so the inner loop is a
 // broadcast 16-byte shared load feeding four FMAs. The [B, K] distance matrix
 // never exists in device memory. The ragged last block is masked, not padded:
-// its idle threads take part in the barriers and write nothing.
+// its idle threads take part in the barriers and write nothing. Built for
+// D = 32, 64 and 128; at D = 128 the residual alone fills 128 registers, so
+// the running qsum is kept in the output row instead (same fp32 sums, in the
+// same order) and the codebook stage is 128 KB.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,8 +42,9 @@ rq_assign_kernel(const float* __restrict__ x, const float* __restrict__ codebook
   const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
   const bool active = row < n_rows;
 
+  constexpr bool kQInRegisters = D <= 64;
   float r[D];
-  float q[D];
+  float q[kQInRegisters ? D : 1];
   const float4* x4 = reinterpret_cast<const float4*>(x + (active ? row : 0) * D);
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) {
@@ -51,7 +55,7 @@ rq_assign_kernel(const float* __restrict__ x, const float* __restrict__ codebook
     r[4 * i + 3] = v.w;
   }
 #pragma unroll
-  for (int d = 0; d < D; ++d) q[d] = 0.f;
+  for (int d = 0; d < (kQInRegisters ? D : 1); ++d) q[d] = 0.f;
 
   const int n_vec = n_embed * D / 4;
   for (int level = 0; level < n_levels; ++level) {
@@ -97,18 +101,29 @@ rq_assign_kernel(const float* __restrict__ x, const float* __restrict__ codebook
 
     const float* code = cb_s + (size_t)best_k * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      q[d] += code[d];
-      r[d] -= code[d];
+    for (int d = 0; d < D; ++d) r[d] -= code[d];
+    if constexpr (kQInRegisters) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) q[d] += code[d];
+    } else if (active) {  // qsum row += code, as 0 + code on the first level
+      float4* out4 = reinterpret_cast<float4*>(qsum + row * D);
+      const float4* c4 = reinterpret_cast<const float4*>(code);
+      for (int i = 0; i < D / 4; ++i) {
+        const float4 c = c4[i];
+        const float4 o = level == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : out4[i];
+        out4[i] = make_float4(o.x + c.x, o.y + c.y, o.z + c.z, o.w + c.w);
+      }
     }
     if (active) ids[row * n_levels + level] = best_k;
   }
 
-  if (active) {
-    float4* out4 = reinterpret_cast<float4*>(qsum + row * D);
+  if constexpr (kQInRegisters) {
+    if (active) {
+      float4* out4 = reinterpret_cast<float4*>(qsum + row * D);
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i)
-      out4[i] = make_float4(q[4 * i + 0], q[4 * i + 1], q[4 * i + 2], q[4 * i + 3]);
+      for (int i = 0; i < D / 4; ++i)
+        out4[i] = make_float4(q[4 * i + 0], q[4 * i + 1], q[4 * i + 2], q[4 * i + 3]);
+    }
   }
 }
 
@@ -143,6 +158,7 @@ extern "C" int rq_assign_launch(const void* x, const void* codebooks, void* ids,
   switch (dim) {
     case 32: return (int)launch<32>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
     case 64: return (int)launch<64>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
+    case 128: return (int)launch<128>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

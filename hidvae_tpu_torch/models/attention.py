@@ -6,7 +6,9 @@ softmax in fp32. Two routes, chosen by the JAX package's rule
 self-attention with a head width that is a multiple of 64 over at least 2048
 tokens (or with use_flash=True), `flash_attention`, whose CUDA kernels run on
 the card and whose plain version runs on the CPU. The JAX rule's "backend is
-TPU" clause becomes "always": the op itself picks the kernel by device.
+TPU" clause becomes "always": the op itself picks the kernel by device. The
+kernels are built for head widths 64 and 128: on a CUDA device the route
+refuses other multiples of 64 (`check_head_dim`) before its first launch.
 
 `dtype` is flax's compute dtype: projections run in it, parameters stay
 fp32, the softmax is fp32.
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from hidvae_tpu_torch.models.layers import dense
-from hidvae_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
+from hidvae_tpu_torch.ops.flash_attention import SegmentIds, check_head_dim, flash_attention
 
 FLASH_BLOCK = 128      # the JAX route pads the sequence to this multiple
 FLASH_MIN_TOKENS = 2048  # the auto switch
@@ -76,6 +78,17 @@ def flash_self_attention(q, k, v, kv_padding_mask, is_causal: bool, dtype):
     return out[:, :, :n, :].to(dtype)
 
 
+def takes_flash_route(head_dim: int, n_tokens: int, cross_attn: bool = False,
+                      use_flash: Optional[bool] = None) -> bool:
+    """The JAX package's switch (attention.py:152-162) without its TPU
+    clause: self-attention over more than one row with a head width that is a
+    multiple of 64, at >= FLASH_MIN_TOKENS tokens (auto) or when forced."""
+    capable = not cross_attn and head_dim % 64 == 0 and n_tokens > 1
+    if use_flash is None:
+        return capable and n_tokens >= FLASH_MIN_TOKENS
+    return use_flash and capable
+
+
 def make_attention_mask(q_len: int, kv_len: int, *, causal: bool = False,
                         kv_padding_mask=None, device=None):
     """[B or 1, 1, Nq, Nk] bool mask, or None."""
@@ -127,12 +140,9 @@ class MultiHeadAttention(nn.Module):
         else:
             q, k, v = dense(self.qkv, x, self.dtype).chunk(3, dim=-1)
         q, k, v = self._heads(q), self._heads(k), self._heads(v)
-        head_dim = q.shape[-1]
-        flash_capable = not self.cross_attn and head_dim % 64 == 0 and q.shape[2] > 1
-        if self.use_flash is None:
-            use_flash = flash_capable and q.shape[2] >= FLASH_MIN_TOKENS
-        else:
-            use_flash = self.use_flash and flash_capable
+        use_flash = takes_flash_route(q.shape[-1], q.shape[2], self.cross_attn, self.use_flash)
+        if use_flash:
+            check_head_dim(q.shape[-1], q.device.type)
         if self.cross_attn and q.shape[0] != k.shape[0]:
             out = grouped_cross_attention(q, k, v, kv_padding_mask=kv_padding_mask)
         elif use_flash:

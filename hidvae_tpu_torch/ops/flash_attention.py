@@ -12,10 +12,13 @@ csrc/flash_attention.cu replace the library's three Pallas kernels:
   flash_bwd_dq   dQ                                        (library :1146)
 
 `flash_attention(q, k, v, *, segment_ids, causal, sm_scale)` takes q, k, v
-[B, H, N, 64] and segment ids [B, N] int32. On CUDA tensors it runs the
-kernels (forward and, under autograd, backward); on CPU tensors it runs
-`flash_attention_reference`, the plain version. A CUDA tensor never takes
-the plain path: a failed build or launch raises. The backward mirrors
+[B, H, N, Dh] and segment ids [B, N] int32. On CUDA tensors it runs the
+kernels (forward and, under autograd, backward), built for Dh 64 and 128;
+on CPU tensors it runs `flash_attention_reference`, the plain version, at
+any Dh. A CUDA tensor never takes the plain path: a failed build or launch
+raises. In bf16 the forward and dK/dV kernels run on tensor cores and, as
+the library does, round P (and dS) to bf16 before their products; the
+fp32 kernels and the bf16 dQ compute in fp32 FFMA. The backward mirrors
 `_flash_attention_bwd` (library :254-318): di = rowsum(dO * O) in fp32, then
 dK/dV, then dQ.
 
@@ -33,7 +36,7 @@ import torch
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SOURCE = "flash_attention.cu"
-HEAD_DIM = 64  # the only head width the kernels are built for (every config's)
+HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,13 +132,23 @@ def build():
 
     built = load_library(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32, i32, i32, i32, i32, i32, f32, ptr]  # B, H, Nq, Nk, dtype, causal, scale, stream
+    # B, H, Nq, Nk, head_dim, dtype, causal, scale, stream
+    tail = [i32, i32, i32, i32, i32, i32, i32, f32, ptr]
     for name, n_ptrs in (("flash_fwd_launch", 7), ("flash_bwd_dkv_launch", 10),
                          ("flash_bwd_dq_launch", 9)):
         fn = getattr(built.lib, name)
         fn.argtypes = [ptr] * n_ptrs + tail
         fn.restype = ctypes.c_int
     return built
+
+
+def check_head_dim(head_dim: int, device_type: str):
+    """Refuse, before any work, a head width that has no kernel on a
+    `device_type` ("cuda", "cpu") device. The plain version takes any
+    width, as the library's kernel takes any multiple of 64."""
+    if device_type == "cuda" and head_dim not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels are built for head widths {HEAD_DIMS}; "
+                         f"got {head_dim}")
 
 
 def _check(q, k, v, seg_q, seg_kv, *extra):
@@ -149,9 +162,10 @@ def _check(q, k, v, seg_q, seg_kv, *extra):
         raise TypeError(f"flash kernels take float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
-            or q.shape[3] != HEAD_DIM or k.shape[3] != HEAD_DIM:
-        raise ValueError(f"flash kernels take [B, H, N, {HEAD_DIM}] q, k, v; got "
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash kernels take [B, H, N, Dh] q, k, v; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    check_head_dim(q.shape[3], "cuda")
     b, _, nq, _ = q.shape
     if seg_q.shape != (b, nq) or seg_kv.shape != (b, k.shape[2]) \
             or seg_q.dtype != torch.int32 or seg_kv.dtype != torch.int32:
@@ -183,8 +197,8 @@ def flash_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
     fn = build().lib.flash_fwd_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), b, h, nq, k.shape[2], code, int(causal),
-                 float(sm_scale), _stream(q.device))
+                 o.data_ptr(), lse.data_ptr(), b, h, nq, k.shape[2], q.shape[3], code,
+                 int(causal), float(sm_scale), _stream(q.device))
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -204,7 +218,8 @@ def flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: f
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b, h, nq, k.shape[2], code, int(causal), float(sm_scale), _stream(q.device))
+                 b, h, nq, k.shape[2], q.shape[3], code, int(causal), float(sm_scale),
+                 _stream(q.device))
     _raise_on(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -224,7 +239,8 @@ def flash_bwd_dq(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: fl
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                 b, h, nq, k.shape[2], code, int(causal), float(sm_scale), _stream(q.device))
+                 b, h, nq, k.shape[2], q.shape[3], code, int(causal), float(sm_scale),
+                 _stream(q.device))
     _raise_on(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq

@@ -19,7 +19,7 @@ import torch
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SOURCE = "rq_assign.cu"
-SUPPORTED_DIMS = (32, 64)  # vae_embed_dim of every config in configs/
+SUPPORTED_DIMS = (32, 64, 128)  # the widths the CUDA kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # per block on Hopper
 
 
@@ -41,6 +41,15 @@ def rq_assign_reference(x, codebooks):
             qsum = qsum + emb
             res = res - emb
     return torch.stack(ids, dim=-1), qsum
+
+
+def check_dim(dim: int, device_type: str):
+    """Refuse, before any work, a code width `dim` that has no CUDA kernel
+    on a `device_type` ("cuda", "cpu") device. The plain version takes any
+    width, as the Pallas kernel does."""
+    if device_type == "cuda" and dim not in SUPPORTED_DIMS:
+        raise ValueError(f"rq_assign supports D in {SUPPORTED_DIMS} on CUDA (the widths "
+                         f"its kernel is built for), got D {dim}")
 
 
 def build():
@@ -72,8 +81,7 @@ def rq_assign(x, codebooks):
         raise ValueError(f"shapes x {tuple(x.shape)}, codebooks {tuple(codebooks.shape)}")
     b, d = x.shape
     n_levels, n_embed, _ = codebooks.shape
-    if d not in SUPPORTED_DIMS:
-        raise ValueError(f"rq_assign supports D in {SUPPORTED_DIMS}, got {d}")
+    check_dim(d, x.device.type)
     if (n_embed * d + n_embed) * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"a [{n_embed}, {d}] codebook does not fit in shared memory")
     x = x.contiguous()

@@ -23,7 +23,7 @@ from hidvae_tpu_torch.ops.prefix_search import (
     duplicate_ranks,
     exists_prefix,
 )
-from hidvae_tpu_torch.ops.rq_assign import rq_assign_auto
+from hidvae_tpu_torch.ops.rq_assign import check_dim, rq_assign_auto
 from hidvae_tpu_torch.tokenizer.semids import _flatten_tokenize, _token_type_ids
 from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint, sweep_corpus
 from hidvae_tpu_torch.utils.runtime import full_fp32, resolve_device
@@ -64,6 +64,7 @@ class HSemanticIdTokenizer:
         if use_concatenated_ids and use_interleaved_ids:
             raise ValueError("use_concatenated_ids and use_interleaved_ids are mutually exclusive")
         self.device = resolve_device(device)
+        check_dim(model.embed_dim, self.device.type)
         self.hrq_vae = model.to(self.device).eval()
         self.n_layers = n_layers
         self.codebook_size = codebook_size

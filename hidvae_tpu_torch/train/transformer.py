@@ -12,11 +12,14 @@ in place of `dataset_folder`. Steps, as in the JAX trainer:
     tokenize by gather, one train step with dropout (:556-568);
   * an eval-loss pass over the eval arrays (:478) when the step count
     crosses `partial_eval_every` and at the end;
-  * a sliding window of the last 1000 losses, and the history dict.
+  * a sliding window of the last 1000 per-step losses (:576-587), and the
+    history dict. Each step's 0-d loss stays on the device; the log step
+    stacks them and reads them back in one sync.
 
 The encoder's self-attention takes the flash route (CUDA kernels on the
 card) exactly where the JAX package takes its flash kernel: at contexts of
-at least 2048 tokens.
+at least 2048 tokens. A head width the kernels are not built for is refused
+before the first step on a CUDA device.
 
 Not ported yet: checkpoints and resume, the full generation eval, tensor
 parallelism, remat, plots, the gin reader and the on-disk dataset.
@@ -30,8 +33,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from hidvae_tpu_torch.models.attention import takes_flash_route
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.ops.flash_attention import check_head_dim
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train.common import Optimizer, inverse_sqrt_schedule
 from hidvae_tpu_torch.train.device_data import (
@@ -43,6 +48,7 @@ from hidvae_tpu_torch.train.device_data import (
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
 STEP_SALT = 0x5EED  # the JAX trainer's fold_in constant for per-step keys
+LOSS_WINDOW = 1000  # per-step losses in the window mean (transformer.py:576)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -159,7 +165,7 @@ def train(
     logged; `log(str)` receives the lines. Returns {"model", "tokenizer",
     "optimizer", "history"}; history holds the logged iterations, train loss
     and host-clock ms per step, the eval iterations and losses, and the
-    mean of the last 1000 train losses read."""
+    mean of the last LOSS_WINDOW per-step train losses."""
     device = resolve_device(device)
     if attn_dropout is not None:
         dropout_p = attn_dropout
@@ -179,6 +185,9 @@ def train(
     eval_data = (None if eval_items is None
                  else as_seq_data(eval_users, eval_items, eval_fut, device))
     max_seq_len = data.items.shape[1]
+    head_dim = attn_embed_dim // attn_heads
+    if takes_flash_route(head_dim, 1 + max_seq_len * sem_id_dim):  # user + history tokens
+        check_head_dim(head_dim, device.type)
     compute_dtype = (torch.bfloat16 if (amp or mixed_precision_type == "bf16")
                      else torch.float32)
     model = build_model(
@@ -192,7 +201,8 @@ def train(
 
     history = {"iterations": [], "train_loss": [], "ms_per_step": [],
                "eval_iterations": [], "eval_loss": [], "window_mean": None}
-    loss_window = deque(maxlen=1000)
+    loss_window = deque(maxlen=LOSS_WINDOW)
+    step_losses = []  # this log interval's 0-d losses, still on the device
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_last, it_last = time.perf_counter(), 0
@@ -200,16 +210,19 @@ def train(
         g = step_generator(seed, it, device)
         batch = sample_batch(data, table, batch_size, g, subsample)
         loss, loss_d = train_step(model, optimizer, batch, g)
+        step_losses.append(loss)
 
         done = it + 1
         if done % log_every == 0 or done == iterations:
-            loss_f = float(loss)  # syncs
+            losses = torch.stack(step_losses).float().tolist()  # syncs
+            step_losses.clear()
+            loss_f = losses[-1]
             now = time.perf_counter()
             ms = (now - t_last) * 1e3 / (done - it_last)
             t_last, it_last = now, done
             if not math.isfinite(loss_f):
                 raise FloatingPointError(f"non-finite loss {loss_f} at iteration {it}")
-            loss_window.append(loss_f)
+            loss_window.extend(losses)
             history["iterations"].append(it)
             history["train_loss"].append(loss_f)
             history["ms_per_step"].append(ms)

@@ -2,10 +2,11 @@
 load it with ctypes.
 
 The library is compiled by `nvcc` at first use into hidvae_tpu_torch/_build/
-(ignored by git), named after a hash of the source and the flags, so a stale
-build is never loaded. It is written under a temporary name and renamed into
-place, so no lock file is left behind by a build that was cut off. Nothing
-here runs when the module is imported."""
+(ignored by git), named after a hash of the source, the headers beside it
+(csrc/*.cuh) and the flags, so a stale build is never loaded. It is written
+under a temporary name and renamed into place, so no lock file is left
+behind by a build that was cut off. Nothing here runs when the module is
+imported."""
 
 import ctypes
 import hashlib
@@ -54,6 +55,8 @@ def load_library(source_name: str) -> BuiltLibrary:
         return _loaded[source_name]
     src = CSRC_DIR / source_name
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     stem = f"{src.stem}_{digest.hexdigest()[:16]}"
     out = BUILD_DIR / f"lib{stem}.so"
     log, build_s = "", 0.0

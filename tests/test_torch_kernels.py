@@ -25,6 +25,7 @@ def cuda():
 
 @pytest.mark.parametrize("b,d,n_levels,k", [
     (1001, 32, 3, 256), (4096, 32, 4, 256), (1001, 64, 3, 256), (300, 32, 2, 16), (1, 32, 3, 256),
+    (1001, 128, 3, 256), (300, 128, 2, 16),
 ])
 def test_rq_assign_matches_plain(cuda, b, d, n_levels, k):
     rng = np.random.RandomState(b + d)
@@ -118,3 +119,70 @@ def test_flash_kernels_refuse_what_they_cannot_run(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         x = torch.zeros(1, 1, 8, 64)
         fa.flash_fwd(x, x, x, seg.cpu(), seg.cpu(), False, 1.0)
+
+
+def _segments(b, n, mode, rng):
+    """(seg_q, seg_kv, rows with no key of their segment [b, n] bool).
+    "pad": one id set for both, as the model gives them (padding 0, valid 1).
+    "cross": queries in segments 1-3, keys in 1-2: every query of segment 3
+    (and at least one per batch row) has no key of its segment."""
+    if mode == "pad":
+        seg = torch.ones((b, n), dtype=torch.int32)
+        seg[0, n - n // 3:] = 0
+        seg[-1, n // 4: n // 4 + 5] = 0
+        return seg, seg, torch.zeros((b, n), dtype=torch.bool)
+    seg_q = torch.from_numpy(rng.randint(1, 4, (b, n)).astype(np.int32))
+    seg_q[:, 0] = 3
+    seg_kv = torch.from_numpy(rng.randint(1, 3, (b, n)).astype(np.int32))
+    return seg_q, seg_kv, seg_q == 3
+
+
+@pytest.mark.parametrize("b,h,n,dh,causal,dtype,mode", [
+    (1, 2, 130, 64, False, torch.bfloat16, "pad"),     # ragged N
+    (2, 1, 257, 64, False, torch.bfloat16, "cross"),   # rows with no key of their segment
+    (2, 1, 257, 64, True, torch.bfloat16, "pad"),      # causal, ragged
+    (2, 2, 2432, 64, False, torch.bfloat16, "pad"),    # the trainer's full length
+    (1, 2, 200, 128, True, torch.bfloat16, "pad"),     # head width 128
+    (1, 2, 130, 128, False, torch.bfloat16, "cross"),
+    (1, 2, 200, 128, False, torch.float32, "pad"),
+    (1, 1, 257, 128, True, torch.float32, "pad"),
+])
+def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
+    """Forward, dK/dV and dQ against the plain version's output and autograd
+    gradients. A query row with no key of its segment must get the
+    library's uniform weights: O is the mean of V over all keys. The
+    backward recomputes P from one fp32 logsumexp per row, and for such a
+    row lse = -0.7 * FLT_MAX + log N rounds to -0.7 * FLT_MAX, so its P is
+    not the plain version's 1/N; the model never makes such rows (queries
+    and keys share their segment ids), and their cotangent is zero here."""
+    from chip_smoke import FLASH_RTOL
+    from hidvae_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(n + dh)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, n, dh).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    seg_q, seg_kv, no_key = _segments(b, n, mode, rng)
+    do[no_key[:, None, :].expand(b, h, n)] = 0
+    q, k, v, do, seg_q, seg_kv = (t.to(cuda) for t in (q, k, v, do, seg_q, seg_kv))
+    ids = fa.SegmentIds(seg_q, seg_kv)
+    scale = dh ** -0.5
+    before = [fn.launches for fn in fa.KERNELS]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert [fn.launches - n0 for fn, n0 in zip(fa.KERNELS, before)] == [1, 1, 1]
+
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
+                                       sm_scale=scale)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
+    for got, want in zip((out, *grads), (ref, *ref_grads)):
+        assert torch.isfinite(got).all()
+        err = float((got.detach().float() - want.detach()).abs().max())
+        assert err <= FLASH_RTOL[dtype] * float(want.abs().max()), err
+    if no_key.any():
+        mean_v = v.float().mean(dim=2, keepdim=True).expand(b, h, n, dh)
+        rows = no_key.to(cuda)[:, None, :].expand(b, h, n)
+        err = float((out.detach().float()[rows] - mean_v[rows]).abs().max())
+        assert err <= FLASH_RTOL[dtype] * float(mean_v.abs().max()), err

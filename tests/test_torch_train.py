@@ -249,3 +249,34 @@ def test_train_is_a_function_of_its_seed():
     assert a["train_loss"] != c["train_loss"]
     assert len(a["train_loss"]) == 3 and len(a["eval_loss"]) == 1
     assert all(np.isfinite(a["train_loss"] + a["eval_loss"]))
+
+
+@pytest.mark.parametrize("window", [trainer.LOSS_WINDOW, 4])
+def test_window_mean_counts_every_step_loss(window, monkeypatch):
+    """The JAX trainer extends its window with every step's loss
+    (hidvae_tpu/train/transformer.py:576-587), whatever the logging period:
+    a run logging every 3rd step gives the window mean of a run logging every
+    step, the mean of the last `window` per-step losses."""
+    from chip_smoke import build_vae, seeded_sequences
+
+    monkeypatch.setattr(trainer, "LOSS_WINDOW", window)
+    cfg = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
+               codebook_normalize=True, tag_class_counts=(4, 6, 20), tag_embed_dim=12,
+               n_items=300)
+    vae, feats = build_vae(cfg, torch.Generator().manual_seed(0))
+    users, items, fut = seeded_sequences(cfg["n_items"], 64, 8, seed=1)
+
+    def run(log_every):
+        return trainer.train(
+            feats, users, items, fut, vae=vae, iterations=7, batch_size=4, seed=3,
+            vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=2,
+            attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
+            log_every=log_every, partial_eval_every=100, device="cpu",
+            mixed_precision_type="fp32")["history"]
+
+    every, third = run(1), run(3)
+    assert len(every["train_loss"]) == 7 and third["iterations"] == [2, 5, 6]
+    assert third["train_loss"] == [every["train_loss"][i] for i in (2, 5, 6)]
+    np.testing.assert_allclose(every["window_mean"], np.mean(every["train_loss"][-window:]),
+                               rtol=1e-12)
+    assert third["window_mean"] == every["window_mean"]
