@@ -21,6 +21,7 @@ reads no file but the port's sources.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -68,10 +69,9 @@ QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py
 # largest error over max |plain|. fp32: the kernels sum up to N = 2,432 terms
 # in another order than cuBLAS (expected error ~sqrt(N) * 2^-24 of the sum of
 # magnitudes, well under 1e-5 of the largest value). bf16: each output is
-# rounded once to bf16 (2^-9 relative); the tensor-core forward and dK/dV
-# also round P and dS to bf16 before their products, as the library does,
-# which adds errors of 2^-9 relative per term that mostly cancel over the
-# N-term sums.
+# rounded once to bf16 (2^-9 relative); the tensor-core kernels also round
+# P and dS to bf16 before their products, as the library does, which adds
+# errors of 2^-9 relative per term that mostly cancel over the N-term sums.
 FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
@@ -252,10 +252,22 @@ def build_phase():
         built = [(name, f.result()) for name, f in futures]
     for name, lib in built:
         print(f"{name} built in {lib.build_s:.2f} s -> {lib.path.name}", flush=True)
-        for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        for line in ptxas_report(lib.log):
+            print(f"  ptxas: {line}", flush=True)
     return built
+
+
+def ptxas_report(log):
+    """nvcc's -Xptxas -v output as one line per kernel: its name, template
+    width, registers and spills."""
+    lines = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"((?:flash|rq)_[a-z_]*kernel)(?:ILi(\d+)E)?", line)
+            lines.append(f"{m.group(1)}<{m.group(2)}>:" if m else line.strip())
+        elif lines and ("registers" in line or "spill" in line):
+            lines[-1] += " " + line.split(":", 1)[-1].strip()
+    return lines
 
 
 @phase("kernel")
@@ -360,6 +372,9 @@ FLASH_HEAD_DIM = 64     # every config's; 128 is checked at FLASH_WIDE_B rows
 FLASH_WIDE_B = 1
 FLASH_CHECK_B = 4       # small enough for the plain backward at full length
 FLASH_PLAIN_CHUNK = 16  # the plain version is timed over the batch in chunks of 16
+# The FFMA dQ kernel that the tensor-core one replaced, at FLASH_TIMED, bf16:
+# its time on an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md section 6 records it.
+FLASH_DQ_FFMA_MS = 41.0113
 FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py
     "flash_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
     "flash_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
@@ -378,21 +393,32 @@ def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
     return q, k, v, do, seg
 
 
+def keyless_segments(b, n, device, generator):
+    """(seg_q, seg_kv): queries in segments 1-3, keys in 1-2, so every query
+    of segment 3 (at least one per batch row) has no key of its segment,
+    and the library gives it uniform weights over all keys."""
+    seg_q = torch.randint(1, 4, (b, n), device=device, generator=generator, dtype=torch.int32)
+    seg_q[:, 0] = 3
+    seg_kv = torch.randint(1, 3, (b, n), device=device, generator=generator, dtype=torch.int32)
+    return seg_q, seg_kv
+
+
 def flash_bounds_ms(b, h, n, itemsize):
     """Least time of each flash kernel at [b, h, n, 64] with `itemsize`-byte
     inputs on an H100 SXM: (ms, bound_by) per kernel. Operations: 2*b*h*n^2*64
     per product, two products in the forward, four for dK/dV (S, dP, dV, dK),
     three for dQ (S, dP, dQ), over the type's peak; bytes: each input read
-    once and each output written once."""
+    once and each output written once: the row statistics m and l (the
+    backward reads m and 1/l) and di are 4 bytes a row each."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
     mat = b * h * n * FLASH_HEAD_DIM * itemsize
     seg = 2 * b * n * 4
-    row = b * h * n * 4  # lse or di
+    row = b * h * n * 4  # one fp32 value per query row
     work = {  # (products, bytes)
-        "flash_fwd": (2, 3 * mat + seg + mat + row),
-        "flash_bwd_dkv": (4, 4 * mat + seg + 2 * row + 2 * mat),
-        "flash_bwd_dq": (3, 4 * mat + seg + 2 * row + mat),
+        "flash_fwd": (2, 3 * mat + seg + mat + 2 * row),
+        "flash_bwd_dkv": (4, 4 * mat + seg + 3 * row + 2 * mat),
+        "flash_bwd_dq": (3, 4 * mat + seg + 3 * row + mat),
     }
     out = {}
     for name, (n_products, n_bytes) in work.items():
@@ -412,19 +438,26 @@ def _in_chunks(fn, tensors, chunk):
 @phase("flash")
 def flash_phase(device):
     """The three flash kernels against their plain version at the encoder's
-    long-run shape (and at head width 128), then their times at B = 64
-    beside the plain version's, scaled_dot_product_attention's (forward,
-    backward alone, both) and the bounds."""
+    long-run shape (and at head width 128, and on segments that leave query
+    rows with no key of their own, under a nonzero cotangent), then their
+    times at B = 64 beside the plain version's, scaled_dot_product_attention's
+    (forward, backward alone, both) and the bounds."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     scale = FLASH_HEAD_DIM ** -0.5
     errs = {name: 0.0 for name in FLASH_REPLACES}
-    checks = [(FLASH_CHECK_B, FLASH_HEAD_DIM, dtype, causal)
+    checks = [(FLASH_CHECK_B, FLASH_HEAD_DIM, dtype, causal, False)
               for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
-    checks += [(FLASH_WIDE_B, 128, torch.bfloat16, False), (FLASH_WIDE_B, 128, torch.float32, True)]
-    for cb, dh, dtype, causal in checks:
+    checks += [(FLASH_WIDE_B, 128, torch.bfloat16, False, False),
+               (FLASH_WIDE_B, 128, torch.float32, True, False)]
+    # Keyless rows only without causal masking: under it the kernels skip key
+    # tiles above the diagonal, as the library's kernel does.
+    checks += [(FLASH_WIDE_B, FLASH_HEAD_DIM, dtype, False, True)
+               for dtype in (torch.bfloat16, torch.float32)]
+    for cb, dh, dtype, causal, keyless in checks:
         q, k, v, do, seg = flash_inputs(cb, h, n, dtype, device, g, dh)
-        ids = fa.SegmentIds(seg, seg)
+        ids = fa.SegmentIds(*keyless_segments(cb, n, device, g)) if keyless else \
+            fa.SegmentIds(seg, seg)
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         sm = dh ** -0.5
         out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=sm)
@@ -441,26 +474,28 @@ def flash_phase(device):
             err = float((x.detach().float() - y.detach()).abs().max())
             limit = FLASH_RTOL[dtype] * float(y.detach().abs().max())
             if not torch.isfinite(x).all() or err > limit:
-                raise AssertionError(f"flash {label} ({dtype}, Dh {dh}, causal={causal}) differs "
-                                     f"from the plain version by {err:.3e} > {limit:.3e}")
+                raise AssertionError(f"flash {label} ({dtype}, Dh {dh}, causal={causal}, "
+                                     f"keyless rows={keyless}) differs from the plain version "
+                                     f"by {err:.3e} > {limit:.3e}")
             errs[kernel] = max(errs[kernel], err)
             line.append(f"{label} {err:.2e} (limit {limit:.2e})")
-        print(f"  B={cb} H={h} N={n} Dh={dh} {str(dtype)[6:]} causal={causal}: "
+        rows = f", {int((ids.q == 3).sum())} keyless query rows" if keyless else ""
+        print(f"  B={cb} H={h} N={n} Dh={dh} {str(dtype)[6:]} causal={causal}{rows}: "
               + ", ".join(line), flush=True)
         del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
 
     # Times: the trainer's case, bf16, not causal.
     b = FLASH_TIMED["b"]
     q, k, v, do, seg = flash_inputs(b, h, n, torch.bfloat16, device, g)
-    o, lse = fa.flash_fwd(q, k, v, seg, seg, False, scale)
+    o, m, l = fa.flash_fwd(q, k, v, seg, seg, False, scale)
     di = torch.sum(o.float() * do.float(), dim=-1)
     args = (seg, seg)
     ms = {
         "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, *args, False, scale)),
         "flash_bwd_dkv": median_ms(
-            lambda: fa.flash_bwd_dkv(q, k, v, *args, do, lse, di, False, scale)),
+            lambda: fa.flash_bwd_dkv(q, k, v, *args, do, m, l, di, False, scale)),
         "flash_bwd_dq": median_ms(
-            lambda: fa.flash_bwd_dq(q, k, v, *args, do, lse, di, False, scale)),
+            lambda: fa.flash_bwd_dq(q, k, v, *args, do, m, l, di, False, scale)),
     }
     c = FLASH_PLAIN_CHUNK
     plain = {
@@ -468,10 +503,10 @@ def flash_phase(device):
             lambda *t: fa.flash_fwd_reference(*t, False, scale), (q, k, v, seg, seg), c), 3, 1),
         "flash_bwd_dkv": median_ms(lambda: _in_chunks(
             lambda *t: fa.flash_bwd_dkv_reference(*t, False, scale),
-            (q, k, v, seg, seg, do, lse, di), c), 3, 1),
+            (q, k, v, seg, seg, do, m, l, di), c), 3, 1),
         "flash_bwd_dq": median_ms(lambda: _in_chunks(
             lambda *t: fa.flash_bwd_dq_reference(*t, False, scale),
-            (q, k, v, seg, seg, do, lse, di), c), 3, 1),
+            (q, k, v, seg, seg, do, m, l, di), c), 3, 1),
     }
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     ids = fa.SegmentIds(seg, seg)
@@ -507,6 +542,11 @@ def flash_phase(device):
           f"{sdpa_bwd_ms:.4f} ms (dQ, dK, dV; kernels dK/dV + dQ "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), forward + backward "
           f"{sdpa_fwd_bwd_ms:.4f} ms (yardstick only: the port never calls it)", flush=True)
+    dq_ms, dq_bound = ms["flash_bwd_dq"], bounds["flash_bwd_dq"][0]
+    print(f"  flash_bwd_dq on tensor cores: {dq_ms:.4f} ms against its bound {dq_bound:.4f} ms "
+          f"({100 * dq_bound / dq_ms:.1f} % of it); scaled_dot_product_attention's backward "
+          f"alone {sdpa_bwd_ms:.4f} ms; the FFMA dQ it replaced {FLASH_DQ_FFMA_MS:.4f} ms "
+          f"(PERF.md, NVIDIA H100 80GB HBM3, 700 W)", flush=True)
     records = {}
     for name in FLASH_REPLACES:
         records[name] = dict(

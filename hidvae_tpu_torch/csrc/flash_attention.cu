@@ -10,8 +10,14 @@
 //   flash_bwd_dq   <- _flash_attention_dq_kernel   (:1146, pallas_call :1456)
 // The semantics are the library's: logits = (q k^T) * sm_scale, plus
 // -0.7 * FLT_MAX where the segment ids differ (or, when causal, where the key
-// comes after the query); softmax in fp32; the backward takes
-// di = rowsum(dO * O) and recomputes P from the saved row logsumexp.
+// comes after the query); softmax in fp32. The forward saves the library's
+// two row statistics, the row max m of the logits and the row sum
+// l = sum exp(logit - m); the backward takes di = rowsum(dO * O) and
+// recomputes P = exp(logit - m) * (1 / l), as the library's backward bodies
+// do (:900-904, :1226-1232). Keeping m and l apart matters on a query row
+// with no key of its segment: every logit there is -0.7 * FLT_MAX, and one
+// logsumexp m + log l would round back to m and give P = 1 instead of 1/N.
+// The backward kernels take 1/l, which the wrapper computes once per row.
 //
 // Bound. At the long-history training shape (B 64, H 8, N 2432, Dh 64) one
 // [N, N] x [N, 64] product per head is 2*B*H*N^2*Dh = 3.9e11 operations; the
@@ -22,41 +28,43 @@
 //
 // Two designs live here.
 //
-// * bf16 forward and dK/dV (`flash_fwd_tc_kernel`, `flash_bwd_dkv_tc_kernel`):
-//   tensor cores, mma.sync m16n8k16 on bf16 operands with fp32 accumulators
-//   (helpers in mma_bf16.cuh). Each warp owns 16 rows of the block's tile
-//   (queries in the forward, keys in dK/dV) and the full width of every
-//   product on them, so no sum crosses warps. The streamed side (K and V in
-//   the forward, Q and dO in dK/dV) comes through shared memory in bf16,
-//   double-buffered by cp.async: the copy of tile j+1 runs under the
-//   products on tile j, with one barrier per tile. Tiles are XOR-swizzled by
-//   16-byte chunk, so ldmatrix reads them without bank conflicts; V, dO and
-//   Q as right-hand operands of P.V, P^T.dO and dS^T.Q come through
-//   ldmatrix.trans, so nothing is transposed in shared memory. The softmax
-//   runs in registers: row max and sum per thread, combined over the four
-//   threads of a row with two shfl_xor; the S accumulator, rounded to bf16,
-//   is the A operand of P.V as it lies, so P never touches shared memory.
-//   dK/dV computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are A
-//   operands in the same way. As the library does (jax flash_attention.py
-//   :471, :900, :918), P, P^T and dS^T are rounded to bf16 before their
-//   products; the row sums use P before rounding.
+// * bf16 (`flash_fwd_tc_kernel`, `flash_bwd_dkv_tc_kernel`,
+//   `flash_bwd_dq_tc_kernel`): tensor cores, mma.sync m16n8k16 on bf16
+//   operands with fp32 accumulators (helpers in mma_bf16.cuh). Each warp
+//   owns 16 rows of the block's tile (queries in the forward and dQ, keys in
+//   dK/dV) and the full width of every product on them, so no sum crosses
+//   warps. The streamed side (K and V in the forward and dQ, Q and dO in
+//   dK/dV) comes through shared memory in bf16, double-buffered by cp.async:
+//   the copy of tile j+1 runs under the products on tile j, with one barrier
+//   per tile. Tiles are XOR-swizzled by 16-byte chunk, so ldmatrix reads them
+//   without bank conflicts; V, dO, Q and K as right-hand operands of P.V,
+//   P^T.dO, dS^T.Q and dS.K come through ldmatrix.trans, so nothing is
+//   transposed in shared memory. The softmax runs in registers: row max and
+//   sum per thread, combined over the four threads of a row with two
+//   shfl_xor; the S accumulator, rounded to bf16, is the A operand of P.V as
+//   it lies, so P never touches shared memory. dK/dV computes S^T = K Q^T
+//   and dP^T = V dO^T, so P^T and dS^T are A operands in the same way; dQ
+//   computes S = Q K^T and dP = dO V^T, so dS is. As the library does (jax
+//   flash_attention.py :471, :900, :918, :1256), P, P^T, dS^T and dS are
+//   rounded to bf16 before their products; the row sums use P before
+//   rounding.
 //   Masking keeps the library's additive -0.7 * FLT_MAX after sm_scale, and
 //   exponentials are exp2((x - m) * log2 e): log2 e multiplies a difference,
 //   never the mask value itself (-0.7 * FLT_MAX * 1.4427 overflows to -inf,
 //   and a fully masked row would then give exp(-inf + inf) = NaN instead of
-//   the library's uniform weights). Where the mask is 0 on a warp's whole
-//   16 x 64 block (every key exists, shares the rows' one segment and lies
-//   at or below the diagonal: most blocks of a long history), the forward
-//   skips the per-element mask and folds scale and log2 e into one FMA on
-//   the raw product; the max is then a real logit, so nothing overflows.
-//   The work stays dense: no block is skipped by segment.
+//   the library's uniform weights; with x - m = 0 there, P = 1/l = 1/N).
+//   Where the mask is 0 on a warp's whole 16-row block (every key exists,
+//   shares the rows' one segment and lies at or below the diagonal: most
+//   blocks of a long history), the forward and dQ skip the per-element mask
+//   and fold scale and log2 e into one FMA on the raw product; m is then a
+//   real logit, so nothing overflows. The work stays dense: no block is
+//   skipped by segment.
 //
-// * fp32 (all three kernels) and the bf16 dQ: fp32 FFMA, one block of 256
-//   threads owning a 64-row tile, each thread a 4 x 4 sub-tile of every
-//   64 x 64 product; operands widened to fp32 in shared memory, the first
-//   products' operands stored transposed ([d][row], rows padded to 68
-//   floats) so their loads are 16-byte and aligned. fp32 products stay fp32,
-//   as the JAX package's are; the bf16 dQ moves to tensor cores later.
+// * fp32 (all three kernels): fp32 FFMA, one block of 256 threads owning a
+//   64-row tile, each thread a 4 x 4 sub-tile of every 64 x 64 product;
+//   operands in shared memory, the first products' operands stored
+//   transposed ([d][row], rows padded to 68 floats) so their loads are
+//   16-byte and aligned. fp32 products stay fp32, as the JAX package's are.
 //
 // Both: causal blocks skip the tiles above the diagonal; ragged tails (rows
 // or keys past N) are masked in the block, so N need not be a multiple of
@@ -92,24 +100,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float get(const float4& v, int i) {
@@ -118,8 +110,8 @@ __device__ __forceinline__ float get(const float4& v, int i) {
 
 // Rows [row0, row0 + n) of a [*, DH] matrix into dst[d * LD + r] (transposed);
 // rows r >= n are zero.
-template <int DH, typename T>
-__device__ __forceinline__ void load_tile_t(const T* src, int n, float* dst) {
+template <int DH>
+__device__ __forceinline__ void load_tile_t(const float* src, int n, float* dst) {
   for (int idx = threadIdx.x; idx < TILE * DH / 4; idx += THREADS) {
     const int r = idx % TILE, d0 = (idx / TILE) * 4;
     const float4 x = r < n ? load4(src + (size_t)r * DH + d0) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -131,8 +123,8 @@ __device__ __forceinline__ void load_tile_t(const T* src, int n, float* dst) {
 }
 
 // The same rows into dst[r * LDN + d] (natural layout); rows r >= n are zero.
-template <int DH, typename T>
-__device__ __forceinline__ void load_tile_n(const T* src, int n, float* dst) {
+template <int DH>
+__device__ __forceinline__ void load_tile_n(const float* src, int n, float* dst) {
   for (int idx = threadIdx.x; idx < TILE * DH / 4; idx += THREADS) {
     const int r = idx / (DH / 4), d0 = (idx % (DH / 4)) * 4;
     const float4 x = r < n ? load4(src + (size_t)r * DH + d0) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -219,8 +211,8 @@ using namespace mma_bf16;
 using bf16 = __nv_bfloat16;
 
 // ---- forward --------------------------------------------------------------
-// grid (ceil(Nq / BM), H, B). Writes O [B, H, Nq, DH] and the row logsumexp
-// lse [B, H, Nq] (fp32), which the backward kernels use for P.
+// grid (ceil(Nq / BM), H, B). Writes O [B, H, Nq, DH] and the row statistics
+// m and l [B, H, Nq] (fp32), from which the backward kernels recompute P.
 template <int DH>
 struct FwdTC {
   static constexpr int WARPS = 8;           // 16 query rows each
@@ -237,7 +229,8 @@ __global__ void __launch_bounds__(FwdTC<DH>::NTHREADS, DH == 64 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_kv, bf16* __restrict__ o,
-                    float* __restrict__ lse, int H, int Nq, int Nk, int causal, float scale) {
+                    float* __restrict__ m_out, float* __restrict__ l_out, int H, int Nq, int Nk,
+                    int causal, float scale) {
   using C = FwdTC<DH>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CHUNKS;
   constexpr uint32_t KV_BYTES = BN * DH * 2;
@@ -413,14 +406,20 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
   }
   if (t == 0) {
-    if (row_lo < Nq) lse[(size_t)bh * Nq + row_lo] = m_lo + logf(l_lo);
-    if (row_hi < Nq) lse[(size_t)bh * Nq + row_hi] = m_hi + logf(l_hi);
+    if (row_lo < Nq) {
+      m_out[(size_t)bh * Nq + row_lo] = m_lo;
+      l_out[(size_t)bh * Nq + row_lo] = l_lo;
+    }
+    if (row_hi < Nq) {
+      m_out[(size_t)bh * Nq + row_hi] = m_hi;
+      l_out[(size_t)bh * Nq + row_hi] = l_hi;
+    }
   }
 }
 
 // ---- backward: dK, dV ------------------------------------------------------
 // grid (ceil(Nk / BK), H, B). One block owns BK keys and streams the query
-// tiles: S^T = K Q^T, P^T = exp(S^T * scale + mask - lse), dP^T = V dO^T,
+// tiles: S^T = K Q^T, P^T = exp(S^T * scale + mask - m) / l, dP^T = V dO^T,
 // dS^T = P^T (dP^T - di), dV += P^T dO, dK += dS^T Q; dK * scale at the end.
 template <int DH>
 struct DkvTC {
@@ -430,8 +429,9 @@ struct DkvTC {
   static constexpr int NTHREADS = 32 * WARPS;
   static constexpr int CHUNKS = DH / 8;
   // K and V tiles, two stages of Q and of dO (bf16), two stages of the
-  // query rows' lse, di and segment ids.
-  static constexpr size_t SMEM = (size_t)(2 * BK + 4 * BQ) * DH * 2 + 2 * 3 * BQ * 4;
+  // query rows' m, 1/l, di and segment ids.
+  static constexpr int ROWS = 4;
+  static constexpr size_t SMEM = (size_t)(2 * BK + 4 * BQ) * DH * 2 + 2 * ROWS * BQ * 4;
 };
 
 template <int DH>
@@ -439,8 +439,9 @@ __global__ void __launch_bounds__(DkvTC<DH>::NTHREADS)
 flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ seg_q,
                         const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        const float* __restrict__ m, const float* __restrict__ inv_l,
+                        const float* __restrict__ di, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv,
                         int H, int Nq, int Nk, int causal, float scale) {
   using C = DkvTC<DH>;
   constexpr int BK = C::BK, BQ = C::BQ, CH = C::CHUNKS;
@@ -451,7 +452,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sQ = sV + BK * DH * 2;
   const uint32_t sdO = sQ + 2 * Q_BYTES;
   const float* s_rows = reinterpret_cast<const float*>(smem + (size_t)(2 * BK + 4 * BQ) * DH * 2);
-  const uint32_t sRows = smem_u32(s_rows);  // [stage][lse, di, seg][BQ]
+  const uint32_t sRows = smem_u32(s_rows);  // [stage][m, 1/l, di, seg][BQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -459,7 +460,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.x * BK, nk = min(BK, Nk - k0);
   const bf16* qb = q + (size_t)bh * Nq * DH;
   const bf16* dob = dout + (size_t)bh * Nq * DH;
-  const float* lse_b = lse + (size_t)bh * Nq;
+  const float* m_b = m + (size_t)bh * Nq;
+  const float* il_b = inv_l + (size_t)bh * Nq;
   const float* di_b = di + (size_t)bh * Nq;
   const int* sq_b = seg_q + (size_t)b * Nq;
 
@@ -467,12 +469,13 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int mq = min(BQ, Nq - q0);
     load_tile_async<BQ, DH>(sQ + stage * Q_BYTES, qb + (size_t)q0 * DH, mq, tid, C::NTHREADS);
     load_tile_async<BQ, DH>(sdO + stage * Q_BYTES, dob + (size_t)q0 * DH, mq, tid, C::NTHREADS);
-    if (tid < BQ) {  // rows past Nq read as zeros: their dO is zero, so they add nothing
+    if (tid < BQ) {  // rows past Nq read as zeros: 1/l = 0 there, so P and dS are 0
       const int r = q0 + min(tid, mq - 1);
-      const uint32_t dst = sRows + (stage * 3 * BQ + tid) * 4;
-      cp_async_4(dst, lse_b + r, tid < mq);
-      cp_async_4(dst + BQ * 4, di_b + r, tid < mq);
-      cp_async_4(dst + 2 * BQ * 4, sq_b + r, tid < mq);
+      const uint32_t dst = sRows + (stage * C::ROWS * BQ + tid) * 4;
+      cp_async_4(dst, m_b + r, tid < mq);
+      cp_async_4(dst + BQ * 4, il_b + r, tid < mq);
+      cp_async_4(dst + 2 * BQ * 4, di_b + r, tid < mq);
+      cp_async_4(dst + 3 * BQ * 4, sq_b + r, tid < mq);
     }
   };
 
@@ -500,8 +503,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();  // tile j (and, on the first, K and V) has landed
     __syncthreads();
     const uint32_t tQ = sQ + stage * Q_BYTES, tdO = sdO + stage * Q_BYTES;
-    const float* r_lse = s_rows + stage * 3 * BQ;
-    const float* r_di = r_lse + BQ;
+    const float* r_m = s_rows + stage * C::ROWS * BQ;
+    const float* r_il = r_m + BQ;
+    const float* r_di = r_il + BQ;
     const int* r_seg = reinterpret_cast<const int*>(r_di + BQ);
 
     // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp.
@@ -533,13 +537,14 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = nj * 8 + 2 * t + e, row = q0 + col;
-        const float lse_q = r_lse[col], di_q = r_di[col];
+        const float m_q = r_m[col], il_q = r_il[col], di_q = r_di[col];
         const int sq = r_seg[col];
         const float p_lo = exp2_approx(
-            (masked_logit(st[nj][e], scale, row, key_lo, Nk, sq, skv_lo, causal) - lse_q) * LOG2E);
+            (masked_logit(st[nj][e], scale, row, key_lo, Nk, sq, skv_lo, causal) - m_q) * LOG2E) *
+            il_q;
         const float p_hi = exp2_approx(
-            (masked_logit(st[nj][2 + e], scale, row, key_hi, Nk, sq, skv_hi, causal) - lse_q) *
-            LOG2E);
+            (masked_logit(st[nj][2 + e], scale, row, key_hi, Nk, sq, skv_hi, causal) - m_q) *
+            LOG2E) * il_q;
         st[nj][e] = p_lo;
         st[nj][2 + e] = p_hi;
         dpt[nj][e] = p_lo * (dpt[nj][e] - di_q);
@@ -591,15 +596,194 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- backward: dQ ----------------------------------------------------------
+// grid (ceil(Nq / BM), H, B). The forward's shape: one block owns BM queries
+// and streams the key tiles. S = Q K^T, P = exp(S * scale + mask - m) / l,
+// dP = dO V^T, dS = P (dP - di) * scale, dQ += dS K. The scale is folded
+// into 1/l, so dS comes out scaled, as the library rounds it (:1256-1259).
+template <int DH>
+struct DqTC {
+  static constexpr int WARPS = 4;                // 16 query rows each
+  static constexpr int BM = 16 * WARPS;          // queries per block
+  static constexpr int BN = DH == 64 ? 64 : 32;  // keys per streamed tile
+  static constexpr int NTHREADS = 32 * WARPS;
+  static constexpr int CHUNKS = DH / 8;
+  // Q and dO tiles, two stages of K and of V (bf16), two stages of kv
+  // segment ids.
+  static constexpr size_t SMEM = (size_t)(2 * BM + 4 * BN) * DH * 2 + 2 * BN * 4;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(DqTC<DH>::NTHREADS)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
+                       const float* __restrict__ m, const float* __restrict__ inv_l,
+                       const float* __restrict__ di, bf16* __restrict__ dq,
+                       int H, int Nq, int Nk, int causal, float scale) {
+  using C = DqTC<DH>;
+  constexpr int BM = C::BM, BN = C::BN, CH = C::CHUNKS;
+  constexpr uint32_t KV_BYTES = BN * DH * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sdO = sQ + BM * DH * 2;
+  const uint32_t sK = sdO + BM * DH * 2;
+  const uint32_t sV = sK + 2 * KV_BYTES;
+  const int* s_seg = reinterpret_cast<const int*>(smem + (size_t)(2 * BM + 4 * BN) * DH * 2);
+  const uint32_t sSeg = smem_u32(s_seg);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, bh = b * H + blockIdx.y;
+  const int q0 = blockIdx.x * BM, mq = min(BM, Nq - q0);
+  const bf16* kb = k + (size_t)bh * Nk * DH;
+  const bf16* vb = v + (size_t)bh * Nk * DH;
+  const int* skv_b = seg_kv + (size_t)b * Nk;
+  const int k_end = causal ? min(Nk, q0 + mq) : Nk;
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  auto load_kv = [&](int stage, int k0) {
+    const int nk = min(BN, Nk - k0);
+    load_tile_async<BN, DH>(sK + stage * KV_BYTES, kb + (size_t)k0 * DH, nk, tid, C::NTHREADS);
+    load_tile_async<BN, DH>(sV + stage * KV_BYTES, vb + (size_t)k0 * DH, nk, tid, C::NTHREADS);
+    if (tid < BN) cp_async_4(sSeg + (stage * BN + tid) * 4, skv_b + k0 + min(tid, nk - 1), tid < nk);
+  };
+
+  load_tile_async<BM, DH>(sQ, q + ((size_t)bh * Nq + q0) * DH, mq, tid, C::NTHREADS);
+  load_tile_async<BM, DH>(sdO, dout + ((size_t)bh * Nq + q0) * DH, mq, tid, C::NTHREADS);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // This thread's two query rows, g and g + 8 of the warp's 16, and their
+  // statistics in registers; 1/l carries the scale. Rows past Nq get
+  // 1/l = 0, so their P and dS are 0.
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const size_t at_lo = (size_t)bh * Nq + row_lo, at_hi = (size_t)bh * Nq + row_hi;
+  const bool in_lo = row_lo < Nq, in_hi = row_hi < Nq;
+  const int sq_lo = in_lo ? seg_q[(size_t)b * Nq + row_lo] : 0;
+  const int sq_hi = in_hi ? seg_q[(size_t)b * Nq + row_hi] : 0;
+  const float m_lo = in_lo ? m[at_lo] : 0.f, m_hi = in_hi ? m[at_hi] : 0.f;
+  const float il_lo = in_lo ? inv_l[at_lo] * scale : 0.f;
+  const float il_hi = in_hi ? inv_l[at_hi] * scale : 0.f;
+  const float di_lo = in_lo ? di[at_lo] : 0.f, di_hi = in_hi ? di[at_hi] : 0.f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1, k0 = j * BN;
+    if (j + 1 < n_tiles) load_kv(stage ^ 1, k0 + BN);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and, on the first, Q and dO) has landed
+    __syncthreads();
+    const uint32_t tK = sK + stage * KV_BYTES, tV = sV + stage * KV_BYTES;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x BN keys per warp; the Q and dO
+    // fragments come from their resident tiles each time, as in the forward.
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a(qa, sQ, warp * 16, kk, CH, lane);
+      load_a(da, sdO, warp * 16, kk, CH, lane);
+#pragma unroll
+      for (int nb = 0; nb < BN / 16; ++nb) {
+        uint32_t bf[4];
+        load_b_rows(bf, tK, nb * 16, kk, CH, lane);
+        mma_16816(s[2 * nb], qa, bf[0], bf[1]);
+        mma_16816(s[2 * nb + 1], qa, bf[2], bf[3]);
+        load_b_rows(bf, tV, nb * 16, kk, CH, lane);
+        mma_16816(dp[2 * nb], da, bf[0], bf[1]);
+        mma_16816(dp[2 * nb + 1], da, bf[2], bf[3]);
+      }
+    }
+
+    // Whether the mask is 0 on the warp's whole 16 x BN block, as in the
+    // forward. Warp-uniform.
+    const int seg_u = s_seg[stage * BN];
+    bool same = sq_lo == seg_u && sq_hi == seg_u;
+#pragma unroll
+    for (int c = 0; c < BN; c += 32) same = same && s_seg[stage * BN + c + lane] == seg_u;
+    const bool unmasked = __all_sync(0xffffffffu, same) && k0 + BN <= Nk &&
+                          (!causal || k0 + BN - 1 <= q0 + warp * 16);
+
+    // P, then dS = P (dP - di), elementwise in registers (P into s).
+    if (unmasked) {  // m is a real logit here, so m * log2 e is finite
+      const float c = scale * LOG2E, b_lo = -m_lo * LOG2E, b_hi = -m_hi * LOG2E;
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nj][e] = exp2_approx(fmaf(s[nj][e], c, b_lo)) * il_lo;
+          s[nj][2 + e] = exp2_approx(fmaf(s[nj][2 + e], c, b_hi)) * il_hi;
+        }
+    } else {
+#pragma unroll
+      for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nj * 8 + 2 * t + e;
+          const int skv = s_seg[stage * BN + col];
+          const float x_lo = masked_logit(s[nj][e], scale, row_lo, k0 + col, Nk, sq_lo, skv, causal);
+          const float x_hi =
+              masked_logit(s[nj][2 + e], scale, row_hi, k0 + col, Nk, sq_hi, skv, causal);
+          s[nj][e] = exp2_approx((x_lo - m_lo) * LOG2E) * il_lo;
+          s[nj][2 + e] = exp2_approx((x_hi - m_hi) * LOG2E) * il_hi;
+        }
+    }
+#pragma unroll
+    for (int nj = 0; nj < BN / 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[nj][e] = s[nj][e] * (dp[nj][e] - di_lo);
+        dp[nj][2 + e] = s[nj][2 + e] * (dp[nj][2 + e] - di_hi);
+      }
+
+    // dQ += dS K, dS rounded to bf16 in registers as the A operand.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int db = 0; db < DH / 16; ++db) {
+        uint32_t bf[4];
+        load_b_cols(bf, tK, kk * 16, db, CH, lane);
+        mma_16816(acc[2 * db], da, bf[0], bf[1]);
+        mma_16816(acc[2 * db + 1], da, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  bf16* dqb = dq + (size_t)bh * Nq * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    if (in_lo)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_lo * DH + col) =
+          pack_bf16(acc[i][0], acc[i][1]);
+    if (in_hi)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_hi * DH + col) =
+          pack_bf16(acc[i][2], acc[i][3]);
+  }
+}
+
 // ==== fp32 FFMA ============================================================
 
 // ---- forward (fp32) --------------------------------------------------------
-// grid (ceil(Nq / 64), H, B). Writes O [B, H, Nq, DH] and lse [B, H, Nq].
-template <typename T, int DH>
+// grid (ceil(Nq / 64), H, B). Writes O [B, H, Nq, DH] and m, l [B, H, Nq].
+template <int DH>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                 T* __restrict__ o, float* __restrict__ lse,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  int H, int Nq, int Nk, int causal, float scale) {
   constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;  // CG column groups of 64
   extern __shared__ float4 smem4[];
@@ -613,9 +797,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int b = blockIdx.z, bh = b * H + blockIdx.y;
   const int q0 = blockIdx.x * TILE;
   const int mq = min(TILE, Nq - q0);
-  const T* qb = q + ((size_t)bh * Nq + q0) * DH;
-  const T* kb = k + (size_t)bh * Nk * DH;
-  const T* vb = v + (size_t)bh * Nk * DH;
+  const float* qb = q + ((size_t)bh * Nq + q0) * DH;
+  const float* kb = k + (size_t)bh * Nk * DH;
+  const float* vb = v + (size_t)bh * Nk * DH;
 
   load_tile_t<DH>(qb, mq, q_t);
   if (threadIdx.x < TILE) sq[threadIdx.x] = threadIdx.x < mq ? seg_q[(size_t)b * Nq + q0 + threadIdx.x] : 0;
@@ -674,7 +858,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int cg = 0; cg < CG; ++cg) mma_nn<LDN<DH>>(p_t, ty * 4, v_n, cg * 64 + tx * 4, acc[cg]);
   }
 
-  T* ob = o + ((size_t)bh * Nq + q0) * DH;
+  float* ob = o + ((size_t)bh * Nq + q0) * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -685,21 +869,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       store4(ob + (size_t)r * DH + cg * 64 + tx * 4,
              make_float4(acc[cg][i][0] * inv, acc[cg][i][1] * inv, acc[cg][i][2] * inv,
                          acc[cg][i][3] * inv));
-    if (tx == 0) lse[(size_t)bh * Nq + q0 + r] = m[i] + logf(l[i]);
+    if (tx == 0) {
+      m_out[(size_t)bh * Nq + q0 + r] = m[i];
+      l_out[(size_t)bh * Nq + q0 + r] = l[i];
+    }
   }
 }
 
 // ---- backward: dK, dV (fp32) ----------------------------------------------
 // grid (ceil(Nk / 64), H, B). One block owns 64 keys and streams the query
-// tiles: P^T = exp(S^T - lse), dP^T = V dO^T, dS^T = P^T (dP^T - di) * scale,
+// tiles: P^T = exp(S^T - m) / l, dP^T = V dO^T, dS^T = P^T (dP^T - di) * scale,
 // dV += P^T dO, dK += dS^T Q.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
-                     int H, int Nq, int Nk, int causal, float scale) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_kv, const float* __restrict__ dout,
+                     const float* __restrict__ m, const float* __restrict__ inv_l,
+                     const float* __restrict__ di, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Nq, int Nk, int causal, float scale) {
   constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;
   extern __shared__ float4 smem4[];
   float* k_t = reinterpret_cast<float*>(smem4);
@@ -709,14 +897,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* p_s = buf_do + TF;    // P as [query][key]
   float* ds_s = p_s + TILE * LD;  // dS as [query][key]
   __shared__ int sq[TILE], skv[TILE];
-  __shared__ float s_lse[TILE], s_di[TILE];
+  __shared__ float s_m[TILE], s_il[TILE], s_di[TILE];
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // ty: keys, tx: queries
   const int b = blockIdx.z, bh = b * H + blockIdx.y;
   const int k0 = blockIdx.x * TILE;
   const int nk = min(TILE, Nk - k0);
-  const T* qb = q + (size_t)bh * Nq * DH;
-  const T* dob = dout + (size_t)bh * Nq * DH;
+  const float* qb = q + (size_t)bh * Nq * DH;
+  const float* dob = dout + (size_t)bh * Nq * DH;
 
   load_tile_t<DH>(k + ((size_t)bh * Nk + k0) * DH, nk, k_t);
   load_tile_t<DH>(v + ((size_t)bh * Nk + k0) * DH, nk, v_t);
@@ -733,7 +921,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       const bool in = threadIdx.x < mq;
       const size_t row = (size_t)bh * Nq + q0 + threadIdx.x;
       sq[threadIdx.x] = in ? seg_q[(size_t)b * Nq + q0 + threadIdx.x] : 0;
-      s_lse[threadIdx.x] = in ? lse[row] : INFINITY;  // P = 0 on rows past Nq
+      s_m[threadIdx.x] = in ? m[row] : 0.f;
+      s_il[threadIdx.x] = in ? inv_l[row] : 0.f;  // P = 0 on rows past Nq
       s_di[threadIdx.x] = in ? di[row] : 0.f;
     }
     __syncthreads();
@@ -749,7 +938,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         // key is the row of S^T here; masked_logit takes (query row, key col).
         const float x = masked_logit(s[a][c], scale, q0 + qr, k0 + key, Nk, sq[qr], skv[key],
                                      causal);
-        const float p = __expf(x - s_lse[qr]);
+        const float p = __expf(x - s_m[qr]) * s_il[qr];
         s[a][c] = p;
         dp[a][c] = p * (dp[a][c] - s_di[qr]) * scale;
       }
@@ -766,8 +955,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   }
 
-  T* dkb = dk + ((size_t)bh * Nk + k0) * DH;
-  T* dvb = dv + ((size_t)bh * Nk + k0) * DH;
+  float* dkb = dk + ((size_t)bh * Nk + k0) * DH;
+  float* dvb = dv + ((size_t)bh * Nk + k0) * DH;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty * 4 + a;
@@ -783,15 +972,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// ---- backward: dQ (fp32 and bf16) ------------------------------------------
+// ---- backward: dQ (fp32) --------------------------------------------------
 // grid (ceil(Nq / 64), H, B). One block owns 64 queries and streams the key
-// tiles: P = exp(S - lse), dP = dO V^T, dS = P (dP - di) * scale, dQ += dS K.
-template <typename T, int DH>
+// tiles: P = exp(S - m) / l, dP = dO V^T, dS = P (dP - di) * scale,
+// dQ += dS K.
+template <int DH>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_kv, const float* __restrict__ dout,
+                    const float* __restrict__ m, const float* __restrict__ inv_l,
+                    const float* __restrict__ di, float* __restrict__ dq,
                     int H, int Nq, int Nk, int causal, float scale) {
   constexpr int TF = TILE_FLOATS<DH>, CG = DH / 64;
   extern __shared__ float4 smem4[];
@@ -806,17 +997,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int b = blockIdx.z, bh = b * H + blockIdx.y;
   const int q0 = blockIdx.x * TILE;
   const int mq = min(TILE, Nq - q0);
-  const T* kb = k + (size_t)bh * Nk * DH;
-  const T* vb = v + (size_t)bh * Nk * DH;
+  const float* kb = k + (size_t)bh * Nk * DH;
+  const float* vb = v + (size_t)bh * Nk * DH;
 
   load_tile_t<DH>(q + ((size_t)bh * Nq + q0) * DH, mq, q_t);
   load_tile_t<DH>(dout + ((size_t)bh * Nq + q0) * DH, mq, do_t);
   if (threadIdx.x < TILE) sq[threadIdx.x] = threadIdx.x < mq ? seg_q[(size_t)b * Nq + q0 + threadIdx.x] : 0;
-  float row_lse[4], row_di[4];
+  float row_m[4], row_il[4], row_di[4];  // rows past Nq: 1/l = 0, so P = 0
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
-    row_lse[i] = r < mq ? lse[(size_t)bh * Nq + q0 + r] : INFINITY;
+    row_m[i] = r < mq ? m[(size_t)bh * Nq + q0 + r] : 0.f;
+    row_il[i] = r < mq ? inv_l[(size_t)bh * Nq + q0 + r] : 0.f;
     row_di[i] = r < mq ? di[(size_t)bh * Nq + q0 + r] : 0.f;
   }
 
@@ -840,7 +1032,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int qr = ty * 4 + i, key = tx * 4 + c;
         const float x = masked_logit(s[i][c], scale, q0 + qr, k0 + key, Nk, sq[qr], skv[key],
                                      causal);
-        const float p = __expf(x - row_lse[i]);
+        const float p = __expf(x - row_m[i]) * row_il[i];
         dp[i][c] = p * (dp[i][c] - row_di[i]) * scale;
       }
     __syncthreads();  // done reading the transposed K
@@ -851,7 +1043,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int cg = 0; cg < CG; ++cg) mma_nn<LDN<DH>>(ds_t, ty * 4, buf_k, cg * 64 + tx * 4, acc[cg]);
   }
 
-  T* dqb = dq + ((size_t)bh * Nq + q0) * DH;
+  float* dqb = dq + ((size_t)bh * Nq + q0) * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -872,6 +1064,9 @@ constexpr size_t DKV_SMEM = (4 * TILE_FLOATS<DH> + 2 * TILE * LD) * sizeof(float
 template <int DH>
 constexpr size_t DQ_SMEM = (4 * TILE_FLOATS<DH> + TILE * LD) * sizeof(float);
 
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
 inline dim3 grid_for(int n, int rows, int H, int B) { return dim3((n + rows - 1) / rows, H, B); }
 
 // Sets the kernel's dynamic shared memory and launches it; returns the
@@ -888,45 +1083,52 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stre
 
 template <int DH>
 int fwd(int dtype, const void* q, const void* k, const void* v, const int* seg_q,
-        const int* seg_kv, void* o, float* lse, int B, int H, int Nq, int Nk, int causal,
+        const int* seg_kv, void* o, float* m, float* l, int B, int H, int Nq, int Nk, int causal,
         float scale, cudaStream_t s) {
-  if (dtype == 1) {
+  if (dtype == DTYPE_BF16) {
     using C = FwdTC<DH>;
     return launch(flash_fwd_tc_kernel<DH>, grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM, s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (bf16*)o, lse,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (bf16*)o, m, l,
                   H, Nq, Nk, causal, scale);
   }
-  return launch(flash_fwd_kernel<float, DH>, grid_for(Nq, TILE, H, B), THREADS, FWD_SMEM<DH>, s,
-                (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv, (float*)o, lse,
+  return launch(flash_fwd_kernel<DH>, grid_for(Nq, TILE, H, B), THREADS, FWD_SMEM<DH>, s,
+                (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv, (float*)o, m, l,
                 H, Nq, Nk, causal, scale);
 }
 
 template <int DH>
 int bwd_dkv(int dtype, const void* q, const void* k, const void* v, const int* seg_q,
-            const int* seg_kv, const void* dout, const float* lse, const float* di, void* dk,
-            void* dv, int B, int H, int Nq, int Nk, int causal, float scale, cudaStream_t s) {
-  if (dtype == 1) {
+            const int* seg_kv, const void* dout, const float* m, const float* inv_l,
+            const float* di, void* dk, void* dv, int B, int H, int Nq, int Nk, int causal,
+            float scale, cudaStream_t s) {
+  if (dtype == DTYPE_BF16) {
     using C = DkvTC<DH>;
     return launch(flash_bwd_dkv_tc_kernel<DH>, grid_for(Nk, C::BK, H, B), C::NTHREADS, C::SMEM,
                   s, (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv,
-                  (const bf16*)dout, lse, di, (bf16*)dk, (bf16*)dv, H, Nq, Nk, causal, scale);
+                  (const bf16*)dout, m, inv_l, di, (bf16*)dk, (bf16*)dv, H, Nq, Nk, causal,
+                  scale);
   }
-  return launch(flash_bwd_dkv_kernel<float, DH>, grid_for(Nk, TILE, H, B), THREADS, DKV_SMEM<DH>,
-                s, (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,
-                (const float*)dout, lse, di, (float*)dk, (float*)dv, H, Nq, Nk, causal, scale);
+  return launch(flash_bwd_dkv_kernel<DH>, grid_for(Nk, TILE, H, B), THREADS, DKV_SMEM<DH>, s,
+                (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,
+                (const float*)dout, m, inv_l, di, (float*)dk, (float*)dv, H, Nq, Nk, causal,
+                scale);
 }
 
-template <typename T, int DH>
-int bwd_dq(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_kv,
-           const void* dout, const float* lse, const float* di, void* dq, int B, int H, int Nq,
-           int Nk, int causal, float scale, cudaStream_t s) {
-  return launch(flash_bwd_dq_kernel<T, DH>, grid_for(Nq, TILE, H, B), THREADS, DQ_SMEM<DH>, s,
-                (const T*)q, (const T*)k, (const T*)v, seg_q, seg_kv, (const T*)dout, lse, di,
-                (T*)dq, H, Nq, Nk, causal, scale);
+template <int DH>
+int bwd_dq(int dtype, const void* q, const void* k, const void* v, const int* seg_q,
+           const int* seg_kv, const void* dout, const float* m, const float* inv_l,
+           const float* di, void* dq, int B, int H, int Nq, int Nk, int causal, float scale,
+           cudaStream_t s) {
+  if (dtype == DTYPE_BF16) {
+    using C = DqTC<DH>;
+    return launch(flash_bwd_dq_tc_kernel<DH>, grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM,
+                  s, (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv,
+                  (const bf16*)dout, m, inv_l, di, (bf16*)dq, H, Nq, Nk, causal, scale);
+  }
+  return launch(flash_bwd_dq_kernel<DH>, grid_for(Nq, TILE, H, B), THREADS, DQ_SMEM<DH>, s,
+                (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,
+                (const float*)dout, m, inv_l, di, (float*)dq, H, Nq, Nk, causal, scale);
 }
-
-constexpr int DTYPE_F32 = 0;
-constexpr int DTYPE_BF16 = 1;
 
 inline bool supported(int head_dim, int dtype) {
   return (head_dim == 64 || head_dim == 128) && (dtype == DTYPE_F32 || dtype == DTYPE_BF16);
@@ -935,47 +1137,43 @@ inline bool supported(int head_dim, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs O, dQ, dK,
-// dV share it); lse and di are float32; segment ids int32 [B, N]. All
-// tensors contiguous, [B, H, N, head_dim] for the matrices; head_dim 64 or
-// 128. Other widths or types return cudaErrorInvalidValue.
+// dV share it); the row statistics m, l (forward) and m, 1/l (backward) and
+// di are float32 [B, H, Nq]; segment ids int32 [B, N]. All tensors
+// contiguous, [B, H, N, head_dim] for the matrices; head_dim 64 or 128.
+// Other widths or types return cudaErrorInvalidValue.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const int* seg_q,
-                                const int* seg_kv, void* o, float* lse, int B, int H, int Nq,
-                                int Nk, int head_dim, int dtype, int causal, float scale,
+                                const int* seg_kv, void* o, float* m, float* l, int B, int H,
+                                int Nq, int Nk, int head_dim, int dtype, int causal, float scale,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
   return head_dim == 64
-             ? fwd<64>(dtype, q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s)
-             : fwd<128>(dtype, q, k, v, seg_q, seg_kv, o, lse, B, H, Nq, Nk, causal, scale, s);
+             ? fwd<64>(dtype, q, k, v, seg_q, seg_kv, o, m, l, B, H, Nq, Nk, causal, scale, s)
+             : fwd<128>(dtype, q, k, v, seg_q, seg_kv, o, m, l, B, H, Nq, Nk, causal, scale, s);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const int* seg_q,
-                                    const int* seg_kv, const void* dout, const float* lse,
-                                    const float* di, void* dk, void* dv, int B, int H, int Nq,
-                                    int Nk, int head_dim, int dtype, int causal, float scale,
-                                    void* stream) {
+                                    const int* seg_kv, const void* dout, const float* m,
+                                    const float* inv_l, const float* di, void* dk, void* dv,
+                                    int B, int H, int Nq, int Nk, int head_dim, int dtype,
+                                    int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
-  return head_dim == 64 ? bwd_dkv<64>(dtype, q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B,
-                                      H, Nq, Nk, causal, scale, s)
-                        : bwd_dkv<128>(dtype, q, k, v, seg_q, seg_kv, dout, lse, di, dk, dv, B,
-                                       H, Nq, Nk, causal, scale, s);
+  return head_dim == 64 ? bwd_dkv<64>(dtype, q, k, v, seg_q, seg_kv, dout, m, inv_l, di, dk, dv,
+                                      B, H, Nq, Nk, causal, scale, s)
+                        : bwd_dkv<128>(dtype, q, k, v, seg_q, seg_kv, dout, m, inv_l, di, dk,
+                                       dv, B, H, Nq, Nk, causal, scale, s);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const int* seg_q,
-                                   const int* seg_kv, const void* dout, const float* lse,
-                                   const float* di, void* dq, int B, int H, int Nq, int Nk,
-                                   int head_dim, int dtype, int causal, float scale,
-                                   void* stream) {
+                                   const int* seg_kv, const void* dout, const float* m,
+                                   const float* inv_l, const float* di, void* dq, int B, int H,
+                                   int Nq, int Nk, int head_dim, int dtype, int causal,
+                                   float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!supported(head_dim, dtype)) return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    return head_dim == 64 ? bwd_dq<float, 64>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H,
-                                              Nq, Nk, causal, scale, s)
-                          : bwd_dq<float, 128>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H,
-                                               Nq, Nk, causal, scale, s);
-  return head_dim == 64 ? bwd_dq<bf16, 64>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq,
-                                           Nk, causal, scale, s)
-                        : bwd_dq<bf16, 128>(q, k, v, seg_q, seg_kv, dout, lse, di, dq, B, H, Nq,
-                                            Nk, causal, scale, s);
+  return head_dim == 64 ? bwd_dq<64>(dtype, q, k, v, seg_q, seg_kv, dout, m, inv_l, di, dq, B, H,
+                                     Nq, Nk, causal, scale, s)
+                        : bwd_dq<128>(dtype, q, k, v, seg_q, seg_kv, dout, m, inv_l, di, dq, B,
+                                      H, Nq, Nk, causal, scale, s);
 }

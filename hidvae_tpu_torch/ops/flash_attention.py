@@ -7,20 +7,26 @@ the JAX package calls from `_flash_self_attention`
 (hidvae_tpu/models/attention.py:75). Three hand-written Hopper kernels in
 csrc/flash_attention.cu replace the library's three Pallas kernels:
 
-  flash_fwd      forward, writes O and the row logsumexp   (library :331)
-  flash_bwd_dkv  dK, dV                                    (library :796)
-  flash_bwd_dq   dQ                                        (library :1146)
+  flash_fwd      forward, writes O and the row statistics m, l  (library :331)
+  flash_bwd_dkv  dK, dV                                         (library :796)
+  flash_bwd_dq   dQ                                             (library :1146)
 
 `flash_attention(q, k, v, *, segment_ids, causal, sm_scale)` takes q, k, v
 [B, H, N, Dh] and segment ids [B, N] int32. On CUDA tensors it runs the
 kernels (forward and, under autograd, backward), built for Dh 64 and 128;
 on CPU tensors it runs `flash_attention_reference`, the plain version, at
 any Dh. A CUDA tensor never takes the plain path: a failed build or launch
-raises. In bf16 the forward and dK/dV kernels run on tensor cores and, as
-the library does, round P (and dS) to bf16 before their products; the
-fp32 kernels and the bf16 dQ compute in fp32 FFMA. The backward mirrors
-`_flash_attention_bwd` (library :254-318): di = rowsum(dO * O) in fp32, then
-dK/dV, then dQ.
+raises. In bf16 all three kernels run on tensor cores and, as the library
+does, round P and dS to bf16 before their products; the fp32 kernels
+compute in fp32 FFMA. The backward mirrors `_flash_attention_bwd`
+(library :254-318): di = rowsum(dO * O) in fp32, then dK/dV, then dQ.
+
+The forward saves the library's residuals, the row max m of the masked,
+scaled logits and the row sum l = sum exp(s - m), and the backward
+recomputes P = exp(s - m) / l from them, as the library's backward bodies
+do (:900-904, :1226-1232). One logsumexp m + log l would not do: on a
+query row with no key of its segment every logit is the mask value, the
+sum rounds back to m, and P would come out 1 instead of 1/N.
 
 Semantics, from the library: logits (q k^T) * sm_scale in fp32; where the
 query's and key's segment ids differ (or, when causal, where the key comes
@@ -88,42 +94,59 @@ def flash_attention_reference(q, k, v, *, segment_ids: Optional[SegmentIds] = No
 
 
 def flash_fwd_reference(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
-    """Plain version of the forward kernel: (O in q's dtype, lse [B, H, Nq]
-    fp32)."""
+    """Plain version of the forward kernel: (O in q's dtype, m, l), where m
+    is the row max of the masked, scaled logits and l = sum exp(s - m), both
+    fp32 [B, H, Nq]: the library's residuals."""
     s = _logits(q, k, seg_q, seg_kv, causal, sm_scale)
-    lse = torch.logsumexp(s, dim=-1)
+    m = torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = torch.sum(e, dim=-1)
     with full_fp32():
-        o = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]), v.float())
-    return o.to(q.dtype), lse
+        o = torch.einsum("bhqk,bhkd->bhqd", e / l[..., None], v.float())
+    return o.to(q.dtype), m, l
 
 
-def _p_ds(q, k, v, seg_q, seg_kv, do, lse, di, causal, sm_scale):
-    """P and dS = P (dO V^T - di) * sm_scale, fp32 [B, H, Nq, Nk]."""
-    p = torch.exp(_logits(q, k, seg_q, seg_kv, causal, sm_scale) - lse[..., None])
+def _p_ds(q, k, v, seg_q, seg_kv, do, m, l, di, causal, sm_scale):
+    """P = exp(s - m) / l and dS = P (dO V^T - di) * sm_scale, fp32
+    [B, H, Nq, Nk]."""
+    s = _logits(q, k, seg_q, seg_kv, causal, sm_scale)
+    p = torch.exp(s - m[..., None]) / l[..., None]
     with full_fp32():
         dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     return p, p * (dp - di[..., None]) * sm_scale
 
 
-def flash_bwd_dkv_reference(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool,
+def flash_bwd_dkv_reference(q, k, v, seg_q, seg_kv, do, m, l, di, causal: bool,
                             sm_scale: float):
     """Plain version of the dK/dV kernel: (dK, dV) in k's dtype."""
-    p, ds = _p_ds(q, k, v, seg_q, seg_kv, do, lse, di, causal, sm_scale)
+    p, ds = _p_ds(q, k, v, seg_q, seg_kv, do, m, l, di, causal, sm_scale)
     with full_fp32():
         dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
         dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     return dk.to(k.dtype), dv.to(k.dtype)
 
 
-def flash_bwd_dq_reference(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool,
+def flash_bwd_dq_reference(q, k, v, seg_q, seg_kv, do, m, l, di, causal: bool,
                            sm_scale: float):
     """Plain version of the dQ kernel: dQ in q's dtype."""
-    _, ds = _p_ds(q, k, v, seg_q, seg_kv, do, lse, di, causal, sm_scale)
+    _, ds = _p_ds(q, k, v, seg_q, seg_kv, do, m, l, di, causal, sm_scale)
     with full_fp32():
         return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
 
 
 # ---- kernels -------------------------------------------------------------
+
+def bind(lib: ctypes.CDLL):
+    """Declare the C entry points' argument types on a loaded library."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # B, H, Nq, Nk, head_dim, dtype, causal, scale, stream
+    tail = [i32, i32, i32, i32, i32, i32, i32, f32, ptr]
+    for name, n_ptrs in (("flash_fwd_launch", 8), ("flash_bwd_dkv_launch", 11),
+                         ("flash_bwd_dq_launch", 10)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptrs + tail
+        fn.restype = ctypes.c_int
+
 
 def build():
     """Compile (at first use) and load the kernels; returns
@@ -131,14 +154,7 @@ def build():
     from hidvae_tpu_torch.utils.cuda_build import load_library
 
     built = load_library(SOURCE)
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B, H, Nq, Nk, head_dim, dtype, causal, scale, stream
-    tail = [i32, i32, i32, i32, i32, i32, i32, f32, ptr]
-    for name, n_ptrs in (("flash_fwd_launch", 7), ("flash_bwd_dkv_launch", 10),
-                         ("flash_bwd_dq_launch", 9)):
-        fn = getattr(built.lib, name)
-        fn.argtypes = [ptr] * n_ptrs + tail
-        fn.restype = ctypes.c_int
+    bind(built.lib)
     return built
 
 
@@ -186,30 +202,43 @@ def _stream(device):
 
 
 def flash_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
-    """Launch the forward kernel: returns (O like q, lse [B, H, Nq] fp32).
-    Adds one to `flash_fwd.launches`."""
+    """Launch the forward kernel: returns (O like q, m, l), m and l fp32
+    [B, H, Nq] as `flash_fwd_reference` defines them. Adds one to
+    `flash_fwd.launches`."""
     code = _check(q, k, v, seg_q, seg_kv)
     b, h, nq, _ = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    m, l = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device) for _ in range(2))
     if o.numel() == 0:
-        return o, lse
+        return o, m, l
     fn = build().lib.flash_fwd_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), b, h, nq, k.shape[2], q.shape[3], code,
-                 int(causal), float(sm_scale), _stream(q.device))
+                 o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, nq, k.shape[2], q.shape[3],
+                 code, int(causal), float(sm_scale), _stream(q.device))
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
-    return o, lse
+    return o, m, l
 
 
-def flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: float):
-    """Launch the dK/dV kernel: returns (dK, dV) like k. Adds one to
-    `flash_bwd_dkv.launches`."""
-    code = _check(q, k, v, seg_q, seg_kv, do, lse, di)
+def _backward_args(q, k, v, seg_q, seg_kv, do, m, l, di):
+    """Checks a backward kernel's inputs; returns (dtype code, 1/l). The
+    backward kernels take 1/l, one reciprocal per row computed here, so
+    that none is taken per element."""
+    code = _check(q, k, v, seg_q, seg_kv, do, m, l, di)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("dO must match q in shape and dtype")
+    for t in (m, l, di):
+        if t.dtype != torch.float32 or t.shape != q.shape[:3]:
+            raise ValueError(f"m, l and di must be float32 {tuple(q.shape[:3])}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    return code, torch.reciprocal(l)
+
+
+def flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, m, l, di, causal: bool, sm_scale: float):
+    """Launch the dK/dV kernel: returns (dK, dV) like k. Adds one to
+    `flash_bwd_dkv.launches`."""
+    code, inv_l = _backward_args(q, k, v, seg_q, seg_kv, do, m, l, di)
     b, h, nq, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
@@ -217,20 +246,18 @@ def flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: f
     fn = build().lib.flash_bwd_dkv_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b, h, nq, k.shape[2], q.shape[3], code, int(causal), float(sm_scale),
-                 _stream(q.device))
+                 do.data_ptr(), m.data_ptr(), inv_l.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, nq, k.shape[2], q.shape[3], code, int(causal),
+                 float(sm_scale), _stream(q.device))
     _raise_on(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: float):
-    """Launch the dQ kernel: returns dQ like q. Adds one to
-    `flash_bwd_dq.launches`."""
-    code = _check(q, k, v, seg_q, seg_kv, do, lse, di)
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError("dO must match q in shape and dtype")
+def flash_bwd_dq(q, k, v, seg_q, seg_kv, do, m, l, di, causal: bool, sm_scale: float):
+    """Launch the dQ kernel (in bf16 `flash_bwd_dq_tc_kernel`, on tensor
+    cores): returns dQ like q. Adds one to `flash_bwd_dq.launches`."""
+    code, inv_l = _backward_args(q, k, v, seg_q, seg_kv, do, m, l, di)
     b, h, nq, _ = q.shape
     dq = torch.empty_like(q)
     if dq.numel() == 0:
@@ -238,7 +265,7 @@ def flash_bwd_dq(q, k, v, seg_q, seg_kv, do, lse, di, causal: bool, sm_scale: fl
     fn = build().lib.flash_bwd_dq_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                 do.data_ptr(), m.data_ptr(), inv_l.data_ptr(), di.data_ptr(), dq.data_ptr(),
                  b, h, nq, k.shape[2], q.shape[3], code, int(causal), float(sm_scale),
                  _stream(q.device))
     _raise_on(err, "flash_bwd_dq")
@@ -262,18 +289,18 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, causal, sm_scale):
-        o, lse = flash_fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, lse)
+        o, m, l = flash_fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, m, l)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
+        q, k, v, seg_q, seg_kv, o, m, l = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         di = torch.sum(o.float() * do.float(), dim=-1)
-        dk, dv = flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, lse, di, ctx.causal, ctx.sm_scale)
-        dq = flash_bwd_dq(q, k, v, seg_q, seg_kv, do, lse, di, ctx.causal, ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, seg_q, seg_kv, do, m, l, di, ctx.causal, ctx.sm_scale)
+        dq = flash_bwd_dq(q, k, v, seg_q, seg_kv, do, m, l, di, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None, None, None
 
 

@@ -84,18 +84,18 @@ def test_gradients_match_jax_grad(b, h, n, causal, pad):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_kernel_plain_versions_match_library(causal):
-    """Each kernel's plain version (forward with its row logsumexp, dK/dV,
-    dQ) against the library's residuals and gradients."""
-    q, k, v, do, seg = _inputs(2, 2, 200, True, 7)
-    ids = jfa.SegmentIds(*_j(seg, seg))
+def _plain_kernels_against_library(q, k, v, do, seg_q, seg_kv, causal):
+    """Each kernel's plain version (forward with its row statistics m and l,
+    then dK/dV and dQ given those) against the library's residuals and
+    jax.grad of its reference; returns the plain (O, m, l)."""
+    ids = jfa.SegmentIds(*_j(seg_q, seg_kv))
     o_j, l_j, m_j = jfa.mha_reference_no_custom_vjp(*_j(q, k, v), None, ids, causal=causal,
                                                     sm_scale=SCALE, save_residuals=True)
-    qt, kt, vt, dot, st = _t(q, k, v, do, seg)
-    o, lse = fa.flash_fwd_reference(qt, kt, vt, st, st, causal, SCALE)
+    qt, kt, vt, dot, sq, skv = _t(q, k, v, do, seg_q, seg_kv)
+    o, m, l = fa.flash_fwd_reference(qt, kt, vt, sq, skv, causal, SCALE)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=TOL)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(m_j + jnp.log(l_j)), atol=TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_j), atol=TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_j), atol=TOL, rtol=TOL)
 
     def loss(q_, k_, v_):
         out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
@@ -104,9 +104,62 @@ def test_kernel_plain_versions_match_library(causal):
 
     dq_j, dk_j, dv_j = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
     di = torch.sum(o * dot, dim=-1)  # the library's di = rowsum(dO * O)
-    dk, dv = fa.flash_bwd_dkv_reference(qt, kt, vt, st, st, dot, lse, di, causal, SCALE)
-    dq = fa.flash_bwd_dq_reference(qt, kt, vt, st, st, dot, lse, di, causal, SCALE)
+    dk, dv = fa.flash_bwd_dkv_reference(qt, kt, vt, sq, skv, dot, m, l, di, causal, SCALE)
+    dq = fa.flash_bwd_dq_reference(qt, kt, vt, sq, skv, dot, m, l, di, causal, SCALE)
     for g, w in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL)
+    return o, m, l
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_plain_versions_match_library(causal):
+    """Each kernel's plain version (forward with its row statistics m and l,
+    dK/dV, dQ) against the library's residuals and gradients."""
+    q, k, v, do, seg = _inputs(2, 2, 200, True, 7)
+    _plain_kernels_against_library(q, k, v, do, seg, seg, causal)
+
+
+@pytest.mark.parametrize("b,h,n,causal", [(2, 2, 200, False), (2, 2, 200, True),
+                                          (1, 3, 130, True)])
+def test_keyless_rows_match_library(b, h, n, causal):
+    """Query rows with no key of their segment (queries in segments 1-3,
+    keys in 1-2), under a nonzero cotangent. Every logit of such a row is
+    the mask value -0.7 * FLT_MAX: the library's weights are uniform, and
+    its backward recomputes P = exp(s - m) / l = 1/N from m and l kept
+    apart. One logsumexp m + log l rounds back to m there and gives P = 1,
+    N times the library's dQ and dK on those rows. The per-kernel plain
+    versions, given the plain forward's m and l, and the whole
+    flash_attention on the CPU, against jax.grad of the library's
+    reference."""
+    q, k, v, do, _ = _inputs(b, h, n, False, 5 * n + h)
+    rng = np.random.RandomState(n)
+    seg_q = rng.randint(1, 4, (b, n)).astype(np.int32)
+    seg_q[:, 0] = 3  # at least one keyless row per batch row
+    seg_kv = rng.randint(1, 3, (b, n)).astype(np.int32)
+    keyless = seg_q == 3
+    assert np.abs(do[np.broadcast_to(keyless[:, None, :, None], do.shape)]).max() > 0.5
+
+    o, m, l = _plain_kernels_against_library(q, k, v, do, seg_q, seg_kv, causal)
+    rows = np.broadcast_to(keyless[:, None, :], m.shape)
+    np.testing.assert_array_equal(m.numpy()[rows], np.float32(fa.MASK_VALUE))
+    if not causal:  # every key is visible: l = N and O is the mean of V
+        np.testing.assert_array_equal(l.numpy()[rows], n)
+        mean_v = np.broadcast_to(v.mean(axis=2, keepdims=True), v.shape)
+        np.testing.assert_allclose(o.numpy()[rows], mean_v[rows], atol=TOL)
+
+    ids = jfa.SegmentIds(*_j(seg_q, seg_kv))
+
+    def loss(q_, k_, v_):
+        out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
+                                              sm_scale=SCALE)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg_q, seg_kv)),
+                             causal=causal, sm_scale=SCALE)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL)
 
 

@@ -146,15 +146,25 @@ def _segments(b, n, mode, rng):
     (1, 2, 130, 128, False, torch.bfloat16, "cross"),
     (1, 2, 200, 128, False, torch.float32, "pad"),
     (1, 1, 257, 128, True, torch.float32, "pad"),
+    (1, 2, 65, 64, False, torch.bfloat16, "pad"),      # one key past a tile
+    (2, 1, 65, 64, True, torch.bfloat16, "pad"),
+    (1, 2, 65, 128, False, torch.bfloat16, "cross"),
+    (1, 3, 257, 128, True, torch.bfloat16, "pad"),
+    (1, 2, 2432, 64, True, torch.bfloat16, "pad"),
+    (1, 2, 2432, 64, False, torch.bfloat16, "cross"),
+    (1, 1, 2432, 128, False, torch.bfloat16, "pad"),
+    (1, 2, 200, 64, False, torch.float32, "cross"),
 ])
 def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
     """Forward, dK/dV and dQ against the plain version's output and autograd
-    gradients. A query row with no key of its segment must get the
-    library's uniform weights: O is the mean of V over all keys. The
-    backward recomputes P from one fp32 logsumexp per row, and for such a
-    row lse = -0.7 * FLT_MAX + log N rounds to -0.7 * FLT_MAX, so its P is
-    not the plain version's 1/N; the model never makes such rows (queries
-    and keys share their segment ids), and their cotangent is zero here."""
+    gradients, under a nonzero cotangent on every row. A query row with no
+    key of its segment must get the library's uniform weights: O is the
+    mean of V over all keys, and the backward, which recomputes
+    P = exp(s - m) / l from the saved m and l, must give P = 1/N there and
+    the plain version's gradients. Such rows are made only without causal
+    masking: under it the kernels skip key tiles above the diagonal, as the
+    library's kernel does, so a row that sees no key of its segment would
+    spread its weights over the keys its tiles visited, not over all N."""
     from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 
@@ -162,7 +172,6 @@ def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtyp
     q, k, v, do = (torch.from_numpy(rng.randn(b, h, n, dh).astype(np.float32)).to(dtype)
                    for _ in range(4))
     seg_q, seg_kv, no_key = _segments(b, n, mode, rng)
-    do[no_key[:, None, :].expand(b, h, n)] = 0
     q, k, v, do, seg_q, seg_kv = (t.to(cuda) for t in (q, k, v, do, seg_q, seg_kv))
     ids = fa.SegmentIds(seg_q, seg_kv)
     scale = dh ** -0.5
@@ -186,3 +195,24 @@ def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtyp
         rows = no_key.to(cuda)[:, None, :].expand(b, h, n)
         err = float((out.detach().float()[rows] - mean_v[rows]).abs().max())
         assert err <= FLASH_RTOL[dtype] * float(mean_v.abs().max()), err
+
+
+def test_bf16_dq_launches_the_tensor_core_kernel(cuda):
+    """A bf16 flash_bwd_dq runs flash_bwd_dq_tc_kernel and no FFMA dQ; fp32
+    runs the FFMA flash_bwd_dq_kernel."""
+    from hidvae_tpu_torch.ops import flash_attention as fa
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1, 2, 130, 64, device=cuda).to(dtype)
+        seg = torch.ones((1, 130), dtype=torch.int32, device=cuda)
+        _, m, l = fa.flash_fwd(x, x, x, seg, seg, False, 0.125)
+        di = torch.zeros_like(m)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fa.flash_bwd_dq(x, x, x, seg, seg, x, m, l, di, False, 0.125)
+            torch.cuda.synchronize()
+        names[dtype] = [e.key for e in prof.key_averages() if "flash_bwd_dq" in e.key]
+    assert len(names[torch.bfloat16]) == 1 and "flash_bwd_dq_tc_kernel" in names[torch.bfloat16][0]
+    assert len(names[torch.float32]) == 1 and "flash_bwd_dq_kernel" in names[torch.float32][0]
+    assert "_tc_" not in names[torch.float32][0]
