@@ -62,7 +62,12 @@ KERNEL_CASES = (  # (B, D, L, K)
     (18357, 128, 3, 256),    # the widest code the kernel is built for
     (1001, 128, 3, 256),
 )
-TIMED_CASE = (1048576, 32, 3, 256)
+# Timed: one sweep chunk (the main path's launch shape: an 18,357-item
+# build launches 8,192 + 8,192 + 1,973 rows), and 1M rows.
+TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256))
+# Codes made identical, far apart in K: a row nearest to them must get the
+# first, as argmin gives it.
+DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
 # Flash kernels against the plain version run in fp32 on the same inputs:
@@ -133,6 +138,20 @@ def median_ms(fn, runs=10, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches=20):
+    """Device time (ms) of one call of fn: `launches` calls captured in a
+    CUDA graph and replayed between two CUDA events (median of 5 replays),
+    so that the host's time to launch, which a call of a few microseconds
+    of device work cannot hide, is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(launches):
+            fn()
+    return median_ms(graph.replay, runs=5, warmup=1) / launches
 
 
 def rq_bound_ms(b, d, n_levels, k):
@@ -259,35 +278,58 @@ def build_phase():
 
 def ptxas_report(log):
     """nvcc's -Xptxas -v output as one line per kernel: its name, template
-    width, registers and spills."""
+    width (and causal build), registers and spills."""
     lines = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:flash|rq)_[a-z_]*kernel)(?:ILi(\d+)E)?", line)
-            lines.append(f"{m.group(1)}<{m.group(2)}>:" if m else line.strip())
+            m = re.search(r"((?:flash|rq)_[a-z_]*kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+            causal = {None: "", "0": ", not causal", "1": ", causal"}[m and m.group(3)]
+            lines.append(f"{m.group(1)}<{m.group(2)}{causal}>:" if m else line.strip())
         elif lines and ("registers" in line or "spill" in line):
             lines[-1] += " " + line.split(":", 1)[-1].strip()
     return lines
 
 
+def duplicate_codes_(x, cbs, generator):
+    """Make codes DUPLICATE_CODES of every level identical, and every other
+    row of x a point near that code of level 0. Returns those rows."""
+    first, *rest = DUPLICATE_CODES
+    for k in rest:
+        cbs[:, k] = cbs[:, first]
+    rows = torch.arange(0, x.shape[0], 2, device=x.device)
+    noise = torch.randn(len(rows), x.shape[1], device=x.device, generator=generator)
+    x[rows] = cbs[0, first] + 1e-3 * noise
+    return rows
+
+
 @phase("kernel")
 def kernel_phase(device):
+    """rq_assign against its plain version on every KERNEL_CASES shape and
+    on duplicated codes; times at TIMED_CASES. Returns the 1M-row record
+    with the main path's launch shape under `at_main_path_launch`."""
     g = torch.Generator(device=device).manual_seed(SEED)
-    record = None
-    for b, d, n_levels, k in KERNEL_CASES:
+    records = {}
+    cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
+    for b, d, n_levels, k, dup in cases:
         x = torch.randn(b, d, device=device, generator=g)
         x = x / x.norm(dim=-1, keepdim=True)
         cbs = torch.randn(n_levels, k, d, device=device, generator=g) * 0.5
         cbs[0] = cbs[0] / cbs[0].norm(dim=-1, keepdim=True)
+        dup_rows = duplicate_codes_(x, cbs, g) if dup else None
         ids, qsum = rq.rq_assign(x, cbs)
         torch.cuda.synchronize()
         ids_ref, qsum_ref = rq.rq_assign_reference(x, cbs)
         n_diff, n_bad = compare_ids(ids, ids_ref, near_tie_levels(x, cbs))
         agree = ~(ids != ids_ref).any(dim=-1)
         qerr = float((qsum - qsum_ref)[agree].abs().max()) if agree.any() else 0.0
-        print(f"  B={b} D={d} L={n_levels} K={k}: rows with differing ids {n_diff} "
+        label = f", codes {DUPLICATE_CODES} identical" if dup else ""
+        print(f"  B={b} D={d} L={n_levels} K={k}{label}: rows with differing ids {n_diff} "
               f"(not near ties: {n_bad}), max qsum err on agreeing rows {qerr:.3e}",
               flush=True)
+        if dup and not ((ids[dup_rows, 0] == DUPLICATE_CODES[0]).all()
+                        and torch.isin(ids, ids.new_tensor(DUPLICATE_CODES[1:])).sum() == 0):
+            raise AssertionError(f"rq_assign did not pick the first of the identical codes "
+                                 f"{DUPLICATE_CODES}")
         if n_bad:
             raise AssertionError(f"rq_assign disagrees with the plain version on {n_bad} rows")
         if not torch.isfinite(qsum).all():
@@ -295,16 +337,20 @@ def kernel_phase(device):
         if not agree.any() or qerr > QSUM_ATOL:
             raise AssertionError(f"rq_assign qsum differs from the plain version by {qerr:.3e} "
                                  f"(tolerance {QSUM_ATOL})")
-        if (b, d, n_levels, k) == TIMED_CASE:
+        if (b, d, n_levels, k) in TIMED_CASES and not dup:
             ms = median_ms(lambda: rq.rq_assign(x, cbs))
+            g_ms = graph_ms(lambda: rq.rq_assign(x, cbs))
             plain_ms = median_ms(lambda: rq.rq_assign_reference(x, cbs))
             bound_ms, bound_by = rq_bound_ms(b, d, n_levels, k)
-            print(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-                  f"({bound_by}) at B={b}", flush=True)
-            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=qerr, shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]")
+            print(f"  kernel_ms {ms:.4f} (one call from the host; from a CUDA graph {g_ms:.4f}) "
+                  f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b}", flush=True)
+            records[b] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, max_abs_err=qerr,
+                              shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]")
         del x, cbs, ids, qsum, ids_ref, qsum_ref
-    return record
+    main_b, big_b = (c[0] for c in TIMED_CASES)
+    return dict(records[big_b], at_main_path_launch=records[main_b])
 
 
 @phase("serve")
@@ -435,25 +481,30 @@ def _in_chunks(fn, tensors, chunk):
         fn(*(t[s:s + chunk] for t in tensors))
 
 
-@phase("flash")
-def flash_phase(device):
-    """The three flash kernels against their plain version at the encoder's
-    long-run shape (and at head width 128, and on segments that leave query
-    rows with no key of their own, under a nonzero cotangent), then their
-    times at B = 64 beside the plain version's, scaled_dot_product_attention's
-    (forward, backward alone, both) and the bounds."""
-    g = torch.Generator(device=device).manual_seed(SEED + 7)
+# (B, Dh, dtype, causal, keyless rows) of the flash phase's checks.
+FLASH_CHECKS = (
+    *[(FLASH_CHECK_B, FLASH_HEAD_DIM, dtype, causal, False)
+      for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)],
+    (FLASH_WIDE_B, 128, torch.bfloat16, False, False),
+    (FLASH_WIDE_B, 128, torch.float32, True, False),
+    *[(FLASH_WIDE_B, FLASH_HEAD_DIM, dtype, False, True)
+      for dtype in (torch.bfloat16, torch.float32)],
+)
+# Causal with rows that see no key: the kernels must visit, for those rows,
+# the key tiles above the diagonal that causal blocks otherwise skip.
+FLASH_CAUSAL_KEYLESS_CHECKS = tuple(
+    (FLASH_WIDE_B, dh, dtype, True, True)
+    for dh in (FLASH_HEAD_DIM, 128) for dtype in (torch.bfloat16, torch.float32))
+
+
+def check_flash(device, g, checks):
+    """O, dQ, dK and dV of the flash kernels against the plain version (fp32
+    autograd) under a nonzero cotangent, at H 8, N 2432, for each
+    (B, Dh, dtype, causal, keyless rows) of `checks`, inputs drawn from
+    generator g; raises on an error above FLASH_RTOL. Returns the largest
+    error of each kernel."""
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
-    scale = FLASH_HEAD_DIM ** -0.5
     errs = {name: 0.0 for name in FLASH_REPLACES}
-    checks = [(FLASH_CHECK_B, FLASH_HEAD_DIM, dtype, causal, False)
-              for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
-    checks += [(FLASH_WIDE_B, 128, torch.bfloat16, False, False),
-               (FLASH_WIDE_B, 128, torch.float32, True, False)]
-    # Keyless rows only without causal masking: under it the kernels skip key
-    # tiles above the diagonal, as the library's kernel does.
-    checks += [(FLASH_WIDE_B, FLASH_HEAD_DIM, dtype, False, True)
-               for dtype in (torch.bfloat16, torch.float32)]
     for cb, dh, dtype, causal, keyless in checks:
         q, k, v, do, seg = flash_inputs(cb, h, n, dtype, device, g, dh)
         ids = fa.SegmentIds(*keyless_segments(cb, n, device, g)) if keyless else \
@@ -479,24 +530,56 @@ def flash_phase(device):
                                      f"by {err:.3e} > {limit:.3e}")
             errs[kernel] = max(errs[kernel], err)
             line.append(f"{label} {err:.2e} (limit {limit:.2e})")
-        rows = f", {int((ids.q == 3).sum())} keyless query rows" if keyless else ""
+        if keyless:
+            sees = ids.q[:, :, None] == ids.kv[:, None, :]
+            if causal:
+                sees &= torch.ones(n, n, dtype=torch.bool, device=device).tril()
+            rows = f", {int((~sees.any(dim=-1)).sum())} keyless query rows"
+        else:
+            rows = ""
         print(f"  B={cb} H={h} N={n} Dh={dh} {str(dtype)[6:]} causal={causal}{rows}: "
               + ", ".join(line), flush=True)
         del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
+    return errs
 
-    # Times: the trainer's case, bf16, not causal.
+
+def flash_kernel_ms(q, k, v, do, seg, causal, scale):
+    """Median ms of each flash kernel on these inputs (segment ids `seg`
+    for queries and keys)."""
+    o, m, l = fa.flash_fwd(q, k, v, seg, seg, causal, scale)
+    di = torch.sum(o.float() * do.float(), dim=-1)
+    args = (seg, seg)
+    return {
+        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, *args, causal, scale)),
+        "flash_bwd_dkv": median_ms(
+            lambda: fa.flash_bwd_dkv(q, k, v, *args, do, m, l, di, causal, scale)),
+        "flash_bwd_dq": median_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, *args, do, m, l, di, causal, scale)),
+    }
+
+
+@phase("flash")
+def flash_phase(device):
+    """The three flash kernels' times at B = 64 (the trainer's case, not
+    causal, beside the plain version's, scaled_dot_product_attention's
+    (forward, backward alone, both) and the bounds; and causal), then the
+    kernels against their plain version at the encoder's long-run shape (and
+    at head width 128, and on segments that leave query rows with no key of
+    their own, causal and not, under a nonzero cotangent)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
+    scale = FLASH_HEAD_DIM ** -0.5
+
+    # Times: the trainer's case, bf16, not causal; then the same inputs causal.
     b = FLASH_TIMED["b"]
     q, k, v, do, seg = flash_inputs(b, h, n, torch.bfloat16, device, g)
+    ms = flash_kernel_ms(q, k, v, do, seg, False, scale)
+    causal_ms = flash_kernel_ms(q, k, v, do, seg, True, scale)
+    print("  causal, same inputs: " + ", ".join(f"{name} {t:.4f} ms"
+                                              for name, t in causal_ms.items()), flush=True)
     o, m, l = fa.flash_fwd(q, k, v, seg, seg, False, scale)
     di = torch.sum(o.float() * do.float(), dim=-1)
     args = (seg, seg)
-    ms = {
-        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, *args, False, scale)),
-        "flash_bwd_dkv": median_ms(
-            lambda: fa.flash_bwd_dkv(q, k, v, *args, do, m, l, di, False, scale)),
-        "flash_bwd_dq": median_ms(
-            lambda: fa.flash_bwd_dq(q, k, v, *args, do, m, l, di, False, scale)),
-    }
     c = FLASH_PLAIN_CHUNK
     plain = {
         "flash_fwd": median_ms(lambda: _in_chunks(
@@ -547,6 +630,8 @@ def flash_phase(device):
           f"({100 * dq_bound / dq_ms:.1f} % of it); scaled_dot_product_attention's backward "
           f"alone {sdpa_bwd_ms:.4f} ms; the FFMA dQ it replaced {FLASH_DQ_FFMA_MS:.4f} ms "
           f"(PERF.md, NVIDIA H100 80GB HBM3, 700 W)", flush=True)
+    del o, m, l, di, qg, kg, vg
+    errs = check_flash(device, g, FLASH_CHECKS + FLASH_CAUSAL_KEYLESS_CHECKS)
     records = {}
     for name in FLASH_REPLACES:
         records[name] = dict(
@@ -691,7 +776,8 @@ def main():
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
         max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
-        shape=rec["shape"],
+        graph_ms=rec["graph_ms"], shape=rec["shape"],
+        at_main_path_launch=rec["at_main_path_launch"],
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(

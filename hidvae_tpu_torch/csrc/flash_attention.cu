@@ -66,9 +66,11 @@
 //   transposed ([d][row], rows padded to 68 floats) so their loads are
 //   16-byte and aligned. fp32 products stay fp32, as the JAX package's are.
 //
-// Both: causal blocks skip the tiles above the diagonal; ragged tails (rows
-// or keys past N) are masked in the block, so N need not be a multiple of
-// 64. No tile is skipped by segment: the work is dense.
+// Both: causal blocks skip the tiles above the diagonal, unless a query row
+// there sees no key of its segment (`keyless`): such a row gets the plain
+// version's uniform weights over all keys, whatever the tile sizes. Ragged
+// tails (rows or keys past N) are masked in the block, so N need not be a
+// multiple of 64. No tile is skipped by segment: the work is dense.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(); the Python wrapper (hidvae_tpu_torch/ops/
@@ -205,6 +207,41 @@ __device__ __forceinline__ float masked_logit(float s, float scale, int row, int
   return s * scale + (ok ? 0.f : MASK_VALUE);
 }
 
+// Causal masking on a query row that sees no key of its segment. Every
+// logit of such a row is MASK_VALUE, so its row max m is MASK_VALUE, and
+// the library's plain version spreads its weights uniformly over all Nk
+// keys, above the diagonal too. The kernels skip the key tiles above a
+// block's diagonal, so a block (or, in dK/dV, a query tile) that holds such
+// a row visits the skipped tiles as well, under the same additive mask. A
+// row that has seen a key loses nothing there: its logits on those tiles
+// are MASK_VALUE, exp((MASK_VALUE - m)) is exactly 0 and the rescale factor
+// exactly 1. The tiles below the diagonal run first; a block then asks, by
+// __syncthreads_or over its rows, whether it needs more. Causal inputs
+// without such rows pay that barrier (and, in dK/dV, one read of m before
+// the diagonal). The tensor-core kernels take causal as a template
+// parameter, so their non-causal builds (the model's) hold none of this.
+__device__ __forceinline__ bool keyless(bool valid_row, float m) {
+  return valid_row && m == MASK_VALUE;
+}
+
+// dK/dV under causal masking: whether a query row in [0, end), before a
+// block's diagonal tile, saw no key (m is the row max the forward saved).
+// Block-uniform: every thread must call it.
+__device__ __forceinline__ bool keyless_before(const float* m, int end, int tid, int nthreads) {
+  bool mine = false;
+  for (int r = tid; r < end; r += nthreads) mine |= keyless(true, m[r]);
+  return __syncthreads_or(mine);
+}
+
+// The first query tile of BQ rows from q0 on, before end, that holds a row
+// that saw no key; end if none. Block-uniform.
+template <int BQ>
+__device__ __forceinline__ int next_keyless_tile(const float* m, int q0, int end, int tid) {
+  while (q0 < end && !__syncthreads_or(tid < BQ && q0 + tid < end && keyless(true, m[q0 + tid])))
+    q0 += BQ;
+  return min(q0, end);
+}
+
 // ==== bf16 on tensor cores =================================================
 
 using namespace mma_bf16;
@@ -224,14 +261,15 @@ struct FwdTC {
   static constexpr size_t SMEM = (size_t)(BM + 4 * BN) * DH * 2 + 2 * BN * 4;
 };
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(FwdTC<DH>::NTHREADS, DH == 64 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_kv, bf16* __restrict__ o,
                     float* __restrict__ m_out, float* __restrict__ l_out, int H, int Nq, int Nk,
-                    int causal, float scale) {
+                    float scale) {
   using C = FwdTC<DH>;
+  constexpr int causal = CAUSAL;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CHUNKS;
   constexpr uint32_t KV_BYTES = BN * DH * 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -249,7 +287,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)bh * Nk * DH;
   const int* skv_b = seg_kv + (size_t)b * Nk;
   const int k_end = causal ? min(Nk, q0 + mq) : Nk;
-  const int n_tiles = (k_end + BN - 1) / BN;
+  const int n_tiles = (k_end + BN - 1) / BN, all_tiles = (Nk + BN - 1) / BN;
 
   auto load_kv = [&](int stage, int k0) {
     const int nk = min(BN, Nk - k0);
@@ -272,9 +310,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  // Key tile j of tiles [.., end): S, the online softmax and O += P V.
+  auto step = [&](int j, int end) {
     const int stage = j & 1, k0 = j * BN;
-    if (j + 1 < n_tiles) load_kv(stage ^ 1, k0 + BN);
+    if (j + 1 < end) load_kv(stage ^ 1, k0 + BN);
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and, on the first, Q) has landed
     __syncthreads();
@@ -389,6 +428,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
+  };
+  for (int j = 0; j < n_tiles; ++j) step(j, n_tiles);
+  // Causal, and a row still sees no key (keyless): the tiles above the
+  // diagonal too.
+  if (CAUSAL && n_tiles < all_tiles &&
+      __syncthreads_or(keyless(row_lo < Nq, m_lo) || keyless(row_hi < Nq, m_hi))) {
+    load_kv(n_tiles & 1, n_tiles * BN);
+    cp_async_commit();
+    for (int j = n_tiles; j < all_tiles; ++j) step(j, all_tiles);
   }
 
   l_lo = quad_sum(l_lo);
@@ -434,7 +482,7 @@ struct DkvTC {
   static constexpr size_t SMEM = (size_t)(2 * BK + 4 * BQ) * DH * 2 + 2 * ROWS * BQ * 4;
 };
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(DkvTC<DH>::NTHREADS)
 flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ seg_q,
@@ -442,8 +490,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ m, const float* __restrict__ inv_l,
                         const float* __restrict__ di, bf16* __restrict__ dk,
                         bf16* __restrict__ dv,
-                        int H, int Nq, int Nk, int causal, float scale) {
+                        int H, int Nq, int Nk, float scale) {
   using C = DkvTC<DH>;
+  constexpr int causal = CAUSAL;
   constexpr int BK = C::BK, BQ = C::BQ, CH = C::CHUNKS;
   constexpr uint32_t Q_BYTES = BQ * DH * 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -485,6 +534,11 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = Nq > q_begin ? (Nq - q_begin + BQ - 1) / BQ : 0;
   if (n_tiles > 0) load_q(0, q_begin);
   cp_async_commit();
+  // Causal: rows before the diagonal tile that saw no key (keyless) need
+  // these keys too.
+  const int pre_end = min(q_begin, Nq);
+  const bool pre_keyless =
+      CAUSAL && pre_end > 0 && keyless_before(m_b, pre_end, tid, C::NTHREADS);
 
   // This thread's two key rows: g and g + 8 of the warp's 16.
   const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
@@ -496,9 +550,10 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1, q0 = q_begin + j * BQ;
-    if (j + 1 < n_tiles) load_q(stage ^ 1, q0 + BQ);
+  // Query tile j, rows from q0; the next one, before end, from q_next.
+  auto step = [&](int j, int q0, int q_next, int end) {
+    const int stage = j & 1;
+    if (q_next < end) load_q(stage ^ 1, q_next);
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and, on the first, K and V) has landed
     __syncthreads();
@@ -574,6 +629,17 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
+  };
+  for (int j = 0; j < n_tiles; ++j) step(j, q_begin + j * BQ, q_begin + (j + 1) * BQ, Nq);
+  if (CAUSAL && pre_keyless) {  // then the tiles before the diagonal that hold such rows
+    int q0 = next_keyless_tile<BQ>(m_b, 0, pre_end, tid);
+    if (q0 < pre_end) load_q(n_tiles & 1, q0);
+    cp_async_commit();
+    for (int j = n_tiles; q0 < pre_end; ++j) {
+      const int q_next = next_keyless_tile<BQ>(m_b, q0 + BQ, pre_end, tid);
+      step(j, q0, q_next, pre_end);
+      q0 = q_next;
+    }
   }
 
   bf16* dkb = dk + (size_t)bh * Nk * DH;
@@ -613,15 +679,16 @@ struct DqTC {
   static constexpr size_t SMEM = (size_t)(2 * BM + 4 * BN) * DH * 2 + 2 * BN * 4;
 };
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(DqTC<DH>::NTHREADS)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ seg_q,
                        const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
                        const float* __restrict__ m, const float* __restrict__ inv_l,
                        const float* __restrict__ di, bf16* __restrict__ dq,
-                       int H, int Nq, int Nk, int causal, float scale) {
+                       int H, int Nq, int Nk, float scale) {
   using C = DqTC<DH>;
+  constexpr int causal = CAUSAL;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CHUNKS;
   constexpr uint32_t KV_BYTES = BN * DH * 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -639,8 +706,6 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (size_t)bh * Nk * DH;
   const bf16* vb = v + (size_t)bh * Nk * DH;
   const int* skv_b = seg_kv + (size_t)b * Nk;
-  const int k_end = causal ? min(Nk, q0 + mq) : Nk;
-  const int n_tiles = (k_end + BN - 1) / BN;
 
   auto load_kv = [&](int stage, int k0) {
     const int nk = min(BN, Nk - k0);
@@ -666,6 +731,14 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float il_lo = in_lo ? inv_l[at_lo] * scale : 0.f;
   const float il_hi = in_hi ? inv_l[at_hi] * scale : 0.f;
   const float di_lo = in_lo ? di[at_lo] : 0.f, di_hi = in_hi ? di[at_hi] : 0.f;
+  // Causal: the key tiles up to the block's diagonal, or all of them if a
+  // row saw no key in the forward (keyless).
+  const int all_tiles = (Nk + BN - 1) / BN;
+  const int diag_tiles = (min(Nk, q0 + mq) + BN - 1) / BN;
+  const int n_tiles = causal && (diag_tiles == all_tiles ||
+                                 !__syncthreads_or(keyless(in_lo, m_lo) || keyless(in_hi, m_hi)))
+                          ? diag_tiles
+                          : all_tiles;
   float acc[DH / 8][4];
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -815,7 +888,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < 4; ++c) acc[cg][i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(Nk, q0 + mq) : Nk;
+  int k_end = causal ? min(Nk, q0 + mq) : Nk;  // all keys if a row sees none (keyless)
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     const int nk = min(TILE, Nk - k0);
     __syncthreads();  // the previous tile's readers are done
@@ -856,6 +929,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) mma_nn<LDN<DH>>(p_t, ty * 4, v_n, cg * 64 + tx * 4, acc[cg]);
+    if (k0 + TILE >= k_end && k_end < Nk &&
+        __syncthreads_or(keyless(ty * 4 < mq, m[0]) || keyless(ty * 4 + 1 < mq, m[1]) ||
+                         keyless(ty * 4 + 2 < mq, m[2]) || keyless(ty * 4 + 3 < mq, m[3])))
+      k_end = Nk;
   }
 
   float* ob = o + ((size_t)bh * Nq + q0) * DH;
@@ -911,8 +988,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (threadIdx.x < TILE) skv[threadIdx.x] = threadIdx.x < nk ? seg_kv[(size_t)b * Nk + k0 + threadIdx.x] : 0;
 
   float acc_k[CG][4][4] = {}, acc_v[CG][4][4] = {};
-  const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  for (int q0 = q_begin; q0 < Nq; q0 += TILE) {
+  // Query tile from q0.
+  auto step = [&](int q0) {
     const int mq = min(TILE, Nq - q0);
     __syncthreads();
     load_tile_t<DH>(qb + (size_t)q0 * DH, mq, buf_q);
@@ -953,7 +1030,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mma_nn<LDN<DH>>(p_s, ty * 4, buf_do, cg * 64 + tx * 4, acc_v[cg]);
       mma_nn<LDN<DH>>(ds_s, ty * 4, buf_q, cg * 64 + tx * 4, acc_k[cg]);
     }
-  }
+  };
+  const float* m_b = m + (size_t)bh * Nq;
+  const int q_begin = causal ? (k0 / TILE) * TILE : 0, pre_end = min(q_begin, Nq);
+  for (int q0 = q_begin; q0 < Nq; q0 += TILE) step(q0);
+  // Causal: then the tiles before the diagonal that hold a row that saw no
+  // key (keyless).
+  if (pre_end > 0 && keyless_before(m_b, pre_end, threadIdx.x, THREADS))
+    for (int q0 = next_keyless_tile<TILE>(m_b, 0, pre_end, threadIdx.x); q0 < pre_end;
+         q0 = next_keyless_tile<TILE>(m_b, q0 + TILE, pre_end, threadIdx.x))
+      step(q0);
 
   float* dkb = dk + ((size_t)bh * Nk + k0) * DH;
   float* dvb = dv + ((size_t)bh * Nk + k0) * DH;
@@ -1013,7 +1099,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   float acc[CG][4][4] = {};
-  const int k_end = causal ? min(Nk, q0 + mq) : Nk;
+  // All keys if a row saw none in the forward (keyless).
+  const int k_end =
+      causal && !__syncthreads_or(keyless(ty * 4 < mq, row_m[0]) || keyless(ty * 4 + 1 < mq, row_m[1]) ||
+                                  keyless(ty * 4 + 2 < mq, row_m[2]) || keyless(ty * 4 + 3 < mq, row_m[3]))
+          ? min(Nk, q0 + mq)
+          : Nk;
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     const int nk = min(TILE, Nk - k0);
     __syncthreads();
@@ -1087,9 +1178,9 @@ int fwd(int dtype, const void* q, const void* k, const void* v, const int* seg_q
         float scale, cudaStream_t s) {
   if (dtype == DTYPE_BF16) {
     using C = FwdTC<DH>;
-    return launch(flash_fwd_tc_kernel<DH>, grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM, s,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (bf16*)o, m, l,
-                  H, Nq, Nk, causal, scale);
+    return launch(causal ? flash_fwd_tc_kernel<DH, true> : flash_fwd_tc_kernel<DH, false>,
+                  grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM, s, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (bf16*)o, m, l, H, Nq, Nk, scale);
   }
   return launch(flash_fwd_kernel<DH>, grid_for(Nq, TILE, H, B), THREADS, FWD_SMEM<DH>, s,
                 (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv, (float*)o, m, l,
@@ -1103,10 +1194,10 @@ int bwd_dkv(int dtype, const void* q, const void* k, const void* v, const int* s
             float scale, cudaStream_t s) {
   if (dtype == DTYPE_BF16) {
     using C = DkvTC<DH>;
-    return launch(flash_bwd_dkv_tc_kernel<DH>, grid_for(Nk, C::BK, H, B), C::NTHREADS, C::SMEM,
-                  s, (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv,
-                  (const bf16*)dout, m, inv_l, di, (bf16*)dk, (bf16*)dv, H, Nq, Nk, causal,
-                  scale);
+    return launch(causal ? flash_bwd_dkv_tc_kernel<DH, true> : flash_bwd_dkv_tc_kernel<DH, false>,
+                  grid_for(Nk, C::BK, H, B), C::NTHREADS, C::SMEM, s, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (const bf16*)dout, m, inv_l, di,
+                  (bf16*)dk, (bf16*)dv, H, Nq, Nk, scale);
   }
   return launch(flash_bwd_dkv_kernel<DH>, grid_for(Nk, TILE, H, B), THREADS, DKV_SMEM<DH>, s,
                 (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,
@@ -1121,9 +1212,10 @@ int bwd_dq(int dtype, const void* q, const void* k, const void* v, const int* se
            cudaStream_t s) {
   if (dtype == DTYPE_BF16) {
     using C = DqTC<DH>;
-    return launch(flash_bwd_dq_tc_kernel<DH>, grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM,
-                  s, (const bf16*)q, (const bf16*)k, (const bf16*)v, seg_q, seg_kv,
-                  (const bf16*)dout, m, inv_l, di, (bf16*)dq, H, Nq, Nk, causal, scale);
+    return launch(causal ? flash_bwd_dq_tc_kernel<DH, true> : flash_bwd_dq_tc_kernel<DH, false>,
+                  grid_for(Nq, C::BM, H, B), C::NTHREADS, C::SMEM, s, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, seg_q, seg_kv, (const bf16*)dout, m, inv_l, di,
+                  (bf16*)dq, H, Nq, Nk, scale);
   }
   return launch(flash_bwd_dq_kernel<DH>, grid_for(Nq, TILE, H, B), THREADS, DQ_SMEM<DH>, s,
                 (const float*)q, (const float*)k, (const float*)v, seg_q, seg_kv,

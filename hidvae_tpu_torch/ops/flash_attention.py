@@ -31,7 +31,11 @@ sum rounds back to m, and P would come out 1 instead of 1/N.
 Semantics, from the library: logits (q k^T) * sm_scale in fp32; where the
 query's and key's segment ids differ (or, when causal, where the key comes
 after the query) the logit gets the additive mask -0.7 * fp32 max (:29,
-:437); softmax in fp32.
+:437); softmax in fp32. A query row that sees no key, causal or not, gets
+uniform weights over all Nk keys, as the library's `mha_reference` gives
+them: under causal masking the kernels skip the key tiles above a block's
+diagonal, and visit them too where a row of the block has no visible key
+(its m is the mask value), so the result does not depend on tile sizes.
 """
 
 import ctypes

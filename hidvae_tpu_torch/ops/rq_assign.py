@@ -63,6 +63,9 @@ def build():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = built.lib.rq_assign_min_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
     return built
 
 
@@ -82,7 +85,12 @@ def rq_assign(x, codebooks):
     b, d = x.shape
     n_levels, n_embed, _ = codebooks.shape
     check_dim(d, x.device.type)
-    if (n_embed * d + n_embed) * 4 > MAX_SHARED_BYTES:
+    lib = build().lib
+    # The kernel's least footprint: one level's codebook, transposed and
+    # padded to whole passes, with its norms, and one warp's two residual
+    # buffers of a row tile and per-row scratch (csrc/rq_assign.cu,
+    # smem_bytes); the launch takes as many warps as fit, up to its width's.
+    if lib.rq_assign_min_smem(d, n_levels, n_embed) > MAX_SHARED_BYTES:
         raise ValueError(f"a [{n_embed}, {d}] codebook does not fit in shared memory")
     x = x.contiguous()
     codebooks = codebooks.contiguous()
@@ -92,7 +100,7 @@ def rq_assign(x, codebooks):
     qsum = torch.empty((b, d), dtype=torch.float32, device=x.device)
     if b == 0 or n_levels == 0:
         return ids, qsum.zero_()
-    fn = build().lib.rq_assign_launch
+    fn = lib.rq_assign_launch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), codebooks.data_ptr(), ids.data_ptr(), qsum.data_ptr(),

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -82,3 +83,27 @@ def load_library(source_name: str) -> BuiltLibrary:
     built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_s, log)
     _loaded[source_name] = built
     return built
+
+
+def build_variant(source_name: str, tag: str, subs=(), source=None):
+    """Compile a variant of csrc/<source_name> (or of the file `source`): a
+    copy under $TMPDIR/<tag>, beside copies of csrc/*.cuh, with each (old,
+    new) of `subs` replaced where `old` occurs exactly once. For scripts that
+    time variants of a kernel; nothing is cached. Returns (library path,
+    nvcc's output), or (None, the end of nvcc's errors) on a failed build."""
+    d = Path(tempfile.gettempdir()) / tag
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    src = Path(source or CSRC_DIR / source_name).read_text()
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"{tag}: {old!r} occurs {src.count(old)} times")
+        src = src.replace(old, new)
+    (d / source_name).write_text(src)
+    for header in CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, d)
+    res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source_name)],
+                         capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    if res.returncode:
+        return None, res.stderr[-3000:]
+    return str(d / "lib.so"), res.stdout + res.stderr

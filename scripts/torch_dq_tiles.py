@@ -14,10 +14,8 @@ device and nvcc.
 import concurrent.futures
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
 import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,28 +37,13 @@ VARIANTS = {  # name: (old line, new line) substitutions on the source
 }
 
 
-def build(index, name, subs):
-    d = os.path.join(tempfile.gettempdir(), f"dq_tiles_{index}")
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
-    src = open(os.path.join(cb.CSRC_DIR, "flash_attention.cu")).read()
-    for old, new in subs:
-        assert src.count(old) == 1, (name, old)
-        src = src.replace(old, new)
-    open(f"{d}/flash_attention.cu", "w").write(src)
-    shutil.copy(os.path.join(cb.CSRC_DIR, "mma_bf16.cuh"), d)
-    res = subprocess.run([cb.find_nvcc(), *cb.NVCC_FLAGS, "-o", f"{d}/lib.so",
-                          f"{d}/flash_attention.cu"], capture_output=True, text=True)
-    if res.returncode:
-        return name, None, res.stderr[-3000:]
-    return name, f"{d}/lib.so", res.stdout + res.stderr
-
-
 def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda a: build(a[0], *a[1]), enumerate(VARIANTS.items())))
+        built = list(pool.map(
+            lambda a: (a[1][0], *cb.build_variant("flash_attention.cu", f"dq_tiles_{a[0]}", a[1][1])),
+            enumerate(VARIANTS.items())))
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(3)
     real_build = fa.build

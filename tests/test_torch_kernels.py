@@ -26,6 +26,13 @@ def cuda():
 @pytest.mark.parametrize("b,d,n_levels,k", [
     (1001, 32, 3, 256), (4096, 32, 4, 256), (1001, 64, 3, 256), (300, 32, 2, 16), (1, 32, 3, 256),
     (1001, 128, 3, 256), (300, 128, 2, 16),
+    # One row either side of a warp's 16-row tile (at each width), one sweep
+    # chunk, a small codebook at four levels, K not a whole number of passes.
+    (15, 32, 3, 256), (17, 32, 3, 256), (15, 64, 3, 256), (17, 128, 3, 256), (8192, 32, 3, 256),
+    (300, 32, 4, 16), (1001, 64, 1, 100),
+    # Levels streamed through one codebook slot (D 64) over several rounds
+    # of row tiles; K 512, too large for 12 warps beside it (9 then).
+    (40000, 64, 3, 256), (40000, 64, 3, 512),
 ])
 def test_rq_assign_matches_plain(cuda, b, d, n_levels, k):
     rng = np.random.RandomState(b + d)
@@ -43,6 +50,24 @@ def test_rq_assign_matches_plain(cuda, b, d, n_levels, k):
     agree = (ids == ids_r).all(dim=-1)
     np.testing.assert_allclose(qsum[agree].cpu().numpy(), qsum_r[agree].cpu().numpy(),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_rq_assign_duplicate_codes_give_the_first(cuda, d):
+    """Codes 3, 130 and 255 identical at every level (the same thread, two
+    warps and, at D 64, two passes apart): argmin names 3, never the others."""
+    from chip_smoke import DUPLICATE_CODES, duplicate_codes_
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(1001, d, device=cuda, generator=g)
+    cbs = torch.randn(3, 256, d, device=cuda, generator=g)
+    rows = duplicate_codes_(x, cbs, g)
+    ids, _ = rq.rq_assign(x, cbs)
+    ids_r, _ = rq.rq_assign_reference(x, cbs)
+    assert (ids[rows, 0] == DUPLICATE_CODES[0]).all()
+    assert not torch.isin(ids, ids.new_tensor(DUPLICATE_CODES[1:])).any()
+    _, not_ties = compare_ids(ids, ids_r, near_tie_levels(x, cbs))
+    assert not_ties == 0
 
 
 def test_rq_assign_exact_codebook_points(cuda):
@@ -154,6 +179,20 @@ def _segments(b, n, mode, rng):
     (1, 2, 2432, 64, False, torch.bfloat16, "cross"),
     (1, 1, 2432, 128, False, torch.bfloat16, "pad"),
     (1, 2, 200, 64, False, torch.float32, "cross"),
+    # Causal, with rows that see no key: the kernels must visit the key tiles
+    # above the diagonal for them, whatever the tile sizes.
+    (2, 1, 65, 64, True, torch.bfloat16, "cross"),
+    (1, 2, 65, 128, True, torch.bfloat16, "cross"),
+    (2, 1, 65, 64, True, torch.float32, "cross"),
+    (1, 2, 65, 128, True, torch.float32, "cross"),
+    (2, 1, 257, 64, True, torch.bfloat16, "cross"),
+    (1, 2, 257, 128, True, torch.bfloat16, "cross"),
+    (1, 2, 257, 64, True, torch.float32, "cross"),
+    (1, 1, 257, 128, True, torch.float32, "cross"),
+    (1, 2, 2432, 64, True, torch.bfloat16, "cross"),
+    (1, 1, 2432, 128, True, torch.bfloat16, "cross"),
+    (1, 1, 2432, 64, True, torch.float32, "cross"),
+    (1, 1, 2432, 128, True, torch.float32, "cross"),
 ])
 def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
     """Forward, dK/dV and dQ against the plain version's output and autograd
@@ -161,10 +200,11 @@ def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtyp
     key of its segment must get the library's uniform weights: O is the
     mean of V over all keys, and the backward, which recomputes
     P = exp(s - m) / l from the saved m and l, must give P = 1/N there and
-    the plain version's gradients. Such rows are made only without causal
-    masking: under it the kernels skip key tiles above the diagonal, as the
-    library's kernel does, so a row that sees no key of its segment would
-    spread its weights over the keys its tiles visited, not over all N."""
+    the plain version's gradients. Such rows are made with and without
+    causal masking: under it the kernels skip the key tiles above a block's
+    diagonal, and must visit them for a row that sees no key, so that it
+    too spreads its weights over all N keys and not over the keys its tiles
+    happened to visit."""
     from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 

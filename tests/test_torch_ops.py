@@ -91,6 +91,9 @@ class TestRqAssignReference:
 
     @pytest.mark.parametrize("seed,b,k,d,l,block", [
         (0, 64, 32, 16, 3, 32), (0, 100, 64, 32, 2, 32), (1, 37, 16, 8, 3, 16),
+        # K 100 (not a whole number of the CUDA kernel's 64-code passes), one
+        # level, four levels of a small codebook.
+        (1, 50, 100, 32, 3, 32), (2, 40, 64, 16, 1, 32), (3, 40, 16, 32, 4, 32),
     ])
     def test_matches_jax_kernel_and_reference(self, seed, b, k, d, l, block):
         x, cbs = _rq_case(seed, b, k, d, l)
