@@ -5,10 +5,16 @@
 Builds the port's CUDA kernels (rq_assign, flash attention) from the sources
 in this checkout, all builds started together, and holds each against its
 plain PyTorch version at the shapes the port's paths give it. Then drives
-two paths at the Amazon widths of configs/h_rqvae_amazon.gin and
+three paths at the Amazon widths of configs/h_rqvae_amazon.gin and
 configs/decoder_amazon.gin (random weights from a seed, 18,357 seeded 768-d
 items: the size of the P5 Sports split):
   * serve: a RetrievalEngine answers one batch of 32 histories;
+  * artifacts: the serve engine's modules are saved as exported checkpoints
+    beside a processed dataset and a gin file in a temporary directory, and
+    `RetrievalEngine.from_artifacts` must rebuild the same engine; then the
+    same at the widths of configs/rqvae_ml32m.gin and
+    configs/decoder_ml32m.gin (the plain RQ-VAE route, D 64, 87,585 items,
+    200-item histories) against a plain sweep;
   * train: the stage-2 trainer runs a short-history run (20 items, the dense
     attention path) and a long-history run (400 items, 2,401 tokens: the
     flash kernels, forward and backward), and a few steps on one fixed
@@ -17,30 +23,38 @@ Each path's kernel launch counts are set to 0 just before it and read just
 after. Every phase prints its start and end; the line before the last is the
 kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device. Imports nothing of JAX or of the JAX package, and
-reads no file but the port's sources.
+reads no file but the port's sources and what it writes itself.
 """
 
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from hidvae_tpu_torch.bridge import save_export
+from hidvae_tpu_torch.data.processed import processed_path
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.ops import flash_attention as fa
 from hidvae_tpu_torch.ops import rq_assign as rq
 from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train import transformer as trainer
+from hidvae_tpu_torch.train.common import repetition_rate
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
+from hidvae_tpu_torch.utils.ginlite import parse_gin_file
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SEED = 0
@@ -52,6 +66,79 @@ AMAZON = dict(
     tag_embed_dim=768, decoder_embed_dim=128, attn_embed_dim=512, attn_heads=8,
     attn_layers=8, max_seq_len=20, n_items=18357,
 )
+# configs/rqvae_ml32m.gin + configs/decoder_ml32m.gin (the plain RQ-VAE
+# route); the movie count of MovieLens 32M and its 200-item window
+# (scripts/make_synthetic_ml32m.py:34): 1 + 200 * 3 = 601 tokens.
+ML32M = dict(
+    input_dim=768, hidden_dims=(512, 256, 128), embed_dim=64, codebook_size=256,
+    n_layers=3, codebook_normalize=False, tag_class_counts=None, decoder_embed_dim=128,
+    attn_embed_dim=384, attn_heads=6, attn_layers=8, max_seq_len=200, n_items=87585,
+)
+# The decoder configs as the repo holds them (configs/decoder_amazon.gin,
+# configs/decoder_ml32m.gin, comments dropped); `decoder_gin` sets the widths
+# of the run and the dataset folder.
+DECODER_AMAZON_GIN = """\
+import data.processed
+import modules.model
+train.iterations = 200000
+train.learning_rate = 0.0003
+train.weight_decay = 0.035
+train.batch_size = 256
+train.vae_input_dim = 768
+train.vae_hidden_dims = [512, 256, 128]
+train.vae_embed_dim = 32
+train.vae_n_cat_feats = 0
+train.vae_codebook_size = 256
+train.use_h_tokenizer = True
+train.pretrained_rqvae_path = "out/hrqvae/amazon/hrqvae_model"
+train.tag_alignment_weight = 0.05
+train.tag_prediction_weight = 0.1
+train.tag_class_counts = [38, 168, 348]
+train.tag_embed_dim = 768
+train.use_dedup_dim = False
+train.use_concatenated_ids = True
+train.use_interleaved_ids = False
+train.save_dir_root = "out/decoder/amazon/"
+train.dataset_folder = "dataset/amazon"
+train.dataset = %data.processed.RecDataset.AMAZON
+train.dataset_split = "sports"
+train.force_dataset_process = False
+train.full_eval_every = 10000
+train.partial_eval_every = 5000
+train.dropout_p = 0.3
+train.attn_heads = 8
+train.attn_embed_dim = 512
+train.attn_layers = 8
+train.decoder_embed_dim = 128
+train.model_jagged_mode = True
+train.wandb_logging = True
+"""
+DECODER_ML32M_GIN = """\
+import data.processed
+train.iterations = 20000
+train.batch_size = 64
+train.vae_input_dim = 768
+train.vae_hidden_dims = [512, 256, 128]
+train.vae_embed_dim = 64
+train.vae_n_cat_feats = 0
+train.vae_codebook_size = 256
+train.pretrained_rqvae_path = "trained_models/rqvae_ml32m/checkpoint_high_entropy"
+train.save_dir_root = "out/decoder/ml-32m/"
+train.dataset_folder = "dataset/ml-32m"
+train.dataset = %data.processed.RecDataset.ML_32M
+train.dataset_split = "beauty"
+train.force_dataset_process = False
+train.full_eval_every = 5000
+train.partial_eval_every = 5000
+train.attn_dropout = 0.1
+train.attn_heads = 6
+train.attn_embed_dim = 384
+train.attn_layers = 8
+train.decoder_embed_dim = 128
+train.use_h_tokenizer = False
+train.wandb_logging = False
+"""
+ARTIFACT_HISTORIES = 32  # histories in the written dataset, and per request
 KERNEL_CASES = (  # (B, D, L, K)
     (8192, 32, 3, 256),      # one sweep chunk of the serving path
     (18357, 32, 3, 256),     # the whole Amazon corpus
@@ -61,14 +148,19 @@ KERNEL_CASES = (  # (B, D, L, K)
     (1001, 64, 3, 256),
     (18357, 128, 3, 256),    # the widest code the kernel is built for
     (1001, 128, 3, 256),
+    (8192, 64, 3, 256),      # the ML-32M sweep's launches: 10 x 8,192 + 5,665 rows
+    (5665, 64, 3, 256),
 )
 # Timed: one sweep chunk (the main path's launch shape: an 18,357-item
-# build launches 8,192 + 8,192 + 1,973 rows), and 1M rows.
-TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256))
+# build launches 8,192 + 8,192 + 1,973 rows), 1M rows, and the two launch
+# shapes of the 87,585-item ML-32M build at D 64.
+TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
+               (5665, 64, 3, 256))
 # Codes made identical, far apart in K: a row nearest to them must get the
 # first, as argmin gives it.
 DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
+KMEANS_ITERS = 10  # Lloyd steps of the seeded models' codebooks
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
 # Flash kernels against the plain version run in fp32 on the same inputs:
 # largest error over max |plain|. fp32: the kernels sum up to N = 2,432 terms
@@ -167,31 +259,58 @@ def rq_bound_ms(b, d, n_levels, k):
 # ---- model and corpus -----------------------------------------------------
 
 def seed_codebooks_(vae, feats, generator):
-    """Set each level's codebook to K residuals of distinct seeded items (the
-    seeding step of k-means init), so random weights still spread the corpus
-    over the ID space."""
-    with torch.no_grad():
+    """k-means codebooks, level by level, as the stage-1 trainer's k-means
+    init sets them: K distinct seeded items' residuals, then KMEANS_ITERS
+    Lloyd steps (an empty cluster keeps its code). Seeding alone leaves
+    random weights' codes crowded (without normalization the few codes of
+    least norm win most rows, and most ML-32M rows repeat a tuple); the
+    Lloyd steps spread the corpus over the ID space, so the audit's
+    collapse guard has a low recorded repetition rate to hold the rebuilt
+    table to."""
+    with torch.no_grad(), full_fp32():
         enc = vae.encode(feats)
         for q in vae.layers:
-            pick = torch.randperm(enc.shape[0], generator=generator)[: q.embedding.shape[0]]
-            q.embedding.copy_(enc[pick.to(enc.device)])
+            k = q.embedding.shape[0]
+            pick = torch.randperm(enc.shape[0], generator=generator)[:k].to(enc.device)
+            codes = enc[pick]
+            for _ in range(KMEANS_ITERS):
+                dist = (torch.sum(codes * codes, dim=-1)[None]
+                        - 2.0 * (enc @ codes.T))  # + ||enc||^2, the same for every code
+                assign = torch.argmin(dist, dim=-1)
+                total = torch.zeros_like(codes).index_add_(0, assign, enc)
+                count = torch.bincount(assign, minlength=k)[:, None]
+                codes = torch.where(count > 0, total / count.clamp(min=1), codes)
+            q.embedding.copy_(codes)
             enc = enc - q(enc).embeddings
 
 
 def build_vae(cfg, generator):
-    """The frozen stage-1 HiD-VAE with seeded weights and codebooks, and the
-    seeded unit-norm item features it indexes (a CPU tensor)."""
+    """The frozen stage-1 model with seeded weights and codebooks, and the
+    seeded unit-norm item features it indexes (a CPU tensor): a HiD-VAE
+    where cfg has tag counts, else the plain RQ-VAE."""
     g = generator
     feats = torch.randn(cfg["n_items"], cfg["input_dim"], generator=g)
     feats = feats / feats.norm(dim=-1, keepdim=True)  # text embeddings are unit-norm
-    vae = init_params_(HRqVae(
-        cfg["input_dim"], cfg["embed_dim"], cfg["hidden_dims"], cfg["codebook_size"],
-        codebook_normalize=cfg["codebook_normalize"], n_layers=cfg["n_layers"],
-        tag_class_counts=cfg["tag_class_counts"],
-        tag_embed_dim=cfg["tag_embed_dim"],
-    ), g).eval()
+    widths = (cfg["input_dim"], cfg["embed_dim"], cfg["hidden_dims"], cfg["codebook_size"])
+    common = dict(codebook_normalize=cfg["codebook_normalize"], n_layers=cfg["n_layers"])
+    if cfg.get("tag_class_counts") is None:
+        vae = RqVae(*widths, **common)
+    else:
+        vae = HRqVae(*widths, tag_class_counts=cfg["tag_class_counts"],
+                     tag_embed_dim=cfg["tag_embed_dim"], **common)
+    vae = init_params_(vae, g).eval()
     seed_codebooks_(vae, feats[: 16 * cfg["codebook_size"]], g)
     return vae, feats
+
+
+def build_decoder(cfg, sem_id_dim, generator):
+    """The stage-2 model at cfg's widths with seeded weights."""
+    d = sem_id_dim
+    return init_params_(EncoderDecoderRetrievalModel(
+        cfg["decoder_embed_dim"], cfg["attn_embed_dim"], cfg["attn_heads"],
+        cfg["attn_layers"], cfg["codebook_size"], d, max_pos=cfg["max_seq_len"] * d,
+        n_sem_layers=cfg["n_layers"],
+    ), generator)
 
 
 def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
@@ -203,12 +322,7 @@ def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
         vae, n_layers=cfg["n_layers"], codebook_size=cfg["codebook_size"],
         tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, device=device,
     )
-    d = tok.sem_ids_dim
-    model = init_params_(EncoderDecoderRetrievalModel(
-        cfg["decoder_embed_dim"], cfg["attn_embed_dim"], cfg["attn_heads"],
-        cfg["attn_layers"], cfg["codebook_size"], d, max_pos=cfg["max_seq_len"] * d,
-        n_sem_layers=cfg["n_layers"],
-    ), g)
+    model = build_decoder(cfg, tok.sem_ids_dim, g)
     items = feats.numpy()
     engine = RetrievalEngine(model, tok, items, max_seq_len=cfg["max_seq_len"],
                              batch_buckets=batch_buckets, device=device)
@@ -306,7 +420,8 @@ def duplicate_codes_(x, cbs, generator):
 def kernel_phase(device):
     """rq_assign against its plain version on every KERNEL_CASES shape and
     on duplicated codes; times at TIMED_CASES. Returns the 1M-row record
-    with the main path's launch shape under `at_main_path_launch`."""
+    with the main path's launch shape under `at_main_path_launch` and the
+    ML-32M build's two launch shapes under `at_ml32m_launches`."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -344,13 +459,14 @@ def kernel_phase(device):
             bound_ms, bound_by = rq_bound_ms(b, d, n_levels, k)
             print(f"  kernel_ms {ms:.4f} (one call from the host; from a CUDA graph {g_ms:.4f}) "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b}", flush=True)
-            records[b] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, max_abs_err=qerr,
-                              shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]")
+                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b} D={d}", flush=True)
+            records[b, d] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, max_abs_err=qerr,
+                                 shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]")
         del x, cbs, ids, qsum, ids_ref, qsum_ref
-    main_b, big_b = (c[0] for c in TIMED_CASES)
-    return dict(records[big_b], at_main_path_launch=records[main_b])
+    main, big, *ml32m = ((b, d) for b, d, _, _ in TIMED_CASES)
+    return dict(records[big], at_main_path_launch=records[main],
+                at_ml32m_launches=[records[c] for c in ml32m])
 
 
 @phase("serve")
@@ -373,40 +489,210 @@ def serve_phase(device):
           f"first row {out['items'][0].tolist()}", flush=True)
 
     # The table swept through the kernel against one swept with the plain
-    # version on the card, chunk by chunk as the sweep cuts it: same encoder,
-    # same tag heads, plain rq_assign.
+    # version on the card: same encoder, same tag heads, plain rq_assign.
     tok = engine.tokenizer
-    m = tok.hrq_vae
-    feats = torch.from_numpy(items).to(device)
-    chunk = tok.corpus_chunk_size
     n_l = cfg["n_layers"]
-    n_diff = n_bad = 0
-    tags_equal = True
-    with torch.inference_mode(), full_fp32():
-        cbs = m.stacked_codebooks()
-        for s in range(0, feats.shape[0], chunk):
-            encoded = m.encode(feats[s:s + chunk])
-            sem_ref, _ = rq.rq_assign_reference(encoded, cbs)
-            got = engine.corpus_ids[s:s + chunk]
-            d, bad = compare_ids(got[:, :n_l], sem_ref, near_tie_levels(encoded, cbs))
-            n_diff, n_bad = n_diff + d, n_bad + bad
-            same = ~(got[:, :n_l] != sem_ref).any(dim=-1)
-            tags_ref = m.predict_tags_from_ids(sem_ref)["predictions"]
-            tags_equal &= bool((got[same, n_l:] == tags_ref[same]).all())
+    sem_ref, ties, tags_ref = plain_sweep(tok.hrq_vae, torch.from_numpy(items).to(device),
+                                          tok.corpus_chunk_size)
+    got = engine.corpus_ids
+    n_diff, n_bad = compare_ids(got[:, :n_l], sem_ref, ties)
+    same = ~(got[:, :n_l] != sem_ref).any(dim=-1)
+    tags_equal = bool((got[same, n_l:] == tags_ref[same]).all())
     print(f"  corpus table vs plain sweep: rows differing {n_diff} (not near ties: "
           f"{n_bad}); tags equal on the rest: {tags_equal}; distinct tuples "
           f"{len(torch.unique(engine.corpus_ids, dim=0))}", flush=True)
     if n_bad or not tags_equal:
         raise AssertionError("corpus table differs from the plain sweep")
 
+    p50 = serve_p50(engine, hist)
+    return launches, p50, engine, items, hist
+
+
+def serve_p50(engine, hist):
+    """Median latency (ms, host clock, read-back included) of 12 warm
+    recommend calls on `hist`; prints it beside the spread."""
     lat = []
     for _ in range(12):
-        torch.cuda.synchronize()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
         lat.append(engine.recommend(hist, top_k=10)["latency_s"] * 1e3)
     p50 = statistics.median(lat)
-    print(f"  serve p50 {p50:.2f} ms over {len(lat)} warm calls of 32 histories "
+    print(f"  serve p50 {p50:.2f} ms over {len(lat)} warm calls of {len(hist)} histories "
           f"(min {min(lat):.2f}, max {max(lat):.2f})", flush=True)
-    return launches, p50
+    return p50
+
+
+def plain_sweep(vae, feats, chunk):
+    """The corpus swept with the plain rq_assign, chunk by chunk as the
+    engine's sweep cuts it: (semantic IDs, near-tie flags, predicted tags or
+    None for the plain RQ-VAE), [N, L] / [N, L] / [N, T]."""
+    ids, ties, tags = [], [], []
+    with torch.inference_mode(), full_fp32():
+        cbs = vae.stacked_codebooks()
+        for s in range(0, feats.shape[0], chunk):
+            encoded = vae.encode(feats[s:s + chunk])
+            sem = rq.rq_assign_reference(encoded, cbs)[0]
+            ids.append(sem)
+            ties.append(near_tie_levels(encoded, cbs))
+            if hasattr(vae, "predict_tags_from_ids"):
+                tags.append(vae.predict_tags_from_ids(sem)["predictions"])
+    return torch.cat(ids), torch.cat(ties), (torch.cat(tags) if tags else None)
+
+
+# ---- serving from artifacts -----------------------------------------------
+
+SCORE_ATOL = 1e-5  # scores of an engine rebuilt from artifacts against the in-process one
+
+
+def structural_config(cfg):
+    """The stage-1 model_config the JAX package's checkpoints record: every
+    STRUCTURAL_VAE_KEYS value of cfg's model (train/common.py)."""
+    tags = cfg.get("tag_class_counts")
+    return dict(input_dim=cfg["input_dim"], embed_dim=cfg["embed_dim"],
+                hidden_dims=list(cfg["hidden_dims"]), codebook_size=cfg["codebook_size"],
+                codebook_normalize=cfg["codebook_normalize"], codebook_sim_vq=False,
+                n_layers=cfg["n_layers"], n_cat_features=0,
+                # null: not recorded (the plain RQ-VAE has no tag heads)
+                tag_class_counts=None if tags is None else list(tags),
+                tag_embed_dim=None if tags is None else cfg["tag_embed_dim"])
+
+
+def decoder_gin(text, cfg, folder):
+    """The gin `text` with its width keys set to cfg's and dataset_folder
+    to `folder`; every other key as the text has it."""
+    tags = cfg.get("tag_class_counts")
+    values = {
+        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
+        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
+        "tag_class_counts": None if tags is None else list(tags),
+        "tag_embed_dim": cfg.get("tag_embed_dim"), "decoder_embed_dim": cfg["decoder_embed_dim"],
+        "attn_embed_dim": cfg["attn_embed_dim"], "attn_heads": cfg["attn_heads"],
+        "attn_layers": cfg["attn_layers"], "dataset_folder": f'"{folder}"',
+    }
+    lines = []
+    for line in text.splitlines():
+        key = line.split("=")[0].strip().removeprefix("train.")
+        if values.get(key) is not None:
+            line = f"train.{key} = {values[key]}"
+        lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+def write_artifacts(root, gin_text, cfg, vae, model, feats, hist, sem_table):
+    """Under `root`: the decoder gin, a processed dataset of the features
+    `feats` and the histories `hist` where the gin's dataset is read from,
+    and exported checkpoints of `vae` and `model`. The stage-1 meta records
+    every structural value and the repetition rate of the semantic table
+    `sem_table` (so the engine's collapse guard is live), the stage-2 meta
+    the decoder's geometry, as the JAX trainers record them. Returns
+    (gin path, stage-1 dir, stage-2 dir, recorded repetition rate)."""
+    os.makedirs(root)
+    gin = os.path.join(root, "decoder.gin")
+    with open(gin, "w") as f:
+        f.write(decoder_gin(gin_text, cfg, root))
+    train = parse_gin_file(gin)["train"]
+    path = processed_path(root, train["dataset"], train.get("dataset_split", "beauty"))
+    os.makedirs(os.path.dirname(path))
+    n_items, n_hist = len(feats), len(hist)
+    np.savez(path, item_features=feats, item_is_train=np.ones(n_items, bool),
+             seq_users=np.arange(n_hist, dtype=np.int32), seq_items=hist.astype(np.int32),
+             seq_fut=np.random.RandomState(SEED + 5).randint(0, n_items, n_hist).astype(np.int32),
+             seq_is_train=np.ones(n_hist, bool))
+    rep = repetition_rate(sem_table)[0]
+    s1 = save_export(os.path.join(root, "stage1"), vae, {
+        "model_config": structural_config(cfg), "metrics": {"repetition_rate": rep}})
+    d = model.sem_id_dim
+    s2 = save_export(os.path.join(root, "stage2"), model, {"model_config": {
+        "attn_dim": cfg["attn_embed_dim"], "attn_embed_dim": cfg["attn_embed_dim"],
+        "attn_heads": cfg["attn_heads"], "attn_layers": cfg["attn_layers"],
+        "decoder_embed_dim": cfg["decoder_embed_dim"], "sem_id_dim": d,
+        "num_embeddings": cfg["codebook_size"], "n_sem_layers": cfg["n_layers"],
+        "use_interleaved_ids": False, "max_pos": cfg["max_seq_len"] * d,
+    }, "metrics": {}})
+    return gin, s1, s2, rep
+
+
+def serve_from_artifacts(name, root, gin_text, cfg, vae, model, feats, hist, sem_table,
+                         device):
+    """Write the artifacts, then build an engine with
+    `RetrievalEngine.from_artifacts` on `device`, the launch counts set to 0
+    just before and read just after; on the card the sweep must launch
+    rq_assign once per 8,192-row chunk. Returns (engine, launches)."""
+    gin, s1, s2, rep = write_artifacts(root, gin_text, cfg, vae, model, feats, hist, sem_table)
+    rq.rq_assign.launches = 0
+    t0 = time.perf_counter()
+    engine = RetrievalEngine.from_artifacts(gin, s1, s2, device=device,
+                                            batch_buckets=(len(hist),))
+    seconds = time.perf_counter() - t0  # the build ends in a synchronize
+    launches = rq.rq_assign.launches
+    bt = engine.build_times
+    print(f"  {name}: from_artifacts {seconds:.3f} s end to end (load {bt['load_s']:.3f} s: "
+          f"gin, .npz, both models and their weights; table build {bt['table_s']:.3f} s; "
+          f"prefix index and tries {bt['index_s']:.3f} s); corpus "
+          f"{tuple(engine.corpus_ids.shape)}; rq_assign launches {launches}; recorded "
+          f"repetition rate {rep:.4f}", flush=True)
+    want = (math.ceil(cfg["n_items"] / engine.tokenizer.corpus_chunk_size)
+            if device.type == "cuda" else 0)
+    if launches != want:
+        raise AssertionError(f"{name}: from_artifacts launched rq_assign {launches} times, "
+                             f"expected {want}")
+    return engine, launches
+
+
+def check_same_engine(name, got, want, hist):
+    """Equal tables; for `hist`, equal items and ID tuples, scores within
+    SCORE_ATOL."""
+    if not torch.equal(got.corpus_ids.cpu(), want.corpus_ids.cpu()):
+        raise AssertionError(f"{name}: the table from artifacts differs from the in-process one")
+    a, b = got.recommend(hist, top_k=10), want.recommend(hist, top_k=10)
+    err = float(np.abs(a["scores"] - b["scores"]).max())
+    same = (a["items"] == b["items"]).all() and (a["sem_ids"] == b["sem_ids"]).all()
+    print(f"  {name}: table equal to the in-process engine's; {len(hist)} histories: items "
+          f"and ID tuples equal {bool(same)}, max score difference {err:.3e} "
+          f"(tolerance {SCORE_ATOL})", flush=True)
+    if not same or err > SCORE_ATOL:
+        raise AssertionError(f"{name}: the engine from artifacts serves differently")
+
+
+@phase("artifacts")
+def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
+    """`from_artifacts` on both tokenizer routes: (a) the serve phase's
+    engine (H route, concatenated layout) written out and rebuilt, held
+    equal to itself; (b) a seeded plain RQ-VAE at `ml32m`'s widths, its
+    table held against a plain sweep outside near ties and its
+    recommendations resolved. Returns the rq_assign launches of each build."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = engine.tokenizer
+        sem = engine.corpus_ids[:, :amazon["n_layers"]].cpu().numpy()
+        rebuilt, launches["amazon"] = serve_from_artifacts(
+            "amazon", os.path.join(tmp, "amazon"), DECODER_AMAZON_GIN, amazon, tok.hrq_vae,
+            engine.model, items, hist, sem, device)
+        check_same_engine("amazon", rebuilt, engine, hist)
+        serve_p50(rebuilt, hist)
+        del rebuilt
+
+        cfg = ml32m
+        g = torch.Generator().manual_seed(SEED + 3)
+        vae, feats = build_vae(cfg, g)
+        model = build_decoder(cfg, cfg["n_layers"], g)
+        ml_hist = seeded_histories(cfg["n_items"], ARTIFACT_HISTORIES, cfg["max_seq_len"])
+        sem_ref, ties, _ = plain_sweep(vae.to(device), feats.to(device), tok.corpus_chunk_size)
+        rebuilt, launches["ml32m"] = serve_from_artifacts(
+            "ml32m", os.path.join(tmp, "ml32m"), DECODER_ML32M_GIN, cfg, vae, model,
+            feats.numpy(), ml_hist, sem_ref.cpu().numpy(), device)
+        n_diff, n_bad = compare_ids(rebuilt.corpus_ids, sem_ref, ties)
+        print(f"  ml32m: table vs plain sweep: rows differing {n_diff} (not near ties: "
+              f"{n_bad}); distinct tuples {len(torch.unique(rebuilt.corpus_ids, dim=0))}",
+              flush=True)
+        if n_bad:
+            raise AssertionError("ml32m: the table from artifacts differs from the plain sweep")
+        out = rebuilt.recommend(ml_hist, top_k=10)
+        resolved = check_recommendations(rebuilt, out, cfg["n_items"])
+        print(f"  ml32m: recommend {out['items'].shape}, resolved {resolved}, first row "
+              f"{out['items'][0].tolist()}", flush=True)
+        serve_p50(rebuilt, ml_hist)
+    return launches
 
 
 # ---- flash attention -----------------------------------------------------
@@ -767,7 +1053,9 @@ def main():
     device = torch.device("cuda", 0)
     build_phase()
     rec = kernel_phase(device)
-    launches, _ = serve_phase(device)
+    launches, _, engine, items, hist = serve_phase(device)
+    art_launches = artifacts_phase(device, engine, items, hist)
+    del engine
     flash_recs = flash_phase(device)
     per_layer = sum(r["ms"] for r in flash_recs.values())
     long_launches = train_phase(device, per_layer)
@@ -778,6 +1066,8 @@ def main():
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
         graph_ms=rec["graph_ms"], shape=rec["shape"],
         at_main_path_launch=rec["at_main_path_launch"],
+        at_ml32m_launches=rec["at_ml32m_launches"],
+        launches_from_artifacts=art_launches,
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(

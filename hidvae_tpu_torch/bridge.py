@@ -1,9 +1,15 @@
-"""Weight bridge: flax parameters, flattened to numpy, -> PyTorch state_dicts.
+"""Weight bridge: flax parameters, flattened to numpy, <-> PyTorch state_dicts,
+and the exported checkpoint that carries them.
 
-The input is a flat `dict[str, np.ndarray]` keyed by flax path
+The flax side is a flat `dict[str, np.ndarray]` keyed by flax path
 ("encoder/dense_0/kernel", ...), plus the model's `batch_stats` in the same
-form. The bridge never sees a JAX object and imports nothing of JAX; reading
-an Orbax checkpoint is not ported yet.
+form. The bridge never sees a JAX object and imports nothing of JAX.
+
+An exported checkpoint is a directory of two files: `arrays.npz`, the flat
+flax leaves under "/"-joined keys ("params/...", "batch_stats/...", and
+"step" when the source had one), and `meta.json` ({model_config, metrics}).
+scripts/export_flax_checkpoint.py writes one from an Orbax checkpoint of the
+JAX package; `save_export` writes one from a module.
 
 The port's modules carry the flax module names, so a path maps by rule:
   .../kernel        -> .../weight, transposed ([in, out] -> [out, in])
@@ -16,8 +22,15 @@ Everything else (bias, RMSNorm weight, bos_emb) keeps its name.
 
 from typing import Dict, Mapping, Optional
 
+import json
+import os
+
 import numpy as np
 import torch
+from torch import nn
+
+ARRAYS_FILE = "arrays.npz"
+META_FILE = "meta.json"
 
 
 def flax_param_key(path: str):
@@ -65,3 +78,67 @@ def load_flax_weights(module: torch.nn.Module, params, batch_stats=None):
     """Load flat flax params into `module`; every key must match (strict)."""
     module.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return module
+
+
+def state_dict_to_flax(module: nn.Module):
+    """The inverse of `flax_to_state_dict`, by module type: (params,
+    batch_stats), flat numpy dicts keyed by flax path. nn.Linear weights
+    become `kernel`, transposed; LayerNorm and BatchNorm weights `scale`;
+    nn.Embedding weights `embedding`; BatchNorm running statistics
+    batch_stats `mean` and `var` (num_batches_tracked is dropped); every
+    other parameter (bias, RMSNorm weight, codebook `embedding`, bos_emb)
+    keeps its name."""
+    params, stats = {}, {}
+    for name, m in module.named_modules():
+        prefix = name.replace(".", "/") + "/" if name else ""
+        for pname, p in m.named_parameters(recurse=False):
+            arr = p.detach().cpu().numpy()
+            if pname == "weight" and isinstance(m, nn.Linear):
+                pname, arr = "kernel", arr.T
+            elif pname == "weight" and isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+                pname = "scale"
+            elif pname == "weight" and isinstance(m, nn.Embedding):
+                pname = "embedding"
+            params[prefix + pname] = np.ascontiguousarray(arr)
+        for bname, b in m.named_buffers(recurse=False):
+            if bname == "num_batches_tracked":
+                continue
+            leaf = {"running_mean": "mean", "running_var": "var"}.get(bname)
+            if leaf is None:
+                raise ValueError(f"unexpected buffer {name}.{bname}")
+            stats[prefix + leaf] = b.detach().cpu().numpy().copy()
+    return params, stats
+
+
+def save_export(path: str, module: nn.Module, meta: dict) -> str:
+    """Write `module`'s weights as an exported checkpoint at `path` (the
+    params and batch_stats of the JAX package's save_checkpoint), with
+    `meta` ({model_config, metrics}) as meta.json. Returns `path`."""
+    params, stats = state_dict_to_flax(module)
+    os.makedirs(path, exist_ok=True)
+    arrays = {**{f"params/{k}": v for k, v in params.items()},
+              **{f"batch_stats/{k}": v for k, v in stats.items()}}
+    np.savez(os.path.join(path, ARRAYS_FILE), **arrays)
+    with open(os.path.join(path, META_FILE), "w") as f:
+        json.dump(meta, f, indent=2, default=str)
+    return path
+
+
+def load_export(path: str):
+    """Read an exported checkpoint: (params, batch_stats, meta), the first
+    two flat numpy dicts keyed by flax path, meta {} when the export has no
+    meta.json. Other leaves (step) are not returned."""
+    params, stats = {}, {}
+    with np.load(os.path.join(path, ARRAYS_FILE), allow_pickle=False) as z:
+        for key in z.files:
+            coll, _, rest = key.partition("/")
+            if coll == "params":
+                params[rest] = z[key]
+            elif coll == "batch_stats":
+                stats[rest] = z[key]
+    meta_path = os.path.join(path, META_FILE)
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return params, stats, meta

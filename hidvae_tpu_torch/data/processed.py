@@ -1,0 +1,158 @@
+"""Processed datasets, the reading side (counterpart of part of
+hidvae_tpu/data/processed.py): the one `.npz` a (dataset, split) is stored
+in, the per-item corpus view and the user-sequence view that serving reads.
+
+Plain numpy, as in the JAX package. Building a dataset (from the raw
+Amazon, MovieLens, KuaiRand or synthetic data) is not ported: a missing
+file raises instead of being built.
+"""
+
+import os
+from dataclasses import dataclass
+from enum import Enum
+from typing import Optional
+
+import numpy as np
+
+
+class RecDataset(Enum):
+    AMAZON = 1
+    ML_1M = 2
+    ML_32M = 3
+    KUAIRAND = 4
+    SYNTHETIC = 5
+
+
+@dataclass
+class ProcessedArrays:
+    """On-disk layout of a processed dataset (one .npz)."""
+
+    item_features: np.ndarray           # [n_items, F] float32
+    item_is_train: np.ndarray           # [n_items] bool (95/5 split)
+    seq_users: np.ndarray               # [n_seq] int32
+    seq_items: np.ndarray               # [n_seq, max_len] int32, -1 padded
+    seq_fut: np.ndarray                 # [n_seq] int32 target item
+    seq_is_train: np.ndarray            # [n_seq] bool
+    tags_emb: Optional[np.ndarray] = None      # [n_items, L, tag_dim] float32
+    tags_indices: Optional[np.ndarray] = None  # [n_items, L] int32 (-1 missing)
+    # 0 = train, 1 = eval, 2 = test; derived from seq_is_train when absent.
+    seq_split: Optional[np.ndarray] = None     # [n_seq] int8
+    user_features: Optional[np.ndarray] = None    # [n_users, F_u] float32
+    user_feature_ids: Optional[np.ndarray] = None  # [n_users] int32 raw ids
+
+    SPLIT_CODES = {"train": 0, "eval": 1, "test": 2}
+
+    def __post_init__(self):
+        if self.seq_split is None:
+            self.seq_split = np.where(self.seq_is_train, 0, 1).astype(np.int8)
+
+    @classmethod
+    def load(cls, path: str) -> "ProcessedArrays":
+        with np.load(path, allow_pickle=False) as z:
+            def opt(key):
+                return z[key] if key in z else None
+
+            return cls(
+                item_features=z["item_features"],
+                item_is_train=z["item_is_train"],
+                seq_users=z["seq_users"],
+                seq_items=z["seq_items"],
+                seq_fut=z["seq_fut"],
+                seq_is_train=z["seq_is_train"],
+                tags_emb=opt("tags_emb"),
+                tags_indices=opt("tags_indices"),
+                seq_split=opt("seq_split"),
+                user_features=opt("user_features"),
+                user_feature_ids=opt("user_feature_ids"),
+            )
+
+
+def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
+    name = dataset.name.lower() + (f"_{split}" if split else "")
+    return os.path.join(root, "processed", f"{name}.npz")
+
+
+def load_processed(root: str, dataset: RecDataset, split: str = "") -> ProcessedArrays:
+    """The processed arrays of (dataset, split) under `root`. The synthetic
+    corpus has no named splits, so its split is dropped."""
+    if dataset == RecDataset.SYNTHETIC:
+        split = ""
+    path = processed_path(root, dataset, split)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no processed dataset at {path}: the port reads processed .npz files "
+            f"and does not build them (dataset building is not ported; build it with "
+            f"the JAX package's hidvae_tpu/data)"
+        )
+    return ProcessedArrays.load(path)
+
+
+class ItemData:
+    """Per-item corpus view with the train / eval / all item filter."""
+
+    def __init__(
+        self,
+        root: str,
+        dataset: RecDataset = RecDataset.SYNTHETIC,
+        *,
+        train_test_split: str = "all",
+        split: str = "",
+        arrays: Optional[ProcessedArrays] = None,
+    ):
+        self.dataset = dataset
+        arr = arrays if arrays is not None else load_processed(root, dataset, split)
+        if train_test_split == "train":
+            sel = arr.item_is_train
+        elif train_test_split == "eval":
+            sel = ~arr.item_is_train
+        else:
+            sel = np.ones(len(arr.item_features), bool)
+        self.indices = np.nonzero(sel)[0].astype(np.int32)
+        self.item_features = arr.item_features[self.indices]
+        self.has_tags = arr.tags_emb is not None
+        if self.has_tags:
+            self.tags_emb = arr.tags_emb[self.indices]
+            self.tags_indices = arr.tags_indices[self.indices].astype(np.int32)
+        else:
+            self.tags_emb = None
+            self.tags_indices = None
+
+    def __len__(self):
+        return len(self.item_features)
+
+    @property
+    def feature_dim(self):
+        return self.item_features.shape[1]
+
+
+class SeqData:
+    """User-sequence view: histories, their targets and users, of one split.
+
+    `seq_split` in {"train", "eval", "test"} selects the three-way split;
+    when None, `is_train` selects train or eval."""
+
+    def __init__(
+        self,
+        root: str,
+        dataset: RecDataset = RecDataset.SYNTHETIC,
+        *,
+        is_train: bool = True,
+        split: str = "",
+        arrays: Optional[ProcessedArrays] = None,
+        seq_split: Optional[str] = None,
+    ):
+        self.dataset = dataset
+        arr = arrays if arrays is not None else load_processed(root, dataset, split)
+        if seq_split is not None:
+            sel = arr.seq_split == ProcessedArrays.SPLIT_CODES[seq_split]
+        else:
+            sel = (arr.seq_split == 0) if is_train else (arr.seq_split == 1)
+        idx = np.nonzero(sel)[0]
+        self.users = arr.seq_users[idx]
+        self.items = arr.seq_items[idx]
+        self.fut = arr.seq_fut[idx]
+        self.item_features = arr.item_features
+        self.max_seq_len = self.items.shape[1]
+
+    def __len__(self):
+        return len(self.users)

@@ -2,8 +2,10 @@
 hidvae_tpu/models/quantize.py with train=False).
 
 The training modes (Gumbel-softmax, STE, rotation trick) and k-means init are
-not ported yet; at eval every mode is the same hard assignment + lookup."""
+not ported yet; at eval every mode is the same hard assignment + lookup.
+`QuantizeForwardMode` names them for the gin reader (utils/ginlite.py)."""
 
+from enum import Enum
 from typing import NamedTuple
 
 import torch
@@ -11,6 +13,12 @@ from torch import nn
 
 from hidvae_tpu_torch.ops.distances import DistanceMode, compute_distance
 from hidvae_tpu_torch.ops.normalize import l2norm
+
+
+class QuantizeForwardMode(Enum):
+    GUMBEL_SOFTMAX = 1
+    STE = 2
+    ROTATION_TRICK = 3
 
 
 class QuantizeOutput(NamedTuple):

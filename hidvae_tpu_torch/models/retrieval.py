@@ -69,6 +69,9 @@ class EncoderDecoderRetrievalModel(nn.Module):
                  dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.embedding_dim = embedding_dim
+        self.attn_dim = attn_dim
+        self.num_heads = num_heads
+        self.n_layers = n_layers
         self.dtype = dtype
         self.num_embeddings = num_embeddings
         self.sem_id_dim = sem_id_dim

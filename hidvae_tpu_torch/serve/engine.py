@@ -7,37 +7,143 @@ are padded to a small set of batch buckets; one step per bucket runs
 tokenize (corpus-table gather) -> constrained beam search -> tuple-to-item
 resolution, and the host reads the result once.
 
-Not ported yet: `from_artifacts` (it reads Orbax checkpoints and a gin
-file), the corpus audit against the stage-1 checkpoint, and multi-GPU
-serving.
+`from_artifacts` builds an engine from a decoder gin file and two exported
+checkpoints (bridge.py; scripts/export_flax_checkpoint.py converts the JAX
+package's Orbax checkpoints), reading the corpus from the config's
+processed dataset. Before the prefix index is built, the table is audited
+against the stage-1 checkpoint's recorded repetition rate: a collapsed
+table is refused, as the JAX engine refuses it.
+
+Not ported yet: multi-GPU serving (the JAX engine's `mesh` and
+`shard_params`).
 """
 
+import logging
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_processed
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.ops.prefix_search import build_prefix_index_with_perm, lookup_items
 from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint
+from hidvae_tpu_torch.train.common import (
+    audit_rebuilt_corpus,
+    load_checkpoint_model_config,
+    reconcile_vae_config,
+    restore_export,
+)
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
+from hidvae_tpu_torch.train.transformer import _build_tokenizer
+from hidvae_tpu_torch.utils.ginlite import parse_gin_file
 from hidvae_tpu_torch.utils.runtime import full_fp32, resolve_device
+
+logger = logging.getLogger("hidvae_tpu_torch.serve.engine")
 
 
 class RetrievalEngine:
     """Batch recommendation serving over a frozen tokenizer + decoder.
 
     model : the EncoderDecoderRetrievalModel with its weights loaded.
-    tokenizer : an HSemanticIdTokenizer over the stage-1 model, on the same
+    tokenizer : a (H)SemanticIdTokenizer over the stage-1 model, on the same
         device as the engine.
     item_features : [n_items, F] numpy array or tensor; the corpus to index.
     max_seq_len : history length the decoder was trained with (longer
         histories keep their trailing `max_seq_len` items).
     batch_buckets : ascending request-batch sizes to pad to; requests larger
         than the top bucket are processed in top-bucket chunks.
+    stage1_checkpoint : the stage-1 export whose recorded repetition rate
+        the corpus table is audited against (None: no guard).
     device : `cuda` unless given; raises without a card.
+
+    `build_times` holds the seconds of the build's parts: `table_s` (the
+    sweep, read back to the host for the audit), `index_s` (prefix index,
+    caps and tries) and, from `from_artifacts`, `load_s` (gin, dataset,
+    both models and their weights).
     """
+
+    @classmethod
+    def from_artifacts(cls, gin_path: str, stage1_export: str, stage2_export: str, *,
+                       device=None, **engine_kwargs) -> "RetrievalEngine":
+        """A ready engine from a decoder gin config (the file the stage-2
+        trainer ran with: model and tokenizer shapes, dataset) and the two
+        exported checkpoints; the corpus comes from the config's
+        dataset_folder. Follows hidvae_tpu/serve/engine.py:51-182; defaults
+        are the JAX trainer's, so a config that relies on one builds the
+        same model here."""
+        t0 = time.perf_counter()
+        device = resolve_device(device)
+        cfg = parse_gin_file(gin_path)["train"]
+        g = cfg.get
+        # Interleaving is a tagged (H-tokenizer) layout; the plain route
+        # ignores the flag (PARITY.md #12).
+        use_interleaved = bool(g("use_interleaved_ids", False) and g("use_h_tokenizer", True))
+        # One read of the processed file serves the corpus and the history
+        # length the decoder was trained with (a property of the dataset).
+        split = g("dataset_split", "beauty")
+        arrays = load_processed(cfg["dataset_folder"], cfg["dataset"], split)
+        items = ItemData(cfg["dataset_folder"], cfg["dataset"], train_test_split="all",
+                         split=split, arrays=arrays)
+        max_seq_len = SeqData(cfg["dataset_folder"], cfg["dataset"], split=split,
+                              arrays=arrays).max_seq_len
+
+        tokenizer = _build_tokenizer(
+            use_h_tokenizer=g("use_h_tokenizer", True),
+            pretrained_rqvae_path=stage1_export,
+            vae_input_dim=cfg["vae_input_dim"],
+            vae_embed_dim=cfg["vae_embed_dim"],
+            vae_hidden_dims=tuple(cfg["vae_hidden_dims"]),
+            vae_codebook_size=cfg["vae_codebook_size"],
+            vae_n_layers=g("vae_n_layers", 3),
+            vae_n_cat_feats=g("vae_n_cat_feats", 18),
+            vae_codebook_normalize=g("vae_codebook_normalize", False),
+            vae_sim_vq=g("vae_sim_vq", False),
+            tag_class_counts=g("tag_class_counts"),
+            tag_embed_dim=g("tag_embed_dim", 768),
+            use_dedup_dim=g("use_dedup_dim", False),
+            use_concatenated_ids=g("use_concatenated_ids", False),
+            use_interleaved_ids=use_interleaved,
+            commitment_weight=g("commitment_weight", 0.25),
+            device=device,
+        )
+        d = tokenizer.sem_ids_dim
+        # The decoder checkpoint records its structural config: a gin with
+        # stale geometry (same shapes, other heads; or other layer counts)
+        # adopts the checkpoint's values instead of serving garbage.
+        dec = reconcile_vae_config(
+            stage2_export,
+            {
+                "decoder_embed_dim": g("decoder_embed_dim", 128),
+                "attn_embed_dim": g("attn_embed_dim", 512),
+                "attn_heads": g("attn_heads", 8),
+                "attn_layers": g("attn_layers", 8),
+            },
+            logger,
+        )
+        saved_d = (load_checkpoint_model_config(stage2_export) or {}).get("sem_id_dim")
+        if saved_d is not None and int(saved_d) != int(d):
+            raise ValueError(
+                f"decoder checkpoint {stage2_export} was trained with sem_id_dim={saved_d} "
+                f"but the stage-1 tokenizer produces {d} — the two checkpoints / ID-layout "
+                f"flags do not match."
+            )
+        # Geometry from the reconciled tokenizer: the gin values may be stale.
+        model = EncoderDecoderRetrievalModel(
+            dec["decoder_embed_dim"], dec["attn_embed_dim"], dec["attn_heads"],
+            dec["attn_layers"], tokenizer.codebook_size, d, max_pos=max_seq_len * d,
+            n_sem_layers=tokenizer.n_layers, use_interleaved_ids=use_interleaved,
+            dropout=g("attn_dropout", None) or g("dropout_p", 0.3),
+        )
+        restore_export(stage2_export, model)
+        load_s = time.perf_counter() - t0
+        engine_kwargs.setdefault("generation_temperature", g("generation_temperature", 1.0))
+        engine_kwargs.setdefault("stage1_checkpoint", stage1_export)
+        engine = cls(model, tokenizer, items.item_features, max_seq_len=max_seq_len,
+                     device=device, **engine_kwargs)
+        engine.build_times["load_s"] = load_s
+        return engine
 
     def __init__(
         self,
@@ -48,6 +154,7 @@ class RetrievalEngine:
         max_seq_len: int,
         batch_buckets: Sequence[int] = (8, 32, 128),
         generation_temperature: float = 1.0,
+        stage1_checkpoint=None,
         reuse_cached_ids: bool = True,
         device=None,
     ):
@@ -61,6 +168,7 @@ class RetrievalEngine:
         # A tokenizer that already holds the table for this catalog (same
         # content fingerprint, not just the same row count) is reused; the
         # sweep is deterministic for fixed weights and features.
+        t0 = time.perf_counter()
         cached = getattr(tokenizer, "cached_ids", None)
         if (
             reuse_cached_ids
@@ -74,6 +182,13 @@ class RetrievalEngine:
         self.corpus_ids = self.corpus_ids.to(self.device)
         self.n_items = int(self.corpus_ids.shape[0])
         self.sem_id_dim = int(self.corpus_ids.shape[1])
+        table = self.corpus_ids.cpu().numpy()
+        t1 = time.perf_counter()
+        # Refuse to serve from a table that contradicts the stage-1
+        # checkpoint's recorded repetition (a rebuild gone wrong otherwise
+        # returns near-constant recommendations without complaint).
+        audit_rebuilt_corpus(tokenizer, table, stage1_checkpoint, log=logger)
+        t2 = time.perf_counter()
         self.sorted_ids, self.perm = build_prefix_index_with_perm(self.corpus_ids)
         self.prefix_caps = tuple(tokenizer.prefix_caps) if tokenizer.prefix_caps else None
         tries_np = tokenizer.prefix_tries(self.model.num_embeddings)
@@ -86,6 +201,9 @@ class RetrievalEngine:
                 )
                 for lvl, t in tries_np.items()
             }
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.build_times = {"table_s": t1 - t0, "index_s": time.perf_counter() - t2}
 
     # ---- request preparation (host side) ----
 

@@ -9,24 +9,17 @@ plus the dedup rank column of the semantic-only layout. The corpus sweep runs
 the encoder and then the fused residual quantization `rq_assign_auto`: the
 CUDA kernel on the card, the plain version on the CPU. The cache-miss path
 (`tokenize_features`) is not ported: tokenizing needs the precomputed table.
+The table, prefix index, caps, tries and tokenizing by gather are those of
+the plain tokenizer (semids.py), which this one extends.
 """
 
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
-from hidvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
-from hidvae_tpu_torch.ops.prefix_search import (
-    build_prefix_index,
-    build_prefix_tries,
-    duplicate_ranks,
-    exists_prefix,
-)
-from hidvae_tpu_torch.ops.rq_assign import check_dim, rq_assign_auto
-from hidvae_tpu_torch.tokenizer.semids import _flatten_tokenize, _token_type_ids
-from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint, sweep_corpus
-from hidvae_tpu_torch.utils.runtime import full_fp32, resolve_device
+from hidvae_tpu_torch.ops.rq_assign import rq_assign_auto
+from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.utils.runtime import full_fp32
 
 
 def interleave_ids(sem_ids, tag_ids):
@@ -41,7 +34,7 @@ def interleave_ids(sem_ids, tag_ids):
     return torch.cat(cols, dim=-1)
 
 
-class HSemanticIdTokenizer:
+class HSemanticIdTokenizer(SemanticIdTokenizer):
     """Tokenizer service over a frozen HRqVae (an nn.Module on `device`)."""
 
     def __init__(
@@ -63,24 +56,13 @@ class HSemanticIdTokenizer:
             raise ValueError("use_dedup_dim and use_interleaved_ids are mutually exclusive")
         if use_concatenated_ids and use_interleaved_ids:
             raise ValueError("use_concatenated_ids and use_interleaved_ids are mutually exclusive")
-        self.device = resolve_device(device)
-        check_dim(model.embed_dim, self.device.type)
-        self.hrq_vae = model.to(self.device).eval()
-        self.n_layers = n_layers
-        self.codebook_size = codebook_size
+        super().__init__(model, n_layers=n_layers, codebook_size=codebook_size,
+                         use_dedup_dim=use_dedup_dim, corpus_chunk_size=corpus_chunk_size,
+                         device=device)
+        self.hrq_vae = self.rq_vae
         self.tag_class_counts = list(tag_class_counts) if tag_class_counts else None
-        self.use_dedup_dim = use_dedup_dim
         self.use_concatenated_ids = use_concatenated_ids
         self.use_interleaved_ids = use_interleaved_ids
-        self.corpus_chunk_size = corpus_chunk_size
-        self.reset()
-
-    def reset(self):
-        self.cached_ids = None
-        self.cached_ids_fingerprint = None
-        self._prefix_index = None
-        self._prefix_caps = None
-        self._prefix_tries = None
 
     @property
     def needs_tags(self):
@@ -109,70 +91,3 @@ class HSemanticIdTokenizer:
         if self.use_concatenated_ids:
             return torch.cat([sem_ids, tag_ids], dim=-1)
         return interleave_ids(sem_ids, tag_ids)
-
-    def precompute_corpus_ids(self, item_features) -> torch.Tensor:
-        """Build the [n_items, sem_ids_dim] corpus table on the device."""
-        ids = sweep_corpus(self.encode_ids, item_features,
-                           self.corpus_chunk_size, self.device)
-        if self.use_dedup_dim:
-            ids = torch.cat([ids, duplicate_ranks(ids)[:, None]], dim=-1)
-        self.reset()
-        self.cached_ids = ids
-        self.cached_ids_fingerprint = features_fingerprint(item_features)
-        self._prefix_index = build_prefix_index(ids)
-        return self.cached_ids
-
-    def exists_prefix(self, sem_id_prefix) -> torch.Tensor:
-        if self._prefix_index is None:
-            raise RuntimeError("No match found in empty cache.")
-        return exists_prefix(self._prefix_index,
-                             torch.as_tensor(sem_id_prefix, device=self.device))
-
-    @property
-    def prefix_index(self):
-        return self._prefix_index
-
-    @property
-    def prefix_caps(self):
-        """caps[l-1] = the most corpus rows sharing one l-prefix."""
-        if self._prefix_caps is None and self.cached_ids is not None:
-            ids = self.cached_ids.cpu().numpy()
-            caps = []
-            for length in range(1, ids.shape[1]):
-                _, counts = np.unique(ids[:, :length], axis=0, return_counts=True)
-                caps.append(int(counts.max()))
-            self._prefix_caps = caps
-        return self._prefix_caps
-
-    def prefix_tries(self, n_digits=None):
-        """Per-level trie bitmaps (host numpy), cached per bitmap width.
-        n_digits: pass the decoder's vocab; tag digits outside [0, n_digits)
-        are dropped as unreachable."""
-        n_digits = int(n_digits or self.codebook_size)
-        if self._prefix_index is None:
-            return None
-        if self._prefix_tries is None:
-            self._prefix_tries = {}
-        if n_digits not in self._prefix_tries:
-            self._prefix_tries[n_digits] = build_prefix_tries(
-                self._prefix_index.cpu().numpy(), n_digits
-            )
-        return self._prefix_tries[n_digits]
-
-    def __call__(self, batch: SeqBatch) -> TokenizedSeqBatch:
-        """Tokenize a SeqBatch by gathering from the precomputed table."""
-        if self.cached_ids is None:
-            raise RuntimeError("precompute_corpus_ids must run before tokenizing")
-        d = self.cached_ids.shape[1]
-        b, n = batch.ids.shape
-        dev = self.cached_ids.device
-        sem_ids, seq_mask = _flatten_tokenize(self.cached_ids, batch.ids, batch.seq_mask)
-        sem_ids_fut, _ = _flatten_tokenize(self.cached_ids, batch.ids_fut, None)
-        return TokenizedSeqBatch(
-            user_ids=batch.user_ids,
-            sem_ids=sem_ids,
-            sem_ids_fut=sem_ids_fut,
-            seq_mask=seq_mask,
-            token_type_ids=_token_type_ids(b, n, d, dev),
-            token_type_ids_fut=_token_type_ids(b, batch.ids_fut.shape[1], d, dev),
-        )

@@ -21,10 +21,16 @@ card) exactly where the JAX package takes its flash kernel: at contexts of
 at least 2048 tokens. A head width the kernels are not built for is refused
 before the first step on a CUDA device.
 
-Not ported yet: checkpoints and resume, the full generation eval, tensor
-parallelism, remat, plots, the gin reader and the on-disk dataset.
+`_build_tokenizer` rebuilds the frozen stage-1 tokenizer from an exported
+checkpoint (transformer.py:51-190), on either route; serving's
+`from_artifacts` calls it.
+
+Not ported yet: saving checkpoints and resume, the full generation eval,
+tensor parallelism, remat, plots, and training from a gin file and the
+on-disk dataset.
 """
 
+import logging
 import math
 import time
 from collections import deque
@@ -34,11 +40,19 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.models.attention import takes_flash_route
+from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.ops.flash_attention import check_head_dim
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
-from hidvae_tpu_torch.train.common import Optimizer, inverse_sqrt_schedule
+from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.train.common import (
+    Optimizer,
+    inverse_sqrt_schedule,
+    reconcile_vae_config,
+    restore_export,
+)
 from hidvae_tpu_torch.train.device_data import (
     DeviceSeqData,
     crop_uniforms,
@@ -47,8 +61,87 @@ from hidvae_tpu_torch.train.device_data import (
 )
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
+logger = logging.getLogger("hidvae_tpu_torch.train.transformer")
+
 STEP_SALT = 0x5EED  # the JAX trainer's fold_in constant for per-step keys
 LOSS_WINDOW = 1000  # per-step losses in the window mean (transformer.py:576)
+
+
+def _build_tokenizer(
+    *,
+    use_h_tokenizer,
+    pretrained_rqvae_path,
+    vae_input_dim,
+    vae_embed_dim,
+    vae_hidden_dims,
+    vae_codebook_size,
+    vae_n_layers,
+    vae_n_cat_feats,
+    vae_codebook_normalize,
+    vae_sim_vq,
+    tag_class_counts,
+    tag_embed_dim,
+    use_dedup_dim,
+    use_concatenated_ids,
+    use_interleaved_ids,
+    commitment_weight,
+    device=None,
+):
+    """The frozen stage-1 model restored from the exported checkpoint
+    `pretrained_rqvae_path`, and its tokenizer service, on `device` (`cuda`
+    unless given).
+
+    The structural VAE values are first reconciled against the
+    checkpoint's recorded model_config (checkpoint values win, loudly), so a
+    decoder config that omits e.g. vae_codebook_normalize does not rebuild
+    the quantizer with other distance semantics. Then the HiD-VAE (H route)
+    or the plain RQ-VAE is built in eval mode and restored leniently from
+    the export, BatchNorm running statistics included. The JAX function's
+    training-only arguments (quantizer forward mode, dropout, focal loss,
+    mixup, label smoothing, loss weights) change nothing in eval and are
+    not taken."""
+    rec = reconcile_vae_config(
+        pretrained_rqvae_path,
+        {
+            "input_dim": vae_input_dim,
+            "embed_dim": vae_embed_dim,
+            "hidden_dims": list(vae_hidden_dims),
+            "codebook_size": vae_codebook_size,
+            "codebook_normalize": vae_codebook_normalize,
+            "codebook_sim_vq": vae_sim_vq,
+            "n_layers": vae_n_layers,
+            "n_cat_features": vae_n_cat_feats,
+            "tag_class_counts": (
+                list(tag_class_counts) if tag_class_counts is not None else None
+            ),
+            "tag_embed_dim": tag_embed_dim,
+        },
+        logger,
+    )
+    vae_n_layers = rec["n_layers"]
+    vae_codebook_size = rec["codebook_size"]
+    tag_class_counts = rec["tag_class_counts"]
+    # n_cat_features shapes only the reconstruction loss, not the eval model.
+    widths = (rec["input_dim"], rec["embed_dim"], tuple(rec["hidden_dims"]), vae_codebook_size)
+    common = dict(codebook_normalize=rec["codebook_normalize"],
+                  codebook_sim_vq=rec["codebook_sim_vq"], n_layers=vae_n_layers,
+                  commitment_weight=commitment_weight)
+    if use_h_tokenizer:
+        model = HRqVae(*widths, tag_class_counts=tag_class_counts,
+                       tag_embed_dim=rec["tag_embed_dim"], use_batch_norm=True, **common)
+    else:
+        model = RqVae(*widths, **common)
+    restore_export(pretrained_rqvae_path, model)
+    model.eval()
+    if use_h_tokenizer:
+        return HSemanticIdTokenizer(
+            model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
+            tag_class_counts=tag_class_counts, use_dedup_dim=use_dedup_dim,
+            use_concatenated_ids=use_concatenated_ids, use_interleaved_ids=use_interleaved_ids,
+            device=device,
+        )
+    return SemanticIdTokenizer(model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
+                               use_dedup_dim=use_dedup_dim, device=device)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

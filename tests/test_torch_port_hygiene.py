@@ -1,7 +1,9 @@
 """The port stands alone: with JAX, flax, orbax, optax and the JAX package
 refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
-import, a small engine serves on the CPU and the smoke's training path
-trains a small model there. And the port's sources are small text files."""
+import, a small engine serves on the CPU, the smoke's artifacts phase writes
+small exported checkpoints and serves them through `from_artifacts` on both
+tokenizer routes, and the smoke's training path trains a small model there.
+And the port's sources are small text files."""
 
 import os
 import subprocess
@@ -35,16 +37,26 @@ HYGIENE_SCRIPT = textwrap.dedent('''
                 n_layers=3, codebook_normalize=True, tag_class_counts=(4, 6, 20),
                 tag_embed_dim=12, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=4,
                 attn_layers=2, max_seq_len=6, n_items=300)
-    engine, _ = chip_smoke.build_engine(tiny, "cpu", batch_buckets=(8,))
+    engine, items = chip_smoke.build_engine(tiny, "cpu", batch_buckets=(8,))
     hist = chip_smoke.seeded_histories(tiny["n_items"], 8, tiny["max_seq_len"])
     out = engine.recommend(hist, top_k=5)
     resolved = chip_smoke.check_recommendations(engine, out, tiny["n_items"])
+
+    # The smoke's artifacts phase at tiny widths: exported checkpoints, a
+    # processed dataset and a gin in a temporary directory, served through
+    # from_artifacts(device="cpu") on the H route (held equal to the
+    # in-process engine) and the plain route (held to a plain sweep). The
+    # plain version of rq_assign runs here, so no launch is counted.
+    import torch
+    tiny_plain = dict(tiny, tag_class_counts=None, codebook_normalize=False)
+    launches = chip_smoke.artifacts_phase(torch.device("cpu"), engine, items, hist,
+                                          amazon=tiny, ml32m=tiny_plain)
+    assert launches == {"amazon": 0, "ml32m": 0}, launches
 
     # The smoke's training path on the CPU: a short run (dense attention) and
     # one over 1 + 350 * 6 = 2,101 tokens (the flash route, whose plain
     # version runs here). No kernel launches on the CPU, so the checks are
     # held to zero launches, with the sweep's count stood in for.
-    import torch
     tiny.update(precision="fp32")
     vae, feats = chip_smoke.build_vae(tiny, torch.Generator().manual_seed(0))
     for max_seq_len in (6, 350):
@@ -65,9 +77,10 @@ def test_port_imports_and_serves_without_jax():
     res = subprocess.run([sys.executable, "-c", HYGIENE_SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    n_modules = int(res.stdout.split()[1])
+    last = res.stdout.splitlines()[-1].split()  # the phases print before it
+    n_modules = int(last[1])
     assert n_modules >= 20
-    assert int(res.stdout.split()[3]) > 0
+    assert int(last[3]) > 0
 
 
 def _port_sources():

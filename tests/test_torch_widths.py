@@ -23,7 +23,7 @@ from hidvae_tpu_torch.bridge import load_flax_weights
 from hidvae_tpu_torch.models import attention
 from hidvae_tpu_torch.ops import flash_attention as fa
 from hidvae_tpu_torch.ops import rq_assign as rq
-from hidvae_tpu_torch.tokenizer import h_semids
+from hidvae_tpu_torch.tokenizer import h_semids, semids
 from hidvae_tpu_torch.train import transformer as trainer
 from tests._torch_common import random_variables, unflat
 
@@ -119,10 +119,26 @@ def test_tokenizer_checks_the_code_width(monkeypatch):
                n_items=64)
     vae, _ = build_vae(cfg, torch.Generator().manual_seed(0))
     checked = []
-    monkeypatch.setattr(h_semids, "check_dim",
+    # The check runs in the plain tokenizer's constructor, which the
+    # hierarchical one extends.
+    monkeypatch.setattr(semids, "check_dim",
                         lambda d, dev: checked.append((d, dev)) or rq.check_dim(d, "cuda"))
     with pytest.raises(ValueError, match="supports D"):
         h_semids.HSemanticIdTokenizer(vae, n_layers=2, codebook_size=16, device="cpu")
+    assert checked == [(48, "cpu")]
+
+
+def test_plain_tokenizer_checks_the_code_width(monkeypatch):
+    from chip_smoke import build_vae
+
+    cfg = dict(input_dim=48, hidden_dims=(32,), embed_dim=48, codebook_size=16, n_layers=2,
+               codebook_normalize=False, tag_class_counts=None, n_items=64)
+    vae, _ = build_vae(cfg, torch.Generator().manual_seed(0))
+    checked = []
+    monkeypatch.setattr(semids, "check_dim",
+                        lambda d, dev: checked.append((d, dev)) or rq.check_dim(d, "cuda"))
+    with pytest.raises(ValueError, match="supports D"):
+        semids.SemanticIdTokenizer(vae, n_layers=2, codebook_size=16, device="cpu")
     assert checked == [(48, "cpu")]
 
 
