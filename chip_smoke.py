@@ -18,7 +18,14 @@ items: the size of the P5 Sports split):
   * train: the stage-2 trainer runs a short-history run (20 items, the dense
     attention path) and a long-history run (400 items, 2,401 tokens: the
     flash kernels, forward and backward), and a few steps on one fixed
-    batch must lower its loss.
+    batch must lower its loss;
+  * trainer: the stage-2 trainer from its gin entry
+    (scripts/torch_train_transformer.py) on a processed dataset and a
+    stage-1 export written into a temporary directory: 2N steps with full
+    generation evals, checkpoints and the TEST eval; N steps and a resume
+    for N more, held to the uninterrupted run; the saved decoder served by
+    `from_artifacts`, held to the trained model's own search; remat on the
+    flash route, held to the run without it.
 Each path's kernel launch counts are set to 0 just before it and read just
 after. Every phase prints its start and end; the line before the last is the
 kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
@@ -40,10 +47,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from hidvae_tpu_torch.bridge import save_export
+from hidvae_tpu_torch.bridge import save_export, state_dict_to_flax
 from hidvae_tpu_torch.data.processed import processed_path
 from hidvae_tpu_torch.models.hrqvae import HRqVae
-from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS
+from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS, takes_flash_route
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.models.rqvae import RqVae
@@ -557,9 +564,11 @@ def structural_config(cfg):
                 tag_embed_dim=None if tags is None else cfg["tag_embed_dim"])
 
 
-def decoder_gin(text, cfg, folder):
-    """The gin `text` with its width keys set to cfg's and dataset_folder
-    to `folder`; every other key as the text has it."""
+def decoder_gin(text, cfg, folder, **bindings):
+    """The gin `text` with its width keys set to cfg's, dataset_folder to
+    `folder` and each of `bindings` (gin literals) set, replaced where the
+    text binds it and appended where not; every other key as the text has
+    it."""
     tags = cfg.get("tag_class_counts")
     values = {
         "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
@@ -567,14 +576,16 @@ def decoder_gin(text, cfg, folder):
         "tag_class_counts": None if tags is None else list(tags),
         "tag_embed_dim": cfg.get("tag_embed_dim"), "decoder_embed_dim": cfg["decoder_embed_dim"],
         "attn_embed_dim": cfg["attn_embed_dim"], "attn_heads": cfg["attn_heads"],
-        "attn_layers": cfg["attn_layers"], "dataset_folder": f'"{folder}"',
+        "attn_layers": cfg["attn_layers"], "dataset_folder": f'"{folder}"', **bindings,
     }
-    lines = []
+    lines, bound = [], set()
     for line in text.splitlines():
         key = line.split("=")[0].strip().removeprefix("train.")
         if values.get(key) is not None:
             line = f"train.{key} = {values[key]}"
+            bound.add(key)
         lines.append(line)
+    lines += [f"train.{k} = {v}" for k, v in bindings.items() if k not in bound]
     return "\n".join(lines) + "\n"
 
 
@@ -950,6 +961,11 @@ def seeded_sequences(n_items, n_seqs, length, seed):
     return np.arange(n_seqs) * 7, items, rng.randint(0, n_items, n_seqs)
 
 
+def kernel_launches():
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {"rq_assign": rq.rq_assign.launches, **{fn.__name__: fn.launches for fn in fa.KERNELS}}
+
+
 def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log=print):
     """The port's trainer at cfg's widths on seeded histories of
     `max_seq_len` items, EVAL_BATCHES eval batches at the end. Launch counts are set to
@@ -958,7 +974,7 @@ def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     rq.rq_assign.launches = 0
     fa.reset_launches()
-    result = trainer.train(
+    result = trainer.train_arrays(
         feats, users, items, fut, vae=vae, iterations=steps, batch_size=batch,
         vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
         decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
@@ -970,9 +986,7 @@ def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    launches = {"rq_assign": rq.rq_assign.launches,
-                **{fn.__name__: fn.launches for fn in fa.KERNELS}}
-    return result, launches, (users, items, fut)
+    return result, kernel_launches(), (users, items, fut)
 
 
 def fixed_batch_descent(result, data, batch, steps, seed=SEED):
@@ -1045,7 +1059,307 @@ def train_phase(device, flash_ms_per_layer):
               f"after {FIXED_STEPS} steps", flush=True)
         if not (np.isfinite(after) and after < before):
             raise AssertionError(f"{name} run: steps on a fixed batch did not lower its loss")
-    return runs["long"][1]
+    return runs["long"][1], vae, feats
+
+
+# ---- the trainer from its gin entry ------------------------------------------
+
+TRAINER_N = 5             # steps between evals and saves: the run takes 2N, the resume N + N
+TRAINER_SPLITS = (2048, 300, 300)  # train, eval and test histories in the written dataset
+TRAINER_EVAL_BATCHES = 2  # eval batches of 256: the second holds 44 rows, padded
+# The resumed run against the uninterrupted one: the same steps on the same
+# batches, apart in the order of the backward's atomic adds only (fp32
+# rounding, carried through N bf16 steps). Gaps in L2 norm: params over the
+# last N steps' update, each Adam moment over its own norm. A resume that
+# lost the moments or the counts misses by tens of percent.
+RESUME_RTOL = 1e-2
+# remat against no remat on the flash route, one seed, dropout on: the
+# recompute replays the forward's masks and kernels, so the runs differ in
+# the order of atomic adds only: losses relative, params as a gap over the
+# two steps' update (L2).
+REMAT_LOSS_RTOL = 1e-3
+REMAT_PARAM_RTOL = 1e-2
+REMAT_RUN = (400, 64, 2)  # history items, batch, steps: 2,401 tokens, the flash route
+
+
+def load_script(name):
+    """A script of this checkout's scripts/ as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_trainer_inputs(root, cfg, vae, feats, device, splits=TRAINER_SPLITS):
+    """Under `root`: a processed dataset of the items `feats` (numpy) with
+    seeded train, eval and test histories of cfg["max_seq_len"] items, the
+    stage-1 export of `vae` with its structural config and the recorded
+    repetition rate of its semantic table (a plain sweep, so the collapse
+    guard is armed without a kernel launch here). Returns (stage-1 dir,
+    dataset path, the test histories, the recorded rate)."""
+    os.makedirs(root)
+    n_items = len(feats)
+    users, items, fut = seeded_sequences(n_items, sum(splits), cfg["max_seq_len"], SEED + 21)
+    split = np.repeat(np.arange(3, dtype=np.int8), splits)
+    base = os.path.join(root, "base.gin")
+    with open(base, "w") as f:
+        f.write(decoder_gin(DECODER_AMAZON_GIN, cfg, root))
+    train = parse_gin_file(base)["train"]
+    path = processed_path(root, train["dataset"], train["dataset_split"])
+    os.makedirs(os.path.dirname(path))
+    np.savez(path, item_features=feats, item_is_train=np.ones(n_items, bool),
+             seq_users=users.astype(np.int32), seq_items=items.astype(np.int32),
+             seq_fut=fut.astype(np.int32), seq_is_train=split == 0, seq_split=split)
+    sem, _, _ = plain_sweep(vae.to(device), torch.from_numpy(feats).to(device), 8192)
+    rep = repetition_rate(sem.cpu().numpy())[0]
+    s1 = save_export(os.path.join(root, "stage1"), vae.cpu(), {
+        "model_config": structural_config(cfg), "metrics": {"repetition_rate": rep}})
+    return s1, path, items[split == 2], rep
+
+
+def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
+    """Write root/decoder_<iterations>.gin: every key of
+    configs/decoder_amazon.gin at cfg's widths, reading root's dataset and
+    stage-1 export, with the run's iterations, a cadence of n steps for
+    evals and saves, TRAINER_EVAL_BATCHES eval batches and `bindings`."""
+    path = os.path.join(root, f"decoder_{iterations}.gin")
+    with open(path, "w") as f:
+        f.write(decoder_gin(
+            DECODER_AMAZON_GIN, cfg, root, iterations=iterations, full_eval_every=n,
+            partial_eval_every=n, save_model_every=n, eval_batches=TRAINER_EVAL_BATCHES,
+            log_every=1, pretrained_rqvae_path=f'"{s1}"',
+            save_dir_root=f'"{os.path.join(root, "runs")}"', **bindings))
+    return path
+
+
+def run_trainer_entry(script, device, *argv):
+    """scripts/torch_train_transformer.py with `argv` on `device`, the launch
+    counts set to 0 just before and read just after. Returns (result,
+    launches, seconds)."""
+    rq.rq_assign.launches = 0
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    result = script.main([*argv, "--device", str(device)])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return result, kernel_launches(), time.perf_counter() - t0
+
+
+def check_trainer_run(name, result, launches, steps, evals, device, n_items):
+    """Steps, saves and evals where the cadence puts them; hit@10 and
+    NDCG@10 of the whole tuple finite in [0, 1]; rq_assign launched by the
+    trainer's start (once per 8,192-row chunk on the card), no flash kernel
+    (20-item histories take the dense path). Returns (hit@10, ndcg@10) of
+    the TEST eval."""
+    hist = result["history"]
+    d = result["tokenizer"].sem_ids_dim
+    want_saves = [f"checkpoint_{it}" for it in evals]
+    got_saves = [os.path.basename(p) for p in result["saved_paths"]]
+    if result["step"] != steps or got_saves != want_saves or hist["full_eval_iterations"] != evals:
+        raise AssertionError(f"{name}: step {result['step']}, saves {got_saves}, full evals "
+                             f"{hist['full_eval_iterations']}; expected {steps}, {want_saves}, "
+                             f"{evals}")
+    scores = []
+    for metrics in (*hist["full_eval_metrics"], hist["test_eval_metrics"]):
+        pair = (metrics[f"h@10_slice_:{d}"], metrics[f"ndcg@10_slice_:{d}"])
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in pair):
+            raise AssertionError(f"{name}: hit@10, ndcg@10 {pair} not finite in [0, 1]")
+        scores.append(pair)
+    sweeps = math.ceil(n_items / result["tokenizer"].corpus_chunk_size)
+    want = {"rq_assign": sweeps if device.type == "cuda" else 0,
+            **{fn.__name__: 0 for fn in fa.KERNELS}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    return scores[-1]
+
+
+def relative_gap(a, b, scale):
+    """||a - b|| / ||scale|| over dicts of arrays (L2 over all leaves), and
+    the largest |a - b|."""
+    num = math.sqrt(sum(float(np.sum((a[k].astype(np.float64) - b[k]) ** 2)) for k in a))
+    den = math.sqrt(sum(float(np.sum(scale[k].astype(np.float64) ** 2)) for k in scale))
+    worst = max(float(np.max(np.abs(a[k].astype(np.float64) - b[k]))) for k in a)
+    return num / max(den, 1e-30), worst
+
+
+def check_resume(full, half, resumed, steps):
+    """The resumed run's step, params and Adam moments against the
+    uninterrupted run's (RESUME_RTOL); prints the gaps."""
+    pf, ph, pr = (state_dict_to_flax(r["model"])[0] for r in (full, half, resumed))
+    of, orr = (r["optimizer"].state_dict(r["model"]) for r in (full, resumed))
+    update = {k: pf[k] - ph[k] for k in pf}
+    gaps = {"params": relative_gap(pr, pf, update)}
+    for name in ("mu", "nu"):
+        keys = [k for k in of if f"0/{name}/" in k]
+        gaps[name] = relative_gap({k: orr[k] for k in keys}, {k: of[k] for k in keys},
+                                  {k: of[k] for k in keys})
+    counts = {k: int(v) for k, v in orr.items() if k.endswith("count")}
+    print(f"  resume: step {resumed['step']} (uninterrupted {full['step']}), counts {counts}; "
+          + "; ".join(f"{k} gap {g:.3e} (largest |difference| {w:.3e})"
+                      for k, (g, w) in gaps.items())
+          + f" (tolerance {RESUME_RTOL}: params over the last N steps' update, moments over "
+            f"their norm)", flush=True)
+    if resumed["step"] != steps or set(counts.values()) != {steps}:
+        raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected {steps}")
+    bad = {k: g for k, (g, _) in gaps.items() if not g <= RESUME_RTOL}
+    if bad:
+        raise AssertionError(f"resume: the resumed state differs from the uninterrupted one: {bad}")
+    return {k: g for k, (g, _) in gaps.items()}
+
+
+def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
+    """The long-history run (flash route at cfg's widths) with and without
+    remat from one seed, dropout on: losses, updated params, the flash
+    launches (forward 2x per encoder layer and step under remat, 1x
+    without; dK/dV and dQ 1x) and each run's peak device memory above what
+    was allocated before it."""
+    max_seq_len, batch, steps = run
+    users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
+    n_enc = cfg["attn_layers"] // 2
+    out = {}
+    for remat in (False, True):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        rq.rq_assign.launches = 0
+        fa.reset_launches()
+        result = trainer.train_arrays(
+            feats, users, items, fut, vae=vae, iterations=steps, batch_size=batch,
+            vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+            decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+            attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
+            tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, seed=seed,
+            log_every=1, remat=remat, device=device,
+            mixed_precision_type=cfg.get("precision", "bf16"))
+        launches = kernel_launches()
+        peak = None
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        context = 1 + max_seq_len * result["tokenizer"].sem_ids_dim
+        head_dim = cfg["attn_embed_dim"] // cfg["attn_heads"]
+        flash = device.type == "cuda" and takes_flash_route(head_dim, context)
+        want = {"flash_fwd": n_enc * steps * (2 if remat else 1),
+                "flash_bwd_dkv": n_enc * steps, "flash_bwd_dq": n_enc * steps}
+        want = want if flash else {k: 0 for k in want}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"remat={remat}: flash launches {launches}, expected {want}")
+        out[remat] = dict(loss=result["history"]["train_loss"],
+                          ms=result["history"]["ms_per_step"],
+                          params=state_dict_to_flax(result["model"])[0],
+                          launches=launches, peak_gib=peak)
+        sem_id_dim = result["model"].sem_id_dim
+        del result
+    init = state_dict_to_flax(trainer.build_model(  # both runs' seeded start
+        sem_id_dim=sem_id_dim, max_seq_len=max_seq_len,
+        vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+        decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+        attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"], seed=seed))[0]
+    plain, remat = out[False], out[True]
+    update = {k: plain["params"][k] - init[k] for k in init}
+    gap, worst = relative_gap(remat["params"], plain["params"], update)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(remat["loss"], plain["loss"]))
+    print(f"  remat: losses {remat['loss']} against {plain['loss']} (largest relative "
+          f"difference {loss_err:.3e}, tolerance {REMAT_LOSS_RTOL}); params gap {gap:.3e} of the "
+          f"update (largest |difference| {worst:.3e}, tolerance {REMAT_PARAM_RTOL}); "
+          f"flash launches {remat['launches']} against {plain['launches']}; peak device memory "
+          f"above the run's start {remat['peak_gib']} GiB against {plain['peak_gib']} GiB; "
+          f"ms per step {remat['ms']} against {plain['ms']}", flush=True)
+    if not (loss_err <= REMAT_LOSS_RTOL and gap <= REMAT_PARAM_RTOL):
+        raise AssertionError(f"remat: the run differs from the plain one (losses {loss_err:.3e}, "
+                             f"params {gap:.3e})")
+    return {"remat": remat["launches"], "plain": plain["launches"],
+            "peak_gib": {"remat": remat["peak_gib"], "plain": plain["peak_gib"]},
+            "loss_rel_err": loss_err, "param_gap": gap}
+
+
+@phase("trainer")
+def trainer_phase(device, vae, feats, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
+                  remat_run=REMAT_RUN, **bindings):
+    """The stage-2 trainer from its gin entry (scripts/torch_train_transformer.py)
+    at cfg's widths, on a processed dataset and a stage-1 export written
+    into a temporary directory: 2N steps (full evals and saves at N and 2N,
+    the TEST eval at the end); N steps, then a resume for N more, held to
+    the uninterrupted run; the saved decoder served by `from_artifacts`,
+    held to an engine over the trained model; remat on the flash route.
+    `bindings` are gin literals set on top (smaller runs off the card).
+    Returns the launch counts and numbers of each part."""
+    script = load_script("torch_train_transformer")
+    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    n_items = len(feats_np)
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "trainer")
+        s1, data_path, test_hist, rep = write_trainer_inputs(root, cfg, vae, feats_np, device,
+                                                             splits)
+        print(f"  wrote {os.path.getsize(data_path) / 2**20:.1f} MiB of processed data "
+              f"({n_items} items, {splits} histories) and the stage-1 export (recorded "
+              f"repetition rate {rep:.4f})", flush=True)
+        gin_2n = trainer_gin(root, cfg, s1, 2 * n, n, **bindings)
+        gin_n = trainer_gin(root, cfg, s1, n, n, **bindings)
+        batch = parse_gin_file(gin_2n)["train"]["batch_size"]
+        full, launches, seconds = run_trainer_entry(script, device, gin_2n)
+        test_scores = check_trainer_run("2N run", full, launches, 2 * n, [n, 2 * n], device,
+                                        n_items)
+        hist = full["history"]
+        step_ms = statistics.median(hist["ms_per_step"][1:])
+        ckpt = full["saved_paths"][-1]
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        eval_s = [s / TRAINER_EVAL_BATCHES for s in hist["full_eval_seconds"]]
+        last = hist["full_eval_metrics"][-1]
+        d = full["tokenizer"].sem_ids_dim
+        print(f"  2N run ({2 * n} steps, batch {batch}) in {seconds:.2f} s: median "
+              f"{step_ms:.2f} ms/step after the first "
+              f"({hist['ms_per_step'][0]:.2f} ms); full eval {[round(s, 3) for s in eval_s]} "
+              f"s per batch; whole tuple hit@10 {last[f'h@10_slice_:{d}']:.4f}, ndcg@10 "
+              f"{last[f'ndcg@10_slice_:{d}']:.4f} at {2 * n} (first digit hit@10 "
+              f"{last['h@10_slice_:1']:.4f}), TEST {test_scores[0]:.4f} / "
+              f"{test_scores[1]:.4f}; checkpoints of {ckpt_bytes / 2**20:.1f} MiB in "
+              f"{[round(s, 3) for s in hist['save_seconds']]} s; launches {launches}", flush=True)
+        record["full"] = dict(launches=launches, step_ms=step_ms, eval_s_per_batch=eval_s,
+                              ckpt_bytes=ckpt_bytes, save_s=hist["save_seconds"])
+
+        half, launches_half, _ = run_trainer_entry(script, device, gin_n)
+        check_trainer_run("N run", half, launches_half, n, [n], device, n_items)
+        resumed, launches_resume, seconds = run_trainer_entry(
+            script, device, gin_n, "--resume", half["saved_paths"][-1])
+        check_trainer_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
+        print(f"  N run launches {launches_half}; resume launches {launches_resume}", flush=True)
+        record["resume"] = dict(launches={"N run": launches_half, "resume": launches_resume},
+                                gaps=check_resume(full, half, resumed, 2 * n))
+        del half, resumed
+
+        rq.rq_assign.launches = 0
+        t0 = time.perf_counter()
+        served = RetrievalEngine.from_artifacts(gin_2n, s1, ckpt,
+                                                device=device, batch_buckets=(ARTIFACT_HISTORIES,))
+        serve_s = time.perf_counter() - t0  # the build ends in a synchronize
+        serve_launches = rq.rq_assign.launches
+        hist32 = test_hist[:ARTIFACT_HISTORIES]
+        out = served.recommend(hist32, top_k=10)
+        resolved = check_recommendations(served, out, n_items)
+        print(f"  served checkpoint_{2 * n} with from_artifacts in {serve_s:.3f} s "
+              f"(rq_assign launches {serve_launches}); {resolved} of {out['items'].size} "
+              f"recommendations resolved", flush=True)
+        model = full["model"]
+        own = trainer.build_model(
+            sem_id_dim=model.sem_id_dim, max_seq_len=cfg["max_seq_len"],
+            vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+            decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+            attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"])
+        own.load_state_dict(model.state_dict())  # the trained weights, searched in fp32
+        direct = RetrievalEngine(own, full["tokenizer"], feats_np, max_seq_len=cfg["max_seq_len"],
+                                 batch_buckets=(ARTIFACT_HISTORIES,), stage1_checkpoint=s1,
+                                 device=device)
+        check_same_engine("trainer", served, direct, hist32)
+        record["serve"] = dict(launches=serve_launches)
+        del served, direct, own, full, model
+    record["remat"] = remat_runs(cfg, vae, feats, device, run=remat_run)
+    return record
 
 
 def main():
@@ -1058,7 +1372,8 @@ def main():
     del engine
     flash_recs = flash_phase(device)
     per_layer = sum(r["ms"] for r in flash_recs.values())
-    long_launches = train_phase(device, per_layer)
+    long_launches, vae, feats = train_phase(device, per_layer)
+    trainer_rec = trainer_phase(device, vae, feats)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
@@ -1068,12 +1383,17 @@ def main():
         at_main_path_launch=rec["at_main_path_launch"],
         at_ml32m_launches=rec["at_ml32m_launches"],
         launches_from_artifacts=art_launches,
+        launches_trainer={
+            "2N run": trainer_rec["full"]["launches"]["rq_assign"],
+            **{k: v["rq_assign"] for k, v in trainer_rec["resume"]["launches"].items()},
+            "from_artifacts": trainer_rec["serve"]["launches"]},
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
             name=name, route="cuda", source="hidvae_tpu_torch/csrc/flash_attention.cu",
             replaces=FLASH_REPLACES[name], reached_from="hidvae_tpu/models/attention.py:75",
-            launches=long_launches[name], **r))
+            launches=long_launches[name],
+            launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")}, **r))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ form. The bridge never sees a JAX object and imports nothing of JAX.
 
 An exported checkpoint is a directory of two files: `arrays.npz`, the flat
 flax leaves under "/"-joined keys ("params/...", "batch_stats/...", and
-"step" when the source had one), and `meta.json` ({model_config, metrics}).
-scripts/export_flax_checkpoint.py writes one from an Orbax checkpoint of the
-JAX package; `save_export` writes one from a module.
+"step" and "opt_state/..." when the source had them), and `meta.json`
+({model_config, metrics}). scripts/export_flax_checkpoint.py writes one
+from an Orbax checkpoint of the JAX package; `save_export` writes one from
+a module, and the stage-2 trainer's `save_checkpoint` one with the
+optimizer state and step (train/common.py).
 
 The port's modules carry the flax module names, so a path maps by rule:
   .../kernel        -> .../weight, transposed ([in, out] -> [out, in])
@@ -80,6 +82,26 @@ def load_flax_weights(module: torch.nn.Module, params, batch_stats=None):
     return module
 
 
+def flax_named_parameters(module: nn.Module):
+    """(flax path, parameter, transposed) for every parameter of `module`, in
+    module order: nn.Linear weights are `kernel`, transposed; LayerNorm and
+    BatchNorm weights `scale`; nn.Embedding weights `embedding`; every other
+    parameter keeps its name. The optimizer's moments are named by it."""
+    out = []
+    for name, m in module.named_modules():
+        prefix = name.replace(".", "/") + "/" if name else ""
+        for pname, p in m.named_parameters(recurse=False):
+            transpose = False
+            if pname == "weight" and isinstance(m, nn.Linear):
+                pname, transpose = "kernel", True
+            elif pname == "weight" and isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+                pname = "scale"
+            elif pname == "weight" and isinstance(m, nn.Embedding):
+                pname = "embedding"
+            out.append((prefix + pname, p, transpose))
+    return out
+
+
 def state_dict_to_flax(module: nn.Module):
     """The inverse of `flax_to_state_dict`, by module type: (params,
     batch_stats), flat numpy dicts keyed by flax path. nn.Linear weights
@@ -89,17 +111,11 @@ def state_dict_to_flax(module: nn.Module):
     other parameter (bias, RMSNorm weight, codebook `embedding`, bos_emb)
     keeps its name."""
     params, stats = {}, {}
+    for path, p, transpose in flax_named_parameters(module):
+        arr = p.detach().cpu().numpy()
+        params[path] = np.ascontiguousarray(arr.T if transpose else arr)
     for name, m in module.named_modules():
         prefix = name.replace(".", "/") + "/" if name else ""
-        for pname, p in m.named_parameters(recurse=False):
-            arr = p.detach().cpu().numpy()
-            if pname == "weight" and isinstance(m, nn.Linear):
-                pname, arr = "kernel", arr.T
-            elif pname == "weight" and isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
-                pname = "scale"
-            elif pname == "weight" and isinstance(m, nn.Embedding):
-                pname = "embedding"
-            params[prefix + pname] = np.ascontiguousarray(arr)
         for bname, b in m.named_buffers(recurse=False):
             if bname == "num_batches_tracked":
                 continue
@@ -115,13 +131,26 @@ def save_export(path: str, module: nn.Module, meta: dict) -> str:
     params and batch_stats of the JAX package's save_checkpoint), with
     `meta` ({model_config, metrics}) as meta.json. Returns `path`."""
     params, stats = state_dict_to_flax(module)
-    os.makedirs(path, exist_ok=True)
     arrays = {**{f"params/{k}": v for k, v in params.items()},
               **{f"batch_stats/{k}": v for k, v in stats.items()}}
+    return write_export(path, arrays, meta)
+
+
+def write_export(path: str, arrays: Mapping[str, np.ndarray], meta: Optional[dict]) -> str:
+    """Write the flat `arrays` ("/"-joined keys) as `arrays.npz` and, unless
+    `meta` is None, `meta.json` into directory `path`. Returns `path`."""
+    os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, ARRAYS_FILE), **arrays)
-    with open(os.path.join(path, META_FILE), "w") as f:
-        json.dump(meta, f, indent=2, default=str)
+    if meta is not None:
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
     return path
+
+
+def load_export_arrays(path: str, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The arrays of an export whose key starts with `prefix`, by key."""
+    with np.load(os.path.join(path, ARRAYS_FILE), allow_pickle=False) as z:
+        return {key: z[key] for key in z.files if key.startswith(prefix)}
 
 
 def load_export(path: str):

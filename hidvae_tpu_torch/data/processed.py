@@ -2,9 +2,12 @@
 hidvae_tpu/data/processed.py): the one `.npz` a (dataset, split) is stored
 in, the per-item corpus view and the user-sequence view that serving reads.
 
-Plain numpy, as in the JAX package. Building a dataset (from the raw
-Amazon, MovieLens, KuaiRand or synthetic data) is not ported: a missing
-file raises instead of being built.
+Plain numpy, as in the JAX package. The trainer reads the train split
+(random-cropped on the device when `subsample`) and walks the eval and
+test splits in order (`SeqData.iter_eval_batches`, processed.py:315).
+Building a dataset (from the raw Amazon, MovieLens, KuaiRand or synthetic
+data) is not ported: a missing file raises instead of being built, and
+`force_process=True` is refused.
 """
 
 import os
@@ -72,9 +75,16 @@ def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
     return os.path.join(root, "processed", f"{name}.npz")
 
 
-def load_processed(root: str, dataset: RecDataset, split: str = "") -> ProcessedArrays:
+def load_processed(root: str, dataset: RecDataset, split: str = "",
+                   force_process: bool = False) -> ProcessedArrays:
     """The processed arrays of (dataset, split) under `root`. The synthetic
-    corpus has no named splits, so its split is dropped."""
+    corpus has no named splits, so its split is dropped. `force_process`
+    (rebuild from the raw data) is refused: the build side is not ported."""
+    if force_process:
+        raise NotImplementedError(
+            "force_dataset_process=True rebuilds the dataset from its raw files, and the "
+            "port has no dataset builders yet (ROADMAP.md queue 1, item 9): build it with "
+            "the JAX package's hidvae_tpu/data, then read the processed .npz")
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
@@ -97,10 +107,12 @@ class ItemData:
         *,
         train_test_split: str = "all",
         split: str = "",
+        force_process: bool = False,
         arrays: Optional[ProcessedArrays] = None,
     ):
         self.dataset = dataset
-        arr = arrays if arrays is not None else load_processed(root, dataset, split)
+        arr = arrays if arrays is not None else load_processed(root, dataset, split,
+                                                               force_process)
         if train_test_split == "train":
             sel = arr.item_is_train
         elif train_test_split == "eval":
@@ -129,7 +141,9 @@ class SeqData:
     """User-sequence view: histories, their targets and users, of one split.
 
     `seq_split` in {"train", "eval", "test"} selects the three-way split;
-    when None, `is_train` selects train or eval."""
+    when None, `is_train` selects train or eval. `subsample` marks a split
+    whose windows the trainer random-crops (the crop itself runs on the
+    device, train/device_data.py)."""
 
     def __init__(
         self,
@@ -137,12 +151,16 @@ class SeqData:
         dataset: RecDataset = RecDataset.SYNTHETIC,
         *,
         is_train: bool = True,
+        subsample: bool = False,
         split: str = "",
+        force_process: bool = False,
         arrays: Optional[ProcessedArrays] = None,
         seq_split: Optional[str] = None,
     ):
         self.dataset = dataset
-        arr = arrays if arrays is not None else load_processed(root, dataset, split)
+        self.subsample = subsample
+        arr = arrays if arrays is not None else load_processed(root, dataset, split,
+                                                               force_process)
         if seq_split is not None:
             sel = arr.seq_split == ProcessedArrays.SPLIT_CODES[seq_split]
         else:
@@ -156,3 +174,13 @@ class SeqData:
 
     def __len__(self):
         return len(self.users)
+
+    def iter_eval_batches(self, batch_size: int):
+        """The split in order, in batches of `batch_size` rows (the last one
+        ragged), in id form: (user ids [b], histories [b, N] -1 padded,
+        targets [b]), int32, as `tokenize_on_device` takes them."""
+        n = len(self)
+        for start in range(0, n, batch_size):
+            sl = slice(start, min(start + batch_size, n))
+            yield (self.users[sl].astype(np.int32), self.items[sl].astype(np.int32),
+                   self.fut[sl].astype(np.int32))

@@ -12,7 +12,8 @@ Train mode is a dropout generator passed to `forward`: the blocks' dropout
 (`dropout`) and the fixed input dropout of 0.5 on the normed context and
 target embeddings (retrieval.py:105, :118-120) draw from it. `dtype` is
 flax's compute dtype: the projections and blocks run in it, parameters stay
-fp32, logits are cast to fp32 for the loss.
+fp32, logits are cast to fp32 for the loss. `remat` rematerializes every
+transformer block in the backward (retrieval.py:67, :96; models/transformer.py).
 """
 
 import warnings
@@ -66,7 +67,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
     def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int, n_layers: int,
                  num_embeddings: int, sem_id_dim: int, max_pos: int = 2048,
                  n_sem_layers: int = 3, use_interleaved_ids: bool = False,
-                 dropout: float = 0.0, dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.attn_dim = attn_dim
@@ -87,7 +88,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
         self.tte = nn.Embedding(sem_id_dim, embedding_dim)
         self.transformer = TransformerEncoderDecoder(
             attn_dim, num_heads, encoder_layers=n_layers // 2, decoder_layers=n_layers // 2,
-            dropout=dropout, dtype=dtype)
+            dropout=dropout, dtype=dtype, remat=remat)
         self.in_proj = nn.Linear(embedding_dim, attn_dim, bias=False)
         self.in_proj_context = nn.Linear(embedding_dim, attn_dim, bias=False)
         self.out_proj = nn.Linear(attn_dim, num_embeddings, bias=False)
@@ -162,18 +163,27 @@ class EncoderDecoderRetrievalModel(nn.Module):
         prefix_index=None,
         *,
         temperature: float = 1.0,
+        top_k: bool = True,
+        sample: bool = False,
+        generator: Optional[torch.Generator] = None,
         prefix_caps=None,
         prefix_tries=None,
     ) -> GenerationOutput:
-        """Prefix-constrained 32-beam search over sem_id_dim digits with fixed
-        shapes. prefix_index: the sorted corpus table (None disables the
+        """Prefix-constrained beam search over sem_id_dim digits with fixed
+        shapes: 32 beams, or one with `top_k=False` (retrieval.py:235).
+        prefix_index: the sorted corpus table (None disables the
         constraint). prefix_tries: {level: (starts, bitmaps)} tensors; levels
         without a trie use the [Q, cap] range gather with `prefix_caps`, or a
-        heuristic cap (with a warning) when no caps are given. The JAX
-        model's single-beam and Gumbel-sampling variants are not ported."""
+        heuristic cap (with a warning) when no caps are given.
+
+        `sample=True` with a `generator` adds Gumbel noise
+        -log(-log(u + 1e-20) + 1e-20) to each digit's log-probabilities
+        before the top-k, one uniform u per row and code, drawn afresh for
+        every digit (retrieval.py:272-276, where JAX folds the digit into
+        its key); as in JAX, without a generator no noise is added."""
         b = batch.sem_ids.shape[0]
         d = self.sem_id_dim
-        k = BEAMS
+        k = BEAMS if top_k else 1
         kk = self.num_embeddings
         dev = batch.sem_ids.device
 
@@ -195,6 +205,9 @@ class EncoderDecoderRetrievalModel(nn.Module):
             logits_last = self.decode_logits(enc, ctx_mask, dec_in, ttids[:, :i],
                                              last_only=True)
             step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
+            if sample and generator is not None:
+                u = torch.rand(step_logp.shape, generator=generator, device=dev)
+                step_logp = step_logp - torch.log(-torch.log(u + 1e-20) + 1e-20)
 
             if prefix_index is not None:
                 if i == 0:

@@ -7,12 +7,24 @@ where the JAX block applies it (transformer.py:51-71): on the normed input
 of self-attention and of cross-attention, after each hidden SiLU of the
 feed-forward MLP, and on the feed-forward output. Without a generator the
 blocks run deterministically (eval). `use_flash` reaches the encoder's
-self-attention only (`encoder_flash`, transformer.py:124-131)."""
+self-attention only (`encoder_flash`, transformer.py:124-131).
+
+`remat` rematerializes each block in the backward (transformer.py:74-108,
+flax's nn.remat): `torch.utils.checkpoint` keeps only the block's inputs
+and runs its forward again when the gradient reaches it. The checkpoint
+restores the default generators' states only, and the blocks draw their
+dropout from an explicit generator, so `GeneratorReplay` hands the
+recompute a copy of that generator restored to the state the forward began
+from: the recompute draws the forward's masks, as the JAX block, which
+takes its dropout key as an argument, does. On the flash route the
+recompute runs the forward kernel again, and its backward reads the
+recomputed row statistics."""
 
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hidvae_tpu_torch.models.attention import MultiHeadAttention
 from hidvae_tpu_torch.models.layers import MLP, RMSNorm
@@ -56,14 +68,44 @@ class TransformerBlock(nn.Module):
         return attn_out + drop(ff, p, generator)
 
 
+class GeneratorReplay:
+    """The dropout generator of each run of one rematerialized block: the
+    live generator on the first run (the forward), and on every later run
+    (the recompute) a fresh copy set to the state the forward began from.
+    None (eval) stays None."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.state = None if generator is None else generator.get_state()
+        self.runs = 0
+
+    def __call__(self) -> Optional[torch.Generator]:
+        self.runs += 1
+        if self.generator is None or self.runs == 1:
+            return self.generator
+        replay = torch.Generator(device=self.generator.device)
+        replay.set_state(self.state)
+        return replay
+
+
+def remat_block(block, x, context, self_padding_mask, kv_padding_mask, generator):
+    """`block(...)` under torch.utils.checkpoint with its generator replayed
+    in the recompute. No default generator is read, so none is saved."""
+    replay = GeneratorReplay(generator)
+    return checkpoint(lambda *args: block(*args, replay()), x, context, self_padding_mask,
+                      kv_padding_mask, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerStack(nn.Module):
-    """N blocks, named block_0.. as in the flax module."""
+    """N blocks, named block_0.. as in the flax module; with `remat`, each
+    block is rematerialized while gradients are being recorded."""
 
     def __init__(self, d_out: int, num_heads: int, n_layers: int,
                  do_cross_attn: bool = False, is_causal: bool = True, dropout: float = 0.0,
-                 dtype=torch.float32, use_flash: Optional[bool] = None):
+                 dtype=torch.float32, use_flash: Optional[bool] = None, remat: bool = False):
         super().__init__()
         self.n_layers = n_layers
+        self.remat = remat
         for i in range(n_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 d_out, num_heads, do_cross_attn=do_cross_attn, is_causal=is_causal,
@@ -71,9 +113,13 @@ class TransformerStack(nn.Module):
 
     def forward(self, x, context=None, *, self_padding_mask=None, kv_padding_mask=None,
                 generator: Optional[torch.Generator] = None):
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x, context, self_padding_mask, kv_padding_mask,
-                                            generator)
+            block = getattr(self, f"block_{i}")
+            if remat:
+                x = remat_block(block, x, context, self_padding_mask, kv_padding_mask, generator)
+            else:
+                x = block(x, context, self_padding_mask, kv_padding_mask, generator)
         return x
 
 
@@ -83,14 +129,15 @@ class TransformerEncoderDecoder(nn.Module):
 
     def __init__(self, d_out: int, num_heads: int, encoder_layers: int, decoder_layers: int,
                  dropout: float = 0.0, dtype=torch.float32,
-                 encoder_flash: Optional[bool] = None):
+                 encoder_flash: Optional[bool] = None, remat: bool = False):
         super().__init__()
         self.encoder = TransformerStack(d_out, num_heads, encoder_layers,
                                         do_cross_attn=False, is_causal=False,
-                                        dropout=dropout, dtype=dtype, use_flash=encoder_flash)
+                                        dropout=dropout, dtype=dtype, use_flash=encoder_flash,
+                                        remat=remat)
         self.decoder = TransformerStack(d_out, num_heads, decoder_layers,
                                         do_cross_attn=True, is_causal=True,
-                                        dropout=dropout, dtype=dtype)
+                                        dropout=dropout, dtype=dtype, remat=remat)
 
     def encode(self, context, *, padding_mask=None, generator=None):
         return self.encoder(context, self_padding_mask=padding_mask, generator=generator)

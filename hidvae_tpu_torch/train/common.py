@@ -12,10 +12,19 @@ sets that rate on torch.optim.AdamW before each step, whose update rule is
 optax's (decoupled decay lr * wd * p, bias-corrected moments, eps added to
 the root).
 
-Not ported yet: the cosine and step schedules, the plateau scale,
-gradient accumulation, the tag-head parameter groups (stage 1) and saving
-checkpoints."""
+The stage-2 checkpoint (`save_checkpoint`, common.py:274-303) is an
+exported checkpoint (bridge.py) holding params, the optimizer state and the
+step; `Optimizer.state_dict` names the AdamW state as
+`flax.serialization.to_state_dict` names the JAX optimizer's, so a JAX run
+converted by scripts/export_flax_checkpoint.py resumes here and the other
+way round. `run_logging` and `log_operative_config` write a run's
+train.log as the JAX trainers do.
 
+Not ported yet: the cosine and step schedules, the plateau scale,
+gradient accumulation and the tag-head parameter groups (stage 1's)."""
+
+import contextlib
+import enum
 import json
 import logging
 import math
@@ -24,6 +33,8 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+
+from hidvae_tpu_torch.bridge import flax_named_parameters
 
 
 def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], float]:
@@ -74,8 +85,115 @@ class Optimizer:
         self.adamw.step()
         self.count += 1
 
+    def _state_prefix(self) -> str:
+        # optax.chain(clip, adamw) nests adamw's chain under "1/"; the
+        # clip's empty state "0" has no leaf.
+        return "1/" if self.max_grad_norm is not None else ""
+
+    def _named(self, module):
+        ours = {id(p) for p in self.params}
+        return [(path, p, t) for path, p, t in flax_named_parameters(module) if id(p) in ours]
+
+    def state_dict(self, module: torch.nn.Module) -> dict:
+        """The state as flat numpy arrays named as flax's to_state_dict names
+        the JAX optimizer's (optax.adamw's chain: "0" scale_by_adam, "1"
+        the decay's empty state, "2" the schedule): "0/count" and "2/count"
+        int32, the updates applied; "0/mu/<flax path>" and "0/nu/<flax
+        path>", AdamW's exp_avg and exp_avg_sq in the flax layout (Dense
+        kernels [in, out]). With the clip everything sits under "1/".
+        `module` names the parameters; a parameter not yet updated has zero
+        moments, as optax's init gives them."""
+        pre = self._state_prefix()
+        count = np.asarray(self.count, np.int32)
+        out = {f"{pre}0/count": count, f"{pre}2/count": count.copy()}
+        for path, p, transpose in self._named(module):
+            state = self.adamw.state.get(p, {})
+            for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                t = state.get(key)
+                arr = (np.zeros(tuple(p.shape), np.float32) if t is None
+                       else t.detach().cpu().numpy())
+                out[f"{pre}0/{name}/{path}"] = np.ascontiguousarray(arr.T if transpose else arr)
+        return out
+
+    def load_state_dict(self, module: torch.nn.Module, state: dict) -> list:
+        """Load a `state_dict` (the counts and, per parameter, both moments
+        onto the parameter's device). The schedule's count sets `count`,
+        Adam's count each parameter's step. A parameter whose moments are
+        missing or of another shape keeps its fresh state; returns their
+        flax paths."""
+        pre = self._state_prefix()
+        adam_count = int(state[f"{pre}0/count"])
+        missing = []
+        for path, p, transpose in self._named(module):
+            moments = []
+            for name in ("mu", "nu"):
+                arr = state.get(f"{pre}0/{name}/{path}")
+                arr = None if arr is None else (arr.T if transpose else arr)
+                if arr is None or tuple(arr.shape) != tuple(p.shape):
+                    break
+                moments.append(torch.from_numpy(np.ascontiguousarray(arr)).to(p.device, p.dtype))
+            if len(moments) != 2:
+                missing.append(path)
+                self.adamw.state.pop(p, None)
+                continue
+            # torch's AdamW keeps its bias-correction step as a CPU float.
+            self.adamw.state[p] = {"step": torch.tensor(float(adam_count)),
+                                   "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+        self.count = int(state[f"{pre}2/count"])
+        return missing
+
 
 # ---------------- checkpoints ----------------
+
+META_KEYS = ("model_config", "metrics", "plateau")  # the payload keys meta.json holds
+
+
+def save_checkpoint(save_dir: str, name: str, payload: dict) -> str:
+    """Write `payload` as the exported checkpoint `save_dir/name` (the JAX
+    package's save_checkpoint, common.py:274-303, in the export format):
+    every flat dict of arrays under its payload key ("params/<flax path>",
+    "opt_state/<to_state_dict name>", "batch_stats/..."), scalars as 0-d
+    arrays ("step" int32), and the META_KEYS entries as meta.json. Returns
+    the directory's absolute path."""
+    from hidvae_tpu_torch.bridge import write_export
+
+    path = os.path.abspath(os.path.join(save_dir, name))
+    arrays = {}
+    for key, value in payload.items():
+        if key in META_KEYS:
+            continue
+        if isinstance(value, dict):
+            arrays.update({f"{key}/{k}": np.asarray(v) for k, v in value.items()})
+        else:
+            arrays[key] = np.asarray(value, np.int32 if key == "step" else None)
+    meta = {k: payload[k] for k in META_KEYS if k in payload}
+    return write_export(path, arrays, meta or None)
+
+
+def restore_checkpoint(path: str, module: torch.nn.Module,
+                       optimizer: Optional[Optimizer] = None) -> tuple:
+    """Restore a stage-2 checkpoint into `module` (leniently, as
+    `restore_export`) and `optimizer` (its "opt_state/..." leaves), as the
+    JAX trainer restores {params, opt_state, step} (transformer.py:400-414).
+    A checkpoint without optimizer state (a params-only export) keeps the
+    optimizer fresh, with a warning, as JAX's lenient restore keeps its
+    initialized leaves. Returns (step, meta); step 0 when not recorded."""
+    from hidvae_tpu_torch.bridge import load_export_arrays
+
+    log = logging.getLogger("hidvae_tpu_torch.checkpoint")
+    meta = restore_export(path, module)
+    arrays = load_export_arrays(path, "opt_state/")
+    if optimizer is not None:
+        state = {k.removeprefix("opt_state/"): v for k, v in arrays.items()}
+        if f"{optimizer._state_prefix()}2/count" not in state:
+            log.warning(f"checkpoint {path} holds no optimizer state of this optimizer; "
+                        f"keeping the initialized AdamW state")
+        else:
+            for leaf in optimizer.load_state_dict(module, state):
+                log.warning(f"checkpoint missing opt_state moments of {leaf}; keeping "
+                            f"initialized value")
+    step = load_export_arrays(path, "step").get("step")
+    return (0 if step is None else int(step)), meta
 
 
 def restore_export(path: str, module: torch.nn.Module, *,
@@ -128,6 +246,49 @@ def restore_export(path: str, module: torch.nn.Module, *,
     module.load_state_dict(flax_to_state_dict(merged["params"], merged["batch_stats"]),
                            strict=True)
     return meta
+
+
+# ---------------- run logging ----------------
+
+
+@contextlib.contextmanager
+def run_logging(save_dir: str):
+    """File and console logging of a run (hidvae_tpu/train/hidvae.py:56):
+    within the block, `save_dir/train.log` gets every record of the root
+    logger and the console the package's own. The file handler is removed
+    when the block ends, so one process's runs keep separate logs."""
+    os.makedirs(save_dir, exist_ok=True)
+    fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
+    root = logging.getLogger()
+    file_handler = logging.FileHandler(os.path.join(save_dir, "train.log"))
+    file_handler.setFormatter(fmt)
+    root.addHandler(file_handler)
+    if not any(isinstance(h, logging.StreamHandler)
+               and not isinstance(h, logging.FileHandler) for h in root.handlers):
+        console = logging.StreamHandler()
+        console.setFormatter(fmt)
+        console.addFilter(lambda r: r.name.startswith("hidvae_tpu_torch"))
+        root.addHandler(console)
+    root.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        root.removeHandler(file_handler)
+        file_handler.close()
+
+
+def log_operative_config(logger, values: dict):
+    """Log every bound trainer argument of a scalar, string, sequence, None
+    or enum type on one sorted line (common.py:410), so that a run's
+    configuration can be read back from its train.log."""
+    items = []
+    for k in sorted(values):
+        if k.startswith("_"):
+            continue
+        v = values[k]
+        if isinstance(v, (bool, int, float, str, list, tuple, type(None), enum.Enum)):
+            items.append(f"{k}={v!r}")
+    logger.info("operative config: " + " ".join(items))
 
 
 # ---------------- structural model config ----------------

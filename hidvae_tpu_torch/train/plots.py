@@ -1,0 +1,66 @@
+"""End-of-run plots of the stage-2 trainer (counterpart of
+`plot_transformer_history`, hidvae_tpu/train/plots.py:81): train and eval
+loss curves and the full eval's hit@K and NDCG@K curves of the whole ID
+tuple. matplotlib is imported when a plot is drawn, not with the module: a
+machine without it trains all the same, and the trainer logs the failure
+as a warning (no metric depends on the plots)."""
+
+import os
+
+
+def _pyplot():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _plot_series(ax, xs, ys, title, ylabel="value"):
+    ax.plot(xs, ys)
+    ax.set_title(title)
+    ax.set_xlabel("iteration")
+    ax.set_ylabel(ylabel)
+    ax.grid(True, alpha=0.3)
+
+
+def plot_transformer_history(history: dict, out_dir: str):
+    """Write losses.png and, when the run had full evals, eval_metrics.png
+    into `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
+    xs = history.get("iterations", [])
+    if not xs:
+        return
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+    _plot_series(axes[0], xs, history["train_loss"], "train loss")
+    exs = history.get("eval_iterations", [])
+    if exs:
+        _plot_series(axes[1], exs, history["eval_loss"], "eval loss")
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "losses.png"), dpi=100)
+    plt.close(fig)
+
+    fxs = history.get("full_eval_iterations", [])
+    fms = history.get("full_eval_metrics", [])
+    if not fxs or not fms:
+        return
+    fig, axes = plt.subplots(1, 2, figsize=(14, 5))
+    last_dim = max((int(k.rsplit(":", 1)[1]) for k in fms[0] if "_slice_:" in k), default=0)
+    for prefix, ax, title in (
+        ("h@", axes[0], "hit rate (full-tuple slice)"),
+        ("ndcg@", axes[1], "NDCG (full-tuple slice)"),
+    ):
+        for k_at in (1, 5, 10):
+            key = f"{prefix}{k_at}_slice_:{last_dim}"
+            series = [m.get(key) for m in fms]
+            if any(v is not None for v in series):
+                ax.plot(fxs, series, marker="o", label=key)
+        ax.set_title(title)
+        ax.set_xlabel("iteration")
+        ax.grid(True, alpha=0.3)
+        ax.legend()
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "eval_metrics.png"), dpi=100)
+    plt.close(fig)

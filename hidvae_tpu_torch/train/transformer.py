@@ -1,44 +1,56 @@
-"""Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py
-`train`, :193-248 for the keywords).
+"""Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py).
 
-The frozen stage-1 HiD-VAE comes in as a module and the data as in-memory
-arrays (`item_features`, and the training histories `users`, `items`, `fut`)
-in place of `dataset_folder`. Steps, as in the JAX trainer:
-  * the tokenizer sweeps the corpus into the ID table (`rq_assign`: the CUDA
-    kernel on the card), transformer.py:331;
-  * the model (:371-389) and AdamW under the inverse-sqrt schedule;
-  * per step, a generator derived from (seed, step), as :542 folds the step
-    into its key: sample rows, random-crop windows (when `subsample`),
-    tokenize by gather, one train step with dropout (:556-568);
-  * an eval-loss pass over the eval arrays (:478) when the step count
-    crosses `partial_eval_every` and at the end;
-  * a sliding window of the last 1000 per-step losses (:576-587), and the
-    history dict. Each step's 0-d loss stays on the device; the log step
-    stacks them and reads them back in one sync.
+`train` takes the JAX trainer's gin surface: every keyword of :193-246 with
+its default, and `device` (`cuda` unless given; no fallback to the CPU).
+As the JAX trainer, it
+  * reads the processed dataset of dataset_folder / dataset / dataset_split:
+    the items, the train split (random-cropped windows), the eval split and
+    the held-out test split (:284-301);
+  * rebuilds the frozen stage-1 tokenizer from an exported checkpoint on
+    either route (`_build_tokenizer`, :51-190), sweeps the corpus into the
+    ID table (`rq_assign`: the CUDA kernel on the card, :331) and audits it
+    against the checkpoint's recorded repetition rate (:342);
+  * with `pretrained_decoder_path`, adopts the decoder checkpoint's
+    structural config, refuses a sem_id_dim it was not trained with
+    (:345-370) and restores params, AdamW state and step (:400-414): the
+    loop then runs steps start .. start + iterations;
+  * trains (`run_loop`): per step a generator derived from (seed, global
+    step), as :542 folds the step into its key, samples rows, crops,
+    tokenizes by gather and takes one AdamW step with dropout; so a resumed
+    run replays the uninterrupted run's sample, crop and dropout stream;
+  * when the step count crosses a cadence or the run ends (:612-613): the
+    partial eval (loss and debug metrics, :615-636), the full generation
+    eval (`full_eval`, constrained beam search scored by hit@K and NDCG@K,
+    :638-648) and a checkpoint with the full model_config (:650-672);
+  * ends with the TEST eval (:674-685) and the plots (:687-693), and
+    writes train.log into its save_dir.
+`train_arrays` runs the same loop over in-memory arrays and a frozen
+HiD-VAE module.
 
 The encoder's self-attention takes the flash route (CUDA kernels on the
 card) exactly where the JAX package takes its flash kernel: at contexts of
 at least 2048 tokens. A head width the kernels are not built for is refused
-before the first step on a CUDA device.
-
-`_build_tokenizer` rebuilds the frozen stage-1 tokenizer from an exported
-checkpoint (transformer.py:51-190), on either route; serving's
-`from_artifacts` calls it.
-
-Not ported yet: saving checkpoints and resume, the full generation eval,
-tensor parallelism, remat, plots, and training from a gin file and the
-on-disk dataset.
+before the first step on a CUDA device. `remat` rematerializes every block
+(models/transformer.py). Not ported: tensor parallelism (`n_model_shards`
+above 1 is refused); `split_batches` changes nothing on one device, as in
+JAX with one data shard (:461); `wandb_logging` and `model_jagged_mode`
+are taken and ignored, as in JAX.
 """
 
 import logging
 import math
+import os
 import time
 from collections import deque
+from datetime import datetime
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from hidvae_tpu_torch.bridge import state_dict_to_flax
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset, SeqData
+from hidvae_tpu_torch.evaluate.metrics import NDCGAccumulator, TopKAccumulator
 from hidvae_tpu_torch.models.attention import takes_flash_route
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
@@ -49,9 +61,15 @@ from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     Optimizer,
+    audit_rebuilt_corpus,
     inverse_sqrt_schedule,
+    load_checkpoint_model_config,
+    log_operative_config,
     reconcile_vae_config,
+    restore_checkpoint,
     restore_export,
+    save_checkpoint,
+    run_logging,
 )
 from hidvae_tpu_torch.train.device_data import (
     DeviceSeqData,
@@ -59,12 +77,14 @@ from hidvae_tpu_torch.train.device_data import (
     random_crop_windows,
     tokenize_on_device,
 )
+from hidvae_tpu_torch.utils.debug import compute_debug_metrics
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
 logger = logging.getLogger("hidvae_tpu_torch.train.transformer")
 
 STEP_SALT = 0x5EED  # the JAX trainer's fold_in constant for per-step keys
 LOSS_WINDOW = 1000  # per-step losses in the window mean (transformer.py:576)
+EVAL_KS = (1, 5, 10)  # hit@K and NDCG@K of the full eval
 
 
 def _build_tokenizer(
@@ -86,6 +106,7 @@ def _build_tokenizer(
     use_interleaved_ids,
     commitment_weight,
     device=None,
+    seed=42,
 ):
     """The frozen stage-1 model restored from the exported checkpoint
     `pretrained_rqvae_path`, and its tokenizer service, on `device` (`cuda`
@@ -99,25 +120,24 @@ def _build_tokenizer(
     the export, BatchNorm running statistics included. The JAX function's
     training-only arguments (quantizer forward mode, dropout, focal loss,
     mixup, label smoothing, loss weights) change nothing in eval and are
-    not taken."""
-    rec = reconcile_vae_config(
-        pretrained_rqvae_path,
-        {
-            "input_dim": vae_input_dim,
-            "embed_dim": vae_embed_dim,
-            "hidden_dims": list(vae_hidden_dims),
-            "codebook_size": vae_codebook_size,
-            "codebook_normalize": vae_codebook_normalize,
-            "codebook_sim_vq": vae_sim_vq,
-            "n_layers": vae_n_layers,
-            "n_cat_features": vae_n_cat_feats,
-            "tag_class_counts": (
-                list(tag_class_counts) if tag_class_counts is not None else None
-            ),
-            "tag_embed_dim": tag_embed_dim,
-        },
-        logger,
-    )
+    not taken. Without `pretrained_rqvae_path` the model keeps seeded random
+    weights (drawn from `seed`), as the JAX function keeps its init."""
+    rec = {
+        "input_dim": vae_input_dim,
+        "embed_dim": vae_embed_dim,
+        "hidden_dims": list(vae_hidden_dims),
+        "codebook_size": vae_codebook_size,
+        "codebook_normalize": vae_codebook_normalize,
+        "codebook_sim_vq": vae_sim_vq,
+        "n_layers": vae_n_layers,
+        "n_cat_features": vae_n_cat_feats,
+        "tag_class_counts": (
+            list(tag_class_counts) if tag_class_counts is not None else None
+        ),
+        "tag_embed_dim": tag_embed_dim,
+    }
+    if pretrained_rqvae_path is not None:
+        rec = reconcile_vae_config(pretrained_rqvae_path, rec, logger)
     vae_n_layers = rec["n_layers"]
     vae_codebook_size = rec["codebook_size"]
     tag_class_counts = rec["tag_class_counts"]
@@ -131,7 +151,12 @@ def _build_tokenizer(
                        tag_embed_dim=rec["tag_embed_dim"], use_batch_norm=True, **common)
     else:
         model = RqVae(*widths, **common)
-    restore_export(pretrained_rqvae_path, model)
+    if pretrained_rqvae_path is None:
+        logger.warning("no pretrained_rqvae_path: the frozen tokenizer keeps seeded random "
+                       "weights")
+        init_params_(model, torch.Generator().manual_seed(seed))
+    else:
+        restore_export(pretrained_rqvae_path, model)
     model.eval()
     if use_h_tokenizer:
         return HSemanticIdTokenizer(
@@ -155,13 +180,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def build_model(*, sem_id_dim: int, max_seq_len: int, vae_codebook_size: int = 256,
                 vae_n_layers: int = 3, decoder_embed_dim: int = 128, dropout_p: float = 0.3,
                 attn_heads: int = 8, attn_embed_dim: int = 512, attn_layers: int = 8,
-                use_interleaved_ids: bool = False, dtype=torch.float32, seed: int = 42):
+                use_interleaved_ids: bool = False, dtype=torch.float32, remat: bool = False,
+                seed: int = 42):
     """The stage-2 model with seeded flax-distributed weights, on the CPU
     (transformer.py:371-389; max_pos = max_seq_len * sem_id_dim, :382)."""
     model = EncoderDecoderRetrievalModel(
         decoder_embed_dim, attn_embed_dim, attn_heads, attn_layers, vae_codebook_size,
         sem_id_dim, max_pos=max_seq_len * sem_id_dim, n_sem_layers=vae_n_layers,
-        use_interleaved_ids=use_interleaved_ids, dropout=dropout_p, dtype=dtype,
+        use_interleaved_ids=use_interleaved_ids, dropout=dropout_p, dtype=dtype, remat=remat,
     )
     return init_params_(model, torch.Generator().manual_seed(seed))
 
@@ -187,23 +213,6 @@ def train_step(model, optimizer: Optimizer, batch, generator: Optional[torch.Gen
     return out.loss.detach(), out.loss_d.detach()
 
 
-@torch.no_grad()
-def eval_loss(model, table, data: DeviceSeqData, batch_size: int,
-              eval_batches: Optional[int] = None) -> float:
-    """Row-weighted mean eval loss over the data in order, in batches
-    (transformer.py:478, the partial eval)."""
-    total, rows = 0.0, 0
-    for bi, start in enumerate(range(0, data.n, batch_size)):
-        if eval_batches is not None and bi >= eval_batches:
-            break
-        sl = slice(start, min(start + batch_size, data.n))
-        batch = tokenize_on_device(table, data.user_ids[sl], data.items[sl], data.fut[sl])
-        n = sl.stop - sl.start
-        total += float(model(batch).loss) * n
-        rows += n
-    return total / max(rows, 1)
-
-
 def as_seq_data(users, items, fut, device) -> DeviceSeqData:
     """Histories as int32 tensors on `device`."""
     def put(a):
@@ -212,7 +221,395 @@ def as_seq_data(users, items, fut, device) -> DeviceSeqData:
     return DeviceSeqData(put(users), put(items), put(fut))
 
 
+def device_batches(data: DeviceSeqData, batch_size: int):
+    """In-order batches (user ids, histories, targets) of device data, the
+    last one ragged."""
+    for start in range(0, data.n, batch_size):
+        sl = slice(start, min(start + batch_size, data.n))
+        yield data.user_ids[sl], data.items[sl], data.fut[sl]
+
+
+@torch.no_grad()
+def eval_loss(model, table, batches, eval_batches: Optional[int] = None):
+    """Row-weighted mean eval loss over `batches` of (user ids, histories,
+    targets), host or device arrays, in order (transformer.py:615-636, the
+    partial eval); and the debug metrics of the first batch: sequence-length
+    quantiles and per-digit losses (compute_debug_metrics, "eval_" keys).
+    Returns (loss, debug metrics)."""
+    total, rows, dbg = 0.0, 0, {}
+    for bi, arrays in enumerate(batches):
+        if eval_batches is not None and bi >= eval_batches:
+            break
+        users, items, fut = (torch.as_tensor(a).to(table.device) for a in arrays)
+        batch = tokenize_on_device(table, users, items, fut)
+        out = model(batch)
+        n = items.shape[0]
+        total += float(out.loss) * n
+        rows += n
+        if bi == 0:
+            dbg = compute_debug_metrics(batch, out, prefix="eval")
+    return total / max(rows, 1), dbg
+
+
+def _pad_rows(arrays, n: int):
+    """Pad each array of a batch to n rows by repeating row 0 (transformer.py
+    :709-720): every eval batch then has one shape; callers slice the
+    results back to the valid rows."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        out.append(a[np.concatenate([np.arange(len(a)), np.zeros(n - len(a), np.int64)])])
+    return tuple(out)
+
+
+@torch.no_grad()
+def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
+              prefix_tries=None, log=None):
+    """Constrained-generation eval (transformer.py:723-752): for each
+    in-order batch of `eval_seq` (a ragged last one padded to `batch_size`
+    rows by `_pad_rows`), tokenize by gather from the tokenizer's table,
+    run `generate(batch, prefix_index, prefix_tries)` and score the valid
+    rows' generated tuples against the targets with hit@K and NDCG@K per
+    digit and per prefix. `log(str)` gets three sample predictions of the
+    first batch. Returns the metric dict."""
+    topk = TopKAccumulator(ks=list(EVAL_KS))
+    ndcg = NDCGAccumulator(ks=list(EVAL_KS))
+    table, index = tokenizer.cached_ids, tokenizer.prefix_index
+    for bi, arrays in enumerate(eval_seq.iter_eval_batches(batch_size)):
+        if eval_batches is not None and bi >= eval_batches:
+            break
+        n_valid = len(arrays[0])
+        if n_valid < batch_size:
+            arrays = _pad_rows(arrays, batch_size)
+        users, items, fut = (torch.from_numpy(np.asarray(a)).to(table.device) for a in arrays)
+        tok = tokenize_on_device(table, users, items, fut)
+        gen = generate(tok, index, prefix_tries)
+        actual = tok.sem_ids_fut[:n_valid].cpu().numpy()
+        top_k_ids = gen.sem_ids[:n_valid].cpu().numpy()
+        topk.accumulate(actual, top_k_ids)
+        ndcg.accumulate(actual, top_k_ids)
+        if bi == 0 and log is not None:
+            for s in range(min(3, len(actual))):
+                log(f"eval sample {s}: actual={actual[s].tolist()} "
+                    f"top3={[row.tolist() for row in top_k_ids[s, :3]]} "
+                    f"hit@10={bool((top_k_ids[s, :10] == actual[s]).all(-1).any())}")
+    return {**topk.reduce(), **ndcg.reduce()}
+
+
+def crossed(every: int, done: int, end: int) -> bool:
+    """Whether step count `done` (the previous being done - 1) crosses a
+    multiple of `every`, or ends the run (transformer.py:612-613)."""
+    return (done - 1) // every != done // every or done == end
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
+             start_iter: int, iterations: int, batch_size: int, subsample: bool,
+             log_every: int, events=(), log=None) -> dict:
+    """Steps start_iter .. start_iter + iterations - 1, each with its own
+    `step_generator(seed, step)`. Every `log_every` steps (and at the end)
+    the steps' 0-d losses, kept on the device until then, are read back in
+    one sync and the last is logged beside the window mean of the last
+    LOSS_WINDOW per-step losses (:576-587). After each step, every (every,
+    fn) of `events` whose cadence the step count crosses is called, in
+    order, with the step count; host-clock ms per step leave their time
+    out. Returns the history: logged iterations, train loss and ms per
+    step, and the window mean."""
+    log = log or (lambda line: None)
+    device = table.device
+    history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
+    loss_window = deque(maxlen=LOSS_WINDOW)
+    step_losses = []
+    end = start_iter + iterations
+    _sync(device)
+    t_last, it_last = time.perf_counter(), start_iter
+    for it in range(start_iter, end):
+        g = step_generator(seed, it, device)
+        batch = sample_batch(data, table, batch_size, g, subsample)
+        loss, loss_d = train_step(model, optimizer, batch, g)
+        step_losses.append(loss)
+
+        done = it + 1
+        if done % log_every == 0 or done == end:
+            losses = torch.stack(step_losses).float().tolist()  # syncs
+            step_losses.clear()
+            loss_f = losses[-1]
+            now = time.perf_counter()
+            ms = (now - t_last) * 1e3 / (done - it_last)
+            t_last, it_last = now, done
+            if not math.isfinite(loss_f):
+                raise FloatingPointError(f"non-finite loss {loss_f} at iteration {it}")
+            loss_window.extend(losses)
+            history["iterations"].append(it)
+            history["train_loss"].append(loss_f)
+            history["ms_per_step"].append(ms)
+            log(f"iter {it}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
+                f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step, "
+                f"{batch_size * 1e3 / ms:.0f} seqs/s)")
+
+        fired = [fn for every, fn in events if crossed(every, done, end)]
+        for fn in fired:
+            fn(done)
+        if fired:  # keep eval and save time out of ms per step
+            _sync(device)
+            t_last, it_last = time.perf_counter(), done
+    history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
+    return history
+
+
+def _check_flash_width(attn_embed_dim, attn_heads, max_seq_len, sem_id_dim, device):
+    head_dim = attn_embed_dim // attn_heads
+    if takes_flash_route(head_dim, 1 + max_seq_len * sem_id_dim):  # user + history tokens
+        check_head_dim(head_dim, device.type)
+
+
 def train(
+    iterations=200_000,
+    batch_size=64,
+    learning_rate=0.0003,
+    weight_decay=0.035,
+    max_grad_norm=None,
+    dataset_folder="dataset/synthetic",
+    dataset=RecDataset.SYNTHETIC,
+    pretrained_rqvae_path=None,
+    pretrained_decoder_path=None,
+    save_dir_root="out/decoder/",
+    split_batches=True,
+    amp=False,
+    force_dataset_process=False,
+    mixed_precision_type="bf16",
+    save_model_every=1_000_000,
+    partial_eval_every=5_000,
+    full_eval_every=10_000,
+    vae_input_dim=768,
+    vae_embed_dim=32,
+    vae_hidden_dims=(512, 256, 128),
+    vae_codebook_size=256,
+    vae_codebook_normalize=False,
+    vae_sim_vq=False,
+    vae_n_cat_feats=18,
+    vae_n_layers=3,
+    decoder_embed_dim=128,
+    dropout_p=0.3,
+    attn_dropout=None,
+    attn_heads=8,
+    attn_embed_dim=512,
+    attn_layers=8,
+    dataset_split="beauty",
+    use_h_tokenizer=True,
+    tag_alignment_weight=0.5,
+    tag_prediction_weight=0.5,
+    tag_class_counts=None,
+    tag_embed_dim=768,
+    use_dedup_dim=False,
+    use_concatenated_ids=False,
+    use_interleaved_ids=False,
+    commitment_weight=0.25,
+    model_jagged_mode=True,
+    wandb_logging=False,
+    seed=42,
+    log_every=100,
+    eval_batches=None,
+    generation_temperature=1.0,
+    warmup_steps=10_000,
+    remat=False,
+    make_plots=True,
+    n_model_shards=1,
+    device=None,
+):
+    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin`
+    does (see the module docstring). The tag loss weights only shape the
+    stage-1 training loss and are logged, not used. Returns {"model",
+    "optimizer", "step", "tokenizer", "save_dir", "history",
+    "saved_paths"}; history holds the JAX trainer's keys (iterations,
+    train_loss, eval_iterations, eval_loss, full_eval_iterations,
+    full_eval_metrics, test_eval_metrics), and ms_per_step, window_mean and
+    the host-clock seconds of each full eval and of each checkpoint
+    (full_eval_seconds, save_seconds; the latter with the read-back of
+    params and moments)."""
+    if n_model_shards > 1:
+        raise NotImplementedError(
+            f"n_model_shards={n_model_shards}: tensor parallelism is not ported yet "
+            f"(ROADMAP.md queue 1, item 8, multi-GPU); the port trains on one device")
+    device = resolve_device(device)
+    if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
+        raise ValueError(
+            "use_dedup_dim and use_interleaved_ids are mutually exclusive for the "
+            "hierarchical tokenizer (dedup ranks are a plain-SemanticID feature)")
+    if not use_h_tokenizer and use_interleaved_ids:
+        # PARITY.md #12: the plain tokenizer has no tags to interleave.
+        logger.warning("use_interleaved_ids=True has no effect with the plain tokenizer "
+                       "(no tags to interleave) — ignoring it")
+        use_interleaved_ids = False
+    if attn_dropout is not None:
+        dropout_p = attn_dropout
+    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    save_dir = os.path.join(save_dir_root, f"decoder_{dataset.name}_{time_stamp}")
+    config = dict(locals())
+    with run_logging(save_dir):
+        log_operative_config(logger, config)
+        # ---- data (transformer.py:284-301) ----
+        item_dataset = ItemData(dataset_folder, dataset, train_test_split="all",
+                                split=dataset_split, force_process=force_dataset_process)
+        train_seq = SeqData(dataset_folder, dataset, is_train=True, subsample=True,
+                            split=dataset_split)
+        eval_seq = SeqData(dataset_folder, dataset, is_train=False, split=dataset_split)
+        test_seq = SeqData(dataset_folder, dataset, split=dataset_split, seq_split="test")
+
+        # ---- tokenizer (frozen stage 1), corpus table and audit ----
+        tokenizer = _build_tokenizer(
+            use_h_tokenizer=use_h_tokenizer, pretrained_rqvae_path=pretrained_rqvae_path,
+            vae_input_dim=vae_input_dim, vae_embed_dim=vae_embed_dim,
+            vae_hidden_dims=vae_hidden_dims, vae_codebook_size=vae_codebook_size,
+            vae_n_layers=vae_n_layers, vae_n_cat_feats=vae_n_cat_feats,
+            vae_codebook_normalize=vae_codebook_normalize, vae_sim_vq=vae_sim_vq,
+            tag_class_counts=tag_class_counts, tag_embed_dim=tag_embed_dim,
+            use_dedup_dim=use_dedup_dim, use_concatenated_ids=use_concatenated_ids,
+            use_interleaved_ids=use_interleaved_ids, commitment_weight=commitment_weight,
+            device=device, seed=seed,
+        )
+        # The checkpoint-reconciled geometry, not the possibly stale gin values.
+        vae_codebook_size, vae_n_layers = tokenizer.codebook_size, tokenizer.n_layers
+        corpus_ids = tokenizer.precompute_corpus_ids(item_dataset.item_features)
+        sem_id_dim = tokenizer.sem_ids_dim
+        logger.info(f"Corpus table: {tuple(corpus_ids.shape)}, sem_ids_dim={sem_id_dim}")
+        audit_rebuilt_corpus(tokenizer, corpus_ids.cpu().numpy(), pretrained_rqvae_path, log=logger)
+
+        # ---- model ----
+        if pretrained_decoder_path is not None:
+            # The decoder checkpoint's structural config wins, loudly: a resume
+            # gin with other heads keeps every shape and drifts in meaning.
+            rec = reconcile_vae_config(
+                pretrained_decoder_path,
+                {"attn_embed_dim": attn_embed_dim, "attn_heads": attn_heads,
+                 "attn_layers": attn_layers, "decoder_embed_dim": decoder_embed_dim},
+                logger,
+            )
+            attn_embed_dim, attn_heads = rec["attn_embed_dim"], rec["attn_heads"]
+            attn_layers, decoder_embed_dim = rec["attn_layers"], rec["decoder_embed_dim"]
+            saved = load_checkpoint_model_config(pretrained_decoder_path) or {}
+            saved_d = saved.get("sem_id_dim")
+            if saved_d is not None and int(saved_d) != int(sem_id_dim):
+                raise ValueError(
+                    f"decoder checkpoint {pretrained_decoder_path} was trained "
+                    f"with sem_id_dim={saved_d} but the frozen tokenizer produces "
+                    f"{sem_id_dim} — the stage-1 checkpoint / ID-layout flags do "
+                    f"not match the one this decoder was trained against."
+                )
+        max_seq_len = train_seq.max_seq_len
+        _check_flash_width(attn_embed_dim, attn_heads, max_seq_len, sem_id_dim, device)
+        compute_dtype = (torch.bfloat16 if (amp or mixed_precision_type == "bf16")
+                         else torch.float32)
+        model = build_model(
+            sem_id_dim=sem_id_dim, max_seq_len=max_seq_len, vae_codebook_size=vae_codebook_size,
+            vae_n_layers=vae_n_layers, decoder_embed_dim=decoder_embed_dim, dropout_p=dropout_p,
+            attn_heads=attn_heads, attn_embed_dim=attn_embed_dim, attn_layers=attn_layers,
+            use_interleaved_ids=use_interleaved_ids, dtype=compute_dtype, remat=remat, seed=seed,
+        ).to(device)
+        optimizer = Optimizer(model.parameters(),
+                              inverse_sqrt_schedule(learning_rate, warmup_steps), weight_decay,
+                              max_grad_norm=max_grad_norm)
+        start_iter = 0
+        if pretrained_decoder_path is not None:
+            # Params, AdamW moments and both counts (the schedule's position)
+            # and the step, as the JAX trainer restores its TrainState.
+            start_iter, _ = restore_checkpoint(pretrained_decoder_path, model, optimizer)
+            logger.info(f"Restored decoder from {pretrained_decoder_path} (iter {start_iter})")
+
+        data = as_seq_data(train_seq.users, train_seq.items, train_seq.fut, device)
+        table = corpus_ids.to(torch.int32)
+        prefix_caps = tuple(tokenizer.prefix_caps) if tokenizer.prefix_caps else None
+        tries_np = tokenizer.prefix_tries(model.num_embeddings)
+        prefix_tries = ({lvl: None if t is None
+                         else tuple(torch.from_numpy(a).to(device) for a in t)
+                         for lvl, t in tries_np.items()} if tries_np else None)
+
+        def generate(batch, index, tries):
+            return model.generate_next_sem_id(batch, index, temperature=generation_temperature,
+                                              prefix_caps=prefix_caps, prefix_tries=tries)
+
+        history = {"eval_iterations": [], "eval_loss": [], "full_eval_iterations": [],
+                   "full_eval_metrics": [], "test_eval_metrics": None,
+                   "full_eval_seconds": [], "save_seconds": []}
+        saved = []
+
+        def partial(it):
+            loss, dbg = eval_loss(model, table, eval_seq.iter_eval_batches(batch_size),
+                                  eval_batches)
+            history["eval_iterations"].append(it)
+            history["eval_loss"].append(loss)
+            logger.info(f"partial eval @ {it}: loss={loss:.4f} "
+                        + " ".join(f"{k}={v:.3g}" for k, v in dbg.items()))
+
+        def full(it):
+            t0 = time.perf_counter()
+            metrics = full_eval(generate, tokenizer, eval_seq, batch_size,
+                                eval_batches=eval_batches, prefix_tries=prefix_tries,
+                                log=logger.info)
+            history["full_eval_seconds"].append(time.perf_counter() - t0)  # ends in read-backs
+            history["full_eval_iterations"].append(it)
+            history["full_eval_metrics"].append(metrics)
+            logger.info(f"full eval @ {it}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in sorted(metrics.items()) if "slice" in k or "pos" in k))
+
+        def save(it):
+            t0 = time.perf_counter()  # the state read back to the host, then written
+            payload = {
+                "step": it,
+                "params": state_dict_to_flax(model)[0],
+                "opt_state": optimizer.state_dict(model),
+                # The full structural config: serving and a decoder resume
+                # reconcile against it.
+                "model_config": {
+                    "attn_dim": attn_embed_dim,  # legacy key, kept for old readers
+                    "attn_embed_dim": attn_embed_dim,
+                    "attn_heads": attn_heads,
+                    "attn_layers": attn_layers,
+                    "decoder_embed_dim": decoder_embed_dim,
+                    "sem_id_dim": sem_id_dim,
+                    "num_embeddings": int(vae_codebook_size),
+                    "n_sem_layers": int(vae_n_layers),
+                    "use_interleaved_ids": bool(use_interleaved_ids),
+                    "max_pos": int(max_seq_len * sem_id_dim),
+                },
+                "metrics": {},
+            }
+            saved.append(save_checkpoint(save_dir, f"checkpoint_{it}", payload))
+            history["save_seconds"].append(time.perf_counter() - t0)
+
+        events = ((partial_eval_every, partial), (full_eval_every, full), (save_model_every, save))
+        history.update(run_loop(model, optimizer, data, table, seed=seed, start_iter=start_iter,
+                                iterations=iterations, batch_size=batch_size,
+                                subsample=train_seq.subsample,
+                                log_every=log_every, events=events, log=logger.info))
+
+        # The held-out TEST split (targets items[-1]), once after training.
+        if len(test_seq) > 0:
+            test_metrics = full_eval(generate, tokenizer, test_seq, batch_size,
+                                     eval_batches=eval_batches, prefix_tries=prefix_tries)
+            history["test_eval_metrics"] = test_metrics
+            logger.info("TEST eval (items[-1] targets): " + ", ".join(
+                f"{k}={v:.4f}" for k, v in sorted(test_metrics.items())
+                if "slice" in k or "pos" in k))
+
+        if make_plots:
+            try:
+                from hidvae_tpu_torch.train.plots import plot_transformer_history
+
+                plot_transformer_history(history, os.path.join(save_dir, "plots"))
+            except Exception as e:  # plots are optional; no metric depends on them
+                logger.warning(f"Plotting failed: {e}")
+
+        return {"model": model, "optimizer": optimizer, "step": start_iter + iterations,
+                "tokenizer": tokenizer, "save_dir": save_dir, "history": history,
+                "saved_paths": saved}
+
+
+def train_arrays(
     item_features,
     users,
     items,
@@ -243,6 +640,7 @@ def train(
     log_every: int = 100,
     eval_batches: Optional[int] = None,
     warmup_steps: int = 10_000,
+    remat: bool = False,
     subsample: bool = True,
     eval_users=None,
     eval_items=None,
@@ -250,9 +648,12 @@ def train(
     device=None,
     log=None,
 ):
-    """Train the stage-2 decoder on histories `items` [n, max_seq_len] (-1
-    padded) with targets `fut` [n] and user ids `users` [n], over the catalog
-    `item_features` [n_items, F], tokenized by the frozen HiD-VAE `vae`.
+    """`train`'s loop over in-memory arrays: histories `items` [n,
+    max_seq_len] (-1 padded) with targets `fut` [n] and user ids `users`
+    [n], over the catalog `item_features` [n_items, F], tokenized by the
+    frozen HiD-VAE module `vae`; an eval-loss pass over the eval arrays
+    every `partial_eval_every` steps and at the end. No checkpoint, no
+    generation eval.
 
     `log_every` sets how often the loss is read back (a device sync) and
     logged; `log(str)` receives the lines. Returns {"model", "tokenizer",
@@ -278,58 +679,29 @@ def train(
     eval_data = (None if eval_items is None
                  else as_seq_data(eval_users, eval_items, eval_fut, device))
     max_seq_len = data.items.shape[1]
-    head_dim = attn_embed_dim // attn_heads
-    if takes_flash_route(head_dim, 1 + max_seq_len * sem_id_dim):  # user + history tokens
-        check_head_dim(head_dim, device.type)
+    _check_flash_width(attn_embed_dim, attn_heads, max_seq_len, sem_id_dim, device)
     compute_dtype = (torch.bfloat16 if (amp or mixed_precision_type == "bf16")
                      else torch.float32)
     model = build_model(
         sem_id_dim=sem_id_dim, max_seq_len=max_seq_len, vae_codebook_size=vae_codebook_size,
         vae_n_layers=vae_n_layers, decoder_embed_dim=decoder_embed_dim, dropout_p=dropout_p,
         attn_heads=attn_heads, attn_embed_dim=attn_embed_dim, attn_layers=attn_layers,
-        use_interleaved_ids=use_interleaved_ids, dtype=compute_dtype, seed=seed,
+        use_interleaved_ids=use_interleaved_ids, dtype=compute_dtype, remat=remat, seed=seed,
     ).to(device)
     optimizer = Optimizer(model.parameters(), inverse_sqrt_schedule(learning_rate, warmup_steps),
                           weight_decay, max_grad_norm=max_grad_norm)
 
-    history = {"iterations": [], "train_loss": [], "ms_per_step": [],
-               "eval_iterations": [], "eval_loss": [], "window_mean": None}
-    loss_window = deque(maxlen=LOSS_WINDOW)
-    step_losses = []  # this log interval's 0-d losses, still on the device
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_last, it_last = time.perf_counter(), 0
-    for it in range(iterations):
-        g = step_generator(seed, it, device)
-        batch = sample_batch(data, table, batch_size, g, subsample)
-        loss, loss_d = train_step(model, optimizer, batch, g)
-        step_losses.append(loss)
+    history = {"eval_iterations": [], "eval_loss": []}
 
-        done = it + 1
-        if done % log_every == 0 or done == iterations:
-            losses = torch.stack(step_losses).float().tolist()  # syncs
-            step_losses.clear()
-            loss_f = losses[-1]
-            now = time.perf_counter()
-            ms = (now - t_last) * 1e3 / (done - it_last)
-            t_last, it_last = now, done
-            if not math.isfinite(loss_f):
-                raise FloatingPointError(f"non-finite loss {loss_f} at iteration {it}")
-            loss_window.extend(losses)
-            history["iterations"].append(it)
-            history["train_loss"].append(loss_f)
-            history["ms_per_step"].append(ms)
-            log(f"iter {it}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
-                f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step)")
+    def partial(it):
+        loss, _ = eval_loss(model, table, device_batches(eval_data, batch_size), eval_batches)
+        history["eval_iterations"].append(it)
+        history["eval_loss"].append(loss)
+        log(f"partial eval @ {it}: loss={loss:.4f}")
 
-        crossed = (it // partial_eval_every) != (done // partial_eval_every) or done == iterations
-        if eval_data is not None and crossed:
-            el = eval_loss(model, table, eval_data, batch_size, eval_batches)
-            history["eval_iterations"].append(done)
-            history["eval_loss"].append(el)
-            log(f"partial eval @ {done}: loss={el:.4f}")
-            t_last = time.perf_counter()  # keep eval time out of ms per step
-
-    history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
+    events = () if eval_data is None else ((partial_eval_every, partial),)
+    history.update(run_loop(model, optimizer, data, table, seed=seed, start_iter=0,
+                            iterations=iterations, batch_size=batch_size, subsample=subsample,
+                            log_every=log_every, events=events, log=log))
     return {"model": model, "tokenizer": tokenizer, "optimizer": optimizer,
             "history": history}

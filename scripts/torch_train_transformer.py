@@ -1,0 +1,44 @@
+"""Train the stage-2 decoder with the PyTorch port from a gin config
+(counterpart of train_transformer.py, the same gin surface).
+
+    python scripts/torch_train_transformer.py CONFIG.gin \
+        [--stage1 EXPORTED_STAGE1] [--resume EXPORTED_CHECKPOINT] [--device cpu]
+
+The port reads exported checkpoints, not Orbax directories: convert a
+stage-1 checkpoint first, where the JAX package is installed, with
+scripts/export_flax_checkpoint.py (add --opt-state to resume a JAX
+decoder run). `--stage1` overrides the config's `train.pretrained_rqvae_path`
+and `--resume` its `train.pretrained_decoder_path` (a `checkpoint_N` that
+this trainer saved, or an export with optimizer state); `--device` picks
+the device (`cuda` unless given). Checkpoints, train.log and plots land in
+`<save_dir_root>/decoder_<DATASET>_<time>/`. Imports no JAX.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config_path", help="decoder gin config")
+    ap.add_argument("--stage1", default=None, help="exported stage-1 (tokenizer) checkpoint dir")
+    ap.add_argument("--resume", default=None, help="exported decoder checkpoint to resume from")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from hidvae_tpu_torch.train.transformer import train
+    from hidvae_tpu_torch.utils.config import parse_config_and_run
+
+    result = parse_config_and_run(
+        train, [args.config_path], pretrained_rqvae_path=args.stage1,
+        pretrained_decoder_path=args.resume, device=args.device)
+    print(f"trained to step {result['step']}; checkpoints {result['saved_paths']}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

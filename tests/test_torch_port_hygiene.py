@@ -2,8 +2,10 @@
 refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
 import, a small engine serves on the CPU, the smoke's artifacts phase writes
 small exported checkpoints and serves them through `from_artifacts` on both
-tokenizer routes, and the smoke's training path trains a small model there.
-And the port's sources are small text files."""
+tokenizer routes, the smoke's training path trains a small model there, and
+its trainer phase drives scripts/torch_train_transformer.py (train, resume,
+serve the checkpoint, remat). And the port's sources are small text
+files."""
 
 import os
 import subprocess
@@ -66,6 +68,15 @@ HYGIENE_SCRIPT = textwrap.dedent('''
                                    n_encoder_layers=1, flash=False)
         before, after = chip_smoke.fixed_batch_descent(result, data, 4, 2)
         assert after < before, (before, after)
+
+    # The smoke's trainer phase at tiny widths: the gin entry script trains
+    # 2N steps, N + a resume for N (bitwise here), the checkpoint serves
+    # through from_artifacts, and remat agrees with the plain run.
+    rec = chip_smoke.trainer_phase(torch.device("cpu"), vae, feats, cfg=tiny, n=2,
+                                   splits=(64, 20, 20), remat_run=(350, 2, 2), batch_size=8,
+                                   mixed_precision_type='"fp32"')
+    assert rec["resume"]["gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec["resume"]
+    assert rec["remat"]["param_gap"] == 0.0, rec["remat"]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("modules", len(names), "resolved", resolved)
@@ -84,7 +95,8 @@ def test_port_imports_and_serves_without_jax():
 
 
 def _port_sources():
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tests").glob("test_torch_*.py"))]
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tests").glob("test_torch_*.py")),
+             *sorted((ROOT / "scripts").glob("torch_*.py"))]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d not in SKIP_DIRS]
         files += [Path(dirpath) / f for f in filenames]

@@ -237,7 +237,7 @@ def test_train_is_a_function_of_its_seed():
     users, items, fut = seeded_sequences(cfg["n_items"], 64, 8, seed=1)
 
     def run(seed):
-        return trainer.train(
+        return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=3, batch_size=4, seed=seed,
             vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=2,
             attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
@@ -267,7 +267,7 @@ def test_window_mean_counts_every_step_loss(window, monkeypatch):
     users, items, fut = seeded_sequences(cfg["n_items"], 64, 8, seed=1)
 
     def run(log_every):
-        return trainer.train(
+        return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=7, batch_size=4, seed=3,
             vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=2,
             attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,

@@ -97,7 +97,7 @@ def test_trainer_refuses_a_width_without_kernel_before_the_first_step(monkeypatc
     monkeypatch.setattr(trainer, "train_step", lambda *a: steps.append(1))
 
     def run(width):
-        return trainer.train(
+        return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=1, batch_size=2,
             vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=width, attn_heads=1,
             attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
