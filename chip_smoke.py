@@ -19,9 +19,16 @@ items: the size of the P5 Sports split):
     attention path) and a long-history run (400 items, 2,401 tokens: the
     flash kernels, forward and backward), and a few steps on one fixed
     batch must lower its loss;
+  * stage1: the stage-1 HiD-VAE trainer from its gin entry
+    (scripts/torch_train_hidvae.py) at the widths of
+    configs/h_rqvae_amazon.gin on the items with seeded tags written into a
+    temporary directory: 2N mini-steps with evals, corpus audits through
+    rq_assign and saves; N and a resume for N more, held to the
+    uninterrupted run; the trained model's rq_assign table held to a plain
+    sweep; items/s at the gin's batch and accumulation and at batch 256;
   * trainer: the stage-2 trainer from its gin entry
-    (scripts/torch_train_transformer.py) on a processed dataset and a
-    stage-1 export written into a temporary directory: 2N steps with full
+    (scripts/torch_train_transformer.py) on a processed dataset written
+    into a temporary directory and the stage1 phase's checkpoint: 2N steps with full
     generation evals, checkpoints and the TEST eval; N steps and a resume
     for N more, held to the uninterrupted run; the saved decoder served by
     `from_artifacts`, held to the trained model's own search; remat on the
@@ -30,9 +37,11 @@ Each path's kernel launch counts are set to 0 just before it and read just
 after. Every phase prints its start and end; the line before the last is the
 kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device. Imports nothing of JAX or of the JAX package, and
-reads no file but the port's sources and what it writes itself.
+reads no file but the port's sources, configs/h_rqvae_amazon.gin and what
+it writes itself.
 """
 
+import inspect
 import json
 import math
 import os
@@ -48,7 +57,7 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import save_export, state_dict_to_flax
-from hidvae_tpu_torch.data.processed import processed_path
+from hidvae_tpu_torch.data.processed import RecDataset, processed_path
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS, takes_flash_route
 from hidvae_tpu_torch.models.init import init_params_
@@ -1062,6 +1071,229 @@ def train_phase(device, flash_ms_per_layer):
     return runs["long"][1], vae, feats
 
 
+# ---- the stage-1 trainer from its gin entry ----------------------------------
+
+H_RQVAE_AMAZON_GIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                  "h_rqvae_amazon.gin")
+STAGE1_N = 4              # mini-steps between evals, audits and saves: the run takes 2N
+STAGE1_EVAL_BATCHES = 2   # eval batches of 128 items
+STAGE1_TAG_SKEW = 0.9     # tag class i is drawn with weight (i + 1)^-0.9: a rare tail to remap
+STAGE1_TIMED = (3, 10)    # warm-up and timed updates of each throughput setting
+# (name, batch, gradient accumulation): the gin's own, and one batch of the same items
+STAGE1_SETTINGS = (("gin", 128, 2), ("batch256", 256, 1))
+
+
+def write_stage1_inputs(root, cfg, feats, seed=SEED):
+    """Under `root`: the processed Amazon dataset the gin reads (the items
+    `feats`, 95 % of them in the train split, with seeded tags of
+    cfg["tag_class_counts"] classes per level whose class sizes fall off as
+    a power law, so the rarest fall under the rare-tag threshold, and a
+    seeded tag-embedding table per level). Returns the dataset path."""
+    rng = np.random.RandomState(seed + 31)
+    n = len(feats)
+    idx, emb = [], []
+    for c in cfg["tag_class_counts"]:
+        p = 1.0 / np.arange(1, c + 1) ** STAGE1_TAG_SKEW
+        level = rng.choice(c, n, p=p / p.sum()).astype(np.int32)
+        table = (rng.randn(c, cfg["tag_embed_dim"]) / math.sqrt(cfg["tag_embed_dim"]))
+        idx.append(level)
+        emb.append(table.astype(np.float32)[level])
+    path = processed_path(root, RecDataset.AMAZON, "sports")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, item_features=feats, item_is_train=rng.rand(n) < 0.95,
+             seq_users=np.zeros(1, np.int32), seq_items=np.zeros((1, 2), np.int32),
+             seq_fut=np.zeros(1, np.int32), seq_is_train=np.ones(1, bool),
+             tags_emb=np.stack(emb, axis=1), tags_indices=np.stack(idx, axis=1))
+    return path
+
+
+def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
+    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin as
+    the checkout holds it, line by line, at cfg's widths, reading root's
+    dataset, with iterations for `mini_steps` mini-steps, evals, audits and
+    saves every n mini-steps, STAGE1_EVAL_BATCHES eval batches and
+    `bindings`."""
+    accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
+    values = {
+        "iterations": mini_steps // accumulate, "save_model_every": n, "eval_every": n,
+        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
+        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
+        "tag_class_counts": list(cfg["tag_class_counts"]), "tag_embed_dim": cfg["tag_embed_dim"],
+        "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
+        "eval_batches": STAGE1_EVAL_BATCHES, **bindings,
+    }
+    lines, bound = [], set()
+    with open(H_RQVAE_AMAZON_GIN) as f:
+        text = f.read()
+    for line in text.splitlines():
+        key = line.split("=")[0].strip().removeprefix("train.")
+        if key in values:
+            line = f"train.{key} = {values[key]}"
+            bound.add(key)
+        lines.append(line)
+    lines += [f"train.{k} = {v}" for k, v in values.items() if k not in bound]
+    path = os.path.join(root, f"h_rqvae_{mini_steps}.gin")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def check_stage1_run(name, result, launches, steps, evals, device, n_items):
+    """Steps, evals and audits where the cadence puts them, `latest` saved
+    with the structural model_config and the audit's repetition rate, finite
+    losses, tag counts remapped, rq_assign 3 times per audit on the card
+    (18,357 items in chunks of 8,192) and no flash kernel."""
+    hist = result["history"]
+    latest = [p for p in result["saved_paths"] if os.path.basename(p) == "latest"]
+    if result["step"] != steps or hist["eval_iterations"] != evals or not latest:
+        raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
+                             f"saves {result['saved_paths']}; expected {steps}, {evals}")
+    if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
+        raise AssertionError(f"{name}: losses not finite")
+    with open(os.path.join(latest[-1], "meta.json")) as f:
+        meta = json.load(f)
+    rep = meta.get("metrics", {}).get("repetition_rate")
+    if rep is None or meta.get("model_config", {}).get("tag_class_counts") != \
+            list(result["tag_class_counts"]):
+        raise AssertionError(f"{name}: latest's meta lacks the model_config or the audit: {meta}")
+    chunks = math.ceil(n_items / 8192)
+    want = {"rq_assign": chunks * len(evals) if device.type == "cuda" else 0,
+            **{fn.__name__: 0 for fn in fa.KERNELS}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    return rep
+
+
+def device_busy(run, device):
+    """Kernels `run()` puts on the device and the length of the union of
+    their spans in ms (torch.profiler, one traced run)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, stop - max(start, end if end is not None else start))
+        end = stop if end is None else max(end, stop)
+    return len(kernels), busy / 1e3
+
+
+def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE1_TIMED,
+                      seed=SEED):
+    """Stage-1 items per second of the trained model on its device corpus
+    under the optimizer that `train` builds from the bindings `gin` (the
+    setting's accumulation in place of the gin's), per setting: host
+    clock around each update's mini-steps, which end in a synchronize; the
+    median over the timed updates after the warm-up ones. On the card one
+    more update is traced for its kernel launches and device busy time."""
+    from hidvae_tpu_torch.train import hidvae as s1
+
+    model, data = result["model"], result["data"]
+    defaults = inspect.signature(s1.train).parameters
+    bindings = {k: gin.get(k, defaults[k].default)
+                for k in list(inspect.signature(s1.build_optimizer).parameters)[1:]}
+    out = {}
+    for name, batch, accumulate in settings:
+        opt, _ = s1.build_optimizer(model, **{**bindings, "gradient_accumulate_every": accumulate})
+        step = s1.make_train_step(model, opt, result["class_counts"])
+        counter = iter(range(1_000_000, 2_000_000))
+
+        def update():
+            for _ in range(accumulate):
+                g, host = s1.step_rngs(seed, next(counter), device)
+                step(*data.sample(g, batch), g, host)
+
+        times = []
+        for _ in range(sum(timed)):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            update()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        t = statistics.median(times[timed[0]:])
+        launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
+        out[name] = dict(batch=batch, accumulate=accumulate, items_per_s=batch * accumulate / t,
+                         ms_per_update=t * 1e3, ms_per_mini_step=t * 1e3 / accumulate,
+                         kernels_per_update=launches, device_busy_ms=busy)
+        busy_note = ("" if busy is None else f"; traced update: {launches} kernels, device busy "
+                     f"{busy:.2f} ms ({100 * busy / (t * 1e3):.1f} % of the median update)")
+        print(f"  throughput {name}: batch {batch} x {accumulate} mini-steps per update, "
+              f"median {t * 1e3:.2f} ms per update over {timed[1]} after {timed[0]} warm-up "
+              f"(min {min(times[timed[0]:]) * 1e3:.2f}, max {max(times[timed[0]:]) * 1e3:.2f}; "
+              f"{t * 1e3 / accumulate:.2f} ms per mini-step): {batch * accumulate / t:.0f} "
+              f"items/s{busy_note}", flush=True)
+    return out
+
+
+@phase("stage1")
+def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SETTINGS,
+                 timed=STAGE1_TIMED, **bindings):
+    """The stage-1 trainer from its gin entry (scripts/torch_train_hidvae.py)
+    at cfg's widths on a processed Amazon dataset written under `root`: 2N
+    mini-steps with evals, corpus audits and saves at N and 2N; N, then a
+    resume for N more, held to the uninterrupted run; the audit's rq_assign
+    table held to a plain sweep of the trained model; throughput at the
+    gin's batch and accumulation and at one batch of 256. Returns (the 2N
+    run's `latest`, the record)."""
+    script = load_script("torch_train_hidvae")
+    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    n_items = len(feats_np)
+    path = write_stage1_inputs(root, cfg, feats_np)
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
+          f"tags of {list(cfg['tag_class_counts'])} classes)", flush=True)
+    gin_2n = stage1_gin(root, cfg, 2 * n, n, **bindings)
+    gin_n = stage1_gin(root, cfg, n, n, **bindings)
+    full, launches, seconds = run_trainer_entry(script, device, gin_2n)
+    rep = check_stage1_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items)
+    hist = full["history"]
+    print(f"  2N run ({2 * n} mini-steps) in {seconds:.2f} s: loss {hist['total_loss']}, eval "
+          f"loss {hist['eval_total_loss']}, tag_class_counts {full['tag_class_counts']} (from "
+          f"{list(cfg['tag_class_counts'])}), repetition {hist['repetition_rate']}, rare tags "
+          f"{[len(v) for v in full['rare_tags'].values()]}; launches {launches}", flush=True)
+    rare = os.path.join(root, "runs", "special_tags_files", "rare_tags.npz")
+    if not os.path.exists(rare) or list(full["tag_class_counts"]) == list(cfg["tag_class_counts"]):
+        raise AssertionError("stage1: the rare-tag remap did not run or wrote no rare_tags.npz")
+
+    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
+    check_stage1_run("N run", half, launches_half, n, [n], device, n_items)
+    latest_half = [p for p in half["saved_paths"] if os.path.basename(p) == "latest"][-1]
+    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume", latest_half)
+    check_stage1_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
+    gin = parse_gin_file(gin_2n)["train"]
+    gaps = check_resume(full, half, resumed, 2 * n,
+                        updates=2 * n // gin["gradient_accumulate_every"], stats=True)
+
+    # The trained model's corpus table through rq_assign against a plain sweep.
+    model = full["model"]
+    tok = HSemanticIdTokenizer(model, n_layers=cfg["n_layers"],
+                               codebook_size=cfg["codebook_size"],
+                               tag_class_counts=full["tag_class_counts"], device=device)
+    rq.rq_assign.launches = 0
+    got = tok.precompute_corpus_ids(feats_np)
+    table_launches = rq.rq_assign.launches
+    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats_np).to(device), tok.corpus_chunk_size)
+    n_diff, n_bad = compare_ids(got, ref, ties)
+    rep_plain = repetition_rate(ref.cpu().numpy())[0]
+    print(f"  audit table of the trained model: rq_assign launches {table_launches}; rows "
+          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); repetition "
+          f"{rep_plain:.4f} (the last audit recorded {rep:.4f})", flush=True)
+    if n_bad or (n_diff == 0 and rep_plain != rep):
+        raise AssertionError("stage1: the audit's table differs from the plain sweep")
+
+    throughput = stage1_throughput(full, gin, device, settings, timed)
+    latest = [p for p in full["saved_paths"] if os.path.basename(p) == "latest"][-1]
+    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
+                            "resume": launches_resume["rq_assign"], "table": table_launches},
+                  resume_gaps=gaps, throughput=throughput, repetition_rate=rep,
+                  tag_class_counts=list(full["tag_class_counts"]))
+    del full, half, resumed, model, tok
+    return latest, record
+
+
 # ---- the trainer from its gin entry ------------------------------------------
 
 TRAINER_N = 5             # steps between evals and saves: the run takes 2N, the resume N + N
@@ -1093,13 +1325,11 @@ def load_script(name):
     return mod
 
 
-def write_trainer_inputs(root, cfg, vae, feats, device, splits=TRAINER_SPLITS):
+def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
     """Under `root`: a processed dataset of the items `feats` (numpy) with
-    seeded train, eval and test histories of cfg["max_seq_len"] items, the
-    stage-1 export of `vae` with its structural config and the recorded
-    repetition rate of its semantic table (a plain sweep, so the collapse
-    guard is armed without a kernel launch here). Returns (stage-1 dir,
-    dataset path, the test histories, the recorded rate)."""
+    seeded train, eval and test histories of cfg["max_seq_len"] items.
+    Returns (dataset path, the test histories, the repetition rate that the
+    stage-1 checkpoint `stage1` recorded)."""
     os.makedirs(root)
     n_items = len(feats)
     users, items, fut = seeded_sequences(n_items, sum(splits), cfg["max_seq_len"], SEED + 21)
@@ -1113,11 +1343,8 @@ def write_trainer_inputs(root, cfg, vae, feats, device, splits=TRAINER_SPLITS):
     np.savez(path, item_features=feats, item_is_train=np.ones(n_items, bool),
              seq_users=users.astype(np.int32), seq_items=items.astype(np.int32),
              seq_fut=fut.astype(np.int32), seq_is_train=split == 0, seq_split=split)
-    sem, _, _ = plain_sweep(vae.to(device), torch.from_numpy(feats).to(device), 8192)
-    rep = repetition_rate(sem.cpu().numpy())[0]
-    s1 = save_export(os.path.join(root, "stage1"), vae.cpu(), {
-        "model_config": structural_config(cfg), "metrics": {"repetition_rate": rep}})
-    return s1, path, items[split == 2], rep
+    with open(os.path.join(stage1, "meta.json")) as f:
+        return path, items[split == 2], json.load(f)["metrics"]["repetition_rate"]
 
 
 def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
@@ -1185,25 +1412,32 @@ def relative_gap(a, b, scale):
     return num / max(den, 1e-30), worst
 
 
-def check_resume(full, half, resumed, steps):
-    """The resumed run's step, params and Adam moments against the
-    uninterrupted run's (RESUME_RTOL); prints the gaps."""
+def check_resume(full, half, resumed, steps, updates=None, stats=False):
+    """The resumed run's step, params (with `stats`, batch statistics too)
+    and Adam moments against the uninterrupted run's (RESUME_RTOL); the
+    optimizer's counts must be `updates` (default `steps`). Prints the
+    gaps."""
     pf, ph, pr = (state_dict_to_flax(r["model"])[0] for r in (full, half, resumed))
     of, orr = (r["optimizer"].state_dict(r["model"]) for r in (full, resumed))
     update = {k: pf[k] - ph[k] for k in pf}
     gaps = {"params": relative_gap(pr, pf, update)}
+    if stats:
+        sf, sr = (state_dict_to_flax(r["model"])[1] for r in (full, resumed))
+        gaps["batch_stats"] = relative_gap(sr, sf, sf)
     for name in ("mu", "nu"):
-        keys = [k for k in of if f"0/{name}/" in k]
+        keys = [k for k in of if f"0/{name}/" in k]  # every group's adamw
         gaps[name] = relative_gap({k: orr[k] for k in keys}, {k: of[k] for k in keys},
                                   {k: of[k] for k in keys})
     counts = {k: int(v) for k, v in orr.items() if k.endswith("count")}
     print(f"  resume: step {resumed['step']} (uninterrupted {full['step']}), counts {counts}; "
           + "; ".join(f"{k} gap {g:.3e} (largest |difference| {w:.3e})"
                       for k, (g, w) in gaps.items())
-          + f" (tolerance {RESUME_RTOL}: params over the last N steps' update, moments over "
-            f"their norm)", flush=True)
-    if resumed["step"] != steps or set(counts.values()) != {steps}:
-        raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected {steps}")
+          + f" (tolerance {RESUME_RTOL}: params over the last N steps' update, moments and "
+            f"statistics over their norm)", flush=True)
+    updates = steps if updates is None else updates
+    if resumed["step"] != steps or set(counts.values()) != {updates}:
+        raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected "
+                             f"{steps} steps, {updates} updates")
     bad = {k: g for k, (g, _) in gaps.items() if not g <= RESUME_RTOL}
     if bad:
         raise AssertionError(f"resume: the resumed state differs from the uninterrupted one: {bad}")
@@ -1278,14 +1512,15 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
 
 
 @phase("trainer")
-def trainer_phase(device, vae, feats, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
+def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
                   remat_run=REMAT_RUN, **bindings):
     """The stage-2 trainer from its gin entry (scripts/torch_train_transformer.py)
-    at cfg's widths, on a processed dataset and a stage-1 export written
-    into a temporary directory: 2N steps (full evals and saves at N and 2N,
-    the TEST eval at the end); N steps, then a resume for N more, held to
-    the uninterrupted run; the saved decoder served by `from_artifacts`,
-    held to an engine over the trained model; remat on the flash route.
+    at cfg's widths, on a processed dataset written into a temporary
+    directory and the stage-1 phase's checkpoint `stage1`: 2N steps (full
+    evals and saves at N and 2N, the TEST eval at the end); N steps, then a
+    resume for N more, held to the uninterrupted run; the saved decoder
+    served by `from_artifacts`, held to an engine over the trained model;
+    remat on the flash route, with the seeded HiD-VAE `vae`.
     `bindings` are gin literals set on top (smaller runs off the card).
     Returns the launch counts and numbers of each part."""
     script = load_script("torch_train_transformer")
@@ -1294,13 +1529,12 @@ def trainer_phase(device, vae, feats, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SP
     record = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "trainer")
-        s1, data_path, test_hist, rep = write_trainer_inputs(root, cfg, vae, feats_np, device,
-                                                             splits)
+        data_path, test_hist, rep = write_trainer_inputs(root, cfg, feats_np, stage1, splits)
         print(f"  wrote {os.path.getsize(data_path) / 2**20:.1f} MiB of processed data "
-              f"({n_items} items, {splits} histories) and the stage-1 export (recorded "
+              f"({n_items} items, {splits} histories); stage-1 checkpoint {stage1} (recorded "
               f"repetition rate {rep:.4f})", flush=True)
-        gin_2n = trainer_gin(root, cfg, s1, 2 * n, n, **bindings)
-        gin_n = trainer_gin(root, cfg, s1, n, n, **bindings)
+        gin_2n = trainer_gin(root, cfg, stage1, 2 * n, n, **bindings)
+        gin_n = trainer_gin(root, cfg, stage1, n, n, **bindings)
         batch = parse_gin_file(gin_2n)["train"]["batch_size"]
         full, launches, seconds = run_trainer_entry(script, device, gin_2n)
         test_scores = check_trainer_run("2N run", full, launches, 2 * n, [n, 2 * n], device,
@@ -1335,7 +1569,7 @@ def trainer_phase(device, vae, feats, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SP
 
         rq.rq_assign.launches = 0
         t0 = time.perf_counter()
-        served = RetrievalEngine.from_artifacts(gin_2n, s1, ckpt,
+        served = RetrievalEngine.from_artifacts(gin_2n, stage1, ckpt,
                                                 device=device, batch_buckets=(ARTIFACT_HISTORIES,))
         serve_s = time.perf_counter() - t0  # the build ends in a synchronize
         serve_launches = rq.rq_assign.launches
@@ -1353,7 +1587,7 @@ def trainer_phase(device, vae, feats, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SP
             attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"])
         own.load_state_dict(model.state_dict())  # the trained weights, searched in fp32
         direct = RetrievalEngine(own, full["tokenizer"], feats_np, max_seq_len=cfg["max_seq_len"],
-                                 batch_buckets=(ARTIFACT_HISTORIES,), stage1_checkpoint=s1,
+                                 batch_buckets=(ARTIFACT_HISTORIES,), stage1_checkpoint=stage1,
                                  device=device)
         check_same_engine("trainer", served, direct, hist32)
         record["serve"] = dict(launches=serve_launches)
@@ -1373,7 +1607,9 @@ def main():
     flash_recs = flash_phase(device)
     per_layer = sum(r["ms"] for r in flash_recs.values())
     long_launches, vae, feats = train_phase(device, per_layer)
-    trainer_rec = trainer_phase(device, vae, feats)
+    with tempfile.TemporaryDirectory() as work:
+        stage1, stage1_rec = stage1_phase(device, feats, os.path.join(work, "stage1"))
+        trainer_rec = trainer_phase(device, vae, feats, stage1)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
@@ -1387,6 +1623,7 @@ def main():
             "2N run": trainer_rec["full"]["launches"]["rq_assign"],
             **{k: v["rq_assign"] for k, v in trainer_rec["resume"]["launches"].items()},
             "from_artifacts": trainer_rec["serve"]["launches"]},
+        launches_stage1=stage1_rec["launches"],
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
@@ -1394,6 +1631,7 @@ def main():
             replaces=FLASH_REPLACES[name], reached_from="hidvae_tpu/models/attention.py:75",
             launches=long_launches[name],
             launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")}, **r))
+    print(f"  stage1 record: {json.dumps(stage1_rec)}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

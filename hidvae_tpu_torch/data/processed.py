@@ -1,8 +1,9 @@
 """Processed datasets, the reading side (counterpart of part of
 hidvae_tpu/data/processed.py): the one `.npz` a (dataset, split) is stored
-in, the per-item corpus view and the user-sequence view that serving reads.
+in, the per-item corpus view (with the stage-1 trainer's item batches) and
+the user-sequence view that serving reads.
 
-Plain numpy, as in the JAX package. The trainer reads the train split
+Plain numpy, as in the JAX package. The stage-2 trainer reads the train split
 (random-cropped on the device when `subsample`) and walks the eval and
 test splits in order (`SeqData.iter_eval_batches`, processed.py:315).
 Building a dataset (from the raw Amazon, MovieLens, KuaiRand or synthetic
@@ -16,6 +17,8 @@ from enum import Enum
 from typing import Optional
 
 import numpy as np
+
+from hidvae_tpu_torch.data.schemas import SeqBatch, TaggedSeqBatch
 
 
 class RecDataset(Enum):
@@ -83,7 +86,7 @@ def load_processed(root: str, dataset: RecDataset, split: str = "",
     if force_process:
         raise NotImplementedError(
             "force_dataset_process=True rebuilds the dataset from its raw files, and the "
-            "port has no dataset builders yet (ROADMAP.md queue 1, item 9): build it with "
+            "port has no dataset builders yet (ROADMAP.md queue 1, item 6): build it with "
             "the JAX package's hidvae_tpu/data, then read the processed .npz")
     if dataset == RecDataset.SYNTHETIC:
         split = ""
@@ -135,6 +138,32 @@ class ItemData:
     @property
     def feature_dim(self):
         return self.item_features.shape[1]
+
+    def batch(self, idx: np.ndarray):
+        """A (Tagged)SeqBatch of single items `idx` (numpy arrays): each item
+        is a one-item sequence whose target is itself."""
+        x = self.item_features[idx]
+        ids = idx.astype(np.int32)[:, None]
+        common = dict(user_ids=np.zeros(len(idx), np.int32), ids=ids, ids_fut=ids, x=x,
+                      x_fut=x, seq_mask=np.ones((len(idx), 1), bool))
+        if self.has_tags:
+            return TaggedSeqBatch(**common, tags_emb=self.tags_emb[idx],
+                                  tags_indices=self.tags_indices[idx])
+        return SeqBatch(**common)
+
+    def iter_batches(self, batch_size: int, rng: np.random.RandomState):
+        """Endless shuffled batches: a permutation per epoch, full batches only."""
+        n = len(self)
+        while True:
+            order = rng.permutation(n)
+            for start in range(0, n - batch_size + 1, batch_size):
+                yield self.batch(order[start:start + batch_size])
+
+    def iter_eval_batches(self, batch_size: int):
+        """The items in order, in batches of `batch_size` (the last ragged)."""
+        n = len(self)
+        for start in range(0, n, batch_size):
+            yield self.batch(np.arange(start, min(start + batch_size, n)))
 
 
 class SeqData:

@@ -21,6 +21,14 @@ class SeqBatch:
 
 
 @dataclass
+class TaggedSeqBatch(SeqBatch):
+    """A SeqBatch with each item's per-level tags (ItemData's batches)."""
+
+    tags_emb: Optional[torch.Tensor] = None      # [B, L, tag_dim]
+    tags_indices: Optional[torch.Tensor] = None  # [B, L] int, -1 missing
+
+
+@dataclass
 class TokenizedSeqBatch:
     """Flattened semantic-ID sequences for the retrieval model: `sem_ids` is
     the [B, N*D] history, `sem_ids_fut` the [B, D_fut] target prefix, and

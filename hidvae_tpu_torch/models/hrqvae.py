@@ -1,39 +1,87 @@
-"""HiD-VAE core model, eval mode (counterpart of hidvae_tpu/models/hrqvae.py).
+"""HiD-VAE core model (counterpart of hidvae_tpu/models/hrqvae.py).
 
 Everything RqVae has plus, per tag-supervised level i, a TagPredictor that
 classifies the concatenation of the level-0..i code vectors and a
-TagProjector for the level's tag embedding. BatchNorm uses its running
-statistics. The training losses (InfoNCE alignment, focal tag loss,
-uniqueness, mining) are not ported yet.
+TagProjector for the level's tag embedding. `forward` is the training and
+eval loss of the JAX module's __call__: reconstruction, quantizer losses,
+the InfoNCE tag alignment, the focal tag loss and the batch uniqueness
+loss, with the alignment and uniqueness weights applied twice as the
+reference does (PARITY.md deviation 1). Duplicate-pair mining
+(`n_mined_pairs` > 0) is not ported (ROADMAP.md queue 1, item 2).
+
+Train mode is the `train` flag. Dropout and the Gumbel noise draw from
+`generator` (None: no dropout); mixup's draws come from `mixup(level,
+batch)`. TagProjector's BatchNorm is flax's: batch statistics with the
+biased variance in train mode, and running averages updated with momentum
+0.99 (`FlaxBatchNorm`). `dtype` (AMP) runs the MLP and tag-head products in
+bf16; the quantizer, norms and losses stay fp32 (PARITY.md deviation 10).
 """
 
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from hidvae_tpu_torch.models.rqvae import RqVae
+from hidvae_tpu_torch.models.layers import dense
+from hidvae_tpu_torch.models.losses import (
+    categorical_reconstruction_loss,
+    reconstruction_loss,
+    tag_alignment_loss,
+    tag_prediction_loss,
+    uniqueness_loss,
+)
+from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
+from hidvae_tpu_torch.models.rqvae import RqVae, p_unique_ids_stat
 from hidvae_tpu_torch.ops.distances import DistanceMode
+from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.normalize import l2norm
 
 LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm default
 BATCH_NORM_EPS = 1e-5   # flax.linen.BatchNorm default
+BATCH_NORM_MOMENTUM = 0.99  # flax.linen.BatchNorm default (torch's 0.01)
+
+
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """flax.linen.BatchNorm on [B, C] in fp32, keeping nn.BatchNorm1d's
+    parameters and buffers. Train mode normalizes with the batch mean and
+    the biased variance mean(x^2) - mean(x)^2 (clipped at 0) and updates
+    running = 0.99 * running + 0.01 * batch statistic; eval mode uses the
+    running statistics."""
+
+    def forward(self, x, train: bool = False):
+        x = x.float()
+        if train:
+            mean = torch.mean(x, dim=0)
+            var = F.relu(torch.mean(x * x, dim=0) - mean * mean)
+            with torch.no_grad():
+                m = BATCH_NORM_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class TagPredictor(nn.Module):
     """Per-level tag classification head: sigmoid attention gate, (L2 norm
     for deeper levels), feature layer, two residual blocks, classifier.
-    `use_batch_norm` maps to LayerNorm inside, as in the JAX package."""
+    `use_batch_norm` maps to LayerNorm inside, as in the JAX package. The
+    dropout rate is min(0.55, dropout_rate + 0.075 * layer_idx), halved
+    before the last layer."""
 
     def __init__(self, embed_dim: int, num_classes: int, hidden_dim: Optional[int] = None,
-                 use_batch_norm: bool = True, layer_idx: int = 0):
+                 use_batch_norm: bool = True, layer_idx: int = 0, dropout_rate: float = 0.2,
+                 dtype=None):
         super().__init__()
         d = embed_dim
         hidden = hidden_dim if hidden_dim is not None else 2 * d
         mid = int(hidden * 0.9)
         self.layer_idx = layer_idx
         self.use_norm = use_batch_norm
+        self.drop = min(0.55, dropout_rate + layer_idx * 0.075)
+        self.dtype = dtype
         self.attn_0 = nn.Linear(d, d // 4)
         self.attn_1 = nn.Linear(d // 4, d // 2)
         self.attn_2 = nn.Linear(d // 2, d)
@@ -52,48 +100,90 @@ class TagPredictor(nn.Module):
             self.cls_ln = nn.LayerNorm(mid, eps=LAYER_NORM_EPS)
 
     def _norm(self, h, name):
-        return getattr(self, name)(h) if self.use_norm else h
+        # flax's LayerNorm reduces in fp32 and returns fp32 under AMP.
+        return getattr(self, name)(h.float()) if self.use_norm else h
 
-    def forward(self, x):
-        a = F.relu(self.attn_0(x))
-        a = F.gelu(self.attn_1(a), approximate="tanh")  # flax gelu is the tanh form
-        h = x * torch.sigmoid(self.attn_2(a))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """`generator` set: train-mode dropout drawn from it."""
+        def lin(name, h):
+            return dense(getattr(self, name), h, self.dtype)
+
+        def dr(h, rate):
+            return drop(h, rate, generator)
+
+        a = F.relu(lin("attn_0", x))
+        a = F.gelu(lin("attn_1", a), approximate="tanh")  # flax gelu is the tanh form
+        h = x * torch.sigmoid(lin("attn_2", a))
         if self.layer_idx > 0:
             h = l2norm(h, dim=-1)
-        h = F.relu(self._norm(self.feat(h), "feat_ln"))
+        h = dr(F.relu(self._norm(lin("feat", h), "feat_ln")), self.drop)
         for blk in range(2):
-            r = F.relu(self._norm(getattr(self, f"res{blk}_0")(h), f"res{blk}_ln0"))
-            r = F.relu(getattr(self, f"res{blk}_1")(r))
+            r = dr(F.relu(self._norm(lin(f"res{blk}_0", h), f"res{blk}_ln0")), self.drop)
+            r = dr(F.relu(lin(f"res{blk}_1", r)), self.drop)
             h = h + self._norm(r, f"res{blk}_ln1")
-        c = F.relu(self._norm(self.cls_0(h), "cls_ln"))
-        c = F.relu(self.cls_1(c))
-        return self.cls_out(c).float()
+        c = dr(F.relu(self._norm(lin("cls_0", h), "cls_ln")), self.drop)
+        c = dr(F.relu(lin("cls_1", c)), self.drop * 0.5)
+        return lin("cls_out", c).float()
 
 
 class TagProjector(nn.Module):
     """Projects a tag embedding to the level's concatenated code width:
-    Linear -> BatchNorm (running statistics) -> ReLU -> Linear (-> LayerNorm)."""
+    Linear -> BatchNorm -> ReLU -> Dropout -> Linear (-> LayerNorm)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 use_batch_norm: bool = True, use_layer_norm: bool = False):
+                 use_batch_norm: bool = True, use_layer_norm: bool = False,
+                 dropout_rate: float = 0.2, dtype=None):
         super().__init__()
         self.dense_0 = nn.Linear(in_dim, hidden_dim)
-        self.bn = nn.BatchNorm1d(hidden_dim, eps=BATCH_NORM_EPS) if use_batch_norm else None
+        self.bn = FlaxBatchNorm(hidden_dim, eps=BATCH_NORM_EPS) if use_batch_norm else None
         self.dense_1 = nn.Linear(hidden_dim, out_dim)
         self.ln = nn.LayerNorm(out_dim, eps=LAYER_NORM_EPS) if use_layer_norm else None
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
 
-    def forward(self, x):
-        h = self.dense_0(x)
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        h = dense(self.dense_0, x, self.dtype)
         if self.bn is not None:
-            h = self.bn(h)
-        h = self.dense_1(F.relu(h))
+            h = self.bn(h, train)
+        h = drop(F.relu(h), self.dropout_rate, generator if train else None)
+        h = dense(self.dense_1, h, self.dtype)
         if self.ln is not None:
-            h = self.ln(h)
+            h = self.ln(h.float())
         return h.float()
 
 
+@dataclass
+class HRqVaeOutput:
+    embeddings: torch.Tensor      # [B, L, D]
+    residuals: torch.Tensor       # [B, L, D]
+    sem_ids: torch.Tensor         # [B, L] int32
+    quantize_loss: torch.Tensor   # [B]
+    tag_align_loss: torch.Tensor  # scalar, mean over tag levels
+    tag_pred_loss: torch.Tensor
+    tag_pred_accuracy: torch.Tensor
+    tag_align_loss_by_layer: Optional[torch.Tensor] = None     # [T]
+    tag_pred_loss_by_layer: Optional[torch.Tensor] = None
+    tag_pred_accuracy_by_layer: Optional[torch.Tensor] = None
+
+
+@dataclass
+class HRqVaeComputedLosses:
+    loss: torch.Tensor
+    reconstruction_loss: torch.Tensor
+    rqvae_loss: torch.Tensor
+    tag_align_loss: torch.Tensor
+    tag_pred_loss: torch.Tensor
+    tag_pred_accuracy: torch.Tensor
+    embs_norm: torch.Tensor       # [B, L]
+    p_unique_ids: torch.Tensor
+    tag_align_loss_by_layer: Optional[torch.Tensor] = None
+    tag_pred_loss_by_layer: Optional[torch.Tensor] = None
+    tag_pred_accuracy_by_layer: Optional[torch.Tensor] = None
+    sem_id_uniqueness_loss: Optional[torch.Tensor] = None
+
+
 class HRqVae(RqVae):
-    """HiD-VAE: RqVae plus per-level tag heads."""
+    """HiD-VAE: RqVae plus per-level tag heads and the stage-1 losses."""
 
     def __init__(
         self,
@@ -109,24 +199,58 @@ class HRqVae(RqVae):
         tag_class_counts: Optional[Sequence[int]] = None,
         tag_embed_dim: int = 768,
         use_batch_norm: bool = True,
+        codebook_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX,
+        n_cat_features: int = 18,
+        tag_alignment_weight: float = 0.5,
+        tag_prediction_weight: float = 0.5,
+        use_focal_loss: bool = False,
+        focal_gamma_base: float = 2.0,
+        focal_alpha_base: float = 0.25,
+        focal_per_layer_schedule: bool = True,
+        dropout_rate: float = 0.2,
+        alignment_temperature: float = 0.1,
+        sem_id_uniqueness_weight: float = 0.5,
+        sem_id_uniqueness_margin: float = 0.5,
+        use_label_smoothing: bool = True,
+        label_smoothing_alpha: float = 0.1,
+        use_mixup: bool = True,
+        mixup_alpha: float = 0.2,
+        dtype=None,
     ):
         super().__init__(
             input_dim, embed_dim, hidden_dims, codebook_size,
             codebook_normalize=codebook_normalize, codebook_sim_vq=codebook_sim_vq,
             codebook_distance=codebook_distance, n_layers=n_layers,
-            commitment_weight=commitment_weight,
+            commitment_weight=commitment_weight, codebook_mode=codebook_mode, dtype=dtype,
         )
         self.tag_class_counts = tag_class_counts
+        self.tag_embed_dim = tag_embed_dim
+        self.n_cat_features = n_cat_features
+        self.tag_alignment_weight = tag_alignment_weight
+        self.tag_prediction_weight = tag_prediction_weight
+        self.use_focal_loss = use_focal_loss
+        self.focal_gamma_base = focal_gamma_base
+        self.focal_alpha_base = focal_alpha_base
+        self.focal_per_layer_schedule = focal_per_layer_schedule
+        self.alignment_temperature = alignment_temperature
+        self.sem_id_uniqueness_weight = sem_id_uniqueness_weight
+        self.sem_id_uniqueness_margin = sem_id_uniqueness_margin
+        self.use_label_smoothing = use_label_smoothing
+        self.label_smoothing_alpha = label_smoothing_alpha
+        self.use_mixup = use_mixup
+        self.mixup_alpha = mixup_alpha
         counts = self.resolved_tag_class_counts
         concat = self.concat_embed_dims
         for i in range(self.n_tag_levels):
             self.add_module(f"tag_predictor_{i}", TagPredictor(
                 concat[i], counts[i], hidden_dim=self.hidden_dims[0] // 2 * (i + 1),
-                use_batch_norm=use_batch_norm, layer_idx=i,
+                use_batch_norm=use_batch_norm, layer_idx=i, dropout_rate=dropout_rate,
+                dtype=dtype,
             ))
             self.add_module(f"tag_projector_{i}", TagProjector(
                 tag_embed_dim, self.hidden_dims[0], concat[i],
                 use_batch_norm=use_batch_norm, use_layer_norm=codebook_normalize,
+                dropout_rate=dropout_rate, dtype=dtype,
             ))
 
     @property
@@ -170,3 +294,148 @@ class HRqVae(RqVae):
             "predictions": torch.stack(preds, dim=-1),
             "confidences": torch.stack(confs, dim=-1),
         }
+
+    def _focal_params_for_layer(self, i: int):
+        """Per-layer focal base parameters (PARITY.md deviation 2)."""
+        if self.focal_per_layer_schedule:
+            return (self.focal_gamma_base * (1.0 + i * 0.5),
+                    max(0.05, self.focal_alpha_base - i * 0.05), i)
+        return self.focal_gamma_base, self.focal_alpha_base, 0
+
+    def get_semantic_ids(self, encoded_x, tags_emb=None, tags_indices=None,
+                         gumbel_t: float = 0.001, train: bool = False,
+                         class_counts: Optional[Sequence[torch.Tensor]] = None,
+                         generator: Optional[torch.Generator] = None,
+                         mixup: Optional[Callable] = None) -> HRqVaeOutput:
+        """Residual quantization with per-level tag supervision. In train mode
+        the quantizers run their estimator (Gumbel draws from `generator`),
+        dropout draws from `generator` and `mixup(level, batch)` gives each
+        level's (permutation, lambda)."""
+        res = encoded_x
+        has_tags = tags_emb is not None and tags_indices is not None
+        embs, sem_ids, residuals = [], [], []
+        q_loss = 0.0
+        align, pred, acc = [], [], []
+        for i, layer in enumerate(self.layers):
+            residuals.append(res)
+            out = layer(res, temperature=gumbel_t, train=train, generator=generator)
+            q_loss = q_loss + out.loss
+            embs.append(out.embeddings)
+            sem_ids.append(out.ids)
+            concat_emb = torch.cat(embs, dim=-1)
+            if has_tags and i < self.n_tag_levels:
+                projected = self.tag_projectors[i](tags_emb[:, i], train=train,
+                                                   generator=generator)
+                align.append(tag_alignment_loss(
+                    concat_emb, projected, layer_idx=i,
+                    alignment_weight=self.tag_alignment_weight,
+                    temperature=self.alignment_temperature))
+                logits = self.tag_predictors[i](concat_emb, generator if train else None)
+                gamma, alpha, loss_layer = self._focal_params_for_layer(i)
+                draw = (mixup(i, logits.shape[0])
+                        if (train and self.use_mixup and mixup is not None) else None)
+                p = tag_prediction_loss(
+                    logits, tags_indices[:, i], layer_idx=loss_layer,
+                    use_focal_loss=self.use_focal_loss, focal_gamma=gamma, focal_alpha=alpha,
+                    class_counts=None if class_counts is None else class_counts[i],
+                    use_label_smoothing=self.use_label_smoothing,
+                    label_smoothing_alpha=self.label_smoothing_alpha,
+                    use_mixup=self.use_mixup, mixup=draw, training=train)
+                pred.append(p.loss)
+                acc.append(p.accuracy)
+            res = res - out.embeddings
+
+        if has_tags:
+            align_s, pred_s, acc_s = torch.stack(align), torch.stack(pred), torch.stack(acc)
+            n = self.n_tag_levels
+            tag_align, tag_pred, tag_acc = (torch.sum(align_s) / n, torch.sum(pred_s) / n,
+                                            torch.sum(acc_s) / n)
+        else:
+            align_s = pred_s = acc_s = None
+            tag_align = tag_pred = tag_acc = torch.zeros((), device=encoded_x.device)
+        return HRqVaeOutput(
+            embeddings=torch.stack(embs, dim=-2),
+            residuals=torch.stack(residuals, dim=-2),
+            sem_ids=torch.stack(sem_ids, dim=-1),
+            quantize_loss=q_loss,
+            tag_align_loss=tag_align, tag_pred_loss=tag_pred, tag_pred_accuracy=tag_acc,
+            tag_align_loss_by_layer=align_s, tag_pred_loss_by_layer=pred_s,
+            tag_pred_accuracy_by_layer=acc_s,
+        )
+
+    def reconstruct(self, embeddings_sum):
+        """Decoder output, L2-normalized over its dense dims (the trailing
+        n_cat_features logits stay as they are)."""
+        x_hat = self.decode(embeddings_sum)
+        if self.n_cat_features > 0:
+            return torch.cat([l2norm(x_hat[..., :-self.n_cat_features], dim=-1),
+                              x_hat[..., -self.n_cat_features:]], dim=-1)
+        return l2norm(x_hat, dim=-1)
+
+    def forward(self, x, tags_emb=None, tags_indices=None, gumbel_t: float = 1.0,
+                train: bool = False, class_counts: Optional[Sequence[torch.Tensor]] = None,
+                n_mined_pairs: int = 0, generator: Optional[torch.Generator] = None,
+                mixup: Optional[Callable] = None) -> HRqVaeComputedLosses:
+        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457)."""
+        if n_mined_pairs:
+            raise NotImplementedError(
+                "duplicate-pair mining (n_mined_pairs > 0) is not ported yet "
+                "(ROADMAP.md queue 1, item 2)")
+        x = x.float()
+        if tags_emb is not None:
+            tags_emb = tags_emb.float()
+        encoded = self.encode(x)
+        q = self.get_semantic_ids(encoded, tags_emb, tags_indices, gumbel_t, train=train,
+                                  class_counts=class_counts, generator=generator, mixup=mixup)
+        x_hat = self.reconstruct(torch.sum(q.embeddings, dim=-2))
+        if self.n_cat_features > 0:
+            recon = categorical_reconstruction_loss(x_hat, x, self.n_cat_features)
+        else:
+            recon = reconstruction_loss(x_hat, x)
+        uniq = uniqueness_loss(q.sem_ids, encoded, margin=self.sem_id_uniqueness_margin,
+                               weight=self.sem_id_uniqueness_weight)
+        recon_m, q_m = torch.mean(recon), torch.mean(q.quantize_loss)
+        loss = (recon_m + q_m + self.tag_alignment_weight * q.tag_align_loss
+                + self.tag_prediction_weight * q.tag_pred_loss
+                + self.sem_id_uniqueness_weight * uniq)
+        return HRqVaeComputedLosses(
+            loss=loss, reconstruction_loss=recon_m, rqvae_loss=q_m,
+            tag_align_loss=q.tag_align_loss, tag_pred_loss=q.tag_pred_loss,
+            tag_pred_accuracy=q.tag_pred_accuracy,
+            embs_norm=torch.linalg.norm(q.embeddings, dim=-1),
+            p_unique_ids=p_unique_ids_stat(q.sem_ids),
+            tag_align_loss_by_layer=q.tag_align_loss_by_layer,
+            tag_pred_loss_by_layer=q.tag_pred_loss_by_layer,
+            tag_pred_accuracy_by_layer=q.tag_pred_accuracy_by_layer,
+            sem_id_uniqueness_loss=uniq,
+        )
+
+    def predict_tags(self, x, gumbel_t: float = 0.001, noise=None, noise_scale: float = 0.0):
+        """Per-level tag predictions of item features [B, F] or [B, N, F],
+        with `noise_scale * noise` added first when both are given (the
+        trainer's test-time augmentation). Returns {"predictions",
+        "confidences", "logits" (a list per level)}."""
+        is_seq = x.dim() == 3
+        if is_seq:
+            b, n, f = x.shape
+            x = x.reshape(-1, f)
+            if noise is not None:
+                noise = noise.reshape(-1, f)
+        if noise is not None and noise_scale > 0:
+            x = x + noise_scale * noise
+        res = self.encode(x.float())
+        embs, preds, confs, logits_all = [], [], [], []
+        for i, layer in enumerate(self.layers[: self.n_tag_levels]):
+            out = layer(res, temperature=gumbel_t, train=False)
+            embs.append(out.embeddings)
+            logits = self.tag_predictors[i](torch.cat(embs, dim=-1))
+            probs = torch.softmax(logits, dim=-1)
+            preds.append(torch.argmax(probs, dim=-1).to(torch.int32))
+            confs.append(torch.amax(probs, dim=-1))
+            logits_all.append(logits)
+            res = res - out.embeddings
+        predictions, confidences = torch.stack(preds, dim=-1), torch.stack(confs, dim=-1)
+        if is_seq:
+            predictions = predictions.reshape(b, n, -1)
+            confidences = confidences.reshape(b, n, -1)
+        return {"predictions": predictions, "confidences": confidences, "logits": logits_all}

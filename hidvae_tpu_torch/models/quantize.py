@@ -1,18 +1,26 @@
-"""One residual-quantization level, eval mode (counterpart of
-hidvae_tpu/models/quantize.py with train=False).
-
-The training modes (Gumbel-softmax, STE, rotation trick) and k-means init are
-not ported yet; at eval every mode is the same hard assignment + lookup.
-`QuantizeForwardMode` names them for the gin reader (utils/ginlite.py)."""
+"""One residual-quantization level (counterpart of
+hidvae_tpu/models/quantize.py): codebook distance, hard assignment, and in
+train mode one of three estimators:
+  * GUMBEL_SOFTMAX: Gumbel-softmax weights over -distance times the codebook;
+  * STE: x + sg(e - x);
+  * ROTATION_TRICK: x rotated from its own direction onto e's
+    (`rotation_trick_transform`).
+At train time the codebook/commitment loss is taken against the looked-up
+code vector e, not the estimator's output. At eval every mode is the hard
+assignment and its lookup. The distance and argmin run in full fp32 (no
+TF32), so train, eval and the corpus sweep assign alike."""
 
 from enum import Enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
+from hidvae_tpu_torch.models.losses import quantize_loss
 from hidvae_tpu_torch.ops.distances import DistanceMode, compute_distance
+from hidvae_tpu_torch.ops.gumbel import gumbel_softmax_sample
 from hidvae_tpu_torch.ops.normalize import l2norm
+from hidvae_tpu_torch.utils.runtime import full_fp32
 
 
 class QuantizeForwardMode(Enum):
@@ -22,18 +30,20 @@ class QuantizeForwardMode(Enum):
 
 
 class QuantizeOutput(NamedTuple):
-    embeddings: torch.Tensor  # [B, D] looked-up code vectors
+    embeddings: torch.Tensor  # [B, D] quantized embedding (the estimator's in train mode)
     ids: torch.Tensor         # [B] int32 hard assignment
     loss: torch.Tensor        # [B] commitment + codebook loss
 
 
-def quantize_loss(query, value, commitment_weight: float = 1.0):
-    """||query - value||^2 + beta * ||query - value||^2 per sample (the eval
-    value of hidvae_tpu/models/losses.py quantize_loss; its stop-gradients
-    only shape the gradient)."""
-    emb_loss = torch.sum(torch.square(query - value), dim=-1)
-    query_loss = torch.sum(torch.square(query - value), dim=-1)
-    return emb_loss + commitment_weight * query_loss
+def rotation_trick_transform(u, q, e):
+    """e - 2 (e.w) w + 2 (e.u) q with w = normalize(u + q): rotates e from
+    the unit direction u onto the unit direction q; u, q and w carry no
+    gradient."""
+    u, q = u.detach(), q.detach()
+    w = l2norm(u + q, dim=-1, eps=1e-6).detach()
+    ew = torch.sum(e * w, dim=-1, keepdim=True)
+    eu = torch.sum(e * u, dim=-1, keepdim=True)
+    return e - 2.0 * ew * w + 2.0 * eu * q
 
 
 class Quantize(nn.Module):
@@ -41,13 +51,15 @@ class Quantize(nn.Module):
 
     def __init__(self, embed_dim: int, n_embed: int, codebook_normalize: bool = False,
                  sim_vq: bool = False, commitment_weight: float = 0.25,
-                 distance_mode: DistanceMode = DistanceMode.L2):
+                 distance_mode: DistanceMode = DistanceMode.L2,
+                 forward_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX):
         super().__init__()
         self.embedding = nn.Parameter(torch.rand(n_embed, embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=False) if sim_vq else None
         self.codebook_normalize = codebook_normalize
         self.commitment_weight = commitment_weight
         self.distance_mode = distance_mode
+        self.forward_mode = forward_mode
 
     def codebook(self):
         """Effective codebook after the SimVQ projection and normalization."""
@@ -58,12 +70,34 @@ class Quantize(nn.Module):
             cb = l2norm(cb, dim=-1)
         return cb
 
-    def forward(self, x) -> QuantizeOutput:
-        codebook = self.codebook()
-        dist = compute_distance(x, codebook, self.distance_mode)
-        ids = torch.argmin(dist, dim=-1).to(torch.int32)  # first index on ties
+    def forward(self, x, temperature: float = 0.2, train: bool = False,
+                generator: Optional[torch.Generator] = None, noise=None) -> QuantizeOutput:
+        """Train mode draws the Gumbel noise from `generator` unless `noise`
+        [B, K] is given."""
+        with full_fp32():
+            codebook = self.codebook()
+            dist = compute_distance(x, codebook, self.distance_mode)
+        ids = torch.argmin(dist.detach(), dim=-1).to(torch.int32)  # first index on ties
         emb = codebook[ids.long()]
-        return QuantizeOutput(
-            embeddings=emb, ids=ids,
-            loss=quantize_loss(x, emb, self.commitment_weight),
-        )
+        if not train:
+            return QuantizeOutput(embeddings=emb, ids=ids,
+                                  loss=quantize_loss(x, emb, self.commitment_weight))
+        if self.forward_mode == QuantizeForwardMode.GUMBEL_SOFTMAX:
+            if generator is None and noise is None:
+                raise ValueError("Gumbel-softmax training needs a generator or the noise")
+            weights = gumbel_softmax_sample(-dist, temperature, generator, noise)
+            with full_fp32():
+                emb_out = weights @ codebook
+            emb = emb_out
+        elif self.forward_mode == QuantizeForwardMode.STE:
+            emb_out = x + (emb - x).detach()
+        elif self.forward_mode == QuantizeForwardMode.ROTATION_TRICK:
+            emb_out = rotation_trick_transform(
+                x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-8),
+                emb / (torch.linalg.norm(emb, dim=-1, keepdim=True) + 1e-8),
+                x,
+            )
+        else:
+            raise ValueError(f"Unsupported forward mode {self.forward_mode}")
+        return QuantizeOutput(embeddings=emb_out, ids=ids,
+                              loss=quantize_loss(x, emb, self.commitment_weight))

@@ -1,7 +1,12 @@
-"""Residual-quantized VAE, eval mode: the part of hidvae_tpu/models/rqvae.py
-that HRqVae builds on (encoder, per-level quantizers, the residual cascade).
-The decoder MLP is held for its weights only: reconstruction and the
-training losses are not ported yet."""
+"""Residual-quantized VAE: the part of hidvae_tpu/models/rqvae.py that
+HRqVae builds on (encoder, per-level quantizers, the residual cascade, the
+decoder) and the batch statistic `p_unique_ids_stat`. RqVae's own training
+forward (the plain RQ-VAE trainer's, ROADMAP.md queue 1, item 3) is not ported
+yet; HRqVae's is (models/hrqvae.py).
+
+`dtype` is the AMP compute dtype of the encoder and decoder products
+(None: fp32); the encoder's output is taken back to fp32 before the
+quantizer."""
 
 from dataclasses import dataclass
 from typing import Sequence
@@ -10,7 +15,7 @@ import torch
 from torch import nn
 
 from hidvae_tpu_torch.models.layers import MLP
-from hidvae_tpu_torch.models.quantize import Quantize
+from hidvae_tpu_torch.models.quantize import Quantize, QuantizeForwardMode
 from hidvae_tpu_torch.ops.distances import DistanceMode
 
 
@@ -20,6 +25,14 @@ class RqVaeOutput:
     residuals: torch.Tensor      # [B, L, D] per-level residual inputs
     sem_ids: torch.Tensor        # [B, L] int32
     quantize_loss: torch.Tensor  # [B]
+
+
+def p_unique_ids_stat(sem_ids):
+    """Fraction of distinct ID tuples in the batch: rows with no identical
+    row at a larger index, over B."""
+    eq = torch.all(sem_ids[:, None, :] == sem_ids[None, :, :], dim=-1)
+    no_later_dup = ~torch.any(torch.triu(eq, diagonal=1), dim=1)
+    return torch.sum(no_later_dup) / sem_ids.shape[0]
 
 
 class RqVae(nn.Module):
@@ -36,12 +49,16 @@ class RqVae(nn.Module):
         codebook_distance: DistanceMode = DistanceMode.L2,
         n_layers: int = 3,
         commitment_weight: float = 0.25,
+        codebook_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX,
+        dtype=None,
     ):
         super().__init__()
         self.input_dim = input_dim
         self.embed_dim = embed_dim
         self.hidden_dims = list(hidden_dims)
         self.codebook_size = codebook_size
+        self.codebook_normalize = codebook_normalize
+        self.codebook_sim_vq = codebook_sim_vq
         self.n_layers = n_layers
         for i in range(n_layers):
             # Only level 0 normalizes its codebook (ref rqvae.py:70).
@@ -49,11 +66,12 @@ class RqVae(nn.Module):
                 embed_dim, codebook_size,
                 codebook_normalize=(i == 0 and codebook_normalize),
                 sim_vq=codebook_sim_vq, commitment_weight=commitment_weight,
-                distance_mode=codebook_distance,
+                distance_mode=codebook_distance, forward_mode=codebook_mode,
             ))
         self.encoder = MLP(input_dim, self.hidden_dims, embed_dim,
-                           normalize=codebook_normalize)
-        self.decoder = MLP(embed_dim, self.hidden_dims[::-1], input_dim, normalize=True)
+                           normalize=codebook_normalize, dtype=dtype)
+        self.decoder = MLP(embed_dim, self.hidden_dims[::-1], input_dim, normalize=True,
+                           dtype=dtype)
 
     @property
     def layers(self):
@@ -62,6 +80,9 @@ class RqVae(nn.Module):
     def encode(self, x):
         # fp32 into the quantizer (argmin agreement across paths and kernel).
         return self.encoder(x).float()
+
+    def decode(self, x):
+        return self.decoder(x)
 
     def stacked_codebooks(self):
         """Effective per-level codebooks [L, K, D], the input of rq_assign."""

@@ -7,10 +7,12 @@ Three ID layouts:
   * interleaved                 [s1, t1, s2, t2, ...]
 plus the dedup rank column of the semantic-only layout. The corpus sweep runs
 the encoder and then the fused residual quantization `rq_assign_auto`: the
-CUDA kernel on the card, the plain version on the CPU. The cache-miss path
-(`tokenize_features`) is not ported: tokenizing needs the precomputed table.
-The table, prefix index, caps, tries and tokenizing by gather are those of
-the plain tokenizer (semids.py), which this one extends.
+CUDA kernel on the card, the plain version on the CPU. The table, prefix
+index, caps, tries and tokenizing by gather are those of the plain
+tokenizer (semids.py), which this one extends. Not ported yet (ROADMAP.md
+queue 1, item 4): the cache-miss path `tokenize_features` (tokenizing here
+needs the precomputed table) and the tokenizer's `predict_tags`; the
+model's own `HRqVae.predict_tags` is ported.
 """
 
 from typing import Optional, Sequence

@@ -1,27 +1,28 @@
-"""Training commons (counterpart of part of hidvae_tpu/train/common.py): the
-inverse-sqrt schedule and the plain branch of `make_optimizer`, AdamW with an
-optional global-norm clip first; the checkpoint helpers that serving reads
-(meta, structural reconcile, the lenient restore of an exported checkpoint);
-and the corpus audit with its diversity metrics.
+"""Training commons (counterpart of hidvae_tpu/train/common.py): the
+schedules (inverse-sqrt, cosine, step), the reduce-on-plateau controller,
+the optimizer of both trainers (`Optimizer`, built by `make_optimizer`),
+the chunked event loop (`chunk_events`), the checkpoint helpers (meta,
+structural reconcile, the lenient restore of an exported checkpoint), the
+structural model config and the corpus audit with its diversity metrics.
 
-The JAX optimizer is `optax.adamw(schedule, weight_decay)` (b1 0.9, b2
-0.999, eps 1e-8, decay on every parameter), optionally after
-`optax.clip_by_global_norm`. optax evaluates the schedule at the number of
-updates already applied, so update t (0-based) uses schedule(t); `Optimizer`
-sets that rate on torch.optim.AdamW before each step, whose update rule is
-optax's (decoupled decay lr * wd * p, bias-corrected moments, eps added to
-the root).
+The JAX optimizer is optax: `optax.adamw(schedule, weight_decay)` (b1 0.9,
+b2 0.999, eps 1e-8, decay on every parameter), optionally one adamw per
+parameter group under `optax.multi_transform` (the stage-1 tag heads'
+layer-specific rates), after `optax.clip_by_global_norm`, followed by the
+plateau scale, all inside `optax.MultiSteps` for gradient accumulation.
+optax evaluates the schedule at the number of updates already applied, so
+update t (0-based) uses schedule(t); `Optimizer` sets that rate on
+torch.optim.AdamW before each update, whose update rule is optax's
+(decoupled decay lr * wd * p, bias-corrected moments, eps added to the
+root). `Optimizer.state_dict` names every leaf as
+`flax.serialization.to_state_dict` names the optax state, so a JAX run
+converted by scripts/export_flax_checkpoint.py --opt-state resumes here and
+the other way round.
 
-The stage-2 checkpoint (`save_checkpoint`, common.py:274-303) is an
-exported checkpoint (bridge.py) holding params, the optimizer state and the
-step; `Optimizer.state_dict` names the AdamW state as
-`flax.serialization.to_state_dict` names the JAX optimizer's, so a JAX run
-converted by scripts/export_flax_checkpoint.py resumes here and the other
-way round. `run_logging` and `log_operative_config` write a run's
-train.log as the JAX trainers do.
-
-Not ported yet: the cosine and step schedules, the plateau scale,
-gradient accumulation and the tag-head parameter groups (stage 1's)."""
+A checkpoint (`save_checkpoint`, common.py:274-303) is an exported
+checkpoint (bridge.py) holding params, batch statistics, the optimizer state
+and the step. `run_logging` and `log_operative_config` write a run's
+train.log as the JAX trainers do."""
 
 import contextlib
 import enum
@@ -29,7 +30,7 @@ import json
 import logging
 import math
 import os
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,88 +60,294 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torc
     return norm
 
 
-class Optimizer:
-    """AdamW on `params` under a schedule of the update count, with an
-    optional global-norm clip before it (make_optimizer, common.py:221-267,
-    plain branch)."""
+def make_lr_schedule(learning_rate: float, use_lr_scheduler: bool = False,
+                     lr_scheduler_type: str = "cosine", lr_scheduler_T_max: int = 400_000,
+                     lr_scheduler_eta_min: float = 1e-7, lr_scheduler_step_size: int = 100_000,
+                     lr_scheduler_gamma: float = 0.5):
+    """The stage-1 schedule of the update count (common.py:66-105): cosine
+    (torch's CosineAnnealingLR, held at eta_min after T_max) or step (x
+    gamma every step_size updates); a constant float without a scheduler,
+    for reduce_on_plateau (whose scale is metric-driven, `ReduceLROnPlateau`)
+    and for an unknown type."""
+    if not use_lr_scheduler or lr_scheduler_type not in ("cosine", "step"):
+        return learning_rate
+    if lr_scheduler_type == "cosine":
+        def schedule(step: int) -> float:
+            t = min(int(step), lr_scheduler_T_max)
+            cos = 0.5 * (1.0 + math.cos(math.pi * t / lr_scheduler_T_max))
+            return lr_scheduler_eta_min + (learning_rate - lr_scheduler_eta_min) * cos
+        return schedule
 
-    def __init__(self, params, schedule: Callable[[int], float], weight_decay: float,
-                 max_grad_norm: Optional[float] = None):
-        self.params = [p for p in params if p.requires_grad]
+    def schedule(step: int) -> float:
+        return learning_rate * lr_scheduler_gamma ** (int(step) // lr_scheduler_step_size)
+    return schedule
+
+
+class ReduceLROnPlateau:
+    """torch's ReduceLROnPlateau (mode min, relative threshold) as a host
+    controller of the LR scale (common.py:167-219): `step(eval loss)` after
+    each eval; after more than `patience` evals without improvement the
+    scale shrinks by `factor`. The scale rides in the optimizer state, the
+    counters in the checkpoint's meta (`state_dict`)."""
+
+    def __init__(self, factor: float = 0.5, patience: int = 10, threshold: float = 1e-4,
+                 cooldown: int = 0, min_scale: float = 0.0, init_scale: float = 1.0):
+        self.factor = float(factor)
+        self.patience = int(patience)
+        self.threshold = float(threshold)
+        self.cooldown = int(cooldown)
+        self.min_scale = float(min_scale)
+        self.scale = float(init_scale)
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+
+    def step(self, value: float) -> float:
+        value = float(value)
+        if self.best is None or value < self.best * (1.0 - self.threshold):
+            self.best = value
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        if self.num_bad > self.patience:
+            self.scale = max(self.scale * self.factor, self.min_scale)
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+        return self.scale
+
+    def state_dict(self) -> dict:
+        return {"scale": self.scale, "best": self.best, "num_bad": self.num_bad,
+                "cooldown_counter": self.cooldown_counter}
+
+    def load_state_dict(self, state: dict):
+        self.scale = float(state["scale"])
+        self.best = None if state["best"] is None else float(state["best"])
+        self.num_bad = int(state["num_bad"])
+        self.cooldown_counter = int(state["cooldown_counter"])
+
+
+class Optimizer:
+    """AdamW under a schedule of the update count (a callable, or a constant
+    float), as make_optimizer builds the JAX one (common.py:222-271):
+      * `groups` = [(label, params, lr scale, weight decay)]: one adamw per
+        label under multi_transform; None: one adamw over `params`;
+      * `max_grad_norm`: a global-norm clip first;
+      * `plateau`: the plateau scale multiplies every update;
+      * `accumulate_every` k > 1: `step` is called every mini-step, keeps
+        the running mean of k gradients (optax.MultiSteps' Welford mean)
+        and updates once per k mini-steps.
+    `count` is the updates applied (the schedule's count)."""
+
+    def __init__(self, params, schedule, weight_decay: float,
+                 max_grad_norm: Optional[float] = None, *, groups=None,
+                 accumulate_every: int = 1, plateau: bool = False):
+        if groups is None:
+            self.labels = None
+            groups = [(None, params, 1.0, weight_decay)]
+        else:
+            self.labels = [g[0] for g in groups]
+        self.groups = [(label, [p for p in ps if p.requires_grad], scale, wd)
+                       for label, ps, scale, wd in groups]
+        self.params = [p for _, ps, _, _ in self.groups for p in ps]
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
-        self.count = 0  # updates applied so far, optax's schedule count
-        self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
-                                       eps=1e-8, weight_decay=weight_decay)
+        self.accumulate_every = int(accumulate_every)
+        self.plateau = plateau
+        self.plateau_scale = 1.0
+        self.count = 0      # updates applied so far, optax's schedule count
+        self.mini_step = 0  # mini-steps accumulated since the last update
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.accumulate_every > 1 else None)
+        self.adamw = torch.optim.AdamW(
+            [{"params": ps, "weight_decay": wd, "lr_scale": scale}
+             for _, ps, scale, wd in self.groups if ps],
+            lr=self._lr(0), betas=(0.9, 0.999), eps=1e-8)
+
+    def _lr(self, count: int) -> float:
+        base = self.schedule(count) if callable(self.schedule) else self.schedule
+        return base * self.plateau_scale
 
     def zero_grad(self):
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self):
-        """Apply one update from the parameters' .grad."""
+    def step(self) -> bool:
+        """One mini-step from the parameters' .grad; returns whether the
+        parameters were updated."""
+        if self.acc is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+            if self.mini_step == 0:  # 0 + (g - 0) / 1 is g exactly
+                torch._foreach_copy_(self.acc, grads)
+            else:  # the grads are not read again: (g - acc) / (n + 1) in place
+                torch._foreach_sub_(grads, self.acc)
+                torch._foreach_div_(grads, float(self.mini_step + 1))
+                torch._foreach_add_(self.acc, grads)
+            if self.mini_step < self.accumulate_every - 1:
+                self.mini_step += 1
+                return False
+            for p, a in zip(self.params, self.acc):
+                p.grad = a  # the accumulator is overwritten at the next mini-step 0
+            self.mini_step = 0
         if self.max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm)
+        lr = self._lr(self.count)
         for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
+            group["lr"] = lr * group["lr_scale"]
         self.adamw.step()
         self.count += 1
-
-    def _state_prefix(self) -> str:
-        # optax.chain(clip, adamw) nests adamw's chain under "1/"; the
-        # clip's empty state "0" has no leaf.
-        return "1/" if self.max_grad_norm is not None else ""
+        return True
 
     def _named(self, module):
+        """(flax path, param, transposed) of the optimizer's params, in module order."""
         ours = {id(p) for p in self.params}
         return [(path, p, t) for path, p, t in flax_named_parameters(module) if id(p) in ours]
 
+    def _adam_prefixes(self):
+        """(state-name prefix of each group's adamw chain, its params)."""
+        inner = "1/" if self.max_grad_norm is not None else ""  # chain(clip, tx)
+        if self.plateau:
+            inner = "0/" + inner                                # chain(tx, plateau)
+        if self.accumulate_every > 1:
+            inner = "inner_opt_state/" + inner                  # MultiSteps
+        if self.labels is None:
+            return [(inner, self.groups[0][1])]
+        return [(f"{inner}inner_states/{label}/inner_state/", ps)
+                for label, ps, _, _ in self.groups]
+
+    def count_key(self) -> str:
+        """The name of the first adamw's count, present in every state."""
+        return self._adam_prefixes()[0][0] + "0/count"
+
     def state_dict(self, module: torch.nn.Module) -> dict:
         """The state as flat numpy arrays named as flax's to_state_dict names
-        the JAX optimizer's (optax.adamw's chain: "0" scale_by_adam, "1"
-        the decay's empty state, "2" the schedule): "0/count" and "2/count"
-        int32, the updates applied; "0/mu/<flax path>" and "0/nu/<flax
-        path>", AdamW's exp_avg and exp_avg_sq in the flax layout (Dense
-        kernels [in, out]). With the clip everything sits under "1/".
-        `module` names the parameters; a parameter not yet updated has zero
-        moments, as optax's init gives them."""
-        pre = self._state_prefix()
+        the optax state: per adamw chain "0/count" (int32), "0/mu/<flax
+        path>" and "0/nu/<flax path>" (exp_avg and exp_avg_sq in the flax
+        layout, Dense kernels [in, out]) and, under a schedule, "2/count";
+        each chain under "inner_states/<label>/inner_state/" with groups,
+        "1/" after the clip, "0/" before the plateau's "1/scale", and
+        everything under "inner_opt_state/" beside MultiSteps' "mini_step",
+        "gradient_step" and "acc_grads/<flax path>". `module` names the
+        parameters; a parameter not yet updated has zero moments, as
+        optax's init gives them."""
         count = np.asarray(self.count, np.int32)
-        out = {f"{pre}0/count": count, f"{pre}2/count": count.copy()}
-        for path, p, transpose in self._named(module):
-            state = self.adamw.state.get(p, {})
-            for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-                t = state.get(key)
-                arr = (np.zeros(tuple(p.shape), np.float32) if t is None
-                       else t.detach().cpu().numpy())
-                out[f"{pre}0/{name}/{path}"] = np.ascontiguousarray(arr.T if transpose else arr)
+        named = self._named(module)
+        out = {}
+        for prefix, ps in self._adam_prefixes():
+            out[f"{prefix}0/count"] = count.copy()
+            mine = {id(p) for p in ps}
+            for path, p, transpose in named:
+                if id(p) not in mine:
+                    continue
+                state = self.adamw.state.get(p, {})
+                for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                    t = state.get(key)
+                    arr = (np.zeros(tuple(p.shape), np.float32) if t is None
+                           else t.detach().cpu().numpy())
+                    out[f"{prefix}0/{name}/{path}"] = np.ascontiguousarray(
+                        arr.T if transpose else arr)
+            if callable(self.schedule):
+                out[f"{prefix}2/count"] = count.copy()
+        if self.plateau:
+            pre = "inner_opt_state/" if self.accumulate_every > 1 else ""
+            out[f"{pre}1/scale"] = np.asarray(self.plateau_scale, np.float32)
+        if self.acc is not None:
+            out["mini_step"] = np.asarray(self.mini_step, np.int32)
+            out["gradient_step"] = count.copy()
+            acc = {id(p): a for p, a in zip(self.params, self.acc)}
+            for path, p, transpose in named:
+                arr = (acc[id(p)].detach().cpu().numpy() if self.mini_step
+                       else np.zeros(tuple(p.shape), np.float32))  # optax zeroes it on update
+                out[f"acc_grads/{path}"] = np.ascontiguousarray(arr.T if transpose else arr)
         return out
 
     def load_state_dict(self, module: torch.nn.Module, state: dict) -> list:
-        """Load a `state_dict` (the counts and, per parameter, both moments
-        onto the parameter's device). The schedule's count sets `count`,
-        Adam's count each parameter's step. A parameter whose moments are
-        missing or of another shape keeps its fresh state; returns their
-        flax paths."""
-        pre = self._state_prefix()
-        adam_count = int(state[f"{pre}0/count"])
+        """Load a `state_dict` (counts, the accumulator, the plateau scale
+        and, per parameter, both moments onto the parameter's device). A
+        parameter whose moments are missing or of another shape keeps its
+        fresh state; returns their flax paths."""
+        def tensor(arr, p, transpose):
+            arr = arr.T if transpose else arr
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(p.device, p.dtype)
+
+        named = self._named(module)
         missing = []
-        for path, p, transpose in self._named(module):
-            moments = []
-            for name in ("mu", "nu"):
-                arr = state.get(f"{pre}0/{name}/{path}")
-                arr = None if arr is None else (arr.T if transpose else arr)
-                if arr is None or tuple(arr.shape) != tuple(p.shape):
-                    break
-                moments.append(torch.from_numpy(np.ascontiguousarray(arr)).to(p.device, p.dtype))
-            if len(moments) != 2:
-                missing.append(path)
-                self.adamw.state.pop(p, None)
-                continue
-            # torch's AdamW keeps its bias-correction step as a CPU float.
-            self.adamw.state[p] = {"step": torch.tensor(float(adam_count)),
-                                   "exp_avg": moments[0], "exp_avg_sq": moments[1]}
-        self.count = int(state[f"{pre}2/count"])
+        for prefix, ps in self._adam_prefixes():
+            adam_count = int(state[f"{prefix}0/count"])
+            mine = {id(p) for p in ps}
+            for path, p, transpose in named:
+                if id(p) not in mine:
+                    continue
+                moments = [state.get(f"{prefix}0/{name}/{path}") for name in ("mu", "nu")]
+                if any(m is None or tuple(m.T.shape if transpose else m.shape) != tuple(p.shape)
+                       for m in moments):
+                    missing.append(path)
+                    self.adamw.state.pop(p, None)
+                    continue
+                # torch's AdamW keeps its bias-correction step as a CPU float.
+                self.adamw.state[p] = {"step": torch.tensor(float(adam_count)),
+                                       "exp_avg": tensor(moments[0], p, transpose),
+                                       "exp_avg_sq": tensor(moments[1], p, transpose)}
+            self.count = int(state.get(f"{prefix}2/count", adam_count))
+        if self.plateau:
+            pre = "inner_opt_state/" if self.accumulate_every > 1 else ""
+            self.plateau_scale = float(state.get(f"{pre}1/scale", 1.0))
+        if self.acc is not None:
+            self.mini_step = int(state.get("mini_step", 0))
+            self.count = int(state.get("gradient_step", self.count))
+            acc = []
+            for path, p, transpose in named:
+                arr = state.get(f"acc_grads/{path}")
+                acc.append(torch.zeros_like(p) if arr is None else tensor(arr, p, transpose))
+            self.acc = acc
         return missing
+
+
+def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
+                   gradient_accumulate_every: int = 1, layer_specific_lr: bool = False,
+                   predictor_weight_decay: float = 0.02, n_layers: int = 3,
+                   max_grad_norm: Optional[float] = None, plateau: bool = False) -> Optimizer:
+    """The optimizer of `module`'s parameters as common.py:222-271 builds
+    it: with `layer_specific_lr`, tag_predictor_i and tag_projector_i form
+    group head_i (LR x (1 + 0.1 i), weight decay predictor_weight_decay /
+    (1 + 0.2 i)) and everything else group base."""
+    if not layer_specific_lr:
+        return Optimizer(module.parameters(), schedule, weight_decay, max_grad_norm,
+                         accumulate_every=gradient_accumulate_every, plateau=plateau)
+    by_label = {"base": []}
+    by_label.update({f"head_{i}": [] for i in range(n_layers)})
+    for path, p, _ in flax_named_parameters(module):
+        top = path.split("/")[0]
+        label = "base"
+        for i in range(n_layers):
+            if top in (f"tag_predictor_{i}", f"tag_projector_{i}"):
+                label = f"head_{i}"
+        by_label[label].append(p)
+    groups = [("base", by_label["base"], 1.0, weight_decay)]
+    groups += [(f"head_{i}", by_label[f"head_{i}"], 1.0 + i * 0.1,
+                predictor_weight_decay / (1 + i * 0.2)) for i in range(n_layers)]
+    return Optimizer(None, schedule, weight_decay, max_grad_norm, groups=groups,
+                     accumulate_every=gradient_accumulate_every, plateau=plateau)
+
+
+def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_every: int):
+    """The JAX trainers' chunked loop (transformer.py:536-537, :579-613;
+    hidvae.py:634, :708-710): steps start_iter .. start_iter + n_steps - 1
+    run in chunks of max(1, min(log_every, *cadences, n_steps)) steps, the
+    last one ragged. Yields (first, end, fired) per chunk: the chunk's
+    steps are first .. end - 1, and `fired` the indices of `cadences`
+    whose multiple the step count crosses from first to end
+    (first // every != end // every), or all of them at the run's end. The
+    trainers log the loss once per chunk, at its end."""
+    chunk = max(1, min([log_every, *cadences, n_steps]))
+    end = start_iter + n_steps
+    it = start_iter
+    while it < end:
+        first, it = it, min(it + chunk, end)
+        fired = tuple(i for i, every in enumerate(cadences)
+                      if first // every != it // every or it == end)
+        yield first, it, fired
 
 
 # ---------------- checkpoints ----------------
@@ -185,7 +392,7 @@ def restore_checkpoint(path: str, module: torch.nn.Module,
     arrays = load_export_arrays(path, "opt_state/")
     if optimizer is not None:
         state = {k.removeprefix("opt_state/"): v for k, v in arrays.items()}
-        if f"{optimizer._state_prefix()}2/count" not in state:
+        if optimizer.count_key() not in state:
             log.warning(f"checkpoint {path} holds no optimizer state of this optimizer; "
                         f"keeping the initialized AdamW state")
         else:
@@ -310,6 +517,22 @@ STRUCTURAL_VAE_KEYS = (
     "tag_class_counts",
     "tag_embed_dim",
 )
+
+
+def structural_model_config(model) -> dict:
+    """The STRUCTURAL_VAE_KEYS values of an RqVae / HRqVae as JSON values
+    (common.py:446), saved in every stage-1 checkpoint's meta."""
+    cfg = {}
+    for key in STRUCTURAL_VAE_KEYS:
+        if not hasattr(model, key):
+            continue
+        v = getattr(model, key)
+        if isinstance(v, (tuple, list)):
+            v = [int(x) for x in v]
+        elif isinstance(v, np.integer):
+            v = int(v)
+        cfg[key] = v
+    return cfg
 
 
 def load_checkpoint_meta(path: str) -> dict:

@@ -1,19 +1,44 @@
 """Device-resident training data (counterpart of
-hidvae_tpu/train/device_data.py): the whole history table lives on the
-device, and each step samples its own rows, random-crops (history + target)
-windows and tokenizes them by a gather from the corpus table.
+hidvae_tpu/train/device_data.py). Stage 1: the item corpus (features, tag
+embeddings, tag indices) lives on the device and each step gathers a batch
+of items drawn uniformly with replacement (PARITY.md deviation 6). Stage 2:
+the whole history table lives on the device, and each step samples its own
+rows, random-crops (history + target) windows and tokenizes them by a gather
+from the corpus table.
 
 Sampling is with replacement and every draw comes from an explicit
 torch.Generator, so a step is a function of (generator state, data).
 `random_crop_windows` is split into the draw (`crop_uniforms`) and a pure
 function of the uniforms, so a test can feed the JAX function and this one
-the same numbers. Duplicate-pair harvesting (stage 1) is not ported yet."""
+the same numbers. Duplicate-pair mining (stage 1) is not ported yet
+(ROADMAP.md queue 1, item 2)."""
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
+
+
+class DeviceItemData(NamedTuple):
+    x: torch.Tensor                       # [n, F], fp32 or bf16 storage
+    tags_emb: Optional[torch.Tensor]      # [n, L, Td] or None
+    tags_indices: Optional[torch.Tensor]  # [n, L] int32 or None
+
+    @property
+    def n(self):
+        return self.x.shape[0]
+
+    def gather(self, idx):
+        """(x, tags_emb, tags_indices) of items `idx`, in their storage dtype."""
+        return (self.x[idx],
+                None if self.tags_emb is None else self.tags_emb[idx],
+                None if self.tags_indices is None else self.tags_indices[idx])
+
+    def sample(self, generator: torch.Generator, batch_size: int):
+        """`batch_size` items drawn uniformly with replacement (device_data.py:52-66)."""
+        idx = torch.randint(0, self.n, (batch_size,), generator=generator, device=self.x.device)
+        return self.gather(idx)
 
 
 class DeviceSeqData(NamedTuple):

@@ -1,0 +1,594 @@
+"""Stage-1 HiD-VAE trainer (counterpart of hidvae_tpu/train/hidvae.py).
+
+`train` takes the JAX trainer's gin surface: every keyword of :229-303 with
+its default, and `device` (`cuda` unless given; no fallback to the CPU).
+As the JAX trainer, it
+  * reads the processed dataset's train, eval and all item splits
+    (:317-330), reconciles the tag levels with the quantizer depth and, with
+    the focal loss, remaps rare tags, writes the remap to
+    <save_dir_root>/special_tags_files/rare_tags.npz and takes the class
+    frequencies after the remap (:338-376);
+  * builds the HRqVae (`build_model`, AMP: bf16 MLP and tag-head products)
+    with seeded flax-distributed weights, and either restores a checkpoint
+    of this trainer (params, batch statistics, optimizer state with its
+    accumulator and schedule counts, step and plateau counters; :484-522)
+    or k-means-initializes the codebooks on up to 20,000 items (:523-532);
+  * builds the optimizer (`build_optimizer`: cosine or step schedule, the
+    tag heads' layer-specific rates, the plateau scale, gradient
+    accumulation counted in mini-steps, :440-479);
+  * trains in the JAX trainer's chunks (`chunk_events`, :634): each
+    mini-step has a generator that is a function of (seed, step) only
+    (PARITY.md deviation 13), samples its batch from the corpus on the
+    device, and runs the train forward (Gumbel temperature 0.2, dropout,
+    mixup) and backward; one log line per chunk (:684-706);
+  * when a chunk crosses eval_every or ends the run: the eval losses and
+    the test-time-augmented tag accuracy (`_run_eval`), the plateau step,
+    and the corpus ID audit, a sweep through `rq_assign` (the CUDA kernel
+    on the card) of every item, whose repetition rate gates the quality
+    checkpoint (:711-791); when it crosses save_model_every or ends the
+    run: `latest`, with this step's audit (:792-801);
+  * draws the plots and writes train.log into its save_dir.
+Checkpoints are exported checkpoints (arrays.npz + meta.json with the
+structural model_config and metrics.repetition_rate), which
+`restore_export`, `reconcile_vae_config`, `RetrievalEngine.from_artifacts`
+and the stage-2 trainer read. Not ported: duplicate-pair mining
+(`sem_id_mining=True` raises); `split_batches` changes nothing on one
+device; `ensemble_predictions`, `use_concatenated_ids`,
+`use_interleaved_ids` and `wandb_logging` are taken and ignored, as in JAX.
+"""
+
+import logging
+import math
+import os
+import time
+from collections import deque
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from hidvae_tpu_torch.bridge import state_dict_to_flax
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset
+from hidvae_tpu_torch.models.hrqvae import HRqVae
+from hidvae_tpu_torch.models.init import init_params_
+from hidvae_tpu_torch.models.losses import mixup_draw
+from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
+from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
+from hidvae_tpu_torch.train.common import (
+    ReduceLROnPlateau,
+    chunk_events,
+    id_diversity_metrics,
+    log_operative_config,
+    make_lr_schedule,
+    make_optimizer,
+    restore_checkpoint,
+    run_logging,
+    save_checkpoint,
+    structural_model_config,
+)
+from hidvae_tpu_torch.train.device_data import DeviceItemData
+from hidvae_tpu_torch.train.init import kmeans_init_codebooks
+from hidvae_tpu_torch.train.tags import (
+    apply_tag_remap,
+    compute_rare_tag_remap,
+    post_remap_class_counts,
+    reconcile_tag_layers,
+)
+from hidvae_tpu_torch.train.transformer import STEP_SALT, step_generator
+from hidvae_tpu_torch.utils.runtime import resolve_device
+
+logger = logging.getLogger("hidvae_tpu_torch.train.hidvae")
+
+GUMBEL_T = 0.2        # fixed by the reference trainers (hidvae.py:555)
+LOSS_WINDOW = 1000    # per-step losses in the window mean (hidvae.py:667)
+TTA_AUGMENTATIONS = 5  # passes of the test-time augmentation, noise 0.02 * i
+TTA_SALT = 0x77A      # seeds the augmentation noise, the same for every eval
+SCALAR_METRICS = ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss",
+                  "tag_pred_loss", "tag_pred_accuracy", "p_unique_ids",
+                  "sem_id_uniqueness_loss")
+
+
+def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_size,
+                vae_codebook_normalize, vae_sim_vq, vae_codebook_mode, vae_n_layers,
+                vae_n_cat_feats, commitment_weight, tag_alignment_weight,
+                tag_prediction_weight, tag_class_counts, tag_embed_dim, use_focal_loss,
+                focal_loss_gamma_base, focal_loss_alpha_base, dropout_rate, use_batch_norm,
+                alignment_temperature, sem_id_uniqueness_weight, sem_id_uniqueness_margin,
+                use_label_smoothing=True, label_smoothing_alpha=0.1, use_mixup=True,
+                mixup_alpha=0.2, dtype=None, seed=42) -> HRqVae:
+    """The HRqVae of hidvae.py:73-135 with seeded flax-distributed weights
+    (models/init.py), on the CPU."""
+    model = HRqVae(
+        vae_input_dim, vae_embed_dim, tuple(vae_hidden_dims), vae_codebook_size,
+        codebook_normalize=vae_codebook_normalize, codebook_sim_vq=vae_sim_vq,
+        n_layers=vae_n_layers, commitment_weight=commitment_weight,
+        tag_class_counts=tuple(tag_class_counts) if tag_class_counts else None,
+        tag_embed_dim=tag_embed_dim, use_batch_norm=use_batch_norm,
+        codebook_mode=vae_codebook_mode, n_cat_features=vae_n_cat_feats,
+        tag_alignment_weight=tag_alignment_weight, tag_prediction_weight=tag_prediction_weight,
+        use_focal_loss=use_focal_loss, focal_gamma_base=focal_loss_gamma_base,
+        focal_alpha_base=focal_loss_alpha_base, dropout_rate=dropout_rate,
+        alignment_temperature=alignment_temperature,
+        sem_id_uniqueness_weight=sem_id_uniqueness_weight,
+        sem_id_uniqueness_margin=sem_id_uniqueness_margin,
+        use_label_smoothing=use_label_smoothing, label_smoothing_alpha=label_smoothing_alpha,
+        use_mixup=use_mixup, mixup_alpha=mixup_alpha, dtype=dtype,
+    )
+    return init_params_(model, torch.Generator().manual_seed(seed))
+
+
+def step_rngs(seed: int, step: int, device):
+    """The draws of one mini-step, a function of (seed, step) only: a
+    generator on `device` (batch, Gumbel noise, dropout, mixup permutations)
+    and a host generator (mixup's Beta lambdas, drawn without a sync)."""
+    host = np.random.default_rng([seed & 0x7FFFFFFF, STEP_SALT, int(step)])
+    return step_generator(seed, step, device), host
+
+
+def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T):
+    """One mini-step: the train forward, backward and `optimizer.step()`
+    (an update every gradient_accumulate_every mini-steps). Returns the
+    step's metrics as 0-d device tensors (emb_norms [L]), not synced."""
+
+    def train_step(x, tags_emb, tags_indices, generator, host):
+        def mixup(level, batch):
+            return mixup_draw(batch, model.mixup_alpha, generator, host, x.device)
+
+        optimizer.zero_grad()
+        out = model(x, tags_emb, tags_indices, gumbel_t, train=True,
+                    class_counts=class_counts, generator=generator, mixup=mixup)
+        out.loss.backward()
+        optimizer.step()
+        m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
+        m["emb_norms"] = torch.mean(out.embs_norm.detach(), dim=0)
+        return m
+
+    return train_step
+
+
+def make_eval_step(model, class_counts, gumbel_t: float = GUMBEL_T):
+    """The eval forward's losses and tag accuracy (hidvae.py:179-197)."""
+
+    @torch.no_grad()
+    def eval_step(x, tags_emb, tags_indices):
+        out = model(x, tags_emb, tags_indices, gumbel_t, train=False, class_counts=class_counts)
+        return {k: getattr(out, k) for k in ("loss", "reconstruction_loss", "rqvae_loss",
+                                             "tag_align_loss", "tag_pred_loss",
+                                             "tag_pred_accuracy")}
+
+    return eval_step
+
+
+def make_tta_predict(model, eval_tta: bool, eval_temperature: float,
+                     n_aug: int = TTA_AUGMENTATIONS):
+    """Tag predictions from the softmax at `eval_temperature`, averaged over
+    the clean pass and, with eval_tta, n_aug - 1 passes with Gaussian noise
+    of scale 0.02 * i drawn from `generator` (hidvae.py:200-226)."""
+
+    @torch.no_grad()
+    def predict(x, generator):
+        def probs_of(noise, scale):
+            out = model.predict_tags(x, noise=noise, noise_scale=scale)
+            return [torch.softmax(lg / eval_temperature, dim=-1) for lg in out["logits"]]
+
+        probs = probs_of(None, 0.0)
+        if eval_tta:
+            for i in range(n_aug - 1):
+                noise = torch.randn(x.shape, generator=generator, device=x.device)
+                probs = [a + b for a, b in zip(probs, probs_of(noise, 0.02 * (i + 1)))]
+            probs = [p / n_aug for p in probs]
+        return [torch.argmax(p, dim=-1) for p in probs]
+
+    return predict
+
+
+def _to_device(batch, has_tags, device):
+    x = torch.from_numpy(np.asarray(batch.x, np.float32)).to(device)
+    if not has_tags:
+        return x, None, None
+    return (x, torch.from_numpy(np.asarray(batch.tags_emb, np.float32)).to(device),
+            torch.from_numpy(np.asarray(batch.tags_indices, np.int32)).to(device))
+
+
+def _run_eval(eval_step, tta_predict, eval_dataset, batch_size, has_tags, eval_batches,
+              device, tta_seed):
+    """Row-weighted eval losses over the eval split's in-order batches and
+    the test-time-augmented tag accuracy per level (hidvae.py:823-864).
+    Every batch's augmentation noise comes from one generator seeded with
+    `tta_seed`, as the JAX trainer hands every batch the same key."""
+    sums, n = {}, 0
+    tta_correct = tta_valid = None
+    for bi, batch in enumerate(eval_dataset.iter_eval_batches(batch_size)):
+        if eval_batches is not None and bi >= eval_batches:
+            break
+        x, te, ti = _to_device(batch, has_tags, device)
+        m = eval_step(x, te, ti)
+        values = torch.stack([m[k].float() for k in m]).tolist()  # one read-back
+        for k, v in zip(m, values):
+            sums[k] = sums.get(k, 0.0) + v * len(batch.x)
+        n += len(batch.x)
+        if tta_predict is not None:
+            g = torch.Generator(device=device).manual_seed(tta_seed)
+            pred_mat = torch.stack(tta_predict(x, g), dim=1).cpu().numpy()
+            tgt = np.asarray(batch.tags_indices)[:, : pred_mat.shape[1]]
+            valid = tgt >= 0
+            correct = (pred_mat == tgt) & valid
+            if tta_correct is None:
+                tta_correct = correct.sum(0).astype(np.float64)
+                tta_valid = valid.sum(0).astype(np.float64)
+            else:
+                tta_correct += correct.sum(0)
+                tta_valid += valid.sum(0)
+    out = {k: v / max(n, 1) for k, v in sums.items()}
+    if tta_correct is not None:
+        per_layer = tta_correct / np.maximum(tta_valid, 1.0)
+        out["tta_accuracy_by_layer"] = per_layer.tolist()
+        out["tta_accuracy"] = float(per_layer.mean())
+    return out
+
+
+def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_every,
+                    layer_specific_lr, predictor_weight_decay, vae_n_layers, use_lr_scheduler,
+                    lr_scheduler_type, lr_scheduler_T_max, lr_scheduler_eta_min,
+                    lr_scheduler_step_size, lr_scheduler_gamma, lr_scheduler_factor,
+                    lr_scheduler_patience):
+    """The optimizer of `train`'s bindings (hidvae.py:440-479) and its
+    ReduceLROnPlateau controller (None unless that is the scheduler)."""
+    schedule = make_lr_schedule(learning_rate, use_lr_scheduler, lr_scheduler_type,
+                                lr_scheduler_T_max, lr_scheduler_eta_min,
+                                lr_scheduler_step_size, lr_scheduler_gamma)
+    plateau = use_lr_scheduler and lr_scheduler_type == "reduce_on_plateau"
+    plateau_ctl = (ReduceLROnPlateau(factor=lr_scheduler_factor,
+                                     patience=lr_scheduler_patience) if plateau else None)
+    if plateau:
+        logger.info(f"Using ReduceLROnPlateau scheduler: factor={lr_scheduler_factor}, "
+                    f"patience={lr_scheduler_patience} (stepped on eval loss)")
+    elif use_lr_scheduler and not callable(schedule):
+        logger.warning(f"Unsupported learning rate scheduler type: {lr_scheduler_type}. "
+                       f"Not using a scheduler.")
+    optimizer = make_optimizer(
+        model, schedule, weight_decay, gradient_accumulate_every=gradient_accumulate_every,
+        layer_specific_lr=layer_specific_lr, predictor_weight_decay=predictor_weight_decay,
+        n_layers=vae_n_layers, plateau=plateau)
+    return optimizer, plateau_ctl
+
+
+def _save(save_dir, name, step, model, optimizer, eval_metrics, rep, plateau_ctl=None):
+    """A checkpoint of the whole trainer state (hidvae.py:867-886)."""
+    params, stats = state_dict_to_flax(model)
+    payload = {
+        "step": step,
+        "params": params,
+        "batch_stats": stats,
+        "opt_state": optimizer.state_dict(model),
+        "model_config": structural_model_config(model),
+        "metrics": {**eval_metrics, "repetition_rate": rep},
+    }
+    if plateau_ctl is not None:
+        payload["plateau"] = plateau_ctl.state_dict()
+    return save_checkpoint(save_dir, name, payload)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(
+    iterations=50_000,
+    batch_size=64,
+    learning_rate=0.0001,
+    weight_decay=0.01,
+    dataset_folder="dataset/synthetic",
+    dataset=RecDataset.SYNTHETIC,
+    pretrained_hrqvae_path=None,
+    save_dir_root="out/",
+    use_kmeans_init=True,
+    split_batches=True,
+    amp=False,
+    do_eval=True,
+    force_dataset_process=False,
+    mixed_precision_type="bf16",
+    gradient_accumulate_every=1,
+    save_model_every=1_000,
+    eval_every=5_000,
+    commitment_weight=0.25,
+    tag_alignment_weight=0.5,
+    tag_prediction_weight=0.5,
+    vae_n_cat_feats=18,
+    vae_input_dim=768,
+    vae_embed_dim=128,
+    vae_hidden_dims=(512, 256),
+    vae_codebook_size=512,
+    vae_codebook_normalize=False,
+    vae_codebook_mode=QuantizeForwardMode.GUMBEL_SOFTMAX,
+    vae_sim_vq=False,
+    vae_n_layers=3,
+    dataset_split="beauty",
+    tag_class_counts=None,
+    tag_embed_dim=768,
+    use_focal_loss=True,
+    focal_loss_gamma_base=2.0,
+    focal_loss_alpha_base=0.25,
+    rare_tag_threshold=30,
+    dropout_rate=0.3,
+    use_batch_norm=True,
+    alignment_temperature=0.1,
+    predictor_weight_decay=0.02,
+    layer_specific_lr=False,
+    use_label_smoothing=True,
+    label_smoothing_alpha=0.1,
+    use_mixup=True,
+    mixup_alpha=0.2,
+    eval_tta=True,
+    eval_temperature=0.8,
+    ensemble_predictions=True,
+    use_lr_scheduler=True,
+    lr_scheduler_type="cosine",
+    lr_scheduler_T_max=400_000,
+    lr_scheduler_eta_min=1e-7,
+    lr_scheduler_step_size=100_000,
+    lr_scheduler_gamma=0.5,
+    lr_scheduler_factor=0.5,
+    lr_scheduler_patience=10,
+    sem_id_uniqueness_weight=0.5,
+    sem_id_uniqueness_margin=0.5,
+    id_repetition_threshold=0.03,
+    use_concatenated_ids=True,
+    use_interleaved_ids=False,
+    wandb_logging=False,
+    seed=42,
+    log_every=100,
+    eval_batches=None,
+    make_plots=True,
+    device_data_dtype="float32",
+    sem_id_mining=False,
+    sem_id_mining_frac=0.25,
+    sem_id_mining_pool=32768,
+    sem_id_mining_margin=None,
+    sem_id_mining_isolate=False,
+    device=None,
+):
+    """Train the HiD-VAE tokenizer as `python train_hidvae.py CONFIG.gin`
+    does (see the module docstring). `iterations` counts updates; the loop
+    runs iterations * gradient_accumulate_every mini-steps, which the
+    step, the cadences and the log count. Returns {"model", "optimizer",
+    "step", "save_dir", "history", "tag_class_counts", "rare_tags",
+    "best_eval_accuracy", "saved_paths", "data" (the device corpus, tags
+    remapped), "class_counts"}; history holds the JAX trainer's keys and
+    ms_per_step (host clock per mini-step of each chunk, eval and save left
+    out)."""
+    if sem_id_mining:
+        raise NotImplementedError(
+            "sem_id_mining=True: duplicate-pair mining is not ported yet (ROADMAP.md "
+            "queue 1, item 2); train with the JAX package or without mining")
+    device = resolve_device(device)
+    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{time_stamp}")
+    config = dict(locals())
+    with run_logging(save_dir):
+        log_operative_config(logger, config)
+        # ---- data (hidvae.py:317-376) ----
+        train_dataset = ItemData(dataset_folder, dataset, force_process=force_dataset_process,
+                                 train_test_split="train" if do_eval else "all",
+                                 split=dataset_split)
+        eval_dataset = (ItemData(dataset_folder, dataset, train_test_split="eval",
+                                 split=dataset_split) if do_eval else None)
+        index_dataset = ItemData(dataset_folder, dataset, train_test_split="all",
+                                 split=dataset_split)
+        has_tags = train_dataset.has_tags
+        if not has_tags:
+            logger.warning("Dataset has no tags; disabling tag supervision.")
+            tag_alignment_weight = 0.0
+            tag_prediction_weight = 0.0
+
+        class_counts = None
+        rare_tags_dict = {}
+        if has_tags:
+            train_dataset.tags_emb, train_dataset.tags_indices = reconcile_tag_layers(
+                train_dataset.tags_emb, train_dataset.tags_indices, vae_n_layers)
+            if eval_dataset is not None:
+                eval_dataset.tags_emb, eval_dataset.tags_indices = reconcile_tag_layers(
+                    eval_dataset.tags_emb, eval_dataset.tags_indices, vae_n_layers)
+            if tag_class_counts is None:
+                tag_class_counts = [int(train_dataset.tags_indices[:, i].max()) + 1
+                                    for i in range(vae_n_layers)]
+            tag_class_counts = list(tag_class_counts)[:vae_n_layers]
+            if use_focal_loss:
+                new_counts, id_mappings, rare_tags_dict = compute_rare_tag_remap(
+                    train_dataset.tags_indices, tag_class_counts, rare_tag_threshold)
+                train_dataset.tags_indices = apply_tag_remap(train_dataset.tags_indices,
+                                                             id_mappings)
+                if eval_dataset is not None:
+                    eval_dataset.tags_indices = apply_tag_remap(eval_dataset.tags_indices,
+                                                                id_mappings)
+                tag_class_counts = new_counts
+                logger.info(f"Rare-tag remap -> tag_class_counts={tag_class_counts}")
+                tags_dir = os.path.join(save_dir_root, "special_tags_files")
+                os.makedirs(tags_dir, exist_ok=True)
+                np.savez(os.path.join(tags_dir, "rare_tags.npz"),
+                         **{str(k): v for k, v in rare_tags_dict.items()})
+                class_counts = tuple(
+                    torch.from_numpy(c).to(device)
+                    for c in post_remap_class_counts(train_dataset.tags_indices,
+                                                     tag_class_counts))
+
+        # ---- model (hidvae.py:385-437) ----
+        compute_dtype = (torch.bfloat16 if amp and str(mixed_precision_type).lower() in (
+            "bf16", "bfloat16", "fp16", "float16") else None)
+        model = build_model(
+            vae_input_dim=vae_input_dim, vae_embed_dim=vae_embed_dim,
+            vae_hidden_dims=vae_hidden_dims, vae_codebook_size=vae_codebook_size,
+            vae_codebook_normalize=vae_codebook_normalize, vae_sim_vq=vae_sim_vq,
+            vae_codebook_mode=vae_codebook_mode, vae_n_layers=vae_n_layers,
+            vae_n_cat_feats=vae_n_cat_feats, commitment_weight=commitment_weight,
+            tag_alignment_weight=tag_alignment_weight,
+            tag_prediction_weight=tag_prediction_weight, tag_class_counts=tag_class_counts,
+            tag_embed_dim=tag_embed_dim, use_focal_loss=use_focal_loss,
+            focal_loss_gamma_base=focal_loss_gamma_base,
+            focal_loss_alpha_base=focal_loss_alpha_base, dropout_rate=dropout_rate,
+            use_batch_norm=use_batch_norm, alignment_temperature=alignment_temperature,
+            sem_id_uniqueness_weight=sem_id_uniqueness_weight,
+            sem_id_uniqueness_margin=sem_id_uniqueness_margin,
+            use_label_smoothing=use_label_smoothing, label_smoothing_alpha=label_smoothing_alpha,
+            use_mixup=use_mixup, mixup_alpha=mixup_alpha, dtype=compute_dtype, seed=seed,
+        ).to(device)
+
+        optimizer, plateau_ctl = build_optimizer(
+            model, learning_rate=learning_rate, weight_decay=weight_decay,
+            gradient_accumulate_every=gradient_accumulate_every,
+            layer_specific_lr=layer_specific_lr, predictor_weight_decay=predictor_weight_decay,
+            vae_n_layers=vae_n_layers, use_lr_scheduler=use_lr_scheduler,
+            lr_scheduler_type=lr_scheduler_type, lr_scheduler_T_max=lr_scheduler_T_max,
+            lr_scheduler_eta_min=lr_scheduler_eta_min,
+            lr_scheduler_step_size=lr_scheduler_step_size,
+            lr_scheduler_gamma=lr_scheduler_gamma, lr_scheduler_factor=lr_scheduler_factor,
+            lr_scheduler_patience=lr_scheduler_patience)
+
+        start_iter = 0
+        if pretrained_hrqvae_path is not None:
+            # Params, batch statistics, the optimizer state (accumulator,
+            # counts, plateau scale) and the step (hidvae.py:484-522).
+            start_iter, meta = restore_checkpoint(pretrained_hrqvae_path, model, optimizer)
+            if plateau_ctl is not None and meta.get("plateau") is not None:
+                plateau_ctl.load_state_dict(meta["plateau"])
+                logger.info(f"Restored ReduceLROnPlateau state: {plateau_ctl.state_dict()}")
+            logger.info(f"Restored pretrained HRqVae from {pretrained_hrqvae_path} "
+                        f"(iter {start_iter})")
+        elif use_kmeans_init:
+            n_init = min(20_000, len(train_dataset))
+            init_x = torch.from_numpy(train_dataset.item_features[:n_init]).to(device)
+            kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+            logger.info("K-means codebook initialization complete")
+
+        # ---- device data and steps ----
+        ddtype = (torch.bfloat16 if str(device_data_dtype).lower() in ("bf16", "bfloat16")
+                  else torch.float32)
+        ddata = DeviceItemData(
+            x=torch.from_numpy(train_dataset.item_features).to(device, ddtype),
+            tags_emb=(torch.from_numpy(train_dataset.tags_emb).to(device, ddtype)
+                      if has_tags else None),
+            tags_indices=(torch.from_numpy(train_dataset.tags_indices).to(device)
+                          if has_tags else None),
+        )
+        index_feats = torch.from_numpy(
+            np.asarray(index_dataset.item_features, np.float32)).to(device)
+        train_step = make_train_step(model, optimizer, class_counts)
+        eval_step = make_eval_step(model, class_counts)
+        tta_predict = make_tta_predict(model, eval_tta, eval_temperature) if has_tags else None
+
+        history = {k: [] for k in [
+            "iterations", "total_loss", "reconstruction_loss", "rqvae_loss",
+            "tag_align_loss", "tag_pred_loss", "tag_pred_accuracy",
+            "eval_iterations", "eval_total_loss", "eval_tag_pred_accuracy",
+            "rqvae_entropy", "max_id_duplicates", "repetition_rate", "ms_per_step",
+        ]}
+        history["emb_norms"] = [[] for _ in range(vae_n_layers)]
+        history["codebook_usage"] = [[] for _ in range(vae_n_layers)]
+        best_eval_accuracy = 0.0
+        saved_paths = []
+        total_steps = iterations * gradient_accumulate_every
+        loss_window = deque(maxlen=LOSS_WINDOW)
+        _sync(device)
+        t_start = t_last = time.perf_counter()
+        it_last = start_iter
+        end = start_iter + total_steps
+        for first, it, fired in chunk_events(start_iter, total_steps,
+                                             [eval_every, save_model_every], log_every):
+            step_losses = []
+            for step in range(first, it):
+                g, host = step_rngs(seed, step, device)
+                x, te, ti = ddata.sample(g, batch_size)
+                metrics = train_step(x, te, ti, g, host)
+                step_losses.append(metrics["loss"])
+            # One read-back per chunk: the chunk's losses and the last step's metrics.
+            losses = torch.stack(step_losses).float().tolist()
+            last = torch.cat([torch.stack([metrics[k].float() for k in SCALAR_METRICS]),
+                              metrics["emb_norms"].float()]).tolist()
+            now = time.perf_counter()
+            history["ms_per_step"].append((now - t_last) * 1e3 / (it - it_last))
+            m = dict(zip(SCALAR_METRICS, last))
+            if not math.isfinite(m["loss"]):
+                raise FloatingPointError(f"non-finite loss {m['loss']} at iteration {it - 1}")
+            loss_window.extend(losses)
+            history["iterations"].append(it - 1)
+            history["total_loss"].append(m["loss"])
+            for k in ("reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
+                      "tag_pred_accuracy"):
+                history[k].append(m[k])
+            for level in range(vae_n_layers):
+                history["emb_norms"][level].append(last[len(SCALAR_METRICS) + level])
+            logger.info(
+                f"iter {it - 1}: loss={m['loss']:.4f} (window mean {np.mean(loss_window):.4f}) "
+                f"recon={m['reconstruction_loss']:.4f} rq={m['rqvae_loss']:.4f} "
+                f"align={m['tag_align_loss']:.4f} pred={m['tag_pred_loss']:.4f} "
+                f"acc={m['tag_pred_accuracy']:.4f} p_unique={m['p_unique_ids']:.4f} "
+                f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
+
+            do_eval_now = do_eval and 0 in fired
+            do_save_now = 1 in fired
+            last_audit = (None, None)  # (iteration, repetition) of this chunk's audit
+            if do_eval_now and eval_dataset is not None and len(eval_dataset) > 0:
+                eval_metrics = _run_eval(eval_step, tta_predict, eval_dataset, batch_size,
+                                         has_tags, eval_batches, device, seed ^ TTA_SALT)
+                history["eval_iterations"].append(it)
+                history["eval_total_loss"].append(eval_metrics["loss"])
+                history["eval_tag_pred_accuracy"].append(eval_metrics["tag_pred_accuracy"])
+                logger.info(f"eval @ {it}: {eval_metrics}")
+                if plateau_ctl is not None:
+                    old_scale = plateau_ctl.scale
+                    new_scale = plateau_ctl.step(eval_metrics["loss"])
+                    if new_scale != old_scale:
+                        optimizer.plateau_scale = new_scale
+                        logger.info(f"ReduceLROnPlateau: eval loss plateaued, LR scale "
+                                    f"{old_scale:.3g} -> {new_scale:.3g} "
+                                    f"(lr = {learning_rate * new_scale:.3g})")
+                # The corpus ID diversity audit (hidvae.py:738-771): every item
+                # through the encoder and rq_assign.
+                tokenizer = HSemanticIdTokenizer(
+                    model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
+                    tag_class_counts=tag_class_counts, device=device)
+                corpus_ids = tokenizer.precompute_corpus_ids(index_feats).cpu().numpy()
+                div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
+                history["rqvae_entropy"].append(div["rqvae_entropy"])
+                history["max_id_duplicates"].append(div["max_id_duplicates"])
+                history["repetition_rate"].append(div["repetition_rate"])
+                for level in range(vae_n_layers):
+                    history["codebook_usage"][level].append(div["codebook_usage"][level])
+                logger.info(f"diversity @ {it}: {div}")
+                eval_acc = eval_metrics.get("tta_accuracy",
+                                            eval_metrics.get("tag_pred_accuracy", 0.0))
+                rep = div["repetition_rate"]
+                last_audit = (it, rep)
+                # The quality-gated checkpoint (hidvae.py:778-791).
+                gate_ok = (not has_tags or eval_acc > 0.60) and rep < id_repetition_threshold
+                if gate_ok and eval_acc >= best_eval_accuracy:
+                    best_eval_accuracy = eval_acc
+                    name = (f"hrqvae_ACC{eval_acc:.4f}_"
+                            f"RQLOSS{eval_metrics['rqvae_loss']:.4f}_DUPR{rep:.4f}")
+                    path = _save(save_dir, name, it, model, optimizer, eval_metrics, rep,
+                                 plateau_ctl)
+                    saved_paths.append(path)
+                    logger.info(f"Gated checkpoint saved: {path}")
+            if do_save_now:
+                # This chunk's audit, when one ran, so that the stage-2 collapse
+                # guard covers `latest` too; a stale one is never recorded.
+                rep_now = last_audit[1] if last_audit[0] == it else None
+                saved_paths.append(_save(save_dir, "latest", it, model, optimizer, {}, rep_now,
+                                         plateau_ctl))
+            if fired:  # keep eval and save time out of ms per step
+                _sync(device)
+            t_last, it_last = time.perf_counter(), it
+
+        if make_plots:
+            try:
+                from hidvae_tpu_torch.train.plots import plot_hidvae_history
+
+                plot_hidvae_history(history, os.path.join(save_dir, "plots"))
+            except Exception as e:  # plots are optional; no metric depends on them
+                logger.warning(f"Plotting failed: {e}")
+
+        return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
+                "history": history, "tag_class_counts": tag_class_counts,
+                "rare_tags": rare_tags_dict, "best_eval_accuracy": best_eval_accuracy,
+                "saved_paths": saved_paths, "data": ddata, "class_counts": class_counts}

@@ -1,7 +1,8 @@
-"""End-of-run plots of the stage-2 trainer (counterpart of
-`plot_transformer_history`, hidvae_tpu/train/plots.py:81): train and eval
-loss curves and the full eval's hit@K and NDCG@K curves of the whole ID
-tuple. matplotlib is imported when a plot is drawn, not with the module: a
+"""End-of-run plots of both trainers (counterpart of
+hidvae_tpu/train/plots.py): stage 1's loss, tag-accuracy, embedding-norm,
+codebook-usage and ID-diversity curves (`plot_hidvae_history`); stage 2's
+train and eval loss curves and the full eval's hit@K and NDCG@K curves of
+the whole ID tuple (`plot_transformer_history`). matplotlib is imported when a plot is drawn, not with the module: a
 machine without it trains all the same, and the trainer logs the failure
 as a warning (no metric depends on the plots)."""
 
@@ -23,6 +24,53 @@ def _plot_series(ax, xs, ys, title, ylabel="value"):
     ax.set_xlabel("iteration")
     ax.set_ylabel(ylabel)
     ax.grid(True, alpha=0.3)
+
+
+def plot_hidvae_history(history: dict, out_dir: str):
+    """Write losses.png and diversity.png into `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
+    xs = history["iterations"]
+    if not xs:
+        return
+    plt = _pyplot()
+    fig, axes = plt.subplots(2, 3, figsize=(18, 10))
+    for ax, key, title in (
+        (axes[0, 0], "total_loss", "total loss"),
+        (axes[0, 1], "reconstruction_loss", "reconstruction loss"),
+        (axes[0, 2], "rqvae_loss", "rq-vae loss"),
+        (axes[1, 0], "tag_align_loss", "tag alignment loss"),
+        (axes[1, 1], "tag_pred_loss", "tag prediction loss"),
+    ):
+        _plot_series(ax, xs, history[key], title)
+    _plot_series(axes[1, 2], xs, history["tag_pred_accuracy"], "tag accuracy", "accuracy")
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "losses.png"), dpi=100)
+    plt.close(fig)
+
+    fig, axes = plt.subplots(1, 3, figsize=(18, 5))
+    for level, series in enumerate(history.get("emb_norms", [])):
+        if series:
+            axes[0].plot(xs[: len(series)], series, label=f"layer {level}")
+    axes[0].set_title("embedding norms")
+    axes[0].legend()
+    exs = history.get("eval_iterations", [])
+    for level, series in enumerate(history.get("codebook_usage", [])):
+        if series:
+            axes[1].plot(exs[: len(series)], series, label=f"layer {level}")
+    axes[1].set_title("codebook usage")
+    axes[1].legend()
+    if history.get("rqvae_entropy"):
+        axes[2].plot(exs[: len(history["rqvae_entropy"])], history["rqvae_entropy"],
+                     label="entropy")
+        ax2 = axes[2].twinx()
+        ax2.plot(exs[: len(history["max_id_duplicates"])], history["max_id_duplicates"],
+                 "r--", label="max dups")
+        axes[2].set_title("ID diversity")
+    for ax in axes:
+        ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "diversity.png"), dpi=100)
+    plt.close(fig)
 
 
 def plot_transformer_history(history: dict, out_dir: str):

@@ -1,0 +1,111 @@
+"""Host-side tag preprocessing for stage-1 training (a copy of
+hidvae_tpu/train/tags.py, plain numpy): tag levels truncated or padded to
+the quantizer depth, and the rare-tag remap: classes seen fewer than
+`rare_tag_threshold` times (but at least once) collapse into one trailing
+special class and the others are renumbered in their original order. The
+remap must reproduce exactly, or the stage-2 configs' tag class counts
+drift. The class frequencies for focal weighting are taken after the remap
+(PARITY.md deviation 3).
+"""
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+
+def reconcile_tag_layers(tags_emb, tags_indices, n_layers: int):
+    """Truncate or pad the tag arrays to exactly n_layers levels
+    (ref train_hidvae.py:252-287)."""
+    actual = tags_indices.shape[1]
+    if actual == n_layers:
+        return tags_emb, tags_indices
+    if actual > n_layers:
+        return tags_emb[:, :n_layers], tags_indices[:, :n_layers]
+    pad_emb = np.zeros(
+        (tags_emb.shape[0], n_layers, tags_emb.shape[2]), tags_emb.dtype
+    )
+    pad_emb[:, :actual] = tags_emb
+    pad_idx = np.full((tags_indices.shape[0], n_layers), -1, tags_indices.dtype)
+    pad_idx[:, :actual] = tags_indices
+    return pad_emb, pad_idx
+
+
+def compute_rare_tag_remap(
+    train_tags_indices: np.ndarray,
+    tag_class_counts: List[int],
+    rare_tag_threshold: int,
+) -> Tuple[List[int], Dict[int, np.ndarray], Dict[int, np.ndarray]]:
+    """Build per-layer remapping tables from train-set tag frequencies
+    (ref train_hidvae.py:358-455).
+
+    Returns (new_tag_class_counts, id_mappings, rare_tags_dict) where
+    id_mappings[l] maps original id -> new id and rare_tags_dict[l] lists the
+    collapsed original ids (the `rare_tags.pt` artifact's contents).
+    """
+    n_layers = train_tags_indices.shape[1]
+    new_counts: List[int] = []
+    id_mappings: Dict[int, np.ndarray] = {}
+    rare_tags: Dict[int, np.ndarray] = {}
+
+    for i in range(n_layers):
+        layer = train_tags_indices[:, i]
+        valid = layer[layer >= 0]
+        orig = tag_class_counts[i]
+        if len(valid) == 0:
+            new_counts.append(orig)
+            continue
+        # The config's declared counts can undershoot the data's real vocab
+        # (e.g. the reference's committed [38,168,348] vs a rebuilt tag index)
+        # — size the remap tables by whichever is larger so every observed id
+        # has a row.
+        data_vocab = int(valid.max()) + 1
+        if data_vocab > orig:
+            import logging
+
+            logging.getLogger("hidvae_tpu_torch.train.tags").warning(
+                f"tag layer {i}: data has {data_vocab} classes but "
+                f"tag_class_counts declares {orig}; using {data_vocab}"
+            )
+            orig = data_vocab
+        full_counts = np.bincount(valid, minlength=orig)
+        rare_mask = (full_counts > 0) & (full_counts < rare_tag_threshold)
+        rare_ids = np.nonzero(rare_mask)[0]
+        rare_tags[i] = rare_ids
+        # Non-rare includes zero-count classes (ref :390).
+        non_rare = (full_counts >= rare_tag_threshold) | (full_counts == 0)
+        new_count = int(non_rare.sum()) + 1
+        new_counts.append(new_count)
+
+        special = new_count - 1
+        mapping = np.arange(orig, dtype=np.int64)
+        new_ids = np.cumsum(non_rare) - 1
+        mapping[non_rare] = new_ids[non_rare]
+        mapping[rare_ids] = special
+        id_mappings[i] = mapping
+
+    return new_counts, id_mappings, rare_tags
+
+
+def apply_tag_remap(tags_indices: np.ndarray, id_mappings: Dict[int, np.ndarray]):
+    """Apply the remap to a tag-index matrix in place-safe copy
+    (ref train_hidvae.py:450-453)."""
+    out = tags_indices.copy()
+    for i, mapping in id_mappings.items():
+        layer = out[:, i]
+        valid = layer >= 0
+        layer[valid] = mapping[layer[valid]]
+        out[:, i] = layer
+    return out
+
+
+def post_remap_class_counts(
+    train_tags_indices_remapped: np.ndarray, new_tag_class_counts: List[int]
+) -> List[np.ndarray]:
+    """Per-layer class-frequency arrays for focal weighting, sized to the
+    remapped vocab (see module docstring deviation note)."""
+    out = []
+    for i, c in enumerate(new_tag_class_counts):
+        layer = train_tags_indices_remapped[:, i]
+        valid = layer[layer >= 0]
+        out.append(np.bincount(valid, minlength=c).astype(np.float32))
+    return out

@@ -18,7 +18,8 @@ As the JAX trainer, it
     step), as :542 folds the step into its key, samples rows, crops,
     tokenizes by gather and takes one AdamW step with dropout; so a resumed
     run replays the uninterrupted run's sample, crop and dropout stream;
-  * when the step count crosses a cadence or the run ends (:612-613): the
+  * in the JAX trainer's chunks (`chunk_events`, :536-537), at a chunk
+    end whose step count crosses a cadence or ends the run (:612-613): the
     partial eval (loss and debug metrics, :615-636), the full generation
     eval (`full_eval`, constrained beam search scored by hit@K and NDCG@K,
     :638-648) and a checkpoint with the full model_config (:650-672);
@@ -62,6 +63,7 @@ from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     Optimizer,
     audit_rebuilt_corpus,
+    chunk_events,
     inverse_sqrt_schedule,
     load_checkpoint_model_config,
     log_operative_config,
@@ -296,12 +298,6 @@ def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
     return {**topk.reduce(), **ndcg.reduce()}
 
 
-def crossed(every: int, done: int, end: int) -> bool:
-    """Whether step count `done` (the previous being done - 1) crosses a
-    multiple of `every`, or ends the run (transformer.py:612-613)."""
-    return (done - 1) // every != done // every or done == end
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -311,52 +307,47 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
              log_every: int, events=(), log=None) -> dict:
     """Steps start_iter .. start_iter + iterations - 1, each with its own
-    `step_generator(seed, step)`. Every `log_every` steps (and at the end)
-    the steps' 0-d losses, kept on the device until then, are read back in
-    one sync and the last is logged beside the window mean of the last
-    LOSS_WINDOW per-step losses (:576-587). After each step, every (every,
-    fn) of `events` whose cadence the step count crosses is called, in
-    order, with the step count; host-clock ms per step leave their time
-    out. Returns the history: logged iterations, train loss and ms per
-    step, and the window mean."""
+    `step_generator(seed, step)`, in the JAX trainer's chunks
+    (`chunk_events` over log_every and every cadence of `events`). At each
+    chunk's end the chunk's 0-d losses, kept on the device until then, are
+    read back in one sync and the last is logged beside the window mean of
+    the last LOSS_WINDOW per-step losses (:576-587); then every (every, fn)
+    of `events` whose cadence the chunk crosses is called, in order, with
+    the step count. Host-clock ms per step leave their time out. Returns the
+    history: logged iterations, train loss and ms per step, and the window
+    mean."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
     loss_window = deque(maxlen=LOSS_WINDOW)
-    step_losses = []
-    end = start_iter + iterations
     _sync(device)
     t_last, it_last = time.perf_counter(), start_iter
-    for it in range(start_iter, end):
-        g = step_generator(seed, it, device)
-        batch = sample_batch(data, table, batch_size, g, subsample)
-        loss, loss_d = train_step(model, optimizer, batch, g)
-        step_losses.append(loss)
-
-        done = it + 1
-        if done % log_every == 0 or done == end:
-            losses = torch.stack(step_losses).float().tolist()  # syncs
-            step_losses.clear()
-            loss_f = losses[-1]
-            now = time.perf_counter()
-            ms = (now - t_last) * 1e3 / (done - it_last)
-            t_last, it_last = now, done
-            if not math.isfinite(loss_f):
-                raise FloatingPointError(f"non-finite loss {loss_f} at iteration {it}")
-            loss_window.extend(losses)
-            history["iterations"].append(it)
-            history["train_loss"].append(loss_f)
-            history["ms_per_step"].append(ms)
-            log(f"iter {it}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
-                f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step, "
-                f"{batch_size * 1e3 / ms:.0f} seqs/s)")
-
-        fired = [fn for every, fn in events if crossed(every, done, end)]
-        for fn in fired:
-            fn(done)
+    for first, done, fired in chunk_events(start_iter, iterations,
+                                           [every for every, _ in events], log_every):
+        step_losses = []
+        for it in range(first, done):
+            g = step_generator(seed, it, device)
+            batch = sample_batch(data, table, batch_size, g, subsample)
+            loss, loss_d = train_step(model, optimizer, batch, g)
+            step_losses.append(loss)
+        losses = torch.stack(step_losses).float().tolist()  # syncs
+        loss_f = losses[-1]
+        now = time.perf_counter()
+        ms = (now - t_last) * 1e3 / (done - it_last)
+        if not math.isfinite(loss_f):
+            raise FloatingPointError(f"non-finite loss {loss_f} at iteration {done - 1}")
+        loss_window.extend(losses)
+        history["iterations"].append(done - 1)
+        history["train_loss"].append(loss_f)
+        history["ms_per_step"].append(ms)
+        log(f"iter {done - 1}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
+            f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step, "
+            f"{batch_size * 1e3 / ms:.0f} seqs/s)")
+        for i in fired:
+            events[i][1](done)
         if fired:  # keep eval and save time out of ms per step
             _sync(device)
-            t_last, it_last = time.perf_counter(), done
+        t_last, it_last = time.perf_counter(), done
     history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
     return history
 
@@ -434,7 +425,7 @@ def train(
     if n_model_shards > 1:
         raise NotImplementedError(
             f"n_model_shards={n_model_shards}: tensor parallelism is not ported yet "
-            f"(ROADMAP.md queue 1, item 8, multi-GPU); the port trains on one device")
+            f"(ROADMAP.md queue 1, item 5, multi-GPU); the port trains on one device")
     device = resolve_device(device)
     if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
         raise ValueError(

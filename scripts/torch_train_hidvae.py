@@ -1,0 +1,43 @@
+"""Train the stage-1 HiD-VAE tokenizer with the PyTorch port from a gin
+config (counterpart of train_hidvae.py, the same gin surface).
+
+    python scripts/torch_train_hidvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
+
+`--resume` overrides the config's `train.pretrained_hrqvae_path`: a
+checkpoint this trainer saved (`latest`), or a JAX stage-1 checkpoint
+converted where the JAX package is installed with
+`scripts/export_flax_checkpoint.py SRC DST --opt-state`. `--device` picks
+the device (`cuda` unless given). Checkpoints (exported checkpoints with
+the structural model_config and the audited repetition rate, which
+scripts/torch_train_transformer.py --stage1 takes), train.log and plots
+land in `<save_dir_root>/hrqvae_<DATASET>_<time>/`, the rare-tag remap in
+`<save_dir_root>/special_tags_files/rare_tags.npz`. Imports no JAX.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config_path", help="stage-1 gin config")
+    ap.add_argument("--resume", default=None, help="stage-1 checkpoint to resume from")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from hidvae_tpu_torch.train.hidvae import train
+    from hidvae_tpu_torch.utils.config import parse_config_and_run
+
+    result = parse_config_and_run(train, [args.config_path],
+                                  pretrained_hrqvae_path=args.resume, device=args.device)
+    print(f"trained to step {result['step']}; tag_class_counts {result['tag_class_counts']}; "
+          f"checkpoints {result['saved_paths']}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -5,6 +5,7 @@ the same weights at small widths."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from flax import traverse_util
 
 from hidvae_tpu_torch.bridge import load_flax_weights
@@ -14,6 +15,17 @@ def flat(tree):
     """A flax variable tree -> {"a/b/kernel": np.ndarray}."""
     return {k: np.asarray(v) for k, v in
             traverse_util.flatten_dict(tree, sep="/").items()}
+
+
+def assert_rel(got, want, tol, err_msg=""):
+    """max |got - want| <= tol * max |want|: each array is held to its own
+    largest entry, with a floor of 1e-12 so that an array of zeros must come
+    out as zeros."""
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape, err_msg)
+    scale = max(float(np.max(np.abs(want))), 1e-12) if want.size else 1e-12
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale, err_msg=err_msg)
 
 
 def unflat(d):

@@ -1,0 +1,94 @@
+"""The trainers' chunked loop against the JAX package: events fire at the
+steps where the JAX trainers fire them.
+
+The JAX trainers run in chunks of max(1, min(log_every, every cadence,
+steps)) steps, log once per chunk and test each cadence only at chunk ends
+(hidvae_tpu/train/transformer.py:536-537, :579-613; hidvae.py:634,
+:708-710). `chunk_events` is that rule; the stage-2 loop runs on it, and a
+100-step run with log_every 20, partial eval 50 and saves every 30 logs,
+evaluates and saves at JAX's steps (evals at 60 and 100, not 50 and 100)."""
+
+import os
+
+import numpy as np
+import pytest
+
+from hidvae_tpu.data.processed import RecDataset as JRecDataset
+from hidvae_tpu.data.processed import processed_path as j_processed_path
+from hidvae_tpu.data.synthetic import build_synthetic
+from hidvae_tpu.train import transformer as jtrainer
+from hidvae_tpu.utils import runtime as jruntime
+from hidvae_tpu_torch.data.processed import RecDataset
+from hidvae_tpu_torch.train import transformer as trainer
+from hidvae_tpu_torch.train.common import chunk_events
+
+TINY = dict(n_items=200, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
+            level_branching=(4, 2, 2))
+COMMON = dict(
+    batch_size=8, full_eval_every=10_000, vae_input_dim=32, vae_n_cat_feats=0,
+    vae_hidden_dims=(32, 16), vae_embed_dim=8, vae_codebook_size=32, vae_n_layers=3,
+    use_h_tokenizer=False, tag_embed_dim=16, decoder_embed_dim=16, attn_embed_dim=32,
+    attn_heads=2, attn_layers=2, warmup_steps=3, make_plots=False, seed=7, eval_batches=0,
+    mixed_precision_type="fp32",
+)
+
+
+def reference_events(start, n, cadences, log_every):
+    """The JAX loop's bookkeeping, step for step (transformer.py:578-613)."""
+    chunk = max(1, min(log_every, *cadences, n))
+    it, out = start, []
+    while it < start + n:
+        n_now = min(chunk, start + n - it)
+        prev, it = it, it + n_now
+        out.append((prev, it, tuple(i for i, e in enumerate(cadences)
+                                    if prev // e != it // e or it == start + n)))
+    return out
+
+
+@pytest.mark.parametrize("start,n,cadences,log_every", [
+    (0, 100, (50, 10_000, 30), 20),
+    (0, 100, (50,), 100),
+    (7, 23, (5, 4), 100),
+    (3, 1, (1000,), 100),
+    (0, 9, (2, 3), 1),
+])
+def test_chunk_events_follow_the_jax_loop(start, n, cadences, log_every):
+    assert list(chunk_events(start, n, cadences, log_every)) == reference_events(
+        start, n, cadences, log_every)
+
+
+@pytest.fixture(scope="module")
+def dataset_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("synth_chunks"))
+    build_synthetic(**TINY).save(j_processed_path(root, JRecDataset.SYNTHETIC))
+    return root
+
+
+def _names(paths):
+    return [os.path.basename(p) for p in paths]
+
+
+def test_stage2_events_fire_where_jax_fires_them(dataset_root, tmp_path, monkeypatch):
+    """100 steps, log_every 20, partial eval every 50, saves every 30: the
+    JAX trainer and the port log at 19, 39, .., 99, evaluate at 60 and 100
+    and save checkpoint_40, _60 and _100. With log_every 100 the port logs at
+    49 and 99, as the chunk of 50 puts them."""
+    monkeypatch.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache
+    kw = dict(COMMON, iterations=100, log_every=20, partial_eval_every=50, save_model_every=30,
+              dataset_folder=dataset_root)
+    jres = jtrainer.train(dataset=JRecDataset.SYNTHETIC, save_dir_root=str(tmp_path / "jax"), **kw)
+    tres = trainer.train(dataset=RecDataset.SYNTHETIC, save_dir_root=str(tmp_path / "port"),
+                         device="cpu", **kw)
+    jh, th = jres["history"], tres["history"]
+    assert th["iterations"] == jh["iterations"] == [19, 39, 59, 79, 99]
+    assert th["eval_iterations"] == jh["eval_iterations"] == [60, 100]
+    assert _names(tres["saved_paths"]) == _names(jres["saved_paths"]) == [
+        "checkpoint_40", "checkpoint_60", "checkpoint_100"]
+    assert all(np.isfinite(th["train_loss"]))
+
+    kw.update(log_every=100, save_model_every=10_000)
+    tres = trainer.train(dataset=RecDataset.SYNTHETIC, save_dir_root=str(tmp_path / "port100"),
+                         device="cpu", **kw)
+    assert tres["history"]["iterations"] == [49, 99]
+    assert tres["history"]["eval_iterations"] == [50, 100]
+    assert _names(tres["saved_paths"]) == ["checkpoint_100"]

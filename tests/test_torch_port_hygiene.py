@@ -3,9 +3,10 @@ refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
 import, a small engine serves on the CPU, the smoke's artifacts phase writes
 small exported checkpoints and serves them through `from_artifacts` on both
 tokenizer routes, the smoke's training path trains a small model there, and
-its trainer phase drives scripts/torch_train_transformer.py (train, resume,
-serve the checkpoint, remat). And the port's sources are small text
-files."""
+its stage-1 phase drives scripts/torch_train_hidvae.py (train, resume,
+audit, throughput) and its trainer phase scripts/torch_train_transformer.py
+on that checkpoint (train, resume, serve the checkpoint, remat). And the
+port's sources are small text files."""
 
 import os
 import subprocess
@@ -69,12 +70,23 @@ HYGIENE_SCRIPT = textwrap.dedent('''
         before, after = chip_smoke.fixed_batch_descent(result, data, 4, 2)
         assert after < before, (before, after)
 
-    # The smoke's trainer phase at tiny widths: the gin entry script trains
+    # The smoke's stage-1 phase at tiny widths: the gin entry script trains
+    # 2N mini-steps with evals, audits and saves, N + a resume for N (bitwise
+    # here), the audit's table equals a plain sweep, and the throughput
+    # loop runs. Then its trainer phase on the stage-1 phase's checkpoint:
     # 2N steps, N + a resume for N (bitwise here), the checkpoint serves
     # through from_artifacts, and remat agrees with the plain run.
-    rec = chip_smoke.trainer_phase(torch.device("cpu"), vae, feats, cfg=tiny, n=2,
-                                   splits=(64, 20, 20), remat_run=(350, 2, 2), batch_size=8,
-                                   mixed_precision_type='"fp32"')
+    import os, tempfile
+    with tempfile.TemporaryDirectory() as work:
+        s1, rec1 = chip_smoke.stage1_phase(
+            torch.device("cpu"), feats, os.path.join(work, "stage1"), cfg=tiny, n=2,
+            settings=(("gin", 16, 2), ("batch32", 32, 1)), timed=(1, 1), batch_size=16,
+            rare_tag_threshold=8)
+        assert rec1["resume_gaps"] == {"params": 0.0, "batch_stats": 0.0, "mu": 0.0,
+                                       "nu": 0.0}, rec1
+        rec = chip_smoke.trainer_phase(torch.device("cpu"), vae, feats, cfg=tiny, n=2,
+                                       splits=(64, 20, 20), remat_run=(350, 2, 2), batch_size=8,
+                                       mixed_precision_type='"fp32"', stage1=s1)
     assert rec["resume"]["gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec["resume"]
     assert rec["remat"]["param_gap"] == 0.0, rec["remat"]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

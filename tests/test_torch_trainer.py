@@ -333,9 +333,9 @@ def test_resume_heals_geometry_and_refuses_sem_id_dim(dataset_root, tmp_path, ca
 
 
 def test_refusals_and_default_device(dataset_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         _train(dataset_root, tmp_path, "force", iterations=1, force_dataset_process=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         _train(dataset_root, tmp_path, "shards", iterations=1, n_model_shards=2)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
