@@ -5,10 +5,12 @@
 Builds the port's CUDA kernels (rq_assign, flash attention) from the sources
 in this checkout, all builds started together, and holds each against its
 plain PyTorch version at the shapes the port's paths give it. Then drives
-three paths at the Amazon widths of configs/h_rqvae_amazon.gin and
+these paths at the Amazon widths of configs/h_rqvae_amazon.gin and
 configs/decoder_amazon.gin (random weights from a seed, 18,357 seeded 768-d
-items: the size of the P5 Sports split):
-  * serve: a RetrievalEngine answers one batch of 32 histories;
+items: the size of the P5 Sports split) unless noted:
+  * serve: a RetrievalEngine answers one batch of 32 histories, and the H
+    tokenizer's tokenize_features of that batch's features equals the
+    table's gather;
   * artifacts: the serve engine's modules are saved as exported checkpoints
     beside a processed dataset and a gin file in a temporary directory, and
     `RetrievalEngine.from_artifacts` must rebuild the same engine; then the
@@ -26,6 +28,18 @@ items: the size of the P5 Sports split):
     rq_assign and saves; N and a resume for N more, held to the
     uninterrupted run; the trained model's rq_assign table held to a plain
     sweep; items/s at the gin's batch and accumulation and at batch 256;
+  * mining: the same entry on configs/h_rqvae_synthetic_xxl_m.gin (L 4,
+    batch 1024, bf16, duplicate-pair mining with isolation), cut line by
+    line, on 200,000 seeded tagged items with planted near-duplicates: the
+    pool refreshed at each audit from pairs that collide in the audit's
+    rq_assign table, mined pairs colliding in training, the pool across a
+    resume; items/s at batch 1024;
+  * rqvae: the plain RQ-VAE trainer from its gin entry
+    (scripts/torch_train_rqvae.py) on configs/rqvae_ml32m.gin, cut line by
+    line, on 87,585 seeded items: 2N mini-steps with evals, audits and
+    saves, N + a resume for N, the audit's table against a plain sweep,
+    items/s at batch 64; its checkpoint then served by from_artifacts with
+    a seeded decoder at the widths of configs/decoder_ml32m.gin;
   * trainer: the stage-2 trainer from its gin entry
     (scripts/torch_train_transformer.py) on a processed dataset written
     into a temporary directory and the stage1 phase's checkpoint: 2N steps with full
@@ -37,8 +51,10 @@ Each path's kernel launch counts are set to 0 just before it and read just
 after. Every phase prints its start and end; the line before the last is the
 kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device. Imports nothing of JAX or of the JAX package, and
-reads no file but the port's sources, configs/h_rqvae_amazon.gin and what
-it writes itself.
+reads no file but the port's sources, the three gin files it cuts
+(configs/h_rqvae_amazon.gin, configs/h_rqvae_synthetic_xxl_m.gin and
+configs/rqvae_ml32m.gin: source text, so that the gin it runs cannot drift
+from the repo's) and what it writes itself.
 """
 
 import inspect
@@ -56,8 +72,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from hidvae_tpu_torch.bridge import save_export, state_dict_to_flax
+from hidvae_tpu_torch.bridge import load_export_arrays, save_export, state_dict_to_flax
 from hidvae_tpu_torch.data.processed import RecDataset, processed_path
+from hidvae_tpu_torch.data.schemas import SeqBatch
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.attention import FLASH_MIN_TOKENS, takes_flash_route
 from hidvae_tpu_torch.models.init import init_params_
@@ -166,12 +183,17 @@ KERNEL_CASES = (  # (B, D, L, K)
     (1001, 128, 3, 256),
     (8192, 64, 3, 256),      # the ML-32M sweep's launches: 10 x 8,192 + 5,665 rows
     (5665, 64, 3, 256),
+    (8192, 32, 4, 256),      # the mining audit's launches (L 4): 24 x 8,192 + 3,392 rows
+    (3392, 32, 4, 256),
+    (640, 32, 3, 256),       # tokenize_features of the serve batch: 32 x 20 rows
 )
 # Timed: one sweep chunk (the main path's launch shape: an 18,357-item
-# build launches 8,192 + 8,192 + 1,973 rows), 1M rows, and the two launch
-# shapes of the 87,585-item ML-32M build at D 64.
+# build launches 8,192 + 8,192 + 1,973 rows), 1M rows, the two launch
+# shapes of the 87,585-item ML-32M build at D 64, the two of the
+# 200,000-item mining audit at L 4, and the tokenize_features launch.
 TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
-               (5665, 64, 3, 256))
+               (5665, 64, 3, 256), (8192, 32, 4, 256), (3392, 32, 4, 256),
+               (640, 32, 3, 256))
 # Codes made identical, far apart in K: a row nearest to them must get the
 # first, as argmin gives it.
 DUPLICATE_CODES = (3, 130, 255)
@@ -300,13 +322,31 @@ def seed_codebooks_(vae, feats, generator):
             enc = enc - q(enc).embeddings
 
 
+def unit_rows(n, dim, generator):
+    """[n, dim] seeded unit-norm rows (text embeddings are unit-norm)."""
+    x = torch.randn(n, dim, generator=generator)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def write_items(path, feats, rng, hist=None, **arrays):
+    """The processed .npz at `path`: the items `feats` (95 % of them in the
+    train split, drawn from `rng`), the histories `hist` (or one
+    placeholder) and `arrays` (tags)."""
+    n = len(feats)
+    hist = np.zeros((1, 2), np.int32) if hist is None else hist.astype(np.int32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, item_features=feats, item_is_train=rng.rand(n) < 0.95,
+             seq_users=np.arange(len(hist), dtype=np.int32), seq_items=hist,
+             seq_fut=rng.randint(0, n, len(hist)).astype(np.int32),
+             seq_is_train=np.ones(len(hist), bool), **arrays)
+
+
 def build_vae(cfg, generator):
     """The frozen stage-1 model with seeded weights and codebooks, and the
     seeded unit-norm item features it indexes (a CPU tensor): a HiD-VAE
     where cfg has tag counts, else the plain RQ-VAE."""
     g = generator
-    feats = torch.randn(cfg["n_items"], cfg["input_dim"], generator=g)
-    feats = feats / feats.norm(dim=-1, keepdim=True)  # text embeddings are unit-norm
+    feats = unit_rows(cfg["n_items"], cfg["input_dim"], g)
     widths = (cfg["input_dim"], cfg["embed_dim"], cfg["hidden_dims"], cfg["codebook_size"])
     common = dict(codebook_normalize=cfg["codebook_normalize"], n_layers=cfg["n_layers"])
     if cfg.get("tag_class_counts") is None:
@@ -435,9 +475,12 @@ def duplicate_codes_(x, cbs, generator):
 @phase("kernel")
 def kernel_phase(device):
     """rq_assign against its plain version on every KERNEL_CASES shape and
-    on duplicated codes; times at TIMED_CASES. Returns the 1M-row record
-    with the main path's launch shape under `at_main_path_launch` and the
-    ML-32M build's two launch shapes under `at_ml32m_launches`."""
+    on duplicated codes; times at TIMED_CASES, with how each launch stages
+    its codebooks. Returns the 1M-row record with the main path's launch
+    shape under `at_main_path_launch`, the ML-32M build's two launch shapes
+    under `at_ml32m_launches`, the mining audit's two under
+    `at_mining_launches` and tokenize_features' under
+    `at_tokenize_launch`."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -473,16 +516,23 @@ def kernel_phase(device):
             g_ms = graph_ms(lambda: rq.rq_assign(x, cbs))
             plain_ms = median_ms(lambda: rq.rq_assign_reference(x, cbs))
             bound_ms, bound_by = rq_bound_ms(b, d, n_levels, k)
+            plan = rq.staging(d, n_levels, k)
             print(f"  kernel_ms {ms:.4f} (one call from the host; from a CUDA graph {g_ms:.4f}) "
                   f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b} D={d}", flush=True)
-            records[b, d] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, max_abs_err=qerr,
-                                 shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]")
+                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b} D={d} "
+                  f"L={n_levels}; codebooks "
+                  f"{'all resident' if plan['resident'] else 'streamed level by level'}, "
+                  f"{plan['warps']} warps, {plan['smem_bytes']} bytes of shared memory",
+                  flush=True)
+            records[b, d, n_levels] = dict(
+                ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=qerr, shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]", **plan)
         del x, cbs, ids, qsum, ids_ref, qsum_ref
-    main, big, *ml32m = ((b, d) for b, d, _, _ in TIMED_CASES)
+    main, big, ml_a, ml_b, mine_a, mine_b, tok = (c[:3] for c in TIMED_CASES)
     return dict(records[big], at_main_path_launch=records[main],
-                at_ml32m_launches=[records[c] for c in ml32m])
+                at_ml32m_launches=[records[ml_a], records[ml_b]],
+                at_mining_launches=[records[mine_a], records[mine_b]],
+                at_tokenize_launch=records[tok])
 
 
 @phase("serve")
@@ -519,9 +569,48 @@ def serve_phase(device):
           f"{len(torch.unique(engine.corpus_ids, dim=0))}", flush=True)
     if n_bad or not tags_equal:
         raise AssertionError("corpus table differs from the plain sweep")
+    tok_launches = check_tokenize_features(tok, items, hist)
 
     p50 = serve_p50(engine, hist)
-    return launches, p50, engine, items, hist
+    return launches, p50, engine, items, hist, tok_launches
+
+
+def check_tokenize_features(tok, items, hist):
+    """The tokenizer's tokenize_features on the features of the histories
+    `hist` ([B, N] item ids, -1 padded; one rq_assign launch of B * N rows
+    on the card) against its gather from the table: the semantic IDs of
+    every item equal outside near ties of the plain version, the tags equal
+    where they do, -1 at every padded position. Returns the launches."""
+    valid = hist >= 0
+    x = items[np.where(valid, hist, 0)]
+    rq.rq_assign.launches = 0
+    got = tok.tokenize_features(x, seq_mask=valid)
+    launches = rq.rq_assign.launches
+    dev = tok.device
+    want = tok(SeqBatch(user_ids=torch.zeros(len(hist), dtype=torch.int32, device=dev),
+                        ids=torch.from_numpy(hist).to(dev),
+                        ids_fut=torch.zeros((len(hist), 1), dtype=torch.int64, device=dev),
+                        x=None, x_fut=None, seq_mask=torch.from_numpy(valid).to(dev)))
+    b, n = hist.shape
+    d, n_l = tok.sem_ids_dim, tok.n_layers
+    g, w = (t.sem_ids.reshape(b, n, d) for t in (got, want))
+    keep = torch.from_numpy(valid).to(dev)
+    with torch.inference_mode(), full_fp32():
+        encoded = tok.hrq_vae.encode(torch.from_numpy(x[valid]).to(dev))
+        ties = near_tie_levels(encoded, tok.hrq_vae.stacked_codebooks())
+    n_diff, n_bad = compare_ids(g[keep][:, :n_l], w[keep][:, :n_l], ties)
+    same = ~(g[keep][:, :n_l] != w[keep][:, :n_l]).any(dim=-1)
+    tags_equal = bool((g[keep][same] == w[keep][same]).all())
+    padded = bool((g[~keep] == -1).all()) and torch.equal(got.seq_mask, want.seq_mask)
+    print(f"  tokenize_features of the {b} x {n} batch ({int(valid.sum())} items, rq_assign "
+          f"launches {launches}) against the table's gather: items differing {n_diff} (not "
+          f"near ties: {n_bad}); tags equal on the rest: {tags_equal}; padding and mask equal: "
+          f"{padded}", flush=True)
+    want_launches = 1 if dev.type == "cuda" else 0
+    if n_bad or not tags_equal or not padded or launches != want_launches:
+        raise AssertionError(f"tokenize_features differs from the table's gather (launches "
+                             f"{launches}, expected {want_launches})")
+    return launches
 
 
 def serve_p50(engine, hist):
@@ -621,15 +710,20 @@ def write_artifacts(root, gin_text, cfg, vae, model, feats, hist, sem_table):
     rep = repetition_rate(sem_table)[0]
     s1 = save_export(os.path.join(root, "stage1"), vae, {
         "model_config": structural_config(cfg), "metrics": {"repetition_rate": rep}})
+    return gin, s1, save_decoder_export(os.path.join(root, "stage2"), cfg, model), rep
+
+
+def save_decoder_export(path, cfg, model):
+    """The decoder `model` as an exported checkpoint with the geometry the
+    JAX trainer records in its meta. Returns the directory."""
     d = model.sem_id_dim
-    s2 = save_export(os.path.join(root, "stage2"), model, {"model_config": {
+    return save_export(path, model, {"model_config": {
         "attn_dim": cfg["attn_embed_dim"], "attn_embed_dim": cfg["attn_embed_dim"],
         "attn_heads": cfg["attn_heads"], "attn_layers": cfg["attn_layers"],
         "decoder_embed_dim": cfg["decoder_embed_dim"], "sem_id_dim": d,
         "num_embeddings": cfg["codebook_size"], "n_sem_layers": cfg["n_layers"],
         "use_interleaved_ids": False, "max_pos": cfg["max_seq_len"] * d,
     }, "metrics": {}})
-    return gin, s1, s2, rep
 
 
 def serve_from_artifacts(name, root, gin_text, cfg, vae, model, feats, hist, sem_table,
@@ -1073,8 +1167,8 @@ def train_phase(device, flash_ms_per_layer):
 
 # ---- the stage-1 trainer from its gin entry ----------------------------------
 
-H_RQVAE_AMAZON_GIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                                  "h_rqvae_amazon.gin")
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+H_RQVAE_AMAZON_GIN = os.path.join(CONFIGS, "h_rqvae_amazon.gin")
 STAGE1_N = 4              # mini-steps between evals, audits and saves: the run takes 2N
 STAGE1_EVAL_BATCHES = 2   # eval batches of 128 items
 STAGE1_TAG_SKEW = 0.9     # tag class i is drawn with weight (i + 1)^-0.9: a rare tail to remap
@@ -1099,20 +1193,42 @@ def write_stage1_inputs(root, cfg, feats, seed=SEED):
         idx.append(level)
         emb.append(table.astype(np.float32)[level])
     path = processed_path(root, RecDataset.AMAZON, "sports")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path, item_features=feats, item_is_train=rng.rand(n) < 0.95,
-             seq_users=np.zeros(1, np.int32), seq_items=np.zeros((1, 2), np.int32),
-             seq_fut=np.zeros(1, np.int32), seq_is_train=np.ones(1, bool),
-             tags_emb=np.stack(emb, axis=1), tags_indices=np.stack(idx, axis=1))
+    write_items(path, feats, rng, tags_emb=np.stack(emb, axis=1),
+                tags_indices=np.stack(idx, axis=1))
+    return path
+
+
+def cut_gin(source, path, values, show=False):
+    """Write `path`: the gin file `source` as the checkout holds it, line by
+    line, with each key of `values` (gin literals) set where the file binds
+    it and appended where it does not. With `show`, print each cut: the
+    file's value and the run's, where they differ. Returns `path`."""
+    with open(source) as f:
+        text = f.read()
+    lines, bound, cuts = [], set(), []
+    for line in text.splitlines():
+        key = line.split("=")[0].strip().removeprefix("train.")
+        if key in values and "=" in line:
+            was = line.split("=", 1)[1].strip()
+            line = f"train.{key} = {values[key]}"
+            bound.add(key)
+            if was != str(values[key]):
+                cuts.append(f"{key} {was} -> {values[key]}")
+        lines.append(line)
+    lines += [f"train.{k} = {v}" for k, v in values.items() if k not in bound]
+    cuts += [f"{k} (unset) -> {v}" for k, v in values.items() if k not in bound]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    if show:
+        print(f"  {os.path.basename(source)} cut for this run: " + "; ".join(cuts), flush=True)
     return path
 
 
 def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
-    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin as
-    the checkout holds it, line by line, at cfg's widths, reading root's
-    dataset, with iterations for `mini_steps` mini-steps, evals, audits and
-    saves every n mini-steps, STAGE1_EVAL_BATCHES eval batches and
-    `bindings`."""
+    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin cut
+    line by line to cfg's widths, reading root's dataset, with iterations
+    for `mini_steps` mini-steps, evals, audits and saves every n
+    mini-steps, STAGE1_EVAL_BATCHES eval batches and `bindings`."""
     accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
     values = {
         "iterations": mini_steps // accumulate, "save_model_every": n, "eval_every": n,
@@ -1122,20 +1238,7 @@ def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
         "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
         "eval_batches": STAGE1_EVAL_BATCHES, **bindings,
     }
-    lines, bound = [], set()
-    with open(H_RQVAE_AMAZON_GIN) as f:
-        text = f.read()
-    for line in text.splitlines():
-        key = line.split("=")[0].strip().removeprefix("train.")
-        if key in values:
-            line = f"train.{key} = {values[key]}"
-            bound.add(key)
-        lines.append(line)
-    lines += [f"train.{k} = {v}" for k, v in values.items() if k not in bound]
-    path = os.path.join(root, f"h_rqvae_{mini_steps}.gin")
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    return path
+    return cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, f"h_rqvae_{mini_steps}.gin"), values)
 
 
 def check_stage1_run(name, result, launches, steps, evals, device, n_items):
@@ -1180,52 +1283,59 @@ def device_busy(run, device):
     return len(kernels), busy / 1e3
 
 
+def time_updates(name, update, batch, accumulate, device, timed):
+    """Items per second of `update()` (`accumulate` mini-steps of `batch`
+    items): host clock around each update, which ends in a synchronize; the
+    median over timed[1] updates after timed[0] warm-up ones. On the card
+    one more update is traced for its kernel launches and device busy time.
+    Prints and returns the record."""
+    times = []
+    for _ in range(sum(timed)):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        update()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times[timed[0]:])
+    launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
+    busy_note = ("" if busy is None else f"; traced update: {launches} kernels, device busy "
+                 f"{busy:.2f} ms ({100 * busy / (t * 1e3):.1f} % of the median update)")
+    print(f"  throughput {name}: batch {batch} x {accumulate} mini-steps per update, "
+          f"median {t * 1e3:.2f} ms per update over {timed[1]} after {timed[0]} warm-up "
+          f"(min {min(times[timed[0]:]) * 1e3:.2f}, max {max(times[timed[0]:]) * 1e3:.2f}; "
+          f"{t * 1e3 / accumulate:.2f} ms per mini-step): {batch * accumulate / t:.0f} "
+          f"items/s{busy_note}", flush=True)
+    return dict(batch=batch, accumulate=accumulate, items_per_s=batch * accumulate / t,
+                ms_per_update=t * 1e3, ms_per_mini_step=t * 1e3 / accumulate,
+                kernels_per_update=launches, device_busy_ms=busy)
+
+
 def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE1_TIMED,
                       seed=SEED):
     """Stage-1 items per second of the trained model on its device corpus
     under the optimizer that `train` builds from the bindings `gin` (the
-    setting's accumulation in place of the gin's), per setting: host
-    clock around each update's mini-steps, which end in a synchronize; the
-    median over the timed updates after the warm-up ones. On the card one
-    more update is traced for its kernel launches and device busy time."""
+    setting's accumulation in place of the gin's), per setting, with the
+    run's mined pair rows (`time_updates`)."""
     from hidvae_tpu_torch.train import hidvae as s1
 
-    model, data = result["model"], result["data"]
+    model, data, n_pairs = result["model"], result["data"], result["n_pair_rows"]
     defaults = inspect.signature(s1.train).parameters
     bindings = {k: gin.get(k, defaults[k].default)
                 for k in list(inspect.signature(s1.build_optimizer).parameters)[1:]}
     out = {}
     for name, batch, accumulate in settings:
         opt, _ = s1.build_optimizer(model, **{**bindings, "gradient_accumulate_every": accumulate})
-        step = s1.make_train_step(model, opt, result["class_counts"])
+        step = s1.make_train_step(model, opt, result["class_counts"], n_mined_pairs=n_pairs)
         counter = iter(range(1_000_000, 2_000_000))
 
         def update():
             for _ in range(accumulate):
                 g, host = s1.step_rngs(seed, next(counter), device)
-                step(*data.sample(g, batch), g, host)
+                step(*data.sample(g, batch, n_pairs), g, host)
 
-        times = []
-        for _ in range(sum(timed)):
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            update()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            times.append(time.perf_counter() - t0)
-        t = statistics.median(times[timed[0]:])
-        launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
-        out[name] = dict(batch=batch, accumulate=accumulate, items_per_s=batch * accumulate / t,
-                         ms_per_update=t * 1e3, ms_per_mini_step=t * 1e3 / accumulate,
-                         kernels_per_update=launches, device_busy_ms=busy)
-        busy_note = ("" if busy is None else f"; traced update: {launches} kernels, device busy "
-                     f"{busy:.2f} ms ({100 * busy / (t * 1e3):.1f} % of the median update)")
-        print(f"  throughput {name}: batch {batch} x {accumulate} mini-steps per update, "
-              f"median {t * 1e3:.2f} ms per update over {timed[1]} after {timed[0]} warm-up "
-              f"(min {min(times[timed[0]:]) * 1e3:.2f}, max {max(times[timed[0]:]) * 1e3:.2f}; "
-              f"{t * 1e3 / accumulate:.2f} ms per mini-step): {batch * accumulate / t:.0f} "
-              f"items/s{busy_note}", flush=True)
+        out[name] = time_updates(name, update, batch, accumulate, device, timed)
     return out
 
 
@@ -1595,13 +1705,316 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
     record["remat"] = remat_runs(cfg, vae, feats, device, run=remat_run)
     return record
 
+# ---- duplicate-pair mining in the stage-1 trainer ----------------------------
+
+H_RQVAE_XXL_M_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_xxl_m.gin")
+# configs/h_rqvae_synthetic_xxl_m.gin's widths; the corpus of the
+# h_rqvae_synthetic_xl4m*.gin configs (200,000 items) in place of its 1M,
+# whose processed .npz would hold 9.2 GB of fp32 tag embeddings alone; the
+# 32 x 8 x 8 tag tree of scripts/make_synthetic_xxl.py.
+XXL_M = dict(input_dim=768, hidden_dims=(512, 256, 128), embed_dim=32, codebook_size=256,
+             n_layers=4, tag_embed_dim=768, tag_tree=(32, 8, 8), n_items=200_000)
+XXL_M_CORPUS = 1_000_000  # the config's own corpus (scripts/make_synthetic_xxl.py)
+MINING_N = 4              # mini-steps between evals, audits and saves: the run takes 2N
+MINING_EVAL_BATCHES = 1   # eval batches of 1,024 items
+MINING_PLANTED = 0.1      # share of the items planted as near-copies of another item
+MINING_NOISE = 1e-4       # the copies' perturbation (unit-norm features)
+MINING_TIMED = (3, 10)
+MINING_SETTINGS = (("mining", 1024, 1),)  # the gin's batch, no accumulation
+
+
+def write_mining_inputs(path, cfg, seed=SEED):
+    """The tagged catalog at `path`: cfg["n_items"] seeded unit-norm items of
+    which MINING_PLANTED are near-copies of others (and share their tags),
+    so that random weights' first audit finds colliding tuples; tags from a
+    seeded tree of cfg["tag_tree"] branchings, each level's class a seeded
+    tag embedding. Returns (features, planted copies, their sources)."""
+    rng = np.random.RandomState(seed + 51)
+    n = cfg["n_items"]
+    feats = unit_rows(n, cfg["input_dim"], torch.Generator().manual_seed(seed + 52))
+    perm = rng.permutation(n)
+    k = int(MINING_PLANTED * n)
+    src, dst = perm[:k], perm[k:2 * k]
+    noisy = feats[src] + MINING_NOISE * torch.randn(
+        k, cfg["input_dim"], generator=torch.Generator().manual_seed(seed + 53))
+    feats[dst] = noisy / noisy.norm(dim=-1, keepdim=True)
+    leaves = int(np.prod(cfg["tag_tree"]))
+    leaf = rng.randint(0, leaves, n)
+    leaf[dst] = leaf[src]
+    idx, emb, width = [], [], leaves
+    for b in cfg["tag_tree"]:
+        width //= b
+        level = (leaf // width).astype(np.int32)
+        table = (rng.randn(level.max() + 1, cfg["tag_embed_dim"])
+                 / math.sqrt(cfg["tag_embed_dim"])).astype(np.float32)
+        idx.append(level)
+        emb.append(table[level])
+    feats = feats.numpy()
+    write_items(path, feats, rng, tags_emb=np.stack(emb, axis=1),
+                tags_indices=np.stack(idx, axis=1))
+    return feats, dst, src
+
+
+def check_mining_run(name, result, launches, steps, evals, device, n_items, pool):
+    """Steps and audits where the cadence puts them, `latest` saved holding
+    the pool, finite losses, the pool of `pool` pairs refreshed at every
+    audit, rq_assign once per 8,192 items per audit on the card and no
+    flash kernel."""
+    hist = result["history"]
+    latest = [p for p in result["saved_paths"] if os.path.basename(p) == "latest"]
+    if result["step"] != steps or hist["eval_iterations"] != evals or not latest:
+        raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
+                             f"saves {result['saved_paths']}; expected {steps}, {evals}")
+    if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
+        raise AssertionError(f"{name}: losses not finite")
+    saved = load_export_arrays(latest[-1], "mining_pairs").get("mining_pairs")
+    live = result["data"].mining_pairs.cpu().numpy()
+    if saved is None or saved.shape != (pool, 2) or not np.array_equal(saved, live):
+        raise AssertionError(f"{name}: latest does not hold the run's pool of {pool} pairs")
+    if hist["mining_pool_refreshed"] != evals:
+        raise AssertionError(f"{name}: pool refreshed at {hist['mining_pool_refreshed']}, "
+                             f"expected at every audit {evals}")
+    want = {"rq_assign": math.ceil(n_items / 8192) * len(evals) if device.type == "cuda" else 0,
+            **{fn.__name__: 0 for fn in fa.KERNELS}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    return saved
+
+
+@phase("mining")
+def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
+                 timed=MINING_TIMED, **bindings):
+    """The stage-1 trainer from its gin entry (scripts/torch_train_hidvae.py)
+    on configs/h_rqvae_synthetic_xxl_m.gin, cut line by line, at cfg's
+    widths, on the tagged catalog of `write_mining_inputs` under `root`: 2N
+    mini-steps with evals, audits (each harvesting the pool) and saves at N
+    and 2N; the pool's pairs colliding in the audit's rq_assign table, which
+    a plain sweep must match; mined pairs colliding in the steps after the
+    first audit; N, then a resume for N more, held to the uninterrupted run
+    with the pool restored bitwise; items/s with mining on. Returns the
+    record."""
+    script = load_script("torch_train_hidvae")
+    t0 = time.perf_counter()
+    path = processed_path(root, RecDataset.SYNTHETIC)
+    feats, dst, src = write_mining_inputs(path, cfg)
+    n_items = len(feats)
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data in "
+          f"{time.perf_counter() - t0:.2f} s ({n_items} items, cut from the config's "
+          f"{XXL_M_CORPUS}; {len(dst)} planted near-copies; tags of a "
+          f"{'x'.join(map(str, cfg['tag_tree']))} tree)", flush=True)
+    values = {
+        "save_model_every": n, "eval_every": n, "vae_input_dim": cfg["input_dim"],
+        "vae_hidden_dims": list(cfg["hidden_dims"]), "vae_embed_dim": cfg["embed_dim"],
+        "vae_codebook_size": cfg["codebook_size"], "vae_n_layers": cfg["n_layers"],
+        "tag_embed_dim": cfg["tag_embed_dim"], "dataset_folder": f'"{root}"',
+        "save_dir_root": f'"{os.path.join(root, "runs")}"', "eval_batches": MINING_EVAL_BATCHES,
+        **bindings,
+    }
+    gin_2n = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "mining_2n.gin"),
+                     dict(values, iterations=2 * n), show=True)
+    gin_n = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "mining_n.gin"),
+                    dict(values, iterations=n))
+    gin = parse_gin_file(gin_2n)["train"]
+    pool = gin["sem_id_mining_pool"]
+    full, launches, seconds = run_trainer_entry(script, device, gin_2n)
+    check_mining_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items, pool)
+    hist = full["history"]
+    rates = hist["mined_pair_collision_rate"]
+    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}, {full['n_pair_rows']} mined "
+          f"pairs a batch, pool {pool}) in {seconds:.2f} s: loss {hist['total_loss']}, "
+          f"repetition {hist['repetition_rate']}, pool refreshed at {hist['mining_pool_refreshed']}"
+          f", mined-pair collision rate at steps {hist['iterations']}: {rates}; tag_class_counts "
+          f"{full['tag_class_counts']}; launches {launches}", flush=True)
+    if not rates[-1] > 0:
+        raise AssertionError("mining: no mined pair collided in the steps after the first audit")
+
+    # The pool against the audit's table: the audit at 2N swept these weights.
+    model = full["model"]
+    tok = HSemanticIdTokenizer(model, n_layers=cfg["n_layers"], codebook_size=cfg["codebook_size"],
+                               tag_class_counts=full["tag_class_counts"], device=device)
+    rq.rq_assign.launches = 0
+    table = tok.precompute_corpus_ids(feats)
+    table_launches = rq.rq_assign.launches
+    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), tok.corpus_chunk_size)
+    n_diff, n_bad = compare_ids(table, ref, ties)
+    train_idx = np.nonzero(np.load(path)["item_is_train"])[0]
+    pairs = train_idx[full["data"].mining_pairs.cpu().numpy()]
+    tab = table.cpu().numpy()
+    colliding = float((tab[pairs[:, 0]] == tab[pairs[:, 1]]).all(axis=1).mean())
+    planted = float((tab[dst] == tab[src]).all(axis=1).mean())
+    print(f"  audit table of the trained model: rq_assign launches {table_launches}; rows "
+          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); pool pairs "
+          f"colliding in it {colliding:.4f}; planted copies sharing their source's tuple "
+          f"{planted:.4f}; repetition {repetition_rate(tab)[0]:.4f}", flush=True)
+    if n_bad or colliding != 1.0:
+        raise AssertionError("mining: the pool's pairs do not all collide in the audit's table, "
+                             "or the table differs from the plain sweep")
+
+    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
+    saved_n = check_mining_run("N run", half, launches_half, n, [n], device, n_items, pool)
+    latest_half = [p for p in half["saved_paths"] if os.path.basename(p) == "latest"][-1]
+    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume", latest_half)
+    check_mining_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items, pool)
+    restored = np.array_equal(resumed["mining_pool_start"], saved_n)
+    same_end = torch.equal(resumed["data"].mining_pairs, full["data"].mining_pairs)
+    print(f"  resume: pool restored bitwise from N's latest {restored}; pools after the audit "
+          f"at {2 * n} equal {same_end}", flush=True)
+    if not (restored and same_end):
+        raise AssertionError("mining: the pool did not survive the resume bitwise")
+    gaps = check_resume(full, half, resumed, 2 * n, updates=2 * n // gin.get(
+        "gradient_accumulate_every", 1), stats=True)
+    throughput = stage1_throughput(full, gin, device, settings, timed)
+    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
+                            "resume": launches_resume["rq_assign"], "table": table_launches},
+                  resume_gaps=gaps, throughput=throughput, collision_rate=rates,
+                  pool_colliding=colliding, repetition_rate=hist["repetition_rate"])
+    del full, half, resumed, model, tok
+    return record
+
+
+# ---- the plain RQ-VAE trainer from its gin entry -----------------------------
+
+RQVAE_ML32M_GIN = os.path.join(CONFIGS, "rqvae_ml32m.gin")
+RQVAE_N = 4               # mini-steps between evals, audits and saves: the run takes 2N
+RQVAE_EVAL_BATCHES = 2    # eval batches of 64 items
+RQVAE_TIMED = (3, 10)
+
+
+def check_rqvae_run(name, result, launches, steps, evals, device, n_items):
+    """Steps, evals, audits and checkpoint_<step - 1> saves where the cadence
+    puts them, the last one's meta holding the structural model_config and
+    its audit, finite losses, rq_assign once per 8,192 items per audit on
+    the card and no flash kernel."""
+    hist = result["history"]
+    saves = [os.path.basename(p) for p in result["saved_paths"]]
+    if (result["step"] != steps or hist["eval_iterations"] != evals
+            or saves != [f"checkpoint_{e - 1}" for e in evals]):
+        raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
+                             f"saves {saves}; expected {steps}, {evals}")
+    if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
+        raise AssertionError(f"{name}: losses not finite")
+    with open(os.path.join(result["saved_paths"][-1], "meta.json")) as f:
+        meta = json.load(f)
+    if (meta["metrics"].get("repetition_rate") != hist["repetition_rate"][-1]
+            or meta["model_config"].get("n_cat_features") is None):
+        raise AssertionError(f"{name}: the checkpoint's meta lacks its audit or config: {meta}")
+    want = {"rq_assign": math.ceil(n_items / 8192) * len(evals) if device.type == "cuda" else 0,
+            **{fn.__name__: 0 for fn in fa.KERNELS}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+
+@phase("rqvae")
+def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **bindings):
+    """The plain RQ-VAE trainer from its gin entry (scripts/torch_train_rqvae.py)
+    on configs/rqvae_ml32m.gin, cut line by line, at cfg's widths, on a
+    processed ML-32M dataset of seeded items written under `root`: 2N
+    mini-steps with evals, audits and saves at N and 2N; N, then a resume
+    for N more, held to the uninterrupted run; the last audit's rq_assign
+    table held to a plain sweep; items/s at the gin's batch; then the
+    checkpoint served by from_artifacts with a seeded decoder at cfg's
+    widths (configs/decoder_ml32m.gin). Returns the record."""
+    from hidvae_tpu_torch.train import rqvae as rv
+
+    script = load_script("torch_train_rqvae")
+    feats = unit_rows(cfg["n_items"], cfg["input_dim"],
+                      torch.Generator().manual_seed(SEED + 41)).numpy()
+    hist = seeded_histories(cfg["n_items"], ARTIFACT_HISTORIES, cfg["max_seq_len"])
+    rq_gin = parse_gin_file(RQVAE_ML32M_GIN)["train"]
+    path = processed_path(root, rq_gin["dataset"], rq_gin.get("dataset_split", "beauty"))
+    write_items(path, feats, np.random.RandomState(SEED + 43), hist)
+    n_items = len(feats)
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
+          f"{len(hist)} histories)", flush=True)
+    values = {
+        "save_model_every": n, "eval_every": n, "force_dataset_process": False,
+        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
+        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
+        "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
+        "eval_batches": RQVAE_EVAL_BATCHES, **bindings,
+    }
+    gin_2n = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "rqvae_2n.gin"),
+                     dict(values, iterations=2 * n), show=True)
+    gin_n = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "rqvae_n.gin"),
+                    dict(values, iterations=n))
+    gin = parse_gin_file(gin_2n)["train"]
+    full, launches, seconds = run_trainer_entry(script, device, gin_2n)
+    check_rqvae_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items)
+    h = full["history"]
+    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}) in {seconds:.2f} s: loss "
+          f"{h['total_loss']}, eval loss {h['eval_total_loss']}, repetition "
+          f"{h['repetition_rate']}, entropy {h['rqvae_entropy']}; saves "
+          f"{[os.path.basename(p) for p in full['saved_paths']]}; launches {launches}",
+          flush=True)
+    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
+    check_rqvae_run("N run", half, launches_half, n, [n], device, n_items)
+    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume",
+                                                    half["saved_paths"][-1])
+    check_rqvae_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
+    gaps = check_resume(full, half, resumed, 2 * n,
+                        updates=2 * n // gin.get("gradient_accumulate_every", 1))
+
+    # The last audit's table (rq_assign) against a plain sweep of the same weights.
+    model = full["model"]
+    table = torch.from_numpy(full["corpus_ids"]).to(device)
+    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), 8192)
+    n_diff, n_bad = compare_ids(table, ref, ties)
+    rep_plain = repetition_rate(ref.cpu().numpy())[0]
+    rep = h["repetition_rate"][-1]
+    print(f"  audit table of the trained model: rows differing from the plain sweep {n_diff} "
+          f"(not near ties: {n_bad}); repetition {rep_plain:.4f} (the audit recorded "
+          f"{rep:.4f})", flush=True)
+    if n_bad or (n_diff == 0 and rep_plain != rep):
+        raise AssertionError("rqvae: the audit's table differs from the plain sweep")
+
+    defaults = inspect.signature(rv.train).parameters
+    opt = rv.build_optimizer(model, **{k: gin.get(k, defaults[k].default) for k in list(
+        inspect.signature(rv.build_optimizer).parameters)[1:]})
+    step = rv.make_train_step(model, opt)
+    counter = iter(range(1_000_000, 2_000_000))
+    batch = gin["batch_size"]
+
+    def update():
+        g = rv.step_generator(SEED, next(counter), device)
+        step(full["data"].sample(g, batch)[0], g)
+
+    throughput = time_updates("rqvae", update, batch, 1, device, timed)
+
+    # The checkpoint served with a seeded decoder at the ML-32M widths.
+    ckpt = full["saved_paths"][-1]
+    decoder = build_decoder(cfg, cfg["n_layers"], torch.Generator().manual_seed(SEED + 45))
+    s2 = save_decoder_export(os.path.join(root, "stage2"), cfg, decoder)
+    dgin = os.path.join(root, "decoder.gin")
+    with open(dgin, "w") as f:
+        f.write(decoder_gin(DECODER_ML32M_GIN, cfg, root))
+    rq.rq_assign.launches = 0
+    t0 = time.perf_counter()
+    engine = RetrievalEngine.from_artifacts(dgin, ckpt, s2, device=device,
+                                            batch_buckets=(len(hist),))
+    serve_s = time.perf_counter() - t0
+    serve_launches = rq.rq_assign.launches
+    out = engine.recommend(hist, top_k=10)
+    resolved = check_recommendations(engine, out, n_items)
+    same_table = np.array_equal(engine.corpus_ids.cpu().numpy(), full["corpus_ids"])
+    print(f"  served {os.path.basename(ckpt)} with from_artifacts in {serve_s:.3f} s (rq_assign "
+          f"launches {serve_launches}); table equal to the audit's {same_table}; {resolved} of "
+          f"{out['items'].size} recommendations resolved to their generated tuples", flush=True)
+    if not same_table:
+        raise AssertionError("rqvae: the served table differs from the trainer's audit")
+    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
+                            "resume": launches_resume["rq_assign"],
+                            "from_artifacts": serve_launches},
+                  resume_gaps=gaps, throughput=throughput, repetition_rate=h["repetition_rate"])
+    del full, half, resumed, model, engine
+    return record
+
 
 def main():
     smi = card_phase()
     device = torch.device("cuda", 0)
     build_phase()
     rec = kernel_phase(device)
-    launches, _, engine, items, hist = serve_phase(device)
+    launches, _, engine, items, hist, tok_launches = serve_phase(device)
     art_launches = artifacts_phase(device, engine, items, hist)
     del engine
     flash_recs = flash_phase(device)
@@ -1610,6 +2023,10 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         stage1, stage1_rec = stage1_phase(device, feats, os.path.join(work, "stage1"))
         trainer_rec = trainer_phase(device, vae, feats, stage1)
+    with tempfile.TemporaryDirectory() as work:
+        mining_rec = mining_phase(device, work)
+    with tempfile.TemporaryDirectory() as work:
+        rqvae_rec = rqvae_phase(device, work)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
@@ -1618,12 +2035,15 @@ def main():
         graph_ms=rec["graph_ms"], shape=rec["shape"],
         at_main_path_launch=rec["at_main_path_launch"],
         at_ml32m_launches=rec["at_ml32m_launches"],
+        at_mining_launches=rec["at_mining_launches"], at_tokenize_launch=rec["at_tokenize_launch"],
         launches_from_artifacts=art_launches,
         launches_trainer={
             "2N run": trainer_rec["full"]["launches"]["rq_assign"],
             **{k: v["rq_assign"] for k, v in trainer_rec["resume"]["launches"].items()},
             "from_artifacts": trainer_rec["serve"]["launches"]},
         launches_stage1=stage1_rec["launches"],
+        launches_rqvae=rqvae_rec["launches"], launches_mining=mining_rec["launches"],
+        launches_tokenize_features=tok_launches,
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
@@ -1631,7 +2051,8 @@ def main():
             replaces=FLASH_REPLACES[name], reached_from="hidvae_tpu/models/attention.py:75",
             launches=long_launches[name],
             launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")}, **r))
-    print(f"  stage1 record: {json.dumps(stage1_rec)}", flush=True)
+    for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec)):
+        print(f"  {name} record: {json.dumps(r)}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -359,25 +359,43 @@ size_t smem_bytes(int slots, int warps, int n_levels, int kp) {
                           (size_t)warps * (2 * D * C::RP + C::ROWS + n_levels * C::ROWS));
 }
 
+// The staging of a launch: all levels resident beside WARPS warps if they
+// fit in max_smem bytes, else one streamed slot beside as many warps as
+// fit. Returns the bytes it takes (more than max_smem: no staging fits).
+template <int D>
+size_t plan(int n_levels, int n_embed, int max_smem, bool* resident, int* warps) {
+  using C = Cfg<D>;
+  const int kp = padded_codes<D>(n_embed);
+  *resident = smem_bytes<D>(n_levels, C::WARPS, n_levels, kp) <= (size_t)max_smem;
+  *warps = C::WARPS;
+  while (!*resident && *warps > 1 &&
+         smem_bytes<D>(1, *warps, n_levels, kp) > (size_t)max_smem)
+    --*warps;
+  return smem_bytes<D>(*resident ? n_levels : 1, *warps, n_levels, kp);
+}
+
+cudaError_t max_shared(int* max_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
 template <int D>
 cudaError_t launch(const float* x, const float* codebooks, int32_t* ids, float* qsum,
                    long long n_rows, int n_levels, int n_embed, cudaStream_t stream) {
   using C = Cfg<D>;
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = max_shared(&max_smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int kp = padded_codes<D>(n_embed), n_pass = (kp - 4) / C::KC;
-  // All levels resident beside WARPS warps if they fit, else one slot
-  // beside as many warps as fit.
-  const bool resident = smem_bytes<D>(n_levels, C::WARPS, n_levels, kp) <= (size_t)max_smem;
-  int warps = C::WARPS;
-  while (!resident && warps > 1 && smem_bytes<D>(1, warps, n_levels, kp) > (size_t)max_smem)
-    --warps;
-  const size_t smem = smem_bytes<D>(resident ? n_levels : 1, warps, n_levels, kp);
+  bool resident = false;
+  int warps = 0;
+  const size_t smem = plan<D>(n_levels, n_embed, max_smem, &resident, &warps);
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(rq_assign_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -426,4 +444,27 @@ extern "C" long long rq_assign_min_smem(int dim, int n_levels, int n_embed) {
     case 128: return (long long)smem_bytes<128>(1, 1, n_levels, padded_codes<128>(n_embed));
     default: return 0;
   }
+}
+
+// The staging a launch on the current device takes: *slots codebook slots
+// (n_levels: all resident; 1: streamed level by level), *warps warps a
+// block and *smem bytes of shared memory. Returns the cudaError_t of the
+// device query, or cudaErrorInvalidValue for a width without an
+// instantiation.
+extern "C" int rq_assign_plan(int dim, int n_levels, int n_embed, int* slots, int* warps,
+                              long long* smem) {
+  int max_smem = 0;
+  cudaError_t err = max_shared(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  bool resident = false;
+  size_t bytes = 0;
+  switch (dim) {
+    case 32: bytes = plan<32>(n_levels, n_embed, max_smem, &resident, warps); break;
+    case 64: bytes = plan<64>(n_levels, n_embed, max_smem, &resident, warps); break;
+    case 128: bytes = plan<128>(n_levels, n_embed, max_smem, &resident, warps); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  *slots = resident ? n_levels : 1;
+  *smem = (long long)bytes;
+  return 0;
 }

@@ -6,8 +6,12 @@ TagProjector for the level's tag embedding. `forward` is the training and
 eval loss of the JAX module's __call__: reconstruction, quantizer losses,
 the InfoNCE tag alignment, the focal tag loss and the batch uniqueness
 loss, with the alignment and uniqueness weights applied twice as the
-reference does (PARITY.md deviation 1). Duplicate-pair mining
-(`n_mined_pairs` > 0) is not ported (ROADMAP.md queue 1, item 2).
+reference does (PARITY.md deviation 1), and with `n_mined_pairs` > 0 the
+mined-pair term of duplicate-pair mining (PARITY.md deviation 18): the
+first 2 * n_mined_pairs rows are audit-harvested pairs, laid out
+pair-adjacent, whose eval-mode IDs are re-derived to find the pairs that
+still collide; those are pushed apart in encoder space. With
+`mined_loss_isolation` every other loss takes the remaining rows only.
 
 Train mode is the `train` flag. Dropout and the Gumbel noise draw from
 `generator` (None: no dropout); mixup's draws come from `mixup(level,
@@ -37,6 +41,7 @@ from hidvae_tpu_torch.models.rqvae import RqVae, p_unique_ids_stat
 from hidvae_tpu_torch.ops.distances import DistanceMode
 from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.normalize import l2norm
+from hidvae_tpu_torch.utils.runtime import full_fp32
 
 LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm default
 BATCH_NORM_EPS = 1e-5   # flax.linen.BatchNorm default
@@ -180,6 +185,7 @@ class HRqVaeComputedLosses:
     tag_pred_loss_by_layer: Optional[torch.Tensor] = None
     tag_pred_accuracy_by_layer: Optional[torch.Tensor] = None
     sem_id_uniqueness_loss: Optional[torch.Tensor] = None
+    mined_pair_collision_rate: Optional[torch.Tensor] = None  # detached
 
 
 class HRqVae(RqVae):
@@ -211,6 +217,8 @@ class HRqVae(RqVae):
         alignment_temperature: float = 0.1,
         sem_id_uniqueness_weight: float = 0.5,
         sem_id_uniqueness_margin: float = 0.5,
+        sem_id_mining_margin: Optional[float] = None,
+        mined_loss_isolation: bool = False,
         use_label_smoothing: bool = True,
         label_smoothing_alpha: float = 0.1,
         use_mixup: bool = True,
@@ -221,11 +229,11 @@ class HRqVae(RqVae):
             input_dim, embed_dim, hidden_dims, codebook_size,
             codebook_normalize=codebook_normalize, codebook_sim_vq=codebook_sim_vq,
             codebook_distance=codebook_distance, n_layers=n_layers,
-            commitment_weight=commitment_weight, codebook_mode=codebook_mode, dtype=dtype,
+            commitment_weight=commitment_weight, codebook_mode=codebook_mode,
+            n_cat_features=n_cat_features, dtype=dtype,
         )
         self.tag_class_counts = tag_class_counts
         self.tag_embed_dim = tag_embed_dim
-        self.n_cat_features = n_cat_features
         self.tag_alignment_weight = tag_alignment_weight
         self.tag_prediction_weight = tag_prediction_weight
         self.use_focal_loss = use_focal_loss
@@ -235,6 +243,8 @@ class HRqVae(RqVae):
         self.alignment_temperature = alignment_temperature
         self.sem_id_uniqueness_weight = sem_id_uniqueness_weight
         self.sem_id_uniqueness_margin = sem_id_uniqueness_margin
+        self.sem_id_mining_margin = sem_id_mining_margin
+        self.mined_loss_isolation = mined_loss_isolation
         self.use_label_smoothing = use_label_smoothing
         self.label_smoothing_alpha = label_smoothing_alpha
         self.use_mixup = use_mixup
@@ -363,37 +373,50 @@ class HRqVae(RqVae):
             tag_pred_accuracy_by_layer=acc_s,
         )
 
-    def reconstruct(self, embeddings_sum):
-        """Decoder output, L2-normalized over its dense dims (the trailing
-        n_cat_features logits stay as they are)."""
-        x_hat = self.decode(embeddings_sum)
-        if self.n_cat_features > 0:
-            return torch.cat([l2norm(x_hat[..., :-self.n_cat_features], dim=-1),
-                              x_hat[..., -self.n_cat_features:]], dim=-1)
-        return l2norm(x_hat, dim=-1)
-
     def forward(self, x, tags_emb=None, tags_indices=None, gumbel_t: float = 1.0,
                 train: bool = False, class_counts: Optional[Sequence[torch.Tensor]] = None,
                 n_mined_pairs: int = 0, generator: Optional[torch.Generator] = None,
                 mixup: Optional[Callable] = None) -> HRqVaeComputedLosses:
-        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457)."""
-        if n_mined_pairs:
-            raise NotImplementedError(
-                "duplicate-pair mining (n_mined_pairs > 0) is not ported yet "
-                "(ROADMAP.md queue 1, item 2)")
+        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457-560)."""
         x = x.float()
         if tags_emb is not None:
             tags_emb = tags_emb.float()
         encoded = self.encode(x)
-        q = self.get_semantic_ids(encoded, tags_emb, tags_indices, gumbel_t, train=train,
-                                  class_counts=class_counts, generator=generator, mixup=mixup)
+        # Isolation: the losses below take the uniform rows only; the mined
+        # rows' one gradient path is the pair term. The encode pass is shared,
+        # so batch statistics still see every row.
+        cut = 2 * n_mined_pairs if (self.mined_loss_isolation and n_mined_pairs > 0) else 0
+        main_enc = encoded[cut:]
+        q = self.get_semantic_ids(
+            main_enc, None if tags_emb is None else tags_emb[cut:],
+            None if tags_indices is None else tags_indices[cut:], gumbel_t, train=train,
+            class_counts=class_counts, generator=generator, mixup=mixup)
         x_hat = self.reconstruct(torch.sum(q.embeddings, dim=-2))
         if self.n_cat_features > 0:
-            recon = categorical_reconstruction_loss(x_hat, x, self.n_cat_features)
+            recon = categorical_reconstruction_loss(x_hat, x[cut:], self.n_cat_features)
         else:
-            recon = reconstruction_loss(x_hat, x)
-        uniq = uniqueness_loss(q.sem_ids, encoded, margin=self.sem_id_uniqueness_margin,
+            recon = reconstruction_loss(x_hat, x[cut:])
+        uniq = uniqueness_loss(q.sem_ids, main_enc, margin=self.sem_id_uniqueness_margin,
                                weight=self.sem_id_uniqueness_weight)
+        collision_rate = torch.zeros((), device=x.device)
+        if n_mined_pairs > 0:
+            enc_p = encoded[: 2 * n_mined_pairs]
+            # Eval-mode IDs, as the audit's table holds them (train-mode IDs
+            # under the rotation trick differ from the audit's at depth), in
+            # full fp32 so that no near-tie moves.
+            with torch.no_grad(), full_fp32():
+                ids = self.get_semantic_ids(enc_p.detach()).sem_ids
+            pair_ids = ids.reshape(n_mined_pairs, 2, -1)
+            eq = torch.all(pair_ids[:, 0] == pair_ids[:, 1], dim=-1)
+            f = l2norm(enc_p, dim=-1)
+            cos = torch.sum(f[0::2] * f[1::2], dim=-1)
+            margin = (self.sem_id_mining_margin if self.sem_id_mining_margin is not None
+                      else self.sem_id_uniqueness_margin)
+            pen = F.relu(cos - margin) * eq
+            n_coll = torch.sum(eq)
+            mined = torch.sum(pen) / torch.clamp(n_coll, min=1)  # 0 when none collides
+            uniq = uniq + self.sem_id_uniqueness_weight * mined
+            collision_rate = (n_coll / n_mined_pairs).detach()
         recon_m, q_m = torch.mean(recon), torch.mean(q.quantize_loss)
         loss = (recon_m + q_m + self.tag_alignment_weight * q.tag_align_loss
                 + self.tag_prediction_weight * q.tag_pred_loss
@@ -408,6 +431,7 @@ class HRqVae(RqVae):
             tag_pred_loss_by_layer=q.tag_pred_loss_by_layer,
             tag_pred_accuracy_by_layer=q.tag_pred_accuracy_by_layer,
             sem_id_uniqueness_loss=uniq,
+            mined_pair_collision_rate=collision_rate,
         )
 
     def predict_tags(self, x, gumbel_t: float = 0.001, noise=None, noise_scale: float = 0.0):

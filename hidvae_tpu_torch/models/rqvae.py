@@ -1,22 +1,25 @@
-"""Residual-quantized VAE: the part of hidvae_tpu/models/rqvae.py that
-HRqVae builds on (encoder, per-level quantizers, the residual cascade, the
-decoder) and the batch statistic `p_unique_ids_stat`. RqVae's own training
-forward (the plain RQ-VAE trainer's, ROADMAP.md queue 1, item 3) is not ported
-yet; HRqVae's is (models/hrqvae.py).
+"""Residual-quantized VAE (counterpart of hidvae_tpu/models/rqvae.py):
+encoder, per-level quantizers, the residual cascade, the decoder with its
+dense / categorical split, the batch statistic `p_unique_ids_stat`, and
+`forward`, the training and eval loss of the plain RQ-VAE trainer (the JAX
+module's __call__, :153-171). HRqVae (models/hrqvae.py) builds on it.
 
-`dtype` is the AMP compute dtype of the encoder and decoder products
-(None: fp32); the encoder's output is taken back to fp32 before the
-quantizer."""
+Train mode is the `train` flag; the Gumbel-softmax estimator draws its
+noise from `generator`. `dtype` is the AMP compute dtype of the encoder and
+decoder products (None: fp32); the encoder's output is taken back to fp32
+before the quantizer."""
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from hidvae_tpu_torch.models.layers import MLP
+from hidvae_tpu_torch.models.losses import categorical_reconstruction_loss, reconstruction_loss
 from hidvae_tpu_torch.models.quantize import Quantize, QuantizeForwardMode
 from hidvae_tpu_torch.ops.distances import DistanceMode
+from hidvae_tpu_torch.ops.normalize import l2norm
 
 
 @dataclass
@@ -25,6 +28,15 @@ class RqVaeOutput:
     residuals: torch.Tensor      # [B, L, D] per-level residual inputs
     sem_ids: torch.Tensor        # [B, L] int32
     quantize_loss: torch.Tensor  # [B]
+
+
+@dataclass
+class RqVaeComputedLosses:
+    loss: torch.Tensor                 # scalar
+    reconstruction_loss: torch.Tensor  # scalar (batch mean)
+    rqvae_loss: torch.Tensor           # scalar (batch mean)
+    embs_norm: torch.Tensor            # [B, L] per-level embedding norms
+    p_unique_ids: torch.Tensor         # scalar fraction of unique ID tuples, detached
 
 
 def p_unique_ids_stat(sem_ids):
@@ -50,10 +62,12 @@ class RqVae(nn.Module):
         n_layers: int = 3,
         commitment_weight: float = 0.25,
         codebook_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX,
+        n_cat_features: int = 18,
         dtype=None,
     ):
         super().__init__()
         self.input_dim = input_dim
+        self.n_cat_features = n_cat_features
         self.embed_dim = embed_dim
         self.hidden_dims = list(hidden_dims)
         self.codebook_size = codebook_size
@@ -88,14 +102,15 @@ class RqVae(nn.Module):
         """Effective per-level codebooks [L, K, D], the input of rq_assign."""
         return torch.stack([layer.codebook() for layer in self.layers])
 
-    def get_semantic_ids(self, encoded_x) -> RqVaeOutput:
+    def get_semantic_ids(self, encoded_x, gumbel_t: float = 0.001, train: bool = False,
+                         generator: Optional[torch.Generator] = None) -> RqVaeOutput:
         """Residual quantization cascade over an encoded batch [B, D] (the
         signature of HRqVae.get_semantic_ids; the JAX RqVae encodes inside)."""
         res = encoded_x
         embs, residuals, sem_ids, q_loss = [], [], [], 0.0
         for layer in self.layers:
             residuals.append(res)
-            out = layer(res)
+            out = layer(res, temperature=gumbel_t, train=train, generator=generator)
             q_loss = q_loss + out.loss
             res = res - out.embeddings
             embs.append(out.embeddings)
@@ -105,4 +120,32 @@ class RqVae(nn.Module):
             residuals=torch.stack(residuals, dim=-2),
             sem_ids=torch.stack(sem_ids, dim=-1),
             quantize_loss=q_loss,
+        )
+
+    def reconstruct(self, embeddings_sum):
+        """Decoder output, L2-normalized over its dense dims (the trailing
+        n_cat_features logits stay as they are)."""
+        x_hat = self.decode(embeddings_sum)
+        if self.n_cat_features > 0:
+            return torch.cat([l2norm(x_hat[..., :-self.n_cat_features], dim=-1),
+                              x_hat[..., -self.n_cat_features:]], dim=-1)
+        return l2norm(x_hat, dim=-1)
+
+    def forward(self, x, gumbel_t: float, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> RqVaeComputedLosses:
+        """The training / eval loss on item features x [B, input_dim]
+        (hidvae_tpu/models/rqvae.py:153-171)."""
+        x = x.float()
+        q = self.get_semantic_ids(self.encode(x), gumbel_t, train=train, generator=generator)
+        x_hat = self.reconstruct(torch.sum(q.embeddings, dim=-2))
+        if self.n_cat_features > 0:
+            recon = categorical_reconstruction_loss(x_hat, x, self.n_cat_features)
+        else:
+            recon = reconstruction_loss(x_hat, x)
+        return RqVaeComputedLosses(
+            loss=torch.mean(recon + q.quantize_loss),
+            reconstruction_loss=torch.mean(recon),
+            rqvae_loss=torch.mean(q.quantize_loss),
+            embs_norm=torch.linalg.norm(q.embeddings, dim=-1),
+            p_unique_ids=p_unique_ids_stat(q.sem_ids.detach()),
         )

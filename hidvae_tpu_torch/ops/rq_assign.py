@@ -66,7 +66,23 @@ def build():
     fn = built.lib.rq_assign_min_smem
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
+    fn = built.lib.rq_assign_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
     return built
+
+
+def staging(dim: int, n_levels: int, n_embed: int) -> dict:
+    """How a launch on the current card stages its codebooks at this width:
+    {"resident": all levels held in shared memory at once (else streamed
+    level by level), "warps": warps a block, "smem_bytes"}."""
+    slots, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = build().lib.rq_assign_plan(dim, n_levels, n_embed, ctypes.byref(slots),
+                                     ctypes.byref(warps), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"rq_assign_plan failed: cudaError {err}")
+    return {"resident": slots.value == n_levels, "warps": warps.value,
+            "smem_bytes": smem.value}
 
 
 def rq_assign(x, codebooks):

@@ -9,18 +9,19 @@ plus the dedup rank column of the semantic-only layout. The corpus sweep runs
 the encoder and then the fused residual quantization `rq_assign_auto`: the
 CUDA kernel on the card, the plain version on the CPU. The table, prefix
 index, caps, tries and tokenizing by gather are those of the plain
-tokenizer (semids.py), which this one extends. Not ported yet (ROADMAP.md
-queue 1, item 4): the cache-miss path `tokenize_features` (tokenizing here
-needs the precomputed table) and the tokenizer's `predict_tags`; the
-model's own `HRqVae.predict_tags` is ported.
+tokenizer (semids.py), which this one extends. `tokenize_features` encodes
+raw item features [B, N, F] through the same path (`encode_ids`, one
+`rq_assign_auto` over the B * N rows), and `__call__` takes it when no table
+was precomputed; `predict_tags` is the model's tag prediction.
 """
 
 from typing import Optional, Sequence
 
 import torch
 
+from hidvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from hidvae_tpu_torch.ops.rq_assign import rq_assign_auto
-from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer, _token_type_ids
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 
@@ -93,3 +94,49 @@ class HSemanticIdTokenizer(SemanticIdTokenizer):
         if self.use_concatenated_ids:
             return torch.cat([sem_ids, tag_ids], dim=-1)
         return interleave_ids(sem_ids, tag_ids)
+
+    @torch.inference_mode()
+    def predict_tags(self, x):
+        """The model's per-level tag predictions of item features [B, F] or
+        [B, N, F] (h_semids.py:195): {"predictions", "confidences", "logits"}."""
+        with full_fp32():
+            return self.hrq_vae.predict_tags(torch.as_tensor(x, device=self.device))
+
+    def tokenize_features(self, x, x_fut=None, seq_mask=None, user_ids=None) -> TokenizedSeqBatch:
+        """Tokenize raw item features x [B, N, F] without a table
+        (h_semids.py:198-227): every row's ID tuple from `encode_ids`,
+        flattened to [B, N * D], -1 where `seq_mask` [B, N] is False; the
+        target's features x_fut [B, F] or [B, Nf, F] give sem_ids_fut
+        [B, Nf * D]."""
+        x = torch.as_tensor(x, device=self.device)
+        b, n, f = x.shape
+        combined = self.encode_ids(x.reshape(-1, f))
+        d = combined.shape[-1]
+        flat = combined.reshape(b, n * d)
+        if seq_mask is not None:
+            mask = torch.repeat_interleave(torch.as_tensor(seq_mask, device=self.device), d, dim=1)
+            flat = torch.where(mask, flat, torch.full_like(flat, -1))
+        else:
+            mask = torch.ones_like(flat, dtype=torch.bool)
+        sem_ids_fut = None
+        if x_fut is not None:
+            x_fut = torch.as_tensor(x_fut, device=self.device)
+            nf = x_fut.shape[1] if x_fut.dim() == 3 else 1
+            sem_ids_fut = self.encode_ids(x_fut.reshape(-1, f)).reshape(b, nf * d)
+        return TokenizedSeqBatch(
+            user_ids=(torch.as_tensor(user_ids, device=self.device) if user_ids is not None
+                      else torch.zeros((b,), dtype=torch.int32, device=self.device)),
+            sem_ids=flat,
+            sem_ids_fut=sem_ids_fut,
+            seq_mask=mask,
+            token_type_ids=_token_type_ids(b, n, d, self.device),
+            token_type_ids_fut=(_token_type_ids(b, 1, d, self.device)
+                                if sem_ids_fut is not None else None),
+        )
+
+    def __call__(self, batch: SeqBatch) -> TokenizedSeqBatch:
+        """Tokenize by gather from the table; without one, from the batch's
+        features (h_semids.py:229-240)."""
+        if self.cached_ids is None:
+            return self.tokenize_features(batch.x, batch.x_fut, batch.seq_mask, batch.user_ids)
+        return super().__call__(batch)

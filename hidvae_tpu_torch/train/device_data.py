@@ -10,11 +10,14 @@ Sampling is with replacement and every draw comes from an explicit
 torch.Generator, so a step is a function of (generator state, data).
 `random_crop_windows` is split into the draw (`crop_uniforms`) and a pure
 function of the uniforms, so a test can feed the JAX function and this one
-the same numbers. Duplicate-pair mining (stage 1) is not ported yet
-(ROADMAP.md queue 1, item 2)."""
+the same numbers. Duplicate-pair mining (stage 1): `harvest_duplicate_pairs`
+draws a fixed-size pool of colliding item pairs from a corpus audit's table
+(host numpy), and `DeviceItemData.sample` puts pair rows from that pool at
+the head of each batch."""
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
@@ -24,6 +27,9 @@ class DeviceItemData(NamedTuple):
     x: torch.Tensor                       # [n, F], fp32 or bf16 storage
     tags_emb: Optional[torch.Tensor]      # [n, L, Td] or None
     tags_indices: Optional[torch.Tensor]  # [n, L] int32 or None
+    # The mining pool [P, 2] int32 of split-local item pairs whose ID tuples
+    # collided at the last audit, or None (device_data.py:35-43).
+    mining_pairs: Optional[torch.Tensor] = None
 
     @property
     def n(self):
@@ -35,9 +41,20 @@ class DeviceItemData(NamedTuple):
                 None if self.tags_emb is None else self.tags_emb[idx],
                 None if self.tags_indices is None else self.tags_indices[idx])
 
-    def sample(self, generator: torch.Generator, batch_size: int):
-        """`batch_size` items drawn uniformly with replacement (device_data.py:52-66)."""
-        idx = torch.randint(0, self.n, (batch_size,), generator=generator, device=self.x.device)
+    def sample(self, generator: torch.Generator, batch_size: int, n_pair_rows: int = 0):
+        """`batch_size` items (device_data.py:52-66): with `n_pair_rows` and a
+        pool, that many pairs drawn from the pool with replacement, laid out
+        pair-adjacent at the head of the batch, then batch_size -
+        2 * n_pair_rows items drawn uniformly; else every item uniformly."""
+        dev = self.x.device
+        if n_pair_rows and self.mining_pairs is not None:
+            pr = torch.randint(0, self.mining_pairs.shape[0], (n_pair_rows,),
+                               generator=generator, device=dev)
+            rest = torch.randint(0, self.n, (batch_size - 2 * n_pair_rows,),
+                                 generator=generator, device=dev)
+            idx = torch.cat([self.mining_pairs[pr].reshape(-1).long(), rest])
+        else:
+            idx = torch.randint(0, self.n, (batch_size,), generator=generator, device=dev)
         return self.gather(idx)
 
 
@@ -116,3 +133,37 @@ def tokenize_on_device(cached_ids, user_ids, items, fut):
         token_type_ids=ttids.repeat(b, n),
         token_type_ids_fut=ttids.repeat(b, 1),
     )
+
+
+def harvest_duplicate_pairs(corpus_ids, split_globals, pool_size: int, np_rng):
+    """A pool [pool_size, 2] int32 of item pairs whose ID tuples collide in
+    the audit's table `corpus_ids` [N, D] (every item), as split-local
+    positions of the training split `split_globals` (its sorted global
+    indices; pairs touching another item are dropped): resampled with
+    replacement from `np_rng` when fewer pairs exist, subsampled when more.
+    None when no pair collides inside the split (device_data.py:150-192).
+    Adjacent items of one tuple, in index order, make the pairs."""
+    _, inverse, counts = np.unique(np.asarray(corpus_ids), axis=0, return_inverse=True,
+                                   return_counts=True)
+    inverse = inverse.reshape(-1)  # numpy 2.0.x returns it [N, 1] with `axis`
+    if int(counts.max(initial=0)) < 2:
+        return None
+    order = np.argsort(inverse, kind="stable")
+    a, b = order[:-1], order[1:]
+    same = inverse[a] == inverse[b]
+    pa, pb = a[same], b[same]
+    sg = np.asarray(split_globals)
+
+    def to_local(vals):
+        pos = np.searchsorted(sg, vals)
+        pos_c = np.clip(pos, 0, len(sg) - 1)
+        return (pos < len(sg)) & (sg[pos_c] == vals), pos_c
+
+    ok_a, la = to_local(pa)
+    ok_b, lb = to_local(pb)
+    ok = ok_a & ok_b
+    if not ok.any():
+        return None
+    pairs = np.stack([la[ok], lb[ok]], axis=1).astype(np.int32)
+    take = np_rng.choice(len(pairs), size=pool_size, replace=len(pairs) < pool_size)
+    return pairs[take]

@@ -11,8 +11,9 @@ As the JAX trainer, it
   * builds the HRqVae (`build_model`, AMP: bf16 MLP and tag-head products)
     with seeded flax-distributed weights, and either restores a checkpoint
     of this trainer (params, batch statistics, optimizer state with its
-    accumulator and schedule counts, step and plateau counters; :484-522)
-    or k-means-initializes the codebooks on up to 20,000 items (:523-532);
+    accumulator and schedule counts, step and plateau counters, the mining
+    pool; :484-522) or k-means-initializes the codebooks on up to 20,000
+    items (:523-532);
   * builds the optimizer (`build_optimizer`: cosine or step schedule, the
     tag heads' layer-specific rates, the plateau scale, gradient
     accumulation counted in mini-steps, :440-479);
@@ -21,6 +22,15 @@ As the JAX trainer, it
     (PARITY.md deviation 13), samples its batch from the corpus on the
     device, and runs the train forward (Gumbel temperature 0.2, dropout,
     mixup) and backward; one log line per chunk (:684-706);
+  * with `sem_id_mining`, duplicate-pair mining (:555-629, :747-761): each
+    batch starts with int(batch_size * sem_id_mining_frac) // 2 pairs drawn
+    from a pool of sem_id_mining_pool item pairs, seeded uniform from
+    np.random.RandomState(seed) and re-harvested at every audit from the
+    pairs that collide in the audit's table (`harvest_duplicate_pairs`,
+    seeded by (seed, step)); the model pushes the still-colliding pairs
+    apart (`sem_id_mining_margin`, `sem_id_mining_isolate`); the pool is
+    saved with every checkpoint and restored on resume, a checkpoint
+    without a usable pool falling back to the uniform seed;
   * when a chunk crosses eval_every or ends the run: the eval losses and
     the test-time-augmented tag accuracy (`_run_eval`), the plateau step,
     and the corpus ID audit, a sweep through `rq_assign` (the CUDA kernel
@@ -31,8 +41,7 @@ As the JAX trainer, it
 Checkpoints are exported checkpoints (arrays.npz + meta.json with the
 structural model_config and metrics.repetition_rate), which
 `restore_export`, `reconcile_vae_config`, `RetrievalEngine.from_artifacts`
-and the stage-2 trainer read. Not ported: duplicate-pair mining
-(`sem_id_mining=True` raises); `split_batches` changes nothing on one
+and the stage-2 trainer read. `split_batches` changes nothing on one
 device; `ensemble_predictions`, `use_concatenated_ids`,
 `use_interleaved_ids` and `wandb_logging` are taken and ignored, as in JAX.
 """
@@ -47,8 +56,8 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from hidvae_tpu_torch.bridge import state_dict_to_flax
-from hidvae_tpu_torch.data.processed import ItemData, RecDataset
+from hidvae_tpu_torch.bridge import load_export_arrays, state_dict_to_flax
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
@@ -66,7 +75,7 @@ from hidvae_tpu_torch.train.common import (
     save_checkpoint,
     structural_model_config,
 )
-from hidvae_tpu_torch.train.device_data import DeviceItemData
+from hidvae_tpu_torch.train.device_data import DeviceItemData, harvest_duplicate_pairs
 from hidvae_tpu_torch.train.init import kmeans_init_codebooks
 from hidvae_tpu_torch.train.tags import (
     apply_tag_remap,
@@ -85,7 +94,8 @@ TTA_AUGMENTATIONS = 5  # passes of the test-time augmentation, noise 0.02 * i
 TTA_SALT = 0x77A      # seeds the augmentation noise, the same for every eval
 SCALAR_METRICS = ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss",
                   "tag_pred_loss", "tag_pred_accuracy", "p_unique_ids",
-                  "sem_id_uniqueness_loss")
+                  "sem_id_uniqueness_loss", "mined_pair_collision_rate")
+MINING_SALT = 1_000_003  # the harvest of the audit at step `it` draws from (seed * salt + it)
 
 
 def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_size,
@@ -95,7 +105,8 @@ def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_s
                 focal_loss_gamma_base, focal_loss_alpha_base, dropout_rate, use_batch_norm,
                 alignment_temperature, sem_id_uniqueness_weight, sem_id_uniqueness_margin,
                 use_label_smoothing=True, label_smoothing_alpha=0.1, use_mixup=True,
-                mixup_alpha=0.2, dtype=None, seed=42) -> HRqVae:
+                mixup_alpha=0.2, dtype=None, sem_id_mining_margin=None,
+                mined_loss_isolation=False, seed=42) -> HRqVae:
     """The HRqVae of hidvae.py:73-135 with seeded flax-distributed weights
     (models/init.py), on the CPU."""
     model = HRqVae(
@@ -113,6 +124,7 @@ def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_s
         sem_id_uniqueness_margin=sem_id_uniqueness_margin,
         use_label_smoothing=use_label_smoothing, label_smoothing_alpha=label_smoothing_alpha,
         use_mixup=use_mixup, mixup_alpha=mixup_alpha, dtype=dtype,
+        sem_id_mining_margin=sem_id_mining_margin, mined_loss_isolation=mined_loss_isolation,
     )
     return init_params_(model, torch.Generator().manual_seed(seed))
 
@@ -125,18 +137,20 @@ def step_rngs(seed: int, step: int, device):
     return step_generator(seed, step, device), host
 
 
-def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T):
-    """One mini-step: the train forward, backward and `optimizer.step()`
-    (an update every gradient_accumulate_every mini-steps). Returns the
-    step's metrics as 0-d device tensors (emb_norms [L]), not synced."""
+def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T,
+                    n_mined_pairs: int = 0):
+    """One mini-step: the train forward (the first 2 * n_mined_pairs rows
+    mined pairs), backward and `optimizer.step()` (an update every
+    gradient_accumulate_every mini-steps). Returns the step's metrics as 0-d
+    device tensors (emb_norms [L]), not synced."""
 
     def train_step(x, tags_emb, tags_indices, generator, host):
         def mixup(level, batch):
             return mixup_draw(batch, model.mixup_alpha, generator, host, x.device)
 
         optimizer.zero_grad()
-        out = model(x, tags_emb, tags_indices, gumbel_t, train=True,
-                    class_counts=class_counts, generator=generator, mixup=mixup)
+        out = model(x, tags_emb, tags_indices, gumbel_t, train=True, class_counts=class_counts,
+                    n_mined_pairs=n_mined_pairs, generator=generator, mixup=mixup)
         out.loss.backward()
         optimizer.step()
         m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
@@ -253,7 +267,8 @@ def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_e
     return optimizer, plateau_ctl
 
 
-def _save(save_dir, name, step, model, optimizer, eval_metrics, rep, plateau_ctl=None):
+def _save(save_dir, name, step, model, optimizer, eval_metrics, rep, plateau_ctl=None,
+          mining_pairs=None):
     """A checkpoint of the whole trainer state (hidvae.py:867-886)."""
     params, stats = state_dict_to_flax(model)
     payload = {
@@ -266,6 +281,8 @@ def _save(save_dir, name, step, model, optimizer, eval_metrics, rep, plateau_ctl
     }
     if plateau_ctl is not None:
         payload["plateau"] = plateau_ctl.state_dict()
+    if mining_pairs is not None:
+        payload["mining_pairs"] = mining_pairs.cpu().numpy()
     return save_checkpoint(save_dir, name, payload)
 
 
@@ -355,27 +372,25 @@ def train(
     step, the cadences and the log count. Returns {"model", "optimizer",
     "step", "save_dir", "history", "tag_class_counts", "rare_tags",
     "best_eval_accuracy", "saved_paths", "data" (the device corpus, tags
-    remapped), "class_counts"}; history holds the JAX trainer's keys and
+    remapped, and the last mining pool), "class_counts", "n_pair_rows",
+    "mining_pool_start" (the pool the run started from, restored or seeded,
+    as numpy; None without mining)}; history holds the JAX trainer's keys,
     ms_per_step (host clock per mini-step of each chunk, eval and save left
-    out)."""
-    if sem_id_mining:
-        raise NotImplementedError(
-            "sem_id_mining=True: duplicate-pair mining is not ported yet (ROADMAP.md "
-            "queue 1, item 2); train with the JAX package or without mining")
+    out), mined_pair_collision_rate (each chunk's last step) and
+    mining_pool_refreshed (the audit steps whose harvest replaced the
+    pool)."""
     device = resolve_device(device)
     time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{time_stamp}")
     config = dict(locals())
     with run_logging(save_dir):
         log_operative_config(logger, config)
-        # ---- data (hidvae.py:317-376) ----
-        train_dataset = ItemData(dataset_folder, dataset, force_process=force_dataset_process,
-                                 train_test_split="train" if do_eval else "all",
-                                 split=dataset_split)
-        eval_dataset = (ItemData(dataset_folder, dataset, train_test_split="eval",
-                                 split=dataset_split) if do_eval else None)
-        index_dataset = ItemData(dataset_folder, dataset, train_test_split="all",
-                                 split=dataset_split)
+        # ---- data (hidvae.py:317-376): the .npz read once, for every split ----
+        arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
+        train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
+                                 train_test_split="train" if do_eval else "all")
+        eval_dataset = (ItemData(dataset_folder, dataset, arrays=arrays, train_test_split="eval")
+                        if do_eval else None)
         has_tags = train_dataset.has_tags
         if not has_tags:
             logger.warning("Dataset has no tags; disabling tag supervision.")
@@ -431,7 +446,9 @@ def train(
             sem_id_uniqueness_weight=sem_id_uniqueness_weight,
             sem_id_uniqueness_margin=sem_id_uniqueness_margin,
             use_label_smoothing=use_label_smoothing, label_smoothing_alpha=label_smoothing_alpha,
-            use_mixup=use_mixup, mixup_alpha=mixup_alpha, dtype=compute_dtype, seed=seed,
+            use_mixup=use_mixup, mixup_alpha=mixup_alpha, dtype=compute_dtype,
+            sem_id_mining_margin=sem_id_mining_margin, mined_loss_isolation=sem_id_mining_isolate,
+            seed=seed,
         ).to(device)
 
         optimizer, plateau_ctl = build_optimizer(
@@ -446,10 +463,23 @@ def train(
             lr_scheduler_patience=lr_scheduler_patience)
 
         start_iter = 0
+        pool_start = None
         if pretrained_hrqvae_path is not None:
             # Params, batch statistics, the optimizer state (accumulator,
             # counts, plateau scale) and the step (hidvae.py:484-522).
             start_iter, meta = restore_checkpoint(pretrained_hrqvae_path, model, optimizer)
+            if sem_id_mining:
+                # The pool is trainer state; a checkpoint without one of this
+                # size (or with pairs outside the split) re-seeds uniform.
+                cand = load_export_arrays(pretrained_hrqvae_path, "mining_pairs").get(
+                    "mining_pairs")
+                if (cand is not None and cand.shape == (sem_id_mining_pool, 2)
+                        and (cand >= 0).all() and int(cand.max()) < len(train_dataset)):
+                    pool_start = cand
+                    logger.info(f"Restored mining pool from checkpoint ({len(cand)} pair slots)")
+                else:
+                    logger.warning("Checkpoint has no usable mining pool; re-seeding uniform "
+                                   "until the next corpus audit")
             if plateau_ctl is not None and meta.get("plateau") is not None:
                 plateau_ctl.load_state_dict(meta["plateau"])
                 logger.info(f"Restored ReduceLROnPlateau state: {plateau_ctl.state_dict()}")
@@ -464,16 +494,25 @@ def train(
         # ---- device data and steps ----
         ddtype = (torch.bfloat16 if str(device_data_dtype).lower() in ("bf16", "bfloat16")
                   else torch.float32)
-        ddata = DeviceItemData(
-            x=torch.from_numpy(train_dataset.item_features).to(device, ddtype),
-            tags_emb=(torch.from_numpy(train_dataset.tags_emb).to(device, ddtype)
+        n_pair_rows = int(batch_size * sem_id_mining_frac) // 2 if sem_id_mining else 0
+        pairs = None
+        if n_pair_rows:
+            if pool_start is None:  # uniform until the first audit (hidvae.py:612-617)
+                pool_start = np.random.RandomState(seed).randint(
+                    0, len(train_dataset), (sem_id_mining_pool, 2)).astype(np.int32)
+            pairs = torch.from_numpy(pool_start).to(device)
+            logger.info(f"Semantic-ID duplicate mining ON: {n_pair_rows} pairs/batch "
+                        f"({2 * n_pair_rows}/{batch_size} rows), pool {sem_id_mining_pool}")
+        ddata = DeviceItemData(  # cast on the device, not on the host
+            x=torch.from_numpy(train_dataset.item_features).to(device).to(ddtype),
+            tags_emb=(torch.from_numpy(train_dataset.tags_emb).to(device).to(ddtype)
                       if has_tags else None),
             tags_indices=(torch.from_numpy(train_dataset.tags_indices).to(device)
                           if has_tags else None),
+            mining_pairs=pairs,
         )
-        index_feats = torch.from_numpy(
-            np.asarray(index_dataset.item_features, np.float32)).to(device)
-        train_step = make_train_step(model, optimizer, class_counts)
+        index_feats = torch.from_numpy(np.asarray(arrays.item_features, np.float32)).to(device)
+        train_step = make_train_step(model, optimizer, class_counts, n_mined_pairs=n_pair_rows)
         eval_step = make_eval_step(model, class_counts)
         tta_predict = make_tta_predict(model, eval_tta, eval_temperature) if has_tags else None
 
@@ -482,6 +521,7 @@ def train(
             "tag_align_loss", "tag_pred_loss", "tag_pred_accuracy",
             "eval_iterations", "eval_total_loss", "eval_tag_pred_accuracy",
             "rqvae_entropy", "max_id_duplicates", "repetition_rate", "ms_per_step",
+            "mined_pair_collision_rate", "mining_pool_refreshed",
         ]}
         history["emb_norms"] = [[] for _ in range(vae_n_layers)]
         history["codebook_usage"] = [[] for _ in range(vae_n_layers)]
@@ -498,7 +538,7 @@ def train(
             step_losses = []
             for step in range(first, it):
                 g, host = step_rngs(seed, step, device)
-                x, te, ti = ddata.sample(g, batch_size)
+                x, te, ti = ddata.sample(g, batch_size, n_pair_rows)
                 metrics = train_step(x, te, ti, g, host)
                 step_losses.append(metrics["loss"])
             # One read-back per chunk: the chunk's losses and the last step's metrics.
@@ -514,7 +554,7 @@ def train(
             history["iterations"].append(it - 1)
             history["total_loss"].append(m["loss"])
             for k in ("reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
-                      "tag_pred_accuracy"):
+                      "tag_pred_accuracy", "mined_pair_collision_rate"):
                 history[k].append(m[k])
             for level in range(vae_n_layers):
                 history["emb_norms"][level].append(last[len(SCALAR_METRICS) + level])
@@ -523,7 +563,8 @@ def train(
                 f"recon={m['reconstruction_loss']:.4f} rq={m['rqvae_loss']:.4f} "
                 f"align={m['tag_align_loss']:.4f} pred={m['tag_pred_loss']:.4f} "
                 f"acc={m['tag_pred_accuracy']:.4f} p_unique={m['p_unique_ids']:.4f} "
-                f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
+                + (f"mined_coll={m['mined_pair_collision_rate']:.3f} " if n_pair_rows else "")
+                + f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
 
             do_eval_now = do_eval and 0 in fired
             do_save_now = 1 in fired
@@ -550,6 +591,17 @@ def train(
                     tag_class_counts=tag_class_counts, device=device)
                 corpus_ids = tokenizer.precompute_corpus_ids(index_feats).cpu().numpy()
                 div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
+                if n_pair_rows:
+                    # Seeded by (seed, step), so a resumed run that audits at
+                    # the same step harvests the same pool.
+                    harvested = harvest_duplicate_pairs(
+                        corpus_ids, train_dataset.indices, sem_id_mining_pool,
+                        np.random.RandomState((seed * MINING_SALT + it) % (2 ** 31)))
+                    if harvested is not None:
+                        ddata = ddata._replace(mining_pairs=torch.from_numpy(harvested).to(device))
+                        history["mining_pool_refreshed"].append(it)
+                        logger.info(f"Mining pool refreshed from audit @ {it}: "
+                                    f"{len(harvested)} pair slots")
                 history["rqvae_entropy"].append(div["rqvae_entropy"])
                 history["max_id_duplicates"].append(div["max_id_duplicates"])
                 history["repetition_rate"].append(div["repetition_rate"])
@@ -567,7 +619,7 @@ def train(
                     name = (f"hrqvae_ACC{eval_acc:.4f}_"
                             f"RQLOSS{eval_metrics['rqvae_loss']:.4f}_DUPR{rep:.4f}")
                     path = _save(save_dir, name, it, model, optimizer, eval_metrics, rep,
-                                 plateau_ctl)
+                                 plateau_ctl, ddata.mining_pairs)
                     saved_paths.append(path)
                     logger.info(f"Gated checkpoint saved: {path}")
             if do_save_now:
@@ -575,7 +627,7 @@ def train(
                 # guard covers `latest` too; a stale one is never recorded.
                 rep_now = last_audit[1] if last_audit[0] == it else None
                 saved_paths.append(_save(save_dir, "latest", it, model, optimizer, {}, rep_now,
-                                         plateau_ctl))
+                                         plateau_ctl, ddata.mining_pairs))
             if fired:  # keep eval and save time out of ms per step
                 _sync(device)
             t_last, it_last = time.perf_counter(), it
@@ -591,4 +643,6 @@ def train(
         return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
                 "history": history, "tag_class_counts": tag_class_counts,
                 "rare_tags": rare_tags_dict, "best_eval_accuracy": best_eval_accuracy,
-                "saved_paths": saved_paths, "data": ddata, "class_counts": class_counts}
+                "saved_paths": saved_paths, "data": ddata, "class_counts": class_counts,
+                "n_pair_rows": n_pair_rows,
+                "mining_pool_start": pool_start if n_pair_rows else None}

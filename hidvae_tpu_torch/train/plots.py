@@ -1,6 +1,7 @@
-"""End-of-run plots of both trainers (counterpart of
+"""End-of-run plots of the trainers (counterpart of
 hidvae_tpu/train/plots.py): stage 1's loss, tag-accuracy, embedding-norm,
-codebook-usage and ID-diversity curves (`plot_hidvae_history`); stage 2's
+codebook-usage and ID-diversity curves (`plot_hidvae_history`); the plain
+RQ-VAE's loss curves (`plot_rqvae_history`); stage 2's
 train and eval loss curves and the full eval's hit@K and NDCG@K curves of
 the whole ID tuple (`plot_transformer_history`). matplotlib is imported when a plot is drawn, not with the module: a
 machine without it trains all the same, and the trainer logs the failure
@@ -70,6 +71,23 @@ def plot_hidvae_history(history: dict, out_dir: str):
         ax.grid(True, alpha=0.3)
     fig.tight_layout()
     fig.savefig(os.path.join(out_dir, "diversity.png"), dpi=100)
+    plt.close(fig)
+
+
+def plot_rqvae_history(history: dict, out_dir: str):
+    """Write losses.png (total, reconstruction and RQ-VAE loss) into `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
+    xs = history["iterations"]
+    if not xs:
+        return
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 3, figsize=(18, 5))
+    for ax, key, title in ((axes[0], "total_loss", "total loss"),
+                           (axes[1], "reconstruction_loss", "reconstruction loss"),
+                           (axes[2], "rqvae_loss", "rq-vae loss")):
+        _plot_series(ax, xs, history[key], title)
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "losses.png"), dpi=100)
     plt.close(fig)
 
 

@@ -1,0 +1,336 @@
+"""Stage-1 trainer of the plain RQ-VAE tokenizer (counterpart of
+hidvae_tpu/train/rqvae.py), the tokenizer of the TIGER baseline.
+
+`train` takes the JAX trainer's gin surface: every keyword of :40-75 with
+its default, and `device` (`cuda` unless given; no fallback to the CPU).
+As the JAX trainer, it
+  * reads the processed dataset once for its train (all without eval),
+    eval and all item splits (:87-100); `force_dataset_process=True` is
+    refused, as the dataset builders are not ported;
+  * builds the RqVae (`build_model`; AMP: bf16 encoder and decoder
+    products) with seeded flax-distributed weights, and either restores a
+    checkpoint of this trainer (params, the optimizer state with its
+    accumulator and count, and the step; :143-156) or k-means-initializes
+    the codebooks on up to 20,000 items (:157-162);
+  * builds the ungrouped optimizer of `make_optimizer` (AdamW at a constant
+    rate, MultiSteps accumulation counted in mini-steps, the optional
+    global-norm clip), its state named as optax names it;
+  * trains in the JAX trainer's chunks (`chunk_events`, :234): each
+    mini-step has a generator that is a function of (seed, step) only
+    (PARITY.md deviation 13), samples its batch from the corpus on the
+    device with replacement, and runs the train forward (Gumbel temperature
+    0.2) and backward; one log line per chunk (:262-276);
+  * when a chunk crosses eval_every or ends the run: the eval losses over
+    the eval split's batches, weighted by their length and capped by
+    eval_batches, and the corpus ID audit through `SemanticIdTokenizer`, a
+    sweep through `rq_assign` (the CUDA kernel on the card) of every item,
+    with the dedup column's largest rank under use_dedup_dim (:278-320);
+    when it crosses save_model_every or ends the run: `checkpoint_{it - 1}`,
+    re-auditing first unless this chunk audited (:322-345);
+  * draws the plots and writes train.log into its save_dir.
+Checkpoints are exported checkpoints (arrays.npz: step, params, opt_state;
+meta.json: the structural model_config and metrics.repetition_rate /
+rqvae_entropy), which `restore_export`, `reconcile_vae_config`,
+`RetrievalEngine.from_artifacts` and the stage-2 trainer read (its plain
+route, use_h_tokenizer = False). `split_batches` changes nothing on one
+device; `wandb_logging` is taken and ignored, as in JAX.
+"""
+
+import logging
+import math
+import os
+import time
+from collections import deque
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from hidvae_tpu_torch.bridge import state_dict_to_flax
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
+from hidvae_tpu_torch.models.init import init_params_
+from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
+from hidvae_tpu_torch.models.rqvae import RqVae
+from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.train.common import (
+    chunk_events,
+    id_diversity_metrics,
+    log_operative_config,
+    make_lr_schedule,
+    make_optimizer,
+    restore_checkpoint,
+    run_logging,
+    save_checkpoint,
+    structural_model_config,
+)
+from hidvae_tpu_torch.train.device_data import DeviceItemData
+from hidvae_tpu_torch.train.hidvae import GUMBEL_T, LOSS_WINDOW, _sync
+from hidvae_tpu_torch.train.init import kmeans_init_codebooks
+from hidvae_tpu_torch.train.transformer import step_generator
+from hidvae_tpu_torch.utils.runtime import resolve_device
+
+logger = logging.getLogger("hidvae_tpu_torch.train.rqvae")
+
+SCALAR_METRICS = ("loss", "reconstruction_loss", "rqvae_loss", "p_unique_ids")
+EVAL_METRICS = ("loss", "reconstruction_loss", "rqvae_loss")
+
+
+def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_size,
+                vae_codebook_normalize, vae_sim_vq, vae_codebook_mode, vae_n_layers,
+                vae_n_cat_feats, commitment_weight, dtype=None, seed=42) -> RqVae:
+    """The RqVae of rqvae.py:115-127 with seeded flax-distributed weights
+    (models/init.py), on the CPU."""
+    model = RqVae(
+        vae_input_dim, vae_embed_dim, tuple(vae_hidden_dims), vae_codebook_size,
+        codebook_normalize=vae_codebook_normalize, codebook_sim_vq=vae_sim_vq,
+        n_layers=vae_n_layers, commitment_weight=commitment_weight,
+        codebook_mode=vae_codebook_mode, n_cat_features=vae_n_cat_feats, dtype=dtype,
+    )
+    return init_params_(model, torch.Generator().manual_seed(seed))
+
+
+def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_every,
+                    max_grad_norm):
+    """The optimizer of `train`'s bindings (rqvae.py:129-133): one AdamW at
+    a constant rate, after the optional clip, accumulated in mini-steps."""
+    return make_optimizer(model, make_lr_schedule(learning_rate), weight_decay,
+                          gradient_accumulate_every=gradient_accumulate_every,
+                          max_grad_norm=max_grad_norm)
+
+
+def make_train_step(model, optimizer, gumbel_t: float = GUMBEL_T):
+    """One mini-step: the train forward, backward and `optimizer.step()`
+    (an update every gradient_accumulate_every mini-steps). Returns the
+    step's metrics as 0-d device tensors (emb_norms [L]), not synced."""
+
+    def train_step(x, generator):
+        optimizer.zero_grad()
+        out = model(x, gumbel_t, train=True, generator=generator)
+        out.loss.backward()
+        optimizer.step()
+        m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
+        m["emb_norms"] = torch.mean(out.embs_norm.detach(), dim=0)
+        return m
+
+    return train_step
+
+
+def make_eval_step(model, gumbel_t: float = GUMBEL_T):
+    """The eval forward's losses (rqvae.py:207-214)."""
+
+    @torch.no_grad()
+    def eval_step(x):
+        out = model(x, gumbel_t, train=False)
+        return {k: getattr(out, k) for k in EVAL_METRICS}
+
+    return eval_step
+
+
+def _run_eval(eval_step, eval_dataset, batch_size, eval_batches, device):
+    """Eval losses over the eval split's in-order batches, weighted by each
+    batch's length (rqvae.py:303-315)."""
+    sums, n = {}, 0
+    for bi, batch in enumerate(eval_dataset.iter_eval_batches(batch_size)):
+        if eval_batches is not None and bi >= eval_batches:
+            break
+        m = eval_step(torch.from_numpy(np.asarray(batch.x, np.float32)).to(device))
+        values = torch.stack([m[k].float() for k in EVAL_METRICS]).tolist()  # one read-back
+        for k, v in zip(EVAL_METRICS, values):
+            sums[k] = sums.get(k, 0.0) + v * len(batch.x)
+        n += len(batch.x)
+    return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+def audit_diversity(model, index_feats, *, n_layers, codebook_size, use_dedup_dim, device):
+    """The corpus ID audit (rqvae.py:292-301): every item through the
+    encoder and rq_assign; the diversity of the semantic columns and, with
+    the dedup column, the largest number of items sharing one tuple.
+    Returns (diversity, the table as numpy)."""
+    tokenizer = SemanticIdTokenizer(model, n_layers=n_layers, codebook_size=codebook_size,
+                                    use_dedup_dim=use_dedup_dim, device=device)
+    corpus = tokenizer.precompute_corpus_ids(index_feats).cpu().numpy()
+    div = id_diversity_metrics(corpus[:, :n_layers], codebook_size, n_layers)
+    if use_dedup_dim:
+        div["max_duplicates"] = int(corpus[:, -1].max()) + 1
+    return div, corpus
+
+
+def train(
+    iterations=50_000,
+    batch_size=64,
+    learning_rate=0.0001,
+    weight_decay=0.01,
+    max_grad_norm=None,
+    dataset_folder="dataset/synthetic",
+    dataset=RecDataset.SYNTHETIC,
+    pretrained_rqvae_path=None,
+    save_dir_root="out/",
+    use_kmeans_init=True,
+    split_batches=True,
+    amp=False,
+    do_eval=True,
+    force_dataset_process=False,
+    mixed_precision_type="bf16",
+    gradient_accumulate_every=1,
+    save_model_every=1_000,
+    eval_every=5_000,
+    commitment_weight=0.25,
+    vae_n_cat_feats=18,
+    vae_input_dim=768,
+    vae_embed_dim=32,
+    vae_hidden_dims=(512, 256, 128),
+    vae_codebook_size=256,
+    vae_codebook_normalize=False,
+    vae_codebook_mode=QuantizeForwardMode.GUMBEL_SOFTMAX,
+    vae_sim_vq=False,
+    vae_n_layers=3,
+    dataset_split="beauty",
+    use_dedup_dim=False,
+    wandb_logging=False,
+    seed=42,
+    log_every=100,
+    eval_batches=None,
+    make_plots=True,
+    device=None,
+):
+    """Train the plain RQ-VAE tokenizer as `python train_rqvae.py CONFIG.gin`
+    does (see the module docstring). `iterations` counts updates; the loop
+    runs iterations * gradient_accumulate_every mini-steps, which the step,
+    the cadences and the log count. Returns {"model", "optimizer", "step",
+    "save_dir", "history", "saved_paths", "data" (the device corpus),
+    "corpus_ids" (the newest audit's table, or None)}; history holds the
+    JAX trainer's keys and ms_per_step (host clock per mini-step of each
+    chunk, eval, audit and save left out)."""
+    device = resolve_device(device)
+    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{time_stamp}")
+    config = dict(locals())
+    with run_logging(save_dir):
+        log_operative_config(logger, config)
+        arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
+        train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
+                                 train_test_split="train" if do_eval else "all")
+        eval_dataset = (ItemData(dataset_folder, dataset, arrays=arrays, train_test_split="eval")
+                        if do_eval else None)
+
+        compute_dtype = (torch.bfloat16 if amp and str(mixed_precision_type).lower() in (
+            "bf16", "bfloat16", "fp16", "float16") else None)
+        model = build_model(
+            vae_input_dim=vae_input_dim, vae_embed_dim=vae_embed_dim,
+            vae_hidden_dims=vae_hidden_dims, vae_codebook_size=vae_codebook_size,
+            vae_codebook_normalize=vae_codebook_normalize, vae_sim_vq=vae_sim_vq,
+            vae_codebook_mode=vae_codebook_mode, vae_n_layers=vae_n_layers,
+            vae_n_cat_feats=vae_n_cat_feats, commitment_weight=commitment_weight,
+            dtype=compute_dtype, seed=seed,
+        ).to(device)
+        optimizer = build_optimizer(model, learning_rate=learning_rate,
+                                    weight_decay=weight_decay,
+                                    gradient_accumulate_every=gradient_accumulate_every,
+                                    max_grad_norm=max_grad_norm)
+
+        start_iter = 0
+        if pretrained_rqvae_path is not None:
+            # Params, the optimizer state (accumulator, count) and the step.
+            start_iter, _ = restore_checkpoint(pretrained_rqvae_path, model, optimizer)
+            logger.info(f"Restored RqVae from {pretrained_rqvae_path} (iter {start_iter})")
+        elif use_kmeans_init:
+            n_init = min(20_000, len(train_dataset))
+            init_x = torch.from_numpy(train_dataset.item_features[:n_init]).to(device)
+            kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+            logger.info("K-means codebook initialization complete")
+
+        ddata = DeviceItemData(x=torch.from_numpy(train_dataset.item_features).to(device),
+                               tags_emb=None, tags_indices=None)
+        index_feats = torch.from_numpy(np.asarray(arrays.item_features, np.float32)).to(device)
+        train_step = make_train_step(model, optimizer)
+        eval_step = make_eval_step(model)
+
+        def audit():
+            return audit_diversity(model, index_feats, n_layers=vae_n_layers,
+                                   codebook_size=vae_codebook_size,
+                                   use_dedup_dim=use_dedup_dim, device=device)
+
+        history = {k: [] for k in [
+            "iterations", "total_loss", "reconstruction_loss", "rqvae_loss",
+            "eval_iterations", "eval_total_loss", "rqvae_entropy",
+            "max_id_duplicates", "repetition_rate", "ms_per_step",
+        ]}
+        saved_paths = []
+        total_steps = iterations * gradient_accumulate_every
+        loss_window = deque(maxlen=LOSS_WINDOW)
+        last_audit = (None, None, None)  # (iteration, diversity, table) of the newest audit
+        _sync(device)
+        t_start = t_last = time.perf_counter()
+        it_last = start_iter
+        end = start_iter + total_steps
+        for first, it, fired in chunk_events(start_iter, total_steps,
+                                             [eval_every, save_model_every], log_every):
+            step_losses = []
+            for step in range(first, it):
+                g = step_generator(seed, step, device)
+                x, _, _ = ddata.sample(g, batch_size)
+                metrics = train_step(x, g)
+                step_losses.append(metrics["loss"])
+            # One read-back per chunk: the chunk's losses and the last step's metrics.
+            losses = torch.stack(step_losses).float().tolist()
+            last = torch.stack([metrics[k].float() for k in SCALAR_METRICS]).tolist()
+            now = time.perf_counter()
+            history["ms_per_step"].append((now - t_last) * 1e3 / (it - it_last))
+            m = dict(zip(SCALAR_METRICS, last))
+            if not math.isfinite(m["loss"]):
+                raise FloatingPointError(f"non-finite loss {m['loss']} at iteration {it - 1}")
+            loss_window.extend(losses)
+            history["iterations"].append(it - 1)
+            history["total_loss"].append(m["loss"])
+            history["reconstruction_loss"].append(m["reconstruction_loss"])
+            history["rqvae_loss"].append(m["rqvae_loss"])
+            logger.info(
+                f"iter {it - 1}: loss={m['loss']:.4f} (window mean {np.mean(loss_window):.4f}) "
+                f"recon={m['reconstruction_loss']:.4f} rq={m['rqvae_loss']:.4f} "
+                f"p_unique={m['p_unique_ids']:.4f} "
+                f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
+
+            if do_eval and 0 in fired:
+                if eval_dataset is not None and len(eval_dataset) > 0:
+                    eval_metrics = _run_eval(eval_step, eval_dataset, batch_size, eval_batches,
+                                             device)
+                    history["eval_iterations"].append(it)
+                    history["eval_total_loss"].append(eval_metrics["loss"])
+                    logger.info(f"eval @ {it}: {eval_metrics}")
+                div, table = audit()
+                history["rqvae_entropy"].append(div["rqvae_entropy"])
+                history["max_id_duplicates"].append(div["max_id_duplicates"])
+                history["repetition_rate"].append(div["repetition_rate"])
+                last_audit = (it, div, table)
+                logger.info(f"diversity @ {it}: {div}")
+            if 1 in fired:
+                # The audit of these parameters, for the stage-2 collapse
+                # guard: re-run unless this chunk's is the newest.
+                if last_audit[0] != it:
+                    last_audit = (it, *audit())
+                    logger.info(f"diversity @ save {it}: {last_audit[1]}")
+                div = last_audit[1]
+                payload = {
+                    "step": it,
+                    "params": state_dict_to_flax(model)[0],
+                    "opt_state": optimizer.state_dict(model),
+                    "model_config": structural_model_config(model),
+                    "metrics": {"repetition_rate": div["repetition_rate"],
+                                "rqvae_entropy": div["rqvae_entropy"]},
+                }
+                saved_paths.append(save_checkpoint(save_dir, f"checkpoint_{it - 1}", payload))
+            if fired:  # keep eval, audit and save time out of ms per step
+                _sync(device)
+            t_last, it_last = time.perf_counter(), it
+
+        if make_plots:
+            try:
+                from hidvae_tpu_torch.train.plots import plot_rqvae_history
+
+                plot_rqvae_history(history, os.path.join(save_dir, "plots"))
+            except Exception as e:  # plots are optional; no metric depends on them
+                logger.warning(f"Plotting failed: {e}")
+
+        return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
+                "history": history, "saved_paths": saved_paths, "data": ddata,
+                "corpus_ids": last_audit[2]}

@@ -5,8 +5,10 @@ small exported checkpoints and serves them through `from_artifacts` on both
 tokenizer routes, the smoke's training path trains a small model there, and
 its stage-1 phase drives scripts/torch_train_hidvae.py (train, resume,
 audit, throughput) and its trainer phase scripts/torch_train_transformer.py
-on that checkpoint (train, resume, serve the checkpoint, remat). And the
-port's sources are small text files."""
+on that checkpoint (train, resume, serve the checkpoint, remat), its mining
+phase the stage-1 entry with duplicate-pair mining and its rqvae phase
+scripts/torch_train_rqvae.py (train, resume, audit, serve the checkpoint).
+And the port's sources are small text files."""
 
 import os
 import subprocess
@@ -55,6 +57,8 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     launches = chip_smoke.artifacts_phase(torch.device("cpu"), engine, items, hist,
                                           amazon=tiny, ml32m=tiny_plain)
     assert launches == {"amazon": 0, "ml32m": 0}, launches
+    # The serve phase's tokenize_features check (no launch on the CPU).
+    assert chip_smoke.check_tokenize_features(engine.tokenizer, items, hist) == 0
 
     # The smoke's training path on the CPU: a short run (dense attention) and
     # one over 1 + 350 * 6 = 2,101 tokens (the flash route, whose plain
@@ -89,6 +93,25 @@ HYGIENE_SCRIPT = textwrap.dedent('''
                                        mixed_precision_type='"fp32"', stage1=s1)
     assert rec["resume"]["gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec["resume"]
     assert rec["remat"]["param_gap"] == 0.0, rec["remat"]
+
+    # The smoke's mining phase at tiny widths (L 4, the xxl_m gin's other
+    # keys as the repo holds them, bf16 included): planted near-copies
+    # collide, the pool refreshes at each audit and survives the resume.
+    with tempfile.TemporaryDirectory() as work:
+        tiny_xxl = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16,
+                        n_layers=4, tag_embed_dim=12, tag_tree=(4, 3, 3), n_items=600)
+        rec = chip_smoke.mining_phase(torch.device("cpu"), work, cfg=tiny_xxl, n=2,
+                                      settings=(("mining", 32, 1),), timed=(1, 1),
+                                      batch_size=32, sem_id_mining_pool=64, rare_tag_threshold=3)
+    assert rec["resume_gaps"] == {"params": 0.0, "batch_stats": 0.0, "mu": 0.0, "nu": 0.0}, rec
+    assert rec["collision_rate"][-1] > 0 and rec["pool_colliding"] == 1.0, rec
+
+    # The smoke's rqvae phase at tiny widths: the gin entry script, resume,
+    # the audit's table against a plain sweep, and the served checkpoint.
+    with tempfile.TemporaryDirectory() as work:
+        rec = chip_smoke.rqvae_phase(torch.device("cpu"), work, cfg=dict(tiny_plain, n_items=400),
+                                     n=2, timed=(1, 1), batch_size=16)
+    assert rec["resume_gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("modules", len(names), "resolved", resolved)
@@ -96,7 +119,10 @@ HYGIENE_SCRIPT = textwrap.dedent('''
 
 
 def test_port_imports_and_serves_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # One intra-op thread: the script's ops are tiny, and beside other test
+    # workers on the same cores a thread pool per op makes it several times
+    # slower, not faster.
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", HYGIENE_SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -12,8 +12,8 @@ JAX package:
     augmentation, the port fed JAX's batch indices);
   * the port's run of 2N mini-steps equals its N + a resumed N, bitwise,
     with dropout, mixup and test-time augmentation on;
-  * mining is refused, the gin surface binds as JAX's, and the port's
-    checkpoint feeds the stage-2 entry script and from_artifacts.
+  * the gin surface binds as JAX's, and the port's checkpoint feeds the
+    stage-2 entry script and from_artifacts (mining: tests/test_torch_mining.py).
 
 Tolerances: losses and eval metrics rtol LOSS_RTOL; parameters and
 moments REL_TOL of the largest entry of each JAX array (its own, not a
@@ -244,7 +244,8 @@ def test_jax_checkpoint_resumes_and_follows_jax(dataset_root, tmp_path, monkeypa
                   ["item_is_train"].sum())
     idx = _jax_indices(S1["seed"], range(4, 8), S1["batch_size"], n_train)
     order = iter(range(4, 8))
-    monkeypatch.setattr(DeviceItemData, "sample", lambda self, g, b: self.gather(idx[next(order)]))
+    monkeypatch.setattr(DeviceItemData, "sample",
+                        lambda self, g, b, n=0: self.gather(idx[next(order)]))
     resumed = _port(dataset_root, tmp_path, "port", **DETERMINISTIC, iterations=2,
                     save_model_every=2, eval_every=2, pretrained_hrqvae_path=export)
     jh, th = resumed_j["history"], resumed["history"]
@@ -306,11 +307,6 @@ def test_port_resume_is_bitwise(port_runs):
     assert meta_dir.name == "latest" and (meta_dir / "arrays.npz").exists()
     assert (Path(full["save_dir"]) / "plots" / "losses.png").exists()
     assert "iter 7:" in (Path(full["save_dir"]) / "train.log").read_text()
-
-
-def test_mining_is_refused(dataset_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        _port(dataset_root, tmp_path, "mining", iterations=1, sem_id_mining=True)
 
 
 def test_gin_surface_binds_as_jax():
