@@ -1705,6 +1705,366 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
     record["remat"] = remat_runs(cfg, vae, feats, device, run=remat_run)
     return record
 
+# ---- multi-GPU: process groups over the card -----------------------------------
+
+MULTI_N = 3               # steps of each multi-rank run (evals and saves at N); the resume N more
+MULTI_SHORT = (20, 256)   # the bf16 runs: history items, global batch (decoder_amazon.gin's)
+MULTI_LONG = (400, 64, 2)  # long-history DP: history items, global batch, steps (2,401 tokens)
+MULTI_TIMEOUT_S = 600     # the two Gloo ranks' whole run
+# A W-rank run against the one-rank run of the same steps: the same batches,
+# crops and dropout masks (every rank draws the global ones and keeps its
+# rows), the sums in another order (the gradient average over the data
+# ranks, the fp32 partials of the model ranks, other GEMM row counts).
+# The first step's loss (the same params on the same batch) differs by
+# that order only: fp32 runs hold it to MULTI_FIRST_LOSS_RTOL. Later steps
+# carry the difference through AdamW, whose first updates are about
+# lr * sign(g) (an entry whose gradient is within rounding of 0 may move
+# the other way), and a random-weight run's first steps amplify it (the
+# gin run's loss goes 78 -> 107 -> 90): the trajectory is held to the JAX
+# package's own multi-device tolerance (rtol 5e-3, tests/test_parallel.py,
+# the stage-1 trajectory on 8 devices against 1). fp32 params are held as
+# the L2 gap over the run's update (as check_resume holds a resume): a cut
+# leaf left wrong moves it by its share of the update, out_proj (0.6 % of
+# the parameters) by about sqrt(0.006) = 8e-2. In bf16 (the gin's own
+# precision, the train_arrays runs) each rank's weight gradient is also a
+# bf16-rounded sum over its own rows, and the one-rank bf16 GEMMs may reduce
+# in bf16 where the model ranks sum fp32 partials: bf16 runs are held on
+# their trajectory only.
+MULTI_LOSS_RTOL = 5e-3
+MULTI_FIRST_LOSS_RTOL = 1e-5
+MULTI_FP32_PARAM_RTOL = 1e-2
+# The engine's beam scores (fp32, full_fp32) on a mesh against one rank's:
+# each data rank's products have other row counts (and the model ranks sum
+# fp32 partials), so cuBLAS may take other kernels, whose roundings (~1e-7
+# relative each) pass through 8 blocks into a sum of 6 log-softmax terms.
+# Relative to the score; the items must be equal.
+MULTI_SCORE_RTOL = 1e-5
+
+
+def multi_rank_main(workdir):
+    """One rank of the multi phase's two Gloo ranks on cuda:0 (started by
+    multi_phase through launch_ranks): DP (2 x 1) and TP (1 x 2) runs of the
+    trainer from the gin, the long-history DP run, and the engine from the
+    trainer's artifacts at 2 x 1 and at 1 x 2 with shard_params. Writes
+    rank<r>.json (and the engines' answers to rank<r>_<mesh>.npz)."""
+    import torch.distributed as dist
+
+    from hidvae_tpu_torch.parallel.collectives import COLLECTIVE_BYTES
+    from hidvae_tpu_torch.parallel.mesh import make_mesh
+    from hidvae_tpu_torch.utils.config import parse_config_and_run
+
+    with open(os.path.join(workdir, "inputs.json")) as f:
+        inp = json.load(f)
+    device = torch.device(inp["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    out = {}
+    try:
+        for name, shards in (("dp", 1), ("tp", 2)):
+            rq.rq_assign.launches = 0
+            t0 = time.perf_counter()
+            res = parse_config_and_run(trainer.train, [inp["gin_n"]], device=device,
+                                       n_model_shards=shards,
+                                       save_dir_root=os.path.join(workdir, name))
+            h = res["history"]
+            out[name] = dict(
+                loss=h["train_loss"], seconds=time.perf_counter() - t0,
+                ms_per_step=h["ms_per_step"], bytes_per_step=h["collective_bytes_per_step"],
+                sweep_rq_launches=rq.rq_assign.launches, saved=res["saved_paths"][-1],
+                mesh=res["mesh"].shape,
+                shapes={k: list(p.shape) for k, p in res["model"].named_parameters()
+                        if k in MULTI_SHAPE_KEYS})
+            del res
+        vae, feats = torch.load(inp["vae"], weights_only=False)
+        for name, shards in (("dp16", 1), ("tp16", 2)):
+            res = multi_arrays_run(inp["cfg"], vae, feats, device, inp["n"], inp["short_run"],
+                                   n_model_shards=shards)
+            out[name] = dict(loss=res["history"]["train_loss"],
+                             bytes_per_step=res["history"]["collective_bytes_per_step"])
+            del res
+        *run, steps = inp["long_run"]
+        res = multi_arrays_run(inp["cfg"], vae, feats, device, steps, run)
+        out["long"] = dict(loss=res["history"]["train_loss"], launches=kernel_launches(),
+                           bytes_per_step=res["history"]["collective_bytes_per_step"],
+                           ms_per_step=res["history"]["ms_per_step"])
+        del res
+        for name, mesh_kw in (("engine_dp", dict(n_data=2)), ("engine_tp", dict(n_model=2))):
+            rq.rq_assign.launches = 0
+            before = dict(COLLECTIVE_BYTES)
+            t0 = time.perf_counter()
+            eng = RetrievalEngine.from_artifacts(
+                inp["gin_2n"], inp["stage1"], inp["ckpt_2n"], device=device,
+                batch_buckets=(ARTIFACT_HISTORIES,), mesh=make_mesh(**mesh_kw),
+                shard_params=name == "engine_tp")
+            build_s = time.perf_counter() - t0
+            launches = rq.rq_assign.launches
+            res = eng.recommend(np.load(inp["hist"]), top_k=10)
+            np.savez(os.path.join(workdir, f"rank{rank}_{name}.npz"), table=eng.corpus_ids.cpu(),
+                     items=res["items"], sem_ids=res["sem_ids"], scores=res["scores"])
+            out[name] = dict(rq_launches=launches, build_s=build_s,
+                             latency_s=res["latency_s"], batch_buckets=eng.batch_buckets,
+                             collective_bytes={k: COLLECTIVE_BYTES[k] - before[k]
+                                               for k in before})
+            del eng
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+# The leaves the layout cuts at the Amazon widths, and the ID table, which it keeps whole.
+MULTI_SHAPE_KEYS = ("sem_id_embedder.emb.weight", "out_proj.weight",
+                    "transformer.encoder.block_0.ff.dense_0.weight",
+                    "transformer.encoder.block_0.ff.dense_1.weight")
+
+
+def multi_widths(cfg):
+    return dict(vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+                decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+                attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
+                tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, seed=SEED)
+
+
+def checkpoint_params(path):
+    return {k.removeprefix("params/"): v for k, v in load_export_arrays(path, "params/").items()}
+
+
+def check_multi_run(name, losses, params, want_losses, want_params, init,
+                    first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
+    """Losses within MULTI_LOSS_RTOL of the one-rank run's (the first within
+    `first_rtol`, None: not held apart); params within `param_rtol` of its
+    update (L2). Prints the largest leaf gaps; returns both gaps."""
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    update = {k: want_params[k] - init[k] for k in init}
+    gap, worst = relative_gap(params, want_params, update)
+    leaves = sorted(((relative_gap({k: params[k]}, {k: want_params[k]}, {k: update[k]})[0], k)
+                     for k in init), reverse=True)[:3]
+    print(f"  {name}: losses {[round(x, 5) for x in losses]} against "
+          f"{[round(x, 5) for x in want_losses]} (relative differences "
+          f"{[f'{e:.2e}' for e in errs]}, tolerance {MULTI_LOSS_RTOL}"
+          + (f", the first {first_rtol}" if first_rtol else "") + f"); params gap {gap:.3e} "
+          f"of the update (largest |difference| {worst:.3e}, tolerance {param_rtol}; largest "
+          f"leaves {[(k, f'{g:.2e}') for g, k in leaves]})", flush=True)
+    if len(losses) != len(want_losses) or not (
+            max(errs) <= MULTI_LOSS_RTOL and gap <= param_rtol
+            and (first_rtol is None or errs[0] <= first_rtol)):
+        raise AssertionError(f"{name}: the run differs from the one-rank run")
+    return {"loss_rel_err": max(errs), "param_gap": gap}
+
+
+def multi_arrays_run(cfg, vae, feats, device, steps, run, **kwargs):
+    """train_arrays at cfg's widths on seeded histories of run = (items,
+    global batch), without evals; launch counts set to 0 just before."""
+    max_seq_len, batch = run
+    users, items, fut = seeded_sequences(len(feats), TRAIN_SEQS, max_seq_len, SEED + 11)
+    rq.rq_assign.launches = 0
+    fa.reset_launches()
+    return trainer.train_arrays(feats, users, items, fut, vae=vae, iterations=steps,
+                                batch_size=batch, log_every=1, device=device,
+                                **multi_widths(cfg), **kwargs)
+
+
+def compare_engines(name, ranks_npz, want, hist):
+    """Every rank's table bitwise the one-rank engine's; items and ID tuples
+    equal, scores within MULTI_SCORE_RTOL of their size (rows that differ
+    are printed)."""
+    a = want.recommend(hist, top_k=10)
+    table = want.corpus_ids.cpu().numpy()
+    for r, got in enumerate(ranks_npz):
+        if not np.array_equal(got["table"], table):
+            rows = np.flatnonzero((got["table"] != table).any(1))
+            raise AssertionError(f"{name} rank {r}: corpus table differs in {len(rows)} rows "
+                                 f"(first {rows[:5].tolist()})")
+        differ = np.flatnonzero((got["items"] != a["items"]).any(1)
+                                | (got["sem_ids"] != a["sem_ids"]).any((1, 2)))
+        err = float(np.abs(got["scores"] - a["scores"]).max())
+        rel = float((np.abs(got["scores"] - a["scores"]) / np.abs(a["scores"])).max())
+        print(f"  {name} rank {r}: table bitwise equal; {len(hist)} histories: rows whose items "
+              f"differ {differ.tolist()}, max score difference {err:.3e}, relative {rel:.3e} "
+              f"(tolerance {MULTI_SCORE_RTOL}; scores {float(a['scores'].min()):.2f} to "
+              f"{float(a['scores'].max()):.2f})", flush=True)
+        if len(differ):
+            for row in differ[:4]:
+                print(f"    row {row}: items {got['items'][row].tolist()} against "
+                      f"{a['items'][row].tolist()}, scores {got['scores'][row].tolist()} against "
+                      f"{a['scores'][row].tolist()}", flush=True)
+        if len(differ) or rel > MULTI_SCORE_RTOL:
+            raise AssertionError(f"{name} rank {r}: serves differently from one rank")
+
+
+@phase("multi")
+def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
+                long_run=MULTI_LONG, splits=TRAINER_SPLITS, **bindings):
+    """Multi-GPU semantics on the one card (timings functional, not speed):
+      1. one rank over NCCL: the trainer's distributed path for N steps,
+         held to the one-process run of the same steps;
+      2. two Gloo ranks on cuda:0 (NCCL refuses two ranks on one device):
+         DP 2 x 1 and TP 1 x 2 runs of the trainer from the gin (fp32) and
+         of train_arrays (bf16), held to the one-process runs; TP's
+         checkpoint at N resumed on one process for N more, held to the
+         uninterrupted 2N run; the long-history DP run
+         (flash launches per rank); the engine from the trainer's artifacts
+         at 2 x 1 and at 1 x 2 with shard_params, held to the one-process
+         engine (rq_assign launches per rank).
+    The gins are decoder_amazon.gin's at cfg's widths with fp32 products
+    (`bindings` override it). On the CPU (a rehearsal at small widths) the
+    one-rank group runs over Gloo. Returns the launch counts and gaps."""
+    bindings = {"mixed_precision_type": '"fp32"', **bindings}
+    import torch.distributed as dist
+
+    from hidvae_tpu_torch.parallel.dryrun import free_port, launch_ranks
+    from hidvae_tpu_torch.utils.config import parse_config_and_run
+
+    script = load_script("torch_train_transformer")
+    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "multi")
+        _, test_hist, _ = write_trainer_inputs(root, cfg, feats_np, stage1, splits)
+        gin_n = trainer_gin(root, cfg, stage1, n, n, **bindings)
+        gin_2n = trainer_gin(root, cfg, stage1, 2 * n, n, **bindings)
+        full, _, _ = run_trainer_entry(script, device, gin_2n)
+        ckpt_n, ckpt_2n = full["saved_paths"]
+        want_n, want_2n = checkpoint_params(ckpt_n), checkpoint_params(ckpt_2n)
+        widths = {k: v for k, v in multi_widths(cfg).items()
+                  if k not in ("tag_class_counts", "use_concatenated_ids")}
+        widths["seed"] = inspect.signature(trainer.train).parameters["seed"].default  # the gin's
+        init = state_dict_to_flax(trainer.build_model(
+            sem_id_dim=full["model"].sem_id_dim, max_seq_len=cfg["max_seq_len"], **widths))[0]
+        want_loss = full["history"]["train_loss"]
+
+        # 1. one rank over NCCL
+        cuda = device.type == "cuda"
+        dist.init_process_group("nccl" if cuda else "gloo", rank=0, world_size=1,
+                                init_method=f"tcp://localhost:{free_port()}",
+                                device_id=device if cuda else None)
+        try:
+            one = parse_config_and_run(trainer.train, [gin_n], device=device,
+                                       save_dir_root=os.path.join(root, "nccl"))
+        finally:
+            dist.destroy_process_group()
+        got = checkpoint_params(one["saved_paths"][-1])
+        bitwise = (one["history"]["train_loss"] == want_loss[:n]
+                   and all(np.array_equal(got[k], want_n[k]) for k in want_n))
+        print(f"  {'NCCL' if cuda else 'Gloo'}, world 1 (mesh {one['mesh'].shape}): losses "
+              f"{one['history']['train_loss']}; bitwise equal to the one-process run's first "
+              f"{n} steps and checkpoint_{n}: {bitwise}", flush=True)
+        record["nccl_1"] = {"bitwise": bitwise,
+                            **check_multi_run(f"{'NCCL' if cuda else 'Gloo'} world 1",
+                                              one["history"]["train_loss"], got, want_loss[:n],
+                                              want_n, init)}
+        del one, full
+
+        # 2. two Gloo ranks on the card
+        hist_path = os.path.join(root, "hist.npy")
+        np.save(hist_path, test_hist[:ARTIFACT_HISTORIES])
+        vae_path = os.path.join(root, "vae.pt")
+        torch.save((vae, feats), vae_path)
+        with open(os.path.join(root, "inputs.json"), "w") as f:
+            json.dump(dict(gin_n=gin_n, gin_2n=gin_2n, stage1=stage1, ckpt_2n=ckpt_2n,
+                           hist=hist_path, vae=vae_path, cfg=cfg, device=str(device),
+                           n=n, short_run=short_run, long_run=long_run), f)
+        t0 = time.perf_counter()
+        launch_ranks([sys.executable, os.path.abspath(__file__), "--multi-rank", root], 2,
+                     MULTI_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        where = torch.cuda.get_device_name(0) if cuda else "the CPU"
+        print(f"  two Gloo ranks on {where}: {ranks_s:.2f} s in all (functional timings, not "
+              f"speed: both ranks share one device)", flush=True)
+        for name in ("dp", "tp"):
+            rr = [r[name] for r in ranks]
+            print(f"  {name} (mesh {rr[0]['mesh']}): ranks' losses equal "
+                  f"{rr[0]['loss'] == rr[1]['loss']}; per rank {[r['seconds'] for r in rr]} s, "
+                  f"ms per step {[r['ms_per_step'] for r in rr]}; collectives "
+                  f"{[r['bytes_per_step'] for r in rr]} bytes per step per rank; sweep "
+                  f"rq_assign launches per rank {[r['sweep_rq_launches'] for r in rr]}; local "
+                  f"shapes {rr[0]['shapes']}", flush=True)
+            record[name] = check_multi_run(
+                f"{name} 2 ranks", rr[0]["loss"], checkpoint_params(rr[0]["saved"]),
+                want_loss[:n], want_n, init)
+            record[name].update(bytes_per_step=rr[0]["bytes_per_step"],
+                                rq_launches=[r["sweep_rq_launches"] for r in rr])
+        one16 = multi_arrays_run(cfg, vae, feats, device, n, short_run)["history"]["train_loss"]
+        for name in ("dp16", "tp16"):
+            got = ranks[0][name]["loss"]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, one16))
+            print(f"  {name} 2 ranks (bf16, {short_run[0]} items, batch {short_run[1]}): losses "
+                  f"{[round(x, 5) for x in got]} against {[round(x, 5) for x in one16]} (largest "
+                  f"relative difference {loss_err:.3e}, tolerance {MULTI_LOSS_RTOL}); collectives "
+                  f"{[r[name]['bytes_per_step'] for r in ranks]} bytes per step per rank",
+                  flush=True)
+            if len(got) != len(one16) or not loss_err <= MULTI_LOSS_RTOL:
+                raise AssertionError(f"{name}: the bf16 run differs from the one-rank run")
+            record[name] = {"loss_rel_err": loss_err}
+        shapes = ranks[1]["tp"]["shapes"]
+        table_rows = (cfg["codebook_size"] * cfg["n_layers"]
+                      + 1000 * len(cfg["tag_class_counts"]) + 1)
+        want_shapes = {"out_proj.weight": [cfg["codebook_size"] // 2, cfg["attn_embed_dim"]],
+                       "sem_id_embedder.emb.weight": [table_rows, cfg["decoder_embed_dim"]],
+                       "transformer.encoder.block_0.ff.dense_0.weight":
+                           [512, cfg["attn_embed_dim"]],
+                       "transformer.encoder.block_0.ff.dense_1.weight":
+                           [cfg["attn_embed_dim"], 512]}
+        if any(shapes.get(k) != v for k, v in want_shapes.items()):
+            raise AssertionError(f"tp: local shapes {shapes}, expected {want_shapes}")
+        print(f"  tp: out_proj and the FF kernels hold half their rows or columns on each "
+              f"rank; the ID table ({table_rows} rows, odd) stays whole, as "
+              f"stage2_param_shardings' ok() keeps it", flush=True)
+
+        resumed, _, _ = run_trainer_entry(script, device, gin_n, "--resume",
+                                          ranks[0]["tp"]["saved"])
+        record["tp_resume"] = check_multi_run(
+            "TP checkpoint resumed on one rank", resumed["history"]["train_loss"],
+            state_dict_to_flax(resumed["model"])[0], want_loss[n:], want_2n, want_n,
+            first_rtol=None)
+        del resumed
+
+        *run, steps = long_run
+        long_one = multi_arrays_run(cfg, vae, feats, device, steps, run)
+        n_enc = cfg["attn_layers"] // 2
+        want = {"flash_fwd": n_enc * steps, "flash_bwd_dkv": n_enc * steps,
+                "flash_bwd_dq": n_enc * steps}
+        want = want if cuda else {k: 0 for k in want}  # the plain version on the CPU
+        for r, rr in enumerate(ranks):
+            got = {k: rr["long"]["launches"][k] for k in want}
+            print(f"  long-history DP rank {r}: flash launches {got} ({n_enc} encoder layers x "
+                  f"{steps} steps), collectives {rr['long']['bytes_per_step']} bytes per step, "
+                  f"ms per step {rr['long']['ms_per_step']}", flush=True)
+            if got != want:
+                raise AssertionError(f"long DP rank {r}: flash launches {got}, expected {want}")
+        record["long"] = dict(launches=[{k: rr["long"]["launches"][k] for k in want}
+                                        for rr in ranks])
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(ranks[0]["long"]["loss"], long_one["history"]["train_loss"]))
+        print(f"  long-history DP: losses {ranks[0]['long']['loss']} against one rank's "
+              f"{long_one['history']['train_loss']} (largest relative difference "
+              f"{loss_err:.3e}, tolerance {MULTI_LOSS_RTOL})", flush=True)
+        if not loss_err <= MULTI_LOSS_RTOL:
+            raise AssertionError("long-history DP: losses differ from the one-rank run's")
+        del long_one
+
+        want = RetrievalEngine.from_artifacts(gin_2n, stage1, ckpt_2n, device=device,
+                                              batch_buckets=(ARTIFACT_HISTORIES,))
+        hist = np.load(hist_path)
+        for name in ("engine_dp", "engine_tp"):
+            rr = [r[name] for r in ranks]
+            npz = [dict(np.load(os.path.join(root, f"rank{r}_{name}.npz"))) for r in range(2)]
+            print(f"  {name}: rq_assign launches per rank {[r['rq_launches'] for r in rr]} "
+                  f"({len(feats_np)} rows, each chunk split over the data ranks); buckets "
+                  f"{rr[0]['batch_buckets']}; build {[round(r['build_s'], 3) for r in rr]} s, "
+                  f"request {[round(r['latency_s'], 4) for r in rr]} s; collective bytes "
+                  f"{rr[0]['collective_bytes']}", flush=True)
+            compare_engines(name, npz, want, hist)
+            record[name] = dict(rq_launches=[r["rq_launches"] for r in rr])
+        del want
+    return record
+
 # ---- duplicate-pair mining in the stage-1 trainer ----------------------------
 
 H_RQVAE_XXL_M_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_xxl_m.gin")
@@ -2023,6 +2383,7 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         stage1, stage1_rec = stage1_phase(device, feats, os.path.join(work, "stage1"))
         trainer_rec = trainer_phase(device, vae, feats, stage1)
+        multi_rec = multi_phase(device, vae, feats, stage1)
     with tempfile.TemporaryDirectory() as work:
         mining_rec = mining_phase(device, work)
     with tempfile.TemporaryDirectory() as work:
@@ -2044,14 +2405,21 @@ def main():
         launches_stage1=stage1_rec["launches"],
         launches_rqvae=rqvae_rec["launches"], launches_mining=mining_rec["launches"],
         launches_tokenize_features=tok_launches,
+        launches_multi_per_rank={
+            "sweep_dp": multi_rec["dp"]["rq_launches"], "sweep_tp": multi_rec["tp"]["rq_launches"],
+            "engine_dp": multi_rec["engine_dp"]["rq_launches"],
+            "engine_tp": multi_rec["engine_tp"]["rq_launches"]},
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
             name=name, route="cuda", source="hidvae_tpu_torch/csrc/flash_attention.cu",
             replaces=FLASH_REPLACES[name], reached_from="hidvae_tpu/models/attention.py:75",
             launches=long_launches[name],
-            launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")}, **r))
-    for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec)):
+            launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")},
+            launches_multi_long_dp_per_rank=[rr[name] for rr in multi_rec["long"]["launches"]],
+            **r))
+    for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec),
+                    ("multi", multi_rec)):
         print(f"  {name} record: {json.dumps(r)}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2062,4 +2430,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--multi-rank"]:
+        multi_rank_main(sys.argv[2])
+    else:
+        sys.exit(main())

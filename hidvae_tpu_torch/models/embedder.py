@@ -1,10 +1,14 @@
 """Semantic-ID and user-ID embedders (counterpart of
 hidvae_tpu/models/embedder.py). One table partitioned by (type, layer):
 semantic slot = layer * K + id; tag slot = K * n_sem + layer * 1000 + id;
-the last row is padding, whose embedding is zeroed at lookup."""
+the last row is padding, whose embedding is zeroed at lookup. Under tensor
+parallelism (parallel/mesh.py) the table's rows are cut over the model
+ranks: each looks up the rows it holds and the lookups are summed."""
 
 import torch
 from torch import nn
+
+from hidvae_tpu_torch.parallel.collectives import reduce_from_model
 
 MAX_TAG_SIZE = 1000  # per tag layer
 
@@ -58,7 +62,14 @@ class SemIdEmbedder(nn.Module):
             use_interleaved_ids=self.use_interleaved_ids, padding_idx=self.padding_idx,
             valid_mask=valid_mask,
         )
-        embs = self.emb(slots)
+        tp = getattr(self.emb, "tp", None)
+        if tp is None:
+            embs = self.emb(slots)
+        else:  # rows cut over 'model': one rank finds each row, the others add 0
+            local = slots - tp.rank * self.emb.weight.shape[0]
+            mine = (local >= 0) & (local < self.emb.weight.shape[0])
+            embs = self.emb(torch.where(mine, local, torch.zeros_like(local)))
+            embs = reduce_from_model(embs * mine[..., None], tp.group)
         return torch.where((slots == self.padding_idx)[..., None],
                            torch.zeros_like(embs), embs)
 

@@ -6,7 +6,7 @@ a flax parameter path to a state_dict key by rule.
 `dtype` follows flax's Dense: parameters stay fp32 and each product runs in
 the compute dtype (input and kernel cast to it, output in it)."""
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -14,11 +14,17 @@ from torch.nn import functional as F
 
 from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.normalize import l2norm, rms_norm
+from hidvae_tpu_torch.parallel.collectives import parallel_linear
 
 
 def dense(layer: nn.Linear, x, dtype=None):
     """flax nn.Dense(dtype=...) on a torch Linear: input and weight cast to
-    `dtype` (None keeps the input's own dtype and the fp32 weight)."""
+    `dtype` (None keeps the input's own dtype and the fp32 weight). A layer
+    that `parallel.mesh.shard_stage2_` cut (`layer.tp`) runs its
+    tensor-parallel product (parallel/collectives.py)."""
+    tp = getattr(layer, "tp", None)
+    if tp is not None:
+        return parallel_linear(x, layer.weight, tp, dtype)
     if dtype is None:
         return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -53,12 +59,22 @@ class MLP(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        """`generator` set = train mode: dropout draws from it."""
+    def forward(self, x, generator=None):
+        """`generator` set = train mode: dropout draws from it. Under tensor
+        parallelism (a two-layer MLP whose dense_0 is cut by output features,
+        dense_1 by input features) the hidden activations are this rank's
+        columns, and their dropout keeps its columns of the whole mask."""
         for i in range(self.n_dense):
-            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
+            layer = getattr(self, f"dense_{i}")
+            x = dense(layer, x, self.dtype)
             if i != self.n_dense - 1:
-                x = drop(F.silu(x), self.dropout, generator)
+                tp = getattr(layer, "tp", None)
+                cols = None
+                if tp is not None:
+                    if self.n_dense != 2:
+                        raise NotImplementedError("tensor parallelism cuts two-layer MLPs only")
+                    cols = (tp.rank * x.shape[-1], tp.size * x.shape[-1])
+                x = drop(F.silu(x), self.dropout, generator, cols)
         if self.normalize:
             # fp32 regardless of compute dtype: the quantizer's argmin
             # downstream is precision-sensitive.

@@ -14,6 +14,9 @@ target embeddings (retrieval.py:105, :118-120) draw from it. `dtype` is
 flax's compute dtype: the projections and blocks run in it, parameters stay
 fp32, logits are cast to fp32 for the loss. `remat` rematerializes every
 transformer block in the backward (retrieval.py:67, :96; models/transformer.py).
+Under tensor parallelism (parallel/mesh.py) `out_proj` holds this rank's
+vocab rows, and the logits are gathered along the vocab before the loss and
+before the beam's top-k.
 """
 
 import warnings
@@ -34,6 +37,7 @@ from hidvae_tpu_torch.ops.prefix_search import (
     trie_digit_mask,
     valid_digit_mask,
 )
+from hidvae_tpu_torch.parallel.collectives import gather_from_model
 
 BEAMS = 32
 NEG_LARGE = -1.0e9
@@ -133,7 +137,9 @@ class EncoderDecoderRetrievalModel(nn.Module):
                                       generator=generator)
         if last_only:
             dec = dec[:, -1:, :]
-        return dense(self.out_proj, dec, self.dtype)
+        logits = dense(self.out_proj, dec, self.dtype)
+        tp = getattr(self.out_proj, "tp", None)
+        return logits if tp is None else gather_from_model(logits, tp)
 
     # ---- training / eval forward ----
 

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from hidvae_tpu_torch.models.attention import MultiHeadAttention
 from hidvae_tpu_torch.models.layers import MLP, RMSNorm
-from hidvae_tpu_torch.ops.dropout import dropout as drop
+from hidvae_tpu_torch.ops.dropout import RowShard, dropout as drop
 
 
 class TransformerBlock(nn.Module):
@@ -72,20 +72,23 @@ class GeneratorReplay:
     """The dropout generator of each run of one rematerialized block: the
     live generator on the first run (the forward), and on every later run
     (the recompute) a fresh copy set to the state the forward began from.
-    None (eval) stays None."""
+    None (eval) stays None; a RowShard keeps its rows around the copy."""
 
-    def __init__(self, generator: Optional[torch.Generator]):
+    def __init__(self, generator):
         self.generator = generator
-        self.state = None if generator is None else generator.get_state()
+        live = generator.generator if isinstance(generator, RowShard) else generator
+        self.state = None if live is None else live.get_state()
         self.runs = 0
 
-    def __call__(self) -> Optional[torch.Generator]:
+    def __call__(self):
         self.runs += 1
         if self.generator is None or self.runs == 1:
             return self.generator
-        replay = torch.Generator(device=self.generator.device)
+        sharded = isinstance(self.generator, RowShard)
+        live = self.generator.generator if sharded else self.generator
+        replay = torch.Generator(device=live.device)
         replay.set_state(self.state)
-        return replay
+        return self.generator._replace(generator=replay) if sharded else replay
 
 
 def remat_block(block, x, context, self_padding_mask, kv_padding_mask, generator):

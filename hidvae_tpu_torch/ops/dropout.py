@@ -5,20 +5,47 @@ nn.Dropout as the JAX package uses it).
 `generator` argument; the trainer derives one generator per step from
 (seed, step), as the JAX trainer folds the step into its key, so the keep
 mask is drawn here. As in flax: keep with probability 1 - p and scale the
-kept values by 1 / (1 - p)."""
+kept values by 1 / (1 - p).
 
-from typing import Optional
+On a mesh a rank holds some rows of the global batch (and, inside a
+tensor-parallel feed-forward, some columns of its hidden width). The step's
+generator then comes wrapped in a `RowShard`: every site draws the keep mask
+of the global shape and keeps this rank's rows (and columns), so the ranks
+together apply the one-device run's mask, bit for bit."""
+
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 
-def dropout(x, p: float, generator: Optional[torch.Generator]):
+class RowShard(NamedTuple):
+    """A step's dropout generator, and the rows [start, start + rows of the
+    input) of the `total`-row global batch that this rank computes."""
+    generator: torch.Generator
+    start: int
+    total: int
+
+
+def dropout(x, p: float, generator: Union[None, torch.Generator, RowShard],
+            cols: Optional[tuple] = None):
     """Inverted dropout of `x` with rate `p`; the identity when `generator`
-    is None (eval mode) or p == 0. The generator must live on x's device."""
+    is None (eval mode) or p == 0. The generator must live on x's device.
+    `cols` = (start, total): x's last dimension is columns [start, start +
+    width) of a `total`-wide one."""
     if generator is None or p == 0.0:
         return x
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout rate {p} is not in [0, 1)")
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape, rows = list(x.shape), None
+    if isinstance(generator, RowShard):
+        generator, start, shape[0] = generator
+        rows = slice(start, start + x.shape[0])
+    if cols is not None:
+        shape[-1] = cols[1]
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if rows is not None:
+        keep = keep[rows]
+    if cols is not None:
+        keep = keep[..., cols[0]:cols[0] + x.shape[-1]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,0 +1,165 @@
+"""The collectives of the port's multi-GPU paths, and the autograd functions
+that make tensor parallelism of them (the Megatron f / g pair).
+
+Only `all_reduce`, `all_gather` (list form) and `broadcast` are used: Gloo
+runs those three on CUDA tensors as NCCL does, so the same code runs under
+either backend, whichever the caller initialized. A group of None means no
+process group (one process): every function is then the identity, so a
+module that was never sharded runs its one-device code unchanged.
+
+`COLLECTIVE_BYTES` counts, per collective, the bytes this process handed to
+it over a group of more than one rank (the payload of an all-reduce or a
+broadcast, the local part of an all-gather); `collective_bytes()` is their
+sum, which the stage-2 trainer reports per step.
+
+Tensor-parallel products follow "all-reduce the partials in fp32, then
+cast": a row-parallel layer's forward and a column-parallel layer's input
+gradient are sums over the model ranks' partial products, and each partial
+is taken in fp32 from inputs already rounded to the compute dtype (bf16
+values are exact in fp32 and in TF32), all-reduced in fp32 and rounded to
+the compute dtype once, as the one-device product rounds its fp32
+accumulation once."""
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+from torch.nn import functional as F
+
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+
+
+class TensorShard(NamedTuple):
+    """Where a parameter lies sharded: `dim` of the torch tensor is cut into
+    `size` equal parts over the model `group`, and this rank holds part
+    `rank`."""
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    size: int
+    dim: int
+
+
+def collective_bytes() -> int:
+    return sum(COLLECTIVE_BYTES.values())
+
+
+def _count(name: str, t: torch.Tensor, group):
+    if dist.get_world_size(group) > 1:
+        COLLECTIVE_BYTES[name] += t.numel() * t.element_size()
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum `t` over `group` in place; returns `t`."""
+    if group is not None:
+        _count("all_reduce", t, group)
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The parts `t` of every rank of `group`, in rank order, concatenated
+    along `dim` (every part must have the same shape)."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    _count("all_gather", t, group)
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast_(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
+    """`t` of the group's rank `src_rank` on every rank, in place."""
+    if group is not None:
+        _count("broadcast", t, group)
+        dist.broadcast(t, dist.get_global_rank(group, src_rank), group=group)
+    return t
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: sum over the model ranks forward; identity backward (every model
+    rank computes the same loss from the reduced value)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The model ranks' parts concatenated along the last dimension forward;
+    backward, this rank's part of the (replicated) gradient. Taking the
+    part, not summing the ranks' copies, keeps the gradient off by no
+    factor of the model size."""
+
+    @staticmethod
+    def forward(ctx, x, shard: TensorShard):
+        ctx.shard, ctx.width = shard, x.shape[-1]
+        return all_gather_cat(x, shard.group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.shard.rank * ctx.width
+        return grad[..., start:start + ctx.width].contiguous(), None
+
+
+class _ColumnParallelLinear(torch.autograd.Function):
+    """x W_localᵀ in `dtype`, W sharded by output features: forward is local;
+    the input's gradient sums the model ranks' partials (fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, dtype):
+        xc, wc = x.to(dtype), w.to(dtype)
+        ctx.save_for_backward(xc, wc)
+        ctx.group, ctx.x_dtype, ctx.w_dtype = group, x.dtype, w.dtype
+        return F.linear(xc, wc)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xc, wc = ctx.saved_tensors
+        dx = all_reduce_(torch.matmul(grad.float(), wc.float()), ctx.group)
+        dw = torch.matmul(grad.reshape(-1, grad.shape[-1]).t(), xc.reshape(-1, xc.shape[-1]))
+        return dx.to(wc.dtype).to(ctx.x_dtype), dw.to(ctx.w_dtype), None, None
+
+
+class _RowParallelLinear(torch.autograd.Function):
+    """x_local W_localᵀ, W sharded by input features: the model ranks'
+    partials summed in fp32 and rounded to `dtype` once; backward is local."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, dtype):
+        xc, wc = x.to(dtype), w.to(dtype)
+        ctx.save_for_backward(xc, wc)
+        ctx.x_dtype, ctx.w_dtype = x.dtype, w.dtype
+        return all_reduce_(F.linear(xc.float(), wc.float()), group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xc, wc = ctx.saved_tensors
+        grad = grad.to(wc.dtype)
+        dx = torch.matmul(grad, wc)
+        dw = torch.matmul(grad.reshape(-1, grad.shape[-1]).t(), xc.reshape(-1, xc.shape[-1]))
+        return dx.to(ctx.x_dtype), dw.to(ctx.w_dtype), None, None
+
+
+def parallel_linear(x, weight, shard: TensorShard, dtype=None):
+    """flax Dense on a weight sharded by `shard`: dim 0 (output features,
+    column-parallel) gives this rank's output columns; dim 1 (input
+    features, row-parallel) takes this rank's input columns and gives the
+    whole output. `dtype` None computes in the input's dtype."""
+    dtype = x.dtype if dtype is None else dtype
+    fn = _ColumnParallelLinear if shard.dim == 0 else _RowParallelLinear
+    return fn.apply(x, weight, shard.group, dtype)
+
+
+def reduce_from_model(x, group):
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x, shard: TensorShard):
+    """Concatenate the model ranks' last-dimension parts (fp32 on the wire,
+    lossless for bf16), in x's dtype."""
+    return _GatherFromModel.apply(x.float(), shard).to(x.dtype)

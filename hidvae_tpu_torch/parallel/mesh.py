@@ -1,0 +1,246 @@
+"""A ('data', 'model') mesh over a torch.distributed process group, and the
+stage-2 tensor-parallel layout (counterpart of hidvae_tpu/parallel/mesh.py).
+
+The JAX package lays its devices out as `reshape(n_data, n_model)`; here
+rank r of the process group sits at (r // n_model, r % n_model). A rank's
+data group holds the ranks of its model coordinate (one per data index: the
+gradient all-reduce and the gathers of sharded rows run over it), its model
+group the ranks of its data coordinate (the tensor-parallel collectives).
+The backend is the process group's, which the caller initialized
+(`init_from_env` under torchrun: NCCL on cuda:LOCAL_RANK); library code
+never picks one. Without a process group `make_mesh` gives the one-device
+mesh (1, 1) with no groups, on which every collective is the identity.
+
+`stage2_param_layout` mirrors `stage2_param_shardings` leaf for leaf: the
+semantic-ID table by rows (vocab), `out_proj` by vocab, the FF `dense_0` by
+output features and the other FF kernels by input features, each replicated
+where its dimension does not divide the model axis. A torch nn.Linear weight
+is the flax kernel transposed, so a flax P(None, "model") kernel is cut along
+torch dim 0. `shard_stage2_` cuts a model (and its AdamW moments) to this
+rank's parts in place; `gather_stage2_flat` rebuilds whole flax-named arrays
+for a checkpoint."""
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from hidvae_tpu_torch.bridge import flax_named_parameters
+from hidvae_tpu_torch.parallel.collectives import TensorShard, all_gather_cat
+
+
+@dataclass(frozen=True)
+class Mesh:
+    n_data: int
+    n_model: int
+    rank: int                                  # in the mesh's process group
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_data, "model": self.n_model}
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.n_model
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 writes logs, checkpoints and plots."""
+        return self.rank == 0
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None) -> Mesh:
+    """A ('data', 'model') mesh over `group` (default: the initialized world
+    group; none initialized: one device). n_data defaults to all ranks over
+    n_model. Every rank of the group must sit on the mesh: a torch rank
+    cannot sit out the collectives the others run."""
+    if dist.is_available() and dist.is_initialized():
+        ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+        rank = dist.get_rank(group)
+    else:
+        ranks, rank = [0], 0
+    if n_data is None:
+        n_data = len(ranks) // n_model
+    if n_data < 1:
+        raise ValueError(f"n_model={n_model} needs at least {n_model} devices, "
+                         f"have {len(ranks)}")
+    if n_data * n_model > len(ranks):
+        raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} devices, "
+                         f"have {len(ranks)}")
+    if n_data * n_model != len(ranks):
+        raise ValueError(f"mesh {n_data}x{n_model} leaves ranks of the {len(ranks)}-rank "
+                         f"process group off the mesh")
+    if not dist.is_initialized():
+        return Mesh(1, 1, 0)
+    data_group = model_group = None
+    # Every rank creates every group, in the same order (new_group's rule).
+    for m in range(n_model):
+        g = dist.new_group([ranks[d * n_model + m] for d in range(n_data)])
+        if m == rank % n_model:
+            data_group = g
+    for d in range(n_data):
+        g = dist.new_group([ranks[d * n_model + m] for m in range(n_model)])
+        if d == rank // n_model:
+            model_group = g
+    return Mesh(n_data, n_model, rank, data_group, model_group)
+
+
+def init_from_env() -> torch.device:
+    """Join the process group torchrun describes (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR/PORT) over NCCL on cuda:LOCAL_RANK, and make that
+    device current. Raises when the device does not exist: two ranks never
+    share a card silently. Returns the device."""
+    local = int(os.environ["LOCAL_RANK"])
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if local >= n_cards:
+        raise RuntimeError(f"LOCAL_RANK {local} has no CUDA device ({n_cards} visible): "
+                           f"start at most one rank per card")
+    device = torch.device("cuda", local)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]), device_id=device)
+    return device
+
+
+STAGE1_COUPLED = {
+    "HiD-VAE": "BatchNorm statistics (TagProjector), the in-batch InfoNCE tag alignment and "
+               "its [B, B] logits, the [B, B] uniqueness loss, the batch-mean class weights "
+               "of the tag prediction loss, the mined pairs at the head of the batch and "
+               "their isolation",
+    "RQ-VAE": "the k-means codebook init from the first global batch",
+}
+
+
+def refuse_data_parallel(trainer: str):
+    """Raise under a process group of more than one rank: the JAX stage-1
+    trainers compute their losses over the global batch, and a per-rank
+    copy would silently compute something else (ROADMAP.md queue 1)."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"the {trainer} trainer runs on one rank, not {dist.get_world_size()}: its "
+            f"globally coupled terms ({STAGE1_COUPLED[trainer]}) need gathered activations "
+            f"with gradients; stage-1 data parallelism is queued in ROADMAP.md queue 1")
+
+
+def pad_to_multiple(t: torch.Tensor, multiple: int):
+    """`t` with its leading axis zero-padded to a multiple of `multiple`, and
+    the original size."""
+    n = t.shape[0]
+    pad = (-n) % multiple
+    if pad:
+        t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+    return t, n
+
+
+def shard_rows(n: int, mesh: Mesh) -> slice:
+    """The rows of an n-row batch that this data rank holds: an equal
+    contiguous part when n_data divides n, else all of them (JAX leaves
+    such a batch replicated)."""
+    if n % mesh.n_data:
+        return slice(0, n)
+    part = n // mesh.n_data
+    return slice(mesh.data_rank * part, (mesh.data_rank + 1) * part)
+
+
+def gather_rows(t: torch.Tensor, n: int, mesh: Mesh) -> torch.Tensor:
+    """The whole n-row batch from each data rank's `shard_rows` part."""
+    return t if n % mesh.n_data else all_gather_cat(t, mesh.data_group)
+
+
+# ---- the stage-2 tensor-parallel layout ----
+
+def _model_axis(path: str) -> Optional[int]:
+    """stage2_param_shardings' spec of one flax leaf, as the index of its
+    'model' axis (None: replicated), before the fallback of `ok()`."""
+    names = path.split("/")
+    axis = None
+    if "sem_id_embedder" in names and names[-1] == "embedding":
+        axis = 0                                      # P("model", None)
+    elif "out_proj" in names and names[-1] == "kernel":
+        axis = 1                                      # P(None, "model")
+    elif "ff" in names and names[-1] == "kernel":
+        axis = 1 if "dense_0" in names else 0
+    return axis
+
+
+def stage2_param_layout(mesh: Mesh, model: torch.nn.Module) -> Dict[str, Optional[int]]:
+    """{flax path: the torch dim cut over 'model', or None (replicated)}
+    for every parameter of the stage-2 model, as stage2_param_shardings
+    lays the flax leaves out (see the module docstring)."""
+    out = {}
+    for path, p, transpose in flax_named_parameters(model):
+        shape = tuple(p.shape[::-1]) if transpose else tuple(p.shape)
+        axis = _model_axis(path)
+        if axis is not None and shape[axis] % mesh.n_model != 0:
+            axis = None
+        out[path] = None if axis is None else (1 - axis if transpose else axis)
+    return out
+
+
+def _part(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    n = t.shape[dim] // mesh.n_model
+    return t.narrow(dim, mesh.model_rank * n, n).clone()
+
+
+def shard_stage2_(model: torch.nn.Module, mesh: Mesh, optimizer=None) -> Dict[str, Optional[int]]:
+    """Cut `model`'s sharded parameters (and, with `optimizer`, their AdamW
+    moments) to this rank's parts in place, and mark each owning module
+    with its TensorShard (`.tp`), which the layers read. The Parameter
+    objects stay, so an optimizer built over them stays valid. Nothing
+    happens on a model axis of 1. Returns the layout."""
+    layout = stage2_param_layout(mesh, model)
+    if mesh.n_model == 1:
+        return layout
+    owners = {}
+    for name, module in model.named_modules():
+        for pname, p in module.named_parameters(recurse=False):
+            owners[id(p)] = module
+    for path, p, _ in flax_named_parameters(model):
+        dim = layout[path]
+        if dim is None:
+            continue
+        with torch.no_grad():
+            p.data = _part(p.data, dim, mesh)
+        if optimizer is not None:
+            state = optimizer.adamw.state.get(p, {})
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in state:
+                    state[key] = _part(state[key], dim, mesh)
+        owners[id(p)].tp = TensorShard(mesh.model_group, mesh.model_rank, mesh.n_model, dim)
+    return layout
+
+
+def sharded_params(model: torch.nn.Module):
+    """The parameters that `shard_stage2_` cut."""
+    return [p for m in model.modules() if getattr(m, "tp", None) is not None
+            for p in m.parameters(recurse=False)]
+
+
+def gather_stage2_flat(flat: Dict[str, np.ndarray], layout: Dict[str, Optional[int]],
+                       mesh: Mesh, device) -> Dict[str, np.ndarray]:
+    """Whole arrays from this rank's parts: every entry of `flat` (flax
+    layout, keyed by "<prefix><flax path>", e.g. "0/mu/out_proj/kernel")
+    whose flax path the layout cuts is gathered over 'model' (a collective:
+    every rank calls it with the same keys). Others pass through."""
+    if mesh.n_model == 1:
+        return flat
+    out = {}
+    for key, arr in flat.items():
+        path = next((p for p in layout if key == p or key.endswith("/" + p)), None)
+        dim = None if path is None else layout[path]
+        if dim is None or np.ndim(arr) == 0:
+            out[key] = arr
+            continue
+        flax_dim = 1 - dim if path.endswith("kernel") else dim
+        part = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        out[key] = all_gather_cat(part, mesh.model_group, dim=flax_dim).cpu().numpy()
+    return out

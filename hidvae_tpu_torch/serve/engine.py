@@ -14,8 +14,13 @@ processed dataset. Before the prefix index is built, the table is audited
 against the stage-1 checkpoint's recorded repetition rate: a collapsed
 table is refused, as the JAX engine refuses it.
 
-Not ported yet: multi-GPU serving (the JAX engine's `mesh` and
-`shard_params`).
+Multi-GPU serving (engine.py:194-231): with `mesh` (parallel.mesh.Mesh)
+the buckets are rounded up to a multiple of n_data, the corpus sweep is
+split over the data ranks, and each data rank decodes its rows of every
+bucket; the results are gathered, so `recommend`, called on every rank with
+the same requests, returns the whole answer everywhere. The tables and tries
+are replicated; the decoder is replicated, or cut over the model ranks with
+`shard_params=True` (the trainers' layout, parallel/mesh.py).
 """
 
 import logging
@@ -28,6 +33,7 @@ import torch
 from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_processed
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.ops.prefix_search import build_prefix_index_with_perm, lookup_items
+from hidvae_tpu_torch.parallel.mesh import gather_rows, shard_rows, shard_stage2_
 from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint
 from hidvae_tpu_torch.train.common import (
     audit_rebuilt_corpus,
@@ -57,6 +63,9 @@ class RetrievalEngine:
     stage1_checkpoint : the stage-1 export whose recorded repetition rate
         the corpus table is audited against (None: no guard).
     device : `cuda` unless given; raises without a card.
+    mesh : a parallel.mesh.Mesh over the ranks that serve together (None:
+        this process alone); shard_params cuts the decoder over its model
+        ranks.
 
     `build_times` holds the seconds of the build's parts: `table_s` (the
     sweep, read back to the host for the audit), `index_s` (prefix index,
@@ -72,7 +81,8 @@ class RetrievalEngine:
         exported checkpoints; the corpus comes from the config's
         dataset_folder. Follows hidvae_tpu/serve/engine.py:51-182; defaults
         are the JAX trainer's, so a config that relies on one builds the
-        same model here."""
+        same model here. `engine_kwargs` go to the engine (batch_buckets,
+        mesh, shard_params, ...), as engine.py:258 passes them."""
         t0 = time.perf_counter()
         device = resolve_device(device)
         cfg = parse_gin_file(gin_path)["train"]
@@ -157,12 +167,20 @@ class RetrievalEngine:
         stage1_checkpoint=None,
         reuse_cached_ids: bool = True,
         device=None,
+        mesh=None,
+        shard_params: bool = False,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
         self.max_seq_len = int(max_seq_len)
         self.generation_temperature = float(generation_temperature)
+        self.mesh = mesh
+        if mesh is not None:
+            # Every bucket splits evenly over the data ranks (engine.py:224).
+            batch_buckets = [b + (-b) % mesh.n_data for b in batch_buckets]
+            if shard_params:
+                shard_stage2_(self.model, mesh)
         self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
 
         # A tokenizer that already holds the table for this catalog (same
@@ -178,7 +196,7 @@ class RetrievalEngine:
         ):
             self.corpus_ids = cached
         else:
-            self.corpus_ids = tokenizer.precompute_corpus_ids(item_features)
+            self.corpus_ids = tokenizer.precompute_corpus_ids(item_features, mesh=mesh)
         self.corpus_ids = self.corpus_ids.to(self.device)
         self.n_items = int(self.corpus_ids.shape[0])
         self.sem_id_dim = int(self.corpus_ids.shape[1])
@@ -239,7 +257,15 @@ class RetrievalEngine:
 
     @torch.inference_mode()
     def _step(self, user_ids, items):
-        """tokenize -> beam search -> resolve, on the device."""
+        """tokenize -> beam search -> resolve, on the device; over a mesh,
+        this data rank's rows of the bucket, then the rows of all."""
+        if self.mesh is not None:
+            rows = shard_rows(items.shape[0], self.mesh)
+            return tuple(gather_rows(t, items.shape[0], self.mesh)
+                         for t in self._rows_step(user_ids[rows], items[rows]))
+        return self._rows_step(user_ids, items)
+
+    def _rows_step(self, user_ids, items):
         b = items.shape[0]
         d = self.sem_id_dim
         zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)

@@ -88,11 +88,13 @@ class SemanticIdTokenizer:
             ids, _ = rq_assign_auto(m.encode(x.float()), m.stacked_codebooks())
         return ids
 
-    def precompute_corpus_ids(self, item_features) -> torch.Tensor:
+    def precompute_corpus_ids(self, item_features, mesh=None) -> torch.Tensor:
         """Build the [n_items, sem_ids_dim] corpus table on the device (and
-        its dedup rank column), and the sorted prefix index."""
+        its dedup rank column), and the sorted prefix index. `mesh`
+        (parallel.mesh.Mesh) splits the sweep over its data ranks, as
+        `sharding=` does in semids.py:109-116; every rank gets the table."""
         ids = sweep_corpus(self.encode_ids, item_features,
-                           self.corpus_chunk_size, self.device)
+                           self.corpus_chunk_size, self.device, mesh)
         if self.use_dedup_dim:
             ids = torch.cat([ids, duplicate_ranks(ids)[:, None]], dim=-1)
         self.reset()

@@ -4,6 +4,7 @@ Host features are uploaded chunk by chunk from pinned memory on a side CUDA
 stream, so chunk k+1's copy overlaps chunk k's encode and at most two chunks
 of features are on the card at a time. Features already on the device are
 sliced in place. In eager PyTorch no chunk needs padding to a fixed shape.
+Over a mesh's data ranks (`mesh=`), each chunk is split and gathered back.
 """
 
 import hashlib
@@ -11,6 +12,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from hidvae_tpu_torch.parallel.collectives import all_gather_cat
+from hidvae_tpu_torch.parallel.mesh import pad_to_multiple
 
 
 def features_fingerprint(item_features) -> str:
@@ -35,23 +39,43 @@ def features_fingerprint(item_features) -> str:
     return h.hexdigest()
 
 
+def _sharded(encode_block, mesh):
+    """encode_block on this data rank's part of each chunk, the parts
+    gathered over the data group and the padding dropped."""
+    def encode(block):
+        padded, n = pad_to_multiple(block, mesh.n_data)
+        part = padded.shape[0] // mesh.n_data
+        mine = encode_block(padded[mesh.data_rank * part:(mesh.data_rank + 1) * part])
+        return all_gather_cat(mine, mesh.data_group)[:n]
+    return encode
+
+
 def sweep_corpus(
     encode_block: Callable[[torch.Tensor], torch.Tensor],
     item_features,
     chunk_size: int,
     device: torch.device,
+    mesh=None,
 ) -> torch.Tensor:
     """Run `encode_block` over `item_features` [N, F] in chunks of
     `chunk_size` rows on `device`; returns the concatenated [N, ...] output.
 
     item_features: host numpy / CPU tensor (staged to a card), or a tensor
-    already on `device` (sliced in place)."""
+    already on `device` (sliced in place).
+
+    mesh: a parallel.mesh.Mesh; its data ranks split every chunk (rounded up
+    to a multiple of n_data, the ragged last chunk zero-padded to one, as
+    sweep.py:67-68 rounds it), each encodes its equal part, and the parts are
+    gathered over the data group: every rank returns the whole output."""
     n = int(item_features.shape[0])
     chunk = min(chunk_size, n)
     if isinstance(item_features, torch.Tensor):
         feats = item_features.float()
     else:
         feats = torch.from_numpy(np.ascontiguousarray(item_features, np.float32))
+    if mesh is not None and mesh.n_data > 1:
+        chunk += (-chunk) % mesh.n_data
+        encode_block = _sharded(encode_block, mesh)
     starts = range(0, n, chunk)
     if feats.device == device or device.type != "cuda":
         return torch.cat([encode_block(feats[s:s + chunk].to(device)) for s in starts])

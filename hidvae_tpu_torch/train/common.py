@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import flax_named_parameters
+from hidvae_tpu_torch.parallel.collectives import all_reduce_
 
 
 def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], float]:
@@ -49,13 +50,21 @@ def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], 
     return schedule
 
 
-def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                         parts: Iterable[torch.Tensor] = (), group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm g exceeds
-    max_norm, every gradient is scaled by max_norm / g. Returns g."""
+    max_norm, every gradient is scaled by max_norm / g. Returns g. `parts`
+    are gradients of tensors cut over the model ranks of `group`: their
+    squares are summed over the group once (parallel.collectives), those of
+    the replicated `grads` not at all."""
     grads = [g for g in grads if g is not None]
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    parts = [g for g in parts if g is not None]
+    sq = sum(torch.sum(g.float() * g.float()) for g in grads)
+    if parts:
+        sq = sq + all_reduce_(sum(torch.sum(g.float() * g.float()) for g in parts), group)
+    norm = torch.sqrt(sq)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
+    for g in grads + parts:
         g.mul_(scale.to(g.dtype))
     return norm
 
@@ -161,6 +170,9 @@ class Optimizer:
         self.mini_step = 0  # mini-steps accumulated since the last update
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.accumulate_every > 1 else None)
+        # (ids of the parameters cut over the model ranks, their group): the
+        # clip's global norm sums their squares over the group.
+        self.model_parts = None
         self.adamw = torch.optim.AdamW(
             [{"params": ps, "weight_decay": wd, "lr_scale": scale}
              for _, ps, scale, wd in self.groups if ps],
@@ -191,7 +203,10 @@ class Optimizer:
                 p.grad = a  # the accumulator is overwritten at the next mini-step 0
             self.mini_step = 0
         if self.max_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm)
+            cut, group = self.model_parts or ((), None)
+            clip_by_global_norm_([p.grad for p in self.params if id(p) not in cut],
+                                 self.max_grad_norm,
+                                 [p.grad for p in self.params if id(p) in cut], group)
         lr = self._lr(self.count)
         for group in self.adamw.param_groups:
             group["lr"] = lr * group["lr_scale"]

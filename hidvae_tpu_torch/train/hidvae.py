@@ -62,6 +62,7 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
+from hidvae_tpu_torch.parallel.mesh import refuse_data_parallel
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     ReduceLROnPlateau,
@@ -379,6 +380,7 @@ def train(
     out), mined_pair_collision_rate (each chunk's last step) and
     mining_pool_refreshed (the audit steps whose harvest replaced the
     pool)."""
+    refuse_data_parallel("HiD-VAE")
     device = resolve_device(device)
     time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{time_stamp}")

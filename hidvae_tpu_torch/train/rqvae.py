@@ -51,6 +51,7 @@ from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
+from hidvae_tpu_torch.parallel.mesh import refuse_data_parallel
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     chunk_events,
@@ -201,6 +202,7 @@ def train(
     "corpus_ids" (the newest audit's table, or None)}; history holds the
     JAX trainer's keys and ms_per_step (host clock per mini-step of each
     chunk, eval, audit and save left out)."""
+    refuse_data_parallel("RQ-VAE")
     device = resolve_device(device)
     time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{time_stamp}")

@@ -32,17 +32,33 @@ The encoder's self-attention takes the flash route (CUDA kernels on the
 card) exactly where the JAX package takes its flash kernel: at contexts of
 at least 2048 tokens. A head width the kernels are not built for is refused
 before the first step on a CUDA device. `remat` rematerializes every block
-(models/transformer.py). Not ported: tensor parallelism (`n_model_shards`
-above 1 is refused); `split_batches` changes nothing on one device, as in
-JAX with one data shard (:461); `wandb_logging` and `model_jagged_mode`
-are taken and ignored, as in JAX.
+(models/transformer.py). `wandb_logging` and `model_jagged_mode` are taken
+and ignored, as in JAX.
+
+Multi-GPU (transformer.py:416-464): both loops run over
+`make_mesh(n_model=n_model_shards)`, a ('data', 'model') mesh over the
+initialized process group (torchrun: scripts/torch_train_transformer.py;
+none: one device). Every rank draws the global batch, its crops and every
+dropout mask of the global shape from the step's generator and keeps its
+rows (`shard_rows`; a batch n_data does not divide runs whole on every data
+rank, as JAX leaves it replicated), so a run on any mesh replays the
+one-device stream. `n_model_shards` k > 1 cuts the ID table, `out_proj` and
+the FF kernels over k model ranks (parallel/mesh.py). Gradients are
+averaged over the data ranks; the clip's global norm sums the squares of a
+cut leaf over the model ranks. Evals split their batches over the data
+ranks and reduce their sums. `split_batches=False` multiplies the batch by
+n_data (:460-464). Rank 0 alone writes train.log, checkpoints and plots; a
+checkpoint holds whole arrays (the TP parts gathered), the file a
+one-device run writes, so it resumes on any mesh.
 """
 
+import contextlib
 import logging
 import math
 import os
 import time
 from collections import deque
+from dataclasses import fields
 from datetime import datetime
 from typing import Optional, Sequence
 
@@ -57,7 +73,18 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.models.rqvae import RqVae
+from hidvae_tpu_torch.ops.dropout import RowShard
 from hidvae_tpu_torch.ops.flash_attention import check_head_dim
+from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_, collective_bytes
+from hidvae_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rows,
+    gather_stage2_flat,
+    make_mesh,
+    shard_rows,
+    shard_stage2_,
+    sharded_params,
+)
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
@@ -195,22 +222,45 @@ def build_model(*, sem_id_dim: int, max_seq_len: int, vae_codebook_size: int = 2
 
 
 def sample_batch(data: DeviceSeqData, table, batch_size: int, generator: torch.Generator,
-                 subsample: bool = True):
+                 subsample: bool = True, rows: slice = slice(None)):
     """One step's batch: sample rows, random-crop windows when `subsample`,
-    tokenize by gather from the corpus table (transformer.py:543-548)."""
+    tokenize by gather from the corpus table (transformer.py:543-548); of
+    the `batch_size` drawn, the `rows` this rank computes."""
     u, hist, target = data.sample_rows(generator, batch_size)
     if subsample:
         u1, u2 = crop_uniforms(generator, batch_size, table.device)
-        hist, target = random_crop_windows(u1, u2, hist, target)
-    return tokenize_on_device(table, u, hist, target)
+        hist, target = random_crop_windows(u1[rows], u2[rows], hist[rows], target[rows])
+    else:
+        hist, target = hist[rows], target[rows]
+    return tokenize_on_device(table, u[rows], hist, target)
 
 
-def train_step(model, optimizer: Optimizer, batch, generator: Optional[torch.Generator]):
+def average_gradients_(params, mesh: Mesh):
+    """Every parameter's gradient averaged over the data ranks, in one
+    all-reduce (a missing gradient counts as zeros)."""
+    if mesh.data_group is None:
+        return
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, mesh.data_group).div_(mesh.n_data)
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+def train_step(model, optimizer: Optimizer, batch, generator, mesh: Optional[Mesh] = None):
     """One AdamW update on `batch`; dropout draws from `generator` (None runs
-    the forward deterministically). Returns (loss, loss_d), not synced."""
+    the forward deterministically; a RowShard on a mesh), and the gradients
+    are averaged over the mesh's data ranks. Returns (loss, loss_d) of this
+    rank's rows, not synced."""
     optimizer.zero_grad()
     out = model(batch, generator)
     out.loss.backward()
+    if mesh is not None:
+        average_gradients_(optimizer.params, mesh)
     optimizer.step()
     return out.loss.detach(), out.loss_d.detach()
 
@@ -232,21 +282,30 @@ def device_batches(data: DeviceSeqData, batch_size: int):
 
 
 @torch.no_grad()
-def eval_loss(model, table, batches, eval_batches: Optional[int] = None):
+def eval_loss(model, table, batches, eval_batches: Optional[int] = None,
+              mesh: Optional[Mesh] = None):
     """Row-weighted mean eval loss over `batches` of (user ids, histories,
     targets), host or device arrays, in order (transformer.py:615-636, the
     partial eval); and the debug metrics of the first batch: sequence-length
     quantiles and per-digit losses (compute_debug_metrics, "eval_" keys).
-    Returns (loss, debug metrics)."""
+    On a mesh each data rank takes its rows of every batch after the first
+    (which every rank runs whole, for the debug metrics) and the loss sums
+    are all-reduced. Returns (loss, debug metrics)."""
     total, rows, dbg = 0.0, 0, {}
     for bi, arrays in enumerate(batches):
         if eval_batches is not None and bi >= eval_batches:
             break
         users, items, fut = (torch.as_tensor(a).to(table.device) for a in arrays)
-        batch = tokenize_on_device(table, users, items, fut)
-        out = model(batch)
         n = items.shape[0]
-        total += float(out.loss) * n
+        part = shard_rows(n, mesh) if mesh is not None and bi > 0 else slice(0, n)
+        batch = tokenize_on_device(table, users[part], items[part], fut[part])
+        out = model(batch)
+        if part.stop - part.start == n:
+            total += float(out.loss) * n
+        else:
+            local = torch.tensor(float(out.loss) * (part.stop - part.start),
+                                 dtype=torch.float64, device=table.device)
+            total += float(all_reduce_(local, mesh.data_group))
         rows += n
         if bi == 0:
             dbg = compute_debug_metrics(batch, out, prefix="eval")
@@ -266,14 +325,16 @@ def _pad_rows(arrays, n: int):
 
 @torch.no_grad()
 def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
-              prefix_tries=None, log=None):
+              prefix_tries=None, log=None, mesh: Optional[Mesh] = None):
     """Constrained-generation eval (transformer.py:723-752): for each
     in-order batch of `eval_seq` (a ragged last one padded to `batch_size`
     rows by `_pad_rows`), tokenize by gather from the tokenizer's table,
     run `generate(batch, prefix_index, prefix_tries)` and score the valid
     rows' generated tuples against the targets with hit@K and NDCG@K per
     digit and per prefix. `log(str)` gets three sample predictions of the
-    first batch. Returns the metric dict."""
+    first batch. On a mesh each data rank generates its rows and the
+    tuples are gathered, so every rank scores the whole batch. Returns the
+    metric dict."""
     topk = TopKAccumulator(ks=list(EVAL_KS))
     ndcg = NDCGAccumulator(ks=list(EVAL_KS))
     table, index = tokenizer.cached_ids, tokenizer.prefix_index
@@ -285,9 +346,14 @@ def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
             arrays = _pad_rows(arrays, batch_size)
         users, items, fut = (torch.from_numpy(np.asarray(a)).to(table.device) for a in arrays)
         tok = tokenize_on_device(table, users, items, fut)
-        gen = generate(tok, index, prefix_tries)
+        if mesh is None:
+            gen_ids = generate(tok, index, prefix_tries).sem_ids
+        else:
+            part = shard_rows(batch_size, mesh)
+            mine = tok.replace(**{f.name: getattr(tok, f.name)[part] for f in fields(tok)})
+            gen_ids = gather_rows(generate(mine, index, prefix_tries).sem_ids, batch_size, mesh)
         actual = tok.sem_ids_fut[:n_valid].cpu().numpy()
-        top_k_ids = gen.sem_ids[:n_valid].cpu().numpy()
+        top_k_ids = gen_ids[:n_valid].cpu().numpy()
         topk.accumulate(actual, top_k_ids)
         ndcg.accumulate(actual, top_k_ids)
         if bi == 0 and log is not None:
@@ -305,7 +371,7 @@ def _sync(device):
 
 def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
-             log_every: int, events=(), log=None) -> dict:
+             log_every: int, events=(), log=None, mesh: Optional[Mesh] = None) -> dict:
     """Steps start_iter .. start_iter + iterations - 1, each with its own
     `step_generator(seed, step)`, in the JAX trainer's chunks
     (`chunk_events` over log_every and every cadence of `events`). At each
@@ -313,24 +379,39 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
     read back in one sync and the last is logged beside the window mean of
     the last LOSS_WINDOW per-step losses (:576-587); then every (every, fn)
     of `events` whose cadence the chunk crosses is called, in order, with
-    the step count. Host-clock ms per step leave their time out. Returns the
-    history: logged iterations, train loss and ms per step, and the window
-    mean."""
+    the step count. Host-clock ms per step leave their time out. On a mesh
+    each step computes this data rank's rows (`shard_rows`) with a RowShard
+    of the step's generator, and the logged losses are the data ranks'
+    mean. Returns the history: logged iterations, train loss and ms per
+    step, the window mean and the bytes handed to collectives per step
+    (parallel/collectives.py; the events' own left out)."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
+    moved = 0
     loss_window = deque(maxlen=LOSS_WINDOW)
     _sync(device)
     t_last, it_last = time.perf_counter(), start_iter
+    rows = slice(0, batch_size) if mesh is None else shard_rows(batch_size, mesh)
+    split = rows.stop - rows.start < batch_size
     for first, done, fired in chunk_events(start_iter, iterations,
                                            [every for every, _ in events], log_every):
         step_losses = []
+        moved -= collective_bytes()
         for it in range(first, done):
             g = step_generator(seed, it, device)
-            batch = sample_batch(data, table, batch_size, g, subsample)
-            loss, loss_d = train_step(model, optimizer, batch, g)
+            batch = sample_batch(data, table, batch_size, g, subsample, rows)
+            # A batch every data rank runs whole needs no gradient average.
+            loss, loss_d = train_step(model, optimizer, batch,
+                                      RowShard(g, rows.start, batch_size) if split else g,
+                                      mesh if split else None)
             step_losses.append(loss)
-        losses = torch.stack(step_losses).float().tolist()  # syncs
+        losses = torch.stack(step_losses).float()
+        if split:  # the rows' means -> the global batch's (equal parts)
+            losses = all_reduce_(torch.cat([losses, loss_d.float()]), mesh.data_group)
+            losses, loss_d = (losses / mesh.n_data).split([len(step_losses), len(loss_d)])
+        losses = losses.tolist()  # syncs
+        moved += collective_bytes()
         loss_f = losses[-1]
         now = time.perf_counter()
         ms = (now - t_last) * 1e3 / (done - it_last)
@@ -349,7 +430,28 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
             _sync(device)
         t_last, it_last = time.perf_counter(), done
     history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
+    history["collective_bytes_per_step"] = moved / max(iterations, 1)
     return history
+
+
+def _run_stamp(mesh: Mesh, device) -> str:
+    """The run directory's time stamp: rank 0's clock, on every rank."""
+    stamp = torch.tensor([int(datetime.now().strftime("%Y%m%d%H%M%S"))], device=device)
+    if mesh.n_data * mesh.n_model > 1:
+        broadcast_(stamp, torch.distributed.group.WORLD)
+    s = str(int(stamp))
+    return f"{s[:8]}_{s[8:]}"
+
+
+def _shard(model, optimizer: Optimizer, mesh: Mesh):
+    """Cut the model and its moments over the mesh's model ranks; the clip
+    then sums the cut leaves' squares over them. Returns the layout."""
+    layout = shard_stage2_(model, mesh, optimizer)
+    if mesh.n_model > 1:
+        optimizer.model_parts = ({id(p) for p in sharded_params(model)}, mesh.model_group)
+        logger.info(f"Tensor-parallel params over {mesh.n_model} shards "
+                    f"(mesh {mesh.shape})")
+    return layout
 
 
 def _check_flash_width(attn_embed_dim, attn_heads, max_seq_len, sem_id_dim, device):
@@ -416,17 +518,14 @@ def train(
     does (see the module docstring). The tag loss weights only shape the
     stage-1 training loss and are logged, not used. Returns {"model",
     "optimizer", "step", "tokenizer", "save_dir", "history",
-    "saved_paths"}; history holds the JAX trainer's keys (iterations,
-    train_loss, eval_iterations, eval_loss, full_eval_iterations,
-    full_eval_metrics, test_eval_metrics), and ms_per_step, window_mean and
-    the host-clock seconds of each full eval and of each checkpoint
-    (full_eval_seconds, save_seconds; the latter with the read-back of
-    params and moments)."""
-    if n_model_shards > 1:
-        raise NotImplementedError(
-            f"n_model_shards={n_model_shards}: tensor parallelism is not ported yet "
-            f"(ROADMAP.md queue 1, item 5, multi-GPU); the port trains on one device")
+    "saved_paths", "mesh", "layout"}; history holds the JAX trainer's keys
+    (iterations, train_loss, eval_iterations, eval_loss,
+    full_eval_iterations, full_eval_metrics, test_eval_metrics), and
+    ms_per_step, window_mean, collective_bytes_per_step and the host-clock
+    seconds of each full eval and of each checkpoint (full_eval_seconds,
+    save_seconds; the latter with the read-back of params and moments)."""
     device = resolve_device(device)
+    mesh = make_mesh(n_model=n_model_shards)
     if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
         raise ValueError(
             "use_dedup_dim and use_interleaved_ids are mutually exclusive for the "
@@ -438,11 +537,15 @@ def train(
         use_interleaved_ids = False
     if attn_dropout is not None:
         dropout_p = attn_dropout
-    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    save_dir = os.path.join(save_dir_root, f"decoder_{dataset.name}_{time_stamp}")
-    config = dict(locals())
-    with run_logging(save_dir):
+    save_dir = os.path.join(save_dir_root, f"decoder_{dataset.name}_{_run_stamp(mesh, device)}")
+    config = {k: v for k, v in locals().items() if k != "mesh"}
+    with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
+        if not split_batches and mesh.n_data > 1:
+            # Accelerate's split_batches=False: batch_size is per data shard.
+            batch_size *= mesh.n_data
+            logger.info(f"split_batches=False: global batch = {batch_size} "
+                        f"({mesh.n_data} data shards)")
         # ---- data (transformer.py:284-301) ----
         item_dataset = ItemData(dataset_folder, dataset, train_test_split="all",
                                 split=dataset_split, force_process=force_dataset_process)
@@ -465,7 +568,7 @@ def train(
         )
         # The checkpoint-reconciled geometry, not the possibly stale gin values.
         vae_codebook_size, vae_n_layers = tokenizer.codebook_size, tokenizer.n_layers
-        corpus_ids = tokenizer.precompute_corpus_ids(item_dataset.item_features)
+        corpus_ids = tokenizer.precompute_corpus_ids(item_dataset.item_features, mesh=mesh)
         sem_id_dim = tokenizer.sem_ids_dim
         logger.info(f"Corpus table: {tuple(corpus_ids.shape)}, sem_ids_dim={sem_id_dim}")
         audit_rebuilt_corpus(tokenizer, corpus_ids.cpu().numpy(), pretrained_rqvae_path, log=logger)
@@ -510,6 +613,7 @@ def train(
             # and the step, as the JAX trainer restores its TrainState.
             start_iter, _ = restore_checkpoint(pretrained_decoder_path, model, optimizer)
             logger.info(f"Restored decoder from {pretrained_decoder_path} (iter {start_iter})")
+        layout = _shard(model, optimizer, mesh)
 
         data = as_seq_data(train_seq.users, train_seq.items, train_seq.fut, device)
         table = corpus_ids.to(torch.int32)
@@ -530,7 +634,7 @@ def train(
 
         def partial(it):
             loss, dbg = eval_loss(model, table, eval_seq.iter_eval_batches(batch_size),
-                                  eval_batches)
+                                  eval_batches, mesh)
             history["eval_iterations"].append(it)
             history["eval_loss"].append(loss)
             logger.info(f"partial eval @ {it}: loss={loss:.4f} "
@@ -540,7 +644,7 @@ def train(
             t0 = time.perf_counter()
             metrics = full_eval(generate, tokenizer, eval_seq, batch_size,
                                 eval_batches=eval_batches, prefix_tries=prefix_tries,
-                                log=logger.info)
+                                log=logger.info, mesh=mesh)
             history["full_eval_seconds"].append(time.perf_counter() - t0)  # ends in read-backs
             history["full_eval_iterations"].append(it)
             history["full_eval_metrics"].append(metrics)
@@ -551,8 +655,10 @@ def train(
             t0 = time.perf_counter()  # the state read back to the host, then written
             payload = {
                 "step": it,
-                "params": state_dict_to_flax(model)[0],
-                "opt_state": optimizer.state_dict(model),
+                # Whole arrays: a model-sharded leaf is gathered on every rank.
+                "params": gather_stage2_flat(state_dict_to_flax(model)[0], layout, mesh, device),
+                "opt_state": gather_stage2_flat(optimizer.state_dict(model), layout, mesh,
+                                                device),
                 # The full structural config: serving and a decoder resume
                 # reconcile against it.
                 "model_config": {
@@ -569,25 +675,28 @@ def train(
                 },
                 "metrics": {},
             }
-            saved.append(save_checkpoint(save_dir, f"checkpoint_{it}", payload))
+            name = f"checkpoint_{it}"
+            saved.append(save_checkpoint(save_dir, name, payload) if mesh.is_main
+                          else os.path.abspath(os.path.join(save_dir, name)))
             history["save_seconds"].append(time.perf_counter() - t0)
 
         events = ((partial_eval_every, partial), (full_eval_every, full), (save_model_every, save))
         history.update(run_loop(model, optimizer, data, table, seed=seed, start_iter=start_iter,
                                 iterations=iterations, batch_size=batch_size,
                                 subsample=train_seq.subsample,
-                                log_every=log_every, events=events, log=logger.info))
+                                log_every=log_every, events=events, log=logger.info, mesh=mesh))
 
         # The held-out TEST split (targets items[-1]), once after training.
         if len(test_seq) > 0:
             test_metrics = full_eval(generate, tokenizer, test_seq, batch_size,
-                                     eval_batches=eval_batches, prefix_tries=prefix_tries)
+                                     eval_batches=eval_batches, prefix_tries=prefix_tries,
+                                     mesh=mesh)
             history["test_eval_metrics"] = test_metrics
             logger.info("TEST eval (items[-1] targets): " + ", ".join(
                 f"{k}={v:.4f}" for k, v in sorted(test_metrics.items())
                 if "slice" in k or "pos" in k))
 
-        if make_plots:
+        if make_plots and mesh.is_main:
             try:
                 from hidvae_tpu_torch.train.plots import plot_transformer_history
 
@@ -597,7 +706,7 @@ def train(
 
         return {"model": model, "optimizer": optimizer, "step": start_iter + iterations,
                 "tokenizer": tokenizer, "save_dir": save_dir, "history": history,
-                "saved_paths": saved}
+                "saved_paths": saved, "mesh": mesh, "layout": layout}
 
 
 def train_arrays(
@@ -636,6 +745,7 @@ def train_arrays(
     eval_users=None,
     eval_items=None,
     eval_fut=None,
+    n_model_shards: int = 1,
     device=None,
     log=None,
 ):
@@ -648,10 +758,14 @@ def train_arrays(
 
     `log_every` sets how often the loss is read back (a device sync) and
     logged; `log(str)` receives the lines. Returns {"model", "tokenizer",
-    "optimizer", "history"}; history holds the logged iterations, train loss
-    and host-clock ms per step, the eval iterations and losses, and the
-    mean of the last LOSS_WINDOW per-step train losses."""
+    "optimizer", "history", "mesh", "layout"}; history holds the logged
+    iterations, train loss and host-clock ms per step, the eval iterations
+    and losses, the mean of the last LOSS_WINDOW per-step train losses and
+    the collectives' bytes per step. The mesh is
+    `train`'s: data ranks over the initialized process group, and
+    `n_model_shards` model ranks."""
     device = resolve_device(device)
+    mesh = make_mesh(n_model=n_model_shards)
     if attn_dropout is not None:
         dropout_p = attn_dropout
     log = log or (lambda line: None)
@@ -662,7 +776,7 @@ def train_arrays(
         use_concatenated_ids=use_concatenated_ids, use_interleaved_ids=use_interleaved_ids,
         device=device,
     )
-    table = tokenizer.precompute_corpus_ids(item_features).to(torch.int32)
+    table = tokenizer.precompute_corpus_ids(item_features, mesh=mesh).to(torch.int32)
     sem_id_dim = tokenizer.sem_ids_dim
     log(f"Corpus table: {tuple(table.shape)}, sem_ids_dim={sem_id_dim}")
 
@@ -681,11 +795,13 @@ def train_arrays(
     ).to(device)
     optimizer = Optimizer(model.parameters(), inverse_sqrt_schedule(learning_rate, warmup_steps),
                           weight_decay, max_grad_norm=max_grad_norm)
+    layout = _shard(model, optimizer, mesh)
 
     history = {"eval_iterations": [], "eval_loss": []}
 
     def partial(it):
-        loss, _ = eval_loss(model, table, device_batches(eval_data, batch_size), eval_batches)
+        loss, _ = eval_loss(model, table, device_batches(eval_data, batch_size), eval_batches,
+                            mesh)
         history["eval_iterations"].append(it)
         history["eval_loss"].append(loss)
         log(f"partial eval @ {it}: loss={loss:.4f}")
@@ -693,6 +809,6 @@ def train_arrays(
     events = () if eval_data is None else ((partial_eval_every, partial),)
     history.update(run_loop(model, optimizer, data, table, seed=seed, start_iter=0,
                             iterations=iterations, batch_size=batch_size, subsample=subsample,
-                            log_every=log_every, events=events, log=log))
+                            log_every=log_every, events=events, log=log, mesh=mesh))
     return {"model": model, "tokenizer": tokenizer, "optimizer": optimizer,
-            "history": history}
+            "history": history, "mesh": mesh, "layout": layout}

@@ -12,9 +12,21 @@ and `--resume` its `train.pretrained_decoder_path` (a `checkpoint_N` that
 this trainer saved, or an export with optimizer state); `--device` picks
 the device (`cuda` unless given). Checkpoints, train.log and plots land in
 `<save_dir_root>/decoder_<DATASET>_<time>/`. Imports no JAX.
+
+On several GPUs, under torchrun:
+
+    torchrun --standalone --nproc-per-node N scripts/torch_train_transformer.py \
+        CONFIG.gin [--model-shards k] ...
+
+each rank joins the process group over NCCL on cuda:LOCAL_RANK
+(`parallel.mesh.init_from_env`) and trains on a (N / k, k) mesh:
+data-parallel over N / k ranks, the decoder cut over k (`--model-shards`
+overrides `train.n_model_shards`). Rank 0 writes the log, checkpoints and
+plots. With `--device cpu` the ranks join over Gloo on the CPU instead.
 """
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -28,15 +40,34 @@ def main(argv=None):
     ap.add_argument("--stage1", default=None, help="exported stage-1 (tokenizer) checkpoint dir")
     ap.add_argument("--resume", default=None, help="exported decoder checkpoint to resume from")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--model-shards", type=int, default=None,
+                    help="tensor-parallel ranks of the mesh (train.n_model_shards)")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from hidvae_tpu_torch.parallel.mesh import init_from_env
     from hidvae_tpu_torch.train.transformer import train
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
-    result = parse_config_and_run(
-        train, [args.config_path], pretrained_rqvae_path=args.stage1,
-        pretrained_decoder_path=args.resume, device=args.device)
-    print(f"trained to step {result['step']}; checkpoints {result['saved_paths']}")
+    under_torchrun = "RANK" in os.environ and "LOCAL_RANK" in os.environ
+    device = args.device
+    if under_torchrun:
+        if device == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            device = init_from_env()
+    try:
+        result = parse_config_and_run(
+            train, [args.config_path], pretrained_rqvae_path=args.stage1,
+            pretrained_decoder_path=args.resume, device=device,
+            n_model_shards=args.model_shards)
+    finally:
+        if under_torchrun:
+            dist.destroy_process_group()
+    if result["mesh"].is_main:
+        print(f"trained to step {result['step']} on mesh {result['mesh'].shape}; "
+              f"checkpoints {result['saved_paths']}")
     return result
 
 

@@ -5,7 +5,8 @@ small exported checkpoints and serves them through `from_artifacts` on both
 tokenizer routes, the smoke's training path trains a small model there, and
 its stage-1 phase drives scripts/torch_train_hidvae.py (train, resume,
 audit, throughput) and its trainer phase scripts/torch_train_transformer.py
-on that checkpoint (train, resume, serve the checkpoint, remat), its mining
+on that checkpoint (train, resume, serve the checkpoint, remat), its multi
+phase the trainer and the engine on a process group (Gloo here), its mining
 phase the stage-1 entry with duplicate-pair mining and its rqvae phase
 scripts/torch_train_rqvae.py (train, resume, audit, serve the checkpoint).
 And the port's sources are small text files."""
@@ -36,7 +37,9 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     names = [m.name for m in pkgutil.walk_packages(hidvae_tpu_torch.__path__, "hidvae_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    assert "hidvae_tpu_torch.parallel.mesh" in names and "hidvae_tpu_torch.parallel.dryrun" in names
     import chip_smoke
+    import tests._torch_parallel_worker  # the multi-rank tests' ranks import no JAX either
 
     tiny = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16,
                 n_layers=3, codebook_normalize=True, tag_class_counts=(4, 6, 20),
@@ -91,8 +94,17 @@ HYGIENE_SCRIPT = textwrap.dedent('''
         rec = chip_smoke.trainer_phase(torch.device("cpu"), vae, feats, cfg=tiny, n=2,
                                        splits=(64, 20, 20), remat_run=(350, 2, 2), batch_size=8,
                                        mixed_precision_type='"fp32"', stage1=s1)
+        # The smoke's multi phase: one rank over Gloo here (NCCL on the
+        # card), then two Gloo ranks: DP and TP runs from the gin, the TP
+        # checkpoint resumed on one process, the long-history DP run and the
+        # engine at 2 x 1 and 1 x 2 with shard_params.
+        multi = chip_smoke.multi_phase(torch.device("cpu"), vae, feats, s1, cfg=tiny, n=2,
+                                       splits=(64, 20, 20), short_run=(6, 8),
+                                       long_run=(350, 4, 2), batch_size=8,
+                                       mixed_precision_type='"fp32"')
     assert rec["resume"]["gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec["resume"]
     assert rec["remat"]["param_gap"] == 0.0, rec["remat"]
+    assert multi["nccl_1"]["bitwise"] and multi["tp"]["bytes_per_step"] > 0, multi
 
     # The smoke's mining phase at tiny widths (L 4, the xxl_m gin's other
     # keys as the repo holds them, bf16 included): planted near-copies
@@ -134,6 +146,7 @@ def test_port_imports_and_serves_without_jax():
 
 def _port_sources():
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "tests").glob("test_torch_*.py")),
+             *sorted((ROOT / "tests").glob("_torch_*.py")),
              *sorted((ROOT / "scripts").glob("torch_*.py"))]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d not in SKIP_DIRS]

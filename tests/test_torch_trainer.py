@@ -11,8 +11,9 @@
   * a JAX run's checkpoint, converted with its optimizer state, restores
     bitwise in the port, and one more AdamW update agrees with optax's;
   * the gin surface binds as the JAX trainer's, a stale resume gin heals
-    from the meta, a sem_id_dim mismatch, force_dataset_process and
-    n_model_shards > 1 are refused, and `train` defaults to the card;
+    from the meta, a sem_id_dim mismatch and force_dataset_process are
+    refused, n_model_shards > 1 on one process fails as JAX's make_mesh
+    does, and `train` defaults to the card;
   * the plain RQ-VAE route trains, and the entry script's checkpoint serves
     through `from_artifacts` as the trained model does.
 """
@@ -335,7 +336,7 @@ def test_resume_heals_geometry_and_refuses_sem_id_dim(dataset_root, tmp_path, ca
 def test_refusals_and_default_device(dataset_root, tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         _train(dataset_root, tmp_path, "force", iterations=1, force_dataset_process=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="n_model=2 needs at least 2 devices, have 1"):
         _train(dataset_root, tmp_path, "shards", iterations=1, n_model_shards=2)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
