@@ -46,7 +46,14 @@ items: the size of the P5 Sports split) unless noted:
     generation evals, checkpoints and the TEST eval; N steps and a resume
     for N more, held to the uninterrupted run; the saved decoder served by
     `from_artifacts`, held to the trained model's own search; remat on the
-    flash route, held to the run without it.
+    flash route, held to the run without it;
+  * multi: process groups over the card: the stage-2 trainer and engine on
+    one NCCL rank and on two Gloo ranks (DP and TP), and stage-1 data
+    parallelism: the HiD-VAE trainer on h_rqvae_amazon.gin (fp32) and on
+    h_rqvae_synthetic_xxl_m.gin (bf16, mining with isolation) and the
+    RQ-VAE trainer on rqvae_ml32m.gin, each on one NCCL rank and on two
+    Gloo ranks against one process (audits through rq_assign on every
+    rank), and the Amazon DP checkpoint resumed on one process.
 Each path's kernel launch counts are set to 0 just before it and read just
 after. Every phase prints its start and end; the line before the last is the
 kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
@@ -1896,7 +1903,7 @@ def compare_engines(name, ranks_npz, want, hist):
 
 @phase("multi")
 def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
-                long_run=MULTI_LONG, splits=TRAINER_SPLITS, **bindings):
+                long_run=MULTI_LONG, splits=TRAINER_SPLITS, stage1_root=None, **bindings):
     """Multi-GPU semantics on the one card (timings functional, not speed):
       1. one rank over NCCL: the trainer's distributed path for N steps,
          held to the one-process run of the same steps;
@@ -1907,7 +1914,10 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
          uninterrupted 2N run; the long-history DP run
          (flash launches per rank); the engine from the trainer's artifacts
          at 2 x 1 and at 1 x 2 with shard_params, held to the one-process
-         engine (rq_assign launches per rank).
+         engine (rq_assign launches per rank);
+      3. with `stage1_root` (the stage1 phase's dataset), stage-1 data
+         parallelism (`multi_stage1`): the three stage-1 gins on one NCCL
+         rank and on two Gloo ranks.
     The gins are decoder_amazon.gin's at cfg's widths with fp32 products
     (`bindings` override it). On the CPU (a rehearsal at small widths) the
     one-rank group runs over Gloo. Returns the launch counts and gaps."""
@@ -2063,6 +2073,8 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             compare_engines(name, npz, want, hist)
             record[name] = dict(rq_launches=[r["rq_launches"] for r in rr])
         del want
+        if stage1_root is not None:
+            record["stage1"] = multi_stage1(device, os.path.join(tmp, "stage1"), stage1_root)
     return record
 
 # ---- duplicate-pair mining in the stage-1 trainer ----------------------------
@@ -2369,6 +2381,307 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     return record
 
 
+# ---- multi-GPU: stage-1 data parallelism -------------------------------------
+
+# Mini-steps of each stage-1 multi run, which audits and saves at its end:
+# the Amazon gin's batch 128 x 2 accumulation takes 2 updates (its N; the
+# resume runs N more), ML-32M 3 steps of 64.
+MULTI1_STEPS = {"amazon": 4, "mining": 4, "ml32m": 3}
+MULTI1_MINING_EVERY = 2   # the mining runs audit at 2 as well: that pool feeds steps 3 and 4
+MULTI1_MINING_ITEMS = 16_384  # the mining catalog of the multi runs: 2 audit chunks
+MULTI1_TIMEOUT_S = 600    # the two Gloo ranks' stage-1 runs
+# The bias right before a train-mode BatchNorm (the tag projectors'
+# dense_0) moves no train output and has a gradient of 0 up to rounding,
+# which Adam turns into steps of up to the learning rate (1.3 x it with the
+# tag heads' layer-specific rates) in either direction: it is held to that
+# bound per update, and left out of the params gap, which it would swamp.
+BN_BIAS_LR_STEPS = 2 * 1.3
+
+
+def split_bn_biases(params):
+    """(params without the tag projectors' dense_0 biases, those biases)."""
+    def is_bias(k):
+        return k.startswith("tag_projector_") and k.endswith("dense_0/bias")
+    return ({k: v for k, v in params.items() if not is_bias(k)},
+            {k: v for k, v in params.items() if is_bias(k)})
+
+
+def check_stage1_multi(name, spec, losses, params, want_losses, want_params, init, updates,
+                       first_rtol=MULTI_FIRST_LOSS_RTOL):
+    """check_multi_run on the params but the BatchNorm-preceding biases,
+    those held to BN_BIAS_LR_STEPS learning rates per update."""
+    lr = parse_gin_file(spec["gin"])["train"]["learning_rate"]
+    (got, got_b), (want, want_b), (init, _) = (split_bn_biases(p)
+                                                for p in (params, want_params, init))
+    worst = max((float(np.abs(got_b[k] - want_b[k]).max()) for k in want_b), default=0.0)
+    bound = BN_BIAS_LR_STEPS * lr * updates
+    print(f"  {name}: BatchNorm-preceding biases within {worst:.3e} (bound {bound:.3e})",
+          flush=True)
+    if worst > bound:
+        raise AssertionError(f"{name}: BatchNorm-preceding biases differ by {worst}")
+    return check_multi_run(name, losses, got, want_losses, want, init, first_rtol=first_rtol)
+
+
+def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M,
+                  mining_items=MULTI1_MINING_ITEMS, bindings=None):
+    """The inputs of the stage-1 multi runs: the stage1 phase's Amazon
+    dataset under `amazon_root`, and under `root` a mining catalog
+    (`write_mining_inputs` at MULTI1_MINING_ITEMS items) and an ML-32M one
+    (the rqvae phase's seeded items); and the three gins cut line by line
+    as the stage1, mining and rqvae phases cut them (widths and knobs
+    kept; the run's length, cadences, eval batches and paths; log_every 1
+    so that every step's loss is logged; Amazon with fp32 products, the one
+    binding added) at the widths of `amazon`, `xxl` and `ml32m`, with
+    bindings[name] on top. Returns {name: spec} (spec: trainer, gin, steps,
+    fp32, items, accumulate) and the Amazon gin of 2N steps."""
+    bindings = bindings or {}
+    os.makedirs(root, exist_ok=True)
+    a_steps = MULTI1_STEPS["amazon"]
+    accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
+    a = amazon
+    amazon = {
+        "save_model_every": a_steps, "eval_every": a_steps, "vae_input_dim": a["input_dim"],
+        "vae_hidden_dims": list(a["hidden_dims"]), "vae_embed_dim": a["embed_dim"],
+        "vae_codebook_size": a["codebook_size"], "tag_class_counts": list(a["tag_class_counts"]),
+        "tag_embed_dim": a["tag_embed_dim"], "dataset_folder": f'"{amazon_root}"',
+        "eval_batches": STAGE1_EVAL_BATCHES, "log_every": 1, "mixed_precision_type": '"fp32"',
+        **bindings.get("amazon", {})}
+    gins = {"amazon": cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, "s1_amazon.gin"),
+                              dict(amazon, iterations=a_steps // accumulate), show=True)}
+    amazon_2n = cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, "s1_amazon_2n.gin"),
+                        dict(amazon, iterations=2 * a_steps // accumulate))
+
+    mining_cfg = dict(xxl, n_items=mining_items)
+    t0 = time.perf_counter()
+    write_mining_inputs(processed_path(os.path.join(root, "mining"), RecDataset.SYNTHETIC),
+                        mining_cfg)
+    gins["mining"] = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "s1_mining.gin"), {
+        "iterations": MULTI1_STEPS["mining"], "save_model_every": MULTI1_STEPS["mining"],
+        "eval_every": MULTI1_MINING_EVERY, "vae_input_dim": xxl["input_dim"],
+        "vae_hidden_dims": list(xxl["hidden_dims"]), "vae_embed_dim": xxl["embed_dim"],
+        "vae_codebook_size": xxl["codebook_size"], "vae_n_layers": xxl["n_layers"],
+        "tag_embed_dim": xxl["tag_embed_dim"],
+        "dataset_folder": f'"{os.path.join(root, "mining")}"',
+        "eval_batches": MINING_EVAL_BATCHES, "log_every": 1, **bindings.get("mining", {})},
+        show=True)
+
+    rq_gin = parse_gin_file(RQVAE_ML32M_GIN)["train"]
+    feats = unit_rows(ml32m["n_items"], ml32m["input_dim"],
+                      torch.Generator().manual_seed(SEED + 41)).numpy()
+    write_items(processed_path(os.path.join(root, "ml32m"), rq_gin["dataset"],
+                               rq_gin.get("dataset_split", "beauty")),
+                feats, np.random.RandomState(SEED + 43))
+    gins["ml32m"] = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "s1_ml32m.gin"), {
+        "iterations": MULTI1_STEPS["ml32m"], "save_model_every": MULTI1_STEPS["ml32m"],
+        "eval_every": MULTI1_STEPS["ml32m"], "force_dataset_process": False,
+        "vae_input_dim": ml32m["input_dim"], "vae_hidden_dims": list(ml32m["hidden_dims"]),
+        "vae_embed_dim": ml32m["embed_dim"], "vae_codebook_size": ml32m["codebook_size"],
+        "dataset_folder": f'"{os.path.join(root, "ml32m")}"',
+        "eval_batches": RQVAE_EVAL_BATCHES, "log_every": 1, **bindings.get("ml32m", {})},
+        show=True)
+    print(f"  wrote the stage-1 multi catalogs in {time.perf_counter() - t0:.2f} s: mining "
+          f"{mining_items} items (cut from the mining phase's {XXL_M['n_items']} and the "
+          f"config's {XXL_M_CORPUS}), ML-32M {ml32m['n_items']}; Amazon: the stage1 phase's "
+          f"{a['n_items']}", flush=True)
+    items = {"amazon": a["n_items"], "mining": mining_items, "ml32m": ml32m["n_items"]}
+    specs = {name: dict(trainer="rqvae" if name == "ml32m" else "hidvae", gin=gin,
+                        steps=MULTI1_STEPS[name], items=items[name], fp32=name != "mining",
+                        accumulate=parse_gin_file(gin)["train"].get("gradient_accumulate_every",
+                                                                    1))
+             for name, gin in gins.items()}
+    return specs, amazon_2n
+
+
+def multi1_run(spec, device, save_root, gin=None, **kwargs):
+    """`train` of spec's trainer from its gin (as the entry scripts call it)
+    with its save_dir_root under `save_root`; the launch counts set to 0
+    just before. Returns a JSON record (per-step losses, eval losses,
+    repetition rates, rq_assign launches, collective bytes per mini-step,
+    seconds, the last checkpoint) and the arrays (the newest audit's table,
+    the mining pool, params)."""
+    import importlib
+
+    from hidvae_tpu_torch.utils.config import parse_config_and_run
+
+    module = importlib.import_module(f"hidvae_tpu_torch.train.{spec['trainer']}")
+    rq.rq_assign.launches = 0
+    t0 = time.perf_counter()
+    res = parse_config_and_run(module.train, [gin or spec["gin"]], device=device,
+                               save_dir_root=save_root, **kwargs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    h = res["history"]
+    rec = dict(loss=h["total_loss"], eval_loss=h["eval_total_loss"],
+               repetition=h["repetition_rate"], audits=len(h["repetition_rate"]),
+               rq_launches=rq.rq_assign.launches, seconds=time.perf_counter() - t0,
+               bytes_per_step=h["collective_bytes_per_step"], step=res["step"],
+               saved=res["saved_paths"][-1] if res["saved_paths"] else None,
+               n_params=sum(p.numel() for p in res["model"].parameters()))
+    pool = getattr(res["data"], "mining_pairs", None)
+    arrays = dict(table=res["corpus_ids"], pool=None if pool is None else pool.cpu().numpy(),
+                  params=state_dict_to_flax(res["model"])[0])
+    return rec, arrays
+
+
+def multi1_rank_main(workdir):
+    """One rank of the stage-1 multi runs' two Gloo ranks on cuda:0 (started
+    by multi_stage1 through launch_ranks): each gin's run at DP 2. Writes
+    rank<r>_s1.json and rank<r>_s1_<name>.npz (table, pool, params)."""
+    import torch.distributed as dist
+
+    with open(os.path.join(workdir, "s1_inputs.json")) as f:
+        inp = json.load(f)
+    device = torch.device(inp["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    out = {}
+    try:
+        for name, spec in inp["specs"].items():
+            rec, arrays = multi1_run(spec, device, os.path.join(workdir, f"gloo_{name}"))
+            out[name] = rec
+            np.savez(os.path.join(workdir, f"rank{rank}_s1_{name}.npz"),
+                     **{k: v for k, v in arrays.items() if k != "params" and v is not None},
+                     **{f"p/{k}": v for k, v in arrays["params"].items()})
+            del arrays
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}_s1.json"), "w") as f:
+        json.dump(out, f)
+
+
+def differing_rows(got, want, hold=True, name=""):
+    """The rows in which two tables (or pools) differ; with `hold`, raise
+    unless there are none."""
+    if got is None and want is None:
+        return 0
+    rows = (-1 if got is None or want is None or got.shape != want.shape
+            else int((got != want).reshape(len(want), -1).any(1).sum()))
+    if hold and rows:
+        raise AssertionError(f"{name}: differs in {rows} rows (-1: in shape)")
+    return rows
+
+
+def multi_stage1(device, root, amazon_root, **inputs):
+    """Stage-1 data parallelism on the card (functional: both ranks share
+    it), for each of the three gins of `multi1_inputs`: the one-process run,
+    one NCCL rank (the trainer's distributed path at world 1: bitwise the
+    one-process run expected), and two Gloo ranks on cuda:0 (DP 2); the
+    Amazon DP 2 checkpoint then resumed on one process for N more steps,
+    against the uninterrupted one-process 2N run. fp32 runs are held as the
+    stage-2 multi runs are (first loss MULTI_FIRST_LOSS_RTOL, trajectory
+    MULTI_LOSS_RTOL, params within MULTI_FP32_PARAM_RTOL of the run's
+    update); the bf16 mining run on its losses (MULTI_LOSS_RTOL). Every
+    run's audit table and mining pool is the same on both ranks, and the
+    fp32 runs' equal the one-process run's (the bf16 run's rows that differ
+    from it are printed: bf16 roundings differ with each rank's row count
+    and move near-tie rows). Prints the rq_assign launches per rank per
+    audit and the bytes each rank hands to collectives per mini-step. `inputs` go to
+    multi1_inputs (widths and bindings of a rehearsal). Returns the record."""
+    import torch.distributed as dist
+
+    from hidvae_tpu_torch.parallel.dryrun import free_port, launch_ranks
+
+    specs, amazon_2n = multi1_inputs(root, amazon_root, **inputs)
+    cuda = device.type == "cuda"
+    one, init = {}, {}
+    for name, spec in specs.items():
+        one[name] = multi1_run(spec, device, os.path.join(root, f"one_{name}"))
+        if spec["fp32"]:  # the k-means-initialized params: the scale of the run's update
+            init[name] = multi1_run(spec, device, os.path.join(root, f"init_{name}"),
+                                    iterations=0)[1]["params"]
+    full, full_arr = multi1_run(specs["amazon"], device, os.path.join(root, "one_amazon_2n"),
+                                gin=amazon_2n)
+
+    dist.init_process_group("nccl" if cuda else "gloo", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}",
+                            device_id=device if cuda else None)
+    try:
+        nccl = {name: multi1_run(spec, device, os.path.join(root, f"nccl_{name}"))
+                for name, spec in specs.items()}
+    finally:
+        dist.destroy_process_group()
+
+    with open(os.path.join(root, "s1_inputs.json"), "w") as f:
+        json.dump(dict(specs=specs, device=str(device)), f)
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, os.path.abspath(__file__), "--multi-stage1-rank", root], 2,
+                 MULTI1_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks, npz = [], []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}_s1.json")) as f:
+            ranks.append(json.load(f))
+        npz.append({name: dict(np.load(os.path.join(root, f"rank{r}_s1_{name}.npz")))
+                    for name in specs})
+    where = torch.cuda.get_device_name(0) if cuda else "the CPU"
+    print(f"  stage 1, two Gloo ranks on {where}: {ranks_s:.2f} s in all (functional timings, "
+          f"not speed: both ranks share one device)", flush=True)
+
+    record = {}
+    for name, spec in specs.items():
+        (want, want_arr), (nc, nc_arr) = one[name], nccl[name]
+        want_launches = math.ceil(spec["items"] / 8192) if cuda else 0
+        bitwise = (nc["loss"] == want["loss"]
+                   and differing_rows(nc_arr["table"], want_arr["table"], False) == 0
+                   and differing_rows(nc_arr["pool"], want_arr["pool"], False) == 0
+                   and all(np.array_equal(nc_arr["params"][k], want_arr["params"][k])
+                           for k in want_arr["params"]))
+        rr = [r[name] for r in ranks]
+        per_audit = [r["rq_launches"] / r["audits"] for r in rr]
+        print(f"  stage 1 {name} ({spec['trainer']}, {spec['steps']} mini-steps, "
+              f"{'fp32' if spec['fp32'] else 'bf16'}): one process losses "
+              f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise equal {bitwise}; "
+              f"2 ranks: losses equal on both {rr[0]['loss'] == rr[1]['loss']}, seconds "
+              f"{[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
+              f"rq_assign launches per rank per audit {per_audit} (one process "
+              f"{want['rq_launches'] / want['audits']}); collectives per mini-step per rank "
+              f"{[r['bytes_per_step'] for r in rr]} bytes, of which the gradient all-reduce "
+              f"{4 * want['n_params']} (4 B x {want['n_params']} parameters)", flush=True)
+        if not bitwise:
+            raise AssertionError(f"stage 1 {name}: one NCCL rank differs from one process")
+        if per_audit != [want_launches] * 2 or want["rq_launches"] != want_launches * want["audits"]:
+            raise AssertionError(f"stage 1 {name}: rq_assign launches per audit {per_audit}, "
+                                 f"expected {want_launches}")
+        for key in ("table", "pool"):
+            differing_rows(npz[1][name].get(key), npz[0][name].get(key), name=f"{name} ranks' {key}")
+        diff = {key: differing_rows(npz[0][name].get(key), want_arr[key], spec["fp32"],
+                                    f"{name} {key} against one process") for key in ("table", "pool")}
+        print(f"  stage 1 {name}: the ranks' audit tables and pools equal; rows differing from "
+              f"the one-process run's {diff}" + ("" if spec["fp32"] else " (bf16: printed, not "
+                                                 "held)"), flush=True)
+        params = [{k[2:]: v for k, v in z[name].items() if k.startswith("p/")} for z in npz]
+        if not all(np.array_equal(params[1][k], params[0][k]) for k in params[0]):
+            raise AssertionError(f"stage 1 {name}: the ranks' params differ")
+        rec = dict(bytes_per_step=[r["bytes_per_step"] for r in rr], rq_per_audit=per_audit,
+                   nccl_bitwise=bitwise, rows_differing=diff)
+        if spec["fp32"]:
+            rec.update(check_stage1_multi(
+                f"stage 1 {name} 2 ranks", spec, rr[0]["loss"], params[0], want["loss"],
+                want_arr["params"], init[name], spec["steps"] // spec["accumulate"]))
+        else:
+            err = max(abs(a - b) / abs(b) for a, b in zip(rr[0]["loss"], want["loss"]))
+            print(f"  stage 1 {name} 2 ranks (bf16): losses {[round(x, 5) for x in rr[0]['loss']]}"
+                  f" (largest relative difference {err:.3e}, tolerance {MULTI_LOSS_RTOL})",
+                  flush=True)
+            if len(rr[0]["loss"]) != len(want["loss"]) or not err <= MULTI_LOSS_RTOL:
+                raise AssertionError(f"stage 1 {name}: the bf16 run differs from one process")
+            rec["loss_rel_err"] = err
+        record[name] = rec
+
+    # The DP 2 checkpoint at N resumed on one process for N more.
+    n = specs["amazon"]["steps"]
+    resumed, res_arr = multi1_run(specs["amazon"], device, os.path.join(root, "resumed"),
+                                  pretrained_hrqvae_path=ranks[0]["amazon"]["saved"])
+    record["amazon_resume"] = check_stage1_multi(
+        "stage 1 amazon: DP 2 checkpoint resumed on one process", specs["amazon"],
+        resumed["loss"], res_arr["params"], full["loss"][n:], full_arr["params"],
+        one["amazon"][1]["params"], 2 * n // specs["amazon"]["accumulate"], first_rtol=None)
+    differing_rows(res_arr["table"], full_arr["table"], name="amazon resume table")
+    return record
+
+
 def main():
     smi = card_phase()
     device = torch.device("cuda", 0)
@@ -2383,7 +2696,8 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         stage1, stage1_rec = stage1_phase(device, feats, os.path.join(work, "stage1"))
         trainer_rec = trainer_phase(device, vae, feats, stage1)
-        multi_rec = multi_phase(device, vae, feats, stage1)
+        multi_rec = multi_phase(device, vae, feats, stage1,
+                                stage1_root=os.path.join(work, "stage1"))
     with tempfile.TemporaryDirectory() as work:
         mining_rec = mining_phase(device, work)
     with tempfile.TemporaryDirectory() as work:
@@ -2409,6 +2723,8 @@ def main():
             "sweep_dp": multi_rec["dp"]["rq_launches"], "sweep_tp": multi_rec["tp"]["rq_launches"],
             "engine_dp": multi_rec["engine_dp"]["rq_launches"],
             "engine_tp": multi_rec["engine_tp"]["rq_launches"]},
+        launches_multi_stage1_per_rank_per_audit={
+            k: v["rq_per_audit"] for k, v in multi_rec["stage1"].items() if "rq_per_audit" in v},
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
@@ -2432,5 +2748,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-rank"]:
         multi_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--multi-stage1-rank"]:
+        multi1_rank_main(sys.argv[2])
     else:
         sys.exit(main())

@@ -19,6 +19,18 @@ batch)`. TagProjector's BatchNorm is flax's: batch statistics with the
 biased variance in train mode, and running averages updated with momentum
 0.99 (`FlaxBatchNorm`). `dtype` (AMP) runs the MLP and tag-head products in
 bf16; the quantizer, norms and losses stay fp32 (PARITY.md deviation 10).
+
+On a batch split over data ranks (`rows`, parallel/collectives.py `Rows`;
+the JAX package computes the step on the global batch of its mesh) each
+rank runs its rows through the row-local parts (encoder, quantizer levels,
+tag heads, decoder, reconstruction and commitment terms), draws every
+random number for the global batch and keeps its rows (a RowShard of the
+step's generator), normalizes the projector with the global BatchNorm
+statistics, and computes each coupled term (InfoNCE, the tag loss with
+mixup, the uniqueness loss, the mined-pair term) of the gathered batch. The
+means of the row-local terms are all-reduced sums over the global count.
+Every rank then holds the global batch's loss and metrics; its gradients
+summed over the ranks are the global batch's.
 """
 
 from dataclasses import dataclass
@@ -37,10 +49,12 @@ from hidvae_tpu_torch.models.losses import (
     uniqueness_loss,
 )
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
-from hidvae_tpu_torch.models.rqvae import RqVae, p_unique_ids_stat
+from hidvae_tpu_torch.models.rqvae import RqVae, batch_means, p_unique_ids_stat
 from hidvae_tpu_torch.ops.distances import DistanceMode
+from hidvae_tpu_torch.ops.dropout import RowShard
 from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.normalize import l2norm
+from hidvae_tpu_torch.parallel.collectives import Rows, all_gather_rows, all_reduce_sum
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm default
@@ -53,13 +67,21 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     parameters and buffers. Train mode normalizes with the batch mean and
     the biased variance mean(x^2) - mean(x)^2 (clipped at 0) and updates
     running = 0.99 * running + 0.01 * batch statistic; eval mode uses the
-    running statistics."""
+    running statistics. With `rows` the statistics are the global batch's:
+    the ranks' sums of x and x^2 all-reduced, their gradient summed over the
+    ranks (each rank normalizes its own rows with them)."""
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rows: Optional[Rows] = None):
         x = x.float()
-        if train:
+        if train and rows is not None:
+            sums = all_reduce_sum(torch.stack([torch.sum(x, dim=0), torch.sum(x * x, dim=0)]),
+                                  rows.group, "sum") / rows.total
+            mean = sums[0]
+            var = F.relu(sums[1] - mean * mean)
+        elif train:
             mean = torch.mean(x, dim=0)
             var = F.relu(torch.mean(x * x, dim=0) - mean * mean)
+        if train:
             with torch.no_grad():
                 m = BATCH_NORM_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -146,10 +168,11 @@ class TagProjector(nn.Module):
         self.dropout_rate = dropout_rate
         self.dtype = dtype
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None):
         h = dense(self.dense_0, x, self.dtype)
         if self.bn is not None:
-            h = self.bn(h, train)
+            h = self.bn(h, train, rows)
         h = drop(F.relu(h), self.dropout_rate, generator if train else None)
         h = dense(self.dense_1, h, self.dtype)
         if self.ln is not None:
@@ -316,11 +339,17 @@ class HRqVae(RqVae):
                          gumbel_t: float = 0.001, train: bool = False,
                          class_counts: Optional[Sequence[torch.Tensor]] = None,
                          generator: Optional[torch.Generator] = None,
-                         mixup: Optional[Callable] = None) -> HRqVaeOutput:
+                         mixup: Optional[Callable] = None,
+                         rows: Optional[Rows] = None) -> HRqVaeOutput:
         """Residual quantization with per-level tag supervision. In train mode
         the quantizers run their estimator (Gumbel draws from `generator`),
         dropout draws from `generator` and `mixup(level, batch)` gives each
-        level's (permutation, lambda)."""
+        level's (permutation, lambda). With `rows` the inputs are this rank's
+        rows of a split batch (see the module docstring); the outputs' rows
+        are too, the tag losses the whole batch's."""
+        if rows is not None and generator is not None:
+            generator = RowShard(generator, rows.start, rows.total)
+        batch = encoded_x.shape[0] if rows is None else rows.total
         res = encoded_x
         has_tags = tags_emb is not None and tags_indices is not None
         embs, sem_ids, residuals = [], [], []
@@ -335,14 +364,14 @@ class HRqVae(RqVae):
             concat_emb = torch.cat(embs, dim=-1)
             if has_tags and i < self.n_tag_levels:
                 projected = self.tag_projectors[i](tags_emb[:, i], train=train,
-                                                   generator=generator)
+                                                   generator=generator, rows=rows)
                 align.append(tag_alignment_loss(
                     concat_emb, projected, layer_idx=i,
                     alignment_weight=self.tag_alignment_weight,
-                    temperature=self.alignment_temperature))
+                    temperature=self.alignment_temperature, rows=rows))
                 logits = self.tag_predictors[i](concat_emb, generator if train else None)
                 gamma, alpha, loss_layer = self._focal_params_for_layer(i)
-                draw = (mixup(i, logits.shape[0])
+                draw = (mixup(i, batch)
                         if (train and self.use_mixup and mixup is not None) else None)
                 p = tag_prediction_loss(
                     logits, tags_indices[:, i], layer_idx=loss_layer,
@@ -350,7 +379,7 @@ class HRqVae(RqVae):
                     class_counts=None if class_counts is None else class_counts[i],
                     use_label_smoothing=self.use_label_smoothing,
                     label_smoothing_alpha=self.label_smoothing_alpha,
-                    use_mixup=self.use_mixup, mixup=draw, training=train)
+                    use_mixup=self.use_mixup, mixup=draw, training=train, rows=rows)
                 pred.append(p.loss)
                 acc.append(p.accuracy)
             res = res - out.embeddings
@@ -376,8 +405,12 @@ class HRqVae(RqVae):
     def forward(self, x, tags_emb=None, tags_indices=None, gumbel_t: float = 1.0,
                 train: bool = False, class_counts: Optional[Sequence[torch.Tensor]] = None,
                 n_mined_pairs: int = 0, generator: Optional[torch.Generator] = None,
-                mixup: Optional[Callable] = None) -> HRqVaeComputedLosses:
-        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457-560)."""
+                mixup: Optional[Callable] = None,
+                rows: Optional[Rows] = None) -> HRqVaeComputedLosses:
+        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457-560).
+        With `rows`, x and the tags are this rank's rows of the split batch
+        and every output but embs_norm (rows [B, L] of the whole batch) is
+        the whole batch's (see the module docstring)."""
         x = x.float()
         if tags_emb is not None:
             tags_emb = tags_emb.float()
@@ -386,21 +419,27 @@ class HRqVae(RqVae):
         # rows' one gradient path is the pair term. The encode pass is shared,
         # so batch statistics still see every row.
         cut = 2 * n_mined_pairs if (self.mined_loss_isolation and n_mined_pairs > 0) else 0
-        main_enc = encoded[cut:]
+        main_rows = None if rows is None else rows.after(cut)
+        local_cut = cut if rows is None else x.shape[0] - main_rows.stop + main_rows.start
+        main_enc = encoded[local_cut:]
         q = self.get_semantic_ids(
-            main_enc, None if tags_emb is None else tags_emb[cut:],
-            None if tags_indices is None else tags_indices[cut:], gumbel_t, train=train,
-            class_counts=class_counts, generator=generator, mixup=mixup)
+            main_enc, None if tags_emb is None else tags_emb[local_cut:],
+            None if tags_indices is None else tags_indices[local_cut:], gumbel_t, train=train,
+            class_counts=class_counts, generator=generator, mixup=mixup, rows=main_rows)
         x_hat = self.reconstruct(torch.sum(q.embeddings, dim=-2))
         if self.n_cat_features > 0:
-            recon = categorical_reconstruction_loss(x_hat, x[cut:], self.n_cat_features)
+            recon = categorical_reconstruction_loss(x_hat, x[local_cut:], self.n_cat_features)
         else:
-            recon = reconstruction_loss(x_hat, x[cut:])
+            recon = reconstruction_loss(x_hat, x[local_cut:])
         uniq = uniqueness_loss(q.sem_ids, main_enc, margin=self.sem_id_uniqueness_margin,
-                               weight=self.sem_id_uniqueness_weight)
+                               weight=self.sem_id_uniqueness_weight, rows=main_rows)
         collision_rate = torch.zeros((), device=x.device)
         if n_mined_pairs > 0:
-            enc_p = encoded[: 2 * n_mined_pairs]
+            # The pairs are the batch's first rows, gathered whole on every rank.
+            pair_rows = None if rows is None else rows.head(2 * n_mined_pairs)
+            enc_p = all_gather_rows(
+                encoded[: 2 * n_mined_pairs if rows is None else pair_rows.stop - pair_rows.start],
+                pair_rows, "slice")
             # Eval-mode IDs, as the audit's table holds them (train-mode IDs
             # under the rotation trick differ from the audit's at depth), in
             # full fp32 so that no near-tie moves.
@@ -417,7 +456,7 @@ class HRqVae(RqVae):
             mined = torch.sum(pen) / torch.clamp(n_coll, min=1)  # 0 when none collides
             uniq = uniq + self.sem_id_uniqueness_weight * mined
             collision_rate = (n_coll / n_mined_pairs).detach()
-        recon_m, q_m = torch.mean(recon), torch.mean(q.quantize_loss)
+        recon_m, q_m = batch_means([recon, q.quantize_loss], main_rows)
         loss = (recon_m + q_m + self.tag_alignment_weight * q.tag_align_loss
                 + self.tag_prediction_weight * q.tag_pred_loss
                 + self.sem_id_uniqueness_weight * uniq)
@@ -425,8 +464,8 @@ class HRqVae(RqVae):
             loss=loss, reconstruction_loss=recon_m, rqvae_loss=q_m,
             tag_align_loss=q.tag_align_loss, tag_pred_loss=q.tag_pred_loss,
             tag_pred_accuracy=q.tag_pred_accuracy,
-            embs_norm=torch.linalg.norm(q.embeddings, dim=-1),
-            p_unique_ids=p_unique_ids_stat(q.sem_ids),
+            embs_norm=all_gather_rows(torch.linalg.norm(q.embeddings, dim=-1), main_rows),
+            p_unique_ids=p_unique_ids_stat(all_gather_rows(q.sem_ids, main_rows)),
             tag_align_loss_by_layer=q.tag_align_loss_by_layer,
             tag_pred_loss_by_layer=q.tag_pred_loss_by_layer,
             tag_pred_accuracy_by_layer=q.tag_pred_accuracy_by_layer,

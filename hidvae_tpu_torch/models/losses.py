@@ -6,7 +6,15 @@ tag targets (< 0) are masked out rather than dropped, and mixup permutes
 the whole batch and sends an invalid partner back to the row itself
 (PARITY.md deviation 4). Mixup's permutation and lambda come from the
 caller: `mixup_draw` makes them from a device generator and a host
-numpy generator, and a test hands JAX's draws in."""
+numpy generator, and a test hands JAX's draws in.
+
+The terms that couple a batch (the InfoNCE alignment, the uniqueness loss,
+the tag loss with its valid count, KL term and mixup) take `rows`: on a
+batch split over data ranks (parallel/collectives.py `Rows`) they gather
+their inputs, the ranks' rows in order, and compute the term of the whole
+batch, the same on every rank; the gathers' backward takes the rank's
+slice. The caller draws mixup for the whole batch. Without `rows` each is
+the one-device term."""
 
 import math
 from typing import NamedTuple, Optional
@@ -16,6 +24,7 @@ import torch
 from torch.nn import functional as F
 
 from hidvae_tpu_torch.ops.normalize import l2norm
+from hidvae_tpu_torch.parallel.collectives import Rows, all_gather_rows
 
 
 def reconstruction_loss(x_hat, x):
@@ -44,10 +53,12 @@ def quantize_loss(query, value, commitment_weight: float = 1.0):
 
 
 def tag_alignment_loss(codebook_emb, tag_emb, layer_idx: int, alignment_weight: float = 1.0,
-                       temperature: float = 0.1):
+                       temperature: float = 0.1, rows: Optional[Rows] = None):
     """InfoNCE between the concatenated code vectors and the projected tag
     embeddings, diagonal targets, scaled by alignment_weight / (0.5 *
     layer_idx + 1). Scalar."""
+    codebook_emb = all_gather_rows(codebook_emb, rows, "slice")
+    tag_emb = all_gather_rows(tag_emb, rows, "slice")
     cb = l2norm(codebook_emb, dim=-1)
     tg = l2norm(tag_emb, dim=-1)
     logits = (cb @ tg.T) / temperature
@@ -56,10 +67,13 @@ def tag_alignment_loss(codebook_emb, tag_emb, layer_idx: int, alignment_weight: 
     return loss * alignment_weight * (1.0 / (layer_idx * 0.5 + 1.0))
 
 
-def uniqueness_loss(sem_ids, encoded_features, margin: float = 0.5, weight: float = 1.0):
+def uniqueness_loss(sem_ids, encoded_features, margin: float = 0.5, weight: float = 1.0,
+                    rows: Optional[Rows] = None):
     """For every batch pair i < j whose full ID tuples collide,
     relu(cos(enc_i, enc_j) - margin); the mean over colliding pairs, times
     `weight` (0 when no pair collides)."""
+    sem_ids = all_gather_rows(sem_ids, rows)
+    encoded_features = all_gather_rows(encoded_features, rows, "slice")
     b = sem_ids.shape[0]
     if b <= 1:
         return torch.zeros((), device=encoded_features.device)
@@ -120,12 +134,15 @@ def tag_prediction_loss(
     use_mixup: bool = True,
     mixup=None,
     training: bool = False,
+    rows: Optional[Rows] = None,
 ) -> TagPredictionLossOutput:
     """Tag classification loss: focal (with class-count weights when
     `class_counts` is given) or label-smoothed CE with a KL-to-uniform term,
     over valid targets; `mixup` = (permutation [B], lambda) mixes the
     logits when use_mixup and training. Accuracy is taken before mixup.
     With no valid target both are 0."""
+    logits = all_gather_rows(logits, rows, "slice")
+    targets = all_gather_rows(targets, rows)
     num_classes = logits.shape[-1]
     valid = targets >= 0
     valid_f = valid.float()

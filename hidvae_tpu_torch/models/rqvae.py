@@ -7,7 +7,10 @@ module's __call__, :153-171). HRqVae (models/hrqvae.py) builds on it.
 Train mode is the `train` flag; the Gumbel-softmax estimator draws its
 noise from `generator`. `dtype` is the AMP compute dtype of the encoder and
 decoder products (None: fp32); the encoder's output is taken back to fp32
-before the quantizer."""
+before the quantizer. With `rows` (this rank's rows of a batch split over
+data ranks, parallel/collectives.py `Rows`) the noise is the global batch's
+rows and the loss, its terms and p_unique_ids are the whole batch's
+(`batch_means`, the ID tuples gathered)."""
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -19,7 +22,9 @@ from hidvae_tpu_torch.models.layers import MLP
 from hidvae_tpu_torch.models.losses import categorical_reconstruction_loss, reconstruction_loss
 from hidvae_tpu_torch.models.quantize import Quantize, QuantizeForwardMode
 from hidvae_tpu_torch.ops.distances import DistanceMode
+from hidvae_tpu_torch.ops.dropout import RowShard
 from hidvae_tpu_torch.ops.normalize import l2norm
+from hidvae_tpu_torch.parallel.collectives import Rows, all_gather_rows, all_reduce_sum
 
 
 @dataclass
@@ -45,6 +50,17 @@ def p_unique_ids_stat(sem_ids):
     eq = torch.all(sem_ids[:, None, :] == sem_ids[None, :, :], dim=-1)
     no_later_dup = ~torch.any(torch.triu(eq, diagonal=1), dim=1)
     return torch.sum(no_later_dup) / sem_ids.shape[0]
+
+
+def batch_means(per_row, rows: Optional[Rows] = None) -> list:
+    """The batch mean of each per-row term [B] of `per_row`; with `rows`, of
+    the whole split batch: this rank's sums all-reduced and divided by the
+    global count. Every rank computes the same loss of the means, so the
+    all-reduce's backward is the identity."""
+    if rows is None:
+        return [torch.mean(t) for t in per_row]
+    sums = torch.stack([torch.sum(t) for t in per_row])
+    return list(torch.unbind(all_reduce_sum(sums, rows.group) / rows.total))
 
 
 class RqVae(nn.Module):
@@ -132,20 +148,23 @@ class RqVae(nn.Module):
         return l2norm(x_hat, dim=-1)
 
     def forward(self, x, gumbel_t: float, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> RqVaeComputedLosses:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None) -> RqVaeComputedLosses:
         """The training / eval loss on item features x [B, input_dim]
-        (hidvae_tpu/models/rqvae.py:153-171)."""
+        (hidvae_tpu/models/rqvae.py:153-171); with `rows`, of the split
+        batch whose rows x are (see the module docstring)."""
         x = x.float()
+        if rows is not None and generator is not None:
+            generator = RowShard(generator, rows.start, rows.total)
         q = self.get_semantic_ids(self.encode(x), gumbel_t, train=train, generator=generator)
         x_hat = self.reconstruct(torch.sum(q.embeddings, dim=-2))
         if self.n_cat_features > 0:
             recon = categorical_reconstruction_loss(x_hat, x, self.n_cat_features)
         else:
             recon = reconstruction_loss(x_hat, x)
+        loss, recon_m, q_m = batch_means([recon + q.quantize_loss, recon, q.quantize_loss], rows)
         return RqVaeComputedLosses(
-            loss=torch.mean(recon + q.quantize_loss),
-            reconstruction_loss=torch.mean(recon),
-            rqvae_loss=torch.mean(q.quantize_loss),
-            embs_norm=torch.linalg.norm(q.embeddings, dim=-1),
-            p_unique_ids=p_unique_ids_stat(q.sem_ids.detach()),
+            loss=loss, reconstruction_loss=recon_m, rqvae_loss=q_m,
+            embs_norm=all_gather_rows(torch.linalg.norm(q.embeddings, dim=-1), rows),
+            p_unique_ids=p_unique_ids_stat(all_gather_rows(q.sem_ids.detach(), rows)),
         )

@@ -11,7 +11,8 @@ On a mesh a rank holds some rows of the global batch (and, inside a
 tensor-parallel feed-forward, some columns of its hidden width). The step's
 generator then comes wrapped in a `RowShard`: every site draws the keep mask
 of the global shape and keeps this rank's rows (and columns), so the ranks
-together apply the one-device run's mask, bit for bit."""
+together apply the one-device run's mask, bit for bit. `uniform` is that
+draw, which the Gumbel noise of the stage-1 quantizer takes too."""
 
 from typing import NamedTuple, Optional, Union
 
@@ -26,6 +27,17 @@ class RowShard(NamedTuple):
     total: int
 
 
+def uniform(shape, generator: Union[torch.Generator, RowShard], device, dtype=torch.float32):
+    """U[0, 1) of `shape` from `generator`; from a RowShard, the global
+    batch's draw (rows `total`) and this rank's shape[0] rows of it, from
+    `start`."""
+    if not isinstance(generator, RowShard):
+        return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    g, start, total = generator
+    u = torch.rand((total, *shape[1:]), generator=g, device=device, dtype=dtype)
+    return u[start:start + shape[0]]
+
+
 def dropout(x, p: float, generator: Union[None, torch.Generator, RowShard],
             cols: Optional[tuple] = None):
     """Inverted dropout of `x` with rate `p`; the identity when `generator`
@@ -37,15 +49,10 @@ def dropout(x, p: float, generator: Union[None, torch.Generator, RowShard],
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout rate {p} is not in [0, 1)")
     keep_prob = 1.0 - p
-    shape, rows = list(x.shape), None
-    if isinstance(generator, RowShard):
-        generator, start, shape[0] = generator
-        rows = slice(start, start + x.shape[0])
+    shape = list(x.shape)
     if cols is not None:
         shape[-1] = cols[1]
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
-    if rows is not None:
-        keep = keep[rows]
+    keep = uniform(shape, generator, x.device) < keep_prob
     if cols is not None:
         keep = keep[..., cols[0]:cols[0] + x.shape[-1]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

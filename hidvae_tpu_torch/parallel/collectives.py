@@ -1,5 +1,6 @@
-"""The collectives of the port's multi-GPU paths, and the autograd functions
-that make tensor parallelism of them (the Megatron f / g pair).
+"""The collectives of the port's multi-GPU paths, the autograd functions
+that make tensor parallelism of them (the Megatron f / g pair), and those
+that couple a batch split over the data ranks (stage 1).
 
 Only `all_reduce`, `all_gather` (list form) and `broadcast` are used: Gloo
 runs those three on CUDA tensors as NCCL does, so the same code runs under
@@ -18,7 +19,15 @@ gradient are sums over the model ranks' partial products, and each partial
 is taken in fp32 from inputs already rounded to the compute dtype (bf16
 values are exact in fp32 and in TF32), all-reduced in fp32 and rounded to
 the compute dtype once, as the one-device product rounds its fp32
-accumulation once."""
+accumulation once.
+
+A batch split over the data ranks is described by `Rows`. A term that needs
+the whole batch (a [B, B] product, a permutation of the batch) takes the
+ranks' rows through `all_gather_rows`, whose backward says who consumes the
+gathered tensor: "slice" when every rank computes the same term of it (the
+rank's slice of its own gradient is the whole gradient of its rows), "sum"
+when each rank uses it for its own rows only (the gradient is summed over
+the ranks first). `all_reduce_sum` makes the same choice for a sum."""
 
 from typing import NamedTuple, Optional
 
@@ -68,6 +77,84 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+class Rows(NamedTuple):
+    """A batch split over the data ranks of `group`: rank r holds the global
+    rows [bounds[r], bounds[r + 1]) of bounds[-1], and this process is rank
+    `rank`. The parts may differ in size, and be empty."""
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    bounds: tuple
+
+    @classmethod
+    def even(cls, group, rank: int, n_ranks: int, total: int) -> "Rows":
+        """`total` rows cut into n_ranks contiguous parts, in rank order,
+        whose sizes differ by at most one."""
+        return cls(group, rank, tuple(r * total // n_ranks for r in range(n_ranks + 1)))
+
+    @property
+    def start(self) -> int:
+        return self.bounds[self.rank]
+
+    @property
+    def stop(self) -> int:
+        return self.bounds[self.rank + 1]
+
+    @property
+    def total(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def sizes(self) -> list:
+        return [b - a for a, b in zip(self.bounds, self.bounds[1:])]
+
+    def head(self, k: int) -> "Rows":
+        """The layout of the global rows [0, k); this rank's are its first ones."""
+        return self._replace(bounds=tuple(min(b, k) for b in self.bounds))
+
+    def after(self, k: int) -> "Rows":
+        """The layout of the global rows [k, total), numbered from 0; this
+        rank's are its last ones."""
+        return self._replace(bounds=tuple(max(b - k, 0) for b in self.bounds))
+
+
+def _gather_rows(x: torch.Tensor, rows: Rows) -> torch.Tensor:
+    sizes = rows.sizes
+    width = max(sizes)
+    x = x.contiguous()
+    if x.shape[0] < width:  # all_gather takes parts of one shape
+        x = torch.cat([x, x.new_zeros((width - x.shape[0], *x.shape[1:]))])
+    parts = [torch.empty_like(x) for _ in sizes]
+    _count("all_gather", x, rows.group)
+    dist.all_gather(parts, x, group=rows.group)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows: Rows, sum_backward: bool):
+        ctx.rows, ctx.sum_backward = rows, sum_backward
+        return _gather_rows(x, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.sum_backward:
+            grad = all_reduce_(grad.contiguous().clone(), ctx.rows.group)
+        return grad[ctx.rows.start:ctx.rows.stop], None, None
+
+
+def all_gather_rows(x: torch.Tensor, rows: Optional[Rows], backward: Optional[str] = None):
+    """The whole batch [rows.total, ...] from each rank's rows `x` (see the
+    module docstring). `backward`: None (no gradient), "slice" or "sum".
+    Identity without a layout or a group."""
+    if rows is None or rows.group is None:
+        return x
+    if backward is None:
+        return _gather_rows(x.detach(), rows)
+    if backward not in ("slice", "sum"):
+        raise ValueError(f"backward {backward!r} is not 'slice' or 'sum'")
+    return _GatherRows.apply(x, rows, backward == "sum")
+
+
 def broadcast_(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
     """`t` of the group's rank `src_rank` on every rank, in place."""
     if group is not None:
@@ -76,17 +163,31 @@ def broadcast_(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
     return t
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """g: sum over the model ranks forward; identity backward (every model
-    rank computes the same loss from the reduced value)."""
+class _AllReduce(torch.autograd.Function):
+    """Sum over the ranks of `group` forward; backward the identity (every
+    rank computes the same loss of the sum: g of the Megatron pair), or the
+    ranks' gradients summed (each rank uses the sum for its own rows)."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, sum_backward: bool):
+        ctx.group, ctx.sum_backward = group, sum_backward
         return all_reduce_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        if ctx.sum_backward:
+            grad = all_reduce_(grad.contiguous().clone(), ctx.group)
+        return grad, None, None
+
+
+def all_reduce_sum(x, group, backward: str = "identity"):
+    """`x` summed over `group`, with the gradient of `backward` ("identity"
+    or "sum", see _AllReduce). Identity without a group."""
+    if group is None:
+        return x
+    if backward not in ("identity", "sum"):
+        raise ValueError(f"backward {backward!r} is not 'identity' or 'sum'")
+    return _AllReduce.apply(x, group, backward == "sum")
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -156,7 +257,7 @@ def parallel_linear(x, weight, shard: TensorShard, dtype=None):
 
 
 def reduce_from_model(x, group):
-    return _ReduceFromModel.apply(x, group)
+    return _AllReduce.apply(x, group, False)
 
 
 def gather_from_model(x, shard: TensorShard):

@@ -1,4 +1,4 @@
-"""The port's multi-rank dry run (counterpart of the stage-2 step of
+"""The port's multi-rank dry run (counterpart of
 __graft_entry__.dryrun_multichip), and the launcher of ranks it uses.
 
     python -m hidvae_tpu_torch.parallel.dryrun 4
@@ -7,10 +7,13 @@ spawns 4 Gloo ranks on the CPU over a ('data', 'model') mesh of (n/2, 2)
 when n is even and at least 4, else (n, 1), runs one DP x TP AdamW step of
 the tiny flagship decoder (K 64, D 3, attention 64 wide, 4 heads, 2 layers,
 embeddings 32, max_pos 64, dropout on) on a seeded global batch of
-2 * n_data rows, checks that every rank has the same loss and that it
-equals the one-process step's, and prints
-`dryrun_multichip OK: mesh={...} stage2_loss=...`. The stage-1 step of the
-JAX dry run joins with stage-1 data parallelism (ROADMAP.md queue 1).
+2 * n_data rows; then one data-parallel AdamW step (lr 1e-3) of the tiny
+HiD-VAE of the JAX dry run (input 32, embed 8, hidden (16,), K 16, L 3, tag
+counts (4, 6, 8), tag embeddings 16; dropout, Gumbel noise and mixup on)
+over all n ranks (the stage-1 mesh) on a seeded global batch of 2 * n
+items. It checks that every rank has the same losses and that each equals
+the one-process step's, and prints
+`dryrun_multichip OK: mesh={...} stage2_loss=... stage1_loss=...`.
 
 `launch_ranks` starts a command as n processes with the environment
 torchrun gives its ranks (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
@@ -29,6 +32,8 @@ import torch
 import torch.distributed as dist
 
 FLAGSHIP = dict(k=64, d=3, attn=64, heads=4, layers=2, emb=32, max_pos=64)
+TINY_HIDVAE = dict(input_dim=32, embed_dim=8, hidden_dims=(16,), codebook_size=16, n_layers=3,
+                   n_cat_features=0, tag_class_counts=(4, 6, 8), tag_embed_dim=16)
 HISTORY = 4    # items per history in the dry run's batch
 LOSS_RTOL = 1e-5  # fp32: the ranks' sums differ from one process's in order only
 
@@ -123,10 +128,42 @@ def flagship_step(mesh, batch_size: int, device="cpu") -> float:
     return float(loss)
 
 
+def stage1_step(mesh, batch_size: int, device="cpu") -> float:
+    """One AdamW step (lr 1e-3, optax.adamw's weight decay 1e-4) of the seeded
+    tiny HiD-VAE on the data ranks of `mesh` over a seeded global batch of
+    `batch_size` items (tags of class 0, as the JAX dry run's); dropout,
+    Gumbel noise and mixup drawn from seeded generators. Returns the global
+    batch's loss before the update, the same on every rank."""
+    from hidvae_tpu_torch.models.hrqvae import HRqVae
+    from hidvae_tpu_torch.models.init import init_params_
+    from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows
+    from hidvae_tpu_torch.train.common import Optimizer
+    from hidvae_tpu_torch.train.hidvae import make_train_step
+
+    model = init_params_(HRqVae(**TINY_HIDVAE), torch.Generator().manual_seed(7)).to(device)
+    optimizer = Optimizer(model.parameters(), 1e-3, 1e-4)
+    rng = np.random.RandomState(5)
+    t = TINY_HIDVAE
+    x = torch.from_numpy(rng.randn(batch_size, t["input_dim"]).astype(np.float32))
+    te = torch.from_numpy(rng.randn(batch_size, t["n_layers"], t["tag_embed_dim"])
+                          .astype(np.float32))
+    ti = torch.zeros((batch_size, t["n_layers"]), dtype=torch.int32)
+    rows = shard_rows(batch_size, mesh)
+    step = make_train_step(model, optimizer, None, 0.2)
+    metrics = step(x[rows].to(device), te[rows].to(device), ti[rows].to(device),
+                   torch.Generator(device=device).manual_seed(11), np.random.default_rng(11),
+                   batch_rows(batch_size, mesh))
+    loss = metrics["loss"]
+    if not torch.isfinite(loss):
+        raise FloatingPointError(f"non-finite stage-1 loss {float(loss)}")
+    return float(loss)
+
+
 def dryrun_multichip(n: int, timeout: float = 300.0) -> dict:
-    """One stage-2 DP x TP step on n Gloo ranks on the CPU (see the module
-    docstring), held to the one-process step. Returns {"mesh", "loss",
-    "one_rank_loss"}."""
+    """One stage-2 DP x TP step and one stage-1 DP step on n Gloo ranks on
+    the CPU (see the module docstring), each held to the one-process step.
+    Returns {"mesh", "loss", "one_rank_loss", "stage1_loss",
+    "stage1_one_rank_loss"}."""
     from hidvae_tpu_torch.parallel.mesh import make_mesh
 
     n_model = 2 if n % 2 == 0 and n >= 4 else 1
@@ -136,26 +173,34 @@ def dryrun_multichip(n: int, timeout: float = 300.0) -> dict:
         p for p in (repo, os.environ.get("PYTHONPATH")) if p))
     outs = launch_ranks([sys.executable, "-m", "hidvae_tpu_torch.parallel.dryrun", "--rank",
                          str(n_model)], n, timeout, env=env, cwd=repo)
-    losses = [float(re.search(r"DRYRUN_LOSS (\S+)", out).group(1)) for out in outs]
-    if len(set(losses)) != 1:
-        raise AssertionError(f"the ranks' losses differ: {losses}")
-    one = flagship_step(make_mesh(), 2 * n_data)
-    if abs(losses[0] - one) > LOSS_RTOL * abs(one):
-        raise AssertionError(f"mesh loss {losses[0]} against one process's {one}")
+    got = {}
+    for stage, want in (("", flagship_step(make_mesh(), 2 * n_data)),
+                        ("STAGE1_", stage1_step(make_mesh(), 2 * n))):
+        losses = [float(re.search(rf"DRYRUN_{stage}LOSS (\S+)", out).group(1)) for out in outs]
+        if len(set(losses)) != 1:
+            raise AssertionError(f"the ranks' {stage or 'STAGE2_'}losses differ: {losses}")
+        if abs(losses[0] - want) > LOSS_RTOL * abs(want):
+            raise AssertionError(f"{stage or 'STAGE2_'}mesh loss {losses[0]} against one "
+                                 f"process's {want}")
+        got[stage] = (losses[0], want)
     mesh = {"data": n_data, "model": n_model}
-    print(f"dryrun_multichip OK: mesh={mesh} stage2_loss={losses[0]:.4f} "
-          f"(one process: {one:.4f})", flush=True)
-    return {"mesh": mesh, "loss": losses[0], "one_rank_loss": one}
+    (s2, one2), (s1, one1) = got[""], got["STAGE1_"]
+    print(f"dryrun_multichip OK: mesh={mesh} stage2_loss={s2:.4f} stage1_loss={s1:.4f} "
+          f"(one process: {one2:.4f}, {one1:.4f})", flush=True)
+    return {"mesh": mesh, "loss": s2, "one_rank_loss": one2, "stage1_loss": s1,
+            "stage1_one_rank_loss": one1}
 
 
 def _rank_main(n_model: int):
-    from hidvae_tpu_torch.parallel.mesh import make_mesh
+    from hidvae_tpu_torch.parallel.mesh import make_mesh, stage1_mesh
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo")
     try:
         mesh = make_mesh(n_model=n_model)
         print(f"DRYRUN_LOSS {flagship_step(mesh, 2 * mesh.n_data)!r}", flush=True)
+        s1 = stage1_mesh()
+        print(f"DRYRUN_STAGE1_LOSS {stage1_step(s1, 2 * s1.n_data)!r}", flush=True)
     finally:
         dist.destroy_process_group()
 

@@ -1,5 +1,7 @@
-"""A ('data', 'model') mesh over a torch.distributed process group, and the
-stage-2 tensor-parallel layout (counterpart of hidvae_tpu/parallel/mesh.py).
+"""A ('data', 'model') mesh over a torch.distributed process group, the
+stage-1 mesh (every rank on 'data'), the row layouts of a batch split over
+the data ranks, and the stage-2 tensor-parallel layout (counterpart of
+hidvae_tpu/parallel/mesh.py).
 
 The JAX package lays its devices out as `reshape(n_data, n_model)`; here
 rank r of the process group sits at (r // n_model, r % n_model). A rank's
@@ -20,6 +22,7 @@ torch dim 0. `shard_stage2_` cuts a model (and its AdamW moments) to this
 rank's parts in place; `gather_stage2_flat` rebuilds whole flax-named arrays
 for a checkpoint."""
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -29,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from hidvae_tpu_torch.bridge import flax_named_parameters
-from hidvae_tpu_torch.parallel.collectives import TensorShard, all_gather_cat
+from hidvae_tpu_torch.parallel.collectives import Rows, TensorShard, all_gather_cat
 
 
 @dataclass(frozen=True)
@@ -111,24 +114,34 @@ def init_from_env() -> torch.device:
     return device
 
 
-STAGE1_COUPLED = {
-    "HiD-VAE": "BatchNorm statistics (TagProjector), the in-batch InfoNCE tag alignment and "
-               "its [B, B] logits, the [B, B] uniqueness loss, the batch-mean class weights "
-               "of the tag prediction loss, the mined pairs at the head of the batch and "
-               "their isolation",
-    "RQ-VAE": "the k-means codebook init from the first global batch",
-}
+def stage1_mesh(n_model: int = 1) -> Mesh:
+    """The mesh of the stage-1 trainers: every rank of the process group a
+    data rank, as the JAX trainers' make_mesh() puts every device on 'data'
+    (one device without a process group). There is no stage-1 tensor
+    parallelism to map n_model > 1 to, so that is refused."""
+    if n_model != 1:
+        raise ValueError(f"n_model={n_model}: stage 1 runs data-parallel only; the JAX "
+                         f"stage-1 trainers put every device on 'data' and shard no parameter")
+    return make_mesh()
 
 
-def refuse_data_parallel(trainer: str):
-    """Raise under a process group of more than one rank: the JAX stage-1
-    trainers compute their losses over the global batch, and a per-rank
-    copy would silently compute something else (ROADMAP.md queue 1)."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"the {trainer} trainer runs on one rank, not {dist.get_world_size()}: its "
-            f"globally coupled terms ({STAGE1_COUPLED[trainer]}) need gathered activations "
-            f"with gradients; stage-1 data parallelism is queued in ROADMAP.md queue 1")
+@contextlib.contextmanager
+def torchrun_group(device=None):
+    """Under torchrun (RANK and LOCAL_RANK set) join its process group for
+    the block: over Gloo on the CPU when `device` is "cpu", else over NCCL on
+    cuda:LOCAL_RANK (`init_from_env`). Yields the device to run on (`device`
+    unchanged outside torchrun) and leaves the group at the end."""
+    if "RANK" not in os.environ or "LOCAL_RANK" not in os.environ:
+        yield device
+        return
+    if device == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        device = init_from_env()
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
 
 
 def pad_to_multiple(t: torch.Tensor, multiple: int):
@@ -154,6 +167,14 @@ def shard_rows(n: int, mesh: Mesh) -> slice:
 def gather_rows(t: torch.Tensor, n: int, mesh: Mesh) -> torch.Tensor:
     """The whole n-row batch from each data rank's `shard_rows` part."""
     return t if n % mesh.n_data else all_gather_cat(t, mesh.data_group)
+
+
+def batch_rows(n: int, mesh: Mesh) -> Optional[Rows]:
+    """The layout of an n-row batch whose `shard_rows` part this rank
+    computes, or None when every data rank computes all of it."""
+    if mesh.n_data == 1 or n % mesh.n_data:
+        return None
+    return Rows.even(mesh.data_group, mesh.data_rank, mesh.n_data, n)
 
 
 # ---- the stage-2 tensor-parallel layout ----

@@ -3,7 +3,9 @@ schedules (inverse-sqrt, cosine, step), the reduce-on-plateau controller,
 the optimizer of both trainers (`Optimizer`, built by `make_optimizer`),
 the chunked event loop (`chunk_events`), the checkpoint helpers (meta,
 structural reconcile, the lenient restore of an exported checkpoint), the
-structural model config and the corpus audit with its diversity metrics.
+structural model config and the corpus audit with its diversity metrics,
+and what both stages' data-parallel paths share: the gradient reduction
+over the data ranks (`reduce_gradients_`) and the run directory's stamp.
 
 The JAX optimizer is optax: `optax.adamw(schedule, weight_decay)` (b1 0.9,
 b2 0.999, eps 1e-8, decay on every parameter), optionally one adamw per
@@ -36,7 +38,33 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import flax_named_parameters
-from hidvae_tpu_torch.parallel.collectives import all_reduce_
+from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_
+
+
+def reduce_gradients_(params, group, divide_by: int = 1):
+    """The gradients of `params` summed over the ranks of `group` (then
+    divided by `divide_by`: n_data gives their mean), in place, in one
+    all-reduce of the flattened gradients. Parameters without a gradient
+    are left out: the ranks run one graph, so they lack the same ones."""
+    if group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+    if divide_by != 1:
+        flat.div_(divide_by)
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+def run_stamp(mesh, device) -> str:
+    """A run directory's time stamp: rank 0's clock, on every rank."""
+    from datetime import datetime
+
+    stamp = torch.tensor([int(datetime.now().strftime("%Y%m%d%H%M%S"))], device=device)
+    if mesh.n_data * mesh.n_model > 1:
+        broadcast_(stamp, torch.distributed.group.WORLD)
+    s = str(int(stamp))
+    return f"{s[:8]}_{s[8:]}"
 
 
 def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], float]:

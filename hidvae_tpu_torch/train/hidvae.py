@@ -41,17 +41,32 @@ As the JAX trainer, it
 Checkpoints are exported checkpoints (arrays.npz + meta.json with the
 structural model_config and metrics.repetition_rate), which
 `restore_export`, `reconcile_vae_config`, `RetrievalEngine.from_artifacts`
-and the stage-2 trainer read. `split_batches` changes nothing on one
-device; `ensemble_predictions`, `use_concatenated_ids`,
+and the stage-2 trainer read. `ensemble_predictions`, `use_concatenated_ids`,
 `use_interleaved_ids` and `wandb_logging` are taken and ignored, as in JAX.
+
+Under a process group of N ranks (torchrun; parallel/mesh.py
+`stage1_mesh`) the run is data-parallel over all of them, as the JAX
+trainer's mesh puts every device on 'data' (:541-553, :636-640): each rank
+draws the step's global batch and computes its `shard_rows` part (the
+whole batch when N does not divide it); the model couples the parts where
+the loss needs the whole batch (models/hrqvae.py), the gradients are
+summed over the ranks in one all-reduce before the optimizer, and every
+rank keeps the same parameters. `split_batches=False` makes batch_size the
+per-rank batch (global batch_size * N). Evals run whole on every rank;
+audits split each chunk over the ranks (tokenizer/sweep.py), so every rank
+holds the table and harvests the same pool. k-means runs on every rank and
+rank 0's codebooks are broadcast. Rank 0 writes train.log, the rare-tag
+remap, checkpoints (those of a one-process run: they resume at any world
+size) and plots. `n_model_shards` > 1 is refused: stage 1 has no tensor
+parallelism.
 """
 
+import contextlib
 import logging
 import math
 import os
 import time
 from collections import deque
-from datetime import datetime
 
 import numpy as np
 import torch
@@ -62,7 +77,8 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
-from hidvae_tpu_torch.parallel.mesh import refuse_data_parallel
+from hidvae_tpu_torch.parallel.collectives import broadcast_, collective_bytes
+from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows, stage1_mesh
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     ReduceLROnPlateau,
@@ -71,8 +87,10 @@ from hidvae_tpu_torch.train.common import (
     log_operative_config,
     make_lr_schedule,
     make_optimizer,
+    reduce_gradients_,
     restore_checkpoint,
     run_logging,
+    run_stamp,
     save_checkpoint,
     structural_model_config,
 )
@@ -142,17 +160,21 @@ def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T,
                     n_mined_pairs: int = 0):
     """One mini-step: the train forward (the first 2 * n_mined_pairs rows
     mined pairs), backward and `optimizer.step()` (an update every
-    gradient_accumulate_every mini-steps). Returns the step's metrics as 0-d
-    device tensors (emb_norms [L]), not synced."""
+    gradient_accumulate_every mini-steps). With `rows` the inputs are this
+    rank's rows of the split batch and the gradients are summed over the
+    ranks before the optimizer. Returns the step's metrics (the whole
+    batch's) as 0-d device tensors (emb_norms [L]), not synced."""
 
-    def train_step(x, tags_emb, tags_indices, generator, host):
+    def train_step(x, tags_emb, tags_indices, generator, host, rows=None):
         def mixup(level, batch):
             return mixup_draw(batch, model.mixup_alpha, generator, host, x.device)
 
         optimizer.zero_grad()
         out = model(x, tags_emb, tags_indices, gumbel_t, train=True, class_counts=class_counts,
-                    n_mined_pairs=n_mined_pairs, generator=generator, mixup=mixup)
+                    n_mined_pairs=n_mined_pairs, generator=generator, mixup=mixup, rows=rows)
         out.loss.backward()
+        if rows is not None:
+            reduce_gradients_(optimizer.params, rows.group)
         optimizer.step()
         m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
         m["emb_norms"] = torch.mean(out.embs_norm.detach(), dim=0)
@@ -292,6 +314,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def local_rows(batch, rows: slice):
+    """A sampled batch's tensors (None stays None) cut to `rows`."""
+    return tuple(None if t is None else t[rows] for t in batch)
+
+
+def kmeans_init_(model, item_features, n_items, seed, device, mesh):
+    """k-means codebooks from the first min(20,000, N) items (hidvae.py:523-532,
+    rqvae.py:157-162), rank 0's broadcast to every data rank."""
+    init_x = torch.from_numpy(item_features[:min(20_000, n_items)]).to(device)
+    kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+    for layer in model.layers:
+        broadcast_(layer.embedding.data, mesh.data_group)
+
+
+def save_on_main(mesh, save_dir, name, save):
+    """`save()` on rank 0; every rank gets the checkpoint's path."""
+    return save() if mesh.is_main else os.path.abspath(os.path.join(save_dir, name))
+
+
 def train(
     iterations=50_000,
     batch_size=64,
@@ -365,6 +406,7 @@ def train(
     sem_id_mining_pool=32768,
     sem_id_mining_margin=None,
     sem_id_mining_isolate=False,
+    n_model_shards=1,
     device=None,
 ):
     """Train the HiD-VAE tokenizer as `python train_hidvae.py CONFIG.gin`
@@ -375,18 +417,23 @@ def train(
     "best_eval_accuracy", "saved_paths", "data" (the device corpus, tags
     remapped, and the last mining pool), "class_counts", "n_pair_rows",
     "mining_pool_start" (the pool the run started from, restored or seeded,
-    as numpy; None without mining)}; history holds the JAX trainer's keys,
+    as numpy; None without mining), "corpus_ids" (the newest audit's table,
+    or None), "mesh"}; history holds the JAX trainer's keys,
     ms_per_step (host clock per mini-step of each chunk, eval and save left
-    out), mined_pair_collision_rate (each chunk's last step) and
-    mining_pool_refreshed (the audit steps whose harvest replaced the
-    pool)."""
-    refuse_data_parallel("HiD-VAE")
+    out), mined_pair_collision_rate (each chunk's last step),
+    mining_pool_refreshed (the audit steps whose harvest replaced the pool)
+    and collective_bytes_per_step (handed to collectives per mini-step by
+    this rank, evals and audits left out)."""
+    mesh = stage1_mesh(n_model_shards)
     device = resolve_device(device)
-    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{time_stamp}")
-    config = dict(locals())
-    with run_logging(save_dir):
+    save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{run_stamp(mesh, device)}")
+    config = {k: v for k, v in locals().items() if k != "mesh"}
+    with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
+        if not split_batches and mesh.n_data > 1:
+            batch_size *= mesh.n_data  # hidvae.py:548-552: batch_size per data shard
+            logger.info(f"split_batches=False: global batch = {batch_size} "
+                        f"({mesh.n_data} data shards)")
         # ---- data (hidvae.py:317-376): the .npz read once, for every split ----
         arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
@@ -421,10 +468,11 @@ def train(
                                                                 id_mappings)
                 tag_class_counts = new_counts
                 logger.info(f"Rare-tag remap -> tag_class_counts={tag_class_counts}")
-                tags_dir = os.path.join(save_dir_root, "special_tags_files")
-                os.makedirs(tags_dir, exist_ok=True)
-                np.savez(os.path.join(tags_dir, "rare_tags.npz"),
-                         **{str(k): v for k, v in rare_tags_dict.items()})
+                if mesh.is_main:
+                    tags_dir = os.path.join(save_dir_root, "special_tags_files")
+                    os.makedirs(tags_dir, exist_ok=True)
+                    np.savez(os.path.join(tags_dir, "rare_tags.npz"),
+                             **{str(k): v for k, v in rare_tags_dict.items()})
                 class_counts = tuple(
                     torch.from_numpy(c).to(device)
                     for c in post_remap_class_counts(train_dataset.tags_indices,
@@ -488,9 +536,8 @@ def train(
             logger.info(f"Restored pretrained HRqVae from {pretrained_hrqvae_path} "
                         f"(iter {start_iter})")
         elif use_kmeans_init:
-            n_init = min(20_000, len(train_dataset))
-            init_x = torch.from_numpy(train_dataset.item_features[:n_init]).to(device)
-            kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+            kmeans_init_(model, train_dataset.item_features, len(train_dataset), seed, device,
+                         mesh)
             logger.info("K-means codebook initialization complete")
 
         # ---- device data and steps ----
@@ -525,6 +572,8 @@ def train(
             "rqvae_entropy", "max_id_duplicates", "repetition_rate", "ms_per_step",
             "mined_pair_collision_rate", "mining_pool_refreshed",
         ]}
+        rows, layout = shard_rows(batch_size, mesh), batch_rows(batch_size, mesh)
+        moved, corpus_ids = 0, None
         history["emb_norms"] = [[] for _ in range(vae_n_layers)]
         history["codebook_usage"] = [[] for _ in range(vae_n_layers)]
         best_eval_accuracy = 0.0
@@ -538,11 +587,13 @@ def train(
         for first, it, fired in chunk_events(start_iter, total_steps,
                                              [eval_every, save_model_every], log_every):
             step_losses = []
+            moved -= collective_bytes()
             for step in range(first, it):
                 g, host = step_rngs(seed, step, device)
-                x, te, ti = ddata.sample(g, batch_size, n_pair_rows)
-                metrics = train_step(x, te, ti, g, host)
+                x, te, ti = local_rows(ddata.sample(g, batch_size, n_pair_rows), rows)
+                metrics = train_step(x, te, ti, g, host, layout)
                 step_losses.append(metrics["loss"])
+            moved += collective_bytes()
             # One read-back per chunk: the chunk's losses and the last step's metrics.
             losses = torch.stack(step_losses).float().tolist()
             last = torch.cat([torch.stack([metrics[k].float() for k in SCALAR_METRICS]),
@@ -591,7 +642,7 @@ def train(
                 tokenizer = HSemanticIdTokenizer(
                     model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
                     tag_class_counts=tag_class_counts, device=device)
-                corpus_ids = tokenizer.precompute_corpus_ids(index_feats).cpu().numpy()
+                corpus_ids = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
                 div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
                 if n_pair_rows:
                     # Seeded by (seed, step), so a resumed run that audits at
@@ -620,21 +671,24 @@ def train(
                     best_eval_accuracy = eval_acc
                     name = (f"hrqvae_ACC{eval_acc:.4f}_"
                             f"RQLOSS{eval_metrics['rqvae_loss']:.4f}_DUPR{rep:.4f}")
-                    path = _save(save_dir, name, it, model, optimizer, eval_metrics, rep,
-                                 plateau_ctl, ddata.mining_pairs)
+                    path = save_on_main(mesh, save_dir, name, lambda: _save(
+                        save_dir, name, it, model, optimizer, eval_metrics, rep, plateau_ctl,
+                        ddata.mining_pairs))
                     saved_paths.append(path)
                     logger.info(f"Gated checkpoint saved: {path}")
             if do_save_now:
                 # This chunk's audit, when one ran, so that the stage-2 collapse
                 # guard covers `latest` too; a stale one is never recorded.
                 rep_now = last_audit[1] if last_audit[0] == it else None
-                saved_paths.append(_save(save_dir, "latest", it, model, optimizer, {}, rep_now,
-                                         plateau_ctl, ddata.mining_pairs))
+                saved_paths.append(save_on_main(mesh, save_dir, "latest", lambda: _save(
+                    save_dir, "latest", it, model, optimizer, {}, rep_now, plateau_ctl,
+                    ddata.mining_pairs)))
             if fired:  # keep eval and save time out of ms per step
                 _sync(device)
             t_last, it_last = time.perf_counter(), it
 
-        if make_plots:
+        history["collective_bytes_per_step"] = moved / max(total_steps, 1)
+        if make_plots and mesh.is_main:
             try:
                 from hidvae_tpu_torch.train.plots import plot_hidvae_history
 
@@ -646,5 +700,5 @@ def train(
                 "history": history, "tag_class_counts": tag_class_counts,
                 "rare_tags": rare_tags_dict, "best_eval_accuracy": best_eval_accuracy,
                 "saved_paths": saved_paths, "data": ddata, "class_counts": class_counts,
-                "n_pair_rows": n_pair_rows,
+                "n_pair_rows": n_pair_rows, "mesh": mesh, "corpus_ids": corpus_ids,
                 "mining_pool_start": pool_start if n_pair_rows else None}

@@ -32,16 +32,24 @@ Checkpoints are exported checkpoints (arrays.npz: step, params, opt_state;
 meta.json: the structural model_config and metrics.repetition_rate /
 rqvae_entropy), which `restore_export`, `reconcile_vae_config`,
 `RetrievalEngine.from_artifacts` and the stage-2 trainer read (its plain
-route, use_h_tokenizer = False). `split_batches` changes nothing on one
-device; `wandb_logging` is taken and ignored, as in JAX.
+route, use_h_tokenizer = False). `wandb_logging` is taken and ignored, as
+in JAX.
+
+Under a process group of N ranks the run is data-parallel as the HiD-VAE
+trainer's (train/hidvae.py; the JAX trainer's mesh, rqvae.py:169-179,
+:233-252): each rank computes its rows of the step's global batch, the
+loss and its terms are the whole batch's means, the gradients are summed
+over the ranks before the optimizer (so the clip sees the global
+gradient), evals run whole on every rank, audits split each chunk over the
+ranks, and rank 0 writes the log, checkpoints and plots.
 """
 
+import contextlib
 import logging
 import math
 import os
 import time
 from collections import deque
-from datetime import datetime
 
 import numpy as np
 import torch
@@ -51,7 +59,8 @@ from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
-from hidvae_tpu_torch.parallel.mesh import refuse_data_parallel
+from hidvae_tpu_torch.parallel.collectives import collective_bytes
+from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows, stage1_mesh
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     chunk_events,
@@ -59,14 +68,22 @@ from hidvae_tpu_torch.train.common import (
     log_operative_config,
     make_lr_schedule,
     make_optimizer,
+    reduce_gradients_,
     restore_checkpoint,
     run_logging,
+    run_stamp,
     save_checkpoint,
     structural_model_config,
 )
 from hidvae_tpu_torch.train.device_data import DeviceItemData
-from hidvae_tpu_torch.train.hidvae import GUMBEL_T, LOSS_WINDOW, _sync
-from hidvae_tpu_torch.train.init import kmeans_init_codebooks
+from hidvae_tpu_torch.train.hidvae import (
+    GUMBEL_T,
+    LOSS_WINDOW,
+    _sync,
+    kmeans_init_,
+    local_rows,
+    save_on_main,
+)
 from hidvae_tpu_torch.train.transformer import step_generator
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
@@ -101,13 +118,17 @@ def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_e
 
 def make_train_step(model, optimizer, gumbel_t: float = GUMBEL_T):
     """One mini-step: the train forward, backward and `optimizer.step()`
-    (an update every gradient_accumulate_every mini-steps). Returns the
-    step's metrics as 0-d device tensors (emb_norms [L]), not synced."""
+    (an update every gradient_accumulate_every mini-steps). With `rows` x is
+    this rank's rows of the split batch and the gradients are summed over
+    the ranks before the optimizer. Returns the step's metrics (the whole
+    batch's) as 0-d device tensors (emb_norms [L]), not synced."""
 
-    def train_step(x, generator):
+    def train_step(x, generator, rows=None):
         optimizer.zero_grad()
-        out = model(x, gumbel_t, train=True, generator=generator)
+        out = model(x, gumbel_t, train=True, generator=generator, rows=rows)
         out.loss.backward()
+        if rows is not None:
+            reduce_gradients_(optimizer.params, rows.group)
         optimizer.step()
         m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
         m["emb_norms"] = torch.mean(out.embs_norm.detach(), dim=0)
@@ -142,14 +163,16 @@ def _run_eval(eval_step, eval_dataset, batch_size, eval_batches, device):
     return {k: v / max(n, 1) for k, v in sums.items()}
 
 
-def audit_diversity(model, index_feats, *, n_layers, codebook_size, use_dedup_dim, device):
+def audit_diversity(model, index_feats, *, n_layers, codebook_size, use_dedup_dim, device,
+                    mesh=None):
     """The corpus ID audit (rqvae.py:292-301): every item through the
-    encoder and rq_assign; the diversity of the semantic columns and, with
-    the dedup column, the largest number of items sharing one tuple.
-    Returns (diversity, the table as numpy)."""
+    encoder and rq_assign (each chunk split over `mesh`'s data ranks); the
+    diversity of the semantic columns and, with the dedup column, the
+    largest number of items sharing one tuple. Returns (diversity, the
+    table as numpy)."""
     tokenizer = SemanticIdTokenizer(model, n_layers=n_layers, codebook_size=codebook_size,
                                     use_dedup_dim=use_dedup_dim, device=device)
-    corpus = tokenizer.precompute_corpus_ids(index_feats).cpu().numpy()
+    corpus = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
     div = id_diversity_metrics(corpus[:, :n_layers], codebook_size, n_layers)
     if use_dedup_dim:
         div["max_duplicates"] = int(corpus[:, -1].max()) + 1
@@ -192,6 +215,7 @@ def train(
     log_every=100,
     eval_batches=None,
     make_plots=True,
+    n_model_shards=1,
     device=None,
 ):
     """Train the plain RQ-VAE tokenizer as `python train_rqvae.py CONFIG.gin`
@@ -199,16 +223,21 @@ def train(
     runs iterations * gradient_accumulate_every mini-steps, which the step,
     the cadences and the log count. Returns {"model", "optimizer", "step",
     "save_dir", "history", "saved_paths", "data" (the device corpus),
-    "corpus_ids" (the newest audit's table, or None)}; history holds the
-    JAX trainer's keys and ms_per_step (host clock per mini-step of each
-    chunk, eval, audit and save left out)."""
-    refuse_data_parallel("RQ-VAE")
+    "corpus_ids" (the newest audit's table, or None), "mesh"}; history
+    holds the JAX trainer's keys, ms_per_step (host clock per mini-step of
+    each chunk, eval, audit and save left out) and collective_bytes_per_step
+    (handed to collectives per mini-step by this rank, evals and audits
+    left out)."""
+    mesh = stage1_mesh(n_model_shards)
     device = resolve_device(device)
-    time_stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{time_stamp}")
-    config = dict(locals())
-    with run_logging(save_dir):
+    save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")
+    config = {k: v for k, v in locals().items() if k != "mesh"}
+    with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
+        if not split_batches and mesh.n_data > 1:
+            batch_size *= mesh.n_data  # rqvae.py: batch_size per data shard
+            logger.info(f"split_batches=False: global batch = {batch_size} "
+                        f"({mesh.n_data} data shards)")
         arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
                                  train_test_split="train" if do_eval else "all")
@@ -236,9 +265,8 @@ def train(
             start_iter, _ = restore_checkpoint(pretrained_rqvae_path, model, optimizer)
             logger.info(f"Restored RqVae from {pretrained_rqvae_path} (iter {start_iter})")
         elif use_kmeans_init:
-            n_init = min(20_000, len(train_dataset))
-            init_x = torch.from_numpy(train_dataset.item_features[:n_init]).to(device)
-            kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+            kmeans_init_(model, train_dataset.item_features, len(train_dataset), seed, device,
+                         mesh)
             logger.info("K-means codebook initialization complete")
 
         ddata = DeviceItemData(x=torch.from_numpy(train_dataset.item_features).to(device),
@@ -250,13 +278,15 @@ def train(
         def audit():
             return audit_diversity(model, index_feats, n_layers=vae_n_layers,
                                    codebook_size=vae_codebook_size,
-                                   use_dedup_dim=use_dedup_dim, device=device)
+                                   use_dedup_dim=use_dedup_dim, device=device, mesh=mesh)
 
         history = {k: [] for k in [
             "iterations", "total_loss", "reconstruction_loss", "rqvae_loss",
             "eval_iterations", "eval_total_loss", "rqvae_entropy",
             "max_id_duplicates", "repetition_rate", "ms_per_step",
         ]}
+        rows, layout = shard_rows(batch_size, mesh), batch_rows(batch_size, mesh)
+        moved = 0
         saved_paths = []
         total_steps = iterations * gradient_accumulate_every
         loss_window = deque(maxlen=LOSS_WINDOW)
@@ -268,11 +298,13 @@ def train(
         for first, it, fired in chunk_events(start_iter, total_steps,
                                              [eval_every, save_model_every], log_every):
             step_losses = []
+            moved -= collective_bytes()
             for step in range(first, it):
                 g = step_generator(seed, step, device)
-                x, _, _ = ddata.sample(g, batch_size)
-                metrics = train_step(x, g)
+                x, _, _ = local_rows(ddata.sample(g, batch_size), rows)
+                metrics = train_step(x, g, layout)
                 step_losses.append(metrics["loss"])
+            moved += collective_bytes()
             # One read-back per chunk: the chunk's losses and the last step's metrics.
             losses = torch.stack(step_losses).float().tolist()
             last = torch.stack([metrics[k].float() for k in SCALAR_METRICS]).tolist()
@@ -320,12 +352,15 @@ def train(
                     "metrics": {"repetition_rate": div["repetition_rate"],
                                 "rqvae_entropy": div["rqvae_entropy"]},
                 }
-                saved_paths.append(save_checkpoint(save_dir, f"checkpoint_{it - 1}", payload))
+                name = f"checkpoint_{it - 1}"
+                saved_paths.append(save_on_main(mesh, save_dir, name,
+                                                lambda: save_checkpoint(save_dir, name, payload)))
             if fired:  # keep eval, audit and save time out of ms per step
                 _sync(device)
             t_last, it_last = time.perf_counter(), it
 
-        if make_plots:
+        history["collective_bytes_per_step"] = moved / max(total_steps, 1)
+        if make_plots and mesh.is_main:
             try:
                 from hidvae_tpu_torch.train.plots import plot_rqvae_history
 
@@ -335,4 +370,4 @@ def train(
 
         return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
                 "history": history, "saved_paths": saved_paths, "data": ddata,
-                "corpus_ids": last_audit[2]}
+                "corpus_ids": last_audit[2], "mesh": mesh}

@@ -59,7 +59,6 @@ import os
 import time
 from collections import deque
 from dataclasses import fields
-from datetime import datetime
 from typing import Optional, Sequence
 
 import numpy as np
@@ -75,7 +74,7 @@ from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.ops.dropout import RowShard
 from hidvae_tpu_torch.ops.flash_attention import check_head_dim
-from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_, collective_bytes
+from hidvae_tpu_torch.parallel.collectives import all_reduce_, collective_bytes
 from hidvae_tpu_torch.parallel.mesh import (
     Mesh,
     gather_rows,
@@ -95,8 +94,10 @@ from hidvae_tpu_torch.train.common import (
     load_checkpoint_model_config,
     log_operative_config,
     reconcile_vae_config,
+    reduce_gradients_,
     restore_checkpoint,
     restore_export,
+    run_stamp,
     save_checkpoint,
     run_logging,
 )
@@ -235,32 +236,19 @@ def sample_batch(data: DeviceSeqData, table, batch_size: int, generator: torch.G
     return tokenize_on_device(table, u[rows], hist, target)
 
 
-def average_gradients_(params, mesh: Mesh):
-    """Every parameter's gradient averaged over the data ranks, in one
-    all-reduce (a missing gradient counts as zeros)."""
-    if mesh.data_group is None:
-        return
-    grads = []
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    all_reduce_(flat, mesh.data_group).div_(mesh.n_data)
-    torch._foreach_copy_(grads, [v.view_as(g) for v, g in
-                                 zip(flat.split([g.numel() for g in grads]), grads)])
-
-
 def train_step(model, optimizer: Optimizer, batch, generator, mesh: Optional[Mesh] = None):
     """One AdamW update on `batch`; dropout draws from `generator` (None runs
     the forward deterministically; a RowShard on a mesh), and the gradients
-    are averaged over the mesh's data ranks. Returns (loss, loss_d) of this
-    rank's rows, not synced."""
+    are averaged over the mesh's data ranks (a missing gradient counts as
+    zeros). Returns (loss, loss_d) of this rank's rows, not synced."""
     optimizer.zero_grad()
     out = model(batch, generator)
     out.loss.backward()
-    if mesh is not None:
-        average_gradients_(optimizer.params, mesh)
+    if mesh is not None and mesh.data_group is not None:
+        for p in optimizer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        reduce_gradients_(optimizer.params, mesh.data_group, mesh.n_data)
     optimizer.step()
     return out.loss.detach(), out.loss_d.detach()
 
@@ -434,15 +422,6 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
     return history
 
 
-def _run_stamp(mesh: Mesh, device) -> str:
-    """The run directory's time stamp: rank 0's clock, on every rank."""
-    stamp = torch.tensor([int(datetime.now().strftime("%Y%m%d%H%M%S"))], device=device)
-    if mesh.n_data * mesh.n_model > 1:
-        broadcast_(stamp, torch.distributed.group.WORLD)
-    s = str(int(stamp))
-    return f"{s[:8]}_{s[8:]}"
-
-
 def _shard(model, optimizer: Optimizer, mesh: Mesh):
     """Cut the model and its moments over the mesh's model ranks; the clip
     then sums the cut leaves' squares over them. Returns the layout."""
@@ -537,7 +516,7 @@ def train(
         use_interleaved_ids = False
     if attn_dropout is not None:
         dropout_p = attn_dropout
-    save_dir = os.path.join(save_dir_root, f"decoder_{dataset.name}_{_run_stamp(mesh, device)}")
+    save_dir = os.path.join(save_dir_root, f"decoder_{dataset.name}_{run_stamp(mesh, device)}")
     config = {k: v for k, v in locals().items() if k != "mesh"}
     with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)

@@ -12,6 +12,17 @@ the structural model_config and the audited repetition rate, which
 scripts/torch_train_transformer.py --stage1 takes under
 `use_h_tokenizer = False`), train.log and plots land in
 `<save_dir_root>/rqvae_<DATASET>_<time>/`. Imports no JAX.
+
+On several GPUs, under torchrun:
+
+    torchrun --standalone --nproc-per-node N scripts/torch_train_rqvae.py CONFIG.gin ...
+
+each rank joins the process group over NCCL on cuda:LOCAL_RANK
+(`parallel.mesh.torchrun_group`) and the run is data-parallel over the N
+ranks, each computing its rows of every global batch; the losses,
+parameters and checkpoints are those of one process at the same global
+batch. Rank 0 writes the log, checkpoints and plots. With `--device cpu`
+the ranks join over Gloo on the CPU instead.
 """
 
 import argparse
@@ -29,13 +40,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from hidvae_tpu_torch.parallel.mesh import torchrun_group
     from hidvae_tpu_torch.train.rqvae import train
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
-    result = parse_config_and_run(train, [args.config_path],
-                                  pretrained_rqvae_path=args.resume, device=args.device)
-    print(f"trained to step {result['step']}; repetition rate "
-          f"{result['history']['repetition_rate'][-1:]}; checkpoints {result['saved_paths']}")
+    with torchrun_group(args.device) as device:
+        result = parse_config_and_run(train, [args.config_path],
+                                      pretrained_rqvae_path=args.resume, device=device)
+    if result["mesh"].is_main:
+        print(f"trained to step {result['step']}; repetition rate "
+              f"{result['history']['repetition_rate'][-1:]}; checkpoints {result['saved_paths']}")
     return result
 
 

@@ -19,14 +19,13 @@ On several GPUs, under torchrun:
         CONFIG.gin [--model-shards k] ...
 
 each rank joins the process group over NCCL on cuda:LOCAL_RANK
-(`parallel.mesh.init_from_env`) and trains on a (N / k, k) mesh:
+(`parallel.mesh.torchrun_group`) and trains on a (N / k, k) mesh:
 data-parallel over N / k ranks, the decoder cut over k (`--model-shards`
 overrides `train.n_model_shards`). Rank 0 writes the log, checkpoints and
 plots. With `--device cpu` the ranks join over Gloo on the CPU instead.
 """
 
 import argparse
-import os
 import sys
 from pathlib import Path
 
@@ -44,27 +43,15 @@ def main(argv=None):
                     help="tensor-parallel ranks of the mesh (train.n_model_shards)")
     args = ap.parse_args(argv)
 
-    import torch.distributed as dist
-
-    from hidvae_tpu_torch.parallel.mesh import init_from_env
+    from hidvae_tpu_torch.parallel.mesh import torchrun_group
     from hidvae_tpu_torch.train.transformer import train
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
-    under_torchrun = "RANK" in os.environ and "LOCAL_RANK" in os.environ
-    device = args.device
-    if under_torchrun:
-        if device == "cpu":
-            dist.init_process_group("gloo")
-        else:
-            device = init_from_env()
-    try:
+    with torchrun_group(args.device) as device:
         result = parse_config_and_run(
             train, [args.config_path], pretrained_rqvae_path=args.stage1,
             pretrained_decoder_path=args.resume, device=device,
             n_model_shards=args.model_shards)
-    finally:
-        if under_torchrun:
-            dist.destroy_process_group()
     if result["mesh"].is_main:
         print(f"trained to step {result['step']} on mesh {result['mesh'].shape}; "
               f"checkpoints {result['saved_paths']}")

@@ -1,5 +1,6 @@
 """Ranks of the port's multi-rank tests (tests/test_torch_parallel.py,
-tests/test_torch_parallel_trainer.py).
+tests/test_torch_parallel_trainer.py, tests/test_torch_stage1_parallel.py,
+tests/test_torch_stage1_parallel_trainer.py).
 
 `run(scenario, world, workdir)` starts `world` processes of this module
 (hidvae_tpu_torch.parallel.dryrun.launch_ranks: the environment torchrun
@@ -148,10 +149,8 @@ def prefixed(prefix, d):
 # ---- scenarios ----
 
 def serve(inp) -> dict:
-    """World 2: the sharded sweep on both tokenizer routes, the engine at DP 2
-    and at TP 2 with shard_params, and the stage-1 trainers' refusals."""
-    from hidvae_tpu_torch.train import hidvae, rqvae
-
+    """World 2: the sharded sweep on both tokenizer routes, and the engine at
+    DP 2 and at TP 2 with shard_params."""
     mesh = make_mesh()
     h, plain = tokenizers(inp)
     out = {"table_h": h.precompute_corpus_ids(inp["feats"], mesh=mesh).numpy(),
@@ -160,12 +159,6 @@ def serve(inp) -> dict:
     tp = engine(inp, make_mesh(n_model=2), shard_params=True)
     out.update(prefixed("tp", recommend(tp, inp)))
     out.update({f"tp:shape/{k}": np.asarray(p.shape) for k, p in tp.model.named_parameters()})
-    for name, fn in (("hidvae", hidvae.train), ("rqvae", rqvae.train)):
-        try:
-            fn(device="cpu")
-            out[f"refusal_{name}"] = np.asarray("")
-        except NotImplementedError as e:
-            out[f"refusal_{name}"] = np.asarray(str(e))
     return out
 
 
@@ -195,7 +188,219 @@ def train_ranks(inp) -> dict:
     return out
 
 
-SCENARIOS = {"serve": serve, "train": train_ranks}
+# ---- stage 1 ----
+
+def _leaf(t):
+    return t.detach().numpy().copy()
+
+
+def _param_grads(module, prefix):
+    return {f"{prefix}/p/{k}": _leaf(p.grad) for k, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def stage1_terms(inp, rows=None) -> dict:
+    """Each coupled term of the stage-1 loss on the saved global batch
+    inp["terms"], of this rank's rows under `rows` (None: one process, the
+    whole batch): its value and the gradients of its row inputs
+    ("<term>/<input>_grad", this rank's rows) and of its parameters
+    ("<term>/p/<name>", this rank's part of the sum over the ranks)."""
+    from hidvae_tpu_torch.models.hrqvae import FlaxBatchNorm, TagProjector
+    from hidvae_tpu_torch.models.losses import (
+        mixup_draw,
+        tag_alignment_loss,
+        tag_prediction_loss,
+        uniqueness_loss,
+    )
+    from hidvae_tpu_torch.parallel.collectives import all_reduce_sum
+
+    t = inp["terms"]
+    part = slice(None) if rows is None else slice(rows.start, rows.stop)
+    group = None if rows is None else rows.group
+
+    def local(name):
+        return t[name][part].clone().requires_grad_(t[name].is_floating_point())
+
+    out = {}
+    # 1. BatchNorm: the projector's output weighted by a fixed matrix, summed.
+    for name, module in (("bn", FlaxBatchNorm(t["bn_x"].shape[1])),
+                         ("projector", TagProjector(t["bn_x"].shape[1], 12, 8,
+                                                    dropout_rate=0.25))):
+        module.load_state_dict(t[f"{name}_state"])
+        x = local("bn_x")
+        g = torch.Generator().manual_seed(7)
+        y = (module(x, True, rows) if name == "bn" else
+             module(x, True, g if rows is None else RowShard(g, rows.start, rows.total), rows))
+        w = t[f"{name}_w"][part]
+        value = all_reduce_sum(torch.sum(y * w), group)
+        value.backward()
+        out.update({f"{name}/value": _leaf(value), f"{name}/x_grad": _leaf(x.grad),
+                    **_param_grads(module, name)})
+        bn = module if name == "bn" else module.bn
+        out.update({f"{name}/running_mean": _leaf(bn.running_mean),
+                    f"{name}/running_var": _leaf(bn.running_var)})
+    # 2. InfoNCE.
+    cb, tg = local("cb"), local("tg")
+    value = tag_alignment_loss(cb, tg, layer_idx=1, alignment_weight=0.7, rows=rows)
+    value.backward()
+    out.update({"nce/value": _leaf(value), "nce/cb_grad": _leaf(cb.grad),
+                "nce/tg_grad": _leaf(tg.grad)})
+    # 3. Uniqueness over planted collisions.
+    enc = local("enc")
+    value = uniqueness_loss(t["ids"][part], enc, margin=0.1, weight=1.5, rows=rows)
+    value.backward()
+    out.update({"uniq/value": _leaf(value), "uniq/enc_grad": _leaf(enc.grad)})
+    # 4. The tag loss: focal with class counts and plain CE with its KL term,
+    #    both with mixup over the whole batch and invalid targets.
+    for name, focal in (("focal", True), ("ce", False)):
+        logits = local("logits")
+        g = torch.Generator().manual_seed(11)
+        draw = mixup_draw(t["logits"].shape[0], 0.2, g, np.random.default_rng(3))
+        p = tag_prediction_loss(logits, t["targets"][part], layer_idx=1, use_focal_loss=focal,
+                                class_counts=t["class_counts"] if focal else None,
+                                mixup=draw, training=True, rows=rows)
+        p.loss.backward()
+        out.update({f"{name}/value": _leaf(p.loss), f"{name}/accuracy": _leaf(p.accuracy),
+                    f"{name}/logits_grad": _leaf(logits.grad)})
+    # 5. The whole HiD-VAE loss with mined pairs and isolation.
+    for case in inp["model_cases"]:
+        out.update(stage1_model_loss(inp, case, rows))
+    return out
+
+
+def stage1_model_loss(inp, case, rows=None) -> dict:
+    """The HiD-VAE train loss of case["batch"] rows of the saved batch with
+    case["pairs"] mined pairs at its head (isolation on, dropout, Gumbel
+    noise and mixup drawn from one seeded generator): every metric, the
+    gradient of x (this rank's rows) and of every parameter."""
+    from hidvae_tpu_torch.models.losses import mixup_draw
+    from hidvae_tpu_torch.parallel.collectives import Rows
+
+    t, name = inp["terms"], case["name"]
+    model = copy.deepcopy(inp["model"])
+    b = case["batch"]
+    if rows is not None:
+        rows = Rows.even(rows.group, rows.rank, len(rows.sizes), b)
+    part = slice(0, b) if rows is None else slice(rows.start, rows.stop)
+    x = t["model_x"][part].clone().requires_grad_(True)
+    g = torch.Generator().manual_seed(13)
+    host = np.random.default_rng(5)
+
+    def mixup(level, batch):
+        return mixup_draw(batch, model.mixup_alpha, g, host)
+
+    out = model(x, t["model_tags_emb"][part], t["model_tags"][part], 0.2, train=True,
+                class_counts=t["class_counts_model"], n_mined_pairs=case["pairs"],
+                generator=g, mixup=mixup, rows=rows)
+    out.loss.backward()
+    res = {f"{name}/p_unique_ids": _leaf(out.p_unique_ids),
+           f"{name}/embs_norm": _leaf(out.embs_norm), f"{name}/x_grad": _leaf(x.grad),
+           **_param_grads(model, name)}
+    for k in ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
+              "tag_pred_accuracy", "sem_id_uniqueness_loss", "mined_pair_collision_rate"):
+        res[f"{name}/{k}"] = _leaf(getattr(out, k))
+    for k in ("tag_align_loss_by_layer", "tag_pred_loss_by_layer",
+              "tag_pred_accuracy_by_layer"):
+        res[f"{name}/{k}"] = _leaf(getattr(out, k))
+    res.update({f"{name}/buffer/{k}": _leaf(v) for k, v in model.named_buffers()})
+    return res
+
+
+def gather_modes(inp, rows) -> dict:
+    """The InfoNCE gradient of this rank's code rows three ways: the term
+    computed whole on every rank from "sum"-mode gathers (wrong: the ranks'
+    identical copies summed), and each rank's rows against the gathered
+    columns, its part of the mean all-reduced, with "sum"-mode column
+    gathers (right: each rank uses the columns for its own rows only)."""
+    from hidvae_tpu_torch.models.losses import tag_alignment_loss
+    from hidvae_tpu_torch.ops.normalize import l2norm
+    from hidvae_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_sum
+
+    t, part = inp["terms"], slice(rows.start, rows.stop)
+    cb = t["cb"][part].clone().requires_grad_(True)
+    tg = t["tg"][part].clone().requires_grad_(True)
+    tag_alignment_loss(all_gather_rows(cb, rows, "sum"), all_gather_rows(tg, rows, "sum"),
+                       layer_idx=1, alignment_weight=0.7).backward()
+    out = {"modes/whole_sum_cb_grad": _leaf(cb.grad)}
+    cb = t["cb"][part].clone().requires_grad_(True)
+    tg = t["tg"][part].clone().requires_grad_(True)
+    c, cols = l2norm(cb, dim=-1), l2norm(all_gather_rows(tg, rows, "sum"), dim=-1)
+    logits = c @ cols.T / 0.1
+    diag = logits[torch.arange(len(c)), torch.arange(rows.start, rows.stop)]
+    part_sum = torch.sum(diag - torch.logsumexp(logits, dim=-1))
+    value = -all_reduce_sum(part_sum, rows.group) / rows.total * 0.7 / 1.5
+    value.backward()
+    out.update({"modes/rows_value": _leaf(value), "modes/rows_cb_grad": _leaf(cb.grad),
+                "modes/rows_tg_grad": _leaf(tg.grad)})
+    return out
+
+
+def terms(inp) -> dict:
+    from hidvae_tpu_torch.parallel.collectives import Rows
+
+    mesh = make_mesh()
+    n = inp["terms"]["bn_x"].shape[0]
+    rows = Rows.even(mesh.data_group, mesh.data_rank, mesh.n_data, n)
+    return {**stage1_terms(inp, rows), **gather_modes(inp, rows)}
+
+
+def stage1_run(inp, name, trainer, **kw) -> dict:
+    """`train` of the stage-1 `trainer` ("hidvae" or "rqvae") on the saved
+    dataset with inp[f"{trainer}_kw"] and `kw`, its save_dir_root under
+    workdir/name; with kw["jax_batches"] ({step: global batch indices}) the
+    batches are those and dropout is off (the JAX comparison). Returns the
+    logged losses, eval metrics and audits, the newest audit's table, the
+    mining pool, params, batch statistics and the last saved path,
+    keys prefixed "name:"."""
+    from hidvae_tpu_torch.models import hrqvae
+    from hidvae_tpu_torch.train import hidvae, rqvae
+    from hidvae_tpu_torch.train.device_data import DeviceItemData
+
+    mod = hidvae if trainer == "hidvae" else rqvae
+    args = dict(inp[f"{trainer}_kw"], device="cpu",
+                save_dir_root=os.path.join(inp["workdir"], name))
+    jax_batches = kw.pop("jax_batches", None)
+    args.update(kw)
+    saved = DeviceItemData.sample, hrqvae.drop
+    if jax_batches is not None:
+        order = iter(sorted(jax_batches))
+        DeviceItemData.sample = lambda self, g, b, n=0: self.gather(jax_batches[next(order)])
+        hrqvae.drop = lambda x, p, g: x
+    try:
+        res = mod.train(**args)
+    finally:
+        DeviceItemData.sample, hrqvae.drop = saved
+    h = res["history"]
+    out = {k: np.asarray(h[k], np.float64) for k in (
+        "total_loss", "reconstruction_loss", "rqvae_loss", "tag_pred_loss", "tag_pred_accuracy",
+        "eval_total_loss", "eval_tag_pred_accuracy", "repetition_rate", "rqvae_entropy")
+        if k in h}
+    out["iterations"] = np.asarray(h["iterations"])
+    out["bytes_per_step"] = np.float64(h["collective_bytes_per_step"])
+    out["table"] = np.asarray(res["corpus_ids"])
+    out["saved"] = np.asarray(res["saved_paths"][-1] if res["saved_paths"] else "")
+    if res["data"].mining_pairs is not None:
+        out["pool"] = res["data"].mining_pairs.numpy()
+    params, stats = state_dict_to_flax(res["model"])
+    out.update({f"p/{k}": v for k, v in params.items()})
+    out.update({f"s/{k}": v for k, v in stats.items()})
+    return prefixed(name, out)
+
+
+def stage1(inp) -> dict:
+    """The stage-1 runs of inp["stage1_runs"] ([(name, trainer, kwargs)]) on
+    this world's stage-1 mesh, in order."""
+    out = {}
+    for name, trainer, kw in inp["stage1_runs"][dist.get_world_size()]:
+        kw = dict(kw)
+        if kw.get("pretrained_from"):
+            kw[{"hidvae": "pretrained_hrqvae_path", "rqvae": "pretrained_rqvae_path"}[trainer]] \
+                = str(inp["paths"][kw.pop("pretrained_from")])
+        out.update(stage1_run(inp, name, trainer, **kw))
+    return out
+
+
+SCENARIOS = {"serve": serve, "train": train_ranks, "terms": terms, "stage1": stage1}
 
 
 def main():
