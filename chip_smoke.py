@@ -1740,6 +1740,11 @@ MULTI_TIMEOUT_S = 600     # the two Gloo ranks' whole run
 MULTI_LOSS_RTOL = 5e-3
 MULTI_FIRST_LOSS_RTOL = 1e-5
 MULTI_FP32_PARAM_RTOL = 1e-2
+# The gradient witness in float64: DP 2 against one process, over each
+# array's largest entry. Rounding (about 1e-16, times the cancellation of the
+# worst-conditioned arrays, which fp32 shows to be under 1e6) stays far
+# under it; a term computed wrong is off by its own size.
+MULTI_GRAD64_RTOL = 1e-9
 # The engine's beam scores (fp32, full_fp32) on a mesh against one rank's:
 # each data rank's products have other row counts (and the model ranks sum
 # fp32 partials), so cuBLAS may take other kernels, whose roundings (~1e-7
@@ -2386,9 +2391,8 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
 # Mini-steps of each stage-1 multi run, which audits and saves at its end:
 # the Amazon gin's batch 128 x 2 accumulation takes 2 updates (its N; the
 # resume runs N more), ML-32M 3 steps of 64.
-MULTI1_STEPS = {"amazon": 4, "mining": 4, "ml32m": 3}
+MULTI1_STEPS = {"amazon": 4, "mining": 4, "mining_fp32": 4, "ml32m": 3}
 MULTI1_MINING_EVERY = 2   # the mining runs audit at 2 as well: that pool feeds steps 3 and 4
-MULTI1_MINING_ITEMS = 16_384  # the mining catalog of the multi runs: 2 audit chunks
 MULTI1_TIMEOUT_S = 600    # the two Gloo ranks' stage-1 runs
 # The bias right before a train-mode BatchNorm (the tag projectors'
 # dense_0) moves no train output and has a gradient of 0 up to rounding,
@@ -2406,8 +2410,45 @@ def split_bn_biases(params):
             {k: v for k, v in params.items() if is_bias(k)})
 
 
+def check_gradient_witness(recs, ranks, want_rec, want):
+    """The witness step on the ranks (records `recs`, arrays `ranks`)
+    against one process (`want_rec`, `want`): the summed float64 gradients
+    equal on both ranks and each array within MULTI_GRAD64_RTOL of its
+    largest entry of one process's (the tag projectors' dense_0, which
+    feeds a train-mode BatchNorm and whose bias's gradient is 0 up to
+    rounding: of the largest entry of all arrays); the loss within
+    MULTI_FIRST_LOSS_RTOL; mined pairs colliding in the step. The fp32
+    gradients' gaps are printed, not held: a ReLU whose input lies within
+    rounding of 0 passes its gradient in one run and not in the other."""
+    got, exact = ranks[0]["grads64"], want["grads64"]
+    if set(got) != set(exact) or any(
+            not np.array_equal(ranks[1]["grads64"][k], got[k]) for k in exact):
+        raise AssertionError("gradient witness: the ranks' gradients differ or lack arrays")
+    top = max(float(np.abs(v).max()) for v in exact.values())
+    gap64, gap32 = {}, {}
+    for k, v in exact.items():
+        scale = (top if k.startswith("tag_projector_") and ".dense_0." in k
+                 else float(np.abs(v).max())) or 1.0
+        gap64[k] = float(np.abs(got[k] - v).max()) / scale
+        gap32[k] = float(np.abs(ranks[0]["grads"][k] - want["grads"][k]).max()) / scale
+    worst64, worst32 = (sorted(g, key=lambda k: -g[k])[:3] for g in (gap64, gap32))
+    loss_err = abs(recs[0]["loss"][0] - want_rec["loss"][0]) / abs(want_rec["loss"][0])
+    print(f"  gradient witness (fp32 mining gin, one mini-step from the one-process checkpoint "
+          f"at step {want_rec['step'] - 1}, mined-pair collision rate {want_rec['mined']}): "
+          f"{len(exact)} gradient arrays; DP 2 against one process over each array's largest "
+          f"entry, float64 {[(k, f'{gap64[k]:.2e}') for k in worst64]} (tolerance "
+          f"{MULTI_GRAD64_RTOL}), fp32 {[(k, f'{gap32[k]:.2e}') for k in worst32]} (printed); "
+          f"loss {recs[0]['loss'][0]} against {want_rec['loss'][0]} (relative {loss_err:.3e})",
+          flush=True)
+    if not want_rec["mined"] or not want_rec["mined"][-1] > 0:
+        raise AssertionError("gradient witness: no mined pair collided in the step")
+    if gap64[worst64[0]] > MULTI_GRAD64_RTOL or loss_err > MULTI_FIRST_LOSS_RTOL:
+        raise AssertionError("gradient witness: DP 2 differs from one process")
+    return dict(float64_gap=gap64[worst64[0]], fp32_gap=gap32[worst32[0]], loss_rel_err=loss_err)
+
+
 def check_stage1_multi(name, spec, losses, params, want_losses, want_params, init, updates,
-                       first_rtol=MULTI_FIRST_LOSS_RTOL):
+                       first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
     """check_multi_run on the params but the BatchNorm-preceding biases,
     those held to BN_BIAS_LR_STEPS learning rates per update."""
     lr = parse_gin_file(spec["gin"])["train"]["learning_rate"]
@@ -2419,21 +2460,26 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
           flush=True)
     if worst > bound:
         raise AssertionError(f"{name}: BatchNorm-preceding biases differ by {worst}")
-    return check_multi_run(name, losses, got, want_losses, want, init, first_rtol=first_rtol)
+    return check_multi_run(name, losses, got, want_losses, want, init, first_rtol=first_rtol,
+                           param_rtol=param_rtol)
 
 
-def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M,
-                  mining_items=MULTI1_MINING_ITEMS, bindings=None):
+def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bindings=None):
     """The inputs of the stage-1 multi runs: the stage1 phase's Amazon
-    dataset under `amazon_root`, and under `root` a mining catalog
-    (`write_mining_inputs` at MULTI1_MINING_ITEMS items) and an ML-32M one
-    (the rqvae phase's seeded items); and the three gins cut line by line
-    as the stage1, mining and rqvae phases cut them (widths and knobs
-    kept; the run's length, cadences, eval batches and paths; log_every 1
-    so that every step's loss is logged; Amazon with fp32 products, the one
-    binding added) at the widths of `amazon`, `xxl` and `ml32m`, with
-    bindings[name] on top. Returns {name: spec} (spec: trainer, gin, steps,
-    fp32, items, accumulate) and the Amazon gin of 2N steps."""
+    dataset under `amazon_root`, and under `root` the mining phase's
+    catalog (`write_mining_inputs`, xxl["n_items"] items: every leaf tag
+    class above the rare-tag threshold) and an ML-32M one (the rqvae
+    phase's seeded items); and the three gins cut line by line as the
+    stage1, mining and rqvae phases cut them (widths and knobs kept; the
+    run's length, cadences, eval batches and paths; log_every 1 so that
+    every step's loss is logged; Amazon with fp32 products, the one binding
+    added) at the widths of `amazon`, `xxl` and `ml32m`, with
+    bindings[name] on top; besides, the mining gin with fp32 products
+    ("mining_fp32"), the witness of the bf16 mining run's gaps. Returns
+    {name: spec} (spec: trainer, gin, feats (the dataset's path), steps,
+    fp32, exact (tables bitwise and params within MULTI_FP32_PARAM_RTOL
+    of one process's), items, accumulate) and the Amazon gin of 2N
+    steps."""
     bindings = bindings or {}
     os.makedirs(root, exist_ok=True)
     a_steps = MULTI1_STEPS["amazon"]
@@ -2451,19 +2497,20 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M,
     amazon_2n = cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, "s1_amazon_2n.gin"),
                         dict(amazon, iterations=2 * a_steps // accumulate))
 
-    mining_cfg = dict(xxl, n_items=mining_items)
     t0 = time.perf_counter()
-    write_mining_inputs(processed_path(os.path.join(root, "mining"), RecDataset.SYNTHETIC),
-                        mining_cfg)
-    gins["mining"] = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "s1_mining.gin"), {
+    write_mining_inputs(processed_path(os.path.join(root, "mining"), RecDataset.SYNTHETIC), xxl)
+    mining = {
         "iterations": MULTI1_STEPS["mining"], "save_model_every": MULTI1_STEPS["mining"],
         "eval_every": MULTI1_MINING_EVERY, "vae_input_dim": xxl["input_dim"],
         "vae_hidden_dims": list(xxl["hidden_dims"]), "vae_embed_dim": xxl["embed_dim"],
         "vae_codebook_size": xxl["codebook_size"], "vae_n_layers": xxl["n_layers"],
         "tag_embed_dim": xxl["tag_embed_dim"],
         "dataset_folder": f'"{os.path.join(root, "mining")}"',
-        "eval_batches": MINING_EVAL_BATCHES, "log_every": 1, **bindings.get("mining", {})},
-        show=True)
+        "eval_batches": MINING_EVAL_BATCHES, "log_every": 1, **bindings.get("mining", {})}
+    gins["mining"] = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "s1_mining.gin"), mining,
+                             show=True)
+    gins["mining_fp32"] = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "s1_mining_fp32.gin"),
+                                  dict(mining, mixed_precision_type='"fp32"'))
 
     rq_gin = parse_gin_file(RQVAE_ML32M_GIN)["train"]
     feats = unit_rows(ml32m["n_items"], ml32m["input_dim"],
@@ -2480,25 +2527,35 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M,
         "eval_batches": RQVAE_EVAL_BATCHES, "log_every": 1, **bindings.get("ml32m", {})},
         show=True)
     print(f"  wrote the stage-1 multi catalogs in {time.perf_counter() - t0:.2f} s: mining "
-          f"{mining_items} items (cut from the mining phase's {XXL_M['n_items']} and the "
-          f"config's {XXL_M_CORPUS}), ML-32M {ml32m['n_items']}; Amazon: the stage1 phase's "
-          f"{a['n_items']}", flush=True)
-    items = {"amazon": a["n_items"], "mining": mining_items, "ml32m": ml32m["n_items"]}
+          f"{xxl['n_items']} items (the mining phase's; the config's {XXL_M_CORPUS}), ML-32M "
+          f"{ml32m['n_items']}; Amazon: the stage1 phase's {a['n_items']}", flush=True)
+    items = {"amazon": a["n_items"], "mining": xxl["n_items"], "mining_fp32": xxl["n_items"],
+             "ml32m": ml32m["n_items"]}
+    feats = {"amazon": processed_path(amazon_root, RecDataset.AMAZON, "sports"),
+             "ml32m": processed_path(os.path.join(root, "ml32m"), rq_gin["dataset"],
+                                     rq_gin.get("dataset_split", "beauty"))}
+    feats["mining"] = feats["mining_fp32"] = processed_path(os.path.join(root, "mining"),
+                                                            RecDataset.SYNTHETIC)
     specs = {name: dict(trainer="rqvae" if name == "ml32m" else "hidvae", gin=gin,
-                        steps=MULTI1_STEPS[name], items=items[name], fp32=name != "mining",
+                        feats=feats[name], steps=MULTI1_STEPS[name], items=items[name],
+                        fp32=name != "mining", exact=name in ("amazon", "ml32m"),
                         accumulate=parse_gin_file(gin)["train"].get("gradient_accumulate_every",
                                                                     1))
              for name, gin in gins.items()}
     return specs, amazon_2n
 
 
-def multi1_run(spec, device, save_root, gin=None, **kwargs):
+def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
     """`train` of spec's trainer from its gin (as the entry scripts call it)
     with its save_dir_root under `save_root`; the launch counts set to 0
     just before. Returns a JSON record (per-step losses, eval losses,
-    repetition rates, rq_assign launches, collective bytes per mini-step,
-    seconds, the last checkpoint) and the arrays (the newest audit's table,
-    the mining pool, params)."""
+    repetition rates, mined-pair collision rates, rq_assign launches,
+    collective bytes per mini-step, seconds, the last checkpoint) and the
+    arrays (the newest audit's table, the mining pool, params; with `grads`
+    the last mini-step's gradients, summed over the ranks). On a rank of
+    several the HiD-VAE record gains "audit_vs_plain": compare_ids of its
+    audit at the last step against a plain sweep of its final params on this
+    rank alone (rows differing, rows differing but not at a near tie)."""
     import importlib
 
     from hidvae_tpu_torch.utils.config import parse_config_and_run
@@ -2513,20 +2570,56 @@ def multi1_run(spec, device, save_root, gin=None, **kwargs):
     h = res["history"]
     rec = dict(loss=h["total_loss"], eval_loss=h["eval_total_loss"],
                repetition=h["repetition_rate"], audits=len(h["repetition_rate"]),
+               mined=h.get("mined_pair_collision_rate"),
                rq_launches=rq.rq_assign.launches, seconds=time.perf_counter() - t0,
                bytes_per_step=h["collective_bytes_per_step"], step=res["step"],
                saved=res["saved_paths"][-1] if res["saved_paths"] else None,
-               n_params=sum(p.numel() for p in res["model"].parameters()))
+               n_params=sum(p.numel() for p in res["model"].parameters()),
+               tag_class_counts=res.get("tag_class_counts"),
+               rare_tags=sum(len(v) for v in (res.get("rare_tags") or {}).values()))
     pool = getattr(res["data"], "mining_pairs", None)
+    model = res["model"]
     arrays = dict(table=res["corpus_ids"], pool=None if pool is None else pool.cpu().numpy(),
-                  params=state_dict_to_flax(res["model"])[0])
+                  params=state_dict_to_flax(model)[0])
+    if grads:
+        arrays["grads"] = {k: p.grad.cpu().numpy() for k, p in model.named_parameters()
+                           if p.grad is not None}
+    if res["mesh"].n_data > 1 and res["corpus_ids"] is not None and spec["trainer"] == "hidvae":
+        feats = torch.from_numpy(np.load(spec["feats"])["item_features"]).to(device)
+        ref, ties, _ = plain_sweep(model, feats, 8192)
+        rec["audit_vs_plain"] = compare_ids(torch.from_numpy(res["corpus_ids"]).to(device),
+                                            ref, ties)
     return rec, arrays
+
+
+def save_arrays(path, arrays):
+    """multi1_run's arrays as one .npz (a dict's entries under "<key>/")."""
+    flat = {}
+    for key, v in arrays.items():
+        if isinstance(v, dict):
+            flat.update({f"{key}/{k}": a for k, a in v.items()})
+        elif v is not None:
+            flat[key] = v
+    np.savez(path, **flat)
+
+
+def load_arrays(path):
+    """save_arrays' arrays back."""
+    out = {}
+    for key, v in np.load(path).items():
+        head, _, rest = key.partition("/")
+        if rest:
+            out.setdefault(head, {})[rest] = v
+        else:
+            out[key] = v
+    return out
 
 
 def multi1_rank_main(workdir):
     """One rank of the stage-1 multi runs' two Gloo ranks on cuda:0 (started
-    by multi_stage1 through launch_ranks): each gin's run at DP 2. Writes
-    rank<r>_s1.json and rank<r>_s1_<name>.npz (table, pool, params)."""
+    by multi_stage1 through launch_ranks): each gin's run at DP 2, then the
+    gradient witness (one mini-step resumed from the one-process
+    checkpoint). Writes rank<r>_s1.json and rank<r>_s1_<name>.npz."""
     import torch.distributed as dist
 
     with open(os.path.join(workdir, "s1_inputs.json")) as f:
@@ -2538,12 +2631,15 @@ def multi1_rank_main(workdir):
     rank = dist.get_rank()
     out = {}
     try:
-        for name, spec in inp["specs"].items():
-            rec, arrays = multi1_run(spec, device, os.path.join(workdir, f"gloo_{name}"))
+        runs = [(name, spec, {}) for name, spec in inp["specs"].items()]
+        w = inp["witness"]
+        runs.append(("witness", inp["specs"][w["spec"]],
+                     dict(grads=True, iterations=1, pretrained_hrqvae_path=w["path"])))
+        for name, spec, kwargs in runs:
+            run = float64_run if name == "witness" else multi1_run
+            rec, arrays = run(spec, device, os.path.join(workdir, f"gloo_{name}"), **kwargs)
             out[name] = rec
-            np.savez(os.path.join(workdir, f"rank{rank}_s1_{name}.npz"),
-                     **{k: v for k, v in arrays.items() if k != "params" and v is not None},
-                     **{f"p/{k}": v for k, v in arrays["params"].items()})
+            save_arrays(os.path.join(workdir, f"rank{rank}_s1_{name}.npz"), arrays)
             del arrays
     finally:
         dist.destroy_process_group()
@@ -2553,32 +2649,132 @@ def multi1_rank_main(workdir):
 
 def differing_rows(got, want, hold=True, name=""):
     """The rows in which two tables (or pools) differ; with `hold`, raise
-    unless there are none."""
+    unless there are none (printing the differing entries per column: a
+    table's levels)."""
     if got is None and want is None:
         return 0
     rows = (-1 if got is None or want is None or got.shape != want.shape
             else int((got != want).reshape(len(want), -1).any(1).sum()))
+    if rows > 0:
+        per_col = (got != want).reshape(len(want), -1).sum(0).tolist()
+        print(f"  {name}: {rows} of {len(want)} rows differ; entries per column {per_col}",
+              flush=True)
     if hold and rows:
         raise AssertionError(f"{name}: differs in {rows} rows (-1: in shape)")
     return rows
 
 
+def ulp_control_run(spec, device, save_root):
+    """multi1_run of `spec` on one process with every parameter moved one
+    ulp (a seeded direction each) right after k-means: how far fp32
+    rounding alone carries the run."""
+    from hidvae_tpu_torch.train import hidvae as hv
+
+    kmeans = hv.kmeans_init_
+
+    def perturbed(model, *args, **kwargs):
+        kmeans(model, *args, **kwargs)
+        g = torch.Generator().manual_seed(SEED + 61)
+        with torch.no_grad():
+            for p in model.parameters():
+                up = torch.rand(p.shape, generator=g).to(p.device) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf)))
+
+    hv.kmeans_init_ = perturbed
+    try:
+        return multi1_run(spec, device, save_root)
+    finally:
+        hv.kmeans_init_ = kmeans
+
+
+def float64_run(spec, device, save_root, **kwargs):
+    """multi1_run of `spec` (with kwargs) whose train steps also take their
+    gradients in float64: a float64 copy of the model on the step's inputs,
+    rows and draws (the Gumbel noise drawn in fp32, as the fp32 step draws
+    it, then widened; every `.float()` of the forward widened), summed over
+    the ranks as the fp32 step's are. Returns multi1_run's record and
+    arrays, arrays["grads64"] the last step's float64 gradients."""
+    import copy
+
+    from hidvae_tpu_torch.models import quantize
+    from hidvae_tpu_torch.models.losses import mixup_draw
+    from hidvae_tpu_torch.ops.gumbel import sample_gumbel
+    from hidvae_tpu_torch.train import hidvae as hv
+    from hidvae_tpu_torch.train.common import reduce_gradients_
+
+    make, gumbel, to_float = hv.make_train_step, quantize.gumbel_softmax_sample, torch.Tensor.float
+    grads64 = {}
+
+    def gumbel_fp32_draws(logits, temperature, generator=None, noise=None):
+        if noise is None:
+            noise = sample_gumbel(logits.shape, generator, logits.device).to(logits.dtype)
+        return gumbel(logits, temperature, generator, noise)
+
+    def make64(model, optimizer, class_counts, gumbel_t=hv.GUMBEL_T, n_mined_pairs=0):
+        step = make(model, optimizer, class_counts, gumbel_t, n_mined_pairs)
+
+        def step64(x, tags_emb, tags_indices, generator, host, rows=None):
+            m64 = copy.deepcopy(model).double()
+            m64.zero_grad(set_to_none=True)
+            state, host64 = generator.get_state(), copy.deepcopy(host)
+            metrics = step(x, tags_emb, tags_indices, generator, host, rows)
+            g64 = torch.Generator(x.device)
+            g64.set_state(state)
+
+            def mixup(level, batch):
+                return mixup_draw(batch, m64.mixup_alpha, g64, host64, x.device)
+
+            torch.set_default_dtype(torch.float64)
+            torch.Tensor.float = torch.Tensor.double
+            quantize.gumbel_softmax_sample = gumbel_fp32_draws
+            try:
+                m64(x.double(), None if tags_emb is None else tags_emb.double(), tags_indices,
+                    gumbel_t, train=True, class_counts=class_counts, n_mined_pairs=n_mined_pairs,
+                    generator=g64, mixup=mixup, rows=rows).loss.backward()
+                if rows is not None:
+                    reduce_gradients_(list(m64.parameters()), rows.group)
+            finally:
+                torch.set_default_dtype(torch.float32)
+                torch.Tensor.float = to_float
+                quantize.gumbel_softmax_sample = gumbel
+            grads64.update({k: p.grad.cpu().numpy() for k, p in m64.named_parameters()
+                            if p.grad is not None})
+            return metrics
+
+        return step64
+
+    hv.make_train_step = make64
+    try:
+        rec, arrays = multi1_run(spec, device, save_root, **kwargs)
+    finally:
+        hv.make_train_step = make
+    arrays["grads64"] = grads64
+    return rec, arrays
+
+
 def multi_stage1(device, root, amazon_root, **inputs):
     """Stage-1 data parallelism on the card (functional: both ranks share
-    it), for each of the three gins of `multi1_inputs`: the one-process run,
-    one NCCL rank (the trainer's distributed path at world 1: bitwise the
+    it), for each of the gins of `multi1_inputs`: the one-process run, one
+    NCCL rank (the trainer's distributed path at world 1: bitwise the
     one-process run expected), and two Gloo ranks on cuda:0 (DP 2); the
     Amazon DP 2 checkpoint then resumed on one process for N more steps,
-    against the uninterrupted one-process 2N run. fp32 runs are held as the
-    stage-2 multi runs are (first loss MULTI_FIRST_LOSS_RTOL, trajectory
-    MULTI_LOSS_RTOL, params within MULTI_FP32_PARAM_RTOL of the run's
-    update); the bf16 mining run on its losses (MULTI_LOSS_RTOL). Every
-    run's audit table and mining pool is the same on both ranks, and the
-    fp32 runs' equal the one-process run's (the bf16 run's rows that differ
-    from it are printed: bf16 roundings differ with each rank's row count
-    and move near-tie rows). Prints the rq_assign launches per rank per
-    audit and the bytes each rank hands to collectives per mini-step. `inputs` go to
-    multi1_inputs (widths and bindings of a rehearsal). Returns the record."""
+    against the uninterrupted one-process 2N run. The Amazon and ML-32M
+    runs (fp32) are held as the stage-2 multi runs are (first loss
+    MULTI_FIRST_LOSS_RTOL, trajectory MULTI_LOSS_RTOL, params within
+    MULTI_FP32_PARAM_RTOL of the run's update, tables and pools bitwise);
+    the mining gin (bf16, and its fp32 twin) on its losses (the twin's
+    first within MULTI_FIRST_LOSS_RTOL), its params gap and rows differing
+    from one process printed beside those of an fp32 rounding control
+    (ulp_control_run), and on the float64 gradient witness
+    (check_gradient_witness), which tells a rounding gap from a fault.
+    Every run's audit table and mining pool is the same on both ranks, and
+    rank 0's last audit equals a plain sweep of its final params but at
+    near ties. The mining catalog must leave every tag class above the
+    rare-tag threshold. Every check runs; the failures are raised at the
+    end. Prints the rq_assign launches per rank per audit and the bytes
+    each rank hands to collectives per mini-step. `inputs` go to
+    multi1_inputs (widths and bindings of a rehearsal). Returns the
+    record."""
     import torch.distributed as dist
 
     from hidvae_tpu_torch.parallel.dryrun import free_port, launch_ranks
@@ -2603,8 +2799,9 @@ def multi_stage1(device, root, amazon_root, **inputs):
     finally:
         dist.destroy_process_group()
 
+    witness = dict(spec="mining_fp32", path=one["mining_fp32"][0]["saved"])
     with open(os.path.join(root, "s1_inputs.json"), "w") as f:
-        json.dump(dict(specs=specs, device=str(device)), f)
+        json.dump(dict(specs=specs, device=str(device), witness=witness), f)
     t0 = time.perf_counter()
     launch_ranks([sys.executable, os.path.abspath(__file__), "--multi-stage1-rank", root], 2,
                  MULTI1_TIMEOUT_S)
@@ -2613,11 +2810,24 @@ def multi_stage1(device, root, amazon_root, **inputs):
     for r in range(2):
         with open(os.path.join(root, f"rank{r}_s1.json")) as f:
             ranks.append(json.load(f))
-        npz.append({name: dict(np.load(os.path.join(root, f"rank{r}_s1_{name}.npz")))
-                    for name in specs})
+        npz.append({name: load_arrays(os.path.join(root, f"rank{r}_s1_{name}.npz"))
+                    for name in [*specs, "witness"]})
     where = torch.cuda.get_device_name(0) if cuda else "the CPU"
     print(f"  stage 1, two Gloo ranks on {where}: {ranks_s:.2f} s in all (functional timings, "
           f"not speed: both ranks share one device)", flush=True)
+
+    failures = []
+
+    def fail(msg):
+        print(f"  FAILED: {msg}", flush=True)
+        failures.append(msg)
+
+    def hold(check, *args, **kwargs):
+        try:
+            return check(*args, **kwargs)
+        except AssertionError as e:
+            fail(str(e))
+            return {}
 
     record = {}
     for name, spec in specs.items():
@@ -2630,6 +2840,9 @@ def multi_stage1(device, root, amazon_root, **inputs):
                            for k in want_arr["params"]))
         rr = [r[name] for r in ranks]
         per_audit = [r["rq_launches"] / r["audits"] for r in rr]
+        if name.startswith("mining") and want["rare_tags"]:
+            fail(f"stage 1 {name}: the rare-tag remap folded {want['rare_tags']} classes: the "
+                 f"catalog cuts the tag heads' widths")
         print(f"  stage 1 {name} ({spec['trainer']}, {spec['steps']} mini-steps, "
               f"{'fp32' if spec['fp32'] else 'bf16'}): one process losses "
               f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise equal {bitwise}; "
@@ -2638,47 +2851,90 @@ def multi_stage1(device, root, amazon_root, **inputs):
               f"rq_assign launches per rank per audit {per_audit} (one process "
               f"{want['rq_launches'] / want['audits']}); collectives per mini-step per rank "
               f"{[r['bytes_per_step'] for r in rr]} bytes, of which the gradient all-reduce "
-              f"{4 * want['n_params']} (4 B x {want['n_params']} parameters)", flush=True)
+              f"{4 * want['n_params']} (4 B x {want['n_params']} parameters); tag classes "
+              f"{want['tag_class_counts']}, {want['rare_tags']} folded", flush=True)
         if not bitwise:
-            raise AssertionError(f"stage 1 {name}: one NCCL rank differs from one process")
+            fail(f"stage 1 {name}: one NCCL rank differs from one process")
         if per_audit != [want_launches] * 2 or want["rq_launches"] != want_launches * want["audits"]:
-            raise AssertionError(f"stage 1 {name}: rq_assign launches per audit {per_audit}, "
-                                 f"expected {want_launches}")
+            fail(f"stage 1 {name}: rq_assign launches per audit {per_audit}, expected "
+                 f"{want_launches}")
         for key in ("table", "pool"):
-            differing_rows(npz[1][name].get(key), npz[0][name].get(key), name=f"{name} ranks' {key}")
-        diff = {key: differing_rows(npz[0][name].get(key), want_arr[key], spec["fp32"],
-                                    f"{name} {key} against one process") for key in ("table", "pool")}
-        print(f"  stage 1 {name}: the ranks' audit tables and pools equal; rows differing from "
-              f"the one-process run's {diff}" + ("" if spec["fp32"] else " (bf16: printed, not "
-                                                 "held)"), flush=True)
-        params = [{k[2:]: v for k, v in z[name].items() if k.startswith("p/")} for z in npz]
+            hold(differing_rows, npz[1][name].get(key), npz[0][name].get(key),
+                 name=f"{name} ranks' {key}")
+        if "audit_vs_plain" in rr[0]:
+            n_diff, n_bad = rr[0]["audit_vs_plain"]
+            print(f"  stage 1 {name}: rank 0's last audit against a plain sweep of its final "
+                  f"params on it alone: {n_diff} rows differ, {n_bad} not at a near tie",
+                  flush=True)
+            if n_bad:
+                fail(f"stage 1 {name}: rank 0's audit differs from a plain sweep")
+        params = [z[name]["params"] for z in npz]
         if not all(np.array_equal(params[1][k], params[0][k]) for k in params[0]):
-            raise AssertionError(f"stage 1 {name}: the ranks' params differ")
+            fail(f"stage 1 {name}: the ranks' params differ")
         rec = dict(bytes_per_step=[r["bytes_per_step"] for r in rr], rq_per_audit=per_audit,
-                   nccl_bitwise=bitwise, rows_differing=diff)
+                   nccl_bitwise=bitwise)
         if spec["fp32"]:
-            rec.update(check_stage1_multi(
-                f"stage 1 {name} 2 ranks", spec, rr[0]["loss"], params[0], want["loss"],
-                want_arr["params"], init[name], spec["steps"] // spec["accumulate"]))
+            rec.update(hold(check_stage1_multi, f"stage 1 {name} 2 ranks", spec, rr[0]["loss"],
+                            params[0], want["loss"], want_arr["params"], init[name],
+                            spec["steps"] // spec["accumulate"],
+                            param_rtol=MULTI_FP32_PARAM_RTOL if spec["exact"] else math.inf))
         else:
             err = max(abs(a - b) / abs(b) for a, b in zip(rr[0]["loss"], want["loss"]))
             print(f"  stage 1 {name} 2 ranks (bf16): losses {[round(x, 5) for x in rr[0]['loss']]}"
                   f" (largest relative difference {err:.3e}, tolerance {MULTI_LOSS_RTOL})",
                   flush=True)
             if len(rr[0]["loss"]) != len(want["loss"]) or not err <= MULTI_LOSS_RTOL:
-                raise AssertionError(f"stage 1 {name}: the bf16 run differs from one process")
+                fail(f"stage 1 {name}: the bf16 run differs from one process")
             rec["loss_rel_err"] = err
+        rec["rows_differing"] = {key: hold(
+            differing_rows, npz[0][name].get(key), want_arr[key], spec["exact"],
+            f"{name} {key} against one process") for key in ("table", "pool")}
+        print(f"  stage 1 {name}: rows differing from the one-process run's "
+              f"{rec['rows_differing']}" + ("" if spec["exact"] else " (printed, not held: see "
+                                            "the rounding control and the gradient witness)"),
+              flush=True)
         record[name] = rec
+
+    # How far fp32 rounding alone carries the fp32 mining run: one process
+    # from params one ulp off.
+    name = witness["spec"]
+    ctl, ctl_arr = ulp_control_run(specs[name], device, os.path.join(root, "ulp_control"))
+    want, want_arr = one[name]
+    update = {k: want_arr["params"][k] - init[name][k] for k in init[name]}
+    gap = relative_gap(*(split_bn_biases(p)[0] for p in (ctl_arr["params"], want_arr["params"],
+                                                         update)))[0]
+    rows = {key: differing_rows(ctl_arr[key], want_arr[key], False, f"{name} rounding control "
+                                f"{key} against one process") for key in ("table", "pool")}
+    errs = [abs(a - b) / abs(b) for a, b in zip(ctl["loss"], want["loss"])]
+    print(f"  stage 1 {name}: rounding control (one process, every parameter one ulp off after "
+          f"k-means): losses {[f'{e:.2e}' for e in errs]} relative, params gap {gap:.3e} of the "
+          f"update, rows differing {rows}; DP 2: params gap "
+          f"{record[name].get('param_gap', math.nan):.3e}, rows {record[name]['rows_differing']}",
+          flush=True)
+    record[name]["rounding_control"] = dict(param_gap=gap, rows_differing=rows,
+                                            loss_rel_err=max(errs))
+
+    # The gradient witness: one mini-step of the fp32 mining gin resumed from
+    # the one-process checkpoint (its audit's pool of colliding pairs), on
+    # one process and at DP 2, each also in float64: the same params, pool
+    # and batch, so the summed float64 gradients of every coupled term agree
+    # to float64 rounding.
+    w_one, w_arr = float64_run(specs[witness["spec"]], device, os.path.join(root, "witness_one"),
+                               grads=True, iterations=1, pretrained_hrqvae_path=witness["path"])
+    record["gradient_witness"] = hold(check_gradient_witness, [r["witness"] for r in ranks],
+                                      [z["witness"] for z in npz], w_one, w_arr)
 
     # The DP 2 checkpoint at N resumed on one process for N more.
     n = specs["amazon"]["steps"]
     resumed, res_arr = multi1_run(specs["amazon"], device, os.path.join(root, "resumed"),
                                   pretrained_hrqvae_path=ranks[0]["amazon"]["saved"])
-    record["amazon_resume"] = check_stage1_multi(
+    record["amazon_resume"] = hold(check_stage1_multi,
         "stage 1 amazon: DP 2 checkpoint resumed on one process", specs["amazon"],
         resumed["loss"], res_arr["params"], full["loss"][n:], full_arr["params"],
         one["amazon"][1]["params"], 2 * n // specs["amazon"]["accumulate"], first_rtol=None)
-    differing_rows(res_arr["table"], full_arr["table"], name="amazon resume table")
+    hold(differing_rows, res_arr["table"], full_arr["table"], name="amazon resume table")
+    if failures:
+        raise AssertionError(f"stage 1 multi: {len(failures)} checks failed: {failures}")
     return record
 
 

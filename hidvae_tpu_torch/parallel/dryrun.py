@@ -192,14 +192,14 @@ def dryrun_multichip(n: int, timeout: float = 300.0) -> dict:
 
 
 def _rank_main(n_model: int):
-    from hidvae_tpu_torch.parallel.mesh import make_mesh, stage1_mesh
+    from hidvae_tpu_torch.parallel.mesh import make_mesh
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo")
     try:
         mesh = make_mesh(n_model=n_model)
         print(f"DRYRUN_LOSS {flagship_step(mesh, 2 * mesh.n_data)!r}", flush=True)
-        s1 = stage1_mesh()
+        s1 = make_mesh()
         print(f"DRYRUN_STAGE1_LOSS {stage1_step(s1, 2 * s1.n_data)!r}", flush=True)
     finally:
         dist.destroy_process_group()

@@ -1,7 +1,7 @@
-"""A ('data', 'model') mesh over a torch.distributed process group, the
-stage-1 mesh (every rank on 'data'), the row layouts of a batch split over
-the data ranks, and the stage-2 tensor-parallel layout (counterpart of
-hidvae_tpu/parallel/mesh.py).
+"""A ('data', 'model') mesh over a torch.distributed process group (by
+default every rank on 'data': the stage-1 trainers' mesh), the row layouts
+of a batch split over the data ranks, and the stage-2 tensor-parallel
+layout (counterpart of hidvae_tpu/parallel/mesh.py).
 
 The JAX package lays its devices out as `reshape(n_data, n_model)`; here
 rank r of the process group sits at (r // n_model, r % n_model). A rank's
@@ -112,17 +112,6 @@ def init_from_env() -> torch.device:
     dist.init_process_group("nccl", rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]), device_id=device)
     return device
-
-
-def stage1_mesh(n_model: int = 1) -> Mesh:
-    """The mesh of the stage-1 trainers: every rank of the process group a
-    data rank, as the JAX trainers' make_mesh() puts every device on 'data'
-    (one device without a process group). There is no stage-1 tensor
-    parallelism to map n_model > 1 to, so that is refused."""
-    if n_model != 1:
-        raise ValueError(f"n_model={n_model}: stage 1 runs data-parallel only; the JAX "
-                         f"stage-1 trainers put every device on 'data' and shard no parameter")
-    return make_mesh()
 
 
 @contextlib.contextmanager

@@ -67,6 +67,28 @@ def run_stamp(mesh, device) -> str:
     return f"{s[:8]}_{s[8:]}"
 
 
+def local_rows(batch, rows: slice):
+    """A sampled batch's tensors (None stays None) cut to `rows`."""
+    return tuple(None if t is None else t[rows] for t in batch)
+
+
+def kmeans_init_(model, item_features, n_items, seed, device, mesh):
+    """k-means codebooks from the first min(20,000, N) items (hidvae.py:523-532,
+    rqvae.py:157-162), run on rank 0 and broadcast to every data rank."""
+    from hidvae_tpu_torch.train.init import kmeans_init_codebooks
+
+    if mesh.is_main:
+        init_x = torch.from_numpy(item_features[:min(20_000, n_items)]).to(device)
+        kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
+    for layer in model.layers:
+        broadcast_(layer.embedding.data, mesh.data_group)
+
+
+def save_on_main(mesh, save_dir, name, save):
+    """`save()` on rank 0; every rank gets the checkpoint's path."""
+    return save() if mesh.is_main else os.path.abspath(os.path.join(save_dir, name))
+
+
 def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], float]:
     """Flat at base_lr through `warmup_steps`, then base_lr * sqrt(warmup /
     step) (common.py:50-62); step is taken as at least 1."""

@@ -45,7 +45,7 @@ and the stage-2 trainer read. `ensemble_predictions`, `use_concatenated_ids`,
 `use_interleaved_ids` and `wandb_logging` are taken and ignored, as in JAX.
 
 Under a process group of N ranks (torchrun; parallel/mesh.py
-`stage1_mesh`) the run is data-parallel over all of them, as the JAX
+`make_mesh`) the run is data-parallel over all of them, as the JAX
 trainer's mesh puts every device on 'data' (:541-553, :636-640): each rank
 draws the step's global batch and computes its `shard_rows` part (the
 whole batch when N does not divide it); the model couples the parts where
@@ -54,11 +54,11 @@ summed over the ranks in one all-reduce before the optimizer, and every
 rank keeps the same parameters. `split_batches=False` makes batch_size the
 per-rank batch (global batch_size * N). Evals run whole on every rank;
 audits split each chunk over the ranks (tokenizer/sweep.py), so every rank
-holds the table and harvests the same pool. k-means runs on every rank and
-rank 0's codebooks are broadcast. Rank 0 writes train.log, the rare-tag
+holds the table and harvests the same pool. k-means runs on rank 0 and
+its codebooks are broadcast. Rank 0 writes train.log, the rare-tag
 remap, checkpoints (those of a one-process run: they resume at any world
-size) and plots. `n_model_shards` > 1 is refused: stage 1 has no tensor
-parallelism.
+size) and plots. There is no stage-1 tensor parallelism: as in JAX, the
+trainer takes no model-axis option.
 """
 
 import contextlib
@@ -77,13 +77,15 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
-from hidvae_tpu_torch.parallel.collectives import broadcast_, collective_bytes
-from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows, stage1_mesh
+from hidvae_tpu_torch.parallel.collectives import collective_bytes
+from hidvae_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_rows
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     ReduceLROnPlateau,
     chunk_events,
     id_diversity_metrics,
+    kmeans_init_,
+    local_rows,
     log_operative_config,
     make_lr_schedule,
     make_optimizer,
@@ -92,10 +94,10 @@ from hidvae_tpu_torch.train.common import (
     run_logging,
     run_stamp,
     save_checkpoint,
+    save_on_main,
     structural_model_config,
 )
 from hidvae_tpu_torch.train.device_data import DeviceItemData, harvest_duplicate_pairs
-from hidvae_tpu_torch.train.init import kmeans_init_codebooks
 from hidvae_tpu_torch.train.tags import (
     apply_tag_remap,
     compute_rare_tag_remap,
@@ -314,25 +316,6 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def local_rows(batch, rows: slice):
-    """A sampled batch's tensors (None stays None) cut to `rows`."""
-    return tuple(None if t is None else t[rows] for t in batch)
-
-
-def kmeans_init_(model, item_features, n_items, seed, device, mesh):
-    """k-means codebooks from the first min(20,000, N) items (hidvae.py:523-532,
-    rqvae.py:157-162), rank 0's broadcast to every data rank."""
-    init_x = torch.from_numpy(item_features[:min(20_000, n_items)]).to(device)
-    kmeans_init_codebooks(model, init_x, torch.Generator(device).manual_seed(seed))
-    for layer in model.layers:
-        broadcast_(layer.embedding.data, mesh.data_group)
-
-
-def save_on_main(mesh, save_dir, name, save):
-    """`save()` on rank 0; every rank gets the checkpoint's path."""
-    return save() if mesh.is_main else os.path.abspath(os.path.join(save_dir, name))
-
-
 def train(
     iterations=50_000,
     batch_size=64,
@@ -406,7 +389,6 @@ def train(
     sem_id_mining_pool=32768,
     sem_id_mining_margin=None,
     sem_id_mining_isolate=False,
-    n_model_shards=1,
     device=None,
 ):
     """Train the HiD-VAE tokenizer as `python train_hidvae.py CONFIG.gin`
@@ -424,7 +406,7 @@ def train(
     mining_pool_refreshed (the audit steps whose harvest replaced the pool)
     and collective_bytes_per_step (handed to collectives per mini-step by
     this rank, evals and audits left out)."""
-    mesh = stage1_mesh(n_model_shards)
+    mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{run_stamp(mesh, device)}")
     config = {k: v for k, v in locals().items() if k != "mesh"}
@@ -687,6 +669,7 @@ def train(
                 _sync(device)
             t_last, it_last = time.perf_counter(), it
 
+        # A resumed run too runs total_steps mini-steps (start_iter .. end - 1).
         history["collective_bytes_per_step"] = moved / max(total_steps, 1)
         if make_plots and mesh.is_main:
             try:

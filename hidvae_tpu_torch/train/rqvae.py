@@ -60,11 +60,13 @@ from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.parallel.collectives import collective_bytes
-from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows, stage1_mesh
+from hidvae_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_rows
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train.common import (
     chunk_events,
     id_diversity_metrics,
+    kmeans_init_,
+    local_rows,
     log_operative_config,
     make_lr_schedule,
     make_optimizer,
@@ -73,17 +75,11 @@ from hidvae_tpu_torch.train.common import (
     run_logging,
     run_stamp,
     save_checkpoint,
+    save_on_main,
     structural_model_config,
 )
 from hidvae_tpu_torch.train.device_data import DeviceItemData
-from hidvae_tpu_torch.train.hidvae import (
-    GUMBEL_T,
-    LOSS_WINDOW,
-    _sync,
-    kmeans_init_,
-    local_rows,
-    save_on_main,
-)
+from hidvae_tpu_torch.train.hidvae import GUMBEL_T, LOSS_WINDOW, _sync
 from hidvae_tpu_torch.train.transformer import step_generator
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
@@ -215,7 +211,6 @@ def train(
     log_every=100,
     eval_batches=None,
     make_plots=True,
-    n_model_shards=1,
     device=None,
 ):
     """Train the plain RQ-VAE tokenizer as `python train_rqvae.py CONFIG.gin`
@@ -228,7 +223,7 @@ def train(
     each chunk, eval, audit and save left out) and collective_bytes_per_step
     (handed to collectives per mini-step by this rank, evals and audits
     left out)."""
-    mesh = stage1_mesh(n_model_shards)
+    mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")
     config = {k: v for k, v in locals().items() if k != "mesh"}
@@ -359,6 +354,7 @@ def train(
                 _sync(device)
             t_last, it_last = time.perf_counter(), it
 
+        # A resumed run too runs total_steps mini-steps (start_iter .. end - 1).
         history["collective_bytes_per_step"] = moved / max(total_steps, 1)
         if make_plots and mesh.is_main:
             try:

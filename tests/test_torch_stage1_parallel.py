@@ -16,8 +16,9 @@ parameter's summed over the ranks (the trainers' gradient all-reduce). At 4
 ranks the batch is 18 rows, which 4 ranks do not divide (parts of 4 and 5
 rows), and the 6 mined rows straddle ranks 0 and 1. The gathers' backward
 modes are decided here: `test_gather_backward_modes` shows the other mode
-off by the world size. Also: a stage-1 run with n_model_shards > 1 is
-refused (there is no stage-1 tensor parallelism in the JAX package).
+off by the world size. Also: a stage-1 gin that binds n_model_shards is
+refused, as the JAX trainers take no model-axis option (there is no
+stage-1 tensor parallelism).
 Ranks are subprocesses (tests/_torch_parallel_worker.py) with a timeout."""
 
 import copy
@@ -29,6 +30,7 @@ import torch
 from hidvae_tpu_torch.models.hrqvae import FlaxBatchNorm, HRqVae, TagProjector
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.train import hidvae, rqvae
+from hidvae_tpu_torch.utils.config import parse_config_and_run
 from tests import _torch_parallel_worker as worker
 
 # fp32: the ranks' sums (all-reduced statistics and means, summed gradients)
@@ -179,6 +181,8 @@ def test_gather_backward_modes(runs, consumer):
 
 
 @pytest.mark.parametrize("trainer", [hidvae, rqvae], ids=["hidvae", "rqvae"])
-def test_stage1_refuses_model_shards(trainer):
-    with pytest.raises(ValueError, match="data-parallel only"):
-        trainer.train(n_model_shards=2, device="cpu")
+def test_stage1_refuses_model_shards(trainer, tmp_path):
+    gin = tmp_path / "shards.gin"
+    gin.write_text("train.iterations = 1\ntrain.n_model_shards = 2\n")
+    with pytest.raises(ValueError, match=r"Unknown gin binding.*n_model_shards"):
+        parse_config_and_run(trainer.train, [str(gin)], device="cpu")
