@@ -5,63 +5,22 @@
 Builds the port's CUDA kernels (rq_assign, flash attention) from the sources
 in this checkout, all builds started together, and holds each against its
 plain PyTorch version at the shapes the port's paths give it. Then drives
-these paths at the Amazon widths of configs/h_rqvae_amazon.gin and
-configs/decoder_amazon.gin (random weights from a seed, 18,357 seeded 768-d
-items: the size of the P5 Sports split) unless noted:
-  * serve: a RetrievalEngine answers one batch of 32 histories, and the H
-    tokenizer's tokenize_features of that batch's features equals the
-    table's gather;
-  * artifacts: the serve engine's modules are saved as exported checkpoints
-    beside a processed dataset and a gin file in a temporary directory, and
-    `RetrievalEngine.from_artifacts` must rebuild the same engine; then the
-    same at the widths of configs/rqvae_ml32m.gin and
-    configs/decoder_ml32m.gin (the plain RQ-VAE route, D 64, 87,585 items,
-    200-item histories) against a plain sweep;
-  * train: the stage-2 trainer runs a short-history run (20 items, the dense
-    attention path) and a long-history run (400 items, 2,401 tokens: the
-    flash kernels, forward and backward), and a few steps on one fixed
-    batch must lower its loss;
-  * stage1: the stage-1 HiD-VAE trainer from its gin entry
-    (scripts/torch_train_hidvae.py) at the widths of
-    configs/h_rqvae_amazon.gin on the items with seeded tags written into a
-    temporary directory: 2N mini-steps with evals, corpus audits through
-    rq_assign and saves; N and a resume for N more, held to the
-    uninterrupted run; the trained model's rq_assign table held to a plain
-    sweep; items/s at the gin's batch and accumulation and at batch 256;
-  * mining: the same entry on configs/h_rqvae_synthetic_xxl_m.gin (L 4,
-    batch 1024, bf16, duplicate-pair mining with isolation), cut line by
-    line, on 200,000 seeded tagged items with planted near-duplicates: the
-    pool refreshed at each audit from pairs that collide in the audit's
-    rq_assign table, mined pairs colliding in training, the pool across a
-    resume; items/s at batch 1024;
-  * rqvae: the plain RQ-VAE trainer from its gin entry
-    (scripts/torch_train_rqvae.py) on configs/rqvae_ml32m.gin, cut line by
-    line, on 87,585 seeded items: 2N mini-steps with evals, audits and
-    saves, N + a resume for N, the audit's table against a plain sweep,
-    items/s at batch 64; its checkpoint then served by from_artifacts with
-    a seeded decoder at the widths of configs/decoder_ml32m.gin;
-  * trainer: the stage-2 trainer from its gin entry
-    (scripts/torch_train_transformer.py) on a processed dataset written
-    into a temporary directory and the stage1 phase's checkpoint: 2N steps with full
-    generation evals, checkpoints and the TEST eval; N steps and a resume
-    for N more, held to the uninterrupted run; the saved decoder served by
-    `from_artifacts`, held to the trained model's own search; remat on the
-    flash route, held to the run without it;
-  * multi: process groups over the card: the stage-2 trainer and engine on
-    one NCCL rank and on two Gloo ranks (DP and TP), and stage-1 data
-    parallelism: the HiD-VAE trainer on h_rqvae_amazon.gin (fp32) and on
-    h_rqvae_synthetic_xxl_m.gin (bf16, mining with isolation) and the
-    RQ-VAE trainer on rqvae_ml32m.gin, each on one NCCL rank and on two
-    Gloo ranks against one process (audits through rq_assign on every
-    rank), and the Amazon DP checkpoint resumed on one process.
-Each path's kernel launch counts are set to 0 just before it and read just
-after. Every phase prints its start and end; the line before the last is the
-kernels' JSON record, the last {"ok": true, "device": {...}}. Exits non-zero
-without a CUDA device. Imports nothing of JAX or of the JAX package, and
-reads no file but the port's sources, the three gin files it cuts
-(configs/h_rqvae_amazon.gin, configs/h_rqvae_synthetic_xxl_m.gin and
-configs/rqvae_ml32m.gin: source text, so that the gin it runs cannot drift
-from the repo's) and what it writes itself.
+the port's paths through their entry points, with weights and data made
+from a seed at the widths of the repo's configs (PERF.md section 4 lists
+each phase's cell and cuts): serve, artifacts (`from_artifacts` on both
+tokenizer routes), train (dense and flash routes), stage1 and trainer (the
+stage-1 and stage-2 gin entries, resume, serving the checkpoint, remat),
+multi (process groups: stage 2 DP/TP and the engine, stage-1 data
+parallelism), mining, rqvae, synthetic (scripts/torch_make_synthetic.py's
+`large` corpus trained from configs/h_rqvae_synthetic_large.gin) and scale
+(scripts/torch_bench_scale.py at 200,000 and 1,000,000 items). Each path's
+kernel launch counts are set to 0 just before it and read just after, and
+its outputs are held to a plain version or to the run it must equal. Every
+phase prints its start and end; the line before the last is the kernels'
+JSON record, the last {"ok": true, "device": {...}}. Exits non-zero without
+a CUDA device. Imports nothing of JAX or of the JAX package, and reads no
+file but the port's sources, the gin files it cuts line by line (so that
+the gin it runs cannot drift from the repo's) and what it writes itself.
 """
 
 import inspect
@@ -114,70 +73,11 @@ ML32M = dict(
     n_layers=3, codebook_normalize=False, tag_class_counts=None, decoder_embed_dim=128,
     attn_embed_dim=384, attn_heads=6, attn_layers=8, max_seq_len=200, n_items=87585,
 )
-# The decoder configs as the repo holds them (configs/decoder_amazon.gin,
-# configs/decoder_ml32m.gin, comments dropped); `decoder_gin` sets the widths
-# of the run and the dataset folder.
-DECODER_AMAZON_GIN = """\
-import data.processed
-import modules.model
-train.iterations = 200000
-train.learning_rate = 0.0003
-train.weight_decay = 0.035
-train.batch_size = 256
-train.vae_input_dim = 768
-train.vae_hidden_dims = [512, 256, 128]
-train.vae_embed_dim = 32
-train.vae_n_cat_feats = 0
-train.vae_codebook_size = 256
-train.use_h_tokenizer = True
-train.pretrained_rqvae_path = "out/hrqvae/amazon/hrqvae_model"
-train.tag_alignment_weight = 0.05
-train.tag_prediction_weight = 0.1
-train.tag_class_counts = [38, 168, 348]
-train.tag_embed_dim = 768
-train.use_dedup_dim = False
-train.use_concatenated_ids = True
-train.use_interleaved_ids = False
-train.save_dir_root = "out/decoder/amazon/"
-train.dataset_folder = "dataset/amazon"
-train.dataset = %data.processed.RecDataset.AMAZON
-train.dataset_split = "sports"
-train.force_dataset_process = False
-train.full_eval_every = 10000
-train.partial_eval_every = 5000
-train.dropout_p = 0.3
-train.attn_heads = 8
-train.attn_embed_dim = 512
-train.attn_layers = 8
-train.decoder_embed_dim = 128
-train.model_jagged_mode = True
-train.wandb_logging = True
-"""
-DECODER_ML32M_GIN = """\
-import data.processed
-train.iterations = 20000
-train.batch_size = 64
-train.vae_input_dim = 768
-train.vae_hidden_dims = [512, 256, 128]
-train.vae_embed_dim = 64
-train.vae_n_cat_feats = 0
-train.vae_codebook_size = 256
-train.pretrained_rqvae_path = "trained_models/rqvae_ml32m/checkpoint_high_entropy"
-train.save_dir_root = "out/decoder/ml-32m/"
-train.dataset_folder = "dataset/ml-32m"
-train.dataset = %data.processed.RecDataset.ML_32M
-train.dataset_split = "beauty"
-train.force_dataset_process = False
-train.full_eval_every = 5000
-train.partial_eval_every = 5000
-train.attn_dropout = 0.1
-train.attn_heads = 6
-train.attn_embed_dim = 384
-train.attn_layers = 8
-train.decoder_embed_dim = 128
-train.use_h_tokenizer = False
-train.wandb_logging = False
-"""
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+# The decoder configs, read as the checkout holds them; `decoder_gin` sets
+# the widths of the run and the dataset folder.
+DECODER_AMAZON_GIN = os.path.join(CONFIGS, "decoder_amazon.gin")
+DECODER_ML32M_GIN = os.path.join(CONFIGS, "decoder_ml32m.gin")
 ARTIFACT_HISTORIES = 32  # histories in the written dataset, and per request
 KERNEL_CASES = (  # (B, D, L, K)
     (8192, 32, 3, 256),      # one sweep chunk of the serving path
@@ -194,10 +94,8 @@ KERNEL_CASES = (  # (B, D, L, K)
     (3392, 32, 4, 256),
     (640, 32, 3, 256),       # tokenize_features of the serve batch: 32 x 20 rows
 )
-# Timed: one sweep chunk (the main path's launch shape: an 18,357-item
-# build launches 8,192 + 8,192 + 1,973 rows), 1M rows, the two launch
-# shapes of the 87,585-item ML-32M build at D 64, the two of the
-# 200,000-item mining audit at L 4, and the tokenize_features launch.
+# Timed: a sweep chunk (the main path's launch), 1M rows, the ML-32M build's
+# two launch shapes (D 64), the mining audit's two (L 4), tokenize_features.
 TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
                (5665, 64, 3, 256), (8192, 32, 4, 256), (3392, 32, 4, 256),
                (640, 32, 3, 256))
@@ -207,13 +105,10 @@ DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
 KMEANS_ITERS = 10  # Lloyd steps of the seeded models' codebooks
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
-# Flash kernels against the plain version run in fp32 on the same inputs:
-# largest error over max |plain|. fp32: the kernels sum up to N = 2,432 terms
-# in another order than cuBLAS (expected error ~sqrt(N) * 2^-24 of the sum of
-# magnitudes, well under 1e-5 of the largest value). bf16: each output is
-# rounded once to bf16 (2^-9 relative); the tensor-core kernels also round
-# P and dS to bf16 before their products, as the library does, which adds
-# errors of 2^-9 relative per term that mostly cancel over the N-term sums.
+# Flash kernels against the fp32 plain version: largest error over max
+# |plain|. fp32: sums of up to 2,432 terms in another order (~sqrt(N) *
+# 2^-24). bf16: each output rounded once (2^-9), P and dS rounded before
+# their products as the library does (2^-9 a term, mostly cancelling).
 FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
@@ -224,10 +119,10 @@ def phase(name):
     """Decorator: print a phase's start and end (with elapsed seconds)."""
     def wrap(fn):
         def run(*args, **kwargs):
-            print(f"[phase] {name}: start", flush=True)
+            print(f"[phase] {name}: start")
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            print(f"[phase] {name}: end {time.perf_counter() - t0:.2f} s", flush=True)
+            print(f"[phase] {name}: end {time.perf_counter() - t0:.2f} s")
             return out
         return run
     return wrap
@@ -278,10 +173,9 @@ def median_ms(fn, runs=10, warmup=3):
 
 
 def graph_ms(fn, launches=20):
-    """Device time (ms) of one call of fn: `launches` calls captured in a
-    CUDA graph and replayed between two CUDA events (median of 5 replays),
-    so that the host's time to launch, which a call of a few microseconds
-    of device work cannot hide, is not counted."""
+    """Device ms of one call of fn: `launches` calls captured in a CUDA
+    graph, replayed between two events (median of 5), so that the host's
+    launch time is not counted."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -306,12 +200,9 @@ def rq_bound_ms(b, d, n_levels, k):
 def seed_codebooks_(vae, feats, generator):
     """k-means codebooks, level by level, as the stage-1 trainer's k-means
     init sets them: K distinct seeded items' residuals, then KMEANS_ITERS
-    Lloyd steps (an empty cluster keeps its code). Seeding alone leaves
-    random weights' codes crowded (without normalization the few codes of
-    least norm win most rows, and most ML-32M rows repeat a tuple); the
-    Lloyd steps spread the corpus over the ID space, so the audit's
-    collapse guard has a low recorded repetition rate to hold the rebuilt
-    table to."""
+    Lloyd steps (an empty cluster keeps its code), so that the corpus
+    spreads over the ID space and the audit's collapse guard has a low
+    recorded repetition rate to hold the rebuilt table to."""
     with torch.no_grad(), full_fp32():
         enc = vae.encode(feats)
         for q in vae.layers:
@@ -433,8 +324,7 @@ def card_phase():
         capture_output=True, text=True, timeout=30, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
-          flush=True)
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return smi
 
 
@@ -447,9 +337,9 @@ def build_phase():
         futures = [(name, pool.submit(mod.build)) for name, mod in modules]
         built = [(name, f.result()) for name, f in futures]
     for name, lib in built:
-        print(f"{name} built in {lib.build_s:.2f} s -> {lib.path.name}", flush=True)
+        print(f"{name} built in {lib.build_s:.2f} s -> {lib.path.name}")
         for line in ptxas_report(lib.log):
-            print(f"  ptxas: {line}", flush=True)
+            print(f"  ptxas: {line}")
     return built
 
 
@@ -482,12 +372,9 @@ def duplicate_codes_(x, cbs, generator):
 @phase("kernel")
 def kernel_phase(device):
     """rq_assign against its plain version on every KERNEL_CASES shape and
-    on duplicated codes; times at TIMED_CASES, with how each launch stages
-    its codebooks. Returns the 1M-row record with the main path's launch
-    shape under `at_main_path_launch`, the ML-32M build's two launch shapes
-    under `at_ml32m_launches`, the mining audit's two under
-    `at_mining_launches` and tokenize_features' under
-    `at_tokenize_launch`."""
+    on duplicated codes; times at TIMED_CASES, with each launch's codebook
+    staging. Returns the 1M-row record, with the paths' launch shapes
+    under `at_*` keys."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -505,8 +392,7 @@ def kernel_phase(device):
         qerr = float((qsum - qsum_ref)[agree].abs().max()) if agree.any() else 0.0
         label = f", codes {DUPLICATE_CODES} identical" if dup else ""
         print(f"  B={b} D={d} L={n_levels} K={k}{label}: rows with differing ids {n_diff} "
-              f"(not near ties: {n_bad}), max qsum err on agreeing rows {qerr:.3e}",
-              flush=True)
+              f"(not near ties: {n_bad}), max qsum err on agreeing rows {qerr:.3e}")
         if dup and not ((ids[dup_rows, 0] == DUPLICATE_CODES[0]).all()
                         and torch.isin(ids, ids.new_tensor(DUPLICATE_CODES[1:])).sum() == 0):
             raise AssertionError(f"rq_assign did not pick the first of the identical codes "
@@ -524,13 +410,11 @@ def kernel_phase(device):
             plain_ms = median_ms(lambda: rq.rq_assign_reference(x, cbs))
             bound_ms, bound_by = rq_bound_ms(b, d, n_levels, k)
             plan = rq.staging(d, n_levels, k)
-            print(f"  kernel_ms {ms:.4f} (one call from the host; from a CUDA graph {g_ms:.4f}) "
-                  f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-                  f"{100 * bound_ms / g_ms:.1f} % of it from the graph) at B={b} D={d} "
-                  f"L={n_levels}; codebooks "
-                  f"{'all resident' if plan['resident'] else 'streamed level by level'}, "
-                  f"{plan['warps']} warps, {plan['smem_bytes']} bytes of shared memory",
-                  flush=True)
+            print(f"  kernel_ms {ms:.4f} (a host call; from a CUDA graph {g_ms:.4f}) plain_ms "
+                  f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+                  f"{100 * bound_ms / g_ms:.1f} % of the graph's) at B={b} D={d} L={n_levels}; "
+                  f"codebooks {'resident' if plan['resident'] else 'streamed by level'}, "
+                  f"{plan['warps']} warps, {plan['smem_bytes']} B of shared memory")
             records[b, d, n_levels] = dict(
                 ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=qerr, shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]", **plan)
@@ -554,12 +438,12 @@ def serve_phase(device):
     out = engine.recommend(hist, top_k=10)
     launches = rq.rq_assign.launches
     print(f"  engine built in {build_s:.2f} s; corpus {tuple(engine.corpus_ids.shape)}; "
-          f"rq_assign launches on the main path {launches}", flush=True)
+          f"rq_assign launches on the main path {launches}")
     if launches == 0:
         raise AssertionError("the corpus sweep did not go through the CUDA kernel")
     resolved = check_recommendations(engine, out, cfg["n_items"])
     print(f"  recommend: items {out['items'].shape}, resolved {resolved}, "
-          f"first row {out['items'][0].tolist()}", flush=True)
+          f"first row {out['items'][0].tolist()}")
 
     # The table swept through the kernel against one swept with the plain
     # version on the card: same encoder, same tag heads, plain rq_assign.
@@ -573,7 +457,7 @@ def serve_phase(device):
     tags_equal = bool((got[same, n_l:] == tags_ref[same]).all())
     print(f"  corpus table vs plain sweep: rows differing {n_diff} (not near ties: "
           f"{n_bad}); tags equal on the rest: {tags_equal}; distinct tuples "
-          f"{len(torch.unique(engine.corpus_ids, dim=0))}", flush=True)
+          f"{len(torch.unique(engine.corpus_ids, dim=0))}")
     if n_bad or not tags_equal:
         raise AssertionError("corpus table differs from the plain sweep")
     tok_launches = check_tokenize_features(tok, items, hist)
@@ -583,11 +467,10 @@ def serve_phase(device):
 
 
 def check_tokenize_features(tok, items, hist):
-    """The tokenizer's tokenize_features on the features of the histories
-    `hist` ([B, N] item ids, -1 padded; one rq_assign launch of B * N rows
-    on the card) against its gather from the table: the semantic IDs of
-    every item equal outside near ties of the plain version, the tags equal
-    where they do, -1 at every padded position. Returns the launches."""
+    """tokenize_features of the histories `hist`' features (one rq_assign
+    launch of B * N rows on the card) against the table's gather: IDs equal
+    outside near ties, tags where the IDs are, -1 at padding. Returns the
+    launches."""
     valid = hist >= 0
     x = items[np.where(valid, hist, 0)]
     rq.rq_assign.launches = 0
@@ -612,7 +495,7 @@ def check_tokenize_features(tok, items, hist):
     print(f"  tokenize_features of the {b} x {n} batch ({int(valid.sum())} items, rq_assign "
           f"launches {launches}) against the table's gather: items differing {n_diff} (not "
           f"near ties: {n_bad}); tags equal on the rest: {tags_equal}; padding and mask equal: "
-          f"{padded}", flush=True)
+          f"{padded}")
     want_launches = 1 if dev.type == "cuda" else 0
     if n_bad or not tags_equal or not padded or launches != want_launches:
         raise AssertionError(f"tokenize_features differs from the table's gather (launches "
@@ -630,7 +513,7 @@ def serve_p50(engine, hist):
         lat.append(engine.recommend(hist, top_k=10)["latency_s"] * 1e3)
     p50 = statistics.median(lat)
     print(f"  serve p50 {p50:.2f} ms over {len(lat)} warm calls of {len(hist)} histories "
-          f"(min {min(lat):.2f}, max {max(lat):.2f})", flush=True)
+          f"(min {min(lat):.2f}, max {max(lat):.2f})")
     return p50
 
 
@@ -651,6 +534,28 @@ def plain_sweep(vae, feats, chunk):
     return torch.cat(ids), torch.cat(ties), (torch.cat(tags) if tags else None)
 
 
+def audit_table(name, model, tag_class_counts, feats, device, rep=None):
+    """The trained HiD-VAE's table of `feats` (numpy) through rq_assign
+    against a plain sweep: rows differ at near ties only, and where none
+    differs the repetition rate equals the audit's `rep`. Returns (table,
+    rq_assign launches)."""
+    tok = HSemanticIdTokenizer(model, n_layers=len(model.layers),
+                               codebook_size=model.codebook_size,
+                               tag_class_counts=tag_class_counts, device=device)
+    rq.rq_assign.launches = 0
+    got = tok.precompute_corpus_ids(feats)
+    launches = rq.rq_assign.launches
+    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), tok.corpus_chunk_size)
+    n_diff, n_bad = compare_ids(got, ref, ties)
+    rep_plain = repetition_rate(ref.cpu().numpy())[0]
+    print(f"  {name}: audit table of the trained model: rq_assign launches {launches}; rows "
+          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); repetition "
+          f"{rep_plain:.4f} (the audit recorded {rep})")
+    if n_bad or (rep is not None and n_diff == 0 and rep_plain != rep):
+        raise AssertionError(f"{name}: the audit's table differs from the plain sweep")
+    return got, launches
+
+
 # ---- serving from artifacts -----------------------------------------------
 
 SCORE_ATOL = 1e-5  # scores of an engine rebuilt from artifacts against the in-process one
@@ -669,16 +574,22 @@ def structural_config(cfg):
                 tag_embed_dim=None if tags is None else cfg["tag_embed_dim"])
 
 
-def decoder_gin(text, cfg, folder, **bindings):
-    """The gin `text` with its width keys set to cfg's, dataset_folder to
-    `folder` and each of `bindings` (gin literals) set, replaced where the
-    text binds it and appended where not; every other key as the text has
+def vae_widths(cfg):
+    """cfg's stage-1 encoder and codebook widths as gin bindings."""
+    return {"vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
+            "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"]}
+
+
+def decoder_gin(source, cfg, folder, **bindings):
+    """The gin file `source` with its width keys set to cfg's, dataset_folder
+    to `folder` and each of `bindings` (gin literals) set, replaced where the
+    file binds it and appended where not; every other key as the file has
     it."""
+    with open(source) as f:
+        text = f.read()
     tags = cfg.get("tag_class_counts")
     values = {
-        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
-        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
-        "tag_class_counts": None if tags is None else list(tags),
+        **vae_widths(cfg), "tag_class_counts": None if tags is None else list(tags),
         "tag_embed_dim": cfg.get("tag_embed_dim"), "decoder_embed_dim": cfg["decoder_embed_dim"],
         "attn_embed_dim": cfg["attn_embed_dim"], "attn_heads": cfg["attn_heads"],
         "attn_layers": cfg["attn_layers"], "dataset_folder": f'"{folder}"', **bindings,
@@ -694,18 +605,16 @@ def decoder_gin(text, cfg, folder, **bindings):
     return "\n".join(lines) + "\n"
 
 
-def write_artifacts(root, gin_text, cfg, vae, model, feats, hist, sem_table):
-    """Under `root`: the decoder gin, a processed dataset of the features
-    `feats` and the histories `hist` where the gin's dataset is read from,
-    and exported checkpoints of `vae` and `model`. The stage-1 meta records
-    every structural value and the repetition rate of the semantic table
-    `sem_table` (so the engine's collapse guard is live), the stage-2 meta
-    the decoder's geometry, as the JAX trainers record them. Returns
+def write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table):
+    """Under `root`: the decoder gin, the processed dataset it reads (`feats`,
+    `hist`) and exported checkpoints of `vae` and `model`, with the metas
+    the JAX trainers record (stage 1: every structural value and the
+    repetition rate of `sem_table`, so the collapse guard is live). Returns
     (gin path, stage-1 dir, stage-2 dir, recorded repetition rate)."""
     os.makedirs(root)
     gin = os.path.join(root, "decoder.gin")
     with open(gin, "w") as f:
-        f.write(decoder_gin(gin_text, cfg, root))
+        f.write(decoder_gin(gin_source, cfg, root))
     train = parse_gin_file(gin)["train"]
     path = processed_path(root, train["dataset"], train.get("dataset_split", "beauty"))
     os.makedirs(os.path.dirname(path))
@@ -733,13 +642,12 @@ def save_decoder_export(path, cfg, model):
     }, "metrics": {}})
 
 
-def serve_from_artifacts(name, root, gin_text, cfg, vae, model, feats, hist, sem_table,
+def serve_from_artifacts(name, root, gin_source, cfg, vae, model, feats, hist, sem_table,
                          device):
-    """Write the artifacts, then build an engine with
-    `RetrievalEngine.from_artifacts` on `device`, the launch counts set to 0
-    just before and read just after; on the card the sweep must launch
-    rq_assign once per 8,192-row chunk. Returns (engine, launches)."""
-    gin, s1, s2, rep = write_artifacts(root, gin_text, cfg, vae, model, feats, hist, sem_table)
+    """Write the artifacts and build an engine with `from_artifacts`, the
+    launch counts set to 0 just before: on the card one rq_assign launch
+    per 8,192-row chunk. Returns (engine, launches)."""
+    gin, s1, s2, rep = write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table)
     rq.rq_assign.launches = 0
     t0 = time.perf_counter()
     engine = RetrievalEngine.from_artifacts(gin, s1, s2, device=device,
@@ -747,11 +655,10 @@ def serve_from_artifacts(name, root, gin_text, cfg, vae, model, feats, hist, sem
     seconds = time.perf_counter() - t0  # the build ends in a synchronize
     launches = rq.rq_assign.launches
     bt = engine.build_times
-    print(f"  {name}: from_artifacts {seconds:.3f} s end to end (load {bt['load_s']:.3f} s: "
-          f"gin, .npz, both models and their weights; table build {bt['table_s']:.3f} s; "
-          f"prefix index and tries {bt['index_s']:.3f} s); corpus "
+    print(f"  {name}: from_artifacts {seconds:.3f} s (load {bt['load_s']:.3f}, table "
+          f"{bt['table_s']:.3f}, prefix index and tries {bt['index_s']:.3f}); corpus "
           f"{tuple(engine.corpus_ids.shape)}; rq_assign launches {launches}; recorded "
-          f"repetition rate {rep:.4f}", flush=True)
+          f"repetition rate {rep:.4f}")
     want = (math.ceil(cfg["n_items"] / engine.tokenizer.corpus_chunk_size)
             if device.type == "cuda" else 0)
     if launches != want:
@@ -770,18 +677,17 @@ def check_same_engine(name, got, want, hist):
     same = (a["items"] == b["items"]).all() and (a["sem_ids"] == b["sem_ids"]).all()
     print(f"  {name}: table equal to the in-process engine's; {len(hist)} histories: items "
           f"and ID tuples equal {bool(same)}, max score difference {err:.3e} "
-          f"(tolerance {SCORE_ATOL})", flush=True)
+          f"(tolerance {SCORE_ATOL})")
     if not same or err > SCORE_ATOL:
         raise AssertionError(f"{name}: the engine from artifacts serves differently")
 
 
 @phase("artifacts")
 def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
-    """`from_artifacts` on both tokenizer routes: (a) the serve phase's
-    engine (H route, concatenated layout) written out and rebuilt, held
-    equal to itself; (b) a seeded plain RQ-VAE at `ml32m`'s widths, its
-    table held against a plain sweep outside near ties and its
-    recommendations resolved. Returns the rq_assign launches of each build."""
+    """`from_artifacts` on both tokenizer routes: the serve phase's engine
+    written out and rebuilt, held equal to itself; a seeded plain RQ-VAE
+    at `ml32m`'s widths, its table held to a plain sweep. Returns the
+    rq_assign launches of each build."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tok = engine.tokenizer
@@ -804,14 +710,13 @@ def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
             feats.numpy(), ml_hist, sem_ref.cpu().numpy(), device)
         n_diff, n_bad = compare_ids(rebuilt.corpus_ids, sem_ref, ties)
         print(f"  ml32m: table vs plain sweep: rows differing {n_diff} (not near ties: "
-              f"{n_bad}); distinct tuples {len(torch.unique(rebuilt.corpus_ids, dim=0))}",
-              flush=True)
+              f"{n_bad}); distinct tuples {len(torch.unique(rebuilt.corpus_ids, dim=0))}")
         if n_bad:
             raise AssertionError("ml32m: the table from artifacts differs from the plain sweep")
         out = rebuilt.recommend(ml_hist, top_k=10)
         resolved = check_recommendations(rebuilt, out, cfg["n_items"])
         print(f"  ml32m: recommend {out['items'].shape}, resolved {resolved}, first row "
-              f"{out['items'][0].tolist()}", flush=True)
+              f"{out['items'][0].tolist()}")
         serve_p50(rebuilt, ml_hist)
     return launches
 
@@ -859,10 +764,9 @@ def keyless_segments(b, n, device, generator):
 def flash_bounds_ms(b, h, n, itemsize):
     """Least time of each flash kernel at [b, h, n, 64] with `itemsize`-byte
     inputs on an H100 SXM: (ms, bound_by) per kernel. Operations: 2*b*h*n^2*64
-    per product, two products in the forward, four for dK/dV (S, dP, dV, dK),
-    three for dQ (S, dP, dQ), over the type's peak; bytes: each input read
-    once and each output written once: the row statistics m and l (the
-    backward reads m and 1/l) and di are 4 bytes a row each."""
+    per product (forward 2, dK/dV 4, dQ 3) over the type's peak; bytes: each
+    input read once and each output written once (m, l and di 4 bytes a
+    row)."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
     mat = b * h * n * FLASH_HEAD_DIM * itemsize
@@ -906,10 +810,9 @@ FLASH_CAUSAL_KEYLESS_CHECKS = tuple(
 
 def check_flash(device, g, checks):
     """O, dQ, dK and dV of the flash kernels against the plain version (fp32
-    autograd) under a nonzero cotangent, at H 8, N 2432, for each
-    (B, Dh, dtype, causal, keyless rows) of `checks`, inputs drawn from
-    generator g; raises on an error above FLASH_RTOL. Returns the largest
-    error of each kernel."""
+    autograd) under a nonzero cotangent, at H 8, N 2432, per (B, Dh, dtype,
+    causal, keyless rows) of `checks`; raises above FLASH_RTOL. Returns each
+    kernel's largest error."""
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     errs = {name: 0.0 for name in FLASH_REPLACES}
     for cb, dh, dtype, causal, keyless in checks:
@@ -945,7 +848,7 @@ def check_flash(device, g, checks):
         else:
             rows = ""
         print(f"  B={cb} H={h} N={n} Dh={dh} {str(dtype)[6:]} causal={causal}{rows}: "
-              + ", ".join(line), flush=True)
+              + ", ".join(line))
         del q, k, v, do, qg, kg, vg, out, got, qr, kr, vr, ref, want
     return errs
 
@@ -967,12 +870,10 @@ def flash_kernel_ms(q, k, v, do, seg, causal, scale):
 
 @phase("flash")
 def flash_phase(device):
-    """The three flash kernels' times at B = 64 (the trainer's case, not
-    causal, beside the plain version's, scaled_dot_product_attention's
-    (forward, backward alone, both) and the bounds; and causal), then the
-    kernels against their plain version at the encoder's long-run shape (and
-    at head width 128, and on segments that leave query rows with no key of
-    their own, causal and not, under a nonzero cotangent)."""
+    """The three flash kernels' times at B = 64 (not causal and causal)
+    beside the plain version, SDPA and the bounds; then the kernels against
+    their plain version at the long run's shape, at head width 128 and on
+    segments that leave query rows keyless, under a nonzero cotangent."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     scale = FLASH_HEAD_DIM ** -0.5
@@ -983,7 +884,7 @@ def flash_phase(device):
     ms = flash_kernel_ms(q, k, v, do, seg, False, scale)
     causal_ms = flash_kernel_ms(q, k, v, do, seg, True, scale)
     print("  causal, same inputs: " + ", ".join(f"{name} {t:.4f} ms"
-                                              for name, t in causal_ms.items()), flush=True)
+                                              for name, t in causal_ms.items()))
     o, m, l = fa.flash_fwd(q, k, v, seg, seg, False, scale)
     di = torch.sum(o.float() * do.float(), dim=-1)
     args = (seg, seg)
@@ -1026,17 +927,16 @@ def flash_phase(device):
     for name in FLASH_REPLACES:
         print(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms "
               f"(in chunks of {c}), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
-              f"at B={b} H={h} N={n} bf16", flush=True)
-    print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; "
-          f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, backward alone "
-          f"{sdpa_bwd_ms:.4f} ms (dQ, dK, dV; kernels dK/dV + dQ "
+              f"at B={b} H={h} N={n} bf16")
+    print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; SDPA "
+          f"forward {sdpa_ms:.4f} ms, backward alone {sdpa_bwd_ms:.4f} ms (kernels dK/dV + dQ "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), forward + backward "
-          f"{sdpa_fwd_bwd_ms:.4f} ms (yardstick only: the port never calls it)", flush=True)
+          f"{sdpa_fwd_bwd_ms:.4f} ms (a yardstick: the port never calls it)")
     dq_ms, dq_bound = ms["flash_bwd_dq"], bounds["flash_bwd_dq"][0]
     print(f"  flash_bwd_dq on tensor cores: {dq_ms:.4f} ms against its bound {dq_bound:.4f} ms "
           f"({100 * dq_bound / dq_ms:.1f} % of it); scaled_dot_product_attention's backward "
           f"alone {sdpa_bwd_ms:.4f} ms; the FFMA dQ it replaced {FLASH_DQ_FFMA_MS:.4f} ms "
-          f"(PERF.md, NVIDIA H100 80GB HBM3, 700 W)", flush=True)
+          f"(PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
     del o, m, l, di, qg, kg, vg
     errs = check_flash(device, g, FLASH_CHECKS + FLASH_CAUSAL_KEYLESS_CHECKS)
     records = {}
@@ -1078,9 +978,9 @@ def kernel_launches():
 
 def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log=print):
     """The port's trainer at cfg's widths on seeded histories of
-    `max_seq_len` items, EVAL_BATCHES eval batches at the end. Launch counts are set to
-    0 just before and returned from just after. Returns (result, launches,
-    (users, items, fut))."""
+    `max_seq_len` items, EVAL_BATCHES eval batches at the end, the launch
+    counts set to 0 just before. Returns (result, launches, (users, items,
+    fut))."""
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     rq.rq_assign.launches = 0
     fa.reset_launches()
@@ -1147,7 +1047,7 @@ def train_phase(device, flash_ms_per_layer):
     for name, max_seq_len, batch, steps in TRAIN_RUNS:
         t0 = time.perf_counter()
         result, launches, data = train_run(cfg, vae, feats, device, max_seq_len, batch, steps,
-                                           log=lambda line: print(f"  {line}", flush=True))
+                                           log=lambda line: print(f"  {line}"))
         context = 1 + max_seq_len * result["tokenizer"].sem_ids_dim  # user + history tokens
         flash = context >= FLASH_MIN_TOKENS
         check_train_run(name, result, launches, steps, n_encoder_layers=n_enc, flash=flash)
@@ -1156,17 +1056,17 @@ def train_phase(device, flash_ms_per_layer):
         print(f"  {name} run: max_seq_len {max_seq_len}, batch {batch}, {steps} steps in "
               f"{time.perf_counter() - t0:.2f} s; median {step_ms:.2f} ms/step after the first "
               f"({hist['ms_per_step'][0]:.2f} ms); eval loss {hist['eval_loss'][-1]:.4f}; "
-              f"launches {launches}", flush=True)
+              f"launches {launches}")
         if flash:
             share = n_enc * flash_ms_per_layer / step_ms
             print(f"  {name} run: flash kernels {n_enc * flash_ms_per_layer:.2f} ms of a "
                   f"{step_ms:.2f} ms step ({100 * share:.1f} %, from the flash phase's "
-                  f"per-kernel times)", flush=True)
+                  f"per-kernel times)")
         runs[name] = (result, launches, data, batch)
     for name, (result, launches, data, batch) in runs.items():
         before, after = fixed_batch_descent(result, data, batch, FIXED_STEPS)
         print(f"  {name} run: fixed batch of {batch}, eval loss {before:.4f} -> {after:.4f} "
-              f"after {FIXED_STEPS} steps", flush=True)
+              f"after {FIXED_STEPS} steps")
         if not (np.isfinite(after) and after < before):
             raise AssertionError(f"{name} run: steps on a fixed batch did not lower its loss")
     return runs["long"][1], vae, feats
@@ -1174,7 +1074,6 @@ def train_phase(device, flash_ms_per_layer):
 
 # ---- the stage-1 trainer from its gin entry ----------------------------------
 
-CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 H_RQVAE_AMAZON_GIN = os.path.join(CONFIGS, "h_rqvae_amazon.gin")
 STAGE1_N = 4              # mini-steps between evals, audits and saves: the run takes 2N
 STAGE1_EVAL_BATCHES = 2   # eval batches of 128 items
@@ -1185,11 +1084,10 @@ STAGE1_SETTINGS = (("gin", 128, 2), ("batch256", 256, 1))
 
 
 def write_stage1_inputs(root, cfg, feats, seed=SEED):
-    """Under `root`: the processed Amazon dataset the gin reads (the items
-    `feats`, 95 % of them in the train split, with seeded tags of
-    cfg["tag_class_counts"] classes per level whose class sizes fall off as
-    a power law, so the rarest fall under the rare-tag threshold, and a
-    seeded tag-embedding table per level). Returns the dataset path."""
+    """Under `root`: the processed Amazon dataset the gin reads: the items
+    `feats` (95 % train) with seeded power-law tags of cfg["tag_class_counts"]
+    classes per level (the rarest under the rare-tag threshold) and a seeded
+    tag embedding per class. Returns the dataset path."""
     rng = np.random.RandomState(seed + 31)
     n = len(feats)
     idx, emb = [], []
@@ -1206,10 +1104,9 @@ def write_stage1_inputs(root, cfg, feats, seed=SEED):
 
 
 def cut_gin(source, path, values, show=False):
-    """Write `path`: the gin file `source` as the checkout holds it, line by
-    line, with each key of `values` (gin literals) set where the file binds
-    it and appended where it does not. With `show`, print each cut: the
-    file's value and the run's, where they differ. Returns `path`."""
+    """Write `path`: the gin file `source` line by line, each key of `values`
+    (gin literals) set where the file binds it, appended where not; `show`
+    prints each cut that differs. Returns `path`."""
     with open(source) as f:
         text = f.read()
     lines, bound, cuts = [], set(), []
@@ -1227,52 +1124,56 @@ def cut_gin(source, path, values, show=False):
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     if show:
-        print(f"  {os.path.basename(source)} cut for this run: " + "; ".join(cuts), flush=True)
+        print(f"  {os.path.basename(source)} cut for this run: " + "; ".join(cuts))
     return path
 
 
 def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
-    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin cut
-    line by line to cfg's widths, reading root's dataset, with iterations
-    for `mini_steps` mini-steps, evals, audits and saves every n
-    mini-steps, STAGE1_EVAL_BATCHES eval batches and `bindings`."""
+    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin cut to
+    cfg's widths, root's dataset, `mini_steps` mini-steps with evals,
+    audits and saves every n, and `bindings`."""
     accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
     values = {
         "iterations": mini_steps // accumulate, "save_model_every": n, "eval_every": n,
-        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
-        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
-        "tag_class_counts": list(cfg["tag_class_counts"]), "tag_embed_dim": cfg["tag_embed_dim"],
+        **vae_widths(cfg), "tag_class_counts": list(cfg["tag_class_counts"]),
+        "tag_embed_dim": cfg["tag_embed_dim"],
         "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
         "eval_batches": STAGE1_EVAL_BATCHES, **bindings,
     }
     return cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, f"h_rqvae_{mini_steps}.gin"), values)
 
 
-def check_stage1_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, evals and audits where the cadence puts them, `latest` saved
-    with the structural model_config and the audit's repetition rate, finite
-    losses, tag counts remapped, rq_assign 3 times per audit on the card
-    (18,357 items in chunks of 8,192) and no flash kernel."""
+def check_run(name, result, launches, steps, evals, device, n_items, saves=None):
+    """Steps and evals (each with an audit) where the cadence puts them, the
+    saves `saves` (basenames; None: a `latest`), finite losses, rq_assign
+    once per 8,192 items per audit on the card and no flash kernel. Returns
+    the last save (None: the last `latest`)."""
     hist = result["history"]
-    latest = [p for p in result["saved_paths"] if os.path.basename(p) == "latest"]
-    if result["step"] != steps or hist["eval_iterations"] != evals or not latest:
+    got = [os.path.basename(p) for p in result["saved_paths"]]
+    if (result["step"] != steps or hist["eval_iterations"] != evals
+            or (got != saves if saves else "latest" not in got)):
         raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
-                             f"saves {result['saved_paths']}; expected {steps}, {evals}")
+                             f"saves {got}; expected {steps}, {evals}, {saves or 'latest'}")
     if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
         raise AssertionError(f"{name}: losses not finite")
-    with open(os.path.join(latest[-1], "meta.json")) as f:
+    want = {"rq_assign": math.ceil(n_items / 8192) * len(evals) if device.type == "cuda" else 0,
+            **{fn.__name__: 0 for fn in fa.KERNELS}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    return [p for p in result["saved_paths"] if saves or os.path.basename(p) == "latest"][-1]
+
+
+def check_stage1_run(name, result, launches, steps, evals, device, n_items):
+    """check_run, and `latest`'s meta holding the model_config and the
+    audit's repetition rate. Returns that rate."""
+    latest = check_run(name, result, launches, steps, evals, device, n_items)
+    with open(os.path.join(latest, "meta.json")) as f:
         meta = json.load(f)
     rep = meta.get("metrics", {}).get("repetition_rate")
     if rep is None or meta.get("model_config", {}).get("tag_class_counts") != \
             list(result["tag_class_counts"]):
         raise AssertionError(f"{name}: latest's meta lacks the model_config or the audit: {meta}")
-    chunks = math.ceil(n_items / 8192)
-    want = {"rq_assign": chunks * len(evals) if device.type == "cuda" else 0,
-            **{fn.__name__: 0 for fn in fa.KERNELS}}
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, expected {want}")
     return rep
-
 
 def device_busy(run, device):
     """Kernels `run()` puts on the device and the length of the union of
@@ -1291,11 +1192,10 @@ def device_busy(run, device):
 
 
 def time_updates(name, update, batch, accumulate, device, timed):
-    """Items per second of `update()` (`accumulate` mini-steps of `batch`
-    items): host clock around each update, which ends in a synchronize; the
-    median over timed[1] updates after timed[0] warm-up ones. On the card
-    one more update is traced for its kernel launches and device busy time.
-    Prints and returns the record."""
+    """Items per second of `update()` (`accumulate` mini-steps of `batch`):
+    the host clock around each update, which ends in a synchronize, median
+    of timed[1] after timed[0] warm-ups; on the card one more update traced
+    for its kernels and busy time. Prints and returns the record."""
     times = []
     for _ in range(sum(timed)):
         if device.type == "cuda":
@@ -1309,11 +1209,10 @@ def time_updates(name, update, batch, accumulate, device, timed):
     launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
     busy_note = ("" if busy is None else f"; traced update: {launches} kernels, device busy "
                  f"{busy:.2f} ms ({100 * busy / (t * 1e3):.1f} % of the median update)")
-    print(f"  throughput {name}: batch {batch} x {accumulate} mini-steps per update, "
-          f"median {t * 1e3:.2f} ms per update over {timed[1]} after {timed[0]} warm-up "
-          f"(min {min(times[timed[0]:]) * 1e3:.2f}, max {max(times[timed[0]:]) * 1e3:.2f}; "
-          f"{t * 1e3 / accumulate:.2f} ms per mini-step): {batch * accumulate / t:.0f} "
-          f"items/s{busy_note}", flush=True)
+    print(f"  throughput {name}: batch {batch} x {accumulate}, median {t * 1e3:.2f} ms per "
+          f"update of {timed[1]} after {timed[0]} (min {min(times[timed[0]:]) * 1e3:.2f}, max "
+          f"{max(times[timed[0]:]) * 1e3:.2f}; {t * 1e3 / accumulate:.2f} ms per mini-step): "
+          f"{batch * accumulate / t:.0f} items/s{busy_note}")
     return dict(batch=batch, accumulate=accumulate, items_per_s=batch * accumulate / t,
                 ms_per_update=t * 1e3, ms_per_mini_step=t * 1e3 / accumulate,
                 kernels_per_update=launches, device_busy_ms=busy)
@@ -1321,10 +1220,9 @@ def time_updates(name, update, batch, accumulate, device, timed):
 
 def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE1_TIMED,
                       seed=SEED):
-    """Stage-1 items per second of the trained model on its device corpus
-    under the optimizer that `train` builds from the bindings `gin` (the
-    setting's accumulation in place of the gin's), per setting, with the
-    run's mined pair rows (`time_updates`)."""
+    """Items/s of the trained model per setting, under the optimizer `train`
+    builds from the bindings `gin` (the setting's accumulation), with the
+    run's mined pair rows."""
     from hidvae_tpu_torch.train import hidvae as s1
 
     model, data, n_pairs = result["model"], result["data"], result["n_pair_rows"]
@@ -1349,19 +1247,17 @@ def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE
 @phase("stage1")
 def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SETTINGS,
                  timed=STAGE1_TIMED, **bindings):
-    """The stage-1 trainer from its gin entry (scripts/torch_train_hidvae.py)
-    at cfg's widths on a processed Amazon dataset written under `root`: 2N
-    mini-steps with evals, corpus audits and saves at N and 2N; N, then a
-    resume for N more, held to the uninterrupted run; the audit's rq_assign
-    table held to a plain sweep of the trained model; throughput at the
-    gin's batch and accumulation and at one batch of 256. Returns (the 2N
-    run's `latest`, the record)."""
+    """The stage-1 entry (scripts/torch_train_hidvae.py) at cfg's widths on
+    an Amazon dataset written under `root`: 2N mini-steps with evals,
+    audits and saves at N and 2N; N plus a resumed N, held to it; the
+    audit's table held to a plain sweep; throughput per setting. Returns
+    (the 2N run's `latest`, the record)."""
     script = load_script("torch_train_hidvae")
     feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
     n_items = len(feats_np)
     path = write_stage1_inputs(root, cfg, feats_np)
     print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
-          f"tags of {list(cfg['tag_class_counts'])} classes)", flush=True)
+          f"tags of {list(cfg['tag_class_counts'])} classes)")
     gin_2n = stage1_gin(root, cfg, 2 * n, n, **bindings)
     gin_n = stage1_gin(root, cfg, n, n, **bindings)
     full, launches, seconds = run_trainer_entry(script, device, gin_2n)
@@ -1370,7 +1266,7 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
     print(f"  2N run ({2 * n} mini-steps) in {seconds:.2f} s: loss {hist['total_loss']}, eval "
           f"loss {hist['eval_total_loss']}, tag_class_counts {full['tag_class_counts']} (from "
           f"{list(cfg['tag_class_counts'])}), repetition {hist['repetition_rate']}, rare tags "
-          f"{[len(v) for v in full['rare_tags'].values()]}; launches {launches}", flush=True)
+          f"{[len(v) for v in full['rare_tags'].values()]}; launches {launches}")
     rare = os.path.join(root, "runs", "special_tags_files", "rare_tags.npz")
     if not os.path.exists(rare) or list(full["tag_class_counts"]) == list(cfg["tag_class_counts"]):
         raise AssertionError("stage1: the rare-tag remap did not run or wrote no rare_tags.npz")
@@ -1384,22 +1280,9 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
     gaps = check_resume(full, half, resumed, 2 * n,
                         updates=2 * n // gin["gradient_accumulate_every"], stats=True)
 
-    # The trained model's corpus table through rq_assign against a plain sweep.
     model = full["model"]
-    tok = HSemanticIdTokenizer(model, n_layers=cfg["n_layers"],
-                               codebook_size=cfg["codebook_size"],
-                               tag_class_counts=full["tag_class_counts"], device=device)
-    rq.rq_assign.launches = 0
-    got = tok.precompute_corpus_ids(feats_np)
-    table_launches = rq.rq_assign.launches
-    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats_np).to(device), tok.corpus_chunk_size)
-    n_diff, n_bad = compare_ids(got, ref, ties)
-    rep_plain = repetition_rate(ref.cpu().numpy())[0]
-    print(f"  audit table of the trained model: rq_assign launches {table_launches}; rows "
-          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); repetition "
-          f"{rep_plain:.4f} (the last audit recorded {rep:.4f})", flush=True)
-    if n_bad or (n_diff == 0 and rep_plain != rep):
-        raise AssertionError("stage1: the audit's table differs from the plain sweep")
+    _, table_launches = audit_table("stage1", model, full["tag_class_counts"], feats_np, device,
+                                    rep)
 
     throughput = stage1_throughput(full, gin, device, settings, timed)
     latest = [p for p in full["saved_paths"] if os.path.basename(p) == "latest"][-1]
@@ -1407,7 +1290,7 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
                             "resume": launches_resume["rq_assign"], "table": table_launches},
                   resume_gaps=gaps, throughput=throughput, repetition_rate=rep,
                   tag_class_counts=list(full["tag_class_counts"]))
-    del full, half, resumed, model, tok
+    del full, half, resumed, model
     return latest, record
 
 
@@ -1416,16 +1299,14 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
 TRAINER_N = 5             # steps between evals and saves: the run takes 2N, the resume N + N
 TRAINER_SPLITS = (2048, 300, 300)  # train, eval and test histories in the written dataset
 TRAINER_EVAL_BATCHES = 2  # eval batches of 256: the second holds 44 rows, padded
-# The resumed run against the uninterrupted one: the same steps on the same
-# batches, apart in the order of the backward's atomic adds only (fp32
-# rounding, carried through N bf16 steps). Gaps in L2 norm: params over the
-# last N steps' update, each Adam moment over its own norm. A resume that
-# lost the moments or the counts misses by tens of percent.
+# A resumed run against the uninterrupted one differs in the order of atomic
+# adds only. L2 gaps: params over the last N steps' update, each Adam moment
+# over its own norm; a resume that lost the moments or counts misses by tens
+# of percent.
 RESUME_RTOL = 1e-2
-# remat against no remat on the flash route, one seed, dropout on: the
-# recompute replays the forward's masks and kernels, so the runs differ in
-# the order of atomic adds only: losses relative, params as a gap over the
-# two steps' update (L2).
+# remat against no remat (flash route, one seed, dropout on): the recompute
+# replays masks and kernels; losses relative, params as an L2 gap over the
+# update.
 REMAT_LOSS_RTOL = 1e-3
 REMAT_PARAM_RTOL = 1e-2
 REMAT_RUN = (400, 64, 2)  # history items, batch, steps: 2,401 tokens, the flash route
@@ -1443,10 +1324,9 @@ def load_script(name):
 
 
 def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
-    """Under `root`: a processed dataset of the items `feats` (numpy) with
-    seeded train, eval and test histories of cfg["max_seq_len"] items.
-    Returns (dataset path, the test histories, the repetition rate that the
-    stage-1 checkpoint `stage1` recorded)."""
+    """Under `root`: a processed dataset of `feats` with seeded train, eval
+    and test histories. Returns (path, test histories, the repetition rate
+    `stage1` recorded)."""
     os.makedirs(root)
     n_items = len(feats)
     users, items, fut = seeded_sequences(n_items, sum(splits), cfg["max_seq_len"], SEED + 21)
@@ -1465,10 +1345,9 @@ def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
 
 
 def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
-    """Write root/decoder_<iterations>.gin: every key of
-    configs/decoder_amazon.gin at cfg's widths, reading root's dataset and
-    stage-1 export, with the run's iterations, a cadence of n steps for
-    evals and saves, TRAINER_EVAL_BATCHES eval batches and `bindings`."""
+    """Write root/decoder_<iterations>.gin: configs/decoder_amazon.gin at
+    cfg's widths on root's dataset and stage-1 export, evals and saves every
+    n steps, and `bindings`."""
     path = os.path.join(root, f"decoder_{iterations}.gin")
     with open(path, "w") as f:
         f.write(decoder_gin(
@@ -1493,11 +1372,9 @@ def run_trainer_entry(script, device, *argv):
 
 
 def check_trainer_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, saves and evals where the cadence puts them; hit@10 and
-    NDCG@10 of the whole tuple finite in [0, 1]; rq_assign launched by the
-    trainer's start (once per 8,192-row chunk on the card), no flash kernel
-    (20-item histories take the dense path). Returns (hit@10, ndcg@10) of
-    the TEST eval."""
+    """Steps, saves and evals where the cadence puts them; hit@10 and NDCG@10
+    finite in [0, 1]; rq_assign once per 8,192-row chunk at the start on
+    the card, no flash kernel. Returns the TEST eval's (hit@10, ndcg@10)."""
     hist = result["history"]
     d = result["tokenizer"].sem_ids_dim
     want_saves = [f"checkpoint_{it}" for it in evals]
@@ -1550,7 +1427,7 @@ def check_resume(full, half, resumed, steps, updates=None, stats=False):
           + "; ".join(f"{k} gap {g:.3e} (largest |difference| {w:.3e})"
                       for k, (g, w) in gaps.items())
           + f" (tolerance {RESUME_RTOL}: params over the last N steps' update, moments and "
-            f"statistics over their norm)", flush=True)
+            f"statistics over their norm)")
     updates = steps if updates is None else updates
     if resumed["step"] != steps or set(counts.values()) != {updates}:
         raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected "
@@ -1562,11 +1439,9 @@ def check_resume(full, half, resumed, steps, updates=None, stats=False):
 
 
 def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
-    """The long-history run (flash route at cfg's widths) with and without
-    remat from one seed, dropout on: losses, updated params, the flash
-    launches (forward 2x per encoder layer and step under remat, 1x
-    without; dK/dV and dQ 1x) and each run's peak device memory above what
-    was allocated before it."""
+    """The long-history run (flash route) with and without remat from one
+    seed, dropout on: losses, params, flash launches (the forward twice
+    per layer and step under remat) and each run's peak memory."""
     max_seq_len, batch, steps = run
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     n_enc = cfg["attn_layers"] // 2
@@ -1614,12 +1489,11 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
     update = {k: plain["params"][k] - init[k] for k in init}
     gap, worst = relative_gap(remat["params"], plain["params"], update)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(remat["loss"], plain["loss"]))
-    print(f"  remat: losses {remat['loss']} against {plain['loss']} (largest relative "
-          f"difference {loss_err:.3e}, tolerance {REMAT_LOSS_RTOL}); params gap {gap:.3e} of the "
-          f"update (largest |difference| {worst:.3e}, tolerance {REMAT_PARAM_RTOL}); "
-          f"flash launches {remat['launches']} against {plain['launches']}; peak device memory "
-          f"above the run's start {remat['peak_gib']} GiB against {plain['peak_gib']} GiB; "
-          f"ms per step {remat['ms']} against {plain['ms']}", flush=True)
+    print(f"  remat against plain: losses {remat['loss']} / {plain['loss']} ({loss_err:.3e}, "
+          f"tolerance {REMAT_LOSS_RTOL}); params gap {gap:.3e} of the update (largest "
+          f"{worst:.3e}, tolerance {REMAT_PARAM_RTOL}); flash launches {remat['launches']} / "
+          f"{plain['launches']}; peak memory above the start {remat['peak_gib']} / "
+          f"{plain['peak_gib']} GiB; ms per step {remat['ms']} / {plain['ms']}")
     if not (loss_err <= REMAT_LOSS_RTOL and gap <= REMAT_PARAM_RTOL):
         raise AssertionError(f"remat: the run differs from the plain one (losses {loss_err:.3e}, "
                              f"params {gap:.3e})")
@@ -1631,14 +1505,11 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
 @phase("trainer")
 def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
                   remat_run=REMAT_RUN, **bindings):
-    """The stage-2 trainer from its gin entry (scripts/torch_train_transformer.py)
-    at cfg's widths, on a processed dataset written into a temporary
-    directory and the stage-1 phase's checkpoint `stage1`: 2N steps (full
-    evals and saves at N and 2N, the TEST eval at the end); N steps, then a
-    resume for N more, held to the uninterrupted run; the saved decoder
-    served by `from_artifacts`, held to an engine over the trained model;
-    remat on the flash route, with the seeded HiD-VAE `vae`.
-    `bindings` are gin literals set on top (smaller runs off the card).
+    """The stage-2 entry (scripts/torch_train_transformer.py) at cfg's widths
+    on a written dataset and the stage1 phase's checkpoint: 2N steps (full
+    evals and saves at N and 2N, the TEST eval); N plus a resumed N, held to
+    it; the saved decoder served by `from_artifacts`, held to the trained
+    model; remat on the flash route. `bindings`: gin literals on top.
     Returns the launch counts and numbers of each part."""
     script = load_script("torch_train_transformer")
     feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
@@ -1649,7 +1520,7 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         data_path, test_hist, rep = write_trainer_inputs(root, cfg, feats_np, stage1, splits)
         print(f"  wrote {os.path.getsize(data_path) / 2**20:.1f} MiB of processed data "
               f"({n_items} items, {splits} histories); stage-1 checkpoint {stage1} (recorded "
-              f"repetition rate {rep:.4f})", flush=True)
+              f"repetition rate {rep:.4f})")
         gin_2n = trainer_gin(root, cfg, stage1, 2 * n, n, **bindings)
         gin_n = trainer_gin(root, cfg, stage1, n, n, **bindings)
         batch = parse_gin_file(gin_2n)["train"]["batch_size"]
@@ -1670,7 +1541,7 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
               f"{last[f'ndcg@10_slice_:{d}']:.4f} at {2 * n} (first digit hit@10 "
               f"{last['h@10_slice_:1']:.4f}), TEST {test_scores[0]:.4f} / "
               f"{test_scores[1]:.4f}; checkpoints of {ckpt_bytes / 2**20:.1f} MiB in "
-              f"{[round(s, 3) for s in hist['save_seconds']]} s; launches {launches}", flush=True)
+              f"{[round(s, 3) for s in hist['save_seconds']]} s; launches {launches}")
         record["full"] = dict(launches=launches, step_ms=step_ms, eval_s_per_batch=eval_s,
                               ckpt_bytes=ckpt_bytes, save_s=hist["save_seconds"])
 
@@ -1679,7 +1550,7 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         resumed, launches_resume, seconds = run_trainer_entry(
             script, device, gin_n, "--resume", half["saved_paths"][-1])
         check_trainer_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
-        print(f"  N run launches {launches_half}; resume launches {launches_resume}", flush=True)
+        print(f"  N run launches {launches_half}; resume launches {launches_resume}")
         record["resume"] = dict(launches={"N run": launches_half, "resume": launches_resume},
                                 gaps=check_resume(full, half, resumed, 2 * n))
         del half, resumed
@@ -1695,7 +1566,7 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         resolved = check_recommendations(served, out, n_items)
         print(f"  served checkpoint_{2 * n} with from_artifacts in {serve_s:.3f} s "
               f"(rq_assign launches {serve_launches}); {resolved} of {out['items'].size} "
-              f"recommendations resolved", flush=True)
+              f"recommendations resolved")
         model = full["model"]
         own = trainer.build_model(
             sem_id_dim=model.sem_id_dim, max_seq_len=cfg["max_seq_len"],
@@ -1718,47 +1589,61 @@ MULTI_N = 3               # steps of each multi-rank run (evals and saves at N);
 MULTI_SHORT = (20, 256)   # the bf16 runs: history items, global batch (decoder_amazon.gin's)
 MULTI_LONG = (400, 64, 2)  # long-history DP: history items, global batch, steps (2,401 tokens)
 MULTI_TIMEOUT_S = 600     # the two Gloo ranks' whole run
-# A W-rank run against the one-rank run of the same steps: the same batches,
-# crops and dropout masks (every rank draws the global ones and keeps its
-# rows), the sums in another order (the gradient average over the data
-# ranks, the fp32 partials of the model ranks, other GEMM row counts).
-# The first step's loss (the same params on the same batch) differs by
-# that order only: fp32 runs hold it to MULTI_FIRST_LOSS_RTOL. Later steps
-# carry the difference through AdamW, whose first updates are about
-# lr * sign(g) (an entry whose gradient is within rounding of 0 may move
-# the other way), and a random-weight run's first steps amplify it (the
-# gin run's loss goes 78 -> 107 -> 90): the trajectory is held to the JAX
-# package's own multi-device tolerance (rtol 5e-3, tests/test_parallel.py,
-# the stage-1 trajectory on 8 devices against 1). fp32 params are held as
-# the L2 gap over the run's update (as check_resume holds a resume): a cut
-# leaf left wrong moves it by its share of the update, out_proj (0.6 % of
-# the parameters) by about sqrt(0.006) = 8e-2. In bf16 (the gin's own
-# precision, the train_arrays runs) each rank's weight gradient is also a
-# bf16-rounded sum over its own rows, and the one-rank bf16 GEMMs may reduce
-# in bf16 where the model ranks sum fp32 partials: bf16 runs are held on
+# A W-rank run against one rank: the same batches, crops and masks, the sums
+# in another order. fp32: the first loss (same params, same batch) within
+# MULTI_FIRST_LOSS_RTOL; AdamW's sign-like first updates carry the order
+# into the trajectory, held to the JAX package's multi-device rtol 5e-3
+# (tests/test_parallel.py); params as the L2 gap over the run's update (a
+# cut leaf left wrong, out_proj's 0.6 % of the parameters, moves it by
+# sqrt(0.006) = 8e-2). bf16 runs round each rank's partial sums: held on
 # their trajectory only.
 MULTI_LOSS_RTOL = 5e-3
 MULTI_FIRST_LOSS_RTOL = 1e-5
 MULTI_FP32_PARAM_RTOL = 1e-2
-# The gradient witness in float64: DP 2 against one process, over each
-# array's largest entry. Rounding (about 1e-16, times the cancellation of the
-# worst-conditioned arrays, which fp32 shows to be under 1e6) stays far
-# under it; a term computed wrong is off by its own size.
+# The float64 gradient witness, over each array's largest entry: rounding
+# (1e-16 times a cancellation under 1e6) stays far under it; a term computed
+# wrong is off by its own size.
 MULTI_GRAD64_RTOL = 1e-9
-# The engine's beam scores (fp32, full_fp32) on a mesh against one rank's:
-# each data rank's products have other row counts (and the model ranks sum
-# fp32 partials), so cuBLAS may take other kernels, whose roundings (~1e-7
-# relative each) pass through 8 blocks into a sum of 6 log-softmax terms.
-# Relative to the score; the items must be equal.
+# Beam scores on a mesh against one rank's, relative: other GEMM row counts
+# round otherwise (~1e-7 each, through 8 blocks and 6 log-softmax terms);
+# the items must be equal.
 MULTI_SCORE_RTOL = 1e-5
 
 
+def on_one_rank(device, run):
+    """run() in a process group of one rank: NCCL on the card, Gloo on the
+    CPU."""
+    import torch.distributed as dist
+
+    from hidvae_tpu_torch.parallel.dryrun import free_port
+
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}",
+                            device_id=device if cuda else None)
+    try:
+        return run()
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(entry, root, timeout, label):
+    """This script's `entry` (--multi-rank or --multi-stage1-rank) on two Gloo
+    ranks over `root`; prints the seconds they took (functional timings: both
+    share one device)."""
+    from hidvae_tpu_torch.parallel.dryrun import launch_ranks
+
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, os.path.abspath(__file__), entry, root], 2, timeout)
+    where = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "the CPU"
+    print(f"  {label}two Gloo ranks on {where}: {time.perf_counter() - t0:.2f} s in all "
+          f"(functional timings, not speed: both ranks share one device)")
+
+
 def multi_rank_main(workdir):
-    """One rank of the multi phase's two Gloo ranks on cuda:0 (started by
-    multi_phase through launch_ranks): DP (2 x 1) and TP (1 x 2) runs of the
-    trainer from the gin, the long-history DP run, and the engine from the
-    trainer's artifacts at 2 x 1 and at 1 x 2 with shard_params. Writes
-    rank<r>.json (and the engines' answers to rank<r>_<mesh>.npz)."""
+    """One of the multi phase's two Gloo ranks on cuda:0: the trainer's DP
+    (2 x 1) and TP (1 x 2) runs, the long-history DP run and the engines at
+    2 x 1 and 1 x 2. Writes rank<r>.json and rank<r>_<mesh>.npz."""
     import torch.distributed as dist
 
     from hidvae_tpu_torch.parallel.collectives import COLLECTIVE_BYTES
@@ -1858,7 +1743,7 @@ def check_multi_run(name, losses, params, want_losses, want_params, init,
           f"{[f'{e:.2e}' for e in errs]}, tolerance {MULTI_LOSS_RTOL}"
           + (f", the first {first_rtol}" if first_rtol else "") + f"); params gap {gap:.3e} "
           f"of the update (largest |difference| {worst:.3e}, tolerance {param_rtol}; largest "
-          f"leaves {[(k, f'{g:.2e}') for g, k in leaves]})", flush=True)
+          f"leaves {[(k, f'{g:.2e}') for g, k in leaves]})")
     if len(losses) != len(want_losses) or not (
             max(errs) <= MULTI_LOSS_RTOL and gap <= param_rtol
             and (first_rtol is None or errs[0] <= first_rtol)):
@@ -1896,12 +1781,12 @@ def compare_engines(name, ranks_npz, want, hist):
         print(f"  {name} rank {r}: table bitwise equal; {len(hist)} histories: rows whose items "
               f"differ {differ.tolist()}, max score difference {err:.3e}, relative {rel:.3e} "
               f"(tolerance {MULTI_SCORE_RTOL}; scores {float(a['scores'].min()):.2f} to "
-              f"{float(a['scores'].max()):.2f})", flush=True)
+              f"{float(a['scores'].max()):.2f})")
         if len(differ):
             for row in differ[:4]:
                 print(f"    row {row}: items {got['items'][row].tolist()} against "
                       f"{a['items'][row].tolist()}, scores {got['scores'][row].tolist()} against "
-                      f"{a['scores'][row].tolist()}", flush=True)
+                      f"{a['scores'][row].tolist()}")
         if len(differ) or rel > MULTI_SCORE_RTOL:
             raise AssertionError(f"{name} rank {r}: serves differently from one rank")
 
@@ -1909,27 +1794,15 @@ def compare_engines(name, ranks_npz, want, hist):
 @phase("multi")
 def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
                 long_run=MULTI_LONG, splits=TRAINER_SPLITS, stage1_root=None, **bindings):
-    """Multi-GPU semantics on the one card (timings functional, not speed):
-      1. one rank over NCCL: the trainer's distributed path for N steps,
-         held to the one-process run of the same steps;
-      2. two Gloo ranks on cuda:0 (NCCL refuses two ranks on one device):
-         DP 2 x 1 and TP 1 x 2 runs of the trainer from the gin (fp32) and
-         of train_arrays (bf16), held to the one-process runs; TP's
-         checkpoint at N resumed on one process for N more, held to the
-         uninterrupted 2N run; the long-history DP run
-         (flash launches per rank); the engine from the trainer's artifacts
-         at 2 x 1 and at 1 x 2 with shard_params, held to the one-process
-         engine (rq_assign launches per rank);
-      3. with `stage1_root` (the stage1 phase's dataset), stage-1 data
-         parallelism (`multi_stage1`): the three stage-1 gins on one NCCL
-         rank and on two Gloo ranks.
-    The gins are decoder_amazon.gin's at cfg's widths with fp32 products
-    (`bindings` override it). On the CPU (a rehearsal at small widths) the
-    one-rank group runs over Gloo. Returns the launch counts and gaps."""
+    """Multi-GPU semantics on the one card (timings functional): one NCCL
+    rank (held to one process); two Gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one device): the trainer's DP 2 x 1 and TP 1 x 2 runs (fp32)
+    and train_arrays' (bf16), TP's checkpoint resumed on one process, the
+    long-history DP run, the engine at 2 x 1 and 1 x 2 with shard_params;
+    with `stage1_root`, stage-1 data parallelism (`multi_stage1`). On the
+    CPU the one-rank group runs over Gloo. Returns the launch counts and
+    gaps."""
     bindings = {"mixed_precision_type": '"fp32"', **bindings}
-    import torch.distributed as dist
-
-    from hidvae_tpu_torch.parallel.dryrun import free_port, launch_ranks
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
     script = load_script("torch_train_transformer")
@@ -1952,20 +1825,14 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
 
         # 1. one rank over NCCL
         cuda = device.type == "cuda"
-        dist.init_process_group("nccl" if cuda else "gloo", rank=0, world_size=1,
-                                init_method=f"tcp://localhost:{free_port()}",
-                                device_id=device if cuda else None)
-        try:
-            one = parse_config_and_run(trainer.train, [gin_n], device=device,
-                                       save_dir_root=os.path.join(root, "nccl"))
-        finally:
-            dist.destroy_process_group()
+        one = on_one_rank(device, lambda: parse_config_and_run(
+            trainer.train, [gin_n], device=device, save_dir_root=os.path.join(root, "nccl")))
         got = checkpoint_params(one["saved_paths"][-1])
         bitwise = (one["history"]["train_loss"] == want_loss[:n]
                    and all(np.array_equal(got[k], want_n[k]) for k in want_n))
         print(f"  {'NCCL' if cuda else 'Gloo'}, world 1 (mesh {one['mesh'].shape}): losses "
               f"{one['history']['train_loss']}; bitwise equal to the one-process run's first "
-              f"{n} steps and checkpoint_{n}: {bitwise}", flush=True)
+              f"{n} steps and checkpoint_{n}: {bitwise}")
         record["nccl_1"] = {"bitwise": bitwise,
                             **check_multi_run(f"{'NCCL' if cuda else 'Gloo'} world 1",
                                               one["history"]["train_loss"], got, want_loss[:n],
@@ -1981,25 +1848,18 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             json.dump(dict(gin_n=gin_n, gin_2n=gin_2n, stage1=stage1, ckpt_2n=ckpt_2n,
                            hist=hist_path, vae=vae_path, cfg=cfg, device=str(device),
                            n=n, short_run=short_run, long_run=long_run), f)
-        t0 = time.perf_counter()
-        launch_ranks([sys.executable, os.path.abspath(__file__), "--multi-rank", root], 2,
-                     MULTI_TIMEOUT_S)
-        ranks_s = time.perf_counter() - t0
+        two_ranks("--multi-rank", root, MULTI_TIMEOUT_S, "")
         ranks = []
         for r in range(2):
             with open(os.path.join(root, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        where = torch.cuda.get_device_name(0) if cuda else "the CPU"
-        print(f"  two Gloo ranks on {where}: {ranks_s:.2f} s in all (functional timings, not "
-              f"speed: both ranks share one device)", flush=True)
         for name in ("dp", "tp"):
             rr = [r[name] for r in ranks]
-            print(f"  {name} (mesh {rr[0]['mesh']}): ranks' losses equal "
-                  f"{rr[0]['loss'] == rr[1]['loss']}; per rank {[r['seconds'] for r in rr]} s, "
-                  f"ms per step {[r['ms_per_step'] for r in rr]}; collectives "
-                  f"{[r['bytes_per_step'] for r in rr]} bytes per step per rank; sweep "
-                  f"rq_assign launches per rank {[r['sweep_rq_launches'] for r in rr]}; local "
-                  f"shapes {rr[0]['shapes']}", flush=True)
+            print(f"  {name} (mesh {rr[0]['mesh']}): losses equal {rr[0]['loss'] == rr[1]['loss']}"
+                  f"; per rank s {[r['seconds'] for r in rr]}, ms per step "
+                  f"{[r['ms_per_step'] for r in rr]}, bytes to collectives per step "
+                  f"{[r['bytes_per_step'] for r in rr]}, sweep rq_assign "
+                  f"{[r['sweep_rq_launches'] for r in rr]}; local shapes {rr[0]['shapes']}")
             record[name] = check_multi_run(
                 f"{name} 2 ranks", rr[0]["loss"], checkpoint_params(rr[0]["saved"]),
                 want_loss[:n], want_n, init)
@@ -2012,8 +1872,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             print(f"  {name} 2 ranks (bf16, {short_run[0]} items, batch {short_run[1]}): losses "
                   f"{[round(x, 5) for x in got]} against {[round(x, 5) for x in one16]} (largest "
                   f"relative difference {loss_err:.3e}, tolerance {MULTI_LOSS_RTOL}); collectives "
-                  f"{[r[name]['bytes_per_step'] for r in ranks]} bytes per step per rank",
-                  flush=True)
+                  f"{[r[name]['bytes_per_step'] for r in ranks]} bytes per step per rank")
             if len(got) != len(one16) or not loss_err <= MULTI_LOSS_RTOL:
                 raise AssertionError(f"{name}: the bf16 run differs from the one-rank run")
             record[name] = {"loss_rel_err": loss_err}
@@ -2030,7 +1889,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             raise AssertionError(f"tp: local shapes {shapes}, expected {want_shapes}")
         print(f"  tp: out_proj and the FF kernels hold half their rows or columns on each "
               f"rank; the ID table ({table_rows} rows, odd) stays whole, as "
-              f"stage2_param_shardings' ok() keeps it", flush=True)
+              f"stage2_param_shardings' ok() keeps it")
 
         resumed, _, _ = run_trainer_entry(script, device, gin_n, "--resume",
                                           ranks[0]["tp"]["saved"])
@@ -2050,7 +1909,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             got = {k: rr["long"]["launches"][k] for k in want}
             print(f"  long-history DP rank {r}: flash launches {got} ({n_enc} encoder layers x "
                   f"{steps} steps), collectives {rr['long']['bytes_per_step']} bytes per step, "
-                  f"ms per step {rr['long']['ms_per_step']}", flush=True)
+                  f"ms per step {rr['long']['ms_per_step']}")
             if got != want:
                 raise AssertionError(f"long DP rank {r}: flash launches {got}, expected {want}")
         record["long"] = dict(launches=[{k: rr["long"]["launches"][k] for k in want}
@@ -2059,7 +1918,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
                        zip(ranks[0]["long"]["loss"], long_one["history"]["train_loss"]))
         print(f"  long-history DP: losses {ranks[0]['long']['loss']} against one rank's "
               f"{long_one['history']['train_loss']} (largest relative difference "
-              f"{loss_err:.3e}, tolerance {MULTI_LOSS_RTOL})", flush=True)
+              f"{loss_err:.3e}, tolerance {MULTI_LOSS_RTOL})")
         if not loss_err <= MULTI_LOSS_RTOL:
             raise AssertionError("long-history DP: losses differ from the one-rank run's")
         del long_one
@@ -2074,7 +1933,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
                   f"({len(feats_np)} rows, each chunk split over the data ranks); buckets "
                   f"{rr[0]['batch_buckets']}; build {[round(r['build_s'], 3) for r in rr]} s, "
                   f"request {[round(r['latency_s'], 4) for r in rr]} s; collective bytes "
-                  f"{rr[0]['collective_bytes']}", flush=True)
+                  f"{rr[0]['collective_bytes']}")
             compare_engines(name, npz, want, hist)
             record[name] = dict(rq_launches=[r["rq_launches"] for r in rr])
         del want
@@ -2101,11 +1960,10 @@ MINING_SETTINGS = (("mining", 1024, 1),)  # the gin's batch, no accumulation
 
 
 def write_mining_inputs(path, cfg, seed=SEED):
-    """The tagged catalog at `path`: cfg["n_items"] seeded unit-norm items of
-    which MINING_PLANTED are near-copies of others (and share their tags),
-    so that random weights' first audit finds colliding tuples; tags from a
-    seeded tree of cfg["tag_tree"] branchings, each level's class a seeded
-    tag embedding. Returns (features, planted copies, their sources)."""
+    """The tagged catalog at `path`: cfg["n_items"] seeded unit-norm items,
+    MINING_PLANTED of them near-copies of others (sharing their tags, so the
+    first audit finds colliding tuples), tags from a seeded cfg["tag_tree"].
+    Returns (features, planted copies, their sources)."""
     rng = np.random.RandomState(seed + 51)
     n = cfg["n_items"]
     feats = unit_rows(n, cfg["input_dim"], torch.Generator().manual_seed(seed + 52))
@@ -2133,43 +1991,28 @@ def write_mining_inputs(path, cfg, seed=SEED):
 
 
 def check_mining_run(name, result, launches, steps, evals, device, n_items, pool):
-    """Steps and audits where the cadence puts them, `latest` saved holding
-    the pool, finite losses, the pool of `pool` pairs refreshed at every
-    audit, rq_assign once per 8,192 items per audit on the card and no
-    flash kernel."""
+    """check_run, `latest` holding the pool of `pool` pairs, refreshed at
+    every audit. Returns the saved pool."""
+    latest = check_run(name, result, launches, steps, evals, device, n_items)
     hist = result["history"]
-    latest = [p for p in result["saved_paths"] if os.path.basename(p) == "latest"]
-    if result["step"] != steps or hist["eval_iterations"] != evals or not latest:
-        raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
-                             f"saves {result['saved_paths']}; expected {steps}, {evals}")
-    if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
-        raise AssertionError(f"{name}: losses not finite")
-    saved = load_export_arrays(latest[-1], "mining_pairs").get("mining_pairs")
+    saved = load_export_arrays(latest, "mining_pairs").get("mining_pairs")
     live = result["data"].mining_pairs.cpu().numpy()
     if saved is None or saved.shape != (pool, 2) or not np.array_equal(saved, live):
         raise AssertionError(f"{name}: latest does not hold the run's pool of {pool} pairs")
     if hist["mining_pool_refreshed"] != evals:
         raise AssertionError(f"{name}: pool refreshed at {hist['mining_pool_refreshed']}, "
                              f"expected at every audit {evals}")
-    want = {"rq_assign": math.ceil(n_items / 8192) * len(evals) if device.type == "cuda" else 0,
-            **{fn.__name__: 0 for fn in fa.KERNELS}}
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, expected {want}")
     return saved
-
 
 @phase("mining")
 def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
                  timed=MINING_TIMED, **bindings):
-    """The stage-1 trainer from its gin entry (scripts/torch_train_hidvae.py)
-    on configs/h_rqvae_synthetic_xxl_m.gin, cut line by line, at cfg's
-    widths, on the tagged catalog of `write_mining_inputs` under `root`: 2N
-    mini-steps with evals, audits (each harvesting the pool) and saves at N
-    and 2N; the pool's pairs colliding in the audit's rq_assign table, which
-    a plain sweep must match; mined pairs colliding in the steps after the
-    first audit; N, then a resume for N more, held to the uninterrupted run
-    with the pool restored bitwise; items/s with mining on. Returns the
-    record."""
+    """The stage-1 entry on configs/h_rqvae_synthetic_xxl_m.gin, cut line by
+    line, on `write_mining_inputs`' catalog under `root`: 2N mini-steps,
+    audits harvesting the pool at N and 2N; the pool colliding in the
+    audit's table (held to a plain sweep); mined pairs colliding after the
+    first audit; N plus a resumed N with the pool restored bitwise; items/s.
+    Returns the record."""
     script = load_script("torch_train_hidvae")
     t0 = time.perf_counter()
     path = processed_path(root, RecDataset.SYNTHETIC)
@@ -2178,12 +2021,11 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data in "
           f"{time.perf_counter() - t0:.2f} s ({n_items} items, cut from the config's "
           f"{XXL_M_CORPUS}; {len(dst)} planted near-copies; tags of a "
-          f"{'x'.join(map(str, cfg['tag_tree']))} tree)", flush=True)
+          f"{'x'.join(map(str, cfg['tag_tree']))} tree)")
     values = {
-        "save_model_every": n, "eval_every": n, "vae_input_dim": cfg["input_dim"],
-        "vae_hidden_dims": list(cfg["hidden_dims"]), "vae_embed_dim": cfg["embed_dim"],
-        "vae_codebook_size": cfg["codebook_size"], "vae_n_layers": cfg["n_layers"],
-        "tag_embed_dim": cfg["tag_embed_dim"], "dataset_folder": f'"{root}"',
+        "save_model_every": n, "eval_every": n, **vae_widths(cfg),
+        "vae_n_layers": cfg["n_layers"], "tag_embed_dim": cfg["tag_embed_dim"],
+        "dataset_folder": f'"{root}"',
         "save_dir_root": f'"{os.path.join(root, "runs")}"', "eval_batches": MINING_EVAL_BATCHES,
         **bindings,
     }
@@ -2201,31 +2043,22 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
           f"pairs a batch, pool {pool}) in {seconds:.2f} s: loss {hist['total_loss']}, "
           f"repetition {hist['repetition_rate']}, pool refreshed at {hist['mining_pool_refreshed']}"
           f", mined-pair collision rate at steps {hist['iterations']}: {rates}; tag_class_counts "
-          f"{full['tag_class_counts']}; launches {launches}", flush=True)
+          f"{full['tag_class_counts']}; launches {launches}")
     if not rates[-1] > 0:
         raise AssertionError("mining: no mined pair collided in the steps after the first audit")
 
     # The pool against the audit's table: the audit at 2N swept these weights.
     model = full["model"]
-    tok = HSemanticIdTokenizer(model, n_layers=cfg["n_layers"], codebook_size=cfg["codebook_size"],
-                               tag_class_counts=full["tag_class_counts"], device=device)
-    rq.rq_assign.launches = 0
-    table = tok.precompute_corpus_ids(feats)
-    table_launches = rq.rq_assign.launches
-    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), tok.corpus_chunk_size)
-    n_diff, n_bad = compare_ids(table, ref, ties)
+    table, table_launches = audit_table("mining", model, full["tag_class_counts"], feats, device)
     train_idx = np.nonzero(np.load(path)["item_is_train"])[0]
     pairs = train_idx[full["data"].mining_pairs.cpu().numpy()]
     tab = table.cpu().numpy()
     colliding = float((tab[pairs[:, 0]] == tab[pairs[:, 1]]).all(axis=1).mean())
     planted = float((tab[dst] == tab[src]).all(axis=1).mean())
-    print(f"  audit table of the trained model: rq_assign launches {table_launches}; rows "
-          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); pool pairs "
-          f"colliding in it {colliding:.4f}; planted copies sharing their source's tuple "
-          f"{planted:.4f}; repetition {repetition_rate(tab)[0]:.4f}", flush=True)
-    if n_bad or colliding != 1.0:
-        raise AssertionError("mining: the pool's pairs do not all collide in the audit's table, "
-                             "or the table differs from the plain sweep")
+    print(f"  pool pairs colliding in the table {colliding:.4f}; planted copies sharing their "
+          f"source's tuple {planted:.4f}; repetition {repetition_rate(tab)[0]:.4f}")
+    if colliding != 1.0:
+        raise AssertionError("mining: the pool's pairs do not all collide in the audit's table")
 
     half, launches_half, _ = run_trainer_entry(script, device, gin_n)
     saved_n = check_mining_run("N run", half, launches_half, n, [n], device, n_items, pool)
@@ -2235,7 +2068,7 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     restored = np.array_equal(resumed["mining_pool_start"], saved_n)
     same_end = torch.equal(resumed["data"].mining_pairs, full["data"].mining_pairs)
     print(f"  resume: pool restored bitwise from N's latest {restored}; pools after the audit "
-          f"at {2 * n} equal {same_end}", flush=True)
+          f"at {2 * n} equal {same_end}")
     if not (restored and same_end):
         raise AssertionError("mining: the pool did not survive the resume bitwise")
     gaps = check_resume(full, half, resumed, 2 * n, updates=2 * n // gin.get(
@@ -2245,7 +2078,7 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
                             "resume": launches_resume["rq_assign"], "table": table_launches},
                   resume_gaps=gaps, throughput=throughput, collision_rate=rates,
                   pool_colliding=colliding, repetition_rate=hist["repetition_rate"])
-    del full, half, resumed, model, tok
+    del full, half, resumed, model
     return record
 
 
@@ -2258,39 +2091,24 @@ RQVAE_TIMED = (3, 10)
 
 
 def check_rqvae_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, evals, audits and checkpoint_<step - 1> saves where the cadence
-    puts them, the last one's meta holding the structural model_config and
-    its audit, finite losses, rq_assign once per 8,192 items per audit on
-    the card and no flash kernel."""
-    hist = result["history"]
-    saves = [os.path.basename(p) for p in result["saved_paths"]]
-    if (result["step"] != steps or hist["eval_iterations"] != evals
-            or saves != [f"checkpoint_{e - 1}" for e in evals]):
-        raise AssertionError(f"{name}: step {result['step']}, evals {hist['eval_iterations']}, "
-                             f"saves {saves}; expected {steps}, {evals}")
-    if not all(math.isfinite(v) for v in hist["total_loss"] + hist["eval_total_loss"]):
-        raise AssertionError(f"{name}: losses not finite")
-    with open(os.path.join(result["saved_paths"][-1], "meta.json")) as f:
+    """check_run with checkpoint_<step - 1> saves at the evals, the last
+    meta holding the model_config and its audit."""
+    last = check_run(name, result, launches, steps, evals, device, n_items,
+                     saves=[f"checkpoint_{e - 1}" for e in evals])
+    with open(os.path.join(last, "meta.json")) as f:
         meta = json.load(f)
-    if (meta["metrics"].get("repetition_rate") != hist["repetition_rate"][-1]
+    if (meta["metrics"].get("repetition_rate") != result["history"]["repetition_rate"][-1]
             or meta["model_config"].get("n_cat_features") is None):
         raise AssertionError(f"{name}: the checkpoint's meta lacks its audit or config: {meta}")
-    want = {"rq_assign": math.ceil(n_items / 8192) * len(evals) if device.type == "cuda" else 0,
-            **{fn.__name__: 0 for fn in fa.KERNELS}}
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, expected {want}")
-
 
 @phase("rqvae")
 def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **bindings):
-    """The plain RQ-VAE trainer from its gin entry (scripts/torch_train_rqvae.py)
-    on configs/rqvae_ml32m.gin, cut line by line, at cfg's widths, on a
-    processed ML-32M dataset of seeded items written under `root`: 2N
-    mini-steps with evals, audits and saves at N and 2N; N, then a resume
-    for N more, held to the uninterrupted run; the last audit's rq_assign
-    table held to a plain sweep; items/s at the gin's batch; then the
-    checkpoint served by from_artifacts with a seeded decoder at cfg's
-    widths (configs/decoder_ml32m.gin). Returns the record."""
+    """The plain RQ-VAE entry (scripts/torch_train_rqvae.py) on
+    configs/rqvae_ml32m.gin, cut line by line, on seeded ML-32M items under
+    `root`: 2N mini-steps with audits at N and 2N; N plus a resumed N, held
+    to it; the audit's table against a plain sweep; items/s; the checkpoint
+    served by from_artifacts with a seeded decoder
+    (configs/decoder_ml32m.gin). Returns the record."""
     from hidvae_tpu_torch.train import rqvae as rv
 
     script = load_script("torch_train_rqvae")
@@ -2302,13 +2120,12 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     write_items(path, feats, np.random.RandomState(SEED + 43), hist)
     n_items = len(feats)
     print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
-          f"{len(hist)} histories)", flush=True)
+          f"{len(hist)} histories)")
     values = {
         "save_model_every": n, "eval_every": n, "force_dataset_process": False,
-        "vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
-        "vae_embed_dim": cfg["embed_dim"], "vae_codebook_size": cfg["codebook_size"],
-        "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
-        "eval_batches": RQVAE_EVAL_BATCHES, **bindings,
+        **vae_widths(cfg), "dataset_folder": f'"{root}"',
+        "save_dir_root": f'"{os.path.join(root, "runs")}"', "eval_batches": RQVAE_EVAL_BATCHES,
+        **bindings,
     }
     gin_2n = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "rqvae_2n.gin"),
                      dict(values, iterations=2 * n), show=True)
@@ -2321,8 +2138,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}) in {seconds:.2f} s: loss "
           f"{h['total_loss']}, eval loss {h['eval_total_loss']}, repetition "
           f"{h['repetition_rate']}, entropy {h['rqvae_entropy']}; saves "
-          f"{[os.path.basename(p) for p in full['saved_paths']]}; launches {launches}",
-          flush=True)
+          f"{[os.path.basename(p) for p in full['saved_paths']]}; launches {launches}")
     half, launches_half, _ = run_trainer_entry(script, device, gin_n)
     check_rqvae_run("N run", half, launches_half, n, [n], device, n_items)
     resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume",
@@ -2340,7 +2156,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     rep = h["repetition_rate"][-1]
     print(f"  audit table of the trained model: rows differing from the plain sweep {n_diff} "
           f"(not near ties: {n_bad}); repetition {rep_plain:.4f} (the audit recorded "
-          f"{rep:.4f})", flush=True)
+          f"{rep:.4f})")
     if n_bad or (n_diff == 0 and rep_plain != rep):
         raise AssertionError("rqvae: the audit's table differs from the plain sweep")
 
@@ -2375,7 +2191,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     same_table = np.array_equal(engine.corpus_ids.cpu().numpy(), full["corpus_ids"])
     print(f"  served {os.path.basename(ckpt)} with from_artifacts in {serve_s:.3f} s (rq_assign "
           f"launches {serve_launches}); table equal to the audit's {same_table}; {resolved} of "
-          f"{out['items'].size} recommendations resolved to their generated tuples", flush=True)
+          f"{out['items'].size} recommendations resolved to their generated tuples")
     if not same_table:
         raise AssertionError("rqvae: the served table differs from the trainer's audit")
     record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
@@ -2386,6 +2202,84 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     return record
 
 
+# ---- seeded corpora and catalog scale ------------------------------------------
+
+H_RQVAE_LARGE_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_large.gin")
+SYNTH_STEPS = 4   # mini-steps at the gin's batch of 1,024, with one eval, audit and save at the end
+SCALE_SIZES = (200_000, 1_000_000)
+
+
+@phase("synthetic")
+def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
+    """scripts/torch_make_synthetic.py writes the `large` preset (updated by
+    `corpus`) under `root`; the stage-1 entry trains on it from
+    configs/h_rqvae_synthetic_large.gin, cut line by line to `steps`
+    mini-steps with one eval, audit and save (and `bindings`); the audit's
+    table held to a plain sweep; load_or_build on an empty root writes the
+    default corpus. Returns the rq_assign launches."""
+    from hidvae_tpu_torch.data.processed import ProcessedArrays, load_or_build
+
+    t0 = time.perf_counter()
+    path = load_script("torch_make_synthetic").main("large", root, **(corpus or {}))
+    feats = ProcessedArrays.load(path).item_features
+    print(f"  torch_make_synthetic.py large: {os.path.getsize(path) / 2**20:.1f} MiB in "
+          f"{time.perf_counter() - t0:.2f} s ({len(feats)} items)")
+    gin = cut_gin(H_RQVAE_LARGE_GIN, os.path.join(root, "large.gin"), {
+        "iterations": steps, "eval_every": steps, "save_model_every": steps, "log_every": steps,
+        "eval_batches": STAGE1_EVAL_BATCHES, "dataset_folder": f'"{root}"',
+        "save_dir_root": f'"{os.path.join(root, "runs")}"', **bindings}, show=True)
+    result, launches, seconds = run_trainer_entry(load_script("torch_train_hidvae"), device, gin)
+    rep = check_stage1_run("synthetic run", result, launches, steps, [steps], device, len(feats))
+    hist = result["history"]
+    print(f"  run ({steps} mini-steps, batch {parse_gin_file(gin)['train']['batch_size']}) in "
+          f"{seconds:.2f} s: loss {hist['total_loss']}, eval loss {hist['eval_total_loss']}, "
+          f"tag_class_counts {result['tag_class_counts']}, repetition {rep}; launches {launches}")
+    if not hist["total_loss"]:
+        raise AssertionError("synthetic: no loss logged")
+    _, table_launches = audit_table("synthetic", result["model"], result["tag_class_counts"],
+                                    feats, device, rep)
+    empty = os.path.join(root, "empty")
+    default = load_or_build(empty, RecDataset.SYNTHETIC)
+    written = os.path.getsize(processed_path(empty, RecDataset.SYNTHETIC))
+    print(f"  load_or_build on an empty root: {default.item_features.shape[0]} items, "
+          f"{default.seq_items.shape[0]} sequences, {written / 2**20:.1f} MiB written")
+    if default.item_features.shape != (2000, 768) or not np.array_equal(
+            ProcessedArrays.load(processed_path(empty, RecDataset.SYNTHETIC)).item_features,
+            default.item_features):
+        raise AssertionError("synthetic: load_or_build did not write the default corpus")
+    return {"run": launches["rq_assign"], "table": table_launches}
+
+
+@phase("scale")
+def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
+    """scripts/torch_bench_scale.py's bench_one at each size (with `kwargs`):
+    one rq_assign launch per 8,192 items, every item resolved on the trie
+    and cap-gather paths, the largest table equal to a plain sweep but near
+    ties. Returns the records."""
+    bench = load_script("torch_bench_scale")
+    records = []
+    for n in sizes:
+        keep = {}
+        rec = bench.bench_one(n, device, keep=keep, **kwargs)
+        print(f"  scale {n}: {json.dumps(rec)}")
+        want = math.ceil(n / 8192) if device.type == "cuda" else 0
+        if rec["rq_assign_launches"]["sweep"] != want or not (
+                rec["top10_resolved_frac"] == keep["cap_resolved"] == 1.0):
+            raise AssertionError(f"scale {n}: launches {rec['rq_assign_launches']} (expected "
+                                 f"{want}), resolved {rec['top10_resolved_frac']} and "
+                                 f"{keep['cap_resolved']} (trie, cap-gather)")
+        if n == max(sizes):
+            ref, ties, _ = plain_sweep(keep["vae"], keep["feats"], 8192)
+            n_diff, n_bad = compare_ids(keep["ids"], ref, ties)
+            print(f"  scale {n}: rows differing from a plain sweep {n_diff} (not near ties: "
+                  f"{n_bad})")
+            if n_bad:
+                raise AssertionError(f"scale {n}: the table differs from a plain sweep")
+        records.append(rec)
+        del keep
+    return records
+
+
 # ---- multi-GPU: stage-1 data parallelism -------------------------------------
 
 # Mini-steps of each stage-1 multi run, which audits and saves at its end:
@@ -2394,11 +2288,10 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
 MULTI1_STEPS = {"amazon": 4, "mining": 4, "mining_fp32": 4, "ml32m": 3}
 MULTI1_MINING_EVERY = 2   # the mining runs audit at 2 as well: that pool feeds steps 3 and 4
 MULTI1_TIMEOUT_S = 600    # the two Gloo ranks' stage-1 runs
-# The bias right before a train-mode BatchNorm (the tag projectors'
-# dense_0) moves no train output and has a gradient of 0 up to rounding,
-# which Adam turns into steps of up to the learning rate (1.3 x it with the
-# tag heads' layer-specific rates) in either direction: it is held to that
-# bound per update, and left out of the params gap, which it would swamp.
+# A bias right before a train-mode BatchNorm (the tag projectors' dense_0)
+# has a gradient of 0 up to rounding, which Adam turns into steps of up to
+# 1.3 learning rates (layer-specific) either way: held to that bound per
+# update and left out of the params gap.
 BN_BIAS_LR_STEPS = 2 * 1.3
 
 
@@ -2411,15 +2304,12 @@ def split_bn_biases(params):
 
 
 def check_gradient_witness(recs, ranks, want_rec, want):
-    """The witness step on the ranks (records `recs`, arrays `ranks`)
-    against one process (`want_rec`, `want`): the summed float64 gradients
-    equal on both ranks and each array within MULTI_GRAD64_RTOL of its
-    largest entry of one process's (the tag projectors' dense_0, which
-    feeds a train-mode BatchNorm and whose bias's gradient is 0 up to
-    rounding: of the largest entry of all arrays); the loss within
-    MULTI_FIRST_LOSS_RTOL; mined pairs colliding in the step. The fp32
-    gradients' gaps are printed, not held: a ReLU whose input lies within
-    rounding of 0 passes its gradient in one run and not in the other."""
+    """The witness step at DP 2 (records `recs`, arrays `ranks`) against one
+    process (`want_rec`, `want`): float64 gradients equal on both ranks,
+    each array within MULTI_GRAD64_RTOL of its largest entry (the tag
+    projectors' dense_0, before a train-mode BatchNorm: of all arrays'), the
+    loss within MULTI_FIRST_LOSS_RTOL, mined pairs colliding. The fp32 gaps
+    are printed only: a ReLU input within rounding of 0 flips."""
     got, exact = ranks[0]["grads64"], want["grads64"]
     if set(got) != set(exact) or any(
             not np.array_equal(ranks[1]["grads64"][k], got[k]) for k in exact):
@@ -2433,13 +2323,12 @@ def check_gradient_witness(recs, ranks, want_rec, want):
         gap32[k] = float(np.abs(ranks[0]["grads"][k] - want["grads"][k]).max()) / scale
     worst64, worst32 = (sorted(g, key=lambda k: -g[k])[:3] for g in (gap64, gap32))
     loss_err = abs(recs[0]["loss"][0] - want_rec["loss"][0]) / abs(want_rec["loss"][0])
-    print(f"  gradient witness (fp32 mining gin, one mini-step from the one-process checkpoint "
-          f"at step {want_rec['step'] - 1}, mined-pair collision rate {want_rec['mined']}): "
-          f"{len(exact)} gradient arrays; DP 2 against one process over each array's largest "
-          f"entry, float64 {[(k, f'{gap64[k]:.2e}') for k in worst64]} (tolerance "
-          f"{MULTI_GRAD64_RTOL}), fp32 {[(k, f'{gap32[k]:.2e}') for k in worst32]} (printed); "
-          f"loss {recs[0]['loss'][0]} against {want_rec['loss'][0]} (relative {loss_err:.3e})",
-          flush=True)
+    print(f"  gradient witness (fp32 mining gin, one mini-step from step {want_rec['step'] - 1}"
+          f", mined collision rate {want_rec['mined']}): {len(exact)} arrays; DP 2 against one "
+          f"process over each array's largest entry, float64 "
+          f"{[(k, f'{gap64[k]:.2e}') for k in worst64]} (tolerance {MULTI_GRAD64_RTOL}), fp32 "
+          f"{[(k, f'{gap32[k]:.2e}') for k in worst32]}; loss {recs[0]['loss'][0]} against "
+          f"{want_rec['loss'][0]} ({loss_err:.3e})")
     if not want_rec["mined"] or not want_rec["mined"][-1] > 0:
         raise AssertionError("gradient witness: no mined pair collided in the step")
     if gap64[worst64[0]] > MULTI_GRAD64_RTOL or loss_err > MULTI_FIRST_LOSS_RTOL:
@@ -2456,8 +2345,7 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
                                                 for p in (params, want_params, init))
     worst = max((float(np.abs(got_b[k] - want_b[k]).max()) for k in want_b), default=0.0)
     bound = BN_BIAS_LR_STEPS * lr * updates
-    print(f"  {name}: BatchNorm-preceding biases within {worst:.3e} (bound {bound:.3e})",
-          flush=True)
+    print(f"  {name}: BatchNorm-preceding biases within {worst:.3e} (bound {bound:.3e})")
     if worst > bound:
         raise AssertionError(f"{name}: BatchNorm-preceding biases differ by {worst}")
     return check_multi_run(name, losses, got, want_losses, want, init, first_rtol=first_rtol,
@@ -2465,31 +2353,22 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
 
 
 def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bindings=None):
-    """The inputs of the stage-1 multi runs: the stage1 phase's Amazon
-    dataset under `amazon_root`, and under `root` the mining phase's
-    catalog (`write_mining_inputs`, xxl["n_items"] items: every leaf tag
-    class above the rare-tag threshold) and an ML-32M one (the rqvae
-    phase's seeded items); and the three gins cut line by line as the
-    stage1, mining and rqvae phases cut them (widths and knobs kept; the
-    run's length, cadences, eval batches and paths; log_every 1 so that
-    every step's loss is logged; Amazon with fp32 products, the one binding
-    added) at the widths of `amazon`, `xxl` and `ml32m`, with
-    bindings[name] on top; besides, the mining gin with fp32 products
-    ("mining_fp32"), the witness of the bf16 mining run's gaps. Returns
-    {name: spec} (spec: trainer, gin, feats (the dataset's path), steps,
-    fp32, exact (tables bitwise and params within MULTI_FP32_PARAM_RTOL
-    of one process's), items, accumulate) and the Amazon gin of 2N
-    steps."""
+    """The stage-1 multi runs' inputs: the stage1 phase's Amazon dataset
+    (`amazon_root`), the mining phase's catalog and seeded ML-32M items
+    under `root`, and the three gins cut as those phases cut them (logging
+    every step; Amazon in fp32) at the widths of `amazon`, `xxl`, `ml32m`
+    with bindings[name] on top, plus the mining gin in fp32
+    ("mining_fp32"). Returns {name: spec} (trainer, gin, feats, steps,
+    fp32, exact, items, accumulate) and the Amazon gin of 2N steps."""
     bindings = bindings or {}
     os.makedirs(root, exist_ok=True)
     a_steps = MULTI1_STEPS["amazon"]
     accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
     a = amazon
     amazon = {
-        "save_model_every": a_steps, "eval_every": a_steps, "vae_input_dim": a["input_dim"],
-        "vae_hidden_dims": list(a["hidden_dims"]), "vae_embed_dim": a["embed_dim"],
-        "vae_codebook_size": a["codebook_size"], "tag_class_counts": list(a["tag_class_counts"]),
-        "tag_embed_dim": a["tag_embed_dim"], "dataset_folder": f'"{amazon_root}"',
+        "save_model_every": a_steps, "eval_every": a_steps, **vae_widths(a),
+        "tag_class_counts": list(a["tag_class_counts"]), "tag_embed_dim": a["tag_embed_dim"],
+        "dataset_folder": f'"{amazon_root}"',
         "eval_batches": STAGE1_EVAL_BATCHES, "log_every": 1, "mixed_precision_type": '"fp32"',
         **bindings.get("amazon", {})}
     gins = {"amazon": cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, "s1_amazon.gin"),
@@ -2501,9 +2380,7 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
     write_mining_inputs(processed_path(os.path.join(root, "mining"), RecDataset.SYNTHETIC), xxl)
     mining = {
         "iterations": MULTI1_STEPS["mining"], "save_model_every": MULTI1_STEPS["mining"],
-        "eval_every": MULTI1_MINING_EVERY, "vae_input_dim": xxl["input_dim"],
-        "vae_hidden_dims": list(xxl["hidden_dims"]), "vae_embed_dim": xxl["embed_dim"],
-        "vae_codebook_size": xxl["codebook_size"], "vae_n_layers": xxl["n_layers"],
+        "eval_every": MULTI1_MINING_EVERY, **vae_widths(xxl), "vae_n_layers": xxl["n_layers"],
         "tag_embed_dim": xxl["tag_embed_dim"],
         "dataset_folder": f'"{os.path.join(root, "mining")}"',
         "eval_batches": MINING_EVAL_BATCHES, "log_every": 1, **bindings.get("mining", {})}
@@ -2520,15 +2397,13 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
                 feats, np.random.RandomState(SEED + 43))
     gins["ml32m"] = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "s1_ml32m.gin"), {
         "iterations": MULTI1_STEPS["ml32m"], "save_model_every": MULTI1_STEPS["ml32m"],
-        "eval_every": MULTI1_STEPS["ml32m"], "force_dataset_process": False,
-        "vae_input_dim": ml32m["input_dim"], "vae_hidden_dims": list(ml32m["hidden_dims"]),
-        "vae_embed_dim": ml32m["embed_dim"], "vae_codebook_size": ml32m["codebook_size"],
+        "eval_every": MULTI1_STEPS["ml32m"], "force_dataset_process": False, **vae_widths(ml32m),
         "dataset_folder": f'"{os.path.join(root, "ml32m")}"',
         "eval_batches": RQVAE_EVAL_BATCHES, "log_every": 1, **bindings.get("ml32m", {})},
         show=True)
     print(f"  wrote the stage-1 multi catalogs in {time.perf_counter() - t0:.2f} s: mining "
           f"{xxl['n_items']} items (the mining phase's; the config's {XXL_M_CORPUS}), ML-32M "
-          f"{ml32m['n_items']}; Amazon: the stage1 phase's {a['n_items']}", flush=True)
+          f"{ml32m['n_items']}; Amazon: the stage1 phase's {a['n_items']}")
     items = {"amazon": a["n_items"], "mining": xxl["n_items"], "mining_fp32": xxl["n_items"],
              "ml32m": ml32m["n_items"]}
     feats = {"amazon": processed_path(amazon_root, RecDataset.AMAZON, "sports"),
@@ -2546,16 +2421,13 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
 
 
 def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
-    """`train` of spec's trainer from its gin (as the entry scripts call it)
-    with its save_dir_root under `save_root`; the launch counts set to 0
-    just before. Returns a JSON record (per-step losses, eval losses,
-    repetition rates, mined-pair collision rates, rq_assign launches,
-    collective bytes per mini-step, seconds, the last checkpoint) and the
-    arrays (the newest audit's table, the mining pool, params; with `grads`
-    the last mini-step's gradients, summed over the ranks). On a rank of
-    several the HiD-VAE record gains "audit_vs_plain": compare_ids of its
-    audit at the last step against a plain sweep of its final params on this
-    rank alone (rows differing, rows differing but not at a near tie)."""
+    """`train` of spec's trainer from its gin, saving under `save_root`, the
+    launch counts set to 0 just before. Returns a JSON record (losses,
+    evals, audits, mined rates, rq_assign launches, collective bytes per
+    mini-step, seconds, last checkpoint) and arrays (the newest table, the
+    pool, params; with `grads` the last mini-step's summed gradients). On a
+    rank of several, "audit_vs_plain": compare_ids of the last audit against
+    a plain sweep of the final params on this rank alone."""
     import importlib
 
     from hidvae_tpu_torch.utils.config import parse_config_and_run
@@ -2616,10 +2488,9 @@ def load_arrays(path):
 
 
 def multi1_rank_main(workdir):
-    """One rank of the stage-1 multi runs' two Gloo ranks on cuda:0 (started
-    by multi_stage1 through launch_ranks): each gin's run at DP 2, then the
-    gradient witness (one mini-step resumed from the one-process
-    checkpoint). Writes rank<r>_s1.json and rank<r>_s1_<name>.npz."""
+    """One of the stage-1 multi runs' two Gloo ranks on cuda:0: each gin's
+    run at DP 2, then the gradient witness. Writes rank<r>_s1.json and
+    rank<r>_s1_<name>.npz."""
     import torch.distributed as dist
 
     with open(os.path.join(workdir, "s1_inputs.json")) as f:
@@ -2657,8 +2528,7 @@ def differing_rows(got, want, hold=True, name=""):
             else int((got != want).reshape(len(want), -1).any(1).sum()))
     if rows > 0:
         per_col = (got != want).reshape(len(want), -1).sum(0).tolist()
-        print(f"  {name}: {rows} of {len(want)} rows differ; entries per column {per_col}",
-              flush=True)
+        print(f"  {name}: {rows} of {len(want)} rows differ; entries per column {per_col}")
     if hold and rows:
         raise AssertionError(f"{name}: differs in {rows} rows (-1: in shape)")
     return rows
@@ -2688,12 +2558,10 @@ def ulp_control_run(spec, device, save_root):
 
 
 def float64_run(spec, device, save_root, **kwargs):
-    """multi1_run of `spec` (with kwargs) whose train steps also take their
-    gradients in float64: a float64 copy of the model on the step's inputs,
-    rows and draws (the Gumbel noise drawn in fp32, as the fp32 step draws
-    it, then widened; every `.float()` of the forward widened), summed over
-    the ranks as the fp32 step's are. Returns multi1_run's record and
-    arrays, arrays["grads64"] the last step's float64 gradients."""
+    """multi1_run of `spec` whose steps also take their gradients in float64
+    (a float64 copy of the model on the same inputs, rows and draws, the
+    Gumbel noise drawn in fp32 then widened), summed over the ranks.
+    arrays["grads64"] holds them."""
     import copy
 
     from hidvae_tpu_torch.models import quantize
@@ -2753,32 +2621,15 @@ def float64_run(spec, device, save_root, **kwargs):
 
 
 def multi_stage1(device, root, amazon_root, **inputs):
-    """Stage-1 data parallelism on the card (functional: both ranks share
-    it), for each of the gins of `multi1_inputs`: the one-process run, one
-    NCCL rank (the trainer's distributed path at world 1: bitwise the
-    one-process run expected), and two Gloo ranks on cuda:0 (DP 2); the
-    Amazon DP 2 checkpoint then resumed on one process for N more steps,
-    against the uninterrupted one-process 2N run. The Amazon and ML-32M
-    runs (fp32) are held as the stage-2 multi runs are (first loss
-    MULTI_FIRST_LOSS_RTOL, trajectory MULTI_LOSS_RTOL, params within
-    MULTI_FP32_PARAM_RTOL of the run's update, tables and pools bitwise);
-    the mining gin (bf16, and its fp32 twin) on its losses (the twin's
-    first within MULTI_FIRST_LOSS_RTOL), its params gap and rows differing
-    from one process printed beside those of an fp32 rounding control
-    (ulp_control_run), and on the float64 gradient witness
-    (check_gradient_witness), which tells a rounding gap from a fault.
-    Every run's audit table and mining pool is the same on both ranks, and
-    rank 0's last audit equals a plain sweep of its final params but at
-    near ties. The mining catalog must leave every tag class above the
-    rare-tag threshold. Every check runs; the failures are raised at the
-    end. Prints the rq_assign launches per rank per audit and the bytes
-    each rank hands to collectives per mini-step. `inputs` go to
-    multi1_inputs (widths and bindings of a rehearsal). Returns the
-    record."""
-    import torch.distributed as dist
-
-    from hidvae_tpu_torch.parallel.dryrun import free_port, launch_ranks
-
+    """Stage-1 data parallelism on the card (functional), per gin of
+    `multi1_inputs`: one process, one NCCL rank (bitwise expected) and two
+    Gloo ranks on cuda:0; then the Amazon DP 2 checkpoint resumed on one
+    process against the 2N run. fp32 runs are held as the stage-2 multi
+    runs; the bf16 mining run on its losses, its gaps printed beside an
+    fp32 rounding control (ulp_control_run), and the float64 gradient
+    witness. Tables and pools equal on both ranks, rank 0's last audit a
+    plain sweep but near ties, no tag class folded. Every check runs; the
+    failures are raised at the end. Returns the record."""
     specs, amazon_2n = multi1_inputs(root, amazon_root, **inputs)
     cuda = device.type == "cuda"
     one, init = {}, {}
@@ -2790,36 +2641,25 @@ def multi_stage1(device, root, amazon_root, **inputs):
     full, full_arr = multi1_run(specs["amazon"], device, os.path.join(root, "one_amazon_2n"),
                                 gin=amazon_2n)
 
-    dist.init_process_group("nccl" if cuda else "gloo", rank=0, world_size=1,
-                            init_method=f"tcp://localhost:{free_port()}",
-                            device_id=device if cuda else None)
-    try:
-        nccl = {name: multi1_run(spec, device, os.path.join(root, f"nccl_{name}"))
-                for name, spec in specs.items()}
-    finally:
-        dist.destroy_process_group()
+    nccl = on_one_rank(device, lambda: {
+        name: multi1_run(spec, device, os.path.join(root, f"nccl_{name}"))
+        for name, spec in specs.items()})
 
     witness = dict(spec="mining_fp32", path=one["mining_fp32"][0]["saved"])
     with open(os.path.join(root, "s1_inputs.json"), "w") as f:
         json.dump(dict(specs=specs, device=str(device), witness=witness), f)
-    t0 = time.perf_counter()
-    launch_ranks([sys.executable, os.path.abspath(__file__), "--multi-stage1-rank", root], 2,
-                 MULTI1_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
+    two_ranks("--multi-stage1-rank", root, MULTI1_TIMEOUT_S, "stage 1, ")
     ranks, npz = [], []
     for r in range(2):
         with open(os.path.join(root, f"rank{r}_s1.json")) as f:
             ranks.append(json.load(f))
         npz.append({name: load_arrays(os.path.join(root, f"rank{r}_s1_{name}.npz"))
                     for name in [*specs, "witness"]})
-    where = torch.cuda.get_device_name(0) if cuda else "the CPU"
-    print(f"  stage 1, two Gloo ranks on {where}: {ranks_s:.2f} s in all (functional timings, "
-          f"not speed: both ranks share one device)", flush=True)
 
     failures = []
 
     def fail(msg):
-        print(f"  FAILED: {msg}", flush=True)
+        print(f"  FAILED: {msg}")
         failures.append(msg)
 
     def hold(check, *args, **kwargs):
@@ -2845,14 +2685,14 @@ def multi_stage1(device, root, amazon_root, **inputs):
                  f"catalog cuts the tag heads' widths")
         print(f"  stage 1 {name} ({spec['trainer']}, {spec['steps']} mini-steps, "
               f"{'fp32' if spec['fp32'] else 'bf16'}): one process losses "
-              f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise equal {bitwise}; "
-              f"2 ranks: losses equal on both {rr[0]['loss'] == rr[1]['loss']}, seconds "
-              f"{[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
-              f"rq_assign launches per rank per audit {per_audit} (one process "
-              f"{want['rq_launches'] / want['audits']}); collectives per mini-step per rank "
-              f"{[r['bytes_per_step'] for r in rr]} bytes, of which the gradient all-reduce "
-              f"{4 * want['n_params']} (4 B x {want['n_params']} parameters); tag classes "
-              f"{want['tag_class_counts']}, {want['rare_tags']} folded", flush=True)
+              f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise {bitwise}; 2 ranks: "
+              f"losses equal {rr[0]['loss'] == rr[1]['loss']}, "
+              f"s {[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
+              f"rq_assign per rank per audit "
+              f"{per_audit} (one process {want['rq_launches'] / want['audits']}); bytes to "
+              f"collectives per mini-step per rank {[r['bytes_per_step'] for r in rr]}, "
+              f"gradients {4 * want['n_params']}; tag classes {want['tag_class_counts']}, "
+              f"{want['rare_tags']} folded")
         if not bitwise:
             fail(f"stage 1 {name}: one NCCL rank differs from one process")
         if per_audit != [want_launches] * 2 or want["rq_launches"] != want_launches * want["audits"]:
@@ -2864,8 +2704,7 @@ def multi_stage1(device, root, amazon_root, **inputs):
         if "audit_vs_plain" in rr[0]:
             n_diff, n_bad = rr[0]["audit_vs_plain"]
             print(f"  stage 1 {name}: rank 0's last audit against a plain sweep of its final "
-                  f"params on it alone: {n_diff} rows differ, {n_bad} not at a near tie",
-                  flush=True)
+                  f"params on it alone: {n_diff} rows differ, {n_bad} not at a near tie")
             if n_bad:
                 fail(f"stage 1 {name}: rank 0's audit differs from a plain sweep")
         params = [z[name]["params"] for z in npz]
@@ -2881,8 +2720,7 @@ def multi_stage1(device, root, amazon_root, **inputs):
         else:
             err = max(abs(a - b) / abs(b) for a, b in zip(rr[0]["loss"], want["loss"]))
             print(f"  stage 1 {name} 2 ranks (bf16): losses {[round(x, 5) for x in rr[0]['loss']]}"
-                  f" (largest relative difference {err:.3e}, tolerance {MULTI_LOSS_RTOL})",
-                  flush=True)
+                  f" (largest relative difference {err:.3e}, tolerance {MULTI_LOSS_RTOL})")
             if len(rr[0]["loss"]) != len(want["loss"]) or not err <= MULTI_LOSS_RTOL:
                 fail(f"stage 1 {name}: the bf16 run differs from one process")
             rec["loss_rel_err"] = err
@@ -2891,8 +2729,7 @@ def multi_stage1(device, root, amazon_root, **inputs):
             f"{name} {key} against one process") for key in ("table", "pool")}
         print(f"  stage 1 {name}: rows differing from the one-process run's "
               f"{rec['rows_differing']}" + ("" if spec["exact"] else " (printed, not held: see "
-                                            "the rounding control and the gradient witness)"),
-              flush=True)
+                                            "the rounding control and the gradient witness)"))
         record[name] = rec
 
     # How far fp32 rounding alone carries the fp32 mining run: one process
@@ -2909,8 +2746,7 @@ def multi_stage1(device, root, amazon_root, **inputs):
     print(f"  stage 1 {name}: rounding control (one process, every parameter one ulp off after "
           f"k-means): losses {[f'{e:.2e}' for e in errs]} relative, params gap {gap:.3e} of the "
           f"update, rows differing {rows}; DP 2: params gap "
-          f"{record[name].get('param_gap', math.nan):.3e}, rows {record[name]['rows_differing']}",
-          flush=True)
+          f"{record[name].get('param_gap', math.nan):.3e}, rows {record[name]['rows_differing']}")
     record[name]["rounding_control"] = dict(param_gap=gap, rows_differing=rows,
                                             loss_rel_err=max(errs))
 
@@ -2958,6 +2794,9 @@ def main():
         mining_rec = mining_phase(device, work)
     with tempfile.TemporaryDirectory() as work:
         rqvae_rec = rqvae_phase(device, work)
+    with tempfile.TemporaryDirectory() as work:
+        synthetic_launches = synthetic_phase(device, work)
+    scale_recs = scale_phase(device)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
         replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
@@ -2981,6 +2820,8 @@ def main():
             "engine_tp": multi_rec["engine_tp"]["rq_launches"]},
         launches_multi_stage1_per_rank_per_audit={
             k: v["rq_per_audit"] for k, v in multi_rec["stage1"].items() if "rq_per_audit" in v},
+        launches_synthetic=synthetic_launches,
+        launches_scale={r["n_items"]: r["rq_assign_launches"] for r in scale_recs},
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
@@ -2992,16 +2833,17 @@ def main():
             **r))
     for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec),
                     ("multi", multi_rec)):
-        print(f"  {name} record: {json.dumps(r)}", flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+        print(f"  {name} record: {json.dumps(r)}")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-    }}), flush=True)
+    }}))
 
 
 if __name__ == "__main__":
+    sys.stdout.reconfigure(line_buffering=True)  # every line reaches the log as it is printed
     if sys.argv[1:2] == ["--multi-rank"]:
         multi_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--multi-stage1-rank"]:

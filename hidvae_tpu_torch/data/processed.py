@@ -1,14 +1,15 @@
-"""Processed datasets, the reading side (counterpart of part of
-hidvae_tpu/data/processed.py): the one `.npz` a (dataset, split) is stored
-in, the per-item corpus view (with the stage-1 trainer's item batches) and
-the user-sequence view that serving reads.
+"""Processed datasets (counterpart of hidvae_tpu/data/processed.py): the one
+`.npz` a (dataset, split) is stored in, the per-item corpus view (with the
+stage-1 trainer's item batches) and the user-sequence view that serving
+reads.
 
 Plain numpy, as in the JAX package. The stage-2 trainer reads the train split
 (random-cropped on the device when `subsample`) and walks the eval and
 test splits in order (`SeqData.iter_eval_batches`, processed.py:315).
-Building a dataset (from the raw Amazon, MovieLens, KuaiRand or synthetic
-data) is not ported: a missing file raises instead of being built, and
-`force_process=True` is refused.
+`load_or_build` builds the seeded synthetic corpus (data/synthetic.py) where
+its file is missing or `force_process` is set, and saves it, as the JAX
+package does. Building AMAZON, ML_1M, ML_32M or KUAIRAND from their raw
+files is not ported: a missing file of theirs, or `force_process`, raises.
 """
 
 import os
@@ -52,6 +53,27 @@ class ProcessedArrays:
         if self.seq_split is None:
             self.seq_split = np.where(self.seq_is_train, 0, 1).astype(np.int8)
 
+    def save(self, path: str):
+        """Write the arrays to `path` (np.savez_compressed), the optional
+        ones only where present, under the JAX package's keys."""
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        data = {
+            "item_features": self.item_features,
+            "item_is_train": self.item_is_train,
+            "seq_users": self.seq_users,
+            "seq_items": self.seq_items,
+            "seq_fut": self.seq_fut,
+            "seq_is_train": self.seq_is_train,
+            "seq_split": self.seq_split,
+        }
+        if self.tags_emb is not None:
+            data["tags_emb"] = self.tags_emb
+            data["tags_indices"] = self.tags_indices
+        if self.user_features is not None:
+            data["user_features"] = self.user_features
+            data["user_feature_ids"] = self.user_feature_ids
+        np.savez_compressed(path, **data)
+
     @classmethod
     def load(cls, path: str) -> "ProcessedArrays":
         with np.load(path, allow_pickle=False) as z:
@@ -78,26 +100,31 @@ def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
     return os.path.join(root, "processed", f"{name}.npz")
 
 
-def load_processed(root: str, dataset: RecDataset, split: str = "",
-                   force_process: bool = False) -> ProcessedArrays:
-    """The processed arrays of (dataset, split) under `root`. The synthetic
-    corpus has no named splits, so its split is dropped. `force_process`
-    (rebuild from the raw data) is refused: the build side is not ported."""
-    if force_process:
-        raise NotImplementedError(
-            "force_dataset_process=True rebuilds the dataset from its raw files, and the "
-            "port has no dataset builders yet (ROADMAP.md queue 1, item 6): build it with "
-            "the JAX package's hidvae_tpu/data, then read the processed .npz")
+def load_or_build(root: str, dataset: RecDataset, split: str = "",
+                  force_process: bool = False) -> ProcessedArrays:
+    """The processed arrays of (dataset, split) under `root`: the file is read
+    unless `force_process`. The synthetic corpus has no named splits, so its
+    split is dropped; where its file is missing or forced, it is built by
+    `build_synthetic()` at its defaults and saved there (processed.py:117-149).
+    The other datasets are built from raw files, which the port cannot do
+    yet: for them a missing file or `force_process` raises."""
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"no processed dataset at {path}: the port reads processed .npz files "
-            f"and does not build them (dataset building is not ported; build it with "
-            f"the JAX package's hidvae_tpu/data)"
-        )
-    return ProcessedArrays.load(path)
+    if not force_process and os.path.exists(path):
+        return ProcessedArrays.load(path)
+    if dataset == RecDataset.SYNTHETIC:
+        from hidvae_tpu_torch.data.synthetic import build_synthetic
+
+        arrays = build_synthetic()
+        arrays.save(path)
+        return arrays
+    why = (f"no processed dataset at {path}" if not force_process else
+           f"force_dataset_process=True rebuilds {path} from the raw {dataset.name} files")
+    error = NotImplementedError if force_process else FileNotFoundError
+    raise error(f"{why}: building {dataset.name} from its raw files is not ported yet "
+                f"(ROADMAP.md queue 1 item 1.2); build it with the JAX package's "
+                f"hidvae_tpu/data, then read the processed .npz")
 
 
 class ItemData:
@@ -114,8 +141,7 @@ class ItemData:
         arrays: Optional[ProcessedArrays] = None,
     ):
         self.dataset = dataset
-        arr = arrays if arrays is not None else load_processed(root, dataset, split,
-                                                               force_process)
+        arr = arrays if arrays is not None else load_or_build(root, dataset, split, force_process)
         if train_test_split == "train":
             sel = arr.item_is_train
         elif train_test_split == "eval":
@@ -188,8 +214,7 @@ class SeqData:
     ):
         self.dataset = dataset
         self.subsample = subsample
-        arr = arrays if arrays is not None else load_processed(root, dataset, split,
-                                                               force_process)
+        arr = arrays if arrays is not None else load_or_build(root, dataset, split, force_process)
         if seq_split is not None:
             sel = arr.seq_split == ProcessedArrays.SPLIT_CODES[seq_split]
         else:

@@ -30,7 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_processed
+from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_or_build
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.ops.prefix_search import build_prefix_index_with_perm, lookup_items
 from hidvae_tpu_torch.parallel.mesh import gather_rows, shard_rows, shard_stage2_
@@ -93,7 +93,7 @@ class RetrievalEngine:
         # One read of the processed file serves the corpus and the history
         # length the decoder was trained with (a property of the dataset).
         split = g("dataset_split", "beauty")
-        arrays = load_processed(cfg["dataset_folder"], cfg["dataset"], split)
+        arrays = load_or_build(cfg["dataset_folder"], cfg["dataset"], split)
         items = ItemData(cfg["dataset_folder"], cfg["dataset"], train_test_split="all",
                          split=split, arrays=arrays)
         max_seq_len = SeqData(cfg["dataset_folder"], cfg["dataset"], split=split,

@@ -72,7 +72,7 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import load_export_arrays, state_dict_to_flax
-from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_or_build
 from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
@@ -417,7 +417,7 @@ def train(
             logger.info(f"split_batches=False: global batch = {batch_size} "
                         f"({mesh.n_data} data shards)")
         # ---- data (hidvae.py:317-376): the .npz read once, for every split ----
-        arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
+        arrays = load_or_build(dataset_folder, dataset, dataset_split, force_dataset_process)
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
                                  train_test_split="train" if do_eval else "all")
         eval_dataset = (ItemData(dataset_folder, dataset, arrays=arrays, train_test_split="eval")

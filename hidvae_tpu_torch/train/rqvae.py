@@ -5,8 +5,8 @@ hidvae_tpu/train/rqvae.py), the tokenizer of the TIGER baseline.
 its default, and `device` (`cuda` unless given; no fallback to the CPU).
 As the JAX trainer, it
   * reads the processed dataset once for its train (all without eval),
-    eval and all item splits (:87-100); `force_dataset_process=True` is
-    refused, as the dataset builders are not ported;
+    eval and all item splits (:87-100), through `load_or_build` (which
+    rebuilds only the synthetic corpus);
   * builds the RqVae (`build_model`; AMP: bf16 encoder and decoder
     products) with seeded flax-distributed weights, and either restores a
     checkpoint of this trainer (params, the optimizer state with its
@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import state_dict_to_flax
-from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_processed
+from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_or_build
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
@@ -233,7 +233,7 @@ def train(
             batch_size *= mesh.n_data  # rqvae.py: batch_size per data shard
             logger.info(f"split_batches=False: global batch = {batch_size} "
                         f"({mesh.n_data} data shards)")
-        arrays = load_processed(dataset_folder, dataset, dataset_split, force_dataset_process)
+        arrays = load_or_build(dataset_folder, dataset, dataset_split, force_dataset_process)
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
                                  train_test_split="train" if do_eval else "all")
         eval_dataset = (ItemData(dataset_folder, dataset, arrays=arrays, train_test_split="eval")

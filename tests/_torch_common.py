@@ -2,6 +2,10 @@
 numpy, as the bridge takes them, and the JAX/torch model pairs built from
 the same weights at small widths."""
 
+import importlib.util
+import os
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +13,47 @@ import torch
 from flax import traverse_util
 
 from hidvae_tpu_torch.bridge import load_flax_weights
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# One intra-op thread per test process. The tests' ops are small, and with a
+# pool of threads per op in each of the pytest-xdist workers the host's cores
+# are oversubscribed, which makes small ops several times slower (PERF.md,
+# Findings, times the suite both ways).
+torch.set_num_threads(1)
+
+
+def load_script(name):
+    """scripts/<name>.py of this checkout as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_batch_indices(seed, steps, batch, n):
+    """The batch indices of the JAX stage-1 trainers' steps (hidvae.py:645,
+    :654-655; rqvae.py:244-248)."""
+    root = jax.random.fold_in(jax.random.key(seed), 0x5EED)
+    out = {}
+    for s in steps:
+        r_sample, _ = jax.random.split(jax.random.fold_in(root, s))
+        out[s] = torch.from_numpy(np.array(jax.random.randint(r_sample, (batch,), 0, n)))
+    return out
+
+
+def write_gin(path, base, **overrides):
+    """Write `base` (gin text) with `train.<key> = <value>` lines replaced or
+    appended for each override. Returns the path."""
+    lines = [ln for ln in base.splitlines()
+             if ln.split("=")[0].strip().removeprefix("train.") not in overrides]
+    lines += [f"train.{k} = {v}" for k, v in overrides.items()]
+    Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def basenames(paths):
+    return [os.path.basename(p) for p in paths]
 
 
 def flat(tree):

@@ -14,7 +14,6 @@ checkpoints they came from, on the CPU.
 """
 
 import enum
-import importlib.util
 import json
 import logging
 import shutil
@@ -43,7 +42,15 @@ from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train import common as tcommon
 from hidvae_tpu_torch.utils.ginlite import parse_gin_file as tparse
-from tests._torch_common import flat, japply, random_variables, retrieval_pair, unflat
+from tests._torch_common import (
+    flat,
+    japply,
+    load_script,
+    write_gin,
+    random_variables,
+    retrieval_pair,
+    unflat,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 STAGE1 = ROOT / "out/hrqvae/synthetic/hrqvae_SYNTHETIC_20260816_065118/latest"
@@ -55,25 +62,7 @@ SCORE_ATOL = 1e-4
 N_HIST = 8
 
 
-def _load_converter():
-    spec = importlib.util.spec_from_file_location(
-        "export_flax_checkpoint", ROOT / "scripts/export_flax_checkpoint.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-export_checkpoint = _load_converter().export_checkpoint
-
-
-def _gin(path, base, **overrides):
-    """Write `base` (gin text) with `train.<key> = <value>` lines replaced or
-    appended for each override."""
-    lines = [ln for ln in base.splitlines()
-             if ln.split("=")[0].strip().removeprefix("train.") not in overrides]
-    lines += [f"train.{k} = {v}" for k, v in overrides.items()]
-    Path(path).write_text("\n".join(lines) + "\n")
-    return str(path)
+export_checkpoint = load_script("export_flax_checkpoint").export_checkpoint
 
 
 def _assert_same_serving(j_engine, t_engine, hist, users):
@@ -92,7 +81,7 @@ def _assert_same_serving(j_engine, t_engine, hist, users):
 def synthetic(tmp_path_factory):
     d = tmp_path_factory.mktemp("synthetic")
     base = (ROOT / "configs/decoder_synthetic.gin").read_text()
-    gin = _gin(d / "serve.gin", base, tag_class_counts=SYNTHETIC_TAG_COUNTS,
+    gin = write_gin(d / "serve.gin", base, tag_class_counts=SYNTHETIC_TAG_COUNTS,
                dataset_folder=f'"{ROOT / "dataset/synthetic"}"')
     s1 = export_checkpoint(str(STAGE1), str(d / "s1"))
     s2 = export_checkpoint(str(STAGE2), str(d / "s2"))
@@ -134,7 +123,7 @@ def test_synthetic_pair_serves_as_jax(synthetic):
 def test_wrong_stage1_tag_counts_only_warn(synthetic, caplog):
     """The config's pre-remap tag counts mismatch 6 tag-head leaves (under
     the tolerance): warnings, and the semantic columns are JAX's."""
-    gin = _gin(synthetic["dir"] / "wrong_tags.gin", synthetic["base"],
+    gin = write_gin(synthetic["dir"] / "wrong_tags.gin", synthetic["base"],
                dataset_folder=f'"{ROOT / "dataset/synthetic"}"')
     with caplog.at_level(logging.WARNING):
         engine = RetrievalEngine.from_artifacts(gin, str(synthetic["dir"] / "s1"),
@@ -274,7 +263,7 @@ def test_plain_route_serves_as_jax(plain_root, case):
     root, arts = plain_root
     dedup, interleaved = PLAIN_CASES[case]["dedup"], PLAIN_CASES[case]["interleaved"]
     art = arts[dedup]
-    gin = _gin(root / f"{case}.gin", art["base"], use_interleaved_ids=interleaved)
+    gin = write_gin(root / f"{case}.gin", art["base"], use_interleaved_ids=interleaved)
     j, t = _both_engines(art, gin)
     assert isinstance(t.tokenizer, SemanticIdTokenizer)
     assert t.sem_id_dim == 3 + dedup and not t.model.sem_id_embedder.use_interleaved_ids
@@ -287,8 +276,8 @@ def test_stale_decoder_gin_heals_from_meta(plain_root):
     engine adopts the checkpoint's values and serves as the right gin does."""
     root, arts = plain_root
     art = arts[False]
-    good = _gin(root / "good.gin", art["base"])
-    bad = _gin(root / "bad.gin", art["base"], attn_heads=8, attn_layers=4, attn_embed_dim=64)
+    good = write_gin(root / "good.gin", art["base"])
+    bad = write_gin(root / "bad.gin", art["base"], attn_heads=8, attn_layers=4, attn_embed_dim=64)
     t = RetrievalEngine.from_artifacts(bad, art["s1"] + "_export", art["s2"] + "_export",
                                        device="cpu", batch_buckets=(N_HIST,))
     m = t.model
@@ -307,7 +296,7 @@ def test_legacy_meta_with_wrong_geometry_is_refused(plain_root, tmp_path, geomet
     packages refuse the structurally incompatible restore."""
     root, arts = plain_root
     art = arts[False]
-    bad = _gin(tmp_path / "bad.gin", art["base"], **geometry)
+    bad = write_gin(tmp_path / "bad.gin", art["base"], **geometry)
     legacy = {"model_config": {"attn_dim": PLAIN["attn_embed_dim"], "sem_id_dim": 3},
               "metrics": {}}
     dirs = {}
@@ -325,7 +314,7 @@ def test_legacy_meta_with_wrong_geometry_is_refused(plain_root, tmp_path, geomet
 
 def test_from_artifacts_defaults_to_cuda(plain_root):
     root, arts = plain_root
-    gin = _gin(root / "default_device.gin", arts[False]["base"])
+    gin = write_gin(root / "default_device.gin", arts[False]["base"])
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):

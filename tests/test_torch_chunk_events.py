@@ -8,8 +8,6 @@ steps)) steps, log once per chunk and test each cadence only at chunk ends
 100-step run with log_every 20, partial eval 50 and saves every 30 logs,
 evaluates and saves at JAX's steps (evals at 60 and 100, not 50 and 100)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -21,6 +19,7 @@ from hidvae_tpu.utils import runtime as jruntime
 from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.train import transformer as trainer
 from hidvae_tpu_torch.train.common import chunk_events
+from tests._torch_common import basenames
 
 TINY = dict(n_items=200, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
             level_branching=(4, 2, 2))
@@ -64,10 +63,6 @@ def dataset_root(tmp_path_factory):
     return root
 
 
-def _names(paths):
-    return [os.path.basename(p) for p in paths]
-
-
 def test_stage2_events_fire_where_jax_fires_them(dataset_root, tmp_path, monkeypatch):
     """100 steps, log_every 20, partial eval every 50, saves every 30: the
     JAX trainer and the port log at 19, 39, .., 99, evaluate at 60 and 100
@@ -82,7 +77,7 @@ def test_stage2_events_fire_where_jax_fires_them(dataset_root, tmp_path, monkeyp
     jh, th = jres["history"], tres["history"]
     assert th["iterations"] == jh["iterations"] == [19, 39, 59, 79, 99]
     assert th["eval_iterations"] == jh["eval_iterations"] == [60, 100]
-    assert _names(tres["saved_paths"]) == _names(jres["saved_paths"]) == [
+    assert basenames(tres["saved_paths"]) == basenames(jres["saved_paths"]) == [
         "checkpoint_40", "checkpoint_60", "checkpoint_100"]
     assert all(np.isfinite(th["train_loss"]))
 
@@ -91,4 +86,4 @@ def test_stage2_events_fire_where_jax_fires_them(dataset_root, tmp_path, monkeyp
                          device="cpu", **kw)
     assert tres["history"]["iterations"] == [49, 99]
     assert tres["history"]["eval_iterations"] == [50, 100]
-    assert _names(tres["saved_paths"]) == ["checkpoint_100"]
+    assert basenames(tres["saved_paths"]) == ["checkpoint_100"]

@@ -45,8 +45,7 @@ from hidvae_tpu_torch.train import hidvae as trainer
 from hidvae_tpu_torch.train.common import restore_checkpoint
 from hidvae_tpu_torch.train.device_data import DeviceItemData, harvest_duplicate_pairs
 from tests._torch_common import assert_rel as _assert_rel
-from tests._torch_common import flat, unflat
-from tests.test_torch_rqvae_trainer import _load_script
+from tests._torch_common import flat, load_script, unflat
 from tests.test_torch_stage1_model import jax_mixup_draws, make_batch, make_pair
 
 LOSS_RTOL = 1e-4
@@ -244,7 +243,7 @@ def jax_run(dataset_root, tmp_path_factory):
                              save_dir_root=str(tmp / "jax"))
     finally:
         mp.undo()
-    converter = _load_script("export_flax_checkpoint")
+    converter = load_script("export_flax_checkpoint")
     mid, last = str(tmp / "export_2"), str(tmp / "export_4")
     converter.export_checkpoint(str(tmp / "latest_2"), mid, opt_state=True)
     converter.export_checkpoint(run["saved_paths"][-1], last, opt_state=True)

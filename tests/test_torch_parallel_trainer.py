@@ -19,7 +19,6 @@
     DP 2 x TP 2 and its next update agrees with optax's within UPDATE_TOL,
     as tests/test_torch_trainer.py holds the one-device resume."""
 
-import importlib.util
 import os
 import subprocess
 import sys
@@ -42,7 +41,7 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.parallel.mesh import make_mesh
 from tests import _torch_parallel_worker as worker
-from tests._torch_common import assert_rel, flat
+from tests._torch_common import assert_rel, flat, load_script
 from tests.test_torch_train import _batches
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -80,14 +79,6 @@ JAX_MODEL = dict(sem_id_dim=3, max_seq_len=TINY["max_seq_len"], vae_codebook_siz
                  decoder_embed_dim=16, attn_heads=2, attn_embed_dim=32, attn_layers=2, seed=0)
 
 
-def _load_converter():
-    spec = importlib.util.spec_from_file_location(
-        "export_flax_checkpoint", ROOT / "scripts/export_flax_checkpoint.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _fixed_batch(k, n=4, seed=4):
     """A [8, n * 3] batch of digits below k."""
     _, tb = _batches(8, n, 3, seed=seed)
@@ -105,7 +96,8 @@ def _jax_run(root, tmp):
     jres = jtrainer.train(iterations=2, dataset=JRecDataset.SYNTHETIC, dataset_folder=root,
                           save_dir_root=str(tmp / "jax"), n_model_shards=2, **jax_kw)
     export = str(tmp / "jax_export")
-    _load_converter().export_checkpoint(jres["saved_paths"][-1], export, opt_state=True)
+    load_script("export_flax_checkpoint").export_checkpoint(jres["saved_paths"][-1], export,
+                                                             opt_state=True)
     jb, tb = _batches(4, TINY["max_seq_len"], 3, seed=4)
     jb = jb.replace(sem_ids=jax.numpy.where(jb.sem_ids >= 0, jb.sem_ids * 2, -1),
                     sem_ids_fut=jb.sem_ids_fut * 2)

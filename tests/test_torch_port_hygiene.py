@@ -1,15 +1,9 @@
 """The port stands alone: with JAX, flax, orbax, optax and the JAX package
-refused at import, every module of hidvae_tpu_torch and chip_smoke.py still
-import, a small engine serves on the CPU, the smoke's artifacts phase writes
-small exported checkpoints and serves them through `from_artifacts` on both
-tokenizer routes, the smoke's training path trains a small model there, and
-its stage-1 phase drives scripts/torch_train_hidvae.py (train, resume,
-audit, throughput) and its trainer phase scripts/torch_train_transformer.py
-on that checkpoint (train, resume, serve the checkpoint, remat), its multi
-phase the trainer and the engine on a process group (Gloo here), its mining
-phase the stage-1 entry with duplicate-pair mining and its rqvae phase
-scripts/torch_train_rqvae.py (train, resume, audit, serve the checkpoint).
-And the port's sources are small text files."""
+refused at import, every module of hidvae_tpu_torch and chip_smoke.py
+imports, a small engine serves on the CPU, and chip_smoke.py's artifacts,
+train, stage1, trainer and multi phases run at tiny widths (its later
+phases: tests/test_torch_port_phases.py, a second subprocess that another
+test worker takes). And the port's sources are small text files."""
 
 import os
 import subprocess
@@ -21,7 +15,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "hidvae_tpu_torch"
 SKIP_DIRS = {"__pycache__", "_build"}  # interpreter caches and kernel builds
 
-HYGIENE_SCRIPT = textwrap.dedent('''
+# Both subprocesses refuse JAX at import, import every module of the port,
+# serve a small engine and print "modules N resolved R" last.
+PRELUDE = textwrap.dedent('''
+
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "orbax", "optax", "hidvae_tpu"}
@@ -38,6 +35,8 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     for name in names:
         importlib.import_module(name)
     assert "hidvae_tpu_torch.parallel.mesh" in names and "hidvae_tpu_torch.parallel.dryrun" in names
+    import os, tempfile
+    import torch
     import chip_smoke
     import tests._torch_parallel_worker  # the multi-rank tests' ranks import no JAX either
 
@@ -50,23 +49,25 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     out = engine.recommend(hist, top_k=5)
     resolved = chip_smoke.check_recommendations(engine, out, tiny["n_items"])
 
-    # The smoke's artifacts phase at tiny widths: exported checkpoints, a
-    # processed dataset and a gin in a temporary directory, served through
-    # from_artifacts(device="cpu") on the H route (held equal to the
-    # in-process engine) and the plain route (held to a plain sweep). The
-    # plain version of rq_assign runs here, so no launch is counted.
-    import torch
     tiny_plain = dict(tiny, tag_class_counts=None, codebook_normalize=False)
+''')
+EPILOGUE = textwrap.dedent('''
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("modules", len(names), "resolved", resolved)
+''')
+HYGIENE_SCRIPT = textwrap.dedent('''
+    # The smoke's artifacts phase: from_artifacts on the H route (held to the
+    # in-process engine) and the plain route (held to a plain sweep); the
+    # plain rq_assign runs here, so no launch is counted.
     launches = chip_smoke.artifacts_phase(torch.device("cpu"), engine, items, hist,
                                           amazon=tiny, ml32m=tiny_plain)
     assert launches == {"amazon": 0, "ml32m": 0}, launches
     # The serve phase's tokenize_features check (no launch on the CPU).
     assert chip_smoke.check_tokenize_features(engine.tokenizer, items, hist) == 0
 
-    # The smoke's training path on the CPU: a short run (dense attention) and
-    # one over 1 + 350 * 6 = 2,101 tokens (the flash route, whose plain
-    # version runs here). No kernel launches on the CPU, so the checks are
-    # held to zero launches, with the sweep's count stood in for.
+    # The smoke's training path: a short run (dense) and one of 2,101 tokens
+    # (the flash route's plain version), held to zero kernel launches.
     tiny.update(precision="fp32")
     vae, feats = chip_smoke.build_vae(tiny, torch.Generator().manual_seed(0))
     for max_seq_len in (6, 350):
@@ -77,13 +78,8 @@ HYGIENE_SCRIPT = textwrap.dedent('''
         before, after = chip_smoke.fixed_batch_descent(result, data, 4, 2)
         assert after < before, (before, after)
 
-    # The smoke's stage-1 phase at tiny widths: the gin entry script trains
-    # 2N mini-steps with evals, audits and saves, N + a resume for N (bitwise
-    # here), the audit's table equals a plain sweep, and the throughput
-    # loop runs. Then its trainer phase on the stage-1 phase's checkpoint:
-    # 2N steps, N + a resume for N (bitwise here), the checkpoint serves
-    # through from_artifacts, and remat agrees with the plain run.
-    import os, tempfile
+    # The smoke's stage-1 phase (resume bitwise here), then its trainer phase
+    # on that checkpoint (resume bitwise, served, remat equal to plain).
     with tempfile.TemporaryDirectory() as work:
         s1, rec1 = chip_smoke.stage1_phase(
             torch.device("cpu"), feats, os.path.join(work, "stage1"), cfg=tiny, n=2,
@@ -106,42 +102,24 @@ HYGIENE_SCRIPT = textwrap.dedent('''
     assert rec["remat"]["param_gap"] == 0.0, rec["remat"]
     assert multi["nccl_1"]["bitwise"] and multi["tp"]["bytes_per_step"] > 0, multi
 
-    # The smoke's mining phase at tiny widths (L 4, the xxl_m gin's other
-    # keys as the repo holds them, bf16 included): planted near-copies
-    # collide, the pool refreshes at each audit and survives the resume.
-    with tempfile.TemporaryDirectory() as work:
-        tiny_xxl = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16,
-                        n_layers=4, tag_embed_dim=12, tag_tree=(4, 3, 3), n_items=600)
-        rec = chip_smoke.mining_phase(torch.device("cpu"), work, cfg=tiny_xxl, n=2,
-                                      settings=(("mining", 32, 1),), timed=(1, 1),
-                                      batch_size=32, sem_id_mining_pool=64, rare_tag_threshold=3)
-    assert rec["resume_gaps"] == {"params": 0.0, "batch_stats": 0.0, "mu": 0.0, "nu": 0.0}, rec
-    assert rec["collision_rate"][-1] > 0 and rec["pool_colliding"] == 1.0, rec
-
-    # The smoke's rqvae phase at tiny widths: the gin entry script, resume,
-    # the audit's table against a plain sweep, and the served checkpoint.
-    with tempfile.TemporaryDirectory() as work:
-        rec = chip_smoke.rqvae_phase(torch.device("cpu"), work, cfg=dict(tiny_plain, n_items=400),
-                                     n=2, timed=(1, 1), batch_size=16)
-    assert rec["resume_gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-    assert not leaked, leaked
-    print("modules", len(names), "resolved", resolved)
 ''')
 
 
-def test_port_imports_and_serves_without_jax():
-    # One intra-op thread: the script's ops are tiny, and beside other test
-    # workers on the same cores a thread pool per op makes it several times
-    # slower, not faster.
+def run_without_jax(script):
+    """PRELUDE + `script` + EPILOGUE in a subprocess; it must exit 0 and
+    print its module and resolved counts last."""
+    # One intra-op thread, as tests/_torch_common.py sets it for the workers.
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", HYGIENE_SCRIPT], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", PRELUDE + textwrap.dedent(script) + EPILOGUE],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     last = res.stdout.splitlines()[-1].split()  # the phases print before it
-    n_modules = int(last[1])
-    assert n_modules >= 20
+    assert int(last[1]) >= 20
     assert int(last[3]) > 0
+
+
+def test_port_imports_and_serves_without_jax():
+    run_without_jax(HYGIENE_SCRIPT)
 
 
 def _port_sources():

@@ -20,7 +20,6 @@ REL_TOL of the largest entry of each JAX array (its own, not a common
 scale)."""
 
 import functools
-import importlib.util
 import inspect
 import json
 import os
@@ -50,7 +49,15 @@ from hidvae_tpu_torch.train.common import restore_checkpoint
 from hidvae_tpu_torch.train.device_data import DeviceItemData
 from hidvae_tpu_torch.utils.config import parse_config_and_run
 from tests._torch_common import assert_rel as _assert_rel
-from tests._torch_common import flat, random_variables, unflat
+from tests._torch_common import (
+    basenames,
+    flat,
+    jax_batch_indices,
+    load_script,
+    random_variables,
+    unflat,
+    write_gin,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-4
@@ -66,10 +73,6 @@ RQ = dict(batch_size=16, learning_rate=1e-3, weight_decay=0.015, max_grad_norm=0
 
 def assert_rel(got, want, tol=REL_TOL, err_msg=""):
     _assert_rel(got, want, tol, err_msg)
-
-
-def _names(paths):
-    return [os.path.basename(p) for p in paths]
 
 
 # ---- the model --------------------------------------------------------------
@@ -127,23 +130,6 @@ def _port(root, tmp, name, **kw):
     return trainer.train(**args)
 
 
-def _load_script(name):
-    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _jax_indices(seed, steps, batch, n):
-    """The batch indices of the JAX trainer's steps (rqvae.py:244-248)."""
-    root = jax.random.fold_in(jax.random.key(seed), 0x5EED)
-    out = {}
-    for s in steps:
-        r_sample, _ = jax.random.split(jax.random.fold_in(root, s))
-        out[s] = torch.from_numpy(np.array(jax.random.randint(r_sample, (batch,), 0, n)))
-    return out
-
-
 @pytest.fixture(scope="module")
 def jax_run(dataset_root, tmp_path_factory):
     """The JAX trainer, 2 + 2 mini-steps (rotation trick), and the export of
@@ -158,14 +144,14 @@ def jax_run(dataset_root, tmp_path_factory):
     finally:
         mp.undo()
     export = str(tmp / "export")
-    arrays = _load_script("export_flax_checkpoint").export_checkpoint(
+    arrays = load_script("export_flax_checkpoint").export_checkpoint(
         run["saved_paths"][0], export, opt_state=True)
     return run, export, arrays
 
 
 def test_jax_checkpoint_restores_bitwise(jax_run, dataset_root, tmp_path):
     run, export, arrays = jax_run
-    assert _names(run["saved_paths"]) == ["checkpoint_1", "checkpoint_3"]
+    assert basenames(run["saved_paths"]) == ["checkpoint_1", "checkpoint_3"]
     probe = _port(dataset_root, tmp_path, "probe", iterations=0, use_kmeans_init=False,
                   vae_codebook_mode=QuantizeForwardMode.ROTATION_TRICK)
     model, opt = probe["model"], probe["optimizer"]
@@ -192,7 +178,7 @@ def test_resume_follows_jax(jax_run, dataset_root, tmp_path, monkeypatch):
     run, export, _ = jax_run
     n_train = int(np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))
                   ["item_is_train"].sum())
-    idx = _jax_indices(RQ["seed"], range(2, 4), RQ["batch_size"], n_train)
+    idx = jax_batch_indices(RQ["seed"], range(2, 4), RQ["batch_size"], n_train)
     order = iter(range(2, 4))
     monkeypatch.setattr(DeviceItemData, "sample",
                         lambda self, g, b, n=0: self.gather(idx[next(order)]))
@@ -201,7 +187,7 @@ def test_resume_follows_jax(jax_run, dataset_root, tmp_path, monkeypatch):
     jh, th = run["history"], port["history"]
     assert jh["iterations"] == [1, 3] and th["iterations"] == [3]
     assert jh["eval_iterations"] == [2, 4] and th["eval_iterations"] == [4]
-    assert _names(port["saved_paths"]) == ["checkpoint_3"]
+    assert basenames(port["saved_paths"]) == ["checkpoint_3"]
     assert th["repetition_rate"] == jh["repetition_rate"][-1:]
     assert th["max_id_duplicates"] == jh["max_id_duplicates"][-1:]
     for key in ("total_loss", "reconstruction_loss", "rqvae_loss", "eval_total_loss",
@@ -240,8 +226,8 @@ def port_runs(dataset_root, tmp_path_factory):
 def test_port_resume_is_bitwise(port_runs):
     full, half, resumed = port_runs
     assert full["step"] == resumed["step"] == 4 and half["step"] == 2
-    assert _names(full["saved_paths"]) == ["checkpoint_1", "checkpoint_3"]
-    assert _names(resumed["saved_paths"]) == ["checkpoint_3"]
+    assert basenames(full["saved_paths"]) == ["checkpoint_1", "checkpoint_3"]
+    assert basenames(resumed["saved_paths"]) == ["checkpoint_3"]
     for key in ("total_loss", "eval_total_loss", "repetition_rate", "rqvae_entropy"):
         assert full["history"][key][-1] == resumed["history"][key][-1], key
     a, b = state_dict_to_flax(full["model"])[0], state_dict_to_flax(resumed["model"])[0]
@@ -279,9 +265,9 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
              "train.use_h_tokenizer = False"]
     gin = tmp_path / "decoder.gin"
     gin.write_text("\n".join(lines) + "\n")
-    out = _load_script("torch_train_transformer").main([str(gin), "--stage1", s1,
-                                                         "--device", "cpu"])
-    assert out["step"] == 2 and _names(out["saved_paths"]) == ["checkpoint_2"]
+    out = load_script("torch_train_transformer").main([str(gin), "--stage1", s1,
+                                                        "--device", "cpu"])
+    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["checkpoint_2"]
     assert isinstance(out["tokenizer"], SemanticIdTokenizer)
     feats = np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))["item_features"]
     own = SemanticIdTokenizer(resumed["model"], n_layers=3, codebook_size=16, device="cpu")
@@ -301,26 +287,23 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):
     """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin, every key kept
     but the widths, the cadence, the dataset and force_dataset_process
-    (which is refused as given): trains, evaluates, audits and saves; a
-    save re-audits unless its chunk audited (rqvae.py:327-333)."""
+    (which is refused as given: the ML-32M builder is not ported): trains,
+    evaluates, audits and saves; a save re-audits unless its chunk audited
+    (rqvae.py:327-333)."""
     text = (ROOT / "configs/rqvae_ml32m.gin").read_text()
     over = {"iterations": "8", "batch_size": "16", "vae_input_dim": "32",
             "vae_hidden_dims": "[32, 16]", "vae_embed_dim": "8", "vae_codebook_size": "16",
             "save_model_every": "2", "eval_every": "4",
-            "dataset": "%data.processed.RecDataset.SYNTHETIC",
-            "dataset_folder": f'"{dataset_root}"', "save_dir_root": f'"{tmp_path / "runs"}"'}
-    lines = []
-    for line in text.splitlines():
-        key = line.split("=")[0].strip().removeprefix("train.")
-        lines.append(f"train.{key} = {over[key]}" if key in over and "=" in line else line)
-    gin = tmp_path / "rq.gin"
-    gin.write_text("\n".join(lines) + "\ntrain.eval_batches = 1\n")
-    script = _load_script("torch_train_rqvae")
-    with pytest.raises(NotImplementedError, match="force_dataset_process"):
-        script.main([str(gin), "--device", "cpu"])
-    gin.write_text(gin.read_text() + "train.force_dataset_process = False\n")
-    out = script.main([str(gin), "--device", "cpu"])
-    assert out["step"] == 8 and _names(out["saved_paths"]) == [
+            "dataset_folder": f'"{dataset_root}"', "save_dir_root": f'"{tmp_path / "runs"}"',
+            "eval_batches": "1"}
+    gin = write_gin(tmp_path / "rq.gin", text, **over)
+    script = load_script("torch_train_rqvae")
+    with pytest.raises(NotImplementedError, match="force_dataset_process.*queue 1 item 1.2"):
+        script.main([gin, "--device", "cpu"])
+    gin = write_gin(gin, text, **over, dataset="%data.processed.RecDataset.SYNTHETIC",
+                    force_dataset_process="False")
+    out = script.main([gin, "--device", "cpu"])
+    assert out["step"] == 8 and basenames(out["saved_paths"]) == [
         "checkpoint_1", "checkpoint_3", "checkpoint_5", "checkpoint_7"]
     assert out["history"]["eval_iterations"] == [4, 8]
     # The saves at 2 and 6 audit on their own (the audit at 4 is stale at 6);

@@ -43,7 +43,7 @@ from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.train import hidvae
 from tests import _torch_parallel_worker as worker
-from tests._torch_common import flat, unflat
+from tests._torch_common import flat, jax_batch_indices, unflat
 
 ROOT = Path(__file__).resolve().parent.parent
 # fp32: the ranks' sums (all-reduced statistics and means, summed gradients)
@@ -83,16 +83,6 @@ DETERMINISTIC = dict(dropout_rate=0.0, use_mixup=False, eval_tta=False, sem_id_m
 JAX_RUN = dict(DETERMINISTIC, iterations=2, eval_every=4, save_model_every=4)
 
 
-def _jax_indices(seed, steps, batch, n):
-    """The batch indices of the JAX trainer's steps (hidvae.py:645, :654-655)."""
-    root = jax.random.fold_in(jax.random.key(seed), 0x5EED)
-    out = {}
-    for s in steps:
-        r_sample, _ = jax.random.split(jax.random.fold_in(root, s))
-        out[s] = torch.from_numpy(np.array(jax.random.randint(r_sample, (batch,), 0, n)))
-    return out
-
-
 def _jax_run(root, tmp):
     """The port's run of JAX_RUN (one process), its `latest` written as an
     Orbax checkpoint (params, batch statistics, the optimizer state as flax
@@ -125,7 +115,7 @@ def _jax_run(root, tmp):
         monkey.undo()
     n_train = int(np.load(j_processed_path(root, JRecDataset.SYNTHETIC))["item_is_train"].sum())
     start = int(arrays["step"])
-    batches = _jax_indices(HIDVAE["seed"], range(start, 2 * start), HIDVAE["batch_size"],
+    batches = jax_batch_indices(HIDVAE["seed"], range(start, 2 * start), HIDVAE["batch_size"],
                            n_train)
     return jres, latest, batches
 

@@ -22,7 +22,6 @@ train-mode BatchNorm has a gradient of 0 up to rounding, which Adam scales
 to a step of up to the learning rate, so it is held to that."""
 
 import functools
-import importlib.util
 import inspect
 import os
 from pathlib import Path
@@ -54,7 +53,14 @@ from hidvae_tpu_torch.train.common import make_lr_schedule, make_optimizer, rest
 from hidvae_tpu_torch.train.device_data import DeviceItemData
 from hidvae_tpu_torch.utils.config import parse_config_and_run
 from tests._torch_common import assert_rel as _assert_rel
-from tests._torch_common import flat, unflat
+from tests._torch_common import (
+    basenames,
+    flat,
+    jax_batch_indices,
+    load_script,
+    unflat,
+    write_gin,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-4
@@ -78,10 +84,6 @@ DETERMINISTIC = dict(dropout_rate=0.0, use_mixup=False, eval_tta=False)
 
 def assert_rel(got, want, tol=REL_TOL, err_msg=""):
     _assert_rel(got, want, tol, err_msg)
-
-
-def _names(paths):
-    return [os.path.basename(p) for p in paths]
 
 
 # ---- the optimizer ----------------------------------------------------------
@@ -187,24 +189,6 @@ def _port(root, tmp, name, **kw):
     return trainer.train(**args)
 
 
-def _load_converter():
-    spec = importlib.util.spec_from_file_location(
-        "export_flax_checkpoint", ROOT / "scripts/export_flax_checkpoint.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _jax_indices(seed, steps, batch, n):
-    """The batch indices of the JAX trainer's steps (hidvae.py:645, :654-655)."""
-    root = jax.random.fold_in(jax.random.key(seed), 0x5EED)
-    out = {}
-    for s in steps:
-        r_sample, _ = jax.random.split(jax.random.fold_in(root, s))
-        out[s] = torch.from_numpy(np.array(jax.random.randint(r_sample, (batch,), 0, n)))
-    return out
-
-
 def test_jax_checkpoint_resumes_and_follows_jax(dataset_root, tmp_path, monkeypatch):
     monkeypatch.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache
     monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
@@ -213,9 +197,10 @@ def test_jax_checkpoint_resumes_and_follows_jax(dataset_root, tmp_path, monkeypa
                vae_codebook_mode=JMode.ROTATION_TRICK, iterations=2, save_model_every=2,
                eval_every=2)
     first = jtrainer.train(save_dir_root=str(tmp_path / "jax_a"), **jkw)
-    assert _names(first["saved_paths"]) == ["latest", "latest"]
+    assert basenames(first["saved_paths"]) == ["latest", "latest"]
     export = str(tmp_path / "export")
-    _load_converter().export_checkpoint(first["saved_paths"][-1], export, opt_state=True)
+    load_script("export_flax_checkpoint").export_checkpoint(first["saved_paths"][-1], export,
+                                                             opt_state=True)
     resumed_j = jtrainer.train(save_dir_root=str(tmp_path / "jax_b"),
                                pretrained_hrqvae_path=first["saved_paths"][-1], **jkw)
 
@@ -242,7 +227,7 @@ def test_jax_checkpoint_resumes_and_follows_jax(dataset_root, tmp_path, monkeypa
     # The resume, fed JAX's batches.
     n_train = int(np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))
                   ["item_is_train"].sum())
-    idx = _jax_indices(S1["seed"], range(4, 8), S1["batch_size"], n_train)
+    idx = jax_batch_indices(S1["seed"], range(4, 8), S1["batch_size"], n_train)
     order = iter(range(4, 8))
     monkeypatch.setattr(DeviceItemData, "sample",
                         lambda self, g, b, n=0: self.gather(idx[next(order)]))
@@ -251,7 +236,7 @@ def test_jax_checkpoint_resumes_and_follows_jax(dataset_root, tmp_path, monkeypa
     jh, th = resumed_j["history"], resumed["history"]
     assert th["iterations"] == jh["iterations"] == [5, 7]
     assert th["eval_iterations"] == jh["eval_iterations"] == [6, 8]
-    assert _names(resumed["saved_paths"]) == _names(resumed_j["saved_paths"])
+    assert basenames(resumed["saved_paths"]) == basenames(resumed_j["saved_paths"])
     assert resumed["tag_class_counts"] == list(resumed_j["tag_class_counts"])
     assert th["repetition_rate"] == jh["repetition_rate"]
     for key in ("total_loss", "reconstruction_loss", "tag_pred_loss", "eval_total_loss",
@@ -361,12 +346,9 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
              "train.use_concatenated_ids = True"]
     gin = tmp_path / "decoder.gin"
     gin.write_text("\n".join(lines) + "\n")  # tag_class_counts healed from the stage-1 meta
-    spec = importlib.util.spec_from_file_location(
-        "torch_train_transformer", ROOT / "scripts/torch_train_transformer.py")
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
+    script = load_script("torch_train_transformer")
     out = script.main([str(gin), "--stage1", s1, "--device", "cpu"])
-    assert out["step"] == 2 and _names(out["saved_paths"]) == ["checkpoint_2"]
+    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["checkpoint_2"]
 
     feats = np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))["item_features"]
     own = HSemanticIdTokenizer(resumed["model"], n_layers=3, codebook_size=32,
@@ -391,20 +373,10 @@ def test_entry_script_runs_the_gin(dataset_root, tmp_path):
             "tag_embed_dim": "16", "tag_class_counts": "[4, 12, 36]", "save_model_every": "2",
             "eval_every": "2", "dataset": "%data.tags_processed.RecDataset.SYNTHETIC",
             "dataset_folder": f'"{dataset_root}"', "save_dir_root": f'"{tmp_path / "runs"}"',
-            "rare_tag_threshold": "8"}
-    lines = []
-    for line in text.splitlines():
-        key = line.split("=")[0].strip().removeprefix("train.")
-        lines.append(f"train.{key} = {over[key]}" if key in over and "=" in line else line)
-    lines.append("train.eval_batches = 1")
-    gin = tmp_path / "s1.gin"
-    gin.write_text("\n".join(lines) + "\n")
-    spec = importlib.util.spec_from_file_location("torch_train_hidvae",
-                                                  ROOT / "scripts/torch_train_hidvae.py")
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    out = script.main([str(gin), "--device", "cpu"])
-    assert out["step"] == 2 and _names(out["saved_paths"]) == ["latest"]
+            "rare_tag_threshold": "8", "eval_batches": "1"}
+    gin = write_gin(tmp_path / "s1.gin", text, **over)
+    out = load_script("torch_train_hidvae").main([gin, "--device", "cpu"])
+    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["latest"]
     assert (tmp_path / "runs" / "special_tags_files" / "rare_tags.npz").exists()
     assert out["history"]["eval_iterations"] == [2]
     assert np.isfinite(out["history"]["total_loss"]).all()
