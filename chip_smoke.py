@@ -1,26 +1,18 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: python3 chip_smoke.py
 
-    python3 chip_smoke.py
-
-Builds the port's CUDA kernels (rq_assign, flash attention) from the sources
-in this checkout, all builds started together, and holds each against its
-plain PyTorch version at the shapes the port's paths give it. Then drives
-the port's paths through their entry points, with weights and data made
-from a seed at the widths of the repo's configs (PERF.md section 4 lists
-each phase's cell and cuts): serve, artifacts (`from_artifacts` on both
-tokenizer routes), train (dense and flash routes), stage1 and trainer (the
-stage-1 and stage-2 gin entries, resume, serving the checkpoint, remat),
-multi (process groups: stage 2 DP/TP and the engine, stage-1 data
-parallelism), mining, rqvae, synthetic (scripts/torch_make_synthetic.py's
-`large` corpus trained from configs/h_rqvae_synthetic_large.gin) and scale
-(scripts/torch_bench_scale.py at 200,000 and 1,000,000 items). Each path's
-kernel launch counts are set to 0 just before it and read just after, and
-its outputs are held to a plain version or to the run it must equal. Every
-phase prints its start and end; the line before the last is the kernels'
-JSON record, the last {"ok": true, "device": {...}}. Exits non-zero without
-a CUDA device. Imports nothing of JAX or of the JAX package, and reads no
-file but the port's sources, the gin files it cuts line by line (so that
-the gin it runs cannot drift from the repo's) and what it writes itself.
+Builds the CUDA kernels (rq_assign, flash attention) from this checkout, one
+nvcc each, all at once, and holds each against its plain PyTorch version at
+the shapes the port's paths give it. Then drives the paths through their
+entry points on seeded weights and data at the configs' widths (PERF.md
+section 4): serve, artifacts, train, stage1, trainer, multi, mining, rqvae,
+synthetic, raw (P5 Sports built from raw files, trained and served; the
+MovieLens builders without pandas) and scale. Launch counts are set to 0
+just before each path and read just after; outputs are held to a plain
+version or to the run they must equal. Every phase prints its start and
+end; the line before the last is the kernels' JSON, the last {"ok": true,
+"device": {...}}. Exits non-zero without a CUDA device. Imports nothing of
+JAX, and reads no file but the port's sources, the gins it cuts line by line
+(so that they cannot drift from the repo's) and what it writes itself.
 """
 
 import inspect
@@ -57,25 +49,21 @@ from hidvae_tpu_torch.utils.ginlite import parse_gin_file
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SEED = 0
-# configs/h_rqvae_amazon.gin + configs/decoder_amazon.gin; MAX_SEQ_LEN of
-# hidvae_tpu/data/amazon.py:40; the corpus size of the P5 Sports split.
+# configs/{h_rqvae,decoder}_amazon.gin; 20-item histories; the P5 Sports split's items.
 AMAZON = dict(
     input_dim=768, hidden_dims=(512, 256, 128), embed_dim=32, codebook_size=256,
     n_layers=3, codebook_normalize=True, tag_class_counts=(38, 168, 348),
     tag_embed_dim=768, decoder_embed_dim=128, attn_embed_dim=512, attn_heads=8,
     attn_layers=8, max_seq_len=20, n_items=18357,
 )
-# configs/rqvae_ml32m.gin + configs/decoder_ml32m.gin (the plain RQ-VAE
-# route); the movie count of MovieLens 32M and its 200-item window
-# (scripts/make_synthetic_ml32m.py:34): 1 + 200 * 3 = 601 tokens.
+# configs/{rqvae,decoder}_ml32m.gin (the plain RQ-VAE route); MovieLens 32M's
+# movies and 200-item windows: 1 + 200 * 3 = 601 tokens.
 ML32M = dict(
     input_dim=768, hidden_dims=(512, 256, 128), embed_dim=64, codebook_size=256,
     n_layers=3, codebook_normalize=False, tag_class_counts=None, decoder_embed_dim=128,
     attn_embed_dim=384, attn_heads=6, attn_layers=8, max_seq_len=200, n_items=87585,
 )
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
-# The decoder configs, read as the checkout holds them; `decoder_gin` sets
-# the widths of the run and the dataset folder.
 DECODER_AMAZON_GIN = os.path.join(CONFIGS, "decoder_amazon.gin")
 DECODER_ML32M_GIN = os.path.join(CONFIGS, "decoder_ml32m.gin")
 ARTIFACT_HISTORIES = 32  # histories in the written dataset, and per request
@@ -94,13 +82,11 @@ KERNEL_CASES = (  # (B, D, L, K)
     (3392, 32, 4, 256),
     (640, 32, 3, 256),       # tokenize_features of the serve batch: 32 x 20 rows
 )
-# Timed: a sweep chunk (the main path's launch), 1M rows, the ML-32M build's
-# two launch shapes (D 64), the mining audit's two (L 4), tokenize_features.
+# Timed: the main path's launch, 1M rows, ML-32M's and mining's launches, tokenize.
 TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
                (5665, 64, 3, 256), (8192, 32, 4, 256), (3392, 32, 4, 256),
                (640, 32, 3, 256))
-# Codes made identical, far apart in K: a row nearest to them must get the
-# first, as argmin gives it.
+# Codes made identical: a row nearest to them must get the first, as argmin does.
 DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
 KMEANS_ITERS = 10  # Lloyd steps of the seeded models' codebooks
@@ -173,9 +159,8 @@ def median_ms(fn, runs=10, warmup=3):
 
 
 def graph_ms(fn, launches=20):
-    """Device ms of one call of fn: `launches` calls captured in a CUDA
-    graph, replayed between two events (median of 5), so that the host's
-    launch time is not counted."""
+    """Device ms of one fn() call: `launches` calls replayed from a CUDA graph
+    (median of 5), the host's launch time left out."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -186,9 +171,9 @@ def graph_ms(fn, launches=20):
 
 
 def rq_bound_ms(b, d, n_levels, k):
-    """Least time for rq_assign on an H100 SXM: each input read once and each
-    output written once over the memory rate, against the distance products
-    (2*B*K*D*L fp32 operations) over the fp32 rate. Returns (ms, bound_by)."""
+    """Least rq_assign time on an H100 SXM: the larger of its bytes (each
+    input read once, each output written once) over the memory rate and
+    2*B*K*D*L over the fp32 rate. Returns (ms, bound_by)."""
     bytes_moved = 4 * (b * d + n_levels * k * d + b * n_levels + b * d)
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = 2.0 * b * k * d * n_levels / H100_FP32_FLOPS * 1e3
@@ -198,11 +183,9 @@ def rq_bound_ms(b, d, n_levels, k):
 # ---- model and corpus -----------------------------------------------------
 
 def seed_codebooks_(vae, feats, generator):
-    """k-means codebooks, level by level, as the stage-1 trainer's k-means
-    init sets them: K distinct seeded items' residuals, then KMEANS_ITERS
-    Lloyd steps (an empty cluster keeps its code), so that the corpus
-    spreads over the ID space and the audit's collapse guard has a low
-    recorded repetition rate to hold the rebuilt table to."""
+    """k-means codebooks level by level, as the trainer's k-means init: K
+    seeded items' residuals, then KMEANS_ITERS Lloyd steps, so that the
+    audit's collapse guard has a low repetition rate to hold to."""
     with torch.no_grad(), full_fp32():
         enc = vae.encode(feats)
         for q in vae.layers:
@@ -227,9 +210,8 @@ def unit_rows(n, dim, generator):
 
 
 def write_items(path, feats, rng, hist=None, **arrays):
-    """The processed .npz at `path`: the items `feats` (95 % of them in the
-    train split, drawn from `rng`), the histories `hist` (or one
-    placeholder) and `arrays` (tags)."""
+    """The processed .npz at `path`: items `feats` (95 % train), histories
+    `hist` (or one placeholder) and `arrays` (tags)."""
     n = len(feats)
     hist = np.zeros((1, 2), np.int32) if hist is None else hist.astype(np.int32)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -240,9 +222,8 @@ def write_items(path, feats, rng, hist=None, **arrays):
 
 
 def build_vae(cfg, generator):
-    """The frozen stage-1 model with seeded weights and codebooks, and the
-    seeded unit-norm item features it indexes (a CPU tensor): a HiD-VAE
-    where cfg has tag counts, else the plain RQ-VAE."""
+    """(seeded frozen stage-1 model, seeded unit-norm CPU features): a
+    HiD-VAE where cfg has tag counts, else the plain RQ-VAE."""
     g = generator
     feats = unit_rows(cfg["n_items"], cfg["input_dim"], g)
     widths = (cfg["input_dim"], cfg["embed_dim"], cfg["hidden_dims"], cfg["codebook_size"])
@@ -371,10 +352,9 @@ def duplicate_codes_(x, cbs, generator):
 
 @phase("kernel")
 def kernel_phase(device):
-    """rq_assign against its plain version on every KERNEL_CASES shape and
-    on duplicated codes; times at TIMED_CASES, with each launch's codebook
-    staging. Returns the 1M-row record, with the paths' launch shapes
-    under `at_*` keys."""
+    """rq_assign against its plain version at every KERNEL_CASES shape and
+    on duplicated codes, timed at TIMED_CASES. Returns the 1M-row record,
+    the paths' launch shapes under `at_*` keys."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -467,10 +447,9 @@ def serve_phase(device):
 
 
 def check_tokenize_features(tok, items, hist):
-    """tokenize_features of the histories `hist`' features (one rq_assign
-    launch of B * N rows on the card) against the table's gather: IDs equal
-    outside near ties, tags where the IDs are, -1 at padding. Returns the
-    launches."""
+    """tokenize_features of `hist`' features (one launch of B * N rows on
+    the card) against the table's gather: IDs equal but near ties, tags
+    where the IDs are, -1 at padding. Returns the launches."""
     valid = hist >= 0
     x = items[np.where(valid, hist, 0)]
     rq.rq_assign.launches = 0
@@ -518,9 +497,8 @@ def serve_p50(engine, hist):
 
 
 def plain_sweep(vae, feats, chunk):
-    """The corpus swept with the plain rq_assign, chunk by chunk as the
-    engine's sweep cuts it: (semantic IDs, near-tie flags, predicted tags or
-    None for the plain RQ-VAE), [N, L] / [N, L] / [N, T]."""
+    """The corpus swept by the plain rq_assign in the engine's chunks:
+    (IDs [N, L], near-tie flags [N, L], predicted tags or None)."""
     ids, ties, tags = [], [], []
     with torch.inference_mode(), full_fp32():
         cbs = vae.stacked_codebooks()
@@ -535,10 +513,9 @@ def plain_sweep(vae, feats, chunk):
 
 
 def audit_table(name, model, tag_class_counts, feats, device, rep=None):
-    """The trained HiD-VAE's table of `feats` (numpy) through rq_assign
-    against a plain sweep: rows differ at near ties only, and where none
-    differs the repetition rate equals the audit's `rep`. Returns (table,
-    rq_assign launches)."""
+    """The trained HiD-VAE's table of `feats` through rq_assign against a
+    plain sweep (near ties apart; the audit's repetition `rep` where no
+    row differs). Returns (table, launches)."""
     tok = HSemanticIdTokenizer(model, n_layers=len(model.layers),
                                codebook_size=model.codebook_size,
                                tag_class_counts=tag_class_counts, device=device)
@@ -581,10 +558,8 @@ def vae_widths(cfg):
 
 
 def decoder_gin(source, cfg, folder, **bindings):
-    """The gin file `source` with its width keys set to cfg's, dataset_folder
-    to `folder` and each of `bindings` (gin literals) set, replaced where the
-    file binds it and appended where not; every other key as the file has
-    it."""
+    """The gin `source` with cfg's widths, dataset_folder `folder` and
+    `bindings` (gin literals), replaced where bound, else appended."""
     with open(source) as f:
         text = f.read()
     tags = cfg.get("tag_class_counts")
@@ -606,11 +581,10 @@ def decoder_gin(source, cfg, folder, **bindings):
 
 
 def write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table):
-    """Under `root`: the decoder gin, the processed dataset it reads (`feats`,
-    `hist`) and exported checkpoints of `vae` and `model`, with the metas
-    the JAX trainers record (stage 1: every structural value and the
-    repetition rate of `sem_table`, so the collapse guard is live). Returns
-    (gin path, stage-1 dir, stage-2 dir, recorded repetition rate)."""
+    """Under `root`: the decoder gin, the processed dataset (`feats`,
+    `hist`) and exported checkpoints of `vae` and `model` with the JAX
+    trainers' metas (the repetition rate of `sem_table`, so the collapse
+    guard is live). Returns (gin, stage-1 dir, stage-2 dir, rate)."""
     os.makedirs(root)
     gin = os.path.join(root, "decoder.gin")
     with open(gin, "w") as f:
@@ -644,9 +618,9 @@ def save_decoder_export(path, cfg, model):
 
 def serve_from_artifacts(name, root, gin_source, cfg, vae, model, feats, hist, sem_table,
                          device):
-    """Write the artifacts and build an engine with `from_artifacts`, the
-    launch counts set to 0 just before: on the card one rq_assign launch
-    per 8,192-row chunk. Returns (engine, launches)."""
+    """Write the artifacts, then from_artifacts with the launch counts set to
+    0 just before (one launch per 8,192-row chunk on the card). Returns
+    (engine, launches)."""
     gin, s1, s2, rep = write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table)
     rq.rq_assign.launches = 0
     t0 = time.perf_counter()
@@ -684,10 +658,9 @@ def check_same_engine(name, got, want, hist):
 
 @phase("artifacts")
 def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
-    """`from_artifacts` on both tokenizer routes: the serve phase's engine
-    written out and rebuilt, held equal to itself; a seeded plain RQ-VAE
-    at `ml32m`'s widths, its table held to a plain sweep. Returns the
-    rq_assign launches of each build."""
+    """from_artifacts on both tokenizer routes: the serve phase's engine
+    rebuilt and held equal to itself; a seeded plain RQ-VAE at `ml32m`'s
+    widths, its table held to a plain sweep. Returns the launches."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tok = engine.tokenizer
@@ -730,9 +703,6 @@ FLASH_HEAD_DIM = 64     # every config's; 128 is checked at FLASH_WIDE_B rows
 FLASH_WIDE_B = 1
 FLASH_CHECK_B = 4       # small enough for the plain backward at full length
 FLASH_PLAIN_CHUNK = 16  # the plain version is timed over the batch in chunks of 16
-# The FFMA dQ kernel that the tensor-core one replaced, at FLASH_TIMED, bf16:
-# its time on an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md section 6 records it.
-FLASH_DQ_FFMA_MS = 41.0113
 FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py
     "flash_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
     "flash_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
@@ -741,9 +711,8 @@ FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attentio
 
 
 def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
-    """q, k, v, dO [b, h, n, dh] and segment ids [b, n] as the trainer's
-    encoder gives them: 1 on each row's valid prefix (lengths spread over
-    [n/2, n - 31], the last 31+ positions being the 128-pad), 0 after."""
+    """q, k, v, dO [b, h, n, dh] and segment ids [b, n]: 1 on each row's
+    valid prefix (n/2 to n - 31 long: the rest is the 128-pad), 0 after."""
     q, k, v, do = (torch.randn(b, h, n, dh, device=device, generator=generator)
                    .to(dtype) for _ in range(4))
     lengths = torch.randint(n // 2, n - 30, (b,), device=device, generator=generator)
@@ -752,9 +721,8 @@ def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
 
 
 def keyless_segments(b, n, device, generator):
-    """(seg_q, seg_kv): queries in segments 1-3, keys in 1-2, so every query
-    of segment 3 (at least one per batch row) has no key of its segment,
-    and the library gives it uniform weights over all keys."""
+    """(seg_q, seg_kv): queries in segments 1-3, keys in 1-2, so queries of
+    segment 3 see no key (the library gives them uniform weights)."""
     seg_q = torch.randint(1, 4, (b, n), device=device, generator=generator, dtype=torch.int32)
     seg_q[:, 0] = 3
     seg_kv = torch.randint(1, 3, (b, n), device=device, generator=generator, dtype=torch.int32)
@@ -762,11 +730,9 @@ def keyless_segments(b, n, device, generator):
 
 
 def flash_bounds_ms(b, h, n, itemsize):
-    """Least time of each flash kernel at [b, h, n, 64] with `itemsize`-byte
-    inputs on an H100 SXM: (ms, bound_by) per kernel. Operations: 2*b*h*n^2*64
-    per product (forward 2, dK/dV 4, dQ 3) over the type's peak; bytes: each
-    input read once and each output written once (m, l and di 4 bytes a
-    row)."""
+    """(ms, bound_by) of each flash kernel at [b, h, n, 64] on an H100 SXM:
+    2*b*h*n^2*64 a product (forward 2, dK/dV 4, dQ 3) over the type's
+    peak against each input read and each output written once."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
     mat = b * h * n * FLASH_HEAD_DIM * itemsize
@@ -809,10 +775,9 @@ FLASH_CAUSAL_KEYLESS_CHECKS = tuple(
 
 
 def check_flash(device, g, checks):
-    """O, dQ, dK and dV of the flash kernels against the plain version (fp32
-    autograd) under a nonzero cotangent, at H 8, N 2432, per (B, Dh, dtype,
-    causal, keyless rows) of `checks`; raises above FLASH_RTOL. Returns each
-    kernel's largest error."""
+    """O, dQ, dK, dV of the kernels against the fp32 plain version under a
+    nonzero cotangent at H 8, N 2432 per (B, Dh, dtype, causal, keyless)
+    of `checks`, held to FLASH_RTOL. Returns each kernel's largest error."""
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     errs = {name: 0.0 for name in FLASH_REPLACES}
     for cb, dh, dtype, causal, keyless in checks:
@@ -870,10 +835,8 @@ def flash_kernel_ms(q, k, v, do, seg, causal, scale):
 
 @phase("flash")
 def flash_phase(device):
-    """The three flash kernels' times at B = 64 (not causal and causal)
-    beside the plain version, SDPA and the bounds; then the kernels against
-    their plain version at the long run's shape, at head width 128 and on
-    segments that leave query rows keyless, under a nonzero cotangent."""
+    """The flash kernels' times at B 64 (not causal, causal) beside the
+    plain version, SDPA and the bounds; then FLASH_CHECKS."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     scale = FLASH_HEAD_DIM ** -0.5
@@ -932,11 +895,6 @@ def flash_phase(device):
           f"forward {sdpa_ms:.4f} ms, backward alone {sdpa_bwd_ms:.4f} ms (kernels dK/dV + dQ "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), forward + backward "
           f"{sdpa_fwd_bwd_ms:.4f} ms (a yardstick: the port never calls it)")
-    dq_ms, dq_bound = ms["flash_bwd_dq"], bounds["flash_bwd_dq"][0]
-    print(f"  flash_bwd_dq on tensor cores: {dq_ms:.4f} ms against its bound {dq_bound:.4f} ms "
-          f"({100 * dq_bound / dq_ms:.1f} % of it); scaled_dot_product_attention's backward "
-          f"alone {sdpa_bwd_ms:.4f} ms; the FFMA dQ it replaced {FLASH_DQ_FFMA_MS:.4f} ms "
-          f"(PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
     del o, m, l, di, qg, kg, vg
     errs = check_flash(device, g, FLASH_CHECKS + FLASH_CAUSAL_KEYLESS_CHECKS)
     records = {}
@@ -976,21 +934,25 @@ def kernel_launches():
     return {"rq_assign": rq.rq_assign.launches, **{fn.__name__: fn.launches for fn in fa.KERNELS}}
 
 
+def decoder_widths(cfg, seed=SEED, model=False):
+    """cfg's decoder widths and `seed` as train_arrays (model: build_model)
+    takes them."""
+    out = dict(vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
+               decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
+               attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"], seed=seed)
+    return out if model else dict(out, tag_class_counts=cfg["tag_class_counts"],
+                                  use_concatenated_ids=True)
+
+
 def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log=print):
-    """The port's trainer at cfg's widths on seeded histories of
-    `max_seq_len` items, EVAL_BATCHES eval batches at the end, the launch
-    counts set to 0 just before. Returns (result, launches, (users, items,
-    fut))."""
+    """train_arrays at cfg's widths on seeded histories of `max_seq_len`,
+    launch counts set to 0 just before. Returns (result, launches, data)."""
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     rq.rq_assign.launches = 0
     fa.reset_launches()
     result = trainer.train_arrays(
         feats, users, items, fut, vae=vae, iterations=steps, batch_size=batch,
-        vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
-        decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
-        attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
-        tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True,
-        seed=seed, log_every=1, partial_eval_every=steps, eval_batches=EVAL_BATCHES,
+        **decoder_widths(cfg, seed), log_every=1, partial_eval_every=steps, eval_batches=EVAL_BATCHES,
         eval_users=users[:batch], eval_items=items[:batch], eval_fut=fut[:batch],
         device=device, log=log, mixed_precision_type=cfg.get("precision", "bf16"),
     )
@@ -1017,9 +979,9 @@ def fixed_batch_descent(result, data, batch, steps, seed=SEED):
 
 
 def check_train_run(name, result, launches, steps, n_encoder_layers=4, flash=False):
-    """Finite losses, rq_assign on the path, and the flash launches the
-    run's route implies: per encoder layer one forward per train step and
-    eval batch, one dK/dV and one dQ per train step; none off the route."""
+    """Finite losses, rq_assign launched, and per encoder layer one flash
+    forward a step and eval batch, one dK/dV and dQ a step (on the flash
+    route; none off it)."""
     hist = result["history"]
     losses = hist["train_loss"] + hist["eval_loss"]
     if len(hist["train_loss"]) != steps or not all(np.isfinite(losses)):
@@ -1084,10 +1046,9 @@ STAGE1_SETTINGS = (("gin", 128, 2), ("batch256", 256, 1))
 
 
 def write_stage1_inputs(root, cfg, feats, seed=SEED):
-    """Under `root`: the processed Amazon dataset the gin reads: the items
-    `feats` (95 % train) with seeded power-law tags of cfg["tag_class_counts"]
-    classes per level (the rarest under the rare-tag threshold) and a seeded
-    tag embedding per class. Returns the dataset path."""
+    """The processed Amazon dataset under `root`: `feats` (95 % train) with
+    seeded power-law tags of cfg's class counts and a tag embedding per
+    class. Returns its path."""
     rng = np.random.RandomState(seed + 31)
     n = len(feats)
     idx, emb = [], []
@@ -1104,9 +1065,8 @@ def write_stage1_inputs(root, cfg, feats, seed=SEED):
 
 
 def cut_gin(source, path, values, show=False):
-    """Write `path`: the gin file `source` line by line, each key of `values`
-    (gin literals) set where the file binds it, appended where not; `show`
-    prints each cut that differs. Returns `path`."""
+    """Write `path`: the gin `source` line by line with `values` (gin
+    literals) replaced where bound, else appended; `show` prints the cuts."""
     with open(source) as f:
         text = f.read()
     lines, bound, cuts = [], set(), []
@@ -1129,9 +1089,8 @@ def cut_gin(source, path, values, show=False):
 
 
 def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
-    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin cut to
-    cfg's widths, root's dataset, `mini_steps` mini-steps with evals,
-    audits and saves every n, and `bindings`."""
+    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin at
+    cfg's widths on root's dataset, evals, audits and saves every n."""
     accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
     values = {
         "iterations": mini_steps // accumulate, "save_model_every": n, "eval_every": n,
@@ -1144,10 +1103,9 @@ def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
 
 
 def check_run(name, result, launches, steps, evals, device, n_items, saves=None):
-    """Steps and evals (each with an audit) where the cadence puts them, the
-    saves `saves` (basenames; None: a `latest`), finite losses, rq_assign
-    once per 8,192 items per audit on the card and no flash kernel. Returns
-    the last save (None: the last `latest`)."""
+    """Steps, evals (each audited) and saves `saves` (None: a `latest`)
+    where the cadence puts them, finite losses, one rq_assign launch per
+    8,192 items an audit on the card, no flash. Returns the last save."""
     hist = result["history"]
     got = [os.path.basename(p) for p in result["saved_paths"]]
     if (result["step"] != steps or hist["eval_iterations"] != evals
@@ -1192,10 +1150,9 @@ def device_busy(run, device):
 
 
 def time_updates(name, update, batch, accumulate, device, timed):
-    """Items per second of `update()` (`accumulate` mini-steps of `batch`):
-    the host clock around each update, which ends in a synchronize, median
-    of timed[1] after timed[0] warm-ups; on the card one more update traced
-    for its kernels and busy time. Prints and returns the record."""
+    """Items/s of `update()` (`accumulate` mini-steps of `batch`): host
+    clock, median of timed[1] after timed[0]; on the card one update more
+    traced for its kernels and busy ms. Prints and returns the record."""
     times = []
     for _ in range(sum(timed)):
         if device.type == "cuda":
@@ -1220,9 +1177,8 @@ def time_updates(name, update, batch, accumulate, device, timed):
 
 def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE1_TIMED,
                       seed=SEED):
-    """Items/s of the trained model per setting, under the optimizer `train`
-    builds from the bindings `gin` (the setting's accumulation), with the
-    run's mined pair rows."""
+    """Items/s of the trained model per setting, under the optimizer that
+    the bindings of `gin` build."""
     from hidvae_tpu_torch.train import hidvae as s1
 
     model, data, n_pairs = result["model"], result["data"], result["n_pair_rows"]
@@ -1247,11 +1203,9 @@ def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE
 @phase("stage1")
 def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SETTINGS,
                  timed=STAGE1_TIMED, **bindings):
-    """The stage-1 entry (scripts/torch_train_hidvae.py) at cfg's widths on
-    an Amazon dataset written under `root`: 2N mini-steps with evals,
-    audits and saves at N and 2N; N plus a resumed N, held to it; the
-    audit's table held to a plain sweep; throughput per setting. Returns
-    (the 2N run's `latest`, the record)."""
+    """scripts/torch_train_hidvae.py at cfg's widths on a written Amazon
+    dataset: 2N mini-steps, N plus a resumed N held to it, the audit's
+    table held to a plain sweep, throughput. Returns (latest, record)."""
     script = load_script("torch_train_hidvae")
     feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
     n_items = len(feats_np)
@@ -1271,27 +1225,22 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
     if not os.path.exists(rare) or list(full["tag_class_counts"]) == list(cfg["tag_class_counts"]):
         raise AssertionError("stage1: the rare-tag remap did not run or wrote no rare_tags.npz")
 
-    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
-    check_stage1_run("N run", half, launches_half, n, [n], device, n_items)
-    latest_half = [p for p in half["saved_paths"] if os.path.basename(p) == "latest"][-1]
-    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume", latest_half)
-    check_stage1_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
     gin = parse_gin_file(gin_2n)["train"]
-    gaps = check_resume(full, half, resumed, 2 * n,
-                        updates=2 * n // gin["gradient_accumulate_every"], stats=True)
+    half, resumed, runs, gaps = resume_runs(
+        script, device, gin_n, n, lambda *a: check_stage1_run(*a, device, n_items), full,
+        updates=2 * n // gin["gradient_accumulate_every"], stats=True)
 
     model = full["model"]
     _, table_launches = audit_table("stage1", model, full["tag_class_counts"], feats_np, device,
                                     rep)
 
     throughput = stage1_throughput(full, gin, device, settings, timed)
-    latest = [p for p in full["saved_paths"] if os.path.basename(p) == "latest"][-1]
-    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
-                            "resume": launches_resume["rq_assign"], "table": table_launches},
+    record = dict(launches={"2N run": launches["rq_assign"], **runs, "table": table_launches},
                   resume_gaps=gaps, throughput=throughput, repetition_rate=rep,
                   tag_class_counts=list(full["tag_class_counts"]))
+    save = latest(full)
     del full, half, resumed, model
-    return latest, record
+    return save, record
 
 
 # ---- the trainer from its gin entry ------------------------------------------
@@ -1324,8 +1273,8 @@ def load_script(name):
 
 
 def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
-    """Under `root`: a processed dataset of `feats` with seeded train, eval
-    and test histories. Returns (path, test histories, the repetition rate
+    """A processed dataset of `feats` with seeded train, eval and test
+    histories under `root`. Returns (path, test histories, the rate
     `stage1` recorded)."""
     os.makedirs(root)
     n_items = len(feats)
@@ -1346,8 +1295,8 @@ def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
 
 def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
     """Write root/decoder_<iterations>.gin: configs/decoder_amazon.gin at
-    cfg's widths on root's dataset and stage-1 export, evals and saves every
-    n steps, and `bindings`."""
+    cfg's widths on root's dataset and the export `s1`, evals and saves
+    every n."""
     path = os.path.join(root, f"decoder_{iterations}.gin")
     with open(path, "w") as f:
         f.write(decoder_gin(
@@ -1359,9 +1308,8 @@ def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
 
 
 def run_trainer_entry(script, device, *argv):
-    """scripts/torch_train_transformer.py with `argv` on `device`, the launch
-    counts set to 0 just before and read just after. Returns (result,
-    launches, seconds)."""
+    """script.main(argv) on `device`, launch counts set to 0 just before.
+    Returns (result, launches, seconds)."""
     rq.rq_assign.launches = 0
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -1372,9 +1320,9 @@ def run_trainer_entry(script, device, *argv):
 
 
 def check_trainer_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, saves and evals where the cadence puts them; hit@10 and NDCG@10
-    finite in [0, 1]; rq_assign once per 8,192-row chunk at the start on
-    the card, no flash kernel. Returns the TEST eval's (hit@10, ndcg@10)."""
+    """Steps, saves and full evals where the cadence puts them; hit@10 and
+    NDCG@10 in [0, 1]; one rq_assign launch per 8,192 items at the start
+    on the card, no flash. Returns the TEST eval's (hit@10, ndcg@10)."""
     hist = result["history"]
     d = result["tokenizer"].sem_ids_dim
     want_saves = [f"checkpoint_{it}" for it in evals]
@@ -1407,10 +1355,9 @@ def relative_gap(a, b, scale):
 
 
 def check_resume(full, half, resumed, steps, updates=None, stats=False):
-    """The resumed run's step, params (with `stats`, batch statistics too)
-    and Adam moments against the uninterrupted run's (RESUME_RTOL); the
-    optimizer's counts must be `updates` (default `steps`). Prints the
-    gaps."""
+    """The resumed run's step, params (`stats`: batch statistics too) and
+    Adam moments against the uninterrupted run's (RESUME_RTOL), its
+    optimizer counts `updates` (default `steps`). Returns the gaps."""
     pf, ph, pr = (state_dict_to_flax(r["model"])[0] for r in (full, half, resumed))
     of, orr = (r["optimizer"].state_dict(r["model"]) for r in (full, resumed))
     update = {k: pf[k] - ph[k] for k in pf}
@@ -1438,10 +1385,27 @@ def check_resume(full, half, resumed, steps, updates=None, stats=False):
     return {k: g for k, (g, _) in gaps.items()}
 
 
+def latest(result):
+    """A stage-1 run's last `latest` save."""
+    return [p for p in result["saved_paths"] if os.path.basename(p) == "latest"][-1]
+
+
+def resume_runs(script, device, gin_n, n, check, full, resume_from=latest, **gap_kwargs):
+    """The N run of `gin_n` and N more resumed from resume_from(N run), each
+    held by check(name, result, launches, steps, evals), the resumed state
+    held to the 2N run `full` (check_resume). Returns (N run, resumed run,
+    their rq_assign launches, gaps)."""
+    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
+    check("N run", half, launches_half, n, [n])
+    resumed, launches, _ = run_trainer_entry(script, device, gin_n, "--resume", resume_from(half))
+    check("resume", resumed, launches, 2 * n, [2 * n])
+    return half, resumed, {"N run": launches_half["rq_assign"], "resume": launches["rq_assign"]}, \
+        check_resume(full, half, resumed, 2 * n, **gap_kwargs)
+
+
 def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
-    """The long-history run (flash route) with and without remat from one
-    seed, dropout on: losses, params, flash launches (the forward twice
-    per layer and step under remat) and each run's peak memory."""
+    """The long run with and without remat from one seed: losses, params,
+    flash launches (forward twice under remat) and peak memory."""
     max_seq_len, batch, steps = run
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     n_enc = cfg["attn_layers"] // 2
@@ -1455,11 +1419,7 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
         fa.reset_launches()
         result = trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=steps, batch_size=batch,
-            vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
-            decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
-            attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
-            tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, seed=seed,
-            log_every=1, remat=remat, device=device,
+            **decoder_widths(cfg, seed), log_every=1, remat=remat, device=device,
             mixed_precision_type=cfg.get("precision", "bf16"))
         launches = kernel_launches()
         peak = None
@@ -1481,10 +1441,7 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
         sem_id_dim = result["model"].sem_id_dim
         del result
     init = state_dict_to_flax(trainer.build_model(  # both runs' seeded start
-        sem_id_dim=sem_id_dim, max_seq_len=max_seq_len,
-        vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
-        decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
-        attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"], seed=seed))[0]
+        sem_id_dim=sem_id_dim, max_seq_len=max_seq_len, **decoder_widths(cfg, seed, model=True)))[0]
     plain, remat = out[False], out[True]
     update = {k: plain["params"][k] - init[k] for k in init}
     gap, worst = relative_gap(remat["params"], plain["params"], update)
@@ -1505,12 +1462,10 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
 @phase("trainer")
 def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
                   remat_run=REMAT_RUN, **bindings):
-    """The stage-2 entry (scripts/torch_train_transformer.py) at cfg's widths
-    on a written dataset and the stage1 phase's checkpoint: 2N steps (full
-    evals and saves at N and 2N, the TEST eval); N plus a resumed N, held to
-    it; the saved decoder served by `from_artifacts`, held to the trained
-    model; remat on the flash route. `bindings`: gin literals on top.
-    Returns the launch counts and numbers of each part."""
+    """scripts/torch_train_transformer.py at cfg's widths on a written
+    dataset and the stage-1 export: 2N steps, N plus a resumed N held to
+    it, the checkpoint served by from_artifacts and held to the trained
+    model, remat on the flash route. Returns the launches and numbers."""
     script = load_script("torch_train_transformer")
     feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
     n_items = len(feats_np)
@@ -1545,14 +1500,10 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         record["full"] = dict(launches=launches, step_ms=step_ms, eval_s_per_batch=eval_s,
                               ckpt_bytes=ckpt_bytes, save_s=hist["save_seconds"])
 
-        half, launches_half, _ = run_trainer_entry(script, device, gin_n)
-        check_trainer_run("N run", half, launches_half, n, [n], device, n_items)
-        resumed, launches_resume, seconds = run_trainer_entry(
-            script, device, gin_n, "--resume", half["saved_paths"][-1])
-        check_trainer_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
-        print(f"  N run launches {launches_half}; resume launches {launches_resume}")
-        record["resume"] = dict(launches={"N run": launches_half, "resume": launches_resume},
-                                gaps=check_resume(full, half, resumed, 2 * n))
+        half, resumed, runs, gaps = resume_runs(
+            script, device, gin_n, n, lambda *a: check_trainer_run(*a, device, n_items), full,
+            lambda r: r["saved_paths"][-1])
+        record["resume"] = dict(launches=runs, gaps=gaps)
         del half, resumed
 
         rq.rq_assign.launches = 0
@@ -1568,11 +1519,8 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
               f"(rq_assign launches {serve_launches}); {resolved} of {out['items'].size} "
               f"recommendations resolved")
         model = full["model"]
-        own = trainer.build_model(
-            sem_id_dim=model.sem_id_dim, max_seq_len=cfg["max_seq_len"],
-            vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
-            decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
-            attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"])
+        own = trainer.build_model(sem_id_dim=model.sem_id_dim, max_seq_len=cfg["max_seq_len"],
+                                  **decoder_widths(cfg, model=True))
         own.load_state_dict(model.state_dict())  # the trained weights, searched in fp32
         direct = RetrievalEngine(own, full["tokenizer"], feats_np, max_seq_len=cfg["max_seq_len"],
                                  batch_buckets=(ARTIFACT_HISTORIES,), stage1_checkpoint=stage1,
@@ -1628,9 +1576,8 @@ def on_one_rank(device, run):
 
 
 def two_ranks(entry, root, timeout, label):
-    """This script's `entry` (--multi-rank or --multi-stage1-rank) on two Gloo
-    ranks over `root`; prints the seconds they took (functional timings: both
-    share one device)."""
+    """This script's `entry` on two Gloo ranks over `root`; prints their
+    seconds (functional: both share one device)."""
     from hidvae_tpu_torch.parallel.dryrun import launch_ranks
 
     t0 = time.perf_counter()
@@ -1641,9 +1588,8 @@ def two_ranks(entry, root, timeout, label):
 
 
 def multi_rank_main(workdir):
-    """One of the multi phase's two Gloo ranks on cuda:0: the trainer's DP
-    (2 x 1) and TP (1 x 2) runs, the long-history DP run and the engines at
-    2 x 1 and 1 x 2. Writes rank<r>.json and rank<r>_<mesh>.npz."""
+    """A multi phase Gloo rank on cuda:0: the trainer's DP and TP runs, the
+    long DP run and the engines at 2 x 1 and 1 x 2. Writes rank<r>.*."""
     import torch.distributed as dist
 
     from hidvae_tpu_torch.parallel.collectives import COLLECTIVE_BYTES
@@ -1717,13 +1663,6 @@ MULTI_SHAPE_KEYS = ("sem_id_embedder.emb.weight", "out_proj.weight",
                     "transformer.encoder.block_0.ff.dense_1.weight")
 
 
-def multi_widths(cfg):
-    return dict(vae_codebook_size=cfg["codebook_size"], vae_n_layers=cfg["n_layers"],
-                decoder_embed_dim=cfg["decoder_embed_dim"], attn_heads=cfg["attn_heads"],
-                attn_embed_dim=cfg["attn_embed_dim"], attn_layers=cfg["attn_layers"],
-                tag_class_counts=cfg["tag_class_counts"], use_concatenated_ids=True, seed=SEED)
-
-
 def checkpoint_params(path):
     return {k.removeprefix("params/"): v for k, v in load_export_arrays(path, "params/").items()}
 
@@ -1731,8 +1670,8 @@ def checkpoint_params(path):
 def check_multi_run(name, losses, params, want_losses, want_params, init,
                     first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
     """Losses within MULTI_LOSS_RTOL of the one-rank run's (the first within
-    `first_rtol`, None: not held apart); params within `param_rtol` of its
-    update (L2). Prints the largest leaf gaps; returns both gaps."""
+    `first_rtol` unless None), params within `param_rtol` of its update.
+    Returns both gaps."""
     errs = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     update = {k: want_params[k] - init[k] for k in init}
     gap, worst = relative_gap(params, want_params, update)
@@ -1760,13 +1699,12 @@ def multi_arrays_run(cfg, vae, feats, device, steps, run, **kwargs):
     fa.reset_launches()
     return trainer.train_arrays(feats, users, items, fut, vae=vae, iterations=steps,
                                 batch_size=batch, log_every=1, device=device,
-                                **multi_widths(cfg), **kwargs)
+                                **decoder_widths(cfg), **kwargs)
 
 
 def compare_engines(name, ranks_npz, want, hist):
-    """Every rank's table bitwise the one-rank engine's; items and ID tuples
-    equal, scores within MULTI_SCORE_RTOL of their size (rows that differ
-    are printed)."""
+    """Every rank's table bitwise the one-rank engine's; items and tuples
+    equal, scores within MULTI_SCORE_RTOL."""
     a = want.recommend(hist, top_k=10)
     table = want.corpus_ids.cpu().numpy()
     for r, got in enumerate(ranks_npz):
@@ -1794,14 +1732,11 @@ def compare_engines(name, ranks_npz, want, hist):
 @phase("multi")
 def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
                 long_run=MULTI_LONG, splits=TRAINER_SPLITS, stage1_root=None, **bindings):
-    """Multi-GPU semantics on the one card (timings functional): one NCCL
-    rank (held to one process); two Gloo ranks on cuda:0 (NCCL refuses two
-    ranks on one device): the trainer's DP 2 x 1 and TP 1 x 2 runs (fp32)
-    and train_arrays' (bf16), TP's checkpoint resumed on one process, the
-    long-history DP run, the engine at 2 x 1 and 1 x 2 with shard_params;
-    with `stage1_root`, stage-1 data parallelism (`multi_stage1`). On the
-    CPU the one-rank group runs over Gloo. Returns the launch counts and
-    gaps."""
+    """Multi-GPU semantics on the one card: one NCCL rank held to one
+    process; two Gloo ranks on cuda:0 (NCCL refuses two ranks a device):
+    DP 2 x 1 and TP 1 x 2 from the gin (fp32) and in train_arrays (bf16),
+    the TP checkpoint resumed, long-history DP, the engine at 2 x 1 and
+    1 x 2; with `stage1_root`, multi_stage1. Returns launches and gaps."""
     bindings = {"mixed_precision_type": '"fp32"', **bindings}
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
@@ -1816,11 +1751,10 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
         full, _, _ = run_trainer_entry(script, device, gin_2n)
         ckpt_n, ckpt_2n = full["saved_paths"]
         want_n, want_2n = checkpoint_params(ckpt_n), checkpoint_params(ckpt_2n)
-        widths = {k: v for k, v in multi_widths(cfg).items()
-                  if k not in ("tag_class_counts", "use_concatenated_ids")}
-        widths["seed"] = inspect.signature(trainer.train).parameters["seed"].default  # the gin's
+        seed = inspect.signature(trainer.train).parameters["seed"].default  # the gin's
         init = state_dict_to_flax(trainer.build_model(
-            sem_id_dim=full["model"].sem_id_dim, max_seq_len=cfg["max_seq_len"], **widths))[0]
+            sem_id_dim=full["model"].sem_id_dim, max_seq_len=cfg["max_seq_len"],
+            **decoder_widths(cfg, seed, model=True)))[0]
         want_loss = full["history"]["train_loss"]
 
         # 1. one rank over NCCL
@@ -1960,10 +1894,9 @@ MINING_SETTINGS = (("mining", 1024, 1),)  # the gin's batch, no accumulation
 
 
 def write_mining_inputs(path, cfg, seed=SEED):
-    """The tagged catalog at `path`: cfg["n_items"] seeded unit-norm items,
-    MINING_PLANTED of them near-copies of others (sharing their tags, so the
-    first audit finds colliding tuples), tags from a seeded cfg["tag_tree"].
-    Returns (features, planted copies, their sources)."""
+    """The tagged catalog at `path`: cfg["n_items"] seeded items, MINING_PLANTED
+    of them near-copies sharing their source's tags, tags of a seeded
+    cfg["tag_tree"]. Returns (features, copies, sources)."""
     rng = np.random.RandomState(seed + 51)
     n = cfg["n_items"]
     feats = unit_rows(n, cfg["input_dim"], torch.Generator().manual_seed(seed + 52))
@@ -2007,12 +1940,10 @@ def check_mining_run(name, result, launches, steps, evals, device, n_items, pool
 @phase("mining")
 def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
                  timed=MINING_TIMED, **bindings):
-    """The stage-1 entry on configs/h_rqvae_synthetic_xxl_m.gin, cut line by
-    line, on `write_mining_inputs`' catalog under `root`: 2N mini-steps,
-    audits harvesting the pool at N and 2N; the pool colliding in the
-    audit's table (held to a plain sweep); mined pairs colliding after the
-    first audit; N plus a resumed N with the pool restored bitwise; items/s.
-    Returns the record."""
+    """scripts/torch_train_hidvae.py on configs/h_rqvae_synthetic_xxl_m.gin
+    over write_mining_inputs' catalog: 2N mini-steps harvesting the pool at
+    N and 2N, the pool colliding in the audit's table, N plus a resumed N
+    with the pool restored bitwise, items/s. Returns the record."""
     script = load_script("torch_train_hidvae")
     t0 = time.perf_counter()
     path = processed_path(root, RecDataset.SYNTHETIC)
@@ -2060,22 +1991,18 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     if colliding != 1.0:
         raise AssertionError("mining: the pool's pairs do not all collide in the audit's table")
 
-    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
-    saved_n = check_mining_run("N run", half, launches_half, n, [n], device, n_items, pool)
-    latest_half = [p for p in half["saved_paths"] if os.path.basename(p) == "latest"][-1]
-    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume", latest_half)
-    check_mining_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items, pool)
-    restored = np.array_equal(resumed["mining_pool_start"], saved_n)
+    half, resumed, runs, gaps = resume_runs(
+        script, device, gin_n, n, lambda *a: check_mining_run(*a, device, n_items, pool), full,
+        updates=2 * n // gin.get("gradient_accumulate_every", 1), stats=True)
+    # check_mining_run held N's saved pool equal to its live one
+    restored = np.array_equal(resumed["mining_pool_start"], half["data"].mining_pairs.cpu().numpy())
     same_end = torch.equal(resumed["data"].mining_pairs, full["data"].mining_pairs)
     print(f"  resume: pool restored bitwise from N's latest {restored}; pools after the audit "
           f"at {2 * n} equal {same_end}")
     if not (restored and same_end):
         raise AssertionError("mining: the pool did not survive the resume bitwise")
-    gaps = check_resume(full, half, resumed, 2 * n, updates=2 * n // gin.get(
-        "gradient_accumulate_every", 1), stats=True)
     throughput = stage1_throughput(full, gin, device, settings, timed)
-    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
-                            "resume": launches_resume["rq_assign"], "table": table_launches},
+    record = dict(launches={"2N run": launches["rq_assign"], **runs, "table": table_launches},
                   resume_gaps=gaps, throughput=throughput, collision_rate=rates,
                   pool_colliding=colliding, repetition_rate=hist["repetition_rate"])
     del full, half, resumed, model
@@ -2103,12 +2030,10 @@ def check_rqvae_run(name, result, launches, steps, evals, device, n_items):
 
 @phase("rqvae")
 def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **bindings):
-    """The plain RQ-VAE entry (scripts/torch_train_rqvae.py) on
-    configs/rqvae_ml32m.gin, cut line by line, on seeded ML-32M items under
-    `root`: 2N mini-steps with audits at N and 2N; N plus a resumed N, held
-    to it; the audit's table against a plain sweep; items/s; the checkpoint
-    served by from_artifacts with a seeded decoder
-    (configs/decoder_ml32m.gin). Returns the record."""
+    """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin over seeded
+    items: 2N mini-steps, N plus a resumed N held to it, the table against a
+    plain sweep, items/s, the checkpoint served by from_artifacts with a
+    seeded decoder (configs/decoder_ml32m.gin). Returns the record."""
     from hidvae_tpu_torch.train import rqvae as rv
 
     script = load_script("torch_train_rqvae")
@@ -2139,13 +2064,9 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
           f"{h['total_loss']}, eval loss {h['eval_total_loss']}, repetition "
           f"{h['repetition_rate']}, entropy {h['rqvae_entropy']}; saves "
           f"{[os.path.basename(p) for p in full['saved_paths']]}; launches {launches}")
-    half, launches_half, _ = run_trainer_entry(script, device, gin_n)
-    check_rqvae_run("N run", half, launches_half, n, [n], device, n_items)
-    resumed, launches_resume, _ = run_trainer_entry(script, device, gin_n, "--resume",
-                                                    half["saved_paths"][-1])
-    check_rqvae_run("resume", resumed, launches_resume, 2 * n, [2 * n], device, n_items)
-    gaps = check_resume(full, half, resumed, 2 * n,
-                        updates=2 * n // gin.get("gradient_accumulate_every", 1))
+    half, resumed, runs, gaps = resume_runs(
+        script, device, gin_n, n, lambda *a: check_rqvae_run(*a, device, n_items), full,
+        lambda r: r["saved_paths"][-1], updates=2 * n // gin.get("gradient_accumulate_every", 1))
 
     # The last audit's table (rq_assign) against a plain sweep of the same weights.
     model = full["model"]
@@ -2194,8 +2115,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
           f"{out['items'].size} recommendations resolved to their generated tuples")
     if not same_table:
         raise AssertionError("rqvae: the served table differs from the trainer's audit")
-    record = dict(launches={"2N run": launches["rq_assign"], "N run": launches_half["rq_assign"],
-                            "resume": launches_resume["rq_assign"],
+    record = dict(launches={"2N run": launches["rq_assign"], **runs,
                             "from_artifacts": serve_launches},
                   resume_gaps=gaps, throughput=throughput, repetition_rate=h["repetition_rate"])
     del full, half, resumed, model, engine
@@ -2211,12 +2131,10 @@ SCALE_SIZES = (200_000, 1_000_000)
 
 @phase("synthetic")
 def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
-    """scripts/torch_make_synthetic.py writes the `large` preset (updated by
-    `corpus`) under `root`; the stage-1 entry trains on it from
-    configs/h_rqvae_synthetic_large.gin, cut line by line to `steps`
-    mini-steps with one eval, audit and save (and `bindings`); the audit's
-    table held to a plain sweep; load_or_build on an empty root writes the
-    default corpus. Returns the rq_assign launches."""
+    """torch_make_synthetic.py's `large` (updated by `corpus`), trained by
+    the stage-1 entry from configs/h_rqvae_synthetic_large.gin for `steps`
+    mini-steps, its table held to a plain sweep; load_or_build writes the
+    default corpus on an empty root. Returns the launches."""
     from hidvae_tpu_torch.data.processed import ProcessedArrays, load_or_build
 
     t0 = time.perf_counter()
@@ -2252,9 +2170,8 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
 
 @phase("scale")
 def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
-    """scripts/torch_bench_scale.py's bench_one at each size (with `kwargs`):
-    one rq_assign launch per 8,192 items, every item resolved on the trie
-    and cap-gather paths, the largest table equal to a plain sweep but near
+    """torch_bench_scale.py's bench_one at each size: one launch per 8,192
+    items, every item resolved, the largest table a plain sweep's but near
     ties. Returns the records."""
     bench = load_script("torch_bench_scale")
     records = []
@@ -2278,6 +2195,186 @@ def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
         records.append(rec)
         del keep
     return records
+
+
+# ---- raw files: the dataset builders, P5 Sports trained and served from them ----
+
+P5_SPORTS = dict(n_items=18_357, n_users=35_598)  # the published size of the P5 Sports split
+RAW_STAGE2_STEPS = 4   # stage-2 steps on the built histories, with one full eval and a save
+ML_RAW = (5_000, 500_000)  # movies and ratings of each seeded MovieLens drop
+ML_RAW_TIMEOUT_S = 600
+ML_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy", "Crime", "Documentary",
+             "Drama", "Fantasy", "Film-Noir", "Horror", "Musical", "Mystery", "Romance", "Sci-Fi",
+             "Thriller", "War", "Western")
+
+
+def write_movielens_drop(root, fmt, n_movies, n_ratings, seed=SEED, genders="FM"):
+    """A seeded raw MovieLens drop under root/raw/ ("1m": with users.dat,
+    occupations 0-20, `genders`; "32m"): titles with commas, parentheses,
+    quotes and a Latin-1 letter, "(no genres listed)", users and movies
+    under 5 ratings, tied timestamps, ratings of unlisted movies."""
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    ids = np.cumsum(rng.randint(1, 4, n_movies))
+    movies = []
+    for i, m in enumerate(ids.tolist()):
+        title = (f"Movie {m}, The (Part {i % 3}) ({1950 + i % 70})" if i % 3 else
+                 f'Caf\u00e9 "{m}": A Story ({1990 + i % 30})')
+        k = rng.randint(1, 4)
+        genre = ("(no genres listed)" if rng.rand() < 0.03 else
+                 "|".join(rng.choice(ML_GENRES, k, replace=False)))
+        movies.append((m, title, genre))
+    n_users = max(n_ratings // 20, 8)
+    pu, pm = (1.0 / (np.arange(n) + a) ** s for n, a, s in ((n_users, 3.0, 1.3),
+                                                             (n_movies, 1.0, 1.2)))
+    user = 1 + rng.permutation(n_users)[rng.choice(n_users, n_ratings, p=pu / pu.sum())]
+    movie = ids[rng.permutation(n_movies)[rng.choice(n_movies, n_ratings, p=pm / pm.sum())]]
+    movie = np.where(rng.rand(n_ratings) < 0.002, ids[-1] + 1 + rng.randint(0, 50, n_ratings),
+                     movie)
+    ts = 978_300_000 + 60 * rng.randint(0, max(n_ratings // 4, 1), n_ratings)
+    stars = rng.randint(1, 11, n_ratings) / 2.0
+    cols = zip(user.tolist(), movie.tolist(), stars.tolist(), ts.tolist())
+    if fmt == "1m":
+        with open(os.path.join(raw, "movies.dat"), "w", encoding="ISO-8859-1") as f:
+            f.writelines(f"{m}::{t}::{g}\n" for m, t, g in movies)
+        with open(os.path.join(raw, "ratings.dat"), "w") as f:
+            f.writelines(f"{u}::{m}::{math.ceil(r)}::{t}\n" for u, m, r, t in cols)
+        with open(os.path.join(raw, "users.dat"), "w") as f:
+            f.writelines(f"{u}::{genders[rng.randint(len(genders))]}::"
+                         f"{(1, 18, 25, 35, 45, 50, 56)[rng.randint(7)]}::{rng.randint(21)}::"
+                         f"{rng.randint(100000):05d}\n" for u in range(1, n_users + 1))
+    else:
+        import csv
+
+        with open(os.path.join(raw, "movies.csv"), "w", newline="", encoding="utf-8") as f:
+            csv.writer(f).writerows([("movieId", "title", "genres"), *movies])
+        with open(os.path.join(raw, "ratings.csv"), "w") as f:
+            f.write("userId,movieId,rating,timestamp\n")
+            f.writelines(f"{u},{m},{r},{t}\n" for u, m, r, t in cols)
+
+
+def movielens_main(workdir, n_movies, n_ratings):
+    """--movielens DIR MOVIES RATINGS: both MovieLens formats written and
+    built by load_or_build with pandas and sentence_transformers refused
+    at import, as on the card's machine. Writes DIR/movielens.json."""
+    from hidvae_tpu_torch.data.processed import load_or_build
+
+    if sys.modules.get("pandas") is not None:
+        raise AssertionError("pandas was imported before the MovieLens builds")
+    sys.modules["pandas"] = sys.modules["sentence_transformers"] = None
+    out = {}
+    for fmt, dataset in (("32m", RecDataset.ML_32M), ("1m", RecDataset.ML_1M)):
+        root = os.path.join(workdir, fmt)
+        t0 = time.perf_counter()
+        write_movielens_drop(root, fmt, int(n_movies), int(n_ratings))
+        t1 = time.perf_counter()
+        a = load_or_build(root, dataset, force_process=True)
+        t2 = time.perf_counter()
+        n_items, width = a.item_features.shape
+        rec = dict(features=[n_items, width], sequences=list(a.seq_items.shape),
+                   train_share=float(a.seq_is_train.mean()), write_s=t1 - t0, build_s=t2 - t1,
+                   users=None if a.user_features is None else list(a.user_features.shape))
+        print(f"  {dataset.name} without pandas: {json.dumps(rec)}")
+        ok = (0 < n_items <= int(n_movies) and 768 < width <= 768 + len(ML_GENRES) + 1
+              and a.seq_items.shape[1] == 200 and np.isfinite(a.item_features).all()
+              and 0 < rec["train_share"] < 1 and a.seq_items.max() < n_items
+              and (a.seq_fut >= 0).all() and (a.user_features is None) == (fmt == "32m"))
+        if fmt == "1m":
+            ok = ok and a.user_features.shape[1] == 3 and set(a.user_features[:, 1]) == {0.0, 1.0}
+        if not ok or "pandas" in [m.split(".")[0] for m, v in sys.modules.items() if v]:
+            raise AssertionError(f"{dataset.name}: the build is malformed or imported pandas")
+        out[fmt] = rec
+    with open(os.path.join(workdir, "movielens.json"), "w") as f:
+        json.dump(out, f)
+
+
+@phase("raw")
+def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_STAGE2_STEPS,
+              movielens=ML_RAW, stage2=None, **bindings):
+    """The Amazon gins, cut line by line, on the P5 Sports drop that
+    torch_make_synthetic.py amazon-raw writes: the stage-1 entry builds
+    it (force_dataset_process, its load_or_build timed) and trains n
+    mini-steps, its table held to a plain sweep; stage 2 trains `steps`
+    steps with the remapped tag counts (`stage2`: bindings); from_artifacts
+    serves 32 test histories, every item resolved; then movielens_main.
+    Returns the rq_assign launches."""
+    from hidvae_tpu_torch.data.text_embedding import encode_text_feature
+    from hidvae_tpu_torch.train import hidvae as s1
+
+    t0 = time.perf_counter()
+    raw = load_script("torch_make_synthetic").main("amazon-raw", root, **drop)
+    size = sum(os.path.getsize(os.path.join(raw, f)) for f in os.listdir(raw))
+    print(f"  amazon-raw drop {drop}: {size / 2**20:.1f} MiB in {time.perf_counter() - t0:.2f} s")
+    built, build = {}, s1.load_or_build
+
+    def timed_build(*args):
+        t = time.perf_counter()
+        built["arrays"] = build(*args)
+        built["s"] = time.perf_counter() - t
+        return built["arrays"]
+
+    s1.load_or_build = timed_build
+    try:
+        gin = stage1_gin(root, cfg, n, n, force_dataset_process=True, **bindings)
+        result, launches, seconds = run_trainer_entry(load_script("torch_train_hidvae"), device, gin)
+    finally:
+        s1.load_or_build = build
+    a = built["arrays"]
+    n_items, n_users = drop["n_items"], drop["n_users"]
+    with open(os.path.join(root, "processed", "tag_index_sports.json")) as f:
+        vocab = [len(v) for v in json.load(f)["vocabs"]]
+    shapes = [a.item_features.shape, a.tags_indices.shape, a.tags_emb.shape, a.seq_items.shape]
+    print(f"  load_or_build in the stage-1 entry: {built['s']:.2f} s (text encoder "
+          f"{encode_text_feature.encoder}); features, tags_indices, tags_emb, histories {shapes}; "
+          f"histories by split {np.bincount(a.seq_split).tolist()}; tag vocabularies {vocab}")
+    if shapes != [(n_items, 768), (n_items, 5), (n_items, 5, 768), (3 * n_users, 20)]:
+        raise AssertionError(f"raw: built shapes {shapes}")
+    rep = check_stage1_run("raw stage 1", result, launches, n, [n], device, n_items)
+    counts = list(result["tag_class_counts"])
+    print(f"  stage 1 ({n} mini-steps) in {seconds:.2f} s, median "
+          f"{statistics.median(result['history']['ms_per_step']):.2f} ms a mini-step: loss "
+          f"{result['history']['total_loss']}; rare-tag remap {list(cfg['tag_class_counts'])} -> "
+          f"{counts}, folded {[len(v) for v in result['rare_tags'].values()]}; repetition {rep}; "
+          f"launches {launches}")
+    _, table_launches = audit_table("raw", result["model"], counts, a.item_features, device, rep)
+
+    s1_save = latest(result)
+    gin2 = trainer_gin(root, dict(cfg, tag_class_counts=counts), s1_save, steps, steps,
+                       **(stage2 or {}))
+    r2, launches2, seconds2 = run_trainer_entry(load_script("torch_train_transformer"), device,
+                                                gin2)
+    scores = check_trainer_run("raw stage 2", r2, launches2, steps, [steps], device, n_items)
+    print(f"  stage 2 ({steps} steps) in {seconds2:.2f} s, median "
+          f"{statistics.median(r2['history']['ms_per_step'][1:] or [math.nan]):.2f} ms a step "
+          f"after the first: loss {r2['history']['train_loss']}; TEST hit@10, ndcg@10 "
+          f"{[float(x) for x in scores]}; "
+          f"launches {launches2}")
+
+    hist = a.seq_items[a.seq_split == 2][:ARTIFACT_HISTORIES]
+    rq.rq_assign.launches = 0
+    t0 = time.perf_counter()
+    engine = RetrievalEngine.from_artifacts(gin2, s1_save, r2["saved_paths"][-1], device=device,
+                                            batch_buckets=(len(hist),))
+    serve_s, serve_launches = time.perf_counter() - t0, rq.rq_assign.launches
+    out = engine.recommend(hist, top_k=10)
+    resolved = check_recommendations(engine, out, n_items)
+    print(f"  from_artifacts in {serve_s:.3f} s (rq_assign launches {serve_launches}); "
+          f"{resolved} of {out['items'].size} top-10 items of {len(hist)} test histories resolved")
+    if resolved != out["items"].size:
+        raise AssertionError("raw: a top-10 item of a test history did not resolve")
+    serve_p50(engine, hist)
+    del engine, result, r2
+
+    ml = os.path.join(root, "movielens")
+    os.makedirs(ml)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--movielens", ml,
+                    *map(str, movielens)], check=True, timeout=ML_RAW_TIMEOUT_S)
+    with open(os.path.join(ml, "movielens.json")) as f:
+        if sorted(json.load(f)) != ["1m", "32m"]:
+            raise AssertionError("raw: a MovieLens build is missing")
+    return {"stage1": launches["rq_assign"], "table": table_launches,
+            "stage2": launches2["rq_assign"], "from_artifacts": serve_launches}
 
 
 # ---- multi-GPU: stage-1 data parallelism -------------------------------------
@@ -2304,12 +2401,10 @@ def split_bn_biases(params):
 
 
 def check_gradient_witness(recs, ranks, want_rec, want):
-    """The witness step at DP 2 (records `recs`, arrays `ranks`) against one
-    process (`want_rec`, `want`): float64 gradients equal on both ranks,
-    each array within MULTI_GRAD64_RTOL of its largest entry (the tag
-    projectors' dense_0, before a train-mode BatchNorm: of all arrays'), the
-    loss within MULTI_FIRST_LOSS_RTOL, mined pairs colliding. The fp32 gaps
-    are printed only: a ReLU input within rounding of 0 flips."""
+    """The DP 2 witness step against one process: float64 gradients equal on
+    both ranks and within MULTI_GRAD64_RTOL of each array's largest entry
+    (the tag projectors' dense_0: of all arrays'), the loss within
+    MULTI_FIRST_LOSS_RTOL, mined pairs colliding; fp32 gaps printed only."""
     got, exact = ranks[0]["grads64"], want["grads64"]
     if set(got) != set(exact) or any(
             not np.array_equal(ranks[1]["grads64"][k], got[k]) for k in exact):
@@ -2353,13 +2448,10 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
 
 
 def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bindings=None):
-    """The stage-1 multi runs' inputs: the stage1 phase's Amazon dataset
-    (`amazon_root`), the mining phase's catalog and seeded ML-32M items
-    under `root`, and the three gins cut as those phases cut them (logging
-    every step; Amazon in fp32) at the widths of `amazon`, `xxl`, `ml32m`
-    with bindings[name] on top, plus the mining gin in fp32
-    ("mining_fp32"). Returns {name: spec} (trainer, gin, feats, steps,
-    fp32, exact, items, accumulate) and the Amazon gin of 2N steps."""
+    """The stage-1 multi runs' gins, cut as their phases cut them (every step
+    logged, Amazon in fp32) over the stage1 phase's Amazon data, the mining
+    catalog and ML-32M items, plus the mining gin in fp32. Returns
+    ({name: spec}, the Amazon gin of 2N mini-steps)."""
     bindings = bindings or {}
     os.makedirs(root, exist_ok=True)
     a_steps = MULTI1_STEPS["amazon"]
@@ -2421,13 +2513,10 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
 
 
 def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
-    """`train` of spec's trainer from its gin, saving under `save_root`, the
-    launch counts set to 0 just before. Returns a JSON record (losses,
-    evals, audits, mined rates, rq_assign launches, collective bytes per
-    mini-step, seconds, last checkpoint) and arrays (the newest table, the
-    pool, params; with `grads` the last mini-step's summed gradients). On a
-    rank of several, "audit_vs_plain": compare_ids of the last audit against
-    a plain sweep of the final params on this rank alone."""
+    """spec's trainer from its gin, launch counts set to 0 just before.
+    Returns a JSON record (losses, audits, launches, bytes, seconds, last
+    save) and arrays (table, pool, params; `grads`: the last gradients);
+    on a rank of several, rank 0's last audit against a plain sweep."""
     import importlib
 
     from hidvae_tpu_torch.utils.config import parse_config_and_run
@@ -2488,9 +2577,8 @@ def load_arrays(path):
 
 
 def multi1_rank_main(workdir):
-    """One of the stage-1 multi runs' two Gloo ranks on cuda:0: each gin's
-    run at DP 2, then the gradient witness. Writes rank<r>_s1.json and
-    rank<r>_s1_<name>.npz."""
+    """A stage-1 multi Gloo rank on cuda:0: each gin at DP 2, then the
+    gradient witness. Writes rank<r>_s1.*."""
     import torch.distributed as dist
 
     with open(os.path.join(workdir, "s1_inputs.json")) as f:
@@ -2519,9 +2607,7 @@ def multi1_rank_main(workdir):
 
 
 def differing_rows(got, want, hold=True, name=""):
-    """The rows in which two tables (or pools) differ; with `hold`, raise
-    unless there are none (printing the differing entries per column: a
-    table's levels)."""
+    """Rows in which two tables (or pools) differ; with `hold`, none may."""
     if got is None and want is None:
         return 0
     rows = (-1 if got is None or want is None or got.shape != want.shape
@@ -2535,9 +2621,8 @@ def differing_rows(got, want, hold=True, name=""):
 
 
 def ulp_control_run(spec, device, save_root):
-    """multi1_run of `spec` on one process with every parameter moved one
-    ulp (a seeded direction each) right after k-means: how far fp32
-    rounding alone carries the run."""
+    """multi1_run with every parameter one ulp off after k-means: how far
+    fp32 rounding alone carries the run."""
     from hidvae_tpu_torch.train import hidvae as hv
 
     kmeans = hv.kmeans_init_
@@ -2558,10 +2643,8 @@ def ulp_control_run(spec, device, save_root):
 
 
 def float64_run(spec, device, save_root, **kwargs):
-    """multi1_run of `spec` whose steps also take their gradients in float64
-    (a float64 copy of the model on the same inputs, rows and draws, the
-    Gumbel noise drawn in fp32 then widened), summed over the ranks.
-    arrays["grads64"] holds them."""
+    """multi1_run whose steps also take float64 gradients (a float64 copy on
+    the same inputs and draws), summed over the ranks, in arrays["grads64"]."""
     import copy
 
     from hidvae_tpu_torch.models import quantize
@@ -2621,15 +2704,11 @@ def float64_run(spec, device, save_root, **kwargs):
 
 
 def multi_stage1(device, root, amazon_root, **inputs):
-    """Stage-1 data parallelism on the card (functional), per gin of
-    `multi1_inputs`: one process, one NCCL rank (bitwise expected) and two
-    Gloo ranks on cuda:0; then the Amazon DP 2 checkpoint resumed on one
-    process against the 2N run. fp32 runs are held as the stage-2 multi
-    runs; the bf16 mining run on its losses, its gaps printed beside an
-    fp32 rounding control (ulp_control_run), and the float64 gradient
-    witness. Tables and pools equal on both ranks, rank 0's last audit a
-    plain sweep but near ties, no tag class folded. Every check runs; the
-    failures are raised at the end. Returns the record."""
+    """Stage-1 data parallelism per multi1_inputs gin: one process, one NCCL
+    rank (bitwise) and two Gloo ranks; fp32 runs held as the stage-2 multi
+    runs, the bf16 mining run on its losses beside a rounding control and
+    the float64 gradient witness; the Amazon DP 2 checkpoint resumed on
+    one process. Failures are raised together at the end."""
     specs, amazon_2n = multi1_inputs(root, amazon_root, **inputs)
     cuda = device.type == "cuda"
     one, init = {}, {}
@@ -2796,6 +2875,8 @@ def main():
         rqvae_rec = rqvae_phase(device, work)
     with tempfile.TemporaryDirectory() as work:
         synthetic_launches = synthetic_phase(device, work)
+    with tempfile.TemporaryDirectory() as work:
+        raw_launches = raw_phase(device, work)
     scale_recs = scale_phase(device)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
@@ -2809,7 +2890,7 @@ def main():
         launches_from_artifacts=art_launches,
         launches_trainer={
             "2N run": trainer_rec["full"]["launches"]["rq_assign"],
-            **{k: v["rq_assign"] for k, v in trainer_rec["resume"]["launches"].items()},
+            **trainer_rec["resume"]["launches"],
             "from_artifacts": trainer_rec["serve"]["launches"]},
         launches_stage1=stage1_rec["launches"],
         launches_rqvae=rqvae_rec["launches"], launches_mining=mining_rec["launches"],
@@ -2820,7 +2901,7 @@ def main():
             "engine_tp": multi_rec["engine_tp"]["rq_launches"]},
         launches_multi_stage1_per_rank_per_audit={
             k: v["rq_per_audit"] for k, v in multi_rec["stage1"].items() if "rq_per_audit" in v},
-        launches_synthetic=synthetic_launches,
+        launches_synthetic=synthetic_launches, launches_raw=raw_launches,
         launches_scale={r["n_items"]: r["rq_assign_launches"] for r in scale_recs},
     )]
     for name, r in flash_recs.items():
@@ -2848,5 +2929,7 @@ if __name__ == "__main__":
         multi_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--multi-stage1-rank"]:
         multi1_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--movielens"]:
+        movielens_main(*sys.argv[2:5])
     else:
         sys.exit(main())

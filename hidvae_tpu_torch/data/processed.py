@@ -6,10 +6,12 @@ reads.
 Plain numpy, as in the JAX package. The stage-2 trainer reads the train split
 (random-cropped on the device when `subsample`) and walks the eval and
 test splits in order (`SeqData.iter_eval_batches`, processed.py:315).
-`load_or_build` builds the seeded synthetic corpus (data/synthetic.py) where
-its file is missing or `force_process` is set, and saves it, as the JAX
-package does. Building AMAZON, ML_1M, ML_32M or KUAIRAND from their raw
-files is not ported: a missing file of theirs, or `force_process`, raises.
+`load_or_build` builds a dataset where its file is missing or
+`force_process` is set, and saves it, as the JAX package does: the seeded
+synthetic corpus (data/synthetic.py), Amazon P5 (data/amazon.py) and
+MovieLens 1M / 32M (data/movielens.py) from their raw files. KuaiRand's
+builder is not ported: for KUAIRAND a missing file, or `force_process`,
+raises.
 """
 
 import os
@@ -103,11 +105,12 @@ def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
 def load_or_build(root: str, dataset: RecDataset, split: str = "",
                   force_process: bool = False) -> ProcessedArrays:
     """The processed arrays of (dataset, split) under `root`: the file is read
-    unless `force_process`. The synthetic corpus has no named splits, so its
-    split is dropped; where its file is missing or forced, it is built by
-    `build_synthetic()` at its defaults and saved there (processed.py:117-149).
-    The other datasets are built from raw files, which the port cannot do
-    yet: for them a missing file or `force_process` raises."""
+    unless `force_process`; else they are built and saved there
+    (processed.py:117-149). The synthetic corpus has no named splits (its
+    split is dropped) and is built by `build_synthetic()` at its defaults;
+    AMAZON from <root>/raw/<split or "beauty">/, ML_1M and ML_32M from
+    <root>/raw/. KUAIRAND's builder is not ported: a missing file or
+    `force_process` raises."""
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
@@ -117,14 +120,23 @@ def load_or_build(root: str, dataset: RecDataset, split: str = "",
         from hidvae_tpu_torch.data.synthetic import build_synthetic
 
         arrays = build_synthetic()
-        arrays.save(path)
-        return arrays
-    why = (f"no processed dataset at {path}" if not force_process else
-           f"force_dataset_process=True rebuilds {path} from the raw {dataset.name} files")
-    error = NotImplementedError if force_process else FileNotFoundError
-    raise error(f"{why}: building {dataset.name} from its raw files is not ported yet "
-                f"(ROADMAP.md queue 1 item 1.2); build it with the JAX package's "
-                f"hidvae_tpu/data, then read the processed .npz")
+    elif dataset == RecDataset.AMAZON:
+        from hidvae_tpu_torch.data.amazon import build_amazon
+
+        arrays = build_amazon(root, split or "beauty")
+    elif dataset in (RecDataset.ML_1M, RecDataset.ML_32M):
+        from hidvae_tpu_torch.data.movielens import build_movielens
+
+        arrays = build_movielens(root, dataset)
+    else:
+        why = (f"no processed dataset at {path}" if not force_process else
+               f"force_dataset_process=True rebuilds {path} from the raw {dataset.name} files")
+        error = NotImplementedError if force_process else FileNotFoundError
+        raise error(f"{why}: building {dataset.name} from its raw files is not ported yet "
+                    f"(ROADMAP.md queue 1 item 1.2b, KuaiRand); build it with the JAX "
+                    f"package's hidvae_tpu/data, then read the processed .npz")
+    arrays.save(path)
+    return arrays
 
 
 class ItemData:

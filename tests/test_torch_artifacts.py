@@ -325,7 +325,8 @@ def test_from_artifacts_defaults_to_cuda(plain_root):
 def test_missing_dataset_names_its_path(tmp_path):
     from hidvae_tpu_torch.data.processed import ItemData, RecDataset
 
-    with pytest.raises(FileNotFoundError, match=r"ml_32m_beauty\.npz.*not ported"):
+    # No processed file and no raw files: the builder names the raw file it lacks.
+    with pytest.raises(FileNotFoundError, match=rf"{tmp_path}/raw/movies\.csv"):
         ItemData(str(tmp_path), RecDataset.ML_32M, split="beauty")
 
 

@@ -105,13 +105,14 @@ HYGIENE_SCRIPT = textwrap.dedent('''
 ''')
 
 
-def run_without_jax(script):
-    """PRELUDE + `script` + EPILOGUE in a subprocess; it must exit 0 and
-    print its module and resolved counts last."""
+def run_without_jax(script, prefix=""):
+    """`prefix` + PRELUDE + `script` + EPILOGUE in a subprocess; it must exit
+    0 and print its module and resolved counts last."""
     # One intra-op thread, as tests/_torch_common.py sets it for the workers.
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", PRELUDE + textwrap.dedent(script) + EPILOGUE],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    code = textwrap.dedent(prefix) + PRELUDE + textwrap.dedent(script) + EPILOGUE
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     last = res.stdout.splitlines()[-1].split()  # the phases print before it
     assert int(last[1]) >= 20
@@ -120,6 +121,31 @@ def run_without_jax(script):
 
 def test_port_imports_and_serves_without_jax():
     run_without_jax(HYGIENE_SCRIPT)
+
+
+# As on the card's machine: neither pandas nor sentence_transformers imports
+# (the text encoder is the hash fallback). Every module of the port imports
+# so (PRELUDE), and the smoke's raw phase runs at tiny widths: the P5 drop
+# built from raw files by the stage-1 entry, stage 2 on it, from_artifacts
+# on its test histories, and the MovieLens 32M and 1M builds.
+NO_PANDAS = """
+    import sys
+    sys.modules["pandas"] = sys.modules["sentence_transformers"] = None
+"""
+RAW_SCRIPT = """
+    tiny_raw = dict(tiny, input_dim=768, tag_embed_dim=768)  # the built widths
+    with tempfile.TemporaryDirectory() as work:
+        rec = chip_smoke.raw_phase(torch.device("cpu"), work, cfg=tiny_raw,
+                                   drop=dict(n_items=300, n_users=80), n=2, steps=2,
+                                   movielens=(60, 2000), batch_size=16, stage2=dict(
+                                       batch_size=8, mixed_precision_type='"fp32"'))
+    assert rec == {"stage1": 0, "table": 0, "stage2": 0, "from_artifacts": 0}, rec
+    assert sys.modules["pandas"] is None
+"""
+
+
+def test_raw_builders_run_without_pandas():
+    run_without_jax(RAW_SCRIPT, prefix=NO_PANDAS)
 
 
 def _port_sources():

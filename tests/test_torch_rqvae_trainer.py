@@ -287,7 +287,7 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):
     """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin, every key kept
     but the widths, the cadence, the dataset and force_dataset_process
-    (which is refused as given: the ML-32M builder is not ported): trains,
+    (as given, it builds ML-32M from raw files, which this root lacks): trains,
     evaluates, audits and saves; a save re-audits unless its chunk audited
     (rqvae.py:327-333)."""
     text = (ROOT / "configs/rqvae_ml32m.gin").read_text()
@@ -298,7 +298,7 @@ def test_entry_script_runs_the_gin(dataset_root, tmp_path):
             "eval_batches": "1"}
     gin = write_gin(tmp_path / "rq.gin", text, **over)
     script = load_script("torch_train_rqvae")
-    with pytest.raises(NotImplementedError, match="force_dataset_process.*queue 1 item 1.2"):
+    with pytest.raises(FileNotFoundError, match="ML-32M raw data not found"):
         script.main([gin, "--device", "cpu"])
     gin = write_gin(gin, text, **over, dataset="%data.processed.RecDataset.SYNTHETIC",
                     force_dataset_process="False")

@@ -2,8 +2,8 @@
 bitwise: `build_synthetic()` and dataset/synthetic/processed/synthetic.npz;
 both packages' `build_synthetic` at each preset's shapes (3,000 items);
 scripts/torch_make_synthetic.py's presets and the JAX scripts' arguments;
-files across packages; `load_or_build` on the synthetic corpus, and its
-refusal of the raw datasets."""
+files across packages; `load_or_build` on the synthetic corpus, and on the
+raw datasets without their raw files."""
 
 from pathlib import Path
 
@@ -95,14 +95,20 @@ def test_load_or_build_synthetic_as_jax(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["AMAZON", "ML_1M", "ML_32M", "KUAIRAND"])
 def test_raw_datasets_are_refused(dataset, tmp_path):
-    """Read when present; missing or forced, refused with the path and the
-    ROADMAP item that ports the builder."""
+    """Read when present; missing or forced without raw files, refused: the
+    builders of AMAZON and MovieLens name the raw files they lack (they
+    build from raw files: tests/test_torch_raw_builders.py), KUAIRAND's
+    refusal names the path and the ROADMAP item that ports its builder."""
     ds = processed.RecDataset[dataset]
     path = processed.processed_path(str(tmp_path), ds, "beauty")
-    with pytest.raises(FileNotFoundError, match=rf"{Path(path).name}.*queue 1 item 1\.2"):
+    lacks = {"AMAZON": r"P5 data drop", "ML_1M": r"ML-1M raw data not found",
+             "ML_32M": r"ML-32M raw data not found",
+             "KUAIRAND": rf"{Path(path).name}.*queue 1 item 1\.2b, KuaiRand"}[dataset]
+    forced = NotImplementedError if dataset == "KUAIRAND" else FileNotFoundError
+    with pytest.raises(FileNotFoundError, match=lacks):
         processed.load_or_build(str(tmp_path), ds, "beauty")
     build_synthetic(n_items=50, n_users=5).save(path)
     assert_same(processed.load_or_build(str(tmp_path), ds, "beauty"),
                 processed.ProcessedArrays.load(path))
-    with pytest.raises(NotImplementedError, match=rf"{Path(path).name}.*queue 1 item 1\.2"):
+    with pytest.raises(forced, match=lacks):
         processed.load_or_build(str(tmp_path), ds, "beauty", force_process=True)

@@ -12,7 +12,7 @@
     bitwise in the port, and one more AdamW update agrees with optax's;
   * the gin surface binds as the JAX trainer's, a stale resume gin heals
     from the meta, a sem_id_dim mismatch and force_dataset_process on a
-    raw dataset are refused, n_model_shards > 1 on one process fails as JAX's make_mesh
+    raw dataset without its raw files are refused, n_model_shards > 1 on one process fails as JAX's make_mesh
     does, and `train` defaults to the card;
   * the plain RQ-VAE route trains, and the entry script's checkpoint serves
     through `from_artifacts` as the trained model does.
@@ -326,9 +326,9 @@ def test_resume_heals_geometry_and_refuses_sem_id_dim(dataset_root, tmp_path, ca
 
 
 def test_refusals_and_default_device(dataset_root, tmp_path):
-    # Only the synthetic corpus is rebuilt (tests/test_torch_synthetic.py);
-    # the raw datasets' builders are not ported.
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.2"):
+    # Forced, a raw dataset is rebuilt from its raw files, which this root lacks
+    # (tests/test_torch_raw_builders.py builds them).
+    with pytest.raises(FileNotFoundError, match="P5 data drop"):
         _train(str(tmp_path), tmp_path, "force", iterations=1, dataset=RecDataset.AMAZON,
                dataset_split="beauty", force_dataset_process=True)
     with pytest.raises(ValueError, match="n_model=2 needs at least 2 devices, have 1"):
