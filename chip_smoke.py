@@ -1,18 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the CUDA kernels (rq_assign, flash attention) from this checkout, one
-nvcc each, all at once, and holds each against its plain PyTorch version at
-the shapes the port's paths give it. Then drives the paths through their
-entry points on seeded weights and data at the configs' widths (PERF.md
-section 4): serve, artifacts, train, stage1, trainer, multi, mining, rqvae,
-synthetic, raw (P5 Sports built from raw files, trained and served; the
-MovieLens builders without pandas) and scale. Launch counts are set to 0
-just before each path and read just after; outputs are held to a plain
-version or to the run they must equal. Every phase prints its start and
-end; the line before the last is the kernels' JSON, the last {"ok": true,
-"device": {...}}. Exits non-zero without a CUDA device. Imports nothing of
-JAX, and reads no file but the port's sources, the gins it cuts line by line
-(so that they cannot drift from the repo's) and what it writes itself.
+Builds the CUDA kernels (one nvcc each, at once) and holds each against its
+plain PyTorch version at the paths' shapes; then drives the paths through
+their entry points on seeded weights and data at the configs' widths
+(PERF.md section 4): serve, artifacts, train, stage1, trainer, multi,
+mining, rqvae, synthetic, raw (P5 Sports and KuaiRand-1K built from raw
+files, trained and served; MovieLens built without pandas) and scale.
+Launch counts are set to 0 just before each path and read just after;
+outputs are held to a plain version or to the run they must equal. Every
+phase prints its start and end; the line before the last is the kernels'
+JSON, the last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+device. Imports nothing of JAX; reads only the port's sources, the gins it
+cuts line by line and what it writes.
 """
 
 import inspect
@@ -42,6 +41,7 @@ from hidvae_tpu_torch.ops import flash_attention as fa
 from hidvae_tpu_torch.ops import rq_assign as rq
 from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
+from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train import transformer as trainer
 from hidvae_tpu_torch.train.common import repetition_rate
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
@@ -56,8 +56,7 @@ AMAZON = dict(
     tag_embed_dim=768, decoder_embed_dim=128, attn_embed_dim=512, attn_heads=8,
     attn_layers=8, max_seq_len=20, n_items=18357,
 )
-# configs/{rqvae,decoder}_ml32m.gin (the plain RQ-VAE route); MovieLens 32M's
-# movies and 200-item windows: 1 + 200 * 3 = 601 tokens.
+# configs/{rqvae,decoder}_ml32m.gin (plain RQ-VAE route); ML-32M's movies, 200-item windows.
 ML32M = dict(
     input_dim=768, hidden_dims=(512, 256, 128), embed_dim=64, codebook_size=256,
     n_layers=3, codebook_normalize=False, tag_class_counts=None, decoder_embed_dim=128,
@@ -82,19 +81,17 @@ KERNEL_CASES = (  # (B, D, L, K)
     (3392, 32, 4, 256),
     (640, 32, 3, 256),       # tokenize_features of the serve batch: 32 x 20 rows
 )
-# Timed: the main path's launch, 1M rows, ML-32M's and mining's launches, tokenize.
 TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
                (5665, 64, 3, 256), (8192, 32, 4, 256), (3392, 32, 4, 256),
                (640, 32, 3, 256))
-# Codes made identical: a row nearest to them must get the first, as argmin does.
+# Codes made identical: their nearest rows must get the first, as argmin does.
 DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
 KMEANS_ITERS = 10  # Lloyd steps of the seeded models' codebooks
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
-# Flash kernels against the fp32 plain version: largest error over max
-# |plain|. fp32: sums of up to 2,432 terms in another order (~sqrt(N) *
-# 2^-24). bf16: each output rounded once (2^-9), P and dS rounded before
-# their products as the library does (2^-9 a term, mostly cancelling).
+# Flash kernels against the fp32 plain version, largest error over max
+# |plain|: fp32 sums of 2,432 terms in another order; bf16 outputs rounded
+# once (2^-9), P and dS rounded before their products as the library does.
 FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
@@ -102,7 +99,7 @@ H100_BYTES_PER_S = 3.35e12
 
 
 def phase(name):
-    """Decorator: print a phase's start and end (with elapsed seconds)."""
+    """Decorator: print a phase's start and end (seconds)."""
     def wrap(fn):
         def run(*args, **kwargs):
             print(f"[phase] {name}: start")
@@ -114,11 +111,10 @@ def phase(name):
     return wrap
 
 
-# ---- reference comparison -------------------------------------------------
+# ---- reference comparison
 
 def near_tie_levels(x, codebooks):
-    """Per row and level, whether the plain version's best two distances lie
-    within TIE_RTOL * (1 + ||r||^2): an exact argmin may fall either way."""
+    """Per row and level: the plain version's best two distances within TIE_RTOL * (1 + ||r||^2)."""
     res = x.float()
     ties = []
     with full_fp32():
@@ -142,6 +138,11 @@ def compare_ids(ids, ids_ref, ties):
     return int(rows.sum()), int((rows & ~tie_at_first).sum())
 
 
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def median_ms(fn, runs=10, warmup=3):
     for _ in range(warmup):
         fn()
@@ -159,8 +160,7 @@ def median_ms(fn, runs=10, warmup=3):
 
 
 def graph_ms(fn, launches=20):
-    """Device ms of one fn() call: `launches` calls replayed from a CUDA graph
-    (median of 5), the host's launch time left out."""
+    """Device ms of one fn(): `launches` calls replayed from a CUDA graph (median of 5)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -171,21 +171,19 @@ def graph_ms(fn, launches=20):
 
 
 def rq_bound_ms(b, d, n_levels, k):
-    """Least rq_assign time on an H100 SXM: the larger of its bytes (each
-    input read once, each output written once) over the memory rate and
-    2*B*K*D*L over the fp32 rate. Returns (ms, bound_by)."""
+    """(ms, bound_by): rq_assign's bytes (inputs read, outputs written once)
+    over the H100 SXM's memory rate or 2*B*K*D*L over its fp32 rate."""
     bytes_moved = 4 * (b * d + n_levels * k * d + b * n_levels + b * d)
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = 2.0 * b * k * d * n_levels / H100_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# ---- model and corpus -----------------------------------------------------
+# ---- model and corpus
 
 def seed_codebooks_(vae, feats, generator):
-    """k-means codebooks level by level, as the trainer's k-means init: K
-    seeded items' residuals, then KMEANS_ITERS Lloyd steps, so that the
-    audit's collapse guard has a low repetition rate to hold to."""
+    """k-means codebooks level by level (K seeded residuals, KMEANS_ITERS
+    Lloyd steps), so that the collapse guard holds to a low repetition."""
     with torch.no_grad(), full_fp32():
         enc = vae.encode(feats)
         for q in vae.layers:
@@ -210,8 +208,8 @@ def unit_rows(n, dim, generator):
 
 
 def write_items(path, feats, rng, hist=None, **arrays):
-    """The processed .npz at `path`: items `feats` (95 % train), histories
-    `hist` (or one placeholder) and `arrays` (tags)."""
+    """The processed .npz at `path`: `feats` (95 % train), `hist` (or one
+    placeholder) and `arrays` (tags)."""
     n = len(feats)
     hist = np.zeros((1, 2), np.int32) if hist is None else hist.astype(np.int32)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -221,10 +219,9 @@ def write_items(path, feats, rng, hist=None, **arrays):
              seq_is_train=np.ones(len(hist), bool), **arrays)
 
 
-def build_vae(cfg, generator):
-    """(seeded frozen stage-1 model, seeded unit-norm CPU features): a
-    HiD-VAE where cfg has tag counts, else the plain RQ-VAE."""
-    g = generator
+def build_vae(cfg, g):
+    """(seeded stage-1 model, unit-norm CPU features): a HiD-VAE where cfg
+    has tag counts, else the plain RQ-VAE."""
     feats = unit_rows(cfg["n_items"], cfg["input_dim"], g)
     widths = (cfg["input_dim"], cfg["embed_dim"], cfg["hidden_dims"], cfg["codebook_size"])
     common = dict(codebook_normalize=cfg["codebook_normalize"], n_layers=cfg["n_layers"])
@@ -249,8 +246,7 @@ def build_decoder(cfg, sem_id_dim, generator):
 
 
 def build_engine(cfg, device, seed=SEED, batch_buckets=(32,)):
-    """RetrievalEngine with seeded random weights and a seeded corpus.
-    Returns (engine, item features as numpy)."""
+    """(RetrievalEngine on seeded weights and corpus, features in numpy)."""
     g = torch.Generator().manual_seed(seed)
     vae, feats = build_vae(cfg, g)
     tok = HSemanticIdTokenizer(
@@ -274,8 +270,8 @@ def seeded_histories(n_items, batch, length, seed=SEED):
 
 
 def check_recommendations(engine, out, n_items):
-    """Items in [0, n_items) or -1; every resolved item's ID tuple is the
-    generated one; every generated tuple that resolves is in the table."""
+    """Items in [0, n_items) or -1, each resolved one's tuple the generated
+    one and in the table; scores descending. Returns the resolved count."""
     items = out["items"]
     if not ((items == -1) | ((items >= 0) & (items < n_items))).all():
         raise AssertionError("recommended item outside [0, n_items) and not -1")
@@ -294,7 +290,7 @@ def check_recommendations(engine, out, n_items):
     return int(ok.sum())
 
 
-# ---- phases ---------------------------------------------------------------
+# ---- phases
 
 @phase("card")
 def card_phase():
@@ -311,8 +307,8 @@ def card_phase():
 
 @phase("build")
 def build_phase():
-    """Build every kernel source at once (one nvcc each) and print each
-    build's time and ptxas register and spill lines."""
+    """Build every kernel source at once (one nvcc each); print each
+    build's time, registers and spills."""
     modules = (("rq_assign", rq), ("flash_attention", fa))
     with ThreadPoolExecutor(len(modules)) as pool:
         futures = [(name, pool.submit(mod.build)) for name, mod in modules]
@@ -325,8 +321,8 @@ def build_phase():
 
 
 def ptxas_report(log):
-    """nvcc's -Xptxas -v output as one line per kernel: its name, template
-    width (and causal build), registers and spills."""
+    """-Xptxas -v output, a line a kernel: name, width (causal), registers
+    and spills."""
     lines = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -339,8 +335,8 @@ def ptxas_report(log):
 
 
 def duplicate_codes_(x, cbs, generator):
-    """Make codes DUPLICATE_CODES of every level identical, and every other
-    row of x a point near that code of level 0. Returns those rows."""
+    """Codes DUPLICATE_CODES of every level made identical, every other row
+    of x near that code of level 0. Returns those rows."""
     first, *rest = DUPLICATE_CODES
     for k in rest:
         cbs[:, k] = cbs[:, first]
@@ -352,9 +348,9 @@ def duplicate_codes_(x, cbs, generator):
 
 @phase("kernel")
 def kernel_phase(device):
-    """rq_assign against its plain version at every KERNEL_CASES shape and
-    on duplicated codes, timed at TIMED_CASES. Returns the 1M-row record,
-    the paths' launch shapes under `at_*` keys."""
+    """rq_assign against its plain version at KERNEL_CASES and on duplicated
+    codes, timed at TIMED_CASES. Returns the 1M-row record, the paths'
+    launch shapes under `at_*`."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -425,8 +421,7 @@ def serve_phase(device):
     print(f"  recommend: items {out['items'].shape}, resolved {resolved}, "
           f"first row {out['items'][0].tolist()}")
 
-    # The table swept through the kernel against one swept with the plain
-    # version on the card: same encoder, same tag heads, plain rq_assign.
+    # The table against a plain sweep on the card (same encoder and tag heads).
     tok = engine.tokenizer
     n_l = cfg["n_layers"]
     sem_ref, ties, tags_ref = plain_sweep(tok.hrq_vae, torch.from_numpy(items).to(device),
@@ -447,9 +442,8 @@ def serve_phase(device):
 
 
 def check_tokenize_features(tok, items, hist):
-    """tokenize_features of `hist`' features (one launch of B * N rows on
-    the card) against the table's gather: IDs equal but near ties, tags
-    where the IDs are, -1 at padding. Returns the launches."""
+    """tokenize_features of `hist` (one launch of B * N rows) against the table's gather: IDs but
+    near ties, tags, -1 padding. Returns the launches."""
     valid = hist >= 0
     x = items[np.where(valid, hist, 0)]
     rq.rq_assign.launches = 0
@@ -483,8 +477,7 @@ def check_tokenize_features(tok, items, hist):
 
 
 def serve_p50(engine, hist):
-    """Median latency (ms, host clock, read-back included) of 12 warm
-    recommend calls on `hist`; prints it beside the spread."""
+    """Median ms (host clock) of 12 warm recommend calls on `hist`, printed with the spread."""
     lat = []
     for _ in range(12):
         if engine.device.type == "cuda":
@@ -497,8 +490,7 @@ def serve_p50(engine, hist):
 
 
 def plain_sweep(vae, feats, chunk):
-    """The corpus swept by the plain rq_assign in the engine's chunks:
-    (IDs [N, L], near-tie flags [N, L], predicted tags or None)."""
+    """(IDs, near-tie flags, predicted tags or None) of the plain rq_assign in `chunk`s."""
     ids, ties, tags = [], [], []
     with torch.inference_mode(), full_fp32():
         cbs = vae.stacked_codebooks()
@@ -513,34 +505,38 @@ def plain_sweep(vae, feats, chunk):
 
 
 def audit_table(name, model, tag_class_counts, feats, device, rep=None):
-    """The trained HiD-VAE's table of `feats` through rq_assign against a
-    plain sweep (near ties apart; the audit's repetition `rep` where no
-    row differs). Returns (table, launches)."""
-    tok = HSemanticIdTokenizer(model, n_layers=len(model.layers),
-                               codebook_size=model.codebook_size,
-                               tag_class_counts=tag_class_counts, device=device)
+    """The trained model's table of `feats` through rq_assign (the H
+    tokenizer where it has tag counts) held by hold_table. Returns (table,
+    launches)."""
+    kw = dict(n_layers=len(model.layers), codebook_size=model.codebook_size, device=device)
+    tok = (SemanticIdTokenizer(model, **kw) if tag_class_counts is None else
+           HSemanticIdTokenizer(model, tag_class_counts=tag_class_counts, **kw))
     rq.rq_assign.launches = 0
     got = tok.precompute_corpus_ids(feats)
-    launches = rq.rq_assign.launches
-    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), tok.corpus_chunk_size)
+    hold_table(f"{name}: audit table (rq_assign launches {rq.rq_assign.launches})", got, model,
+               feats, device, tok.corpus_chunk_size, rep)
+    return got, rq.rq_assign.launches
+
+
+def hold_table(name, got, model, feats, device, chunk, rep=None):
+    """The table `got` against a plain sweep: no row off but near ties, and
+    the audit's repetition `rep` where no row differs."""
+    ref, ties, _ = plain_sweep(model, torch.as_tensor(feats).to(device), chunk)
     n_diff, n_bad = compare_ids(got, ref, ties)
     rep_plain = repetition_rate(ref.cpu().numpy())[0]
-    print(f"  {name}: audit table of the trained model: rq_assign launches {launches}; rows "
-          f"differing from the plain sweep {n_diff} (not near ties: {n_bad}); repetition "
-          f"{rep_plain:.4f} (the audit recorded {rep})")
+    print(f"  {name}: rows differing from the plain sweep {n_diff} (not near ties: {n_bad}); "
+          f"repetition {rep_plain:.4f} (the audit recorded {rep})")
     if n_bad or (rep is not None and n_diff == 0 and rep_plain != rep):
-        raise AssertionError(f"{name}: the audit's table differs from the plain sweep")
-    return got, launches
+        raise AssertionError(f"{name}: the table differs from the plain sweep")
 
 
-# ---- serving from artifacts -----------------------------------------------
+# ---- serving from artifacts
 
 SCORE_ATOL = 1e-5  # scores of an engine rebuilt from artifacts against the in-process one
 
 
 def structural_config(cfg):
-    """The stage-1 model_config the JAX package's checkpoints record: every
-    STRUCTURAL_VAE_KEYS value of cfg's model (train/common.py)."""
+    """The stage-1 model_config a JAX checkpoint records (STRUCTURAL_VAE_KEYS)."""
     tags = cfg.get("tag_class_counts")
     return dict(input_dim=cfg["input_dim"], embed_dim=cfg["embed_dim"],
                 hidden_dims=list(cfg["hidden_dims"]), codebook_size=cfg["codebook_size"],
@@ -551,6 +547,11 @@ def structural_config(cfg):
                 tag_embed_dim=None if tags is None else cfg["tag_embed_dim"])
 
 
+def paths(root):
+    """dataset_folder `root`, save_dir_root root/runs, as gin literals."""
+    return {"dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"'}
+
+
 def vae_widths(cfg):
     """cfg's stage-1 encoder and codebook widths as gin bindings."""
     return {"vae_input_dim": cfg["input_dim"], "vae_hidden_dims": list(cfg["hidden_dims"]),
@@ -558,8 +559,7 @@ def vae_widths(cfg):
 
 
 def decoder_gin(source, cfg, folder, **bindings):
-    """The gin `source` with cfg's widths, dataset_folder `folder` and
-    `bindings` (gin literals), replaced where bound, else appended."""
+    """The gin `source` with cfg's widths, dataset_folder `folder` and `bindings` bound."""
     with open(source) as f:
         text = f.read()
     tags = cfg.get("tag_class_counts")
@@ -581,10 +581,8 @@ def decoder_gin(source, cfg, folder, **bindings):
 
 
 def write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table):
-    """Under `root`: the decoder gin, the processed dataset (`feats`,
-    `hist`) and exported checkpoints of `vae` and `model` with the JAX
-    trainers' metas (the repetition rate of `sem_table`, so the collapse
-    guard is live). Returns (gin, stage-1 dir, stage-2 dir, rate)."""
+    """The decoder gin, the processed data and exports of `vae` and `model` (metas with the
+    repetition of `sem_table`) under `root`. Returns (gin, stage-1, stage-2, rate)."""
     os.makedirs(root)
     gin = os.path.join(root, "decoder.gin")
     with open(gin, "w") as f:
@@ -604,8 +602,7 @@ def write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table):
 
 
 def save_decoder_export(path, cfg, model):
-    """The decoder `model` as an exported checkpoint with the geometry the
-    JAX trainer records in its meta. Returns the directory."""
+    """`model` exported with the geometry the JAX trainer records."""
     d = model.sem_id_dim
     return save_export(path, model, {"model_config": {
         "attn_dim": cfg["attn_embed_dim"], "attn_embed_dim": cfg["attn_embed_dim"],
@@ -618,9 +615,7 @@ def save_decoder_export(path, cfg, model):
 
 def serve_from_artifacts(name, root, gin_source, cfg, vae, model, feats, hist, sem_table,
                          device):
-    """Write the artifacts, then from_artifacts with the launch counts set to
-    0 just before (one launch per 8,192-row chunk on the card). Returns
-    (engine, launches)."""
+    """write_artifacts, then from_artifacts (a launch per 8,192 rows). Returns (engine, launches)."""
     gin, s1, s2, rep = write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table)
     rq.rq_assign.launches = 0
     t0 = time.perf_counter()
@@ -658,9 +653,8 @@ def check_same_engine(name, got, want, hist):
 
 @phase("artifacts")
 def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
-    """from_artifacts on both tokenizer routes: the serve phase's engine
-    rebuilt and held equal to itself; a seeded plain RQ-VAE at `ml32m`'s
-    widths, its table held to a plain sweep. Returns the launches."""
+    """from_artifacts on both routes: the serve engine rebuilt equal to itself; a seeded plain RQ-
+    VAE at `ml32m`'s widths against a plain sweep. Returns the launches."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tok = engine.tokenizer
@@ -694,10 +688,9 @@ def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
     return launches
 
 
-# ---- flash attention -----------------------------------------------------
+# ---- flash attention
 
-# One encoder layer of the long-history run: B 64, 8 heads of 64, 2,401
-# tokens padded to 2,432.
+# One encoder layer of the long run: B 64, 8 heads of 64, 2,401 tokens padded.
 FLASH_TIMED = dict(b=64, h=8, n=2432)
 FLASH_HEAD_DIM = 64     # every config's; 128 is checked at FLASH_WIDE_B rows
 FLASH_WIDE_B = 1
@@ -711,8 +704,8 @@ FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attentio
 
 
 def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
-    """q, k, v, dO [b, h, n, dh] and segment ids [b, n]: 1 on each row's
-    valid prefix (n/2 to n - 31 long: the rest is the 128-pad), 0 after."""
+    """q, k, v, dO [b, h, n, dh] and segment ids [b, n]: 1 on a valid prefix of n/2 to n - 31, 0
+    after."""
     q, k, v, do = (torch.randn(b, h, n, dh, device=device, generator=generator)
                    .to(dtype) for _ in range(4))
     lengths = torch.randint(n // 2, n - 30, (b,), device=device, generator=generator)
@@ -721,8 +714,7 @@ def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
 
 
 def keyless_segments(b, n, device, generator):
-    """(seg_q, seg_kv): queries in segments 1-3, keys in 1-2, so queries of
-    segment 3 see no key (the library gives them uniform weights)."""
+    """(seg_q, seg_kv): queries in segments 1-3, keys in 1-2 (segment 3 sees no key)."""
     seg_q = torch.randint(1, 4, (b, n), device=device, generator=generator, dtype=torch.int32)
     seg_q[:, 0] = 3
     seg_kv = torch.randint(1, 3, (b, n), device=device, generator=generator, dtype=torch.int32)
@@ -730,9 +722,8 @@ def keyless_segments(b, n, device, generator):
 
 
 def flash_bounds_ms(b, h, n, itemsize):
-    """(ms, bound_by) of each flash kernel at [b, h, n, 64] on an H100 SXM:
-    2*b*h*n^2*64 a product (forward 2, dK/dV 4, dQ 3) over the type's
-    peak against each input read and each output written once."""
+    """(ms, bound_by) of each flash kernel at [b, h, n, 64] on an H100 SXM: its products (forward
+    2, dK/dV 4, dQ 3 of 2*b*h*n^2*64) over the type's peak, or its bytes."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
     mat = b * h * n * FLASH_HEAD_DIM * itemsize
@@ -767,17 +758,16 @@ FLASH_CHECKS = (
     *[(FLASH_WIDE_B, FLASH_HEAD_DIM, dtype, False, True)
       for dtype in (torch.bfloat16, torch.float32)],
 )
-# Causal with rows that see no key: the kernels must visit, for those rows,
-# the key tiles above the diagonal that causal blocks otherwise skip.
+# Causal with keyless rows: the kernels must visit, for them, the tiles
+# above the diagonal that causal blocks skip.
 FLASH_CAUSAL_KEYLESS_CHECKS = tuple(
     (FLASH_WIDE_B, dh, dtype, True, True)
     for dh in (FLASH_HEAD_DIM, 128) for dtype in (torch.bfloat16, torch.float32))
 
 
 def check_flash(device, g, checks):
-    """O, dQ, dK, dV of the kernels against the fp32 plain version under a
-    nonzero cotangent at H 8, N 2432 per (B, Dh, dtype, causal, keyless)
-    of `checks`, held to FLASH_RTOL. Returns each kernel's largest error."""
+    """O, dQ, dK, dV against the fp32 plain version under a nonzero cotangent per case of `checks`,
+    held to FLASH_RTOL. Returns each kernel's largest error."""
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     errs = {name: 0.0 for name in FLASH_REPLACES}
     for cb, dh, dtype, causal, keyless in checks:
@@ -835,8 +825,8 @@ def flash_kernel_ms(q, k, v, do, seg, causal, scale):
 
 @phase("flash")
 def flash_phase(device):
-    """The flash kernels' times at B 64 (not causal, causal) beside the
-    plain version, SDPA and the bounds; then FLASH_CHECKS."""
+    """The flash kernels' times at B 64 beside the plain version, SDPA and the bounds; then the
+    checks."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     scale = FLASH_HEAD_DIM ** -0.5
@@ -880,8 +870,7 @@ def flash_phase(device):
 
     fwd_bwd_ms = median_ms(kernel_fwd_bwd)
     sdpa_ms, sdpa_fwd_bwd_ms = median_ms(sdpa_fwd), median_ms(sdpa_fwd_bwd)
-    # SDPA's backward alone (dQ, dK and dV in one call) on a retained graph:
-    # the library time of the two backward kernels together.
+    # SDPA's backward alone on a retained graph: both backward kernels' library time.
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
     sdpa_bwd_ms = median_ms(
         lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
@@ -909,7 +898,7 @@ def flash_phase(device):
     return records
 
 
-# ---- training -------------------------------------------------------------
+# ---- training
 
 TRAIN_RUNS = (  # (name, max_seq_len, batch, steps): only the history length changes
     ("short", 20, 256, 15),
@@ -945,8 +934,8 @@ def decoder_widths(cfg, seed=SEED, model=False):
 
 
 def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log=print):
-    """train_arrays at cfg's widths on seeded histories of `max_seq_len`,
-    launch counts set to 0 just before. Returns (result, launches, data)."""
+    """train_arrays at cfg's widths on seeded histories, counts reset. Returns (result, launches,
+    data)."""
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     rq.rq_assign.launches = 0
     fa.reset_launches()
@@ -956,8 +945,7 @@ def train_run(cfg, vae, feats, device, max_seq_len, batch, steps, seed=SEED, log
         eval_users=users[:batch], eval_items=items[:batch], eval_fut=fut[:batch],
         device=device, log=log, mixed_precision_type=cfg.get("precision", "bf16"),
     )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     return result, kernel_launches(), (users, items, fut)
 
 
@@ -979,9 +967,8 @@ def fixed_batch_descent(result, data, batch, steps, seed=SEED):
 
 
 def check_train_run(name, result, launches, steps, n_encoder_layers=4, flash=False):
-    """Finite losses, rq_assign launched, and per encoder layer one flash
-    forward a step and eval batch, one dK/dV and dQ a step (on the flash
-    route; none off it)."""
+    """Finite losses, rq_assign launched, flash launches per encoder layer (forward a step and eval
+    batch, dK/dV and dQ a step) on the flash route, none off it."""
     hist = result["history"]
     losses = hist["train_loss"] + hist["eval_loss"]
     if len(hist["train_loss"]) != steps or not all(np.isfinite(losses)):
@@ -1000,8 +987,8 @@ def check_train_run(name, result, launches, steps, n_encoder_layers=4, flash=Fal
 
 @phase("train")
 def train_phase(device, flash_ms_per_layer):
-    """The short and the long run of the trainer, then the fixed-batch
-    check on each run's model. Returns the long run's launch counts."""
+    """The short and long trainer runs and their fixed-batch checks. Returns the long run's
+    launches."""
     cfg = AMAZON
     vae, feats = build_vae(cfg, torch.Generator().manual_seed(SEED))
     n_enc = cfg["attn_layers"] // 2
@@ -1034,7 +1021,7 @@ def train_phase(device, flash_ms_per_layer):
     return runs["long"][1], vae, feats
 
 
-# ---- the stage-1 trainer from its gin entry ----------------------------------
+# ---- the stage-1 trainer from its gin entry
 
 H_RQVAE_AMAZON_GIN = os.path.join(CONFIGS, "h_rqvae_amazon.gin")
 STAGE1_N = 4              # mini-steps between evals, audits and saves: the run takes 2N
@@ -1046,9 +1033,8 @@ STAGE1_SETTINGS = (("gin", 128, 2), ("batch256", 256, 1))
 
 
 def write_stage1_inputs(root, cfg, feats, seed=SEED):
-    """The processed Amazon dataset under `root`: `feats` (95 % train) with
-    seeded power-law tags of cfg's class counts and a tag embedding per
-    class. Returns its path."""
+    """The processed Amazon data of `feats` with seeded power-law tags of cfg's counts. Returns its
+    path."""
     rng = np.random.RandomState(seed + 31)
     n = len(feats)
     idx, emb = [], []
@@ -1065,8 +1051,7 @@ def write_stage1_inputs(root, cfg, feats, seed=SEED):
 
 
 def cut_gin(source, path, values, show=False):
-    """Write `path`: the gin `source` line by line with `values` (gin
-    literals) replaced where bound, else appended; `show` prints the cuts."""
+    """Write `path`: the gin `source` with `values` (gin literals) bound; `show` prints the cuts."""
     with open(source) as f:
         text = f.read()
     lines, bound, cuts = [], set(), []
@@ -1089,23 +1074,21 @@ def cut_gin(source, path, values, show=False):
 
 
 def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
-    """Write root/h_rqvae_<mini_steps>.gin: configs/h_rqvae_amazon.gin at
-    cfg's widths on root's dataset, evals, audits and saves every n."""
+    """configs/h_rqvae_amazon.gin at cfg's widths on root's data, evals, audits and saves every n."""
     accumulate = parse_gin_file(H_RQVAE_AMAZON_GIN)["train"]["gradient_accumulate_every"]
     values = {
         "iterations": mini_steps // accumulate, "save_model_every": n, "eval_every": n,
         **vae_widths(cfg), "tag_class_counts": list(cfg["tag_class_counts"]),
         "tag_embed_dim": cfg["tag_embed_dim"],
-        "dataset_folder": f'"{root}"', "save_dir_root": f'"{os.path.join(root, "runs")}"',
+        **paths(root),
         "eval_batches": STAGE1_EVAL_BATCHES, **bindings,
     }
     return cut_gin(H_RQVAE_AMAZON_GIN, os.path.join(root, f"h_rqvae_{mini_steps}.gin"), values)
 
 
 def check_run(name, result, launches, steps, evals, device, n_items, saves=None):
-    """Steps, evals (each audited) and saves `saves` (None: a `latest`)
-    where the cadence puts them, finite losses, one rq_assign launch per
-    8,192 items an audit on the card, no flash. Returns the last save."""
+    """Steps, evals and saves (None: a `latest`) on the cadence, finite losses, one rq_assign
+    launch per 8,192 items an audit on the card, no flash. Returns the last save."""
     hist = result["history"]
     got = [os.path.basename(p) for p in result["saved_paths"]]
     if (result["step"] != steps or hist["eval_iterations"] != evals
@@ -1134,8 +1117,7 @@ def check_stage1_run(name, result, launches, steps, evals, device, n_items):
     return rep
 
 def device_busy(run, device):
-    """Kernels `run()` puts on the device and the length of the union of
-    their spans in ms (torch.profiler, one traced run)."""
+    """(kernels, busy ms: the union of their spans) of one traced run()."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
@@ -1150,17 +1132,14 @@ def device_busy(run, device):
 
 
 def time_updates(name, update, batch, accumulate, device, timed):
-    """Items/s of `update()` (`accumulate` mini-steps of `batch`): host
-    clock, median of timed[1] after timed[0]; on the card one update more
-    traced for its kernels and busy ms. Prints and returns the record."""
+    """Items/s of `update()` (`accumulate` mini-steps of `batch`), median of timed[1] after
+    timed[0]; on the card one more traced. Prints and returns the record."""
     times = []
     for _ in range(sum(timed)):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync(device)
         t0 = time.perf_counter()
         update()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
     t = statistics.median(times[timed[0]:])
     launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
@@ -1203,11 +1182,10 @@ def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE
 @phase("stage1")
 def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SETTINGS,
                  timed=STAGE1_TIMED, **bindings):
-    """scripts/torch_train_hidvae.py at cfg's widths on a written Amazon
-    dataset: 2N mini-steps, N plus a resumed N held to it, the audit's
-    table held to a plain sweep, throughput. Returns (latest, record)."""
+    """The stage-1 entry at cfg's widths on written Amazon data: 2N mini-steps, N plus a resumed N
+    held to it, the table against a plain sweep, throughput. Returns (latest, record)."""
     script = load_script("torch_train_hidvae")
-    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    feats_np = np.asarray(feats)
     n_items = len(feats_np)
     path = write_stage1_inputs(root, cfg, feats_np)
     print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
@@ -1243,19 +1221,17 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
     return save, record
 
 
-# ---- the trainer from its gin entry ------------------------------------------
+# ---- the trainer from its gin entry
 
 TRAINER_N = 5             # steps between evals and saves: the run takes 2N, the resume N + N
 TRAINER_SPLITS = (2048, 300, 300)  # train, eval and test histories in the written dataset
 TRAINER_EVAL_BATCHES = 2  # eval batches of 256: the second holds 44 rows, padded
-# A resumed run against the uninterrupted one differs in the order of atomic
-# adds only. L2 gaps: params over the last N steps' update, each Adam moment
-# over its own norm; a resume that lost the moments or counts misses by tens
-# of percent.
+# Resumed against uninterrupted: atomic adds in another order only. L2 gaps:
+# params over the last N steps' update, moments over their norm (a lost
+# moment or count misses by tens of percent).
 RESUME_RTOL = 1e-2
-# remat against no remat (flash route, one seed, dropout on): the recompute
-# replays masks and kernels; losses relative, params as an L2 gap over the
-# update.
+# remat against none (flash route, one seed, dropout on): losses relative,
+# params as an L2 gap over the update.
 REMAT_LOSS_RTOL = 1e-3
 REMAT_PARAM_RTOL = 1e-2
 REMAT_RUN = (400, 64, 2)  # history items, batch, steps: 2,401 tokens, the flash route
@@ -1273,9 +1249,8 @@ def load_script(name):
 
 
 def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
-    """A processed dataset of `feats` with seeded train, eval and test
-    histories under `root`. Returns (path, test histories, the rate
-    `stage1` recorded)."""
+    """Processed data of `feats` with seeded histories. Returns (path, test histories, the stage-1
+    rate)."""
     os.makedirs(root)
     n_items = len(feats)
     users, items, fut = seeded_sequences(n_items, sum(splits), cfg["max_seq_len"], SEED + 21)
@@ -1294,9 +1269,7 @@ def write_trainer_inputs(root, cfg, feats, stage1, splits=TRAINER_SPLITS):
 
 
 def trainer_gin(root, cfg, s1, iterations, n=TRAINER_N, **bindings):
-    """Write root/decoder_<iterations>.gin: configs/decoder_amazon.gin at
-    cfg's widths on root's dataset and the export `s1`, evals and saves
-    every n."""
+    """configs/decoder_amazon.gin at cfg's widths on root's data and `s1`, evals and saves every n."""
     path = os.path.join(root, f"decoder_{iterations}.gin")
     with open(path, "w") as f:
         f.write(decoder_gin(
@@ -1314,15 +1287,13 @@ def run_trainer_entry(script, device, *argv):
     fa.reset_launches()
     t0 = time.perf_counter()
     result = script.main([*argv, "--device", str(device)])
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     return result, kernel_launches(), time.perf_counter() - t0
 
 
 def check_trainer_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, saves and full evals where the cadence puts them; hit@10 and
-    NDCG@10 in [0, 1]; one rq_assign launch per 8,192 items at the start
-    on the card, no flash. Returns the TEST eval's (hit@10, ndcg@10)."""
+    """Steps, saves and full evals on the cadence; hit@10 and NDCG@10 in [0, 1]; one rq_assign
+    launch per 8,192 items at the start on the card, no flash. Returns TEST's pair."""
     hist = result["history"]
     d = result["tokenizer"].sem_ids_dim
     want_saves = [f"checkpoint_{it}" for it in evals]
@@ -1355,9 +1326,8 @@ def relative_gap(a, b, scale):
 
 
 def check_resume(full, half, resumed, steps, updates=None, stats=False):
-    """The resumed run's step, params (`stats`: batch statistics too) and
-    Adam moments against the uninterrupted run's (RESUME_RTOL), its
-    optimizer counts `updates` (default `steps`). Returns the gaps."""
+    """The resumed run's step, params (`stats`: batch statistics), Adam moments (RESUME_RTOL) and
+    optimizer counts (`updates`) against the uninterrupted run's. Returns the gaps."""
     pf, ph, pr = (state_dict_to_flax(r["model"])[0] for r in (full, half, resumed))
     of, orr = (r["optimizer"].state_dict(r["model"]) for r in (full, resumed))
     update = {k: pf[k] - ph[k] for k in pf}
@@ -1372,9 +1342,7 @@ def check_resume(full, half, resumed, steps, updates=None, stats=False):
     counts = {k: int(v) for k, v in orr.items() if k.endswith("count")}
     print(f"  resume: step {resumed['step']} (uninterrupted {full['step']}), counts {counts}; "
           + "; ".join(f"{k} gap {g:.3e} (largest |difference| {w:.3e})"
-                      for k, (g, w) in gaps.items())
-          + f" (tolerance {RESUME_RTOL}: params over the last N steps' update, moments and "
-            f"statistics over their norm)")
+                      for k, (g, w) in gaps.items()) + f" (tolerance {RESUME_RTOL})")
     updates = steps if updates is None else updates
     if resumed["step"] != steps or set(counts.values()) != {updates}:
         raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected "
@@ -1391,10 +1359,8 @@ def latest(result):
 
 
 def resume_runs(script, device, gin_n, n, check, full, resume_from=latest, **gap_kwargs):
-    """The N run of `gin_n` and N more resumed from resume_from(N run), each
-    held by check(name, result, launches, steps, evals), the resumed state
-    held to the 2N run `full` (check_resume). Returns (N run, resumed run,
-    their rq_assign launches, gaps)."""
+    """N steps of `gin_n`, then N resumed, each held by `check`, against `full`. Returns (N run,
+    resumed run, launches, gaps)."""
     half, launches_half, _ = run_trainer_entry(script, device, gin_n)
     check("N run", half, launches_half, n, [n])
     resumed, launches, _ = run_trainer_entry(script, device, gin_n, "--resume", resume_from(half))
@@ -1404,8 +1370,7 @@ def resume_runs(script, device, gin_n, n, check, full, resume_from=latest, **gap
 
 
 def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
-    """The long run with and without remat from one seed: losses, params,
-    flash launches (forward twice under remat) and peak memory."""
+    """The long run with and without remat: losses, params, flash launches, peak memory."""
     max_seq_len, batch, steps = run
     users, items, fut = seeded_sequences(cfg["n_items"], TRAIN_SEQS, max_seq_len, seed + 11)
     n_enc = cfg["attn_layers"] // 2
@@ -1446,11 +1411,11 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
     update = {k: plain["params"][k] - init[k] for k in init}
     gap, worst = relative_gap(remat["params"], plain["params"], update)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(remat["loss"], plain["loss"]))
-    print(f"  remat against plain: losses {remat['loss']} / {plain['loss']} ({loss_err:.3e}, "
-          f"tolerance {REMAT_LOSS_RTOL}); params gap {gap:.3e} of the update (largest "
-          f"{worst:.3e}, tolerance {REMAT_PARAM_RTOL}); flash launches {remat['launches']} / "
-          f"{plain['launches']}; peak memory above the start {remat['peak_gib']} / "
-          f"{plain['peak_gib']} GiB; ms per step {remat['ms']} / {plain['ms']}")
+    print(f"  remat / plain: losses {remat['loss']} / {plain['loss']} ({loss_err:.3e}, tolerance "
+          f"{REMAT_LOSS_RTOL}); params gap {gap:.3e} of the update (largest {worst:.3e}, "
+          f"tolerance {REMAT_PARAM_RTOL}); flash launches {remat['launches']} / "
+          f"{plain['launches']}; peak GiB above the start {remat['peak_gib']} / "
+          f"{plain['peak_gib']}; ms a step {remat['ms']} / {plain['ms']}")
     if not (loss_err <= REMAT_LOSS_RTOL and gap <= REMAT_PARAM_RTOL):
         raise AssertionError(f"remat: the run differs from the plain one (losses {loss_err:.3e}, "
                              f"params {gap:.3e})")
@@ -1462,12 +1427,10 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
 @phase("trainer")
 def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
                   remat_run=REMAT_RUN, **bindings):
-    """scripts/torch_train_transformer.py at cfg's widths on a written
-    dataset and the stage-1 export: 2N steps, N plus a resumed N held to
-    it, the checkpoint served by from_artifacts and held to the trained
-    model, remat on the flash route. Returns the launches and numbers."""
+    """The stage-2 entry at cfg's widths on written data and `stage1`: 2N steps, N plus a resumed N
+    held to it, from_artifacts held to the trained model, remat. Returns the record."""
     script = load_script("torch_train_transformer")
-    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    feats_np = np.asarray(feats)
     n_items = len(feats_np)
     record = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1506,18 +1469,9 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         record["resume"] = dict(launches=runs, gaps=gaps)
         del half, resumed
 
-        rq.rq_assign.launches = 0
-        t0 = time.perf_counter()
-        served = RetrievalEngine.from_artifacts(gin_2n, stage1, ckpt,
-                                                device=device, batch_buckets=(ARTIFACT_HISTORIES,))
-        serve_s = time.perf_counter() - t0  # the build ends in a synchronize
-        serve_launches = rq.rq_assign.launches
         hist32 = test_hist[:ARTIFACT_HISTORIES]
-        out = served.recommend(hist32, top_k=10)
-        resolved = check_recommendations(served, out, n_items)
-        print(f"  served checkpoint_{2 * n} with from_artifacts in {serve_s:.3f} s "
-              f"(rq_assign launches {serve_launches}); {resolved} of {out['items'].size} "
-              f"recommendations resolved")
+        engine, serve_launches, _ = served("trainer", gin_2n, stage1, ckpt, hist32, n_items,
+                                           device)
         model = full["model"]
         own = trainer.build_model(sem_id_dim=model.sem_id_dim, max_seq_len=cfg["max_seq_len"],
                                   **decoder_widths(cfg, model=True))
@@ -1525,36 +1479,31 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         direct = RetrievalEngine(own, full["tokenizer"], feats_np, max_seq_len=cfg["max_seq_len"],
                                  batch_buckets=(ARTIFACT_HISTORIES,), stage1_checkpoint=stage1,
                                  device=device)
-        check_same_engine("trainer", served, direct, hist32)
+        check_same_engine("trainer", engine, direct, hist32)
         record["serve"] = dict(launches=serve_launches)
-        del served, direct, own, full, model
+        del engine, direct, own, full, model
     record["remat"] = remat_runs(cfg, vae, feats, device, run=remat_run)
     return record
 
-# ---- multi-GPU: process groups over the card -----------------------------------
+# ---- multi-GPU: process groups over the card
 
 MULTI_N = 3               # steps of each multi-rank run (evals and saves at N); the resume N more
 MULTI_SHORT = (20, 256)   # the bf16 runs: history items, global batch (decoder_amazon.gin's)
 MULTI_LONG = (400, 64, 2)  # long-history DP: history items, global batch, steps (2,401 tokens)
 MULTI_TIMEOUT_S = 600     # the two Gloo ranks' whole run
-# A W-rank run against one rank: the same batches, crops and masks, the sums
-# in another order. fp32: the first loss (same params, same batch) within
-# MULTI_FIRST_LOSS_RTOL; AdamW's sign-like first updates carry the order
-# into the trajectory, held to the JAX package's multi-device rtol 5e-3
-# (tests/test_parallel.py); params as the L2 gap over the run's update (a
-# cut leaf left wrong, out_proj's 0.6 % of the parameters, moves it by
-# sqrt(0.006) = 8e-2). bf16 runs round each rank's partial sums: held on
-# their trajectory only.
+# W ranks against one: the same batches, sums in another order. fp32: the
+# first loss within MULTI_FIRST_LOSS_RTOL; AdamW's sign-like updates carry
+# the order on, held to the JAX tests' multi-device rtol 5e-3; params as the
+# L2 gap over the update (a wrong cut leaf, out_proj's 0.6 %, gives 8e-2).
+# bf16 runs are held on their losses only.
 MULTI_LOSS_RTOL = 5e-3
 MULTI_FIRST_LOSS_RTOL = 1e-5
 MULTI_FP32_PARAM_RTOL = 1e-2
-# The float64 gradient witness, over each array's largest entry: rounding
-# (1e-16 times a cancellation under 1e6) stays far under it; a term computed
-# wrong is off by its own size.
+# The float64 gradient witness over each array's largest entry: rounding
+# stays far under it, a wrong term is off by its own size.
 MULTI_GRAD64_RTOL = 1e-9
-# Beam scores on a mesh against one rank's, relative: other GEMM row counts
-# round otherwise (~1e-7 each, through 8 blocks and 6 log-softmax terms);
-# the items must be equal.
+# Beam scores on a mesh against one rank's, relative (GEMMs of other row
+# counts round otherwise); the items must be equal.
 MULTI_SCORE_RTOL = 1e-5
 
 
@@ -1588,8 +1537,7 @@ def two_ranks(entry, root, timeout, label):
 
 
 def multi_rank_main(workdir):
-    """A multi phase Gloo rank on cuda:0: the trainer's DP and TP runs, the
-    long DP run and the engines at 2 x 1 and 1 x 2. Writes rank<r>.*."""
+    """A multi phase Gloo rank on cuda:0: DP and TP runs, long DP, engines at 2 x 1 and 1 x 2."""
     import torch.distributed as dist
 
     from hidvae_tpu_torch.parallel.collectives import COLLECTIVE_BYTES
@@ -1669,9 +1617,8 @@ def checkpoint_params(path):
 
 def check_multi_run(name, losses, params, want_losses, want_params, init,
                     first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
-    """Losses within MULTI_LOSS_RTOL of the one-rank run's (the first within
-    `first_rtol` unless None), params within `param_rtol` of its update.
-    Returns both gaps."""
+    """Losses within MULTI_LOSS_RTOL of one rank's (the first within `first_rtol`), params within
+    `param_rtol` of the update. Returns both gaps."""
     errs = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     update = {k: want_params[k] - init[k] for k in init}
     gap, worst = relative_gap(params, want_params, update)
@@ -1691,8 +1638,7 @@ def check_multi_run(name, losses, params, want_losses, want_params, init,
 
 
 def multi_arrays_run(cfg, vae, feats, device, steps, run, **kwargs):
-    """train_arrays at cfg's widths on seeded histories of run = (items,
-    global batch), without evals; launch counts set to 0 just before."""
+    """train_arrays on seeded histories of run = (items, global batch), counts reset."""
     max_seq_len, batch = run
     users, items, fut = seeded_sequences(len(feats), TRAIN_SEQS, max_seq_len, SEED + 11)
     rq.rq_assign.launches = 0
@@ -1732,16 +1678,14 @@ def compare_engines(name, ranks_npz, want, hist):
 @phase("multi")
 def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
                 long_run=MULTI_LONG, splits=TRAINER_SPLITS, stage1_root=None, **bindings):
-    """Multi-GPU semantics on the one card: one NCCL rank held to one
-    process; two Gloo ranks on cuda:0 (NCCL refuses two ranks a device):
-    DP 2 x 1 and TP 1 x 2 from the gin (fp32) and in train_arrays (bf16),
-    the TP checkpoint resumed, long-history DP, the engine at 2 x 1 and
-    1 x 2; with `stage1_root`, multi_stage1. Returns launches and gaps."""
+    """Multi-GPU semantics on one card: one NCCL rank against one process; two Gloo ranks on cuda:0
+    (DP 2 x 1, TP 1 x 2 from the gin in fp32 and in bf16, the TP checkpoint resumed, long DP,
+    engines); with `stage1_root`, multi_stage1. Returns the record."""
     bindings = {"mixed_precision_type": '"fp32"', **bindings}
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
     script = load_script("torch_train_transformer")
-    feats_np = feats.numpy() if isinstance(feats, torch.Tensor) else feats
+    feats_np = np.asarray(feats)
     record = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "multi")
@@ -1821,9 +1765,8 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
                            [cfg["attn_embed_dim"], 512]}
         if any(shapes.get(k) != v for k, v in want_shapes.items()):
             raise AssertionError(f"tp: local shapes {shapes}, expected {want_shapes}")
-        print(f"  tp: out_proj and the FF kernels hold half their rows or columns on each "
-              f"rank; the ID table ({table_rows} rows, odd) stays whole, as "
-              f"stage2_param_shardings' ok() keeps it")
+        print(f"  tp: out_proj and the FF kernels halved on each rank; the ID table "
+              f"({table_rows} rows, odd) whole, as stage2_param_shardings keeps it")
 
         resumed, _, _ = run_trainer_entry(script, device, gin_n, "--resume",
                                           ranks[0]["tp"]["saved"])
@@ -1863,10 +1806,10 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
         for name in ("engine_dp", "engine_tp"):
             rr = [r[name] for r in ranks]
             npz = [dict(np.load(os.path.join(root, f"rank{r}_{name}.npz"))) for r in range(2)]
-            print(f"  {name}: rq_assign launches per rank {[r['rq_launches'] for r in rr]} "
-                  f"({len(feats_np)} rows, each chunk split over the data ranks); buckets "
-                  f"{rr[0]['batch_buckets']}; build {[round(r['build_s'], 3) for r in rr]} s, "
-                  f"request {[round(r['latency_s'], 4) for r in rr]} s; collective bytes "
+            print(f"  {name}: rq_assign launches a rank {[r['rq_launches'] for r in rr]} "
+                  f"({len(feats_np)} rows); buckets {rr[0]['batch_buckets']}; build "
+                  f"{[round(r['build_s'], 3) for r in rr]} s, request "
+                  f"{[round(r['latency_s'], 4) for r in rr]} s; collective bytes "
                   f"{rr[0]['collective_bytes']}")
             compare_engines(name, npz, want, hist)
             record[name] = dict(rq_launches=[r["rq_launches"] for r in rr])
@@ -1875,13 +1818,11 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             record["stage1"] = multi_stage1(device, os.path.join(tmp, "stage1"), stage1_root)
     return record
 
-# ---- duplicate-pair mining in the stage-1 trainer ----------------------------
+# ---- duplicate-pair mining in the stage-1 trainer
 
 H_RQVAE_XXL_M_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_xxl_m.gin")
-# configs/h_rqvae_synthetic_xxl_m.gin's widths; the corpus of the
-# h_rqvae_synthetic_xl4m*.gin configs (200,000 items) in place of its 1M,
-# whose processed .npz would hold 9.2 GB of fp32 tag embeddings alone; the
-# 32 x 8 x 8 tag tree of scripts/make_synthetic_xxl.py.
+# configs/h_rqvae_synthetic_xxl_m.gin's widths; the xl4m gins' 200,000 items
+# for its 1M (9.2 GB of tag embeddings); make_synthetic_xxl.py's tag tree.
 XXL_M = dict(input_dim=768, hidden_dims=(512, 256, 128), embed_dim=32, codebook_size=256,
              n_layers=4, tag_embed_dim=768, tag_tree=(32, 8, 8), n_items=200_000)
 XXL_M_CORPUS = 1_000_000  # the config's own corpus (scripts/make_synthetic_xxl.py)
@@ -1894,9 +1835,8 @@ MINING_SETTINGS = (("mining", 1024, 1),)  # the gin's batch, no accumulation
 
 
 def write_mining_inputs(path, cfg, seed=SEED):
-    """The tagged catalog at `path`: cfg["n_items"] seeded items, MINING_PLANTED
-    of them near-copies sharing their source's tags, tags of a seeded
-    cfg["tag_tree"]. Returns (features, copies, sources)."""
+    """cfg's catalog at `path`, MINING_PLANTED of it near-copies sharing their source's tags from
+    cfg's tag tree. Returns (features, copies, sources)."""
     rng = np.random.RandomState(seed + 51)
     n = cfg["n_items"]
     feats = unit_rows(n, cfg["input_dim"], torch.Generator().manual_seed(seed + 52))
@@ -1940,10 +1880,9 @@ def check_mining_run(name, result, launches, steps, evals, device, n_items, pool
 @phase("mining")
 def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
                  timed=MINING_TIMED, **bindings):
-    """scripts/torch_train_hidvae.py on configs/h_rqvae_synthetic_xxl_m.gin
-    over write_mining_inputs' catalog: 2N mini-steps harvesting the pool at
-    N and 2N, the pool colliding in the audit's table, N plus a resumed N
-    with the pool restored bitwise, items/s. Returns the record."""
+    """The stage-1 entry on configs/h_rqvae_synthetic_xxl_m.gin: 2N mini-steps harvesting at N and
+    2N, the pool colliding in the table, N plus a resumed N with the pool restored bitwise,
+    items/s."""
     script = load_script("torch_train_hidvae")
     t0 = time.perf_counter()
     path = processed_path(root, RecDataset.SYNTHETIC)
@@ -1956,8 +1895,7 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     values = {
         "save_model_every": n, "eval_every": n, **vae_widths(cfg),
         "vae_n_layers": cfg["n_layers"], "tag_embed_dim": cfg["tag_embed_dim"],
-        "dataset_folder": f'"{root}"',
-        "save_dir_root": f'"{os.path.join(root, "runs")}"', "eval_batches": MINING_EVAL_BATCHES,
+        **paths(root), "eval_batches": MINING_EVAL_BATCHES,
         **bindings,
     }
     gin_2n = cut_gin(H_RQVAE_XXL_M_GIN, os.path.join(root, "mining_2n.gin"),
@@ -2009,7 +1947,7 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     return record
 
 
-# ---- the plain RQ-VAE trainer from its gin entry -----------------------------
+# ---- the plain RQ-VAE trainer from its gin entry
 
 RQVAE_ML32M_GIN = os.path.join(CONFIGS, "rqvae_ml32m.gin")
 RQVAE_N = 4               # mini-steps between evals, audits and saves: the run takes 2N
@@ -2030,10 +1968,8 @@ def check_rqvae_run(name, result, launches, steps, evals, device, n_items):
 
 @phase("rqvae")
 def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **bindings):
-    """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin over seeded
-    items: 2N mini-steps, N plus a resumed N held to it, the table against a
-    plain sweep, items/s, the checkpoint served by from_artifacts with a
-    seeded decoder (configs/decoder_ml32m.gin). Returns the record."""
+    """The RQ-VAE entry on configs/rqvae_ml32m.gin: 2N mini-steps, N plus a resumed N held to it,
+    the table against a plain sweep, items/s, the checkpoint served with a seeded decoder."""
     from hidvae_tpu_torch.train import rqvae as rv
 
     script = load_script("torch_train_rqvae")
@@ -2048,8 +1984,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
           f"{len(hist)} histories)")
     values = {
         "save_model_every": n, "eval_every": n, "force_dataset_process": False,
-        **vae_widths(cfg), "dataset_folder": f'"{root}"',
-        "save_dir_root": f'"{os.path.join(root, "runs")}"', "eval_batches": RQVAE_EVAL_BATCHES,
+        **vae_widths(cfg), **paths(root), "eval_batches": RQVAE_EVAL_BATCHES,
         **bindings,
     }
     gin_2n = cut_gin(RQVAE_ML32M_GIN, os.path.join(root, "rqvae_2n.gin"),
@@ -2070,16 +2005,8 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
 
     # The last audit's table (rq_assign) against a plain sweep of the same weights.
     model = full["model"]
-    table = torch.from_numpy(full["corpus_ids"]).to(device)
-    ref, ties, _ = plain_sweep(model, torch.from_numpy(feats).to(device), 8192)
-    n_diff, n_bad = compare_ids(table, ref, ties)
-    rep_plain = repetition_rate(ref.cpu().numpy())[0]
-    rep = h["repetition_rate"][-1]
-    print(f"  audit table of the trained model: rows differing from the plain sweep {n_diff} "
-          f"(not near ties: {n_bad}); repetition {rep_plain:.4f} (the audit recorded "
-          f"{rep:.4f})")
-    if n_bad or (n_diff == 0 and rep_plain != rep):
-        raise AssertionError("rqvae: the audit's table differs from the plain sweep")
+    hold_table("rqvae: the last audit's table", torch.from_numpy(full["corpus_ids"]).to(device),
+               model, feats, device, 8192, h["repetition_rate"][-1])
 
     defaults = inspect.signature(rv.train).parameters
     opt = rv.build_optimizer(model, **{k: gin.get(k, defaults[k].default) for k in list(
@@ -2101,18 +2028,10 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     dgin = os.path.join(root, "decoder.gin")
     with open(dgin, "w") as f:
         f.write(decoder_gin(DECODER_ML32M_GIN, cfg, root))
-    rq.rq_assign.launches = 0
-    t0 = time.perf_counter()
-    engine = RetrievalEngine.from_artifacts(dgin, ckpt, s2, device=device,
-                                            batch_buckets=(len(hist),))
-    serve_s = time.perf_counter() - t0
-    serve_launches = rq.rq_assign.launches
-    out = engine.recommend(hist, top_k=10)
-    resolved = check_recommendations(engine, out, n_items)
+    engine, serve_launches, _ = served(f"rqvae {os.path.basename(ckpt)}", dgin, ckpt, s2, hist,
+                                       n_items, device)
     same_table = np.array_equal(engine.corpus_ids.cpu().numpy(), full["corpus_ids"])
-    print(f"  served {os.path.basename(ckpt)} with from_artifacts in {serve_s:.3f} s (rq_assign "
-          f"launches {serve_launches}); table equal to the audit's {same_table}; {resolved} of "
-          f"{out['items'].size} recommendations resolved to their generated tuples")
+    print(f"  rqvae: the served table equal to the audit's {same_table}")
     if not same_table:
         raise AssertionError("rqvae: the served table differs from the trainer's audit")
     record = dict(launches={"2N run": launches["rq_assign"], **runs,
@@ -2122,7 +2041,7 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     return record
 
 
-# ---- seeded corpora and catalog scale ------------------------------------------
+# ---- seeded corpora and catalog scale
 
 H_RQVAE_LARGE_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_large.gin")
 SYNTH_STEPS = 4   # mini-steps at the gin's batch of 1,024, with one eval, audit and save at the end
@@ -2131,10 +2050,9 @@ SCALE_SIZES = (200_000, 1_000_000)
 
 @phase("synthetic")
 def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
-    """torch_make_synthetic.py's `large` (updated by `corpus`), trained by
-    the stage-1 entry from configs/h_rqvae_synthetic_large.gin for `steps`
-    mini-steps, its table held to a plain sweep; load_or_build writes the
-    default corpus on an empty root. Returns the launches."""
+    """torch_make_synthetic.py large trained by configs/h_rqvae_synthetic_large.gin for `steps`
+    mini-steps, its table against a plain sweep; load_or_build's default corpus. Returns the
+    launches."""
     from hidvae_tpu_torch.data.processed import ProcessedArrays, load_or_build
 
     t0 = time.perf_counter()
@@ -2144,8 +2062,7 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
           f"{time.perf_counter() - t0:.2f} s ({len(feats)} items)")
     gin = cut_gin(H_RQVAE_LARGE_GIN, os.path.join(root, "large.gin"), {
         "iterations": steps, "eval_every": steps, "save_model_every": steps, "log_every": steps,
-        "eval_batches": STAGE1_EVAL_BATCHES, "dataset_folder": f'"{root}"',
-        "save_dir_root": f'"{os.path.join(root, "runs")}"', **bindings}, show=True)
+        "eval_batches": STAGE1_EVAL_BATCHES, **paths(root), **bindings}, show=True)
     result, launches, seconds = run_trainer_entry(load_script("torch_train_hidvae"), device, gin)
     rep = check_stage1_run("synthetic run", result, launches, steps, [steps], device, len(feats))
     hist = result["history"]
@@ -2170,9 +2087,8 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
 
 @phase("scale")
 def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
-    """torch_bench_scale.py's bench_one at each size: one launch per 8,192
-    items, every item resolved, the largest table a plain sweep's but near
-    ties. Returns the records."""
+    """torch_bench_scale.py's bench_one at each size: a launch per 8,192 items, all resolved, the
+    largest table a plain sweep's. Returns the records."""
     bench = load_script("torch_bench_scale")
     records = []
     for n in sizes:
@@ -2197,7 +2113,7 @@ def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
     return records
 
 
-# ---- raw files: the dataset builders, P5 Sports trained and served from them ----
+# ---- raw files: the dataset builders, P5 Sports trained and served from them
 
 P5_SPORTS = dict(n_items=18_357, n_users=35_598)  # the published size of the P5 Sports split
 RAW_STAGE2_STEPS = 4   # stage-2 steps on the built histories, with one full eval and a save
@@ -2209,10 +2125,9 @@ ML_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy", "Crime"
 
 
 def write_movielens_drop(root, fmt, n_movies, n_ratings, seed=SEED, genders="FM"):
-    """A seeded raw MovieLens drop under root/raw/ ("1m": with users.dat,
-    occupations 0-20, `genders`; "32m"): titles with commas, parentheses,
-    quotes and a Latin-1 letter, "(no genres listed)", users and movies
-    under 5 ratings, tied timestamps, ratings of unlisted movies."""
+    """A seeded MovieLens drop in root/raw/ ("1m" with users.dat, or "32m"): titles with commas,
+    quotes and Latin-1, "(no genres listed)", users and movies under 5 ratings, tied timestamps,
+    unlisted movies."""
     rng = np.random.RandomState(seed)
     raw = os.path.join(root, "raw")
     os.makedirs(raw, exist_ok=True)
@@ -2255,9 +2170,8 @@ def write_movielens_drop(root, fmt, n_movies, n_ratings, seed=SEED, genders="FM"
 
 
 def movielens_main(workdir, n_movies, n_ratings):
-    """--movielens DIR MOVIES RATINGS: both MovieLens formats written and
-    built by load_or_build with pandas and sentence_transformers refused
-    at import, as on the card's machine. Writes DIR/movielens.json."""
+    """--movielens DIR MOVIES RATINGS: both formats written and built with pandas refused. Writes
+    DIR/movielens.json."""
     from hidvae_tpu_torch.data.processed import load_or_build
 
     if sys.modules.get("pandas") is not None:
@@ -2289,82 +2203,124 @@ def movielens_main(workdir, n_movies, n_ratings):
         json.dump(out, f)
 
 
-@phase("raw")
-def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_STAGE2_STEPS,
-              movielens=ML_RAW, stage2=None, **bindings):
-    """The Amazon gins, cut line by line, on the P5 Sports drop that
-    torch_make_synthetic.py amazon-raw writes: the stage-1 entry builds
-    it (force_dataset_process, its load_or_build timed) and trains n
-    mini-steps, its table held to a plain sweep; stage 2 trains `steps`
-    steps with the remapped tag counts (`stage2`: bindings); from_artifacts
-    serves 32 test histories, every item resolved; then movielens_main.
-    Returns the rq_assign launches."""
-    from hidvae_tpu_torch.data.text_embedding import encode_text_feature
-    from hidvae_tpu_torch.train import hidvae as s1
-
+def write_drop(preset, root, **size):
+    """torch_make_synthetic.py's raw `preset` under `root`, its MiB and
+    seconds printed."""
     t0 = time.perf_counter()
-    raw = load_script("torch_make_synthetic").main("amazon-raw", root, **drop)
-    size = sum(os.path.getsize(os.path.join(raw, f)) for f in os.listdir(raw))
-    print(f"  amazon-raw drop {drop}: {size / 2**20:.1f} MiB in {time.perf_counter() - t0:.2f} s")
-    built, build = {}, s1.load_or_build
+    raw = load_script("torch_make_synthetic").main(preset, root, **size)
+    mib = sum(os.path.getsize(os.path.join(raw, f)) for f in os.listdir(raw)) / 2**20
+    print(f"  {preset} drop {size}: {mib:.1f} MiB in {time.perf_counter() - t0:.2f} s")
+
+
+def built_run(trainer_module, script, device, gin, want, vocab):
+    """`script` on `gin`, its module's load_or_build timed, the built shapes held to
+    want(arrays) and printed with the encoder and vocabularies. Returns (result, launches,
+    seconds, arrays)."""
+    from hidvae_tpu_torch.data.text_embedding import encode_text_feature
+
+    built, build = {}, trainer_module.load_or_build
 
     def timed_build(*args):
         t = time.perf_counter()
-        built["arrays"] = build(*args)
+        built["a"] = build(*args)
         built["s"] = time.perf_counter() - t
-        return built["arrays"]
+        return built["a"]
 
-    s1.load_or_build = timed_build
+    trainer_module.load_or_build = timed_build
     try:
-        gin = stage1_gin(root, cfg, n, n, force_dataset_process=True, **bindings)
-        result, launches, seconds = run_trainer_entry(load_script("torch_train_hidvae"), device, gin)
+        result, launches, seconds = run_trainer_entry(load_script(script), device, gin)
     finally:
-        s1.load_or_build = build
-    a = built["arrays"]
-    n_items, n_users = drop["n_items"], drop["n_users"]
-    with open(os.path.join(root, "processed", "tag_index_sports.json")) as f:
+        trainer_module.load_or_build = build
+    a = built["a"]
+    want = want(a)
+    with open(vocab) as f:
         vocab = [len(v) for v in json.load(f)["vocabs"]]
     shapes = [a.item_features.shape, a.tags_indices.shape, a.tags_emb.shape, a.seq_items.shape]
-    print(f"  load_or_build in the stage-1 entry: {built['s']:.2f} s (text encoder "
+    print(f"  load_or_build in {script}: {built['s']:.2f} s (text encoder "
           f"{encode_text_feature.encoder}); features, tags_indices, tags_emb, histories {shapes}; "
           f"histories by split {np.bincount(a.seq_split).tolist()}; tag vocabularies {vocab}")
-    if shapes != [(n_items, 768), (n_items, 5), (n_items, 5, 768), (3 * n_users, 20)]:
-        raise AssertionError(f"raw: built shapes {shapes}")
-    rep = check_stage1_run("raw stage 1", result, launches, n, [n], device, n_items)
-    counts = list(result["tag_class_counts"])
-    print(f"  stage 1 ({n} mini-steps) in {seconds:.2f} s, median "
-          f"{statistics.median(result['history']['ms_per_step']):.2f} ms a mini-step: loss "
-          f"{result['history']['total_loss']}; rare-tag remap {list(cfg['tag_class_counts'])} -> "
-          f"{counts}, folded {[len(v) for v in result['rare_tags'].values()]}; repetition {rep}; "
-          f"launches {launches}")
-    _, table_launches = audit_table("raw", result["model"], counts, a.item_features, device, rep)
+    if shapes != want:
+        raise AssertionError(f"raw: built shapes {shapes}, expected {want}")
+    return result, launches, seconds, a
 
+
+def stage1_summary(name, result, launches, seconds, rep, tags=None):
+    h = result["history"]
+    remap = (f"; rare-tag remap {list(tags)} -> {list(result['tag_class_counts'])}, folded "
+             f"{[len(v) for v in result['rare_tags'].values()]}" if tags else "")
+    print(f"  {name} ({result['step']} mini-steps) in {seconds:.2f} s, median "
+          f"{statistics.median(h['ms_per_step']):.2f} ms a mini-step: loss {h['total_loss']}"
+          f"{remap}; repetition {rep}; launches {launches}")
+
+
+def stage2_built(name, gin, steps, device, n_items):
+    """The stage-2 entry on `gin`, `steps` steps. Returns (result, rq_assign launches)."""
+    r2, launches, seconds = run_trainer_entry(load_script("torch_train_transformer"), device, gin)
+    scores = check_trainer_run(name, r2, launches, steps, [steps], device, n_items)
+    print(f"  {name} ({steps} steps) in {seconds:.2f} s, median "
+          f"{statistics.median(r2['history']['ms_per_step'][1:] or [math.nan]):.2f} ms a step "
+          f"after the first: loss {r2['history']['train_loss']}; TEST hit@10, ndcg@10 "
+          f"{[float(x) for x in scores]}; launches {launches}")
+    return r2, launches["rq_assign"]
+
+
+def serve_built(name, gin, s1, s2, a, device):
+    """from_artifacts on 32 test histories, every top-10 item resolved; p50. Returns the launches."""
+    hist = a.seq_items[a.seq_split == 2][:ARTIFACT_HISTORIES]
+    engine, launches, out = served(name, gin, s1, s2, hist, len(a.item_features), device)
+    if (out["items"] < 0).any():
+        raise AssertionError(f"{name}: a top-10 item of a test history did not resolve")
+    serve_p50(engine, hist)
+    return launches
+
+
+def served(name, gin, s1, s2, hist, n_items, device):
+    """from_artifacts (counts reset) and its top-10 of `hist`, checked.
+    Returns (engine, rq_assign launches, recommendations)."""
+    rq.rq_assign.launches = 0
+    t0 = time.perf_counter()
+    engine = RetrievalEngine.from_artifacts(gin, s1, s2, device=device,
+                                            batch_buckets=(len(hist),))
+    seconds, launches = time.perf_counter() - t0, rq.rq_assign.launches
+    out = engine.recommend(hist, top_k=10)
+    resolved = check_recommendations(engine, out, n_items)
+    print(f"  {name}: from_artifacts of {os.path.basename(s2)} in {seconds:.3f} s (rq_assign "
+          f"launches {launches}); {resolved} of {out['items'].size} top-10 items resolved")
+    return engine, launches, out
+
+
+KUAIRAND_GINS = {k: os.path.join(CONFIGS, f"{k}_kuairand.gin")
+                 for k in ("rqvae", "h_rqvae", "decoder")}
+
+
+@phase("raw")
+def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_STAGE2_STEPS,
+              movielens=ML_RAW, stage2=None, kuairand_drop=None, kuairand=None, **bindings):
+    """The Amazon gins on the amazon-raw drop: the stage-1 entry builds it (force_dataset_process)
+    and trains n mini-steps, stage 2 `steps` steps (`stage2`: bindings), from_artifacts serves;
+    kuairand_part; movielens_main. Returns the rq_assign launches."""
+    from hidvae_tpu_torch.train import hidvae as s1
+
+    write_drop("amazon-raw", root, **drop)
+    gin = stage1_gin(root, cfg, n, n, force_dataset_process=True, **bindings)
+    n_items, n_users = drop["n_items"], drop["n_users"]
+    result, launches, seconds, a = built_run(
+        s1, "torch_train_hidvae", device, gin,
+        lambda _: [(n_items, 768), (n_items, 5), (n_items, 5, 768), (3 * n_users, 20)],
+        os.path.join(root, "processed", "tag_index_sports.json"))
+    rep = check_stage1_run("raw stage 1", result, launches, n, [n], device, n_items)
+    stage1_summary("stage 1", result, launches, seconds, rep, cfg["tag_class_counts"])
+    counts = list(result["tag_class_counts"])
+    _, table = audit_table("raw", result["model"], counts, a.item_features, device, rep)
     s1_save = latest(result)
     gin2 = trainer_gin(root, dict(cfg, tag_class_counts=counts), s1_save, steps, steps,
                        **(stage2 or {}))
-    r2, launches2, seconds2 = run_trainer_entry(load_script("torch_train_transformer"), device,
-                                                gin2)
-    scores = check_trainer_run("raw stage 2", r2, launches2, steps, [steps], device, n_items)
-    print(f"  stage 2 ({steps} steps) in {seconds2:.2f} s, median "
-          f"{statistics.median(r2['history']['ms_per_step'][1:] or [math.nan]):.2f} ms a step "
-          f"after the first: loss {r2['history']['train_loss']}; TEST hit@10, ndcg@10 "
-          f"{[float(x) for x in scores]}; "
-          f"launches {launches2}")
-
-    hist = a.seq_items[a.seq_split == 2][:ARTIFACT_HISTORIES]
-    rq.rq_assign.launches = 0
-    t0 = time.perf_counter()
-    engine = RetrievalEngine.from_artifacts(gin2, s1_save, r2["saved_paths"][-1], device=device,
-                                            batch_buckets=(len(hist),))
-    serve_s, serve_launches = time.perf_counter() - t0, rq.rq_assign.launches
-    out = engine.recommend(hist, top_k=10)
-    resolved = check_recommendations(engine, out, n_items)
-    print(f"  from_artifacts in {serve_s:.3f} s (rq_assign launches {serve_launches}); "
-          f"{resolved} of {out['items'].size} top-10 items of {len(hist)} test histories resolved")
-    if resolved != out["items"].size:
-        raise AssertionError("raw: a top-10 item of a test history did not resolve")
-    serve_p50(engine, hist)
-    del engine, result, r2
+    r2, launches2 = stage2_built("raw stage 2", gin2, steps, device, n_items)
+    out = {"stage1": launches["rq_assign"], "table": table, "stage2": launches2,
+           "from_artifacts": serve_built("raw", gin2, s1_save, r2["saved_paths"][-1], a, device)}
+    del result, r2
+    out["kuairand"] = kuairand_part(device, os.path.join(root, "kuairand"), n, steps,
+                                    kuairand_drop or {}, kuairand or {})
 
     ml = os.path.join(root, "movielens")
     os.makedirs(ml)
@@ -2373,22 +2329,80 @@ def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_ST
     with open(os.path.join(ml, "movielens.json")) as f:
         if sorted(json.load(f)) != ["1m", "32m"]:
             raise AssertionError("raw: a MovieLens build is missing")
-    return {"stage1": launches["rq_assign"], "table": table_launches,
-            "stage2": launches2["rq_assign"], "from_artifacts": serve_launches}
+    return out
 
 
-# ---- multi-GPU: stage-1 data parallelism -------------------------------------
+def kuairand_part(device, root, n, steps, size, bindings):
+    """The three KuaiRand gins on the kuairand-raw drop (`size`; `bindings`
+    of every gin and, under a gin's name, of that one): the RQ-VAE entry
+    builds it and trains n mini-steps, the HiD-VAE entry builds its split
+    and trains n, stage 2 `steps` steps on the RQ-VAE checkpoint,
+    from_artifacts serves; each table against a plain sweep. Returns the
+    rq_assign launches."""
+    from hidvae_tpu_torch.train import hidvae as s1
+    from hidvae_tpu_torch.train import rqvae as rv
 
-# Mini-steps of each stage-1 multi run, which audits and saves at its end:
-# the Amazon gin's batch 128 x 2 accumulation takes 2 updates (its N; the
-# resume runs N more), ML-32M 3 steps of 64.
+    write_drop("kuairand-raw", root, **size)
+    common = {k: v for k, v in bindings.items() if k not in KUAIRAND_GINS}
+    common.update(paths(root))
+
+    def gin(name, **values):
+        return cut_gin(KUAIRAND_GINS[name], os.path.join(root, f"{name}.gin"),
+                       {**values, **common, **bindings.get(name, {})}, show=True)
+
+    def shapes(a):  # three histories a user
+        n_items, users = len(a.item_features), len(np.unique(a.seq_users))
+        return [(n_items, 768), (n_items, 3), (n_items, 3, 768), (3 * users, 40)]
+
+    vocab = os.path.join(root, "processed", "kuairand_tag_index.json")
+    # The plain RQ-VAE entry builds processed/kuairand_beauty.npz (no dataset_split).
+    g = gin("rqvae", iterations=n, save_model_every=n, eval_every=n, force_dataset_process=True,
+            eval_batches=RQVAE_EVAL_BATCHES)
+    res, launches, seconds, a = built_run(rv, "torch_train_rqvae", device, g, shapes, vocab)
+    n_items = len(a.item_features)
+    check_rqvae_run("kuairand rqvae", res, launches, n, [n], device, n_items)
+    rep = res["history"]["repetition_rate"][-1]
+    stage1_summary("kuairand rqvae", res, launches, seconds, rep)
+    out = {"rqvae": launches["rq_assign"], "rqvae_table": audit_table(
+        "kuairand rqvae", res["model"], None, a.item_features, device, rep)[1]}
+    rq_ckpt = res["saved_paths"][-1]
+
+    # The HiD-VAE entry: dataset_split "kuairand" names another file, built
+    # again (the text cache serves its embeddings).
+    accumulate = parse_gin_file(KUAIRAND_GINS["h_rqvae"])["train"]["gradient_accumulate_every"]
+    g = gin("h_rqvae", iterations=n // accumulate, save_model_every=n, eval_every=n,
+            eval_batches=STAGE1_EVAL_BATCHES)
+    res, launches, seconds, a2 = built_run(s1, "torch_train_hidvae", device, g, shapes, vocab)
+    if not all(np.array_equal(getattr(a, k), getattr(a2, k)) for k in vars(a)
+               if getattr(a, k) is not None):
+        raise AssertionError("kuairand: the two builds of one drop differ")
+    rep = check_stage1_run("kuairand h_rqvae", res, launches, n, [n], device, n_items)
+    stage1_summary("kuairand h_rqvae", res, launches, seconds, rep,
+                   parse_gin_file(g)["train"]["tag_class_counts"])
+    out.update(h_rqvae=launches["rq_assign"], h_rqvae_table=audit_table(
+        "kuairand h_rqvae", res["model"], list(res["tag_class_counts"]), a.item_features,
+        device, rep)[1])
+    del res
+
+    # Stage 2 on the RQ-VAE checkpoint, as the gin pairs them.
+    g = gin("decoder", iterations=steps, full_eval_every=steps, partial_eval_every=steps,
+            save_model_every=steps, eval_batches=TRAINER_EVAL_BATCHES, log_every=1,
+            pretrained_rqvae_path=f'"{rq_ckpt}"')
+    r2, out["stage2"] = stage2_built("kuairand stage 2", g, steps, device, n_items)
+    out["from_artifacts"] = serve_built("kuairand", g, rq_ckpt, r2["saved_paths"][-1], a, device)
+    return out
+
+
+# ---- multi-GPU: stage-1 data parallelism
+
+# Mini-steps of each stage-1 multi run (an audit and save at its end; the
+# Amazon resume runs as many more).
 MULTI1_STEPS = {"amazon": 4, "mining": 4, "mining_fp32": 4, "ml32m": 3}
 MULTI1_MINING_EVERY = 2   # the mining runs audit at 2 as well: that pool feeds steps 3 and 4
 MULTI1_TIMEOUT_S = 600    # the two Gloo ranks' stage-1 runs
-# A bias right before a train-mode BatchNorm (the tag projectors' dense_0)
-# has a gradient of 0 up to rounding, which Adam turns into steps of up to
-# 1.3 learning rates (layer-specific) either way: held to that bound per
-# update and left out of the params gap.
+# A bias before a train-mode BatchNorm (tag projectors' dense_0) has a zero
+# gradient up to rounding, which Adam turns into steps of up to 1.3 learning
+# rates: held to that bound an update, left out of the params gap.
 BN_BIAS_LR_STEPS = 2 * 1.3
 
 
@@ -2401,10 +2415,9 @@ def split_bn_biases(params):
 
 
 def check_gradient_witness(recs, ranks, want_rec, want):
-    """The DP 2 witness step against one process: float64 gradients equal on
-    both ranks and within MULTI_GRAD64_RTOL of each array's largest entry
-    (the tag projectors' dense_0: of all arrays'), the loss within
-    MULTI_FIRST_LOSS_RTOL, mined pairs colliding; fp32 gaps printed only."""
+    """The DP 2 witness step against one process: float64 gradients equal on both ranks and within
+    MULTI_GRAD64_RTOL of each array's largest entry, the loss within MULTI_FIRST_LOSS_RTOL,
+    mined pairs colliding."""
     got, exact = ranks[0]["grads64"], want["grads64"]
     if set(got) != set(exact) or any(
             not np.array_equal(ranks[1]["grads64"][k], got[k]) for k in exact):
@@ -2418,9 +2431,9 @@ def check_gradient_witness(recs, ranks, want_rec, want):
         gap32[k] = float(np.abs(ranks[0]["grads"][k] - want["grads"][k]).max()) / scale
     worst64, worst32 = (sorted(g, key=lambda k: -g[k])[:3] for g in (gap64, gap32))
     loss_err = abs(recs[0]["loss"][0] - want_rec["loss"][0]) / abs(want_rec["loss"][0])
-    print(f"  gradient witness (fp32 mining gin, one mini-step from step {want_rec['step'] - 1}"
-          f", mined collision rate {want_rec['mined']}): {len(exact)} arrays; DP 2 against one "
-          f"process over each array's largest entry, float64 "
+    print(f"  gradient witness (fp32 mining gin, a mini-step from {want_rec['step'] - 1}, "
+          f"mined collisions {want_rec['mined']}): {len(exact)} arrays, DP 2 against one "
+          f"process over each array's largest entry: float64 "
           f"{[(k, f'{gap64[k]:.2e}') for k in worst64]} (tolerance {MULTI_GRAD64_RTOL}), fp32 "
           f"{[(k, f'{gap32[k]:.2e}') for k in worst32]}; loss {recs[0]['loss'][0]} against "
           f"{want_rec['loss'][0]} ({loss_err:.3e})")
@@ -2433,8 +2446,8 @@ def check_gradient_witness(recs, ranks, want_rec, want):
 
 def check_stage1_multi(name, spec, losses, params, want_losses, want_params, init, updates,
                        first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
-    """check_multi_run on the params but the BatchNorm-preceding biases,
-    those held to BN_BIAS_LR_STEPS learning rates per update."""
+    """check_multi_run but the BatchNorm-preceding biases, held to BN_BIAS_LR_STEPS learning rates
+    an update."""
     lr = parse_gin_file(spec["gin"])["train"]["learning_rate"]
     (got, got_b), (want, want_b), (init, _) = (split_bn_biases(p)
                                                 for p in (params, want_params, init))
@@ -2448,10 +2461,8 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
 
 
 def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bindings=None):
-    """The stage-1 multi runs' gins, cut as their phases cut them (every step
-    logged, Amazon in fp32) over the stage1 phase's Amazon data, the mining
-    catalog and ML-32M items, plus the mining gin in fp32. Returns
-    ({name: spec}, the Amazon gin of 2N mini-steps)."""
+    """The stage-1 multi gins, cut as their phases cut them, over the Amazon, mining and ML-32M
+    data. Returns ({name: spec}, the Amazon 2N gin)."""
     bindings = bindings or {}
     os.makedirs(root, exist_ok=True)
     a_steps = MULTI1_STEPS["amazon"]
@@ -2513,10 +2524,8 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
 
 
 def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
-    """spec's trainer from its gin, launch counts set to 0 just before.
-    Returns a JSON record (losses, audits, launches, bytes, seconds, last
-    save) and arrays (table, pool, params; `grads`: the last gradients);
-    on a rank of several, rank 0's last audit against a plain sweep."""
+    """spec's trainer from its gin, counts reset. Returns (record, arrays); on several ranks rank
+    0's audit against a plain sweep."""
     import importlib
 
     from hidvae_tpu_torch.utils.config import parse_config_and_run
@@ -2526,8 +2535,7 @@ def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
     t0 = time.perf_counter()
     res = parse_config_and_run(module.train, [gin or spec["gin"]], device=device,
                                save_dir_root=save_root, **kwargs)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     h = res["history"]
     rec = dict(loss=h["total_loss"], eval_loss=h["eval_total_loss"],
                repetition=h["repetition_rate"], audits=len(h["repetition_rate"]),
@@ -2643,8 +2651,7 @@ def ulp_control_run(spec, device, save_root):
 
 
 def float64_run(spec, device, save_root, **kwargs):
-    """multi1_run whose steps also take float64 gradients (a float64 copy on
-    the same inputs and draws), summed over the ranks, in arrays["grads64"]."""
+    """multi1_run whose steps also take summed float64 gradients (arrays["grads64"])."""
     import copy
 
     from hidvae_tpu_torch.models import quantize
@@ -2704,11 +2711,9 @@ def float64_run(spec, device, save_root, **kwargs):
 
 
 def multi_stage1(device, root, amazon_root, **inputs):
-    """Stage-1 data parallelism per multi1_inputs gin: one process, one NCCL
-    rank (bitwise) and two Gloo ranks; fp32 runs held as the stage-2 multi
-    runs, the bf16 mining run on its losses beside a rounding control and
-    the float64 gradient witness; the Amazon DP 2 checkpoint resumed on
-    one process. Failures are raised together at the end."""
+    """Stage-1 DP per multi1_inputs gin on one process, one NCCL rank (bitwise) and two Gloo ranks;
+    a rounding control, the float64 witness, the Amazon DP checkpoint resumed. Raises all
+    failures at the end."""
     specs, amazon_2n = multi1_inputs(root, amazon_root, **inputs)
     cuda = device.type == "cuda"
     one, init = {}, {}
@@ -2765,13 +2770,12 @@ def multi_stage1(device, root, amazon_root, **inputs):
         print(f"  stage 1 {name} ({spec['trainer']}, {spec['steps']} mini-steps, "
               f"{'fp32' if spec['fp32'] else 'bf16'}): one process losses "
               f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise {bitwise}; 2 ranks: "
-              f"losses equal {rr[0]['loss'] == rr[1]['loss']}, "
-              f"s {[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
-              f"rq_assign per rank per audit "
-              f"{per_audit} (one process {want['rq_launches'] / want['audits']}); bytes to "
-              f"collectives per mini-step per rank {[r['bytes_per_step'] for r in rr]}, "
-              f"gradients {4 * want['n_params']}; tag classes {want['tag_class_counts']}, "
-              f"{want['rare_tags']} folded")
+              f"losses equal {rr[0]['loss'] == rr[1]['loss']}, s "
+              f"{[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
+              f"rq_assign a rank an audit {per_audit} (one process "
+              f"{want['rq_launches'] / want['audits']}); collective bytes a mini-step a rank "
+              f"{[r['bytes_per_step'] for r in rr]} (gradients {4 * want['n_params']}); tag "
+              f"classes {want['tag_class_counts']}, {want['rare_tags']} folded")
         if not bitwise:
             fail(f"stage 1 {name}: one NCCL rank differs from one process")
         if per_audit != [want_launches] * 2 or want["rq_launches"] != want_launches * want["audits"]:
@@ -2829,11 +2833,9 @@ def multi_stage1(device, root, amazon_root, **inputs):
     record[name]["rounding_control"] = dict(param_gap=gap, rows_differing=rows,
                                             loss_rel_err=max(errs))
 
-    # The gradient witness: one mini-step of the fp32 mining gin resumed from
-    # the one-process checkpoint (its audit's pool of colliding pairs), on
-    # one process and at DP 2, each also in float64: the same params, pool
-    # and batch, so the summed float64 gradients of every coupled term agree
-    # to float64 rounding.
+    # The gradient witness: one mini-step of the fp32 mining gin from the
+    # one-process checkpoint (colliding pool), one process and DP 2, each
+    # also in float64: every coupled term agrees to float64 rounding.
     w_one, w_arr = float64_run(specs[witness["spec"]], device, os.path.join(root, "witness_one"),
                                grads=True, iterations=1, pretrained_hrqvae_path=witness["path"])
     record["gradient_witness"] = hold(check_gradient_witness, [r["witness"] for r in ranks],
@@ -2901,7 +2903,8 @@ def main():
             "engine_tp": multi_rec["engine_tp"]["rq_launches"]},
         launches_multi_stage1_per_rank_per_audit={
             k: v["rq_per_audit"] for k, v in multi_rec["stage1"].items() if "rq_per_audit" in v},
-        launches_synthetic=synthetic_launches, launches_raw=raw_launches,
+        launches_synthetic=synthetic_launches, launches_kuairand=raw_launches.pop("kuairand"),
+        launches_raw=raw_launches,
         launches_scale={r["n_items"]: r["rq_assign_launches"] for r in scale_recs},
     )]
     for name, r in flash_recs.items():

@@ -1,19 +1,15 @@
 """Weight bridge: flax parameters, flattened to numpy, <-> PyTorch state_dicts,
-and the exported checkpoint that carries them.
+and the exported checkpoint that carries them. The flax side is a flat
+`dict[str, np.ndarray]` keyed by flax path ("encoder/dense_0/kernel"), plus
+`batch_stats` alike; nothing of JAX is imported.
 
-The flax side is a flat `dict[str, np.ndarray]` keyed by flax path
-("encoder/dense_0/kernel", ...), plus the model's `batch_stats` in the same
-form. The bridge never sees a JAX object and imports nothing of JAX.
+An exported checkpoint is a directory: `arrays.npz` (flat leaves under
+"/"-joined keys: "params/...", "batch_stats/...", "step" and "opt_state/..."
+where present) and `meta.json` ({model_config, metrics}), written from Orbax
+by scripts/export_flax_checkpoint.py, from a module by `save_export`, and by
+the trainers' `save_checkpoint` (train/common.py).
 
-An exported checkpoint is a directory of two files: `arrays.npz`, the flat
-flax leaves under "/"-joined keys ("params/...", "batch_stats/...", and
-"step" and "opt_state/..." when the source had them), and `meta.json`
-({model_config, metrics}). scripts/export_flax_checkpoint.py writes one
-from an Orbax checkpoint of the JAX package; `save_export` writes one from
-a module, and the stage-2 trainer's `save_checkpoint` one with the
-optimizer state and step (train/common.py).
-
-The port's modules carry the flax module names, so a path maps by rule:
+The port's modules carry flax's names, so a path maps by rule:
   .../kernel        -> .../weight, transposed ([in, out] -> [out, in])
   .../scale         -> .../weight            (LayerNorm, BatchNorm)
   .../embedding     -> .../weight            (nn.Embed -> nn.Embedding), except

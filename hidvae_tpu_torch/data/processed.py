@@ -1,17 +1,12 @@
-"""Processed datasets (counterpart of hidvae_tpu/data/processed.py): the one
-`.npz` a (dataset, split) is stored in, the per-item corpus view (with the
-stage-1 trainer's item batches) and the user-sequence view that serving
-reads.
-
-Plain numpy, as in the JAX package. The stage-2 trainer reads the train split
-(random-cropped on the device when `subsample`) and walks the eval and
-test splits in order (`SeqData.iter_eval_batches`, processed.py:315).
-`load_or_build` builds a dataset where its file is missing or
-`force_process` is set, and saves it, as the JAX package does: the seeded
-synthetic corpus (data/synthetic.py), Amazon P5 (data/amazon.py) and
-MovieLens 1M / 32M (data/movielens.py) from their raw files. KuaiRand's
-builder is not ported: for KUAIRAND a missing file, or `force_process`,
-raises.
+"""Processed datasets (counterpart of hidvae_tpu/data/processed.py): the
+`.npz` of a (dataset, split), the per-item corpus view (with the stage-1
+item batches) and the user-sequence view. Plain numpy. The stage-2 trainer
+reads the train split (cropped on the device when `subsample`) and walks
+the eval and test splits in order (`SeqData.iter_eval_batches`,
+processed.py:315). `load_or_build` builds and saves a dataset whose file is
+missing, or with `force_process`, as JAX does: the seeded synthetic corpus
+(data/synthetic.py), and from raw files Amazon P5 (data/amazon.py),
+MovieLens 1M / 32M (data/movielens.py) and KuaiRand-1K (data/kuairand.py).
 """
 
 import os
@@ -108,9 +103,8 @@ def load_or_build(root: str, dataset: RecDataset, split: str = "",
     unless `force_process`; else they are built and saved there
     (processed.py:117-149). The synthetic corpus has no named splits (its
     split is dropped) and is built by `build_synthetic()` at its defaults;
-    AMAZON from <root>/raw/<split or "beauty">/, ML_1M and ML_32M from
-    <root>/raw/. KUAIRAND's builder is not ported: a missing file or
-    `force_process` raises."""
+    AMAZON from <root>/raw/<split or "beauty">/; ML_1M, ML_32M and KUAIRAND
+    (whatever the split) from <root>/raw/."""
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
@@ -128,13 +122,12 @@ def load_or_build(root: str, dataset: RecDataset, split: str = "",
         from hidvae_tpu_torch.data.movielens import build_movielens
 
         arrays = build_movielens(root, dataset)
+    elif dataset == RecDataset.KUAIRAND:
+        from hidvae_tpu_torch.data.kuairand import build_kuairand
+
+        arrays = build_kuairand(root)
     else:
-        why = (f"no processed dataset at {path}" if not force_process else
-               f"force_dataset_process=True rebuilds {path} from the raw {dataset.name} files")
-        error = NotImplementedError if force_process else FileNotFoundError
-        raise error(f"{why}: building {dataset.name} from its raw files is not ported yet "
-                    f"(ROADMAP.md queue 1 item 1.2b, KuaiRand); build it with the JAX "
-                    f"package's hidvae_tpu/data, then read the processed .npz")
+        raise ValueError(f"Unknown dataset {dataset}")
     arrays.save(path)
     return arrays
 

@@ -1,12 +1,10 @@
-"""Seeded synthetic corpus with HiD-VAE-shaped structure (counterpart of
-hidvae_tpu/data/synthetic.py): the same draws from one
-`np.random.RandomState(seed)` in the same order, so each call returns the
-JAX package's arrays bit for bit. Items are unit-norm mixtures over an
-L-level cluster tree (optionally followed by `n_cat_feats` 0/1 columns),
-an item's level-l tag is its level-l cluster, 95 % of the items train, and
-each user walks a personal pool of a preferred level-0 cluster, giving a
-train, an eval (target items[-2]) and a test row (target items[-1]).
-Plain numpy: it needs no device.
+"""Seeded synthetic corpus (counterpart of hidvae_tpu/data/synthetic.py):
+the same draws from one `np.random.RandomState(seed)` in the same order, so
+each call returns the JAX package's arrays bit for bit. Items are unit-norm
+mixtures over an L-level cluster tree (optionally `n_cat_feats` 0/1 columns
+after), an item's level-l tag its level-l cluster, 95 % train; each user
+walks a pool of a preferred level-0 cluster (train, eval: items[-2], test:
+items[-1]). Plain numpy.
 """
 
 from typing import Sequence

@@ -1,10 +1,9 @@
 """Text embeddings for the dataset builders (a copy of
-hidvae_tpu/data/text_embedding.py): sentence-t5-xl (768 wide) through
-sentence_transformers where a local copy of the model loads, else the
-deterministic hash-projection fallback, bit for bit the JAX package's.
-Nothing downloads: HF_HUB_OFFLINE is set before the import, and
-HIDVAE_REQUIRE_TEXT_MODEL=1 turns the fallback into an error. A cache file
-is named as the JAX package names it, so either package reads the other's.
+hidvae_tpu/data/text_embedding.py): sentence-t5-xl or bge-base-zh-v1.5 (768
+wide) through sentence_transformers where a local copy loads, else the hash
+fallback, bit for bit JAX's. Nothing downloads (HF_HUB_OFFLINE is set
+first); HIDVAE_REQUIRE_TEXT_MODEL=1 makes the fallback an error. Cache files
+are named as JAX names them, so either package reads the other's.
 """
 
 import hashlib
@@ -17,6 +16,7 @@ import numpy as np
 logger = logging.getLogger("hidvae_tpu_torch.data.text_embedding")
 
 T5_MODEL = "sentence-transformers/sentence-t5-xl"
+BGE_ZH_MODEL = "BAAI/bge-base-zh-v1.5"  # KuaiRand's Chinese captions (data/kuairand.py)
 
 
 def _token_vector(tok: str, dim: int) -> np.ndarray:

@@ -1,17 +1,13 @@
 """Multi-head attention (counterpart of hidvae_tpu/models/attention.py).
 
 Fused QKV projection for self-attention, split Q / KV for cross-attention,
-softmax in fp32. Two routes, chosen by the JAX package's rule
-(attention.py:152-162): dense padded masking as plain tensor ops, or, for
-self-attention with a head width that is a multiple of 64 over at least 2048
-tokens (or with use_flash=True), `flash_attention`, whose CUDA kernels run on
-the card and whose plain version runs on the CPU. The JAX rule's "backend is
-TPU" clause becomes "always": the op itself picks the kernel by device. The
-kernels are built for head widths 64 and 128: on a CUDA device the route
-refuses other multiples of 64 (`check_head_dim`) before its first launch.
-
-`dtype` is flax's compute dtype: projections run in it, parameters stay
-fp32, the softmax is fp32.
+softmax in fp32. The JAX rule (attention.py:152-162) picks the route: dense
+padded masking, or, for self-attention with a head width a multiple of 64
+over at least 2048 tokens (or use_flash=True), `flash_attention` (CUDA
+kernels on the card, the plain version on the CPU; the rule's "backend is
+TPU" becomes "always"). On CUDA the route refuses head widths other than 64
+and 128 before its first launch (`check_head_dim`). `dtype` is flax's
+compute dtype: projections in it, parameters fp32, softmax fp32.
 """
 
 from typing import Optional

@@ -1,36 +1,28 @@
 """HiD-VAE core model (counterpart of hidvae_tpu/models/hrqvae.py).
 
-Everything RqVae has plus, per tag-supervised level i, a TagPredictor that
-classifies the concatenation of the level-0..i code vectors and a
-TagProjector for the level's tag embedding. `forward` is the training and
-eval loss of the JAX module's __call__: reconstruction, quantizer losses,
-the InfoNCE tag alignment, the focal tag loss and the batch uniqueness
-loss, with the alignment and uniqueness weights applied twice as the
-reference does (PARITY.md deviation 1), and with `n_mined_pairs` > 0 the
-mined-pair term of duplicate-pair mining (PARITY.md deviation 18): the
-first 2 * n_mined_pairs rows are audit-harvested pairs, laid out
-pair-adjacent, whose eval-mode IDs are re-derived to find the pairs that
-still collide; those are pushed apart in encoder space. With
-`mined_loss_isolation` every other loss takes the remaining rows only.
+RqVae plus, per tag-supervised level i, a TagPredictor over the level-0..i
+code vectors and a TagProjector for the level's tag embedding. `forward` is
+the JAX module's loss: reconstruction, quantizer losses, InfoNCE alignment,
+the focal tag loss and the uniqueness loss (alignment and uniqueness weights
+applied twice, as the reference: PARITY.md deviation 1), and with
+`n_mined_pairs` > 0 the mined-pair term (deviation 18): the first
+2 * n_mined_pairs rows are harvested pairs, pair-adjacent, whose eval-mode
+IDs find the pairs that still collide, pushed apart in encoder space;
+`mined_loss_isolation` gives every other loss the remaining rows only.
 
-Train mode is the `train` flag. Dropout and the Gumbel noise draw from
-`generator` (None: no dropout); mixup's draws come from `mixup(level,
-batch)`. TagProjector's BatchNorm is flax's: batch statistics with the
-biased variance in train mode, and running averages updated with momentum
-0.99 (`FlaxBatchNorm`). `dtype` (AMP) runs the MLP and tag-head products in
-bf16; the quantizer, norms and losses stay fp32 (PARITY.md deviation 10).
+Train mode is the `train` flag; dropout and Gumbel noise draw from
+`generator` (None: no dropout), mixup from `mixup(level, batch)`.
+TagProjector's BatchNorm is flax's (biased batch variance, running averages
+at momentum 0.99). `dtype` (AMP) runs the MLP and tag-head products in bf16;
+quantizer, norms and losses stay fp32 (deviation 10).
 
-On a batch split over data ranks (`rows`, parallel/collectives.py `Rows`;
-the JAX package computes the step on the global batch of its mesh) each
-rank runs its rows through the row-local parts (encoder, quantizer levels,
-tag heads, decoder, reconstruction and commitment terms), draws every
-random number for the global batch and keeps its rows (a RowShard of the
-step's generator), normalizes the projector with the global BatchNorm
-statistics, and computes each coupled term (InfoNCE, the tag loss with
-mixup, the uniqueness loss, the mined-pair term) of the gathered batch. The
-means of the row-local terms are all-reduced sums over the global count.
-Every rank then holds the global batch's loss and metrics; its gradients
-summed over the ranks are the global batch's.
+On a batch split over data ranks (`rows`, parallel/collectives.py `Rows`)
+each rank runs its rows through the row-local parts, draws every random
+number of the global batch and keeps its rows, normalizes with the global
+BatchNorm statistics, and computes each coupled term (InfoNCE, the tag loss
+with mixup, uniqueness, mined pairs) on the gathered batch; row-local means
+are all-reduced sums over the global count. Every rank holds the global
+loss, and its gradients summed over the ranks are the global batch's.
 """
 
 from dataclasses import dataclass

@@ -1,20 +1,15 @@
-"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py): pure
-functions of tensors, their stop-gradients as `.detach()`.
+"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py): pure functions
+of tensors, stop-gradients as `.detach()`.
 
-As in the JAX package every loss is masked math of static shape: invalid
-tag targets (< 0) are masked out rather than dropped, and mixup permutes
-the whole batch and sends an invalid partner back to the row itself
-(PARITY.md deviation 4). Mixup's permutation and lambda come from the
-caller: `mixup_draw` makes them from a device generator and a host
-numpy generator, and a test hands JAX's draws in.
-
-The terms that couple a batch (the InfoNCE alignment, the uniqueness loss,
-the tag loss with its valid count, KL term and mixup) take `rows`: on a
-batch split over data ranks (parallel/collectives.py `Rows`) they gather
-their inputs, the ranks' rows in order, and compute the term of the whole
-batch, the same on every rank; the gathers' backward takes the rank's
-slice. The caller draws mixup for the whole batch. Without `rows` each is
-the one-device term."""
+As in JAX every loss is masked math of static shape: invalid tag targets
+(< 0) are masked, not dropped, and mixup permutes the whole batch, sending
+an invalid partner back to the row itself (PARITY.md deviation 4). Mixup's
+permutation and lambda come from the caller (`mixup_draw`, or JAX's draws
+in a test). The batch-coupled terms (InfoNCE, uniqueness, the tag loss with
+its valid count, KL term and mixup) take `rows`: on a batch split over
+data ranks they gather the ranks' rows in order and compute the whole
+batch's term on every rank, the gathers' backward taking the rank's slice.
+"""
 
 import math
 from typing import NamedTuple, Optional

@@ -1,22 +1,18 @@
-"""Encoder-decoder generative retrieval model + constrained beam search
-(counterpart of hidvae_tpu/models/retrieval.py).
+"""Encoder-decoder generative retrieval model and constrained beam search
+(counterpart of hidvae_tpu/models/retrieval.py). The user embedding leads
+the semantic-ID history with learned absolute positions; the target side is
+a learned BOS + digit + token-type embeddings. The beam keeps fixed [B*k]
+shapes from step 0 (beam 0 at log-prob 0, the rest -1e9), runs the encoder
+once and narrows each beam's corpus range by binary search; invalid digits
+get the reference's -10000 penalty.
 
-The user embedding is prepended to the semantic-ID history with learned
-absolute positions; the target side is a learned BOS + target-digit
-embeddings + token-type embeddings. Beam search keeps fixed [B*k] shapes from
-step 0 (beam 0 starts at log-prob 0, the rest at -1e9), runs the encoder once,
-and narrows each beam's corpus row range by binary search. Invalid digits get
-the -10000 penalty of the reference.
-
-Train mode is a dropout generator passed to `forward`: the blocks' dropout
-(`dropout`) and the fixed input dropout of 0.5 on the normed context and
-target embeddings (retrieval.py:105, :118-120) draw from it. `dtype` is
-flax's compute dtype: the projections and blocks run in it, parameters stay
-fp32, logits are cast to fp32 for the loss. `remat` rematerializes every
-transformer block in the backward (retrieval.py:67, :96; models/transformer.py).
-Under tensor parallelism (parallel/mesh.py) `out_proj` holds this rank's
-vocab rows, and the logits are gathered along the vocab before the loss and
-before the beam's top-k.
+Train mode is a dropout generator passed to `forward` (the blocks' dropout
+and the fixed 0.5 input dropout on the normed context and target
+embeddings, retrieval.py:105, :118-120). `dtype` is flax's compute dtype
+(parameters fp32, logits cast to fp32 for the loss). `remat`
+rematerializes every block (retrieval.py:67, :96). Under tensor parallelism
+`out_proj` holds this rank's vocab rows and the logits are gathered along
+the vocab before the loss and the beam's top-k.
 """
 
 import warnings

@@ -1,24 +1,19 @@
 """Pre-norm transformer blocks and the encoder-decoder (counterpart of
-hidvae_tpu/models/transformer.py). The cross-attention query is taken from
-the block input x, not from the self-attention output (transformer.py:58).
+hidvae_tpu/models/transformer.py). Cross-attention's query is the block
+input x, not the self-attention output (transformer.py:58).
 
-Train mode is a dropout generator passed to forward: dropout then applies
-where the JAX block applies it (transformer.py:51-71): on the normed input
-of self-attention and of cross-attention, after each hidden SiLU of the
-feed-forward MLP, and on the feed-forward output. Without a generator the
-blocks run deterministically (eval). `use_flash` reaches the encoder's
-self-attention only (`encoder_flash`, transformer.py:124-131).
+Train mode is a dropout generator passed to forward; dropout applies where
+the JAX block applies it (:51-71): the normed inputs of self- and
+cross-attention, after each hidden SiLU of the MLP and on its output.
+`use_flash` reaches the encoder's self-attention only (:124-131).
 
-`remat` rematerializes each block in the backward (transformer.py:74-108,
-flax's nn.remat): `torch.utils.checkpoint` keeps only the block's inputs
-and runs its forward again when the gradient reaches it. The checkpoint
-restores the default generators' states only, and the blocks draw their
-dropout from an explicit generator, so `GeneratorReplay` hands the
-recompute a copy of that generator restored to the state the forward began
-from: the recompute draws the forward's masks, as the JAX block, which
-takes its dropout key as an argument, does. On the flash route the
-recompute runs the forward kernel again, and its backward reads the
-recomputed row statistics."""
+`remat` rematerializes each block (:74-108, nn.remat) with
+`torch.utils.checkpoint`. It restores only the default generators, so
+`GeneratorReplay` hands the recompute the dropout generator as it was when
+the forward began: the recompute draws the forward's masks, as the JAX
+block, which takes its key as an argument. On the flash route the
+recompute runs the forward kernel again.
+"""
 
 from typing import Optional, Sequence
 

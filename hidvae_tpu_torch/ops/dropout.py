@@ -1,18 +1,12 @@
-"""Dropout drawn from an explicit generator (counterpart of flax's
-nn.Dropout as the JAX package uses it).
-
-`torch.nn.functional.dropout` draws from the global generator and takes no
-`generator` argument; the trainer derives one generator per step from
-(seed, step), as the JAX trainer folds the step into its key, so the keep
-mask is drawn here. As in flax: keep with probability 1 - p and scale the
-kept values by 1 / (1 - p).
-
-On a mesh a rank holds some rows of the global batch (and, inside a
-tensor-parallel feed-forward, some columns of its hidden width). The step's
-generator then comes wrapped in a `RowShard`: every site draws the keep mask
-of the global shape and keeps this rank's rows (and columns), so the ranks
-together apply the one-device run's mask, bit for bit. `uniform` is that
-draw, which the Gumbel noise of the stage-1 quantizer takes too."""
+"""Dropout drawn from an explicit generator (flax's nn.Dropout as the JAX
+package uses it): keep with probability 1 - p, scale by 1 / (1 - p).
+`torch.nn.functional.dropout` takes no generator, and the trainers derive
+one per step from (seed, step), so the mask is drawn here. On a mesh the
+generator comes as a `RowShard`: every site draws the global shape's mask
+and keeps this rank's rows (and tensor-parallel columns), so the ranks apply
+the one-device mask bit for bit; `uniform` is that draw, which the stage-1
+Gumbel noise takes too.
+"""
 
 from typing import NamedTuple, Optional, Union
 

@@ -1,41 +1,31 @@
 """Flash attention with segment-id masking: the CUDA kernels, their plain
-PyTorch versions, and the autograd Function that joins them.
+PyTorch versions and the autograd Function that joins them.
 
 Counterpart of the `jax` library's Pallas TPU `flash_attention`
-(jax/experimental/pallas/ops/tpu/flash_attention.py:140, jax 0.9.0), which
-the JAX package calls from `_flash_self_attention`
-(hidvae_tpu/models/attention.py:75). Three hand-written Hopper kernels in
-csrc/flash_attention.cu replace the library's three Pallas kernels:
+(jax/experimental/pallas/ops/tpu/flash_attention.py:140, jax 0.9.0), called
+from hidvae_tpu/models/attention.py:75. Three Hopper kernels in
+csrc/flash_attention.cu replace the library's three:
 
   flash_fwd      forward, writes O and the row statistics m, l  (library :331)
   flash_bwd_dkv  dK, dV                                         (library :796)
   flash_bwd_dq   dQ                                             (library :1146)
 
 `flash_attention(q, k, v, *, segment_ids, causal, sm_scale)` takes q, k, v
-[B, H, N, Dh] and segment ids [B, N] int32. On CUDA tensors it runs the
-kernels (forward and, under autograd, backward), built for Dh 64 and 128;
-on CPU tensors it runs `flash_attention_reference`, the plain version, at
-any Dh. A CUDA tensor never takes the plain path: a failed build or launch
-raises. In bf16 all three kernels run on tensor cores and, as the library
-does, round P and dS to bf16 before their products; the fp32 kernels
-compute in fp32 FFMA. The backward mirrors `_flash_attention_bwd`
-(library :254-318): di = rowsum(dO * O) in fp32, then dK/dV, then dQ.
+[B, H, N, Dh] and segment ids [B, N] int32. CUDA tensors run the kernels
+(Dh 64 and 128; a failed build or launch raises), CPU tensors the plain
+`flash_attention_reference` at any Dh. bf16 runs on tensor cores and, as
+the library, rounds P and dS to bf16 before their products; fp32 runs in
+FFMA. The backward mirrors `_flash_attention_bwd` (:254-318): di =
+rowsum(dO * O) in fp32, then dK/dV, then dQ, recomputing P = exp(s - m) / l
+from the saved m and l (:900-904, :1226-1232); one logsumexp would not do,
+since a keyless row's sum rounds back to m and P would be 1, not 1/N.
 
-The forward saves the library's residuals, the row max m of the masked,
-scaled logits and the row sum l = sum exp(s - m), and the backward
-recomputes P = exp(s - m) / l from them, as the library's backward bodies
-do (:900-904, :1226-1232). One logsumexp m + log l would not do: on a
-query row with no key of its segment every logit is the mask value, the
-sum rounds back to m, and P would come out 1 instead of 1/N.
-
-Semantics, from the library: logits (q k^T) * sm_scale in fp32; where the
-query's and key's segment ids differ (or, when causal, where the key comes
-after the query) the logit gets the additive mask -0.7 * fp32 max (:29,
-:437); softmax in fp32. A query row that sees no key, causal or not, gets
-uniform weights over all Nk keys, as the library's `mha_reference` gives
-them: under causal masking the kernels skip the key tiles above a block's
-diagonal, and visit them too where a row of the block has no visible key
-(its m is the mask value), so the result does not depend on tile sizes.
+Semantics, from the library: logits (q k^T) * sm_scale in fp32; a query and
+key of different segments (or, causal, a later key) get the additive mask
+-0.7 * fp32 max (:29, :437); softmax in fp32. A row that sees no key gets
+uniform weights over all keys, as `mha_reference` gives: causal blocks skip
+the tiles above their diagonal except where a row of the block has no
+visible key, so the result does not depend on tile sizes.
 """
 
 import ctypes

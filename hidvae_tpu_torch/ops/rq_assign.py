@@ -1,15 +1,11 @@
-"""Fused residual quantization: the CUDA kernel, its plain PyTorch version,
-and the dispatch between them.
-
-Counterpart of hidvae_tpu/ops/pallas/rq_kernels.py. `rq_assign` launches the
-hand-written Hopper kernel in csrc/rq_assign.cu (replacing the Pallas TPU
-kernel `_rq_kernel`, rq_kernels.py:32); `rq_assign_reference` is the plain
-version the CPU and the tests use; `rq_assign_auto` picks by the tensor's
-device, as rq_kernels.py:128-133 picks by backend. A CUDA tensor never takes
-the plain path: a failed build, load or launch raises.
-
-Shapes: x [B, D], codebooks [L, K, D] (already out-projected/normalized).
-Outputs: ids [B, L] int32, quantized sum [B, D] float32.
+"""Fused residual quantization: the CUDA kernel, its plain PyTorch version and
+the dispatch (counterpart of hidvae_tpu/ops/pallas/rq_kernels.py).
+`rq_assign` launches csrc/rq_assign.cu (for the Pallas `_rq_kernel`,
+rq_kernels.py:32); `rq_assign_reference` is the plain version of the CPU and
+the tests; `rq_assign_auto` picks by device, as rq_kernels.py:128-133 by
+backend. A CUDA tensor never takes the plain path: a failed build, load or
+launch raises. x [B, D], codebooks [L, K, D] -> ids [B, L] int32, quantized
+sum [B, D] float32.
 """
 
 import ctypes

@@ -1,33 +1,27 @@
-"""The collectives of the port's multi-GPU paths, the autograd functions
-that make tensor parallelism of them (the Megatron f / g pair), and those
-that couple a batch split over the data ranks (stage 1).
+"""The collectives of the port's multi-GPU paths, the tensor-parallel autograd
+functions (Megatron's f / g) and those that couple a batch split over the
+data ranks (stage 1).
 
 Only `all_reduce`, `all_gather` (list form) and `broadcast` are used: Gloo
-runs those three on CUDA tensors as NCCL does, so the same code runs under
-either backend, whichever the caller initialized. A group of None means no
-process group (one process): every function is then the identity, so a
-module that was never sharded runs its one-device code unchanged.
+runs them on CUDA tensors as NCCL does, so one code path serves the
+backend the caller initialized. A group of None (one process) makes every
+function the identity.
 
 `COLLECTIVE_BYTES` counts, per collective, the bytes this process handed to
-it over a group of more than one rank (the payload of an all-reduce or a
-broadcast, the local part of an all-gather); `collective_bytes()` is their
-sum, which the stage-2 trainer reports per step.
+it over a group of several ranks (an all-reduce's or broadcast's payload,
+an all-gather's local part); `collective_bytes()` is their sum.
 
-Tensor-parallel products follow "all-reduce the partials in fp32, then
-cast": a row-parallel layer's forward and a column-parallel layer's input
-gradient are sums over the model ranks' partial products, and each partial
-is taken in fp32 from inputs already rounded to the compute dtype (bf16
-values are exact in fp32 and in TF32), all-reduced in fp32 and rounded to
-the compute dtype once, as the one-device product rounds its fp32
-accumulation once.
+Tensor-parallel products "all-reduce the partials in fp32, then cast": each
+partial product is taken in fp32 from inputs already in the compute dtype,
+all-reduced in fp32 and rounded once, as the one-device product rounds its
+fp32 accumulation once.
 
-A batch split over the data ranks is described by `Rows`. A term that needs
-the whole batch (a [B, B] product, a permutation of the batch) takes the
-ranks' rows through `all_gather_rows`, whose backward says who consumes the
-gathered tensor: "slice" when every rank computes the same term of it (the
-rank's slice of its own gradient is the whole gradient of its rows), "sum"
-when each rank uses it for its own rows only (the gradient is summed over
-the ranks first). `all_reduce_sum` makes the same choice for a sum."""
+A batch split over the data ranks is a `Rows`. A term of the whole batch
+gathers the ranks' rows through `all_gather_rows`, whose backward is
+"slice" when every rank computes the same term (its slice of its own
+gradient is whole) or "sum" when each uses it for its own rows (summed over
+the ranks first); `all_reduce_sum` makes the same choice.
+"""
 
 from typing import NamedTuple, Optional
 

@@ -1,24 +1,21 @@
-"""The port's multi-rank dry run (counterpart of
-__graft_entry__.dryrun_multichip), and the launcher of ranks it uses.
+"""The port's multi-rank dry run (counterpart of __graft_entry__.dryrun_multichip)
+and its rank launcher.
 
     python -m hidvae_tpu_torch.parallel.dryrun 4
 
-spawns 4 Gloo ranks on the CPU over a ('data', 'model') mesh of (n/2, 2)
-when n is even and at least 4, else (n, 1), runs one DP x TP AdamW step of
-the tiny flagship decoder (K 64, D 3, attention 64 wide, 4 heads, 2 layers,
-embeddings 32, max_pos 64, dropout on) on a seeded global batch of
-2 * n_data rows; then one data-parallel AdamW step (lr 1e-3) of the tiny
-HiD-VAE of the JAX dry run (input 32, embed 8, hidden (16,), K 16, L 3, tag
-counts (4, 6, 8), tag embeddings 16; dropout, Gumbel noise and mixup on)
-over all n ranks (the stage-1 mesh) on a seeded global batch of 2 * n
-items. It checks that every rank has the same losses and that each equals
-the one-process step's, and prints
-`dryrun_multichip OK: mesh={...} stage2_loss=... stage1_loss=...`.
+spawns 4 Gloo CPU ranks on a ('data', 'model') mesh of (n/2, 2) (n even and
+at least 4, else (n, 1)); runs one DP x TP AdamW step of the tiny flagship
+decoder (K 64, D 3, width 64, 4 heads, 2 layers, embeddings 32, max_pos 64,
+dropout on) on 2 * n_data seeded rows, then one data-parallel step (lr 1e-3)
+of the JAX dry run's tiny HiD-VAE (input 32, embed 8, hidden (16,), K 16,
+L 3, tags (4, 6, 8) of width 16; dropout, Gumbel and mixup on) over all n
+ranks on 2 * n items; checks every rank's losses against one process's and
+prints `dryrun_multichip OK: mesh={...} stage2_loss=... stage1_loss=...`.
 
-`launch_ranks` starts a command as n processes with the environment
-torchrun gives its ranks (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
-MASTER_PORT), so a worker joins with `dist.init_process_group(backend)`,
-naming its backend itself."""
+`launch_ranks` starts n processes with torchrun's environment (RANK,
+LOCAL_RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); a worker names its
+backend itself.
+"""
 
 import os
 import re

@@ -1,26 +1,22 @@
-"""A ('data', 'model') mesh over a torch.distributed process group (by
-default every rank on 'data': the stage-1 trainers' mesh), the row layouts
-of a batch split over the data ranks, and the stage-2 tensor-parallel
-layout (counterpart of hidvae_tpu/parallel/mesh.py).
+"""A ('data', 'model') mesh over a torch.distributed process group (default:
+every rank on 'data', the stage-1 mesh), the row layouts of a batch split
+over the data ranks, and the stage-2 tensor-parallel layout (counterpart of
+hidvae_tpu/parallel/mesh.py).
 
-The JAX package lays its devices out as `reshape(n_data, n_model)`; here
-rank r of the process group sits at (r // n_model, r % n_model). A rank's
-data group holds the ranks of its model coordinate (one per data index: the
-gradient all-reduce and the gathers of sharded rows run over it), its model
-group the ranks of its data coordinate (the tensor-parallel collectives).
-The backend is the process group's, which the caller initialized
-(`init_from_env` under torchrun: NCCL on cuda:LOCAL_RANK); library code
-never picks one. Without a process group `make_mesh` gives the one-device
-mesh (1, 1) with no groups, on which every collective is the identity.
+As JAX's `reshape(n_data, n_model)`, rank r sits at (r // n_model,
+r % n_model). Its data group holds the ranks of its model coordinate (the
+gradient all-reduce, the row gathers), its model group those of its data
+coordinate (the TP collectives). The backend is the caller's
+(`init_from_env` under torchrun: NCCL on cuda:LOCAL_RANK). Without a
+process group `make_mesh` gives the one-device mesh (1, 1).
 
 `stage2_param_layout` mirrors `stage2_param_shardings` leaf for leaf: the
-semantic-ID table by rows (vocab), `out_proj` by vocab, the FF `dense_0` by
-output features and the other FF kernels by input features, each replicated
-where its dimension does not divide the model axis. A torch nn.Linear weight
-is the flax kernel transposed, so a flax P(None, "model") kernel is cut along
-torch dim 0. `shard_stage2_` cuts a model (and its AdamW moments) to this
-rank's parts in place; `gather_stage2_flat` rebuilds whole flax-named arrays
-for a checkpoint."""
+ID table and `out_proj` by vocab, FF `dense_0` by output and the other FF
+kernels by input features, replicated where the axis does not divide (a
+torch weight is the flax kernel transposed). `shard_stage2_` cuts a model
+and its moments to this rank's parts; `gather_stage2_flat` rebuilds whole
+arrays for a checkpoint.
+"""
 
 import contextlib
 import os

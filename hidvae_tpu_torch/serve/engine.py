@@ -1,26 +1,22 @@
-"""Serving path for a trained two-stage retrieval model (counterpart of
+"""Serving path of a trained two-stage model (counterpart of
 hidvae_tpu/serve/engine.py).
 
-The serving state lives on the device: corpus ID table, sorted prefix index,
-its permutation (ID tuple -> item) and the per-level trie bitmaps. Requests
-are padded to a small set of batch buckets; one step per bucket runs
-tokenize (corpus-table gather) -> constrained beam search -> tuple-to-item
-resolution, and the host reads the result once.
+The serving state lives on the device: the corpus ID table, the sorted
+prefix index and its permutation, the per-level trie bitmaps. Requests are
+padded to batch buckets; one step per bucket tokenizes (table gather),
+runs the constrained beam search and resolves tuples to items; the host
+reads the result once.
 
-`from_artifacts` builds an engine from a decoder gin file and two exported
-checkpoints (bridge.py; scripts/export_flax_checkpoint.py converts the JAX
-package's Orbax checkpoints), reading the corpus from the config's
-processed dataset. Before the prefix index is built, the table is audited
-against the stage-1 checkpoint's recorded repetition rate: a collapsed
-table is refused, as the JAX engine refuses it.
+`from_artifacts` builds an engine from a decoder gin and two exported
+checkpoints (scripts/export_flax_checkpoint.py converts Orbax ones) over
+the config's processed dataset, refusing a table that contradicts the
+stage-1 checkpoint's recorded repetition rate, as JAX does.
 
-Multi-GPU serving (engine.py:194-231): with `mesh` (parallel.mesh.Mesh)
-the buckets are rounded up to a multiple of n_data, the corpus sweep is
-split over the data ranks, and each data rank decodes its rows of every
-bucket; the results are gathered, so `recommend`, called on every rank with
-the same requests, returns the whole answer everywhere. The tables and tries
-are replicated; the decoder is replicated, or cut over the model ranks with
-`shard_params=True` (the trainers' layout, parallel/mesh.py).
+Multi-GPU (engine.py:194-231): with `mesh`, buckets round up to a multiple
+of n_data, the sweep is split over the data ranks and each decodes its rows;
+results are gathered, so `recommend` on every rank returns the whole
+answer. Tables and tries are replicated; the decoder too, or cut over the
+model ranks with `shard_params=True`.
 """
 
 import logging
@@ -52,37 +48,27 @@ logger = logging.getLogger("hidvae_tpu_torch.serve.engine")
 class RetrievalEngine:
     """Batch recommendation serving over a frozen tokenizer + decoder.
 
-    model : the EncoderDecoderRetrievalModel with its weights loaded.
-    tokenizer : a (H)SemanticIdTokenizer over the stage-1 model, on the same
-        device as the engine.
+    model : the EncoderDecoderRetrievalModel, weights loaded.
+    tokenizer : a (H)SemanticIdTokenizer over the stage-1 model, on the engine's device.
     item_features : [n_items, F] numpy array or tensor; the corpus to index.
-    max_seq_len : history length the decoder was trained with (longer
-        histories keep their trailing `max_seq_len` items).
-    batch_buckets : ascending request-batch sizes to pad to; requests larger
-        than the top bucket are processed in top-bucket chunks.
-    stage1_checkpoint : the stage-1 export whose recorded repetition rate
-        the corpus table is audited against (None: no guard).
+    max_seq_len : the decoder's history length (longer histories keep their tail).
+    batch_buckets : ascending batch sizes to pad to; larger requests run in
+        top-bucket chunks.
+    stage1_checkpoint : the stage-1 export whose recorded repetition rate the
+        table is audited against (None: no guard).
     device : `cuda` unless given; raises without a card.
-    mesh : a parallel.mesh.Mesh over the ranks that serve together (None:
-        this process alone); shard_params cuts the decoder over its model
-        ranks.
+    mesh : a parallel.mesh.Mesh of the ranks that serve together (None: this
+        process); shard_params cuts the decoder over its model ranks.
 
-    `build_times` holds the seconds of the build's parts: `table_s` (the
-    sweep, read back to the host for the audit), `index_s` (prefix index,
-    caps and tries) and, from `from_artifacts`, `load_s` (gin, dataset,
-    both models and their weights).
-    """
+    `build_times`: `table_s` (the sweep, read back for the audit), `index_s`
+    (prefix index, caps, tries) and, from `from_artifacts`, `load_s`."""
 
     @classmethod
     def from_artifacts(cls, gin_path: str, stage1_export: str, stage2_export: str, *,
                        device=None, **engine_kwargs) -> "RetrievalEngine":
-        """A ready engine from a decoder gin config (the file the stage-2
-        trainer ran with: model and tokenizer shapes, dataset) and the two
-        exported checkpoints; the corpus comes from the config's
-        dataset_folder. Follows hidvae_tpu/serve/engine.py:51-182; defaults
-        are the JAX trainer's, so a config that relies on one builds the
-        same model here. `engine_kwargs` go to the engine (batch_buckets,
-        mesh, shard_params, ...), as engine.py:258 passes them."""
+        """A ready engine from a decoder gin (the stage-2 trainer's: shapes, dataset) and two
+        exported checkpoints, the corpus from its dataset_folder (engine.py:51-182; the JAX
+        trainer's defaults). `engine_kwargs` go to the engine (engine.py:258)."""
         t0 = time.perf_counter()
         device = resolve_device(device)
         cfg = parse_gin_file(gin_path)["train"]

@@ -1,18 +1,12 @@
-"""Hierarchical semantic-ID tokenizer around a frozen HiD-VAE (counterpart
-of hidvae_tpu/tokenizer/h_semids.py).
-
-Three ID layouts:
-  * semantic-only               [s1..sL]
-  * concatenated (+pred tags)   [s1..sL, t1..tT]
-  * interleaved                 [s1, t1, s2, t2, ...]
-plus the dedup rank column of the semantic-only layout. The corpus sweep runs
-the encoder and then the fused residual quantization `rq_assign_auto`: the
-CUDA kernel on the card, the plain version on the CPU. The table, prefix
-index, caps, tries and tokenizing by gather are those of the plain
-tokenizer (semids.py), which this one extends. `tokenize_features` encodes
-raw item features [B, N, F] through the same path (`encode_ids`, one
-`rq_assign_auto` over the B * N rows), and `__call__` takes it when no table
-was precomputed; `predict_tags` is the model's tag prediction.
+"""Hierarchical semantic-ID tokenizer around a frozen HiD-VAE (counterpart of
+hidvae_tpu/tokenizer/h_semids.py). Layouts: semantic-only [s1..sL] (plus
+the dedup rank column), concatenated [s1..sL, t1..tT] with predicted tags,
+interleaved [s1, t1, s2, t2, ...]. The sweep runs the encoder and
+`rq_assign_auto` (the CUDA kernel on the card, the plain version on the CPU);
+table, prefix index, caps, tries and gather-tokenizing are the plain
+tokenizer's (semids.py). `tokenize_features` encodes raw features [B, N, F]
+the same way (one `rq_assign_auto` over B * N rows), which `__call__` takes
+without a table; `predict_tags` is the model's tag prediction.
 """
 
 from typing import Optional, Sequence

@@ -57,16 +57,10 @@ def sweep_corpus(
     device: torch.device,
     mesh=None,
 ) -> torch.Tensor:
-    """Run `encode_block` over `item_features` [N, F] in chunks of
-    `chunk_size` rows on `device`; returns the concatenated [N, ...] output.
-
-    item_features: host numpy / CPU tensor (staged to a card), or a tensor
-    already on `device` (sliced in place).
-
-    mesh: a parallel.mesh.Mesh; its data ranks split every chunk (rounded up
-    to a multiple of n_data, the ragged last chunk zero-padded to one, as
-    sweep.py:67-68 rounds it), each encodes its equal part, and the parts are
-    gathered over the data group: every rank returns the whole output."""
+    """`encode_block` over `item_features` [N, F] (host, or already on `device`) in chunks of
+    `chunk_size` rows; returns the concatenated output. With `mesh` the data ranks split each
+    chunk (rounded up to a multiple of n_data, the last zero-padded, as sweep.py:67-68) and
+    gather the parts: every rank returns the whole."""
     n = int(item_features.shape[0])
     chunk = min(chunk_size, n)
     if isinstance(item_features, torch.Tensor):

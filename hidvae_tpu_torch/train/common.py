@@ -1,30 +1,22 @@
-"""Training commons (counterpart of hidvae_tpu/train/common.py): the
-schedules (inverse-sqrt, cosine, step), the reduce-on-plateau controller,
-the optimizer of both trainers (`Optimizer`, built by `make_optimizer`),
-the chunked event loop (`chunk_events`), the checkpoint helpers (meta,
-structural reconcile, the lenient restore of an exported checkpoint), the
-structural model config and the corpus audit with its diversity metrics,
-and what both stages' data-parallel paths share: the gradient reduction
-over the data ranks (`reduce_gradients_`) and the run directory's stamp.
+"""Training commons (counterpart of hidvae_tpu/train/common.py): schedules,
+the reduce-on-plateau controller, both trainers' optimizer (`Optimizer`,
+`make_optimizer`), the chunked event loop (`chunk_events`), checkpoints
+(meta, structural reconcile, lenient restore), the corpus audit, and the
+data-parallel gradient reduction (`reduce_gradients_`).
 
-The JAX optimizer is optax: `optax.adamw(schedule, weight_decay)` (b1 0.9,
-b2 0.999, eps 1e-8, decay on every parameter), optionally one adamw per
-parameter group under `optax.multi_transform` (the stage-1 tag heads'
-layer-specific rates), after `optax.clip_by_global_norm`, followed by the
-plateau scale, all inside `optax.MultiSteps` for gradient accumulation.
-optax evaluates the schedule at the number of updates already applied, so
-update t (0-based) uses schedule(t); `Optimizer` sets that rate on
-torch.optim.AdamW before each update, whose update rule is optax's
-(decoupled decay lr * wd * p, bias-corrected moments, eps added to the
-root). `Optimizer.state_dict` names every leaf as
-`flax.serialization.to_state_dict` names the optax state, so a JAX run
-converted by scripts/export_flax_checkpoint.py --opt-state resumes here and
-the other way round.
+The JAX optimizer is optax: `adamw(schedule, weight_decay)` (0.9, 0.999,
+1e-8), one per parameter group under `multi_transform` (the tag heads'
+rates), after `clip_by_global_norm`, then the plateau scale, inside
+`MultiSteps` for accumulation. Update t (0-based) uses schedule(t);
+`Optimizer` sets that rate on torch.optim.AdamW (optax's rule: decoupled
+decay lr * wd * p, bias-corrected moments, eps outside the root) and names
+its state as `flax.serialization.to_state_dict` names optax's, so a
+converted JAX run resumes here and back.
 
-A checkpoint (`save_checkpoint`, common.py:274-303) is an exported
-checkpoint (bridge.py) holding params, batch statistics, the optimizer state
-and the step. `run_logging` and `log_operative_config` write a run's
-train.log as the JAX trainers do."""
+A checkpoint (`save_checkpoint`, common.py:274-303) is an export (bridge.py)
+of params, batch statistics, optimizer state and step; `run_logging` and
+`log_operative_config` write train.log as the JAX trainers do.
+"""
 
 import contextlib
 import enum
@@ -189,15 +181,14 @@ class ReduceLROnPlateau:
 
 
 class Optimizer:
-    """AdamW under a schedule of the update count (a callable, or a constant
-    float), as make_optimizer builds the JAX one (common.py:222-271):
-      * `groups` = [(label, params, lr scale, weight decay)]: one adamw per
-        label under multi_transform; None: one adamw over `params`;
-      * `max_grad_norm`: a global-norm clip first;
-      * `plateau`: the plateau scale multiplies every update;
-      * `accumulate_every` k > 1: `step` is called every mini-step, keeps
-        the running mean of k gradients (optax.MultiSteps' Welford mean)
-        and updates once per k mini-steps.
+    """AdamW under a schedule of the update count (a callable or a float), as
+    make_optimizer builds the JAX one (common.py:222-271):
+      * `groups` = [(label, params, lr scale, weight decay)]: an adamw per
+        label under multi_transform; None: one over `params`;
+      * `max_grad_norm`: a global-norm clip first; `plateau`: its scale
+        multiplies every update;
+      * `accumulate_every` k > 1: `step` every mini-step keeps the running
+        mean of k gradients (MultiSteps' Welford mean), updating once per k.
     `count` is the updates applied (the schedule's count)."""
 
     def __init__(self, params, schedule, weight_decay: float,
@@ -397,14 +388,11 @@ def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
 
 
 def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_every: int):
-    """The JAX trainers' chunked loop (transformer.py:536-537, :579-613;
-    hidvae.py:634, :708-710): steps start_iter .. start_iter + n_steps - 1
-    run in chunks of max(1, min(log_every, *cadences, n_steps)) steps, the
-    last one ragged. Yields (first, end, fired) per chunk: the chunk's
-    steps are first .. end - 1, and `fired` the indices of `cadences`
-    whose multiple the step count crosses from first to end
-    (first // every != end // every), or all of them at the run's end. The
-    trainers log the loss once per chunk, at its end."""
+    """The JAX trainers' chunked loop (transformer.py:536-537, :579-613; hidvae.py:634, :708-710):
+    steps start_iter .. start_iter + n_steps - 1 in chunks of max(1, min(log_every, *cadences,
+    n_steps)), the last ragged. Yields (first, end, fired) per chunk: `fired` the indices of
+    `cadences` whose multiple the step count crosses (first // every != end // every), or all at
+    the run's end."""
     chunk = max(1, min([log_every, *cadences, n_steps]))
     end = start_iter + n_steps
     it = start_iter
@@ -470,15 +458,10 @@ def restore_checkpoint(path: str, module: torch.nn.Module,
 
 def restore_export(path: str, module: torch.nn.Module, *,
                    mismatch_tolerance: float = 0.1) -> dict:
-    """Load an exported checkpoint (bridge.py) into `module`, leniently, as
-    the JAX package's restore_checkpoint does (common.py:306-407): a
-    parameter or statistic the export lacks, or holds at another shape,
-    keeps the module's current value with one warning per leaf; export
-    entries the module lacks are dropped. More than
-    max(mismatch_tolerance * param leaves, 8) missing or mismatched param
-    leaves mean a structurally different model: raise ValueError rather
-    than serve from mostly initial weights. The rest loads strictly.
-    Returns the export's meta."""
+    """Load an exported checkpoint into `module` leniently, as JAX's restore_checkpoint
+    (common.py:306-407): a leaf the export lacks or holds at another shape keeps its value with
+    a warning; entries the module lacks are dropped. More than max(mismatch_tolerance * param
+    leaves, 8) bad param leaves mean another model: ValueError. Returns the export's meta."""
     from hidvae_tpu_torch.bridge import flax_to_state_dict, load_export, state_dict_to_flax
 
     log = logging.getLogger("hidvae_tpu_torch.checkpoint")

@@ -1,19 +1,15 @@
-"""Device-resident training data (counterpart of
-hidvae_tpu/train/device_data.py). Stage 1: the item corpus (features, tag
-embeddings, tag indices) lives on the device and each step gathers a batch
-of items drawn uniformly with replacement (PARITY.md deviation 6). Stage 2:
-the whole history table lives on the device, and each step samples its own
-rows, random-crops (history + target) windows and tokenizes them by a gather
-from the corpus table.
-
-Sampling is with replacement and every draw comes from an explicit
-torch.Generator, so a step is a function of (generator state, data).
-`random_crop_windows` is split into the draw (`crop_uniforms`) and a pure
-function of the uniforms, so a test can feed the JAX function and this one
-the same numbers. Duplicate-pair mining (stage 1): `harvest_duplicate_pairs`
-draws a fixed-size pool of colliding item pairs from a corpus audit's table
-(host numpy), and `DeviceItemData.sample` puts pair rows from that pool at
-the head of each batch."""
+"""Device-resident training data (counterpart of hidvae_tpu/train/device_data.py).
+Stage 1: the corpus (features, tag embeddings and indices) lives on the
+device and each step gathers items drawn uniformly with replacement
+(PARITY.md deviation 6). Stage 2: the history table lives on the device and
+each step samples rows, random-crops (history + target) windows and
+tokenizes them by a gather from the corpus table. Every draw comes from an
+explicit torch.Generator; `random_crop_windows` is split into the draw
+(`crop_uniforms`) and a pure function of the uniforms, so a test can feed
+JAX's numbers. Mining: `harvest_duplicate_pairs` draws a pool of colliding
+pairs from an audit's table (host numpy), and `DeviceItemData.sample` puts
+pair rows from it at the head of each batch.
+"""
 
 from typing import NamedTuple, Optional
 
@@ -136,13 +132,11 @@ def tokenize_on_device(cached_ids, user_ids, items, fut):
 
 
 def harvest_duplicate_pairs(corpus_ids, split_globals, pool_size: int, np_rng):
-    """A pool [pool_size, 2] int32 of item pairs whose ID tuples collide in
-    the audit's table `corpus_ids` [N, D] (every item), as split-local
-    positions of the training split `split_globals` (its sorted global
-    indices; pairs touching another item are dropped): resampled with
-    replacement from `np_rng` when fewer pairs exist, subsampled when more.
-    None when no pair collides inside the split (device_data.py:150-192).
-    Adjacent items of one tuple, in index order, make the pairs."""
+    """A pool [pool_size, 2] int32 of item pairs colliding in the audit's table `corpus_ids` [N,
+    D], as positions in the training split `split_globals` (sorted global indices; pairs leaving
+    it dropped), adjacent items of a tuple in index order; resampled with replacement from
+    `np_rng` when fewer, subsampled when more; None without a collision
+    (device_data.py:150-192)."""
     _, inverse, counts = np.unique(np.asarray(corpus_ids), axis=0, return_inverse=True,
                                    return_counts=True)
     inverse = inverse.reshape(-1)  # numpy 2.0.x returns it [N, 1] with `axis`

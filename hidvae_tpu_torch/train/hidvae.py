@@ -1,64 +1,48 @@
 """Stage-1 HiD-VAE trainer (counterpart of hidvae_tpu/train/hidvae.py).
 
-`train` takes the JAX trainer's gin surface: every keyword of :229-303 with
-its default, and `device` (`cuda` unless given; no fallback to the CPU).
-As the JAX trainer, it
-  * reads the processed dataset's train, eval and all item splits
-    (:317-330), reconciles the tag levels with the quantizer depth and, with
-    the focal loss, remaps rare tags, writes the remap to
-    <save_dir_root>/special_tags_files/rare_tags.npz and takes the class
+`train` takes the JAX trainer's gin surface (every keyword of :229-303 with
+its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
+  * reads the train, eval and all item splits (:317-330), reconciles the
+    tag levels with the depth and, with the focal loss, remaps rare tags
+    (<save_dir_root>/special_tags_files/rare_tags.npz) and takes the class
     frequencies after the remap (:338-376);
-  * builds the HRqVae (`build_model`, AMP: bf16 MLP and tag-head products)
-    with seeded flax-distributed weights, and either restores a checkpoint
-    of this trainer (params, batch statistics, optimizer state with its
-    accumulator and schedule counts, step and plateau counters, the mining
-    pool; :484-522) or k-means-initializes the codebooks on up to 20,000
-    items (:523-532);
-  * builds the optimizer (`build_optimizer`: cosine or step schedule, the
-    tag heads' layer-specific rates, the plateau scale, gradient
-    accumulation counted in mini-steps, :440-479);
-  * trains in the JAX trainer's chunks (`chunk_events`, :634): each
-    mini-step has a generator that is a function of (seed, step) only
-    (PARITY.md deviation 13), samples its batch from the corpus on the
-    device, and runs the train forward (Gumbel temperature 0.2, dropout,
-    mixup) and backward; one log line per chunk (:684-706);
-  * with `sem_id_mining`, duplicate-pair mining (:555-629, :747-761): each
-    batch starts with int(batch_size * sem_id_mining_frac) // 2 pairs drawn
-    from a pool of sem_id_mining_pool item pairs, seeded uniform from
-    np.random.RandomState(seed) and re-harvested at every audit from the
-    pairs that collide in the audit's table (`harvest_duplicate_pairs`,
-    seeded by (seed, step)); the model pushes the still-colliding pairs
-    apart (`sem_id_mining_margin`, `sem_id_mining_isolate`); the pool is
-    saved with every checkpoint and restored on resume, a checkpoint
-    without a usable pool falling back to the uniform seed;
-  * when a chunk crosses eval_every or ends the run: the eval losses and
-    the test-time-augmented tag accuracy (`_run_eval`), the plateau step,
-    and the corpus ID audit, a sweep through `rq_assign` (the CUDA kernel
-    on the card) of every item, whose repetition rate gates the quality
-    checkpoint (:711-791); when it crosses save_model_every or ends the
-    run: `latest`, with this step's audit (:792-801);
-  * draws the plots and writes train.log into its save_dir.
-Checkpoints are exported checkpoints (arrays.npz + meta.json with the
-structural model_config and metrics.repetition_rate), which
-`restore_export`, `reconcile_vae_config`, `RetrievalEngine.from_artifacts`
-and the stage-2 trainer read. `ensemble_predictions`, `use_concatenated_ids`,
-`use_interleaved_ids` and `wandb_logging` are taken and ignored, as in JAX.
+  * builds the HRqVae (`build_model`; AMP: bf16 MLP and tag-head products)
+    with seeded weights, and restores a checkpoint of this trainer (params,
+    batch statistics, optimizer state and counts, step, plateau counters,
+    mining pool; :484-522) or k-means-initializes the codebooks on up to
+    20,000 items (:523-532);
+  * builds the optimizer (`build_optimizer`: cosine or step schedule,
+    layer-specific tag-head rates, plateau scale, accumulation counted in
+    mini-steps, :440-479);
+  * trains in the JAX chunks (`chunk_events`, :634): each mini-step's
+    generator is a function of (seed, step) (PARITY.md deviation 13); it
+    samples on the device and runs the train forward (Gumbel 0.2, dropout,
+    mixup) and backward (:684-706);
+  * with `sem_id_mining` (:555-629, :747-761): each batch starts with
+    int(batch_size * sem_id_mining_frac) // 2 pairs from a pool of
+    sem_id_mining_pool pairs, seeded uniform and re-harvested at every audit
+    from the colliding pairs (`harvest_duplicate_pairs`); the model pushes
+    them apart (`sem_id_mining_margin`, `_isolate`); the pool is saved and
+    restored with the checkpoints;
+  * at eval_every or the end: eval losses, test-time-augmented tag accuracy,
+    the plateau step and the corpus audit through `rq_assign`, whose
+    repetition rate gates the quality checkpoint (:711-791); at
+    save_model_every or the end: `latest` (:792-801);
+  * draws the plots and writes train.log.
+Checkpoints are exports (arrays.npz, meta.json with the model_config and
+metrics.repetition_rate) that `restore_export`, `reconcile_vae_config`,
+`from_artifacts` and stage 2 read. `ensemble_predictions`,
+`use_concatenated_ids`, `use_interleaved_ids` and `wandb_logging` are
+ignored, as in JAX.
 
-Under a process group of N ranks (torchrun; parallel/mesh.py
-`make_mesh`) the run is data-parallel over all of them, as the JAX
-trainer's mesh puts every device on 'data' (:541-553, :636-640): each rank
-draws the step's global batch and computes its `shard_rows` part (the
-whole batch when N does not divide it); the model couples the parts where
-the loss needs the whole batch (models/hrqvae.py), the gradients are
-summed over the ranks in one all-reduce before the optimizer, and every
-rank keeps the same parameters. `split_batches=False` makes batch_size the
-per-rank batch (global batch_size * N). Evals run whole on every rank;
-audits split each chunk over the ranks (tokenizer/sweep.py), so every rank
-holds the table and harvests the same pool. k-means runs on rank 0 and
-its codebooks are broadcast. Rank 0 writes train.log, the rare-tag
-remap, checkpoints (those of a one-process run: they resume at any world
-size) and plots. There is no stage-1 tensor parallelism: as in JAX, the
-trainer takes no model-axis option.
+Under a process group (torchrun) the run is data-parallel over every rank,
+as JAX puts every device on 'data' (:541-553, :636-640): each rank computes
+its `shard_rows` of the global batch; the model couples the parts where the
+loss needs the whole batch, gradients are summed in one all-reduce, and the
+parameters stay equal. `split_batches=False` makes batch_size per rank.
+Evals run whole; audits split each chunk over the ranks; k-means runs on
+rank 0 and is broadcast; rank 0 writes the log, remap, checkpoints and
+plots. As in JAX there is no stage-1 tensor parallelism.
 """
 
 import contextlib
@@ -391,21 +375,15 @@ def train(
     sem_id_mining_isolate=False,
     device=None,
 ):
-    """Train the HiD-VAE tokenizer as `python train_hidvae.py CONFIG.gin`
-    does (see the module docstring). `iterations` counts updates; the loop
-    runs iterations * gradient_accumulate_every mini-steps, which the
-    step, the cadences and the log count. Returns {"model", "optimizer",
-    "step", "save_dir", "history", "tag_class_counts", "rare_tags",
-    "best_eval_accuracy", "saved_paths", "data" (the device corpus, tags
-    remapped, and the last mining pool), "class_counts", "n_pair_rows",
-    "mining_pool_start" (the pool the run started from, restored or seeded,
-    as numpy; None without mining), "corpus_ids" (the newest audit's table,
-    or None), "mesh"}; history holds the JAX trainer's keys,
-    ms_per_step (host clock per mini-step of each chunk, eval and save left
-    out), mined_pair_collision_rate (each chunk's last step),
-    mining_pool_refreshed (the audit steps whose harvest replaced the pool)
-    and collective_bytes_per_step (handed to collectives per mini-step by
-    this rank, evals and audits left out)."""
+    """Train the HiD-VAE as `python train_hidvae.py CONFIG.gin` does (module docstring).
+    `iterations` counts updates of gradient_accumulate_every mini-steps, which the step,
+    cadences and log count. Returns {"model", "optimizer", "step", "save_dir", "history",
+    "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths", "data" (the device
+    corpus, tags remapped, the last pool), "class_counts", "n_pair_rows", "mining_pool_start"
+    (numpy; None without mining), "corpus_ids" (the newest audit's table or None), "mesh"};
+    history holds the JAX trainer's keys, ms_per_step (host clock a mini-step; evals and saves
+    left out), mined_pair_collision_rate, mining_pool_refreshed (the audits that replaced the
+    pool) and collective_bytes_per_step (this rank's, a mini-step)."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{run_stamp(mesh, device)}")

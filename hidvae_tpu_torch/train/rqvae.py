@@ -1,47 +1,37 @@
-"""Stage-1 trainer of the plain RQ-VAE tokenizer (counterpart of
-hidvae_tpu/train/rqvae.py), the tokenizer of the TIGER baseline.
+"""Stage-1 trainer of the plain RQ-VAE (counterpart of hidvae_tpu/train/rqvae.py),
+the TIGER baseline's tokenizer.
 
-`train` takes the JAX trainer's gin surface: every keyword of :40-75 with
-its default, and `device` (`cuda` unless given; no fallback to the CPU).
-As the JAX trainer, it
-  * reads the processed dataset once for its train (all without eval),
-    eval and all item splits (:87-100), through `load_or_build` (which
-    rebuilds only the synthetic corpus);
-  * builds the RqVae (`build_model`; AMP: bf16 encoder and decoder
-    products) with seeded flax-distributed weights, and either restores a
-    checkpoint of this trainer (params, the optimizer state with its
-    accumulator and count, and the step; :143-156) or k-means-initializes
-    the codebooks on up to 20,000 items (:157-162);
-  * builds the ungrouped optimizer of `make_optimizer` (AdamW at a constant
-    rate, MultiSteps accumulation counted in mini-steps, the optional
-    global-norm clip), its state named as optax names it;
-  * trains in the JAX trainer's chunks (`chunk_events`, :234): each
-    mini-step has a generator that is a function of (seed, step) only
-    (PARITY.md deviation 13), samples its batch from the corpus on the
-    device with replacement, and runs the train forward (Gumbel temperature
-    0.2) and backward; one log line per chunk (:262-276);
-  * when a chunk crosses eval_every or ends the run: the eval losses over
-    the eval split's batches, weighted by their length and capped by
-    eval_batches, and the corpus ID audit through `SemanticIdTokenizer`, a
-    sweep through `rq_assign` (the CUDA kernel on the card) of every item,
-    with the dedup column's largest rank under use_dedup_dim (:278-320);
-    when it crosses save_model_every or ends the run: `checkpoint_{it - 1}`,
-    re-auditing first unless this chunk audited (:322-345);
-  * draws the plots and writes train.log into its save_dir.
-Checkpoints are exported checkpoints (arrays.npz: step, params, opt_state;
-meta.json: the structural model_config and metrics.repetition_rate /
-rqvae_entropy), which `restore_export`, `reconcile_vae_config`,
-`RetrievalEngine.from_artifacts` and the stage-2 trainer read (its plain
-route, use_h_tokenizer = False). `wandb_logging` is taken and ignored, as
-in JAX.
+`train` takes the JAX trainer's gin surface (every keyword of :40-75 with
+its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
+  * reads the processed dataset's train, eval and all item splits through
+    `load_or_build` (:87-100); refuses items of another width than
+    vae_input_dim before any step (JAX fails at the reconstruction loss);
+  * builds the RqVae (`build_model`; AMP: bf16 products) with seeded
+    weights, and restores a checkpoint of this trainer (params, optimizer
+    state and count, step; :143-156) or k-means-initializes the codebooks
+    on up to 20,000 items (:157-162);
+  * builds the ungrouped `make_optimizer` (AdamW, accumulation counted in
+    mini-steps, the optional clip), its state named as optax names it;
+  * trains in the JAX chunks (`chunk_events`, :234): each mini-step's
+    generator is a function of (seed, step) (PARITY.md deviation 13); it
+    samples with replacement on the device and runs the train forward
+    (Gumbel 0.2) and backward (:262-276);
+  * at eval_every or the end: eval losses (length-weighted, capped by
+    eval_batches) and the corpus audit through `rq_assign`, with the dedup
+    column's largest rank under use_dedup_dim (:278-320); at
+    save_model_every or the end: `checkpoint_{it - 1}`, re-audited unless
+    the chunk audited (:322-345);
+  * draws the plots and writes train.log.
+Checkpoints are exports (arrays.npz: step, params, opt_state; meta.json:
+the model_config, repetition_rate, rqvae_entropy) that stage 2's plain
+route (use_h_tokenizer = False) and `from_artifacts` read. `wandb_logging`
+is ignored, as in JAX.
 
-Under a process group of N ranks the run is data-parallel as the HiD-VAE
-trainer's (train/hidvae.py; the JAX trainer's mesh, rqvae.py:169-179,
-:233-252): each rank computes its rows of the step's global batch, the
-loss and its terms are the whole batch's means, the gradients are summed
-over the ranks before the optimizer (so the clip sees the global
-gradient), evals run whole on every rank, audits split each chunk over the
-ranks, and rank 0 writes the log, checkpoints and plots.
+Under a process group the run is data-parallel as the HiD-VAE trainer's
+(rqvae.py:169-179, :233-252): each rank computes its rows of the global
+batch, the loss terms are whole-batch means, gradients are summed before
+the optimizer (the clip sees the global gradient), evals run whole, audits
+split each chunk, and rank 0 writes the log, checkpoints and plots.
 """
 
 import contextlib
@@ -213,16 +203,12 @@ def train(
     make_plots=True,
     device=None,
 ):
-    """Train the plain RQ-VAE tokenizer as `python train_rqvae.py CONFIG.gin`
-    does (see the module docstring). `iterations` counts updates; the loop
-    runs iterations * gradient_accumulate_every mini-steps, which the step,
-    the cadences and the log count. Returns {"model", "optimizer", "step",
-    "save_dir", "history", "saved_paths", "data" (the device corpus),
-    "corpus_ids" (the newest audit's table, or None), "mesh"}; history
-    holds the JAX trainer's keys, ms_per_step (host clock per mini-step of
-    each chunk, eval, audit and save left out) and collective_bytes_per_step
-    (handed to collectives per mini-step by this rank, evals and audits
-    left out)."""
+    """Train the plain RQ-VAE as `python train_rqvae.py CONFIG.gin` does (module docstring).
+    `iterations` counts updates of gradient_accumulate_every mini-steps, which the step,
+    cadences and log count. Returns {"model", "optimizer", "step", "save_dir", "history",
+    "saved_paths", "data" (the device corpus), "corpus_ids" (the newest audit's table or None),
+    "mesh"}; history holds the JAX trainer's keys, ms_per_step (host clock a mini-step; evals,
+    audits and saves left out) and collective_bytes_per_step (this rank's, a mini-step)."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")
@@ -234,6 +220,11 @@ def train(
             logger.info(f"split_batches=False: global batch = {batch_size} "
                         f"({mesh.n_data} data shards)")
         arrays = load_or_build(dataset_folder, dataset, dataset_split, force_dataset_process)
+        width = arrays.item_features.shape[1]
+        if width != vae_input_dim:  # JAX fails at the first reconstruction loss
+            raise ValueError(f"the items of {dataset.name} are {width} wide, but vae_input_dim "
+                             f"is {vae_input_dim}: the decoder reconstructs vae_input_dim "
+                             f"columns, so the two must agree")
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
                                  train_test_split="train" if do_eval else "all")
         eval_dataset = (ItemData(dataset_folder, dataset, arrays=arrays, train_test_split="eval")

@@ -1,55 +1,39 @@
 """Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py).
 
-`train` takes the JAX trainer's gin surface: every keyword of :193-246 with
-its default, and `device` (`cuda` unless given; no fallback to the CPU).
-As the JAX trainer, it
-  * reads the processed dataset of dataset_folder / dataset / dataset_split:
-    the items, the train split (random-cropped windows), the eval split and
-    the held-out test split (:284-301);
+`train` takes the JAX trainer's gin surface (every keyword of :193-246 with
+its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
+  * reads the processed dataset's items and its train (random-cropped
+    windows), eval and test splits (:284-301);
   * rebuilds the frozen stage-1 tokenizer from an exported checkpoint on
-    either route (`_build_tokenizer`, :51-190), sweeps the corpus into the
-    ID table (`rq_assign`: the CUDA kernel on the card, :331) and audits it
-    against the checkpoint's recorded repetition rate (:342);
-  * with `pretrained_decoder_path`, adopts the decoder checkpoint's
-    structural config, refuses a sem_id_dim it was not trained with
-    (:345-370) and restores params, AdamW state and step (:400-414): the
-    loop then runs steps start .. start + iterations;
-  * trains (`run_loop`): per step a generator derived from (seed, global
-    step), as :542 folds the step into its key, samples rows, crops,
-    tokenizes by gather and takes one AdamW step with dropout; so a resumed
-    run replays the uninterrupted run's sample, crop and dropout stream;
-  * in the JAX trainer's chunks (`chunk_events`, :536-537), at a chunk
-    end whose step count crosses a cadence or ends the run (:612-613): the
-    partial eval (loss and debug metrics, :615-636), the full generation
-    eval (`full_eval`, constrained beam search scored by hit@K and NDCG@K,
-    :638-648) and a checkpoint with the full model_config (:650-672);
-  * ends with the TEST eval (:674-685) and the plots (:687-693), and
-    writes train.log into its save_dir.
-`train_arrays` runs the same loop over in-memory arrays and a frozen
-HiD-VAE module.
+    either route (`_build_tokenizer`, :51-190), sweeps the corpus through
+    `rq_assign` (:331) and audits it against the recorded repetition (:342);
+  * with `pretrained_decoder_path`, adopts its structural config, refuses
+    another sem_id_dim (:345-370) and restores params, AdamW state and step
+    (:400-414);
+  * trains (`run_loop`): each step's generator is derived from (seed, global
+    step) (:542), so a resumed run replays the sample, crop and dropout
+    stream;
+  * in the JAX chunks (`chunk_events`, :536-537, :612-613): the partial
+    eval (:615-636), the full generation eval (`full_eval`, hit@K and
+    NDCG@K, :638-648) and checkpoints with the model_config (:650-672);
+  * ends with the TEST eval (:674-685), the plots and train.log.
+`train_arrays` runs the same loop over in-memory arrays and a HiD-VAE.
 
-The encoder's self-attention takes the flash route (CUDA kernels on the
-card) exactly where the JAX package takes its flash kernel: at contexts of
-at least 2048 tokens. A head width the kernels are not built for is refused
-before the first step on a CUDA device. `remat` rematerializes every block
-(models/transformer.py). `wandb_logging` and `model_jagged_mode` are taken
-and ignored, as in JAX.
+Self-attention takes the flash route (CUDA kernels on the card) where JAX
+takes its flash kernel: contexts of at least 2048 tokens; a head width the
+kernels lack is refused before the first step on CUDA. `remat`
+rematerializes every block. `wandb_logging` and `model_jagged_mode` are
+ignored, as in JAX.
 
-Multi-GPU (transformer.py:416-464): both loops run over
-`make_mesh(n_model=n_model_shards)`, a ('data', 'model') mesh over the
-initialized process group (torchrun: scripts/torch_train_transformer.py;
-none: one device). Every rank draws the global batch, its crops and every
-dropout mask of the global shape from the step's generator and keeps its
-rows (`shard_rows`; a batch n_data does not divide runs whole on every data
-rank, as JAX leaves it replicated), so a run on any mesh replays the
-one-device stream. `n_model_shards` k > 1 cuts the ID table, `out_proj` and
-the FF kernels over k model ranks (parallel/mesh.py). Gradients are
-averaged over the data ranks; the clip's global norm sums the squares of a
-cut leaf over the model ranks. Evals split their batches over the data
-ranks and reduce their sums. `split_batches=False` multiplies the batch by
-n_data (:460-464). Rank 0 alone writes train.log, checkpoints and plots; a
-checkpoint holds whole arrays (the TP parts gathered), the file a
-one-device run writes, so it resumes on any mesh.
+Multi-GPU (:416-464): both loops run over `make_mesh(n_model=n_model_shards)`
+on the process group (torchrun). Every rank draws the global batch, crops
+and dropout masks from the step's generator and keeps its rows
+(`shard_rows`), so any mesh replays the one-device stream. n_model_shards
+k > 1 cuts the ID table, `out_proj` and the FF kernels over k model ranks.
+Gradients are averaged over the data ranks; the clip sums a cut leaf's
+squares over the model ranks; evals split their batches. `split_batches=
+False` multiplies the batch by n_data. Rank 0 writes the log, plots and
+whole-array checkpoints, which resume on any mesh.
 """
 
 import contextlib
@@ -138,20 +122,13 @@ def _build_tokenizer(
     device=None,
     seed=42,
 ):
-    """The frozen stage-1 model restored from the exported checkpoint
-    `pretrained_rqvae_path`, and its tokenizer service, on `device` (`cuda`
-    unless given).
-
-    The structural VAE values are first reconciled against the
-    checkpoint's recorded model_config (checkpoint values win, loudly), so a
-    decoder config that omits e.g. vae_codebook_normalize does not rebuild
-    the quantizer with other distance semantics. Then the HiD-VAE (H route)
-    or the plain RQ-VAE is built in eval mode and restored leniently from
-    the export, BatchNorm running statistics included. The JAX function's
-    training-only arguments (quantizer forward mode, dropout, focal loss,
-    mixup, label smoothing, loss weights) change nothing in eval and are
-    not taken. Without `pretrained_rqvae_path` the model keeps seeded random
-    weights (drawn from `seed`), as the JAX function keeps its init."""
+    """The frozen stage-1 model restored from the export `pretrained_rqvae_path` and its tokenizer
+    on `device`. Structural VAE values are first reconciled with the checkpoint's model_config
+    (checkpoint values win, loudly), so a gin that omits e.g. vae_codebook_normalize keeps the
+    quantizer's semantics; then the HiD-VAE (H route) or plain RQ-VAE is built in eval mode and
+    restored leniently, BatchNorm statistics included. The JAX function's training-only
+    arguments change nothing in eval and are not taken. Without a path the model keeps seeded
+    weights (from `seed`), as JAX keeps its init."""
     rec = {
         "input_dim": vae_input_dim,
         "embed_dim": vae_embed_dim,
@@ -272,13 +249,10 @@ def device_batches(data: DeviceSeqData, batch_size: int):
 @torch.no_grad()
 def eval_loss(model, table, batches, eval_batches: Optional[int] = None,
               mesh: Optional[Mesh] = None):
-    """Row-weighted mean eval loss over `batches` of (user ids, histories,
-    targets), host or device arrays, in order (transformer.py:615-636, the
-    partial eval); and the debug metrics of the first batch: sequence-length
-    quantiles and per-digit losses (compute_debug_metrics, "eval_" keys).
-    On a mesh each data rank takes its rows of every batch after the first
-    (which every rank runs whole, for the debug metrics) and the loss sums
-    are all-reduced. Returns (loss, debug metrics)."""
+    """Row-weighted mean eval loss over `batches` of (user ids, histories, targets), in order
+    (transformer.py:615-636), and the first batch's debug metrics (length quantiles, per-digit
+    losses, "eval_" keys). On a mesh each data rank takes its rows of every batch after the
+    first (run whole) and the sums are all-reduced. Returns (loss, debug metrics)."""
     total, rows, dbg = 0.0, 0, {}
     for bi, arrays in enumerate(batches):
         if eval_batches is not None and bi >= eval_batches:
@@ -314,15 +288,11 @@ def _pad_rows(arrays, n: int):
 @torch.no_grad()
 def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
               prefix_tries=None, log=None, mesh: Optional[Mesh] = None):
-    """Constrained-generation eval (transformer.py:723-752): for each
-    in-order batch of `eval_seq` (a ragged last one padded to `batch_size`
-    rows by `_pad_rows`), tokenize by gather from the tokenizer's table,
-    run `generate(batch, prefix_index, prefix_tries)` and score the valid
-    rows' generated tuples against the targets with hit@K and NDCG@K per
-    digit and per prefix. `log(str)` gets three sample predictions of the
-    first batch. On a mesh each data rank generates its rows and the
-    tuples are gathered, so every rank scores the whole batch. Returns the
-    metric dict."""
+    """Constrained-generation eval (transformer.py:723-752): each in-order batch of `eval_seq` (a
+    ragged last one padded by `_pad_rows`) is tokenized by gather, generated by `generate(batch,
+    prefix_index, prefix_tries)` and its valid rows scored by hit@K and NDCG@K per digit and
+    prefix; `log(str)` gets three sample predictions. On a mesh each data rank generates its
+    rows and the tuples are gathered. Returns the metric dict."""
     topk = TopKAccumulator(ks=list(EVAL_KS))
     ndcg = NDCGAccumulator(ks=list(EVAL_KS))
     table, index = tokenizer.cached_ids, tokenizer.prefix_index
@@ -360,19 +330,14 @@ def _sync(device):
 def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
              log_every: int, events=(), log=None, mesh: Optional[Mesh] = None) -> dict:
-    """Steps start_iter .. start_iter + iterations - 1, each with its own
-    `step_generator(seed, step)`, in the JAX trainer's chunks
-    (`chunk_events` over log_every and every cadence of `events`). At each
-    chunk's end the chunk's 0-d losses, kept on the device until then, are
-    read back in one sync and the last is logged beside the window mean of
-    the last LOSS_WINDOW per-step losses (:576-587); then every (every, fn)
-    of `events` whose cadence the chunk crosses is called, in order, with
-    the step count. Host-clock ms per step leave their time out. On a mesh
-    each step computes this data rank's rows (`shard_rows`) with a RowShard
-    of the step's generator, and the logged losses are the data ranks'
-    mean. Returns the history: logged iterations, train loss and ms per
-    step, the window mean and the bytes handed to collectives per step
-    (parallel/collectives.py; the events' own left out)."""
+    """Steps start_iter .. start_iter + iterations - 1, each with `step_generator(seed, step)`, in
+    the JAX chunks (`chunk_events` over log_every and the cadences of `events`). At a chunk's
+    end its losses, kept on the device, are read back in one sync and the last logged beside the
+    window mean of the last LOSS_WINDOW (:576-587); then each (every, fn) of `events` whose
+    cadence it crosses is called with the step count. On a mesh each step computes this data
+    rank's rows (`shard_rows`, a RowShard of the generator) and logs the data ranks' mean.
+    Returns the history: iterations, train loss, ms per step (events left out), window mean and
+    collective bytes per step."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
@@ -493,16 +458,13 @@ def train(
     n_model_shards=1,
     device=None,
 ):
-    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin`
-    does (see the module docstring). The tag loss weights only shape the
-    stage-1 training loss and are logged, not used. Returns {"model",
-    "optimizer", "step", "tokenizer", "save_dir", "history",
-    "saved_paths", "mesh", "layout"}; history holds the JAX trainer's keys
-    (iterations, train_loss, eval_iterations, eval_loss,
-    full_eval_iterations, full_eval_metrics, test_eval_metrics), and
-    ms_per_step, window_mean, collective_bytes_per_step and the host-clock
-    seconds of each full eval and of each checkpoint (full_eval_seconds,
-    save_seconds; the latter with the read-back of params and moments)."""
+    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin` does (module
+    docstring); the tag loss weights are logged, not used. Returns {"model", "optimizer",
+    "step", "tokenizer", "save_dir", "history", "saved_paths", "mesh", "layout"}; history holds
+    the JAX trainer's keys (iterations, train_loss, eval_iterations, eval_loss,
+    full_eval_iterations, full_eval_metrics, test_eval_metrics) and ms_per_step, window_mean,
+    collective_bytes_per_step, full_eval_seconds and save_seconds (host clock, read-back
+    included)."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)
     if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
@@ -728,21 +690,13 @@ def train_arrays(
     device=None,
     log=None,
 ):
-    """`train`'s loop over in-memory arrays: histories `items` [n,
-    max_seq_len] (-1 padded) with targets `fut` [n] and user ids `users`
-    [n], over the catalog `item_features` [n_items, F], tokenized by the
-    frozen HiD-VAE module `vae`; an eval-loss pass over the eval arrays
-    every `partial_eval_every` steps and at the end. No checkpoint, no
-    generation eval.
-
-    `log_every` sets how often the loss is read back (a device sync) and
-    logged; `log(str)` receives the lines. Returns {"model", "tokenizer",
-    "optimizer", "history", "mesh", "layout"}; history holds the logged
-    iterations, train loss and host-clock ms per step, the eval iterations
-    and losses, the mean of the last LOSS_WINDOW per-step train losses and
-    the collectives' bytes per step. The mesh is
-    `train`'s: data ranks over the initialized process group, and
-    `n_model_shards` model ranks."""
+    """`train`'s loop over in-memory arrays: histories `items` [n, max_seq_len] (-1 padded),
+    targets `fut` and user ids `users` over the catalog `item_features`, tokenized by the frozen
+    HiD-VAE `vae`; an eval-loss pass over the eval arrays every `partial_eval_every` steps and
+    at the end; no checkpoint or generation eval. `log_every` sets the read-back cadence,
+    `log(str)` gets the lines. Returns {"model", "tokenizer", "optimizer", "history", "mesh",
+    "layout"} (history: iterations, train loss, ms per step, eval iterations and losses, window
+    mean, collective bytes per step); the mesh is `train`'s."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)
     if attn_dropout is not None:

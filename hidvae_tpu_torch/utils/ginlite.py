@@ -1,22 +1,14 @@
 """Minimal gin-config-compatible parser (a copy of hidvae_tpu/utils/ginlite.py
-whose enum registry points at the port's own enums).
+whose enum registry points at the port's enums).
 
-The reference drives all three trainers with gin files (`python train_X.py
-configs/Y.gin`; modules/utils.py:58-62) binding `train.*` parameters, with
-enums exposed via `@gin.constants_from_enum` (e.g.
-`%modules.quantize.QuantizeForwardMode.ROTATION_TRICK`,
-`%data.processed.RecDataset.AMAZON`). gin-config is not available in this
-environment, so this module parses the exact same file syntax:
-
-  * comments (#) and blank lines
-  * `import a.b.c` statements (recorded, not executed)
-  * `scope.param = value` bindings
-  * values: int / float / bool / None / quoted strings / lists /
-    `%module.path.EnumName.MEMBER` enum references
-
-Enum references resolve through a registry that maps both the reference's
-module paths and the port's enum names to the port's enum classes, so the
-repo's config files parse verbatim.
+The reference drives its trainers with gin files binding `train.*`
+parameters (modules/utils.py:58-62), enums exposed by
+`@gin.constants_from_enum` (`%data.processed.RecDataset.AMAZON`). Without
+gin-config this module parses the same syntax: comments and blank lines,
+`import a.b.c` (recorded, not run), `scope.param = value` bindings with
+int / float / bool / None / quoted strings / lists / `%module.path.Enum.MEMBER`
+values. Enum references resolve through a registry of the reference's
+module paths and the port's names, so the repo's configs parse verbatim.
 """
 
 import ast

@@ -1,25 +1,26 @@
-"""Write a seeded synthetic dataset (PyTorch port; one script for the JAX
-package's scripts/make_synthetic_{large,xl,xxl,ml32m,amazon}.py, with their
-arguments):
+"""Write a seeded synthetic dataset (PyTorch port of the JAX package's
+scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py, with their
+arguments), from seed 42, bit for bit the JAX scripts' files:
 
   large  20,000 items,    5,000 users, tag tree 16 x 8 x 4, histories 5-20
   xl     200,000 items,  50,000 users, tag tree 32 x 8 x 8, histories 5-20
   xxl    1,000,000 items, 100,000 users, tag tree 32 x 8 x 8, histories 5-20
   ml32m  20,000 items,    5,000 users, tag tree 16 x 8 x 4, histories 20-200,
          18 categorical feature columns, personal pools of 64 items
-  amazon-raw  a raw P5 drop (<root>/raw/sports/: sequential_data.txt,
-         datamaps.json, meta.json.gz) at the Sports split's size, 18,357
-         items and 35,598 users, for data/amazon.py's build_amazon
+  amazon-raw  a raw P5 drop (<root>/raw/sports/) at the Sports split's size,
+         18,357 items and 35,598 users (the JAX script's default: 12,000 x
+         12,000), for data/amazon.py
+  kuairand-raw  a raw KuaiRand-1K drop (<root>/raw/: three click logs,
+         captions, categories, video features), 20,000 + 500 videos and
+         4,000 users, for data/kuairand.py
 
-all from seed 42, bit for bit the JAX scripts' files (amazon-raw: the same
-draws as make_synthetic_amazon.py, whose defaults are 12,000 x 12,000).
-Numpy only; `xl` and `xxl` write 2.5 and 12 GB through single-threaded zlib
-and take long.
+Numpy only; `xl` and `xxl` write 2.5 and 12 GB through zlib and take long.
 
 Usage: python scripts/torch_make_synthetic.py PRESET [out_root]
-(default out_root: dataset/synthetic_<preset>, dataset/amazon for amazon-raw)
+(default out_root: dataset/synthetic_<preset>, dataset/amazon, dataset/kuairand)
 """
 
+import csv
 import gzip
 import json
 import os
@@ -29,6 +30,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from hidvae_tpu_torch.data.kuairand import LEVEL_COLS, LOG_FILES  # noqa: E402
 from hidvae_tpu_torch.data.synth_tree import ZipfTree, personal_pool  # noqa: E402
 from hidvae_tpu_torch.data.synthetic import build_synthetic  # noqa: E402
 
@@ -41,7 +43,35 @@ PRESETS = {
                   min_seq_len=20, n_cat_feats=18, pool_size=64, seed=42),
 }
 AMAZON_RAW = dict(split="sports", n_items=18_357, n_users=35_598, seed=42)
-N_L1, N_L2, N_L3 = 38, 168, 348  # configs/h_rqvae_amazon.gin's tag_class_counts
+KUAIRAND_RAW = dict(n_videos=20_000, n_users=4_000, seed=42)
+
+
+class SeededTree(ZipfTree):
+    """A ZipfTree of `counts` classes named prefix + index, with n items'
+    classes drawn (assign) and their text: the L1 name 3 times, L2 twice, L3
+    and two item words, a residual hierarchy for the hash text encoder."""
+
+    def __init__(self, rng, n, counts, prefixes, words):
+        super().__init__(*counts)
+        self.names = [[f"{p}{i:0{w}d}" for i in range(c)]
+                      for p, c, w in zip(prefixes, counts, (2, 3, 3))]
+        self.labels = self.assign(rng, n)
+        self.texts = []
+        for v, cls in enumerate(zip(*self.labels)):
+            a, b, c = (names[k] for names, k in zip(self.names, cls))
+            self.texts.append(f"{a} {a} {a} {b} {b} {c} {words[0]}{v} {words[1]}{v % 977}")
+
+    def level(self, k, v):
+        return self.names[k][self.labels[k][v]]
+
+    def by_l1(self):
+        return [np.nonzero(self.labels[0] == c)[0] for c in range(self.n_l1)]
+
+
+def write_csv(path, header, rows):
+    """pandas' to_csv(index=False) bytes."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f, lineterminator="\n").writerows([header, *rows])
 
 
 def write_amazon_raw(root, split, n_items, n_users, seed):
@@ -53,20 +83,19 @@ def write_amazon_raw(root, split, n_items, n_users, seed):
     raw = os.path.join(root, "raw", split)
     os.makedirs(raw, exist_ok=True)
     top = "Sports & Outdoors" if split == "sports" else split.capitalize()
-    l1_names = [f"Cat{i:02d}" for i in range(N_L1)]
-    l2_names = [f"Sub{i:03d}" for i in range(N_L2)]
-    l3_names = [f"Leaf{i:03d}" for i in range(N_L3)]
     brands = [f"Brand{i:03d}" for i in range(400)]
-    item_l1, item_l2, item_l3 = ZipfTree(N_L1, N_L2, N_L3).assign(rng, n_items)
+    # configs/h_rqvae_amazon.gin's tag_class_counts
+    tree = SeededTree(rng, n_items, (38, 168, 348), ("Cat", "Sub", "Leaf"), ("item", "model"))
 
     meta_rows, item2id = [], {}
     for v in range(n_items):
         asin = f"B{v:09d}"
         item2id[asin] = v + 1
-        l1, l2, l3 = l1_names[item_l1[v]], l2_names[item_l2[v]], l3_names[item_l3[v]]
-        row = {"asin": asin, "title": f"{l1} {l1} {l1} {l2} {l2} {l3} item{v} model{v % 977}",
+        l1 = tree.level(0, v)
+        row = {"asin": asin, "title": tree.texts[v],
                "brand": brands[int(rng.randint(len(brands)))],
-               "categories": [[top, l1, l2, l3]], "price": round(float(rng.gamma(2.0, 15.0)), 2)}
+               "categories": [[top, l1, tree.level(1, v), tree.level(2, v)]],
+               "price": round(float(rng.gamma(2.0, 15.0)), 2)}
         r = rng.rand()
         if r < 0.02:
             row["brand"] = None
@@ -87,7 +116,7 @@ def write_amazon_raw(root, split, n_items, n_users, seed):
         for row in meta_rows:
             f.write(repr(row) + "\n")
 
-    items_by_l1 = [np.nonzero(item_l1 == c)[0] for c in range(N_L1)]
+    items_by_l1 = tree.by_l1()
     user2id, lines = {}, []
     for u in range(n_users):
         personal = personal_pool(rng, items_by_l1, n_items, min_pool=12, size=14)
@@ -104,12 +133,69 @@ def write_amazon_raw(root, split, n_items, n_users, seed):
     return raw
 
 
+def write_kuairand_raw(root, n_videos, n_users, seed):
+    """The raw KuaiRand-1K drop of make_synthetic_kuairand.py:38-134, draw
+    for draw: captions of repeated category tokens, 2 % empty and 2 % with
+    fewer than 2 category levels, 500 videos never clicked; users walking
+    small personal pools, 6 % of them inactive, with unclicked impressions;
+    the logs split over the three files by time_ms's percentile rank
+    (rank(pct=True): the average rank over n). Returns the raw dir."""
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    # configs/h_rqvae_kuairand.gin's tag_class_counts
+    tree = SeededTree(rng, n_videos, (37, 168, 353), ("L1_", "L2_", "L3_"), ("vid", "tok"))
+    captions, cats = [], []
+    for v in range(n_videos):
+        r = rng.rand()
+        captions.append((v, "" if r < 0.02 else tree.texts[v]))
+        cats.append((v, tree.level(0, v), *(("UNKNOWN", "") if 0.02 <= r < 0.04 else
+                                           (tree.level(1, v), tree.level(2, v)))))
+    n_all = n_videos + 500
+    for v in range(n_videos, n_all):
+        c3 = int(rng.randint(tree.n_l3))
+        c2 = tree.l3_parent[c3]
+        cats.append((v, *(names[c] for names, c in zip(tree.names, (tree.l2_parent[c2], c2, c3)))))
+        captions.append((v, f"unclicked vid{v}"))
+    write_csv(os.path.join(raw, "kuairand_video_captions.csv"), ("final_video_id", "caption"),
+              captions)
+    write_csv(os.path.join(raw, "kuairand_video_categories.csv"), ("final_video_id", *LEVEL_COLS),
+              cats)
+    write_csv(os.path.join(raw, "video_features_basic_1k.csv"), ("video_id", "video_duration"),
+              zip(range(n_all), rng.randint(5_000, 300_000, n_all).tolist()))
+
+    vids_by_l1, rows = tree.by_l1(), []
+    for u in range(n_users):
+        personal = personal_pool(rng, vids_by_l1, n_videos, min_pool=20, size=18)
+        length = rng.randint(3, 12) if rng.rand() < 0.06 else rng.randint(25, 61)
+        t = 1_649_000_000_000 + int(rng.randint(0, 86_400_000))
+        for _ in range(length):
+            t += int(rng.randint(60_000, 7_200_000))
+            v = int(rng.choice(personal)) if rng.rand() < 0.85 else int(rng.randint(n_videos))
+            rows.append((u, v, t, 1))
+            if rng.rand() < 0.4:
+                t += int(rng.randint(1_000, 60_000))
+                rows.append((u, int(rng.randint(n_videos)), t, 0))
+    _, inv, cnt = np.unique([r[2] for r in rows], return_inverse=True, return_counts=True)
+    last = np.cumsum(cnt)
+    frac = ((2 * last - cnt + 1) / 2)[inv] / len(rows)
+    for name, mask in zip(LOG_FILES, (frac < 0.45, (frac >= 0.45) & (frac < 0.85), frac >= 0.85)):
+        write_csv(os.path.join(raw, name), ("user_id", "video_id", "time_ms", "is_click"),
+                  [r for r, m in zip(rows, mask.tolist()) if m])
+    print(f"wrote {raw}: {n_videos}+500 videos, {n_users} users, {len(rows)} log rows "
+          f"({sum(r[3] for r in rows)} clicks)")
+    return raw
+
+
 def main(preset: str, root: str = None, **overrides) -> str:
     """Write `preset` (its arguments updated by `overrides`) under `root`:
-    <root>/processed/synthetic.npz, or amazon-raw's <root>/raw/<split>/.
-    Returns the file's (the raw directory's) path."""
+    <root>/processed/synthetic.npz, amazon-raw's <root>/raw/<split>/ or
+    kuairand-raw's <root>/raw/. Returns the file's (the raw directory's)
+    path."""
     if preset == "amazon-raw":
         return write_amazon_raw(root or "dataset/amazon", **{**AMAZON_RAW, **overrides})
+    if preset == "kuairand-raw":
+        return write_kuairand_raw(root or "dataset/kuairand", **{**KUAIRAND_RAW, **overrides})
     root = root or f"dataset/synthetic_{preset}"
     path = os.path.join(root, "processed", "synthetic.npz")
     arrays = build_synthetic(**{**PRESETS[preset], **overrides})
@@ -124,6 +210,6 @@ def main(preset: str, root: str = None, **overrides) -> str:
 
 
 if __name__ == "__main__":
-    if not 2 <= len(sys.argv) <= 3 or sys.argv[1] not in [*PRESETS, "amazon-raw"]:
-        sys.exit(f"usage: {sys.argv[0]} {{{','.join(PRESETS)},amazon-raw}} [out_root]")
+    if not 2 <= len(sys.argv) <= 3 or sys.argv[1] not in [*PRESETS, "amazon-raw", "kuairand-raw"]:
+        sys.exit(f"usage: {sys.argv[0]} {{{','.join(PRESETS)},amazon-raw,kuairand-raw}} [out_root]")
     main(*sys.argv[1:])

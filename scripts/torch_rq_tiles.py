@@ -2,18 +2,14 @@
 
     python3 scripts/torch_rq_tiles.py [--parent OLD/rq_assign.cu]
 
-Builds variants of csrc/rq_assign.cu that differ only in `Cfg`'s warps a
-block, d-loop unroll and micro-tile (4 rows x C codes a lane), all nvcc
-builds at once through cuda_build.build_variant, and prints each variant's
-registers and spills. Each variant, and the kernel in --parent if
-given (an earlier rq_assign.cu with the same C entry point), runs at L 3,
-K 256 on B = 8,192 (one sweep chunk, the main path's launch shape) and
-B = 1,048,576, at D 32 (the Amazon width) and D 64 (the ML-32M width): ids
-and qsum are compared bit for bit with the first variant's (the source as
-it stands) and timed, in the order parent, variants, parent. Needs a CUDA
-device and nvcc. Times are the kernel's from 20 launches replayed from a
-CUDA graph (chip_smoke.graph_ms, twice) and, for one call from the host,
-the median of 10 by CUDA events (chip_smoke.median_ms).
+Builds variants of csrc/rq_assign.cu differing in `Cfg`'s warps a block,
+d-loop unroll and micro-tile (4 rows x C codes a lane) at once
+(cuda_build.build_variant), prints their registers and spills, and runs
+each (and --parent, an earlier source with the same C entry point) at L 3,
+K 256, B 8,192 and 1,048,576, D 32 and 64: ids and qsum bit for bit against
+the first variant, timed parent, variants, parent: 20 CUDA-graph launches
+(chip_smoke.graph_ms, twice) and one host call (median of 10 by CUDA
+events). Needs a CUDA device and nvcc.
 """
 import argparse
 import concurrent.futures

@@ -2,20 +2,12 @@
 
     python3 scripts/torch_serve_profile.py
 
-Builds the Amazon-width engine of chip_smoke.py (seeded random weights,
-18,357 seeded items), warms it, then
-
-  * traces REPEATS recommend calls of 32 histories with torch.profiler and
-    reports the device busy time per request (union of kernel intervals),
-    the kernel launches per request and the kernels that take the most time;
-  * times the parts of one request on the host clock, each ending in a
-    synchronize: tokenize + encoder, the beam search (with and without the
-    prefix constraint), the tuple-to-item lookup and a whole recommend.
-
-The device busy share is the busy time per request over the unprofiled
-recommend time; its share of the profiled wall time is printed beside it.
-
-Prints one JSON object as its last line. Needs a CUDA device.
+Builds chip_smoke.py's Amazon-width engine (seeded weights, 18,357 items),
+warms it, traces REPEATS recommend calls of 32 histories (device busy time
+per request, launches, top kernels), and times one request's parts on the
+host clock (tokenize + encoder, the beam with and without the constraint,
+the lookup, a whole recommend). The busy share is busy time over the
+unprofiled recommend. Prints one JSON object last. Needs a CUDA device.
 """
 
 import json

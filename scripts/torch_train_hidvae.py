@@ -1,28 +1,21 @@
-"""Train the stage-1 HiD-VAE tokenizer with the PyTorch port from a gin
-config (counterpart of train_hidvae.py, the same gin surface).
+"""Train the stage-1 HiD-VAE tokenizer with the PyTorch port from a gin config
+(counterpart of train_hidvae.py, the same gin surface). Imports no JAX.
 
     python scripts/torch_train_hidvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides the config's `train.pretrained_hrqvae_path`: a
-checkpoint this trainer saved (`latest`), or a JAX stage-1 checkpoint
-converted where the JAX package is installed with
-`scripts/export_flax_checkpoint.py SRC DST --opt-state`. `--device` picks
-the device (`cuda` unless given). Checkpoints (exported checkpoints with
-the structural model_config and the audited repetition rate, which
-scripts/torch_train_transformer.py --stage1 takes), train.log and plots
-land in `<save_dir_root>/hrqvae_<DATASET>_<time>/`, the rare-tag remap in
-`<save_dir_root>/special_tags_files/rare_tags.npz`. Imports no JAX.
-
-On several GPUs, under torchrun:
+`--resume` overrides `train.pretrained_hrqvae_path`: a `latest` this trainer
+saved, or a JAX checkpoint converted with `scripts/export_flax_checkpoint.py
+SRC DST --opt-state` where JAX is installed. `--device`: `cuda` unless
+given. Checkpoints (with the model_config and the audited repetition rate,
+which torch_train_transformer.py --stage1 takes), train.log and plots land
+in `<save_dir_root>/hrqvae_<DATASET>_<time>/`, the rare-tag remap in
+`<save_dir_root>/special_tags_files/rare_tags.npz`.
 
     torchrun --standalone --nproc-per-node N scripts/torch_train_hidvae.py CONFIG.gin ...
 
-each rank joins the process group over NCCL on cuda:LOCAL_RANK
-(`parallel.mesh.torchrun_group`) and the run is data-parallel over the N
-ranks, each computing its rows of every global batch; the losses,
-parameters and checkpoints are those of one process at the same global
-batch. Rank 0 writes the log, checkpoints and plots. With `--device cpu`
-the ranks join over Gloo on the CPU instead.
+runs data-parallel over N ranks (NCCL on cuda:LOCAL_RANK; Gloo with
+`--device cpu`), with the losses, parameters and checkpoints of one process
+at the same global batch; rank 0 writes the log, checkpoints and plots.
 """
 
 import argparse

@@ -2,21 +2,13 @@
 
     python3 scripts/torch_train_profile.py
 
-For each run of chip_smoke.py's train phase (Amazon widths, seeded random
-weights and histories; short: 20 items, batch 256, dense attention; long:
-400 items = 2,401 tokens, batch 64, the flash kernels), warms the trainer
-up, then
-
-  * times STEPS train steps on the host clock (each ending in a
-    synchronize), as the trainer runs them: sample, crop, tokenize, forward,
-    backward, AdamW;
-  * traces REPEATS steps with torch.profiler and reports per step the
-    device busy time (union of kernel intervals), the kernel launches, the
-    time of the flash kernels and of the matrix products, and the kernels
-    that take the most time.
-
-The device busy share is the busy time per step over the unprofiled step
-time. Prints one JSON object as its last line. Needs a CUDA device.
+For each run of chip_smoke.py's train phase (Amazon widths, seeded; short:
+20 items, batch 256, dense; long: 2,401 tokens, batch 64, flash), after a
+warm-up: STEPS steps on the host clock (each synchronized), then REPEATS
+steps under torch.profiler: device busy time (union of kernel intervals),
+launches, flash and matrix-product time and the top kernels per step. The
+busy share is busy time over the unprofiled step. Prints one JSON object
+last. Needs a CUDA device.
 """
 
 import json

@@ -1,28 +1,18 @@
 """Train the stage-1 plain RQ-VAE tokenizer with the PyTorch port from a gin
-config (counterpart of train_rqvae.py, the same gin surface).
+config (counterpart of train_rqvae.py, the same gin surface). Imports no JAX.
 
     python scripts/torch_train_rqvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides the config's `train.pretrained_rqvae_path`: a
-checkpoint this trainer saved (`checkpoint_N`), or a JAX RQ-VAE checkpoint
-converted where the JAX package is installed with
-`scripts/export_flax_checkpoint.py SRC DST --opt-state`. `--device` picks
-the device (`cuda` unless given). Checkpoints (exported checkpoints with
-the structural model_config and the audited repetition rate, which
-scripts/torch_train_transformer.py --stage1 takes under
-`use_h_tokenizer = False`), train.log and plots land in
-`<save_dir_root>/rqvae_<DATASET>_<time>/`. Imports no JAX.
-
-On several GPUs, under torchrun:
+`--resume` overrides `train.pretrained_rqvae_path`: a `checkpoint_N` this
+trainer saved, or a JAX checkpoint converted with
+`scripts/export_flax_checkpoint.py SRC DST --opt-state`. `--device`: `cuda`
+unless given. Checkpoints (which torch_train_transformer.py --stage1 takes
+under `use_h_tokenizer = False`), train.log and plots land in
+`<save_dir_root>/rqvae_<DATASET>_<time>/`.
 
     torchrun --standalone --nproc-per-node N scripts/torch_train_rqvae.py CONFIG.gin ...
 
-each rank joins the process group over NCCL on cuda:LOCAL_RANK
-(`parallel.mesh.torchrun_group`) and the run is data-parallel over the N
-ranks, each computing its rows of every global batch; the losses,
-parameters and checkpoints are those of one process at the same global
-batch. Rank 0 writes the log, checkpoints and plots. With `--device cpu`
-the ranks join over Gloo on the CPU instead.
+runs data-parallel over N ranks as torch_train_hidvae.py does.
 """
 
 import argparse

@@ -1,28 +1,23 @@
 """Train the stage-2 decoder with the PyTorch port from a gin config
-(counterpart of train_transformer.py, the same gin surface).
+(counterpart of train_transformer.py, the same gin surface). Imports no JAX.
 
     python scripts/torch_train_transformer.py CONFIG.gin \
         [--stage1 EXPORTED_STAGE1] [--resume EXPORTED_CHECKPOINT] [--device cpu]
 
-The port reads exported checkpoints, not Orbax directories: convert a
-stage-1 checkpoint first, where the JAX package is installed, with
-scripts/export_flax_checkpoint.py (add --opt-state to resume a JAX
-decoder run). `--stage1` overrides the config's `train.pretrained_rqvae_path`
-and `--resume` its `train.pretrained_decoder_path` (a `checkpoint_N` that
-this trainer saved, or an export with optimizer state); `--device` picks
-the device (`cuda` unless given). Checkpoints, train.log and plots land in
-`<save_dir_root>/decoder_<DATASET>_<time>/`. Imports no JAX.
-
-On several GPUs, under torchrun:
+The port reads exported checkpoints: convert Orbax ones where JAX is
+installed with scripts/export_flax_checkpoint.py (--opt-state to resume a
+JAX decoder run). `--stage1` overrides `train.pretrained_rqvae_path`,
+`--resume` `train.pretrained_decoder_path` (a `checkpoint_N` of this
+trainer, or an export with optimizer state); `--device`: `cuda` unless
+given. Checkpoints, train.log and plots land in
+`<save_dir_root>/decoder_<DATASET>_<time>/`.
 
     torchrun --standalone --nproc-per-node N scripts/torch_train_transformer.py \
         CONFIG.gin [--model-shards k] ...
 
-each rank joins the process group over NCCL on cuda:LOCAL_RANK
-(`parallel.mesh.torchrun_group`) and trains on a (N / k, k) mesh:
-data-parallel over N / k ranks, the decoder cut over k (`--model-shards`
-overrides `train.n_model_shards`). Rank 0 writes the log, checkpoints and
-plots. With `--device cpu` the ranks join over Gloo on the CPU instead.
+trains on a (N / k, k) mesh (NCCL on cuda:LOCAL_RANK; Gloo with `--device
+cpu`): data-parallel over N / k ranks, the decoder cut over k
+(`--model-shards` overrides `train.n_model_shards`); rank 0 writes.
 """
 
 import argparse

@@ -1,14 +1,10 @@
-"""Ranks of the port's multi-rank tests (tests/test_torch_parallel.py,
-tests/test_torch_parallel_trainer.py, tests/test_torch_stage1_parallel.py,
-tests/test_torch_stage1_parallel_trainer.py).
-
-`run(scenario, world, workdir)` starts `world` processes of this module
-(hidvae_tpu_torch.parallel.dryrun.launch_ranks: the environment torchrun
-gives its ranks, a timeout); each joins a Gloo process group on the CPU,
-runs the scenario on the inputs the test saved in workdir/inputs.pt and
-writes its results to workdir/rank<r>.npz. The functions that build a run
-are shared with the tests, which call them on one process for the
-reference. Imports nothing of JAX."""
+"""Ranks of the port's multi-rank tests (tests/test_torch_parallel*.py,
+tests/test_torch_stage1_parallel*.py). `run(scenario, world, workdir)`
+starts `world` processes of this module (dryrun.launch_ranks, a timeout);
+each joins a Gloo group on the CPU, runs the scenario on workdir/inputs.pt
+and writes workdir/rank<r>.npz. The run builders are shared with the tests'
+one-process references. Imports nothing of JAX.
+"""
 
 import copy
 import os

@@ -1,16 +1,12 @@
-"""Serving a trained model from its artifacts: the port's
-`RetrievalEngine.from_artifacts` on exported checkpoints
-(scripts/export_flax_checkpoint.py) against the JAX package's on the Orbax
-checkpoints they came from, on the CPU.
-
+"""`RetrievalEngine.from_artifacts` of the port on exported checkpoints
+against the JAX package's on the Orbax checkpoints they came from, on the CPU:
   * the converter writes, bitwise, the leaves JAX's lenient restore gives;
   * the tracked synthetic pair (H route) and a tiny plain RQ-VAE pair give
-    equal corpus tables, top-10 items and ID tuples, and scores within
-    SCORE_ATOL;
-  * a stale decoder gin heals from the checkpoint's meta, a legacy meta
-    cannot heal and both packages refuse it, wrong tag counts only warn;
-  * the corpus audit and its collapse guard, the weight bridge's inverse,
-    and the gin reader agree with the JAX package.
+    equal tables, top-10 items and tuples, scores within SCORE_ATOL;
+  * a stale decoder gin heals from the meta, a legacy meta is refused by
+    both, wrong tag counts only warn;
+  * the audit and its collapse guard, the bridge's inverse and the gin
+    reader agree with JAX.
 """
 
 import enum

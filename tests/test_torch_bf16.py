@@ -1,28 +1,17 @@
 """The port's retrieval model against the flax model at bf16 compute, on the
-CPU: loss, logits and every gradient.
+CPU: loss, logits and every gradient, from the same bridged weights and
+batch (`dtype=torch.bfloat16` against `jnp.bfloat16`, both trainers'
+default "bf16"). At 19 tokens both attend densely; at 2,050 the port takes
+its flash route (the plain version here) while JAX on the CPU stays dense
+(attention.py:152-157); the routes differ on padded query rows, so the
+encoder is compared on valid rows, the logits whole.
 
-Both sides hold fp32 parameters and run each product in bfloat16
-(`dtype=torch.bfloat16` against `dtype=jnp.bfloat16`, the default
-`mixed_precision_type="bf16"` of both trainers), from the same bridged
-weights and the same batch. At 19 tokens both take dense attention; at
-2,050 tokens the port's encoder takes its flash route (the plain version on
-the CPU) while JAX on the CPU stays dense (`flash_capable` needs the TPU
-backend, hidvae_tpu/models/attention.py:152-157). The two routes differ on
-padded query rows (the flash route lets them attend the padded keys), so
-the encoder's output is compared on its valid rows only, as
-tests/test_torch_flash.py does; the logits come from the decoder, which
-reads only valid encoder rows, and compare whole.
-
-Tolerance, and why. A bf16 value carries 8 significant bits (relative
-rounding 2^-9 = 2e-3). The two frameworks round at different places: XLA
-fuses elementwise chains and keeps some intermediates in fp32, PyTorch
-rounds each eager op's output, and the plain flash route keeps the softmax
-weights in fp32 where the dense route rounds them. Each of the model's
-dozen rounded layers can move a value by a few bf16 ulps, so the outputs
-agree to a few percent of their scale, not to fp32 rounding. The bounds
-below are the largest error over the largest magnitude of the reference
-array (logits, each gradient leaf) and the loss's relative error; a wrong
-weight, mask or transpose moves these by tens of percent or more.
+Tolerance: bf16 keeps 8 significant bits (2^-9), and the frameworks round
+at different places (XLA fuses chains, PyTorch rounds each op, the flash
+route keeps softmax weights in fp32), so a dozen rounded layers agree to a
+few percent of their scale. Bounds are the largest error over the largest
+magnitude of the reference array and the loss's relative error; a wrong
+weight, mask or transpose moves them by tens of percent.
 """
 
 import jax

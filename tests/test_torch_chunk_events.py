@@ -1,12 +1,10 @@
-"""The trainers' chunked loop against the JAX package: events fire at the
-steps where the JAX trainers fire them.
-
-The JAX trainers run in chunks of max(1, min(log_every, every cadence,
-steps)) steps, log once per chunk and test each cadence only at chunk ends
-(hidvae_tpu/train/transformer.py:536-537, :579-613; hidvae.py:634,
-:708-710). `chunk_events` is that rule; the stage-2 loop runs on it, and a
+"""The trainers' chunked loop against JAX: events fire where the JAX trainers
+fire them. JAX runs chunks of max(1, min(log_every, every cadence, steps))
+steps and tests cadences only at chunk ends (transformer.py:536-537,
+:579-613; hidvae.py:634, :708-710); `chunk_events` is that rule, so a
 100-step run with log_every 20, partial eval 50 and saves every 30 logs,
-evaluates and saves at JAX's steps (evals at 60 and 100, not 50 and 100)."""
+evaluates and saves at JAX's steps (evals at 60 and 100, not 50 and 100).
+"""
 
 import numpy as np
 import pytest

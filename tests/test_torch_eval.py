@@ -1,16 +1,11 @@
-"""The stage-2 generation eval in the port against the JAX package, on the
-CPU:
-  * the metric accumulators give JAX's dicts on the same `actual` / top-k;
-  * `full_eval` over the eval split of the tracked synthetic dataset, the
-    same weights through the bridge, fp32, a ragged last batch: the same
-    hit counts and NDCG within NDCG_TOL;
-  * the one-beam search (`top_k=False`) gives JAX's tuples and scores, with
-    and without the prefix constraint;
-  * Gumbel sampling (`sample=True`), whose noise JAX draws from another
-    PRNG, by distribution: the first digit of one-beam searches is drawn as
-    softmax(logits / T) (chi-square);
-  * the debug metrics of the partial eval and the row padding of a ragged
-    batch.
+"""The stage-2 generation eval in the port against JAX, on the CPU:
+  * the metric accumulators give JAX's dicts;
+  * `full_eval` over the tracked synthetic eval split (bridged weights,
+    fp32, ragged last batch): equal hit counts, NDCG within NDCG_TOL;
+  * the one-beam search gives JAX's tuples and scores, constrained or not;
+  * Gumbel sampling, drawn from another PRNG, by distribution (chi-square
+    on the first digit against softmax(logits / T));
+  * the partial eval's debug metrics and the row padding.
 """
 
 from pathlib import Path

@@ -1,14 +1,10 @@
-"""Flash attention in the port against the `jax` library's flash attention
-references and the JAX package's attention module, on the CPU.
-
-The port's `flash_attention` takes its plain version on CPU tensors; the
-CUDA kernels are held against that plain version on the card
-(tests/test_torch_kernels.py, chip_smoke.py). Here the plain version and the
-per-kernel plain versions are held against the library's `mha_reference`
-(forward) and `jax.grad` through `mha_reference_no_custom_vjp` (gradients),
-which compute the same function in fp32. Tolerance 1e-5 absolute on values
-of order one: both sides are fp32 with the same masking, and differ only in
-summation order.
+"""Flash attention in the port against the `jax` library's references and the
+JAX attention module, on the CPU. The plain version (CPU tensors) and the
+per-kernel plain versions are held to `mha_reference` (forward) and
+`jax.grad` through `mha_reference_no_custom_vjp` (gradients), both fp32 with
+the same masking: 1e-5 absolute on values of order one. The CUDA kernels
+are held to the plain version on the card (tests/test_torch_kernels.py,
+chip_smoke.py).
 """
 
 import jax
@@ -122,15 +118,11 @@ def test_kernel_plain_versions_match_library(causal):
 @pytest.mark.parametrize("b,h,n,causal", [(2, 2, 200, False), (2, 2, 200, True),
                                           (1, 3, 130, True)])
 def test_keyless_rows_match_library(b, h, n, causal):
-    """Query rows with no key of their segment (queries in segments 1-3,
-    keys in 1-2), under a nonzero cotangent. Every logit of such a row is
-    the mask value -0.7 * FLT_MAX: the library's weights are uniform, and
-    its backward recomputes P = exp(s - m) / l = 1/N from m and l kept
-    apart. One logsumexp m + log l rounds back to m there and gives P = 1,
-    N times the library's dQ and dK on those rows. The per-kernel plain
-    versions, given the plain forward's m and l, and the whole
-    flash_attention on the CPU, against jax.grad of the library's
-    reference."""
+    """Rows with no key of their segment (queries in segments 1-3, keys in 1-2) under a nonzero
+    cotangent: every logit is the mask value, the library's weights uniform, and its backward's
+    P = exp(s - m) / l = 1/N from m and l kept apart (one logsumexp rounds back to m: P = 1, N
+    times the library's dQ and dK there). The per-kernel plain versions and flash_attention on
+    the CPU against jax.grad of the library's reference."""
     q, k, v, do, _ = _inputs(b, h, n, False, 5 * n + h)
     rng = np.random.RandomState(n)
     seg_q = rng.randint(1, 4, (b, n)).astype(np.int32)

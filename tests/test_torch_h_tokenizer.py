@@ -1,14 +1,10 @@
-"""The H tokenizer's methods that need no table, on the CPU, against the JAX
-package's HSemanticIdTokenizer on the same weights (small widths):
-  * predict_tags on [B, F] and [B, N, F] features: predictions and
-    confidences;
-  * tokenize_features in every layout (semantic-only, the dedup layout,
-    concatenated and interleaved tags), with and without the target's
-    features and the sequence mask: every field of the tokenized batch;
-  * __call__ without a table takes tokenize_features; with one, the gather,
-    which agrees with tokenize_features on the same items.
-
-Tolerances: predictions and IDs exact; confidences CONF_RTOL."""
+"""The H tokenizer's table-free methods on the CPU against the JAX
+HSemanticIdTokenizer on the same weights: predict_tags on [B, F] and
+[B, N, F] (predictions, confidences); tokenize_features in every layout,
+with and without the target's features and the mask (every field); __call__
+without a table takes tokenize_features, with one the gather, which agrees.
+Tolerances: predictions and IDs exact; confidences CONF_RTOL.
+"""
 
 import jax.numpy as jnp
 import numpy as np

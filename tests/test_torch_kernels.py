@@ -195,16 +195,10 @@ def _segments(b, n, mode, rng):
     (1, 1, 2432, 128, True, torch.float32, "cross"),
 ])
 def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
-    """Forward, dK/dV and dQ against the plain version's output and autograd
-    gradients, under a nonzero cotangent on every row. A query row with no
-    key of its segment must get the library's uniform weights: O is the
-    mean of V over all keys, and the backward, which recomputes
-    P = exp(s - m) / l from the saved m and l, must give P = 1/N there and
-    the plain version's gradients. Such rows are made with and without
-    causal masking: under it the kernels skip the key tiles above a block's
-    diagonal, and must visit them for a row that sees no key, so that it
-    too spreads its weights over all N keys and not over the keys its tiles
-    happened to visit."""
+    """Forward, dK/dV and dQ against the plain version's output and gradients under a nonzero
+    cotangent. A row with no key of its segment must get the library's uniform weights (O the
+    mean of V; the backward's P = exp(s - m) / l = 1/N), with and without causal masking: causal
+    blocks skip the tiles above their diagonal and must visit them for such a row."""
     from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 

@@ -1,24 +1,17 @@
-"""Duplicate-pair mining in the port's stage-1 trainer, on the CPU, against
-the JAX package:
-  * `harvest_duplicate_pairs` equals JAX's on seeded tables: no collision,
-    collisions outside the split, fewer pairs than the pool and more;
-  * `DeviceItemData.sample` with pair rows, fed JAX's draws, gathers JAX's
-    batch;
-  * HRqVae.forward with mined pairs, with and without the mining margin and
-    loss isolation: every loss, the collision rate and every gradient
-    (dropout off on both sides, mixup with JAX's draws);
-  * one JAX mining run of 2 + 2 mini-steps (audits and saves every 2): its
-    checkpoint at 2 carries the pool through the converter; the port's
-    audit of those weights harvests JAX's pool; resumed in the port for 2
-    more, fed JAX's draws on its own pool, it follows JAX's run and its
-    pool after the audit at 4 equals JAX's;
-  * a checkpoint without a usable pool re-seeds the uniform pool JAX seeds
-    (hidvae.py:612-617); the port's 2N run equals its N + a resumed N,
-    bitwise, the pool included.
-
-Tolerances: losses rtol LOSS_RTOL; gradients and parameters REL_TOL of the
-largest entry of each JAX array; a bias before a train-mode BatchNorm as in
-tests/test_torch_stage1_model.py and tests/test_torch_stage1_trainer.py."""
+"""Duplicate-pair mining in the port's stage-1 trainer, on the CPU, against JAX:
+  * `harvest_duplicate_pairs` on seeded tables (no collision, collisions
+    outside the split, fewer and more pairs than the pool);
+  * `DeviceItemData.sample` with pair rows gathers JAX's batch from JAX's draws;
+  * HRqVae.forward with mined pairs, with and without the margin and
+    isolation: losses, the collision rate, gradients (dropout off);
+  * a JAX mining run of 2 + 2 mini-steps: its checkpoint carries the pool
+    through the converter, the port's audit harvests JAX's pool, and resumed
+    for 2 more on JAX's draws it follows JAX's run, pool included;
+  * a checkpoint without a usable pool re-seeds JAX's uniform pool
+    (hidvae.py:612-617); 2N equals N + a resumed N, bitwise.
+Tolerances: losses LOSS_RTOL; gradients and parameters REL_TOL of each JAX
+array's largest entry; BatchNorm-preceding biases as in the stage-1 tests.
+"""
 
 import shutil
 

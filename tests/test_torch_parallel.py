@@ -1,16 +1,14 @@
-"""The port's multi-rank serving path on Gloo ranks on the CPU, against one
-process and against the JAX package:
+"""The port's multi-rank serving path on Gloo CPU ranks, against one process
+and JAX:
   * `stage2_param_layout` cuts the leaves `stage2_param_shardings` shards,
-    along the same axis (a torch nn.Linear weight is the flax kernel
-    transposed), and replicates where a width does not divide the model axis;
-  * on 2 ranks the sharded corpus sweep gives the one-process table bit for
-    bit on both tokenizer routes, and the engine at DP 2 and at TP 2 with
-    `shard_params` serves the one-process engine's items (scores within
-    SCORE_ATOL), which equal the JAX engine's on a (4, 2) mesh with
-    shard_params;
-  * `dryrun_multichip(2)` and `(4)` match the one-process steps of both
-    stages (stage-1 data parallelism: tests/test_torch_stage1_parallel.py).
-Ranks are subprocesses (tests/_torch_parallel_worker.py) with a timeout."""
+    along the same axis, replicated where a width does not divide;
+  * on 2 ranks the sharded sweep gives the one-process table bitwise on
+    both routes, and the engine at DP 2 and at TP 2 (`shard_params`) serves
+    the one-process items (scores within SCORE_ATOL), which equal the JAX
+    engine's on a (4, 2) mesh;
+  * `dryrun_multichip(2)` and `(4)` match the one-process steps.
+Ranks are subprocesses (tests/_torch_parallel_worker.py) with a timeout.
+"""
 
 import jax.numpy as jnp
 import numpy as np

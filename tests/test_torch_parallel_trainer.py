@@ -1,23 +1,18 @@
 """The port's stage-2 trainer on 4 Gloo ranks on the CPU against one process:
-  * train_arrays at DP 4, DP 2 x TP 2 and TP 4 (fp32, dropout on): the
-    logged losses, eval losses and the params after the run equal one
-    process's within the fp32 tolerances below; DP 2 x TP 2 in bf16 within
-    the bf16 ones; a batch of 6 rows, which 4 data ranks do not divide, runs
-    whole on every rank and equals one process too;
-  * one fixed-batch update at DP 2 x TP 2 with dropout: every gradient (the
-    table-cut model: K 15) and param equal one process's, with and without a
-    global-norm clip that engages;
-  * `train` from its gin surface: split_batches=False at DP 2 x TP 2 takes
-    the global batch of 2 x batch_size (loss, partial, full and TEST evals
-    equal one process's at that batch); a TP 2 checkpoint resumed on one
-    process, and a one-process checkpoint resumed at TP 2, each equal the
-    uninterrupted one-process run;
-  * scripts/torch_train_transformer.py under torchrun (2 CPU ranks, Gloo,
-    --model-shards 2) writes the checkpoint of the one-process run;
-  * a JAX run of the trainer with n_model_shards=2 (mesh 4 x 2 on the 8
-    virtual CPU devices), converted with its optimizer state, resumes at
-    DP 2 x TP 2 and its next update agrees with optax's within UPDATE_TOL,
-    as tests/test_torch_trainer.py holds the one-device resume."""
+* train_arrays at DP 4, DP 2 x TP 2 and TP 4 (fp32, dropout on): losses,
+  eval losses and params within the fp32 tolerances; DP 2 x TP 2 in bf16
+  within the bf16 ones; a 6-row batch (not divisible by 4) runs whole;
+* one fixed-batch update at DP 2 x TP 2 with dropout: every gradient (K 15,
+  the table cut) and param, with and without an engaging clip;
+* `train` from its gin: split_batches=False takes the global batch (losses
+  and evals equal one process's); a TP 2 checkpoint resumed on one process
+  and the reverse equal the uninterrupted run;
+* scripts/torch_train_transformer.py under torchrun (2 ranks, --model-shards
+  2) writes the one-process checkpoint;
+* a JAX run at n_model_shards=2 (mesh 4 x 2 on 8 virtual devices), converted
+  with its optimizer state, resumes at DP 2 x TP 2 and its next update
+  agrees with optax's within UPDATE_TOL.
+"""
 
 import os
 import subprocess

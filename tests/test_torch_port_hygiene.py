@@ -127,7 +127,9 @@ def test_port_imports_and_serves_without_jax():
 # (the text encoder is the hash fallback). Every module of the port imports
 # so (PRELUDE), and the smoke's raw phase runs at tiny widths: the P5 drop
 # built from raw files by the stage-1 entry, stage 2 on it, from_artifacts
-# on its test histories, and the MovieLens 32M and 1M builds.
+# on its test histories; a KuaiRand drop built by the plain RQ-VAE and the
+# HiD-VAE entries, stage 2 on the RQ-VAE's checkpoint and from_artifacts;
+# and the MovieLens 32M and 1M builds.
 NO_PANDAS = """
     import sys
     sys.modules["pandas"] = sys.modules["sentence_transformers"] = None
@@ -138,8 +140,18 @@ RAW_SCRIPT = """
         rec = chip_smoke.raw_phase(torch.device("cpu"), work, cfg=tiny_raw,
                                    drop=dict(n_items=300, n_users=80), n=2, steps=2,
                                    movielens=(60, 2000), batch_size=16, stage2=dict(
-                                       batch_size=8, mixed_precision_type='"fp32"'))
-    assert rec == {"stage1": 0, "table": 0, "stage2": 0, "from_artifacts": 0}, rec
+                                       batch_size=8, mixed_precision_type='"fp32"'),
+                                   kuairand_drop=dict(n_videos=400, n_users=60),
+                                   kuairand=dict(
+                                       vae_hidden_dims=[32, 16], vae_embed_dim=8,
+                                       vae_codebook_size=16, batch_size=16, eval_batches=1,
+                                       h_rqvae=dict(rare_tag_threshold=8), decoder=dict(
+                                           batch_size=8, attn_embed_dim=32, attn_heads=4,
+                                           attn_layers=2, decoder_embed_dim=16,
+                                           mixed_precision_type='"fp32"')))
+    zeros = {"stage1": 0, "table": 0, "stage2": 0, "from_artifacts": 0}
+    assert rec == dict(zeros, kuairand=dict(rqvae=0, rqvae_table=0, h_rqvae=0, h_rqvae_table=0,
+                                            stage2=0, from_artifacts=0)), rec
     assert sys.modules["pandas"] is None
 """
 

@@ -1,14 +1,13 @@
-"""The port's raw-file builders against the JAX package's, bitwise (equal
-arrays of equal dtypes, the same tag-index JSON): the hash text encoder and
-its cache; build_amazon with and without tags on tests/test_data_builders.py's
-P5 fixture and on the drop of the JAX scripts/make_synthetic_amazon.py; the
-amazon-raw preset of scripts/torch_make_synthetic.py against that script;
-build_movielens on seeded ML-1M and ML-32M drops (chip_smoke's writer); the
-load_or_build dispatch; and the stage-1 entry on a built drop, its rare-tag
-remap held to the JAX compute_rare_tag_remap. The tests load no text model,
-so both packages take the hash fallback; sentence_transformers is refused at
-import in every test, which gives that fallback without the package's slow
-import (about half a minute where it is installed)."""
+"""The port's raw-file builders against the JAX package's, bitwise (arrays
+and dtypes, the tag-index JSON): the hash text encoder and its cache;
+build_amazon with and without tags on tests/test_data_builders.py's P5
+fixture and on make_synthetic_amazon.py's drop; the amazon-raw preset
+against that script; build_movielens on seeded ML-1M and ML-32M drops
+(chip_smoke's writer); load_or_build; the stage-1 entry on a built drop,
+its rare-tag remap held to JAX's. sentence_transformers is refused at
+import in every test, which gives both packages the hash fallback without
+its slow import.
+"""
 
 import filecmp
 import gzip

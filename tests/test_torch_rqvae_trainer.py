@@ -1,23 +1,16 @@
-"""The port's plain RQ-VAE model and trainer on the CPU, against the JAX
-package:
-  * RqVae.forward against RqVae.__call__ on the same weights, dense and
-    categorical reconstruction, in train (rotation trick, STE) and eval
-    mode: every loss and the gradient of the total for every parameter;
-  * one JAX run of 2 + 2 mini-steps (accumulation 2, the global-norm clip,
-    evals, audits and checkpoints every 2): its checkpoint at 2, converted
-    with its optimizer state, restores bitwise in the port; resumed in the
-    port for 2 more, fed JAX's batch indices, it follows JAX's run: the
-    same logged, evaluated and saved steps, losses, audited repetition
-    rates, parameters and moments;
-  * the port's run of 2N mini-steps equals its N + a resumed N, bitwise,
-    with the Gumbel estimator;
-  * its checkpoint feeds scripts/torch_train_transformer.py --stage1 on the
-    plain route (use_h_tokenizer = False) and from_artifacts; the entry
-    script trains from a gin; the gin surface binds as JAX's.
-
-Tolerances: losses rtol LOSS_RTOL; gradients, parameters and moments
-REL_TOL of the largest entry of each JAX array (its own, not a common
-scale)."""
+"""The port's plain RQ-VAE model and trainer on the CPU, against JAX:
+  * RqVae.forward against RqVae.__call__ (dense and categorical, rotation
+    trick and STE, train and eval): every loss and gradient;
+  * a JAX run of 2 + 2 mini-steps (accumulation 2, clip, evals, audits and
+    saves every 2): its converted checkpoint restores bitwise; resumed for 2
+    more on JAX's batch indices it follows JAX's run;
+  * 2N mini-steps equal N + a resumed N, bitwise;
+  * its checkpoint feeds the stage-2 entry's plain route and from_artifacts;
+    the entry trains from a gin; the gin surface binds as JAX's;
+  * configs/rqvae_ml32m.gin on a built ML-32M corpus is refused, as JAX fails.
+Tolerances: losses LOSS_RTOL; gradients, parameters and moments REL_TOL of
+each JAX array's largest entry.
+"""
 
 import functools
 import inspect
@@ -311,6 +304,28 @@ def test_entry_script_runs_the_gin(dataset_root, tmp_path):
     log = (Path(out["save_dir"]) / "train.log").read_text()
     assert [f"diversity @ save {s}:" in log for s in (2, 4, 6, 8)] == [True, False, True, False]
     assert np.isfinite(out["history"]["total_loss"]).all()
+
+
+def test_ml32m_gin_refuses_built_ml32m_features_as_jax(tmp_path):
+    """configs/rqvae_ml32m.gin declares 768-wide items with no categorical
+    columns, but builds ML-32M (force_dataset_process), whose items are the
+    768-wide title embedding and the genre one-hots. JAX's RqVae takes such
+    an input in its encoder and fails at the reconstruction loss (x_hat is
+    input_dim wide); the port refuses before any step, naming both widths."""
+    import chip_smoke
+
+    jm = JRqVae(input_dim=8, embed_dim=4, hidden_dims=(16,), codebook_size=8, n_layers=2,
+                n_cat_features=0, codebook_mode=JMode.ROTATION_TRICK)
+    with pytest.raises(TypeError, match=r"\(5, 8\), \(5, 10\)"):
+        random_variables(jm, (jnp.ones((5, 10)), 0.2), {"train": False})
+    root = tmp_path / "ml32m"
+    chip_smoke.write_movielens_drop(str(root), "32m", 60, 2000, seed=3)
+    gin = write_gin(tmp_path / "rq.gin", (ROOT / "configs/rqvae_ml32m.gin").read_text(),
+                    vae_hidden_dims="[32, 16]", vae_embed_dim="8", vae_codebook_size="16",
+                    dataset_folder=f'"{root}"', save_dir_root=f'"{tmp_path / "runs"}"')
+    with pytest.raises(ValueError, match=r"ML_32M are 7[6-9]\d wide, but vae_input_dim is 768"):
+        load_script("torch_train_rqvae").main([gin, "--device", "cpu"])
+    assert not list((tmp_path / "runs").glob("*/checkpoint_*"))
 
 
 def test_gin_surface_binds_as_jax():

@@ -1,23 +1,16 @@
-"""The port's stage-1 model against the JAX package on the CPU, on the same
-weights (carried across by the bridge) at small widths:
-  * the HRqVae train forward (rotation trick, focal loss with class counts,
-    label smoothing, mixup with the permutations and lambdas that JAX draws
-    from its "mixup" stream, invalid tags): IDs, every loss term and the
-    gradient of the total with respect to every parameter; the same in
-    eval mode; at bf16 products (AMP) the loss within BF16_RTOL;
-  * BatchNorm statistics and parameters after K_STEPS AdamW steps on the
-    same batches;
-  * predict_tags with JAX's noise handed in;
-  * k-means and the codebook init pass with JAX's draws;
-  * the tag-level reconcile and the rare-tag remap, and the item batches.
-Dropout is off on both sides for exact parity: the port's train forward
-runs without a generator, and flax's Dropout is made the identity.
-
-Tolerances: fp32 loss values rtol LOSS_RTOL; gradients, parameters and
-outputs REL_TOL of the largest entry of each JAX array (its own, not a
-common scale); BatchNorm statistics STATS_ATOL. One exception: a bias before
-a train-mode BatchNorm has an exact gradient of 0, so both sides are held
-below REL_TOL of the largest gradient of its kernel."""
+"""The port's stage-1 model against JAX on the CPU, on bridged weights at
+small widths:
+  * the HRqVae train forward (rotation trick, focal loss, label smoothing,
+    mixup on JAX's draws, invalid tags): IDs, every loss term and every
+    parameter's gradient; eval mode; bf16 products within BF16_RTOL;
+  * BatchNorm statistics and parameters after K_STEPS AdamW steps;
+  * predict_tags with JAX's noise; k-means and the codebook init on JAX's
+    draws; the tag-level reconcile, the rare-tag remap and item batches.
+Dropout is off on both sides (no generator here; flax's Dropout the identity).
+Tolerances: losses LOSS_RTOL; gradients, parameters and outputs REL_TOL of
+each JAX array's largest entry; statistics STATS_ATOL; a bias before a
+train-mode BatchNorm (exact gradient 0) below REL_TOL of its kernel's.
+"""
 
 import flax.linen as fnn
 import jax

@@ -1,13 +1,11 @@
-"""The stage-1 ops of the port against the JAX package on the CPU: Gumbel
-sampling with JAX's draws handed in (and the port's own draws by their
-distribution), every loss of models/losses.py (values, and gradients
-against jax.grad), mixup with JAX's permutation and lambda, and the
-quantizer's train modes (Gumbel-softmax with JAX's noise, STE, rotation
-trick; with codebook normalization and SimVQ).
-
-Tolerances: fp32 loss values rtol LOSS_RTOL; outputs and gradients
-REL_TOL of the largest entry of each JAX array (its own, not a common
-scale), after the IDs are checked equal."""
+"""The port's stage-1 ops against JAX on the CPU: Gumbel sampling on JAX's
+draws (and the port's own by distribution), every loss of models/losses.py
+(values, gradients against jax.grad), mixup on JAX's draws, and the
+quantizer's train modes (Gumbel-softmax, STE, rotation trick; normalized
+codebooks and SimVQ).
+Tolerances: losses LOSS_RTOL; outputs and gradients REL_TOL of each JAX
+array's largest entry, after the IDs are checked equal.
+"""
 
 import jax
 import jax.numpy as jnp

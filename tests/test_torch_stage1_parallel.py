@@ -1,25 +1,20 @@
-"""Stage-1 data parallelism, term by term: each term of the HiD-VAE loss that
-couples the batch, computed on 2 and 4 Gloo ranks on the CPU from each
-rank's rows of one seeded global batch, against one process on the whole
-batch:
-  1. the projector's BatchNorm (alone, and inside a TagProjector with
-     dropout): the global mean and biased variance, the running statistics;
-  2. the InfoNCE tag alignment;
-  3. the uniqueness loss over planted ID collisions;
-  4. the tag loss (focal with class-count weights, and label-smoothed CE
-     with its KL term), with mixup over the whole batch and invalid targets;
-  5. the whole train loss with mined pairs at the head of the batch and
-     isolation (dropout, Gumbel noise and mixup on): every metric.
-Each is held on its value, which every rank must hold bit for bit, and on
-its gradients: each rank's rows of every input's, in rank order, and every
-parameter's summed over the ranks (the trainers' gradient all-reduce). At 4
-ranks the batch is 18 rows, which 4 ranks do not divide (parts of 4 and 5
-rows), and the 6 mined rows straddle ranks 0 and 1. The gathers' backward
-modes are decided here: `test_gather_backward_modes` shows the other mode
-off by the world size. Also: a stage-1 gin that binds n_model_shards is
-refused, as the JAX trainers take no model-axis option (there is no
-stage-1 tensor parallelism).
-Ranks are subprocesses (tests/_torch_parallel_worker.py) with a timeout."""
+"""Stage-1 data parallelism term by term: each batch-coupled term of the
+HiD-VAE loss on 2 and 4 Gloo ranks on the CPU, from each rank's rows of one
+seeded global batch, against one process on the whole batch:
+  1. the projector's BatchNorm (alone, and in a TagProjector with dropout):
+     global mean and biased variance, running statistics;
+  2. the InfoNCE tag alignment;  3. the uniqueness loss over planted
+     collisions;  4. the tag loss (focal with class weights, label-smoothed
+     CE with its KL term), with mixup and invalid targets;
+  5. the whole train loss with mined pairs and isolation (dropout, Gumbel
+     noise, mixup on): every metric.
+Each value must be bitwise equal on every rank; gradients are held per
+rank's input rows and per parameter summed over the ranks (the trainers'
+all-reduce). At 4 ranks the 18-row batch splits 4 / 5 and the 6 mined rows
+straddle ranks 0 and 1. `test_gather_backward_modes` shows the other
+gather mode off by the world size. A stage-1 gin binding n_model_shards is
+refused, as in JAX. Ranks are subprocesses (tests/_torch_parallel_worker.py).
+"""
 
 import copy
 

@@ -1,24 +1,18 @@
-"""The stage-1 trainers data-parallel on 2 and 4 Gloo ranks on the CPU,
-against one process at the same global batch, and against the JAX package:
-  * the HiD-VAE trainer (duplicate-pair mining with isolation, dropout,
-    Gumbel noise, mixup and test-time augmentation on, 2 mini-steps a
-    update) and the RQ-VAE trainer (a global-norm clip that engages, after
-    the gradient all-reduce) at DP 2 and DP 4: the logged losses, eval
-    metrics and audits, the newest audit's table, the mining pool, the
-    params and batch statistics; at DP 4 the 6 mined rows straddle ranks 0
-    and 1, and an RQ-VAE batch of 6 rows, which 4 ranks do not divide, runs
-    whole on every rank;
-  * split_batches=False at DP 2 with batch_size 8 is the one-process run at
-    16;
-  * a DP 2 checkpoint resumed on one process, and a one-process checkpoint
-    resumed at DP 2, each equal the uninterrupted one-process run;
-  * scripts/torch_train_hidvae.py under torchrun on 2 CPU ranks writes the
-    one-process run's checkpoint;
-  * the JAX HiD-VAE trainer on the 8 virtual CPU devices (its own
-    data-parallel run, batch sharded 8 ways) and the port at DP 2 from the
-    same weights and batches (dropout off, no mixup, no augmentation, the
-    rotation trick) agree within the tolerances tests/test_torch_stage1_trainer.py
-    holds the one-process port to JAX."""
+"""The stage-1 trainers on 2 and 4 Gloo ranks on the CPU against one process
+at the same global batch, and against JAX:
+  * HiD-VAE (mining with isolation, dropout, Gumbel, mixup, augmentation,
+    2 mini-steps an update) and RQ-VAE (an engaging clip after the
+    all-reduce) at DP 2 and 4: losses, eval metrics, audits, the table, the
+    pool, params and statistics; at DP 4 the mined rows straddle ranks and
+    a 6-row RQ-VAE batch runs whole;
+  * split_batches=False at DP 2 and batch 8 is the one-process run at 16;
+  * a DP 2 checkpoint resumed on one process and the reverse equal the
+    uninterrupted run; scripts/torch_train_hidvae.py under torchrun writes
+    the one-process checkpoint;
+  * the JAX HiD-VAE trainer on 8 virtual devices and the port at DP 2 from
+    the same weights and batches (dropout off, no mixup or augmentation)
+    agree within tests/test_torch_stage1_trainer.py's tolerances.
+"""
 
 import os
 import subprocess

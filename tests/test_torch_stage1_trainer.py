@@ -1,25 +1,20 @@
-"""The port's stage-1 trainer on its gin surface, on the CPU, against the
-JAX package:
-  * the optimizer (tag-head groups with layer-specific rates, gradient
-    accumulation over 2 mini-steps, cosine schedule, clip and plateau
-    scale) against optax after 4 mini-steps: the state's names as flax
-    names them, its values mid-accumulation, and the parameters;
-  * a JAX stage-1 run of 4 mini-steps, converted with its optimizer state,
-    restores bitwise in the port; resumed in the port for 4 more, it follows
-    JAX's own resume: the same logged, evaluated and saved steps, losses,
-    eval metrics and audited repetition rates, parameters and batch
-    statistics within the stated tolerances (dropout off, no mixup, no
-    augmentation, the port fed JAX's batch indices);
-  * the port's run of 2N mini-steps equals its N + a resumed N, bitwise,
-    with dropout, mixup and test-time augmentation on;
-  * the gin surface binds as JAX's, and the port's checkpoint feeds the
-    stage-2 entry script and from_artifacts (mining: tests/test_torch_mining.py).
-
-Tolerances: losses and eval metrics rtol LOSS_RTOL; parameters and
-moments REL_TOL of the largest entry of each JAX array (its own, not a
-common scale); batch statistics STATS_ATOL. One exception: a bias before a
-train-mode BatchNorm has a gradient of 0 up to rounding, which Adam scales
-to a step of up to the learning rate, so it is held to that."""
+"""The port's stage-1 trainer on its gin surface, on the CPU, against JAX:
+  * the optimizer (tag-head groups, accumulation over 2 mini-steps, cosine,
+    clip, plateau) against optax after 4 mini-steps: state names, values
+    mid-accumulation, parameters;
+  * a JAX run of 4 mini-steps, converted with its optimizer state, restores
+    bitwise in the port; resumed for 4 more it follows JAX's own resume:
+    steps, losses, eval metrics, audits, parameters and batch statistics
+    (dropout off, no mixup or augmentation, JAX's batch indices);
+  * the port's 2N mini-steps equal N + a resumed N, bitwise, with dropout,
+    mixup and augmentation on;
+  * the gin surface binds as JAX's; the checkpoint feeds the stage-2 entry
+    and from_artifacts (mining: tests/test_torch_mining.py).
+Tolerances: losses and metrics LOSS_RTOL; parameters and moments REL_TOL of
+each JAX array's largest entry; batch statistics STATS_ATOL; a bias before
+a train-mode BatchNorm (zero gradient up to rounding, which Adam scales to
+a step of up to the rate) to that step.
+"""
 
 import functools
 import inspect

@@ -95,20 +95,18 @@ def test_load_or_build_synthetic_as_jax(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["AMAZON", "ML_1M", "ML_32M", "KUAIRAND"])
 def test_raw_datasets_are_refused(dataset, tmp_path):
-    """Read when present; missing or forced without raw files, refused: the
-    builders of AMAZON and MovieLens name the raw files they lack (they
-    build from raw files: tests/test_torch_raw_builders.py), KUAIRAND's
-    refusal names the path and the ROADMAP item that ports its builder."""
+    """Read when present; missing or forced without raw files, refused: each
+    builder names the raw files it lacks (they build from raw files:
+    tests/test_torch_raw_builders.py, tests/test_torch_kuairand.py)."""
     ds = processed.RecDataset[dataset]
     path = processed.processed_path(str(tmp_path), ds, "beauty")
     lacks = {"AMAZON": r"P5 data drop", "ML_1M": r"ML-1M raw data not found",
              "ML_32M": r"ML-32M raw data not found",
-             "KUAIRAND": rf"{Path(path).name}.*queue 1 item 1\.2b, KuaiRand"}[dataset]
-    forced = NotImplementedError if dataset == "KUAIRAND" else FileNotFoundError
+             "KUAIRAND": r"KuaiRand raw data not found"}[dataset]
     with pytest.raises(FileNotFoundError, match=lacks):
         processed.load_or_build(str(tmp_path), ds, "beauty")
     build_synthetic(n_items=50, n_users=5).save(path)
     assert_same(processed.load_or_build(str(tmp_path), ds, "beauty"),
                 processed.ProcessedArrays.load(path))
-    with pytest.raises(forced, match=lacks):
+    with pytest.raises(FileNotFoundError, match=lacks):
         processed.load_or_build(str(tmp_path), ds, "beauty", force_process=True)

@@ -1,17 +1,12 @@
-"""Stage-2 training in the port against the JAX package, on the CPU.
-
-The same numpy inputs and weights go through both packages:
-  * a train step (fp32, deterministic forward): loss and every gradient
-    leaf against `jax.value_and_grad` of the JAX model, through the bridge's
-    path map, once at a short context (dense attention on both sides) and
-    once at a context of 2,050 tokens, where the port's encoder takes its
-    flash route (the plain version on the CPU) and the JAX model on the CPU
-    its dense path;
-  * parameters after 3 AdamW updates against the JAX optimizer
-    (`make_optimizer`, optax.adamw under `inverse_sqrt_schedule`), with and
-    without the global-norm clip;
-  * the schedule around its warmup boundary, the window crops from shared
-    uniforms (exactly), dropout and the Dense init by distribution.
+"""Stage-2 training in the port against JAX, on the CPU, from the same numpy
+inputs and weights:
+  * a train step (fp32, deterministic): loss and every gradient against
+    `jax.value_and_grad`, at a short context (dense on both sides) and at
+    2,050 tokens (the port's flash route, its plain version here; JAX dense);
+  * parameters after 3 AdamW updates against `make_optimizer` (optax.adamw
+    under `inverse_sqrt_schedule`), with and without the clip;
+  * the schedule at its warmup boundary, window crops from shared uniforms,
+    dropout and the Dense init by distribution.
 """
 
 import jax

@@ -1,21 +1,17 @@
 """The port's stage-2 trainer on its gin surface, on the CPU:
-  * remat: loss and every gradient equal the plain forward's with dropout
-    on (dense route and the flash route's plain version at 2,050 tokens);
-    without the generator replay they differ;
-  * checkpoints: save and restore are bitwise (params, Adam moments, counts,
-    step), and the optimizer state carries the names flax gives the JAX
-    optimizer's;
-  * resume: train 4 equals train 2, save, resume, train 2, bitwise (the
-    JAX package's tests/test_resume.py config, warmup 3: the schedule's
-    count must resume);
-  * a JAX run's checkpoint, converted with its optimizer state, restores
-    bitwise in the port, and one more AdamW update agrees with optax's;
-  * the gin surface binds as the JAX trainer's, a stale resume gin heals
-    from the meta, a sem_id_dim mismatch and force_dataset_process on a
-    raw dataset without its raw files are refused, n_model_shards > 1 on one process fails as JAX's make_mesh
-    does, and `train` defaults to the card;
-  * the plain RQ-VAE route trains, and the entry script's checkpoint serves
-    through `from_artifacts` as the trained model does.
+* remat: loss and gradients equal the plain forward's with dropout on
+  (dense, and the flash route's plain version at 2,050 tokens), and differ
+  without the generator replay;
+* checkpoints save and restore bitwise, optimizer state under flax's names;
+* resume: 4 steps equal 2, save, resume, 2 (tests/test_resume.py's config,
+  warmup 3), bitwise;
+* a converted JAX checkpoint restores bitwise and its next update agrees
+  with optax's;
+* the gin surface binds as JAX's, a stale resume gin heals from the meta; a
+  sem_id_dim mismatch, force_dataset_process without raw files and
+  n_model_shards > 1 on one process are refused; `train` defaults to the card;
+* the plain RQ-VAE route trains, and the entry's checkpoint serves through
+  `from_artifacts` as the trained model does.
 """
 
 import enum

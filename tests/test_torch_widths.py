@@ -1,14 +1,11 @@
-"""Widths the port's CUDA kernels are built for, on the CPU.
-
-The flash kernels are built for head widths 64 and 128 and `rq_assign` for
-code widths 32, 64 and 128. The JAX rule admits any multiple of 64 to the
-flash route, and the Pallas `rq_assign` takes any width, so on the CPU the
-port runs every width (its plain versions) as JAX does, and on a CUDA device
-it refuses a width without a kernel before the first step, through plain
-check functions that take the width and the device type. Here: those
-functions with "cuda", that the module, the trainer and the tokenizer call
-them before any work, and the plain versions at the newly built widths
-against JAX.
+"""Widths the port's CUDA kernels are built for, on the CPU: flash at head
+widths 64 and 128, `rq_assign` at code widths 32, 64 and 128. JAX admits
+any multiple of 64 to the flash route and any width to its Pallas
+`rq_assign`, so on the CPU the port runs every width (the plain versions),
+and on CUDA it refuses a width without a kernel before the first step.
+Here: the check functions with "cuda", that the module, the trainer and the
+tokenizer call them before any work, and the plain versions at the built
+widths against JAX.
 """
 
 import jax
