@@ -1,18 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the CUDA kernels (one nvcc each, at once) and holds each against its
-plain PyTorch version at the paths' shapes; then drives the paths through
-their entry points on seeded weights and data at the configs' widths
-(PERF.md section 4): serve, artifacts, train, stage1, trainer, multi,
-mining, rqvae, synthetic, raw (P5 Sports and KuaiRand-1K built from raw
-files, trained and served; MovieLens built without pandas) and scale.
-Launch counts are set to 0 just before each path and read just after;
-outputs are held to a plain version or to the run they must equal. Every
-phase prints its start and end; the line before the last is the kernels'
-JSON, the last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
-device. Imports nothing of JAX; reads only the port's sources, the gins it
-cuts line by line and what it writes.
-"""
+Builds the CUDA kernels and holds each against its plain version at the
+paths' shapes, then drives the paths through their entry points on seeded
+weights and data at the configs' widths (PERF.md section 4): serve,
+artifacts, train, stage1, trainer, multi, mining, rqvae, synthetic, raw,
+tools and scale, launch counts reset before each path. Prints the kernels'
+JSON on the line before the last and {"ok": true, "device": {...}} last.
+Exits non-zero without a CUDA device; imports nothing of JAX."""
 
 import inspect
 import json
@@ -80,10 +74,12 @@ KERNEL_CASES = (  # (B, D, L, K)
     (8192, 32, 4, 256),      # the mining audit's launches (L 4): 24 x 8,192 + 3,392 rows
     (3392, 32, 4, 256),
     (640, 32, 3, 256),       # tokenize_features of the serve batch: 32 x 20 rows
+    (500, 16, 3, 64),        # the view tools' sweeps (D 16, K 64), and 8,192 rows of it
+    (8192, 16, 3, 64),
 )
 TIMED_CASES = ((8192, 32, 3, 256), (1048576, 32, 3, 256), (8192, 64, 3, 256),
                (5665, 64, 3, 256), (8192, 32, 4, 256), (3392, 32, 4, 256),
-               (640, 32, 3, 256))
+               (640, 32, 3, 256), (500, 16, 3, 64), (8192, 16, 3, 64))
 # Codes made identical: their nearest rows must get the first, as argmin does.
 DUPLICATE_CODES = (3, 130, 255)
 TIE_RTOL = 1e-5
@@ -395,8 +391,9 @@ def kernel_phase(device):
                 ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=qerr, shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]", **plan)
         del x, cbs, ids, qsum, ids_ref, qsum_ref
-    main, big, ml_a, ml_b, mine_a, mine_b, tok = (c[:3] for c in TIMED_CASES)
+    main, big, ml_a, ml_b, mine_a, mine_b, tok, view_a, view_b = (c[:3] for c in TIMED_CASES)
     return dict(records[big], at_main_path_launch=records[main],
+                at_view_launches=[records[view_a], records[view_b]],
                 at_ml32m_launches=[records[ml_a], records[ml_b]],
                 at_mining_launches=[records[mine_a], records[mine_b]],
                 at_tokenize_launch=records[tok])
@@ -1941,6 +1938,7 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
         raise AssertionError("mining: the pool did not survive the resume bitwise")
     throughput = stage1_throughput(full, gin, device, settings, timed)
     record = dict(launches={"2N run": launches["rq_assign"], **runs, "table": table_launches},
+                  checkpoint=latest(full),
                   resume_gaps=gaps, throughput=throughput, collision_rate=rates,
                   pool_colliding=colliding, repetition_rate=hist["repetition_rate"])
     del full, half, resumed, model
@@ -2333,12 +2331,10 @@ def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_ST
 
 
 def kuairand_part(device, root, n, steps, size, bindings):
-    """The three KuaiRand gins on the kuairand-raw drop (`size`; `bindings`
-    of every gin and, under a gin's name, of that one): the RQ-VAE entry
-    builds it and trains n mini-steps, the HiD-VAE entry builds its split
-    and trains n, stage 2 `steps` steps on the RQ-VAE checkpoint,
-    from_artifacts serves; each table against a plain sweep. Returns the
-    rq_assign launches."""
+    """The three KuaiRand gins on the kuairand-raw drop (`bindings` of
+    every gin, or under a gin's name): the RQ-VAE and HiD-VAE entries build and
+    train n mini-steps, stage 2 `steps` steps, from_artifacts serves; tables
+    against a plain sweep. Returns the rq_assign launches."""
     from hidvae_tpu_torch.train import hidvae as s1
     from hidvae_tpu_torch.train import rqvae as rv
 
@@ -2391,6 +2387,182 @@ def kuairand_part(device, root, n, steps, size, bindings):
     r2, out["stage2"] = stage2_built("kuairand stage 2", g, steps, device, n_items)
     out["from_artifacts"] = serve_built("kuairand", g, rq_ckpt, r2["saved_paths"][-1], a, device)
     return out
+
+
+# ---- inspection tools: tag completion, the view scripts, diag, attribution
+
+TOOLS_HOLES = 0.1            # share of the known tag slots punched at each level
+TOOLS_LLM_ANSWERS = 500      # the loopback LLM answers this many, then refuses (503)
+TOOLS_BLANK_TITLES = 0.05
+DIAG_N = 50_000
+ATTRIB = dict(iters=20, warmup=3, beam_iters=10)  # 5 calls left the optimizer's share in the noise
+
+
+def answer_server(truth, vocabs, answers=None):
+    """A loopback chat server answering from `truth` (the row from the item
+    text), refusing (503) after `answers`. Returns (server, rows answered)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    rows, lock = [], threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            row = int(json.loads(body["messages"][1]["content"])["item"].split()[-1])
+            with lock:
+                ok = answers is None or len(rows) < answers
+                if ok:
+                    rows.append(row)
+            if not ok:
+                self.send_error(503)
+                return
+            text = json.dumps({f"level_{l + 1}": vocabs[l][truth[row, l]] for l in range(3)})
+            data = json.dumps({"choices": [{"message": {"content": text}}]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, rows
+
+
+def llm_run(lt, truth, holed, feats, emb, vocabs, journal, answers=None):
+    """complete_tags_llm through an LLMPool on an answer_server. Returns
+    (tags, rows answered, seconds)."""
+    server, rows = answer_server(truth, vocabs, answers)
+    pool = lt.LLMPool([lt.LLMEndpoint(f"http://127.0.0.1:{server.server_address[1]}/v1")],
+                      max_retries=2, retry_delay=0)
+    t0 = time.perf_counter()
+    try:
+        out = lt.complete_tags_llm(pool, [f"video {i}" for i in range(len(truth))], holed,
+                                   vocabs, emb, feats, progress_path=journal)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return out, rows, time.perf_counter() - t0
+
+
+def tag_completion(root):
+    """On the raw phase's KuaiRand corpus with seeded holes: the
+    deterministic completion, the LLM route (a server that dies, a resumed
+    run) and fill_empty_titles. Returns the record."""
+    import logging
+
+    from hidvae_tpu_torch.data import llm_tags as lt
+    from hidvae_tpu_torch.data.processed import ProcessedArrays
+
+    a = ProcessedArrays.load(processed_path(os.path.join(root, "kuairand"), RecDataset.KUAIRAND,
+                                            "beauty"))
+    truth, emb, feats = a.tags_indices.astype(np.int32), a.tags_emb, a.item_features
+    rng = np.random.RandomState(SEED + 61)
+    holes = (rng.rand(*truth.shape) < TOOLS_HOLES) & (truth >= 0)
+    holed = np.where(holes, -1, truth)
+    t0 = time.perf_counter()
+    out = lt.complete_tags_hierarchical(feats, holed, emb)
+    seconds = time.perf_counter() - t0
+    h = lt.build_tag_hierarchy(holed)
+    if not np.array_equal(out[~holes], truth[~holes]):
+        raise AssertionError("tags: completion changed a known slot")
+    for l, parents in ((1, "l1_to_l2"), (2, "l2_to_l3")):
+        for i in np.nonzero(holes[:, l])[0]:
+            kids = h[parents].get(int(out[i, l - 1]))
+            if kids and out[i, l] not in kids:
+                raise AssertionError(f"tags: row {i} level {l} outside its parent's children")
+        if ((out[:, l - 1] >= 0) & (out[:, l] < 0)).any():
+            raise AssertionError(f"tags: a level {l} slot left empty under a parent")
+    rec = dict(items=len(truth), holes=holes.sum(0).tolist(),
+               rows_missing_l1=int(holes[:, 0].sum()), seconds=seconds,
+               recovered=float((out[holes] == truth[holes]).mean()))
+    print(f"  tags: {rec['holes']} holes by level in {rec['items']} items "
+          f"({rec['rows_missing_l1']} rows without L1) completed in {seconds:.3f} s; "
+          f"{100 * rec['recovered']:.2f} % recovered exactly; hierarchy held")
+
+    # The LLM route on the rows whose truth is complete.
+    keep = (truth >= 0).all(1)
+    truth, holed, feats, emb = truth[keep], holed[keep], feats[keep], emb[keep]
+    vocabs = [[f"l{l}_{t}" for t in range(truth[:, l].max() + 1)] for l in range(3)]
+    journal = os.path.join(root, "llm_progress.jsonl")
+    needs = set(np.nonzero((holed < 0).any(1))[0].tolist())
+    answers = min(TOOLS_LLM_ANSWERS, len(needs) // 2)
+    quiet = logging.getLogger(lt.__name__)
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)  # the dead server's refusals
+    try:
+        _, first, s1 = llm_run(lt, truth, holed, feats, emb, vocabs, journal, answers)
+        done = lt.load_completion_progress(journal)
+        out, second, s2 = llm_run(lt, truth, holed, feats, emb, vocabs, journal)
+    finally:
+        quiet.setLevel(level)
+    print(f"  llm: {len(needs)} rows to complete; the server died after {len(first)} "
+          f"answers ({len(done)} journaled, {s1:.2f} s); the resumed run asked {len(second)} "
+          f"in {s2:.2f} s ({len(second) / s2:.1f} requests/s); output equals the truth "
+          f"{np.array_equal(out, truth)}")
+    if not (set(done) == set(first) and len(first) == answers
+            and set(second) == needs - set(done) and len(second) == len(set(second))
+            and np.array_equal(out, truth)):
+        raise AssertionError("llm: journal, resume or output wrong")
+    blank = np.random.RandomState(SEED + 62).rand(len(truth)) < TOOLS_BLANK_TITLES
+    texts = ["" if b else f"video {i}" for i, b in enumerate(blank)]
+    titles = lt.fill_empty_titles(texts, truth, vocabs)
+    want = [" ".join(vocabs[l][t] for l, t in enumerate(truth[i])) if b else texts[i]
+            for i, b in enumerate(blank)]
+    print(f"  fill_empty_titles: {int(blank.sum())} blank titles filled {titles == want}")
+    if titles != want:
+        raise AssertionError("fill_empty_titles: wrong titles")
+    return dict(rec, llm_rows=len(needs), llm_answered_before_death=len(first),
+                llm_resumed_requests=len(second), llm_requests_per_s=len(second) / s2,
+                titles_filled=int(blank.sum()))
+
+
+@phase("tools")
+def tools_phase(device, root, diag=None, diag_n=DIAG_N, view_args=(), attrib=ATTRIB):
+    """Tag completion on the raw phase's KuaiRand corpus; torch_view.py's
+    subcommands (tables against a plain sweep); torch_diag_mining.py on
+    `diag` (checkpoint, root), else on the view run's; --attrib. Returns the
+    record."""
+    card = device.type == "cuda"
+    rec = {"tags": tag_completion(root)}
+    view, work = load_script("torch_view"), os.path.join(root, "view")
+    args = ["--root", os.path.join(work, "ds"), "--out", os.path.join(work, "out"), *view_args]
+    launches = {}
+    for name in ("train-hrqvae", "train-rqvae"):
+        rq.rq_assign.launches = 0
+        t0 = time.perf_counter()
+        out = view.main([name, *args])
+        seconds, launches[name] = time.perf_counter() - t0, rq.rq_assign.launches
+        audits = len(out["result"]["history"]["repetition_rate"])
+        hold_table(f"{name}: {seconds:.2f} s, rq_assign launches {launches[name]} (D 16, 500 "
+                   f"rows; {audits} audits + the table)", out["corpus"][:, :3],
+                   out["result"]["model"], out["items"].item_features, device, 8192)
+        if launches[name] != (audits + 1 if card else 0):
+            raise AssertionError(f"{name}: rq_assign launched {launches[name]} times")
+        if name == "train-hrqvae":
+            diag = diag or (out["result"]["saved_paths"][-1], os.path.join(work, "ds"))
+        del out
+    t0 = time.perf_counter()
+    view.main(["processed", os.path.join(root, "kuairand"), "--dataset", "KUAIRAND",
+               "--split", "beauty"])
+    print(f"  processed (KuaiRand): {time.perf_counter() - t0:.2f} s")
+
+    rq.rq_assign.launches = 0
+    d = load_script("torch_diag_mining").diag(*diag, n=diag_n, device=device)
+    launches["diag"] = rq.rq_assign.launches
+    n = len(d["ids_eval"])
+    if launches["diag"] != (-(-n // 1000) if card else 0) or d["rates"][
+            "pairs equal under eval-mode ids"] != 1.0:
+        raise AssertionError(f"diag: {launches['diag']} launches, rates {d['rates']}")
+    print(f"  diag: {n} items, rq_assign launches {launches['diag']}, rates {d['rates']}")
+    rep = load_script("torch_train_profile").attrib(
+        device, trace_dir=os.path.join(root, "trace"), **attrib)
+    rep["trace_bytes"] = os.path.getsize(rep["trace"])
+    print(f"  attrib: {json.dumps(rep)}")
+    return dict(rec, launches=launches, diag=d["rates"], attrib=rep)
 
 
 # ---- multi-GPU: stage-1 data parallelism
@@ -2871,14 +3043,15 @@ def main():
         trainer_rec = trainer_phase(device, vae, feats, stage1)
         multi_rec = multi_phase(device, vae, feats, stage1,
                                 stage1_root=os.path.join(work, "stage1"))
-    with tempfile.TemporaryDirectory() as work:
-        mining_rec = mining_phase(device, work)
-    with tempfile.TemporaryDirectory() as work:
-        rqvae_rec = rqvae_phase(device, work)
-    with tempfile.TemporaryDirectory() as work:
-        synthetic_launches = synthetic_phase(device, work)
-    with tempfile.TemporaryDirectory() as work:
-        raw_launches = raw_phase(device, work)
+    with tempfile.TemporaryDirectory() as mining_work:
+        mining_rec = mining_phase(device, mining_work)
+        with tempfile.TemporaryDirectory() as work:
+            rqvae_rec = rqvae_phase(device, work)
+        with tempfile.TemporaryDirectory() as work:
+            synthetic_launches = synthetic_phase(device, work)
+        with tempfile.TemporaryDirectory() as work:
+            raw_launches = raw_phase(device, work)
+            tools_rec = tools_phase(device, work, diag=(mining_rec.pop("checkpoint"), mining_work))
     scale_recs = scale_phase(device)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
@@ -2886,7 +3059,7 @@ def main():
         max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
         graph_ms=rec["graph_ms"], shape=rec["shape"],
-        at_main_path_launch=rec["at_main_path_launch"],
+        at_main_path_launch=rec["at_main_path_launch"], at_view_launches=rec["at_view_launches"],
         at_ml32m_launches=rec["at_ml32m_launches"],
         at_mining_launches=rec["at_mining_launches"], at_tokenize_launch=rec["at_tokenize_launch"],
         launches_from_artifacts=art_launches,
@@ -2906,6 +3079,7 @@ def main():
         launches_synthetic=synthetic_launches, launches_kuairand=raw_launches.pop("kuairand"),
         launches_raw=raw_launches,
         launches_scale={r["n_items"]: r["rq_assign_launches"] for r in scale_recs},
+        launches_tools=tools_rec["launches"],
     )]
     for name, r in flash_recs.items():
         kernels.append(dict(
@@ -2916,7 +3090,7 @@ def main():
             launches_multi_long_dp_per_rank=[rr[name] for rr in multi_rec["long"]["launches"]],
             **r))
     for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec),
-                    ("multi", multi_rec)):
+                    ("multi", multi_rec), ("tools", tools_rec)):
         print(f"  {name} record: {json.dumps(r)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

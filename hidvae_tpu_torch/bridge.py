@@ -1,22 +1,11 @@
-"""Weight bridge: flax parameters, flattened to numpy, <-> PyTorch state_dicts,
-and the exported checkpoint that carries them. The flax side is a flat
-`dict[str, np.ndarray]` keyed by flax path ("encoder/dense_0/kernel"), plus
-`batch_stats` alike; nothing of JAX is imported.
-
-An exported checkpoint is a directory: `arrays.npz` (flat leaves under
-"/"-joined keys: "params/...", "batch_stats/...", "step" and "opt_state/..."
-where present) and `meta.json` ({model_config, metrics}), written from Orbax
-by scripts/export_flax_checkpoint.py, from a module by `save_export`, and by
-the trainers' `save_checkpoint` (train/common.py).
-
-The port's modules carry flax's names, so a path maps by rule:
-  .../kernel        -> .../weight, transposed ([in, out] -> [out, in])
-  .../scale         -> .../weight            (LayerNorm, BatchNorm)
-  .../embedding     -> .../weight            (nn.Embed -> nn.Embedding), except
-  quantize_i/embedding stays `embedding`     (the codebook parameter)
-  batch_stats mean/var -> running_mean/running_var (+ num_batches_tracked)
-Everything else (bias, RMSNorm weight, bos_emb) keeps its name.
-"""
+"""Weight bridge: flax parameters flattened to numpy (keyed by flax path,
+"encoder/dense_0/kernel") <-> PyTorch state_dicts, and the exported
+checkpoint that carries them: a directory of `arrays.npz` ("params/...",
+"batch_stats/...", "step", "opt_state/...") and `meta.json`
+({model_config, metrics}), written by scripts/export_flax_checkpoint.py,
+`save_export` or the trainers. A flax `kernel` is the torch `weight`
+transposed; `scale` and nn.Embed's `embedding` are `weight` (the codebook
+keeps `embedding`); batch_stats mean/var are running_mean/running_var."""
 
 from typing import Dict, Mapping, Optional
 
@@ -79,10 +68,8 @@ def load_flax_weights(module: torch.nn.Module, params, batch_stats=None):
 
 
 def flax_named_parameters(module: nn.Module):
-    """(flax path, parameter, transposed) for every parameter of `module`, in
-    module order: nn.Linear weights are `kernel`, transposed; LayerNorm and
-    BatchNorm weights `scale`; nn.Embedding weights `embedding`; every other
-    parameter keeps its name. The optimizer's moments are named by it."""
+    """(flax path, parameter, transposed) for every parameter of `module`,
+    in module order."""
     out = []
     for name, m in module.named_modules():
         prefix = name.replace(".", "/") + "/" if name else ""
@@ -100,12 +87,7 @@ def flax_named_parameters(module: nn.Module):
 
 def state_dict_to_flax(module: nn.Module):
     """The inverse of `flax_to_state_dict`, by module type: (params,
-    batch_stats), flat numpy dicts keyed by flax path. nn.Linear weights
-    become `kernel`, transposed; LayerNorm and BatchNorm weights `scale`;
-    nn.Embedding weights `embedding`; BatchNorm running statistics
-    batch_stats `mean` and `var` (num_batches_tracked is dropped); every
-    other parameter (bias, RMSNorm weight, codebook `embedding`, bos_emb)
-    keeps its name."""
+    batch_stats) flat numpy dicts keyed by flax path."""
     params, stats = {}, {}
     for path, p, transpose in flax_named_parameters(module):
         arr = p.detach().cpu().numpy()

@@ -1,80 +1,38 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels with
 // segment-id masking, for head_dim 64 and 128 and fp32 or bf16 inputs.
 //
-// Replaces the three Pallas TPU kernels that the JAX package reaches through
-// `_flash_self_attention` (hidvae_tpu/models/attention.py:75) and the `jax`
-// library's `flash_attention` (jax/experimental/pallas/ops/tpu/
-// flash_attention.py, jax 0.9.0):
+// Replaces the three Pallas TPU kernels the JAX package reaches through
+// hidvae_tpu/models/attention.py:75 (jax 0.9.0's
+// jax/experimental/pallas/ops/tpu/flash_attention.py):
 //   flash_fwd      <- _flash_attention_kernel      (:331, pallas_call :758)
 //   flash_bwd_dkv  <- _flash_attention_dkv_kernel  (:796, pallas_call :1121)
 //   flash_bwd_dq   <- _flash_attention_dq_kernel   (:1146, pallas_call :1456)
-// The semantics are the library's: logits = (q k^T) * sm_scale, plus
-// -0.7 * FLT_MAX where the segment ids differ (or, when causal, where the key
-// comes after the query); softmax in fp32. The forward saves the library's
-// two row statistics, the row max m of the logits and the row sum
-// l = sum exp(logit - m); the backward takes di = rowsum(dO * O) and
-// recomputes P = exp(logit - m) * (1 / l), as the library's backward bodies
-// do (:900-904, :1226-1232). Keeping m and l apart matters on a query row
-// with no key of its segment: every logit there is -0.7 * FLT_MAX, and one
-// logsumexp m + log l would round back to m and give P = 1 instead of 1/N.
-// The backward kernels take 1/l, which the wrapper computes once per row.
+// Semantics are the library's: logits (q k^T) * sm_scale, plus
+// -0.7 * FLT_MAX across segments (or, causal, above the diagonal); softmax
+// in fp32. The forward saves the row max m and row sum l; the backward takes
+// di = rowsum(dO * O) and recomputes P = exp(logit - m) * (1 / l)
+// (:900-904, :1226-1232). m and l stay apart: on a row with no key of its
+// segment one logsumexp would round back to m and give P = 1, not 1/N.
 //
-// Bound. At the long-history training shape (B 64, H 8, N 2432, Dh 64) one
-// [N, N] x [N, 64] product per head is 2*B*H*N^2*Dh = 3.9e11 operations; the
-// forward does two, dK/dV four, dQ three. The bytes are q, k, v, O (and dO,
-// dQ, dK, dV) once each, about 160 MB apiece in bf16: some 0.2 ms at
-// 3.35 TB/s against 0.8 ms of bf16 tensor-core work for the forward. So
-// arithmetic bounds every kernel, by a factor of four or more.
+// Arithmetic bounds every kernel at the long-history shape (B 64, H 8,
+// N 2432, Dh 64: 2*B*H*N^2*Dh = 3.9e11 operations a product).
 //
-// Two designs live here.
+// * bf16 (`flash_*_tc_kernel`): mma.sync m16n8k16 with fp32 accumulators
+//   (mma_bf16.cuh). Each warp owns 16 rows and the full width of every
+//   product on them; the streamed side comes through shared memory,
+//   double-buffered by cp.async, XOR-swizzled for ldmatrix (.trans for the
+//   right-hand operands). The softmax runs in registers and P (P^T, dS,
+//   dS^T) is rounded to bf16 as the A operand where it lies, as the library
+//   rounds it (:471, :900, :918, :1256). Exponentials are
+//   exp2((x - m) * log2 e), so the mask value is never scaled to -inf; a
+//   warp block whose mask is all 0 skips the per-element mask.
+// * fp32 (all three): FFMA, 256 threads a 64-row tile, a 4 x 4 sub-tile
+//   each, operands transposed in shared memory for 16-byte loads.
 //
-// * bf16 (`flash_fwd_tc_kernel`, `flash_bwd_dkv_tc_kernel`,
-//   `flash_bwd_dq_tc_kernel`): tensor cores, mma.sync m16n8k16 on bf16
-//   operands with fp32 accumulators (helpers in mma_bf16.cuh). Each warp
-//   owns 16 rows of the block's tile (queries in the forward and dQ, keys in
-//   dK/dV) and the full width of every product on them, so no sum crosses
-//   warps. The streamed side (K and V in the forward and dQ, Q and dO in
-//   dK/dV) comes through shared memory in bf16, double-buffered by cp.async:
-//   the copy of tile j+1 runs under the products on tile j, with one barrier
-//   per tile. Tiles are XOR-swizzled by 16-byte chunk, so ldmatrix reads them
-//   without bank conflicts; V, dO, Q and K as right-hand operands of P.V,
-//   P^T.dO, dS^T.Q and dS.K come through ldmatrix.trans, so nothing is
-//   transposed in shared memory. The softmax runs in registers: row max and
-//   sum per thread, combined over the four threads of a row with two
-//   shfl_xor; the S accumulator, rounded to bf16, is the A operand of P.V as
-//   it lies, so P never touches shared memory. dK/dV computes S^T = K Q^T
-//   and dP^T = V dO^T, so P^T and dS^T are A operands in the same way; dQ
-//   computes S = Q K^T and dP = dO V^T, so dS is. As the library does (jax
-//   flash_attention.py :471, :900, :918, :1256), P, P^T, dS^T and dS are
-//   rounded to bf16 before their products; the row sums use P before
-//   rounding.
-//   Masking keeps the library's additive -0.7 * FLT_MAX after sm_scale, and
-//   exponentials are exp2((x - m) * log2 e): log2 e multiplies a difference,
-//   never the mask value itself (-0.7 * FLT_MAX * 1.4427 overflows to -inf,
-//   and a fully masked row would then give exp(-inf + inf) = NaN instead of
-//   the library's uniform weights; with x - m = 0 there, P = 1/l = 1/N).
-//   Where the mask is 0 on a warp's whole 16-row block (every key exists,
-//   shares the rows' one segment and lies at or below the diagonal: most
-//   blocks of a long history), the forward and dQ skip the per-element mask
-//   and fold scale and log2 e into one FMA on the raw product; m is then a
-//   real logit, so nothing overflows. The work stays dense: no block is
-//   skipped by segment.
-//
-// * fp32 (all three kernels): fp32 FFMA, one block of 256 threads owning a
-//   64-row tile, each thread a 4 x 4 sub-tile of every 64 x 64 product;
-//   operands in shared memory, the first products' operands stored
-//   transposed ([d][row], rows padded to 68 floats) so their loads are
-//   16-byte and aligned. fp32 products stay fp32, as the JAX package's are.
-//
-// Both: causal blocks skip the tiles above the diagonal, unless a query row
-// there sees no key of its segment (`keyless`): such a row gets the plain
-// version's uniform weights over all keys, whatever the tile sizes. Ragged
-// tails (rows or keys past N) are masked in the block, so N need not be a
-// multiple of 64. No tile is skipped by segment: the work is dense.
-//
-// Each C entry point launches on the given stream and returns
-// cudaGetLastError(); the Python wrapper (hidvae_tpu_torch/ops/
-// flash_attention.py) allocates every output and raises on a non-zero code.
+// Both: causal blocks skip the tiles above the diagonal unless a row there
+// sees no key (`keyless`), which gets the plain version's uniform weights.
+// Ragged tails are masked, so N need not be a multiple of 64. Each C entry
+// point launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

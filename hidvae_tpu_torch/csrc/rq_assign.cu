@@ -5,47 +5,24 @@
 // For every row of x [B, D] and every level l of codebooks [L, K, D]:
 //   dist_k = (||r||^2 + ||c_k||^2) - 2 r.c_k     (fp32 FMA, no TF32)
 //   id     = argmin_k dist_k                      (first index on ties)
-//   qsum  += c_id;  r -= c_id                     (lookup by gather)
-// Outputs ids [B, L] int32 and qsum [B, D] fp32.
+//   qsum  += c_id;  r -= c_id
+// Outputs ids [B, L] int32 and qsum [B, D] fp32. fp32 arithmetic bounds it
+// (2*B*K*D*L operations against ~4*B*(2D + L) bytes); it stays FFMA, as the
+// JAX kernel computes at Precision.HIGHEST: TF32 would flip near ties.
 //
-// What bounds it: at B = 1M, D = 32, L = 3, K = 256 the distance products are
-// 2*B*K*D*L = 51.5 GFLOP against ~280 MB of traffic, so fp32 arithmetic
-// (67 TFLOP/s on an H100 SXM outside the tensor cores) sets the bound, not
-// memory. It stays fp32 FFMA, as the JAX kernel computes at
-// Precision.HIGHEST: TF32 products round differently and flip near ties.
-//
-// Design: threads over rows x codes, everything the arithmetic touches in
-// shared memory, and no block barrier in the steady state.
-// * Codebooks are staged once per block, transposed to d-major [D][KP],
-//   with their squared norms computed once: all L levels when they fit
-//   (D 32 at K 256: 3 x 33 KB), each level's copy committed as its own
-//   cp.async group so that level l+1 arrives while the first rows compute
-//   level l. Where they do not fit beside the row buffers (D 64 and 128 at
-//   K 256), one level at a time is streamed into a single slot for each
-//   level of each round of row tiles, and the warps then meet at barriers
-//   at each level.
-// * Each warp owns a tile of 16 rows at a time and loops over tiles (a
-//   persistent grid of one block a SM: 16 warps at D 32, 12 at D 64, 4 at
-//   D 128). The next tile's rows are copied by cp.async, transposed to
-//   d-major [D][16 + 4], while this one computes; the residual lives there
-//   and is updated in place.
-// * A lane computes a 4 x 8 micro-tile of dot products (4 rows of its lane
-//   group, 8 codes) with independent accumulators; per d, one 16-byte shared
-//   load of the residual feeds 8 FMAs per row and two of codes feed 4 per
-//   code. The 8 lanes of a row group sweep the level's codes in passes of 64.
-// * Argmin: each lane keeps a running (dist, k) per row over its codes,
-//   visited in increasing k with a strict <; the 8 lanes that share a row
-//   then reduce on (dist, k) lexicographically by warp shuffles, so the
-//   smallest index wins an exact tie, as jnp.argmin does. One lane per row
-//   then updates the residual and its squared norm once per level. A warp
-//   that waits on that serial step leaves the SM to the other warps.
-// * qsum = ((0 + c_id0) + c_id1) + ..., the reference's order, from the
-//   codes in shared memory, written coalesced: at the end of the tile when
-//   all levels are resident, else added to the output row after each level.
-// Each distance is the reference's expression in the reference's order: the
-// dot and both norms are fmaf chains over d = 0 .. D-1 from 0, then
-// (x2 + c2) - 2 * dot, so ids and qsum are bitwise those of a kernel that
-// gives each row one thread.
+// Design: a persistent grid of one block a SM (16 warps at D 16 and 32, 12
+// at D 64, 4 at D 128), no block barrier in the steady state.
+// * Codebooks are staged once a block, transposed to [D][KP] with their
+//   norms: all levels when they fit, each level its own cp.async group;
+//   else one level at a time streamed into one slot (barriers each level).
+// * Each warp owns 16 rows at a time; the next tile's rows arrive by
+//   cp.async, transposed, while this one computes.
+// * A lane computes a 4 x 8 micro-tile of dot products; the 8 lanes of a
+//   row group sweep the codes in passes of 64 and reduce (dist, k)
+//   lexicographically by shuffles, so the first index wins an exact tie.
+// * qsum = ((0 + c_id0) + c_id1) + ..., the reference's order.
+// Each distance is the reference's expression in the reference's order, so
+// ids and qsum are bitwise those of a kernel that gives each row a thread.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -65,7 +42,10 @@ namespace {
 // run time).
 template <int D>
 struct Cfg {
-  static constexpr int WARPS = D == 32 ? 16 : (D == 64 ? 12 : 4);  // warps a block, at most
+  // D 16: 16 warps as at D 32, whose row buffers are twice as large; more
+  // warps would fit in shared memory, but 512 threads leave each its 128
+  // registers under __launch_bounds__(THREADS, 1), and 24 would spill.
+  static constexpr int WARPS = D <= 32 ? 16 : (D == 64 ? 12 : 4);  // warps a block, at most
   static constexpr int NG = 2;        // C = 4 * NG codes per thread and pass
   static constexpr int UNROLL = 8;    // d steps unrolled (a full unroll spills)
   static constexpr int THREADS = 32 * WARPS;
@@ -427,6 +407,7 @@ extern "C" int rq_assign_launch(const void* x, const void* codebooks, void* ids,
   float* qs = static_cast<float*>(qsum);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dim) {
+    case 16: return (int)launch<16>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
     case 32: return (int)launch<32>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
     case 64: return (int)launch<64>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
     case 128: return (int)launch<128>(xf, cf, id, qs, n_rows, n_levels, n_embed, s);
@@ -439,6 +420,7 @@ extern "C" int rq_assign_launch(const void* x, const void* codebooks, void* ids,
 // for a width without an instantiation.
 extern "C" long long rq_assign_min_smem(int dim, int n_levels, int n_embed) {
   switch (dim) {
+    case 16: return (long long)smem_bytes<16>(1, 1, n_levels, padded_codes<16>(n_embed));
     case 32: return (long long)smem_bytes<32>(1, 1, n_levels, padded_codes<32>(n_embed));
     case 64: return (long long)smem_bytes<64>(1, 1, n_levels, padded_codes<64>(n_embed));
     case 128: return (long long)smem_bytes<128>(1, 1, n_levels, padded_codes<128>(n_embed));
@@ -459,6 +441,7 @@ extern "C" int rq_assign_plan(int dim, int n_levels, int n_embed, int* slots, in
   bool resident = false;
   size_t bytes = 0;
   switch (dim) {
+    case 16: bytes = plan<16>(n_levels, n_embed, max_smem, &resident, warps); break;
     case 32: bytes = plan<32>(n_levels, n_embed, max_smem, &resident, warps); break;
     case 64: bytes = plan<64>(n_levels, n_embed, max_smem, &resident, warps); break;
     case 128: bytes = plan<128>(n_levels, n_embed, max_smem, &resident, warps); break;

@@ -1,11 +1,6 @@
 """Amazon P5 builder (Beauty / Sports / Toys), a copy of
-hidvae_tpu/data/amazon.py. It reads <root>/raw/<split>/: sequential_data.txt
-(`user item item ...`, 1-based), datamaps.json ({"item2id": {asin: id}}) and
-meta.json.gz (one python literal per line); it writes the leave-one-out
-train / eval / test histories, the item sentences' embeddings, the seed-42
-95/5 item split and, tagged, exactly 5 tags per item with per-level
-vocabularies (processed/tag_index_<split>.json) and tag-string embeddings.
-"""
+hidvae_tpu/data/amazon.py, reading <root>/raw/<split>/: sequential_data.txt,
+datamaps.json and meta.json.gz."""
 
 import gzip
 import json

@@ -1,17 +1,8 @@
 """KuaiRand-1K builder (counterpart of hidvae_tpu/data/kuairand.py): its
-pandas recipe step for step in numpy and the csv module. <root>/raw/ holds
-the click logs (LOG_FILES; missing ones skipped), kuairand_video_captions.csv
-and kuairand_video_categories.csv. Clicks of users with at least
-min_user_interactions (max_users drawn over the value_counts order); the
-videos they clicked with a non-blank caption and 2 of 3 category levels
-(captions left-joined with categories); max_videos drawn per level-1 name;
-leave-one-out histories in (user, time) order; BGE caption embeddings (the
-hash fallback without the model), tag vocabularies and tag-name embeddings.
-
-Fields are typed as pd.read_csv types them: pandas' NA strings are missing;
-a column of integers is int64 (float64 with a missing field), of numbers
-float64, of true/false bool, else strings; a category is its value's string.
-"""
+pandas recipe step for step in numpy and the csv module, over
+<root>/raw/'s click logs, captions and categories. Fields are typed as
+pd.read_csv types them (`Column`): NA strings missing, int64 (float64 with
+a blank), float64, bool or strings."""
 
 import csv
 import json

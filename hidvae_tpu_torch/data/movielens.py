@@ -1,15 +1,7 @@
-"""MovieLens 1M / 32M builders (counterpart of hidvae_tpu/data/movielens.py):
-its pandas recipe in numpy and the csv module. <root>/raw/ holds movies.dat,
-ratings.dat and optionally users.dat ('::', latin-1) for ML-1M, movies.csv
-and ratings.csv for ML-32M. Movies, users and ratings under 5 ratings
-(counted on the unfiltered ratings) are dropped; items are the title's
-embedding then the genre one-hots (sorted genres of the kept movies);
-histories are windows over each user's ratings in numpy's quicksort order of
-the timestamps (sort_values), grouped by user in a stable sort, train where
-the target's timestamp is at most the 0.8 quantile; ML-1M users get [age
-rank, gender column 0, occupation rank] over their sorted values
-(get_dummies); the item split is Amazon's.
-"""
+"""MovieLens 1M / 32M builders (counterpart of
+hidvae_tpu/data/movielens.py): its pandas recipe in numpy and the csv
+module: quicksort timestamp order then a stable user sort, counts on the
+unfiltered ratings, get_dummies' ranks."""
 
 import csv
 import os

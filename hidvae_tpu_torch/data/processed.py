@@ -1,13 +1,7 @@
 """Processed datasets (counterpart of hidvae_tpu/data/processed.py): the
-`.npz` of a (dataset, split), the per-item corpus view (with the stage-1
-item batches) and the user-sequence view. Plain numpy. The stage-2 trainer
-reads the train split (cropped on the device when `subsample`) and walks
-the eval and test splits in order (`SeqData.iter_eval_batches`,
-processed.py:315). `load_or_build` builds and saves a dataset whose file is
-missing, or with `force_process`, as JAX does: the seeded synthetic corpus
-(data/synthetic.py), and from raw files Amazon P5 (data/amazon.py),
-MovieLens 1M / 32M (data/movielens.py) and KuaiRand-1K (data/kuairand.py).
-"""
+`.npz` of a (dataset, split), the item view and the user-sequence view.
+`load_or_build` builds a missing file (or with `force_process`) from a seed
+or from raw files, as JAX does."""
 
 import os
 from dataclasses import dataclass
@@ -99,12 +93,10 @@ def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
 
 def load_or_build(root: str, dataset: RecDataset, split: str = "",
                   force_process: bool = False) -> ProcessedArrays:
-    """The processed arrays of (dataset, split) under `root`: the file is read
-    unless `force_process`; else they are built and saved there
-    (processed.py:117-149). The synthetic corpus has no named splits (its
-    split is dropped) and is built by `build_synthetic()` at its defaults;
-    AMAZON from <root>/raw/<split or "beauty">/; ML_1M, ML_32M and KUAIRAND
-    (whatever the split) from <root>/raw/."""
+    """The processed arrays of (dataset, split) under `root`, read, or built
+    and saved (processed.py:117-149): SYNTHETIC by `build_synthetic()`, AMAZON
+    from <root>/raw/<split or "beauty">/, ML_1M, ML_32M and KUAIRAND from
+    <root>/raw/."""
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
@@ -198,12 +190,8 @@ class ItemData:
 
 
 class SeqData:
-    """User-sequence view: histories, their targets and users, of one split.
-
-    `seq_split` in {"train", "eval", "test"} selects the three-way split;
-    when None, `is_train` selects train or eval. `subsample` marks a split
-    whose windows the trainer random-crops (the crop itself runs on the
-    device, train/device_data.py)."""
+    """User-sequence view of one split: `seq_split` in {"train", "eval",
+    "test"}, or `is_train`; `subsample` marks windows the trainer crops."""
 
     def __init__(
         self,

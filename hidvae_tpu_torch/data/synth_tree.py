@@ -1,9 +1,5 @@
-"""Compounding Zipf category trees for the seeded raw-data generators (a copy
-of hidvae_tpu/data/synth_tree.py): each L2 class has one L1 parent
-(arange % n_l1), each L3 one L2 parent; an item draws its L1 class from a
-Zipf law, then an L2 child of it from a steeper one, then an L3 child from a
-steeper one still, so that some classes of every level stay above the
-rare-tag threshold."""
+"""Compounding Zipf category trees for the seeded raw-data generators (a
+copy of hidvae_tpu/data/synth_tree.py)."""
 
 from typing import Sequence
 

@@ -1,11 +1,6 @@
 """Seeded synthetic corpus (counterpart of hidvae_tpu/data/synthetic.py):
-the same draws from one `np.random.RandomState(seed)` in the same order, so
-each call returns the JAX package's arrays bit for bit. Items are unit-norm
-mixtures over an L-level cluster tree (optionally `n_cat_feats` 0/1 columns
-after), an item's level-l tag its level-l cluster, 95 % train; each user
-walks a pool of a preferred level-0 cluster (train, eval: items[-2], test:
-items[-1]). Plain numpy.
-"""
+the same draws of one RandomState in the same order, so each call returns
+the JAX package's arrays bit for bit."""
 
 from typing import Sequence
 

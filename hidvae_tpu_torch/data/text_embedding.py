@@ -1,10 +1,7 @@
 """Text embeddings for the dataset builders (a copy of
-hidvae_tpu/data/text_embedding.py): sentence-t5-xl or bge-base-zh-v1.5 (768
-wide) through sentence_transformers where a local copy loads, else the hash
-fallback, bit for bit JAX's. Nothing downloads (HF_HUB_OFFLINE is set
-first); HIDVAE_REQUIRE_TEXT_MODEL=1 makes the fallback an error. Cache files
-are named as JAX names them, so either package reads the other's.
-"""
+hidvae_tpu/data/text_embedding.py): sentence_transformers where a local
+copy loads (HF_HUB_OFFLINE set first), else the hash fallback bit for bit;
+cache files named as JAX names them."""
 
 import hashlib
 import logging

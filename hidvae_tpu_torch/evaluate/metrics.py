@@ -1,10 +1,5 @@
-"""Retrieval metrics: hit@K and NDCG@K per ID digit and per prefix (a copy
-of hidvae_tpu/evaluate/metrics.py; the port never imports the JAX package).
-
-Metric keys are the JAX package's and the reference's: `h@{k}_slice_:{i+1}`,
-`h@{k}_pos_{i}`, `ndcg@{k}_slice_:{i+1}`, `ndcg@{k}_pos_{i}`. Plain numpy:
-every batch reduces with vectorized math; the inputs are host arrays.
-"""
+"""Retrieval metrics hit@K and NDCG@K per ID digit and per prefix, under
+the JAX package's keys (a copy of hidvae_tpu/evaluate/metrics.py), numpy."""
 
 from collections import defaultdict
 

@@ -1,14 +1,8 @@
 """Multi-head attention (counterpart of hidvae_tpu/models/attention.py).
-
-Fused QKV projection for self-attention, split Q / KV for cross-attention,
-softmax in fp32. The JAX rule (attention.py:152-162) picks the route: dense
-padded masking, or, for self-attention with a head width a multiple of 64
-over at least 2048 tokens (or use_flash=True), `flash_attention` (CUDA
-kernels on the card, the plain version on the CPU; the rule's "backend is
-TPU" becomes "always"). On CUDA the route refuses head widths other than 64
-and 128 before its first launch (`check_head_dim`). `dtype` is flax's
-compute dtype: projections in it, parameters fp32, softmax fp32.
-"""
+The JAX rule (attention.py:152-162) picks the route: dense masking, or for
+self-attention over at least 2048 tokens with a head width a multiple of
+64, `flash_attention` (CUDA kernels on the card, refusing widths other
+than 64 and 128; the plain version on the CPU)."""
 
 from typing import Optional
 
@@ -98,12 +92,9 @@ def make_attention_mask(q_len: int, kv_len: int, *, causal: bool = False,
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with fused projections; cross-attention with fewer key rows than
-    query rows takes the grouped (beam) path.
-
-    use_flash: None = auto (flash self-attention at >= 2048 tokens when the
-    head width is a multiple of 64); True/False forces it on or off where it
-    is capable. Cross-attention always takes the dense path."""
+    """MHA with fused projections; `use_flash` None picks the route by the
+    rule, True / False forces it; cross-attention is always dense, grouped
+    over beams."""
 
     def __init__(self, d_in: int, d_out: int, num_heads: int, cross_attn: bool = False,
                  qkv_bias: bool = False, dtype=torch.float32,

@@ -1,9 +1,7 @@
 """Semantic-ID and user-ID embedders (counterpart of
-hidvae_tpu/models/embedder.py). One table partitioned by (type, layer):
-semantic slot = layer * K + id; tag slot = K * n_sem + layer * 1000 + id;
-the last row is padding, whose embedding is zeroed at lookup. Under tensor
-parallelism (parallel/mesh.py) the table's rows are cut over the model
-ranks: each looks up the rows it holds and the lookups are summed."""
+hidvae_tpu/models/embedder.py): one table partitioned by (type, layer), the
+last row padding; under tensor parallelism its rows are cut over the model
+ranks and the lookups summed."""
 
 import torch
 from torch import nn

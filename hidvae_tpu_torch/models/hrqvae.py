@@ -1,29 +1,16 @@
 """HiD-VAE core model (counterpart of hidvae_tpu/models/hrqvae.py).
 
-RqVae plus, per tag-supervised level i, a TagPredictor over the level-0..i
-code vectors and a TagProjector for the level's tag embedding. `forward` is
-the JAX module's loss: reconstruction, quantizer losses, InfoNCE alignment,
-the focal tag loss and the uniqueness loss (alignment and uniqueness weights
-applied twice, as the reference: PARITY.md deviation 1), and with
-`n_mined_pairs` > 0 the mined-pair term (deviation 18): the first
-2 * n_mined_pairs rows are harvested pairs, pair-adjacent, whose eval-mode
-IDs find the pairs that still collide, pushed apart in encoder space;
-`mined_loss_isolation` gives every other loss the remaining rows only.
+RqVae plus, per tag-supervised level, a TagPredictor and a TagProjector.
+`forward` is the JAX module's loss: reconstruction, quantizer losses,
+InfoNCE alignment, the focal tag loss and the uniqueness loss (PARITY.md
+deviation 1) and, with `n_mined_pairs`, the mined-pair term (deviation 18)
+on the first 2 * n_mined_pairs rows. Dropout and Gumbel noise draw from
+`generator`, mixup from `mixup(level, batch)`. `dtype` (AMP) runs the MLP
+and tag-head products in bf16 (deviation 10).
 
-Train mode is the `train` flag; dropout and Gumbel noise draw from
-`generator` (None: no dropout), mixup from `mixup(level, batch)`.
-TagProjector's BatchNorm is flax's (biased batch variance, running averages
-at momentum 0.99). `dtype` (AMP) runs the MLP and tag-head products in bf16;
-quantizer, norms and losses stay fp32 (deviation 10).
-
-On a batch split over data ranks (`rows`, parallel/collectives.py `Rows`)
-each rank runs its rows through the row-local parts, draws every random
-number of the global batch and keeps its rows, normalizes with the global
-BatchNorm statistics, and computes each coupled term (InfoNCE, the tag loss
-with mixup, uniqueness, mined pairs) on the gathered batch; row-local means
-are all-reduced sums over the global count. Every rank holds the global
-loss, and its gradients summed over the ranks are the global batch's.
-"""
+With `rows` (a batch split over data ranks) each rank runs its rows through
+the row-local parts and computes the coupled terms on the gathered batch,
+so its gradients summed over the ranks are the global batch's."""
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -55,13 +42,9 @@ BATCH_NORM_MOMENTUM = 0.99  # flax.linen.BatchNorm default (torch's 0.01)
 
 
 class FlaxBatchNorm(nn.BatchNorm1d):
-    """flax.linen.BatchNorm on [B, C] in fp32, keeping nn.BatchNorm1d's
-    parameters and buffers. Train mode normalizes with the batch mean and
-    the biased variance mean(x^2) - mean(x)^2 (clipped at 0) and updates
-    running = 0.99 * running + 0.01 * batch statistic; eval mode uses the
-    running statistics. With `rows` the statistics are the global batch's:
-    the ranks' sums of x and x^2 all-reduced, their gradient summed over the
-    ranks (each rank normalizes its own rows with them)."""
+    """flax.linen.BatchNorm on [B, C] in fp32 (biased variance, running
+    averages at momentum 0.99). With `rows` the statistics are the global
+    batch's, all-reduced."""
 
     def forward(self, x, train: bool = False, rows: Optional[Rows] = None):
         x = x.float()
@@ -333,12 +316,9 @@ class HRqVae(RqVae):
                          generator: Optional[torch.Generator] = None,
                          mixup: Optional[Callable] = None,
                          rows: Optional[Rows] = None) -> HRqVaeOutput:
-        """Residual quantization with per-level tag supervision. In train mode
-        the quantizers run their estimator (Gumbel draws from `generator`),
-        dropout draws from `generator` and `mixup(level, batch)` gives each
-        level's (permutation, lambda). With `rows` the inputs are this rank's
-        rows of a split batch (see the module docstring); the outputs' rows
-        are too, the tag losses the whole batch's."""
+        """Residual quantization with per-level tag supervision; in train mode
+        the quantizers' estimator, dropout and mixup draw as `forward` says. With
+        `rows` the outputs are this rank's rows, the tag losses the whole batch's."""
         if rows is not None and generator is not None:
             generator = RowShard(generator, rows.start, rows.total)
         batch = encoded_x.shape[0] if rows is None else rows.total

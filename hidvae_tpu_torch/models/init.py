@@ -1,10 +1,5 @@
-"""Seeded random weights for the port's modules, drawn from an explicit
-torch.Generator with the flax initializers' distributions: lecun-normal
-Dense kernels (flax's truncated normal, below), zero biases, unit norm
-scales, unit-variance-over-width embeddings, uniform [0, 1) codebooks and
-BOS. Trained weights come through
-bridge.py instead; this serves runs that need realistic shapes, not trained
-values."""
+"""Seeded random weights with the flax initializers' distributions,
+drawn from an explicit generator, for runs that need realistic shapes."""
 
 import math
 

@@ -1,10 +1,5 @@
-"""Shared building blocks (counterpart of hidvae_tpu/models/layers.py).
-
-Submodule names follow the flax names (`dense_0`, ...) so that bridge.py maps
-a flax parameter path to a state_dict key by rule.
-
-`dtype` follows flax's Dense: parameters stay fp32 and each product runs in
-the compute dtype (input and kernel cast to it, output in it)."""
+"""Shared building blocks (counterpart of hidvae_tpu/models/layers.py),
+named as flax names them; `dtype` is flax's compute dtype."""
 
 from typing import Sequence
 

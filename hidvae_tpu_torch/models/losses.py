@@ -1,15 +1,7 @@
-"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py): pure functions
-of tensors, stop-gradients as `.detach()`.
-
-As in JAX every loss is masked math of static shape: invalid tag targets
-(< 0) are masked, not dropped, and mixup permutes the whole batch, sending
-an invalid partner back to the row itself (PARITY.md deviation 4). Mixup's
-permutation and lambda come from the caller (`mixup_draw`, or JAX's draws
-in a test). The batch-coupled terms (InfoNCE, uniqueness, the tag loss with
-its valid count, KL term and mixup) take `rows`: on a batch split over
-data ranks they gather the ranks' rows in order and compute the whole
-batch's term on every rank, the gathers' backward taking the rank's slice.
-"""
+"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py) as masked
+math of static shape (PARITY.md deviation 4); mixup's draws come from the
+caller. The batch-coupled terms take `rows` and compute the whole split
+batch's term on every rank."""
 
 import math
 from typing import NamedTuple, Optional

@@ -1,12 +1,7 @@
-"""One residual-quantization level (counterpart of hidvae_tpu/models/quantize.py):
-codebook distance and hard assignment, and in train mode one of three
-estimators: GUMBEL_SOFTMAX (Gumbel-softmax weights over -distance times the
-codebook), STE (x + sg(e - x)) or ROTATION_TRICK (x rotated onto e's
-direction, `rotation_trick_transform`). The codebook / commitment loss is
-taken against the looked-up e; at eval every mode is the hard lookup. The
-distance and argmin run in full fp32 (no TF32), so training, eval and the
-corpus sweep assign alike.
-"""
+"""One residual-quantization level (counterpart of
+hidvae_tpu/models/quantize.py): distance and hard assignment in full fp32,
+and in train mode the GUMBEL_SOFTMAX, STE or ROTATION_TRICK estimator; at
+eval every mode is the hard lookup."""
 
 from enum import Enum
 from typing import NamedTuple, Optional

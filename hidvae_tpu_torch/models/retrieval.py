@@ -1,19 +1,9 @@
-"""Encoder-decoder generative retrieval model and constrained beam search
-(counterpart of hidvae_tpu/models/retrieval.py). The user embedding leads
-the semantic-ID history with learned absolute positions; the target side is
-a learned BOS + digit + token-type embeddings. The beam keeps fixed [B*k]
-shapes from step 0 (beam 0 at log-prob 0, the rest -1e9), runs the encoder
-once and narrows each beam's corpus range by binary search; invalid digits
-get the reference's -10000 penalty.
-
-Train mode is a dropout generator passed to `forward` (the blocks' dropout
-and the fixed 0.5 input dropout on the normed context and target
-embeddings, retrieval.py:105, :118-120). `dtype` is flax's compute dtype
-(parameters fp32, logits cast to fp32 for the loss). `remat`
-rematerializes every block (retrieval.py:67, :96). Under tensor parallelism
-`out_proj` holds this rank's vocab rows and the logits are gathered along
-the vocab before the loss and the beam's top-k.
-"""
+"""Encoder-decoder generative retrieval model and constrained beam
+search (counterpart of hidvae_tpu/models/retrieval.py). The beam keeps
+fixed [B*k] shapes, runs the encoder once and narrows each beam's corpus
+range by binary search. Train mode is a dropout generator passed to
+`forward`; `dtype` is flax's compute dtype; `remat` rematerializes every
+block; under tensor parallelism the logits are gathered along the vocab."""
 
 import warnings
 from dataclasses import dataclass
@@ -171,18 +161,12 @@ class EncoderDecoderRetrievalModel(nn.Module):
         prefix_caps=None,
         prefix_tries=None,
     ) -> GenerationOutput:
-        """Prefix-constrained beam search over sem_id_dim digits with fixed
-        shapes: 32 beams, or one with `top_k=False` (retrieval.py:235).
-        prefix_index: the sorted corpus table (None disables the
-        constraint). prefix_tries: {level: (starts, bitmaps)} tensors; levels
-        without a trie use the [Q, cap] range gather with `prefix_caps`, or a
-        heuristic cap (with a warning) when no caps are given.
-
-        `sample=True` with a `generator` adds Gumbel noise
-        -log(-log(u + 1e-20) + 1e-20) to each digit's log-probabilities
-        before the top-k, one uniform u per row and code, drawn afresh for
-        every digit (retrieval.py:272-276, where JAX folds the digit into
-        its key); as in JAX, without a generator no noise is added."""
+        """Prefix-constrained beam search over sem_id_dim digits: 32 beams,
+        or one with `top_k=False` (retrieval.py:235). prefix_index: the sorted
+        table (None: unconstrained); prefix_tries: {level: (starts, bitmaps)};
+        other levels gather [Q, cap] ranges with `prefix_caps`. `sample=True` with
+        a `generator` adds Gumbel noise to each digit's log-probabilities
+        (retrieval.py:272-276)."""
         b = batch.sem_ids.shape[0]
         d = self.sem_id_dim
         k = BEAMS if top_k else 1

@@ -1,16 +1,8 @@
 """Residual-quantized VAE (counterpart of hidvae_tpu/models/rqvae.py):
-encoder, per-level quantizers, the residual cascade, the decoder with its
-dense / categorical split, the batch statistic `p_unique_ids_stat`, and
-`forward`, the training and eval loss of the plain RQ-VAE trainer (the JAX
-module's __call__, :153-171). HRqVae (models/hrqvae.py) builds on it.
-
-Train mode is the `train` flag; the Gumbel-softmax estimator draws its
-noise from `generator`. `dtype` is the AMP compute dtype of the encoder and
-decoder products (None: fp32); the encoder's output is taken back to fp32
-before the quantizer. With `rows` (this rank's rows of a batch split over
-data ranks, parallel/collectives.py `Rows`) the noise is the global batch's
-rows and the loss, its terms and p_unique_ids are the whole batch's
-(`batch_means`, the ID tuples gathered)."""
+encoder, quantizers, the residual cascade, the decoder and `forward`, the
+plain RQ-VAE trainer's loss (:153-171). Gumbel noise draws from
+`generator`; `dtype` is the AMP compute dtype; with `rows` the loss terms
+are the whole split batch's."""
 
 from dataclasses import dataclass
 from typing import Optional, Sequence

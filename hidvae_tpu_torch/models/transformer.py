@@ -1,19 +1,9 @@
 """Pre-norm transformer blocks and the encoder-decoder (counterpart of
-hidvae_tpu/models/transformer.py). Cross-attention's query is the block
-input x, not the self-attention output (transformer.py:58).
-
-Train mode is a dropout generator passed to forward; dropout applies where
-the JAX block applies it (:51-71): the normed inputs of self- and
-cross-attention, after each hidden SiLU of the MLP and on its output.
-`use_flash` reaches the encoder's self-attention only (:124-131).
-
-`remat` rematerializes each block (:74-108, nn.remat) with
-`torch.utils.checkpoint`. It restores only the default generators, so
-`GeneratorReplay` hands the recompute the dropout generator as it was when
-the forward began: the recompute draws the forward's masks, as the JAX
-block, which takes its key as an argument. On the flash route the
-recompute runs the forward kernel again.
-"""
+hidvae_tpu/models/transformer.py; cross-attention's query is the block
+input, :58). Dropout applies where the JAX block applies it (:51-71).
+`remat` rematerializes each block with torch.utils.checkpoint;
+`GeneratorReplay` hands the recompute the dropout generator as it was, so
+it draws the forward's masks."""
 
 from typing import Optional, Sequence
 

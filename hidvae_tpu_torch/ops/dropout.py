@@ -1,12 +1,7 @@
-"""Dropout drawn from an explicit generator (flax's nn.Dropout as the JAX
-package uses it): keep with probability 1 - p, scale by 1 / (1 - p).
-`torch.nn.functional.dropout` takes no generator, and the trainers derive
-one per step from (seed, step), so the mask is drawn here. On a mesh the
-generator comes as a `RowShard`: every site draws the global shape's mask
-and keeps this rank's rows (and tensor-parallel columns), so the ranks apply
-the one-device mask bit for bit; `uniform` is that draw, which the stage-1
-Gumbel noise takes too.
-"""
+"""Dropout drawn from an explicit generator (flax's nn.Dropout): keep
+with probability 1 - p, scale by 1 / (1 - p). From a `RowShard` every site
+draws the global mask and keeps this rank's rows, so ranks apply the
+one-device mask bit for bit."""
 
 from typing import NamedTuple, Optional, Union
 
@@ -34,10 +29,9 @@ def uniform(shape, generator: Union[torch.Generator, RowShard], device, dtype=to
 
 def dropout(x, p: float, generator: Union[None, torch.Generator, RowShard],
             cols: Optional[tuple] = None):
-    """Inverted dropout of `x` with rate `p`; the identity when `generator`
-    is None (eval mode) or p == 0. The generator must live on x's device.
-    `cols` = (start, total): x's last dimension is columns [start, start +
-    width) of a `total`-wide one."""
+    """Inverted dropout of `x` with rate `p`; the identity without a
+    `generator`. `cols` = (start, total): x's last dimension is columns
+    [start, start + width) of a `total`-wide one."""
     if generator is None or p == 0.0:
         return x
     if not 0.0 <= p < 1.0:

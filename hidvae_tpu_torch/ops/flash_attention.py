@@ -1,32 +1,18 @@
 """Flash attention with segment-id masking: the CUDA kernels, their plain
-PyTorch versions and the autograd Function that joins them.
+PyTorch versions and the autograd Function that joins them (counterpart of
+the `jax` library's Pallas TPU `flash_attention`, flash_attention.py:140 in
+jax 0.9.0, called from hidvae_tpu/models/attention.py:75).
 
-Counterpart of the `jax` library's Pallas TPU `flash_attention`
-(jax/experimental/pallas/ops/tpu/flash_attention.py:140, jax 0.9.0), called
-from hidvae_tpu/models/attention.py:75. Three Hopper kernels in
-csrc/flash_attention.cu replace the library's three:
+  flash_fwd      forward, O and the row statistics m, l  (library :331)
+  flash_bwd_dkv  dK, dV                                  (library :796)
+  flash_bwd_dq   dQ                                      (library :1146)
 
-  flash_fwd      forward, writes O and the row statistics m, l  (library :331)
-  flash_bwd_dkv  dK, dV                                         (library :796)
-  flash_bwd_dq   dQ                                             (library :1146)
-
-`flash_attention(q, k, v, *, segment_ids, causal, sm_scale)` takes q, k, v
-[B, H, N, Dh] and segment ids [B, N] int32. CUDA tensors run the kernels
-(Dh 64 and 128; a failed build or launch raises), CPU tensors the plain
-`flash_attention_reference` at any Dh. bf16 runs on tensor cores and, as
-the library, rounds P and dS to bf16 before their products; fp32 runs in
-FFMA. The backward mirrors `_flash_attention_bwd` (:254-318): di =
-rowsum(dO * O) in fp32, then dK/dV, then dQ, recomputing P = exp(s - m) / l
-from the saved m and l (:900-904, :1226-1232); one logsumexp would not do,
-since a keyless row's sum rounds back to m and P would be 1, not 1/N.
-
-Semantics, from the library: logits (q k^T) * sm_scale in fp32; a query and
-key of different segments (or, causal, a later key) get the additive mask
--0.7 * fp32 max (:29, :437); softmax in fp32. A row that sees no key gets
-uniform weights over all keys, as `mha_reference` gives: causal blocks skip
-the tiles above their diagonal except where a row of the block has no
-visible key, so the result does not depend on tile sizes.
-"""
+q, k, v [B, H, N, Dh], segment ids [B, N] int32. CUDA tensors run the
+kernels (Dh 64 and 128), CPU tensors `flash_attention_reference`. bf16 runs
+on tensor cores and rounds P and dS to bf16 as the library does; fp32 runs
+in FFMA. The backward recomputes P = exp(s - m) / l from m and l
+(:900-904); a row that sees no key gets uniform weights over all keys, as
+`mha_reference` gives. Masked logits get -0.7 * fp32 max (:29, :437)."""
 
 import ctypes
 from typing import NamedTuple, Optional

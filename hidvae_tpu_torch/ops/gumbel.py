@@ -1,11 +1,6 @@
-"""Gumbel-softmax sampling from an explicit generator (counterpart of
-hidvae_tpu/ops/gumbel.py).
-
-The JAX functions take a PRNG key; these take a torch.Generator (or a
-RowShard of one, on a batch split over data ranks), or the uniforms or the
-noise themselves, so that a test can hand JAX's draws in.
-`TemperatureScheduler` is the exponential anneal, kept for the gin surface:
-the trainers hold the temperature at 0.2."""
+"""Gumbel-softmax sampling from an explicit generator (or RowShard), or
+from uniforms or noise handed in, so that a test can pass JAX's draws
+(counterpart of hidvae_tpu/ops/gumbel.py)."""
 
 import math
 from typing import Optional
@@ -17,10 +12,8 @@ from hidvae_tpu_torch.ops.dropout import uniform
 
 def sample_gumbel(shape, generator: Optional[torch.Generator] = None, device=None,
                   dtype=torch.float32, eps: float = 1e-20, uniforms=None):
-    """Gumbel(0, 1) noise -log(-log(U + eps) + eps) from U ~ U[0, 1), drawn
-    from `generator` on `device` unless `uniforms` are given. A RowShard
-    `generator` draws the global batch's noise and keeps this rank's rows
-    (ops/dropout.py `uniform`)."""
+    """Gumbel(0, 1) noise -log(-log(U + eps) + eps), U drawn from
+    `generator` (a RowShard keeps this rank's rows) unless `uniforms` are given."""
     u = uniform(shape, generator, device, dtype) if uniforms is None else uniforms
     return -torch.log(-torch.log(u + eps) + eps)
 

@@ -1,11 +1,7 @@
 """Lloyd's k-means for codebook initialization (counterpart of
-hidvae_tpu/ops/kmeans.py): random distinct points as the first centroids,
-squared-L2 assignment at full fp32 (no TF32), the centroid update as a
-one-hot product, empty clusters re-seeded from random points, and a stop
-when no centroid moves by stop_threshold or after max_iters steps.
-
-The draws come from `generator`, or are passed in (`init_idx` [K] and
-`reseed_idx(it) -> [K]`), so a test can run the JAX function's draws."""
+hidvae_tpu/ops/kmeans.py), assignment in full fp32. Draws come from
+`generator`, or are passed in (`init_idx`, `reseed_idx(it)`) so that a test
+can run the JAX function's draws."""
 
 from typing import Callable, NamedTuple, Optional
 

@@ -1,11 +1,6 @@
 """Corpus prefix index for constrained generation (counterpart of
-hidvae_tpu/ops/prefix_search.py).
-
-The corpus ID table is sorted lexicographically once; a prefix is then two
-lexicographic binary searches (lower and upper bound) with a fixed number of
-steps, so every shape is static. `build_prefix_tries` is host numpy, copied
-from the JAX package.
-"""
+hidvae_tpu/ops/prefix_search.py): the table sorted once, a prefix found by
+two fixed-step binary searches; `build_prefix_tries` is host numpy."""
 
 import math
 
@@ -151,14 +146,10 @@ def narrow_range(sorted_corpus, lo, hi, level: int, digit):
 
 
 def build_prefix_tries(sorted_corpus, n_digits: int, budget_bytes: int = 64 << 20):
-    """Per-level next-digit bitmaps (the trie as tensors).
-
-    For a lexicographically-sorted corpus the rows matching any length-i
-    prefix form one contiguous run: a level-i trie node. For each level i
-    (1..D-1) returns starts [M_i] int32 (first row of each node, ascending)
-    and bitmaps [M_i, n_digits] bool (which column-i values occur in the
-    node); levels whose bitmap would exceed `budget_bytes` map to None.
-    Host numpy, O(N*D)."""
+    """Per-level next-digit bitmaps of a sorted corpus: for each level i
+    (1..D-1), starts [M_i] int32 of the level-i prefix runs and bitmaps
+    [M_i, n_digits] bool of the digits that follow; None where a bitmap would
+    exceed `budget_bytes`. Host numpy."""
     ids = np.asarray(sorted_corpus)
     n, d = ids.shape
     # An unsorted table silently yields wrong masks: refuse it.

@@ -1,12 +1,8 @@
-"""Fused residual quantization: the CUDA kernel, its plain PyTorch version and
-the dispatch (counterpart of hidvae_tpu/ops/pallas/rq_kernels.py).
-`rq_assign` launches csrc/rq_assign.cu (for the Pallas `_rq_kernel`,
-rq_kernels.py:32); `rq_assign_reference` is the plain version of the CPU and
-the tests; `rq_assign_auto` picks by device, as rq_kernels.py:128-133 by
-backend. A CUDA tensor never takes the plain path: a failed build, load or
-launch raises. x [B, D], codebooks [L, K, D] -> ids [B, L] int32, quantized
-sum [B, D] float32.
-"""
+"""Fused residual quantization (counterpart of
+hidvae_tpu/ops/pallas/rq_kernels.py): `rq_assign` launches csrc/rq_assign.cu
+(for `_rq_kernel`, rq_kernels.py:32), `rq_assign_reference` is the plain
+version and `rq_assign_auto` picks by device; a CUDA tensor never takes the
+plain path. x [B, D], codebooks [L, K, D] -> ids [B, L] int32, qsum [B, D]."""
 
 import ctypes
 
@@ -15,7 +11,7 @@ import torch
 from hidvae_tpu_torch.utils.runtime import full_fp32
 
 SOURCE = "rq_assign.cu"
-SUPPORTED_DIMS = (32, 64, 128)  # the widths the CUDA kernel is built for
+SUPPORTED_DIMS = (16, 32, 64, 128)  # the widths the CUDA kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # per block on Hopper
 
 

@@ -1,27 +1,12 @@
-"""The collectives of the port's multi-GPU paths, the tensor-parallel autograd
+"""Collectives of the port's multi-GPU paths: the tensor-parallel autograd
 functions (Megatron's f / g) and those that couple a batch split over the
-data ranks (stage 1).
-
-Only `all_reduce`, `all_gather` (list form) and `broadcast` are used: Gloo
-runs them on CUDA tensors as NCCL does, so one code path serves the
-backend the caller initialized. A group of None (one process) makes every
-function the identity.
-
-`COLLECTIVE_BYTES` counts, per collective, the bytes this process handed to
-it over a group of several ranks (an all-reduce's or broadcast's payload,
-an all-gather's local part); `collective_bytes()` is their sum.
-
-Tensor-parallel products "all-reduce the partials in fp32, then cast": each
-partial product is taken in fp32 from inputs already in the compute dtype,
-all-reduced in fp32 and rounded once, as the one-device product rounds its
-fp32 accumulation once.
-
-A batch split over the data ranks is a `Rows`. A term of the whole batch
-gathers the ranks' rows through `all_gather_rows`, whose backward is
-"slice" when every rank computes the same term (its slice of its own
-gradient is whole) or "sum" when each uses it for its own rows (summed over
-the ranks first); `all_reduce_sum` makes the same choice.
-"""
+data ranks (stage 1). Only all_reduce, all_gather and broadcast are used,
+which Gloo and NCCL both run on CUDA tensors; a group of None (one process)
+makes each the identity. `COLLECTIVE_BYTES` counts the bytes this process
+hands to each collective. Tensor-parallel partial products are all-reduced
+in fp32 and rounded once. `all_gather_rows` and `all_reduce_sum` backward
+"slice" when every rank computes the same term, "sum" when each uses it for
+its own rows."""
 
 from typing import NamedTuple, Optional
 
@@ -185,10 +170,8 @@ def all_reduce_sum(x, group, backward: str = "identity"):
 
 
 class _GatherFromModel(torch.autograd.Function):
-    """The model ranks' parts concatenated along the last dimension forward;
-    backward, this rank's part of the (replicated) gradient. Taking the
-    part, not summing the ranks' copies, keeps the gradient off by no
-    factor of the model size."""
+    """The model ranks' parts concatenated along the last dimension;
+    backward, this rank's part of the replicated gradient."""
 
     @staticmethod
     def forward(ctx, x, shard: TensorShard):
@@ -241,10 +224,8 @@ class _RowParallelLinear(torch.autograd.Function):
 
 
 def parallel_linear(x, weight, shard: TensorShard, dtype=None):
-    """flax Dense on a weight sharded by `shard`: dim 0 (output features,
-    column-parallel) gives this rank's output columns; dim 1 (input
-    features, row-parallel) takes this rank's input columns and gives the
-    whole output. `dtype` None computes in the input's dtype."""
+    """flax Dense on a weight sharded by `shard`: dim 0 gives this rank's
+    output columns, dim 1 takes its input columns and gives the whole output."""
     dtype = x.dtype if dtype is None else dtype
     fn = _ColumnParallelLinear if shard.dim == 0 else _RowParallelLinear
     return fn.apply(x, weight, shard.group, dtype)

@@ -1,21 +1,13 @@
-"""The port's multi-rank dry run (counterpart of __graft_entry__.dryrun_multichip)
-and its rank launcher.
+"""The port's multi-rank dry run (counterpart of
+__graft_entry__.dryrun_multichip) and its rank launcher.
 
     python -m hidvae_tpu_torch.parallel.dryrun 4
 
-spawns 4 Gloo CPU ranks on a ('data', 'model') mesh of (n/2, 2) (n even and
-at least 4, else (n, 1)); runs one DP x TP AdamW step of the tiny flagship
-decoder (K 64, D 3, width 64, 4 heads, 2 layers, embeddings 32, max_pos 64,
-dropout on) on 2 * n_data seeded rows, then one data-parallel step (lr 1e-3)
-of the JAX dry run's tiny HiD-VAE (input 32, embed 8, hidden (16,), K 16,
-L 3, tags (4, 6, 8) of width 16; dropout, Gumbel and mixup on) over all n
-ranks on 2 * n items; checks every rank's losses against one process's and
-prints `dryrun_multichip OK: mesh={...} stage2_loss=... stage1_loss=...`.
-
-`launch_ranks` starts n processes with torchrun's environment (RANK,
-LOCAL_RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); a worker names its
-backend itself.
-"""
+spawns 4 Gloo CPU ranks on a (n/2, 2) ('data', 'model') mesh, runs one DP x
+TP AdamW step of the tiny flagship decoder and one data-parallel step of
+the JAX dry run's tiny HiD-VAE, checks every rank's losses against one
+process's and prints `dryrun_multichip OK: mesh={...} stage2_loss=...
+stage1_loss=...`."""
 
 import os
 import re
@@ -43,11 +35,9 @@ def free_port() -> int:
 
 def launch_ranks(argv: Sequence[str], world: int, timeout: float,
                  env: Optional[dict] = None, cwd: Optional[str] = None) -> list:
-    """Run `argv` as `world` processes, rank r with RANK=LOCAL_RANK=r,
-    WORLD_SIZE, MASTER_ADDR=localhost and a free MASTER_PORT, and one CPU
-    thread each. Waits at most `timeout` seconds in all; returns their
-    standard outputs in rank order. On a timeout or a failing rank every
-    process is killed and RuntimeError carries the stderr tails."""
+    """Run `argv` as `world` processes under torchrun's environment, one
+    CPU thread each, within `timeout` seconds; returns their stdouts in rank
+    order. A timeout or failing rank kills all and raises RuntimeError."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -94,10 +84,8 @@ def flagship_batch(b: int, k: int = FLAGSHIP["k"], d: int = FLAGSHIP["d"], n: in
 
 
 def flagship_step(mesh, batch_size: int, device="cpu") -> float:
-    """One AdamW step (lr 1e-3, weight decay 0.01, dropout 0.1 drawn from a
-    seeded generator) of the seeded flagship decoder on `mesh`, over the
-    seeded global batch of `batch_size` rows; returns the global batch's
-    loss before the update, the same on every rank."""
+    """One AdamW step of the seeded flagship decoder on `mesh` over a
+    seeded global batch; returns the loss before the update, on every rank."""
     from hidvae_tpu_torch.models.init import init_params_
     from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
     from hidvae_tpu_torch.ops.dropout import RowShard
@@ -126,11 +114,9 @@ def flagship_step(mesh, batch_size: int, device="cpu") -> float:
 
 
 def stage1_step(mesh, batch_size: int, device="cpu") -> float:
-    """One AdamW step (lr 1e-3, optax.adamw's weight decay 1e-4) of the seeded
-    tiny HiD-VAE on the data ranks of `mesh` over a seeded global batch of
-    `batch_size` items (tags of class 0, as the JAX dry run's); dropout,
-    Gumbel noise and mixup drawn from seeded generators. Returns the global
-    batch's loss before the update, the same on every rank."""
+    """One AdamW step (lr 1e-3, weight decay 1e-4) of the seeded tiny
+    HiD-VAE over `mesh`'s data ranks on a seeded global batch. Returns the
+    global loss before the update, the same on every rank."""
     from hidvae_tpu_torch.models.hrqvae import HRqVae
     from hidvae_tpu_torch.models.init import init_params_
     from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows
@@ -157,10 +143,9 @@ def stage1_step(mesh, batch_size: int, device="cpu") -> float:
 
 
 def dryrun_multichip(n: int, timeout: float = 300.0) -> dict:
-    """One stage-2 DP x TP step and one stage-1 DP step on n Gloo ranks on
-    the CPU (see the module docstring), each held to the one-process step.
-    Returns {"mesh", "loss", "one_rank_loss", "stage1_loss",
-    "stage1_one_rank_loss"}."""
+    """One stage-2 DP x TP step and one stage-1 DP step on n Gloo ranks,
+    each held to the one-process step. Returns {"mesh", "loss",
+    "one_rank_loss", "stage1_loss", "stage1_one_rank_loss"}."""
     from hidvae_tpu_torch.parallel.mesh import make_mesh
 
     n_model = 2 if n % 2 == 0 and n >= 4 else 1

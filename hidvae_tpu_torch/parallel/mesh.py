@@ -1,22 +1,10 @@
-"""A ('data', 'model') mesh over a torch.distributed process group (default:
-every rank on 'data', the stage-1 mesh), the row layouts of a batch split
-over the data ranks, and the stage-2 tensor-parallel layout (counterpart of
-hidvae_tpu/parallel/mesh.py).
-
-As JAX's `reshape(n_data, n_model)`, rank r sits at (r // n_model,
-r % n_model). Its data group holds the ranks of its model coordinate (the
-gradient all-reduce, the row gathers), its model group those of its data
-coordinate (the TP collectives). The backend is the caller's
-(`init_from_env` under torchrun: NCCL on cuda:LOCAL_RANK). Without a
-process group `make_mesh` gives the one-device mesh (1, 1).
-
-`stage2_param_layout` mirrors `stage2_param_shardings` leaf for leaf: the
-ID table and `out_proj` by vocab, FF `dense_0` by output and the other FF
-kernels by input features, replicated where the axis does not divide (a
-torch weight is the flax kernel transposed). `shard_stage2_` cuts a model
-and its moments to this rank's parts; `gather_stage2_flat` rebuilds whole
-arrays for a checkpoint.
-"""
+"""A ('data', 'model') mesh over a torch.distributed process group
+(counterpart of hidvae_tpu/parallel/mesh.py), the row layouts of a batch
+split over the data ranks and the stage-2 tensor-parallel layout. Rank r
+sits at (r // n_model, r % n_model), as JAX's reshape; without a process
+group `make_mesh` gives (1, 1). `stage2_param_layout` mirrors
+`stage2_param_shardings`: the ID table and `out_proj` by vocab, FF
+`dense_0` by output and the other FF kernels by input features."""
 
 import contextlib
 import os
@@ -58,10 +46,8 @@ class Mesh:
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None) -> Mesh:
-    """A ('data', 'model') mesh over `group` (default: the initialized world
-    group; none initialized: one device). n_data defaults to all ranks over
-    n_model. Every rank of the group must sit on the mesh: a torch rank
-    cannot sit out the collectives the others run."""
+    """A ('data', 'model') mesh over `group` (default: the world group,
+    or one device). Every rank of the group must sit on the mesh."""
     if dist.is_available() and dist.is_initialized():
         ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
         rank = dist.get_rank(group)
@@ -94,10 +80,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None) -> Mes
 
 
 def init_from_env() -> torch.device:
-    """Join the process group torchrun describes (RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR/PORT) over NCCL on cuda:LOCAL_RANK, and make that
-    device current. Raises when the device does not exist: two ranks never
-    share a card silently. Returns the device."""
+    """Join torchrun's process group over NCCL on cuda:LOCAL_RANK and make
+    that device current (raising when it does not exist). Returns the device."""
     local = int(os.environ["LOCAL_RANK"])
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if local >= n_cards:
@@ -112,10 +96,8 @@ def init_from_env() -> torch.device:
 
 @contextlib.contextmanager
 def torchrun_group(device=None):
-    """Under torchrun (RANK and LOCAL_RANK set) join its process group for
-    the block: over Gloo on the CPU when `device` is "cpu", else over NCCL on
-    cuda:LOCAL_RANK (`init_from_env`). Yields the device to run on (`device`
-    unchanged outside torchrun) and leaves the group at the end."""
+    """Under torchrun, join its group for the block (Gloo for "cpu", else
+    NCCL) and yield the device; outside torchrun yield `device`."""
     if "RANK" not in os.environ or "LOCAL_RANK" not in os.environ:
         yield device
         return
@@ -198,11 +180,9 @@ def _part(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
 
 
 def shard_stage2_(model: torch.nn.Module, mesh: Mesh, optimizer=None) -> Dict[str, Optional[int]]:
-    """Cut `model`'s sharded parameters (and, with `optimizer`, their AdamW
-    moments) to this rank's parts in place, and mark each owning module
-    with its TensorShard (`.tp`), which the layers read. The Parameter
-    objects stay, so an optimizer built over them stays valid. Nothing
-    happens on a model axis of 1. Returns the layout."""
+    """Cut `model`'s sharded parameters (and their AdamW moments) to this
+    rank's parts in place, marking each owning module with its TensorShard
+    (`.tp`). Returns the layout."""
     layout = stage2_param_layout(mesh, model)
     if mesh.n_model == 1:
         return layout
@@ -233,10 +213,8 @@ def sharded_params(model: torch.nn.Module):
 
 def gather_stage2_flat(flat: Dict[str, np.ndarray], layout: Dict[str, Optional[int]],
                        mesh: Mesh, device) -> Dict[str, np.ndarray]:
-    """Whole arrays from this rank's parts: every entry of `flat` (flax
-    layout, keyed by "<prefix><flax path>", e.g. "0/mu/out_proj/kernel")
-    whose flax path the layout cuts is gathered over 'model' (a collective:
-    every rank calls it with the same keys). Others pass through."""
+    """Whole arrays from this rank's parts: each entry of `flat` whose
+    flax path the layout cuts is gathered over 'model' (a collective)."""
     if mesh.n_model == 1:
         return flat
     out = {}

@@ -1,23 +1,11 @@
 """Serving path of a trained two-stage model (counterpart of
-hidvae_tpu/serve/engine.py).
-
-The serving state lives on the device: the corpus ID table, the sorted
-prefix index and its permutation, the per-level trie bitmaps. Requests are
-padded to batch buckets; one step per bucket tokenizes (table gather),
-runs the constrained beam search and resolves tuples to items; the host
-reads the result once.
-
-`from_artifacts` builds an engine from a decoder gin and two exported
-checkpoints (scripts/export_flax_checkpoint.py converts Orbax ones) over
-the config's processed dataset, refusing a table that contradicts the
-stage-1 checkpoint's recorded repetition rate, as JAX does.
-
-Multi-GPU (engine.py:194-231): with `mesh`, buckets round up to a multiple
-of n_data, the sweep is split over the data ranks and each decodes its rows;
-results are gathered, so `recommend` on every rank returns the whole
-answer. Tables and tries are replicated; the decoder too, or cut over the
-model ranks with `shard_params=True`.
-"""
+hidvae_tpu/serve/engine.py). The corpus ID table, prefix index and trie
+bitmaps live on the device; requests are padded to batch buckets, and one
+step a bucket tokenizes, runs the constrained beam search and resolves
+tuples to items. `from_artifacts` builds an engine from a decoder gin and
+two exported checkpoints, refusing a table that contradicts the stage-1
+checkpoint's repetition rate. With `mesh` (engine.py:194-231) the sweep
+and the decode split over the data ranks and every rank gets the answer."""
 
 import logging
 import time
@@ -46,29 +34,19 @@ logger = logging.getLogger("hidvae_tpu_torch.serve.engine")
 
 
 class RetrievalEngine:
-    """Batch recommendation serving over a frozen tokenizer + decoder.
-
-    model : the EncoderDecoderRetrievalModel, weights loaded.
-    tokenizer : a (H)SemanticIdTokenizer over the stage-1 model, on the engine's device.
-    item_features : [n_items, F] numpy array or tensor; the corpus to index.
-    max_seq_len : the decoder's history length (longer histories keep their tail).
-    batch_buckets : ascending batch sizes to pad to; larger requests run in
-        top-bucket chunks.
-    stage1_checkpoint : the stage-1 export whose recorded repetition rate the
-        table is audited against (None: no guard).
-    device : `cuda` unless given; raises without a card.
-    mesh : a parallel.mesh.Mesh of the ranks that serve together (None: this
-        process); shard_params cuts the decoder over its model ranks.
-
-    `build_times`: `table_s` (the sweep, read back for the audit), `index_s`
-    (prefix index, caps, tries) and, from `from_artifacts`, `load_s`."""
+    """Batch recommendation serving over a frozen tokenizer + decoder: the
+    decoder `model`, a (H)SemanticIdTokenizer, the corpus `item_features`,
+    the history length, ascending `batch_buckets`, the stage-1 export whose
+    repetition rate audits the table, `device` (`cuda` unless given), and
+    `mesh` / `shard_params` for ranks that serve together. `build_times`:
+    table_s, index_s and, from `from_artifacts`, load_s."""
 
     @classmethod
     def from_artifacts(cls, gin_path: str, stage1_export: str, stage2_export: str, *,
                        device=None, **engine_kwargs) -> "RetrievalEngine":
-        """A ready engine from a decoder gin (the stage-2 trainer's: shapes, dataset) and two
-        exported checkpoints, the corpus from its dataset_folder (engine.py:51-182; the JAX
-        trainer's defaults). `engine_kwargs` go to the engine (engine.py:258)."""
+        """A ready engine from a decoder gin and two exported checkpoints,
+                the corpus from its dataset_folder (engine.py:51-182); `engine_kwargs` go to the
+                engine."""
         t0 = time.perf_counter()
         device = resolve_device(device)
         cfg = parse_gin_file(gin_path)["train"]
@@ -212,10 +190,8 @@ class RetrievalEngine:
     # ---- request preparation (host side) ----
 
     def _pad_histories(self, items: np.ndarray) -> np.ndarray:
-        """Clip/pad raw histories to [B, max_seq_len] int32, keeping the most
-        recent valid items in order, -1 filled. Vectorized: a stable sort on
-        the padding flag packs valid items first, then the trailing window of
-        each packed row is gathered."""
+        """Clip / pad histories to [B, max_seq_len] int32, keeping the
+                most recent valid items in order, -1 filled."""
         items = np.asarray(items, np.int32)
         if items.ndim != 2:
             raise ValueError(f"histories must be [B, N], got {items.shape}")
@@ -274,16 +250,9 @@ class RetrievalEngine:
     # ---- public API ----
 
     def recommend(self, histories, user_ids=None, top_k: int = 10):
-        """Recommend the next items for a batch of user histories.
-
-        histories: [B, N] int item indices, -1 padded (N arbitrary).
-        user_ids: optional [B] ints (hash-bucketed by the model).
-        top_k: items to return per user (<= beam width 32).
-
-        Returns a dict with items [B, top_k] int32 (-1 = unresolved),
-        sem_ids [B, top_k, D], scores [B, top_k] (descending beam
-        log-probabilities) and latency_s (wall seconds of the device steps,
-        read-back included)."""
+        """Next items for `histories` [B, N] (-1 padded) and optional
+        `user_ids`: {items [B, top_k] (-1 unresolved), sem_ids, scores (descending
+        beam log-probabilities), latency_s}."""
         items = self._pad_histories(histories)
         b = items.shape[0]
         if b == 0:

@@ -1,13 +1,7 @@
-"""Hierarchical semantic-ID tokenizer around a frozen HiD-VAE (counterpart of
-hidvae_tpu/tokenizer/h_semids.py). Layouts: semantic-only [s1..sL] (plus
-the dedup rank column), concatenated [s1..sL, t1..tT] with predicted tags,
-interleaved [s1, t1, s2, t2, ...]. The sweep runs the encoder and
-`rq_assign_auto` (the CUDA kernel on the card, the plain version on the CPU);
-table, prefix index, caps, tries and gather-tokenizing are the plain
-tokenizer's (semids.py). `tokenize_features` encodes raw features [B, N, F]
-the same way (one `rq_assign_auto` over B * N rows), which `__call__` takes
-without a table; `predict_tags` is the model's tag prediction.
-"""
+"""Hierarchical semantic-ID tokenizer around a frozen HiD-VAE
+(counterpart of hidvae_tpu/tokenizer/h_semids.py): semantic-only,
+concatenated [s1..sL, t1..tT] or interleaved layouts; `tokenize_features`
+encodes raw features [B, N, F] in one `rq_assign_auto` over B * N rows."""
 
 from typing import Optional, Sequence
 

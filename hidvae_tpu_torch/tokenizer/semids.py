@@ -1,13 +1,7 @@
 """Plain semantic-ID tokenizer around a frozen RQ-VAE (counterpart of
-hidvae_tpu/tokenizer/semids.py), and the table-side machinery that the
-hierarchical tokenizer (h_semids.py) shares with it.
-
-The corpus sweep runs the encoder and then the fused residual quantization
-`rq_assign_auto`, chunk by chunk (tokenizer/sweep.py): the CUDA kernel on the
-card, the plain version on the CPU. With `use_dedup_dim` a last column holds
-each item's rank among the items of the same ID tuple. `exists_prefix`,
-`prefix_caps`, `prefix_tries` and `__call__` read the precomputed table.
-"""
+hidvae_tpu/tokenizer/semids.py), and the table machinery the hierarchical
+one shares: the corpus sweep through `rq_assign_auto`, the dedup rank
+column, the prefix index, caps and tries, and tokenizing by gather."""
 
 import numpy as np
 import torch

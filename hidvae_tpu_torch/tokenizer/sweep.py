@@ -1,11 +1,7 @@
-"""Chunked corpus sweep (counterpart of hidvae_tpu/tokenizer/sweep.py).
-
-Host features are uploaded chunk by chunk from pinned memory on a side CUDA
-stream, so chunk k+1's copy overlaps chunk k's encode and at most two chunks
-of features are on the card at a time. Features already on the device are
-sliced in place. In eager PyTorch no chunk needs padding to a fixed shape.
-Over a mesh's data ranks (`mesh=`), each chunk is split and gathered back.
-"""
+"""Chunked corpus sweep (counterpart of hidvae_tpu/tokenizer/sweep.py):
+host chunks uploaded from pinned memory on a side stream, overlapping the
+previous chunk's encode; with `mesh` each chunk is split over the data
+ranks and gathered back."""
 
 import hashlib
 from typing import Callable
@@ -57,10 +53,9 @@ def sweep_corpus(
     device: torch.device,
     mesh=None,
 ) -> torch.Tensor:
-    """`encode_block` over `item_features` [N, F] (host, or already on `device`) in chunks of
-    `chunk_size` rows; returns the concatenated output. With `mesh` the data ranks split each
-    chunk (rounded up to a multiple of n_data, the last zero-padded, as sweep.py:67-68) and
-    gather the parts: every rank returns the whole."""
+    """`encode_block` over `item_features` in chunks of `chunk_size` rows, concatenated;
+    with `mesh` the data ranks split each chunk (sweep.py:67-68) and every rank returns the
+    whole."""
     n = int(item_features.shape[0])
     chunk = min(chunk_size, n)
     if isinstance(item_features, torch.Tensor):

@@ -1,22 +1,10 @@
-"""Training commons (counterpart of hidvae_tpu/train/common.py): schedules,
-the reduce-on-plateau controller, both trainers' optimizer (`Optimizer`,
-`make_optimizer`), the chunked event loop (`chunk_events`), checkpoints
-(meta, structural reconcile, lenient restore), the corpus audit, and the
-data-parallel gradient reduction (`reduce_gradients_`).
-
-The JAX optimizer is optax: `adamw(schedule, weight_decay)` (0.9, 0.999,
-1e-8), one per parameter group under `multi_transform` (the tag heads'
-rates), after `clip_by_global_norm`, then the plateau scale, inside
-`MultiSteps` for accumulation. Update t (0-based) uses schedule(t);
-`Optimizer` sets that rate on torch.optim.AdamW (optax's rule: decoupled
-decay lr * wd * p, bias-corrected moments, eps outside the root) and names
-its state as `flax.serialization.to_state_dict` names optax's, so a
-converted JAX run resumes here and back.
-
-A checkpoint (`save_checkpoint`, common.py:274-303) is an export (bridge.py)
-of params, batch statistics, optimizer state and step; `run_logging` and
-`log_operative_config` write train.log as the JAX trainers do.
-"""
+"""Training commons (counterpart of hidvae_tpu/train/common.py):
+schedules, the plateau controller, both trainers' optimizer, the chunked
+event loop, checkpoints, the corpus audit and the data-parallel gradient
+reduction. `Optimizer` is optax's adamw (0.9, 0.999, 1e-8; decoupled
+decay, eps outside the root) per parameter group, after the clip, then the
+plateau scale, inside MultiSteps; its state is named as flax names optax's,
+so a converted JAX run resumes here and back."""
 
 import contextlib
 import enum
@@ -34,10 +22,9 @@ from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_
 
 
 def reduce_gradients_(params, group, divide_by: int = 1):
-    """The gradients of `params` summed over the ranks of `group` (then
-    divided by `divide_by`: n_data gives their mean), in place, in one
-    all-reduce of the flattened gradients. Parameters without a gradient
-    are left out: the ranks run one graph, so they lack the same ones."""
+    """The gradients of `params` summed over `group` (divided by
+    `divide_by`) in place, in one all-reduce; parameters without a gradient
+    are left out."""
     if group is None:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -94,11 +81,9 @@ def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
                          parts: Iterable[torch.Tensor] = (), group=None) -> torch.Tensor:
-    """optax.clip_by_global_norm in place: when the global norm g exceeds
-    max_norm, every gradient is scaled by max_norm / g. Returns g. `parts`
-    are gradients of tensors cut over the model ranks of `group`: their
-    squares are summed over the group once (parallel.collectives), those of
-    the replicated `grads` not at all."""
+    """optax.clip_by_global_norm in place. Returns the global norm.
+    `parts` are gradients cut over the model ranks of `group`: their squares
+    are summed over the group."""
     grads = [g for g in grads if g is not None]
     parts = [g for g in parts if g is not None]
     sq = sum(torch.sum(g.float() * g.float()) for g in grads)
@@ -115,11 +100,8 @@ def make_lr_schedule(learning_rate: float, use_lr_scheduler: bool = False,
                      lr_scheduler_type: str = "cosine", lr_scheduler_T_max: int = 400_000,
                      lr_scheduler_eta_min: float = 1e-7, lr_scheduler_step_size: int = 100_000,
                      lr_scheduler_gamma: float = 0.5):
-    """The stage-1 schedule of the update count (common.py:66-105): cosine
-    (torch's CosineAnnealingLR, held at eta_min after T_max) or step (x
-    gamma every step_size updates); a constant float without a scheduler,
-    for reduce_on_plateau (whose scale is metric-driven, `ReduceLROnPlateau`)
-    and for an unknown type."""
+    """The stage-1 schedule of the update count (common.py:66-105):
+    cosine or step; a constant float for reduce_on_plateau and unknown types."""
     if not use_lr_scheduler or lr_scheduler_type not in ("cosine", "step"):
         return learning_rate
     if lr_scheduler_type == "cosine":
@@ -135,11 +117,8 @@ def make_lr_schedule(learning_rate: float, use_lr_scheduler: bool = False,
 
 
 class ReduceLROnPlateau:
-    """torch's ReduceLROnPlateau (mode min, relative threshold) as a host
-    controller of the LR scale (common.py:167-219): `step(eval loss)` after
-    each eval; after more than `patience` evals without improvement the
-    scale shrinks by `factor`. The scale rides in the optimizer state, the
-    counters in the checkpoint's meta (`state_dict`)."""
+    """torch's ReduceLROnPlateau (mode min) as a host controller of the LR
+    scale (common.py:167-219); its counters ride in the checkpoint's meta."""
 
     def __init__(self, factor: float = 0.5, patience: int = 10, threshold: float = 1e-4,
                  cooldown: int = 0, min_scale: float = 0.0, init_scale: float = 1.0):
@@ -181,15 +160,11 @@ class ReduceLROnPlateau:
 
 
 class Optimizer:
-    """AdamW under a schedule of the update count (a callable or a float), as
-    make_optimizer builds the JAX one (common.py:222-271):
-      * `groups` = [(label, params, lr scale, weight decay)]: an adamw per
-        label under multi_transform; None: one over `params`;
-      * `max_grad_norm`: a global-norm clip first; `plateau`: its scale
-        multiplies every update;
-      * `accumulate_every` k > 1: `step` every mini-step keeps the running
-        mean of k gradients (MultiSteps' Welford mean), updating once per k.
-    `count` is the updates applied (the schedule's count)."""
+    """AdamW under a schedule of the update count, as make_optimizer builds
+    the JAX one (common.py:222-271): `groups` [(label, params, lr scale,
+    weight decay)] under multi_transform; `max_grad_norm` clips first;
+    `plateau` scales every update; `accumulate_every` k keeps MultiSteps'
+    running mean and updates once per k. `count` is the updates applied."""
 
     def __init__(self, params, schedule, weight_decay: float,
                  max_grad_norm: Optional[float] = None, *, groups=None,
@@ -277,16 +252,10 @@ class Optimizer:
         return self._adam_prefixes()[0][0] + "0/count"
 
     def state_dict(self, module: torch.nn.Module) -> dict:
-        """The state as flat numpy arrays named as flax's to_state_dict names
-        the optax state: per adamw chain "0/count" (int32), "0/mu/<flax
-        path>" and "0/nu/<flax path>" (exp_avg and exp_avg_sq in the flax
-        layout, Dense kernels [in, out]) and, under a schedule, "2/count";
-        each chain under "inner_states/<label>/inner_state/" with groups,
-        "1/" after the clip, "0/" before the plateau's "1/scale", and
-        everything under "inner_opt_state/" beside MultiSteps' "mini_step",
-        "gradient_step" and "acc_grads/<flax path>". `module` names the
-        parameters; a parameter not yet updated has zero moments, as
-        optax's init gives them."""
+        """The state as flat numpy arrays under the names flax's
+        to_state_dict gives the optax state ("0/mu/<flax path>", "0/count", the
+        multi_transform, clip, plateau and MultiSteps prefixes). A parameter not
+        yet updated has zero moments, as optax's init gives them."""
         count = np.asarray(self.count, np.int32)
         named = self._named(module)
         out = {}
@@ -388,11 +357,9 @@ def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
 
 
 def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_every: int):
-    """The JAX trainers' chunked loop (transformer.py:536-537, :579-613; hidvae.py:634, :708-710):
-    steps start_iter .. start_iter + n_steps - 1 in chunks of max(1, min(log_every, *cadences,
-    n_steps)), the last ragged. Yields (first, end, fired) per chunk: `fired` the indices of
-    `cadences` whose multiple the step count crosses (first // every != end // every), or all at
-    the run's end."""
+    """The JAX trainers' chunked loop (transformer.py:536-613; hidvae.py:634-710):
+    chunks of max(1, min(log_every, *cadences, n_steps)) steps. Yields (first, end, fired),
+    `fired` the indices of the cadences the chunk crosses, or all at the run's end."""
     chunk = max(1, min([log_every, *cadences, n_steps]))
     end = start_iter + n_steps
     it = start_iter
@@ -409,12 +376,9 @@ META_KEYS = ("model_config", "metrics", "plateau")  # the payload keys meta.json
 
 
 def save_checkpoint(save_dir: str, name: str, payload: dict) -> str:
-    """Write `payload` as the exported checkpoint `save_dir/name` (the JAX
-    package's save_checkpoint, common.py:274-303, in the export format):
-    every flat dict of arrays under its payload key ("params/<flax path>",
-    "opt_state/<to_state_dict name>", "batch_stats/..."), scalars as 0-d
-    arrays ("step" int32), and the META_KEYS entries as meta.json. Returns
-    the directory's absolute path."""
+    """Write `payload` as the exported checkpoint `save_dir/name`
+    (common.py:274-303): flat dicts of arrays under their payload key, scalars
+    as 0-d arrays and the META_KEYS entries as meta.json. Returns its path."""
     from hidvae_tpu_torch.bridge import write_export
 
     path = os.path.abspath(os.path.join(save_dir, name))
@@ -432,12 +396,9 @@ def save_checkpoint(save_dir: str, name: str, payload: dict) -> str:
 
 def restore_checkpoint(path: str, module: torch.nn.Module,
                        optimizer: Optional[Optimizer] = None) -> tuple:
-    """Restore a stage-2 checkpoint into `module` (leniently, as
-    `restore_export`) and `optimizer` (its "opt_state/..." leaves), as the
-    JAX trainer restores {params, opt_state, step} (transformer.py:400-414).
-    A checkpoint without optimizer state (a params-only export) keeps the
-    optimizer fresh, with a warning, as JAX's lenient restore keeps its
-    initialized leaves. Returns (step, meta); step 0 when not recorded."""
+    """Restore a stage-2 checkpoint into `module` (as `restore_export`)
+    and `optimizer` (transformer.py:400-414); without optimizer state the
+    optimizer stays fresh, with a warning. Returns (step, meta)."""
     from hidvae_tpu_torch.bridge import load_export_arrays
 
     log = logging.getLogger("hidvae_tpu_torch.checkpoint")
@@ -458,10 +419,9 @@ def restore_checkpoint(path: str, module: torch.nn.Module,
 
 def restore_export(path: str, module: torch.nn.Module, *,
                    mismatch_tolerance: float = 0.1) -> dict:
-    """Load an exported checkpoint into `module` leniently, as JAX's restore_checkpoint
-    (common.py:306-407): a leaf the export lacks or holds at another shape keeps its value with
-    a warning; entries the module lacks are dropped. More than max(mismatch_tolerance * param
-    leaves, 8) bad param leaves mean another model: ValueError. Returns the export's meta."""
+    """Load an export into `module` leniently (common.py:306-407): a leaf missing or of
+    another shape keeps its value with a warning; more than max(mismatch_tolerance * leaves, 8)
+    bad leaves raise ValueError. Returns the export's meta."""
     from hidvae_tpu_torch.bridge import flax_to_state_dict, load_export, state_dict_to_flax
 
     log = logging.getLogger("hidvae_tpu_torch.checkpoint")
@@ -598,11 +558,9 @@ def load_checkpoint_model_config(path: str):
 
 
 def reconcile_vae_config(pretrained_path: str, requested: dict, logger=None) -> dict:
-    """Overlay the checkpoint's recorded structural config onto the requested
-    one. Any key the checkpoint's meta.json records (not null) wins, and
-    every difference is logged; keys it does not record keep the requested
-    values. Legacy meta files stored values as strings ("768", "true"):
-    they are normalized before the comparison."""
+    """The checkpoint's recorded structural config over the requested one:
+    recorded keys win, each difference logged; legacy string values ("768",
+    "true") are normalized first."""
     log = logger or logging.getLogger("hidvae_tpu_torch.checkpoint")
     saved = load_checkpoint_model_config(pretrained_path)
     if not saved:
@@ -653,12 +611,9 @@ def tokenizer_sem_cols(tokenizer):
 
 
 def audit_rebuilt_corpus(tokenizer, corpus_ids, stage1_checkpoint, log=None):
-    """Diversity audit of a rebuilt corpus table and collapse guard against
-    the stage-1 checkpoint's recorded (semantic-tuple) repetition rate.
-
-    Returns (div_full, div_sem): diversity over full ID tuples and over the
-    semantic digits alone; the guard compares semantic to semantic. Raises
-    RuntimeError on a contradiction; checkpoints with no recorded rate pass."""
+    """Diversity of a rebuilt table and the collapse guard against the
+    stage-1 checkpoint's recorded repetition rate. Returns (div_full, div_sem);
+    raises RuntimeError on a contradiction."""
     ids = np.asarray(corpus_ids)
     sem_cols = tokenizer_sem_cols(tokenizer)
     div = id_diversity_metrics(ids, tokenizer.codebook_size, tokenizer.n_layers,
@@ -681,10 +636,7 @@ def audit_rebuilt_corpus(tokenizer, corpus_ids, stage1_checkpoint, log=None):
 
 def corpus_collapse_error(recorded_rep, div: dict):
     """An error message when a rebuilt table's diversity contradicts the
-    checkpoint's recorded repetition rate, else None: a recorded rate under
-    0.1 against a rebuilt one over 0.5 means the frozen stage-1 model was
-    rebuilt with other semantics than it was trained with. Tokenizers that
-    recorded a high rate of their own pass."""
+    recorded repetition rate (under 0.1 recorded, over 0.5 rebuilt), else None."""
     if recorded_rep is None or recorded_rep >= 0.1:
         return None
     if div["repetition_rate"] <= 0.5:

@@ -1,15 +1,9 @@
-"""Device-resident training data (counterpart of hidvae_tpu/train/device_data.py).
-Stage 1: the corpus (features, tag embeddings and indices) lives on the
-device and each step gathers items drawn uniformly with replacement
-(PARITY.md deviation 6). Stage 2: the history table lives on the device and
-each step samples rows, random-crops (history + target) windows and
-tokenizes them by a gather from the corpus table. Every draw comes from an
-explicit torch.Generator; `random_crop_windows` is split into the draw
-(`crop_uniforms`) and a pure function of the uniforms, so a test can feed
-JAX's numbers. Mining: `harvest_duplicate_pairs` draws a pool of colliding
-pairs from an audit's table (host numpy), and `DeviceItemData.sample` puts
-pair rows from it at the head of each batch.
-"""
+"""Device-resident training data (counterpart of
+hidvae_tpu/train/device_data.py): the stage-1 corpus, gathered with
+replacement each step (PARITY.md deviation 6), and the stage-2 history
+table, sampled, random-cropped and tokenized by gather. Draws come from an
+explicit generator, or the uniforms are handed in. `harvest_duplicate_pairs`
+draws the mining pool from an audit's table."""
 
 from typing import NamedTuple, Optional
 
@@ -79,13 +73,9 @@ def crop_uniforms(generator: torch.Generator, batch: int, device):
 
 
 def random_crop_windows(u1, u2, items, fut, min_len: int = 3):
-    """Random-crop (history + target) windows (device_data.py:87-125) from
-    uniforms u1, u2 [B] in [0, 1).
-
-    items [B, N] int32 (-1 padded), fut [B]. Each row's full sequence is
-    history ++ [target]; the window length is U{min_len .. len+1} (from u1)
-    and its start U{0 .. len+1-win} (from u2); the window's last element is
-    the new target. Rows no longer than min_len are left unchanged."""
+    """Random-crop (history + target) windows (device_data.py:87-125)
+    from uniforms u1, u2 [B]: length U{min_len .. len+1}, start U{0 ..
+    len+1-win}, the window's last element the new target."""
     b, n = items.shape
     lengths = torch.sum(items >= 0, dim=1).to(torch.int32)
     full_len = lengths + 1
@@ -132,10 +122,8 @@ def tokenize_on_device(cached_ids, user_ids, items, fut):
 
 
 def harvest_duplicate_pairs(corpus_ids, split_globals, pool_size: int, np_rng):
-    """A pool [pool_size, 2] int32 of item pairs colliding in the audit's table `corpus_ids` [N,
-    D], as positions in the training split `split_globals` (sorted global indices; pairs leaving
-    it dropped), adjacent items of a tuple in index order; resampled with replacement from
-    `np_rng` when fewer, subsampled when more; None without a collision
+    """A pool [pool_size, 2] int32 of training-split pairs colliding in the table
+    `corpus_ids`, resampled from `np_rng` to the pool's size; None without a collision
     (device_data.py:150-192)."""
     _, inverse, counts = np.unique(np.asarray(corpus_ids), axis=0, return_inverse=True,
                                    return_counts=True)

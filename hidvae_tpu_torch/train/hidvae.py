@@ -1,49 +1,21 @@
 """Stage-1 HiD-VAE trainer (counterpart of hidvae_tpu/train/hidvae.py).
 
-`train` takes the JAX trainer's gin surface (every keyword of :229-303 with
-its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
-  * reads the train, eval and all item splits (:317-330), reconciles the
-    tag levels with the depth and, with the focal loss, remaps rare tags
-    (<save_dir_root>/special_tags_files/rare_tags.npz) and takes the class
-    frequencies after the remap (:338-376);
-  * builds the HRqVae (`build_model`; AMP: bf16 MLP and tag-head products)
-    with seeded weights, and restores a checkpoint of this trainer (params,
-    batch statistics, optimizer state and counts, step, plateau counters,
-    mining pool; :484-522) or k-means-initializes the codebooks on up to
-    20,000 items (:523-532);
-  * builds the optimizer (`build_optimizer`: cosine or step schedule,
-    layer-specific tag-head rates, plateau scale, accumulation counted in
-    mini-steps, :440-479);
-  * trains in the JAX chunks (`chunk_events`, :634): each mini-step's
-    generator is a function of (seed, step) (PARITY.md deviation 13); it
-    samples on the device and runs the train forward (Gumbel 0.2, dropout,
-    mixup) and backward (:684-706);
-  * with `sem_id_mining` (:555-629, :747-761): each batch starts with
-    int(batch_size * sem_id_mining_frac) // 2 pairs from a pool of
-    sem_id_mining_pool pairs, seeded uniform and re-harvested at every audit
-    from the colliding pairs (`harvest_duplicate_pairs`); the model pushes
-    them apart (`sem_id_mining_margin`, `_isolate`); the pool is saved and
-    restored with the checkpoints;
-  * at eval_every or the end: eval losses, test-time-augmented tag accuracy,
-    the plateau step and the corpus audit through `rq_assign`, whose
-    repetition rate gates the quality checkpoint (:711-791); at
-    save_model_every or the end: `latest` (:792-801);
-  * draws the plots and writes train.log.
-Checkpoints are exports (arrays.npz, meta.json with the model_config and
-metrics.repetition_rate) that `restore_export`, `reconcile_vae_config`,
-`from_artifacts` and stage 2 read. `ensemble_predictions`,
-`use_concatenated_ids`, `use_interleaved_ids` and `wandb_logging` are
-ignored, as in JAX.
+`train` takes the JAX trainer's gin surface (:229-303, same defaults) and
+`device` (`cuda` unless given). As JAX it reads the splits, reconciles the
+tag levels and remaps rare tags (:317-376); builds the HRqVae and restores
+a checkpoint or k-means-initializes the codebooks (:484-532); builds the
+optimizer (:440-479); trains in the JAX chunks, each mini-step's generator
+a function of (seed, step) (PARITY.md deviation 13); with `sem_id_mining`
+starts each batch with pairs from a pool re-harvested at every audit
+(:555-629, :747-761); evaluates, audits the corpus through `rq_assign` and
+saves `latest` at its cadences (:711-801). Checkpoints are exports
+(arrays.npz, meta.json). `ensemble_predictions`, `use_concatenated_ids`,
+`use_interleaved_ids` and `wandb_logging` are ignored, as in JAX.
 
-Under a process group (torchrun) the run is data-parallel over every rank,
-as JAX puts every device on 'data' (:541-553, :636-640): each rank computes
-its `shard_rows` of the global batch; the model couples the parts where the
-loss needs the whole batch, gradients are summed in one all-reduce, and the
-parameters stay equal. `split_batches=False` makes batch_size per rank.
-Evals run whole; audits split each chunk over the ranks; k-means runs on
-rank 0 and is broadcast; rank 0 writes the log, remap, checkpoints and
-plots. As in JAX there is no stage-1 tensor parallelism.
-"""
+Under a process group the run is data-parallel over every rank (:541-553):
+each rank computes its `shard_rows` of the global batch, the model couples
+the terms that need the whole batch, gradients are summed in one
+all-reduce; rank 0 writes the log, remap, checkpoints and plots."""
 
 import contextlib
 import logging
@@ -145,11 +117,9 @@ def step_rngs(seed: int, step: int, device):
 def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T,
                     n_mined_pairs: int = 0):
     """One mini-step: the train forward (the first 2 * n_mined_pairs rows
-    mined pairs), backward and `optimizer.step()` (an update every
-    gradient_accumulate_every mini-steps). With `rows` the inputs are this
-    rank's rows of the split batch and the gradients are summed over the
-    ranks before the optimizer. Returns the step's metrics (the whole
-    batch's) as 0-d device tensors (emb_norms [L]), not synced."""
+    mined pairs), backward (gradients summed over the ranks with `rows`) and
+    `optimizer.step()`. Returns the whole batch's metrics as 0-d device
+    tensors (emb_norms [L]), not synced."""
 
     def train_step(x, tags_emb, tags_indices, generator, host, rows=None):
         def mixup(level, batch):
@@ -215,10 +185,9 @@ def _to_device(batch, has_tags, device):
 
 def _run_eval(eval_step, tta_predict, eval_dataset, batch_size, has_tags, eval_batches,
               device, tta_seed):
-    """Row-weighted eval losses over the eval split's in-order batches and
-    the test-time-augmented tag accuracy per level (hidvae.py:823-864).
-    Every batch's augmentation noise comes from one generator seeded with
-    `tta_seed`, as the JAX trainer hands every batch the same key."""
+    """Row-weighted eval losses over the eval split in order and the
+    test-time-augmented tag accuracy per level (hidvae.py:823-864), every
+    batch's noise from one generator seeded with `tta_seed`, as in JAX."""
     sums, n = {}, 0
     tta_correct = tta_valid = None
     for bi, batch in enumerate(eval_dataset.iter_eval_batches(batch_size)):
@@ -375,15 +344,12 @@ def train(
     sem_id_mining_isolate=False,
     device=None,
 ):
-    """Train the HiD-VAE as `python train_hidvae.py CONFIG.gin` does (module docstring).
-    `iterations` counts updates of gradient_accumulate_every mini-steps, which the step,
-    cadences and log count. Returns {"model", "optimizer", "step", "save_dir", "history",
-    "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths", "data" (the device
-    corpus, tags remapped, the last pool), "class_counts", "n_pair_rows", "mining_pool_start"
-    (numpy; None without mining), "corpus_ids" (the newest audit's table or None), "mesh"};
-    history holds the JAX trainer's keys, ms_per_step (host clock a mini-step; evals and saves
-    left out), mined_pair_collision_rate, mining_pool_refreshed (the audits that replaced the
-    pool) and collective_bytes_per_step (this rank's, a mini-step)."""
+    """Train the HiD-VAE as `python train_hidvae.py CONFIG.gin` does.
+    `iterations` counts updates. Returns {"model", "optimizer", "step", "save_dir", "history",
+    "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths", "data",
+    "class_counts", "n_pair_rows", "mining_pool_start", "corpus_ids", "mesh"}; history holds
+    the JAX trainer's keys, ms_per_step, mined_pair_collision_rate, mining_pool_refreshed and
+    collective_bytes_per_step (this rank's, a mini-step)."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{run_stamp(mesh, device)}")

@@ -1,9 +1,5 @@
-"""Explicit k-means codebook initialization (counterpart of
-hidvae_tpu/train/init.py): encode up to `max_items` items, then level by
-level run k-means on the current residual, write the centroids into the
-level's codebook, quantize with the level's effective codebook (SimVQ
-projection, normalization) and subtract. Plain torch, as the JAX pass is
-plain XLA."""
+"""K-means codebook initialization level by level on the residuals
+(counterpart of hidvae_tpu/train/init.py)."""
 
 from typing import Optional, Sequence
 

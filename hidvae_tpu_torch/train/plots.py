@@ -1,11 +1,6 @@
 """End-of-run plots of the trainers (counterpart of
-hidvae_tpu/train/plots.py): stage 1's loss, tag-accuracy, embedding-norm,
-codebook-usage and ID-diversity curves (`plot_hidvae_history`); the plain
-RQ-VAE's loss curves (`plot_rqvae_history`); stage 2's
-train and eval loss curves and the full eval's hit@K and NDCG@K curves of
-the whole ID tuple (`plot_transformer_history`). matplotlib is imported when a plot is drawn, not with the module: a
-machine without it trains all the same, and the trainer logs the failure
-as a warning (no metric depends on the plots)."""
+hidvae_tpu/train/plots.py). matplotlib is imported when a plot is drawn; a
+machine without it trains all the same, and the trainer logs the failure."""
 
 import os
 

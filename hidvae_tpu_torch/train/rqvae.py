@@ -1,38 +1,16 @@
-"""Stage-1 trainer of the plain RQ-VAE (counterpart of hidvae_tpu/train/rqvae.py),
-the TIGER baseline's tokenizer.
+"""Stage-1 trainer of the plain RQ-VAE, the TIGER baseline's tokenizer
+(counterpart of hidvae_tpu/train/rqvae.py).
 
-`train` takes the JAX trainer's gin surface (every keyword of :40-75 with
-its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
-  * reads the processed dataset's train, eval and all item splits through
-    `load_or_build` (:87-100); refuses items of another width than
-    vae_input_dim before any step (JAX fails at the reconstruction loss);
-  * builds the RqVae (`build_model`; AMP: bf16 products) with seeded
-    weights, and restores a checkpoint of this trainer (params, optimizer
-    state and count, step; :143-156) or k-means-initializes the codebooks
-    on up to 20,000 items (:157-162);
-  * builds the ungrouped `make_optimizer` (AdamW, accumulation counted in
-    mini-steps, the optional clip), its state named as optax names it;
-  * trains in the JAX chunks (`chunk_events`, :234): each mini-step's
-    generator is a function of (seed, step) (PARITY.md deviation 13); it
-    samples with replacement on the device and runs the train forward
-    (Gumbel 0.2) and backward (:262-276);
-  * at eval_every or the end: eval losses (length-weighted, capped by
-    eval_batches) and the corpus audit through `rq_assign`, with the dedup
-    column's largest rank under use_dedup_dim (:278-320); at
-    save_model_every or the end: `checkpoint_{it - 1}`, re-audited unless
-    the chunk audited (:322-345);
-  * draws the plots and writes train.log.
-Checkpoints are exports (arrays.npz: step, params, opt_state; meta.json:
-the model_config, repetition_rate, rqvae_entropy) that stage 2's plain
-route (use_h_tokenizer = False) and `from_artifacts` read. `wandb_logging`
-is ignored, as in JAX.
-
-Under a process group the run is data-parallel as the HiD-VAE trainer's
-(rqvae.py:169-179, :233-252): each rank computes its rows of the global
-batch, the loss terms are whole-batch means, gradients are summed before
-the optimizer (the clip sees the global gradient), evals run whole, audits
-split each chunk, and rank 0 writes the log, checkpoints and plots.
-"""
+`train` takes the JAX trainer's gin surface (:40-75, same defaults) and
+`device` (`cuda` unless given). As JAX it reads the splits (:87-100),
+refusing items of another width than vae_input_dim before any step (JAX
+fails at the reconstruction loss); restores a checkpoint or
+k-means-initializes the codebooks (:143-162); trains in the JAX chunks
+(:234-276); evaluates and audits the corpus through `rq_assign` at
+eval_every (:278-320) and saves `checkpoint_{it - 1}` (:322-345).
+Checkpoints are exports that stage 2's plain route and `from_artifacts`
+read. `wandb_logging` is ignored, as in JAX. Under a process group the run
+is data-parallel as the HiD-VAE trainer's (rqvae.py:169-179, :233-252)."""
 
 import contextlib
 import logging
@@ -103,11 +81,9 @@ def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_e
 
 
 def make_train_step(model, optimizer, gumbel_t: float = GUMBEL_T):
-    """One mini-step: the train forward, backward and `optimizer.step()`
-    (an update every gradient_accumulate_every mini-steps). With `rows` x is
-    this rank's rows of the split batch and the gradients are summed over
-    the ranks before the optimizer. Returns the step's metrics (the whole
-    batch's) as 0-d device tensors (emb_norms [L]), not synced."""
+    """One mini-step: the train forward, backward (gradients summed over
+    the ranks with `rows`) and `optimizer.step()`. Returns the whole batch's
+    metrics as 0-d device tensors, not synced."""
 
     def train_step(x, generator, rows=None):
         optimizer.zero_grad()
@@ -151,11 +127,9 @@ def _run_eval(eval_step, eval_dataset, batch_size, eval_batches, device):
 
 def audit_diversity(model, index_feats, *, n_layers, codebook_size, use_dedup_dim, device,
                     mesh=None):
-    """The corpus ID audit (rqvae.py:292-301): every item through the
-    encoder and rq_assign (each chunk split over `mesh`'s data ranks); the
-    diversity of the semantic columns and, with the dedup column, the
-    largest number of items sharing one tuple. Returns (diversity, the
-    table as numpy)."""
+    """The corpus ID audit (rqvae.py:292-301) through the encoder and
+    rq_assign, each chunk split over `mesh`'s data ranks. Returns (diversity,
+    the table as numpy)."""
     tokenizer = SemanticIdTokenizer(model, n_layers=n_layers, codebook_size=codebook_size,
                                     use_dedup_dim=use_dedup_dim, device=device)
     corpus = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
@@ -203,12 +177,10 @@ def train(
     make_plots=True,
     device=None,
 ):
-    """Train the plain RQ-VAE as `python train_rqvae.py CONFIG.gin` does (module docstring).
-    `iterations` counts updates of gradient_accumulate_every mini-steps, which the step,
-    cadences and log count. Returns {"model", "optimizer", "step", "save_dir", "history",
-    "saved_paths", "data" (the device corpus), "corpus_ids" (the newest audit's table or None),
-    "mesh"}; history holds the JAX trainer's keys, ms_per_step (host clock a mini-step; evals,
-    audits and saves left out) and collective_bytes_per_step (this rank's, a mini-step)."""
+    """Train the plain RQ-VAE as `python train_rqvae.py CONFIG.gin` does.
+    `iterations` counts updates. Returns {"model", "optimizer", "step", "save_dir", "history",
+    "saved_paths", "data", "corpus_ids", "mesh"}; history holds the JAX trainer's keys,
+    ms_per_step and collective_bytes_per_step."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")

@@ -1,12 +1,7 @@
-"""Host-side tag preprocessing for stage-1 training (a copy of
-hidvae_tpu/train/tags.py, plain numpy): tag levels truncated or padded to
-the quantizer depth, and the rare-tag remap: classes seen fewer than
-`rare_tag_threshold` times (but at least once) collapse into one trailing
-special class and the others are renumbered in their original order. The
-remap must reproduce exactly, or the stage-2 configs' tag class counts
-drift. The class frequencies for focal weighting are taken after the remap
-(PARITY.md deviation 3).
-"""
+"""Host-side tag preprocessing for stage 1 (a copy of
+hidvae_tpu/train/tags.py): tag levels fitted to the quantizer depth, and
+the rare-tag remap (rare classes collapse into one trailing class), which
+must reproduce exactly (PARITY.md deviation 3)."""
 
 from typing import Dict, List, Tuple
 

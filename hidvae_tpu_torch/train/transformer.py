@@ -1,40 +1,22 @@
 """Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py).
 
-`train` takes the JAX trainer's gin surface (every keyword of :193-246 with
-its default) and `device` (`cuda` unless given; no CPU fallback). As JAX:
-  * reads the processed dataset's items and its train (random-cropped
-    windows), eval and test splits (:284-301);
-  * rebuilds the frozen stage-1 tokenizer from an exported checkpoint on
-    either route (`_build_tokenizer`, :51-190), sweeps the corpus through
-    `rq_assign` (:331) and audits it against the recorded repetition (:342);
-  * with `pretrained_decoder_path`, adopts its structural config, refuses
-    another sem_id_dim (:345-370) and restores params, AdamW state and step
-    (:400-414);
-  * trains (`run_loop`): each step's generator is derived from (seed, global
-    step) (:542), so a resumed run replays the sample, crop and dropout
-    stream;
-  * in the JAX chunks (`chunk_events`, :536-537, :612-613): the partial
-    eval (:615-636), the full generation eval (`full_eval`, hit@K and
-    NDCG@K, :638-648) and checkpoints with the model_config (:650-672);
-  * ends with the TEST eval (:674-685), the plots and train.log.
-`train_arrays` runs the same loop over in-memory arrays and a HiD-VAE.
+`train` takes the JAX trainer's gin surface (:193-246, same defaults) and
+`device` (`cuda` unless given). As JAX it reads the splits (:284-301);
+rebuilds the frozen stage-1 tokenizer from an export (`_build_tokenizer`),
+sweeps the corpus through `rq_assign` and audits it (:331-342); adopts a
+pretrained decoder's config and state (:345-414); trains (`run_loop`), each
+step's generator derived from (seed, step) (:542), with the partial eval,
+the generation eval (`full_eval`) and checkpoints in the JAX chunks
+(:612-672); ends with the TEST eval, plots and train.log. `train_arrays`
+runs the loop over in-memory arrays. Contexts of at least 2048 tokens take
+the flash route; `remat` rematerializes every block; `wandb_logging` and
+`model_jagged_mode` are ignored, as in JAX.
 
-Self-attention takes the flash route (CUDA kernels on the card) where JAX
-takes its flash kernel: contexts of at least 2048 tokens; a head width the
-kernels lack is refused before the first step on CUDA. `remat`
-rematerializes every block. `wandb_logging` and `model_jagged_mode` are
-ignored, as in JAX.
-
-Multi-GPU (:416-464): both loops run over `make_mesh(n_model=n_model_shards)`
-on the process group (torchrun). Every rank draws the global batch, crops
-and dropout masks from the step's generator and keeps its rows
-(`shard_rows`), so any mesh replays the one-device stream. n_model_shards
-k > 1 cuts the ID table, `out_proj` and the FF kernels over k model ranks.
-Gradients are averaged over the data ranks; the clip sums a cut leaf's
-squares over the model ranks; evals split their batches. `split_batches=
-False` multiplies the batch by n_data. Rank 0 writes the log, plots and
-whole-array checkpoints, which resume on any mesh.
-"""
+Multi-GPU (:416-464): both loops run over `make_mesh(n_model=
+n_model_shards)`; every rank draws the global batch from the step's
+generator and keeps its rows; model ranks cut the ID table, `out_proj` and
+the FF kernels; gradients are averaged over the data ranks; rank 0 writes
+whole-array checkpoints, which resume on any mesh."""
 
 import contextlib
 import logging
@@ -122,13 +104,10 @@ def _build_tokenizer(
     device=None,
     seed=42,
 ):
-    """The frozen stage-1 model restored from the export `pretrained_rqvae_path` and its tokenizer
-    on `device`. Structural VAE values are first reconciled with the checkpoint's model_config
-    (checkpoint values win, loudly), so a gin that omits e.g. vae_codebook_normalize keeps the
-    quantizer's semantics; then the HiD-VAE (H route) or plain RQ-VAE is built in eval mode and
-    restored leniently, BatchNorm statistics included. The JAX function's training-only
-    arguments change nothing in eval and are not taken. Without a path the model keeps seeded
-    weights (from `seed`), as JAX keeps its init."""
+    """The frozen stage-1 model restored from the export `pretrained_rqvae_path`, and its
+    tokenizer on `device`. Structural VAE values are reconciled with the checkpoint's
+    model_config first (checkpoint values win, loudly); the model is restored leniently in eval
+    mode. Without a path it keeps seeded weights (from `seed`), as JAX keeps its init."""
     rec = {
         "input_dim": vae_input_dim,
         "embed_dim": vae_embed_dim,
@@ -249,10 +228,9 @@ def device_batches(data: DeviceSeqData, batch_size: int):
 @torch.no_grad()
 def eval_loss(model, table, batches, eval_batches: Optional[int] = None,
               mesh: Optional[Mesh] = None):
-    """Row-weighted mean eval loss over `batches` of (user ids, histories, targets), in order
-    (transformer.py:615-636), and the first batch's debug metrics (length quantiles, per-digit
-    losses, "eval_" keys). On a mesh each data rank takes its rows of every batch after the
-    first (run whole) and the sums are all-reduced. Returns (loss, debug metrics)."""
+    """Row-weighted mean eval loss over `batches` of (users, histories, targets)
+    (transformer.py:615-636) and the first batch's debug metrics; on a mesh the data ranks split
+    every batch after the first. Returns (loss, debug metrics)."""
     total, rows, dbg = 0.0, 0, {}
     for bi, arrays in enumerate(batches):
         if eval_batches is not None and bi >= eval_batches:
@@ -288,11 +266,10 @@ def _pad_rows(arrays, n: int):
 @torch.no_grad()
 def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
               prefix_tries=None, log=None, mesh: Optional[Mesh] = None):
-    """Constrained-generation eval (transformer.py:723-752): each in-order batch of `eval_seq` (a
-    ragged last one padded by `_pad_rows`) is tokenized by gather, generated by `generate(batch,
-    prefix_index, prefix_tries)` and its valid rows scored by hit@K and NDCG@K per digit and
-    prefix; `log(str)` gets three sample predictions. On a mesh each data rank generates its
-    rows and the tuples are gathered. Returns the metric dict."""
+    """Constrained-generation eval (transformer.py:723-752): each batch of `eval_seq`
+    tokenized by gather, generated by `generate(batch, prefix_index, prefix_tries)` and scored
+    by hit@K and NDCG@K per digit and prefix; on a mesh the data ranks split the rows. Returns
+    the metric dict."""
     topk = TopKAccumulator(ks=list(EVAL_KS))
     ndcg = NDCGAccumulator(ks=list(EVAL_KS))
     table, index = tokenizer.cached_ids, tokenizer.prefix_index
@@ -330,14 +307,10 @@ def _sync(device):
 def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
              log_every: int, events=(), log=None, mesh: Optional[Mesh] = None) -> dict:
-    """Steps start_iter .. start_iter + iterations - 1, each with `step_generator(seed, step)`, in
-    the JAX chunks (`chunk_events` over log_every and the cadences of `events`). At a chunk's
-    end its losses, kept on the device, are read back in one sync and the last logged beside the
-    window mean of the last LOSS_WINDOW (:576-587); then each (every, fn) of `events` whose
-    cadence it crosses is called with the step count. On a mesh each step computes this data
-    rank's rows (`shard_rows`, a RowShard of the generator) and logs the data ranks' mean.
-    Returns the history: iterations, train loss, ms per step (events left out), window mean and
-    collective bytes per step."""
+    """Steps start_iter .. start_iter + iterations - 1, each with `step_generator(seed,
+    step)`, in the JAX chunks; at a chunk's end the losses are read back in one sync and logged
+    with the window mean (:576-587), then each (every, fn) of `events` whose cadence the chunk
+    crosses is called. On a mesh each step computes this rank's rows. Returns the history."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
@@ -458,13 +431,10 @@ def train(
     n_model_shards=1,
     device=None,
 ):
-    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin` does (module
-    docstring); the tag loss weights are logged, not used. Returns {"model", "optimizer",
-    "step", "tokenizer", "save_dir", "history", "saved_paths", "mesh", "layout"}; history holds
-    the JAX trainer's keys (iterations, train_loss, eval_iterations, eval_loss,
-    full_eval_iterations, full_eval_metrics, test_eval_metrics) and ms_per_step, window_mean,
-    collective_bytes_per_step, full_eval_seconds and save_seconds (host clock, read-back
-    included)."""
+    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin` does.
+    Returns {"model", "optimizer", "step", "tokenizer", "save_dir", "history", "saved_paths",
+    "mesh", "layout"}; history holds the JAX trainer's keys and ms_per_step, window_mean,
+    collective_bytes_per_step, full_eval_seconds and save_seconds."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)
     if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
@@ -690,13 +660,10 @@ def train_arrays(
     device=None,
     log=None,
 ):
-    """`train`'s loop over in-memory arrays: histories `items` [n, max_seq_len] (-1 padded),
-    targets `fut` and user ids `users` over the catalog `item_features`, tokenized by the frozen
-    HiD-VAE `vae`; an eval-loss pass over the eval arrays every `partial_eval_every` steps and
-    at the end; no checkpoint or generation eval. `log_every` sets the read-back cadence,
-    `log(str)` gets the lines. Returns {"model", "tokenizer", "optimizer", "history", "mesh",
-    "layout"} (history: iterations, train loss, ms per step, eval iterations and losses, window
-    mean, collective bytes per step); the mesh is `train`'s."""
+    """`train`'s loop over in-memory arrays (histories `items`, targets `fut`, users
+    `users` over `item_features`, tokenized by the frozen HiD-VAE `vae`), with an eval-loss pass
+    every `partial_eval_every` steps and at the end. Returns {"model", "tokenizer",
+    "optimizer", "history", "mesh", "layout"}."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)
     if attn_dropout is not None:

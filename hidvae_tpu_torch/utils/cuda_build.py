@@ -1,12 +1,7 @@
-"""Build a CUDA source into a shared library with a plain C interface and
-load it with ctypes.
-
-The library is compiled by `nvcc` at first use into hidvae_tpu_torch/_build/
-(ignored by git), named after a hash of the source, the headers beside it
-(csrc/*.cuh) and the flags, so a stale build is never loaded. It is written
-under a temporary name and renamed into place, so no lock file is left
-behind by a build that was cut off. Nothing here runs when the module is
-imported."""
+"""Build a CUDA source into a shared library with a plain C interface
+and load it with ctypes: `nvcc` at first use into hidvae_tpu_torch/_build/,
+named by a hash of the source, headers and flags, written under a
+temporary name and renamed into place."""
 
 import ctypes
 import hashlib
@@ -86,11 +81,9 @@ def load_library(source_name: str) -> BuiltLibrary:
 
 
 def build_variant(source_name: str, tag: str, subs=(), source=None):
-    """Compile a variant of csrc/<source_name> (or of the file `source`): a
-    copy under $TMPDIR/<tag>, beside copies of csrc/*.cuh, with each (old,
-    new) of `subs` replaced where `old` occurs exactly once. For scripts that
-    time variants of a kernel; nothing is cached. Returns (library path,
-    nvcc's output), or (None, the end of nvcc's errors) on a failed build."""
+    """Compile a variant of csrc/<source_name> (or `source`) with each
+    (old, new) of `subs` replaced where `old` occurs once, under $TMPDIR/<tag>,
+    uncached. Returns (library path, nvcc's output), or (None, its errors)."""
     d = Path(tempfile.gettempdir()) / tag
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)

@@ -1,15 +1,7 @@
-"""Minimal gin-config-compatible parser (a copy of hidvae_tpu/utils/ginlite.py
-whose enum registry points at the port's enums).
-
-The reference drives its trainers with gin files binding `train.*`
-parameters (modules/utils.py:58-62), enums exposed by
-`@gin.constants_from_enum` (`%data.processed.RecDataset.AMAZON`). Without
-gin-config this module parses the same syntax: comments and blank lines,
-`import a.b.c` (recorded, not run), `scope.param = value` bindings with
-int / float / bool / None / quoted strings / lists / `%module.path.Enum.MEMBER`
-values. Enum references resolve through a registry of the reference's
-module paths and the port's names, so the repo's configs parse verbatim.
-"""
+"""Minimal gin-config-compatible parser (a copy of
+hidvae_tpu/utils/ginlite.py whose enum registry points at the port's
+enums): comments, imports, `scope.param = value` bindings of literals,
+lists and `%module.Enum.MEMBER` references."""
 
 import ast
 import re
@@ -121,14 +113,8 @@ def bind_to_kwargs(
     *,
     strict: bool = True,
 ) -> Dict[str, Any]:
-    """Bind a scope's parameters to fn's keyword parameters.
-
-    Unknown bindings RAISE by default — real gin-config errors on bindings
-    that match no configurable parameter (behind ref modules/utils.py:58-62),
-    and a typo'd hyperparameter silently training with the default is exactly
-    the failure that must not happen. `strict=False` downgrades to a loud
-    warning (for forward-compat parsing of configs aimed at newer surfaces).
-    """
+    """Bind a scope's parameters to fn's keyword parameters. Unknown
+    bindings raise, as gin does; `strict=False` makes them a warning."""
     import inspect
     import logging
 

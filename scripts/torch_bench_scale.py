@@ -1,18 +1,12 @@
 """Catalog-scale index build and serving bench of the PyTorch port
-(counterpart of scripts/bench_scale.py: its steps, order and widths).
-
-An untrained RQ-VAE (F 768, D 32, K 256, L 3, normalized codebooks, rotation
-trick) with k-means codebooks indexes seeded unit-norm features held on the
-card (3.1 GB at 1M). Timed: the sweep through rq_assign, the engine build,
-64-user requests (median of 7) on the trie, cap-gather and clamped-cap paths
-(caps <= 8: a speed floor only), one 1,024-user request with its host CPU
-time, and users/s by bucket (HIDVAE_KNEE_BUCKETS, default 128,256,512,1024)
-with the share of the H100's fp32 peak (67 TFLOP/s; the engine decodes in
-fp32) a bucket call's products reach (torch.utils.flop_counter).
+(counterpart of scripts/bench_scale.py: its steps, order and widths): an
+untrained RQ-VAE (F 768, D 32, K 256, L 3) indexes seeded features on the
+card; timed: the sweep, the engine build, 64-user requests on the trie,
+cap-gather and clamped-cap paths, one 1,024-user request, and users/s by
+bucket (HIDVAE_KNEE_BUCKETS) with the share of the fp32 peak.
 
 Usage: python scripts/torch_bench_scale.py [--device cpu] [n_items ...]
-(default 200000 1000000). Prints one JSON line.
-"""
+(default 200000 1000000). Prints one JSON line."""
 
 import json
 import os

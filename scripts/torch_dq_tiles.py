@@ -1,16 +1,10 @@
-"""Tile sizes of the tensor-core flash dQ kernel, measured on the card.
+"""Tile sizes of the tensor-core flash dQ kernel, measured on the card:
 
     python3 scripts/torch_dq_tiles.py
 
-Builds variants of csrc/flash_attention.cu that differ only in
-`DqTC`'s warps per block and keys per streamed tile (a copy of the source
-per variant under $TMPDIR, all nvcc builds at once), prints each variant's
-registers and spills for `flash_bwd_dq_tc_kernel`, holds its dQ against the
-plain version on two batch rows and times it (median of 10, twice) at
-B 64, H 8, N 2432, Dh 64 bf16 and at B 16, Dh 128, on the trainer's
-segment ids. The first variant is the source as it stands. Needs a CUDA
-device and nvcc.
-"""
+Builds variants of `DqTC`'s warps a block and keys a tile at once, prints
+their registers and spills, holds dQ to the plain version and times each
+at B 64, H 8, N 2432, Dh 64 bf16 and B 16, Dh 128. Needs a card and nvcc."""
 import concurrent.futures
 import ctypes
 import os

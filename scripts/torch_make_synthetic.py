@@ -1,24 +1,14 @@
-"""Write a seeded synthetic dataset (PyTorch port of the JAX package's
-scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py, with their
-arguments), from seed 42, bit for bit the JAX scripts' files:
+"""Write a seeded synthetic dataset, bit for bit the files of the JAX
+package's scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py
+(their arguments, seed 42):
 
-  large  20,000 items,    5,000 users, tag tree 16 x 8 x 4, histories 5-20
-  xl     200,000 items,  50,000 users, tag tree 32 x 8 x 8, histories 5-20
-  xxl    1,000,000 items, 100,000 users, tag tree 32 x 8 x 8, histories 5-20
-  ml32m  20,000 items,    5,000 users, tag tree 16 x 8 x 4, histories 20-200,
-         18 categorical feature columns, personal pools of 64 items
-  amazon-raw  a raw P5 drop (<root>/raw/sports/) at the Sports split's size,
-         18,357 items and 35,598 users (the JAX script's default: 12,000 x
-         12,000), for data/amazon.py
-  kuairand-raw  a raw KuaiRand-1K drop (<root>/raw/: three click logs,
-         captions, categories, video features), 20,000 + 500 videos and
-         4,000 users, for data/kuairand.py
-
-Numpy only; `xl` and `xxl` write 2.5 and 12 GB through zlib and take long.
+  large  20,000 items, 5,000 users;  xl  200,000 x 50,000;
+  xxl  1,000,000 x 100,000;  ml32m  20,000 x 5,000 with 18 categorical
+  columns;  amazon-raw  a raw P5 Sports drop (18,357 items, 35,598 users);
+  kuairand-raw  a raw KuaiRand-1K drop (20,000 + 500 videos, 4,000 users)
 
 Usage: python scripts/torch_make_synthetic.py PRESET [out_root]
-(default out_root: dataset/synthetic_<preset>, dataset/amazon, dataset/kuairand)
-"""
+(default out_root: dataset/synthetic_<preset>, dataset/amazon, dataset/kuairand)"""
 
 import csv
 import gzip

@@ -1,16 +1,11 @@
-"""Tile shapes of the rq_assign kernel, measured on the card.
+"""Tile shapes of the rq_assign kernel, measured on the card:
 
     python3 scripts/torch_rq_tiles.py [--parent OLD/rq_assign.cu]
 
-Builds variants of csrc/rq_assign.cu differing in `Cfg`'s warps a block,
-d-loop unroll and micro-tile (4 rows x C codes a lane) at once
-(cuda_build.build_variant), prints their registers and spills, and runs
-each (and --parent, an earlier source with the same C entry point) at L 3,
-K 256, B 8,192 and 1,048,576, D 32 and 64: ids and qsum bit for bit against
-the first variant, timed parent, variants, parent: 20 CUDA-graph launches
-(chip_smoke.graph_ms, twice) and one host call (median of 10 by CUDA
-events). Needs a CUDA device and nvcc.
-"""
+Builds variants of `Cfg`'s warps a block, unroll and micro-tile at once,
+prints their registers and spills, and runs each (and --parent) at L 3,
+K 256, B 8,192 and 1,048,576, D 32 and 64, bit for bit against the first,
+timed from CUDA graphs and host calls. Needs a card and nvcc."""
 import argparse
 import concurrent.futures
 import ctypes

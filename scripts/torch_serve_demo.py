@@ -1,18 +1,11 @@
-"""Serve recommendations from trained two-stage checkpoints with the PyTorch
-port (counterpart of scripts/serve_demo.py, the same arguments and lines).
-
-The port reads exported checkpoints, not Orbax directories: convert each
-checkpoint first, where the JAX package is installed, with
-scripts/export_flax_checkpoint.py. Then
+"""Serve recommendations from trained two-stage checkpoints with the
+PyTorch port (counterpart of scripts/serve_demo.py, the same arguments and
+lines). Convert Orbax checkpoints first with
+scripts/export_flax_checkpoint.py where JAX is installed, then
 
     python scripts/torch_serve_demo.py configs/decoder_synthetic.gin \
         --stage1 EXPORTED_STAGE1 --stage2 EXPORTED_STAGE2 \
-        [--users 8] [--top-k 10] [--sweep 8,32] [--device cuda]
-
-rebuilds the frozen tokenizer and decoder with
-`RetrievalEngine.from_artifacts`, serves the first test users' histories of
-the config's dataset and reports latency and hit@K. Imports no JAX.
-"""
+        [--users 8] [--top-k 10] [--sweep 8,32] [--device cuda]"""
 
 import argparse
 import sys

@@ -1,14 +1,10 @@
-"""Where the port's serve step spends its time on the card.
+"""Where the port's serve step spends its time on the card:
 
     python3 scripts/torch_serve_profile.py
 
-Builds chip_smoke.py's Amazon-width engine (seeded weights, 18,357 items),
-warms it, traces REPEATS recommend calls of 32 histories (device busy time
-per request, launches, top kernels), and times one request's parts on the
-host clock (tokenize + encoder, the beam with and without the constraint,
-the lookup, a whole recommend). The busy share is busy time over the
-unprofiled recommend. Prints one JSON object last. Needs a CUDA device.
-"""
+chip_smoke.py's Amazon-width engine, REPEATS recommend calls of 32
+histories traced (busy time, launches, top kernels) and one request's parts
+timed on the host clock. Prints one JSON object last. Needs a card."""
 
 import json
 import os

@@ -1,22 +1,13 @@
-"""Train the stage-1 HiD-VAE tokenizer with the PyTorch port from a gin config
-(counterpart of train_hidvae.py, the same gin surface). Imports no JAX.
+"""Train the stage-1 HiD-VAE tokenizer with the PyTorch port from a gin
+config (counterpart of train_hidvae.py, the same gin surface):
 
     python scripts/torch_train_hidvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides `train.pretrained_hrqvae_path`: a `latest` this trainer
-saved, or a JAX checkpoint converted with `scripts/export_flax_checkpoint.py
-SRC DST --opt-state` where JAX is installed. `--device`: `cuda` unless
-given. Checkpoints (with the model_config and the audited repetition rate,
-which torch_train_transformer.py --stage1 takes), train.log and plots land
-in `<save_dir_root>/hrqvae_<DATASET>_<time>/`, the rare-tag remap in
-`<save_dir_root>/special_tags_files/rare_tags.npz`.
-
-    torchrun --standalone --nproc-per-node N scripts/torch_train_hidvae.py CONFIG.gin ...
-
-runs data-parallel over N ranks (NCCL on cuda:LOCAL_RANK; Gloo with
-`--device cpu`), with the losses, parameters and checkpoints of one process
-at the same global batch; rank 0 writes the log, checkpoints and plots.
-"""
+`--resume` overrides `train.pretrained_hrqvae_path` (a `latest`, or a JAX
+checkpoint converted with `export_flax_checkpoint.py SRC DST --opt-state`).
+Output lands in `<save_dir_root>/hrqvae_<DATASET>_<time>/`. Under
+`torchrun --standalone --nproc-per-node N` it runs data-parallel over N
+ranks (NCCL on cuda:LOCAL_RANK; Gloo with `--device cpu`)."""
 
 import argparse
 import sys

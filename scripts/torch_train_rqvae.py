@@ -1,19 +1,11 @@
-"""Train the stage-1 plain RQ-VAE tokenizer with the PyTorch port from a gin
-config (counterpart of train_rqvae.py, the same gin surface). Imports no JAX.
+"""Train the stage-1 plain RQ-VAE tokenizer with the PyTorch port from a
+gin config (counterpart of train_rqvae.py, the same gin surface):
 
     python scripts/torch_train_rqvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides `train.pretrained_rqvae_path`: a `checkpoint_N` this
-trainer saved, or a JAX checkpoint converted with
-`scripts/export_flax_checkpoint.py SRC DST --opt-state`. `--device`: `cuda`
-unless given. Checkpoints (which torch_train_transformer.py --stage1 takes
-under `use_h_tokenizer = False`), train.log and plots land in
-`<save_dir_root>/rqvae_<DATASET>_<time>/`.
-
-    torchrun --standalone --nproc-per-node N scripts/torch_train_rqvae.py CONFIG.gin ...
-
-runs data-parallel over N ranks as torch_train_hidvae.py does.
-"""
+`--resume` overrides `train.pretrained_rqvae_path`. Output lands in
+`<save_dir_root>/rqvae_<DATASET>_<time>/`; under torchrun it runs
+data-parallel as torch_train_hidvae.py does."""
 
 import argparse
 import sys

@@ -1,24 +1,13 @@
 """Train the stage-2 decoder with the PyTorch port from a gin config
-(counterpart of train_transformer.py, the same gin surface). Imports no JAX.
+(counterpart of train_transformer.py, the same gin surface):
 
     python scripts/torch_train_transformer.py CONFIG.gin \
         [--stage1 EXPORTED_STAGE1] [--resume EXPORTED_CHECKPOINT] [--device cpu]
 
-The port reads exported checkpoints: convert Orbax ones where JAX is
-installed with scripts/export_flax_checkpoint.py (--opt-state to resume a
-JAX decoder run). `--stage1` overrides `train.pretrained_rqvae_path`,
-`--resume` `train.pretrained_decoder_path` (a `checkpoint_N` of this
-trainer, or an export with optimizer state); `--device`: `cuda` unless
-given. Checkpoints, train.log and plots land in
-`<save_dir_root>/decoder_<DATASET>_<time>/`.
-
-    torchrun --standalone --nproc-per-node N scripts/torch_train_transformer.py \
-        CONFIG.gin [--model-shards k] ...
-
-trains on a (N / k, k) mesh (NCCL on cuda:LOCAL_RANK; Gloo with `--device
-cpu`): data-parallel over N / k ranks, the decoder cut over k
-(`--model-shards` overrides `train.n_model_shards`); rank 0 writes.
-"""
+`--stage1` overrides `train.pretrained_rqvae_path`, `--resume`
+`train.pretrained_decoder_path`. Output lands in
+`<save_dir_root>/decoder_<DATASET>_<time>/`. Under torchrun with
+`--model-shards k` it trains on a (N / k, k) mesh."""
 
 import argparse
 import sys

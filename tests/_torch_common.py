@@ -85,11 +85,8 @@ def japply(module, variables, method, *args):
 
 def random_variables(module, init_args, init_kwargs=None, seed=0):
     """Flat numpy variables {collection: {path: array}} for a flax module,
-    shaped by jax.eval_shape of its init and drawn from `seed` by leaf kind:
-    no flax init is compiled, and no parameter keeps a trivial value.
-    Dense kernels N(0, 1/fan_in); biases, LayerNorm/BatchNorm shifts small
-    normals; scales 1 + small normals; embeddings, codebooks and BOS normal;
-    BatchNorm means normal and variances in [0.5, 2)."""
+    shaped by jax.eval_shape of its init and drawn from `seed` by leaf kind,
+    none trivial (kernels N(0, 1/fan_in), variances in [0.5, 2))."""
     rngs = {name: jax.random.key(i) for i, name in
             enumerate(("params", "gumbel", "dropout", "mixup"))}
     shapes = jax.eval_shape(

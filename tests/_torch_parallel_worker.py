@@ -96,11 +96,8 @@ def arrays_run(inp, **kw) -> dict:
 
 
 def fixed_step(inp, mesh, max_grad_norm=None, generator_seed=5, export=None) -> dict:
-    """One AdamW update of the seeded decoder on the saved fixed batch
-    (`export`: of the decoder restored from it, on the JAX run's batch), the
-    batch's rows split over the data ranks and the dropout drawn from a
-    seeded generator (none with `export`); the whole gradients (after the
-    clip) and params."""
+    """One AdamW update of the seeded decoder (or the `export`ed one) on the
+    saved fixed batch split over the data ranks: gradients and params."""
     c = inp["fixed" if export is None else "jax_fixed"]
     model = trainer.build_model(**c["model_kw"], dtype=torch.float32)
     opt = Optimizer(model.parameters(), inverse_sqrt_schedule(c["lr"], 3), 0.035,
@@ -159,11 +156,8 @@ def serve(inp) -> dict:
 
 
 def train_ranks(inp) -> dict:
-    """World 4: DP 4, DP 2 x TP 2 and TP 4 runs of train_arrays (fp32,
-    dropout on); DP 2 x TP 2 in bf16; a batch 4 does not divide; one fixed
-    step with and without the clip; `train` with split_batches=False and
-    evals; a TP 2 run that saves; a one-process checkpoint resumed at TP 2;
-    the JAX TP checkpoint's next update."""
+    """World 4: train_arrays at DP 4, DP 2 x TP 2 and TP 4, fixed steps,
+    `train` runs, TP saves and resumes, the JAX TP checkpoint's update."""
     out = {}
     for k in (1, 2, 4):
         out.update(prefixed(f"arrays_tp{k}", arrays_run(inp, n_model_shards=k)))
@@ -196,11 +190,9 @@ def _param_grads(module, prefix):
 
 
 def stage1_terms(inp, rows=None) -> dict:
-    """Each coupled term of the stage-1 loss on the saved global batch
-    inp["terms"], of this rank's rows under `rows` (None: one process, the
-    whole batch): its value and the gradients of its row inputs
-    ("<term>/<input>_grad", this rank's rows) and of its parameters
-    ("<term>/p/<name>", this rank's part of the sum over the ranks)."""
+    """Each coupled stage-1 term on this rank's rows of inp["terms"]
+    (`rows` None: the whole batch): its value and gradients of its row inputs
+    and parameters."""
     from hidvae_tpu_torch.models.hrqvae import FlaxBatchNorm, TagProjector
     from hidvae_tpu_torch.models.losses import (
         mixup_draw,
@@ -265,10 +257,9 @@ def stage1_terms(inp, rows=None) -> dict:
 
 
 def stage1_model_loss(inp, case, rows=None) -> dict:
-    """The HiD-VAE train loss of case["batch"] rows of the saved batch with
-    case["pairs"] mined pairs at its head (isolation on, dropout, Gumbel
-    noise and mixup drawn from one seeded generator): every metric, the
-    gradient of x (this rank's rows) and of every parameter."""
+    """The HiD-VAE train loss of case["batch"] rows with case["pairs"]
+    mined pairs (isolation, dropout, Gumbel, mixup on): every metric and
+    gradient."""
     from hidvae_tpu_torch.models.losses import mixup_draw
     from hidvae_tpu_torch.parallel.collectives import Rows
 
@@ -303,11 +294,8 @@ def stage1_model_loss(inp, case, rows=None) -> dict:
 
 
 def gather_modes(inp, rows) -> dict:
-    """The InfoNCE gradient of this rank's code rows three ways: the term
-    computed whole on every rank from "sum"-mode gathers (wrong: the ranks'
-    identical copies summed), and each rank's rows against the gathered
-    columns, its part of the mean all-reduced, with "sum"-mode column
-    gathers (right: each rank uses the columns for its own rows only)."""
+    """The InfoNCE gradient of this rank's code rows computed whole from
+    "sum" gathers (wrong) and by rows against gathered columns (right)."""
     from hidvae_tpu_torch.models.losses import tag_alignment_loss
     from hidvae_tpu_torch.ops.normalize import l2norm
     from hidvae_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_sum
@@ -341,13 +329,8 @@ def terms(inp) -> dict:
 
 
 def stage1_run(inp, name, trainer, **kw) -> dict:
-    """`train` of the stage-1 `trainer` ("hidvae" or "rqvae") on the saved
-    dataset with inp[f"{trainer}_kw"] and `kw`, its save_dir_root under
-    workdir/name; with kw["jax_batches"] ({step: global batch indices}) the
-    batches are those and dropout is off (the JAX comparison). Returns the
-    logged losses, eval metrics and audits, the newest audit's table, the
-    mining pool, params, batch statistics and the last saved path,
-    keys prefixed "name:"."""
+    """`train` of the stage-1 `trainer` on the saved dataset (JAX's batches
+    with kw["jax_batches"]): its logged results, keys prefixed "name:"."""
     from hidvae_tpu_torch.models import hrqvae
     from hidvae_tpu_torch.train import hidvae, rqvae
     from hidvae_tpu_torch.train.device_data import DeviceItemData

@@ -1,13 +1,8 @@
 """`RetrievalEngine.from_artifacts` of the port on exported checkpoints
-against the JAX package's on the Orbax checkpoints they came from, on the CPU:
-  * the converter writes, bitwise, the leaves JAX's lenient restore gives;
-  * the tracked synthetic pair (H route) and a tiny plain RQ-VAE pair give
-    equal tables, top-10 items and tuples, scores within SCORE_ATOL;
-  * a stale decoder gin heals from the meta, a legacy meta is refused by
-    both, wrong tag counts only warn;
-  * the audit and its collapse guard, the bridge's inverse and the gin
-    reader agree with JAX.
-"""
+against the JAX package's on the Orbax checkpoints, on the CPU: the
+converter's leaves, the tracked synthetic pair and a tiny plain RQ-VAE pair
+(tables, items, tuples, scores), stale and legacy metas, the audit, the
+bridge's inverse and the gin reader."""
 
 import enum
 import json

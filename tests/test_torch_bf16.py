@@ -1,18 +1,9 @@
-"""The port's retrieval model against the flax model at bf16 compute, on the
-CPU: loss, logits and every gradient, from the same bridged weights and
-batch (`dtype=torch.bfloat16` against `jnp.bfloat16`, both trainers'
-default "bf16"). At 19 tokens both attend densely; at 2,050 the port takes
-its flash route (the plain version here) while JAX on the CPU stays dense
-(attention.py:152-157); the routes differ on padded query rows, so the
-encoder is compared on valid rows, the logits whole.
-
-Tolerance: bf16 keeps 8 significant bits (2^-9), and the frameworks round
-at different places (XLA fuses chains, PyTorch rounds each op, the flash
-route keeps softmax weights in fp32), so a dozen rounded layers agree to a
-few percent of their scale. Bounds are the largest error over the largest
-magnitude of the reference array and the loss's relative error; a wrong
-weight, mask or transpose moves them by tens of percent.
-"""
+"""The port's retrieval model against the flax model at bf16 compute, on
+the CPU: loss, logits and every gradient from the same weights and batch,
+at 19 tokens (both dense) and at 2,050 (the port's flash route, compared on
+valid rows). bf16 keeps 8 significant bits and the frameworks round at
+different places, so a dozen layers agree to a few percent of their scale;
+a wrong weight, mask or transpose moves them by tens of percent."""
 
 import jax
 import jax.numpy as jnp

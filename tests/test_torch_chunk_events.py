@@ -1,10 +1,6 @@
-"""The trainers' chunked loop against JAX: events fire where the JAX trainers
-fire them. JAX runs chunks of max(1, min(log_every, every cadence, steps))
-steps and tests cadences only at chunk ends (transformer.py:536-537,
-:579-613; hidvae.py:634, :708-710); `chunk_events` is that rule, so a
-100-step run with log_every 20, partial eval 50 and saves every 30 logs,
-evaluates and saves at JAX's steps (evals at 60 and 100, not 50 and 100).
-"""
+"""The trainers' chunked loop against JAX: chunks of max(1,
+min(log_every, every cadence, steps)) steps, cadences tested at chunk ends
+(transformer.py:536-613; hidvae.py:634-710)."""
 
 import numpy as np
 import pytest
@@ -62,10 +58,8 @@ def dataset_root(tmp_path_factory):
 
 
 def test_stage2_events_fire_where_jax_fires_them(dataset_root, tmp_path, monkeypatch):
-    """100 steps, log_every 20, partial eval every 50, saves every 30: the
-    JAX trainer and the port log at 19, 39, .., 99, evaluate at 60 and 100
-    and save checkpoint_40, _60 and _100. With log_every 100 the port logs at
-    49 and 99, as the chunk of 50 puts them."""
+    """100 steps, log_every 20, eval every 50, saves every 30: both log at
+    19, 39, .., 99, evaluate at 60 and 100 and save at 40, 60 and 100."""
     monkeypatch.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache
     kw = dict(COMMON, iterations=100, log_every=20, partial_eval_every=50, save_model_every=30,
               dataset_folder=dataset_root)

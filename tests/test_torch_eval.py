@@ -1,12 +1,6 @@
-"""The stage-2 generation eval in the port against JAX, on the CPU:
-  * the metric accumulators give JAX's dicts;
-  * `full_eval` over the tracked synthetic eval split (bridged weights,
-    fp32, ragged last batch): equal hit counts, NDCG within NDCG_TOL;
-  * the one-beam search gives JAX's tuples and scores, constrained or not;
-  * Gumbel sampling, drawn from another PRNG, by distribution (chi-square
-    on the first digit against softmax(logits / T));
-  * the partial eval's debug metrics and the row padding.
-"""
+"""The stage-2 generation eval in the port against JAX, on the CPU: the
+metric accumulators, `full_eval` over the tracked synthetic eval split, the
+one-beam search, Gumbel sampling by distribution, the debug metrics."""
 
 from pathlib import Path
 from types import SimpleNamespace
@@ -83,10 +77,9 @@ class _JTokenizer:
 
 
 def test_full_eval_matches_jax():
-    """Both packages' full_eval over the 500-row eval split of the tracked
-    synthetic dataset, batch 48 (a ragged last batch of 20 rows, padded by
-    `_pad_rows` on both sides), the constrained search with caps and tries
-    of a seeded corpus table: equal hit metrics, NDCG within NDCG_TOL."""
+    """Both packages' full_eval over the tracked synthetic eval split (a
+    ragged last batch), constrained with caps and tries: equal hits, NDCG
+    within NDCG_TOL."""
     d, batch_size, n_digits = 3, 48, 8
     jm, params, tm = retrieval_pair(embedding_dim=16, attn_dim=32, num_heads=4, n_layers=2,
                                     num_embeddings=n_digits, sem_id_dim=d, max_pos=20 * d,
@@ -160,11 +153,9 @@ def _one_history(d, n=6):
 
 @pytest.mark.parametrize("temperature", [1.0, 0.5])
 def test_gumbel_sampling_draws_the_softmax(temperature):
-    """SAMPLE_DRAWS one-beam, unconstrained searches with sample=True on one
-    history: the first digit's frequencies against softmax(logits / T) of
-    the first step, by a chi-square test (bins of expected count under 5
-    pooled). The greedy search, and sampling without a generator, always
-    take the argmax."""
+    """Sampled one-beam searches: the first digit's frequencies against
+    softmax(logits / T) by chi-square; greedy and generator-less sampling take
+    the argmax."""
     d = 3
     _, _, tm = retrieval_pair(sem_id_dim=d, n_sem_layers=3, max_pos=6 * d, seed=21)
     batch = _one_history(d)

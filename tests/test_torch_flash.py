@@ -118,11 +118,9 @@ def test_kernel_plain_versions_match_library(causal):
 @pytest.mark.parametrize("b,h,n,causal", [(2, 2, 200, False), (2, 2, 200, True),
                                           (1, 3, 130, True)])
 def test_keyless_rows_match_library(b, h, n, causal):
-    """Rows with no key of their segment (queries in segments 1-3, keys in 1-2) under a nonzero
-    cotangent: every logit is the mask value, the library's weights uniform, and its backward's
-    P = exp(s - m) / l = 1/N from m and l kept apart (one logsumexp rounds back to m: P = 1, N
-    times the library's dQ and dK there). The per-kernel plain versions and flash_attention on
-    the CPU against jax.grad of the library's reference."""
+    """Rows with no key of their segment under a nonzero cotangent get the
+    library's uniform weights and P = 1/N from m and l kept apart, in the
+    per-kernel plain versions and flash_attention, against jax.grad."""
     q, k, v, do, _ = _inputs(b, h, n, False, 5 * n + h)
     rng = np.random.RandomState(n)
     seg_q = rng.randint(1, 4, (b, n)).astype(np.int32)
@@ -184,11 +182,8 @@ def _masked_input(b, n, seed):
 
 @pytest.mark.parametrize("n,use_flash", [(2101, None), (50, True)])
 def test_module_flash_route_matches_jax_dense(n, use_flash):
-    """At >= 2048 tokens (auto) or with use_flash=True the port takes the
-    flash route; the JAX module on the CPU takes its dense path. Valid query
-    rows agree: on padded query rows the flash route attends the padded keys
-    (segment 0 = 0) and the dense route does not, and neither reaches a
-    result."""
+    """At >= 2048 tokens (or use_flash=True) the port's flash route and
+    JAX's dense path agree on valid query rows."""
     jm, jvars, tm = _mha_pair()
     tm.use_flash = use_flash
     x, mask = _masked_input(2, n, n)

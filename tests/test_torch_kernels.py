@@ -147,10 +147,8 @@ def test_flash_kernels_refuse_what_they_cannot_run(cuda):
 
 
 def _segments(b, n, mode, rng):
-    """(seg_q, seg_kv, rows with no key of their segment [b, n] bool).
-    "pad": one id set for both, as the model gives them (padding 0, valid 1).
-    "cross": queries in segments 1-3, keys in 1-2: every query of segment 3
-    (and at least one per batch row) has no key of its segment."""
+    """(seg_q, seg_kv, keyless rows [b, n]): "pad" one id set as the model
+    gives them; "cross" queries in segments 1-3, keys in 1-2."""
     if mode == "pad":
         seg = torch.ones((b, n), dtype=torch.int32)
         seg[0, n - n // 3:] = 0
@@ -195,10 +193,8 @@ def _segments(b, n, mode, rng):
     (1, 1, 2432, 128, True, torch.float32, "cross"),
 ])
 def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
-    """Forward, dK/dV and dQ against the plain version's output and gradients under a nonzero
-    cotangent. A row with no key of its segment must get the library's uniform weights (O the
-    mean of V; the backward's P = exp(s - m) / l = 1/N), with and without causal masking: causal
-    blocks skip the tiles above their diagonal and must visit them for such a row."""
+    """Forward, dK/dV and dQ against the plain version under a nonzero
+    cotangent, keyless rows (uniform weights) included, causal or not."""
     from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 

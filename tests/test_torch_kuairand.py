@@ -1,12 +1,7 @@
 """The port's KuaiRand builder against the JAX package's, bitwise (every
-array, the tag-index JSON byte for byte), on fabricated drops that hit the
-pandas behaviours it reproduces: tied click counts under max_users,
-max_videos strata, duplicate category rows, videos without categories,
-NA strings, numeric-looking category columns (blanks, or made float by the
-join), tied time_ms across logs, users left with under 3 items, missing
-logs, Chinese and blank captions, extra log columns. Also the kuairand-raw
-preset against scripts/make_synthetic_kuairand.py and load_or_build.
-"""
+array, the tag-index JSON), on fabricated drops that hit the pandas
+behaviours it reproduces; the kuairand-raw preset against
+scripts/make_synthetic_kuairand.py; load_or_build."""
 
 import csv
 import filecmp
@@ -31,10 +26,8 @@ def write_csv(path, header, rows):
 
 
 def write_drop(root, layout="gaps", logs=(0, 1, 2), seed=0):
-    """A small KuaiRand drop under root/raw/ with `logs` (LOG_FILES indices).
-    `layout` sets the numeric-looking third level: "gaps" (videos without a
-    category row: the join makes it float), "blanks" (blanks make it
-    float) or "ints"."""
+    """A small KuaiRand drop under root/raw/ with `logs`; `layout` makes
+    the third level float by "gaps" or "blanks", or keeps "ints"."""
     rng = np.random.RandomState(seed)
     raw = root / "raw"
     raw.mkdir(parents=True)

@@ -1,17 +1,9 @@
-"""Duplicate-pair mining in the port's stage-1 trainer, on the CPU, against JAX:
-  * `harvest_duplicate_pairs` on seeded tables (no collision, collisions
-    outside the split, fewer and more pairs than the pool);
-  * `DeviceItemData.sample` with pair rows gathers JAX's batch from JAX's draws;
-  * HRqVae.forward with mined pairs, with and without the margin and
-    isolation: losses, the collision rate, gradients (dropout off);
-  * a JAX mining run of 2 + 2 mini-steps: its checkpoint carries the pool
-    through the converter, the port's audit harvests JAX's pool, and resumed
-    for 2 more on JAX's draws it follows JAX's run, pool included;
-  * a checkpoint without a usable pool re-seeds JAX's uniform pool
-    (hidvae.py:612-617); 2N equals N + a resumed N, bitwise.
+"""Duplicate-pair mining in the port's stage-1 trainer against JAX, on the
+CPU: the harvest, the sampler's pair rows, the forward with mined pairs
+(losses, collision rate, gradients), a JAX mining run converted and resumed
+in the port, pool re-seeding, and 2N equal to N + a resumed N.
 Tolerances: losses LOSS_RTOL; gradients and parameters REL_TOL of each JAX
-array's largest entry; BatchNorm-preceding biases as in the stage-1 tests.
-"""
+array's largest entry."""
 
 import shutil
 

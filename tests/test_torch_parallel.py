@@ -1,14 +1,7 @@
-"""The port's multi-rank serving path on Gloo CPU ranks, against one process
-and JAX:
-  * `stage2_param_layout` cuts the leaves `stage2_param_shardings` shards,
-    along the same axis, replicated where a width does not divide;
-  * on 2 ranks the sharded sweep gives the one-process table bitwise on
-    both routes, and the engine at DP 2 and at TP 2 (`shard_params`) serves
-    the one-process items (scores within SCORE_ATOL), which equal the JAX
-    engine's on a (4, 2) mesh;
-  * `dryrun_multichip(2)` and `(4)` match the one-process steps.
-Ranks are subprocesses (tests/_torch_parallel_worker.py) with a timeout.
-"""
+"""The port's multi-rank serving path on Gloo CPU ranks (subprocesses,
+tests/_torch_parallel_worker.py), against one process and JAX: the stage-2
+layout, the sharded sweep, the engine at DP 2 and TP 2 against the JAX
+engine on a (4, 2) mesh, and `dryrun_multichip`."""
 
 import jax.numpy as jnp
 import numpy as np

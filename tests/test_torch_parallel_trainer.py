@@ -1,18 +1,8 @@
-"""The port's stage-2 trainer on 4 Gloo ranks on the CPU against one process:
-* train_arrays at DP 4, DP 2 x TP 2 and TP 4 (fp32, dropout on): losses,
-  eval losses and params within the fp32 tolerances; DP 2 x TP 2 in bf16
-  within the bf16 ones; a 6-row batch (not divisible by 4) runs whole;
-* one fixed-batch update at DP 2 x TP 2 with dropout: every gradient (K 15,
-  the table cut) and param, with and without an engaging clip;
-* `train` from its gin: split_batches=False takes the global batch (losses
-  and evals equal one process's); a TP 2 checkpoint resumed on one process
-  and the reverse equal the uninterrupted run;
-* scripts/torch_train_transformer.py under torchrun (2 ranks, --model-shards
-  2) writes the one-process checkpoint;
-* a JAX run at n_model_shards=2 (mesh 4 x 2 on 8 virtual devices), converted
-  with its optimizer state, resumes at DP 2 x TP 2 and its next update
-  agrees with optax's within UPDATE_TOL.
-"""
+"""The port's stage-2 trainer on 4 Gloo ranks on the CPU against one
+process: train_arrays at DP 4, DP 2 x TP 2 and TP 4; a fixed-batch update's
+gradients; `train` from its gin, split_batches=False, TP checkpoints
+resumed across meshes; the entry script under torchrun; and a JAX run at
+n_model_shards=2 resumed at DP 2 x TP 2 within UPDATE_TOL of optax."""
 
 import os
 import subprocess
@@ -187,11 +177,9 @@ def test_batch_the_data_ranks_do_not_divide_runs_whole(runs):
 
 @pytest.mark.parametrize("name", ["fixed", "fixed_clip"])
 def test_gradients_and_update_equal_one_process(runs, name):
-    """Gradients within GRAD_TOL; the first AdamW update is lr * g / (|g| +
-    eps), about lr * sign(g), so an entry whose gradient lies under the
-    gradients' noise floor (NOISE_FLOOR x GRAD_TOL of the leaf's largest)
-    may move by up to 2 lr the other way; every other entry is held to
-    PARAM_TOL."""
+    """Gradients within GRAD_TOL; params within PARAM_TOL, but an entry
+    whose gradient lies under the noise floor may move up to 2 lr the other
+    way (Adam's first update is about lr * sign(g))."""
     one, ranks, _ = runs
     want = one[name]
     grads = [k for k in want if k.startswith("g/")]

@@ -123,16 +123,13 @@ def test_port_imports_and_serves_without_jax():
     run_without_jax(HYGIENE_SCRIPT)
 
 
-# As on the card's machine: neither pandas nor sentence_transformers imports
-# (the text encoder is the hash fallback). Every module of the port imports
-# so (PRELUDE), and the smoke's raw phase runs at tiny widths: the P5 drop
-# built from raw files by the stage-1 entry, stage 2 on it, from_artifacts
-# on its test histories; a KuaiRand drop built by the plain RQ-VAE and the
-# HiD-VAE entries, stage 2 on the RQ-VAE's checkpoint and from_artifacts;
-# and the MovieLens 32M and 1M builds.
+# As on the card's machine, pandas, matplotlib and sentence_transformers do
+# not import: the port imports (PRELUDE), and the smoke's raw phase (P5,
+# KuaiRand and MovieLens from raw files, trained and served) and tools phase
+# (its scripts loaded here) run at tiny widths.
 NO_PANDAS = """
     import sys
-    sys.modules["pandas"] = sys.modules["sentence_transformers"] = None
+    sys.modules["pandas"] = sys.modules["sentence_transformers"] = sys.modules["matplotlib"] = None
 """
 RAW_SCRIPT = """
     tiny_raw = dict(tiny, input_dim=768, tag_embed_dim=768)  # the built widths
@@ -149,10 +146,17 @@ RAW_SCRIPT = """
                                            batch_size=8, attn_embed_dim=32, attn_heads=4,
                                            attn_layers=2, decoder_embed_dim=16,
                                            mixed_precision_type='"fp32"')))
+        # The tools phase: tag completion on the KuaiRand corpus just built,
+        # the view tools (diag on the view run's checkpoint), attribution.
+        tools = chip_smoke.tools_phase(torch.device("cpu"), work, diag_n=500,
+                                       view_args=["--iterations", "2", "--device", "cpu"],
+                                       attrib=dict(smoke=True, iters=1, warmup=1, beam_iters=1))
+    assert tools["launches"] == {"train-hrqvae": 0, "train-rqvae": 0, "diag": 0}, tools
+    assert tools["tags"]["rows_missing_l1"] > 0 and tools["tags"]["llm_resumed_requests"] > 0
     zeros = {"stage1": 0, "table": 0, "stage2": 0, "from_artifacts": 0}
     assert rec == dict(zeros, kuairand=dict(rqvae=0, rqvae_table=0, h_rqvae=0, h_rqvae_table=0,
                                             stage2=0, from_artifacts=0)), rec
-    assert sys.modules["pandas"] is None
+    assert sys.modules["pandas"] is None and sys.modules["matplotlib"] is None
 """
 
 

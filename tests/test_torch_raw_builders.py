@@ -1,13 +1,7 @@
-"""The port's raw-file builders against the JAX package's, bitwise (arrays
-and dtypes, the tag-index JSON): the hash text encoder and its cache;
-build_amazon with and without tags on tests/test_data_builders.py's P5
-fixture and on make_synthetic_amazon.py's drop; the amazon-raw preset
-against that script; build_movielens on seeded ML-1M and ML-32M drops
-(chip_smoke's writer); load_or_build; the stage-1 entry on a built drop,
-its rare-tag remap held to JAX's. sentence_transformers is refused at
-import in every test, which gives both packages the hash fallback without
-its slow import.
-"""
+"""The port's raw-file builders against the JAX package's, bitwise: the
+hash text encoder, build_amazon, the amazon-raw preset, build_movielens,
+load_or_build and the stage-1 entry's remap on a built drop.
+sentence_transformers is refused at import in every test."""
 
 import filecmp
 import gzip

@@ -1,16 +1,9 @@
-"""The port's plain RQ-VAE model and trainer on the CPU, against JAX:
-  * RqVae.forward against RqVae.__call__ (dense and categorical, rotation
-    trick and STE, train and eval): every loss and gradient;
-  * a JAX run of 2 + 2 mini-steps (accumulation 2, clip, evals, audits and
-    saves every 2): its converted checkpoint restores bitwise; resumed for 2
-    more on JAX's batch indices it follows JAX's run;
-  * 2N mini-steps equal N + a resumed N, bitwise;
-  * its checkpoint feeds the stage-2 entry's plain route and from_artifacts;
-    the entry trains from a gin; the gin surface binds as JAX's;
-  * configs/rqvae_ml32m.gin on a built ML-32M corpus is refused, as JAX fails.
-Tolerances: losses LOSS_RTOL; gradients, parameters and moments REL_TOL of
-each JAX array's largest entry.
-"""
+"""The port's plain RQ-VAE model and trainer against JAX, on the CPU: the
+forward's losses and gradients; a JAX run converted and resumed in the
+port; 2N equal to N + a resumed N; the checkpoint through stage 2 and
+from_artifacts; the gin surface; configs/rqvae_ml32m.gin refused on a built
+ML-32M corpus. Tolerances: losses LOSS_RTOL; arrays REL_TOL of each JAX
+array's largest entry."""
 
 import functools
 import inspect
@@ -239,10 +232,8 @@ def test_port_resume_is_bitwise(port_runs):
 
 
 def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
-    """The resumed run's checkpoint as scripts/torch_train_transformer.py
-    --stage1 on the plain route: the decoder trains 2 steps on its corpus
-    table, which equals the RQ-VAE's own sweep, and from_artifacts serves
-    the saved decoder with that table."""
+    """The resumed run's checkpoint through the stage-2 entry's plain
+    route (its table the RQ-VAE's own sweep) and from_artifacts."""
     _, _, resumed = port_runs
     s1 = resumed["saved_paths"][-1]
     lines = ["import data.processed", "train.dataset = %data.processed.RecDataset.SYNTHETIC",
@@ -278,11 +269,9 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
 
 
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):
-    """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin, every key kept
-    but the widths, the cadence, the dataset and force_dataset_process
-    (as given, it builds ML-32M from raw files, which this root lacks): trains,
-    evaluates, audits and saves; a save re-audits unless its chunk audited
-    (rqvae.py:327-333)."""
+    """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin cut to small
+    widths and the synthetic dataset: trains, evaluates, audits and saves; a
+    save re-audits unless its chunk audited (rqvae.py:327-333)."""
     text = (ROOT / "configs/rqvae_ml32m.gin").read_text()
     over = {"iterations": "8", "batch_size": "16", "vae_input_dim": "32",
             "vae_hidden_dims": "[32, 16]", "vae_embed_dim": "8", "vae_codebook_size": "16",
@@ -307,11 +296,9 @@ def test_entry_script_runs_the_gin(dataset_root, tmp_path):
 
 
 def test_ml32m_gin_refuses_built_ml32m_features_as_jax(tmp_path):
-    """configs/rqvae_ml32m.gin declares 768-wide items with no categorical
-    columns, but builds ML-32M (force_dataset_process), whose items are the
-    768-wide title embedding and the genre one-hots. JAX's RqVae takes such
-    an input in its encoder and fails at the reconstruction loss (x_hat is
-    input_dim wide); the port refuses before any step, naming both widths."""
+    """configs/rqvae_ml32m.gin on a built ML-32M corpus (768 + genre
+    columns against the gin's 768): JAX fails at the reconstruction loss, the
+    port refuses before any step, naming both widths."""
     import chip_smoke
 
     jm = JRqVae(input_dim=8, embed_dim=4, hidden_dims=(16,), codebook_size=8, n_layers=2,

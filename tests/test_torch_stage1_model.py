@@ -1,16 +1,9 @@
 """The port's stage-1 model against JAX on the CPU, on bridged weights at
-small widths:
-  * the HRqVae train forward (rotation trick, focal loss, label smoothing,
-    mixup on JAX's draws, invalid tags): IDs, every loss term and every
-    parameter's gradient; eval mode; bf16 products within BF16_RTOL;
-  * BatchNorm statistics and parameters after K_STEPS AdamW steps;
-  * predict_tags with JAX's noise; k-means and the codebook init on JAX's
-    draws; the tag-level reconcile, the rare-tag remap and item batches.
-Dropout is off on both sides (no generator here; flax's Dropout the identity).
-Tolerances: losses LOSS_RTOL; gradients, parameters and outputs REL_TOL of
-each JAX array's largest entry; statistics STATS_ATOL; a bias before a
-train-mode BatchNorm (exact gradient 0) below REL_TOL of its kernel's.
-"""
+small widths: the HRqVae train forward (IDs, losses, gradients), eval mode,
+bf16, BatchNorm after K_STEPS AdamW steps, predict_tags, k-means and the
+codebook init, the tag reconcile and remap. Dropout is off on both sides.
+Tolerances: LOSS_RTOL, REL_TOL of each JAX array's largest entry,
+STATS_ATOL."""
 
 import flax.linen as fnn
 import jax
@@ -175,10 +168,8 @@ def test_ids_in_train_mode_equal_jax(no_flax_dropout):
 
 
 def test_batch_stats_and_params_after_k_steps(no_flax_dropout):
-    """K_STEPS AdamW updates (constant LR) on the same batches, STE, no
-    mixup: BatchNorm running statistics within STATS_ATOL of flax's (momentum
-    0.99, biased variance), every parameter within REL_TOL but the biases
-    that feed a BatchNorm (see below)."""
+    """K_STEPS AdamW updates: BatchNorm statistics within STATS_ATOL of
+    flax's, parameters within REL_TOL but the biases that feed a BatchNorm."""
     jm, v, tm = make_pair(mode="STE", use_mixup=False)
     tx = optax.adamw(1e-3, weight_decay=0.015)
     params, stats = unflat(v["params"]), unflat(v["batch_stats"])

@@ -1,11 +1,7 @@
-"""The port's stage-1 ops against JAX on the CPU: Gumbel sampling on JAX's
-draws (and the port's own by distribution), every loss of models/losses.py
-(values, gradients against jax.grad), mixup on JAX's draws, and the
-quantizer's train modes (Gumbel-softmax, STE, rotation trick; normalized
-codebooks and SimVQ).
-Tolerances: losses LOSS_RTOL; outputs and gradients REL_TOL of each JAX
-array's largest entry, after the IDs are checked equal.
-"""
+"""The port's stage-1 ops against JAX on the CPU: Gumbel sampling, every
+loss of models/losses.py (values, gradients), mixup and the quantizer's
+train modes. Tolerances: losses LOSS_RTOL; outputs and gradients REL_TOL of
+each JAX array's largest entry, after equal IDs."""
 
 import jax
 import jax.numpy as jnp
@@ -191,10 +187,8 @@ def test_tag_prediction_loss_without_valid_targets():
 
 
 def test_mixup_draws():
-    """The port's mixup draw: a permutation of the batch, and lambda ~
-    Beta(alpha, alpha): over 20,000 draws at alpha 0.2 the mean is 0.5 and
-    the variance 1 / (4 (2 alpha + 1)) = 0.1786 (standard errors 0.003 and
-    0.0006)."""
+    """Mixup draws a permutation and lambda ~ Beta(0.2, 0.2): over 20,000
+    draws mean 0.5 and variance 0.1786."""
     g, host = torch.Generator().manual_seed(1), np.random.default_rng(1)
     lams = []
     for _ in range(20_000):
@@ -219,10 +213,8 @@ QUANT_CASES = [
 @pytest.mark.parametrize("name,mode,normalize,sim_vq", QUANT_CASES,
                          ids=[c[0] for c in QUANT_CASES])
 def test_quantize_train_modes(name, mode, normalize, sim_vq):
-    """Ids equal; the estimator's output, the loss and the gradients of
-    sum(out * cotangent) + sum(loss) with respect to x and every parameter
-    against jax.grad. Gumbel uses JAX's noise (the make_rng("gumbel") draw
-    of the module's own scope)."""
+    """Equal ids; the estimator's output, loss and gradients against
+    jax.grad, Gumbel on JAX's noise."""
     d, k, b = 8, 16, 24
     jm = JQuantize(embed_dim=d, n_embed=k, codebook_normalize=normalize, sim_vq=sim_vq,
                    commitment_weight=0.4, forward_mode=JMode[mode.name])

@@ -1,20 +1,8 @@
-"""Stage-1 data parallelism term by term: each batch-coupled term of the
-HiD-VAE loss on 2 and 4 Gloo ranks on the CPU, from each rank's rows of one
-seeded global batch, against one process on the whole batch:
-  1. the projector's BatchNorm (alone, and in a TagProjector with dropout):
-     global mean and biased variance, running statistics;
-  2. the InfoNCE tag alignment;  3. the uniqueness loss over planted
-     collisions;  4. the tag loss (focal with class weights, label-smoothed
-     CE with its KL term), with mixup and invalid targets;
-  5. the whole train loss with mined pairs and isolation (dropout, Gumbel
-     noise, mixup on): every metric.
-Each value must be bitwise equal on every rank; gradients are held per
-rank's input rows and per parameter summed over the ranks (the trainers'
-all-reduce). At 4 ranks the 18-row batch splits 4 / 5 and the 6 mined rows
-straddle ranks 0 and 1. `test_gather_backward_modes` shows the other
-gather mode off by the world size. A stage-1 gin binding n_model_shards is
-refused, as in JAX. Ranks are subprocesses (tests/_torch_parallel_worker.py).
-"""
+"""Stage-1 data parallelism term by term on 2 and 4 Gloo ranks (the
+BatchNorm, InfoNCE, uniqueness, the tag loss with mixup, the whole loss
+with mined pairs), from each rank's rows of one seeded batch against one
+process on the whole batch: values bitwise on every rank, gradients per
+rank's rows and summed per parameter. Ranks are subprocesses."""
 
 import copy
 
@@ -97,10 +85,9 @@ def runs(request, tmp_path_factory):
 
 
 def _check(runs, prefix):
-    """Every key of the one-process reference under `prefix`: values equal on
-    every rank bit for bit and within TOL of one process's; row gradients
-    concatenated over the ranks and parameter gradients summed over them,
-    within TOL (each array against its own largest entry)."""
+    """Every key of the one-process reference under `prefix`: values
+    bitwise equal across ranks and within TOL of one process's; row gradients
+    concatenated, parameter gradients summed over the ranks, within TOL."""
     ranks, ref = runs
     keys = [k for k in ref if k.startswith(prefix + "/")]
     assert keys, prefix
@@ -156,11 +143,9 @@ def test_whole_loss_without_mining(runs):
 
 @pytest.mark.parametrize("consumer", ["whole_on_every_rank", "rows_on_each_rank"])
 def test_gather_backward_modes(runs, consumer):
-    """Which backward a gather needs depends on who consumes it. The InfoNCE
-    computed whole on every rank takes "slice" (held above); with "sum"
-    gathers every rank's copy adds its gradient, the world size times too
-    much. Computed as each rank's rows against the gathered columns (its
-    part of the mean all-reduced), the columns need "sum"."""
+    """InfoNCE computed whole on every rank needs "slice" gathers ("sum"
+    is off by the world size); by rows against gathered columns it needs
+    "sum"."""
     ranks, ref = runs
     want = ref["nce/cb_grad"]
     if consumer == "whole_on_every_rank":

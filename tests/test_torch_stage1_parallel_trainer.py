@@ -1,18 +1,8 @@
-"""The stage-1 trainers on 2 and 4 Gloo ranks on the CPU against one process
-at the same global batch, and against JAX:
-  * HiD-VAE (mining with isolation, dropout, Gumbel, mixup, augmentation,
-    2 mini-steps an update) and RQ-VAE (an engaging clip after the
-    all-reduce) at DP 2 and 4: losses, eval metrics, audits, the table, the
-    pool, params and statistics; at DP 4 the mined rows straddle ranks and
-    a 6-row RQ-VAE batch runs whole;
-  * split_batches=False at DP 2 and batch 8 is the one-process run at 16;
-  * a DP 2 checkpoint resumed on one process and the reverse equal the
-    uninterrupted run; scripts/torch_train_hidvae.py under torchrun writes
-    the one-process checkpoint;
-  * the JAX HiD-VAE trainer on 8 virtual devices and the port at DP 2 from
-    the same weights and batches (dropout off, no mixup or augmentation)
-    agree within tests/test_torch_stage1_trainer.py's tolerances.
-"""
+"""The stage-1 trainers on 2 and 4 Gloo ranks on the CPU against one
+process at the same global batch, and against JAX: losses, evals, audits,
+tables, pools, params; split_batches=False; checkpoints resumed across
+process counts; the entry under torchrun; the JAX trainer on 8 virtual
+devices against the port at DP 2."""
 
 import os
 import subprocess
@@ -78,13 +68,9 @@ JAX_RUN = dict(DETERMINISTIC, iterations=2, eval_every=4, save_model_every=4)
 
 
 def _jax_run(root, tmp):
-    """The port's run of JAX_RUN (one process), its `latest` written as an
-    Orbax checkpoint (params, batch statistics, the optimizer state as flax
-    names it, the step), and the JAX trainer resumed from it for JAX_RUN's
-    steps: its result, the port's checkpoint and the JAX batches of those
-    steps. (The resume starts mid-training, as tests/test_torch_stage1_trainer.py
-    does: Adam's first update is lr * sign(g), which turns gradients of 0
-    up to rounding into steps of the learning rate.)"""
+    """The port's run of JAX_RUN, its `latest` written as an Orbax
+    checkpoint, and the JAX trainer resumed from it for JAX_RUN's steps: its
+    result, the port's checkpoint and the JAX batches."""
     first = hidvae.train(**dict(HIDVAE, **JAX_RUN), dataset_folder=root, device="cpu",
                          vae_codebook_mode=QuantizeForwardMode.ROTATION_TRICK,
                          save_dir_root=str(tmp / "probe"))

@@ -1,20 +1,9 @@
-"""The port's stage-1 trainer on its gin surface, on the CPU, against JAX:
-  * the optimizer (tag-head groups, accumulation over 2 mini-steps, cosine,
-    clip, plateau) against optax after 4 mini-steps: state names, values
-    mid-accumulation, parameters;
-  * a JAX run of 4 mini-steps, converted with its optimizer state, restores
-    bitwise in the port; resumed for 4 more it follows JAX's own resume:
-    steps, losses, eval metrics, audits, parameters and batch statistics
-    (dropout off, no mixup or augmentation, JAX's batch indices);
-  * the port's 2N mini-steps equal N + a resumed N, bitwise, with dropout,
-    mixup and augmentation on;
-  * the gin surface binds as JAX's; the checkpoint feeds the stage-2 entry
-    and from_artifacts (mining: tests/test_torch_mining.py).
-Tolerances: losses and metrics LOSS_RTOL; parameters and moments REL_TOL of
-each JAX array's largest entry; batch statistics STATS_ATOL; a bias before
-a train-mode BatchNorm (zero gradient up to rounding, which Adam scales to
-a step of up to the rate) to that step.
-"""
+"""The port's stage-1 trainer on its gin surface against JAX, on the CPU:
+the optimizer against optax; a JAX run converted and resumed in the port,
+following JAX's own resume; 2N equal to N + a resumed N; the gin surface;
+the checkpoint through stage 2 and from_artifacts. Tolerances: LOSS_RTOL,
+REL_TOL of each JAX array's largest entry, STATS_ATOL; a bias before a
+train-mode BatchNorm to one Adam step."""
 
 import functools
 import inspect
@@ -97,9 +86,8 @@ def _tiny_model():
 
 @pytest.mark.parametrize("clip,plateau", [(None, False), (0.05, True)], ids=["plain", "clip_plateau"])
 def test_optimizer_matches_optax(clip, plateau):
-    """Two tag levels on three quantizer levels (head_2 holds no parameter,
-    as in optax its count still runs). Random gradients for 4 mini-steps
-    (2 updates); the plateau scale drops to 0.5 before the second update."""
+    """Two tag levels on three quantizer levels, 4 mini-steps of random
+    gradients (2 updates), the plateau scale 0.5 before the second."""
     tm = _tiny_model()
     params = unflat(state_dict_to_flax(tm)[0])
     kw = dict(gradient_accumulate_every=2, layer_specific_lr=True, predictor_weight_decay=0.015,
@@ -314,10 +302,8 @@ def test_gin_surface_binds_as_jax():
 
 
 def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
-    """The resumed run's `latest` (meta: model_config, metrics.repetition_rate)
-    as scripts/torch_train_transformer.py --stage1: the decoder trains 2
-    steps on its corpus table, which equals the stage-1 model's own sweep,
-    and from_artifacts serves the saved decoder with that table."""
+    """The resumed run's `latest` through the stage-2 entry (its table the
+    model's own sweep) and from_artifacts."""
     _, _, resumed = port_runs
     s1 = resumed["saved_paths"][-1]
     meta = np.load(os.path.join(s1, "arrays.npz"))

@@ -1,9 +1,6 @@
-"""The port's seeded corpora against the JAX package and the tracked file,
-bitwise: `build_synthetic()` and dataset/synthetic/processed/synthetic.npz;
-both packages' `build_synthetic` at each preset's shapes (3,000 items);
-scripts/torch_make_synthetic.py's presets and the JAX scripts' arguments;
-files across packages; `load_or_build` on the synthetic corpus, and on the
-raw datasets without their raw files."""
+"""The port's seeded corpora against the JAX package and the tracked
+file, bitwise: `build_synthetic`, the presets against the JAX scripts'
+arguments, files across packages, `load_or_build`."""
 
 from pathlib import Path
 
@@ -95,9 +92,8 @@ def test_load_or_build_synthetic_as_jax(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["AMAZON", "ML_1M", "ML_32M", "KUAIRAND"])
 def test_raw_datasets_are_refused(dataset, tmp_path):
-    """Read when present; missing or forced without raw files, refused: each
-    builder names the raw files it lacks (they build from raw files:
-    tests/test_torch_raw_builders.py, tests/test_torch_kuairand.py)."""
+    """Read when present; missing or forced without raw files, refused, each
+    builder naming the raw files it lacks."""
     ds = processed.RecDataset[dataset]
     path = processed.processed_path(str(tmp_path), ds, "beauty")
     lacks = {"AMAZON": r"P5 data drop", "ML_1M": r"ML-1M raw data not found",

@@ -1,13 +1,7 @@
-"""Stage-2 training in the port against JAX, on the CPU, from the same numpy
-inputs and weights:
-  * a train step (fp32, deterministic): loss and every gradient against
-    `jax.value_and_grad`, at a short context (dense on both sides) and at
-    2,050 tokens (the port's flash route, its plain version here; JAX dense);
-  * parameters after 3 AdamW updates against `make_optimizer` (optax.adamw
-    under `inverse_sqrt_schedule`), with and without the clip;
-  * the schedule at its warmup boundary, window crops from shared uniforms,
-    dropout and the Dense init by distribution.
-"""
+"""Stage-2 training in the port against JAX, on the CPU: a train step's
+loss and gradients (dense, and the flash route's plain version at 2,050
+tokens), 3 AdamW updates against optax with and without the clip, the
+schedule, window crops, dropout and the Dense init."""
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +27,9 @@ from hidvae_tpu_torch.train.device_data import DeviceSeqData, random_crop_window
 from tests._torch_common import retrieval_pair
 
 K = 16
-# Loss and gradients: fp32 on both sides, same weights and inputs; they
-# differ in summation order only. The optimizers are compared on the same
-# gradients (JAX's, fed to both): the update formulas agree, so parameters
-# of order one differ by fp32 rounding only after 3 updates of about lr.
-# (Fed their own gradients, the two would also differ where a gradient lies
-# within a few eps = 1e-8 of zero: there Adam's g / (|g| + eps) turns
-# rounding noise in g into a sizeable share of lr.)
+# fp32 on both sides, differing in summation order only. The optimizers get
+# the same (JAX's) gradients: fed their own, Adam's g / (|g| + eps) would
+# turn rounding noise in near-zero gradients into a share of lr.
 LOSS_TOL = 1e-4
 GRAD_TOL = 1e-5
 PARAM_TOL = 1e-6
@@ -102,10 +92,8 @@ def test_loss_and_gradients_match_jax(n, flash, monkeypatch):
 
 @pytest.mark.parametrize("max_grad_norm", [None, 0.5])
 def test_three_adamw_updates_match_optax(max_grad_norm):
-    """The JAX trainer's optimizer (make_optimizer: optax.adamw under
-    inverse_sqrt_schedule, optionally after the clip) and the port's, fed
-    the same gradients; then the port's own train steps from the same start
-    reach the JAX run's loss."""
+    """The JAX trainer's optimizer and the port's fed the same gradients;
+    then the port's own steps from the same start reach the JAX run's loss."""
     jm, params, tm = _pair(6, seed=1)
     start = {k: p.detach().clone() for k, p in tm.named_parameters()}
     jb, tb = _batches(3, 6, 3, seed=2)
@@ -248,10 +236,8 @@ def test_train_is_a_function_of_its_seed():
 
 @pytest.mark.parametrize("window", [trainer.LOSS_WINDOW, 4])
 def test_window_mean_counts_every_step_loss(window, monkeypatch):
-    """The JAX trainer extends its window with every step's loss
-    (hidvae_tpu/train/transformer.py:576-587), whatever the logging period:
-    a run logging every 3rd step gives the window mean of a run logging every
-    step, the mean of the last `window` per-step losses."""
+    """The window mean counts every step's loss (transformer.py:576-587),
+    whatever the logging period."""
     from chip_smoke import build_vae, seeded_sequences
 
     monkeypatch.setattr(trainer, "LOSS_WINDOW", window)

@@ -1,18 +1,6 @@
-"""The port's stage-2 trainer on its gin surface, on the CPU:
-* remat: loss and gradients equal the plain forward's with dropout on
-  (dense, and the flash route's plain version at 2,050 tokens), and differ
-  without the generator replay;
-* checkpoints save and restore bitwise, optimizer state under flax's names;
-* resume: 4 steps equal 2, save, resume, 2 (tests/test_resume.py's config,
-  warmup 3), bitwise;
-* a converted JAX checkpoint restores bitwise and its next update agrees
-  with optax's;
-* the gin surface binds as JAX's, a stale resume gin heals from the meta; a
-  sem_id_dim mismatch, force_dataset_process without raw files and
-  n_model_shards > 1 on one process are refused; `train` defaults to the card;
-* the plain RQ-VAE route trains, and the entry's checkpoint serves through
-  `from_artifacts` as the trained model does.
-"""
+"""The port's stage-2 trainer on its gin surface, on the CPU: remat, bitwise
+checkpoints and resume, a converted JAX checkpoint resumed, the gin surface
+and its refusals, the plain RQ-VAE route and the entry's checkpoint served."""
 
 import enum
 import functools
@@ -124,9 +112,8 @@ def _remat_run(n, remat, monkeypatch):
 
 @pytest.mark.parametrize("n,flash", [(6, False), (683, True)], ids=["dense", "flash_2050"])
 def test_remat_gradients_equal_plain(n, flash, monkeypatch):
-    """fp32, dropout 0.3 from one generator seed: the rematerialized model's
-    loss and gradients equal the plain one's; on the flash route the one
-    encoder layer's attention runs twice (forward and recompute)."""
+    """fp32, dropout from one seed: remat's loss and gradients equal the
+    plain model's; on the flash route the attention runs twice."""
     loss, grads, calls, eval_loss = _remat_run(n, False, monkeypatch)
     loss_r, grads_r, calls_r, _ = _remat_run(n, True, monkeypatch)
     assert loss != eval_loss  # dropout is on
@@ -215,11 +202,8 @@ def test_resume_in_the_port_is_bitwise(dataset_root, tmp_path):
 
 
 def test_jax_checkpoint_resumes_in_the_port(dataset_root, tmp_path, monkeypatch):
-    """A JAX run of 2 steps (fp32; the plain tokenizer and no eval batch,
-    which spare JAX compiles the decoder does not need), converted with its
-    optimizer state: the port restores params, moments, counts and step
-    bitwise; one AdamW update of both on one fixed batch (no dropout)
-    agrees within UPDATE_TOL."""
+    """A JAX run of 2 steps converted with its optimizer state restores
+    bitwise in the port; one AdamW update of both agrees within UPDATE_TOL."""
     monkeypatch.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache
     jax_common = dict(COMMON, use_h_tokenizer=False, eval_batches=0)
     del jax_common["dataset"]
@@ -361,10 +345,8 @@ def _stage1_export(root):
 
 
 def test_entry_script_trains_resumes_and_serves(dataset_root, tmp_path, monkeypatch, caplog):
-    """scripts/torch_train_transformer.py on a gin with --stage1: 3 steps
-    (fp32, full evals, plots); --resume for 2 more; then the last
-    checkpoint served through from_artifacts equals an engine over the
-    trained model itself. A failing plot only warns."""
+    """scripts/torch_train_transformer.py with --stage1: 3 steps, --resume
+    for 2 more, the checkpoint served by from_artifacts as the trained model."""
     s1 = _stage1_export(tmp_path)
     lines = [f"train.{k} = {list(v) if isinstance(v, tuple) else v}"
              for k, v in COMMON.items() if k not in ("dataset", "make_plots")]

@@ -1,12 +1,7 @@
-"""Widths the port's CUDA kernels are built for, on the CPU: flash at head
-widths 64 and 128, `rq_assign` at code widths 32, 64 and 128. JAX admits
-any multiple of 64 to the flash route and any width to its Pallas
-`rq_assign`, so on the CPU the port runs every width (the plain versions),
-and on CUDA it refuses a width without a kernel before the first step.
-Here: the check functions with "cuda", that the module, the trainer and the
-tokenizer call them before any work, and the plain versions at the built
-widths against JAX.
-"""
+"""Widths the port's CUDA kernels are built for: flash at head widths 64
+and 128, `rq_assign` at code widths 16, 32, 64 and 128. On the CPU the
+port runs every width (the plain versions), on CUDA it refuses others
+before any work."""
 
 import jax
 import jax.numpy as jnp
@@ -38,23 +33,21 @@ def test_flash_head_width_check(head_dim, built):
             fa.check_head_dim(head_dim, "cuda")
 
 
-@pytest.mark.parametrize("dim,built", [(32, True), (64, True), (128, True), (48, False),
-                                       (256, False)])
+@pytest.mark.parametrize("dim,built", [(16, True), (32, True), (64, True), (128, True),
+                                       (48, False), (256, False)])
 def test_rq_assign_width_check(dim, built):
     rq.check_dim(dim, "cpu")
     if built:
         rq.check_dim(dim, "cuda")
     else:
-        with pytest.raises(ValueError, match=r"supports D in \(32, 64, 128\)"):
+        with pytest.raises(ValueError, match=r"supports D in \(16, 32, 64, 128\)"):
             rq.check_dim(dim, "cuda")
 
 
 @pytest.mark.parametrize("d_out", [128, 192])
 def test_module_checks_the_width_and_matches_jax_dense(d_out, monkeypatch):
-    """One head of 128 or 192 over 2,101 tokens: the port takes the flash
-    route (plain version on the CPU) after checking the width for the
-    tensor's device, and agrees with the JAX module's dense path on valid
-    rows."""
+    """One head of 128 or 192 over 2,101 tokens: the port checks the width
+    and takes the flash route, agreeing with JAX's dense path on valid rows."""
     jm = JMHA(d_out=d_out, num_heads=1)
     params = random_variables(jm, (jnp.zeros((2, 4, d_out)),), {"is_causal": False},
                               seed=d_out)["params"]
@@ -78,9 +71,8 @@ def test_module_checks_the_width_and_matches_jax_dense(d_out, monkeypatch):
 
 
 def test_trainer_refuses_a_width_without_kernel_before_the_first_step(monkeypatch):
-    """A context of 2,053 tokens takes the flash route; with 1 head of 192
-    the trainer's check (asked here as for a CUDA device) raises before any
-    train step runs. At 1 head of 128 it passes the same check."""
+    """At 2,053 tokens (flash route) the trainer refuses 1 head of 192
+    before any step, on a check asked as for CUDA; 128 passes."""
     from chip_smoke import build_vae, seeded_sequences
 
     cfg = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
@@ -108,34 +100,22 @@ def test_trainer_refuses_a_width_without_kernel_before_the_first_step(monkeypatc
     assert checked == [192, 128] and steps == [1]
 
 
-def test_tokenizer_checks_the_code_width(monkeypatch):
+@pytest.mark.parametrize("tagged", [True, False], ids=["hierarchical", "plain"])
+def test_tokenizer_checks_the_code_width(tagged, monkeypatch):
+    """The check runs in the plain tokenizer's constructor, which the
+    hierarchical one extends."""
     from chip_smoke import build_vae
 
     cfg = dict(input_dim=48, hidden_dims=(32,), embed_dim=48, codebook_size=16, n_layers=2,
-               codebook_normalize=True, tag_class_counts=(4, 6), tag_embed_dim=12,
-               n_items=64)
-    vae, _ = build_vae(cfg, torch.Generator().manual_seed(0))
-    checked = []
-    # The check runs in the plain tokenizer's constructor, which the
-    # hierarchical one extends.
-    monkeypatch.setattr(semids, "check_dim",
-                        lambda d, dev: checked.append((d, dev)) or rq.check_dim(d, "cuda"))
-    with pytest.raises(ValueError, match="supports D"):
-        h_semids.HSemanticIdTokenizer(vae, n_layers=2, codebook_size=16, device="cpu")
-    assert checked == [(48, "cpu")]
-
-
-def test_plain_tokenizer_checks_the_code_width(monkeypatch):
-    from chip_smoke import build_vae
-
-    cfg = dict(input_dim=48, hidden_dims=(32,), embed_dim=48, codebook_size=16, n_layers=2,
-               codebook_normalize=False, tag_class_counts=None, n_items=64)
+               codebook_normalize=tagged, tag_class_counts=(4, 6) if tagged else None,
+               tag_embed_dim=12, n_items=64)
     vae, _ = build_vae(cfg, torch.Generator().manual_seed(0))
     checked = []
     monkeypatch.setattr(semids, "check_dim",
                         lambda d, dev: checked.append((d, dev)) or rq.check_dim(d, "cuda"))
+    tok = h_semids.HSemanticIdTokenizer if tagged else semids.SemanticIdTokenizer
     with pytest.raises(ValueError, match="supports D"):
-        semids.SemanticIdTokenizer(vae, n_layers=2, codebook_size=16, device="cpu")
+        tok(vae, n_layers=2, codebook_size=16, device="cpu")
     assert checked == [(48, "cpu")]
 
 
