@@ -622,7 +622,8 @@ def serve_from_artifacts(name, root, gin_source, cfg, vae, model, feats, hist, s
     launches = rq.rq_assign.launches
     bt = engine.build_times
     print(f"  {name}: from_artifacts {seconds:.3f} s (load {bt['load_s']:.3f}, table "
-          f"{bt['table_s']:.3f}, prefix index and tries {bt['index_s']:.3f}); corpus "
+          f"{bt['table_s']:.3f}, audit {bt['audit_s']:.3f}, prefix index and tries "
+          f"{bt['index_s']:.3f}); corpus "
           f"{tuple(engine.corpus_ids.shape)}; rq_assign launches {launches}; recorded "
           f"repetition rate {rep:.4f}")
     want = (math.ceil(cfg["n_items"] / engine.tokenizer.corpus_chunk_size)

@@ -24,6 +24,7 @@ from hidvae_tpu_torch.ops.prefix_search import (
     valid_digit_mask,
 )
 from hidvae_tpu_torch.parallel.collectives import gather_from_model
+from hidvae_tpu_torch.utils.debug import count, span, tracing
 
 BEAMS = 32
 NEG_LARGE = -1.0e9
@@ -167,13 +168,19 @@ class EncoderDecoderRetrievalModel(nn.Module):
         other levels gather [Q, cap] ranges with `prefix_caps`. `sample=True` with
         a `generator` adds Gumbel noise to each digit's log-probabilities
         (retrieval.py:272-276)."""
-        b = batch.sem_ids.shape[0]
-        d = self.sem_id_dim
-        k = BEAMS if top_k else 1
-        kk = self.num_embeddings
         dev = batch.sem_ids.device
+        with span("model.encode", device=dev):
+            enc, ctx_mask = self.encode_context(batch)
+        with span("model.beam", device=dev):
+            return self._beam_search(enc, ctx_mask, batch.sem_ids.shape[0], temperature,
+                                     BEAMS if top_k else 1, sample, generator, prefix_index,
+                                     prefix_caps, prefix_tries)
 
-        enc, ctx_mask = self.encode_context(batch)
+    def _beam_search(self, enc, ctx_mask, b, temperature, k, sample, generator, prefix_index,
+                     prefix_caps, prefix_tries) -> GenerationOutput:
+        d = self.sem_id_dim
+        kk = self.num_embeddings
+        dev = enc.device
         ttids = torch.arange(d, dtype=torch.int32, device=dev).repeat(b * k, 1)
         generated = torch.zeros((b, k, d), dtype=torch.int32, device=dev)
         log_probs = torch.full((b, k), NEG_LARGE, device=dev)
@@ -186,55 +193,59 @@ class EncoderDecoderRetrievalModel(nn.Module):
             step0_mask = first_digit_mask(prefix_index, kk)
 
         for i in range(d):
-            # Causal: only digits < i feed step i, so the decoder sees i + 1 tokens.
-            dec_in = generated.reshape(b * k, d)[:, :i]
-            logits_last = self.decode_logits(enc, ctx_mask, dec_in, ttids[:, :i],
-                                             last_only=True)
-            step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
-            if sample and generator is not None:
-                u = torch.rand(step_logp.shape, generator=generator, device=dev)
-                step_logp = step_logp - torch.log(-torch.log(u + 1e-20) + 1e-20)
+            with span("model.beam.digit", digit=i):
+                if tracing():  # rows alive (no off-catalog digit yet) and rows run
+                    count("beam.live_rows", (log_probs > INVALID_PENALTY / 2).sum())
+                    count("beam.rows", b * k)
+                # Causal: only digits < i feed step i, so the decoder sees i + 1 tokens.
+                dec_in = generated.reshape(b * k, d)[:, :i]
+                logits_last = self.decode_logits(enc, ctx_mask, dec_in, ttids[:, :i],
+                                                 last_only=True)
+                step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
+                if sample and generator is not None:
+                    u = torch.rand(step_logp.shape, generator=generator, device=dev)
+                    step_logp = step_logp - torch.log(-torch.log(u + 1e-20) + 1e-20)
 
-            if prefix_index is not None:
-                if i == 0:
-                    valid = step0_mask[None, :].expand(b * k, kk)
-                elif prefix_tries is not None and prefix_tries.get(i) is not None:
-                    starts_i, bitmaps_i = prefix_tries[i]
-                    valid = trie_digit_mask(starts_i, bitmaps_i, lo.reshape(-1), hi.reshape(-1))
-                    if bitmaps_i.shape[1] < kk:  # narrower stored vocab
-                        valid = nn.functional.pad(valid, (0, kk - bitmaps_i.shape[1]))
-                else:
-                    if prefix_caps is not None:
-                        cap = int(prefix_caps[i - 1])
+                if prefix_index is not None:
+                    if i == 0:
+                        valid = step0_mask[None, :].expand(b * k, kk)
+                    elif prefix_tries is not None and prefix_tries.get(i) is not None:
+                        starts_i, bitmaps_i = prefix_tries[i]
+                        valid = trie_digit_mask(starts_i, bitmaps_i, lo.reshape(-1), hi.reshape(-1))
+                        if bitmaps_i.shape[1] < kk:  # narrower stored vocab
+                            valid = nn.functional.pad(valid, (0, kk - bitmaps_i.shape[1]))
                     else:
-                        # Heuristic only: a prefix with more than `cap` rows
-                        # silently loses valid continuations.
-                        cap = max(256, 4 * (n_corpus // max(kk ** i, 1)))
-                        warnings.warn(
-                            "generate_next_sem_id called without prefix_caps; "
-                            f"using heuristic cap {cap} at digit {i} — pass "
-                            "tokenizer.prefix_caps for exact constrained decoding",
-                            stacklevel=2,
-                        )
-                    cap = min(max(cap, 8), n_corpus)
-                    valid = valid_digit_mask(prefix_index, lo.reshape(-1), hi.reshape(-1),
-                                             i, kk, cap)
-                step_logp = step_logp + INVALID_PENALTY * (~valid)
+                        if prefix_caps is not None:
+                            cap = int(prefix_caps[i - 1])
+                        else:
+                            # Heuristic only: a prefix with more than `cap` rows
+                            # silently loses valid continuations.
+                            cap = max(256, 4 * (n_corpus // max(kk ** i, 1)))
+                            warnings.warn(
+                                "generate_next_sem_id called without prefix_caps; "
+                                f"using heuristic cap {cap} at digit {i} — pass "
+                                "tokenizer.prefix_caps for exact constrained decoding",
+                                stacklevel=3,  # the caller of generate_next_sem_id
+                            )
+                        cap = min(max(cap, 8), n_corpus)
+                        valid = valid_digit_mask(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                                 i, kk, cap)
+                    step_logp = step_logp + INVALID_PENALTY * (~valid)
 
-            scores = (step_logp + log_probs.reshape(b * k, 1)).reshape(b, k * kk)
-            top_scores, top_idx = top_k_first_index(scores, k)
-            parent = torch.div(top_idx, kk, rounding_mode="floor")
-            digits = (top_idx % kk).to(torch.int32)
+                scores = (step_logp + log_probs.reshape(b * k, 1)).reshape(b, k * kk)
+                top_scores, top_idx = top_k_first_index(scores, k)
+                parent = torch.div(top_idx, kk, rounding_mode="floor")
+                digits = (top_idx % kk).to(torch.int32)
 
-            generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
-            generated[:, :, i] = digits
-            log_probs = top_scores
+                generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
+                generated[:, :, i] = digits
+                log_probs = top_scores
 
-            if prefix_index is not None:
-                lo = torch.gather(lo, 1, parent)
-                hi = torch.gather(hi, 1, parent)
-                new_lo, new_hi = narrow_range(prefix_index, lo.reshape(-1), hi.reshape(-1),
-                                              i, digits.reshape(-1))
-                lo, hi = new_lo.reshape(b, k), new_hi.reshape(b, k)
+                if prefix_index is not None:
+                    lo = torch.gather(lo, 1, parent)
+                    hi = torch.gather(hi, 1, parent)
+                    new_lo, new_hi = narrow_range(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                                  i, digits.reshape(-1))
+                    lo, hi = new_lo.reshape(b, k), new_hi.reshape(b, k)
 
         return GenerationOutput(sem_ids=generated, log_probas=log_probs)

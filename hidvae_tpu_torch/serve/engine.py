@@ -27,6 +27,7 @@ from hidvae_tpu_torch.train.common import (
 )
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
 from hidvae_tpu_torch.train.transformer import _build_tokenizer
+from hidvae_tpu_torch.utils.debug import span
 from hidvae_tpu_torch.utils.ginlite import parse_gin_file
 from hidvae_tpu_torch.utils.runtime import full_fp32, resolve_device
 
@@ -39,7 +40,8 @@ class RetrievalEngine:
     the history length, ascending `batch_buckets`, the stage-1 export whose
     repetition rate audits the table, `device` (`cuda` unless given), and
     `mesh` / `shard_params` for ranks that serve together. `build_times`:
-    table_s, index_s and, from `from_artifacts`, load_s."""
+    table_s, audit_s, index_s (together the constructor) and, from
+    `from_artifacts`, load_s."""
 
     @classmethod
     def from_artifacts(cls, gin_path: str, stage1_export: str, stage2_export: str, *,
@@ -185,7 +187,8 @@ class RetrievalEngine:
             }
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.build_times = {"table_s": t1 - t0, "index_s": time.perf_counter() - t2}
+        self.build_times = {"table_s": t1 - t0, "audit_s": t2 - t1,
+                            "index_s": time.perf_counter() - t2}
 
     # ---- request preparation (host side) ----
 
@@ -230,16 +233,18 @@ class RetrievalEngine:
     def _rows_step(self, user_ids, items):
         b = items.shape[0]
         d = self.sem_id_dim
-        zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        batch = tokenize_on_device(self.corpus_ids, user_ids, items, fut=zeros)
-        batch = batch.replace(
-            sem_ids_fut=torch.zeros((b, d), dtype=torch.int32, device=self.device))
+        with span("engine.tokenize"):
+            zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            batch = tokenize_on_device(self.corpus_ids, user_ids, items, fut=zeros)
+            batch = batch.replace(
+                sem_ids_fut=torch.zeros((b, d), dtype=torch.int32, device=self.device))
         with full_fp32():
             out = self.model.generate_next_sem_id(
                 batch, self.sorted_ids, temperature=self.generation_temperature,
                 prefix_caps=self.prefix_caps, prefix_tries=self.prefix_tries,
             )
-        item_idx = lookup_items(self.sorted_ids, self.perm, out.sem_ids)  # [B, k]
+        with span("engine.resolve"):
+            item_idx = lookup_items(self.sorted_ids, self.perm, out.sem_ids)  # [B, k]
         return item_idx, out.sem_ids, out.log_probas
 
     def warmup(self, buckets: Optional[Sequence[int]] = None):
@@ -252,8 +257,13 @@ class RetrievalEngine:
     def recommend(self, histories, user_ids=None, top_k: int = 10):
         """Next items for `histories` [B, N] (-1 padded) and optional
         `user_ids`: {items [B, top_k] (-1 unresolved), sem_ids, scores (descending
-        beam log-probabilities), latency_s}."""
-        items = self._pad_histories(histories)
+        beam log-probabilities), latency_s}; a root span."""
+        with span("engine.recommend", device=self.device):
+            return self._recommend(histories, user_ids, top_k)
+
+    def _recommend(self, histories, user_ids, top_k):
+        with span("engine.pad"):
+            items = self._pad_histories(histories)
         b = items.shape[0]
         if b == 0:
             return {
@@ -276,11 +286,14 @@ class RetrievalEngine:
             if pad:
                 part = np.concatenate([part, np.full((pad, part.shape[1]), -1, np.int32)])
                 pu = np.concatenate([pu, np.zeros((pad,), np.int32)])
-            idx, sids, scores = self._step(
-                torch.from_numpy(pu).to(self.device), torch.from_numpy(part).to(self.device))
-            out_items.append(idx[:rows, :top_k].cpu().numpy())
-            out_sids.append(sids[:rows, :top_k].cpu().numpy())
-            out_scores.append(scores[:rows, :top_k].cpu().numpy())
+            with span("engine.upload"):
+                pu = torch.from_numpy(pu).to(self.device)
+                part = torch.from_numpy(part).to(self.device)
+            idx, sids, scores = self._step(pu, part)
+            with span("engine.copy_back"):
+                out_items.append(idx[:rows, :top_k].cpu().numpy())
+                out_sids.append(sids[:rows, :top_k].cpu().numpy())
+                out_scores.append(scores[:rows, :top_k].cpu().numpy())
         latency = time.perf_counter() - t0
         return {
             "items": np.concatenate(out_items),

@@ -73,7 +73,7 @@ from hidvae_tpu_torch.train.device_data import (
     random_crop_windows,
     tokenize_on_device,
 )
-from hidvae_tpu_torch.utils.debug import compute_debug_metrics
+from hidvae_tpu_torch.utils.debug import compute_debug_metrics, span
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
 logger = logging.getLogger("hidvae_tpu_torch.train.transformer")
@@ -197,15 +197,19 @@ def train_step(model, optimizer: Optimizer, batch, generator, mesh: Optional[Mes
     the forward deterministically; a RowShard on a mesh), and the gradients
     are averaged over the mesh's data ranks (a missing gradient counts as
     zeros). Returns (loss, loss_d) of this rank's rows, not synced."""
-    optimizer.zero_grad()
-    out = model(batch, generator)
-    out.loss.backward()
+    with span("train.forward"):
+        optimizer.zero_grad()
+        out = model(batch, generator)
+    with span("train.backward"):
+        out.loss.backward()
     if mesh is not None and mesh.data_group is not None:
-        for p in optimizer.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        reduce_gradients_(optimizer.params, mesh.data_group, mesh.n_data)
-    optimizer.step()
+        with span("train.grad_average"):
+            for p in optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            reduce_gradients_(optimizer.params, mesh.data_group, mesh.n_data)
+    with span("train.optimizer"):
+        optimizer.step()
     return out.loss.detach(), out.loss_d.detach()
 
 
@@ -310,7 +314,8 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
     """Steps start_iter .. start_iter + iterations - 1, each with `step_generator(seed,
     step)`, in the JAX chunks; at a chunk's end the losses are read back in one sync and logged
     with the window mean (:576-587), then each (every, fn) of `events` whose cadence the chunk
-    crosses is called. On a mesh each step computes this rank's rows. Returns the history."""
+    crosses is called. On a mesh each step computes this rank's rows. Each step is a root
+    span; a chunk's read-back is a span in its last. Returns the history."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
@@ -320,18 +325,9 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
     t_last, it_last = time.perf_counter(), start_iter
     rows = slice(0, batch_size) if mesh is None else shard_rows(batch_size, mesh)
     split = rows.stop - rows.start < batch_size
-    for first, done, fired in chunk_events(start_iter, iterations,
-                                           [every for every, _ in events], log_every):
-        step_losses = []
-        moved -= collective_bytes()
-        for it in range(first, done):
-            g = step_generator(seed, it, device)
-            batch = sample_batch(data, table, batch_size, g, subsample, rows)
-            # A batch every data rank runs whole needs no gradient average.
-            loss, loss_d = train_step(model, optimizer, batch,
-                                      RowShard(g, rows.start, batch_size) if split else g,
-                                      mesh if split else None)
-            step_losses.append(loss)
+
+    def readback(done, fired, step_losses, loss_d):
+        nonlocal moved, t_last, it_last
         losses = torch.stack(step_losses).float()
         if split:  # the rows' means -> the global batch's (equal parts)
             losses = all_reduce_(torch.cat([losses, loss_d.float()]), mesh.data_group)
@@ -355,6 +351,24 @@ def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: i
         if fired:  # keep eval and save time out of ms per step
             _sync(device)
         t_last, it_last = time.perf_counter(), done
+
+    for first, done, fired in chunk_events(start_iter, iterations,
+                                           [every for every, _ in events], log_every):
+        step_losses = []
+        moved -= collective_bytes()
+        for it in range(first, done):
+            with span("train.step", device=device, step=it):
+                with span("train.sample"):
+                    g = step_generator(seed, it, device)
+                    batch = sample_batch(data, table, batch_size, g, subsample, rows)
+                # A batch every data rank runs whole needs no gradient average.
+                loss, loss_d = train_step(model, optimizer, batch,
+                                          RowShard(g, rows.start, batch_size) if split else g,
+                                          mesh if split else None)
+                step_losses.append(loss)
+                if it == done - 1:
+                    with span("train.readback"):
+                        readback(done, fired, step_losses, loss_d)
     history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
     history["collective_bytes_per_step"] = moved / max(iterations, 1)
     return history

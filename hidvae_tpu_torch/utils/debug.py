@@ -1,8 +1,11 @@
 """Debug metrics and profiling hooks (counterpart of
 hidvae_tpu/utils/debug.py): `compute_debug_metrics` of the stage-2 partial
-eval, `profile_trace` (torch.profiler around a block) and `StepTimer`."""
+eval, `profile_trace` (torch.profiler around a block) and the program's
+spans and counters (`span`, `count`, `records`), which record only while a
+profiler runs."""
 
 import contextlib
+import json
 import logging
 import os
 import time
@@ -38,8 +41,8 @@ def compute_debug_metrics(batch, model_output=None, prefix: str = "") -> dict:
 def profile_trace(log_dir: Optional[str] = None, enabled: Optional[bool] = None):
     """torch.profiler (CPU, and CUDA where there is a card) around a block,
     its Chrome trace written to `log_dir` (default ./profile_traces) as
-    trace_<time>_<pid>.json. On when `enabled` or HIDVAE_PROFILE=1; yields
-    the profiler, or None when off."""
+    trace_<time>_<pid>.json, and the block's spans as spans_<time>_<pid>.json.
+    On when `enabled` or HIDVAE_PROFILE=1; yields the profiler, or None."""
     if enabled is None:
         enabled = os.environ.get("HIDVAE_PROFILE") == "1"
     if not enabled:
@@ -50,22 +53,140 @@ def profile_trace(log_dir: Optional[str] = None, enabled: Optional[bool] = None)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    path = os.path.join(log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
+    stem = f"{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json"
+    path = os.path.join(log_dir, "trace_" + stem)
     logger.info(f"Capturing a torch.profiler trace to {path}")
+    clear()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(path)
     prof.trace_path = path
+    prof.spans_path = os.path.join(log_dir, "spans_" + stem)
+    with open(prof.spans_path, "w") as f:
+        json.dump({"dropped": dropped(), "records": records()}, f)
 
 
-class StepTimer:
-    """Exponential moving average of step times."""
+# Spans record only while a profiler runs (any activities): a profiler
+# annotation "hidvae.<name>", the host interval and, on a CUDA device, an
+# event on the stream at each end. A span opened with none open is a root:
+# a new request id, and a lead gap, the stream time from the previous
+# root's end to its start (device idle that no span covers).
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.ema = None
+SPAN_PREFIX = "hidvae."
+MAX_SPANS = 1 << 16  # then spans are counted as dropped: the first records survive
+_NOOP = contextlib.nullcontext()
 
-    def update(self, seconds: float) -> float:
-        self.ema = (seconds if self.ema is None
-                    else self.alpha * seconds + (1 - self.alpha) * self.ema)
-        return self.ema
+
+class _Store:
+    def __init__(self):
+        self.spans, self.stack, self.devices = [], [], set()
+        self.dropped, self.requests, self.last_root = 0, 0, None
+
+
+_STORE = _Store()
+
+
+def _event(device):
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+class _Span:
+    __slots__ = ("name", "device", "fields", "store", "index", "parent", "request", "counts",
+                 "annotation", "start", "end", "lead", "host_start_ns", "host_end_ns")
+
+    def __init__(self, name, device, fields):
+        self.name, self.device, self.fields, self.store = name, device, fields, None
+
+    def __enter__(self):
+        st = _STORE
+        if len(st.spans) >= MAX_SPANS:
+            st.dropped += 1
+            return None
+        parent = self.parent = st.stack[-1] if st.stack else None
+        if parent is None:
+            self.request, st.requests = st.requests, st.requests + 1
+        else:
+            self.request, self.device = parent.request, self.device or parent.device
+        self.store, self.index, self.counts = st, len(st.spans), {}
+        self.start = self.end = self.lead = self.host_end_ns = None
+        self.annotation = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.annotation.__enter__()
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            self.device = torch.device(self.device)
+            self.start = _event(self.device)
+            st.devices.add(self.device)
+            last = st.last_root
+            if parent is None and last is not None and last.device == self.device:
+                self.lead = last.end
+        self.host_start_ns = time.perf_counter_ns()
+        st.spans.append(self)
+        st.stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        st = self.store
+        if st is None:
+            return False
+        self.host_end_ns = time.perf_counter_ns()
+        if self.start is not None:
+            self.end = _event(self.device)
+            if self.parent is None:
+                st.last_root = self
+        if st.stack and st.stack[-1] is self:
+            st.stack.pop()
+        self.annotation.__exit__(*exc)
+        return False
+
+    def as_dict(self):
+        timed = self.start is not None and self.end is not None
+        return {"index": self.index, "name": self.name,
+                "parent": None if self.parent is None else self.parent.index,
+                "request": self.request, "fields": self.fields,
+                "host_start_ns": self.host_start_ns, "host_end_ns": self.host_end_ns,
+                "stream_ms": self.start.elapsed_time(self.end) if timed else None,
+                "lead_gap_ms": None if self.lead is None else self.lead.elapsed_time(self.start),
+                "counts": {k: v.item() if isinstance(v, torch.Tensor) else v
+                           for k, v in self.counts.items()}}
+
+
+def tracing() -> bool:
+    """Whether spans and counters record: a profiler runs (one C call)."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str, device=None, **fields):
+    """A span `name` around a block, keeping `fields` (e.g. digit=i);
+    `device` is where its work runs (default: its parent's)."""
+    if not torch.autograd._profiler_enabled():
+        return _NOOP
+    return _Span(name, device, fields)
+
+
+def count(name: str, value):
+    """Add a host number, or a device scalar (summed on the device, no
+    sync), to counter `name` of the open root span, if any."""
+    if _STORE.stack:
+        counts = _STORE.stack[0].counts
+        counts[name] = counts[name] + value if name in counts else value
+
+
+def records() -> list:
+    """The spans in the order they opened, as dicts (parent: an index, None
+    for a root; stream_ms, lead_gap_ms: None where not taken), after one
+    synchronize a device."""
+    for device in _STORE.devices:
+        torch.cuda.synchronize(device)
+    return [sp.as_dict() for sp in _STORE.spans]
+
+
+def dropped() -> int:
+    """Spans not recorded since the last `clear`: the store was full."""
+    return _STORE.dropped
+
+
+def clear():
+    """Empty the store."""
+    global _STORE
+    _STORE = _Store()

@@ -3,7 +3,7 @@
 untrained RQ-VAE (F 768, D 32, K 256, L 3) indexes seeded features on the
 card; timed: the sweep, the engine build, 64-user requests on the trie,
 cap-gather and clamped-cap paths, one 1,024-user request, and users/s by
-bucket (HIDVAE_KNEE_BUCKETS) with the share of the fp32 peak.
+bucket (HIDVAE_KNEE_BUCKETS) with the products a bucket call executes.
 
 Usage: python scripts/torch_bench_scale.py [--device cpu] [n_items ...]
 (default 200000 1000000). Prints one JSON line."""
@@ -29,7 +29,6 @@ from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer  # noqa: E402
 from hidvae_tpu_torch.train.init import kmeans_init_codebooks  # noqa: E402
 from hidvae_tpu_torch.utils.runtime import resolve_device  # noqa: E402
 
-FP32_PEAK = 67e12  # H100 SXM, outside the tensor cores
 # The decoder of scripts/bench_scale.py: embedding 128, attention 512, 8
 # heads, 8 layers.
 DECODER = dict(embedding_dim=128, attn_dim=512, num_heads=8, n_layers=8)
@@ -121,8 +120,8 @@ def bench_one(n_items, device, request_users=64, max_seq_len=20, big=1024,
     big_wall = time.perf_counter() - t0
     big_host_cpu = time.process_time() - t_host0
 
-    # Users/s of one `big`-user request as the bucket grows, and the share of
-    # the fp32 peak that the products of its bucket calls reach.
+    # Users/s of one `big`-user request as the bucket grows, and the products
+    # a bucket call executes.
     from torch.utils.flop_counter import FlopCounterMode
 
     knee = []
@@ -139,9 +138,7 @@ def bench_one(n_items, device, request_users=64, max_seq_len=20, big=1024,
         fl = counter.get_total_flops()
         row = {"bucket": bucket, "users_per_sec": round(big / wall, 1),
                "ms_per_1024_users": round(wall * 1e3 * 1024 / big, 1),
-               "tflop_per_batch": round(fl / 1e12, 4),
-               "beam_mfu": round(fl * (big / bucket) / wall / FP32_PEAK, 4),
-               "peak_tflop_s": FP32_PEAK / 1e12}
+               "tflop_per_batch": round(fl / 1e12, 4)}
         knee.append(row)
     engine.batch_buckets = (request_users,)
 

@@ -1,5 +1,5 @@
 """The port's inspection tools against the JAX package on the CPU:
-`profile_trace` / `StepTimer`, scripts/torch_view.py's three subcommands,
+`profile_trace` (its trace and span files), scripts/torch_view.py's three subcommands,
 scripts/torch_diag_mining.py, scripts/torch_train_profile.py --attrib, and
 the plain `rq_assign` at code width 16 (the view tools' width)."""
 
@@ -18,9 +18,8 @@ import torch
 from hidvae_tpu.data.synthetic import build_synthetic as j_build_synthetic
 from hidvae_tpu.ops.pallas import rq_kernels as jrq
 from hidvae_tpu.train.tags import compute_rare_tag_remap as j_remap
-from hidvae_tpu.utils.debug import StepTimer as JStepTimer
 from hidvae_tpu_torch.ops import rq_assign as rq
-from hidvae_tpu_torch.utils.debug import StepTimer, profile_trace
+from hidvae_tpu_torch.utils.debug import profile_trace, span
 from tests._torch_common import load_script
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,19 +34,24 @@ def printed(fn, *args):
     return out.getvalue(), result
 
 
-def test_profile_trace_and_step_timer(tmp_path, monkeypatch):
+def test_profile_trace_writes_trace_and_spans(tmp_path, monkeypatch):
     monkeypatch.delenv("HIDVAE_PROFILE", raising=False)
     with profile_trace(log_dir=str(tmp_path / "off")) as prof:
         torch.ones(2).sum()
     assert prof is None and not (tmp_path / "off").exists()
     monkeypatch.setenv("HIDVAE_PROFILE", "1")
     with profile_trace(log_dir=str(tmp_path / "on")) as prof:
-        (torch.ones(4, 4) @ torch.ones(4, 4)).sum()
+        with span("outer", phase=1):
+            with span("inner"):
+                (torch.ones(4, 4) @ torch.ones(4, 4)).sum()
     trace = Path(prof.trace_path)
     assert trace.parent == tmp_path / "on" and "traceEvents" in json.loads(trace.read_text())
-    mine, theirs = StepTimer(alpha=0.3), JStepTimer(alpha=0.3)
-    for s in (0.5, 0.1, 0.9, 0.25):
-        assert mine.update(s) == theirs.update(s)
+    spans = Path(prof.spans_path)
+    assert spans.parent == trace.parent and spans.name == trace.name.replace("trace_", "spans_")
+    written = json.loads(spans.read_text())
+    assert written["dropped"] == 0
+    assert [(r["name"], r["parent"], r["request"], r["fields"]) for r in written["records"]] == [
+        ("outer", None, 0, {"phase": 1}), ("inner", 0, 0, {})]
 
 
 def test_view_processed_report_equals_jax(monkeypatch):
