@@ -433,9 +433,7 @@ def serve_phase(device):
     if n_bad or not tags_equal:
         raise AssertionError("corpus table differs from the plain sweep")
     tok_launches = check_tokenize_features(tok, items, hist)
-
-    p50 = serve_p50(engine, hist)
-    return launches, p50, engine, items, hist, tok_launches
+    return launches, engine, items, hist, tok_launches
 
 
 def check_tokenize_features(tok, items, hist):
@@ -471,19 +469,6 @@ def check_tokenize_features(tok, items, hist):
         raise AssertionError(f"tokenize_features differs from the table's gather (launches "
                              f"{launches}, expected {want_launches})")
     return launches
-
-
-def serve_p50(engine, hist):
-    """Median ms (host clock) of 12 warm recommend calls on `hist`, printed with the spread."""
-    lat = []
-    for _ in range(12):
-        if engine.device.type == "cuda":
-            torch.cuda.synchronize()
-        lat.append(engine.recommend(hist, top_k=10)["latency_s"] * 1e3)
-    p50 = statistics.median(lat)
-    print(f"  serve p50 {p50:.2f} ms over {len(lat)} warm calls of {len(hist)} histories "
-          f"(min {min(lat):.2f}, max {max(lat):.2f})")
-    return p50
 
 
 def plain_sweep(vae, feats, chunk):
@@ -661,7 +646,6 @@ def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
             "amazon", os.path.join(tmp, "amazon"), DECODER_AMAZON_GIN, amazon, tok.hrq_vae,
             engine.model, items, hist, sem, device)
         check_same_engine("amazon", rebuilt, engine, hist)
-        serve_p50(rebuilt, hist)
         del rebuilt
 
         cfg = ml32m
@@ -682,7 +666,6 @@ def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
         resolved = check_recommendations(rebuilt, out, cfg["n_items"])
         print(f"  ml32m: recommend {out['items'].shape}, resolved {resolved}, first row "
               f"{out['items'][0].tolist()}")
-        serve_p50(rebuilt, ml_hist)
     return launches
 
 
@@ -2264,12 +2247,11 @@ def stage2_built(name, gin, steps, device, n_items):
 
 
 def serve_built(name, gin, s1, s2, a, device):
-    """from_artifacts on 32 test histories, every top-10 item resolved; p50. Returns the launches."""
+    """from_artifacts on 32 test histories, every top-10 item resolved. Returns the launches."""
     hist = a.seq_items[a.seq_split == 2][:ARTIFACT_HISTORIES]
-    engine, launches, out = served(name, gin, s1, s2, hist, len(a.item_features), device)
+    _, launches, out = served(name, gin, s1, s2, hist, len(a.item_features), device)
     if (out["items"] < 0).any():
         raise AssertionError(f"{name}: a top-10 item of a test history did not resolve")
-    serve_p50(engine, hist)
     return launches
 
 
@@ -3033,7 +3015,7 @@ def main():
     device = torch.device("cuda", 0)
     build_phase()
     rec = kernel_phase(device)
-    launches, _, engine, items, hist, tok_launches = serve_phase(device)
+    launches, engine, items, hist, tok_launches = serve_phase(device)
     art_launches = artifacts_phase(device, engine, items, hist)
     del engine
     flash_recs = flash_phase(device)

@@ -117,26 +117,45 @@ class MultiHeadAttention(nn.Module):
         b, n, c = t.shape
         return t.reshape(b, n, self.num_heads, c // self.num_heads).transpose(1, 2)
 
+    def _merge(self, out):
+        b, h, n, d = out.shape
+        return dense(self.proj, out.transpose(1, 2).reshape(b, n, h * d), self.dtype)
+
+    def cross_kv(self, x_kv):
+        """The cross-attention's keys and values of x_kv, [B, H, M, Dh] each."""
+        k, v = dense(self.kv, x_kv, self.dtype).chunk(2, dim=-1)
+        return self._heads(k), self._heads(v)
+
+    def cross(self, x, k, v, kv_padding_mask=None, is_causal: bool = False):
+        """Cross-attention of x's queries over `cross_kv`'s keys and values."""
+        q = self._heads(dense(self.q, x, self.dtype))
+        if q.shape[0] != k.shape[0]:
+            out = grouped_cross_attention(q, k, v, kv_padding_mask=kv_padding_mask)
+        else:
+            mask = make_attention_mask(q.shape[2], k.shape[2], causal=is_causal,
+                                       kv_padding_mask=kv_padding_mask, device=q.device)
+            out = dot_product_attention(q, k, v, mask=mask)
+        return self._merge(out)
+
+    def cached_self(self, x, cache, layer: int, pos: int):
+        """Self-attention of one token a row (x [R, 1, C]) at `pos` over
+        `cache`'s positions 0..pos: no mask is needed."""
+        qkv = dense(self.qkv, x, self.dtype).reshape(x.shape[0], 3, self.num_heads, -1)
+        k, v = cache.write(layer, pos, qkv[:, 1:].transpose(0, 1))
+        return self._merge(dot_product_attention(qkv[:, 0, :, None], k, v))
+
     def forward(self, x, x_kv=None, *, kv_padding_mask: Optional[torch.Tensor] = None,
                 is_causal: bool = True):
         if self.cross_attn:
             if x_kv is None:
                 raise ValueError("cross attention requires x_kv")
-            q = dense(self.q, x, self.dtype)
-            k, v = dense(self.kv, x_kv, self.dtype).chunk(2, dim=-1)
-        else:
-            q, k, v = dense(self.qkv, x, self.dtype).chunk(3, dim=-1)
-        q, k, v = self._heads(q), self._heads(k), self._heads(v)
-        use_flash = takes_flash_route(q.shape[-1], q.shape[2], self.cross_attn, self.use_flash)
-        if use_flash:
+            return self.cross(x, *self.cross_kv(x_kv), kv_padding_mask, is_causal)
+        q, k, v = (self._heads(t) for t in dense(self.qkv, x, self.dtype).chunk(3, dim=-1))
+        if takes_flash_route(q.shape[-1], q.shape[2], False, self.use_flash):
             check_head_dim(q.shape[-1], q.device.type)
-        if self.cross_attn and q.shape[0] != k.shape[0]:
-            out = grouped_cross_attention(q, k, v, kv_padding_mask=kv_padding_mask)
-        elif use_flash:
             out = flash_self_attention(q, k, v, kv_padding_mask, is_causal, self.dtype)
         else:
             mask = make_attention_mask(q.shape[2], k.shape[2], causal=is_causal,
                                        kv_padding_mask=kv_padding_mask, device=q.device)
             out = dot_product_attention(q, k, v, mask=mask)
-        b, h, n, d = out.shape
-        return dense(self.proj, out.transpose(1, 2).reshape(b, n, h * d), self.dtype)
+        return self._merge(out)

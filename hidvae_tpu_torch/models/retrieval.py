@@ -1,9 +1,11 @@
 """Encoder-decoder generative retrieval model and constrained beam
 search (counterpart of hidvae_tpu/models/retrieval.py). The beam keeps
 fixed [B*k] shapes, runs the encoder once and narrows each beam's corpus
-range by binary search. Train mode is a dropout generator passed to
-`forward`; `dtype` is flax's compute dtype; `remat` rematerializes every
-block; under tensor parallelism the logits are gathered along the vocab."""
+range by binary search. Unlike the JAX package's, it decodes one new token
+a row per digit against a per-page `DecoderCache`. Train mode is a dropout
+generator passed to `forward`; `dtype` is flax's compute dtype; `remat`
+rematerializes every block; under tensor parallelism the logits are
+gathered along the vocab."""
 
 import warnings
 from dataclasses import dataclass
@@ -15,7 +17,7 @@ from torch import nn
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models.embedder import SemIdEmbedder, UserIdEmbedder
 from hidvae_tpu_torch.models.layers import RMSNorm, dense
-from hidvae_tpu_torch.models.transformer import TransformerEncoderDecoder
+from hidvae_tpu_torch.models.transformer import DecoderCache, TransformerEncoderDecoder
 from hidvae_tpu_torch.ops.dropout import dropout as drop
 from hidvae_tpu_torch.ops.prefix_search import (
     first_digit_mask,
@@ -124,9 +126,36 @@ class EncoderDecoderRetrievalModel(nn.Module):
                                       generator=generator)
         if last_only:
             dec = dec[:, -1:, :]
+        return self._logits(dec)
+
+    def _logits(self, dec):
         logits = dense(self.out_proj, dec, self.dtype)
         tp = getattr(self.out_proj, "tp", None)
         return logits if tp is None else gather_from_model(logits, tp)
+
+    def decode_step(self, cache, pos: int, sem_ids=None):
+        """Eval-mode logits [R, 1, K] at decoder position `pos` from one token
+        a row (BOS at 0, else digit pos - 1 `sem_ids` [R, 1]), reading
+        positions < pos from `cache` and writing `pos` there."""
+        if pos == 0:
+            x = self.bos_emb.repeat(cache.rows, 1, 1)
+        else:
+            tt = torch.full_like(sem_ids, pos - 1)
+            x = self.sem_id_embedder(sem_ids, tt) + self.tte(tt.long())
+        x = dense(self.in_proj, self.norm_cxt(x), self.dtype)
+        for i, block in enumerate(self._decoder_blocks()):
+            x = block.decode_step(x, cache, i, pos)
+        return self._logits(x)
+
+    def start_decode(self, enc, ctx_mask, rows: int) -> DecoderCache:
+        """A cache of `rows` rows (a multiple of enc's) over sem_id_dim
+        positions, holding each block's cross keys and values of `enc`."""
+        cross = [block.cross_attention.cross_kv(enc) for block in self._decoder_blocks()]
+        return DecoderCache(cross, ctx_mask, rows, self.sem_id_dim)
+
+    def _decoder_blocks(self):
+        dec = self.transformer.decoder
+        return [getattr(dec, f"block_{i}") for i in range(dec.n_layers)]
 
     # ---- training / eval forward ----
 
@@ -181,7 +210,6 @@ class EncoderDecoderRetrievalModel(nn.Module):
         d = self.sem_id_dim
         kk = self.num_embeddings
         dev = enc.device
-        ttids = torch.arange(d, dtype=torch.int32, device=dev).repeat(b * k, 1)
         generated = torch.zeros((b, k, d), dtype=torch.int32, device=dev)
         log_probs = torch.full((b, k), NEG_LARGE, device=dev)
         log_probs[:, 0] = 0.0
@@ -192,15 +220,17 @@ class EncoderDecoderRetrievalModel(nn.Module):
             hi = torch.full((b, k), n_corpus, dtype=torch.int32, device=dev)
             step0_mask = first_digit_mask(prefix_index, kk)
 
+        cache = self.start_decode(enc, ctx_mask, b * k)
+        parent_rows = torch.arange(b, device=dev)[:, None] * k
         for i in range(d):
             with span("model.beam.digit", digit=i):
                 if tracing():  # rows alive (no off-catalog digit yet) and rows run
                     count("beam.live_rows", (log_probs > INVALID_PENALTY / 2).sum())
                     count("beam.rows", b * k)
-                # Causal: only digits < i feed step i, so the decoder sees i + 1 tokens.
-                dec_in = generated.reshape(b * k, d)[:, :i]
-                logits_last = self.decode_logits(enc, ctx_mask, dec_in, ttids[:, :i],
-                                                 last_only=True)
+                    count("beam.decoder_tokens", b * k)  # one new token a row
+                    count("beam.cached_tokens", b * k * i)
+                prev = generated[:, :, i - 1].reshape(b * k, 1) if i else None
+                logits_last = self.decode_step(cache, i, prev)
                 step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
                 if sample and generator is not None:
                     u = torch.rand(step_logp.shape, generator=generator, device=dev)
@@ -240,6 +270,8 @@ class EncoderDecoderRetrievalModel(nn.Module):
                 generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
                 generated[:, :, i] = digits
                 log_probs = top_scores
+                if i + 1 < d:
+                    cache.reorder((parent_rows + parent).reshape(-1), i + 1)
 
                 if prefix_index is not None:
                     lo = torch.gather(lo, 1, parent)

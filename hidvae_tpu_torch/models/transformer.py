@@ -3,7 +3,8 @@ hidvae_tpu/models/transformer.py; cross-attention's query is the block
 input, :58). Dropout applies where the JAX block applies it (:51-71).
 `remat` rematerializes each block with torch.utils.checkpoint;
 `GeneratorReplay` hands the recompute the dropout generator as it was, so
-it draws the forward's masks."""
+it draws the forward's masks. `DecoderCache` and `decode_step` run the
+decoder one token at a time (eval only)."""
 
 from typing import Optional, Sequence
 
@@ -51,6 +52,37 @@ class TransformerBlock(nn.Module):
             )
         ff = self.ff(self.ffn_norm(attn_out), generator)
         return attn_out + drop(ff, p, generator)
+
+    def decode_step(self, x, cache, layer: int, pos: int):
+        """`forward` in eval mode for one new token a row at position `pos`."""
+        attn_out = x + self.attention.cached_self(self.attn_norm(x), cache, layer, pos)
+        attn_out = attn_out + self.cross_attention.cross(self.cross_attn_norm(x),
+                                                         *cache.cross[layer], cache.ctx_mask)
+        return attn_out + self.ff(self.ffn_norm(attn_out))
+
+
+class DecoderCache:
+    """An incremental decode's keys and values: each layer's cross ones,
+    [B, H, M, Dh], and the self ones of each position written so far,
+    [layers, 2, rows, H, positions, Dh]."""
+
+    def __init__(self, cross, ctx_mask, rows: int, positions: int):
+        self.cross, self.ctx_mask = cross, ctx_mask
+        self.rows, self.positions = rows, positions
+        self.self_kv = None
+
+    def write(self, layer: int, pos: int, kv):
+        """Store kv [2, rows, H, Dh] at `pos`; return keys and values 0..pos."""
+        if self.self_kv is None:
+            _, r, h, dh = kv.shape
+            self.self_kv = kv.new_empty((len(self.cross), 2, r, h, self.positions, dh))
+        self.self_kv[layer, :, :, :, pos] = kv
+        return self.self_kv[layer, 0, :, :, :pos + 1], self.self_kv[layer, 1, :, :, :pos + 1]
+
+    def reorder(self, rows, n: int):
+        """Row r takes row rows[r]'s (its parent beam's) positions < n."""
+        if self.self_kv is not None:
+            self.self_kv[:, :, :, :, :n] = self.self_kv[:, :, rows, :, :n]
 
 
 class GeneratorReplay:

@@ -1,9 +1,8 @@
 """Catalog-scale index build and serving bench of the PyTorch port
 (counterpart of scripts/bench_scale.py: its steps, order and widths): an
-untrained RQ-VAE (F 768, D 32, K 256, L 3) indexes seeded features on the
-card; timed: the sweep, the engine build, 64-user requests on the trie,
-cap-gather and clamped-cap paths, one 1,024-user request, and users/s by
-bucket (HIDVAE_KNEE_BUCKETS) with the products a bucket call executes.
+untrained RQ-VAE (F 768, D 32, K 256, L 3) indexes seeded features; timed:
+the sweep, the engine build, requests on each constraint path, and users/s
+by bucket (HIDVAE_KNEE_BUCKETS).
 
 Usage: python scripts/torch_bench_scale.py [--device cpu] [n_items ...]
 (default 200000 1000000). Prints one JSON line."""

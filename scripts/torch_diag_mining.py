@@ -4,10 +4,7 @@ fixed params of a stage-1 checkpoint? (counterpart of scripts/diag_mining.py)
     python3 scripts/torch_diag_mining.py CHECKPOINT [DATASET_ROOT] [--device cpu]
 
 CHECKPOINT: an exported HiD-VAE checkpoint; DATASET_ROOT (default
-dataset/synthetic_xl) holds processed/synthetic.npz. Eval-mode IDs of the
-first n train items in chunks of 1,000 (one rq_assign launch each on the
-card), 128 colliding pairs, the train-mode forward of [pairs ; rest] at
-1,024 rows; prints four rates."""
+dataset/synthetic_xl) holds processed/synthetic.npz. Prints four rates."""
 
 import argparse
 import os

@@ -1,11 +1,7 @@
 """Write a seeded synthetic dataset, bit for bit the files of the JAX
 package's scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py
-(their arguments, seed 42):
-
-  large  20,000 items, 5,000 users;  xl  200,000 x 50,000;
-  xxl  1,000,000 x 100,000;  ml32m  20,000 x 5,000 with 18 categorical
-  columns;  amazon-raw  a raw P5 Sports drop (18,357 items, 35,598 users);
-  kuairand-raw  a raw KuaiRand-1K drop (20,000 + 500 videos, 4,000 users)
+(their arguments, seed 42): presets large, xl, xxl, ml32m, amazon-raw (a raw
+P5 Sports drop), kuairand-raw (a raw KuaiRand-1K drop).
 
 Usage: python scripts/torch_make_synthetic.py PRESET [out_root]
 (default out_root: dataset/synthetic_<preset>, dataset/amazon, dataset/kuairand)"""

@@ -3,11 +3,8 @@ config (counterpart of train_hidvae.py, the same gin surface):
 
     python scripts/torch_train_hidvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides `train.pretrained_hrqvae_path` (a `latest`, or a JAX
-checkpoint converted with `export_flax_checkpoint.py SRC DST --opt-state`).
-Output lands in `<save_dir_root>/hrqvae_<DATASET>_<time>/`. Under
-`torchrun --standalone --nproc-per-node N` it runs data-parallel over N
-ranks (NCCL on cuda:LOCAL_RANK; Gloo with `--device cpu`)."""
+`--resume` overrides `train.pretrained_hrqvae_path`. Under `torchrun
+--standalone --nproc-per-node N` it runs data-parallel over N ranks."""
 
 import argparse
 import sys

@@ -1,15 +1,13 @@
 """Inspect a processed dataset or a short stage-1 run of the port
 (counterpart of scripts/view_processed_dataset.py, view_train_hrqvae.py and
-view_train_rqvae.py, their arguments and printed sections):
+view_train_rqvae.py):
 
     python3 scripts/torch_view.py processed ROOT [--dataset D] [--split S]
         [--samples 3] [--plots DIR]
     python3 scripts/torch_view.py train-hrqvae|train-rqvae [--iterations N]
         [--root DIR] [--out DIR] [--device cpu]
 
-The train subcommands write a 500-item synthetic corpus under --root when
-missing and train at code width 16, on the card unless given --device cpu.
-matplotlib is imported only with --plots."""
+The train subcommands write a 500-item corpus under --root when missing."""
 
 import argparse
 import os

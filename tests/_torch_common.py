@@ -2,7 +2,10 @@
 numpy, as the bridge takes them, and the JAX/torch model pairs built from
 the same weights at small widths."""
 
+import enum
+import functools
 import importlib.util
+import inspect
 import os
 from pathlib import Path
 
@@ -50,6 +53,64 @@ def write_gin(path, base, **overrides):
     lines += [f"train.{k} = {v}" for k, v in overrides.items()]
     Path(path).write_text("\n".join(lines) + "\n")
     return str(path)
+
+
+def spy(fn):
+    """A stand-in for `fn` that returns the keywords it is called with."""
+    @functools.wraps(fn)
+    def bound(**kwargs):
+        return kwargs
+    return bound
+
+
+def norm(v):
+    """An enum as (its type's name, its name), a tuple as a list."""
+    if isinstance(v, enum.Enum):
+        return (type(v).__name__, v.name)
+    return list(v) if isinstance(v, tuple) else v
+
+
+def assert_keywords_as_jax(jfn, fn):
+    """Every keyword of the JAX `jfn`, with its default, is a keyword of `fn`.
+    Returns fn's parameters."""
+    jsig, sig = inspect.signature(jfn), inspect.signature(fn)
+    for name, p in jsig.parameters.items():
+        assert name in sig.parameters, name
+        assert norm(sig.parameters[name].default) == norm(p.default), name
+    return sig.parameters
+
+
+def stage2_served(s1, dataset_root, out_root, *bindings):
+    """The stage-2 entry for 2 steps on the CPU at tiny widths on the stage-1
+    checkpoint `s1` (gin `bindings` added), then from_artifacts on its
+    checkpoint, its table the trained one's, serving 8 histories. Returns
+    (the entry's result, the engine's recommendations)."""
+    from hidvae_tpu_torch.data.processed import RecDataset, processed_path
+    from hidvae_tpu_torch.serve.engine import RetrievalEngine
+
+    lines = ["import data.processed", "train.dataset = %data.processed.RecDataset.SYNTHETIC",
+             f'train.dataset_folder = "{dataset_root}"',
+             f'train.save_dir_root = "{out_root / "decoder"}"', "train.iterations = 2",
+             "train.batch_size = 8", "train.vae_input_dim = 32", "train.vae_n_cat_feats = 0",
+             "train.vae_hidden_dims = [32, 16]", "train.vae_embed_dim = 8",
+             "train.decoder_embed_dim = 16", "train.attn_embed_dim = 32", "train.attn_heads = 2",
+             "train.attn_layers = 2", "train.warmup_steps = 2", "train.save_model_every = 2",
+             "train.partial_eval_every = 2", "train.full_eval_every = 2", "train.eval_batches = 1",
+             'train.mixed_precision_type = "fp32"', "train.make_plots = False", *bindings]
+    gin = out_root / "decoder.gin"
+    gin.write_text("\n".join(lines) + "\n")
+    out = load_script("torch_train_transformer").main([str(gin), "--stage1", s1,
+                                                        "--device", "cpu"])
+    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["checkpoint_2"]
+    served = RetrievalEngine.from_artifacts(str(gin), s1, out["saved_paths"][-1], device="cpu",
+                                            batch_buckets=(8,))
+    np.testing.assert_array_equal(served.corpus_ids.numpy(), out["tokenizer"].cached_ids.numpy())
+    data = np.load(processed_path(dataset_root, RecDataset.SYNTHETIC))
+    rec = served.recommend(data["seq_items"][:8])
+    ok = rec["items"] >= 0
+    assert ok.any()
+    np.testing.assert_array_equal(served.corpus_ids.numpy()[rec["items"][ok]], rec["sem_ids"][ok])
+    return out, data["item_features"]
 
 
 def basenames(paths):
@@ -140,12 +201,22 @@ def hrqvae_pair(*, input_dim=32, embed_dim=8, hidden_dims=(16,), codebook_size=1
     return jm, jvars, tm.eval()
 
 
+def jax_example_batch(d):
+    """A JAX batch of 2 rows of 2 items of `d` digits, all zeros: the shapes
+    a retrieval model's init takes."""
+    from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
+
+    tt = jnp.arange(d, dtype=jnp.int32)
+    return JBatch(user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, 2 * d), jnp.int32),
+                  sem_ids_fut=jnp.zeros((2, d), jnp.int32), seq_mask=jnp.ones((2, 2 * d), bool),
+                  token_type_ids=jnp.tile(tt, (2, 2)), token_type_ids_fut=jnp.tile(tt, (2, 1)))
+
+
 def retrieval_pair(*, embedding_dim=16, attn_dim=32, num_heads=4, n_layers=2,
                    num_embeddings=16, sem_id_dim=3, max_pos=64, n_sem_layers=3,
                    use_interleaved_ids=False, seed=0):
     """(JAX EncoderDecoderRetrievalModel, its params, torch model with the
     same weights)."""
-    from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
     from hidvae_tpu.models.retrieval import EncoderDecoderRetrievalModel as JModel
 
     from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
@@ -154,13 +225,7 @@ def retrieval_pair(*, embedding_dim=16, attn_dim=32, num_heads=4, n_layers=2,
                 num_heads=num_heads, n_layers=n_layers, num_embeddings=num_embeddings,
                 sem_id_dim=sem_id_dim, max_pos=max_pos, n_sem_layers=n_sem_layers,
                 use_interleaved_ids=use_interleaved_ids)
-    d, n = sem_id_dim, 2
-    example = JBatch(
-        user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, n * d), jnp.int32),
-        sem_ids_fut=jnp.zeros((2, d), jnp.int32), seq_mask=jnp.ones((2, n * d), bool),
-        token_type_ids=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, n)),
-        token_type_ids_fut=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 1)),
-    )
+    example = jax_example_batch(sem_id_dim)
     params = random_variables(jm, (example, False), seed=seed)["params"]
     tm = EncoderDecoderRetrievalModel(
         embedding_dim, attn_dim, num_heads, n_layers, num_embeddings, sem_id_dim,

@@ -2,8 +2,7 @@
 tests/test_torch_stage1_parallel*.py). `run(scenario, world, workdir)`
 starts `world` processes of this module (dryrun.launch_ranks, a timeout);
 each joins a Gloo group on the CPU, runs the scenario on workdir/inputs.pt
-and writes workdir/rank<r>.npz. The run builders are shared with the tests'
-one-process references. Imports nothing of JAX.
+and writes workdir/rank<r>.npz. Imports nothing of JAX.
 """
 
 import copy

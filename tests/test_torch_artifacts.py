@@ -20,7 +20,6 @@ from flax import traverse_util
 from hidvae_tpu.data.processed import ProcessedArrays as JArrays
 from hidvae_tpu.data.processed import SeqData as JSeqData
 from hidvae_tpu.data.processed import RecDataset as JRecDataset
-from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
 from hidvae_tpu.models.retrieval import EncoderDecoderRetrievalModel as JModel
 from hidvae_tpu.models.rqvae import RqVae as JRqVae
 from hidvae_tpu.serve import RetrievalEngine as JEngine
@@ -36,11 +35,12 @@ from hidvae_tpu_torch.utils.ginlite import parse_gin_file as tparse
 from tests._torch_common import (
     flat,
     japply,
+    jax_example_batch,
     load_script,
-    write_gin,
     random_variables,
     retrieval_pair,
     unflat,
+    write_gin,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -188,11 +188,7 @@ def _plain_artifacts(root: Path, dedup: bool):
                  dropout=0.1, num_heads=PLAIN["attn_heads"], n_layers=PLAIN["attn_layers"],
                  num_embeddings=PLAIN["codebook_size"], sem_id_dim=d, max_pos=MAX_SEQ * d,
                  n_sem_layers=PLAIN["n_layers"])
-    example = JBatch(
-        user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, 2 * d), jnp.int32),
-        sem_ids_fut=jnp.zeros((2, d), jnp.int32), seq_mask=jnp.ones((2, 2 * d), bool),
-        token_type_ids=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 2)),
-        token_type_ids_fut=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 1)))
+    example = jax_example_batch(d)
     dec_params = random_variables(dec, (example, False), seed=5)["params"]
     s2 = jcommon.save_checkpoint(str(root), "stage2", {
         "params": unflat(dec_params), "step": jnp.zeros((), jnp.int32),
@@ -405,12 +401,7 @@ def _jax_init(name):
         tm = RqVae(32, 8, (16,), 16, codebook_sim_vq=True)
     else:
         jm, _, tm = _tiny_decoder()
-        d = 3
-        example = JBatch(
-            user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, 2 * d), jnp.int32),
-            sem_ids_fut=jnp.zeros((2, d), jnp.int32), seq_mask=jnp.ones((2, 2 * d), bool),
-            token_type_ids=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 2)),
-            token_type_ids_fut=jnp.tile(jnp.arange(d, dtype=jnp.int32), (2, 1)))
+        example = jax_example_batch(3)
         variables = jax.jit(lambda r: jm.init(r, example, False))(rngs)
     return variables, tm
 

@@ -12,13 +12,12 @@ import pytest
 import torch
 from flax import traverse_util
 
-from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
 from hidvae_tpu.models.retrieval import EncoderDecoderRetrievalModel as JModel
 from hidvae_tpu_torch.bridge import flax_param_key, load_flax_weights
-from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models import attention
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
-from tests._torch_common import random_variables, unflat
+from tests._torch_common import jax_example_batch, random_variables, unflat
+from tests.test_torch_train import _batches
 
 K, D = 16, 3  # codebook size, digits per item
 LOSS_RTOL = 4e-3   # measured 2.2e-4 (19 tokens), 4.4e-4 (2,050)
@@ -32,34 +31,13 @@ def _pair(n_items, seed=0):
     kw = dict(embedding_dim=16, attn_dim=64, num_heads=1, n_layers=2, num_embeddings=K,
               sem_id_dim=D, max_pos=n_items * D)
     jm = JModel(dropout=0.1, dtype=jnp.bfloat16, **kw)
-    example = JBatch(
-        user_ids=jnp.zeros((2,), jnp.int32), sem_ids=jnp.zeros((2, 2 * D), jnp.int32),
-        sem_ids_fut=jnp.zeros((2, D), jnp.int32), seq_mask=jnp.ones((2, 2 * D), bool),
-        token_type_ids=jnp.tile(jnp.arange(D, dtype=jnp.int32), (2, 2)),
-        token_type_ids_fut=jnp.tile(jnp.arange(D, dtype=jnp.int32), (2, 1)),
-    )
+    example = jax_example_batch(D)
     params = random_variables(jm, (example, False), seed=seed)["params"]
     tm = EncoderDecoderRetrievalModel(
         kw["embedding_dim"], kw["attn_dim"], kw["num_heads"], kw["n_layers"], K, D,
         max_pos=kw["max_pos"], dtype=torch.bfloat16)
     load_flax_weights(tm, params)
     return jm, unflat(params), tm.eval()
-
-
-def _batch(b, n, seed):
-    """The same tokenized batch for both packages, with ragged rows."""
-    rng = np.random.RandomState(seed)
-    t = n * D
-    mask = np.ones((b, t), bool)
-    mask[0, (n // 2) * D:] = False
-    mask[-1, (n - 1) * D:] = False
-    sem = np.where(mask, rng.randint(0, K, (b, t)), -1).astype(np.int32)
-    fut = rng.randint(0, K, (b, D)).astype(np.int32)
-    tt = np.tile(np.arange(D, dtype=np.int32), (b, n))
-    ttf = np.tile(np.arange(D, dtype=np.int32), (b, 1))
-    arrays = (np.arange(b, dtype=np.int32) * 977, sem, fut, mask, tt, ttf)
-    return (JBatch(*(jnp.asarray(a) for a in arrays)),
-            TokenizedSeqBatch(*(torch.from_numpy(a) for a in arrays)))
 
 
 def _rel_err(got, want):
@@ -70,7 +48,7 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("n,flash", [(6, False), (683, True)], ids=["dense_19", "flash_2050"])
 def test_bf16_loss_logits_and_gradients_match_jax(n, flash, monkeypatch):
     jm, params, tm = _pair(n)
-    jb, tb = _batch(2, n, seed=n)
+    jb, tb = _batches(2, n, D, seed=n)
 
     def jloss(p):
         out = jm.apply({"params": p}, jb, False)

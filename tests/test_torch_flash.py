@@ -2,9 +2,8 @@
 JAX attention module, on the CPU. The plain version (CPU tensors) and the
 per-kernel plain versions are held to `mha_reference` (forward) and
 `jax.grad` through `mha_reference_no_custom_vjp` (gradients), both fp32 with
-the same masking: 1e-5 absolute on values of order one. The CUDA kernels
-are held to the plain version on the card (tests/test_torch_kernels.py,
-chip_smoke.py).
+the same masking. The CUDA kernels are held to the plain version on the
+card (tests/test_torch_kernels.py).
 """
 
 import jax

@@ -3,7 +3,6 @@ HSemanticIdTokenizer on the same weights: predict_tags on [B, F] and
 [B, N, F] (predictions, confidences); tokenize_features in every layout,
 with and without the target's features and the mask (every field); __call__
 without a table takes tokenize_features, with one the gather, which agrees.
-Tolerances: predictions and IDs exact; confidences CONF_RTOL.
 """
 
 import jax.numpy as jnp

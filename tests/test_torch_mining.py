@@ -1,9 +1,7 @@
 """Duplicate-pair mining in the port's stage-1 trainer against JAX, on the
 CPU: the harvest, the sampler's pair rows, the forward with mined pairs
 (losses, collision rate, gradients), a JAX mining run converted and resumed
-in the port, pool re-seeding, and 2N equal to N + a resumed N.
-Tolerances: losses LOSS_RTOL; gradients and parameters REL_TOL of each JAX
-array's largest entry."""
+in the port, pool re-seeding, and 2N equal to N + a resumed N."""
 
 import shutil
 
@@ -21,7 +19,7 @@ from hidvae_tpu.models.quantize import QuantizeForwardMode as JMode
 from hidvae_tpu.train import device_data as jdd
 from hidvae_tpu.train import hidvae as jtrainer
 from hidvae_tpu.utils import runtime as jruntime
-from hidvae_tpu_torch.bridge import flax_named_parameters, load_export_arrays, state_dict_to_flax
+from hidvae_tpu_torch.bridge import load_export_arrays, state_dict_to_flax
 from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.models import hrqvae as thrqvae
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
@@ -31,11 +29,11 @@ from hidvae_tpu_torch.train.common import restore_checkpoint
 from hidvae_tpu_torch.train.device_data import DeviceItemData, harvest_duplicate_pairs
 from tests._torch_common import assert_rel as _assert_rel
 from tests._torch_common import flat, load_script, unflat
-from tests.test_torch_stage1_model import jax_mixup_draws, make_batch, make_pair
+from tests.test_torch_stage1_model import (assert_forward_as_jax, jax_mixup_draws, make_batch,
+                                           make_pair)
 
 LOSS_RTOL = 1e-4
 REL_TOL = 1e-4
-STATS_ATOL = 1e-5
 LR = 1e-3
 TINY = dict(n_items=300, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
             level_branching=(4, 3, 3))
@@ -165,22 +163,7 @@ def test_forward_with_mined_pairs_matches_jax(margin, isolate, no_flax_dropout):
     out.loss.backward()
     rate = float(out.mined_pair_collision_rate)
     assert rate == float(jout.mined_pair_collision_rate) and 0.5 <= rate < 1.0
-    for name in ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
-                 "tag_pred_accuracy", "p_unique_ids", "sem_id_uniqueness_loss"):
-        np.testing.assert_allclose(float(getattr(out, name).detach()), float(getattr(jout, name)),
-                                   rtol=LOSS_RTOL, atol=1e-7, err_msg=name)
-    assert_rel(out.embs_norm, jout.embs_norm, err_msg="embs_norm")
-    grads = flat(jgrad)
-    for path, p, transpose in flax_named_parameters(tm):
-        g = p.grad.T if transpose else p.grad
-        if path.startswith("tag_projector_") and path.endswith("dense_0/bias"):
-            bound = REL_TOL * np.max(np.abs(grads[path.replace("/bias", "/kernel")]))
-            assert np.max(np.abs(g.numpy())) <= bound and np.max(np.abs(grads[path])) <= bound
-        else:
-            assert_rel(g, grads[path], err_msg=path)
-    stats = state_dict_to_flax(tm)[1]  # one encode pass: statistics over every row
-    for k, want in flat(jstats).items():
-        np.testing.assert_allclose(stats[k], want, rtol=0, atol=STATS_ATOL, err_msg=k)
+    assert_forward_as_jax(tm, out, jout, jgrad, jstats, LOSS_RTOL)
 
 
 # ---- the trainer ------------------------------------------------------------

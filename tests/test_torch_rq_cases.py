@@ -1,9 +1,7 @@
 """rq_assign's plain version on duplicated codes and on the catalog's sweep
 chunks, through both packages: against the JAX package's
 `rq_assign_reference` and its Pallas `rq_assign` in interpret mode, as
-tests/test_torch_ops.py holds the plain version on its other cases. The
-kernel itself is held against the plain version on the card
-(tests/test_torch_kernels.py, chip_smoke.py)."""
+tests/test_torch_ops.py holds the plain version on its other cases."""
 
 import jax.numpy as jnp
 import numpy as np

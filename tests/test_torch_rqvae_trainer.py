@@ -2,11 +2,8 @@
 forward's losses and gradients; a JAX run converted and resumed in the
 port; 2N equal to N + a resumed N; the checkpoint through stage 2 and
 from_artifacts; the gin surface; configs/rqvae_ml32m.gin refused on a built
-ML-32M corpus. Tolerances: losses LOSS_RTOL; arrays REL_TOL of each JAX
-array's largest entry."""
+ML-32M corpus."""
 
-import functools
-import inspect
 import json
 import os
 from pathlib import Path
@@ -28,7 +25,6 @@ from hidvae_tpu_torch.bridge import flax_named_parameters, load_flax_weights, st
 from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
-from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train import rqvae as trainer
 from hidvae_tpu_torch.train.common import restore_checkpoint
@@ -36,11 +32,14 @@ from hidvae_tpu_torch.train.device_data import DeviceItemData
 from hidvae_tpu_torch.utils.config import parse_config_and_run
 from tests._torch_common import assert_rel as _assert_rel
 from tests._torch_common import (
+    assert_keywords_as_jax,
     basenames,
     flat,
     jax_batch_indices,
     load_script,
     random_variables,
+    spy,
+    stage2_served,
     unflat,
     write_gin,
 )
@@ -236,36 +235,12 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
     route (its table the RQ-VAE's own sweep) and from_artifacts."""
     _, _, resumed = port_runs
     s1 = resumed["saved_paths"][-1]
-    lines = ["import data.processed", "train.dataset = %data.processed.RecDataset.SYNTHETIC",
-             f'train.dataset_folder = "{dataset_root}"',
-             f'train.save_dir_root = "{tmp_path / "decoder"}"', "train.iterations = 2",
-             "train.batch_size = 8", "train.vae_input_dim = 32", "train.vae_n_cat_feats = 0",
-             "train.vae_hidden_dims = [32, 16]", "train.vae_embed_dim = 8",
-             "train.vae_codebook_size = 16", "train.decoder_embed_dim = 16",
-             "train.attn_embed_dim = 32", "train.attn_heads = 2", "train.attn_layers = 2",
-             "train.warmup_steps = 2", "train.save_model_every = 2",
-             "train.partial_eval_every = 2", "train.full_eval_every = 2", "train.eval_batches = 1",
-             'train.mixed_precision_type = "fp32"', "train.make_plots = False",
-             "train.use_h_tokenizer = False"]
-    gin = tmp_path / "decoder.gin"
-    gin.write_text("\n".join(lines) + "\n")
-    out = load_script("torch_train_transformer").main([str(gin), "--stage1", s1,
-                                                        "--device", "cpu"])
-    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["checkpoint_2"]
+    out, feats = stage2_served(s1, dataset_root, tmp_path, "train.vae_codebook_size = 16",
+                               "train.use_h_tokenizer = False")
     assert isinstance(out["tokenizer"], SemanticIdTokenizer)
-    feats = np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))["item_features"]
     own = SemanticIdTokenizer(resumed["model"], n_layers=3, codebook_size=16, device="cpu")
     np.testing.assert_array_equal(out["tokenizer"].cached_ids.numpy(),
                                   own.precompute_corpus_ids(feats).numpy())
-    served = RetrievalEngine.from_artifacts(str(gin), s1, out["saved_paths"][-1], device="cpu",
-                                            batch_buckets=(8,))
-    np.testing.assert_array_equal(served.corpus_ids.numpy(), out["tokenizer"].cached_ids.numpy())
-    rec = served.recommend(np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))
-                           ["seq_items"][:8])
-    ok = rec["items"] >= 0
-    assert ok.any()
-    table = served.corpus_ids.numpy()
-    np.testing.assert_array_equal(table[rec["items"][ok]], rec["sem_ids"][ok])
 
 
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):
@@ -319,22 +294,10 @@ def test_gin_surface_binds_as_jax():
     """Every keyword of the JAX trainer, with its default, is a keyword of the
     port's; each rqvae gin of configs/ binds through the port's ginlite,
     its enums to the port's enums."""
-    jsig, tsig = inspect.signature(jtrainer.train), inspect.signature(trainer.train)
-    for name, p in jsig.parameters.items():
-        assert name in tsig.parameters, name
-        jd, td = p.default, tsig.parameters[name].default
-        if isinstance(jd, (int, float, str, bool, type(None), tuple)):
-            assert jd == td, name
-        else:
-            assert type(jd).__name__ == type(td).__name__ and jd.name == td.name, name
-
-    @functools.wraps(trainer.train)
-    def spy(**kwargs):
-        return kwargs
-
+    params = assert_keywords_as_jax(jtrainer.train, trainer.train)
     for name in ("rqvae_amazon", "rqvae_kuairand", "rqvae_ml32m"):
-        bound = parse_config_and_run(spy, [str(ROOT / f"configs/{name}.gin")])
-        assert set(bound) <= set(tsig.parameters), name
+        bound = parse_config_and_run(spy(trainer.train), [str(ROOT / f"configs/{name}.gin")])
+        assert set(bound) <= set(params), name
         assert isinstance(bound["dataset"], RecDataset), name
     assert bound["vae_codebook_mode"] is QuantizeForwardMode.ROTATION_TRICK
     assert bound["vae_embed_dim"] == 64 and bound["dataset"] is RecDataset.ML_32M

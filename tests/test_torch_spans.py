@@ -75,6 +75,9 @@ def test_recommend_records_its_span_tree(engine):
         assert [r["name"] for r in kids] == SERVE[:5] + SERVE[5:6] * (d - 1) + SERVE[5:]
         assert [r["fields"]["digit"] for r in kids if "digit" in r["fields"]] == list(range(d))
         assert root["counts"]["beam.rows"] == BEAMS * rows * d
+        # one new decoder token a row and digit; digit i reads i cached ones
+        assert root["counts"]["beam.decoder_tokens"] == BEAMS * rows * d
+        assert root["counts"]["beam.cached_tokens"] == BEAMS * rows * d * (d - 1) // 2
         # digit 0 runs one seeded row a user, the later digits at most every row
         assert rows <= root["counts"]["beam.live_rows"] <= rows + BEAMS * rows * (d - 1)
         assert {r["stream_ms"] for r in kids + [root]} == {None}

@@ -1,9 +1,7 @@
 """The port's stage-1 model against JAX on the CPU, on bridged weights at
 small widths: the HRqVae train forward (IDs, losses, gradients), eval mode,
 bf16, BatchNorm after K_STEPS AdamW steps, predict_tags, k-means and the
-codebook init, the tag reconcile and remap. Dropout is off on both sides.
-Tolerances: LOSS_RTOL, REL_TOL of each JAX array's largest entry,
-STATS_ATOL."""
+codebook init, the tag reconcile and remap. Dropout is off on both sides."""
 
 import flax.linen as fnn
 import jax
@@ -53,6 +51,29 @@ LOSS_KW = dict(commitment_weight=0.4, tag_alignment_weight=0.15, tag_prediction_
 
 def assert_rel(got, want, tol=REL_TOL, err_msg=""):
     _assert_rel(got, want, tol, err_msg)
+
+
+def assert_forward_as_jax(tm, out, jout, jgrad, jstats, loss_rtol, train=True):
+    """The port's forward `out` (its backward run) against JAX's: losses,
+    embs_norm, every gradient and the batch statistics."""
+    for name in ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
+                 "tag_pred_accuracy", "p_unique_ids", "sem_id_uniqueness_loss"):
+        np.testing.assert_allclose(float(getattr(out, name).detach()), float(getattr(jout, name)),
+                                   rtol=loss_rtol, atol=1e-7, err_msg=name)
+    assert_rel(out.embs_norm, jout.embs_norm, err_msg="embs_norm")
+    grads = flat(jgrad)
+    for path, p, transpose in flax_named_parameters(tm):
+        g = p.grad.T if transpose else p.grad
+        if train and path.startswith("tag_projector_") and path.endswith("dense_0/bias"):
+            # A bias before a train-mode BatchNorm has an exact gradient of 0:
+            # both sides hold rounding only, small beside the kernel's.
+            bound = REL_TOL * np.max(np.abs(grads[path.replace("/bias", "/kernel")]))
+            assert np.max(np.abs(g.numpy())) <= bound and np.max(np.abs(grads[path])) <= bound
+        else:
+            assert_rel(g, grads[path], err_msg=path)
+    stats = state_dict_to_flax(tm)[1]
+    for k, want in flat(jstats).items():
+        np.testing.assert_allclose(stats[k], want, rtol=0, atol=STATS_ATOL, err_msg=k)
 
 
 @pytest.fixture
@@ -132,25 +153,9 @@ def test_train_forward_and_gradients(train, no_flax_dropout):
              class_counts=[torch.from_numpy(c) for c in counts],
              mixup=lambda level, b: draws[level])
     out.loss.backward()
-    for name in ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
-                 "tag_pred_accuracy", "p_unique_ids", "sem_id_uniqueness_loss"):
-        np.testing.assert_allclose(float(getattr(out, name).detach()), float(getattr(jout, name)),
-                                   rtol=LOSS_RTOL, atol=1e-7, err_msg=name)
-    for name in ("tag_align_loss_by_layer", "tag_pred_loss_by_layer", "embs_norm"):
+    for name in ("tag_align_loss_by_layer", "tag_pred_loss_by_layer"):
         assert_rel(getattr(out, name), getattr(jout, name), err_msg=name)
-    grads = flat(jgrad)
-    for path, p, transpose in flax_named_parameters(tm):
-        g = p.grad.T if transpose else p.grad
-        if train and path.startswith("tag_projector_") and path.endswith("dense_0/bias"):
-            # A bias before a train-mode BatchNorm has an exact gradient of 0:
-            # both sides hold rounding only, small beside the kernel's.
-            bound = REL_TOL * np.max(np.abs(grads[path.replace("/bias", "/kernel")]))
-            assert np.max(np.abs(g.numpy())) <= bound and np.max(np.abs(grads[path])) <= bound
-        else:
-            assert_rel(g, grads[path], err_msg=path)
-    stats = state_dict_to_flax(tm)[1]
-    for k, want in flat(jstats).items():
-        np.testing.assert_allclose(stats[k], want, rtol=0, atol=STATS_ATOL, err_msg=k)
+    assert_forward_as_jax(tm, out, jout, jgrad, jstats, LOSS_RTOL, train)
 
 
 def test_ids_in_train_mode_equal_jax(no_flax_dropout):

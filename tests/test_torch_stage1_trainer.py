@@ -1,12 +1,8 @@
 """The port's stage-1 trainer on its gin surface against JAX, on the CPU:
 the optimizer against optax; a JAX run converted and resumed in the port,
 following JAX's own resume; 2N equal to N + a resumed N; the gin surface;
-the checkpoint through stage 2 and from_artifacts. Tolerances: LOSS_RTOL,
-REL_TOL of each JAX array's largest entry, STATS_ATOL; a bias before a
-train-mode BatchNorm to one Adam step."""
+the checkpoint through stage 2 and from_artifacts."""
 
-import functools
-import inspect
 import os
 from pathlib import Path
 
@@ -30,7 +26,6 @@ from hidvae_tpu_torch.bridge import flax_named_parameters, state_dict_to_flax
 from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.models import hrqvae as thrqvae
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
-from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.train import hidvae as trainer
 from hidvae_tpu_torch.train.common import make_lr_schedule, make_optimizer, restore_checkpoint
@@ -38,10 +33,13 @@ from hidvae_tpu_torch.train.device_data import DeviceItemData
 from hidvae_tpu_torch.utils.config import parse_config_and_run
 from tests._torch_common import assert_rel as _assert_rel
 from tests._torch_common import (
+    assert_keywords_as_jax,
     basenames,
     flat,
     jax_batch_indices,
     load_script,
+    spy,
+    stage2_served,
     unflat,
     write_gin,
 )
@@ -281,21 +279,9 @@ def test_gin_surface_binds_as_jax():
     """Every keyword of the JAX trainer, with its default, is a keyword of the
     port's; configs/h_rqvae_amazon.gin binds through the port's ginlite,
     its enums to the port's enums."""
-    jsig, tsig = inspect.signature(jtrainer.train), inspect.signature(trainer.train)
-    for name, p in jsig.parameters.items():
-        assert name in tsig.parameters, name
-        jd, td = p.default, tsig.parameters[name].default
-        if isinstance(jd, (int, float, str, bool, type(None), tuple)):
-            assert jd == td, name
-        else:
-            assert type(jd).__name__ == type(td).__name__ and jd.name == td.name, name
-    @functools.wraps(trainer.train)
-    def spy(**kwargs):
-        return kwargs
-
-    bound = parse_config_and_run(spy, [str(ROOT / "configs/h_rqvae_amazon.gin")])
-    sig = inspect.signature(trainer.train)
-    assert set(bound) <= set(sig.parameters)
+    params = assert_keywords_as_jax(jtrainer.train, trainer.train)
+    bound = parse_config_and_run(spy(trainer.train), [str(ROOT / "configs/h_rqvae_amazon.gin")])
+    assert set(bound) <= set(params)
     assert bound["dataset"] is RecDataset.AMAZON
     assert bound["vae_codebook_mode"] is QuantizeForwardMode.ROTATION_TRICK
     assert bound["gradient_accumulate_every"] == 2 and bound["tag_class_counts"] == [38, 168, 348]
@@ -314,35 +300,13 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
         m = json.load(f)
     assert m["metrics"]["repetition_rate"] == resumed["history"]["repetition_rate"][-1]
     assert m["model_config"]["tag_class_counts"] == resumed["tag_class_counts"]
-    lines = ["import data.processed", "train.dataset = %data.processed.RecDataset.SYNTHETIC",
-             f'train.dataset_folder = "{dataset_root}"',
-             f'train.save_dir_root = "{tmp_path / "decoder"}"', "train.iterations = 2",
-             "train.batch_size = 8", "train.vae_input_dim = 32", "train.vae_n_cat_feats = 0",
-             "train.vae_hidden_dims = [32, 16]", "train.vae_embed_dim = 8",
-             "train.vae_codebook_size = 32", "train.tag_embed_dim = 16",
-             "train.decoder_embed_dim = 16", "train.attn_embed_dim = 32", "train.attn_heads = 2",
-             "train.attn_layers = 2", "train.warmup_steps = 2", "train.save_model_every = 2",
-             "train.partial_eval_every = 2", "train.full_eval_every = 2", "train.eval_batches = 1",
-             'train.mixed_precision_type = "fp32"', "train.make_plots = False",
-             "train.use_concatenated_ids = True"]
-    gin = tmp_path / "decoder.gin"
-    gin.write_text("\n".join(lines) + "\n")  # tag_class_counts healed from the stage-1 meta
-    script = load_script("torch_train_transformer")
-    out = script.main([str(gin), "--stage1", s1, "--device", "cpu"])
-    assert out["step"] == 2 and basenames(out["saved_paths"]) == ["checkpoint_2"]
-
-    feats = np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))["item_features"]
+    # tag_class_counts healed from the stage-1 meta
+    out, feats = stage2_served(s1, dataset_root, tmp_path, "train.vae_codebook_size = 32",
+                               "train.tag_embed_dim = 16", "train.use_concatenated_ids = True")
     own = HSemanticIdTokenizer(resumed["model"], n_layers=3, codebook_size=32,
                                tag_class_counts=resumed["tag_class_counts"], device="cpu")
     sem = own.precompute_corpus_ids(feats).numpy()
     np.testing.assert_array_equal(out["tokenizer"].cached_ids.numpy()[:, :3], sem)
-    served = RetrievalEngine.from_artifacts(str(gin), s1, out["saved_paths"][-1], device="cpu",
-                                            batch_buckets=(8,))
-    np.testing.assert_array_equal(served.corpus_ids.numpy(),
-                                  out["tokenizer"].cached_ids.numpy())
-    hist = np.load(j_processed_path(dataset_root, JRecDataset.SYNTHETIC))["seq_items"][:8]
-    rec = served.recommend(hist)
-    assert (rec["items"] >= 0).any()
 
 
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):

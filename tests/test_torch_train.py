@@ -35,6 +35,14 @@ GRAD_TOL = 1e-5
 PARAM_TOL = 1e-6
 
 
+# The stage-1 model and catalog of the train_arrays runs, and their decoder.
+TINY_VAE = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
+                codebook_normalize=True, tag_class_counts=(4, 6, 20), tag_embed_dim=12,
+                n_items=300)
+TINY_DECODER = dict(vae_codebook_size=16, decoder_embed_dim=16, attn_layers=2,
+                    tag_class_counts=(4, 6, 20), use_concatenated_ids=True)
+
+
 def _batches(b, n, d, seed):
     """The same tokenized batch for both packages; ragged rows."""
     rng = np.random.RandomState(seed)
@@ -213,17 +221,13 @@ def test_dense_init_is_flax_truncated_lecun_normal():
 def test_train_is_a_function_of_its_seed():
     from chip_smoke import build_vae, seeded_sequences
 
-    cfg = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
-               codebook_normalize=True, tag_class_counts=(4, 6, 20), tag_embed_dim=12,
-               n_items=300)
-    vae, feats = build_vae(cfg, torch.Generator().manual_seed(0))
-    users, items, fut = seeded_sequences(cfg["n_items"], 64, 8, seed=1)
+    vae, feats = build_vae(TINY_VAE, torch.Generator().manual_seed(0))
+    users, items, fut = seeded_sequences(TINY_VAE["n_items"], 64, 8, seed=1)
 
     def run(seed):
         return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=3, batch_size=4, seed=seed,
-            vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=2,
-            attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
+            attn_embed_dim=32, attn_heads=2, **TINY_DECODER,
             log_every=1, partial_eval_every=3, eval_users=users[:8], eval_items=items[:8],
             eval_fut=fut[:8], device="cpu", mixed_precision_type="fp32")["history"]
 
@@ -241,17 +245,13 @@ def test_window_mean_counts_every_step_loss(window, monkeypatch):
     from chip_smoke import build_vae, seeded_sequences
 
     monkeypatch.setattr(trainer, "LOSS_WINDOW", window)
-    cfg = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
-               codebook_normalize=True, tag_class_counts=(4, 6, 20), tag_embed_dim=12,
-               n_items=300)
-    vae, feats = build_vae(cfg, torch.Generator().manual_seed(0))
-    users, items, fut = seeded_sequences(cfg["n_items"], 64, 8, seed=1)
+    vae, feats = build_vae(TINY_VAE, torch.Generator().manual_seed(0))
+    users, items, fut = seeded_sequences(TINY_VAE["n_items"], 64, 8, seed=1)
 
     def run(log_every):
         return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=7, batch_size=4, seed=3,
-            vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=32, attn_heads=2,
-            attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
+            attn_embed_dim=32, attn_heads=2, **TINY_DECODER,
             log_every=log_every, partial_eval_every=100, device="cpu",
             mixed_precision_type="fp32")["history"]
 

@@ -2,9 +2,6 @@
 checkpoints and resume, a converted JAX checkpoint resumed, the gin surface
 and its refusals, the plain RQ-VAE route and the entry's checkpoint served."""
 
-import enum
-import functools
-import inspect
 import logging
 from pathlib import Path
 
@@ -39,7 +36,8 @@ from hidvae_tpu_torch.train.common import (
     save_checkpoint,
 )
 from hidvae_tpu_torch.utils.config import parse_config_and_run
-from tests._torch_common import flat, load_script, retrieval_pair
+from tests._torch_common import (assert_keywords_as_jax, flat, load_script, norm,
+                                 retrieval_pair, spy)
 from tests.test_torch_train import _batches
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -251,35 +249,19 @@ def test_jax_checkpoint_resumes_in_the_port(dataset_root, tmp_path, monkeypatch)
 
 # ---- gin surface ------------------------------------------------------------
 
-def _spy(fn):
-    @functools.wraps(fn)
-    def spy(**kwargs):
-        return kwargs
-    return spy
-
-
-def _norm(v):
-    if isinstance(v, enum.Enum):
-        return (type(v).__name__, v.name)
-    return list(v) if isinstance(v, tuple) else v
-
-
 def test_gin_binds_as_jax(tmp_path):
     """Every keyword of the JAX trainer, with its default, is a keyword of the
     port's; the same gin binds the same values; an unknown key raises in
     both with the same message."""
-    jsig, tsig = inspect.signature(jtrainer.train), inspect.signature(trainer.train)
-    for name, p in jsig.parameters.items():
-        assert name in tsig.parameters, name
-        assert _norm(tsig.parameters[name].default) == _norm(p.default), name
+    assert_keywords_as_jax(jtrainer.train, trainer.train)
     gin = tmp_path / "decoder.gin"
     gin.write_text((ROOT / "configs/decoder_amazon.gin").read_text()
                    + "train.remat = True\ntrain.max_grad_norm = 1.0\n")
-    got = parse_config_and_run(_spy(trainer.train), [str(gin)])
+    got = parse_config_and_run(spy(trainer.train), [str(gin)])
     want = j_bind(j_parse(str(gin)), "train", jtrainer.train)
     assert got.keys() == want.keys()
-    assert {k: _norm(v) for k, v in got.items()} == {k: _norm(v) for k, v in want.items()}
-    over = parse_config_and_run(_spy(trainer.train), [str(gin)], device="cpu",
+    assert {k: norm(v) for k, v in got.items()} == {k: norm(v) for k, v in want.items()}
+    over = parse_config_and_run(spy(trainer.train), [str(gin)], device="cpu",
                                 pretrained_decoder_path=None)
     assert over["device"] == "cpu" and "pretrained_decoder_path" not in over
 
@@ -287,7 +269,7 @@ def test_gin_binds_as_jax(tmp_path):
     with pytest.raises(ValueError) as j_err:
         j_bind(j_parse(str(gin)), "train", jtrainer.train)
     with pytest.raises(ValueError) as t_err:
-        parse_config_and_run(_spy(trainer.train), [str(gin)])
+        parse_config_and_run(spy(trainer.train), [str(gin)])
     assert str(t_err.value).split(" — ")[0] == str(j_err.value).split(" — ")[0]
 
 

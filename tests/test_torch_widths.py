@@ -18,6 +18,7 @@ from hidvae_tpu_torch.ops import rq_assign as rq
 from hidvae_tpu_torch.tokenizer import h_semids, semids
 from hidvae_tpu_torch.train import transformer as trainer
 from tests._torch_common import random_variables, unflat
+from tests.test_torch_train import TINY_DECODER, TINY_VAE
 
 TOL = 1e-5  # fp32 on both sides, summation order only
 
@@ -75,11 +76,8 @@ def test_trainer_refuses_a_width_without_kernel_before_the_first_step(monkeypatc
     before any step, on a check asked as for CUDA; 128 passes."""
     from chip_smoke import build_vae, seeded_sequences
 
-    cfg = dict(input_dim=48, hidden_dims=(32, 16), embed_dim=8, codebook_size=16, n_layers=3,
-               codebook_normalize=True, tag_class_counts=(4, 6, 20), tag_embed_dim=12,
-               n_items=300)
-    vae, feats = build_vae(cfg, torch.Generator().manual_seed(0))
-    users, items, fut = seeded_sequences(cfg["n_items"], 8, 342, seed=1)  # 1 + 342 * 6 tokens
+    vae, feats = build_vae(TINY_VAE, torch.Generator().manual_seed(0))
+    users, items, fut = seeded_sequences(TINY_VAE["n_items"], 8, 342, seed=1)  # 1 + 342 * 6 tokens
     checked, steps = [], []
     monkeypatch.setattr(trainer, "check_head_dim",
                         lambda d, dev: checked.append(d) or fa.check_head_dim(d, "cuda"))
@@ -88,8 +86,7 @@ def test_trainer_refuses_a_width_without_kernel_before_the_first_step(monkeypatc
     def run(width):
         return trainer.train_arrays(
             feats, users, items, fut, vae=vae, iterations=1, batch_size=2,
-            vae_codebook_size=16, decoder_embed_dim=16, attn_embed_dim=width, attn_heads=1,
-            attn_layers=2, tag_class_counts=(4, 6, 20), use_concatenated_ids=True,
+            attn_embed_dim=width, attn_heads=1, **TINY_DECODER,
             device="cpu", mixed_precision_type="fp32")
 
     with pytest.raises(ValueError, match="head widths"):
