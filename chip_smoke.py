@@ -1,12 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the CUDA kernels and holds each against its plain version at the
-paths' shapes, then drives the paths through their entry points on seeded
-weights and data at the configs' widths (PERF.md section 4): serve,
-artifacts, train, stage1, trainer, multi, mining, rqvae, synthetic, raw,
-tools and scale, launch counts reset before each path. Prints the kernels'
-JSON on the line before the last and {"ok": true, "device": {...}} last.
-Exits non-zero without a CUDA device; imports nothing of JAX."""
+Builds the kernels, holds each to its plain version, then drives the paths
+(serve, artifacts, train, stage1, trainer, multi, mining, rqvae,
+synthetic, raw, tools, scale) through their entries on seeded weights and
+data at the configs' widths. Prints the kernels' JSON, then
+{"ok": true, "device": {...}}; exits non-zero without a card; no JAX."""
 
 import inspect
 import json
@@ -86,8 +84,7 @@ TIE_RTOL = 1e-5
 KMEANS_ITERS = 10  # Lloyd steps of the seeded models' codebooks
 QSUM_ATOL = 1e-5  # qsum on rows whose ids agree, as tests/test_torch_kernels.py holds it
 # Flash kernels against the fp32 plain version, largest error over max
-# |plain|: fp32 sums of 2,432 terms in another order; bf16 outputs rounded
-# once (2^-9), P and dS rounded before their products as the library does.
+# |plain| (fp32 sums in another order; bf16 rounded as the library does).
 FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
 H100_FP32_FLOPS = 67e12     # outside the tensor cores, SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense tensor-core rate, SXM data sheet
@@ -344,9 +341,8 @@ def duplicate_codes_(x, cbs, generator):
 
 @phase("kernel")
 def kernel_phase(device):
-    """rq_assign against its plain version at KERNEL_CASES and on duplicated
-    codes, timed at TIMED_CASES. Returns the 1M-row record, the paths'
-    launch shapes under `at_*`."""
+    """rq_assign against its plain version (KERNEL_CASES, duplicated codes),
+    timed at TIMED_CASES. Returns the 1M-row record, `at_*` the paths'."""
     g = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     cases = [(*c, False) for c in KERNEL_CASES] + [(*TIMED_CASES[0], True)]  # True: duplicates
@@ -487,9 +483,8 @@ def plain_sweep(vae, feats, chunk):
 
 
 def audit_table(name, model, tag_class_counts, feats, device, rep=None):
-    """The trained model's table of `feats` through rq_assign (the H
-    tokenizer where it has tag counts) held by hold_table. Returns (table,
-    launches)."""
+    """`feats`' table through rq_assign, held by hold_table. Returns
+    (table, launches)."""
     kw = dict(n_layers=len(model.layers), codebook_size=model.codebook_size, device=device)
     tok = (SemanticIdTokenizer(model, **kw) if tag_class_counts is None else
            HSemanticIdTokenizer(model, tag_class_counts=tag_class_counts, **kw))
@@ -563,8 +558,8 @@ def decoder_gin(source, cfg, folder, **bindings):
 
 
 def write_artifacts(root, gin_source, cfg, vae, model, feats, hist, sem_table):
-    """The decoder gin, the processed data and exports of `vae` and `model` (metas with the
-    repetition of `sem_table`) under `root`. Returns (gin, stage-1, stage-2, rate)."""
+    """Under `root` the decoder gin, data and exports of `vae` and `model`.
+    Returns (gin, stage-1, stage-2, rate)."""
     os.makedirs(root)
     gin = os.path.join(root, "decoder.gin")
     with open(gin, "w") as f:
@@ -636,8 +631,8 @@ def check_same_engine(name, got, want, hist):
 
 @phase("artifacts")
 def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
-    """from_artifacts on both routes: the serve engine rebuilt equal to itself; a seeded plain RQ-
-    VAE at `ml32m`'s widths against a plain sweep. Returns the launches."""
+    """from_artifacts on both routes (the engine rebuilt; a plain RQ-VAE at
+    `ml32m`'s widths against a plain sweep). Returns the launches."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tok = engine.tokenizer
@@ -703,8 +698,8 @@ def keyless_segments(b, n, device, generator):
 
 
 def flash_bounds_ms(b, h, n, itemsize):
-    """(ms, bound_by) of each flash kernel at [b, h, n, 64] on an H100 SXM: its products (forward
-    2, dK/dV 4, dQ 3 of 2*b*h*n^2*64) over the type's peak, or its bytes."""
+    """(ms, bound_by) of each flash kernel at [b, h, n, 64] on an H100 SXM:
+    products (2, 4, 3 of 2*b*h*n^2*64) over peak, or bytes."""
     flops = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
     product = 2.0 * b * h * n * n * FLASH_HEAD_DIM
     mat = b * h * n * FLASH_HEAD_DIM * itemsize
@@ -739,16 +734,15 @@ FLASH_CHECKS = (
     *[(FLASH_WIDE_B, FLASH_HEAD_DIM, dtype, False, True)
       for dtype in (torch.bfloat16, torch.float32)],
 )
-# Causal with keyless rows: the kernels must visit, for them, the tiles
-# above the diagonal that causal blocks skip.
+# Causal with keyless rows: the tiles above the diagonal must be visited.
 FLASH_CAUSAL_KEYLESS_CHECKS = tuple(
     (FLASH_WIDE_B, dh, dtype, True, True)
     for dh in (FLASH_HEAD_DIM, 128) for dtype in (torch.bfloat16, torch.float32))
 
 
 def check_flash(device, g, checks):
-    """O, dQ, dK, dV against the fp32 plain version under a nonzero cotangent per case of `checks`,
-    held to FLASH_RTOL. Returns each kernel's largest error."""
+    """O, dQ, dK, dV against the fp32 plain version per case of `checks`
+    (FLASH_RTOL). Returns each kernel's largest error."""
     h, n = FLASH_TIMED["h"], FLASH_TIMED["n"]
     errs = {name: 0.0 for name in FLASH_REPLACES}
     for cb, dh, dtype, causal, keyless in checks:
@@ -862,9 +856,8 @@ def flash_phase(device):
               f"(in chunks of {c}), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
               f"at B={b} H={h} N={n} bf16")
     print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; SDPA "
-          f"forward {sdpa_ms:.4f} ms, backward alone {sdpa_bwd_ms:.4f} ms (kernels dK/dV + dQ "
-          f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), forward + backward "
-          f"{sdpa_fwd_bwd_ms:.4f} ms (a yardstick: the port never calls it)")
+          f"forward {sdpa_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms (kernels "
+          f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), both {sdpa_fwd_bwd_ms:.4f} ms")
     del o, m, l, di, qg, kg, vg
     errs = check_flash(device, g, FLASH_CHECKS + FLASH_CAUSAL_KEYLESS_CHECKS)
     records = {}
@@ -948,8 +941,8 @@ def fixed_batch_descent(result, data, batch, steps, seed=SEED):
 
 
 def check_train_run(name, result, launches, steps, n_encoder_layers=4, flash=False):
-    """Finite losses, rq_assign launched, flash launches per encoder layer (forward a step and eval
-    batch, dK/dV and dQ a step) on the flash route, none off it."""
+    """Finite losses, rq_assign launched, flash launches per encoder layer on
+    the flash route, none off it."""
     hist = result["history"]
     losses = hist["train_loss"] + hist["eval_loss"]
     if len(hist["train_loss"]) != steps or not all(np.isfinite(losses)):
@@ -1068,8 +1061,8 @@ def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
 
 
 def check_run(name, result, launches, steps, evals, device, n_items, saves=None):
-    """Steps, evals and saves (None: a `latest`) on the cadence, finite losses, one rq_assign
-    launch per 8,192 items an audit on the card, no flash. Returns the last save."""
+    """Steps, evals, saves on the cadence, finite losses, a rq_assign launch
+    per 8,192 items an audit on the card, no flash. Returns the last save."""
     hist = result["history"]
     got = [os.path.basename(p) for p in result["saved_paths"]]
     if (result["step"] != steps or hist["eval_iterations"] != evals
@@ -1113,8 +1106,8 @@ def device_busy(run, device):
 
 
 def time_updates(name, update, batch, accumulate, device, timed):
-    """Items/s of `update()` (`accumulate` mini-steps of `batch`), median of timed[1] after
-    timed[0]; on the card one more traced. Prints and returns the record."""
+    """Items/s of `update()`, median of timed[1] after timed[0] (on the card
+    one more traced). Prints and returns the record."""
     times = []
     for _ in range(sum(timed)):
         sync(device)
@@ -1163,8 +1156,8 @@ def stage1_throughput(result, gin, device, settings=STAGE1_SETTINGS, timed=STAGE
 @phase("stage1")
 def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SETTINGS,
                  timed=STAGE1_TIMED, **bindings):
-    """The stage-1 entry at cfg's widths on written Amazon data: 2N mini-steps, N plus a resumed N
-    held to it, the table against a plain sweep, throughput. Returns (latest, record)."""
+    """The stage-1 entry at cfg's widths: 2N mini-steps, N + resumed N held
+    to it, the table, throughput. Returns (latest, record)."""
     script = load_script("torch_train_hidvae")
     feats_np = np.asarray(feats)
     n_items = len(feats_np)
@@ -1207,12 +1200,10 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
 TRAINER_N = 5             # steps between evals and saves: the run takes 2N, the resume N + N
 TRAINER_SPLITS = (2048, 300, 300)  # train, eval and test histories in the written dataset
 TRAINER_EVAL_BATCHES = 2  # eval batches of 256: the second holds 44 rows, padded
-# Resumed against uninterrupted: atomic adds in another order only. L2 gaps:
-# params over the last N steps' update, moments over their norm (a lost
-# moment or count misses by tens of percent).
+# Resumed against uninterrupted (atomic adds in another order): L2 gaps of
+# params over the last N steps' update, moments over their norm.
 RESUME_RTOL = 1e-2
-# remat against none (flash route, one seed, dropout on): losses relative,
-# params as an L2 gap over the update.
+# remat against none (flash route, dropout on): losses, params' L2 gap.
 REMAT_LOSS_RTOL = 1e-3
 REMAT_PARAM_RTOL = 1e-2
 REMAT_RUN = (400, 64, 2)  # history items, batch, steps: 2,401 tokens, the flash route
@@ -1273,8 +1264,8 @@ def run_trainer_entry(script, device, *argv):
 
 
 def check_trainer_run(name, result, launches, steps, evals, device, n_items):
-    """Steps, saves and full evals on the cadence; hit@10 and NDCG@10 in [0, 1]; one rq_assign
-    launch per 8,192 items at the start on the card, no flash. Returns TEST's pair."""
+    """Steps, saves, evals on the cadence, metrics in [0, 1], rq_assign per
+    8,192 items at the start on the card, no flash. Returns TEST's pair."""
     hist = result["history"]
     d = result["tokenizer"].sem_ids_dim
     want_saves = [f"checkpoint_{it}" for it in evals]
@@ -1307,8 +1298,8 @@ def relative_gap(a, b, scale):
 
 
 def check_resume(full, half, resumed, steps, updates=None, stats=False):
-    """The resumed run's step, params (`stats`: batch statistics), Adam moments (RESUME_RTOL) and
-    optimizer counts (`updates`) against the uninterrupted run's. Returns the gaps."""
+    """The resumed run's step, params, moments (RESUME_RTOL) and counts
+    against the uninterrupted run's. Returns the gaps."""
     pf, ph, pr = (state_dict_to_flax(r["model"])[0] for r in (full, half, resumed))
     of, orr = (r["optimizer"].state_dict(r["model"]) for r in (full, resumed))
     update = {k: pf[k] - ph[k] for k in pf}
@@ -1408,8 +1399,8 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
 @phase("trainer")
 def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TRAINER_SPLITS,
                   remat_run=REMAT_RUN, **bindings):
-    """The stage-2 entry at cfg's widths on written data and `stage1`: 2N steps, N plus a resumed N
-    held to it, from_artifacts held to the trained model, remat. Returns the record."""
+    """The stage-2 entry at cfg's widths: 2N steps, N + resumed N held to it,
+    from_artifacts, remat. Returns the record."""
     script = load_script("torch_train_transformer")
     feats_np = np.asarray(feats)
     n_items = len(feats_np)
@@ -1472,19 +1463,15 @@ MULTI_N = 3               # steps of each multi-rank run (evals and saves at N);
 MULTI_SHORT = (20, 256)   # the bf16 runs: history items, global batch (decoder_amazon.gin's)
 MULTI_LONG = (400, 64, 2)  # long-history DP: history items, global batch, steps (2,401 tokens)
 MULTI_TIMEOUT_S = 600     # the two Gloo ranks' whole run
-# W ranks against one: the same batches, sums in another order. fp32: the
-# first loss within MULTI_FIRST_LOSS_RTOL; AdamW's sign-like updates carry
-# the order on, held to the JAX tests' multi-device rtol 5e-3; params as the
-# L2 gap over the update (a wrong cut leaf, out_proj's 0.6 %, gives 8e-2).
-# bf16 runs are held on their losses only.
+# W ranks against one (sums in another order), fp32: the first loss within
+# MULTI_FIRST_LOSS_RTOL, then the JAX tests' multi-device rtol 5e-3; params'
+# L2 gap over the update (a wrong cut leaf gives 8e-2). bf16: losses only.
 MULTI_LOSS_RTOL = 5e-3
 MULTI_FIRST_LOSS_RTOL = 1e-5
 MULTI_FP32_PARAM_RTOL = 1e-2
-# The float64 gradient witness over each array's largest entry: rounding
-# stays far under it, a wrong term is off by its own size.
+# The float64 gradient witness over each array's largest entry.
 MULTI_GRAD64_RTOL = 1e-9
-# Beam scores on a mesh against one rank's, relative (GEMMs of other row
-# counts round otherwise); the items must be equal.
+# Beam scores on a mesh against one rank's, relative; items equal.
 MULTI_SCORE_RTOL = 1e-5
 
 
@@ -1659,9 +1646,9 @@ def compare_engines(name, ranks_npz, want, hist):
 @phase("multi")
 def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MULTI_SHORT,
                 long_run=MULTI_LONG, splits=TRAINER_SPLITS, stage1_root=None, **bindings):
-    """Multi-GPU semantics on one card: one NCCL rank against one process; two Gloo ranks on cuda:0
-    (DP 2 x 1, TP 1 x 2 from the gin in fp32 and in bf16, the TP checkpoint resumed, long DP,
-    engines); with `stage1_root`, multi_stage1. Returns the record."""
+    """Multi-GPU semantics on one card: one NCCL rank; two Gloo ranks (DP,
+    TP in fp32 and bf16, TP resumed, long DP, engines); with `stage1_root`
+    multi_stage1. Returns the record."""
     bindings = {"mixed_precision_type": '"fp32"', **bindings}
     from hidvae_tpu_torch.utils.config import parse_config_and_run
 
@@ -1746,8 +1733,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
                            [cfg["attn_embed_dim"], 512]}
         if any(shapes.get(k) != v for k, v in want_shapes.items()):
             raise AssertionError(f"tp: local shapes {shapes}, expected {want_shapes}")
-        print(f"  tp: out_proj and the FF kernels halved on each rank; the ID table "
-              f"({table_rows} rows, odd) whole, as stage2_param_shardings keeps it")
+        print(f"  tp: out_proj and FF halved, the ID table ({table_rows} rows) whole")
 
         resumed, _, _ = run_trainer_entry(script, device, gin_n, "--resume",
                                           ranks[0]["tp"]["saved"])
@@ -1802,8 +1788,7 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
 # ---- duplicate-pair mining in the stage-1 trainer
 
 H_RQVAE_XXL_M_GIN = os.path.join(CONFIGS, "h_rqvae_synthetic_xxl_m.gin")
-# configs/h_rqvae_synthetic_xxl_m.gin's widths; the xl4m gins' 200,000 items
-# for its 1M (9.2 GB of tag embeddings); make_synthetic_xxl.py's tag tree.
+# h_rqvae_synthetic_xxl_m.gin's widths at 200,000 items (not 1M).
 XXL_M = dict(input_dim=768, hidden_dims=(512, 256, 128), embed_dim=32, codebook_size=256,
              n_layers=4, tag_embed_dim=768, tag_tree=(32, 8, 8), n_items=200_000)
 XXL_M_CORPUS = 1_000_000  # the config's own corpus (scripts/make_synthetic_xxl.py)
@@ -1861,9 +1846,8 @@ def check_mining_run(name, result, launches, steps, evals, device, n_items, pool
 @phase("mining")
 def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
                  timed=MINING_TIMED, **bindings):
-    """The stage-1 entry on configs/h_rqvae_synthetic_xxl_m.gin: 2N mini-steps harvesting at N and
-    2N, the pool colliding in the table, N plus a resumed N with the pool restored bitwise,
-    items/s."""
+    """configs/h_rqvae_synthetic_xxl_m.gin: 2N mini-steps harvesting at N
+    and 2N, the pool colliding, N + resumed N (pool bitwise), items/s."""
     script = load_script("torch_train_hidvae")
     t0 = time.perf_counter()
     path = processed_path(root, RecDataset.SYNTHETIC)
@@ -1950,8 +1934,8 @@ def check_rqvae_run(name, result, launches, steps, evals, device, n_items):
 
 @phase("rqvae")
 def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **bindings):
-    """The RQ-VAE entry on configs/rqvae_ml32m.gin: 2N mini-steps, N plus a resumed N held to it,
-    the table against a plain sweep, items/s, the checkpoint served with a seeded decoder."""
+    """configs/rqvae_ml32m.gin: 2N mini-steps, N + resumed N, the table,
+    items/s, the checkpoint served with a seeded decoder."""
     from hidvae_tpu_torch.train import rqvae as rv
 
     script = load_script("torch_train_rqvae")
@@ -2032,9 +2016,8 @@ SCALE_SIZES = (200_000, 1_000_000)
 
 @phase("synthetic")
 def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
-    """torch_make_synthetic.py large trained by configs/h_rqvae_synthetic_large.gin for `steps`
-    mini-steps, its table against a plain sweep; load_or_build's default corpus. Returns the
-    launches."""
+    """torch_make_synthetic.py large through h_rqvae_synthetic_large.gin,
+    its table; load_or_build's default corpus. Returns the launches."""
     from hidvae_tpu_torch.data.processed import ProcessedArrays, load_or_build
 
     t0 = time.perf_counter()
@@ -2107,9 +2090,8 @@ ML_GENRES = ("Action", "Adventure", "Animation", "Children's", "Comedy", "Crime"
 
 
 def write_movielens_drop(root, fmt, n_movies, n_ratings, seed=SEED, genders="FM"):
-    """A seeded MovieLens drop in root/raw/ ("1m" with users.dat, or "32m"): titles with commas,
-    quotes and Latin-1, "(no genres listed)", users and movies under 5 ratings, tied timestamps,
-    unlisted movies."""
+    """A seeded MovieLens drop ("1m" or "32m") in root/raw/ with the raw
+    files' awkward cases (quoting, Latin-1, sparse users, ties)."""
     rng = np.random.RandomState(seed)
     raw = os.path.join(root, "raw")
     os.makedirs(raw, exist_ok=True)
@@ -2195,9 +2177,8 @@ def write_drop(preset, root, **size):
 
 
 def built_run(trainer_module, script, device, gin, want, vocab):
-    """`script` on `gin`, its module's load_or_build timed, the built shapes held to
-    want(arrays) and printed with the encoder and vocabularies. Returns (result, launches,
-    seconds, arrays)."""
+    """`script` on `gin`, load_or_build timed, shapes held to want(arrays).
+    Returns (result, launches, seconds, arrays)."""
     from hidvae_tpu_torch.data.text_embedding import encode_text_feature
 
     built, build = {}, trainer_module.load_or_build
@@ -2277,9 +2258,8 @@ KUAIRAND_GINS = {k: os.path.join(CONFIGS, f"{k}_kuairand.gin")
 @phase("raw")
 def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_STAGE2_STEPS,
               movielens=ML_RAW, stage2=None, kuairand_drop=None, kuairand=None, **bindings):
-    """The Amazon gins on the amazon-raw drop: the stage-1 entry builds it (force_dataset_process)
-    and trains n mini-steps, stage 2 `steps` steps (`stage2`: bindings), from_artifacts serves;
-    kuairand_part; movielens_main. Returns the rq_assign launches."""
+    """The Amazon gins on the amazon-raw drop (built, n mini-steps, stage 2
+    `steps`, served); kuairand_part; movielens_main. Returns the launches."""
     from hidvae_tpu_torch.train import hidvae as s1
 
     write_drop("amazon-raw", root, **drop)
@@ -2314,10 +2294,9 @@ def raw_phase(device, root, cfg=AMAZON, drop=P5_SPORTS, n=STAGE1_N, steps=RAW_ST
 
 
 def kuairand_part(device, root, n, steps, size, bindings):
-    """The three KuaiRand gins on the kuairand-raw drop (`bindings` of
-    every gin, or under a gin's name): the RQ-VAE and HiD-VAE entries build and
-    train n mini-steps, stage 2 `steps` steps, from_artifacts serves; tables
-    against a plain sweep. Returns the rq_assign launches."""
+    """The three KuaiRand gins on the kuairand-raw drop (`bindings` for all
+    or by gin): both stage-1 entries, stage 2, serving; tables against a
+    plain sweep. Returns the launches."""
     from hidvae_tpu_torch.train import hidvae as s1
     from hidvae_tpu_torch.train import rqvae as rv
 
@@ -2346,8 +2325,7 @@ def kuairand_part(device, root, n, steps, size, bindings):
         "kuairand rqvae", res["model"], None, a.item_features, device, rep)[1]}
     rq_ckpt = res["saved_paths"][-1]
 
-    # The HiD-VAE entry: dataset_split "kuairand" names another file, built
-    # again (the text cache serves its embeddings).
+    # The HiD-VAE entry ("kuairand" split: another file, built again).
     accumulate = parse_gin_file(KUAIRAND_GINS["h_rqvae"])["train"]["gradient_accumulate_every"]
     g = gin("h_rqvae", iterations=n // accumulate, save_model_every=n, eval_every=n,
             eval_batches=STAGE1_EVAL_BATCHES)
@@ -2432,9 +2410,8 @@ def llm_run(lt, truth, holed, feats, emb, vocabs, journal, answers=None):
 
 
 def tag_completion(root):
-    """On the raw phase's KuaiRand corpus with seeded holes: the
-    deterministic completion, the LLM route (a server that dies, a resumed
-    run) and fill_empty_titles. Returns the record."""
+    """Seeded holes in the KuaiRand corpus: deterministic completion, the
+    LLM route (a dying server, a resume), fill_empty_titles."""
     import logging
 
     from hidvae_tpu_torch.data import llm_tags as lt
@@ -2550,14 +2527,12 @@ def tools_phase(device, root, diag=None, diag_n=DIAG_N, view_args=(), attrib=ATT
 
 # ---- multi-GPU: stage-1 data parallelism
 
-# Mini-steps of each stage-1 multi run (an audit and save at its end; the
-# Amazon resume runs as many more).
+# Mini-steps of each stage-1 multi run (audited and saved at its end).
 MULTI1_STEPS = {"amazon": 4, "mining": 4, "mining_fp32": 4, "ml32m": 3}
 MULTI1_MINING_EVERY = 2   # the mining runs audit at 2 as well: that pool feeds steps 3 and 4
 MULTI1_TIMEOUT_S = 600    # the two Gloo ranks' stage-1 runs
-# A bias before a train-mode BatchNorm (tag projectors' dense_0) has a zero
-# gradient up to rounding, which Adam turns into steps of up to 1.3 learning
-# rates: held to that bound an update, left out of the params gap.
+# Biases before a train-mode BatchNorm: zero gradients up to rounding,
+# which Adam turns into steps of up to 1.3 learning rates (held so).
 BN_BIAS_LR_STEPS = 2 * 1.3
 
 
@@ -2570,9 +2545,8 @@ def split_bn_biases(params):
 
 
 def check_gradient_witness(recs, ranks, want_rec, want):
-    """The DP 2 witness step against one process: float64 gradients equal on both ranks and within
-    MULTI_GRAD64_RTOL of each array's largest entry, the loss within MULTI_FIRST_LOSS_RTOL,
-    mined pairs colliding."""
+    """The DP 2 witness step: float64 gradients equal on both ranks and
+    within MULTI_GRAD64_RTOL of one process's, the loss, mined pairs."""
     got, exact = ranks[0]["grads64"], want["grads64"]
     if set(got) != set(exact) or any(
             not np.array_equal(ranks[1]["grads64"][k], got[k]) for k in exact):
@@ -2866,9 +2840,8 @@ def float64_run(spec, device, save_root, **kwargs):
 
 
 def multi_stage1(device, root, amazon_root, **inputs):
-    """Stage-1 DP per multi1_inputs gin on one process, one NCCL rank (bitwise) and two Gloo ranks;
-    a rounding control, the float64 witness, the Amazon DP checkpoint resumed. Raises all
-    failures at the end."""
+    """Stage-1 DP per multi1_inputs gin: one process, one NCCL rank, two
+    Gloo ranks; rounding control, float64 witness, resume. Raises at the end."""
     specs, amazon_2n = multi1_inputs(root, amazon_root, **inputs)
     cuda = device.type == "cuda"
     one, init = {}, {}
@@ -2966,12 +2939,10 @@ def multi_stage1(device, root, amazon_root, **inputs):
             differing_rows, npz[0][name].get(key), want_arr[key], spec["exact"],
             f"{name} {key} against one process") for key in ("table", "pool")}
         print(f"  stage 1 {name}: rows differing from the one-process run's "
-              f"{rec['rows_differing']}" + ("" if spec["exact"] else " (printed, not held: see "
-                                            "the rounding control and the gradient witness)"))
+              f"{rec['rows_differing']}" + ("" if spec["exact"] else " (not held)"))
         record[name] = rec
 
-    # How far fp32 rounding alone carries the fp32 mining run: one process
-    # from params one ulp off.
+    # fp32 rounding alone: one process from params one ulp off.
     name = witness["spec"]
     ctl, ctl_arr = ulp_control_run(specs[name], device, os.path.join(root, "ulp_control"))
     want, want_arr = one[name]
@@ -2988,9 +2959,8 @@ def multi_stage1(device, root, amazon_root, **inputs):
     record[name]["rounding_control"] = dict(param_gap=gap, rows_differing=rows,
                                             loss_rel_err=max(errs))
 
-    # The gradient witness: one mini-step of the fp32 mining gin from the
-    # one-process checkpoint (colliding pool), one process and DP 2, each
-    # also in float64: every coupled term agrees to float64 rounding.
+    # The gradient witness: a mining mini-step, one process and DP 2, also
+    # in float64.
     w_one, w_arr = float64_run(specs[witness["spec"]], device, os.path.join(root, "witness_one"),
                                grads=True, iterations=1, pretrained_hrqvae_path=witness["path"])
     record["gradient_witness"] = hold(check_gradient_witness, [r["witness"] for r in ranks],

@@ -1,4 +1,3 @@
-"""PyTorch/CUDA port of hidvae_tpu for one NVIDIA H100. Each module
-mirrors the JAX package's module of the same path and is held against it by
-tests/test_torch_*.py; it imports torch and numpy, never JAX. Entry points
-run on `cuda` unless given `device="cpu"`."""
+"""PyTorch/CUDA port of hidvae_tpu for one NVIDIA H100: each module
+mirrors the JAX module of its path (held to it by tests/test_torch_*.py)
+and never imports JAX; entry points run on `cuda` unless told otherwise."""

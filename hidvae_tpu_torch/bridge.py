@@ -1,11 +1,9 @@
-"""Weight bridge: flax parameters flattened to numpy (keyed by flax path,
-"encoder/dense_0/kernel") <-> PyTorch state_dicts, and the exported
-checkpoint that carries them: a directory of `arrays.npz` ("params/...",
-"batch_stats/...", "step", "opt_state/...") and `meta.json`
-({model_config, metrics}), written by scripts/export_flax_checkpoint.py,
-`save_export` or the trainers. A flax `kernel` is the torch `weight`
-transposed; `scale` and nn.Embed's `embedding` are `weight` (the codebook
-keeps `embedding`); batch_stats mean/var are running_mean/running_var."""
+"""Weight bridge: flax parameters as numpy by flax path
+("encoder/dense_0/kernel") <-> torch state_dicts, and the export holding
+them: `arrays.npz` ("params/...", "batch_stats/...", "step",
+"opt_state/...") and `meta.json` ({model_config, metrics}). A `kernel` is
+`weight` transposed; `scale` and `embedding` are `weight` (the codebook
+keeps `embedding`); mean/var are running_mean/running_var."""
 
 from typing import Dict, Mapping, Optional
 
@@ -21,9 +19,7 @@ META_FILE = "meta.json"
 
 
 def flax_param_key(path: str):
-    """The torch state_dict key of a flax parameter path, and whether the
-    array is transposed on the way ([in, out] Dense kernels). Tests use it
-    to compare gradients leaf by leaf."""
+    """(torch key of a flax path, whether it is transposed: Dense kernels)."""
     parts = path.split("/")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
     transpose = False
@@ -105,9 +101,8 @@ def state_dict_to_flax(module: nn.Module):
 
 
 def save_export(path: str, module: nn.Module, meta: dict) -> str:
-    """Write `module`'s weights as an exported checkpoint at `path` (the
-    params and batch_stats of the JAX package's save_checkpoint), with
-    `meta` ({model_config, metrics}) as meta.json. Returns `path`."""
+    """`module`'s params and batch_stats as an export at `path`, `meta` as
+    meta.json. Returns `path`."""
     params, stats = state_dict_to_flax(module)
     arrays = {**{f"params/{k}": v for k, v in params.items()},
               **{f"batch_stats/{k}": v for k, v in stats.items()}}
@@ -132,9 +127,7 @@ def load_export_arrays(path: str, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def load_export(path: str):
-    """Read an exported checkpoint: (params, batch_stats, meta), the first
-    two flat numpy dicts keyed by flax path, meta {} when the export has no
-    meta.json. Other leaves (step) are not returned."""
+    """(params, batch_stats: numpy by flax path, meta or {}) of an export."""
     params, stats = {}, {}
     with np.load(os.path.join(path, ARRAYS_FILE), allow_pickle=False) as z:
         for key in z.files:

@@ -7,32 +7,27 @@
 //   flash_fwd      <- _flash_attention_kernel      (:331, pallas_call :758)
 //   flash_bwd_dkv  <- _flash_attention_dkv_kernel  (:796, pallas_call :1121)
 //   flash_bwd_dq   <- _flash_attention_dq_kernel   (:1146, pallas_call :1456)
-// Semantics are the library's: logits (q k^T) * sm_scale, plus
-// -0.7 * FLT_MAX across segments (or, causal, above the diagonal); softmax
-// in fp32. The forward saves the row max m and row sum l; the backward takes
-// di = rowsum(dO * O) and recomputes P = exp(logit - m) * (1 / l)
-// (:900-904, :1226-1232). m and l stay apart: on a row with no key of its
-// segment one logsumexp would round back to m and give P = 1, not 1/N.
+// The library's semantics: logits (q k^T) * sm_scale, -0.7 * FLT_MAX across
+// segments (or above the causal diagonal), softmax in fp32. The forward
+// saves m and l apart (one logsumexp would give a keyless row P = 1, not
+// 1/N); the backward takes di = rowsum(dO * O) and recomputes
+// P = exp(logit - m) * (1 / l) (:900-904, :1226-1232). Arithmetic bounds
+// every kernel at B 64, H 8, N 2432, Dh 64.
 //
-// Arithmetic bounds every kernel at the long-history shape (B 64, H 8,
-// N 2432, Dh 64: 2*B*H*N^2*Dh = 3.9e11 operations a product).
+// * bf16 (`flash_*_tc_kernel`): mma.sync m16n8k16, fp32 accumulators
+//   (mma_bf16.cuh); a warp owns 16 rows at the full width of each product;
+//   the streamed side through shared memory, cp.async double-buffered,
+//   XOR-swizzled for ldmatrix. Softmax in registers; P (P^T, dS, dS^T)
+//   rounded to bf16 as the A operand where the library rounds it (:471,
+//   :900, :918, :1256); exp2((x - m) * log2 e), so the mask never scales to
+//   -inf; a warp block with an all-0 mask skips the per-element mask.
+// * fp32: FFMA, 256 threads a 64-row tile, 4 x 4 a thread, operands
+//   transposed in shared memory for 16-byte loads.
 //
-// * bf16 (`flash_*_tc_kernel`): mma.sync m16n8k16 with fp32 accumulators
-//   (mma_bf16.cuh). Each warp owns 16 rows and the full width of every
-//   product on them; the streamed side comes through shared memory,
-//   double-buffered by cp.async, XOR-swizzled for ldmatrix (.trans for the
-//   right-hand operands). The softmax runs in registers and P (P^T, dS,
-//   dS^T) is rounded to bf16 as the A operand where it lies, as the library
-//   rounds it (:471, :900, :918, :1256). Exponentials are
-//   exp2((x - m) * log2 e), so the mask value is never scaled to -inf; a
-//   warp block whose mask is all 0 skips the per-element mask.
-// * fp32 (all three): FFMA, 256 threads a 64-row tile, a 4 x 4 sub-tile
-//   each, operands transposed in shared memory for 16-byte loads.
-//
-// Both: causal blocks skip the tiles above the diagonal unless a row there
-// sees no key (`keyless`), which gets the plain version's uniform weights.
-// Ragged tails are masked, so N need not be a multiple of 64. Each C entry
-// point launches on the given stream and returns cudaGetLastError().
+// Causal blocks skip the tiles above the diagonal unless a row sees no key
+// (`keyless`: uniform weights, as the plain version). Ragged tails are
+// masked. Each C entry point launches on its stream and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,19 +160,13 @@ __device__ __forceinline__ float masked_logit(float s, float scale, int row, int
   return s * scale + (ok ? 0.f : MASK_VALUE);
 }
 
-// Causal masking on a query row that sees no key of its segment. Every
-// logit of such a row is MASK_VALUE, so its row max m is MASK_VALUE, and
-// the library's plain version spreads its weights uniformly over all Nk
-// keys, above the diagonal too. The kernels skip the key tiles above a
-// block's diagonal, so a block (or, in dK/dV, a query tile) that holds such
-// a row visits the skipped tiles as well, under the same additive mask. A
-// row that has seen a key loses nothing there: its logits on those tiles
-// are MASK_VALUE, exp((MASK_VALUE - m)) is exactly 0 and the rescale factor
-// exactly 1. The tiles below the diagonal run first; a block then asks, by
-// __syncthreads_or over its rows, whether it needs more. Causal inputs
-// without such rows pay that barrier (and, in dK/dV, one read of m before
-// the diagonal). The tensor-core kernels take causal as a template
-// parameter, so their non-causal builds (the model's) hold none of this.
+// A causal row that sees no key of its segment has m = MASK_VALUE and the
+// plain version's uniform weights over all Nk keys, above the diagonal
+// too. A block (in dK/dV a query tile) holding such a row visits the tiles
+// above its diagonal as well, under the same mask; other rows lose nothing
+// there (exp(MASK_VALUE - m) is 0, the rescale 1). After the tiles below
+// the diagonal a block asks by __syncthreads_or whether it needs more.
+// Non-causal tensor-core builds (the model's) hold none of this.
 __device__ __forceinline__ bool keyless(bool valid_row, float m) {
   return valid_row && m == MASK_VALUE;
 }
@@ -295,10 +284,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // Whether the mask is 0 on the whole 16 x BN block of this warp: every
-    // key exists, lies at or below every row (causal), and shares the one
-    // segment of all 16 rows. Warp-uniform. Such blocks (most of a long
-    // history's) skip the per-element mask; the work stays dense.
+    // Whether the mask is 0 on the warp's whole 16 x BN block (keys exist,
+    // causal-visible, one segment): such blocks skip the per-element mask.
     const int seg_a = s_seg[stage * BN + lane], seg_b = s_seg[stage * BN + 32 + lane];
     const int seg_u = __shfl_sync(0xffffffffu, seg_a, 0);
     const bool unmasked =
@@ -1186,11 +1173,9 @@ inline bool supported(int head_dim, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs O, dQ, dK,
-// dV share it); the row statistics m, l (forward) and m, 1/l (backward) and
-// di are float32 [B, H, Nq]; segment ids int32 [B, N]. All tensors
-// contiguous, [B, H, N, head_dim] for the matrices; head_dim 64 or 128.
-// Other widths or types return cudaErrorInvalidValue.
+// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, dO, O, dQ, dK, dV); m, l
+// (or 1/l) and di float32 [B, H, Nq]; segment ids int32 [B, N]; all
+// contiguous, head_dim 64 or 128 (else cudaErrorInvalidValue).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const int* seg_q,
                                 const int* seg_kv, void* o, float* m, float* l, int B, int H,
                                 int Nq, int Nk, int head_dim, int dtype, int causal, float scale,

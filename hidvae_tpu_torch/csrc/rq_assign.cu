@@ -10,19 +10,15 @@
 // (2*B*K*D*L operations against ~4*B*(2D + L) bytes); it stays FFMA, as the
 // JAX kernel computes at Precision.HIGHEST: TF32 would flip near ties.
 //
-// Design: a persistent grid of one block a SM (16 warps at D 16 and 32, 12
-// at D 64, 4 at D 128), no block barrier in the steady state.
-// * Codebooks are staged once a block, transposed to [D][KP] with their
-//   norms: all levels when they fit, each level its own cp.async group;
-//   else one level at a time streamed into one slot (barriers each level).
-// * Each warp owns 16 rows at a time; the next tile's rows arrive by
-//   cp.async, transposed, while this one computes.
-// * A lane computes a 4 x 8 micro-tile of dot products; the 8 lanes of a
-//   row group sweep the codes in passes of 64 and reduce (dist, k)
-//   lexicographically by shuffles, so the first index wins an exact tie.
-// * qsum = ((0 + c_id0) + c_id1) + ..., the reference's order.
-// Each distance is the reference's expression in the reference's order, so
-// ids and qsum are bitwise those of a kernel that gives each row a thread.
+// Design: a persistent grid of a block a SM (16 warps at D 16 and 32, 12 at
+// D 64, 4 at D 128), no block barrier in the steady state.
+// * Codebooks staged once a block, transposed to [D][KP] with norms: all
+//   levels if they fit (a cp.async group each), else streamed by level.
+// * A warp owns 16 rows; the next tile's rows arrive by cp.async meanwhile.
+// * A lane computes a 4 x 8 micro-tile; 8 lanes sweep the codes in passes
+//   of 64 and reduce (dist, k) lexicographically: the first index wins.
+// * qsum = ((0 + c_id0) + c_id1) + ...: each value in the reference's
+//   expression and order, so ids and qsum are bitwise a row-a-thread's.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -31,15 +27,11 @@
 
 namespace {
 
-// Shape for code width D. A block's warps work independently: each owns 16
-// rows at a time (4 lane groups x R = 4 rows) and sweeps every code of a
-// level itself, 8 lanes x C = 4 * NG codes a pass, so the argmin reduces in
-// the warp and no block barrier is needed once the codebooks are staged.
-// Fewer warps at wider D: each warp's two row buffers grow with D. At D 64
-// more warps beside the one streamed codebook slot run large launches
-// faster (scripts/torch_rq_tiles.py times 8, 12 and 14). A codebook too
-// large for WARPS warps beside it gets fewer (the block's size is read at
-// run time).
+// Shape for code width D. Warps work alone: each owns 16 rows (4 lane
+// groups x 4) and sweeps every code, 8 lanes x 4 * NG a pass, reducing the
+// argmin in the warp. Fewer warps at wider D (row buffers grow with D; at
+// D 64 scripts/torch_rq_tiles.py timed 8, 12, 14); a codebook too large
+// for WARPS warps gets fewer (read at run time).
 template <int D>
 struct Cfg {
   // D 16: 16 warps as at D 32, whose row buffers are twice as large; more
@@ -170,9 +162,8 @@ rq_assign_kernel(const float* __restrict__ x, const float* __restrict__ codebook
     return s;
   };
 
-  // Every warp runs the first iteration, whose per-level barriers stage the
-  // codebooks; streamed levels need a barrier at every level of every
-  // iteration, so then all warps run as many iterations as warp 0.
+  // Every warp runs the first iteration (its barriers stage the codebooks);
+  // streamed, every warp runs as many iterations as warp 0.
   const long long mine = first < n_tiles ? (n_tiles - first + stride - 1) / stride : 0;
   const long long n_iter = resident ? (mine > 0 ? mine : 1)
                                     : (n_tiles - blockIdx.x + stride - 1) / stride;
@@ -393,11 +384,9 @@ cudaError_t launch(const float* x, const float* codebooks, int32_t* ids, float* 
 
 }  // namespace
 
-// C interface for ctypes. Pointers are device pointers of contiguous fp32 /
-// int32 tensors; the wrapper (hidvae_tpu_torch/ops/rq_assign.py) checks
-// shapes, types, alignment and n_rows > 0. Returns the cudaError_t of the
-// launch; 0 is success. Dimensions without an instantiation, or a codebook
-// too large for shared memory, return cudaErrorInvalidValue.
+// C interface for ctypes: device pointers of contiguous fp32 / int32
+// tensors, checked by ops/rq_assign.py. Returns the launch's cudaError_t;
+// an uninstantiated width or an oversized codebook: cudaErrorInvalidValue.
 extern "C" int rq_assign_launch(const void* x, const void* codebooks, void* ids, void* qsum,
                                 long long n_rows, int dim, int n_levels, int n_embed,
                                 void* stream) {
@@ -428,11 +417,9 @@ extern "C" long long rq_assign_min_smem(int dim, int n_levels, int n_embed) {
   }
 }
 
-// The staging a launch on the current device takes: *slots codebook slots
-// (n_levels: all resident; 1: streamed level by level), *warps warps a
-// block and *smem bytes of shared memory. Returns the cudaError_t of the
-// device query, or cudaErrorInvalidValue for a width without an
-// instantiation.
+// A launch's staging on this device: *slots (n_levels resident, 1
+// streamed), *warps a block, *smem bytes. Returns the query's cudaError_t
+// (cudaErrorInvalidValue for an uninstantiated width).
 extern "C" int rq_assign_plan(int dim, int n_levels, int n_embed, int* slots, int* warps,
                               long long* smem) {
   int max_smem = 0;

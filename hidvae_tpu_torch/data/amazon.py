@@ -92,10 +92,9 @@ def flatten_categories(categories) -> List[str]:
 
 
 def five_tags_for_item(row: dict, item_id: int, n_tags: int = 5) -> List[str]:
-    """Exactly n_tags tags (amazon.py:139-177): the categories below the
-    top one; too few are filled from title words and the brand, drawn by
-    random.Random(42 + item_id), then GenericTagN; too many keep n_tags - 1
-    and join the rest."""
+    """n_tags tags (amazon.py:139-177): the categories below the top; too few
+    filled from title words and brand (random.Random(42 + item_id)), then
+    GenericTagN; too many keep n_tags - 1 and join the rest."""
     cats = flatten_categories(row.get("categories"))
     if cats:
         cats = cats[1:]

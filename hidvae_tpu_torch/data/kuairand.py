@@ -154,8 +154,7 @@ def build_kuairand(
     user, video, time_ms = user[keep], video[keep], time_ms[keep]
     pool = set(video.tolist())
 
-    # Videos: captions left-joined with categories, in the captions' order
-    # with one row per matching category row (kuairand.py:85-102).
+    # Captions left-joined with categories, a row per match (:85-102).
     cap = read_csv(os.path.join(raw, "kuairand_video_captions.csv"),
                    ("final_video_id", "caption"))
     cat = read_csv(os.path.join(raw, "kuairand_video_categories.csv"),
@@ -180,8 +179,7 @@ def build_kuairand(
     rows = [r for r in rows.tolist() if cap_text[r].strip() != ""]
     rows = [r for r in rows if sum(t[r] not in ("", "UNKNOWN") for t in texts) >= 2]
 
-    # Stratified max_videos draw by level-1 name, in sorted name order
-    # (groupby(...).sample(k, random_state=seed); kuairand.py:105-111).
+    # max_videos by level-1 name, sorted (groupby.sample; :105-111).
     if max_videos and len(rows) > max_videos:
         groups = {}
         for r in rows:

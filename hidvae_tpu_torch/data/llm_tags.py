@@ -1,8 +1,8 @@
-"""Hierarchical tag completion of a partly tagged corpus (counterpart of
+"""Tag completion of a partly tagged corpus (counterpart of
 hidvae_tpu/data/llm_tags.py): an OpenAI-compatible endpoint pool, the
-deterministic completion (L1 -> L2 -> L3 by cosine retrieval among the
-parent's observed children) and the LLM route with its resumable journal.
-Host numpy, as the JAX module computes it, so the tags come out bit for bit."""
+deterministic route (L1 -> L2 -> L3 by cosine retrieval among the parent's
+children) and the LLM route with a resumable journal; host numpy, bit for
+bit the JAX module's."""
 
 import json
 import logging
@@ -146,10 +146,9 @@ def _unit(v):
 
 def complete_tags_hierarchical(item_features: np.ndarray, tags_indices: np.ndarray,
                                tags_emb: np.ndarray) -> np.ndarray:
-    """The tags with every -1 filled where it can be: L1 by global retrieval
-    from the item; L2 among the L1 parent's children with context
-    0.6 L1 + 0.4 item; L3 among the L2 parent's with 0.5 L2 + 0.3 L1 +
-    0.2 item; a parent without children falls back to the level's pool."""
+    """Every -1 filled where it can be: L1 by global retrieval; L2 among the
+    L1 parent's children by 0.6 L1 + 0.4 item; L3 among the L2 parent's by
+    0.5 L2 + 0.3 L1 + 0.2 item; no children: the level's pool."""
     tags = np.asarray(tags_indices).copy()
     hierarchy = build_tag_hierarchy(tags)
     pools = build_tag_pools(tags, tags_emb)
@@ -219,9 +218,8 @@ def complete_tags_llm(pool: LLMPool, item_texts: Sequence[str], tags_indices: np
                       item_features: np.ndarray, *, top_k_candidates: int = 10,
                       max_workers: int = 8, progress_path: Optional[str] = None) -> np.ndarray:
     """Ask `pool` for each incomplete row's missing levels among its top-k
-    cosine candidates; rows it fails on fall to complete_tags_hierarchical.
-    With `progress_path` each answered row is appended (and flushed) to a
-    jsonl journal, and a rerun replays it and queries only the rest."""
+    cosine candidates, failures falling to complete_tags_hierarchical; with
+    `progress_path` a jsonl journal of answers, replayed by a rerun."""
     tags = np.asarray(tags_indices).copy()
     done = load_completion_progress(progress_path) if progress_path else {}
     for i, row_tags in done.items():

@@ -1,7 +1,6 @@
-"""MovieLens 1M / 32M builders (counterpart of
-hidvae_tpu/data/movielens.py): its pandas recipe in numpy and the csv
-module: quicksort timestamp order then a stable user sort, counts on the
-unfiltered ratings, get_dummies' ranks."""
+"""MovieLens 1M / 32M builders (counterpart of hidvae_tpu/data/
+movielens.py): its pandas recipe in numpy and csv, orders and ranks as
+pandas gives them."""
 
 import csv
 import os

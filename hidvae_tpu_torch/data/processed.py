@@ -1,7 +1,6 @@
-"""Processed datasets (counterpart of hidvae_tpu/data/processed.py): the
-`.npz` of a (dataset, split), the item view and the user-sequence view.
-`load_or_build` builds a missing file (or with `force_process`) from a seed
-or from raw files, as JAX does."""
+"""Processed datasets (counterpart of hidvae_tpu/data/processed.py): a
+(dataset, split)'s `.npz`, item and sequence views; `load_or_build` builds
+from a seed or raw files, as JAX."""
 
 import os
 from dataclasses import dataclass
@@ -93,10 +92,9 @@ def processed_path(root: str, dataset: RecDataset, split: str = "") -> str:
 
 def load_or_build(root: str, dataset: RecDataset, split: str = "",
                   force_process: bool = False) -> ProcessedArrays:
-    """The processed arrays of (dataset, split) under `root`, read, or built
-    and saved (processed.py:117-149): SYNTHETIC by `build_synthetic()`, AMAZON
-    from <root>/raw/<split or "beauty">/, ML_1M, ML_32M and KUAIRAND from
-    <root>/raw/."""
+    """(dataset, split)'s arrays under `root`, read or built (processed.py
+    :117-149): SYNTHETIC seeded, AMAZON from raw/<split or "beauty">/, the
+    others from raw/."""
     if dataset == RecDataset.SYNTHETIC:
         split = ""
     path = processed_path(root, dataset, split)
@@ -223,9 +221,8 @@ class SeqData:
         return len(self.users)
 
     def iter_eval_batches(self, batch_size: int):
-        """The split in order, in batches of `batch_size` rows (the last one
-        ragged), in id form: (user ids [b], histories [b, N] -1 padded,
-        targets [b]), int32, as `tokenize_on_device` takes them."""
+        """The split in order, `batch_size` rows a batch (the last ragged):
+        int32 (users [b], histories [b, N] -1 padded, targets [b])."""
         n = len(self)
         for start in range(0, n, batch_size):
             sl = slice(start, min(start + batch_size, n))

@@ -1,6 +1,5 @@
 """Seeded synthetic corpus (counterpart of hidvae_tpu/data/synthetic.py):
-the same draws of one RandomState in the same order, so each call returns
-the JAX package's arrays bit for bit."""
+one RandomState's draws in JAX's order, its arrays bit for bit."""
 
 from typing import Sequence
 

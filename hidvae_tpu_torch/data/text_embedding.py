@@ -1,7 +1,6 @@
-"""Text embeddings for the dataset builders (a copy of
-hidvae_tpu/data/text_embedding.py): sentence_transformers where a local
-copy loads (HF_HUB_OFFLINE set first), else the hash fallback bit for bit;
-cache files named as JAX names them."""
+"""Text embeddings (a copy of hidvae_tpu/data/text_embedding.py):
+sentence_transformers if a local copy loads (offline), else the hash
+fallback bit for bit; JAX's cache names."""
 
 import hashlib
 import logging
@@ -22,10 +21,9 @@ def _token_vector(tok: str, dim: int) -> np.ndarray:
 
 
 def _hash_embedding(texts: Sequence[str], dim: int) -> np.ndarray:
-    """The sum of one seeded normal vector per lower-cased token, scaled to
-    unit norm (text_embedding.py:27-43). Each distinct token's vector is
-    drawn once, and the sums run token position by token position over all
-    texts, so every row adds its vectors in the JAX loop's order."""
+    """Unit-norm sum of a seeded normal vector per lower-cased token
+    (text_embedding.py:27-43), each drawn once, summed position by position
+    in the JAX loop's order."""
     tokens = [str(t).lower().split() for t in texts]
     vocab = {}
     for toks in tokens:

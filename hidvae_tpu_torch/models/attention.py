@@ -1,8 +1,7 @@
-"""Multi-head attention (counterpart of hidvae_tpu/models/attention.py).
-The JAX rule (attention.py:152-162) picks the route: dense masking, or for
-self-attention over at least 2048 tokens with a head width a multiple of
-64, `flash_attention` (CUDA kernels on the card, refusing widths other
-than 64 and 128; the plain version on the CPU)."""
+"""Multi-head attention (counterpart of hidvae_tpu/models/attention.py):
+dense masking, or by the JAX rule (attention.py:152-162) `flash_attention`
+for self-attention over 2048+ tokens with head width a multiple of 64
+(kernels at 64 and 128 on the card, the plain version on the CPU)."""
 
 from typing import Optional
 
@@ -30,9 +29,8 @@ def dot_product_attention(q, k, v, *, mask=None):
 
 
 def grouped_cross_attention(q, k, v, *, kv_padding_mask=None):
-    """Cross-attention where g query rows share each key/value row: q is
-    [B*g, H, Nq, Dh], k and v stay [B, H, M, Dh] (g beams per user attend to
-    one encoder output) with no repeat of k or v."""
+    """Cross-attention of q [B*g, H, Nq, Dh] over k, v [B, H, M, Dh], g
+    query rows (a user's beams) a key row, k and v not repeated."""
     b = k.shape[0]
     g = q.shape[0] // b
     if q.shape[0] != b * g:
@@ -49,10 +47,9 @@ def grouped_cross_attention(q, k, v, *, kv_padding_mask=None):
 
 
 def flash_self_attention(q, k, v, kv_padding_mask, is_causal: bool, dtype):
-    """Counterpart of `_flash_self_attention` (attention.py:75-101): pad the
-    sequence to a multiple of 128; padding (of the mask and of the 128-pad)
-    becomes segment id 0 and valid tokens 1, the same ids for queries and
-    keys; q, k, v in the compute dtype; the result sliced back to n rows."""
+    """`_flash_self_attention` (attention.py:75-101): padded to a multiple of
+    128, padding segment 0 and valid tokens 1 for queries and keys, in the
+    compute dtype, sliced back to n rows."""
     b, _, n, d = q.shape
     pad = (-n) % FLASH_BLOCK
     if pad:
@@ -70,9 +67,9 @@ def flash_self_attention(q, k, v, kv_padding_mask, is_causal: bool, dtype):
 
 def takes_flash_route(head_dim: int, n_tokens: int, cross_attn: bool = False,
                       use_flash: Optional[bool] = None) -> bool:
-    """The JAX package's switch (attention.py:152-162) without its TPU
-    clause: self-attention over more than one row with a head width that is a
-    multiple of 64, at >= FLASH_MIN_TOKENS tokens (auto) or when forced."""
+    """The JAX switch (attention.py:152-162) less its TPU clause:
+    self-attention over 2+ rows, head width a multiple of 64, at
+    >= FLASH_MIN_TOKENS tokens (auto) or forced."""
     capable = not cross_attn and head_dim % 64 == 0 and n_tokens > 1
     if use_flash is None:
         return capable and n_tokens >= FLASH_MIN_TOKENS

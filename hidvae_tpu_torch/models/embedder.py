@@ -1,7 +1,6 @@
-"""Semantic-ID and user-ID embedders (counterpart of
-hidvae_tpu/models/embedder.py): one table partitioned by (type, layer), the
-last row padding; under tensor parallelism its rows are cut over the model
-ranks and the lookups summed."""
+"""Semantic-ID and user-ID embedders (counterpart of hidvae_tpu/models/
+embedder.py): one table by (type, layer), the last row padding; tensor-
+parallel, rows cut over the model ranks, lookups summed."""
 
 import torch
 from torch import nn

@@ -1,16 +1,14 @@
 """HiD-VAE core model (counterpart of hidvae_tpu/models/hrqvae.py).
 
-RqVae plus, per tag-supervised level, a TagPredictor and a TagProjector.
-`forward` is the JAX module's loss: reconstruction, quantizer losses,
-InfoNCE alignment, the focal tag loss and the uniqueness loss (PARITY.md
-deviation 1) and, with `n_mined_pairs`, the mined-pair term (deviation 18)
-on the first 2 * n_mined_pairs rows. Dropout and Gumbel noise draw from
-`generator`, mixup from `mixup(level, batch)`. `dtype` (AMP) runs the MLP
-and tag-head products in bf16 (deviation 10).
-
-With `rows` (a batch split over data ranks) each rank runs its rows through
-the row-local parts and computes the coupled terms on the gathered batch,
-so its gradients summed over the ranks are the global batch's."""
+RqVae plus a TagPredictor and TagProjector per tag-supervised level.
+`forward` is the JAX loss: reconstruction, quantizer, InfoNCE alignment,
+focal tag and uniqueness (PARITY.md deviation 1) terms, and with
+`n_mined_pairs` the mined-pair term (deviation 18) on the first
+2 * n_mined_pairs rows. Dropout and Gumbel draw from `generator`, mixup
+from `mixup(level, batch)`; `dtype` (AMP) runs MLP and tag-head products in
+bf16 (deviation 10). With `rows` each data rank runs its rows through the
+row-local parts and the coupled terms on the gathered batch, so gradients
+summed over ranks are the global batch's."""
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -67,11 +65,9 @@ class FlaxBatchNorm(nn.BatchNorm1d):
 
 
 class TagPredictor(nn.Module):
-    """Per-level tag classification head: sigmoid attention gate, (L2 norm
-    for deeper levels), feature layer, two residual blocks, classifier.
-    `use_batch_norm` maps to LayerNorm inside, as in the JAX package. The
-    dropout rate is min(0.55, dropout_rate + 0.075 * layer_idx), halved
-    before the last layer."""
+    """A level's tag head: sigmoid gate, (L2 norm deeper), feature layer, two
+    residual blocks, classifier; `use_batch_norm` means LayerNorm, as JAX;
+    dropout min(0.55, dropout_rate + 0.075 * layer_idx), halved last."""
 
     def __init__(self, embed_dim: int, num_classes: int, hidden_dim: Optional[int] = None,
                  use_batch_norm: bool = True, layer_idx: int = 0, dropout_rate: float = 0.2,
@@ -189,40 +185,22 @@ class HRqVaeComputedLosses:
 class HRqVae(RqVae):
     """HiD-VAE: RqVae plus per-level tag heads and the stage-1 losses."""
 
-    def __init__(
-        self,
-        input_dim: int,
-        embed_dim: int,
-        hidden_dims: Sequence[int],
-        codebook_size: int,
-        codebook_normalize: bool = False,
-        codebook_sim_vq: bool = False,
-        codebook_distance: DistanceMode = DistanceMode.L2,
-        n_layers: int = 3,
-        commitment_weight: float = 0.25,
-        tag_class_counts: Optional[Sequence[int]] = None,
-        tag_embed_dim: int = 768,
-        use_batch_norm: bool = True,
-        codebook_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX,
-        n_cat_features: int = 18,
-        tag_alignment_weight: float = 0.5,
-        tag_prediction_weight: float = 0.5,
-        use_focal_loss: bool = False,
-        focal_gamma_base: float = 2.0,
-        focal_alpha_base: float = 0.25,
-        focal_per_layer_schedule: bool = True,
-        dropout_rate: float = 0.2,
-        alignment_temperature: float = 0.1,
-        sem_id_uniqueness_weight: float = 0.5,
-        sem_id_uniqueness_margin: float = 0.5,
-        sem_id_mining_margin: Optional[float] = None,
-        mined_loss_isolation: bool = False,
-        use_label_smoothing: bool = True,
-        label_smoothing_alpha: float = 0.1,
-        use_mixup: bool = True,
-        mixup_alpha: float = 0.2,
-        dtype=None,
-    ):
+    def __init__(self, input_dim: int, embed_dim: int, hidden_dims: Sequence[int],
+                 codebook_size: int, codebook_normalize: bool = False,
+                 codebook_sim_vq: bool = False, codebook_distance: DistanceMode = DistanceMode.L2,
+                 n_layers: int = 3, commitment_weight: float = 0.25,
+                 tag_class_counts: Optional[Sequence[int]] = None, tag_embed_dim: int = 768,
+                 use_batch_norm: bool = True,
+                 codebook_mode: QuantizeForwardMode = QuantizeForwardMode.GUMBEL_SOFTMAX,
+                 n_cat_features: int = 18, tag_alignment_weight: float = 0.5,
+                 tag_prediction_weight: float = 0.5, use_focal_loss: bool = False,
+                 focal_gamma_base: float = 2.0, focal_alpha_base: float = 0.25,
+                 focal_per_layer_schedule: bool = True, dropout_rate: float = 0.2,
+                 alignment_temperature: float = 0.1, sem_id_uniqueness_weight: float = 0.5,
+                 sem_id_uniqueness_margin: float = 0.5,
+                 sem_id_mining_margin: Optional[float] = None, mined_loss_isolation: bool = False,
+                 use_label_smoothing: bool = True, label_smoothing_alpha: float = 0.1,
+                 use_mixup: bool = True, mixup_alpha: float = 0.2, dtype=None):
         super().__init__(
             input_dim, embed_dim, hidden_dims, codebook_size,
             codebook_normalize=codebook_normalize, codebook_sim_vq=codebook_sim_vq,
@@ -316,9 +294,8 @@ class HRqVae(RqVae):
                          generator: Optional[torch.Generator] = None,
                          mixup: Optional[Callable] = None,
                          rows: Optional[Rows] = None) -> HRqVaeOutput:
-        """Residual quantization with per-level tag supervision; in train mode
-        the quantizers' estimator, dropout and mixup draw as `forward` says. With
-        `rows` the outputs are this rank's rows, the tag losses the whole batch's."""
+        """Residual quantization with per-level tag supervision, drawing as
+        `forward`; with `rows` this rank's rows, the whole batch's tag losses."""
         if rows is not None and generator is not None:
             generator = RowShard(generator, rows.start, rows.total)
         batch = encoded_x.shape[0] if rows is None else rows.total
@@ -379,17 +356,15 @@ class HRqVae(RqVae):
                 n_mined_pairs: int = 0, generator: Optional[torch.Generator] = None,
                 mixup: Optional[Callable] = None,
                 rows: Optional[Rows] = None) -> HRqVaeComputedLosses:
-        """The full training / eval loss (hidvae_tpu/models/hrqvae.py:457-560).
-        With `rows`, x and the tags are this rank's rows of the split batch
-        and every output but embs_norm (rows [B, L] of the whole batch) is
-        the whole batch's (see the module docstring)."""
+        """The training / eval loss (hidvae_tpu/models/hrqvae.py:457-560);
+        with `rows` x and tags are this rank's rows, every output but
+        embs_norm ([B, L] rows) the whole batch's."""
         x = x.float()
         if tags_emb is not None:
             tags_emb = tags_emb.float()
         encoded = self.encode(x)
-        # Isolation: the losses below take the uniform rows only; the mined
-        # rows' one gradient path is the pair term. The encode pass is shared,
-        # so batch statistics still see every row.
+        # Isolation: the losses below take the uniform rows; the mined rows'
+        # gradient is the pair term's (batch statistics see every row).
         cut = 2 * n_mined_pairs if (self.mined_loss_isolation and n_mined_pairs > 0) else 0
         main_rows = None if rows is None else rows.after(cut)
         local_cut = cut if rows is None else x.shape[0] - main_rows.stop + main_rows.start
@@ -412,9 +387,8 @@ class HRqVae(RqVae):
             enc_p = all_gather_rows(
                 encoded[: 2 * n_mined_pairs if rows is None else pair_rows.stop - pair_rows.start],
                 pair_rows, "slice")
-            # Eval-mode IDs, as the audit's table holds them (train-mode IDs
-            # under the rotation trick differ from the audit's at depth), in
-            # full fp32 so that no near-tie moves.
+            # Eval-mode IDs, as the audit's table (the rotation trick's
+            # differ at depth), in full fp32 so no near tie moves.
             with torch.no_grad(), full_fp32():
                 ids = self.get_semantic_ids(enc_p.detach()).sem_ids
             pair_ids = ids.reshape(n_mined_pairs, 2, -1)
@@ -446,10 +420,9 @@ class HRqVae(RqVae):
         )
 
     def predict_tags(self, x, gumbel_t: float = 0.001, noise=None, noise_scale: float = 0.0):
-        """Per-level tag predictions of item features [B, F] or [B, N, F],
-        with `noise_scale * noise` added first when both are given (the
-        trainer's test-time augmentation). Returns {"predictions",
-        "confidences", "logits" (a list per level)}."""
+        """Per-level tag predictions of features [B, F] or [B, N, F], plus
+        `noise_scale * noise` if given (test-time augmentation). Returns
+        {"predictions", "confidences", "logits"}, lists per level."""
         is_seq = x.dim() == 3
         if is_seq:
             b, n, f = x.shape

@@ -13,10 +13,8 @@ from hidvae_tpu_torch.parallel.collectives import parallel_linear
 
 
 def dense(layer: nn.Linear, x, dtype=None):
-    """flax nn.Dense(dtype=...) on a torch Linear: input and weight cast to
-    `dtype` (None keeps the input's own dtype and the fp32 weight). A layer
-    that `parallel.mesh.shard_stage2_` cut (`layer.tp`) runs its
-    tensor-parallel product (parallel/collectives.py)."""
+    """flax nn.Dense(dtype=...): input and weight cast to `dtype` (None: as
+    they are); a layer cut by `shard_stage2_` (`.tp`) runs tensor-parallel."""
     tp = getattr(layer, "tp", None)
     if tp is not None:
         return parallel_linear(x, layer.weight, tp, dtype)
@@ -27,12 +25,12 @@ def dense(layer: nn.Linear, x, dtype=None):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with learned scale."""
+    """RMSNorm with learned scale (held in `dtype`), computed in fp32."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
 
     def forward(self, x):
         return rms_norm(x, weight=self.weight, eps=self.eps)
@@ -55,10 +53,9 @@ class MLP(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, generator=None):
-        """`generator` set = train mode: dropout draws from it. Under tensor
-        parallelism (a two-layer MLP whose dense_0 is cut by output features,
-        dense_1 by input features) the hidden activations are this rank's
-        columns, and their dropout keeps its columns of the whole mask."""
+        """Train mode with `generator` (dropout drawn from it). Tensor-parallel,
+        the hidden activations are this rank's columns, its dropout its
+        columns of the whole mask."""
         for i in range(self.n_dense):
             layer = getattr(self, f"dense_{i}")
             x = dense(layer, x, self.dtype)

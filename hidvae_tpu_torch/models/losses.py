@@ -1,7 +1,6 @@
-"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py) as masked
-math of static shape (PARITY.md deviation 4); mixup's draws come from the
-caller. The batch-coupled terms take `rows` and compute the whole split
-batch's term on every rank."""
+"""Stage-1 losses (counterpart of hidvae_tpu/models/losses.py), masked
+math of static shape (PARITY.md deviation 4), mixup drawn by the caller;
+batch-coupled terms take `rows` (the split batch's term on every rank)."""
 
 import math
 from typing import NamedTuple, Optional
@@ -56,9 +55,8 @@ def tag_alignment_loss(codebook_emb, tag_emb, layer_idx: int, alignment_weight: 
 
 def uniqueness_loss(sem_ids, encoded_features, margin: float = 0.5, weight: float = 1.0,
                     rows: Optional[Rows] = None):
-    """For every batch pair i < j whose full ID tuples collide,
-    relu(cos(enc_i, enc_j) - margin); the mean over colliding pairs, times
-    `weight` (0 when no pair collides)."""
+    """`weight` x the mean of relu(cos(enc_i, enc_j) - margin) over pairs
+    i < j with colliding tuples (0 without one)."""
     sem_ids = all_gather_rows(sem_ids, rows)
     encoded_features = all_gather_rows(encoded_features, rows, "slice")
     b = sem_ids.shape[0]
@@ -123,11 +121,9 @@ def tag_prediction_loss(
     training: bool = False,
     rows: Optional[Rows] = None,
 ) -> TagPredictionLossOutput:
-    """Tag classification loss: focal (with class-count weights when
-    `class_counts` is given) or label-smoothed CE with a KL-to-uniform term,
-    over valid targets; `mixup` = (permutation [B], lambda) mixes the
-    logits when use_mixup and training. Accuracy is taken before mixup.
-    With no valid target both are 0."""
+    """Focal (weighted by `class_counts` if given) or label-smoothed CE plus
+    KL to uniform over valid targets; `mixup` (permutation [B], lambda) mixes
+    the logits in training; accuracy before mixup; 0 and 0 without targets."""
     logits = all_gather_rows(logits, rows, "slice")
     targets = all_gather_rows(targets, rows)
     num_classes = logits.shape[-1]

@@ -1,7 +1,6 @@
-"""One residual-quantization level (counterpart of
-hidvae_tpu/models/quantize.py): distance and hard assignment in full fp32,
-and in train mode the GUMBEL_SOFTMAX, STE or ROTATION_TRICK estimator; at
-eval every mode is the hard lookup."""
+"""One quantization level (counterpart of hidvae_tpu/models/quantize.py):
+full-fp32 assignment; in training the GUMBEL_SOFTMAX, STE or
+ROTATION_TRICK estimator, at eval the hard lookup."""
 
 from enum import Enum
 from typing import NamedTuple, Optional

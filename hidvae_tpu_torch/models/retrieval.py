@@ -1,11 +1,12 @@
-"""Encoder-decoder generative retrieval model and constrained beam
-search (counterpart of hidvae_tpu/models/retrieval.py). The beam keeps
-fixed [B*k] shapes, runs the encoder once and narrows each beam's corpus
-range by binary search. Unlike the JAX package's, it decodes one new token
-a row per digit against a per-page `DecoderCache`. Train mode is a dropout
-generator passed to `forward`; `dtype` is flax's compute dtype; `remat`
-rematerializes every block; under tensor parallelism the logits are
-gathered along the vocab."""
+"""Stage-2 retrieval models and their constrained beam search (counterpart
+of hidvae_tpu/models/retrieval.py). Shared (`RetrievalModel`): the beam
+(fixed [B*k] shapes, the context run once, each beam's corpus range
+narrowed by binary search, one new token a row a digit through the
+topology's `encode_context` / `start_decode` / `decode_step`). Per
+topology: `EncoderDecoderRetrievalModel` here (cross-attention through a
+per-page `DecoderCache`; dropout from a generator given to `forward`;
+`dtype` flax's; `remat`; tensor-parallel logits gathered along the
+vocab) and the decoder-only `models/mla_moe.py`."""
 
 import warnings
 from dataclasses import dataclass
@@ -26,7 +27,7 @@ from hidvae_tpu_torch.ops.prefix_search import (
     valid_digit_mask,
 )
 from hidvae_tpu_torch.parallel.collectives import gather_from_model
-from hidvae_tpu_torch.utils.debug import count, span, tracing
+from hidvae_tpu_torch.utils.debug import count, note, span, tracing
 
 BEAMS = 32
 NEG_LARGE = -1.0e9
@@ -54,7 +55,109 @@ def top_k_first_index(scores, k: int):
     return torch.gather(scores, -1, order), order
 
 
-class EncoderDecoderRetrievalModel(nn.Module):
+class RetrievalModel(nn.Module):
+    """`num_embeddings` codes a digit, `sem_id_dim` digits; `encode_context`
+    -> (context, mask [B, T]), `start_decode(context, mask, rows)` -> a
+    cache of rows, `decode_step(cache, pos, sem_ids)` -> [rows, 1, K]."""
+
+    def generate_next_sem_id(self, batch: TokenizedSeqBatch, prefix_index=None, *,
+                             temperature: float = 1.0, top_k: bool = True, sample: bool = False,
+                             generator: Optional[torch.Generator] = None, prefix_caps=None,
+                             prefix_tries=None) -> GenerationOutput:
+        """Prefix-constrained beam search over sem_id_dim digits: 32 beams,
+        or one with `top_k=False` (retrieval.py:235). prefix_index: the sorted
+        table (None: unconstrained); prefix_tries: {level: (starts, bitmaps)};
+        other levels gather [Q, cap] ranges with `prefix_caps`. `sample=True` with
+        a `generator` adds Gumbel noise to each digit's log-probabilities
+        (retrieval.py:272-276)."""
+        dev = batch.sem_ids.device
+        with span("model.encode", device=dev):
+            context = self.encode_context(batch)
+        with span("model.beam", device=dev):
+            return self._beam_search(context, batch.sem_ids.shape[0], temperature,
+                                     BEAMS if top_k else 1, sample, generator, prefix_index,
+                                     prefix_caps, prefix_tries)
+
+    def _beam_search(self, context, b, temperature, k, sample, generator, prefix_index,
+                     prefix_caps, prefix_tries) -> GenerationOutput:
+        d = self.sem_id_dim
+        kk = self.num_embeddings
+        dev = context[1].device
+        generated = torch.zeros((b, k, d), dtype=torch.int32, device=dev)
+        log_probs = torch.full((b, k), NEG_LARGE, device=dev)
+        log_probs[:, 0] = 0.0
+
+        if prefix_index is not None:
+            n_corpus = prefix_index.shape[0]
+            lo = torch.zeros((b, k), dtype=torch.int32, device=dev)
+            hi = torch.full((b, k), n_corpus, dtype=torch.int32, device=dev)
+            step0_mask = first_digit_mask(prefix_index, kk)
+
+        cache = self.start_decode(*context, b * k)
+        parent_rows = torch.arange(b, device=dev)[:, None] * k
+        for i in range(d):
+            with span("model.beam.digit", digit=i):
+                if tracing():  # rows alive (no off-catalog digit yet) and rows run
+                    count("beam.live_rows", (log_probs > INVALID_PENALTY / 2).sum())
+                    count("beam.rows", b * k)
+                    count("beam.decoder_tokens", b * k)  # one new token a row
+                    count("beam.cached_tokens", b * k * i)
+                note("beam.prefixes", generated)  # the rows' digits before digit i
+                prev = generated[:, :, i - 1].reshape(b * k, 1) if i else None
+                logits_last = self.decode_step(cache, i, prev)
+                step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
+                if sample and generator is not None:
+                    u = torch.rand(step_logp.shape, generator=generator, device=dev)
+                    step_logp = step_logp - torch.log(-torch.log(u + 1e-20) + 1e-20)
+
+                if prefix_index is not None:
+                    if i == 0:
+                        valid = step0_mask[None, :].expand(b * k, kk)
+                    elif prefix_tries is not None and prefix_tries.get(i) is not None:
+                        starts_i, bitmaps_i = prefix_tries[i]
+                        valid = trie_digit_mask(starts_i, bitmaps_i, lo.reshape(-1), hi.reshape(-1))
+                        if bitmaps_i.shape[1] < kk:  # narrower stored vocab
+                            valid = nn.functional.pad(valid, (0, kk - bitmaps_i.shape[1]))
+                    else:
+                        if prefix_caps is not None:
+                            cap = int(prefix_caps[i - 1])
+                        else:
+                            # Heuristic only: a prefix with more than `cap` rows
+                            # silently loses valid continuations.
+                            cap = max(256, 4 * (n_corpus // max(kk ** i, 1)))
+                            warnings.warn(
+                                "generate_next_sem_id called without prefix_caps; "
+                                f"using heuristic cap {cap} at digit {i} — pass "
+                                "tokenizer.prefix_caps for exact constrained decoding",
+                                stacklevel=3,  # the caller of generate_next_sem_id
+                            )
+                        cap = min(max(cap, 8), n_corpus)
+                        valid = valid_digit_mask(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                                 i, kk, cap)
+                    step_logp = step_logp + INVALID_PENALTY * (~valid)
+
+                scores = (step_logp + log_probs.reshape(b * k, 1)).reshape(b, k * kk)
+                top_scores, top_idx = top_k_first_index(scores, k)
+                parent = torch.div(top_idx, kk, rounding_mode="floor")
+                digits = (top_idx % kk).to(torch.int32)
+
+                generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
+                generated[:, :, i] = digits
+                log_probs = top_scores
+                if i + 1 < d:
+                    cache.reorder((parent_rows + parent).reshape(-1), i + 1)
+
+                if prefix_index is not None:
+                    lo = torch.gather(lo, 1, parent)
+                    hi = torch.gather(hi, 1, parent)
+                    new_lo, new_hi = narrow_range(prefix_index, lo.reshape(-1), hi.reshape(-1),
+                                                  i, digits.reshape(-1))
+                    lo, hi = new_lo.reshape(b, k), new_hi.reshape(b, k)
+
+        return GenerationOutput(sem_ids=generated, log_probas=log_probs)
+
+
+class EncoderDecoderRetrievalModel(RetrievalModel):
     """Stage-2 retrieval model."""
 
     def __init__(self, embedding_dim: int, attn_dim: int, num_heads: int, n_layers: int,
@@ -161,9 +264,8 @@ class EncoderDecoderRetrievalModel(nn.Module):
 
     def forward(self, batch: TokenizedSeqBatch,
                 generator: Optional[torch.Generator] = None) -> ModelOutput:
-        """Per-digit cross-entropy against sem_ids_fut; out-of-range targets
-        are ignored. Per-sample sum, then batch mean. With `generator`, the
-        train-mode forward (dropout drawn from it); without, eval."""
+        """Per-digit cross-entropy against sem_ids_fut (out-of-range targets
+        ignored), summed a sample, batch mean; train mode with `generator`."""
         enc, ctx_mask = self.encode_context(batch, generator)
         logits_all = self.decode_logits(enc, ctx_mask, batch.sem_ids_fut,
                                         batch.token_type_ids_fut, generator=generator)
@@ -176,108 +278,3 @@ class EncoderDecoderRetrievalModel(nn.Module):
         token_loss = torch.where(ignore, torch.zeros_like(token_loss), token_loss)
         return ModelOutput(loss=token_loss.sum(1).mean(), logits=logits_all,
                            loss_d=token_loss.mean(0))
-
-    # ---- constrained beam generation ----
-
-    def generate_next_sem_id(
-        self,
-        batch: TokenizedSeqBatch,
-        prefix_index=None,
-        *,
-        temperature: float = 1.0,
-        top_k: bool = True,
-        sample: bool = False,
-        generator: Optional[torch.Generator] = None,
-        prefix_caps=None,
-        prefix_tries=None,
-    ) -> GenerationOutput:
-        """Prefix-constrained beam search over sem_id_dim digits: 32 beams,
-        or one with `top_k=False` (retrieval.py:235). prefix_index: the sorted
-        table (None: unconstrained); prefix_tries: {level: (starts, bitmaps)};
-        other levels gather [Q, cap] ranges with `prefix_caps`. `sample=True` with
-        a `generator` adds Gumbel noise to each digit's log-probabilities
-        (retrieval.py:272-276)."""
-        dev = batch.sem_ids.device
-        with span("model.encode", device=dev):
-            enc, ctx_mask = self.encode_context(batch)
-        with span("model.beam", device=dev):
-            return self._beam_search(enc, ctx_mask, batch.sem_ids.shape[0], temperature,
-                                     BEAMS if top_k else 1, sample, generator, prefix_index,
-                                     prefix_caps, prefix_tries)
-
-    def _beam_search(self, enc, ctx_mask, b, temperature, k, sample, generator, prefix_index,
-                     prefix_caps, prefix_tries) -> GenerationOutput:
-        d = self.sem_id_dim
-        kk = self.num_embeddings
-        dev = enc.device
-        generated = torch.zeros((b, k, d), dtype=torch.int32, device=dev)
-        log_probs = torch.full((b, k), NEG_LARGE, device=dev)
-        log_probs[:, 0] = 0.0
-
-        if prefix_index is not None:
-            n_corpus = prefix_index.shape[0]
-            lo = torch.zeros((b, k), dtype=torch.int32, device=dev)
-            hi = torch.full((b, k), n_corpus, dtype=torch.int32, device=dev)
-            step0_mask = first_digit_mask(prefix_index, kk)
-
-        cache = self.start_decode(enc, ctx_mask, b * k)
-        parent_rows = torch.arange(b, device=dev)[:, None] * k
-        for i in range(d):
-            with span("model.beam.digit", digit=i):
-                if tracing():  # rows alive (no off-catalog digit yet) and rows run
-                    count("beam.live_rows", (log_probs > INVALID_PENALTY / 2).sum())
-                    count("beam.rows", b * k)
-                    count("beam.decoder_tokens", b * k)  # one new token a row
-                    count("beam.cached_tokens", b * k * i)
-                prev = generated[:, :, i - 1].reshape(b * k, 1) if i else None
-                logits_last = self.decode_step(cache, i, prev)
-                step_logp = torch.log_softmax(logits_last[:, 0, :].float() / temperature, dim=-1)
-                if sample and generator is not None:
-                    u = torch.rand(step_logp.shape, generator=generator, device=dev)
-                    step_logp = step_logp - torch.log(-torch.log(u + 1e-20) + 1e-20)
-
-                if prefix_index is not None:
-                    if i == 0:
-                        valid = step0_mask[None, :].expand(b * k, kk)
-                    elif prefix_tries is not None and prefix_tries.get(i) is not None:
-                        starts_i, bitmaps_i = prefix_tries[i]
-                        valid = trie_digit_mask(starts_i, bitmaps_i, lo.reshape(-1), hi.reshape(-1))
-                        if bitmaps_i.shape[1] < kk:  # narrower stored vocab
-                            valid = nn.functional.pad(valid, (0, kk - bitmaps_i.shape[1]))
-                    else:
-                        if prefix_caps is not None:
-                            cap = int(prefix_caps[i - 1])
-                        else:
-                            # Heuristic only: a prefix with more than `cap` rows
-                            # silently loses valid continuations.
-                            cap = max(256, 4 * (n_corpus // max(kk ** i, 1)))
-                            warnings.warn(
-                                "generate_next_sem_id called without prefix_caps; "
-                                f"using heuristic cap {cap} at digit {i} — pass "
-                                "tokenizer.prefix_caps for exact constrained decoding",
-                                stacklevel=3,  # the caller of generate_next_sem_id
-                            )
-                        cap = min(max(cap, 8), n_corpus)
-                        valid = valid_digit_mask(prefix_index, lo.reshape(-1), hi.reshape(-1),
-                                                 i, kk, cap)
-                    step_logp = step_logp + INVALID_PENALTY * (~valid)
-
-                scores = (step_logp + log_probs.reshape(b * k, 1)).reshape(b, k * kk)
-                top_scores, top_idx = top_k_first_index(scores, k)
-                parent = torch.div(top_idx, kk, rounding_mode="floor")
-                digits = (top_idx % kk).to(torch.int32)
-
-                generated = torch.gather(generated, 1, parent[..., None].expand(b, k, d)).clone()
-                generated[:, :, i] = digits
-                log_probs = top_scores
-                if i + 1 < d:
-                    cache.reorder((parent_rows + parent).reshape(-1), i + 1)
-
-                if prefix_index is not None:
-                    lo = torch.gather(lo, 1, parent)
-                    hi = torch.gather(hi, 1, parent)
-                    new_lo, new_hi = narrow_range(prefix_index, lo.reshape(-1), hi.reshape(-1),
-                                                  i, digits.reshape(-1))
-                    lo, hi = new_lo.reshape(b, k), new_hi.reshape(b, k)
-
-        return GenerationOutput(sem_ids=generated, log_probas=log_probs)

@@ -1,8 +1,7 @@
 """Residual-quantized VAE (counterpart of hidvae_tpu/models/rqvae.py):
-encoder, quantizers, the residual cascade, the decoder and `forward`, the
-plain RQ-VAE trainer's loss (:153-171). Gumbel noise draws from
-`generator`; `dtype` is the AMP compute dtype; with `rows` the loss terms
-are the whole split batch's."""
+encoder, quantizers, cascade, decoder and `forward`, the plain trainer's
+loss (:153-171); Gumbel from `generator`, `dtype` AMP's, with `rows` the
+whole split batch's terms."""
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -45,10 +44,9 @@ def p_unique_ids_stat(sem_ids):
 
 
 def batch_means(per_row, rows: Optional[Rows] = None) -> list:
-    """The batch mean of each per-row term [B] of `per_row`; with `rows`, of
-    the whole split batch: this rank's sums all-reduced and divided by the
-    global count. Every rank computes the same loss of the means, so the
-    all-reduce's backward is the identity."""
+    """Each per-row term's batch mean; with `rows` the split batch's (sums
+    all-reduced over the global count; the same loss on every rank, so the
+    backward is the identity)."""
     if rows is None:
         return [torch.mean(t) for t in per_row]
     sums = torch.stack([torch.sum(t) for t in per_row])
@@ -142,9 +140,8 @@ class RqVae(nn.Module):
     def forward(self, x, gumbel_t: float, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 rows: Optional[Rows] = None) -> RqVaeComputedLosses:
-        """The training / eval loss on item features x [B, input_dim]
-        (hidvae_tpu/models/rqvae.py:153-171); with `rows`, of the split
-        batch whose rows x are (see the module docstring)."""
+        """The loss on x [B, input_dim] (hidvae_tpu/models/rqvae.py:153-171),
+        with `rows` of the split batch."""
         x = x.float()
         if rows is not None and generator is not None:
             generator = RowShard(generator, rows.start, rows.total)

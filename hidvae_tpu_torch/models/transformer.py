@@ -1,10 +1,8 @@
 """Pre-norm transformer blocks and the encoder-decoder (counterpart of
-hidvae_tpu/models/transformer.py; cross-attention's query is the block
-input, :58). Dropout applies where the JAX block applies it (:51-71).
-`remat` rematerializes each block with torch.utils.checkpoint;
-`GeneratorReplay` hands the recompute the dropout generator as it was, so
-it draws the forward's masks. `DecoderCache` and `decode_step` run the
-decoder one token at a time (eval only)."""
+hidvae_tpu/models/transformer.py; cross-attention's query the block
+input, :58; dropout as JAX, :51-71). `remat` checkpoints each block,
+`GeneratorReplay` giving the recompute the forward's masks. `DecoderCache`
+and `decode_step` decode a token at a time (eval)."""
 
 from typing import Optional, Sequence
 
@@ -62,9 +60,8 @@ class TransformerBlock(nn.Module):
 
 
 class DecoderCache:
-    """An incremental decode's keys and values: each layer's cross ones,
-    [B, H, M, Dh], and the self ones of each position written so far,
-    [layers, 2, rows, H, positions, Dh]."""
+    """Keys and values: cross [B, H, M, Dh] a layer, self of the positions
+    so far [layers, 2, rows, H, positions, Dh]."""
 
     def __init__(self, cross, ctx_mask, rows: int, positions: int):
         self.cross, self.ctx_mask = cross, ctx_mask
@@ -86,10 +83,9 @@ class DecoderCache:
 
 
 class GeneratorReplay:
-    """The dropout generator of each run of one rematerialized block: the
-    live generator on the first run (the forward), and on every later run
-    (the recompute) a fresh copy set to the state the forward began from.
-    None (eval) stays None; a RowShard keeps its rows around the copy."""
+    """A rematerialized block's dropout generator: the live one forward, a
+    copy at the forward's starting state on recompute (None stays None; a
+    RowShard keeps its rows)."""
 
     def __init__(self, generator):
         self.generator = generator

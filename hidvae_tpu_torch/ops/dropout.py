@@ -1,7 +1,6 @@
-"""Dropout drawn from an explicit generator (flax's nn.Dropout): keep
-with probability 1 - p, scale by 1 / (1 - p). From a `RowShard` every site
-draws the global mask and keeps this rank's rows, so ranks apply the
-one-device mask bit for bit."""
+"""Dropout from an explicit generator (flax's nn.Dropout); from a
+`RowShard` each site draws the global mask and keeps this rank's rows,
+the one-device mask bit for bit."""
 
 from typing import NamedTuple, Optional, Union
 

@@ -7,12 +7,11 @@ jax 0.9.0, called from hidvae_tpu/models/attention.py:75).
   flash_bwd_dkv  dK, dV                                  (library :796)
   flash_bwd_dq   dQ                                      (library :1146)
 
-q, k, v [B, H, N, Dh], segment ids [B, N] int32. CUDA tensors run the
-kernels (Dh 64 and 128), CPU tensors `flash_attention_reference`. bf16 runs
-on tensor cores and rounds P and dS to bf16 as the library does; fp32 runs
-in FFMA. The backward recomputes P = exp(s - m) / l from m and l
-(:900-904); a row that sees no key gets uniform weights over all keys, as
-`mha_reference` gives. Masked logits get -0.7 * fp32 max (:29, :437)."""
+q, k, v [B, H, N, Dh], segment ids [B, N] int32: kernels on CUDA (Dh 64,
+128; bf16 on tensor cores, rounding P and dS as the library; fp32 FFMA),
+`flash_attention_reference` on the CPU. The backward recomputes
+P = exp(s - m) / l (:900-904); a keyless row gets uniform weights, as
+`mha_reference`; masked logits -0.7 * fp32 max (:29, :437)."""
 
 import ctypes
 from typing import NamedTuple, Optional
@@ -74,9 +73,8 @@ def flash_attention_reference(q, k, v, *, segment_ids: Optional[SegmentIds] = No
 
 
 def flash_fwd_reference(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
-    """Plain version of the forward kernel: (O in q's dtype, m, l), where m
-    is the row max of the masked, scaled logits and l = sum exp(s - m), both
-    fp32 [B, H, Nq]: the library's residuals."""
+    """The forward's plain version: (O in q's dtype, m the row max of the
+    masked, scaled logits, l = sum exp(s - m)), m and l fp32 [B, H, Nq]."""
     s = _logits(q, k, seg_q, seg_kv, causal, sm_scale)
     m = torch.amax(s, dim=-1)
     e = torch.exp(s - m[..., None])
@@ -139,9 +137,8 @@ def build():
 
 
 def check_head_dim(head_dim: int, device_type: str):
-    """Refuse, before any work, a head width that has no kernel on a
-    `device_type` ("cuda", "cpu") device. The plain version takes any
-    width, as the library's kernel takes any multiple of 64."""
+    """Refuse, before any work, a head width with no kernel on
+    `device_type`; the plain version takes any width."""
     if device_type == "cuda" and head_dim not in HEAD_DIMS:
         raise ValueError(f"the flash kernels are built for head widths {HEAD_DIMS}; "
                          f"got {head_dim}")
@@ -182,8 +179,7 @@ def _stream(device):
 
 
 def flash_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
-    """Launch the forward kernel: returns (O like q, m, l), m and l fp32
-    [B, H, Nq] as `flash_fwd_reference` defines them. Adds one to
+    """The forward kernel: (O like q, m, l) as `flash_fwd_reference`; counts
     `flash_fwd.launches`."""
     code = _check(q, k, v, seg_q, seg_kv)
     b, h, nq, _ = q.shape
@@ -202,9 +198,8 @@ def flash_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
 
 
 def _backward_args(q, k, v, seg_q, seg_kv, do, m, l, di):
-    """Checks a backward kernel's inputs; returns (dtype code, 1/l). The
-    backward kernels take 1/l, one reciprocal per row computed here, so
-    that none is taken per element."""
+    """Checks a backward kernel's inputs; returns (dtype code, 1/l), one
+    reciprocal a row rather than one an element."""
     code = _check(q, k, v, seg_q, seg_kv, do, m, l, di)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("dO must match q in shape and dtype")
@@ -286,9 +281,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, segment_ids: Optional[SegmentIds] = None,
                     causal: bool = False, sm_scale: float = 1.0):
-    """softmax(q k^T * sm_scale, masked by segment ids) v for q [B, H, Nq, Dh],
-    k, v [B, H, Nk, Dh]. The CUDA kernels on CUDA tensors, the plain version
-    on CPU tensors; differentiable in q, k and v either way."""
+    """softmax(q k^T * sm_scale, masked by segment ids) v, q [B, H, Nq, Dh],
+    k, v [B, H, Nk, Dh]: kernels on CUDA, the plain version on the CPU;
+    differentiable in q, k, v."""
     if q.is_cuda:
         seg_q, seg_kv = _segments(q, k, segment_ids)
         return _FlashAttention.apply(

@@ -1,6 +1,5 @@
-"""Gumbel-softmax sampling from an explicit generator (or RowShard), or
-from uniforms or noise handed in, so that a test can pass JAX's draws
-(counterpart of hidvae_tpu/ops/gumbel.py)."""
+"""Gumbel-softmax sampling (counterpart of hidvae_tpu/ops/gumbel.py) from a
+generator (or RowShard) or given uniforms or noise (JAX's, in tests)."""
 
 import math
 from typing import Optional

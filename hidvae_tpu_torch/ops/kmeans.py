@@ -1,7 +1,6 @@
-"""Lloyd's k-means for codebook initialization (counterpart of
-hidvae_tpu/ops/kmeans.py), assignment in full fp32. Draws come from
-`generator`, or are passed in (`init_idx`, `reseed_idx(it)`) so that a test
-can run the JAX function's draws."""
+"""Lloyd's k-means for codebook init (counterpart of hidvae_tpu/ops/
+kmeans.py), assignment in full fp32, draws from `generator` or given
+(`init_idx`, `reseed_idx(it)`, as a test passes JAX's)."""
 
 from typing import Callable, NamedTuple, Optional
 

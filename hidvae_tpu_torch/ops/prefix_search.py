@@ -101,9 +101,8 @@ def exists_prefix(sorted_corpus, prefixes):
 
 
 def valid_digit_mask(sorted_corpus, lo, hi, level: int, n_digits: int, cap: int):
-    """out[q, v] = any(corpus[lo:hi, level] == v) over at most `cap` rows of
-    each range. Values outside [0, n_digits) are unreachable and dropped.
-    lo, hi: [Q] int32. Returns [Q, n_digits] bool."""
+    """[Q, n_digits] bool: any(corpus[lo:hi, level] == v) over at most `cap`
+    rows a range (lo, hi [Q] int32); values outside [0, n_digits) dropped."""
     q = lo.shape[0]
     offs = torch.arange(cap, dtype=torch.int32, device=lo.device)[None, :]
     rows = torch.clamp(lo[:, None] + offs, 0, sorted_corpus.shape[0] - 1)
@@ -146,10 +145,9 @@ def narrow_range(sorted_corpus, lo, hi, level: int, digit):
 
 
 def build_prefix_tries(sorted_corpus, n_digits: int, budget_bytes: int = 64 << 20):
-    """Per-level next-digit bitmaps of a sorted corpus: for each level i
-    (1..D-1), starts [M_i] int32 of the level-i prefix runs and bitmaps
-    [M_i, n_digits] bool of the digits that follow; None where a bitmap would
-    exceed `budget_bytes`. Host numpy."""
+    """Next-digit bitmaps of a sorted corpus, level i in 1..D-1: starts
+    [M_i] int32 of its prefix runs and bitmaps [M_i, n_digits] bool (None
+    past `budget_bytes`). Host numpy."""
     ids = np.asarray(sorted_corpus)
     n, d = ids.shape
     # An unsorted table silently yields wrong masks: refuse it.

@@ -1,8 +1,8 @@
 """Fused residual quantization (counterpart of
 hidvae_tpu/ops/pallas/rq_kernels.py): `rq_assign` launches csrc/rq_assign.cu
-(for `_rq_kernel`, rq_kernels.py:32), `rq_assign_reference` is the plain
-version and `rq_assign_auto` picks by device; a CUDA tensor never takes the
-plain path. x [B, D], codebooks [L, K, D] -> ids [B, L] int32, qsum [B, D]."""
+(`_rq_kernel`, :32), `rq_assign_reference` is the plain version,
+`rq_assign_auto` picks by device (CUDA never the plain one). x [B, D],
+codebooks [L, K, D] -> ids [B, L] int32, qsum [B, D]."""
 
 import ctypes
 
@@ -36,9 +36,8 @@ def rq_assign_reference(x, codebooks):
 
 
 def check_dim(dim: int, device_type: str):
-    """Refuse, before any work, a code width `dim` that has no CUDA kernel
-    on a `device_type` ("cuda", "cpu") device. The plain version takes any
-    width, as the Pallas kernel does."""
+    """Refuse, before any work, a code width with no kernel on
+    `device_type`; the plain version takes any."""
     if device_type == "cuda" and dim not in SUPPORTED_DIMS:
         raise ValueError(f"rq_assign supports D in {SUPPORTED_DIMS} on CUDA (the widths "
                          f"its kernel is built for), got D {dim}")
@@ -65,9 +64,8 @@ def build():
 
 
 def staging(dim: int, n_levels: int, n_embed: int) -> dict:
-    """How a launch on the current card stages its codebooks at this width:
-    {"resident": all levels held in shared memory at once (else streamed
-    level by level), "warps": warps a block, "smem_bytes"}."""
+    """This card's staging at this width: {"resident": all levels in shared
+    memory (else streamed by level), "warps" a block, "smem_bytes"}."""
     slots, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     err = build().lib.rq_assign_plan(dim, n_levels, n_embed, ctypes.byref(slots),
                                      ctypes.byref(warps), ctypes.byref(smem))
@@ -78,10 +76,9 @@ def staging(dim: int, n_levels: int, n_embed: int) -> dict:
 
 
 def rq_assign(x, codebooks):
-    """Launch the CUDA kernel on CUDA tensors x [B, D], codebooks [L, K, D].
-
-    Raises on a CPU tensor, an unsupported shape or type, a failed build, or
-    a non-zero launch status. Adds one to `rq_assign.launches` per launch."""
+    """The kernel on CUDA x [B, D], codebooks [L, K, D]; raises on a CPU
+    tensor, a bad shape or type, a failed build or launch. Counts
+    `rq_assign.launches`."""
     if not (x.is_cuda and codebooks.is_cuda):
         raise ValueError("rq_assign launches the CUDA kernel: pass CUDA tensors")
     if x.device != codebooks.device:
@@ -94,10 +91,9 @@ def rq_assign(x, codebooks):
     n_levels, n_embed, _ = codebooks.shape
     check_dim(d, x.device.type)
     lib = build().lib
-    # The kernel's least footprint: one level's codebook, transposed and
-    # padded to whole passes, with its norms, and one warp's two residual
-    # buffers of a row tile and per-row scratch (csrc/rq_assign.cu,
-    # smem_bytes); the launch takes as many warps as fit, up to its width's.
+    # The least footprint (csrc/rq_assign.cu smem_bytes): one level's padded
+    # codebook and norms, one warp's two row buffers and scratch; a launch
+    # takes as many warps as fit, up to its width's.
     if lib.rq_assign_min_smem(d, n_levels, n_embed) > MAX_SHARED_BYTES:
         raise ValueError(f"a [{n_embed}, {d}] codebook does not fit in shared memory")
     x = x.contiguous()

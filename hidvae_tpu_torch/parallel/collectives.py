@@ -1,12 +1,10 @@
-"""Collectives of the port's multi-GPU paths: the tensor-parallel autograd
-functions (Megatron's f / g) and those that couple a batch split over the
-data ranks (stage 1). Only all_reduce, all_gather and broadcast are used,
-which Gloo and NCCL both run on CUDA tensors; a group of None (one process)
-makes each the identity. `COLLECTIVE_BYTES` counts the bytes this process
-hands to each collective. Tensor-parallel partial products are all-reduced
-in fp32 and rounded once. `all_gather_rows` and `all_reduce_sum` backward
-"slice" when every rank computes the same term, "sum" when each uses it for
-its own rows."""
+"""Collectives of the multi-GPU paths: tensor-parallel autograd functions
+(Megatron's f / g) and those coupling a batch split over the data ranks.
+all_reduce, all_gather and broadcast only (Gloo and NCCL on CUDA); a None
+group is the identity. `COLLECTIVE_BYTES` counts the bytes handed to each.
+Partial products are all-reduced in fp32, rounded once. `all_gather_rows`
+and `all_reduce_sum` backward "slice" (every rank computes the same term)
+or "sum" (each for its own rows)."""
 
 from typing import NamedTuple, Optional
 
@@ -18,9 +16,8 @@ COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 
 
 class TensorShard(NamedTuple):
-    """Where a parameter lies sharded: `dim` of the torch tensor is cut into
-    `size` equal parts over the model `group`, and this rank holds part
-    `rank`."""
+    """`dim` cut into `size` equal parts over the model `group`; this rank
+    holds part `rank`."""
     group: Optional[dist.ProcessGroup]
     rank: int
     size: int
@@ -57,9 +54,9 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 class Rows(NamedTuple):
-    """A batch split over the data ranks of `group`: rank r holds the global
-    rows [bounds[r], bounds[r + 1]) of bounds[-1], and this process is rank
-    `rank`. The parts may differ in size, and be empty."""
+    """A batch over the data ranks of `group`: rank r holds rows
+    [bounds[r], bounds[r + 1]) of bounds[-1] (parts may differ, or be
+    empty); this process is `rank`."""
     group: Optional[dist.ProcessGroup]
     rank: int
     bounds: tuple
@@ -122,9 +119,8 @@ class _GatherRows(torch.autograd.Function):
 
 
 def all_gather_rows(x: torch.Tensor, rows: Optional[Rows], backward: Optional[str] = None):
-    """The whole batch [rows.total, ...] from each rank's rows `x` (see the
-    module docstring). `backward`: None (no gradient), "slice" or "sum".
-    Identity without a layout or a group."""
+    """The whole batch [rows.total, ...] from each rank's rows `x`;
+    `backward` None, "slice" or "sum". Identity without a layout or group."""
     if rows is None or rows.group is None:
         return x
     if backward is None:
@@ -143,9 +139,8 @@ def broadcast_(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
 
 
 class _AllReduce(torch.autograd.Function):
-    """Sum over the ranks of `group` forward; backward the identity (every
-    rank computes the same loss of the sum: g of the Megatron pair), or the
-    ranks' gradients summed (each rank uses the sum for its own rows)."""
+    """Sum over `group`; backward the identity (the same loss on every rank:
+    Megatron's g) or summed (each rank uses it for its own rows)."""
 
     @staticmethod
     def forward(ctx, x, group, sum_backward: bool):

@@ -3,11 +3,9 @@ __graft_entry__.dryrun_multichip) and its rank launcher.
 
     python -m hidvae_tpu_torch.parallel.dryrun 4
 
-spawns 4 Gloo CPU ranks on a (n/2, 2) ('data', 'model') mesh, runs one DP x
-TP AdamW step of the tiny flagship decoder and one data-parallel step of
-the JAX dry run's tiny HiD-VAE, checks every rank's losses against one
-process's and prints `dryrun_multichip OK: mesh={...} stage2_loss=...
-stage1_loss=...`."""
+spawns 4 Gloo CPU ranks on a (n/2, 2) mesh, runs a DP x TP step of the tiny
+decoder and a DP step of the tiny HiD-VAE, holds every rank's losses to
+one process's and prints `dryrun_multichip OK: ...`."""
 
 import os
 import re
@@ -35,9 +33,8 @@ def free_port() -> int:
 
 def launch_ranks(argv: Sequence[str], world: int, timeout: float,
                  env: Optional[dict] = None, cwd: Optional[str] = None) -> list:
-    """Run `argv` as `world` processes under torchrun's environment, one
-    CPU thread each, within `timeout` seconds; returns their stdouts in rank
-    order. A timeout or failing rank kills all and raises RuntimeError."""
+    """`argv` as `world` torchrun-style processes, a CPU thread each; their
+    stdouts by rank. A timeout or failure kills all (RuntimeError)."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -114,9 +111,8 @@ def flagship_step(mesh, batch_size: int, device="cpu") -> float:
 
 
 def stage1_step(mesh, batch_size: int, device="cpu") -> float:
-    """One AdamW step (lr 1e-3, weight decay 1e-4) of the seeded tiny
-    HiD-VAE over `mesh`'s data ranks on a seeded global batch. Returns the
-    global loss before the update, the same on every rank."""
+    """One AdamW step (lr 1e-3, decay 1e-4) of the seeded tiny HiD-VAE over
+    the data ranks; the global loss before it, on every rank."""
     from hidvae_tpu_torch.models.hrqvae import HRqVae
     from hidvae_tpu_torch.models.init import init_params_
     from hidvae_tpu_torch.parallel.mesh import batch_rows, shard_rows
@@ -143,9 +139,9 @@ def stage1_step(mesh, batch_size: int, device="cpu") -> float:
 
 
 def dryrun_multichip(n: int, timeout: float = 300.0) -> dict:
-    """One stage-2 DP x TP step and one stage-1 DP step on n Gloo ranks,
-    each held to the one-process step. Returns {"mesh", "loss",
-    "one_rank_loss", "stage1_loss", "stage1_one_rank_loss"}."""
+    """A stage-2 DP x TP and a stage-1 DP step on n Gloo ranks, each held to
+    one process's. Returns {"mesh", "loss", "one_rank_loss", "stage1_loss",
+    "stage1_one_rank_loss"}."""
     from hidvae_tpu_torch.parallel.mesh import make_mesh
 
     n_model = 2 if n % 2 == 0 and n >= 4 else 1

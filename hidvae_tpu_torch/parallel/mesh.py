@@ -1,10 +1,8 @@
-"""A ('data', 'model') mesh over a torch.distributed process group
-(counterpart of hidvae_tpu/parallel/mesh.py), the row layouts of a batch
-split over the data ranks and the stage-2 tensor-parallel layout. Rank r
-sits at (r // n_model, r % n_model), as JAX's reshape; without a process
-group `make_mesh` gives (1, 1). `stage2_param_layout` mirrors
-`stage2_param_shardings`: the ID table and `out_proj` by vocab, FF
-`dense_0` by output and the other FF kernels by input features."""
+"""A ('data', 'model') mesh over a process group (counterpart of
+hidvae_tpu/parallel/mesh.py), rank r at (r // n_model, r % n_model), (1, 1)
+without a group; row layouts over the data ranks; the stage-2 layout
+(`stage2_param_shardings`: ID table and `out_proj` by vocab, FF `dense_0`
+by output, other FF kernels by input)."""
 
 import contextlib
 import os
@@ -122,9 +120,8 @@ def pad_to_multiple(t: torch.Tensor, multiple: int):
 
 
 def shard_rows(n: int, mesh: Mesh) -> slice:
-    """The rows of an n-row batch that this data rank holds: an equal
-    contiguous part when n_data divides n, else all of them (JAX leaves
-    such a batch replicated)."""
+    """This data rank's rows of n: an equal contiguous part when n_data
+    divides n, else all (JAX replicates such a batch)."""
     if n % mesh.n_data:
         return slice(0, n)
     part = n // mesh.n_data
@@ -161,9 +158,8 @@ def _model_axis(path: str) -> Optional[int]:
 
 
 def stage2_param_layout(mesh: Mesh, model: torch.nn.Module) -> Dict[str, Optional[int]]:
-    """{flax path: the torch dim cut over 'model', or None (replicated)}
-    for every parameter of the stage-2 model, as stage2_param_shardings
-    lays the flax leaves out (see the module docstring)."""
+    """{flax path: torch dim cut over 'model', or None} of every stage-2
+    parameter, as stage2_param_shardings lays them out."""
     out = {}
     for path, p, transpose in flax_named_parameters(model):
         shape = tuple(p.shape[::-1]) if transpose else tuple(p.shape)
@@ -180,9 +176,8 @@ def _part(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
 
 
 def shard_stage2_(model: torch.nn.Module, mesh: Mesh, optimizer=None) -> Dict[str, Optional[int]]:
-    """Cut `model`'s sharded parameters (and their AdamW moments) to this
-    rank's parts in place, marking each owning module with its TensorShard
-    (`.tp`). Returns the layout."""
+    """Cut `model`'s sharded parameters (and AdamW moments) to this rank's
+    parts in place, each owner marked `.tp`. Returns the layout."""
     layout = stage2_param_layout(mesh, model)
     if mesh.n_model == 1:
         return layout

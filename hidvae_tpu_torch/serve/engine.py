@@ -1,11 +1,9 @@
-"""Serving path of a trained two-stage model (counterpart of
-hidvae_tpu/serve/engine.py). The corpus ID table, prefix index and trie
-bitmaps live on the device; requests are padded to batch buckets, and one
-step a bucket tokenizes, runs the constrained beam search and resolves
-tuples to items. `from_artifacts` builds an engine from a decoder gin and
-two exported checkpoints, refusing a table that contradicts the stage-1
-checkpoint's repetition rate. With `mesh` (engine.py:194-231) the sweep
-and the decode split over the data ranks and every rank gets the answer."""
+"""Serving of a trained two-stage model (counterpart of
+hidvae_tpu/serve/engine.py): table, prefix index and tries on the device;
+requests padded to buckets, one step a bucket tokenizing, searching and
+resolving. `from_artifacts`: from a gin and two exports, refusing a table
+that contradicts stage 1's repetition. With `mesh` (engine.py:194-231)
+sweep and decode split over the data ranks."""
 
 import logging
 import time
@@ -15,7 +13,7 @@ import numpy as np
 import torch
 
 from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_or_build
-from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalModel
 from hidvae_tpu_torch.ops.prefix_search import build_prefix_index_with_perm, lookup_items
 from hidvae_tpu_torch.parallel.mesh import gather_rows, shard_rows, shard_stage2_
 from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint
@@ -35,13 +33,11 @@ logger = logging.getLogger("hidvae_tpu_torch.serve.engine")
 
 
 class RetrievalEngine:
-    """Batch recommendation serving over a frozen tokenizer + decoder: the
-    decoder `model`, a (H)SemanticIdTokenizer, the corpus `item_features`,
-    the history length, ascending `batch_buckets`, the stage-1 export whose
-    repetition rate audits the table, `device` (`cuda` unless given), and
-    `mesh` / `shard_params` for ranks that serve together. `build_times`:
-    table_s, audit_s, index_s (together the constructor) and, from
-    `from_artifacts`, load_s."""
+    """Batch serving of a stage-2 `model` (a `RetrievalModel`) over a frozen
+    (H)SemanticIdTokenizer and the corpus `item_features`: the history
+    length, ascending `batch_buckets`, the stage-1 export whose repetition
+    audits the table, `device`, `mesh` / `shard_params` for ranks serving
+    together. `build_times`: table_s, audit_s, index_s, load_s."""
 
     @classmethod
     def from_artifacts(cls, gin_path: str, stage1_export: str, stage2_export: str, *,
@@ -53,11 +49,9 @@ class RetrievalEngine:
         device = resolve_device(device)
         cfg = parse_gin_file(gin_path)["train"]
         g = cfg.get
-        # Interleaving is a tagged (H-tokenizer) layout; the plain route
-        # ignores the flag (PARITY.md #12).
+        # The plain route ignores interleaving (PARITY.md #12).
         use_interleaved = bool(g("use_interleaved_ids", False) and g("use_h_tokenizer", True))
-        # One read of the processed file serves the corpus and the history
-        # length the decoder was trained with (a property of the dataset).
+        # One read: the corpus and the trained history length.
         split = g("dataset_split", "beauty")
         arrays = load_or_build(cfg["dataset_folder"], cfg["dataset"], split)
         items = ItemData(cfg["dataset_folder"], cfg["dataset"], train_test_split="all",
@@ -85,9 +79,7 @@ class RetrievalEngine:
             device=device,
         )
         d = tokenizer.sem_ids_dim
-        # The decoder checkpoint records its structural config: a gin with
-        # stale geometry (same shapes, other heads; or other layer counts)
-        # adopts the checkpoint's values instead of serving garbage.
+        # The checkpoint's structural config over a stale gin's geometry.
         dec = reconcile_vae_config(
             stage2_export,
             {
@@ -121,21 +113,10 @@ class RetrievalEngine:
         engine.build_times["load_s"] = load_s
         return engine
 
-    def __init__(
-        self,
-        model: EncoderDecoderRetrievalModel,
-        tokenizer,
-        item_features,
-        *,
-        max_seq_len: int,
-        batch_buckets: Sequence[int] = (8, 32, 128),
-        generation_temperature: float = 1.0,
-        stage1_checkpoint=None,
-        reuse_cached_ids: bool = True,
-        device=None,
-        mesh=None,
-        shard_params: bool = False,
-    ):
+    def __init__(self, model: RetrievalModel, tokenizer, item_features, *, max_seq_len: int,
+                 batch_buckets: Sequence[int] = (8, 32, 128), generation_temperature: float = 1.0,
+                 stage1_checkpoint=None, reuse_cached_ids: bool = True, device=None, mesh=None,
+                 shard_params: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
@@ -149,9 +130,8 @@ class RetrievalEngine:
                 shard_stage2_(self.model, mesh)
         self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
 
-        # A tokenizer that already holds the table for this catalog (same
-        # content fingerprint, not just the same row count) is reused; the
-        # sweep is deterministic for fixed weights and features.
+        # A tokenizer holding this catalog's table (same fingerprint) is
+        # reused: the sweep is deterministic.
         t0 = time.perf_counter()
         cached = getattr(tokenizer, "cached_ids", None)
         if (
@@ -168,9 +148,8 @@ class RetrievalEngine:
         self.sem_id_dim = int(self.corpus_ids.shape[1])
         table = self.corpus_ids.cpu().numpy()
         t1 = time.perf_counter()
-        # Refuse to serve from a table that contradicts the stage-1
-        # checkpoint's recorded repetition (a rebuild gone wrong otherwise
-        # returns near-constant recommendations without complaint).
+        # Refuse a table that contradicts the stage-1 export's repetition
+        # (a bad rebuild serves near-constant answers silently).
         audit_rebuilt_corpus(tokenizer, table, stage1_checkpoint, log=logger)
         t2 = time.perf_counter()
         self.sorted_ids, self.perm = build_prefix_index_with_perm(self.corpus_ids)

@@ -28,19 +28,10 @@ def interleave_ids(sem_ids, tag_ids):
 class HSemanticIdTokenizer(SemanticIdTokenizer):
     """Tokenizer service over a frozen HRqVae (an nn.Module on `device`)."""
 
-    def __init__(
-        self,
-        model,
-        *,
-        n_layers: int = 3,
-        codebook_size: int = 256,
-        tag_class_counts: Optional[Sequence[int]] = None,
-        use_dedup_dim: bool = False,
-        use_concatenated_ids: bool = False,
-        use_interleaved_ids: bool = False,
-        corpus_chunk_size: int = 8192,
-        device=None,
-    ):
+    def __init__(self, model, *, n_layers: int = 3, codebook_size: int = 256,
+                 tag_class_counts: Optional[Sequence[int]] = None, use_dedup_dim: bool = False,
+                 use_concatenated_ids: bool = False, use_interleaved_ids: bool = False,
+                 corpus_chunk_size: int = 8192, device=None):
         if use_dedup_dim and use_concatenated_ids:
             raise ValueError("use_dedup_dim and use_concatenated_ids are mutually exclusive")
         if use_dedup_dim and use_interleaved_ids:
@@ -91,11 +82,9 @@ class HSemanticIdTokenizer(SemanticIdTokenizer):
             return self.hrq_vae.predict_tags(torch.as_tensor(x, device=self.device))
 
     def tokenize_features(self, x, x_fut=None, seq_mask=None, user_ids=None) -> TokenizedSeqBatch:
-        """Tokenize raw item features x [B, N, F] without a table
-        (h_semids.py:198-227): every row's ID tuple from `encode_ids`,
-        flattened to [B, N * D], -1 where `seq_mask` [B, N] is False; the
-        target's features x_fut [B, F] or [B, Nf, F] give sem_ids_fut
-        [B, Nf * D]."""
+        """Features x [B, N, F] tokenized without a table (h_semids.py:198-227):
+        [B, N * D], -1 where `seq_mask` is False; x_fut [B, F] or [B, Nf, F]
+        gives sem_ids_fut [B, Nf * D]."""
         x = torch.as_tensor(x, device=self.device)
         b, n, f = x.shape
         combined = self.encode_ids(x.reshape(-1, f))

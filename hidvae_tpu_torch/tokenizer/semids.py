@@ -83,10 +83,9 @@ class SemanticIdTokenizer:
         return ids
 
     def precompute_corpus_ids(self, item_features, mesh=None) -> torch.Tensor:
-        """Build the [n_items, sem_ids_dim] corpus table on the device (and
-        its dedup rank column), and the sorted prefix index. `mesh`
-        (parallel.mesh.Mesh) splits the sweep over its data ranks, as
-        `sharding=` does in semids.py:109-116; every rank gets the table."""
+        """The [n_items, sem_ids_dim] corpus table on the device (with its
+        dedup rank column) and the prefix index; `mesh` splits the sweep
+        over its data ranks (semids.py:109-116), every rank gets the table."""
         ids = sweep_corpus(self.encode_ids, item_features,
                            self.corpus_chunk_size, self.device, mesh)
         if self.use_dedup_dim:

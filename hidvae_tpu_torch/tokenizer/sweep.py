@@ -1,7 +1,6 @@
 """Chunked corpus sweep (counterpart of hidvae_tpu/tokenizer/sweep.py):
-host chunks uploaded from pinned memory on a side stream, overlapping the
-previous chunk's encode; with `mesh` each chunk is split over the data
-ranks and gathered back."""
+pinned chunks uploaded on a side stream beside the previous encode; with
+`mesh` each chunk split over the data ranks and gathered."""
 
 import hashlib
 from typing import Callable
@@ -14,10 +13,8 @@ from hidvae_tpu_torch.parallel.mesh import pad_to_multiple
 
 
 def features_fingerprint(item_features) -> str:
-    """Content fingerprint of a feature matrix: shape + up to 64 evenly
-    spaced rows, SHA-1 hashed. Ties a corpus-ID table to the features it was
-    swept from (serve/engine.py). The same bytes give the same digest as the
-    JAX package's function."""
+    """SHA-1 of a feature matrix's shape and up to 64 evenly spaced rows,
+    tying a table to its features; the JAX function's digest."""
     n = int(item_features.shape[0])
     take = min(n, 64)
     if take:

@@ -1,10 +1,9 @@
-"""Training commons (counterpart of hidvae_tpu/train/common.py):
-schedules, the plateau controller, both trainers' optimizer, the chunked
-event loop, checkpoints, the corpus audit and the data-parallel gradient
-reduction. `Optimizer` is optax's adamw (0.9, 0.999, 1e-8; decoupled
-decay, eps outside the root) per parameter group, after the clip, then the
-plateau scale, inside MultiSteps; its state is named as flax names optax's,
-so a converted JAX run resumes here and back."""
+"""Training commons (counterpart of hidvae_tpu/train/common.py): schedules,
+the plateau controller, the optimizer, the chunked loop, checkpoints, the
+corpus audit, gradient reduction. `Optimizer` is optax's adamw (0.9,
+0.999, 1e-8) per group after the clip, then the plateau scale, inside
+MultiSteps, its state named as flax names optax's (JAX runs resume here
+and back)."""
 
 import contextlib
 import enum
@@ -81,9 +80,8 @@ def inverse_sqrt_schedule(base_lr: float, warmup_steps: int) -> Callable[[int], 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
                          parts: Iterable[torch.Tensor] = (), group=None) -> torch.Tensor:
-    """optax.clip_by_global_norm in place. Returns the global norm.
-    `parts` are gradients cut over the model ranks of `group`: their squares
-    are summed over the group."""
+    """optax.clip_by_global_norm in place; `parts` (cut over the model
+    ranks of `group`) sum their squares over it. Returns the global norm."""
     grads = [g for g in grads if g is not None]
     parts = [g for g in parts if g is not None]
     sq = sum(torch.sum(g.float() * g.float()) for g in grads)
@@ -160,11 +158,11 @@ class ReduceLROnPlateau:
 
 
 class Optimizer:
-    """AdamW under a schedule of the update count, as make_optimizer builds
-    the JAX one (common.py:222-271): `groups` [(label, params, lr scale,
-    weight decay)] under multi_transform; `max_grad_norm` clips first;
-    `plateau` scales every update; `accumulate_every` k keeps MultiSteps'
-    running mean and updates once per k. `count` is the updates applied."""
+    """AdamW under a schedule of the update count (common.py:222-271):
+    `groups` [(label, params, lr scale, weight decay)] under multi_transform;
+    `max_grad_norm` clips first; `plateau` scales every update;
+    `accumulate_every` k: MultiSteps' running mean, an update per k.
+    `count`: the updates applied."""
 
     def __init__(self, params, schedule, weight_decay: float,
                  max_grad_norm: Optional[float] = None, *, groups=None,
@@ -252,10 +250,9 @@ class Optimizer:
         return self._adam_prefixes()[0][0] + "0/count"
 
     def state_dict(self, module: torch.nn.Module) -> dict:
-        """The state as flat numpy arrays under the names flax's
-        to_state_dict gives the optax state ("0/mu/<flax path>", "0/count", the
-        multi_transform, clip, plateau and MultiSteps prefixes). A parameter not
-        yet updated has zero moments, as optax's init gives them."""
+        """Flat numpy arrays under flax's names of the optax state
+        ("0/mu/<flax path>", "0/count", the multi_transform, clip, plateau
+        and MultiSteps prefixes); zero moments for a parameter not updated."""
         count = np.asarray(self.count, np.int32)
         named = self._named(module)
         out = {}
@@ -288,10 +285,9 @@ class Optimizer:
         return out
 
     def load_state_dict(self, module: torch.nn.Module, state: dict) -> list:
-        """Load a `state_dict` (counts, the accumulator, the plateau scale
-        and, per parameter, both moments onto the parameter's device). A
-        parameter whose moments are missing or of another shape keeps its
-        fresh state; returns their flax paths."""
+        """Load a `state_dict` (counts, accumulator, plateau scale, each
+        parameter's moments on its device); a parameter whose moments are
+        missing or misshapen stays fresh. Returns their flax paths."""
         def tensor(arr, p, transpose):
             arr = arr.T if transpose else arr
             return torch.from_numpy(np.ascontiguousarray(arr)).to(p.device, p.dtype)
@@ -333,10 +329,9 @@ def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
                    gradient_accumulate_every: int = 1, layer_specific_lr: bool = False,
                    predictor_weight_decay: float = 0.02, n_layers: int = 3,
                    max_grad_norm: Optional[float] = None, plateau: bool = False) -> Optimizer:
-    """The optimizer of `module`'s parameters as common.py:222-271 builds
-    it: with `layer_specific_lr`, tag_predictor_i and tag_projector_i form
-    group head_i (LR x (1 + 0.1 i), weight decay predictor_weight_decay /
-    (1 + 0.2 i)) and everything else group base."""
+    """`module`'s optimizer (common.py:222-271): with `layer_specific_lr`,
+    tag_predictor_i and tag_projector_i form group head_i (LR x (1 + 0.1 i),
+    decay predictor_weight_decay / (1 + 0.2 i)), the rest group base."""
     if not layer_specific_lr:
         return Optimizer(module.parameters(), schedule, weight_decay, max_grad_norm,
                          accumulate_every=gradient_accumulate_every, plateau=plateau)
@@ -357,9 +352,9 @@ def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
 
 
 def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_every: int):
-    """The JAX trainers' chunked loop (transformer.py:536-613; hidvae.py:634-710):
-    chunks of max(1, min(log_every, *cadences, n_steps)) steps. Yields (first, end, fired),
-    `fired` the indices of the cadences the chunk crosses, or all at the run's end."""
+    """The JAX chunked loop (transformer.py:536-613; hidvae.py:634-710), chunks
+    of max(1, min(log_every, *cadences, n_steps)) steps: yields (first, end,
+    fired), the cadences crossed (all at the end)."""
     chunk = max(1, min([log_every, *cadences, n_steps]))
     end = start_iter + n_steps
     it = start_iter
@@ -376,9 +371,9 @@ META_KEYS = ("model_config", "metrics", "plateau")  # the payload keys meta.json
 
 
 def save_checkpoint(save_dir: str, name: str, payload: dict) -> str:
-    """Write `payload` as the exported checkpoint `save_dir/name`
-    (common.py:274-303): flat dicts of arrays under their payload key, scalars
-    as 0-d arrays and the META_KEYS entries as meta.json. Returns its path."""
+    """`payload` as the export `save_dir/name` (common.py:274-303): arrays
+    under their payload key, scalars 0-d, META_KEYS in meta.json. Returns
+    its path."""
     from hidvae_tpu_torch.bridge import write_export
 
     path = os.path.abspath(os.path.join(save_dir, name))
@@ -396,9 +391,9 @@ def save_checkpoint(save_dir: str, name: str, payload: dict) -> str:
 
 def restore_checkpoint(path: str, module: torch.nn.Module,
                        optimizer: Optional[Optimizer] = None) -> tuple:
-    """Restore a stage-2 checkpoint into `module` (as `restore_export`)
-    and `optimizer` (transformer.py:400-414); without optimizer state the
-    optimizer stays fresh, with a warning. Returns (step, meta)."""
+    """A stage-2 checkpoint into `module` (as `restore_export`) and
+    `optimizer` (transformer.py:400-414), which stays fresh, with a warning,
+    where the export has no state. Returns (step, meta)."""
     from hidvae_tpu_torch.bridge import load_export_arrays
 
     log = logging.getLogger("hidvae_tpu_torch.checkpoint")
@@ -419,9 +414,9 @@ def restore_checkpoint(path: str, module: torch.nn.Module,
 
 def restore_export(path: str, module: torch.nn.Module, *,
                    mismatch_tolerance: float = 0.1) -> dict:
-    """Load an export into `module` leniently (common.py:306-407): a leaf missing or of
-    another shape keeps its value with a warning; more than max(mismatch_tolerance * leaves, 8)
-    bad leaves raise ValueError. Returns the export's meta."""
+    """An export into `module` leniently (common.py:306-407): a missing or
+    misshapen leaf keeps its value, warned; over max(mismatch_tolerance *
+    leaves, 8) raise ValueError. Returns the meta."""
     from hidvae_tpu_torch.bridge import flax_to_state_dict, load_export, state_dict_to_flax
 
     log = logging.getLogger("hidvae_tpu_torch.checkpoint")
@@ -468,10 +463,9 @@ def restore_export(path: str, module: torch.nn.Module, *,
 
 @contextlib.contextmanager
 def run_logging(save_dir: str):
-    """File and console logging of a run (hidvae_tpu/train/hidvae.py:56):
-    within the block, `save_dir/train.log` gets every record of the root
-    logger and the console the package's own. The file handler is removed
-    when the block ends, so one process's runs keep separate logs."""
+    """A run's logging (hidvae_tpu/train/hidvae.py:56): inside the block
+    `save_dir/train.log` gets every root record, the console the package's;
+    the file handler goes at the end, so runs keep separate logs."""
     os.makedirs(save_dir, exist_ok=True)
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
     root = logging.getLogger()
@@ -493,9 +487,8 @@ def run_logging(save_dir: str):
 
 
 def log_operative_config(logger, values: dict):
-    """Log every bound trainer argument of a scalar, string, sequence, None
-    or enum type on one sorted line (common.py:410), so that a run's
-    configuration can be read back from its train.log."""
+    """Every bound scalar, string, sequence, None or enum argument on one
+    sorted line (common.py:410): the run's configuration in its train.log."""
     items = []
     for k in sorted(values):
         if k.startswith("_"):
@@ -508,11 +501,9 @@ def log_operative_config(logger, values: dict):
 
 # ---------------- structural model config ----------------
 
-# Fields of the stage-1 VAE whose values change forward semantics or parameter
-# shapes. A frozen tokenizer must be rebuilt with the exact values its
-# checkpoint was trained with: a wrong codebook_normalize keeps every
-# parameter shape (so a lenient restore succeeds) while every quantizer
-# distance is wrong, which collapses the corpus ID table.
+# Stage-1 fields that change forward semantics or shapes; a frozen tokenizer
+# takes its checkpoint's (a wrong codebook_normalize restores leniently but
+# skews every distance, collapsing the corpus table).
 STRUCTURAL_VAE_KEYS = (
     "input_dim",
     "embed_dim",
@@ -558,9 +549,8 @@ def load_checkpoint_model_config(path: str):
 
 
 def reconcile_vae_config(pretrained_path: str, requested: dict, logger=None) -> dict:
-    """The checkpoint's recorded structural config over the requested one:
-    recorded keys win, each difference logged; legacy string values ("768",
-    "true") are normalized first."""
+    """The checkpoint's structural config over the requested one, each
+    difference logged; legacy strings ("768", "true") normalized first."""
     log = logger or logging.getLogger("hidvae_tpu_torch.checkpoint")
     saved = load_checkpoint_model_config(pretrained_path)
     if not saved:
@@ -600,10 +590,9 @@ def reconcile_vae_config(pretrained_path: str, requested: dict, logger=None) -> 
 
 
 def tokenizer_sem_cols(tokenizer):
-    """Column indices of the semantic digits in a tokenizer's corpus table:
-    [0, 2, 4, ...] in the interleaved layout, the first n_layers otherwise.
-    Tag and dedup-rank columns vary per item even when the semantic index
-    has collapsed, so a collapse audit slices them off."""
+    """The semantic digits' columns of a corpus table ([0, 2, 4, ...]
+    interleaved, else the first n_layers): a collapse audit drops the tag
+    and dedup columns, which vary per item even in a collapsed index."""
     d = tokenizer.sem_ids_dim
     if getattr(tokenizer, "use_interleaved_ids", False):
         return [2 * i for i in range(tokenizer.n_layers) if 2 * i < d]
@@ -611,9 +600,8 @@ def tokenizer_sem_cols(tokenizer):
 
 
 def audit_rebuilt_corpus(tokenizer, corpus_ids, stage1_checkpoint, log=None):
-    """Diversity of a rebuilt table and the collapse guard against the
-    stage-1 checkpoint's recorded repetition rate. Returns (div_full, div_sem);
-    raises RuntimeError on a contradiction."""
+    """A rebuilt table's diversity, guarded against the stage-1 export's
+    repetition rate (RuntimeError). Returns (div_full, div_sem)."""
     ids = np.asarray(corpus_ids)
     sem_cols = tokenizer_sem_cols(tokenizer)
     div = id_diversity_metrics(ids, tokenizer.codebook_size, tokenizer.n_layers,
@@ -662,9 +650,8 @@ def repetition_rate(corpus_ids: np.ndarray):
 
 def id_diversity_metrics(corpus_ids: np.ndarray, codebook_size: int, n_sem_layers: int,
                          sem_cols=None):
-    """Entropy of the unique-tuple distribution, most duplicates of one
-    tuple, per-level codebook usage over `sem_cols` (default the first
-    n_sem_layers columns), repetition rate."""
+    """Unique-tuple entropy, most duplicates of a tuple, codebook usage per
+    `sem_cols` level (default the first n_sem_layers), repetition rate."""
     ids = np.asarray(corpus_ids)
     _, counts = np.unique(ids, axis=0, return_counts=True)
     probs = counts / counts.sum()

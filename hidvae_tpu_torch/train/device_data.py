@@ -1,9 +1,8 @@
 """Device-resident training data (counterpart of
 hidvae_tpu/train/device_data.py): the stage-1 corpus, gathered with
-replacement each step (PARITY.md deviation 6), and the stage-2 history
-table, sampled, random-cropped and tokenized by gather. Draws come from an
-explicit generator, or the uniforms are handed in. `harvest_duplicate_pairs`
-draws the mining pool from an audit's table."""
+replacement (PARITY.md deviation 6), the stage-2 histories, sampled,
+cropped and tokenized by gather, from an explicit generator or given
+uniforms; `harvest_duplicate_pairs` (the mining pool)."""
 
 from typing import NamedTuple, Optional
 
@@ -17,8 +16,8 @@ class DeviceItemData(NamedTuple):
     x: torch.Tensor                       # [n, F], fp32 or bf16 storage
     tags_emb: Optional[torch.Tensor]      # [n, L, Td] or None
     tags_indices: Optional[torch.Tensor]  # [n, L] int32 or None
-    # The mining pool [P, 2] int32 of split-local item pairs whose ID tuples
-    # collided at the last audit, or None (device_data.py:35-43).
+    # [P, 2] int32 split-local pairs colliding at the last audit, or None
+    # (device_data.py:35-43).
     mining_pairs: Optional[torch.Tensor] = None
 
     @property
@@ -33,9 +32,8 @@ class DeviceItemData(NamedTuple):
 
     def sample(self, generator: torch.Generator, batch_size: int, n_pair_rows: int = 0):
         """`batch_size` items (device_data.py:52-66): with `n_pair_rows` and a
-        pool, that many pairs drawn from the pool with replacement, laid out
-        pair-adjacent at the head of the batch, then batch_size -
-        2 * n_pair_rows items drawn uniformly; else every item uniformly."""
+        pool, that many pairs from it (with replacement) at the head, pair
+        by pair, then the rest uniformly."""
         dev = self.x.device
         if n_pair_rows and self.mining_pairs is not None:
             pr = torch.randint(0, self.mining_pairs.shape[0], (n_pair_rows,),
@@ -73,9 +71,8 @@ def crop_uniforms(generator: torch.Generator, batch: int, device):
 
 
 def random_crop_windows(u1, u2, items, fut, min_len: int = 3):
-    """Random-crop (history + target) windows (device_data.py:87-125)
-    from uniforms u1, u2 [B]: length U{min_len .. len+1}, start U{0 ..
-    len+1-win}, the window's last element the new target."""
+    """(history + target) windows from uniforms u1, u2 [B] (:87-125):
+    length U{min_len .. len+1}, start U{0 .. len+1-win}, last the target."""
     b, n = items.shape
     lengths = torch.sum(items >= 0, dim=1).to(torch.int32)
     full_len = lengths + 1
@@ -99,9 +96,8 @@ def random_crop_windows(u1, u2, items, fut, min_len: int = 3):
 
 
 def tokenize_on_device(cached_ids, user_ids, items, fut):
-    """Corpus-table tokenization by gather. cached_ids [N_items, D];
-    items [B, N] item indices (-1 padded); fut [B]. Returns a
-    TokenizedSeqBatch with [B, N*D] history and [B, D] target."""
+    """Tokenize by gather from cached_ids [N_items, D]: items [B, N] (-1
+    padded), fut [B] -> TokenizedSeqBatch ([B, N*D] history, [B, D] target)."""
     n_items, d = cached_ids.shape
     b, n = items.shape
     valid = (items >= 0) & (items < n_items)
@@ -122,9 +118,8 @@ def tokenize_on_device(cached_ids, user_ids, items, fut):
 
 
 def harvest_duplicate_pairs(corpus_ids, split_globals, pool_size: int, np_rng):
-    """A pool [pool_size, 2] int32 of training-split pairs colliding in the table
-    `corpus_ids`, resampled from `np_rng` to the pool's size; None without a collision
-    (device_data.py:150-192)."""
+    """[pool_size, 2] int32 training pairs colliding in `corpus_ids`,
+    resampled from `np_rng`; None without one (device_data.py:150-192)."""
     _, inverse, counts = np.unique(np.asarray(corpus_ids), axis=0, return_inverse=True,
                                    return_counts=True)
     inverse = inverse.reshape(-1)  # numpy 2.0.x returns it [N, 1] with `axis`

@@ -1,21 +1,18 @@
 """Stage-1 HiD-VAE trainer (counterpart of hidvae_tpu/train/hidvae.py).
 
-`train` takes the JAX trainer's gin surface (:229-303, same defaults) and
-`device` (`cuda` unless given). As JAX it reads the splits, reconciles the
-tag levels and remaps rare tags (:317-376); builds the HRqVae and restores
-a checkpoint or k-means-initializes the codebooks (:484-532); builds the
-optimizer (:440-479); trains in the JAX chunks, each mini-step's generator
-a function of (seed, step) (PARITY.md deviation 13); with `sem_id_mining`
-starts each batch with pairs from a pool re-harvested at every audit
-(:555-629, :747-761); evaluates, audits the corpus through `rq_assign` and
-saves `latest` at its cadences (:711-801). Checkpoints are exports
-(arrays.npz, meta.json). `ensemble_predictions`, `use_concatenated_ids`,
+`train` takes the JAX gin surface (:229-303, same defaults) and `device`:
+reads the splits, reconciles tag levels, remaps rare tags (:317-376);
+restores or k-means-initializes the HRqVae (:484-532); builds the
+optimizer (:440-479); trains in the JAX chunks, a generator per (seed,
+step) (PARITY.md deviation 13), with `sem_id_mining` each batch opening
+with pairs from a pool re-harvested at every audit (:555-629, :747-761);
+evaluates, audits through `rq_assign` and saves `latest` (:711-801) as
+exports. `ensemble_predictions`, `use_concatenated_ids`,
 `use_interleaved_ids` and `wandb_logging` are ignored, as in JAX.
 
-Under a process group the run is data-parallel over every rank (:541-553):
-each rank computes its `shard_rows` of the global batch, the model couples
-the terms that need the whole batch, gradients are summed in one
-all-reduce; rank 0 writes the log, remap, checkpoints and plots."""
+Under a process group each rank computes its `shard_rows` of the global
+batch (:541-553), the model couples the whole-batch terms, gradients sum
+in one all-reduce; rank 0 writes log, remap, checkpoints and plots."""
 
 import contextlib
 import logging
@@ -107,19 +104,17 @@ def build_model(*, vae_input_dim, vae_embed_dim, vae_hidden_dims, vae_codebook_s
 
 
 def step_rngs(seed: int, step: int, device):
-    """The draws of one mini-step, a function of (seed, step) only: a
-    generator on `device` (batch, Gumbel noise, dropout, mixup permutations)
-    and a host generator (mixup's Beta lambdas, drawn without a sync)."""
+    """A mini-step's draws from (seed, step): on `device` (batch, Gumbel,
+    dropout, mixup permutations) and on the host (mixup's Beta lambdas)."""
     host = np.random.default_rng([seed & 0x7FFFFFFF, STEP_SALT, int(step)])
     return step_generator(seed, step, device), host
 
 
 def make_train_step(model, optimizer, class_counts, gumbel_t: float = GUMBEL_T,
                     n_mined_pairs: int = 0):
-    """One mini-step: the train forward (the first 2 * n_mined_pairs rows
-    mined pairs), backward (gradients summed over the ranks with `rows`) and
-    `optimizer.step()`. Returns the whole batch's metrics as 0-d device
-    tensors (emb_norms [L]), not synced."""
+    """One mini-step (the first 2 * n_mined_pairs rows mined pairs; with
+    `rows` gradients summed over the ranks). Returns the batch's metrics as
+    0-d device tensors (emb_norms [L]), not synced."""
 
     def train_step(x, tags_emb, tags_indices, generator, host, rows=None):
         def mixup(level, batch):
@@ -154,9 +149,9 @@ def make_eval_step(model, class_counts, gumbel_t: float = GUMBEL_T):
 
 def make_tta_predict(model, eval_tta: bool, eval_temperature: float,
                      n_aug: int = TTA_AUGMENTATIONS):
-    """Tag predictions from the softmax at `eval_temperature`, averaged over
-    the clean pass and, with eval_tta, n_aug - 1 passes with Gaussian noise
-    of scale 0.02 * i drawn from `generator` (hidvae.py:200-226)."""
+    """Tag softmax at `eval_temperature` over the clean pass and, with
+    eval_tta, n_aug - 1 passes with noise of scale 0.02 * i from
+    `generator`, averaged (hidvae.py:200-226)."""
 
     @torch.no_grad()
     def predict(x, generator):
@@ -185,9 +180,8 @@ def _to_device(batch, has_tags, device):
 
 def _run_eval(eval_step, tta_predict, eval_dataset, batch_size, has_tags, eval_batches,
               device, tta_seed):
-    """Row-weighted eval losses over the eval split in order and the
-    test-time-augmented tag accuracy per level (hidvae.py:823-864), every
-    batch's noise from one generator seeded with `tta_seed`, as in JAX."""
+    """Row-weighted eval losses and the augmented tag accuracy per level
+    (hidvae.py:823-864), noise from one generator seeded `tta_seed`."""
     sums, n = {}, 0
     tta_correct = tta_valid = None
     for bi, batch in enumerate(eval_dataset.iter_eval_batches(batch_size)):
@@ -344,12 +338,13 @@ def train(
     sem_id_mining_isolate=False,
     device=None,
 ):
-    """Train the HiD-VAE as `python train_hidvae.py CONFIG.gin` does.
-    `iterations` counts updates. Returns {"model", "optimizer", "step", "save_dir", "history",
-    "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths", "data",
-    "class_counts", "n_pair_rows", "mining_pool_start", "corpus_ids", "mesh"}; history holds
-    the JAX trainer's keys, ms_per_step, mined_pair_collision_rate, mining_pool_refreshed and
-    collective_bytes_per_step (this rank's, a mini-step)."""
+    """`python train_hidvae.py CONFIG.gin`; `iterations` counts updates.
+    Returns {"model", "optimizer", "step", "save_dir", "history",
+    "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths",
+    "data", "class_counts", "n_pair_rows", "mining_pool_start",
+    "corpus_ids", "mesh"}; history: the JAX keys, ms_per_step,
+    mined_pair_collision_rate, mining_pool_refreshed,
+    collective_bytes_per_step."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"hrqvae_{dataset.name}_{run_stamp(mesh, device)}")
@@ -441,12 +436,10 @@ def train(
         start_iter = 0
         pool_start = None
         if pretrained_hrqvae_path is not None:
-            # Params, batch statistics, the optimizer state (accumulator,
-            # counts, plateau scale) and the step (hidvae.py:484-522).
+            # Params, batch statistics, optimizer state, step (:484-522).
             start_iter, meta = restore_checkpoint(pretrained_hrqvae_path, model, optimizer)
             if sem_id_mining:
-                # The pool is trainer state; a checkpoint without one of this
-                # size (or with pairs outside the split) re-seeds uniform.
+                # No pool of this size (or pairs outside the split): uniform.
                 cand = load_export_arrays(pretrained_hrqvae_path, "mining_pairs").get(
                     "mining_pairs")
                 if (cand is not None and cand.shape == (sem_id_mining_pool, 2)
@@ -563,16 +556,14 @@ def train(
                         logger.info(f"ReduceLROnPlateau: eval loss plateaued, LR scale "
                                     f"{old_scale:.3g} -> {new_scale:.3g} "
                                     f"(lr = {learning_rate * new_scale:.3g})")
-                # The corpus ID diversity audit (hidvae.py:738-771): every item
-                # through the encoder and rq_assign.
+                # The corpus audit (hidvae.py:738-771).
                 tokenizer = HSemanticIdTokenizer(
                     model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
                     tag_class_counts=tag_class_counts, device=device)
                 corpus_ids = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
                 div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
                 if n_pair_rows:
-                    # Seeded by (seed, step), so a resumed run that audits at
-                    # the same step harvests the same pool.
+                    # By (seed, step): a resumed run harvests the same pool.
                     harvested = harvest_duplicate_pairs(
                         corpus_ids, train_dataset.indices, sem_id_mining_pool,
                         np.random.RandomState((seed * MINING_SALT + it) % (2 ** 31)))
@@ -603,8 +594,7 @@ def train(
                     saved_paths.append(path)
                     logger.info(f"Gated checkpoint saved: {path}")
             if do_save_now:
-                # This chunk's audit, when one ran, so that the stage-2 collapse
-                # guard covers `latest` too; a stale one is never recorded.
+                # This chunk's audit, if any, for stage 2's collapse guard.
                 rep_now = last_audit[1] if last_audit[0] == it else None
                 saved_paths.append(save_on_main(mesh, save_dir, "latest", lambda: _save(
                     save_dir, "latest", it, model, optimizer, {}, rep_now, plateau_ctl,

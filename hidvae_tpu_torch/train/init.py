@@ -14,10 +14,9 @@ from hidvae_tpu_torch.utils.runtime import full_fp32
 def kmeans_init_codebooks(model, x, generator: Optional[torch.Generator] = None, *,
                           max_items: int = 20_000, max_iters: int = 100,
                           draws: Optional[Sequence[tuple]] = None):
-    """Overwrite every quantizer level's codebook of `model` (an RqVae or
-    HRqVae) with k-means centroids of the (residuals of the) encoded
-    x[:max_items]. `draws[i]` = (init_idx, reseed_idx) for level i replaces
-    the generator's draws. Returns `model`."""
+    """Each level's codebook of `model` set to k-means centroids of the
+    encoded x[:max_items]'s residuals; `draws[i]` (init_idx, reseed_idx)
+    replaces level i's draws. Returns `model`."""
     x = x[:max_items]
     with full_fp32():
         res = model.encode(x.float())

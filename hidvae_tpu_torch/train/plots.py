@@ -1,6 +1,5 @@
-"""End-of-run plots of the trainers (counterpart of
-hidvae_tpu/train/plots.py). matplotlib is imported when a plot is drawn; a
-machine without it trains all the same, and the trainer logs the failure."""
+"""End-of-run plots (counterpart of hidvae_tpu/train/plots.py); without
+matplotlib a run trains all the same and logs the failure."""
 
 import os
 

@@ -1,16 +1,13 @@
-"""Stage-1 trainer of the plain RQ-VAE, the TIGER baseline's tokenizer
-(counterpart of hidvae_tpu/train/rqvae.py).
+"""Stage-1 trainer of the plain RQ-VAE, TIGER's tokenizer (counterpart of
+hidvae_tpu/train/rqvae.py).
 
-`train` takes the JAX trainer's gin surface (:40-75, same defaults) and
-`device` (`cuda` unless given). As JAX it reads the splits (:87-100),
-refusing items of another width than vae_input_dim before any step (JAX
-fails at the reconstruction loss); restores a checkpoint or
-k-means-initializes the codebooks (:143-162); trains in the JAX chunks
-(:234-276); evaluates and audits the corpus through `rq_assign` at
-eval_every (:278-320) and saves `checkpoint_{it - 1}` (:322-345).
-Checkpoints are exports that stage 2's plain route and `from_artifacts`
-read. `wandb_logging` is ignored, as in JAX. Under a process group the run
-is data-parallel as the HiD-VAE trainer's (rqvae.py:169-179, :233-252)."""
+`train` takes the JAX gin surface (:40-75, same defaults) and `device`:
+reads the splits (:87-100), refusing items not vae_input_dim wide before
+any step; restores or k-means-initializes (:143-162); trains in the JAX
+chunks (:234-276); evaluates and audits at eval_every (:278-320); saves
+`checkpoint_{it - 1}` exports (:322-345). `wandb_logging` is ignored.
+Under a process group it is data-parallel as the HiD-VAE trainer
+(rqvae.py:169-179, :233-252)."""
 
 import contextlib
 import logging
@@ -81,9 +78,8 @@ def build_optimizer(model, *, learning_rate, weight_decay, gradient_accumulate_e
 
 
 def make_train_step(model, optimizer, gumbel_t: float = GUMBEL_T):
-    """One mini-step: the train forward, backward (gradients summed over
-    the ranks with `rows`) and `optimizer.step()`. Returns the whole batch's
-    metrics as 0-d device tensors, not synced."""
+    """One mini-step (with `rows` gradients summed over the ranks). Returns
+    the batch's metrics as 0-d device tensors, not synced."""
 
     def train_step(x, generator, rows=None):
         optimizer.zero_grad()
@@ -127,9 +123,8 @@ def _run_eval(eval_step, eval_dataset, batch_size, eval_batches, device):
 
 def audit_diversity(model, index_feats, *, n_layers, codebook_size, use_dedup_dim, device,
                     mesh=None):
-    """The corpus ID audit (rqvae.py:292-301) through the encoder and
-    rq_assign, each chunk split over `mesh`'s data ranks. Returns (diversity,
-    the table as numpy)."""
+    """The corpus audit (rqvae.py:292-301), each chunk split over the data
+    ranks. Returns (diversity, the numpy table)."""
     tokenizer = SemanticIdTokenizer(model, n_layers=n_layers, codebook_size=codebook_size,
                                     use_dedup_dim=use_dedup_dim, device=device)
     corpus = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
@@ -177,10 +172,10 @@ def train(
     make_plots=True,
     device=None,
 ):
-    """Train the plain RQ-VAE as `python train_rqvae.py CONFIG.gin` does.
-    `iterations` counts updates. Returns {"model", "optimizer", "step", "save_dir", "history",
-    "saved_paths", "data", "corpus_ids", "mesh"}; history holds the JAX trainer's keys,
-    ms_per_step and collective_bytes_per_step."""
+    """`python train_rqvae.py CONFIG.gin`; `iterations` counts updates.
+    Returns {"model", "optimizer", "step", "save_dir", "history",
+    "saved_paths", "data", "corpus_ids", "mesh"}; history: the JAX keys,
+    ms_per_step, collective_bytes_per_step."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")
@@ -296,8 +291,7 @@ def train(
                 last_audit = (it, div, table)
                 logger.info(f"diversity @ {it}: {div}")
             if 1 in fired:
-                # The audit of these parameters, for the stage-2 collapse
-                # guard: re-run unless this chunk's is the newest.
+                # For stage 2's collapse guard, unless this chunk's is newest.
                 if last_audit[0] != it:
                     last_audit = (it, *audit())
                     logger.info(f"diversity @ save {it}: {last_audit[1]}")

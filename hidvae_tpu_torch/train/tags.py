@@ -1,7 +1,6 @@
-"""Host-side tag preprocessing for stage 1 (a copy of
-hidvae_tpu/train/tags.py): tag levels fitted to the quantizer depth, and
-the rare-tag remap (rare classes collapse into one trailing class), which
-must reproduce exactly (PARITY.md deviation 3)."""
+"""Stage-1 tag preprocessing (a copy of hidvae_tpu/train/tags.py): levels
+fitted to the depth, the exact rare-tag remap into one trailing class
+(PARITY.md deviation 3)."""
 
 from typing import Dict, List, Tuple
 
@@ -30,13 +29,9 @@ def compute_rare_tag_remap(
     tag_class_counts: List[int],
     rare_tag_threshold: int,
 ) -> Tuple[List[int], Dict[int, np.ndarray], Dict[int, np.ndarray]]:
-    """Build per-layer remapping tables from train-set tag frequencies
-    (ref train_hidvae.py:358-455).
-
-    Returns (new_tag_class_counts, id_mappings, rare_tags_dict) where
-    id_mappings[l] maps original id -> new id and rare_tags_dict[l] lists the
-    collapsed original ids (the `rare_tags.pt` artifact's contents).
-    """
+    """Per-layer remaps from train-set tag frequencies (train_hidvae.py
+    :358-455): (new_tag_class_counts, id_mappings[l]: old -> new id,
+    rare_tags_dict[l]: the collapsed ids, `rare_tags.pt`'s contents)."""
     n_layers = train_tags_indices.shape[1]
     new_counts: List[int] = []
     id_mappings: Dict[int, np.ndarray] = {}
@@ -49,10 +44,7 @@ def compute_rare_tag_remap(
         if len(valid) == 0:
             new_counts.append(orig)
             continue
-        # The config's declared counts can undershoot the data's real vocab
-        # (e.g. the reference's committed [38,168,348] vs a rebuilt tag index)
-        # — size the remap tables by whichever is larger so every observed id
-        # has a row.
+        # Declared counts can undershoot the data's vocab: size by the larger.
         data_vocab = int(valid.max()) + 1
         if data_vocab > orig:
             import logging

@@ -1,22 +1,19 @@
 """Stage-2 decoder trainer (counterpart of hidvae_tpu/train/transformer.py).
 
-`train` takes the JAX trainer's gin surface (:193-246, same defaults) and
-`device` (`cuda` unless given). As JAX it reads the splits (:284-301);
-rebuilds the frozen stage-1 tokenizer from an export (`_build_tokenizer`),
-sweeps the corpus through `rq_assign` and audits it (:331-342); adopts a
-pretrained decoder's config and state (:345-414); trains (`run_loop`), each
-step's generator derived from (seed, step) (:542), with the partial eval,
-the generation eval (`full_eval`) and checkpoints in the JAX chunks
-(:612-672); ends with the TEST eval, plots and train.log. `train_arrays`
-runs the loop over in-memory arrays. Contexts of at least 2048 tokens take
-the flash route; `remat` rematerializes every block; `wandb_logging` and
+`train` takes the JAX gin surface (:193-246, same defaults) and `device`:
+reads the splits (:284-301); rebuilds the frozen tokenizer from an export,
+sweeps and audits the corpus (:331-342); adopts a pretrained decoder
+(:345-414); trains (`run_loop`, a generator per (seed, step), :542) with
+the partial and generation evals and checkpoints in the JAX chunks
+(:612-672); ends with the TEST eval, plots and train.log. `train_arrays`:
+the loop over in-memory arrays. Contexts of 2048+ tokens take the flash
+route; `remat` rematerializes every block; `wandb_logging` and
 `model_jagged_mode` are ignored, as in JAX.
 
-Multi-GPU (:416-464): both loops run over `make_mesh(n_model=
-n_model_shards)`; every rank draws the global batch from the step's
-generator and keeps its rows; model ranks cut the ID table, `out_proj` and
-the FF kernels; gradients are averaged over the data ranks; rank 0 writes
-whole-array checkpoints, which resume on any mesh."""
+Multi-GPU (:416-464): over `make_mesh(n_model=n_model_shards)` each rank
+draws the global batch and keeps its rows; model ranks cut the ID table,
+`out_proj` and the FF kernels; gradients average over the data ranks;
+rank 0 writes whole-array checkpoints, which resume on any mesh."""
 
 import contextlib
 import logging
@@ -104,10 +101,9 @@ def _build_tokenizer(
     device=None,
     seed=42,
 ):
-    """The frozen stage-1 model restored from the export `pretrained_rqvae_path`, and its
-    tokenizer on `device`. Structural VAE values are reconciled with the checkpoint's
-    model_config first (checkpoint values win, loudly); the model is restored leniently in eval
-    mode. Without a path it keeps seeded weights (from `seed`), as JAX keeps its init."""
+    """The frozen stage-1 model from the export `pretrained_rqvae_path` (its
+    structural config winning, loudly; restored leniently, eval mode; without
+    a path seeded from `seed`, as JAX keeps its init), and its tokenizer."""
     rec = {
         "input_dim": vae_input_dim,
         "embed_dim": vae_embed_dim,
@@ -180,9 +176,9 @@ def build_model(*, sem_id_dim: int, max_seq_len: int, vae_codebook_size: int = 2
 
 def sample_batch(data: DeviceSeqData, table, batch_size: int, generator: torch.Generator,
                  subsample: bool = True, rows: slice = slice(None)):
-    """One step's batch: sample rows, random-crop windows when `subsample`,
-    tokenize by gather from the corpus table (transformer.py:543-548); of
-    the `batch_size` drawn, the `rows` this rank computes."""
+    """One step's rows, windows cropped when `subsample`, tokenized by
+    gather (transformer.py:543-548); of the `batch_size` drawn, this rank's
+    `rows`."""
     u, hist, target = data.sample_rows(generator, batch_size)
     if subsample:
         u1, u2 = crop_uniforms(generator, batch_size, table.device)
@@ -193,10 +189,9 @@ def sample_batch(data: DeviceSeqData, table, batch_size: int, generator: torch.G
 
 
 def train_step(model, optimizer: Optimizer, batch, generator, mesh: Optional[Mesh] = None):
-    """One AdamW update on `batch`; dropout draws from `generator` (None runs
-    the forward deterministically; a RowShard on a mesh), and the gradients
-    are averaged over the mesh's data ranks (a missing gradient counts as
-    zeros). Returns (loss, loss_d) of this rank's rows, not synced."""
+    """One AdamW update; dropout from `generator` (None: deterministic),
+    gradients averaged over the data ranks (a missing one as zeros).
+    Returns this rank's (loss, loss_d), not synced."""
     with span("train.forward"):
         optimizer.zero_grad()
         out = model(batch, generator)
@@ -232,9 +227,9 @@ def device_batches(data: DeviceSeqData, batch_size: int):
 @torch.no_grad()
 def eval_loss(model, table, batches, eval_batches: Optional[int] = None,
               mesh: Optional[Mesh] = None):
-    """Row-weighted mean eval loss over `batches` of (users, histories, targets)
-    (transformer.py:615-636) and the first batch's debug metrics; on a mesh the data ranks split
-    every batch after the first. Returns (loss, debug metrics)."""
+    """Row-weighted mean eval loss over `batches` of (users, histories,
+    targets) (transformer.py:615-636), the data ranks splitting every batch
+    after the first. Returns (loss, the first batch's debug metrics)."""
     total, rows, dbg = 0.0, 0, {}
     for bi, arrays in enumerate(batches):
         if eval_batches is not None and bi >= eval_batches:
@@ -257,9 +252,8 @@ def eval_loss(model, table, batches, eval_batches: Optional[int] = None,
 
 
 def _pad_rows(arrays, n: int):
-    """Pad each array of a batch to n rows by repeating row 0 (transformer.py
-    :709-720): every eval batch then has one shape; callers slice the
-    results back to the valid rows."""
+    """Each array padded to n rows with row 0 (transformer.py:709-720): one
+    shape for every eval batch; callers slice back."""
     out = []
     for a in arrays:
         a = np.asarray(a)
@@ -270,10 +264,9 @@ def _pad_rows(arrays, n: int):
 @torch.no_grad()
 def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
               prefix_tries=None, log=None, mesh: Optional[Mesh] = None):
-    """Constrained-generation eval (transformer.py:723-752): each batch of `eval_seq`
-    tokenized by gather, generated by `generate(batch, prefix_index, prefix_tries)` and scored
-    by hit@K and NDCG@K per digit and prefix; on a mesh the data ranks split the rows. Returns
-    the metric dict."""
+    """Constrained-generation eval (transformer.py:723-752): `eval_seq`'s
+    batches through `generate(batch, prefix_index, prefix_tries)`, hit@K and
+    NDCG@K per digit and prefix, rows split over the data ranks."""
     topk = TopKAccumulator(ks=list(EVAL_KS))
     ndcg = NDCGAccumulator(ks=list(EVAL_KS))
     table, index = tokenizer.cached_ids, tokenizer.prefix_index
@@ -311,11 +304,11 @@ def _sync(device):
 def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
              log_every: int, events=(), log=None, mesh: Optional[Mesh] = None) -> dict:
-    """Steps start_iter .. start_iter + iterations - 1, each with `step_generator(seed,
-    step)`, in the JAX chunks; at a chunk's end the losses are read back in one sync and logged
-    with the window mean (:576-587), then each (every, fn) of `events` whose cadence the chunk
-    crosses is called. On a mesh each step computes this rank's rows. Each step is a root
-    span; a chunk's read-back is a span in its last. Returns the history."""
+    """Steps start_iter .. + iterations - 1 with `step_generator(seed, step)`
+    in the JAX chunks: at a chunk's end one sync reads the losses back and
+    logs the window mean (:576-587), then each (every, fn) of `events` whose
+    cadence it crosses runs. Each step a root span, the read-back a span in
+    its last. Returns the history."""
     log = log or (lambda line: None)
     device = table.device
     history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
@@ -445,10 +438,10 @@ def train(
     n_model_shards=1,
     device=None,
 ):
-    """Train the stage-2 decoder as `python train_transformer.py CONFIG.gin` does.
-    Returns {"model", "optimizer", "step", "tokenizer", "save_dir", "history", "saved_paths",
-    "mesh", "layout"}; history holds the JAX trainer's keys and ms_per_step, window_mean,
-    collective_bytes_per_step, full_eval_seconds and save_seconds."""
+    """`python train_transformer.py CONFIG.gin`. Returns {"model", "optimizer",
+    "step", "tokenizer", "save_dir", "history", "saved_paths", "mesh", "layout"};
+    history: the JAX keys, ms_per_step, window_mean, collective_bytes_per_step,
+    full_eval_seconds, save_seconds."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)
     if use_h_tokenizer and use_dedup_dim and use_interleaved_ids:
@@ -500,8 +493,8 @@ def train(
 
         # ---- model ----
         if pretrained_decoder_path is not None:
-            # The decoder checkpoint's structural config wins, loudly: a resume
-            # gin with other heads keeps every shape and drifts in meaning.
+            # The checkpoint's structural config wins, loudly (other heads
+            # keep every shape and drift in meaning).
             rec = reconcile_vae_config(
                 pretrained_decoder_path,
                 {"attn_embed_dim": attn_embed_dim, "attn_heads": attn_heads,
@@ -534,8 +527,7 @@ def train(
                               max_grad_norm=max_grad_norm)
         start_iter = 0
         if pretrained_decoder_path is not None:
-            # Params, AdamW moments and both counts (the schedule's position)
-            # and the step, as the JAX trainer restores its TrainState.
+            # Params, moments, both counts and the step, as JAX's TrainState.
             start_iter, _ = restore_checkpoint(pretrained_decoder_path, model, optimizer)
             logger.info(f"Restored decoder from {pretrained_decoder_path} (iter {start_iter})")
         layout = _shard(model, optimizer, mesh)
@@ -674,9 +666,9 @@ def train_arrays(
     device=None,
     log=None,
 ):
-    """`train`'s loop over in-memory arrays (histories `items`, targets `fut`, users
-    `users` over `item_features`, tokenized by the frozen HiD-VAE `vae`), with an eval-loss pass
-    every `partial_eval_every` steps and at the end. Returns {"model", "tokenizer",
+    """`train`'s loop over arrays (histories `items`, targets `fut`, `users`;
+    `item_features` tokenized by the frozen `vae`), an eval loss every
+    `partial_eval_every` steps and at the end. Returns {"model", "tokenizer",
     "optimizer", "history", "mesh", "layout"}."""
     device = resolve_device(device)
     mesh = make_mesh(n_model=n_model_shards)

@@ -8,10 +8,9 @@ from hidvae_tpu_torch.utils.ginlite import bind_to_kwargs, parse_gin_file
 
 
 def parse_config_and_run(train_fn, argv=None, **overrides):
-    """`train_fn(**kwargs)` with kwargs bound from the gin file named by
-    `argv` (`[config_path]`, the command line when None). A binding that is
-    not a keyword of `train_fn` raises, as gin does. Each override that is
-    not None replaces its binding (the entry script's flags)."""
+    """`train_fn(**kwargs)` bound from the gin file in `argv` (default the
+    command line); an unknown binding raises, as gin; overrides not None
+    replace bindings."""
     parser = argparse.ArgumentParser()
     parser.add_argument("config_path", type=str, help="Path to gin config file.")
     args = parser.parse_args(argv)

@@ -1,7 +1,6 @@
-"""Build a CUDA source into a shared library with a plain C interface
-and load it with ctypes: `nvcc` at first use into hidvae_tpu_torch/_build/,
-named by a hash of the source, headers and flags, written under a
-temporary name and renamed into place."""
+"""A CUDA source with a plain C interface built by `nvcc` at first use
+into hidvae_tpu_torch/_build/ (named by a hash of source, headers and
+flags; renamed into place) and loaded with ctypes."""
 
 import ctypes
 import hashlib
@@ -81,9 +80,9 @@ def load_library(source_name: str) -> BuiltLibrary:
 
 
 def build_variant(source_name: str, tag: str, subs=(), source=None):
-    """Compile a variant of csrc/<source_name> (or `source`) with each
-    (old, new) of `subs` replaced where `old` occurs once, under $TMPDIR/<tag>,
-    uncached. Returns (library path, nvcc's output), or (None, its errors)."""
+    """csrc/<source_name> (or `source`) with `subs` (old, new; old once)
+    built uncached under $TMPDIR/<tag>: (path, nvcc's output) or (None,
+    its errors)."""
     d = Path(tempfile.gettempdir()) / tag
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)

@@ -1,8 +1,7 @@
-"""Debug metrics and profiling hooks (counterpart of
-hidvae_tpu/utils/debug.py): `compute_debug_metrics` of the stage-2 partial
-eval, `profile_trace` (torch.profiler around a block) and the program's
-spans and counters (`span`, `count`, `records`), which record only while a
-profiler runs."""
+"""Debug metrics and profiling (counterpart of hidvae_tpu/utils/debug.py):
+`compute_debug_metrics`, `profile_trace`, the spans and counters (`span`,
+`count`, `records`; only while a profiler runs) and `recording` of what
+is `note`d."""
 
 import contextlib
 import json
@@ -22,9 +21,8 @@ def _host(x):
 
 
 def compute_debug_metrics(batch, model_output=None, prefix: str = "") -> dict:
-    """{"<prefix>_seq_length_p<q>": quantile of the per-row token counts of
-    `batch.seq_mask`, q in 0.25, 0.5, 0.75, 0.9, 1} and, when `model_output`
-    carries `loss_d`, {"<prefix>_loss_<d>": that digit's mean loss}."""
+    """{"<prefix>_seq_length_p<q>": quantiles (0.25 .. 1) of the rows' token
+    counts} and, with `model_output.loss_d`, {"<prefix>_loss_<d>"}."""
     seq_lengths = _host(batch.seq_mask).sum(axis=1).astype(np.float64)
     p = (prefix + "_") if prefix else ""
     out = {
@@ -39,10 +37,10 @@ def compute_debug_metrics(batch, model_output=None, prefix: str = "") -> dict:
 
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str] = None, enabled: Optional[bool] = None):
-    """torch.profiler (CPU, and CUDA where there is a card) around a block,
-    its Chrome trace written to `log_dir` (default ./profile_traces) as
-    trace_<time>_<pid>.json, and the block's spans as spans_<time>_<pid>.json.
-    On when `enabled` or HIDVAE_PROFILE=1; yields the profiler, or None."""
+    """torch.profiler (CPU, and CUDA on a card) around a block, writing
+    trace_<time>_<pid>.json and spans_<time>_<pid>.json to `log_dir`
+    (./profile_traces). On with `enabled` or HIDVAE_PROFILE=1; yields the
+    profiler, or None."""
     if enabled is None:
         enabled = os.environ.get("HIDVAE_PROFILE") == "1"
     if not enabled:
@@ -66,11 +64,9 @@ def profile_trace(log_dir: Optional[str] = None, enabled: Optional[bool] = None)
         json.dump({"dropped": dropped(), "records": records()}, f)
 
 
-# Spans record only while a profiler runs (any activities): a profiler
-# annotation "hidvae.<name>", the host interval and, on a CUDA device, an
-# event on the stream at each end. A span opened with none open is a root:
-# a new request id, and a lead gap, the stream time from the previous
-# root's end to its start (device idle that no span covers).
+# Spans record only under a profiler: an annotation "hidvae.<name>", the
+# host interval and on CUDA a stream event at each end. A root span opens a
+# request and a lead gap (stream time since the previous root's end).
 
 SPAN_PREFIX = "hidvae."
 MAX_SPANS = 1 << 16  # then spans are counted as dropped: the first records survive
@@ -190,3 +186,24 @@ def clear():
     """Empty the store."""
     global _STORE
     _STORE = _Store()
+
+
+_NOTES = None  # the open recorder: references, no copy, no sync
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield [(name, value)] of every `note` inside (the MoE layers' chosen
+    experts, the beam's rows)."""
+    global _NOTES
+    outer, _NOTES = _NOTES, []
+    try:
+        yield _NOTES
+    finally:
+        _NOTES = outer
+
+
+def note(name: str, value):
+    """Hand `value` to the open recorder, if any."""
+    if _NOTES is not None:
+        _NOTES.append((name, value))

@@ -1,7 +1,6 @@
-"""Minimal gin-config-compatible parser (a copy of
-hidvae_tpu/utils/ginlite.py whose enum registry points at the port's
-enums): comments, imports, `scope.param = value` bindings of literals,
-lists and `%module.Enum.MEMBER` references."""
+"""Minimal gin parser (a copy of hidvae_tpu/utils/ginlite.py, its enums
+the port's): comments, imports, `scope.param = value` literals, lists and
+`%module.Enum.MEMBER`."""
 
 import ast
 import re

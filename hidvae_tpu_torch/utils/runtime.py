@@ -1,9 +1,5 @@
-"""Device choice and fp32 policy for the port.
-
-Counterpart of hidvae_tpu/utils/runtime.py for what serving needs: the JAX
-package runs wherever JAX's default backend is; the port names its device
-explicitly and never falls back from the card to the CPU.
-"""
+"""Device choice and fp32 policy (counterpart of hidvae_tpu/utils/
+runtime.py): the port names its device and never falls back to the CPU."""
 
 import contextlib
 
@@ -11,10 +7,7 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `cuda` unless the caller names one.
-
-    Raises when `cuda` is asked for (explicitly or by default) and there is
-    no card, so a missing card never silently becomes a CPU run."""
+    """`cuda` unless named; raises when `cuda` is asked for without a card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -28,9 +21,8 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_fp32():
-    """Run fp32 matmuls at full precision (no TF32), restoring the caller's
-    settings on exit. The quantizer's argmin must not flip on TF32 rounding:
-    the JAX package computes it at Precision.HIGHEST (ops/distances.py:34)."""
+    """fp32 matmuls without TF32 inside, restored after: the quantizer's
+    argmin is JAX's Precision.HIGHEST (ops/distances.py:34)."""
     matmul = torch.backends.cuda.matmul.allow_tf32
     cudnn = torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False

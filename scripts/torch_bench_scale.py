@@ -1,8 +1,7 @@
-"""Catalog-scale index build and serving bench of the PyTorch port
-(counterpart of scripts/bench_scale.py: its steps, order and widths): an
-untrained RQ-VAE (F 768, D 32, K 256, L 3) indexes seeded features; timed:
-the sweep, the engine build, requests on each constraint path, and users/s
-by bucket (HIDVAE_KNEE_BUCKETS).
+"""Catalog-scale index build and serving bench (counterpart of
+scripts/bench_scale.py, its steps and widths): an untrained RQ-VAE
+(F 768, D 32, K 256, L 3) on seeded features; timed: sweep, engine build,
+requests on each constraint path, users/s by bucket (HIDVAE_KNEE_BUCKETS).
 
 Usage: python scripts/torch_bench_scale.py [--device cpu] [n_items ...]
 (default 200000 1000000). Prints one JSON line."""
@@ -44,10 +43,9 @@ def _log(msg):
 
 def bench_one(n_items, device, request_users=64, max_seq_len=20, big=1024,
               knee_buckets=None, decoder=DECODER, keep=None):
-    """The bench at `n_items`; returns its record. `decoder`: the decoder's
-    widths (tests pass small ones). `keep`, a dict, receives the RQ-VAE,
-    the features on the device, the sweep's table, the engine and the
-    cap-gather path's resolved fraction."""
+    """The bench at `n_items`'s record; `decoder`: its widths; `keep` (a
+    dict) gets the RQ-VAE, features, table, engine and the cap-gather
+    path's resolved fraction."""
     device = resolve_device(device)
     F, D, K, L = 768, 32, 256, 3
     _log(f"--- n_items={n_items} ---")

@@ -2,9 +2,9 @@
 
     python3 scripts/torch_dq_tiles.py
 
-Builds variants of `DqTC`'s warps a block and keys a tile at once, prints
-their registers and spills, holds dQ to the plain version and times each
-at B 64, H 8, N 2432, Dh 64 bf16 and B 16, Dh 128. Needs a card and nvcc."""
+Builds `DqTC`'s variants (warps a block, keys a tile), prints registers
+and spills, holds dQ to the plain version and times each at B 64, H 8,
+N 2432, Dh 64 bf16 and B 16, Dh 128. Needs a card and nvcc."""
 import concurrent.futures
 import ctypes
 import os

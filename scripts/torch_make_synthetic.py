@@ -1,7 +1,6 @@
-"""Write a seeded synthetic dataset, bit for bit the files of the JAX
-package's scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py
-(their arguments, seed 42): presets large, xl, xxl, ml32m, amazon-raw (a raw
-P5 Sports drop), kuairand-raw (a raw KuaiRand-1K drop).
+"""A seeded synthetic dataset, bit for bit the JAX package's
+scripts/make_synthetic_{large,xl,xxl,ml32m,amazon,kuairand}.py (seed 42):
+presets large, xl, xxl, ml32m, amazon-raw, kuairand-raw (raw drops).
 
 Usage: python scripts/torch_make_synthetic.py PRESET [out_root]
 (default out_root: dataset/synthetic_<preset>, dataset/amazon, dataset/kuairand)"""
@@ -33,9 +32,8 @@ KUAIRAND_RAW = dict(n_videos=20_000, n_users=4_000, seed=42)
 
 
 class SeededTree(ZipfTree):
-    """A ZipfTree of `counts` classes named prefix + index, with n items'
-    classes drawn (assign) and their text: the L1 name 3 times, L2 twice, L3
-    and two item words, a residual hierarchy for the hash text encoder."""
+    """A ZipfTree of `counts` classes (prefix + index); items' classes
+    (assign) and text (L1 name x3, L2 x2, L3, two item words)."""
 
     def __init__(self, rng, n, counts, prefixes, words):
         super().__init__(*counts)
@@ -61,10 +59,9 @@ def write_csv(path, header, rows):
 
 
 def write_amazon_raw(root, split, n_items, n_users, seed):
-    """The raw P5 drop of make_synthetic_amazon.py:50-139, draw for draw:
-    titles of repeated category tokens, None and float brands, missing
-    categories and prices, shallow trees, 300 meta rows of unmapped asins,
-    shuffled; users walking small personal pools. Returns the raw dir."""
+    """make_synthetic_amazon.py:50-139's raw P5 drop, draw for draw (odd
+    brands, missing categories and prices, 300 unmapped asins, users on
+    small pools). Returns the raw dir."""
     rng = np.random.RandomState(seed)
     raw = os.path.join(root, "raw", split)
     os.makedirs(raw, exist_ok=True)
@@ -120,12 +117,10 @@ def write_amazon_raw(root, split, n_items, n_users, seed):
 
 
 def write_kuairand_raw(root, n_videos, n_users, seed):
-    """The raw KuaiRand-1K drop of make_synthetic_kuairand.py:38-134, draw
-    for draw: captions of repeated category tokens, 2 % empty and 2 % with
-    fewer than 2 category levels, 500 videos never clicked; users walking
-    small personal pools, 6 % of them inactive, with unclicked impressions;
-    the logs split over the three files by time_ms's percentile rank
-    (rank(pct=True): the average rank over n). Returns the raw dir."""
+    """make_synthetic_kuairand.py:38-134's raw KuaiRand-1K drop, draw for
+    draw (2 % empty captions, 2 % shallow, 500 unclicked videos, 6 %
+    inactive users; the logs split by time_ms's rank(pct=True)). Returns
+    the raw dir."""
     rng = np.random.RandomState(seed)
     raw = os.path.join(root, "raw")
     os.makedirs(raw, exist_ok=True)
@@ -174,10 +169,8 @@ def write_kuairand_raw(root, n_videos, n_users, seed):
 
 
 def main(preset: str, root: str = None, **overrides) -> str:
-    """Write `preset` (its arguments updated by `overrides`) under `root`:
-    <root>/processed/synthetic.npz, amazon-raw's <root>/raw/<split>/ or
-    kuairand-raw's <root>/raw/. Returns the file's (the raw directory's)
-    path."""
+    """`preset` (with `overrides`) under `root`: processed/synthetic.npz
+    or the raw drop's directory, whose path it returns."""
     if preset == "amazon-raw":
         return write_amazon_raw(root or "dataset/amazon", **{**AMAZON_RAW, **overrides})
     if preset == "kuairand-raw":

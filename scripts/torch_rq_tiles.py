@@ -2,10 +2,9 @@
 
     python3 scripts/torch_rq_tiles.py [--parent OLD/rq_assign.cu]
 
-Builds variants of `Cfg`'s warps a block, unroll and micro-tile at once,
-prints their registers and spills, and runs each (and --parent) at L 3,
-K 256, B 8,192 and 1,048,576, D 32 and 64, bit for bit against the first,
-timed from CUDA graphs and host calls. Needs a card and nvcc."""
+Builds `Cfg`'s variants (warps, unroll, micro-tile), prints registers and
+spills, runs each (and --parent) at L 3, K 256, B 8,192 and 1,048,576,
+D 32 and 64, bitwise against the first, timed. Needs a card and nvcc."""
 import argparse
 import concurrent.futures
 import ctypes

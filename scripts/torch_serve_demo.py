@@ -1,7 +1,6 @@
-"""Serve recommendations from trained two-stage checkpoints with the
-PyTorch port (counterpart of scripts/serve_demo.py, the same arguments and
-lines). Convert Orbax checkpoints first with
-scripts/export_flax_checkpoint.py where JAX is installed, then
+"""Serve recommendations from two-stage exports (counterpart of
+scripts/serve_demo.py; Orbax checkpoints converted first by
+scripts/export_flax_checkpoint.py where JAX is installed):
 
     python scripts/torch_serve_demo.py configs/decoder_synthetic.gin \
         --stage1 EXPORTED_STAGE1 --stage2 EXPORTED_STAGE2 \

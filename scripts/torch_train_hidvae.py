@@ -3,8 +3,8 @@ config (counterpart of train_hidvae.py, the same gin surface):
 
     python scripts/torch_train_hidvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides `train.pretrained_hrqvae_path`. Under `torchrun
---standalone --nproc-per-node N` it runs data-parallel over N ranks."""
+`--resume` overrides `train.pretrained_hrqvae_path`; under torchrun it is
+data-parallel."""
 
 import argparse
 import sys

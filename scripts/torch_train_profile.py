@@ -3,12 +3,10 @@ the card (counterpart of scripts/profile_attrib.py):
 
     python3 scripts/torch_train_profile.py --attrib [--device cpu]
 
-(a) the forward loss, (b) forward + backward, (c) the AdamW step at B 256,
-20 items x 6 digits, 8 x 512, bf16, and the 64-user x 32-beam beam step,
-each with its FLOPs, share of the H100's peak, bytes and bound, and a
-profile_trace window. HIDVAE_PROFILE_SMOKE=1 shrinks the shapes. Prints one
-JSON object last. Step time, busy share and time by kernel in the real loop
-are the benchmark's traced runs (perfbench/)."""
+Forward, forward + backward, the AdamW step (B 256, 20 items x 6 digits,
+8 x 512, bf16) and a 64-user x 32-beam beam step: FLOPs, share of peak,
+bytes, bound, a profile_trace window (HIDVAE_PROFILE_SMOKE=1: small).
+Prints one JSON object last."""
 
 import argparse
 import json

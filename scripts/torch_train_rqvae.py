@@ -3,9 +3,8 @@ gin config (counterpart of train_rqvae.py, the same gin surface):
 
     python scripts/torch_train_rqvae.py CONFIG.gin [--resume CHECKPOINT] [--device cpu]
 
-`--resume` overrides `train.pretrained_rqvae_path`. Output lands in
-`<save_dir_root>/rqvae_<DATASET>_<time>/`; under torchrun it runs
-data-parallel as torch_train_hidvae.py does."""
+`--resume` overrides `train.pretrained_rqvae_path`; under torchrun it is
+data-parallel."""
 
 import argparse
 import sys

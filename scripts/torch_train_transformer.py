@@ -5,9 +5,8 @@
         [--stage1 EXPORTED_STAGE1] [--resume EXPORTED_CHECKPOINT] [--device cpu]
 
 `--stage1` overrides `train.pretrained_rqvae_path`, `--resume`
-`train.pretrained_decoder_path`. Output lands in
-`<save_dir_root>/decoder_<DATASET>_<time>/`. Under torchrun with
-`--model-shards k` it trains on a (N / k, k) mesh."""
+`train.pretrained_decoder_path`; under torchrun `--model-shards k` trains
+on a (N / k, k) mesh."""
 
 import argparse
 import sys

@@ -1,6 +1,5 @@
-"""Inspect a processed dataset or a short stage-1 run of the port
-(counterpart of scripts/view_processed_dataset.py, view_train_hrqvae.py and
-view_train_rqvae.py):
+"""Inspect a processed dataset or a short stage-1 run (counterpart of
+scripts/view_processed_dataset.py, view_train_{hrqvae,rqvae}.py):
 
     python3 scripts/torch_view.py processed ROOT [--dataset D] [--split S]
         [--samples 3] [--plots DIR]

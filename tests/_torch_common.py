@@ -19,10 +19,8 @@ from hidvae_tpu_torch.bridge import load_flax_weights
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# One intra-op thread per test process. The tests' ops are small, and with a
-# pool of threads per op in each of the pytest-xdist workers the host's cores
-# are oversubscribed, which makes small ops several times slower (PERF.md,
-# Findings, times the suite both ways).
+# One intra-op thread per test process: a thread pool in every xdist worker
+# oversubscribes the cores and slows small ops several times.
 torch.set_num_threads(1)
 
 
@@ -81,10 +79,8 @@ def assert_keywords_as_jax(jfn, fn):
 
 
 def stage2_served(s1, dataset_root, out_root, *bindings):
-    """The stage-2 entry for 2 steps on the CPU at tiny widths on the stage-1
-    checkpoint `s1` (gin `bindings` added), then from_artifacts on its
-    checkpoint, its table the trained one's, serving 8 histories. Returns
-    (the entry's result, the engine's recommendations)."""
+    """The stage-2 entry for 2 tiny steps on `s1` (plus `bindings`), then
+    from_artifacts serving 8 histories. Returns (result, recommendations)."""
     from hidvae_tpu_torch.data.processed import RecDataset, processed_path
     from hidvae_tpu_torch.serve.engine import RetrievalEngine
 

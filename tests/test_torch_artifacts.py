@@ -1,8 +1,6 @@
-"""`RetrievalEngine.from_artifacts` of the port on exported checkpoints
-against the JAX package's on the Orbax checkpoints, on the CPU: the
-converter's leaves, the tracked synthetic pair and a tiny plain RQ-VAE pair
-(tables, items, tuples, scores), stale and legacy metas, the audit, the
-bridge's inverse and the gin reader."""
+"""`from_artifacts` on exports against the JAX engine on the Orbax
+checkpoints, on the CPU: converter leaves, the synthetic and a tiny plain
+RQ-VAE pair, stale and legacy metas, the audit, the bridge, the gin reader."""
 
 import enum
 import json

@@ -1,7 +1,6 @@
-"""scripts/torch_bench_scale.py at 2,000 items on the CPU (a small decoder):
-the JAX script's record keys (read from its source, not run) plus the
-rq_assign launches, the table of a plain sweep, every item resolved on both
-constrained paths; without a card it refuses to run."""
+"""scripts/torch_bench_scale.py at 2,000 items on the CPU: the JAX
+script's record keys (read from its source), launches, the table, every
+item resolved on both paths; refusal without a card."""
 
 import ast
 

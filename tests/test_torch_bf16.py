@@ -1,9 +1,7 @@
-"""The port's retrieval model against the flax model at bf16 compute, on
-the CPU: loss, logits and every gradient from the same weights and batch,
-at 19 tokens (both dense) and at 2,050 (the port's flash route, compared on
-valid rows). bf16 keeps 8 significant bits and the frameworks round at
-different places, so a dozen layers agree to a few percent of their scale;
-a wrong weight, mask or transpose moves them by tens of percent."""
+"""The retrieval model against flax at bf16 compute on the CPU: loss,
+logits, gradients at 19 tokens (dense) and 2,050 (flash route, valid rows).
+The frameworks round at other places, so layers agree to a few percent; a
+wrong weight, mask or transpose moves tens of percent."""
 
 import jax
 import jax.numpy as jnp

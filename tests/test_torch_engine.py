@@ -1,7 +1,5 @@
-"""The serving slice end to end: the port's tokenizer and RetrievalEngine on
-the CPU against a JAX RetrievalEngine built the way tests/test_serve.py
-builds one (small widths, in-process weights), with the H tokenizer and the
-same stage-1 and stage-2 weights, features and histories."""
+"""Serving end to end on the CPU: the port's tokenizer and engine against a
+JAX engine built as tests/test_serve.py does, same weights and inputs."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,10 +1,7 @@
-"""Flash attention in the port against the `jax` library's references and the
-JAX attention module, on the CPU. The plain version (CPU tensors) and the
-per-kernel plain versions are held to `mha_reference` (forward) and
-`jax.grad` through `mha_reference_no_custom_vjp` (gradients), both fp32 with
-the same masking. The CUDA kernels are held to the plain version on the
-card (tests/test_torch_kernels.py).
-"""
+"""Flash attention against the `jax` library and the JAX attention module
+on the CPU: the plain versions held to `mha_reference` and `jax.grad`
+through `mha_reference_no_custom_vjp`, fp32 (the kernels to the plain
+version on the card: tests/test_torch_kernels.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +34,15 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+def _jax_grads(q, k, v, ids, causal, do):
+    """The library's reference gradients of sum(O * dO) in q, k, v."""
+    def loss(q_, k_, v_):
+        out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
+                                              sm_scale=SCALE)
+        return jnp.sum(out * jnp.asarray(do))
+
+    return jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+
 def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
@@ -65,12 +71,7 @@ def test_gradients_match_jax_grad(b, h, n, causal, pad):
     q, k, v, do, seg = _inputs(b, h, n, pad, 2 * n + h)
     ids = jfa.SegmentIds(*_j(seg, seg))
 
-    def loss(q_, k_, v_):
-        out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
-                                              sm_scale=SCALE)
-        return jnp.sum(out * jnp.asarray(do))
-
-    want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    want = _jax_grads(q, k, v, ids, causal, do)
     qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
     out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg, seg)),
                              causal=causal, sm_scale=SCALE)
@@ -92,12 +93,7 @@ def _plain_kernels_against_library(q, k, v, do, seg_q, seg_kv, causal):
     np.testing.assert_allclose(m.numpy(), np.asarray(m_j), atol=TOL)
     np.testing.assert_allclose(l.numpy(), np.asarray(l_j), atol=TOL, rtol=TOL)
 
-    def loss(q_, k_, v_):
-        out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
-                                              sm_scale=SCALE)
-        return jnp.sum(out * jnp.asarray(do))
-
-    dq_j, dk_j, dv_j = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    dq_j, dk_j, dv_j = _jax_grads(q, k, v, ids, causal, do)
     di = torch.sum(o * dot, dim=-1)  # the library's di = rowsum(dO * O)
     dk, dv = fa.flash_bwd_dkv_reference(qt, kt, vt, sq, skv, dot, m, l, di, causal, SCALE)
     dq = fa.flash_bwd_dq_reference(qt, kt, vt, sq, skv, dot, m, l, di, causal, SCALE)
@@ -138,12 +134,7 @@ def test_keyless_rows_match_library(b, h, n, causal):
 
     ids = jfa.SegmentIds(*_j(seg_q, seg_kv))
 
-    def loss(q_, k_, v_):
-        out = jfa.mha_reference_no_custom_vjp(q_, k_, v_, None, ids, causal=causal,
-                                              sm_scale=SCALE)
-        return jnp.sum(out * jnp.asarray(do))
-
-    want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    want = _jax_grads(q, k, v, ids, causal, do)
     qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
     out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg_q, seg_kv)),
                              causal=causal, sm_scale=SCALE)

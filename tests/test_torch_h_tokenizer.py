@@ -1,9 +1,6 @@
-"""The H tokenizer's table-free methods on the CPU against the JAX
-HSemanticIdTokenizer on the same weights: predict_tags on [B, F] and
-[B, N, F] (predictions, confidences); tokenize_features in every layout,
-with and without the target's features and the mask (every field); __call__
-without a table takes tokenize_features, with one the gather, which agrees.
-"""
+"""The H tokenizer's table-free methods against JAX's on the same weights:
+predict_tags on [B, F] and [B, N, F]; tokenize_features in every layout,
+with and without target and mask; __call__ with and without a table."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -108,27 +108,34 @@ def _flash_inputs(b, h, n, dtype, pad, seed):
     (2, 1, 257, False, torch.bfloat16, False),
 ])
 def test_flash_attention_matches_plain(cuda, b, h, n, causal, dtype, pad):
-    from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, seg = (t.to(cuda) for t in _flash_inputs(b, h, n, dtype, pad, n + h))
-    ids = fa.SegmentIds(seg, seg)
-    scale = 64 ** -0.5
+    out, grads = _kernels_against_plain(fa, q, k, v, do, fa.SegmentIds(seg, seg), causal,
+                                        64 ** -0.5)
+    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+
+
+def _kernels_against_plain(fa, q, k, v, do, ids, causal, scale):
+    """One launch of each kernel; O, dQ, dK, dV finite and within FLASH_RTOL
+    of the plain version. Returns (O, grads)."""
+    from chip_smoke import FLASH_RTOL
+
     before = [fn.launches for fn in fa.KERNELS]
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
     grads = torch.autograd.grad(out, (qg, kg, vg), do)
     torch.cuda.synchronize()
     assert [fn.launches - n0 for fn, n0 in zip(fa.KERNELS, before)] == [1, 1, 1]
-    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
-
     qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
     ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
                                        sm_scale=scale)
     ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
     for got, want in zip((out, *grads), (ref, *ref_grads)):
+        assert torch.isfinite(got).all()
         err = float((got.detach().float() - want.detach()).abs().max())
-        assert err <= FLASH_RTOL[dtype] * float(want.abs().max()), err
+        assert err <= FLASH_RTOL[q.dtype] * float(want.abs().max()), err
+    return out, grads
 
 
 def test_flash_kernels_refuse_what_they_cannot_run(cuda):
@@ -203,23 +210,8 @@ def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtyp
                    for _ in range(4))
     seg_q, seg_kv, no_key = _segments(b, n, mode, rng)
     q, k, v, do, seg_q, seg_kv = (t.to(cuda) for t in (q, k, v, do, seg_q, seg_kv))
-    ids = fa.SegmentIds(seg_q, seg_kv)
-    scale = dh ** -0.5
-    before = [fn.launches for fn in fa.KERNELS]
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    out = fa.flash_attention(qg, kg, vg, segment_ids=ids, causal=causal, sm_scale=scale)
-    grads = torch.autograd.grad(out, (qg, kg, vg), do)
-    torch.cuda.synchronize()
-    assert [fn.launches - n0 for fn, n0 in zip(fa.KERNELS, before)] == [1, 1, 1]
-
-    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
-    ref = fa.flash_attention_reference(qr, kr, vr, segment_ids=ids, causal=causal,
-                                       sm_scale=scale)
-    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
-    for got, want in zip((out, *grads), (ref, *ref_grads)):
-        assert torch.isfinite(got).all()
-        err = float((got.detach().float() - want.detach()).abs().max())
-        assert err <= FLASH_RTOL[dtype] * float(want.abs().max()), err
+    out, _ = _kernels_against_plain(fa, q, k, v, do, fa.SegmentIds(seg_q, seg_kv), causal,
+                                    dh ** -0.5)
     if no_key.any():
         mean_v = v.float().mean(dim=2, keepdim=True).expand(b, h, n, dh)
         rows = no_key.to(cuda)[:, None, :].expand(b, h, n)

@@ -1,7 +1,6 @@
-"""Duplicate-pair mining in the port's stage-1 trainer against JAX, on the
-CPU: the harvest, the sampler's pair rows, the forward with mined pairs
-(losses, collision rate, gradients), a JAX mining run converted and resumed
-in the port, pool re-seeding, and 2N equal to N + a resumed N."""
+"""Duplicate-pair mining against JAX on the CPU: harvest, pair rows, the
+forward with mined pairs, a JAX run resumed in the port, pool re-seeding,
+2N equal to N + a resumed N."""
 
 import shutil
 

@@ -1,7 +1,6 @@
-"""The port's multi-rank serving path on Gloo CPU ranks (subprocesses,
-tests/_torch_parallel_worker.py), against one process and JAX: the stage-2
-layout, the sharded sweep, the engine at DP 2 and TP 2 against the JAX
-engine on a (4, 2) mesh, and `dryrun_multichip`."""
+"""Multi-rank serving on Gloo CPU ranks against one process and JAX: the
+stage-2 layout, the sharded sweep, the engine at DP 2 and TP 2 against
+JAX's on a (4, 2) mesh, `dryrun_multichip`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +23,7 @@ F, D, K, L = 32, 8, 16, 3
 TAGS = (4, 6, 20)
 N_ITEMS = 97     # chunks of 40, 40 and 17 rows: the last split over 2 ranks after padding
 MAX_SEQ = 6
-# Scores of a sharded engine against one process's: the beam's log-probs
-# are fp32 sums of a few log-softmax terms; the model ranks' fp32 partial
-# sums differ from one product's in order only.
+# Scores of a sharded engine against one process's (sums in another order).
 SCORE_ATOL = 1e-5
 JAX_SCORE_ATOL = 1e-4  # port against JAX, as tests/test_torch_engine.py holds it
 

@@ -1,8 +1,7 @@
-"""The port's stage-2 trainer on 4 Gloo ranks on the CPU against one
-process: train_arrays at DP 4, DP 2 x TP 2 and TP 4; a fixed-batch update's
-gradients; `train` from its gin, split_batches=False, TP checkpoints
-resumed across meshes; the entry script under torchrun; and a JAX run at
-n_model_shards=2 resumed at DP 2 x TP 2 within UPDATE_TOL of optax."""
+"""The stage-2 trainer on 4 Gloo CPU ranks against one process: DP 4,
+DP 2 x TP 2, TP 4; a fixed batch's gradients; `train` from its gin,
+split_batches=False, TP resumes across meshes, torchrun; a JAX TP run
+resumed at DP 2 x TP 2 within UPDATE_TOL of optax."""
 
 import os
 import subprocess
@@ -38,9 +37,8 @@ PARAM_TOL = 1e-5    # max |got - want| over max |want|, per leaf
 GRAD_TOL = 1e-5
 NOISE_FLOOR = 10
 LR = 0.0003
-# bf16 compute: a product rounded once to bf16 (2^-9 relative) where one
-# process rounds it once too, but after other fp32 sums: the rounding can
-# land one bf16 step apart, which a few steps carry into the loss.
+# bf16: a product rounded after other fp32 sums can land one bf16 step
+# apart, which a few steps carry into the loss.
 BF16_LOSS_RTOL = 5e-3
 BF16_PARAM_TOL = 5e-3
 UPDATE_TOL = 1e-5   # the port's update against optax's (tests/test_torch_trainer.py)

@@ -1,9 +1,7 @@
 """The port stands alone: with JAX, flax, orbax, optax and the JAX package
-refused at import, every module of hidvae_tpu_torch and chip_smoke.py
-imports, a small engine serves on the CPU, and chip_smoke.py's artifacts,
-train, stage1, trainer and multi phases run at tiny widths (its later
-phases: tests/test_torch_port_phases.py, a second subprocess that another
-test worker takes). And the port's sources are small text files."""
+refused, every module imports, an engine serves, chip_smoke.py's early
+phases run at tiny widths (the later: test_torch_port_phases.py); and
+the sources are small text files."""
 
 import os
 import subprocess
@@ -57,17 +55,14 @@ EPILOGUE = textwrap.dedent('''
     print("modules", len(names), "resolved", resolved)
 ''')
 HYGIENE_SCRIPT = textwrap.dedent('''
-    # The smoke's artifacts phase: from_artifacts on the H route (held to the
-    # in-process engine) and the plain route (held to a plain sweep); the
-    # plain rq_assign runs here, so no launch is counted.
+    # The artifacts phase on both routes (no launch on the CPU).
     launches = chip_smoke.artifacts_phase(torch.device("cpu"), engine, items, hist,
                                           amazon=tiny, ml32m=tiny_plain)
     assert launches == {"amazon": 0, "ml32m": 0}, launches
     # The serve phase's tokenize_features check (no launch on the CPU).
     assert chip_smoke.check_tokenize_features(engine.tokenizer, items, hist) == 0
 
-    # The smoke's training path: a short run (dense) and one of 2,101 tokens
-    # (the flash route's plain version), held to zero kernel launches.
+    # The training path, dense and at 2,101 tokens (flash's plain version).
     tiny.update(precision="fp32")
     vae, feats = chip_smoke.build_vae(tiny, torch.Generator().manual_seed(0))
     for max_seq_len in (6, 350):
@@ -78,8 +73,7 @@ HYGIENE_SCRIPT = textwrap.dedent('''
         before, after = chip_smoke.fixed_batch_descent(result, data, 4, 2)
         assert after < before, (before, after)
 
-    # The smoke's stage-1 phase (resume bitwise here), then its trainer phase
-    # on that checkpoint (resume bitwise, served, remat equal to plain).
+    # The stage-1 phase, then the trainer phase on its checkpoint.
     with tempfile.TemporaryDirectory() as work:
         s1, rec1 = chip_smoke.stage1_phase(
             torch.device("cpu"), feats, os.path.join(work, "stage1"), cfg=tiny, n=2,
@@ -90,10 +84,8 @@ HYGIENE_SCRIPT = textwrap.dedent('''
         rec = chip_smoke.trainer_phase(torch.device("cpu"), vae, feats, cfg=tiny, n=2,
                                        splits=(64, 20, 20), remat_run=(350, 2, 2), batch_size=8,
                                        mixed_precision_type='"fp32"', stage1=s1)
-        # The smoke's multi phase: one rank over Gloo here (NCCL on the
-        # card), then two Gloo ranks: DP and TP runs from the gin, the TP
-        # checkpoint resumed on one process, the long-history DP run and the
-        # engine at 2 x 1 and 1 x 2 with shard_params.
+        # The multi phase: one Gloo rank (NCCL on the card), then two: DP and
+        # TP from the gin, TP resumed, long DP, engines at 2 x 1 and 1 x 2.
         multi = chip_smoke.multi_phase(torch.device("cpu"), vae, feats, s1, cfg=tiny, n=2,
                                        splits=(64, 20, 20), short_run=(6, 8),
                                        long_run=(350, 4, 2), batch_size=8,
@@ -123,10 +115,8 @@ def test_port_imports_and_serves_without_jax():
     run_without_jax(HYGIENE_SCRIPT)
 
 
-# As on the card's machine, pandas, matplotlib and sentence_transformers do
-# not import: the port imports (PRELUDE), and the smoke's raw phase (P5,
-# KuaiRand and MovieLens from raw files, trained and served) and tools phase
-# (its scripts loaded here) run at tiny widths.
+# Without pandas, matplotlib and sentence_transformers (as on the card's
+# machine) the port imports and the raw and tools phases run, tiny.
 NO_PANDAS = """
     import sys
     sys.modules["pandas"] = sys.modules["sentence_transformers"] = sys.modules["matplotlib"] = None

@@ -21,8 +21,7 @@ PHASES_SCRIPT = """
         rec = chip_smoke.rqvae_phase(torch.device("cpu"), work, cfg=dict(tiny_plain, n_items=400),
                                      n=2, timed=(1, 1), batch_size=16)
     assert rec["resume_gaps"] == {"params": 0.0, "mu": 0.0, "nu": 0.0}, rec
-    # The synthetic phase on the `large` preset shrunk by argument (the gin's
-    # other keys kept); the scale phase at 2,000 items with a small decoder.
+    # The synthetic phase (`large`, shrunk); scale at 2,000 items.
     with tempfile.TemporaryDirectory() as work:
         rec = chip_smoke.synthetic_phase(
             torch.device("cpu"), work, steps=2,

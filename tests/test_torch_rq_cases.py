@@ -1,7 +1,5 @@
-"""rq_assign's plain version on duplicated codes and on the catalog's sweep
-chunks, through both packages: against the JAX package's
-`rq_assign_reference` and its Pallas `rq_assign` in interpret mode, as
-tests/test_torch_ops.py holds the plain version on its other cases."""
+"""rq_assign's plain version on duplicated codes and the sweep's chunks
+against JAX's `rq_assign_reference` and Pallas `rq_assign` (interpret)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,8 +1,6 @@
-"""The port's plain RQ-VAE model and trainer against JAX, on the CPU: the
-forward's losses and gradients; a JAX run converted and resumed in the
-port; 2N equal to N + a resumed N; the checkpoint through stage 2 and
-from_artifacts; the gin surface; configs/rqvae_ml32m.gin refused on a built
-ML-32M corpus."""
+"""The plain RQ-VAE model and trainer against JAX on the CPU: losses and
+gradients; a JAX run resumed in the port; 2N = N + resumed N; stage 2 and
+from_artifacts; the gin surface; rqvae_ml32m.gin's refusal."""
 
 import json
 import os

@@ -1,7 +1,6 @@
-"""The port's stage-1 model against JAX on the CPU, on bridged weights at
-small widths: the HRqVae train forward (IDs, losses, gradients), eval mode,
-bf16, BatchNorm after K_STEPS AdamW steps, predict_tags, k-means and the
-codebook init, the tag reconcile and remap. Dropout is off on both sides."""
+"""The stage-1 model against JAX on bridged weights (dropout off): the
+train forward, eval, bf16, BatchNorm after K_STEPS steps, predict_tags,
+k-means init, the tag reconcile and remap."""
 
 import flax.linen as fnn
 import jax

@@ -1,7 +1,6 @@
-"""The port's stage-1 ops against JAX on the CPU: Gumbel sampling, every
-loss of models/losses.py (values, gradients), mixup and the quantizer's
-train modes. Tolerances: losses LOSS_RTOL; outputs and gradients REL_TOL of
-each JAX array's largest entry, after equal IDs."""
+"""Stage-1 ops against JAX: Gumbel, every loss (values, gradients), mixup,
+the quantizer's train modes; losses to LOSS_RTOL, the rest REL_TOL of
+each array's largest entry."""
 
 import jax
 import jax.numpy as jnp

@@ -1,8 +1,6 @@
-"""Stage-1 data parallelism term by term on 2 and 4 Gloo ranks (the
-BatchNorm, InfoNCE, uniqueness, the tag loss with mixup, the whole loss
-with mined pairs), from each rank's rows of one seeded batch against one
-process on the whole batch: values bitwise on every rank, gradients per
-rank's rows and summed per parameter. Ranks are subprocesses."""
+"""Stage-1 data parallelism term by term on 2 and 4 Gloo ranks against one
+process on the whole batch: values bitwise, gradients per rank's rows and
+summed."""
 
 import copy
 

@@ -1,8 +1,6 @@
-"""The stage-1 trainers on 2 and 4 Gloo ranks on the CPU against one
-process at the same global batch, and against JAX: losses, evals, audits,
-tables, pools, params; split_batches=False; checkpoints resumed across
-process counts; the entry under torchrun; the JAX trainer on 8 virtual
-devices against the port at DP 2."""
+"""The stage-1 trainers on 2 and 4 Gloo ranks against one process and JAX:
+losses, evals, audits, tables, pools, params; split_batches=False;
+resumes across process counts; torchrun; JAX on 8 devices at DP 2."""
 
 import os
 import subprocess
@@ -35,13 +33,11 @@ ROOT = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-5
 PARAM_TOL = 1e-5    # max |got - want| over max |want|, per leaf
 LR = 1e-3
-# A bias right before a train-mode BatchNorm has a gradient of 0 up to
-# rounding, which Adam scales to a step of up to the learning rate: it is
-# held to that (its 2 updates, each up to 1.3 lr with the tag heads' rates).
+# A bias before a train-mode BatchNorm: gradient 0 up to rounding, which
+# Adam scales to steps of up to 1.3 lr (held so, 2 updates).
 BN_BIAS_ATOL = 2 * 2 * 1.3 * LR
-# The BatchNorm's running mean takes 1 % of that bias's offset per
-# mini-step (4 here), and the eval losses read it through the eval-mode
-# BatchNorm: its noise-driven steps move them by ~1e-4 relative per update.
+# Its noise-driven steps reach the eval losses through the running mean
+# (1 % a mini-step): ~1e-4 relative per update.
 BN_MEAN_ATOL = BN_BIAS_ATOL * (1 - 0.99 ** 4)
 EVAL_RTOL = 1e-3
 # The port against JAX, as tests/test_torch_stage1_trainer.py holds them.

@@ -1,7 +1,6 @@
-"""The port's stage-1 trainer on its gin surface against JAX, on the CPU:
-the optimizer against optax; a JAX run converted and resumed in the port,
-following JAX's own resume; 2N equal to N + a resumed N; the gin surface;
-the checkpoint through stage 2 and from_artifacts."""
+"""The stage-1 trainer against JAX: the optimizer against optax; a JAX run
+resumed in the port; 2N = N + resumed N; the gin surface; stage 2 and
+from_artifacts."""
 
 import os
 from pathlib import Path

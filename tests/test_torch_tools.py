@@ -1,7 +1,6 @@
-"""The port's inspection tools against the JAX package on the CPU:
-`profile_trace` (its trace and span files), scripts/torch_view.py's three subcommands,
-scripts/torch_diag_mining.py, scripts/torch_train_profile.py --attrib, and
-the plain `rq_assign` at code width 16 (the view tools' width)."""
+"""The inspection tools against JAX: `profile_trace`, torch_view.py's
+subcommands, torch_diag_mining.py, torch_train_profile.py --attrib, plain
+`rq_assign` at width 16."""
 
 import contextlib
 import io

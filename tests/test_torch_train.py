@@ -1,7 +1,6 @@
-"""Stage-2 training in the port against JAX, on the CPU: a train step's
-loss and gradients (dense, and the flash route's plain version at 2,050
-tokens), 3 AdamW updates against optax with and without the clip, the
-schedule, window crops, dropout and the Dense init."""
+"""Stage-2 training against JAX: loss and gradients (dense; flash's plain
+version at 2,050 tokens), 3 updates against optax with and without the
+clip, schedule, crops, dropout, the Dense init."""
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +26,8 @@ from hidvae_tpu_torch.train.device_data import DeviceSeqData, random_crop_window
 from tests._torch_common import retrieval_pair
 
 K = 16
-# fp32 on both sides, differing in summation order only. The optimizers get
-# the same (JAX's) gradients: fed their own, Adam's g / (|g| + eps) would
-# turn rounding noise in near-zero gradients into a share of lr.
+# fp32 both sides. The optimizers get JAX's gradients: Adam would turn
+# rounding noise in near-zero gradients into a share of lr.
 LOSS_TOL = 1e-4
 GRAD_TOL = 1e-5
 PARAM_TOL = 1e-6
