@@ -1,10 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the kernels, holds each to its plain version, then drives the paths
-(serve, artifacts, train, stage1, trainer, multi, mining, rqvae,
-synthetic, raw, tools, scale) through their entries on seeded weights and
-data at the configs' widths. Prints the kernels' JSON, then
-{"ok": true, "device": {...}}; exits non-zero without a card; no JAX."""
+Builds the kernels, holds each to its plain version, then drives each path
+(serve ... scale) through its entry on seeded weights and data at the
+configs' widths. Prints the kernels' JSON, then {"ok": true, "device":
+{...}}; exits non-zero without a card; no JAX."""
 
 import inspect
 import json
@@ -30,6 +29,7 @@ from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.ops import flash_attention as fa
+from hidvae_tpu_torch.ops import moe_experts as moe
 from hidvae_tpu_torch.ops import rq_assign as rq
 from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
@@ -163,20 +163,25 @@ def graph_ms(fn, launches=20):
     return median_ms(graph.replay, runs=5, warmup=1) / launches
 
 
-def rq_bound_ms(b, d, n_levels, k):
-    """(ms, bound_by): rq_assign's bytes (inputs read, outputs written once)
-    over the H100 SXM's memory rate or 2*B*K*D*L over its fp32 rate."""
-    bytes_moved = 4 * (b * d + n_levels * k * d + b * n_levels + b * d)
-    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * b * k * d * n_levels / H100_FP32_FLOPS * 1e3
+def bound_ms(ops, n_bytes, flops):
+    """(ms, bound_by): the larger of `ops` over `flops` a second and bytes
+    over the H100 SXM's memory rate."""
+    t_ops, t_bytes = ops / flops * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rq_bound_ms(b, d, n_levels, k):
+    """rq_assign's bytes (inputs read, outputs written once) or 2*B*K*D*L
+    at the fp32 rate: `bound_ms`."""
+    return bound_ms(2.0 * b * k * d * n_levels,
+                    4 * (b * d + n_levels * k * d + b * n_levels + b * d), H100_FP32_FLOPS)
 
 
 # ---- model and corpus
 
 def seed_codebooks_(vae, feats, generator):
-    """k-means codebooks level by level (K seeded residuals, KMEANS_ITERS
-    Lloyd steps), so that the collapse guard holds to a low repetition."""
+    """k-means codebooks by level (K seeded residuals, KMEANS_ITERS Lloyd
+    steps): the collapse guard sees a low repetition."""
     with torch.no_grad(), full_fp32():
         enc = vae.encode(feats)
         for q in vae.layers:
@@ -263,8 +268,8 @@ def seeded_histories(n_items, batch, length, seed=SEED):
 
 
 def check_recommendations(engine, out, n_items):
-    """Items in [0, n_items) or -1, each resolved one's tuple the generated
-    one and in the table; scores descending. Returns the resolved count."""
+    """Items in [0, n_items) or -1, resolved ones' tuples generated and in
+    the table; scores descending. Returns the resolved count."""
     items = out["items"]
     if not ((items == -1) | ((items >= 0) & (items < n_items))).all():
         raise AssertionError("recommended item outside [0, n_items) and not -1")
@@ -328,8 +333,8 @@ def ptxas_report(log):
 
 
 def duplicate_codes_(x, cbs, generator):
-    """Codes DUPLICATE_CODES of every level made identical, every other row
-    of x near that code of level 0. Returns those rows."""
+    """DUPLICATE_CODES made identical at every level, every other row of x
+    near level 0's. Returns those rows."""
     first, *rest = DUPLICATE_CODES
     for k in rest:
         cbs[:, k] = cbs[:, first]
@@ -359,33 +364,29 @@ def kernel_phase(device):
         agree = ~(ids != ids_ref).any(dim=-1)
         qerr = float((qsum - qsum_ref)[agree].abs().max()) if agree.any() else 0.0
         label = f", codes {DUPLICATE_CODES} identical" if dup else ""
-        print(f"  B={b} D={d} L={n_levels} K={k}{label}: rows with differing ids {n_diff} "
-              f"(not near ties: {n_bad}), max qsum err on agreeing rows {qerr:.3e}")
+        print(f"  B={b} D={d} L={n_levels} K={k}{label}: ids off in {n_diff} rows (not near "
+              f"ties: {n_bad}), qsum err {qerr:.3e}")
         if dup and not ((ids[dup_rows, 0] == DUPLICATE_CODES[0]).all()
                         and torch.isin(ids, ids.new_tensor(DUPLICATE_CODES[1:])).sum() == 0):
-            raise AssertionError(f"rq_assign did not pick the first of the identical codes "
+            raise AssertionError(f"rq_assign missed the first of the identical codes "
                                  f"{DUPLICATE_CODES}")
         if n_bad:
             raise AssertionError(f"rq_assign disagrees with the plain version on {n_bad} rows")
         if not torch.isfinite(qsum).all():
             raise AssertionError("rq_assign produced non-finite qsum")
         if not agree.any() or qerr > QSUM_ATOL:
-            raise AssertionError(f"rq_assign qsum differs from the plain version by {qerr:.3e} "
-                                 f"(tolerance {QSUM_ATOL})")
+            raise AssertionError(f"rq_assign qsum off the plain version by {qerr:.3e} "
+                                 f"(tol {QSUM_ATOL})")
         if (b, d, n_levels, k) in TIMED_CASES and not dup:
             ms = median_ms(lambda: rq.rq_assign(x, cbs))
             g_ms = graph_ms(lambda: rq.rq_assign(x, cbs))
             plain_ms = median_ms(lambda: rq.rq_assign_reference(x, cbs))
             bound_ms, bound_by = rq_bound_ms(b, d, n_levels, k)
             plan = rq.staging(d, n_levels, k)
-            print(f"  kernel_ms {ms:.4f} (a host call; from a CUDA graph {g_ms:.4f}) plain_ms "
-                  f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-                  f"{100 * bound_ms / g_ms:.1f} % of the graph's) at B={b} D={d} L={n_levels}; "
-                  f"codebooks {'resident' if plan['resident'] else 'streamed by level'}, "
-                  f"{plan['warps']} warps, {plan['smem_bytes']} B of shared memory")
             records[b, d, n_levels] = dict(
                 ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=qerr, shape=f"x[{b},{d}] codebooks[{n_levels},{k},{d}]", **plan)
+            print(f"  {json.dumps(records[b, d, n_levels])}")
         del x, cbs, ids, qsum, ids_ref, qsum_ref
     main, big, ml_a, ml_b, mine_a, mine_b, tok, view_a, view_b = (c[:3] for c in TIMED_CASES)
     return dict(records[big], at_main_path_launch=records[main],
@@ -407,7 +408,7 @@ def serve_phase(device):
     out = engine.recommend(hist, top_k=10)
     launches = rq.rq_assign.launches
     print(f"  engine built in {build_s:.2f} s; corpus {tuple(engine.corpus_ids.shape)}; "
-          f"rq_assign launches on the main path {launches}")
+          f"rq_assign launches {launches}")
     if launches == 0:
         raise AssertionError("the corpus sweep did not go through the CUDA kernel")
     resolved = check_recommendations(engine, out, cfg["n_items"])
@@ -423,9 +424,8 @@ def serve_phase(device):
     n_diff, n_bad = compare_ids(got[:, :n_l], sem_ref, ties)
     same = ~(got[:, :n_l] != sem_ref).any(dim=-1)
     tags_equal = bool((got[same, n_l:] == tags_ref[same]).all())
-    print(f"  corpus table vs plain sweep: rows differing {n_diff} (not near ties: "
-          f"{n_bad}); tags equal on the rest: {tags_equal}; distinct tuples "
-          f"{len(torch.unique(engine.corpus_ids, dim=0))}")
+    print(f"  corpus table vs plain sweep: rows off {n_diff} (not near ties: {n_bad}); tags "
+          f"equal on the rest {tags_equal}; distinct {len(torch.unique(engine.corpus_ids, dim=0))}")
     if n_bad or not tags_equal:
         raise AssertionError("corpus table differs from the plain sweep")
     tok_launches = check_tokenize_features(tok, items, hist)
@@ -433,8 +433,8 @@ def serve_phase(device):
 
 
 def check_tokenize_features(tok, items, hist):
-    """tokenize_features of `hist` (one launch of B * N rows) against the table's gather: IDs but
-    near ties, tags, -1 padding. Returns the launches."""
+    """tokenize_features of `hist` (one launch) against the table's gather:
+    IDs but near ties, tags, -1 padding. Returns the launches."""
     valid = hist >= 0
     x = items[np.where(valid, hist, 0)]
     rq.rq_assign.launches = 0
@@ -456,14 +456,13 @@ def check_tokenize_features(tok, items, hist):
     same = ~(g[keep][:, :n_l] != w[keep][:, :n_l]).any(dim=-1)
     tags_equal = bool((g[keep][same] == w[keep][same]).all())
     padded = bool((g[~keep] == -1).all()) and torch.equal(got.seq_mask, want.seq_mask)
-    print(f"  tokenize_features of the {b} x {n} batch ({int(valid.sum())} items, rq_assign "
-          f"launches {launches}) against the table's gather: items differing {n_diff} (not "
-          f"near ties: {n_bad}); tags equal on the rest: {tags_equal}; padding and mask equal: "
-          f"{padded}")
+    print(f"  tokenize_features of {b} x {n} ({int(valid.sum())} items, rq_assign launches "
+          f"{launches}) vs the table's gather: items off {n_diff} (not near ties: {n_bad}); "
+          f"tags equal on the rest {tags_equal}; padding and mask equal {padded}")
     want_launches = 1 if dev.type == "cuda" else 0
     if n_bad or not tags_equal or not padded or launches != want_launches:
-        raise AssertionError(f"tokenize_features differs from the table's gather (launches "
-                             f"{launches}, expected {want_launches})")
+        raise AssertionError(f"tokenize_features off the table's gather (launches "
+                             f"{launches}, want {want_launches})")
     return launches
 
 
@@ -496,13 +495,13 @@ def audit_table(name, model, tag_class_counts, feats, device, rep=None):
 
 
 def hold_table(name, got, model, feats, device, chunk, rep=None):
-    """The table `got` against a plain sweep: no row off but near ties, and
-    the audit's repetition `rep` where no row differs."""
+    """Table `got` against a plain sweep: no row off but near ties, the
+    audit's repetition `rep` where none differs."""
     ref, ties, _ = plain_sweep(model, torch.as_tensor(feats).to(device), chunk)
     n_diff, n_bad = compare_ids(got, ref, ties)
     rep_plain = repetition_rate(ref.cpu().numpy())[0]
-    print(f"  {name}: rows differing from the plain sweep {n_diff} (not near ties: {n_bad}); "
-          f"repetition {rep_plain:.4f} (the audit recorded {rep})")
+    print(f"  {name}: rows off the plain sweep {n_diff} (not near ties: {n_bad}); repetition "
+          f"{rep_plain:.4f} (audit {rep})")
     if n_bad or (rep is not None and n_diff == 0 and rep_plain != rep):
         raise AssertionError(f"{name}: the table differs from the plain sweep")
 
@@ -601,16 +600,13 @@ def serve_from_artifacts(name, root, gin_source, cfg, vae, model, feats, hist, s
     seconds = time.perf_counter() - t0  # the build ends in a synchronize
     launches = rq.rq_assign.launches
     bt = engine.build_times
-    print(f"  {name}: from_artifacts {seconds:.3f} s (load {bt['load_s']:.3f}, table "
-          f"{bt['table_s']:.3f}, audit {bt['audit_s']:.3f}, prefix index and tries "
-          f"{bt['index_s']:.3f}); corpus "
-          f"{tuple(engine.corpus_ids.shape)}; rq_assign launches {launches}; recorded "
-          f"repetition rate {rep:.4f}")
+    print(f"  {name}: from_artifacts {seconds:.3f} s ({json.dumps(bt)}); corpus "
+          f"{tuple(engine.corpus_ids.shape)}; rq_assign launches {launches}; repetition {rep:.4f}")
     want = (math.ceil(cfg["n_items"] / engine.tokenizer.corpus_chunk_size)
             if device.type == "cuda" else 0)
     if launches != want:
         raise AssertionError(f"{name}: from_artifacts launched rq_assign {launches} times, "
-                             f"expected {want}")
+                             f"not {want}")
     return engine, launches
 
 
@@ -622,9 +618,8 @@ def check_same_engine(name, got, want, hist):
     a, b = got.recommend(hist, top_k=10), want.recommend(hist, top_k=10)
     err = float(np.abs(a["scores"] - b["scores"]).max())
     same = (a["items"] == b["items"]).all() and (a["sem_ids"] == b["sem_ids"]).all()
-    print(f"  {name}: table equal to the in-process engine's; {len(hist)} histories: items "
-          f"and ID tuples equal {bool(same)}, max score difference {err:.3e} "
-          f"(tolerance {SCORE_ATOL})")
+    print(f"  {name}: table equal to the in-process one's; {len(hist)} histories: items, "
+          f"tuples equal {bool(same)}, max score diff {err:.3e} (tol {SCORE_ATOL})")
     if not same or err > SCORE_ATOL:
         raise AssertionError(f"{name}: the engine from artifacts serves differently")
 
@@ -653,13 +648,13 @@ def artifacts_phase(device, engine, items, hist, amazon=AMAZON, ml32m=ML32M):
             "ml32m", os.path.join(tmp, "ml32m"), DECODER_ML32M_GIN, cfg, vae, model,
             feats.numpy(), ml_hist, sem_ref.cpu().numpy(), device)
         n_diff, n_bad = compare_ids(rebuilt.corpus_ids, sem_ref, ties)
-        print(f"  ml32m: table vs plain sweep: rows differing {n_diff} (not near ties: "
-              f"{n_bad}); distinct tuples {len(torch.unique(rebuilt.corpus_ids, dim=0))}")
+        print(f"  ml32m: table vs plain sweep: rows off {n_diff} (not near ties: {n_bad}); "
+              f"distinct {len(torch.unique(rebuilt.corpus_ids, dim=0))}")
         if n_bad:
             raise AssertionError("ml32m: the table from artifacts differs from the plain sweep")
         out = rebuilt.recommend(ml_hist, top_k=10)
         resolved = check_recommendations(rebuilt, out, cfg["n_items"])
-        print(f"  ml32m: recommend {out['items'].shape}, resolved {resolved}, first row "
+        print(f"  ml32m: recommend {out['items'].shape}, resolved {resolved}, row 0 "
               f"{out['items'][0].tolist()}")
     return launches
 
@@ -672,11 +667,8 @@ FLASH_HEAD_DIM = 64     # every config's; 128 is checked at FLASH_WIDE_B rows
 FLASH_WIDE_B = 1
 FLASH_CHECK_B = 4       # small enough for the plain backward at full length
 FLASH_PLAIN_CHUNK = 16  # the plain version is timed over the batch in chunks of 16
-FLASH_REPLACES = {  # jax 0.9.0's jax/experimental/pallas/ops/tpu/flash_attention.py
-    "flash_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
-    "flash_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
-    "flash_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
-}
+FLASH_REPLACES = {k: f"jax/experimental/pallas/ops/tpu/flash_attention.py:{v}"  # jax 0.9.0
+                  for k, v in (("flash_fwd", 331), ("flash_bwd_dkv", 796), ("flash_bwd_dq", 1146))}
 
 
 def flash_inputs(b, h, n, dtype, device, generator, dh=FLASH_HEAD_DIM):
@@ -710,12 +702,8 @@ def flash_bounds_ms(b, h, n, itemsize):
         "flash_bwd_dkv": (4, 4 * mat + seg + 3 * row + 2 * mat),
         "flash_bwd_dq": (3, 4 * mat + seg + 3 * row + mat),
     }
-    out = {}
-    for name, (n_products, n_bytes) in work.items():
-        t_ops = n_products * product / flops * 1e3
-        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    return out
+    return {name: bound_ms(n_products * product, n_bytes, flops)
+            for name, (n_products, n_bytes) in work.items()}
 
 
 def _in_chunks(fn, tensors, chunk):
@@ -766,8 +754,7 @@ def check_flash(device, g, checks):
             limit = FLASH_RTOL[dtype] * float(y.detach().abs().max())
             if not torch.isfinite(x).all() or err > limit:
                 raise AssertionError(f"flash {label} ({dtype}, Dh {dh}, causal={causal}, "
-                                     f"keyless rows={keyless}) differs from the plain version "
-                                     f"by {err:.3e} > {limit:.3e}")
+                                     f"keyless={keyless}): {err:.3e} > {limit:.3e}")
             errs[kernel] = max(errs[kernel], err)
             line.append(f"{label} {err:.2e} (limit {limit:.2e})")
         if keyless:
@@ -852,12 +839,11 @@ def flash_phase(device):
     del sdpa_out
     bounds = flash_bounds_ms(b, h, n, 2)
     for name in FLASH_REPLACES:
-        print(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms "
-              f"(in chunks of {c}), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
-              f"at B={b} H={h} N={n} bf16")
+        print(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms (chunks of {c}), "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) at B={b} H={h} N={n} bf16")
     print(f"  forward + backward (autograd, with di): kernels {fwd_bwd_ms:.4f} ms; SDPA "
-          f"forward {sdpa_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms (kernels "
-          f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), both {sdpa_fwd_bwd_ms:.4f} ms")
+          f"forward {sdpa_ms:.4f}, backward {sdpa_bwd_ms:.4f} (kernels "
+          f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f}), both {sdpa_fwd_bwd_ms:.4f}")
     del o, m, l, di, qg, kg, vg
     errs = check_flash(device, g, FLASH_CHECKS + FLASH_CAUSAL_KEYLESS_CHECKS)
     records = {}
@@ -869,6 +855,137 @@ def flash_phase(device):
             shape=f"q,k,v[{b},{h},{n},{FLASH_HEAD_DIM}] bf16, seg[{b},{n}], not causal")
         if name != "flash_fwd":  # no one call computes dK, dV or dQ alone
             records[name]["sdpa_backward_ms"] = sdpa_bwd_ms
+    return records
+
+
+# ---- routed experts (ops/moe_experts.py)
+
+MOE_TOKENS = {"decode": 8192, "prefill": 12400}  # 256 x 32 beam rows; a page's prefill
+MOE_TINY = dict(hidden=64, width=24, experts=8, top_k=2)
+# Each expert's slots at top 2: tiles of 1, 127, 128, 129 rows, empty
+# experts, one (of 8 or 64) with every row, one token
+MOE_ROUTINGS = ([5, 0, 300, 128, 129, 0, 1, 65], [0, 0, 1000, 0, 0, 0, 0, 0],
+                [3, 0, 0, 0, 0, 0, 0, 1], [0] * 63 + [4096], [128] * 8,
+                [127, 129, 0, 0, 0, 0, 0, 2], [256] + [0] * 7, [1, 0, 0, 0, 0, 0, 1, 0])
+MOONLIGHT = os.path.join(CONFIGS, os.pardir, "perfbench", "configs", "moonlight_p5sports.json")
+MOE_KERNELS = ("_gate_up_kernel", "_down_kernel", "_combine_kernel")
+
+
+def moe_inputs(t, device, g, hidden=2048, width=1408, experts=64, top_k=6, rows=None):
+    """Seeded bf16 `grouped_swiglu` arguments: expert 1 in no slot, 3 in
+    ~30 % (a token may name an expert twice); or each expert in `rows`[e]
+    of the t * top_k slots."""
+    if rows is None:
+        p = torch.ones(experts, device=device)
+        p[1], p[3] = 0, 0.45 * experts
+        flat = torch.multinomial(p, t * top_k, replacement=True, generator=g)
+    else:
+        flat = torch.repeat_interleave(torch.tensor(rows, device=device))[
+            torch.randperm(t * top_k, device=device, generator=g)]
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=g)  # noqa: E731
+    return dict(x=rnd(t, hidden).bfloat16(), w=torch.rand(t, top_k, device=device, generator=g),
+                order=torch.argsort(flat, stable=True),
+                ends=torch.cumsum(torch.bincount(flat, minlength=experts), 0, dtype=torch.int32),
+                gate_up=(rnd(experts, 2 * width, hidden) * hidden ** -0.5).bfloat16(),
+                down=(rnd(experts, hidden, width) * width ** -0.5).bfloat16(),
+                shared=rnd(t, hidden).bfloat16())
+
+
+def moe_errors(x, w, order, ends, gate_up, down, shared,
+               fns=(moe.grouped_swiglu, moe.grouped_swiglu_plain)):
+    """Each of `fns`' largest error against fp32, by expert."""
+    args, k = (x, w, order, ends, gate_up, down, shared), w.shape[1]
+    y = torch.zeros(order.numel(), x.shape[1], device=x.device)
+    with full_fp32():
+        for e, rows in enumerate(order.tensor_split(ends[:-1].tolist())):
+            g, u = (x[rows // k].float() @ gate_up[e].float().T).chunk(2, -1)
+            y[rows] = (torch.nn.functional.silu(g) * u) @ down[e].float().T
+    want = (y.view(*w.shape, -1) * w[..., None]).sum(1) + shared.float()
+    return [float((f(*args).float() - want).abs().max()) for f in fns]
+
+
+def moe_bounds_ms(t, hidden=2048, width=1408, experts=64, top_k=6):
+    """{launch: (ms, bound_by)}: products over the bf16 peak or bytes in and
+    out once over HBM's rate (H100 SXM)."""
+    r, ecw = t * top_k, experts * hidden * width
+    work = {"_gate_up_kernel": (4 * r * hidden * width, t * hidden + 2 * ecw + r * width),
+            "_down_kernel": (2 * r * width * hidden, r * width + ecw + r * hidden),
+            "_combine_kernel": (0, r * hidden + 2 * r + 2 * t * hidden),  # w fp32: 2 r
+            "all": (6 * r * hidden * width, 3 * t * hidden + 3 * ecw + 2 * r)}
+    return {name: bound_ms(ops, 2 * n_bytes, H100_BF16_FLOPS)
+            for name, (ops, n_bytes) in work.items()}
+
+
+def launch_ms(fn, names, calls=5):
+    """Device ms a call of each kernel in `names` (torch.profiler; None unseen)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {n: next((ev.device_time_total / 1e3 / calls for ev in prof.key_averages()
+                     if n in ev.key and ev.device_time_total), None) for n in names}
+
+
+def moonlight_page(tok, items, device, g, users=256):
+    """(`grouped_swiglu` launches, 3 a MoE layer in the prefill and each
+    digit, `_grouped_mm` calls) in a page of a seeded Moonlight retriever."""
+    from hidvae_tpu_torch.models.mla_moe import MlaMoeRetrievalModel
+
+    with open(MOONLIGHT) as f:
+        cfg = json.load(f)
+    with torch.device(device):
+        model = MlaMoeRetrievalModel(cfg, cfg["codebook_size"], tok.sem_ids_dim,
+                                     n_sem_layers=cfg["n_layers"], user_buckets=cfg["user_buckets"])
+    for p in model.eval().requires_grad_(False).parameters():
+        if p.dim() > 1:  # products by fan-in, token rows by width; norms stay 1
+            torch.nn.init.normal_(p, std=p.shape[-1] ** -0.5, generator=g)
+    engine = RetrievalEngine(model, tok, items, max_seq_len=cfg["max_seq_len"],
+                             batch_buckets=(users,), device=device)
+    hist = seeded_histories(len(items), users, cfg["max_seq_len"])
+    moe.grouped_swiglu.launches = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = engine.recommend(hist, top_k=10)
+    check_recommendations(engine, out, len(items))
+    n_moe = sum(layer.is_moe for layer in model.layers)
+    return (moe.grouped_swiglu.launches, 3 * n_moe * (1 + tok.sem_ids_dim),
+            sum(ev.count for ev in prof.key_averages() if ev.key == "aten::_grouped_mm"))
+
+
+@phase("moe")
+def moe_phase(device, tok, items):
+    """grouped_swiglu against fp32 beside the plain version, timed (each
+    launch, bounds, plain, the library's products alone); its launches, and
+    no `_grouped_mm`, in a Moonlight page."""
+    g = torch.Generator(device=device).manual_seed(SEED + 25)
+    t0 = time.perf_counter()
+    moe.grouped_swiglu(**moe_inputs(MOE_TOKENS["decode"], device, g))  # compiles
+    torch.cuda.synchronize()
+    records = {"first_call_s": time.perf_counter() - t0}
+    for name, t in MOE_TOKENS.items():
+        args = moe_inputs(t, device, g)
+        err, plain_err = moe_errors(**args)
+        if not err <= 1.25 * plain_err:
+            raise AssertionError(f"grouped_swiglu at {name}: {err:.3e}, plain {plain_err:.3e}")
+        xs, hs = args["x"][args["order"] // 6], torch.randn(t * 6, 1408, device=device).bfloat16()
+        gt, dn = (args[a].transpose(1, 2) for a in ("gate_up", "down"))
+        bounds = moe_bounds_ms(t)
+        rec = dict(ms=median_ms(lambda: moe.grouped_swiglu(**args)),
+                   plain_ms=median_ms(lambda: moe.grouped_swiglu_plain(**args)),
+                   library_ms=median_ms(lambda: (torch._grouped_mm(xs, gt, offs=args["ends"]),
+                                                 torch._grouped_mm(hs, dn, offs=args["ends"]))),
+                   bound_ms=bounds["all"][0], bound_by=bounds["all"][1], max_abs_err=err,
+                   plain_max_abs_err=plain_err, shape=f"x[{t},2048] bf16, 64 x 1408, top 6")
+        for kname, ms in launch_ms(lambda: moe.grouped_swiglu(**args), MOE_KERNELS).items():
+            rec[kname] = dict(ms=ms, bound_ms=bounds[kname][0], bound_by=bounds[kname][1])
+        print(f"  {name}: {json.dumps(rec)}")
+        records[name] = rec
+    launches, want, grouped = moonlight_page(tok, items, device, g)
+    print(f"  a Moonlight page: {launches} grouped_swiglu launches, {grouped} _grouped_mm")
+    if launches != want or grouped:
+        raise AssertionError(f"a Moonlight page: {launches} launches, not {want}; {grouped} "
+                             "_grouped_mm")
+    records["page_launches"] = launches
+    torch.cuda.empty_cache()
     return records
 
 
@@ -976,15 +1093,14 @@ def train_phase(device, flash_ms_per_layer):
         check_train_run(name, result, launches, steps, n_encoder_layers=n_enc, flash=flash)
         hist = result["history"]
         step_ms = statistics.median(hist["ms_per_step"][1:])
-        print(f"  {name} run: max_seq_len {max_seq_len}, batch {batch}, {steps} steps in "
-              f"{time.perf_counter() - t0:.2f} s; median {step_ms:.2f} ms/step after the first "
-              f"({hist['ms_per_step'][0]:.2f} ms); eval loss {hist['eval_loss'][-1]:.4f}; "
+        print(f"  {name} run: max_seq_len {max_seq_len}, batch {batch}, {steps} steps "
+              f"{time.perf_counter() - t0:.2f} s; {step_ms:.2f} ms/step (first "
+              f"{hist['ms_per_step'][0]:.2f}); eval loss {hist['eval_loss'][-1]:.4f}; "
               f"launches {launches}")
         if flash:
             share = n_enc * flash_ms_per_layer / step_ms
             print(f"  {name} run: flash kernels {n_enc * flash_ms_per_layer:.2f} ms of a "
-                  f"{step_ms:.2f} ms step ({100 * share:.1f} %, from the flash phase's "
-                  f"per-kernel times)")
+                  f"{step_ms:.2f} ms step ({100 * share:.1f} %, by the flash phase's times)")
         runs[name] = (result, launches, data, batch)
     for name, (result, launches, data, batch) in runs.items():
         before, after = fixed_batch_descent(result, data, batch, FIXED_STEPS)
@@ -1062,7 +1178,7 @@ def stage1_gin(root, cfg, mini_steps, n=STAGE1_N, **bindings):
 
 def check_run(name, result, launches, steps, evals, device, n_items, saves=None):
     """Steps, evals, saves on the cadence, finite losses, a rq_assign launch
-    per 8,192 items an audit on the card, no flash. Returns the last save."""
+    per 8,192 items an audit (card), no flash. Returns the last save."""
     hist = result["history"]
     got = [os.path.basename(p) for p in result["saved_paths"]]
     if (result["step"] != steps or hist["eval_iterations"] != evals
@@ -1106,8 +1222,8 @@ def device_busy(run, device):
 
 
 def time_updates(name, update, batch, accumulate, device, timed):
-    """Items/s of `update()`, median of timed[1] after timed[0] (on the card
-    one more traced). Prints and returns the record."""
+    """Items/s of `update()`, median of timed[1] after timed[0] (the card:
+    one more traced). Prints, returns the record."""
     times = []
     for _ in range(sum(timed)):
         sync(device)
@@ -1119,9 +1235,9 @@ def time_updates(name, update, batch, accumulate, device, timed):
     launches, busy = device_busy(update, device) if device.type == "cuda" else (None, None)
     busy_note = ("" if busy is None else f"; traced update: {launches} kernels, device busy "
                  f"{busy:.2f} ms ({100 * busy / (t * 1e3):.1f} % of the median update)")
-    print(f"  throughput {name}: batch {batch} x {accumulate}, median {t * 1e3:.2f} ms per "
-          f"update of {timed[1]} after {timed[0]} (min {min(times[timed[0]:]) * 1e3:.2f}, max "
-          f"{max(times[timed[0]:]) * 1e3:.2f}; {t * 1e3 / accumulate:.2f} ms per mini-step): "
+    print(f"  throughput {name}: batch {batch} x {accumulate}, {t * 1e3:.2f} ms/update, "
+          f"median of {timed[1]} after {timed[0]} ({min(times[timed[0]:]) * 1e3:.2f}-"
+          f"{max(times[timed[0]:]) * 1e3:.2f}; {t * 1e3 / accumulate:.2f} ms/mini-step): "
           f"{batch * accumulate / t:.0f} items/s{busy_note}")
     return dict(batch=batch, accumulate=accumulate, items_per_s=batch * accumulate / t,
                 ms_per_update=t * 1e3, ms_per_mini_step=t * 1e3 / accumulate,
@@ -1162,15 +1278,15 @@ def stage1_phase(device, feats, root, cfg=AMAZON, n=STAGE1_N, settings=STAGE1_SE
     feats_np = np.asarray(feats)
     n_items = len(feats_np)
     path = write_stage1_inputs(root, cfg, feats_np)
-    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
-          f"tags of {list(cfg['tag_class_counts'])} classes)")
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB ({n_items} items, tags of "
+          f"{list(cfg['tag_class_counts'])} classes)")
     gin_2n = stage1_gin(root, cfg, 2 * n, n, **bindings)
     gin_n = stage1_gin(root, cfg, n, n, **bindings)
     full, launches, seconds = run_trainer_entry(script, device, gin_2n)
     rep = check_stage1_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items)
     hist = full["history"]
-    print(f"  2N run ({2 * n} mini-steps) in {seconds:.2f} s: loss {hist['total_loss']}, eval "
-          f"loss {hist['eval_total_loss']}, tag_class_counts {full['tag_class_counts']} (from "
+    print(f"  2N run ({2 * n} mini-steps) {seconds:.2f} s: loss {hist['total_loss']}, eval "
+          f"{hist['eval_total_loss']}, tags {full['tag_class_counts']} (of "
           f"{list(cfg['tag_class_counts'])}), repetition {hist['repetition_rate']}, rare tags "
           f"{[len(v) for v in full['rare_tags'].values()]}; launches {launches}")
     rare = os.path.join(root, "runs", "special_tags_files", "rare_tags.npz")
@@ -1265,15 +1381,14 @@ def run_trainer_entry(script, device, *argv):
 
 def check_trainer_run(name, result, launches, steps, evals, device, n_items):
     """Steps, saves, evals on the cadence, metrics in [0, 1], rq_assign per
-    8,192 items at the start on the card, no flash. Returns TEST's pair."""
+    8,192 items at the start (card), no flash. Returns TEST's pair."""
     hist = result["history"]
     d = result["tokenizer"].sem_ids_dim
     want_saves = [f"checkpoint_{it}" for it in evals]
     got_saves = [os.path.basename(p) for p in result["saved_paths"]]
     if result["step"] != steps or got_saves != want_saves or hist["full_eval_iterations"] != evals:
         raise AssertionError(f"{name}: step {result['step']}, saves {got_saves}, full evals "
-                             f"{hist['full_eval_iterations']}; expected {steps}, {want_saves}, "
-                             f"{evals}")
+                             f"{hist['full_eval_iterations']}; want {steps}, {want_saves}, {evals}")
     scores = []
     for metrics in (*hist["full_eval_metrics"], hist["test_eval_metrics"]):
         pair = (metrics[f"h@10_slice_:{d}"], metrics[f"ndcg@10_slice_:{d}"])
@@ -1313,11 +1428,11 @@ def check_resume(full, half, resumed, steps, updates=None, stats=False):
                                   {k: of[k] for k in keys})
     counts = {k: int(v) for k, v in orr.items() if k.endswith("count")}
     print(f"  resume: step {resumed['step']} (uninterrupted {full['step']}), counts {counts}; "
-          + "; ".join(f"{k} gap {g:.3e} (largest |difference| {w:.3e})"
-                      for k, (g, w) in gaps.items()) + f" (tolerance {RESUME_RTOL})")
+          + "; ".join(f"{k} gap {g:.3e} (max {w:.3e})" for k, (g, w) in gaps.items())
+          + f" (tol {RESUME_RTOL})")
     updates = steps if updates is None else updates
     if resumed["step"] != steps or set(counts.values()) != {updates}:
-        raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; expected "
+        raise AssertionError(f"resume: step {resumed['step']}, counts {counts}; want "
                              f"{steps} steps, {updates} updates")
     bad = {k: g for k, (g, _) in gaps.items() if not g <= RESUME_RTOL}
     if bad:
@@ -1383,11 +1498,10 @@ def remat_runs(cfg, vae, feats, device, seed=SEED, run=REMAT_RUN):
     update = {k: plain["params"][k] - init[k] for k in init}
     gap, worst = relative_gap(remat["params"], plain["params"], update)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(remat["loss"], plain["loss"]))
-    print(f"  remat / plain: losses {remat['loss']} / {plain['loss']} ({loss_err:.3e}, tolerance "
-          f"{REMAT_LOSS_RTOL}); params gap {gap:.3e} of the update (largest {worst:.3e}, "
-          f"tolerance {REMAT_PARAM_RTOL}); flash launches {remat['launches']} / "
-          f"{plain['launches']}; peak GiB above the start {remat['peak_gib']} / "
-          f"{plain['peak_gib']}; ms a step {remat['ms']} / {plain['ms']}")
+    print(f"  remat / plain: losses {remat['loss']} / {plain['loss']} ({loss_err:.3e}, tol "
+          f"{REMAT_LOSS_RTOL}); params gap {gap:.3e} (max {worst:.3e}, tol {REMAT_PARAM_RTOL}); "
+          f"flash launches {remat['launches']} / {plain['launches']}; peak GiB over the start "
+          f"{remat['peak_gib']} / {plain['peak_gib']}; ms/step {remat['ms']} / {plain['ms']}")
     if not (loss_err <= REMAT_LOSS_RTOL and gap <= REMAT_PARAM_RTOL):
         raise AssertionError(f"remat: the run differs from the plain one (losses {loss_err:.3e}, "
                              f"params {gap:.3e})")
@@ -1408,9 +1522,8 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "trainer")
         data_path, test_hist, rep = write_trainer_inputs(root, cfg, feats_np, stage1, splits)
-        print(f"  wrote {os.path.getsize(data_path) / 2**20:.1f} MiB of processed data "
-              f"({n_items} items, {splits} histories); stage-1 checkpoint {stage1} (recorded "
-              f"repetition rate {rep:.4f})")
+        print(f"  wrote {os.path.getsize(data_path) / 2**20:.1f} MiB ({n_items} items, {splits} "
+              f"histories); stage 1 {stage1} (repetition {rep:.4f})")
         gin_2n = trainer_gin(root, cfg, stage1, 2 * n, n, **bindings)
         gin_n = trainer_gin(root, cfg, stage1, n, n, **bindings)
         batch = parse_gin_file(gin_2n)["train"]["batch_size"]
@@ -1424,13 +1537,11 @@ def trainer_phase(device, vae, feats, stage1, cfg=AMAZON, n=TRAINER_N, splits=TR
         eval_s = [s / TRAINER_EVAL_BATCHES for s in hist["full_eval_seconds"]]
         last = hist["full_eval_metrics"][-1]
         d = full["tokenizer"].sem_ids_dim
-        print(f"  2N run ({2 * n} steps, batch {batch}) in {seconds:.2f} s: median "
-              f"{step_ms:.2f} ms/step after the first "
-              f"({hist['ms_per_step'][0]:.2f} ms); full eval {[round(s, 3) for s in eval_s]} "
-              f"s per batch; whole tuple hit@10 {last[f'h@10_slice_:{d}']:.4f}, ndcg@10 "
-              f"{last[f'ndcg@10_slice_:{d}']:.4f} at {2 * n} (first digit hit@10 "
-              f"{last['h@10_slice_:1']:.4f}), TEST {test_scores[0]:.4f} / "
-              f"{test_scores[1]:.4f}; checkpoints of {ckpt_bytes / 2**20:.1f} MiB in "
+        print(f"  2N run ({2 * n} steps, batch {batch}) {seconds:.2f} s: {step_ms:.2f} ms/step "
+              f"(first {hist['ms_per_step'][0]:.2f}); eval {[round(s, 3) for s in eval_s]} s/batch; "
+              f"hit@10 {last[f'h@10_slice_:{d}']:.4f}, ndcg@10 {last[f'ndcg@10_slice_:{d}']:.4f} "
+              f"(digit 1 hit@10 {last['h@10_slice_:1']:.4f}), TEST {test_scores[0]:.4f} / "
+              f"{test_scores[1]:.4f}; checkpoints {ckpt_bytes / 2**20:.1f} MiB in "
               f"{[round(s, 3) for s in hist['save_seconds']]} s; launches {launches}")
         record["full"] = dict(launches=launches, step_ms=step_ms, eval_s_per_batch=eval_s,
                               ckpt_bytes=ckpt_bytes, save_s=hist["save_seconds"])
@@ -1500,8 +1611,8 @@ def two_ranks(entry, root, timeout, label):
     t0 = time.perf_counter()
     launch_ranks([sys.executable, os.path.abspath(__file__), entry, root], 2, timeout)
     where = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "the CPU"
-    print(f"  {label}two Gloo ranks on {where}: {time.perf_counter() - t0:.2f} s in all "
-          f"(functional timings, not speed: both ranks share one device)")
+    print(f"  {label}two Gloo ranks on {where}: {time.perf_counter() - t0:.2f} s (functional: "
+          f"one device)")
 
 
 def multi_rank_main(workdir):
@@ -1585,18 +1696,17 @@ def checkpoint_params(path):
 
 def check_multi_run(name, losses, params, want_losses, want_params, init,
                     first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
-    """Losses within MULTI_LOSS_RTOL of one rank's (the first within `first_rtol`), params within
-    `param_rtol` of the update. Returns both gaps."""
+    """Losses within MULTI_LOSS_RTOL of one rank's (the first `first_rtol`),
+    params within `param_rtol` of the update. Returns both gaps."""
     errs = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     update = {k: want_params[k] - init[k] for k in init}
     gap, worst = relative_gap(params, want_params, update)
     leaves = sorted(((relative_gap({k: params[k]}, {k: want_params[k]}, {k: update[k]})[0], k)
                      for k in init), reverse=True)[:3]
-    print(f"  {name}: losses {[round(x, 5) for x in losses]} against "
-          f"{[round(x, 5) for x in want_losses]} (relative differences "
-          f"{[f'{e:.2e}' for e in errs]}, tolerance {MULTI_LOSS_RTOL}"
-          + (f", the first {first_rtol}" if first_rtol else "") + f"); params gap {gap:.3e} "
-          f"of the update (largest |difference| {worst:.3e}, tolerance {param_rtol}; largest "
+    print(f"  {name}: losses {[round(x, 5) for x in losses]} vs "
+          f"{[round(x, 5) for x in want_losses]} (rel {[f'{e:.2e}' for e in errs]}, tol "
+          f"{MULTI_LOSS_RTOL}" + (f", first {first_rtol}" if first_rtol else "")
+          + f"); params gap {gap:.3e} of the update (max {worst:.3e}, tol {param_rtol}; "
           f"leaves {[(k, f'{g:.2e}') for g, k in leaves]})")
     if len(losses) != len(want_losses) or not (
             max(errs) <= MULTI_LOSS_RTOL and gap <= param_rtol
@@ -1630,14 +1740,14 @@ def compare_engines(name, ranks_npz, want, hist):
                                 | (got["sem_ids"] != a["sem_ids"]).any((1, 2)))
         err = float(np.abs(got["scores"] - a["scores"]).max())
         rel = float((np.abs(got["scores"] - a["scores"]) / np.abs(a["scores"])).max())
-        print(f"  {name} rank {r}: table bitwise equal; {len(hist)} histories: rows whose items "
-              f"differ {differ.tolist()}, max score difference {err:.3e}, relative {rel:.3e} "
-              f"(tolerance {MULTI_SCORE_RTOL}; scores {float(a['scores'].min()):.2f} to "
+        print(f"  {name} rank {r}: table bitwise equal; {len(hist)} histories: items differ in "
+              f"rows {differ.tolist()}, max score diff {err:.3e}, rel {rel:.3e} (tol "
+              f"{MULTI_SCORE_RTOL}; scores {float(a['scores'].min()):.2f}..."
               f"{float(a['scores'].max()):.2f})")
         if len(differ):
             for row in differ[:4]:
-                print(f"    row {row}: items {got['items'][row].tolist()} against "
-                      f"{a['items'][row].tolist()}, scores {got['scores'][row].tolist()} against "
+                print(f"    row {row}: items {got['items'][row].tolist()} vs "
+                      f"{a['items'][row].tolist()}, scores {got['scores'][row].tolist()} vs "
                       f"{a['scores'][row].tolist()}")
         if len(differ) or rel > MULTI_SCORE_RTOL:
             raise AssertionError(f"{name} rank {r}: serves differently from one rank")
@@ -1677,8 +1787,8 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
         bitwise = (one["history"]["train_loss"] == want_loss[:n]
                    and all(np.array_equal(got[k], want_n[k]) for k in want_n))
         print(f"  {'NCCL' if cuda else 'Gloo'}, world 1 (mesh {one['mesh'].shape}): losses "
-              f"{one['history']['train_loss']}; bitwise equal to the one-process run's first "
-              f"{n} steps and checkpoint_{n}: {bitwise}")
+              f"{one['history']['train_loss']}; bitwise the one-process run's {n} steps and "
+              f"checkpoint_{n}: {bitwise}")
         record["nccl_1"] = {"bitwise": bitwise,
                             **check_multi_run(f"{'NCCL' if cuda else 'Gloo'} world 1",
                                               one["history"]["train_loss"], got, want_loss[:n],
@@ -1702,10 +1812,9 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
         for name in ("dp", "tp"):
             rr = [r[name] for r in ranks]
             print(f"  {name} (mesh {rr[0]['mesh']}): losses equal {rr[0]['loss'] == rr[1]['loss']}"
-                  f"; per rank s {[r['seconds'] for r in rr]}, ms per step "
-                  f"{[r['ms_per_step'] for r in rr]}, bytes to collectives per step "
-                  f"{[r['bytes_per_step'] for r in rr]}, sweep rq_assign "
-                  f"{[r['sweep_rq_launches'] for r in rr]}; local shapes {rr[0]['shapes']}")
+                  f"; s {[r['seconds'] for r in rr]}, ms/step {[r['ms_per_step'] for r in rr]}, "
+                  f"bytes/step {[r['bytes_per_step'] for r in rr]}, sweep rq_assign "
+                  f"{[r['sweep_rq_launches'] for r in rr]}; shapes {rr[0]['shapes']}")
             record[name] = check_multi_run(
                 f"{name} 2 ranks", rr[0]["loss"], checkpoint_params(rr[0]["saved"]),
                 want_loss[:n], want_n, init)
@@ -1716,9 +1825,9 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
             got = ranks[0][name]["loss"]
             loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, one16))
             print(f"  {name} 2 ranks (bf16, {short_run[0]} items, batch {short_run[1]}): losses "
-                  f"{[round(x, 5) for x in got]} against {[round(x, 5) for x in one16]} (largest "
-                  f"relative difference {loss_err:.3e}, tolerance {MULTI_LOSS_RTOL}); collectives "
-                  f"{[r[name]['bytes_per_step'] for r in ranks]} bytes per step per rank")
+                  f"{[round(x, 5) for x in got]} vs {[round(x, 5) for x in one16]} (rel "
+                  f"{loss_err:.3e}, tol {MULTI_LOSS_RTOL}); bytes/step/rank "
+                  f"{[r[name]['bytes_per_step'] for r in ranks]}")
             if len(got) != len(one16) or not loss_err <= MULTI_LOSS_RTOL:
                 raise AssertionError(f"{name}: the bf16 run differs from the one-rank run")
             record[name] = {"loss_rel_err": loss_err}
@@ -1751,18 +1860,17 @@ def multi_phase(device, vae, feats, stage1, cfg=AMAZON, n=MULTI_N, short_run=MUL
         want = want if cuda else {k: 0 for k in want}  # the plain version on the CPU
         for r, rr in enumerate(ranks):
             got = {k: rr["long"]["launches"][k] for k in want}
-            print(f"  long-history DP rank {r}: flash launches {got} ({n_enc} encoder layers x "
-                  f"{steps} steps), collectives {rr['long']['bytes_per_step']} bytes per step, "
-                  f"ms per step {rr['long']['ms_per_step']}")
+            print(f"  long-history DP rank {r}: flash launches {got} ({n_enc} layers x {steps} "
+                  f"steps), bytes/step {rr['long']['bytes_per_step']}, ms/step "
+                  f"{rr['long']['ms_per_step']}")
             if got != want:
                 raise AssertionError(f"long DP rank {r}: flash launches {got}, expected {want}")
         record["long"] = dict(launches=[{k: rr["long"]["launches"][k] for k in want}
                                         for rr in ranks])
         loss_err = max(abs(a - b) / abs(b) for a, b in
                        zip(ranks[0]["long"]["loss"], long_one["history"]["train_loss"]))
-        print(f"  long-history DP: losses {ranks[0]['long']['loss']} against one rank's "
-              f"{long_one['history']['train_loss']} (largest relative difference "
-              f"{loss_err:.3e}, tolerance {MULTI_LOSS_RTOL})")
+        print(f"  long-history DP: losses {ranks[0]['long']['loss']} vs one rank's "
+              f"{long_one['history']['train_loss']} (rel {loss_err:.3e}, tol {MULTI_LOSS_RTOL})")
         if not loss_err <= MULTI_LOSS_RTOL:
             raise AssertionError("long-history DP: losses differ from the one-rank run's")
         del long_one
@@ -1801,8 +1909,8 @@ MINING_SETTINGS = (("mining", 1024, 1),)  # the gin's batch, no accumulation
 
 
 def write_mining_inputs(path, cfg, seed=SEED):
-    """cfg's catalog at `path`, MINING_PLANTED of it near-copies sharing their source's tags from
-    cfg's tag tree. Returns (features, copies, sources)."""
+    """cfg's catalog at `path`, MINING_PLANTED of it near-copies sharing
+    their source's tags. Returns (features, copies, sources)."""
     rng = np.random.RandomState(seed + 51)
     n = cfg["n_items"]
     feats = unit_rows(n, cfg["input_dim"], torch.Generator().manual_seed(seed + 52))
@@ -1840,7 +1948,7 @@ def check_mining_run(name, result, launches, steps, evals, device, n_items, pool
         raise AssertionError(f"{name}: latest does not hold the run's pool of {pool} pairs")
     if hist["mining_pool_refreshed"] != evals:
         raise AssertionError(f"{name}: pool refreshed at {hist['mining_pool_refreshed']}, "
-                             f"expected at every audit {evals}")
+                             f"not at every audit {evals}")
     return saved
 
 @phase("mining")
@@ -1853,9 +1961,8 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     path = processed_path(root, RecDataset.SYNTHETIC)
     feats, dst, src = write_mining_inputs(path, cfg)
     n_items = len(feats)
-    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data in "
-          f"{time.perf_counter() - t0:.2f} s ({n_items} items, cut from the config's "
-          f"{XXL_M_CORPUS}; {len(dst)} planted near-copies; tags of a "
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB in {time.perf_counter() - t0:.2f} s "
+          f"({n_items} items of the config's {XXL_M_CORPUS}; {len(dst)} near-copies; tags of a "
           f"{'x'.join(map(str, cfg['tag_tree']))} tree)")
     values = {
         "save_model_every": n, "eval_every": n, **vae_widths(cfg),
@@ -1873,11 +1980,11 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     check_mining_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items, pool)
     hist = full["history"]
     rates = hist["mined_pair_collision_rate"]
-    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}, {full['n_pair_rows']} mined "
-          f"pairs a batch, pool {pool}) in {seconds:.2f} s: loss {hist['total_loss']}, "
-          f"repetition {hist['repetition_rate']}, pool refreshed at {hist['mining_pool_refreshed']}"
-          f", mined-pair collision rate at steps {hist['iterations']}: {rates}; tag_class_counts "
-          f"{full['tag_class_counts']}; launches {launches}")
+    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}, {full['n_pair_rows']} pairs "
+          f"a batch, pool {pool}) {seconds:.2f} s: loss {hist['total_loss']}, repetition "
+          f"{hist['repetition_rate']}, pool refreshed {hist['mining_pool_refreshed']}, collision "
+          f"rate at {hist['iterations']}: {rates}; tags {full['tag_class_counts']}; launches "
+          f"{launches}")
     if not rates[-1] > 0:
         raise AssertionError("mining: no mined pair collided in the steps after the first audit")
 
@@ -1889,8 +1996,8 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     tab = table.cpu().numpy()
     colliding = float((tab[pairs[:, 0]] == tab[pairs[:, 1]]).all(axis=1).mean())
     planted = float((tab[dst] == tab[src]).all(axis=1).mean())
-    print(f"  pool pairs colliding in the table {colliding:.4f}; planted copies sharing their "
-          f"source's tuple {planted:.4f}; repetition {repetition_rate(tab)[0]:.4f}")
+    print(f"  pool pairs colliding {colliding:.4f}; copies on their source's tuple "
+          f"{planted:.4f}; repetition {repetition_rate(tab)[0]:.4f}")
     if colliding != 1.0:
         raise AssertionError("mining: the pool's pairs do not all collide in the audit's table")
 
@@ -1900,8 +2007,8 @@ def mining_phase(device, root, cfg=XXL_M, n=MINING_N, settings=MINING_SETTINGS,
     # check_mining_run held N's saved pool equal to its live one
     restored = np.array_equal(resumed["mining_pool_start"], half["data"].mining_pairs.cpu().numpy())
     same_end = torch.equal(resumed["data"].mining_pairs, full["data"].mining_pairs)
-    print(f"  resume: pool restored bitwise from N's latest {restored}; pools after the audit "
-          f"at {2 * n} equal {same_end}")
+    print(f"  resume: pool restored bitwise from N's latest {restored}; pools after "
+          f"{2 * n} equal {same_end}")
     if not (restored and same_end):
         raise AssertionError("mining: the pool did not survive the resume bitwise")
     throughput = stage1_throughput(full, gin, device, settings, timed)
@@ -1946,8 +2053,8 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     path = processed_path(root, rq_gin["dataset"], rq_gin.get("dataset_split", "beauty"))
     write_items(path, feats, np.random.RandomState(SEED + 43), hist)
     n_items = len(feats)
-    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB of processed data ({n_items} items, "
-          f"{len(hist)} histories)")
+    print(f"  wrote {os.path.getsize(path) / 2**20:.1f} MiB ({n_items} items, {len(hist)} "
+          f"histories)")
     values = {
         "save_model_every": n, "eval_every": n, "force_dataset_process": False,
         **vae_widths(cfg), **paths(root), "eval_batches": RQVAE_EVAL_BATCHES,
@@ -1961,10 +2068,10 @@ def rqvae_phase(device, root, cfg=ML32M, n=RQVAE_N, timed=RQVAE_TIMED, **binding
     full, launches, seconds = run_trainer_entry(script, device, gin_2n)
     check_rqvae_run("2N run", full, launches, 2 * n, [n, 2 * n], device, n_items)
     h = full["history"]
-    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}) in {seconds:.2f} s: loss "
-          f"{h['total_loss']}, eval loss {h['eval_total_loss']}, repetition "
-          f"{h['repetition_rate']}, entropy {h['rqvae_entropy']}; saves "
-          f"{[os.path.basename(p) for p in full['saved_paths']]}; launches {launches}")
+    print(f"  2N run ({2 * n} mini-steps, batch {gin['batch_size']}) {seconds:.2f} s: loss "
+          f"{h['total_loss']}, eval {h['eval_total_loss']}, repetition {h['repetition_rate']}, "
+          f"entropy {h['rqvae_entropy']}; saves {[os.path.basename(p) for p in full['saved_paths']]}"
+          f"; launches {launches}")
     half, resumed, runs, gaps = resume_runs(
         script, device, gin_n, n, lambda *a: check_rqvae_run(*a, device, n_items), full,
         lambda r: r["saved_paths"][-1], updates=2 * n // gin.get("gradient_accumulate_every", 1))
@@ -2031,9 +2138,9 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
     result, launches, seconds = run_trainer_entry(load_script("torch_train_hidvae"), device, gin)
     rep = check_stage1_run("synthetic run", result, launches, steps, [steps], device, len(feats))
     hist = result["history"]
-    print(f"  run ({steps} mini-steps, batch {parse_gin_file(gin)['train']['batch_size']}) in "
-          f"{seconds:.2f} s: loss {hist['total_loss']}, eval loss {hist['eval_total_loss']}, "
-          f"tag_class_counts {result['tag_class_counts']}, repetition {rep}; launches {launches}")
+    print(f"  run ({steps} mini-steps, batch {parse_gin_file(gin)['train']['batch_size']}) "
+          f"{seconds:.2f} s: loss {hist['total_loss']}, eval {hist['eval_total_loss']}, tags "
+          f"{result['tag_class_counts']}, repetition {rep}; launches {launches}")
     if not hist["total_loss"]:
         raise AssertionError("synthetic: no loss logged")
     _, table_launches = audit_table("synthetic", result["model"], result["tag_class_counts"],
@@ -2042,7 +2149,7 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
     default = load_or_build(empty, RecDataset.SYNTHETIC)
     written = os.path.getsize(processed_path(empty, RecDataset.SYNTHETIC))
     print(f"  load_or_build on an empty root: {default.item_features.shape[0]} items, "
-          f"{default.seq_items.shape[0]} sequences, {written / 2**20:.1f} MiB written")
+          f"{default.seq_items.shape[0]} sequences, {written / 2**20:.1f} MiB")
     if default.item_features.shape != (2000, 768) or not np.array_equal(
             ProcessedArrays.load(processed_path(empty, RecDataset.SYNTHETIC)).item_features,
             default.item_features):
@@ -2052,8 +2159,8 @@ def synthetic_phase(device, root, steps=SYNTH_STEPS, corpus=None, **bindings):
 
 @phase("scale")
 def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
-    """torch_bench_scale.py's bench_one at each size: a launch per 8,192 items, all resolved, the
-    largest table a plain sweep's. Returns the records."""
+    """torch_bench_scale.py's bench_one by size: a launch per 8,192 items,
+    all resolved, the largest table a plain sweep's. Returns the records."""
     bench = load_script("torch_bench_scale")
     records = []
     for n in sizes:
@@ -2063,8 +2170,8 @@ def scale_phase(device, sizes=SCALE_SIZES, **kwargs):
         want = math.ceil(n / 8192) if device.type == "cuda" else 0
         if rec["rq_assign_launches"]["sweep"] != want or not (
                 rec["top10_resolved_frac"] == keep["cap_resolved"] == 1.0):
-            raise AssertionError(f"scale {n}: launches {rec['rq_assign_launches']} (expected "
-                                 f"{want}), resolved {rec['top10_resolved_frac']} and "
+            raise AssertionError(f"scale {n}: launches {rec['rq_assign_launches']} (want "
+                                 f"{want}), resolved {rec['top10_resolved_frac']}, "
                                  f"{keep['cap_resolved']} (trie, cap-gather)")
         if n == max(sizes):
             ref, ties, _ = plain_sweep(keep["vae"], keep["feats"], 8192)
@@ -2134,8 +2241,8 @@ def write_movielens_drop(root, fmt, n_movies, n_ratings, seed=SEED, genders="FM"
 
 
 def movielens_main(workdir, n_movies, n_ratings):
-    """--movielens DIR MOVIES RATINGS: both formats written and built with pandas refused. Writes
-    DIR/movielens.json."""
+    """--movielens DIR MOVIES RATINGS: both formats built, pandas refused;
+    writes DIR/movielens.json."""
     from hidvae_tpu_torch.data.processed import load_or_build
 
     if sys.modules.get("pandas") is not None:
@@ -2211,8 +2318,8 @@ def stage1_summary(name, result, launches, seconds, rep, tags=None):
     h = result["history"]
     remap = (f"; rare-tag remap {list(tags)} -> {list(result['tag_class_counts'])}, folded "
              f"{[len(v) for v in result['rare_tags'].values()]}" if tags else "")
-    print(f"  {name} ({result['step']} mini-steps) in {seconds:.2f} s, median "
-          f"{statistics.median(h['ms_per_step']):.2f} ms a mini-step: loss {h['total_loss']}"
+    print(f"  {name} ({result['step']} mini-steps) {seconds:.2f} s, "
+          f"{statistics.median(h['ms_per_step']):.2f} ms/mini-step: loss {h['total_loss']}"
           f"{remap}; repetition {rep}; launches {launches}")
 
 
@@ -2220,8 +2327,8 @@ def stage2_built(name, gin, steps, device, n_items):
     """The stage-2 entry on `gin`, `steps` steps. Returns (result, rq_assign launches)."""
     r2, launches, seconds = run_trainer_entry(load_script("torch_train_transformer"), device, gin)
     scores = check_trainer_run(name, r2, launches, steps, [steps], device, n_items)
-    print(f"  {name} ({steps} steps) in {seconds:.2f} s, median "
-          f"{statistics.median(r2['history']['ms_per_step'][1:] or [math.nan]):.2f} ms a step "
+    print(f"  {name} ({steps} steps) {seconds:.2f} s, "
+          f"{statistics.median(r2['history']['ms_per_step'][1:] or [math.nan]):.2f} ms/step "
           f"after the first: loss {r2['history']['train_loss']}; TEST hit@10, ndcg@10 "
           f"{[float(x) for x in scores]}; launches {launches}")
     return r2, launches["rq_assign"]
@@ -2246,8 +2353,8 @@ def served(name, gin, s1, s2, hist, n_items, device):
     seconds, launches = time.perf_counter() - t0, rq.rq_assign.launches
     out = engine.recommend(hist, top_k=10)
     resolved = check_recommendations(engine, out, n_items)
-    print(f"  {name}: from_artifacts of {os.path.basename(s2)} in {seconds:.3f} s (rq_assign "
-          f"launches {launches}); {resolved} of {out['items'].size} top-10 items resolved")
+    print(f"  {name}: from_artifacts of {os.path.basename(s2)} {seconds:.3f} s (rq_assign "
+          f"launches {launches}); {resolved} of {out['items'].size} top-10 resolved")
     return engine, launches, out
 
 
@@ -2439,9 +2546,9 @@ def tag_completion(root):
     rec = dict(items=len(truth), holes=holes.sum(0).tolist(),
                rows_missing_l1=int(holes[:, 0].sum()), seconds=seconds,
                recovered=float((out[holes] == truth[holes]).mean()))
-    print(f"  tags: {rec['holes']} holes by level in {rec['items']} items "
-          f"({rec['rows_missing_l1']} rows without L1) completed in {seconds:.3f} s; "
-          f"{100 * rec['recovered']:.2f} % recovered exactly; hierarchy held")
+    print(f"  tags: {rec['holes']} holes by level, {rec['items']} items "
+          f"({rec['rows_missing_l1']} without L1), {seconds:.3f} s; "
+          f"{100 * rec['recovered']:.2f} % exact; hierarchy held")
 
     # The LLM route on the rows whose truth is complete.
     keep = (truth >= 0).all(1)
@@ -2459,10 +2566,9 @@ def tag_completion(root):
         out, second, s2 = llm_run(lt, truth, holed, feats, emb, vocabs, journal)
     finally:
         quiet.setLevel(level)
-    print(f"  llm: {len(needs)} rows to complete; the server died after {len(first)} "
-          f"answers ({len(done)} journaled, {s1:.2f} s); the resumed run asked {len(second)} "
-          f"in {s2:.2f} s ({len(second) / s2:.1f} requests/s); output equals the truth "
-          f"{np.array_equal(out, truth)}")
+    print(f"  llm: {len(needs)} rows; server died after {len(first)} answers ({len(done)} "
+          f"journaled, {s1:.2f} s); resumed run asked {len(second)} in {s2:.2f} s "
+          f"({len(second) / s2:.1f}/s); output is the truth {np.array_equal(out, truth)}")
     if not (set(done) == set(first) and len(first) == answers
             and set(second) == needs - set(done) and len(second) == len(set(second))
             and np.array_equal(out, truth)):
@@ -2482,10 +2588,9 @@ def tag_completion(root):
 
 @phase("tools")
 def tools_phase(device, root, diag=None, diag_n=DIAG_N, view_args=(), attrib=ATTRIB):
-    """Tag completion on the raw phase's KuaiRand corpus; torch_view.py's
-    subcommands (tables against a plain sweep); torch_diag_mining.py on
-    `diag` (checkpoint, root), else on the view run's; --attrib. Returns the
-    record."""
+    """Tag completion on the raw phase's KuaiRand corpus; torch_view.py
+    (tables against a plain sweep); torch_diag_mining.py on `diag`
+    (checkpoint, root) or the view run's; --attrib. Returns the record."""
     card = device.type == "cuda"
     rec = {"tags": tag_completion(root)}
     view, work = load_script("torch_view"), os.path.join(root, "view")
@@ -2560,11 +2665,10 @@ def check_gradient_witness(recs, ranks, want_rec, want):
         gap32[k] = float(np.abs(ranks[0]["grads"][k] - want["grads"][k]).max()) / scale
     worst64, worst32 = (sorted(g, key=lambda k: -g[k])[:3] for g in (gap64, gap32))
     loss_err = abs(recs[0]["loss"][0] - want_rec["loss"][0]) / abs(want_rec["loss"][0])
-    print(f"  gradient witness (fp32 mining gin, a mini-step from {want_rec['step'] - 1}, "
-          f"mined collisions {want_rec['mined']}): {len(exact)} arrays, DP 2 against one "
-          f"process over each array's largest entry: float64 "
-          f"{[(k, f'{gap64[k]:.2e}') for k in worst64]} (tolerance {MULTI_GRAD64_RTOL}), fp32 "
-          f"{[(k, f'{gap32[k]:.2e}') for k in worst32]}; loss {recs[0]['loss'][0]} against "
+    print(f"  gradient witness (fp32 mining gin, step {want_rec['step'] - 1}, collisions "
+          f"{want_rec['mined']}): {len(exact)} arrays, DP 2 vs 1 at each one's largest entry: "
+          f"float64 {[(k, f'{gap64[k]:.2e}') for k in worst64]} (tol {MULTI_GRAD64_RTOL}), fp32 "
+          f"{[(k, f'{gap32[k]:.2e}') for k in worst32]}; loss {recs[0]['loss'][0]} vs "
           f"{want_rec['loss'][0]} ({loss_err:.3e})")
     if not want_rec["mined"] or not want_rec["mined"][-1] > 0:
         raise AssertionError("gradient witness: no mined pair collided in the step")
@@ -2575,8 +2679,8 @@ def check_gradient_witness(recs, ranks, want_rec, want):
 
 def check_stage1_multi(name, spec, losses, params, want_losses, want_params, init, updates,
                        first_rtol=MULTI_FIRST_LOSS_RTOL, param_rtol=MULTI_FP32_PARAM_RTOL):
-    """check_multi_run but the BatchNorm-preceding biases, held to BN_BIAS_LR_STEPS learning rates
-    an update."""
+    """check_multi_run, the biases before a BatchNorm held to
+    BN_BIAS_LR_STEPS learning rates an update."""
     lr = parse_gin_file(spec["gin"])["train"]["learning_rate"]
     (got, got_b), (want, want_b), (init, _) = (split_bn_biases(p)
                                                 for p in (params, want_params, init))
@@ -2590,8 +2694,8 @@ def check_stage1_multi(name, spec, losses, params, want_losses, want_params, ini
 
 
 def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bindings=None):
-    """The stage-1 multi gins, cut as their phases cut them, over the Amazon, mining and ML-32M
-    data. Returns ({name: spec}, the Amazon 2N gin)."""
+    """The stage-1 multi gins, cut as their phases do, over the Amazon,
+    mining and ML-32M data. Returns ({name: spec}, the Amazon 2N gin)."""
     bindings = bindings or {}
     os.makedirs(root, exist_ok=True)
     a_steps = MULTI1_STEPS["amazon"]
@@ -2634,8 +2738,8 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
         "eval_batches": RQVAE_EVAL_BATCHES, "log_every": 1, **bindings.get("ml32m", {})},
         show=True)
     print(f"  wrote the stage-1 multi catalogs in {time.perf_counter() - t0:.2f} s: mining "
-          f"{xxl['n_items']} items (the mining phase's; the config's {XXL_M_CORPUS}), ML-32M "
-          f"{ml32m['n_items']}; Amazon: the stage1 phase's {a['n_items']}")
+          f"{xxl['n_items']} (of {XXL_M_CORPUS}), ML-32M {ml32m['n_items']}, Amazon "
+          f"{a['n_items']}")
     items = {"amazon": a["n_items"], "mining": xxl["n_items"], "mining_fp32": xxl["n_items"],
              "ml32m": ml32m["n_items"]}
     feats = {"amazon": processed_path(amazon_root, RecDataset.AMAZON, "sports"),
@@ -2653,8 +2757,8 @@ def multi1_inputs(root, amazon_root, amazon=AMAZON, xxl=XXL_M, ml32m=ML32M, bind
 
 
 def multi1_run(spec, device, save_root, gin=None, grads=False, **kwargs):
-    """spec's trainer from its gin, counts reset. Returns (record, arrays); on several ranks rank
-    0's audit against a plain sweep."""
+    """spec's trainer from its gin, counts reset. Returns (record, arrays);
+    on several ranks rank 0's audit against a plain sweep."""
     import importlib
 
     from hidvae_tpu_torch.utils.config import parse_config_and_run
@@ -2897,13 +3001,12 @@ def multi_stage1(device, root, amazon_root, **inputs):
                  f"catalog cuts the tag heads' widths")
         print(f"  stage 1 {name} ({spec['trainer']}, {spec['steps']} mini-steps, "
               f"{'fp32' if spec['fp32'] else 'bf16'}): one process losses "
-              f"{[round(x, 5) for x in want['loss']]}; NCCL world 1 bitwise {bitwise}; 2 ranks: "
+              f"{[round(x, 5) for x in want['loss']]}; NCCL 1 bitwise {bitwise}; 2 ranks: "
               f"losses equal {rr[0]['loss'] == rr[1]['loss']}, s "
-              f"{[round(r['seconds'], 2) for r in rr]} (one process {want['seconds']:.2f}); "
-              f"rq_assign a rank an audit {per_audit} (one process "
-              f"{want['rq_launches'] / want['audits']}); collective bytes a mini-step a rank "
-              f"{[r['bytes_per_step'] for r in rr]} (gradients {4 * want['n_params']}); tag "
-              f"classes {want['tag_class_counts']}, {want['rare_tags']} folded")
+              f"{[round(r['seconds'], 2) for r in rr]} (1: {want['seconds']:.2f}); "
+              f"rq_assign /rank /audit {per_audit} (1: {want['rq_launches'] / want['audits']}); "
+              f"bytes /mini-step /rank {[r['bytes_per_step'] for r in rr]} (gradients "
+              f"{4 * want['n_params']}); tags {want['tag_class_counts']}, {want['rare_tags']} folded")
         if not bitwise:
             fail(f"stage 1 {name}: one NCCL rank differs from one process")
         if per_audit != [want_launches] * 2 or want["rq_launches"] != want_launches * want["audits"]:
@@ -2914,8 +3017,8 @@ def multi_stage1(device, root, amazon_root, **inputs):
                  name=f"{name} ranks' {key}")
         if "audit_vs_plain" in rr[0]:
             n_diff, n_bad = rr[0]["audit_vs_plain"]
-            print(f"  stage 1 {name}: rank 0's last audit against a plain sweep of its final "
-                  f"params on it alone: {n_diff} rows differ, {n_bad} not at a near tie")
+            print(f"  stage 1 {name}: rank 0's last audit vs a plain sweep: {n_diff} rows off, "
+                  f"{n_bad} not at a near tie")
             if n_bad:
                 fail(f"stage 1 {name}: rank 0's audit differs from a plain sweep")
         params = [z[name]["params"] for z in npz]
@@ -2931,15 +3034,15 @@ def multi_stage1(device, root, amazon_root, **inputs):
         else:
             err = max(abs(a - b) / abs(b) for a, b in zip(rr[0]["loss"], want["loss"]))
             print(f"  stage 1 {name} 2 ranks (bf16): losses {[round(x, 5) for x in rr[0]['loss']]}"
-                  f" (largest relative difference {err:.3e}, tolerance {MULTI_LOSS_RTOL})")
+                  f" (rel {err:.3e}, tol {MULTI_LOSS_RTOL})")
             if len(rr[0]["loss"]) != len(want["loss"]) or not err <= MULTI_LOSS_RTOL:
                 fail(f"stage 1 {name}: the bf16 run differs from one process")
             rec["loss_rel_err"] = err
         rec["rows_differing"] = {key: hold(
             differing_rows, npz[0][name].get(key), want_arr[key], spec["exact"],
             f"{name} {key} against one process") for key in ("table", "pool")}
-        print(f"  stage 1 {name}: rows differing from the one-process run's "
-              f"{rec['rows_differing']}" + ("" if spec["exact"] else " (not held)"))
+        print(f"  stage 1 {name}: rows off one process's {rec['rows_differing']}"
+              + ("" if spec["exact"] else " (not held)"))
         record[name] = rec
 
     # fp32 rounding alone: one process from params one ulp off.
@@ -2952,10 +3055,10 @@ def multi_stage1(device, root, amazon_root, **inputs):
     rows = {key: differing_rows(ctl_arr[key], want_arr[key], False, f"{name} rounding control "
                                 f"{key} against one process") for key in ("table", "pool")}
     errs = [abs(a - b) / abs(b) for a, b in zip(ctl["loss"], want["loss"])]
-    print(f"  stage 1 {name}: rounding control (one process, every parameter one ulp off after "
-          f"k-means): losses {[f'{e:.2e}' for e in errs]} relative, params gap {gap:.3e} of the "
-          f"update, rows differing {rows}; DP 2: params gap "
-          f"{record[name].get('param_gap', math.nan):.3e}, rows {record[name]['rows_differing']}")
+    print(f"  stage 1 {name}: rounding control (1 process, params one ulp off after k-means): "
+          f"losses rel {[f'{e:.2e}' for e in errs]}, params gap {gap:.3e}, rows off {rows}; "
+          f"DP 2: params gap {record[name].get('param_gap', math.nan):.3e}, rows "
+          f"{record[name]['rows_differing']}")
     record[name]["rounding_control"] = dict(param_gap=gap, rows_differing=rows,
                                             loss_rel_err=max(errs))
 
@@ -2987,8 +3090,10 @@ def main():
     rec = kernel_phase(device)
     launches, engine, items, hist, tok_launches = serve_phase(device)
     art_launches = artifacts_phase(device, engine, items, hist)
+    tok = engine.tokenizer
     del engine
     flash_recs = flash_phase(device)
+    moe_rec = moe_phase(device, tok, items)
     per_layer = sum(r["ms"] for r in flash_recs.values())
     long_launches, vae, feats = train_phase(device, per_layer)
     with tempfile.TemporaryDirectory() as work:
@@ -3008,14 +3113,8 @@ def main():
     scale_recs = scale_phase(device)
     kernels = [dict(
         name="rq_assign", route="cuda", source="hidvae_tpu_torch/csrc/rq_assign.cu",
-        replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches,
-        max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
-        graph_ms=rec["graph_ms"], shape=rec["shape"],
-        at_main_path_launch=rec["at_main_path_launch"], at_view_launches=rec["at_view_launches"],
-        at_ml32m_launches=rec["at_ml32m_launches"],
-        at_mining_launches=rec["at_mining_launches"], at_tokenize_launch=rec["at_tokenize_launch"],
-        launches_from_artifacts=art_launches,
+        replaces="hidvae_tpu/ops/pallas/rq_kernels.py:32", launches=launches, library_ms=None,
+        **rec, launches_from_artifacts=art_launches,
         launches_trainer={
             "2N run": trainer_rec["full"]["launches"]["rq_assign"],
             **trainer_rec["resume"]["launches"],
@@ -3042,6 +3141,10 @@ def main():
             launches_remat={k: trainer_rec["remat"][k][name] for k in ("remat", "plain")},
             launches_multi_long_dp_per_rank=[rr[name] for rr in multi_rec["long"]["launches"]],
             **r))
+    kernels.append(dict(
+        name="grouped_swiglu", route="triton", source="hidvae_tpu_torch/ops/moe_experts.py",
+        replaces=None, launches=moe_rec.pop("page_launches"), **moe_rec.pop("decode"),
+        at_prefill=moe_rec.pop("prefill"), **moe_rec))
     for name, r in (("stage1", stage1_rec), ("mining", mining_rec), ("rqvae", rqvae_rec),
                     ("multi", multi_rec), ("tools", tools_rec)):
         print(f"  {name} record: {json.dumps(r)}")

@@ -1,33 +1,27 @@
-// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels with
-// segment-id masking, for head_dim 64 and 128 and fp32 or bf16 inputs.
-//
-// Replaces the three Pallas TPU kernels the JAX package reaches through
-// hidvae_tpu/models/attention.py:75 (jax 0.9.0's
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ with segment
+// ids, head_dim 64 or 128, fp32 or bf16. Replaces the Pallas kernels that
+// hidvae_tpu/models/attention.py:75 reaches (jax 0.9.0's
 // jax/experimental/pallas/ops/tpu/flash_attention.py):
 //   flash_fwd      <- _flash_attention_kernel      (:331, pallas_call :758)
 //   flash_bwd_dkv  <- _flash_attention_dkv_kernel  (:796, pallas_call :1121)
 //   flash_bwd_dq   <- _flash_attention_dq_kernel   (:1146, pallas_call :1456)
 // The library's semantics: logits (q k^T) * sm_scale, -0.7 * FLT_MAX across
-// segments (or above the causal diagonal), softmax in fp32. The forward
-// saves m and l apart (one logsumexp would give a keyless row P = 1, not
-// 1/N); the backward takes di = rowsum(dO * O) and recomputes
-// P = exp(logit - m) * (1 / l) (:900-904, :1226-1232). Arithmetic bounds
-// every kernel at B 64, H 8, N 2432, Dh 64.
-//
+// segments or above the causal diagonal, softmax in fp32. The forward saves
+// m and l apart (one logsumexp would give a keyless row P = 1, not 1/N);
+// the backward takes di = rowsum(dO * O), P = exp(logit - m) * (1 / l)
+// (:900-904, :1226-1232). Arithmetic bounds every kernel at B 64, H 8,
+// N 2432, Dh 64.
 // * bf16 (`flash_*_tc_kernel`): mma.sync m16n8k16, fp32 accumulators
-//   (mma_bf16.cuh); a warp owns 16 rows at the full width of each product;
-//   the streamed side through shared memory, cp.async double-buffered,
-//   XOR-swizzled for ldmatrix. Softmax in registers; P (P^T, dS, dS^T)
-//   rounded to bf16 as the A operand where the library rounds it (:471,
-//   :900, :918, :1256); exp2((x - m) * log2 e), so the mask never scales to
-//   -inf; a warp block with an all-0 mask skips the per-element mask.
+//   (mma_bf16.cuh); a warp owns 16 rows at each product's full width; the
+//   streamed side cp.async double-buffered, XOR-swizzled for ldmatrix.
+//   Softmax in registers; P (P^T, dS, dS^T) rounded to bf16 where the
+//   library rounds it (:471, :900, :918, :1256); exp2((x - m) * log2 e), so
+//   the mask never scales to -inf; an all-0 mask block skips the mask.
 // * fp32: FFMA, 256 threads a 64-row tile, 4 x 4 a thread, operands
 //   transposed in shared memory for 16-byte loads.
-//
-// Causal blocks skip the tiles above the diagonal unless a row sees no key
-// (`keyless`: uniform weights, as the plain version). Ragged tails are
-// masked. Each C entry point launches on its stream and returns
-// cudaGetLastError().
+// Causal blocks skip tiles above the diagonal unless a row sees no key
+// (`keyless`: uniform weights, as the plain version); ragged tails masked.
+// Each C entry point launches on its stream, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,9 +6,9 @@
 //   dist_k = (||r||^2 + ||c_k||^2) - 2 r.c_k     (fp32 FMA, no TF32)
 //   id     = argmin_k dist_k                      (first index on ties)
 //   qsum  += c_id;  r -= c_id
-// Outputs ids [B, L] int32 and qsum [B, D] fp32. fp32 arithmetic bounds it
-// (2*B*K*D*L operations against ~4*B*(2D + L) bytes); it stays FFMA, as the
-// JAX kernel computes at Precision.HIGHEST: TF32 would flip near ties.
+// Outputs ids [B, L] int32, qsum [B, D] fp32. Bound by fp32 arithmetic
+// (2*B*K*D*L operations against ~4*B*(2D + L) bytes); FFMA, as the JAX
+// kernel's Precision.HIGHEST: TF32 would flip near ties.
 //
 // Design: a persistent grid of a block a SM (16 warps at D 16 and 32, 12 at
 // D 64, 4 at D 128), no block barrier in the steady state.
@@ -30,8 +30,8 @@ namespace {
 // Shape for code width D. Warps work alone: each owns 16 rows (4 lane
 // groups x 4) and sweeps every code, 8 lanes x 4 * NG a pass, reducing the
 // argmin in the warp. Fewer warps at wider D (row buffers grow with D; at
-// D 64 scripts/torch_rq_tiles.py timed 8, 12, 14); a codebook too large
-// for WARPS warps gets fewer (read at run time).
+// D 64, 12 was taken of 8, 12 and 14 timed); a codebook too large for
+// WARPS warps gets fewer (read at run time).
 template <int D>
 struct Cfg {
   // D 16: 16 warps as at D 32, whose row buffers are twice as large; more

@@ -13,6 +13,7 @@ from torch.nn import functional as F
 from hidvae_tpu_torch.models.embedder import SemIdEmbedder, UserIdEmbedder
 from hidvae_tpu_torch.models.layers import RMSNorm
 from hidvae_tpu_torch.models.retrieval import RetrievalModel
+from hidvae_tpu_torch.ops.moe_experts import grouped_swiglu, grouped_swiglu_plain
 from hidvae_tpu_torch.utils.debug import count, note, span, tracing
 
 # deepseek_v3 values this block implements; others are refused
@@ -110,8 +111,8 @@ class LatentAttention(nn.Module):
 class MoE(nn.Module):
     """Top k of sigmoid scores + bias (noaux_tc), weighted by the chosen
     scores over their sum times `routed_scaling_factor`, no token dropped,
-    plus the shared experts; two grouped products over the rows sorted by
-    expert, no padding, no host wait."""
+    plus the shared experts; the routed rows sorted by expert, no padding,
+    no host wait, through ops/moe_experts.py (kernels on CUDA)."""
 
     def __init__(self, c, dtype):
         super().__init__()
@@ -136,7 +137,7 @@ class MoE(nn.Module):
         return idx, w * self.scaling
 
     def forward(self, x):
-        t, dim = x.shape
+        t = x.shape[0]
         idx, w = self.route(x)
         note("moe.experts", idx)
         flat = idx.flatten()
@@ -147,13 +148,9 @@ class MoE(nn.Module):
             count("moe.routed_rows", t * self.k)
             count("moe.max_expert_rows", rows.max())
         ends = torch.cumsum(rows, 0, dtype=torch.int32)
-        g, u = torch._grouped_mm(x[order // self.k], self.experts.gate_up_proj.transpose(1, 2),
-                                 offs=ends).chunk(2, -1)
-        y = torch._grouped_mm(F.silu(g) * u, self.experts.down_proj.transpose(1, 2), offs=ends)
-        routed = torch.empty_like(y)
-        routed[order] = y
-        out = (routed.view(t, self.k, dim).float() * w[..., None]).sum(1)
-        return (out + self.shared_experts(x).float()).to(x.dtype)
+        experts = grouped_swiglu if x.is_cuda else grouped_swiglu_plain
+        return experts(x, w, order, ends, self.experts.gate_up_proj, self.experts.down_proj,
+                       self.shared_experts(x))
 
 
 class Layer(nn.Module):

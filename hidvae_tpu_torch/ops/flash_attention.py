@@ -1,7 +1,7 @@
-"""Flash attention with segment-id masking: the CUDA kernels, their plain
-PyTorch versions and the autograd Function that joins them (counterpart of
-the `jax` library's Pallas TPU `flash_attention`, flash_attention.py:140 in
-jax 0.9.0, called from hidvae_tpu/models/attention.py:75).
+"""Flash attention with segment-id masking: CUDA kernels, plain versions
+and the autograd Function joining them (counterpart of the `jax` library's
+Pallas `flash_attention`, jax 0.9.0's flash_attention.py:140, reached from
+hidvae_tpu/models/attention.py:75).
 
   flash_fwd      forward, O and the row statistics m, l  (library :331)
   flash_bwd_dkv  dK, dV                                  (library :796)

@@ -21,9 +21,8 @@ from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_
 
 
 def reduce_gradients_(params, group, divide_by: int = 1):
-    """The gradients of `params` summed over `group` (divided by
-    `divide_by`) in place, in one all-reduce; parameters without a gradient
-    are left out."""
+    """`params`' gradients summed over `group` (divided by `divide_by`) in
+    place, one all-reduce; parameters without one left out."""
     if group is None:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -115,8 +114,8 @@ def make_lr_schedule(learning_rate: float, use_lr_scheduler: bool = False,
 
 
 class ReduceLROnPlateau:
-    """torch's ReduceLROnPlateau (mode min) as a host controller of the LR
-    scale (common.py:167-219); its counters ride in the checkpoint's meta."""
+    """ReduceLROnPlateau (mode min) as a host LR-scale controller
+    (common.py:167-219); its counters ride in the checkpoint's meta."""
 
     def __init__(self, factor: float = 0.5, patience: int = 10, threshold: float = 1e-4,
                  cooldown: int = 0, min_scale: float = 0.0, init_scale: float = 1.0):
@@ -352,9 +351,9 @@ def make_optimizer(module: torch.nn.Module, schedule, weight_decay: float, *,
 
 
 def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_every: int):
-    """The JAX chunked loop (transformer.py:536-613; hidvae.py:634-710), chunks
-    of max(1, min(log_every, *cadences, n_steps)) steps: yields (first, end,
-    fired), the cadences crossed (all at the end)."""
+    """The JAX chunked loop (transformer.py:536-613; hidvae.py:634-710):
+    chunks of max(1, min(log_every, *cadences, n_steps)) steps, yielding
+    (first, end, cadences crossed; all at the end)."""
     chunk = max(1, min([log_every, *cadences, n_steps]))
     end = start_iter + n_steps
     it = start_iter
@@ -488,7 +487,7 @@ def run_logging(save_dir: str):
 
 def log_operative_config(logger, values: dict):
     """Every bound scalar, string, sequence, None or enum argument on one
-    sorted line (common.py:410): the run's configuration in its train.log."""
+    sorted line of train.log (common.py:410)."""
     items = []
     for k in sorted(values):
         if k.startswith("_"):
@@ -623,8 +622,8 @@ def audit_rebuilt_corpus(tokenizer, corpus_ids, stage1_checkpoint, log=None):
 
 
 def corpus_collapse_error(recorded_rep, div: dict):
-    """An error message when a rebuilt table's diversity contradicts the
-    recorded repetition rate (under 0.1 recorded, over 0.5 rebuilt), else None."""
+    """An error when a rebuilt table's diversity contradicts the recorded
+    repetition rate (under 0.1 recorded, over 0.5 rebuilt), else None."""
     if recorded_rep is None or recorded_rep >= 0.1:
         return None
     if div["repetition_rate"] <= 0.5:

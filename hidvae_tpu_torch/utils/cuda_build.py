@@ -7,7 +7,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import time
 from pathlib import Path
 
@@ -78,24 +77,3 @@ def load_library(source_name: str) -> BuiltLibrary:
     _loaded[source_name] = built
     return built
 
-
-def build_variant(source_name: str, tag: str, subs=(), source=None):
-    """csrc/<source_name> (or `source`) with `subs` (old, new; old once)
-    built uncached under $TMPDIR/<tag>: (path, nvcc's output) or (None,
-    its errors)."""
-    d = Path(tempfile.gettempdir()) / tag
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    src = Path(source or CSRC_DIR / source_name).read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise ValueError(f"{tag}: {old!r} occurs {src.count(old)} times")
-        src = src.replace(old, new)
-    (d / source_name).write_text(src)
-    for header in CSRC_DIR.glob("*.cuh"):
-        shutil.copy(header, d)
-    res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source_name)],
-                         capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    if res.returncode:
-        return None, res.stderr[-3000:]
-    return str(d / "lib.so"), res.stdout + res.stderr

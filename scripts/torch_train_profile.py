@@ -55,12 +55,11 @@ def program(name, fn, flops, n_bytes, device, iters, warmup, peak):
         fn()
     chip_smoke.sync(device)
     t = (time.perf_counter() - t0) / iters
-    t_ops, t_bytes = flops / peak * 1e3, n_bytes / chip_smoke.H100_BYTES_PER_S * 1e3
     card = device.type == "cuda"  # a CPU run's rate is no share of the card's peak
+    bound_ms, bound_by = chip_smoke.bound_ms(flops, n_bytes, peak)
     rec = dict(ms=t * 1e3, flops=flops, achieved_tflops=flops / t / 1e12 if card else None,
                share_of_peak=flops / t / peak if card else None, bytes=n_bytes,
-               bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               bound_ms=bound_ms, bound_by=bound_by)
     print(f"{name}: {json.dumps(rec)}", file=sys.stderr, flush=True)
     return rec
 

@@ -7,6 +7,8 @@ import functools
 import importlib.util
 import inspect
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -79,8 +81,8 @@ def assert_keywords_as_jax(jfn, fn):
 
 
 def stage2_served(s1, dataset_root, out_root, *bindings):
-    """The stage-2 entry for 2 tiny steps on `s1` (plus `bindings`), then
-    from_artifacts serving 8 histories. Returns (result, recommendations)."""
+    """The stage-2 entry, 2 tiny steps on `s1` (+ `bindings`), then
+    from_artifacts on 8 histories. Returns (result, recommendations)."""
     from hidvae_tpu_torch.data.processed import RecDataset, processed_path
     from hidvae_tpu_torch.serve.engine import RetrievalEngine
 
@@ -119,10 +121,26 @@ def flat(tree):
             traverse_util.flatten_dict(tree, sep="/").items()}
 
 
+def torchrun(script, gin, lines, *args):
+    """scripts/`script` on `gin` (`lines` written to it) under torchrun on 2
+    CPU ranks: its output."""
+    gin.write_text("\n".join(lines) + "\n")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         str(ROOT / "scripts" / script), str(gin), *args, "--device", "cpu"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"), capture_output=True,
+        text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res.stdout
+
+
+def part(result, prefix):
+    """`result`'s entries under "prefix:", the prefix cut."""
+    return {k[len(prefix) + 1:]: v for k, v in result.items() if k.startswith(prefix + ":")}
+
+
 def assert_rel(got, want, tol, err_msg=""):
-    """max |got - want| <= tol * max |want|: each array is held to its own
-    largest entry, with a floor of 1e-12 so that an array of zeros must come
-    out as zeros."""
+    """max |got - want| <= tol * max |want| (floor 1e-12: zeros stay zeros)."""
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape, err_msg)
@@ -141,9 +159,9 @@ def japply(module, variables, method, *args):
 
 
 def random_variables(module, init_args, init_kwargs=None, seed=0):
-    """Flat numpy variables {collection: {path: array}} for a flax module,
-    shaped by jax.eval_shape of its init and drawn from `seed` by leaf kind,
-    none trivial (kernels N(0, 1/fan_in), variances in [0.5, 2))."""
+    """Flat numpy variables {collection: {path: array}} of a flax module's
+    init shapes, drawn from `seed` by leaf kind (kernels N(0, 1/fan_in),
+    variances in [0.5, 2))."""
     rngs = {name: jax.random.key(i) for i, name in
             enumerate(("params", "gumbel", "dropout", "mixup"))}
     shapes = jax.eval_shape(
@@ -195,6 +213,24 @@ def hrqvae_pair(*, input_dim=32, embed_dim=8, hidden_dims=(16,), codebook_size=1
                 tag_embed_dim=tag_embed_dim)
     load_flax_weights(tm, params, stats)
     return jm, jvars, tm.eval()
+
+
+def batch_pair(b, n, d, seed, k, ragged):
+    """The same tokenized batch for both packages, row r padded from item
+    ragged[r] on."""
+    from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
+    from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
+
+    rng = np.random.RandomState(seed)
+    mask = np.ones((b, n * d), bool)
+    for r, i in ragged.items():
+        mask[r, i * d:] = False
+    sem = np.where(mask, rng.randint(0, k, (b, n * d)), -1).astype(np.int32)
+    fut = rng.randint(0, k, (b, d)).astype(np.int32)
+    tt, ttf = (np.tile(np.arange(d, dtype=np.int32), (b, m)) for m in (n, 1))
+    arrays = (np.arange(b, dtype=np.int32) * 977, sem, fut, mask, tt, ttf)
+    return (JBatch(*(jnp.asarray(a) for a in arrays)),
+            TokenizedSeqBatch(*(torch.from_numpy(a) for a in arrays)))
 
 
 def jax_example_batch(d):

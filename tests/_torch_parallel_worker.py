@@ -1,8 +1,7 @@
-"""Ranks of the port's multi-rank tests (tests/test_torch_parallel*.py,
-tests/test_torch_stage1_parallel*.py). `run(scenario, world, workdir)`
-starts `world` processes of this module (dryrun.launch_ranks, a timeout);
-each joins a Gloo group on the CPU, runs the scenario on workdir/inputs.pt
-and writes workdir/rank<r>.npz. Imports nothing of JAX.
+"""Ranks of the multi-rank tests: `run(scenario, world, workdir)` starts
+`world` processes of this module (dryrun.launch_ranks, a timeout); each
+joins a Gloo group on the CPU, runs the scenario on workdir/inputs.pt and
+writes workdir/rank<r>.npz. No JAX.
 """
 
 import copy
@@ -95,8 +94,8 @@ def arrays_run(inp, **kw) -> dict:
 
 
 def fixed_step(inp, mesh, max_grad_norm=None, generator_seed=5, export=None) -> dict:
-    """One AdamW update of the seeded decoder (or the `export`ed one) on the
-    saved fixed batch split over the data ranks: gradients and params."""
+    """One AdamW update of the seeded (or `export`ed) decoder on the fixed
+    batch split over the data ranks: gradients and params."""
     c = inp["fixed" if export is None else "jax_fixed"]
     model = trainer.build_model(**c["model_kw"], dtype=torch.float32)
     opt = Optimizer(model.parameters(), inverse_sqrt_schedule(c["lr"], 3), 0.035,
@@ -328,8 +327,8 @@ def terms(inp) -> dict:
 
 
 def stage1_run(inp, name, trainer, **kw) -> dict:
-    """`train` of the stage-1 `trainer` on the saved dataset (JAX's batches
-    with kw["jax_batches"]): its logged results, keys prefixed "name:"."""
+    """Stage-1 `trainer`'s `train` on the saved dataset (JAX's batches with
+    kw["jax_batches"]): its results, keys prefixed "name:"."""
     from hidvae_tpu_torch.models import hrqvae
     from hidvae_tpu_torch.train import hidvae, rqvae
     from hidvae_tpu_torch.train.device_data import DeviceItemData

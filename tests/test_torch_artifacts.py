@@ -1,6 +1,6 @@
-"""`from_artifacts` on exports against the JAX engine on the Orbax
-checkpoints, on the CPU: converter leaves, the synthetic and a tiny plain
-RQ-VAE pair, stale and legacy metas, the audit, the bridge, the gin reader."""
+"""`from_artifacts` on exports against the JAX engine on Orbax checkpoints:
+converter leaves, the synthetic and a tiny plain pair, stale and legacy
+metas, the audit, the bridge, the gin reader."""
 
 import enum
 import json
@@ -84,9 +84,8 @@ def synthetic(tmp_path_factory):
 
 @pytest.mark.parametrize("stage", ["stage1", "stage2"])
 def test_converter_writes_what_jax_restores(synthetic, stage):
-    """Every leaf of the target JAX's from_artifacts restores into equals,
-    bitwise, the converter's leaf; optimizer state is left out and meta.json
-    is copied byte for byte."""
+    """Every leaf JAX's from_artifacts restores equals the converter's,
+    bitwise; no optimizer state; meta.json copied byte for byte."""
     j = synthetic["j"]
     src, d = (STAGE1, "s1") if stage == "stage1" else (STAGE2, "s2")
     target = ({"params": j.tokenizer.variables["params"],
@@ -110,8 +109,8 @@ def test_synthetic_pair_serves_as_jax(synthetic):
 
 
 def test_wrong_stage1_tag_counts_only_warn(synthetic, caplog):
-    """The config's pre-remap tag counts mismatch 6 tag-head leaves (under
-    the tolerance): warnings, and the semantic columns are JAX's."""
+    """Pre-remap tag counts mismatch 6 tag-head leaves (under tolerance):
+    warnings; the semantic columns are JAX's."""
     gin = write_gin(synthetic["dir"] / "wrong_tags.gin", synthetic["base"],
                dataset_folder=f'"{ROOT / "dataset/synthetic"}"')
     with caplog.at_level(logging.WARNING):
@@ -132,9 +131,8 @@ N_ITEMS, MAX_SEQ, N_SEQ = 120, 5, 24
 
 
 def _seed_codebooks(params, feats):
-    """Set each level's codebook to the residuals of K distinct items, the
-    k-means seeding step, so the tiny corpus spreads over the ID space.
-    Returns the resulting IDs (numpy's exact-argmin cascade)."""
+    """Each level's codebook set to K items' residuals (k-means seeding),
+    spreading the tiny corpus. Returns its IDs (numpy's argmin cascade)."""
     jm = JRqVae(input_dim=PLAIN["input_dim"], embed_dim=PLAIN["embed_dim"],
                 hidden_dims=tuple(PLAIN["hidden_dims"]),
                 codebook_size=PLAIN["codebook_size"], n_layers=PLAIN["n_layers"])

@@ -14,9 +14,8 @@ from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.train import transformer as trainer
 from hidvae_tpu_torch.train.common import chunk_events
 from tests._torch_common import basenames
+from tests.test_torch_trainer import TINY
 
-TINY = dict(n_items=200, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
-            level_branching=(4, 2, 2))
 COMMON = dict(
     batch_size=8, full_eval_every=10_000, vae_input_dim=32, vae_n_cat_feats=0,
     vae_hidden_dims=(32, 16), vae_embed_dim=8, vae_codebook_size=32, vae_n_layers=3,

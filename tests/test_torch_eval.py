@@ -1,6 +1,6 @@
-"""The stage-2 generation eval in the port against JAX, on the CPU: the
-metric accumulators, `full_eval` over the tracked synthetic eval split, the
-one-beam search, Gumbel sampling by distribution, the debug metrics."""
+"""The stage-2 generation eval against JAX on the CPU: accumulators,
+`full_eval` on the tracked synthetic eval split, one-beam search, Gumbel
+sampling by distribution, debug metrics."""
 
 from pathlib import Path
 from types import SimpleNamespace

@@ -1,7 +1,6 @@
-"""Flash attention against the `jax` library and the JAX attention module
-on the CPU: the plain versions held to `mha_reference` and `jax.grad`
-through `mha_reference_no_custom_vjp`, fp32 (the kernels to the plain
-version on the card: tests/test_torch_kernels.py)."""
+"""Flash attention's plain versions against the `jax` library's
+`mha_reference` and `jax.grad` through `mha_reference_no_custom_vjp`, fp32,
+on the CPU (the kernels: tests/test_torch_kernels.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -69,11 +68,14 @@ def test_forward_matches_mha_reference(b, h, n, causal, pad):
 @pytest.mark.parametrize("b,h,n,causal,pad", CASES)
 def test_gradients_match_jax_grad(b, h, n, causal, pad):
     q, k, v, do, seg = _inputs(b, h, n, pad, 2 * n + h)
-    ids = jfa.SegmentIds(*_j(seg, seg))
+    _grads_match_jax(q, k, v, do, seg, seg, causal)
 
-    want = _jax_grads(q, k, v, ids, causal, do)
+
+def _grads_match_jax(q, k, v, do, seg_q, seg_kv, causal):
+    """flash_attention's autograd gradients against jax.grad's."""
+    want = _jax_grads(q, k, v, jfa.SegmentIds(*_j(seg_q, seg_kv)), causal, do)
     qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
-    out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg, seg)),
+    out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg_q, seg_kv)),
                              causal=causal, sm_scale=SCALE)
     got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
     for g, w in zip(got, want):
@@ -81,9 +83,8 @@ def test_gradients_match_jax_grad(b, h, n, causal, pad):
 
 
 def _plain_kernels_against_library(q, k, v, do, seg_q, seg_kv, causal):
-    """Each kernel's plain version (forward with its row statistics m and l,
-    then dK/dV and dQ given those) against the library's residuals and
-    jax.grad of its reference; returns the plain (O, m, l)."""
+    """Each kernel's plain version (forward with m and l, then dK/dV and dQ
+    given those) against the library and jax.grad; returns (O, m, l)."""
     ids = jfa.SegmentIds(*_j(seg_q, seg_kv))
     o_j, l_j, m_j = jfa.mha_reference_no_custom_vjp(*_j(q, k, v), None, ids, causal=causal,
                                                     sm_scale=SCALE, save_residuals=True)
@@ -104,8 +105,8 @@ def _plain_kernels_against_library(q, k, v, do, seg_q, seg_kv, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernel_plain_versions_match_library(causal):
-    """Each kernel's plain version (forward with its row statistics m and l,
-    dK/dV, dQ) against the library's residuals and gradients."""
+    """Each kernel's plain version (forward with m and l, dK/dV, dQ) against
+    the library's residuals and gradients."""
     q, k, v, do, seg = _inputs(2, 2, 200, True, 7)
     _plain_kernels_against_library(q, k, v, do, seg, seg, causal)
 
@@ -113,9 +114,8 @@ def test_kernel_plain_versions_match_library(causal):
 @pytest.mark.parametrize("b,h,n,causal", [(2, 2, 200, False), (2, 2, 200, True),
                                           (1, 3, 130, True)])
 def test_keyless_rows_match_library(b, h, n, causal):
-    """Rows with no key of their segment under a nonzero cotangent get the
-    library's uniform weights and P = 1/N from m and l kept apart, in the
-    per-kernel plain versions and flash_attention, against jax.grad."""
+    """Keyless rows under a nonzero cotangent get the library's uniform
+    weights, P = 1/N from m and l apart, in every plain version."""
     q, k, v, do, _ = _inputs(b, h, n, False, 5 * n + h)
     rng = np.random.RandomState(n)
     seg_q = rng.randint(1, 4, (b, n)).astype(np.int32)
@@ -131,16 +131,7 @@ def test_keyless_rows_match_library(b, h, n, causal):
         np.testing.assert_array_equal(l.numpy()[rows], n)
         mean_v = np.broadcast_to(v.mean(axis=2, keepdims=True), v.shape)
         np.testing.assert_allclose(o.numpy()[rows], mean_v[rows], atol=TOL)
-
-    ids = jfa.SegmentIds(*_j(seg_q, seg_kv))
-
-    want = _jax_grads(q, k, v, ids, causal, do)
-    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
-    out = fa.flash_attention(qt, kt, vt, segment_ids=fa.SegmentIds(*_t(seg_q, seg_kv)),
-                             causal=causal, sm_scale=SCALE)
-    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL)
+    _grads_match_jax(q, k, v, do, seg_q, seg_kv, causal)
 
 
 def test_no_segment_ids_attends_everything():

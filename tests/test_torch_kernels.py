@@ -1,7 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
-
-Needs a CUDA device and nvcc; every test skips without a card. Imports no
-JAX, so it also runs on a machine that has only PyTorch:
+"""The port's CUDA and Triton kernels against their plain versions, on the
+card; every test skips without one. Imports no JAX:
 
     python -m pytest tests/test_torch_kernels.py -q
 """
@@ -10,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_ids, near_tie_levels
+from chip_smoke import MOE_ROUTINGS, MOE_TINY, compare_ids, moe_errors, moe_inputs, near_tie_levels
+from hidvae_tpu_torch.ops import moe_experts as moe
 from hidvae_tpu_torch.ops import rq_assign as rq
+from hidvae_tpu_torch.utils import debug
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +52,25 @@ def test_rq_assign_matches_plain(cuda, b, d, n_levels, k):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("t,sizes,rows", [(8192, {}, None), (12400, {}, None), (37, MOE_TINY, None)]
+                         + [(sum(r) // 2, dict(MOE_TINY, experts=len(r)), r) for r in MOE_ROUTINGS])
+def test_grouped_swiglu_against_fp32(cuda, t, sizes, rows):
+    """Decode, prefill and tiny ragged widths, skewed or edge routings (a row
+    no tile covers, or two do, is far off): error against fp32 at most 1.25
+    x the plain version's, 3 launches, rows all in tiles."""
+    args = moe_inputs(t, cuda, torch.Generator(device=cuda).manual_seed(t), rows=rows, **sizes)
+    got = torch.diff(args["ends"], prepend=args["ends"].new_zeros(1))
+    assert got.tolist() == rows if rows else got[1] == 0 and 4 * got.max() >= got.sum()
+    before = moe.grouped_swiglu.launches
+    debug.clear()
+    with torch.profiler.profile(), debug.span("call", device=cuda):
+        moe.grouped_swiglu(**args)
+    assert moe.grouped_swiglu.launches == before + 3
+    assert debug.records()[0]["counts"]["moe.tile_rows"] >= got.sum()
+    err, plain_err = moe_errors(**args)
+    assert err <= 1.25 * plain_err, (err, plain_err)
+
+
 @pytest.mark.parametrize("d", [32, 64])
 def test_rq_assign_duplicate_codes_give_the_first(cuda, d):
     """Codes 3, 130 and 255 identical at every level (the same thread, two
@@ -89,33 +108,6 @@ def test_rq_assign_refuses_what_it_cannot_run(cuda):
 
 # ---- flash attention ------------------------------------------------------
 
-def _flash_inputs(b, h, n, dtype, pad, seed):
-    rng = np.random.RandomState(seed)
-    q, k, v, do = (torch.from_numpy(rng.randn(b, h, n, 64).astype(np.float32)).to(dtype)
-                   for _ in range(4))
-    seg = torch.ones((b, n), dtype=torch.int32)
-    if pad:  # a padded tail and a padded stretch inside, as the trainer's masks give
-        seg[0, n - n // 3:] = 0
-        seg[-1, n // 4: n // 4 + 5] = 0
-    return q, k, v, do, seg
-
-
-@pytest.mark.parametrize("b,h,n,causal,dtype,pad", [
-    (2, 2, 200, False, torch.float32, True),
-    (2, 2, 200, True, torch.float32, True),
-    (1, 3, 130, False, torch.bfloat16, True),
-    (1, 1, 64, True, torch.bfloat16, False),
-    (2, 1, 257, False, torch.bfloat16, False),
-])
-def test_flash_attention_matches_plain(cuda, b, h, n, causal, dtype, pad):
-    from hidvae_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, do, seg = (t.to(cuda) for t in _flash_inputs(b, h, n, dtype, pad, n + h))
-    out, grads = _kernels_against_plain(fa, q, k, v, do, fa.SegmentIds(seg, seg), causal,
-                                        64 ** -0.5)
-    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
-
-
 def _kernels_against_plain(fa, q, k, v, do, ids, causal, scale):
     """One launch of each kernel; O, dQ, dK, dV finite and within FLASH_RTOL
     of the plain version. Returns (O, grads)."""
@@ -132,7 +124,7 @@ def _kernels_against_plain(fa, q, k, v, do, ids, causal, scale):
                                        sm_scale=scale)
     ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
     for got, want in zip((out, *grads), (ref, *ref_grads)):
-        assert torch.isfinite(got).all()
+        assert torch.isfinite(got).all() and got.dtype == q.dtype
         err = float((got.detach().float() - want.detach()).abs().max())
         assert err <= FLASH_RTOL[q.dtype] * float(want.abs().max()), err
     return out, grads
@@ -155,11 +147,13 @@ def test_flash_kernels_refuse_what_they_cannot_run(cuda):
 
 def _segments(b, n, mode, rng):
     """(seg_q, seg_kv, keyless rows [b, n]): "pad" one id set as the model
-    gives them; "cross" queries in segments 1-3, keys in 1-2."""
-    if mode == "pad":
+    gives them (a padded tail and stretch), "full" no padding; "cross"
+    queries in segments 1-3, keys in 1-2."""
+    if mode != "cross":
         seg = torch.ones((b, n), dtype=torch.int32)
-        seg[0, n - n // 3:] = 0
-        seg[-1, n // 4: n // 4 + 5] = 0
+        if mode == "pad":
+            seg[0, n - n // 3:] = 0
+            seg[-1, n // 4: n // 4 + 5] = 0
         return seg, seg, torch.zeros((b, n), dtype=torch.bool)
     seg_q = torch.from_numpy(rng.randint(1, 4, (b, n)).astype(np.int32))
     seg_q[:, 0] = 3
@@ -168,6 +162,11 @@ def _segments(b, n, mode, rng):
 
 
 @pytest.mark.parametrize("b,h,n,dh,causal,dtype,mode", [
+    (2, 2, 200, 64, False, torch.float32, "pad"),
+    (2, 2, 200, 64, True, torch.float32, "pad"),
+    (1, 3, 130, 64, False, torch.bfloat16, "pad"),
+    (1, 1, 64, 64, True, torch.bfloat16, "full"),
+    (2, 1, 257, 64, False, torch.bfloat16, "full"),
     (1, 2, 130, 64, False, torch.bfloat16, "pad"),     # ragged N
     (2, 1, 257, 64, False, torch.bfloat16, "cross"),   # rows with no key of their segment
     (2, 1, 257, 64, True, torch.bfloat16, "pad"),      # causal, ragged
@@ -200,8 +199,8 @@ def _segments(b, n, mode, rng):
     (1, 1, 2432, 128, True, torch.float32, "cross"),
 ])
 def test_flash_kernels_match_plain_at_each_width(cuda, b, h, n, dh, causal, dtype, mode):
-    """Forward, dK/dV and dQ against the plain version under a nonzero
-    cotangent, keyless rows (uniform weights) included, causal or not."""
+    """Each kernel against the plain version under a nonzero cotangent,
+    keyless rows (uniform weights) included, causal or not."""
     from chip_smoke import FLASH_RTOL
     from hidvae_tpu_torch.ops import flash_attention as fa
 

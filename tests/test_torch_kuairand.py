@@ -1,9 +1,7 @@
-"""The port's KuaiRand builder against the JAX package's, bitwise (every
-array, the tag-index JSON), on fabricated drops that hit the pandas
-behaviours it reproduces; the kuairand-raw preset against
-scripts/make_synthetic_kuairand.py; load_or_build."""
+"""The port's KuaiRand builder against the JAX package's, bitwise (arrays,
+tag-index JSON), on drops that hit the pandas behaviours it reproduces;
+kuairand-raw against scripts/make_synthetic_kuairand.py; load_or_build."""
 
-import csv
 import filecmp
 import os
 
@@ -20,9 +18,7 @@ NA = ("NA", "null", "None", "n/a", "nan", "#N/A", "<NA>")
 N_VIDEOS, N_USERS = 60, 30
 
 
-def write_csv(path, header, rows):
-    with open(path, "w", newline="", encoding="utf-8") as f:
-        csv.writer(f, lineterminator="\n").writerows([header, *rows])
+write_csv = load_script("torch_make_synthetic").write_csv
 
 
 def write_drop(root, layout="gaps", logs=(0, 1, 2), seed=0):

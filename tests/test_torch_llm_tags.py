@@ -138,8 +138,8 @@ def test_complete_tags_llm_journal_equals_jax(tmp_path):
 
 
 def test_chat_against_loopback_server_equals_jax():
-    """Both pools POST to /chat/completions of one loopback server; the
-    first answer is a 500 (retried), then a reply with JSON in its text."""
+    """Both pools POST to one loopback /chat/completions: a 500 (retried),
+    then a reply with JSON in its text."""
     seen = []
 
     class Handler(BaseHTTPRequestHandler):

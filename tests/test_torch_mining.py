@@ -30,12 +30,11 @@ from tests._torch_common import assert_rel as _assert_rel
 from tests._torch_common import flat, load_script, unflat
 from tests.test_torch_stage1_model import (assert_forward_as_jax, jax_mixup_draws, make_batch,
                                            make_pair)
+from tests.test_torch_stage1_trainer import TINY
 
 LOSS_RTOL = 1e-4
 REL_TOL = 1e-4
 LR = 1e-3
-TINY = dict(n_items=300, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
-            level_branching=(4, 3, 3))
 POOL = 16
 MINING = dict(
     batch_size=16, learning_rate=LR, weight_decay=0.015, vae_input_dim=32, vae_n_cat_feats=0,
@@ -188,9 +187,8 @@ def _pool(path):
 
 @pytest.fixture(scope="module")
 def jax_run(dataset_root, tmp_path_factory):
-    """The JAX trainer with mining, 2 + 2 mini-steps; its `latest` at 2 (the
-    save after the first audit's harvest) kept aside and exported with the
-    optimizer state, and the final `latest` exported."""
+    """The JAX trainer with mining, 2 + 2 mini-steps; `latest` at 2 (after
+    the first harvest) and at the end exported, the first with its state."""
     tmp = tmp_path_factory.mktemp("jax_mining")
     mp = pytest.MonkeyPatch()
     mp.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache

@@ -9,9 +9,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import build_vae, seeded_histories
+from chip_smoke import MOE_ROUTINGS, MOE_TINY, build_vae, moe_errors, moe_inputs, seeded_histories
 from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models.mla_moe import MlaMoeRetrievalModel
+from hidvae_tpu_torch.ops import moe_experts as moe
 from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.utils import debug
@@ -78,6 +79,22 @@ def test_moe_layer_matches_the_reference():
         shared = ref.swiglu(W, "layers.1.mlp.shared_experts", x, ref.Arith())
     assert torch.equal(idx.sort().values, ref_idx.sort().values)
     assert (want - shared).abs().max() > 0.1 and shared.abs().max() > 0.1
+
+
+@pytest.mark.parametrize("rows", MOE_ROUTINGS)
+def test_grouped_swiglu_plain_at_edge_routings(rows):
+    """The plain version (the CPU's path, the kernels' yardstick) in fp32
+    against a loop over the experts."""
+    args = moe_inputs(sum(rows) // 2, torch.device("cpu"), torch.Generator().manual_seed(5),
+                      **dict(MOE_TINY, experts=len(rows)), rows=rows)
+    args = {k: v.float() if v.is_floating_point() else v for k, v in args.items()}
+    [err] = moe_errors(**args, fns=(moe.grouped_swiglu_plain,))
+    assert err <= 1e-5, err
+
+
+def test_grouped_swiglu_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="one card"):
+        moe.grouped_swiglu(**moe_inputs(9, torch.device("cpu"), torch.Generator(), **MOE_TINY))
 
 
 def test_mla_prefill_matches_the_reference():

@@ -1,7 +1,5 @@
-"""Parity of the port's base ops and the rq_assign plain version against the
-JAX package, on the same seeded numpy inputs. The CUDA kernel itself is
-held against the plain version on the card (tests/test_torch_kernels.py,
-chip_smoke.py)."""
+"""The port's base ops and rq_assign's plain version against the JAX
+package on the same seeded inputs (the kernel: tests/test_torch_kernels.py)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -3,11 +3,6 @@ DP 2 x TP 2, TP 4; a fixed batch's gradients; `train` from its gin,
 split_batches=False, TP resumes across meshes, torchrun; a JAX TP run
 resumed at DP 2 x TP 2 within UPDATE_TOL of optax."""
 
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import jax
 import numpy as np
 import pytest
@@ -25,10 +20,10 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.parallel.mesh import make_mesh
 from tests import _torch_parallel_worker as worker
-from tests._torch_common import assert_rel, flat, load_script
+from tests._torch_common import assert_rel, flat, load_script, part, torchrun
 from tests.test_torch_train import _batches
+from tests.test_torch_trainer import TINY
 
-ROOT = Path(__file__).resolve().parent.parent
 # fp32: the ranks' sums (gradient averages, fp32 TP partials, loss means)
 # differ from one process's in order only, ~1e-7 relative per sum; a few
 # AdamW steps keep that near 1e-6.
@@ -42,8 +37,6 @@ LR = 0.0003
 BF16_LOSS_RTOL = 5e-3
 BF16_PARAM_TOL = 5e-3
 UPDATE_TOL = 1e-5   # the port's update against optax's (tests/test_torch_trainer.py)
-TINY = dict(n_items=200, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
-            level_branching=(4, 2, 2))
 ARRAYS_KW = dict(iterations=4, batch_size=8, log_every=1, partial_eval_every=4,
                  mixed_precision_type="fp32", decoder_embed_dim=16, attn_embed_dim=32,
                  attn_heads=2, attn_layers=2, vae_codebook_size=16, vae_n_layers=3,
@@ -138,10 +131,6 @@ def runs(tmp_path_factory):
     return one, ranks, want_jax
 
 
-def _part(result, prefix):
-    return {k[len(prefix) + 1:]: v for k, v in result.items() if k.startswith(prefix + ":")}
-
-
 def _assert_params(got, want, tol, what):
     keys = [k for k in want if k.startswith("p/")]
     assert keys and {k for k in got if k.startswith("p/")} == set(keys)
@@ -153,7 +142,7 @@ def _assert_params(got, want, tol, what):
 def test_arrays_run_on_a_mesh_equals_one_process(runs, k):
     one, ranks, _ = runs
     for r in ranks:
-        got = _part(r, f"arrays_tp{k}")
+        got = part(r, f"arrays_tp{k}")
         np.testing.assert_allclose(got["loss"], one["arrays"]["loss"], rtol=LOSS_RTOL)
         np.testing.assert_allclose(got["eval_loss"], one["arrays"]["eval_loss"], rtol=LOSS_RTOL)
         _assert_params(got, one["arrays"], PARAM_TOL, f"tp{k}")
@@ -161,14 +150,14 @@ def test_arrays_run_on_a_mesh_equals_one_process(runs, k):
 
 def test_bf16_dp_tp_run_equals_one_process(runs):
     one, ranks, _ = runs
-    got = _part(ranks[3], "arrays_bf16")
+    got = part(ranks[3], "arrays_bf16")
     np.testing.assert_allclose(got["loss"], one["arrays_bf16"]["loss"], rtol=BF16_LOSS_RTOL)
     _assert_params(got, one["arrays_bf16"], BF16_PARAM_TOL, "bf16")
 
 
 def test_batch_the_data_ranks_do_not_divide_runs_whole(runs):
     one, ranks, _ = runs
-    got = _part(ranks[1], "arrays_ragged")
+    got = part(ranks[1], "arrays_ragged")
     np.testing.assert_allclose(got["loss"], one["arrays_ragged"]["loss"], rtol=LOSS_RTOL)
     _assert_params(got, one["arrays_ragged"], PARAM_TOL, "ragged")
 
@@ -183,7 +172,7 @@ def test_gradients_and_update_equal_one_process(runs, name):
     grads = [k for k in want if k.startswith("g/")]
     assert "g/sem_id_embedder/emb/embedding" in grads
     for r in ranks:
-        got = _part(r, name)
+        got = part(r, name)
         for k in grads:
             assert_rel(got[k], want[k], GRAD_TOL, err_msg=f"{name} {k}")
             p = "p/" + k[2:]
@@ -200,7 +189,7 @@ def test_gradients_and_update_equal_one_process(runs, name):
 
 def test_split_batches_false_takes_the_global_batch(runs):
     one, ranks, _ = runs
-    got, want = _part(ranks[2], "split"), one["disk"]
+    got, want = part(ranks[2], "split"), one["disk"]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["eval_loss"], want["eval_loss"], rtol=LOSS_RTOL)
     metrics = [k for k in want if k.startswith(("full/", "test/"))]
@@ -215,22 +204,21 @@ def test_split_batches_false_takes_the_global_batch(runs):
 def test_checkpoint_resumes_across_meshes(runs, direction):
     one, ranks, _ = runs
     want = one["disk"]
-    got = one["resumed_tp"] if direction == "tp_to_one" else _part(ranks[0], "tp_resume")
+    got = one["resumed_tp"] if direction == "tp_to_one" else part(ranks[0], "tp_resume")
     np.testing.assert_allclose(got["loss"], want["loss"][2:], rtol=LOSS_RTOL)
     _assert_params(got, want, PARAM_TOL, direction)
 
 
 def test_jax_tp_checkpoint_resumes_at_dp_tp(runs):
     _, ranks, want = runs
-    got = _part(ranks[0], "jax")
+    got = part(ranks[0], "jax")
     for k, v in want.items():
         np.testing.assert_allclose(got[f"p/{k}"], v, rtol=0, atol=UPDATE_TOL, err_msg=k)
 
 
 def test_entry_script_under_torchrun(runs, tmp_path):
-    """torchrun --standalone --nproc-per-node 2 of the gin entry at
-    --model-shards 2 on the CPU: rank 0's checkpoint holds the whole arrays
-    of the one-process run's params."""
+    """The gin entry under torchrun on 2 CPU ranks at --model-shards 2: rank
+    0's checkpoint holds the one-process run's whole params."""
     from hidvae_tpu_torch.bridge import load_export_arrays
 
     one, _, _ = runs
@@ -240,15 +228,9 @@ def test_entry_script_under_torchrun(runs, tmp_path):
         if k not in ("dataset", "save_model_every"):
             v = list(v) if isinstance(v, tuple) else v
             lines.append(f"train.{k} = " + (f'"{v}"' if isinstance(v, str) else str(v)))
-    gin = tmp_path / "decoder.gin"
-    gin.write_text("\n".join(lines) + "\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-         str(ROOT / "scripts/torch_train_transformer.py"), str(gin), "--model-shards", "2",
-         "--device", "cpu"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
-    assert "on mesh {'data': 1, 'model': 2}" in res.stdout
+    out = torchrun("torch_train_transformer.py", tmp_path / "decoder.gin", lines,
+                   "--model-shards", "2")
+    assert "on mesh {'data': 1, 'model': 2}" in out
     (ckpt,) = (tmp_path / "runs").glob("decoder_SYNTHETIC_*/checkpoint_4")
     got = {f"p/{k.removeprefix('params/')}": v
            for k, v in load_export_arrays(str(ckpt), "params/").items()}

@@ -1,7 +1,6 @@
 """The port stands alone: with JAX, flax, orbax, optax and the JAX package
 refused, every module imports, an engine serves, chip_smoke.py's early
-phases run at tiny widths (the later: test_torch_port_phases.py); and
-the sources are small text files."""
+phases run tiny (the later: test_torch_port_phases.py); sources are small."""
 
 import os
 import subprocess

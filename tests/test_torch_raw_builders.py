@@ -1,7 +1,6 @@
 """The port's raw-file builders against the JAX package's, bitwise: the
-hash text encoder, build_amazon, the amazon-raw preset, build_movielens,
-load_or_build and the stage-1 entry's remap on a built drop.
-sentence_transformers is refused at import in every test."""
+hash text encoder, build_amazon, amazon-raw, build_movielens, load_or_build,
+the stage-1 entry's remap on a built drop; sentence_transformers refused."""
 
 import filecmp
 import gzip
@@ -167,9 +166,8 @@ def test_load_or_build_builds_as_jax(dataset, drops, tmp_path):
 
 
 def test_stage1_entry_on_a_built_drop_remaps_as_jax(drops, tmp_path):
-    """configs/h_rqvae_amazon.gin at tiny widths, force_dataset_process, on
-    the port's drop (a copy): the trainer builds the arrays, and its rare-tag
-    remap of the 5-column tags, cut to 3 levels, is JAX's."""
+    """h_rqvae_amazon.gin tiny, force_dataset_process, on the port's drop:
+    the trainer builds the arrays; its rare-tag remap (3 levels) is JAX's."""
     import shutil
 
     root = tmp_path / "amazon"

@@ -10,20 +10,18 @@ import numpy as np
 import pytest
 import torch
 
-from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
 from hidvae_tpu.models import attention as jattn
 from hidvae_tpu.models.embedder import compute_embedding_slots as j_slots
 from hidvae_tpu.ops.prefix_search import build_prefix_index as j_index
 from hidvae_tpu.ops.prefix_search import build_prefix_tries as j_tries
 from hidvae_tpu.train.device_data import tokenize_on_device as j_tokenize
-from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models import attention
 from hidvae_tpu_torch.models.embedder import compute_embedding_slots
 from hidvae_tpu_torch.models.retrieval import top_k_first_index
 from hidvae_tpu_torch.ops.prefix_search import build_prefix_index
 from hidvae_tpu_torch.tokenizer.h_semids import interleave_ids
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
-from tests._torch_common import japply, retrieval_pair
+from tests._torch_common import batch_pair, japply, retrieval_pair
 
 B, N, K = 4, 6, 16
 LOGIT_TOL = 1e-4
@@ -33,22 +31,8 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _batches(d, seed=0, b=B, n=N, k=K):
-    """The same tokenized batch for both packages; one ragged row."""
-    rng = np.random.RandomState(seed)
-    t = n * d
-    mask = np.ones((b, t), bool)
-    mask[1, (n - 2) * d:] = False
-    sem = np.where(mask, rng.randint(0, k, (b, t)), -1).astype(np.int32)
-    fut = rng.randint(0, k, (b, d)).astype(np.int32)
-    tt = np.tile(np.arange(d, dtype=np.int32), (b, n))
-    ttf = np.tile(np.arange(d, dtype=np.int32), (b, 1))
-    uid = np.arange(b, dtype=np.int32) * 977
-    jb = JBatch(user_ids=jnp.asarray(uid), sem_ids=jnp.asarray(sem),
-                sem_ids_fut=jnp.asarray(fut), seq_mask=jnp.asarray(mask),
-                token_type_ids=jnp.asarray(tt), token_type_ids_fut=jnp.asarray(ttf))
-    tb = TokenizedSeqBatch(*(torch.from_numpy(a) for a in (uid, sem, fut, mask, tt, ttf)))
-    return jb, tb
+def _batches(d, seed=0):
+    return batch_pair(B, N, d, seed, K, {1: N - 2})
 
 
 class TestAttention:

@@ -44,9 +44,8 @@ def test_duplicate_codes_give_the_first(seed, b, k, d, n_levels):
 
 
 def test_catalog_chunks_equal_one_call():
-    """An 18,357-item catalog (the P5 Sports split) swept in the tokenizer's
-    8,192-row chunks, 8,192 + 8,192 + 1,973 rows as the engine build
-    launches the kernel, equals one call on all rows, and JAX's."""
+    """18,357 items (P5 Sports) swept in 8,192-row chunks, as the engine
+    build launches the kernel, equal one call on all rows, and JAX's."""
     x, cbs = _case(5, 18357, 256, 32, 3)
     cbs_t = torch.from_numpy(cbs)
     chunks = []

@@ -41,12 +41,11 @@ from tests._torch_common import (
     unflat,
     write_gin,
 )
+from tests.test_torch_stage1_trainer import TINY
 
 ROOT = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-4
 REL_TOL = 1e-4
-TINY = dict(n_items=300, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
-            level_branching=(4, 3, 3))
 RQ = dict(batch_size=16, learning_rate=1e-3, weight_decay=0.015, max_grad_norm=0.5,
           vae_input_dim=32, vae_n_cat_feats=0, vae_hidden_dims=[32, 16], vae_embed_dim=8,
           vae_codebook_size=16, gradient_accumulate_every=2, commitment_weight=0.4,
@@ -242,9 +241,8 @@ def test_checkpoint_feeds_stage2_and_serving(port_runs, dataset_root, tmp_path):
 
 
 def test_entry_script_runs_the_gin(dataset_root, tmp_path):
-    """scripts/torch_train_rqvae.py on configs/rqvae_ml32m.gin cut to small
-    widths and the synthetic dataset: trains, evaluates, audits and saves; a
-    save re-audits unless its chunk audited (rqvae.py:327-333)."""
+    """scripts/torch_train_rqvae.py on rqvae_ml32m.gin cut small, synthetic
+    data: trains, evaluates, audits, saves (re-auditing, rqvae.py:327-333)."""
     text = (ROOT / "configs/rqvae_ml32m.gin").read_text()
     over = {"iterations": "8", "batch_size": "16", "vae_input_dim": "32",
             "vae_hidden_dims": "[32, 16]", "vae_embed_dim": "8", "vae_codebook_size": "16",
@@ -269,9 +267,8 @@ def test_entry_script_runs_the_gin(dataset_root, tmp_path):
 
 
 def test_ml32m_gin_refuses_built_ml32m_features_as_jax(tmp_path):
-    """configs/rqvae_ml32m.gin on a built ML-32M corpus (768 + genre
-    columns against the gin's 768): JAX fails at the reconstruction loss, the
-    port refuses before any step, naming both widths."""
+    """rqvae_ml32m.gin on a built ML-32M corpus (768 + genre columns): JAX
+    fails at the loss, the port refuses first, naming both widths."""
     import chip_smoke
 
     jm = JRqVae(input_dim=8, embed_dim=4, hidden_dims=(16,), codebook_size=8, n_layers=2,

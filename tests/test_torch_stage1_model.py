@@ -158,9 +158,8 @@ def test_train_forward_and_gradients(train, no_flax_dropout):
 
 
 def test_ids_in_train_mode_equal_jax(no_flax_dropout):
-    """The rotation trick's train-mode digits below the first differ from
-    the eval cascade's (hrqvae.py:467-478): the port's train IDs equal JAX's
-    train IDs, and its eval IDs JAX's eval IDs."""
+    """Train-mode digits differ from the eval cascade's (hrqvae.py:467-478):
+    train IDs equal JAX's train IDs, eval IDs its eval IDs."""
     jm, v, tm = make_pair()
     x = make_batch()[0]
     variables = {"params": unflat(v["params"]), "batch_stats": unflat(v["batch_stats"])}
@@ -172,8 +171,8 @@ def test_ids_in_train_mode_equal_jax(no_flax_dropout):
 
 
 def test_batch_stats_and_params_after_k_steps(no_flax_dropout):
-    """K_STEPS AdamW updates: BatchNorm statistics within STATS_ATOL of
-    flax's, parameters within REL_TOL but the biases that feed a BatchNorm."""
+    """K_STEPS AdamW updates: BatchNorm statistics within STATS_ATOL,
+    parameters within REL_TOL but the biases feeding a BatchNorm."""
     jm, v, tm = make_pair(mode="STE", use_mixup=False)
     tx = optax.adamw(1e-3, weight_decay=0.015)
     params, stats = unflat(v["params"]), unflat(v["batch_stats"])
@@ -208,8 +207,8 @@ def test_batch_stats_and_params_after_k_steps(no_flax_dropout):
 
 
 def test_bf16_products_track_flax():
-    """AMP: the MLP and tag-head products in bf16 on both sides, the
-    quantizer and losses fp32: the eval loss within BF16_RTOL of flax's."""
+    """AMP (MLP and tag-head products bf16, quantizer and losses fp32):
+    eval loss within BF16_RTOL of flax's."""
     jm, v, tm = make_pair(dtype="bf16")
     batch = make_batch()
     jloss, _ = jax.jit(_jax_loss(jm, batch, False))(unflat(v["params"]),

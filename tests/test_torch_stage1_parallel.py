@@ -83,9 +83,8 @@ def runs(request, tmp_path_factory):
 
 
 def _check(runs, prefix):
-    """Every key of the one-process reference under `prefix`: values
-    bitwise equal across ranks and within TOL of one process's; row gradients
-    concatenated, parameter gradients summed over the ranks, within TOL."""
+    """Each key under `prefix`: values bitwise equal across ranks, within TOL
+    of one process's; row gradients concatenated, parameters' summed."""
     ranks, ref = runs
     keys = [k for k in ref if k.startswith(prefix + "/")]
     assert keys, prefix

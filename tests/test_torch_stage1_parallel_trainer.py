@@ -2,11 +2,6 @@
 losses, evals, audits, tables, pools, params; split_batches=False;
 resumes across process counts; torchrun; JAX on 8 devices at DP 2."""
 
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import flax.linen as fnn
 import jax
 import numpy as np
@@ -20,14 +15,14 @@ from hidvae_tpu.models.quantize import QuantizeForwardMode as JMode
 from hidvae_tpu.train import hidvae as jtrainer
 from hidvae_tpu.train.common import save_checkpoint as j_save_checkpoint
 from hidvae_tpu.utils import runtime as jruntime
-from hidvae_tpu_torch.bridge import load_export_arrays, state_dict_to_flax
+from hidvae_tpu_torch.bridge import load_export_arrays
 from hidvae_tpu_torch.data.processed import RecDataset
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.train import hidvae
 from tests import _torch_parallel_worker as worker
-from tests._torch_common import flat, jax_batch_indices, unflat
+from tests._torch_common import flat, jax_batch_indices, part, torchrun, unflat
+from tests.test_torch_stage1_trainer import TINY
 
-ROOT = Path(__file__).resolve().parent.parent
 # fp32: the ranks' sums (all-reduced statistics and means, summed gradients)
 # differ from one process's in order only, ~1e-7 relative per sum.
 LOSS_RTOL = 1e-5
@@ -44,8 +39,6 @@ EVAL_RTOL = 1e-3
 JAX_LOSS_RTOL = 1e-4
 JAX_REL_TOL = 1e-4
 JAX_STATS_ATOL = 1e-5
-TINY = dict(n_items=300, n_users=40, feature_dim=32, tag_dim=16, max_seq_len=8, min_seq_len=4,
-            level_branching=(4, 3, 3))
 WIDTHS = dict(vae_input_dim=32, vae_n_cat_feats=0, vae_hidden_dims=[32, 16], vae_embed_dim=8,
               vae_codebook_size=32, vae_n_layers=3)
 HIDVAE = dict(
@@ -64,9 +57,8 @@ JAX_RUN = dict(DETERMINISTIC, iterations=2, eval_every=4, save_model_every=4)
 
 
 def _jax_run(root, tmp):
-    """The port's run of JAX_RUN, its `latest` written as an Orbax
-    checkpoint, and the JAX trainer resumed from it for JAX_RUN's steps: its
-    result, the port's checkpoint and the JAX batches."""
+    """The port's JAX_RUN, its `latest` as an Orbax checkpoint, the JAX
+    trainer resumed from it: its result, the checkpoint, the JAX batches."""
     first = hidvae.train(**dict(HIDVAE, **JAX_RUN), dataset_folder=root, device="cpu",
                          vae_codebook_mode=QuantizeForwardMode.ROTATION_TRICK,
                          save_dir_root=str(tmp / "probe"))
@@ -132,14 +124,9 @@ def runs(tmp_path_factory):
     return dict(one=one, ranks=ranks, jax=jres, root=root)
 
 
-def _part(result, prefix):
-    return {k[len(prefix) + 1:]: v for k, v in result.items() if k.startswith(prefix + ":")}
-
-
 def _assert_run(got, want, what, steps=slice(None)):
-    """Logged and eval metrics within LOSS_RTOL (the audits' and the last
-    steps' `steps` of the reference), the table and the pool equal, params
-    and statistics per leaf within PARAM_TOL."""
+    """Logged and eval metrics within LOSS_RTOL (at the reference's audits
+    and last steps), table and pool equal, leaves within PARAM_TOL."""
     for k in ("total_loss", "reconstruction_loss", "rqvae_loss", "tag_pred_loss",
               "tag_pred_accuracy"):
         if k in want:
@@ -178,9 +165,9 @@ def _assert_params(got, want, what):
 def test_dp_run_equals_one_process(runs, trainer, world):
     one, ranks = runs["one"], runs["ranks"][world]
     name = ("h" if trainer == "hidvae" else "r") + str(world)
-    want = _part(one, name[0])
+    want = part(one, name[0])
     for r in ranks:
-        got = _part(r, name)
+        got = part(r, name)
         _assert_run(got, want, f"{name} rank {r}")
         np.testing.assert_array_equal(got["iterations"], want["iterations"])
         assert got["bytes_per_step"] > 0 and want["bytes_per_step"] == 0
@@ -190,56 +177,49 @@ def test_dp_run_equals_one_process(runs, trainer, world):
 
 def test_batch_four_ranks_do_not_divide_runs_whole(runs):
     one, ranks = runs["one"], runs["ranks"][4]
-    want = _part(one, "r_ragged")
+    want = part(one, "r_ragged")
     for r in ranks:
-        got = _part(r, "r_ragged4")
+        got = part(r, "r_ragged4")
         _assert_run(got, want, "ragged")
         assert got["bytes_per_step"] == 0  # no split, no gradient all-reduce
 
 
 def test_split_batches_false_takes_the_global_batch(runs):
-    want = _part(runs["one"], "h")
+    want = part(runs["one"], "h")
     for r in runs["ranks"][2]:
-        _assert_run(_part(r, "h_split"), want, "split")
+        _assert_run(part(r, "h_split"), want, "split")
 
 
 @pytest.mark.parametrize("direction", ["dp_to_one", "one_to_dp"])
 def test_checkpoint_resumes_across_world_sizes(runs, direction):
     one = runs["one"]
-    want = _part(one, "h")
-    got = (_part(one, "h_dp_resumed") if direction == "dp_to_one"
-           else _part(runs["ranks"][2][0], "h_resume"))
+    want = part(one, "h")
+    got = (part(one, "h_dp_resumed") if direction == "dp_to_one"
+           else part(runs["ranks"][2][0], "h_resume"))
     _assert_run(got, want, direction, steps=slice(2, None))
 
 
 def test_entry_script_under_torchrun(runs, tmp_path):
-    """torchrun --standalone --nproc-per-node 2 of the gin entry on the CPU:
-    rank 0's `latest` holds the one-process run's params and statistics."""
+    """The gin entry under torchrun on 2 CPU ranks: rank 0's `latest` holds
+    the one-process run's params and statistics."""
     lines = ["import data.processed", "train.dataset = %data.processed.RecDataset.SYNTHETIC",
              f'train.dataset_folder = "{runs["root"]}"',
              f'train.save_dir_root = "{tmp_path / "runs"}"']
     for k, v in HIDVAE.items():
         if k != "dataset":
             lines.append(f"train.{k} = {v!r}")
-    gin = tmp_path / "s1.gin"
-    gin.write_text("\n".join(lines) + "\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-         str(ROOT / "scripts/torch_train_hidvae.py"), str(gin), "--device", "cpu"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
-    assert res.stdout.count("trained to step 4") == 1  # rank 0 alone reports
+    out = torchrun("torch_train_hidvae.py", tmp_path / "s1.gin", lines)
+    assert out.count("trained to step 4") == 1  # rank 0 alone reports
     (ckpt,) = (tmp_path / "runs").glob("hrqvae_SYNTHETIC_*/latest")
     got = {k.replace("params/", "p/", 1).replace("batch_stats/", "s/", 1): v
            for k, v in load_export_arrays(str(ckpt)).items()
            if k.startswith(("params/", "batch_stats/"))}
-    _assert_params(got, _part(runs["one"], "h"), "torchrun")
+    _assert_params(got, part(runs["one"], "h"), "torchrun")
 
 
 def test_port_at_dp2_follows_the_jax_data_parallel_run(runs):
     jh = runs["jax"]["history"]
-    got = _part(runs["ranks"][2][0], "jax")
+    got = part(runs["ranks"][2][0], "jax")
     np.testing.assert_array_equal(got["iterations"], jh["iterations"])
     for key in ("total_loss", "reconstruction_loss", "tag_pred_loss"):
         np.testing.assert_allclose(got[key], jh[key], rtol=JAX_LOSS_RTOL, err_msg=key)

@@ -9,21 +9,18 @@ import optax
 import pytest
 import torch
 from flax import linen as nn
-from flax import traverse_util
 
-from hidvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
 from hidvae_tpu.train.common import inverse_sqrt_schedule as j_schedule
 from hidvae_tpu.train.common import make_optimizer as j_make_optimizer
 from hidvae_tpu.train.device_data import random_crop_windows as j_crop
 from hidvae_tpu_torch.bridge import flax_param_key
-from hidvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from hidvae_tpu_torch.models import attention
 from hidvae_tpu_torch.models.init import TRUNC_NORMAL_STD, init_params_, lecun_normal_
 from hidvae_tpu_torch.ops.dropout import dropout
 from hidvae_tpu_torch.train import transformer as trainer
 from hidvae_tpu_torch.train.common import Optimizer, clip_by_global_norm_, inverse_sqrt_schedule
 from hidvae_tpu_torch.train.device_data import DeviceSeqData, random_crop_windows
-from tests._torch_common import retrieval_pair
+from tests._torch_common import batch_pair, flat, retrieval_pair
 
 K = 16
 # fp32 both sides. The optimizers get JAX's gradients: Adam would turn
@@ -42,31 +39,14 @@ TINY_DECODER = dict(vae_codebook_size=16, decoder_embed_dim=16, attn_layers=2,
 
 
 def _batches(b, n, d, seed):
-    """The same tokenized batch for both packages; ragged rows."""
-    rng = np.random.RandomState(seed)
-    t = n * d
-    mask = np.ones((b, t), bool)
-    mask[0, (n // 2) * d:] = False
-    mask[-1, (n - 1) * d:] = False
-    sem = np.where(mask, rng.randint(0, K, (b, t)), -1).astype(np.int32)
-    fut = rng.randint(0, K, (b, d)).astype(np.int32)
-    tt = np.tile(np.arange(d, dtype=np.int32), (b, n))
-    ttf = np.tile(np.arange(d, dtype=np.int32), (b, 1))
-    uid = np.arange(b, dtype=np.int32) * 977
-    arrays = (uid, sem, fut, mask, tt, ttf)
-    return (JBatch(*(jnp.asarray(a) for a in arrays)),
-            TokenizedSeqBatch(*(torch.from_numpy(a) for a in arrays)))
-
-
-def _flat(tree):
-    return {k: np.asarray(v) for k, v in traverse_util.flatten_dict(tree, sep="/").items()}
+    return batch_pair(b, n, d, seed, K, {0: n // 2, b - 1: n - 1})
 
 
 def _compare_leaves(jax_tree, torch_named, atol, rtol=0.0):
     """Every flax leaf against its torch counterpart through the bridge."""
-    flat = _flat(jax_tree)
-    assert len(flat) == len(torch_named)
-    for path, want in flat.items():
+    leaves = flat(jax_tree)
+    assert len(leaves) == len(torch_named)
+    for path, want in leaves.items():
         key, transpose = flax_param_key(path)
         got = torch_named[key].detach().numpy()
         np.testing.assert_allclose(got.T if transpose else got, want, atol=atol, rtol=rtol,
@@ -98,8 +78,8 @@ def test_loss_and_gradients_match_jax(n, flash, monkeypatch):
 
 @pytest.mark.parametrize("max_grad_norm", [None, 0.5])
 def test_three_adamw_updates_match_optax(max_grad_norm):
-    """The JAX trainer's optimizer and the port's fed the same gradients;
-    then the port's own steps from the same start reach the JAX run's loss."""
+    """Both optimizers fed the same gradients; then the port's own steps
+    reach the JAX run's loss."""
     jm, params, tm = _pair(6, seed=1)
     start = {k: p.detach().clone() for k, p in tm.named_parameters()}
     jb, tb = _batches(3, 6, 3, seed=2)
@@ -113,7 +93,7 @@ def test_three_adamw_updates_match_optax(max_grad_norm):
     named = dict(tm.named_parameters())
     for _ in range(3):
         grads = grad_fn(params)
-        for path, g in _flat(grads).items():
+        for path, g in flat(grads).items():
             key, transpose = flax_param_key(path)
             # a copy: the clip writes into the gradient in place
             named[key].grad = torch.from_numpy(np.array(g.T if transpose else g))

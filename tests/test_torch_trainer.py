@@ -1,6 +1,6 @@
-"""The port's stage-2 trainer on its gin surface, on the CPU: remat, bitwise
-checkpoints and resume, a converted JAX checkpoint resumed, the gin surface
-and its refusals, the plain RQ-VAE route and the entry's checkpoint served."""
+"""The stage-2 trainer on its gin surface, on the CPU: remat, bitwise resume,
+a converted JAX checkpoint resumed, refusals, the plain RQ-VAE route, the
+entry's checkpoint served."""
 
 import logging
 from pathlib import Path
@@ -200,8 +200,8 @@ def test_resume_in_the_port_is_bitwise(dataset_root, tmp_path):
 
 
 def test_jax_checkpoint_resumes_in_the_port(dataset_root, tmp_path, monkeypatch):
-    """A JAX run of 2 steps converted with its optimizer state restores
-    bitwise in the port; one AdamW update of both agrees within UPDATE_TOL."""
+    """A converted 2-step JAX run restores bitwise; one more AdamW update
+    of both agrees within UPDATE_TOL."""
     monkeypatch.setattr(jruntime, "_configured", True)  # keep the process PRNG and cache
     jax_common = dict(COMMON, use_h_tokenizer=False, eval_batches=0)
     del jax_common["dataset"]
@@ -327,8 +327,8 @@ def _stage1_export(root):
 
 
 def test_entry_script_trains_resumes_and_serves(dataset_root, tmp_path, monkeypatch, caplog):
-    """scripts/torch_train_transformer.py with --stage1: 3 steps, --resume
-    for 2 more, the checkpoint served by from_artifacts as the trained model."""
+    """The entry with --stage1: 3 steps, --resume for 2 more, the checkpoint
+    served by from_artifacts."""
     s1 = _stage1_export(tmp_path)
     lines = [f"train.{k} = {list(v) if isinstance(v, tuple) else v}"
              for k, v in COMMON.items() if k not in ("dataset", "make_plots")]

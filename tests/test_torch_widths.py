@@ -1,7 +1,5 @@
-"""Widths the port's CUDA kernels are built for: flash at head widths 64
-and 128, `rq_assign` at code widths 16, 32, 64 and 128. On the CPU the
-port runs every width (the plain versions), on CUDA it refuses others
-before any work."""
+"""The kernels' widths: flash at head widths 64 and 128, `rq_assign` at 16,
+32, 64 and 128; the plain versions take any, CUDA refuses others first."""
 
 import jax
 import jax.numpy as jnp
@@ -47,8 +45,8 @@ def test_rq_assign_width_check(dim, built):
 
 @pytest.mark.parametrize("d_out", [128, 192])
 def test_module_checks_the_width_and_matches_jax_dense(d_out, monkeypatch):
-    """One head of 128 or 192 over 2,101 tokens: the port checks the width
-    and takes the flash route, agreeing with JAX's dense path on valid rows."""
+    """One head of 128 or 192 over 2,101 tokens: width checked, the flash
+    route agreeing with JAX's dense path on valid rows."""
     jm = JMHA(d_out=d_out, num_heads=1)
     params = random_variables(jm, (jnp.zeros((2, 4, d_out)),), {"is_causal": False},
                               seed=d_out)["params"]
