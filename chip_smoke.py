@@ -35,7 +35,7 @@ from hidvae_tpu_torch.serve.engine import RetrievalEngine
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from hidvae_tpu_torch.train import transformer as trainer
-from hidvae_tpu_torch.train.common import repetition_rate
+from hidvae_tpu_torch.train.common import repetition_rate, sync
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
 from hidvae_tpu_torch.utils.ginlite import parse_gin_file
 from hidvae_tpu_torch.utils.runtime import full_fp32
@@ -129,11 +129,6 @@ def compare_ids(ids, ids_ref, ties):
     first = torch.argmax(diff.to(torch.int32), dim=-1)
     tie_at_first = torch.gather(ties, 1, first[:, None])[:, 0]
     return int(rows.sum()), int((rows & ~tie_at_first).sum())
-
-
-def sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def median_ms(fn, runs=10, warmup=3):

@@ -178,6 +178,15 @@ def build_prefix_tries(sorted_corpus, n_digits: int, budget_bytes: int = 64 << 2
     return tries
 
 
+def tries_on_device(tries, device):
+    """`build_prefix_tries`' levels as tensors on `device`; None where no
+    level has a trie."""
+    if not tries or all(t is None for t in tries.values()):
+        return None
+    return {lvl: None if t is None else tuple(torch.from_numpy(a).to(device) for a in t)
+            for lvl, t in tries.items()}
+
+
 def trie_digit_mask(starts, bitmaps, lo, hi):
     """Next-digit validity [Q, K] by trie-node lookup; all False where the
     range is empty. starts [M] int32, bitmaps [M, K] bool, lo/hi [Q]."""

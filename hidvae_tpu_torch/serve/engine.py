@@ -14,13 +14,16 @@ import torch
 
 from hidvae_tpu_torch.data.processed import ItemData, SeqData, load_or_build
 from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalModel
-from hidvae_tpu_torch.ops.prefix_search import build_prefix_index_with_perm, lookup_items
+from hidvae_tpu_torch.ops.prefix_search import (
+    build_prefix_index_with_perm,
+    lookup_items,
+    tries_on_device,
+)
 from hidvae_tpu_torch.parallel.mesh import gather_rows, shard_rows, shard_stage2_
 from hidvae_tpu_torch.tokenizer.sweep import features_fingerprint
 from hidvae_tpu_torch.train.common import (
     audit_rebuilt_corpus,
-    load_checkpoint_model_config,
-    reconcile_vae_config,
+    reconcile_decoder_geometry,
     restore_export,
 )
 from hidvae_tpu_torch.train.device_data import tokenize_on_device
@@ -80,23 +83,10 @@ class RetrievalEngine:
         )
         d = tokenizer.sem_ids_dim
         # The checkpoint's structural config over a stale gin's geometry.
-        dec = reconcile_vae_config(
-            stage2_export,
-            {
-                "decoder_embed_dim": g("decoder_embed_dim", 128),
-                "attn_embed_dim": g("attn_embed_dim", 512),
-                "attn_heads": g("attn_heads", 8),
-                "attn_layers": g("attn_layers", 8),
-            },
-            logger,
-        )
-        saved_d = (load_checkpoint_model_config(stage2_export) or {}).get("sem_id_dim")
-        if saved_d is not None and int(saved_d) != int(d):
-            raise ValueError(
-                f"decoder checkpoint {stage2_export} was trained with sem_id_dim={saved_d} "
-                f"but the stage-1 tokenizer produces {d} — the two checkpoints / ID-layout "
-                f"flags do not match."
-            )
+        dec = reconcile_decoder_geometry(
+            stage2_export, d, decoder_embed_dim=g("decoder_embed_dim", 128),
+            attn_embed_dim=g("attn_embed_dim", 512), attn_heads=g("attn_heads", 8),
+            attn_layers=g("attn_layers", 8), logger=logger)
         # Geometry from the reconciled tokenizer: the gin values may be stale.
         model = EncoderDecoderRetrievalModel(
             dec["decoder_embed_dim"], dec["attn_embed_dim"], dec["attn_heads"],
@@ -154,16 +144,8 @@ class RetrievalEngine:
         t2 = time.perf_counter()
         self.sorted_ids, self.perm = build_prefix_index_with_perm(self.corpus_ids)
         self.prefix_caps = tuple(tokenizer.prefix_caps) if tokenizer.prefix_caps else None
-        tries_np = tokenizer.prefix_tries(self.model.num_embeddings)
-        self.prefix_tries = None
-        if tries_np and any(t is not None for t in tries_np.values()):
-            self.prefix_tries = {
-                lvl: None if t is None else (
-                    torch.from_numpy(t[0]).to(self.device),
-                    torch.from_numpy(t[1]).to(self.device),
-                )
-                for lvl, t in tries_np.items()
-            }
+        self.prefix_tries = tries_on_device(tokenizer.prefix_tries(self.model.num_embeddings),
+                                            self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.build_times = {"table_s": t1 - t0, "audit_s": t2 - t1,

@@ -1,7 +1,7 @@
 """Training commons (counterpart of hidvae_tpu/train/common.py): schedules,
-the plateau controller, the optimizer, the chunked loop, checkpoints, the
-corpus audit, gradient reduction. `Optimizer` is optax's adamw (0.9,
-0.999, 1e-8) per group after the clip, then the plateau scale, inside
+the plateau controller, the optimizer, the chunked loop of all three
+trainers, checkpoints, the corpus audit, gradient reduction. `Optimizer`
+is optax's adamw (0.9, 0.999, 1e-8) per group after the clip, then the plateau scale, inside
 MultiSteps, its state named as flax names optax's (JAX runs resume here
 and back)."""
 
@@ -11,13 +11,20 @@ import json
 import logging
 import math
 import os
+import time
+from collections import deque
 from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from hidvae_tpu_torch.bridge import flax_named_parameters
-from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_
+from hidvae_tpu_torch.parallel.collectives import all_reduce_, broadcast_, collective_bytes
+from hidvae_tpu_torch.utils.debug import span
+
+STEP_SALT = 0x5EED  # the JAX trainers' fold_in constant for per-step keys
+LOSS_WINDOW = 1000  # per-step losses in the window mean (transformer.py:576, hidvae.py:667)
+GUMBEL_T = 0.2      # fixed by the reference stage-1 trainers (hidvae.py:555)
 
 
 def reduce_gradients_(params, group, divide_by: int = 1):
@@ -42,6 +49,16 @@ def run_stamp(mesh, device) -> str:
         broadcast_(stamp, torch.distributed.group.WORLD)
     s = str(int(stamp))
     return f"{s[:8]}_{s[8:]}"
+
+
+def global_batch(batch_size: int, split_batches: bool, mesh, log) -> int:
+    """The global batch, logged where it differs: under Accelerate's
+    split_batches=False `batch_size` is per data shard (hidvae.py:548-552)."""
+    if split_batches or mesh.n_data == 1:
+        return batch_size
+    log.info(f"split_batches=False: global batch = {batch_size * mesh.n_data} "
+             f"({mesh.n_data} data shards)")
+    return batch_size * mesh.n_data
 
 
 def local_rows(batch, rows: slice):
@@ -364,6 +381,75 @@ def chunk_events(start_iter: int, n_steps: int, cadences: Sequence[int], log_eve
         yield first, it, fired
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one training step: a function of (seed, step) only,
+    so a step's sample, crop and dropout draws do not depend on history."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed & 0x7FFFFFFF) << 32 | STEP_SALT << 16) ^ (step & 0xFFFFFFFF))
+    return g
+
+
+def sync(device):
+    """Wait for `device`'s work (a no-op off CUDA)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_chunks(step, readback, *, device, start_iter: int, n_steps: int, log_every: int,
+               loss_key: str, events=(), log=None) -> dict:
+    """The trainers' loop: steps start_iter .. + n_steps - 1 in the JAX
+    chunks. `step(it)` returns (loss, extra), device tensors, not synced. At
+    a chunk's end `readback(end, losses, extra)` reads the chunk's losses
+    (fp32) and the last step's extra back to the host, records the
+    trainer's history and returns (the losses as floats, `tail`); the loop
+    logs the window mean and `tail(ms per step, seconds since the first
+    step)`, runs each (every, fn) of `events` whose cadence the chunk
+    crosses, then syncs, keeping their time out of ms per step. Spans: a
+    root `train.step` a step, `train.readback` in a chunk's last. Returns
+    iterations, each chunk's last loss under `loss_key`, ms_per_step,
+    window_mean and collective_bytes_per_step."""
+    log = log or (lambda line: None)
+    history = {"iterations": [], loss_key: [], "ms_per_step": []}
+    moved = 0
+    window = deque(maxlen=LOSS_WINDOW)
+    sync(device)
+    t_start = t_last = time.perf_counter()
+    it_last = start_iter
+    for first, done, fired in chunk_events(start_iter, n_steps, [every for every, _ in events],
+                                           log_every):
+        losses = []
+        moved -= collective_bytes()
+        for it in range(first, done):
+            with span("train.step", device=device, step=it):
+                loss, extra = step(it)
+                losses.append(loss)
+                if it < done - 1:
+                    continue
+                with span("train.readback"):
+                    values, tail = readback(done, torch.stack(losses).float(), extra)
+                    moved += collective_bytes()
+                    now = time.perf_counter()
+                    ms = (now - t_last) * 1e3 / (done - it_last)
+                    if not math.isfinite(values[-1]):
+                        raise FloatingPointError(
+                            f"non-finite loss {values[-1]} at iteration {done - 1}")
+                    window.extend(values)
+                    history["iterations"].append(done - 1)
+                    history[loss_key].append(values[-1])
+                    history["ms_per_step"].append(ms)
+                    log(f"iter {done - 1}: loss={values[-1]:.4f} (window mean "
+                        f"{np.mean(window):.4f}) {tail(ms, now - t_start)}")
+                    for i in fired:
+                        events[i][1](done)
+                    if fired:
+                        sync(device)
+                    t_last, it_last = time.perf_counter(), done
+    history["window_mean"] = float(np.mean(window)) if window else None
+    # A resumed run too runs n_steps steps (start_iter .. + n_steps - 1).
+    history["collective_bytes_per_step"] = moved / max(n_steps, 1)
+    return history
+
+
 # ---------------- checkpoints ----------------
 
 META_KEYS = ("model_config", "metrics", "plateau")  # the payload keys meta.json holds
@@ -583,6 +669,27 @@ def reconcile_vae_config(pretrained_path: str, requested: dict, logger=None) -> 
             )
             out[key] = have
     return out
+
+
+def reconcile_decoder_geometry(path: str, sem_id_dim: int, *, decoder_embed_dim: int,
+                               attn_embed_dim: int, attn_heads: int, attn_layers: int,
+                               logger=None) -> dict:
+    """The decoder export's widths over the requested ones, as
+    `reconcile_vae_config` (other heads keep every shape and drift in
+    meaning); an export trained on another sem_id_dim than the frozen
+    tokenizer's is refused (ValueError)."""
+    rec = reconcile_vae_config(path, {"decoder_embed_dim": decoder_embed_dim,
+                                      "attn_embed_dim": attn_embed_dim,
+                                      "attn_heads": attn_heads, "attn_layers": attn_layers},
+                               logger)
+    saved_d = (load_checkpoint_model_config(path) or {}).get("sem_id_dim")
+    if saved_d is not None and int(saved_d) != int(sem_id_dim):
+        raise ValueError(
+            f"decoder checkpoint {path} was trained with sem_id_dim={saved_d} but the frozen "
+            f"tokenizer produces {sem_id_dim} — the stage-1 checkpoint / ID-layout flags do "
+            f"not match the one this decoder was trained against."
+        )
+    return rec
 
 
 # ---------------- corpus audit ----------------

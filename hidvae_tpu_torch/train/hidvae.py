@@ -16,10 +16,7 @@ in one all-reduce; rank 0 writes log, remap, checkpoints and plots."""
 
 import contextlib
 import logging
-import math
 import os
-import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -30,12 +27,14 @@ from hidvae_tpu_torch.models.hrqvae import HRqVae
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.losses import mixup_draw
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
-from hidvae_tpu_torch.parallel.collectives import collective_bytes
 from hidvae_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_rows
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
+from hidvae_tpu_torch.train import plots
 from hidvae_tpu_torch.train.common import (
+    GUMBEL_T,
+    STEP_SALT,
     ReduceLROnPlateau,
-    chunk_events,
+    global_batch,
     id_diversity_metrics,
     kmeans_init_,
     local_rows,
@@ -44,10 +43,12 @@ from hidvae_tpu_torch.train.common import (
     make_optimizer,
     reduce_gradients_,
     restore_checkpoint,
+    run_chunks,
     run_logging,
     run_stamp,
     save_checkpoint,
     save_on_main,
+    step_generator,
     structural_model_config,
 )
 from hidvae_tpu_torch.train.device_data import DeviceItemData, harvest_duplicate_pairs
@@ -57,13 +58,10 @@ from hidvae_tpu_torch.train.tags import (
     post_remap_class_counts,
     reconcile_tag_layers,
 )
-from hidvae_tpu_torch.train.transformer import STEP_SALT, step_generator
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
 logger = logging.getLogger("hidvae_tpu_torch.train.hidvae")
 
-GUMBEL_T = 0.2        # fixed by the reference trainers (hidvae.py:555)
-LOSS_WINDOW = 1000    # per-step losses in the window mean (hidvae.py:667)
 TTA_AUGMENTATIONS = 5  # passes of the test-time augmentation, noise 0.02 * i
 TTA_SALT = 0x77A      # seeds the augmentation noise, the same for every eval
 SCALAR_METRICS = ("loss", "reconstruction_loss", "rqvae_loss", "tag_align_loss",
@@ -258,11 +256,6 @@ def _save(save_dir, name, step, model, optimizer, eval_metrics, rep, plateau_ctl
     return save_checkpoint(save_dir, name, payload)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def train(
     iterations=50_000,
     batch_size=64,
@@ -343,7 +336,7 @@ def train(
     "tag_class_counts", "rare_tags", "best_eval_accuracy", "saved_paths",
     "data", "class_counts", "n_pair_rows", "mining_pool_start",
     "corpus_ids", "mesh"}; history: the JAX keys, ms_per_step,
-    mined_pair_collision_rate, mining_pool_refreshed,
+    window_mean, mined_pair_collision_rate, mining_pool_refreshed,
     collective_bytes_per_step."""
     mesh = make_mesh()
     device = resolve_device(device)
@@ -351,10 +344,7 @@ def train(
     config = {k: v for k, v in locals().items() if k != "mesh"}
     with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
-        if not split_batches and mesh.n_data > 1:
-            batch_size *= mesh.n_data  # hidvae.py:548-552: batch_size per data shard
-            logger.info(f"split_batches=False: global batch = {batch_size} "
-                        f"({mesh.n_data} data shards)")
+        batch_size = global_batch(batch_size, split_batches, mesh, logger)
         # ---- data (hidvae.py:317-376): the .npz read once, for every split ----
         arrays = load_or_build(dataset_folder, dataset, dataset_split, force_dataset_process)
         train_dataset = ItemData(dataset_folder, dataset, arrays=arrays,
@@ -485,136 +475,117 @@ def train(
         tta_predict = make_tta_predict(model, eval_tta, eval_temperature) if has_tags else None
 
         history = {k: [] for k in [
-            "iterations", "total_loss", "reconstruction_loss", "rqvae_loss",
-            "tag_align_loss", "tag_pred_loss", "tag_pred_accuracy",
-            "eval_iterations", "eval_total_loss", "eval_tag_pred_accuracy",
-            "rqvae_entropy", "max_id_duplicates", "repetition_rate", "ms_per_step",
-            "mined_pair_collision_rate", "mining_pool_refreshed",
+            "reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
+            "tag_pred_accuracy", "eval_iterations", "eval_total_loss", "eval_tag_pred_accuracy",
+            "rqvae_entropy", "max_id_duplicates", "repetition_rate", "mined_pair_collision_rate",
+            "mining_pool_refreshed",
         ]}
-        rows, layout = shard_rows(batch_size, mesh), batch_rows(batch_size, mesh)
-        moved, corpus_ids = 0, None
         history["emb_norms"] = [[] for _ in range(vae_n_layers)]
         history["codebook_usage"] = [[] for _ in range(vae_n_layers)]
+        rows, layout = shard_rows(batch_size, mesh), batch_rows(batch_size, mesh)
+        corpus_ids = None
         best_eval_accuracy = 0.0
         saved_paths = []
+        last_audit = (None, None)  # (iteration, repetition) of the newest audit
         total_steps = iterations * gradient_accumulate_every
-        loss_window = deque(maxlen=LOSS_WINDOW)
-        _sync(device)
-        t_start = t_last = time.perf_counter()
-        it_last = start_iter
-        end = start_iter + total_steps
-        for first, it, fired in chunk_events(start_iter, total_steps,
-                                             [eval_every, save_model_every], log_every):
-            step_losses = []
-            moved -= collective_bytes()
-            for step in range(first, it):
-                g, host = step_rngs(seed, step, device)
-                x, te, ti = local_rows(ddata.sample(g, batch_size, n_pair_rows), rows)
-                metrics = train_step(x, te, ti, g, host, layout)
-                step_losses.append(metrics["loss"])
-            moved += collective_bytes()
-            # One read-back per chunk: the chunk's losses and the last step's metrics.
-            losses = torch.stack(step_losses).float().tolist()
+
+        def step(it):
+            g, host = step_rngs(seed, it, device)
+            x, te, ti = local_rows(ddata.sample(g, batch_size, n_pair_rows), rows)
+            metrics = train_step(x, te, ti, g, host, layout)
+            return metrics["loss"], metrics
+
+        def readback(done, losses, metrics):
             last = torch.cat([torch.stack([metrics[k].float() for k in SCALAR_METRICS]),
                               metrics["emb_norms"].float()]).tolist()
-            now = time.perf_counter()
-            history["ms_per_step"].append((now - t_last) * 1e3 / (it - it_last))
             m = dict(zip(SCALAR_METRICS, last))
-            if not math.isfinite(m["loss"]):
-                raise FloatingPointError(f"non-finite loss {m['loss']} at iteration {it - 1}")
-            loss_window.extend(losses)
-            history["iterations"].append(it - 1)
-            history["total_loss"].append(m["loss"])
             for k in ("reconstruction_loss", "rqvae_loss", "tag_align_loss", "tag_pred_loss",
                       "tag_pred_accuracy", "mined_pair_collision_rate"):
                 history[k].append(m[k])
             for level in range(vae_n_layers):
                 history["emb_norms"][level].append(last[len(SCALAR_METRICS) + level])
-            logger.info(
-                f"iter {it - 1}: loss={m['loss']:.4f} (window mean {np.mean(loss_window):.4f}) "
+            return losses.tolist(), lambda ms, seconds: (
                 f"recon={m['reconstruction_loss']:.4f} rq={m['rqvae_loss']:.4f} "
                 f"align={m['tag_align_loss']:.4f} pred={m['tag_pred_loss']:.4f} "
                 f"acc={m['tag_pred_accuracy']:.4f} p_unique={m['p_unique_ids']:.4f} "
                 + (f"mined_coll={m['mined_pair_collision_rate']:.3f} " if n_pair_rows else "")
-                + f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
+                + f"({(done - start_iter) * batch_size / seconds:.0f} items/s)")
 
-            do_eval_now = do_eval and 0 in fired
-            do_save_now = 1 in fired
-            last_audit = (None, None)  # (iteration, repetition) of this chunk's audit
-            if do_eval_now and eval_dataset is not None and len(eval_dataset) > 0:
-                eval_metrics = _run_eval(eval_step, tta_predict, eval_dataset, batch_size,
-                                         has_tags, eval_batches, device, seed ^ TTA_SALT)
-                history["eval_iterations"].append(it)
-                history["eval_total_loss"].append(eval_metrics["loss"])
-                history["eval_tag_pred_accuracy"].append(eval_metrics["tag_pred_accuracy"])
-                logger.info(f"eval @ {it}: {eval_metrics}")
-                if plateau_ctl is not None:
-                    old_scale = plateau_ctl.scale
-                    new_scale = plateau_ctl.step(eval_metrics["loss"])
-                    if new_scale != old_scale:
-                        optimizer.plateau_scale = new_scale
-                        logger.info(f"ReduceLROnPlateau: eval loss plateaued, LR scale "
-                                    f"{old_scale:.3g} -> {new_scale:.3g} "
-                                    f"(lr = {learning_rate * new_scale:.3g})")
-                # The corpus audit (hidvae.py:738-771).
-                tokenizer = HSemanticIdTokenizer(
-                    model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
-                    tag_class_counts=tag_class_counts, device=device)
-                corpus_ids = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
-                div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
-                if n_pair_rows:
-                    # By (seed, step): a resumed run harvests the same pool.
-                    harvested = harvest_duplicate_pairs(
-                        corpus_ids, train_dataset.indices, sem_id_mining_pool,
-                        np.random.RandomState((seed * MINING_SALT + it) % (2 ** 31)))
-                    if harvested is not None:
-                        ddata = ddata._replace(mining_pairs=torch.from_numpy(harvested).to(device))
-                        history["mining_pool_refreshed"].append(it)
-                        logger.info(f"Mining pool refreshed from audit @ {it}: "
-                                    f"{len(harvested)} pair slots")
-                history["rqvae_entropy"].append(div["rqvae_entropy"])
-                history["max_id_duplicates"].append(div["max_id_duplicates"])
-                history["repetition_rate"].append(div["repetition_rate"])
-                for level in range(vae_n_layers):
-                    history["codebook_usage"][level].append(div["codebook_usage"][level])
-                logger.info(f"diversity @ {it}: {div}")
-                eval_acc = eval_metrics.get("tta_accuracy",
-                                            eval_metrics.get("tag_pred_accuracy", 0.0))
-                rep = div["repetition_rate"]
-                last_audit = (it, rep)
-                # The quality-gated checkpoint (hidvae.py:778-791).
-                gate_ok = (not has_tags or eval_acc > 0.60) and rep < id_repetition_threshold
-                if gate_ok and eval_acc >= best_eval_accuracy:
-                    best_eval_accuracy = eval_acc
-                    name = (f"hrqvae_ACC{eval_acc:.4f}_"
-                            f"RQLOSS{eval_metrics['rqvae_loss']:.4f}_DUPR{rep:.4f}")
-                    path = save_on_main(mesh, save_dir, name, lambda: _save(
-                        save_dir, name, it, model, optimizer, eval_metrics, rep, plateau_ctl,
-                        ddata.mining_pairs))
-                    saved_paths.append(path)
-                    logger.info(f"Gated checkpoint saved: {path}")
-            if do_save_now:
-                # This chunk's audit, if any, for stage 2's collapse guard.
-                rep_now = last_audit[1] if last_audit[0] == it else None
-                saved_paths.append(save_on_main(mesh, save_dir, "latest", lambda: _save(
-                    save_dir, "latest", it, model, optimizer, {}, rep_now, plateau_ctl,
-                    ddata.mining_pairs)))
-            if fired:  # keep eval and save time out of ms per step
-                _sync(device)
-            t_last, it_last = time.perf_counter(), it
+        def evaluate(it):
+            """Eval, plateau, the corpus audit, the mining harvest and the
+            gated checkpoint (hidvae.py:711-791)."""
+            nonlocal ddata, corpus_ids, best_eval_accuracy, last_audit
+            if not do_eval or eval_dataset is None or len(eval_dataset) == 0:
+                return
+            eval_metrics = _run_eval(eval_step, tta_predict, eval_dataset, batch_size,
+                                     has_tags, eval_batches, device, seed ^ TTA_SALT)
+            history["eval_iterations"].append(it)
+            history["eval_total_loss"].append(eval_metrics["loss"])
+            history["eval_tag_pred_accuracy"].append(eval_metrics["tag_pred_accuracy"])
+            logger.info(f"eval @ {it}: {eval_metrics}")
+            if plateau_ctl is not None:
+                old_scale = plateau_ctl.scale
+                new_scale = plateau_ctl.step(eval_metrics["loss"])
+                if new_scale != old_scale:
+                    optimizer.plateau_scale = new_scale
+                    logger.info(f"ReduceLROnPlateau: eval loss plateaued, LR scale "
+                                f"{old_scale:.3g} -> {new_scale:.3g} "
+                                f"(lr = {learning_rate * new_scale:.3g})")
+            # The corpus audit (hidvae.py:738-771).
+            tokenizer = HSemanticIdTokenizer(
+                model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
+                tag_class_counts=tag_class_counts, device=device)
+            corpus_ids = tokenizer.precompute_corpus_ids(index_feats, mesh=mesh).cpu().numpy()
+            div = id_diversity_metrics(corpus_ids, vae_codebook_size, vae_n_layers)
+            if n_pair_rows:
+                # By (seed, step): a resumed run harvests the same pool; the
+                # next step samples from it.
+                harvested = harvest_duplicate_pairs(
+                    corpus_ids, train_dataset.indices, sem_id_mining_pool,
+                    np.random.RandomState((seed * MINING_SALT + it) % (2 ** 31)))
+                if harvested is not None:
+                    ddata = ddata._replace(mining_pairs=torch.from_numpy(harvested).to(device))
+                    history["mining_pool_refreshed"].append(it)
+                    logger.info(f"Mining pool refreshed from audit @ {it}: "
+                                f"{len(harvested)} pair slots")
+            history["rqvae_entropy"].append(div["rqvae_entropy"])
+            history["max_id_duplicates"].append(div["max_id_duplicates"])
+            history["repetition_rate"].append(div["repetition_rate"])
+            for level in range(vae_n_layers):
+                history["codebook_usage"][level].append(div["codebook_usage"][level])
+            logger.info(f"diversity @ {it}: {div}")
+            eval_acc = eval_metrics.get("tta_accuracy",
+                                        eval_metrics.get("tag_pred_accuracy", 0.0))
+            rep = div["repetition_rate"]
+            last_audit = (it, rep)
+            # The quality-gated checkpoint (hidvae.py:778-791).
+            gate_ok = (not has_tags or eval_acc > 0.60) and rep < id_repetition_threshold
+            if gate_ok and eval_acc >= best_eval_accuracy:
+                best_eval_accuracy = eval_acc
+                name = (f"hrqvae_ACC{eval_acc:.4f}_"
+                        f"RQLOSS{eval_metrics['rqvae_loss']:.4f}_DUPR{rep:.4f}")
+                path = save_on_main(mesh, save_dir, name, lambda: _save(
+                    save_dir, name, it, model, optimizer, eval_metrics, rep, plateau_ctl,
+                    ddata.mining_pairs))
+                saved_paths.append(path)
+                logger.info(f"Gated checkpoint saved: {path}")
 
-        # A resumed run too runs total_steps mini-steps (start_iter .. end - 1).
-        history["collective_bytes_per_step"] = moved / max(total_steps, 1)
+        def save(it):
+            # This chunk's audit, if any, for stage 2's collapse guard.
+            rep_now = last_audit[1] if last_audit[0] == it else None
+            saved_paths.append(save_on_main(mesh, save_dir, "latest", lambda: _save(
+                save_dir, "latest", it, model, optimizer, {}, rep_now, plateau_ctl,
+                ddata.mining_pairs)))
+
+        history.update(run_chunks(step, readback, device=device, start_iter=start_iter,
+                                  n_steps=total_steps, log_every=log_every,
+                                  loss_key="total_loss", log=logger.info,
+                                  events=((eval_every, evaluate), (save_model_every, save))))
         if make_plots and mesh.is_main:
-            try:
-                from hidvae_tpu_torch.train.plots import plot_hidvae_history
+            plots.save_plots(plots.plot_hidvae_history, history, save_dir, logger)
 
-                plot_hidvae_history(history, os.path.join(save_dir, "plots"))
-            except Exception as e:  # plots are optional; no metric depends on them
-                logger.warning(f"Plotting failed: {e}")
-
-        return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
-                "history": history, "tag_class_counts": tag_class_counts,
+        return {"model": model, "optimizer": optimizer, "step": start_iter + total_steps,
+                "save_dir": save_dir, "history": history, "tag_class_counts": tag_class_counts,
                 "rare_tags": rare_tags_dict, "best_eval_accuracy": best_eval_accuracy,
                 "saved_paths": saved_paths, "data": ddata, "class_counts": class_counts,
                 "n_pair_rows": n_pair_rows, "mesh": mesh, "corpus_ids": corpus_ids,

@@ -4,6 +4,15 @@ matplotlib a run trains all the same and logs the failure."""
 import os
 
 
+def save_plots(plot, history: dict, save_dir: str, log):
+    """`plot(history, save_dir/plots)`; plots are optional (no metric
+    depends on them), so a failure is logged and the run goes on."""
+    try:
+        plot(history, os.path.join(save_dir, "plots"))
+    except Exception as e:
+        log.warning(f"Plotting failed: {e}")
+
+
 def _pyplot():
     import matplotlib
 

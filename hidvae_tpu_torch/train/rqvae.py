@@ -11,10 +11,7 @@ Under a process group it is data-parallel as the HiD-VAE trainer
 
 import contextlib
 import logging
-import math
 import os
-import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -24,11 +21,12 @@ from hidvae_tpu_torch.data.processed import ItemData, RecDataset, load_or_build
 from hidvae_tpu_torch.models.init import init_params_
 from hidvae_tpu_torch.models.quantize import QuantizeForwardMode
 from hidvae_tpu_torch.models.rqvae import RqVae
-from hidvae_tpu_torch.parallel.collectives import collective_bytes
 from hidvae_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_rows
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.train import plots
 from hidvae_tpu_torch.train.common import (
-    chunk_events,
+    GUMBEL_T,
+    global_batch,
     id_diversity_metrics,
     kmeans_init_,
     local_rows,
@@ -37,15 +35,15 @@ from hidvae_tpu_torch.train.common import (
     make_optimizer,
     reduce_gradients_,
     restore_checkpoint,
+    run_chunks,
     run_logging,
     run_stamp,
     save_checkpoint,
     save_on_main,
+    step_generator,
     structural_model_config,
 )
 from hidvae_tpu_torch.train.device_data import DeviceItemData
-from hidvae_tpu_torch.train.hidvae import GUMBEL_T, LOSS_WINDOW, _sync
-from hidvae_tpu_torch.train.transformer import step_generator
 from hidvae_tpu_torch.utils.runtime import resolve_device
 
 logger = logging.getLogger("hidvae_tpu_torch.train.rqvae")
@@ -88,9 +86,7 @@ def make_train_step(model, optimizer, gumbel_t: float = GUMBEL_T):
         if rows is not None:
             reduce_gradients_(optimizer.params, rows.group)
         optimizer.step()
-        m = {k: getattr(out, k).detach() for k in SCALAR_METRICS}
-        m["emb_norms"] = torch.mean(out.embs_norm.detach(), dim=0)
-        return m
+        return {k: getattr(out, k).detach() for k in SCALAR_METRICS}
 
     return train_step
 
@@ -175,17 +171,14 @@ def train(
     """`python train_rqvae.py CONFIG.gin`; `iterations` counts updates.
     Returns {"model", "optimizer", "step", "save_dir", "history",
     "saved_paths", "data", "corpus_ids", "mesh"}; history: the JAX keys,
-    ms_per_step, collective_bytes_per_step."""
+    ms_per_step, window_mean, collective_bytes_per_step."""
     mesh = make_mesh()
     device = resolve_device(device)
     save_dir = os.path.join(save_dir_root, f"rqvae_{dataset.name}_{run_stamp(mesh, device)}")
     config = {k: v for k, v in locals().items() if k != "mesh"}
     with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
-        if not split_batches and mesh.n_data > 1:
-            batch_size *= mesh.n_data  # rqvae.py: batch_size per data shard
-            logger.info(f"split_batches=False: global batch = {batch_size} "
-                        f"({mesh.n_data} data shards)")
+        batch_size = global_batch(batch_size, split_batches, mesh, logger)
         arrays = load_or_build(dataset_folder, dataset, dataset_split, force_dataset_process)
         width = arrays.item_features.shape[1]
         if width != vae_input_dim:  # JAX fails at the first reconstruction loss
@@ -234,93 +227,74 @@ def train(
                                    use_dedup_dim=use_dedup_dim, device=device, mesh=mesh)
 
         history = {k: [] for k in [
-            "iterations", "total_loss", "reconstruction_loss", "rqvae_loss",
-            "eval_iterations", "eval_total_loss", "rqvae_entropy",
-            "max_id_duplicates", "repetition_rate", "ms_per_step",
+            "reconstruction_loss", "rqvae_loss", "eval_iterations", "eval_total_loss",
+            "rqvae_entropy", "max_id_duplicates", "repetition_rate",
         ]}
         rows, layout = shard_rows(batch_size, mesh), batch_rows(batch_size, mesh)
-        moved = 0
         saved_paths = []
         total_steps = iterations * gradient_accumulate_every
-        loss_window = deque(maxlen=LOSS_WINDOW)
         last_audit = (None, None, None)  # (iteration, diversity, table) of the newest audit
-        _sync(device)
-        t_start = t_last = time.perf_counter()
-        it_last = start_iter
-        end = start_iter + total_steps
-        for first, it, fired in chunk_events(start_iter, total_steps,
-                                             [eval_every, save_model_every], log_every):
-            step_losses = []
-            moved -= collective_bytes()
-            for step in range(first, it):
-                g = step_generator(seed, step, device)
-                x, _, _ = local_rows(ddata.sample(g, batch_size), rows)
-                metrics = train_step(x, g, layout)
-                step_losses.append(metrics["loss"])
-            moved += collective_bytes()
-            # One read-back per chunk: the chunk's losses and the last step's metrics.
-            losses = torch.stack(step_losses).float().tolist()
-            last = torch.stack([metrics[k].float() for k in SCALAR_METRICS]).tolist()
-            now = time.perf_counter()
-            history["ms_per_step"].append((now - t_last) * 1e3 / (it - it_last))
-            m = dict(zip(SCALAR_METRICS, last))
-            if not math.isfinite(m["loss"]):
-                raise FloatingPointError(f"non-finite loss {m['loss']} at iteration {it - 1}")
-            loss_window.extend(losses)
-            history["iterations"].append(it - 1)
-            history["total_loss"].append(m["loss"])
+
+        def step(it):
+            g = step_generator(seed, it, device)
+            x, _, _ = local_rows(ddata.sample(g, batch_size), rows)
+            metrics = train_step(x, g, layout)
+            return metrics["loss"], metrics
+
+        def readback(done, losses, metrics):
+            m = dict(zip(SCALAR_METRICS,
+                         torch.stack([metrics[k].float() for k in SCALAR_METRICS]).tolist()))
             history["reconstruction_loss"].append(m["reconstruction_loss"])
             history["rqvae_loss"].append(m["rqvae_loss"])
-            logger.info(
-                f"iter {it - 1}: loss={m['loss']:.4f} (window mean {np.mean(loss_window):.4f}) "
+            return losses.tolist(), lambda ms, seconds: (
                 f"recon={m['reconstruction_loss']:.4f} rq={m['rqvae_loss']:.4f} "
                 f"p_unique={m['p_unique_ids']:.4f} "
-                f"({(it - start_iter) * batch_size / (now - t_start):.0f} items/s)")
+                f"({(done - start_iter) * batch_size / seconds:.0f} items/s)")
 
-            if do_eval and 0 in fired:
-                if eval_dataset is not None and len(eval_dataset) > 0:
-                    eval_metrics = _run_eval(eval_step, eval_dataset, batch_size, eval_batches,
-                                             device)
-                    history["eval_iterations"].append(it)
-                    history["eval_total_loss"].append(eval_metrics["loss"])
-                    logger.info(f"eval @ {it}: {eval_metrics}")
-                div, table = audit()
-                history["rqvae_entropy"].append(div["rqvae_entropy"])
-                history["max_id_duplicates"].append(div["max_id_duplicates"])
-                history["repetition_rate"].append(div["repetition_rate"])
-                last_audit = (it, div, table)
-                logger.info(f"diversity @ {it}: {div}")
-            if 1 in fired:
-                # For stage 2's collapse guard, unless this chunk's is newest.
-                if last_audit[0] != it:
-                    last_audit = (it, *audit())
-                    logger.info(f"diversity @ save {it}: {last_audit[1]}")
-                div = last_audit[1]
-                payload = {
-                    "step": it,
-                    "params": state_dict_to_flax(model)[0],
-                    "opt_state": optimizer.state_dict(model),
-                    "model_config": structural_model_config(model),
-                    "metrics": {"repetition_rate": div["repetition_rate"],
-                                "rqvae_entropy": div["rqvae_entropy"]},
-                }
-                name = f"checkpoint_{it - 1}"
-                saved_paths.append(save_on_main(mesh, save_dir, name,
-                                                lambda: save_checkpoint(save_dir, name, payload)))
-            if fired:  # keep eval, audit and save time out of ms per step
-                _sync(device)
-            t_last, it_last = time.perf_counter(), it
+        def evaluate(it):
+            """Eval and the corpus audit (rqvae.py:278-320)."""
+            nonlocal last_audit
+            if not do_eval:
+                return
+            if eval_dataset is not None and len(eval_dataset) > 0:
+                eval_metrics = _run_eval(eval_step, eval_dataset, batch_size, eval_batches,
+                                         device)
+                history["eval_iterations"].append(it)
+                history["eval_total_loss"].append(eval_metrics["loss"])
+                logger.info(f"eval @ {it}: {eval_metrics}")
+            div, table = audit()
+            history["rqvae_entropy"].append(div["rqvae_entropy"])
+            history["max_id_duplicates"].append(div["max_id_duplicates"])
+            history["repetition_rate"].append(div["repetition_rate"])
+            last_audit = (it, div, table)
+            logger.info(f"diversity @ {it}: {div}")
 
-        # A resumed run too runs total_steps mini-steps (start_iter .. end - 1).
-        history["collective_bytes_per_step"] = moved / max(total_steps, 1)
+        def save(it):
+            nonlocal last_audit
+            # For stage 2's collapse guard, unless this chunk's is newest.
+            if last_audit[0] != it:
+                last_audit = (it, *audit())
+                logger.info(f"diversity @ save {it}: {last_audit[1]}")
+            div = last_audit[1]
+            payload = {
+                "step": it,
+                "params": state_dict_to_flax(model)[0],
+                "opt_state": optimizer.state_dict(model),
+                "model_config": structural_model_config(model),
+                "metrics": {"repetition_rate": div["repetition_rate"],
+                            "rqvae_entropy": div["rqvae_entropy"]},
+            }
+            name = f"checkpoint_{it - 1}"
+            saved_paths.append(save_on_main(mesh, save_dir, name,
+                                            lambda: save_checkpoint(save_dir, name, payload)))
+
+        history.update(run_chunks(step, readback, device=device, start_iter=start_iter,
+                                  n_steps=total_steps, log_every=log_every,
+                                  loss_key="total_loss", log=logger.info,
+                                  events=((eval_every, evaluate), (save_model_every, save))))
         if make_plots and mesh.is_main:
-            try:
-                from hidvae_tpu_torch.train.plots import plot_rqvae_history
+            plots.save_plots(plots.plot_rqvae_history, history, save_dir, logger)
 
-                plot_rqvae_history(history, os.path.join(save_dir, "plots"))
-            except Exception as e:  # plots are optional; no metric depends on them
-                logger.warning(f"Plotting failed: {e}")
-
-        return {"model": model, "optimizer": optimizer, "step": end, "save_dir": save_dir,
-                "history": history, "saved_paths": saved_paths, "data": ddata,
-                "corpus_ids": last_audit[2], "mesh": mesh}
+        return {"model": model, "optimizer": optimizer, "step": start_iter + total_steps,
+                "save_dir": save_dir, "history": history, "saved_paths": saved_paths,
+                "data": ddata, "corpus_ids": last_audit[2], "mesh": mesh}

@@ -17,10 +17,8 @@ rank 0 writes whole-array checkpoints, which resume on any mesh."""
 
 import contextlib
 import logging
-import math
 import os
 import time
-from collections import deque
 from dataclasses import fields
 from typing import Optional, Sequence
 
@@ -37,7 +35,8 @@ from hidvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from hidvae_tpu_torch.models.rqvae import RqVae
 from hidvae_tpu_torch.ops.dropout import RowShard
 from hidvae_tpu_torch.ops.flash_attention import check_head_dim
-from hidvae_tpu_torch.parallel.collectives import all_reduce_, collective_bytes
+from hidvae_tpu_torch.ops.prefix_search import tries_on_device
+from hidvae_tpu_torch.parallel.collectives import all_reduce_
 from hidvae_tpu_torch.parallel.mesh import (
     Mesh,
     gather_rows,
@@ -49,20 +48,23 @@ from hidvae_tpu_torch.parallel.mesh import (
 )
 from hidvae_tpu_torch.tokenizer.h_semids import HSemanticIdTokenizer
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+from hidvae_tpu_torch.train import plots
 from hidvae_tpu_torch.train.common import (
     Optimizer,
     audit_rebuilt_corpus,
-    chunk_events,
+    global_batch,
     inverse_sqrt_schedule,
-    load_checkpoint_model_config,
     log_operative_config,
+    reconcile_decoder_geometry,
     reconcile_vae_config,
     reduce_gradients_,
     restore_checkpoint,
     restore_export,
+    run_chunks,
     run_stamp,
     save_checkpoint,
     run_logging,
+    step_generator,
 )
 from hidvae_tpu_torch.train.device_data import (
     DeviceSeqData,
@@ -75,8 +77,6 @@ from hidvae_tpu_torch.utils.runtime import resolve_device
 
 logger = logging.getLogger("hidvae_tpu_torch.train.transformer")
 
-STEP_SALT = 0x5EED  # the JAX trainer's fold_in constant for per-step keys
-LOSS_WINDOW = 1000  # per-step losses in the window mean (transformer.py:576)
 EVAL_KS = (1, 5, 10)  # hit@K and NDCG@K of the full eval
 
 
@@ -149,14 +149,6 @@ def _build_tokenizer(
         )
     return SemanticIdTokenizer(model, n_layers=vae_n_layers, codebook_size=vae_codebook_size,
                                use_dedup_dim=use_dedup_dim, device=device)
-
-
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of one training step: a function of (seed, step) only,
-    so a step's sample, crop and dropout draws do not depend on history."""
-    g = torch.Generator(device=device)
-    g.manual_seed(((seed & 0x7FFFFFFF) << 32 | STEP_SALT << 16) ^ (step & 0xFFFFFFFF))
-    return g
 
 
 def build_model(*, sem_id_dim: int, max_seq_len: int, vae_codebook_size: int = 256,
@@ -296,75 +288,36 @@ def full_eval(generate, tokenizer, eval_seq, batch_size: int, eval_batches=None,
     return {**topk.reduce(), **ndcg.reduce()}
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_loop(model, optimizer: Optimizer, data: DeviceSeqData, table, *, seed: int,
              start_iter: int, iterations: int, batch_size: int, subsample: bool,
              log_every: int, events=(), log=None, mesh: Optional[Mesh] = None) -> dict:
     """Steps start_iter .. + iterations - 1 with `step_generator(seed, step)`
-    in the JAX chunks: at a chunk's end one sync reads the losses back and
-    logs the window mean (:576-587), then each (every, fn) of `events` whose
-    cadence it crosses runs. Each step a root span, the read-back a span in
-    its last. Returns the history."""
-    log = log or (lambda line: None)
+    in `run_chunks`, the losses logged with loss_d and the rate (:576-587),
+    split rows' averaged over the data ranks first. Returns the history."""
     device = table.device
-    history = {"iterations": [], "train_loss": [], "ms_per_step": [], "window_mean": None}
-    moved = 0
-    loss_window = deque(maxlen=LOSS_WINDOW)
-    _sync(device)
-    t_last, it_last = time.perf_counter(), start_iter
     rows = slice(0, batch_size) if mesh is None else shard_rows(batch_size, mesh)
     split = rows.stop - rows.start < batch_size
 
-    def readback(done, fired, step_losses, loss_d):
-        nonlocal moved, t_last, it_last
-        losses = torch.stack(step_losses).float()
-        if split:  # the rows' means -> the global batch's (equal parts)
-            losses = all_reduce_(torch.cat([losses, loss_d.float()]), mesh.data_group)
-            losses, loss_d = (losses / mesh.n_data).split([len(step_losses), len(loss_d)])
-        losses = losses.tolist()  # syncs
-        moved += collective_bytes()
-        loss_f = losses[-1]
-        now = time.perf_counter()
-        ms = (now - t_last) * 1e3 / (done - it_last)
-        if not math.isfinite(loss_f):
-            raise FloatingPointError(f"non-finite loss {loss_f} at iteration {done - 1}")
-        loss_window.extend(losses)
-        history["iterations"].append(done - 1)
-        history["train_loss"].append(loss_f)
-        history["ms_per_step"].append(ms)
-        log(f"iter {done - 1}: loss={loss_f:.4f} (window mean {np.mean(loss_window):.4f}) "
-            f"loss_d={[round(x, 3) for x in loss_d.float().tolist()]} ({ms:.1f} ms/step, "
-            f"{batch_size * 1e3 / ms:.0f} seqs/s)")
-        for i in fired:
-            events[i][1](done)
-        if fired:  # keep eval and save time out of ms per step
-            _sync(device)
-        t_last, it_last = time.perf_counter(), done
+    def step(it):
+        with span("train.sample"):
+            g = step_generator(seed, it, device)
+            batch = sample_batch(data, table, batch_size, g, subsample, rows)
+        # A batch every data rank runs whole needs no gradient average.
+        return train_step(model, optimizer, batch,
+                          RowShard(g, rows.start, batch_size) if split else g,
+                          mesh if split else None)
 
-    for first, done, fired in chunk_events(start_iter, iterations,
-                                           [every for every, _ in events], log_every):
-        step_losses = []
-        moved -= collective_bytes()
-        for it in range(first, done):
-            with span("train.step", device=device, step=it):
-                with span("train.sample"):
-                    g = step_generator(seed, it, device)
-                    batch = sample_batch(data, table, batch_size, g, subsample, rows)
-                # A batch every data rank runs whole needs no gradient average.
-                loss, loss_d = train_step(model, optimizer, batch,
-                                          RowShard(g, rows.start, batch_size) if split else g,
-                                          mesh if split else None)
-                step_losses.append(loss)
-                if it == done - 1:
-                    with span("train.readback"):
-                        readback(done, fired, step_losses, loss_d)
-    history["window_mean"] = float(np.mean(loss_window)) if loss_window else None
-    history["collective_bytes_per_step"] = moved / max(iterations, 1)
-    return history
+    def readback(done, losses, loss_d):
+        if split:  # the rows' means -> the global batch's (equal parts)
+            n = len(losses)
+            losses = all_reduce_(torch.cat([losses, loss_d.float()]), mesh.data_group)
+            losses, loss_d = (losses / mesh.n_data).split([n, len(loss_d)])
+        loss_d = [round(x, 3) for x in loss_d.float().tolist()]
+        return losses.tolist(), lambda ms, _: (f"loss_d={loss_d} ({ms:.1f} ms/step, "
+                                               f"{batch_size * 1e3 / ms:.0f} seqs/s)")
+
+    return run_chunks(step, readback, device=device, start_iter=start_iter, n_steps=iterations,
+                      log_every=log_every, loss_key="train_loss", events=events, log=log)
 
 
 def _shard(model, optimizer: Optimizer, mesh: Mesh):
@@ -459,11 +412,7 @@ def train(
     config = {k: v for k, v in locals().items() if k != "mesh"}
     with run_logging(save_dir) if mesh.is_main else contextlib.nullcontext():
         log_operative_config(logger, config)
-        if not split_batches and mesh.n_data > 1:
-            # Accelerate's split_batches=False: batch_size is per data shard.
-            batch_size *= mesh.n_data
-            logger.info(f"split_batches=False: global batch = {batch_size} "
-                        f"({mesh.n_data} data shards)")
+        batch_size = global_batch(batch_size, split_batches, mesh, logger)
         # ---- data (transformer.py:284-301) ----
         item_dataset = ItemData(dataset_folder, dataset, train_test_split="all",
                                 split=dataset_split, force_process=force_dataset_process)
@@ -493,25 +442,12 @@ def train(
 
         # ---- model ----
         if pretrained_decoder_path is not None:
-            # The checkpoint's structural config wins, loudly (other heads
-            # keep every shape and drift in meaning).
-            rec = reconcile_vae_config(
-                pretrained_decoder_path,
-                {"attn_embed_dim": attn_embed_dim, "attn_heads": attn_heads,
-                 "attn_layers": attn_layers, "decoder_embed_dim": decoder_embed_dim},
-                logger,
-            )
+            rec = reconcile_decoder_geometry(
+                pretrained_decoder_path, sem_id_dim, decoder_embed_dim=decoder_embed_dim,
+                attn_embed_dim=attn_embed_dim, attn_heads=attn_heads, attn_layers=attn_layers,
+                logger=logger)
             attn_embed_dim, attn_heads = rec["attn_embed_dim"], rec["attn_heads"]
             attn_layers, decoder_embed_dim = rec["attn_layers"], rec["decoder_embed_dim"]
-            saved = load_checkpoint_model_config(pretrained_decoder_path) or {}
-            saved_d = saved.get("sem_id_dim")
-            if saved_d is not None and int(saved_d) != int(sem_id_dim):
-                raise ValueError(
-                    f"decoder checkpoint {pretrained_decoder_path} was trained "
-                    f"with sem_id_dim={saved_d} but the frozen tokenizer produces "
-                    f"{sem_id_dim} — the stage-1 checkpoint / ID-layout flags do "
-                    f"not match the one this decoder was trained against."
-                )
         max_seq_len = train_seq.max_seq_len
         _check_flash_width(attn_embed_dim, attn_heads, max_seq_len, sem_id_dim, device)
         compute_dtype = (torch.bfloat16 if (amp or mixed_precision_type == "bf16")
@@ -535,10 +471,7 @@ def train(
         data = as_seq_data(train_seq.users, train_seq.items, train_seq.fut, device)
         table = corpus_ids.to(torch.int32)
         prefix_caps = tuple(tokenizer.prefix_caps) if tokenizer.prefix_caps else None
-        tries_np = tokenizer.prefix_tries(model.num_embeddings)
-        prefix_tries = ({lvl: None if t is None
-                         else tuple(torch.from_numpy(a).to(device) for a in t)
-                         for lvl, t in tries_np.items()} if tries_np else None)
+        prefix_tries = tries_on_device(tokenizer.prefix_tries(model.num_embeddings), device)
 
         def generate(batch, index, tries):
             return model.generate_next_sem_id(batch, index, temperature=generation_temperature,
@@ -614,12 +547,7 @@ def train(
                 if "slice" in k or "pos" in k))
 
         if make_plots and mesh.is_main:
-            try:
-                from hidvae_tpu_torch.train.plots import plot_transformer_history
-
-                plot_transformer_history(history, os.path.join(save_dir, "plots"))
-            except Exception as e:  # plots are optional; no metric depends on them
-                logger.warning(f"Plotting failed: {e}")
+            plots.save_plots(plots.plot_transformer_history, history, save_dir, logger)
 
         return {"model": model, "optimizer": optimizer, "step": start_iter + iterations,
                 "tokenizer": tokenizer, "save_dir": save_dir, "history": history,

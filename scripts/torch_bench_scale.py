@@ -24,17 +24,13 @@ from hidvae_tpu_torch.models.rqvae import RqVae  # noqa: E402
 from hidvae_tpu_torch.ops import rq_assign as rq  # noqa: E402
 from hidvae_tpu_torch.serve.engine import RetrievalEngine  # noqa: E402
 from hidvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer  # noqa: E402
+from hidvae_tpu_torch.train.common import sync  # noqa: E402
 from hidvae_tpu_torch.train.init import kmeans_init_codebooks  # noqa: E402
 from hidvae_tpu_torch.utils.runtime import resolve_device  # noqa: E402
 
 # The decoder of scripts/bench_scale.py: embedding 128, attention 512, 8
 # heads, 8 layers.
 DECODER = dict(embedding_dim=128, attn_dim=512, num_heads=8, n_layers=8)
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _log(msg):
@@ -66,10 +62,10 @@ def bench_one(n_items, device, request_users=64, max_seq_len=20, big=1024,
     # one call that builds (or loads) the kernel.
     tok.encode_ids(feats[:8])
     rq.rq_assign.launches = 0
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     ids = tok.precompute_corpus_ids(feats)
-    _sync(device)
+    sync(device)
     t_sweep = time.perf_counter() - t0
     launches = {"sweep": rq.rq_assign.launches}
     _log(f"corpus sweep: {t_sweep:.4f}s, rq_assign launches {launches['sweep']}")

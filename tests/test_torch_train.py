@@ -17,6 +17,7 @@ from hidvae_tpu_torch.bridge import flax_param_key
 from hidvae_tpu_torch.models import attention
 from hidvae_tpu_torch.models.init import TRUNC_NORMAL_STD, init_params_, lecun_normal_
 from hidvae_tpu_torch.ops.dropout import dropout
+from hidvae_tpu_torch.train import common
 from hidvae_tpu_torch.train import transformer as trainer
 from hidvae_tpu_torch.train.common import Optimizer, clip_by_global_norm_, inverse_sqrt_schedule
 from hidvae_tpu_torch.train.device_data import DeviceSeqData, random_crop_windows
@@ -216,13 +217,13 @@ def test_train_is_a_function_of_its_seed():
     assert all(np.isfinite(a["train_loss"] + a["eval_loss"]))
 
 
-@pytest.mark.parametrize("window", [trainer.LOSS_WINDOW, 4])
+@pytest.mark.parametrize("window", [common.LOSS_WINDOW, 4])
 def test_window_mean_counts_every_step_loss(window, monkeypatch):
     """The window mean counts every step's loss (transformer.py:576-587),
     whatever the logging period."""
     from chip_smoke import build_vae, seeded_sequences
 
-    monkeypatch.setattr(trainer, "LOSS_WINDOW", window)
+    monkeypatch.setattr(common, "LOSS_WINDOW", window)
     vae, feats = build_vae(TINY_VAE, torch.Generator().manual_seed(0))
     users, items, fut = seeded_sequences(TINY_VAE["n_items"], 64, 8, seed=1)
 
